@@ -1,0 +1,232 @@
+"""Audio frontend: wav samples -> normalized spectrogram, on the device.
+
+Counterpart of orcai_tpu/ops/frontend.py on the exact wire (the PCM is
+uploaded as it is; off the TPU the reference resolves its wire to exact).
+The chain follows librosa's defaults as the reference does: center=True
+zero padding, periodic Hann, |rFFT|, amplitude_to_db(ref=global max over
+the full spectrum, amin 1e-5, top_db 80), frequency crop, clip to the
+nearest-method percentiles of the valid frames, min-max normalize.
+
+The recording is cut into tiles of up to 32768 frames inside a power-of-two
+frame bucket. Each real tile's audio chunk is uploaded and turned into
+magnitudes by kernel B1 (ops/dft.py); the tile max over the valid frames
+of the full 257-bin spectrum is kept as the dB reference, then the crop is
+stored. The finalize takes the percentiles as order statistics of the
+cropped magnitudes (dB is monotone in |S|) by radix selection, kernel B2
+(ops/radix_select.py), then applies the dB, clip and normalize.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from orcai_tpu_torch.ops.dft import dft_magnitude
+from orcai_tpu_torch.ops.radix_select import select_order_statistics
+from orcai_tpu_torch.utils.device import resolve_device
+
+_AMIN = 1e-5  # librosa amplitude_to_db amin
+_TOP_DB = 80.0
+_MIN_BUCKET = 2048  # minimum padded frame count
+_TILE_FRAMES = 32768  # frames per upload/DFT tile
+
+
+def fft_frequencies(sr: int, n_fft: int) -> np.ndarray:
+    """Center frequencies of rFFT bins: i * sr / n_fft, i = 0..n_fft//2."""
+    return np.linspace(0.0, sr / 2.0, n_fft // 2 + 1)
+
+
+def frames_to_time(n_frames: int, sr: int, hop_length: int) -> np.ndarray:
+    """Frame-center times for a centered STFT: i * hop / sr."""
+    return np.arange(n_frames) * (hop_length / sr)
+
+
+def freq_crop_indices(frequencies: np.ndarray, freq_range) -> tuple[int, int]:
+    """Crop bounds [lo_idx, hi_idx) as the reference computes them:
+    the first index with f <= freq_range[0], the first with f >= freq_range[1].
+    """
+    lo_candidates = np.flatnonzero(frequencies <= freq_range[0])
+    hi_candidates = np.flatnonzero(frequencies >= freq_range[1])
+    if len(lo_candidates) == 0 or len(hi_candidates) == 0:
+        raise ValueError(
+            f"freq_range {freq_range} outside spectrogram frequencies "
+            f"[{frequencies[0]}, {frequencies[-1]}]"
+        )
+    return int(lo_candidates[0]), int(hi_candidates[0])
+
+
+def hann_window(n_fft: int) -> np.ndarray:
+    """Periodic (fftbins=True) Hann window, as used by librosa.stft."""
+    return 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n_fft) / n_fft)
+
+
+@lru_cache(maxsize=None)
+def _dft_mats(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
+    """Real/imag rDFT matrices (n_fft, n_fft//2 + 1) with the Hann window
+    folded in: for a raw frame x, re = x @ C and im = x @ S. Read-only."""
+    n = np.arange(n_fft)[:, None]
+    k = np.arange(n_fft // 2 + 1)[None, :]
+    ang = 2.0 * np.pi * n * k / n_fft
+    w = hann_window(n_fft)[:, None]
+    C = (np.cos(ang) * w).astype(np.float32)
+    S = (-np.sin(ang) * w).astype(np.float32)
+    C.setflags(write=False)
+    S.setflags(write=False)
+    return C, S
+
+
+def nearest_quantile_index(q: float, n: int) -> int:
+    """Index of the q-quantile with numpy's method='nearest' over n values:
+    q*(n-1) rounded half to even, in host float64 (n can exceed float32's
+    exact integers)."""
+    return int(np.round(q * (n - 1)))
+
+
+def _bucket_frames(n_frames: int) -> int:
+    b = _MIN_BUCKET
+    while b < n_frames:
+        b *= 2
+    return b
+
+
+def _tile_plan(n_frames: int) -> tuple[int, int, int]:
+    """(tile, n_tiles, n_real_tiles) for a recording of n_frames frames."""
+    bucket = _bucket_frames(n_frames)
+    tile = min(_TILE_FRAMES, bucket)
+    return tile, bucket // tile, -(-n_frames // tile)
+
+
+def _audio_tile_chunk(audio: np.ndarray, t: int, tile: int, n_fft: int, hop: int):
+    """Host chunk of (tile - 1) * hop + n_fft samples for frames
+    [t*tile, (t+1)*tile), including the centered-STFT zero padding.
+    Interior chunks are views of the audio; only the first and last are
+    materialized with their zero padding."""
+    n = audio.shape[0]
+    tlen = (tile - 1) * hop + n_fft
+    s0 = t * tile * hop - n_fft // 2
+    s1 = s0 + tlen
+    if s0 >= 0 and s1 <= n:
+        return audio[s0:s1]
+    chunk = np.zeros((tlen,), audio.dtype)
+    lo, hi = max(0, s0), min(n, s1)
+    if hi > lo:
+        chunk[lo - s0 : hi - s0] = audio[lo:hi]
+    return chunk
+
+
+def _db(m: torch.Tensor, ref20: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(20.0 * torch.log10(torch.clamp(m, min=_AMIN)) - ref20, min=-_TOP_DB)
+
+
+def finalize(
+    mag: torch.Tensor, maxes: torch.Tensor, n_frames: int, idx_lo: int, idx_hi: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Global statistics + normalization over the magnitude buffer.
+
+    mag (bucket, bins) holds the cropped magnitudes (rows >= n_frames are
+    padding), maxes the per-tile maxima of the full spectrum. Returns the
+    normalized (bucket, bins) spectrogram and the dB clip bounds (lo, hi).
+    """
+    dev = mag.device
+    n_bins = mag.shape[1]
+    ref20 = 20.0 * torch.log10(torch.clamp(maxes.max(), min=_AMIN))
+    lo_mag, hi_mag = select_order_statistics(
+        mag.reshape(-1),
+        torch.full((1,), n_frames * n_bins, dtype=torch.int32, device=dev),
+        torch.full((1,), idx_lo, dtype=torch.int64, device=dev),
+        torch.full((1,), idx_hi, dtype=torch.int64, device=dev),
+    )
+    lo, hi = _db(lo_mag, ref20), _db(hi_mag, ref20)
+    # with nearest percentiles the clipped extremes are exactly lo / hi; the
+    # final clip keeps float32 rounding inside the [0, 1] contract
+    out = (torch.clamp(_db(mag, ref20), lo, hi) - lo) / (hi - lo)
+    return torch.clamp(out, 0.0, 1.0), lo, hi
+
+
+def compute_spectrogram_device(
+    audio: np.ndarray,
+    sampling_rate: int,
+    n_fft: int,
+    hop_length: int,
+    freq_range,
+    quantiles,
+    device: str | torch.device = "cuda",
+) -> tuple[torch.Tensor, int, np.ndarray, np.ndarray]:
+    """Device-resident frontend for one recording.
+
+    Returns (padded spectrogram (bucket, bins) on `device`, n_valid_frames,
+    frequencies of the uncropped spectrum, frame times). Rows >= n_frames
+    are padding; every statistic covers the valid frames only. Accepts
+    float32 audio in [-1, 1] or int16 PCM (scaled on the device).
+    """
+    dev = resolve_device(device)
+    audio = np.asarray(audio)
+    if audio.dtype not in (np.float32, np.int16):
+        audio = audio.astype(np.float32)
+    if audio.ndim != 1:
+        raise ValueError("compute_spectrogram expects mono audio (n,)")
+    if n_fft % hop_length != 0:
+        raise ValueError("the frontend requires hop_length dividing n_fft")
+    n_frames = 1 + audio.shape[0] // hop_length
+    frequencies = fft_frequencies(sampling_rate, n_fft)
+    times = frames_to_time(n_frames, sampling_rate, hop_length)
+    lo_idx, hi_idx = freq_crop_indices(frequencies, freq_range)
+    n_bins = hi_idx - lo_idx
+
+    tile, n_tiles, n_real = _tile_plan(n_frames)
+    C, S = (torch.from_numpy(m.copy()).to(dev) for m in _dft_mats(n_fft))
+    mag = torch.zeros((n_tiles * tile, n_bins), dtype=torch.float32, device=dev)
+    maxes = torch.full((n_tiles,), float("-inf"), dtype=torch.float32, device=dev)
+    for t in range(n_real):
+        chunk = _audio_tile_chunk(audio, t, tile, n_fft, hop_length)
+        full = dft_magnitude(
+            torch.from_numpy(np.array(chunk)).to(dev), C, S, n_fft=n_fft, hop=hop_length
+        )
+        n_valid = min(tile, n_frames - t * tile)
+        maxes[t] = full[:n_valid].max()
+        mag[t * tile : (t + 1) * tile] = full[:, lo_idx:hi_idx]
+
+    n_elem = n_frames * n_bins
+    out, _, _ = finalize(
+        mag,
+        maxes,
+        n_frames,
+        nearest_quantile_index(float(quantiles[0]), n_elem),
+        nearest_quantile_index(float(quantiles[1]), n_elem),
+    )
+    return out, n_frames, frequencies, times
+
+
+def compute_spectrogram(
+    audio: np.ndarray,
+    sampling_rate: int,
+    n_fft: int,
+    hop_length: int,
+    freq_range,
+    quantiles,
+    device: str | torch.device = "cuda",
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Full frontend for one recording, returned to the host: (spectrogram
+    (T, bins) float32 in [0, 1], uncropped frequencies, frame times)."""
+    out, n_frames, frequencies, times = compute_spectrogram_device(
+        audio, sampling_rate, n_fft, hop_length, freq_range, quantiles, device
+    )
+    return out[:n_frames].cpu().numpy(), frequencies, times
+
+
+def make_spectrogram_from_params_device(
+    audio: np.ndarray, spectrogram_parameter: dict, device: str | torch.device = "cuda"
+):
+    """compute_spectrogram_device keyed by the orcai parameter schema (its
+    "n_overlap" key holds the hop length, as in the reference)."""
+    return compute_spectrogram_device(
+        audio,
+        sampling_rate=spectrogram_parameter["sampling_rate"],
+        n_fft=spectrogram_parameter["nfft"],
+        hop_length=spectrogram_parameter["n_overlap"],
+        freq_range=spectrogram_parameter["freq_range"],
+        quantiles=spectrogram_parameter["quantiles"],
+        device=device,
+    )

@@ -1,0 +1,205 @@
+"""Sliding-window CRNN inference with overlap-add, on the device.
+
+Counterpart of orcai_tpu/ops/overlap.py (single-device windowed path).
+Window geometry matches the reference exactly: stride = snippet_len // 2,
+output grid = T // 2**n_filters rows, window i writing output rows
+[i * shift_out, i * shift_out + out_len), average over overlap counts,
+binary threshold 0.5 / max(overlap_count). Windows are cut out of the
+device-resident spectrogram, run through the model in batches, and
+scatter-added (index_add_) into one output grid whose last row is a trash
+row for the padding windows of the last chunk; only that small grid comes
+back to the host. The sharded (mesh) path and the dense trunk are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _next_pow2(n: int, minimum: int = 4096) -> int:
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+class WindowPredictor:
+    """Batched overlapping-window predictor for one loaded model.
+
+    `model` is an eval-mode module on the device the spectrograms live on;
+    it maps (B, snippet_len, bins, 1) to (B, snippet_len / 2**n_filters,
+    num_labels) float32 probabilities.
+    """
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        snippet_len: int = 736,
+        n_filters: int = 4,
+        batch_size: int = 128,
+        max_windows_per_chunk: int = 2048,
+    ):
+        self.model = model
+        self.device = next(model.parameters()).device
+        self.batch_size = batch_size
+        self.snippet_len = snippet_len
+        self.shift = snippet_len // 2
+        self.down = 2**n_filters
+        # the halves-reshape window extraction assumes snippet_len == 2 *
+        # shift, and the overlap-add grid assumes the trunk's downsample
+        # divides both
+        if snippet_len % (2 * self.down) != 0:
+            raise ValueError(
+                f"snippet_len {snippet_len} must be divisible by "
+                f"2 * 2**n_filters = {2 * self.down} for half-overlap "
+                "windowing and the overlap-add output grid"
+            )
+        self.out_len = snippet_len // self.down
+        self.shift_out = self.shift // self.down
+        self.max_windows_per_chunk = max(
+            self.batch_size,
+            max_windows_per_chunk // self.batch_size * self.batch_size,
+        )
+
+    def _plan_chunk_size(self, n_win: int) -> int:
+        """Windows per chunk: the batch-size multiple covering n_win, rounded
+        up a {4, 5, 6} * 2**k batch-count ladder (1,2,3,4,5,6,8,10,12,16,...),
+        capped at max_windows_per_chunk (verbatim from the reference, where
+        each value is one compiled executable)."""
+        bsz = self.batch_size
+        n_batches = max(1, -(-n_win // bsz))
+        b = 1
+        while b < n_batches:
+            b *= 2
+        if b > 4 and (b * 5) // 8 >= n_batches:
+            b = (b * 5) // 8
+        elif b > 2 and (b * 3) // 4 >= n_batches:
+            b = (b * 3) // 4
+        return min(self.max_windows_per_chunk, b * bsz)
+
+    def plan(self, t: int) -> tuple[int, tuple, int, int]:
+        """Execution plan for t valid spectrogram frames: (n_win, chunks,
+        required_frames, n_out_pad), chunks being (wpc, count) pairs run in
+        order: full max_windows_per_chunk chunks, then at most one smaller
+        ladder-planned remainder. n_out_pad is the output grid covering every
+        chunk's window span, widened by shift_out when the recording's tail
+        extends past it, so the [:n_out_total] fetch never reaches the trash
+        row."""
+        n_win = (t - self.snippet_len) // self.shift + 1
+        cap = self.max_windows_per_chunk
+        if n_win > cap:
+            full, rem = divmod(n_win, cap)
+            chunks = [(cap, full)]
+            if rem:
+                chunks.append((self._plan_chunk_size(rem), 1))
+        else:
+            chunks = [(self._plan_chunk_size(n_win), 1)]
+        planned = sum(w * c for w, c in chunks)
+        required = (planned + 1) * self.shift
+        n_out_pad = (planned - 1) * self.shift_out + self.out_len
+        if t // self.down > n_out_pad:
+            n_out_pad += self.shift_out
+        return n_win, tuple(chunks), required, n_out_pad
+
+    def _run_chunk(
+        self,
+        agg: torch.Tensor,
+        count: torch.Tensor,
+        spec: torch.Tensor,
+        wpc: int,
+        w0: int,
+        n_win_valid: int,
+    ) -> None:
+        """Scatter-add the wpc windows starting at window w0 into agg/count
+        (in place); windows >= n_win_valid go to the trash row."""
+        n_out_pad = agg.shape[0] - 1
+        n_bins = spec.shape[1]
+        f0 = w0 * self.shift
+        chunk = spec[f0 : f0 + (wpc + 1) * self.shift]
+        halves = chunk.reshape(wpc + 1, self.shift, n_bins)
+        windows = torch.cat([halves[:-1], halves[1:]], dim=1)[..., None]
+        bsz = min(self.batch_size, wpc)
+        preds = torch.cat(
+            [self.model(windows[i : i + bsz]) for i in range(0, wpc, bsz)]
+        )
+        n_labels = preds.shape[-1]
+        win_ids = torch.arange(wpc, device=spec.device)[:, None]
+        rows = (w0 + win_ids) * self.shift_out + torch.arange(
+            self.out_len, device=spec.device
+        )[None, :]
+        rows = torch.where(win_ids < n_win_valid, rows, n_out_pad).reshape(-1)
+        agg.index_add_(0, rows, preds.reshape(-1, n_labels).float())
+        count.index_add_(0, rows, torch.ones_like(rows, dtype=torch.float32))
+
+    def _ensure_device(self, spectrogram, t: int, required: int, n_bins: int):
+        """Device tensor of shape (>= required, bins) holding the spectrogram."""
+        target = _next_pow2(required)
+        if isinstance(spectrogram, np.ndarray):
+            padded = np.zeros((target, n_bins), np.float32)
+            padded[:t] = spectrogram[:t]
+            return torch.from_numpy(padded).to(self.device)
+        if spectrogram.shape[0] >= target:
+            return spectrogram
+        padded = torch.zeros(
+            (target, n_bins), dtype=torch.float32, device=spectrogram.device
+        )
+        padded[: spectrogram.shape[0]] = spectrogram
+        return padded
+
+    @torch.inference_mode()
+    def aggregate_device(self, spectrogram, n_frames: int | None = None):
+        """Spectrogram -> device (prob_sum (n_out_pad+1, L), count) buffers,
+        without any device->host transfer. Returns (agg, count, n_out_total).
+        """
+        t = int(spectrogram.shape[0]) if n_frames is None else int(n_frames)
+        n_bins = int(spectrogram.shape[1])
+        if t < self.snippet_len:
+            raise ValueError(
+                f"Recording too short for prediction: {t} spectrogram frames "
+                f"< snippet length {self.snippet_len}"
+            )
+        n_win, chunks, required, n_out_pad = self.plan(t)
+        spec = self._ensure_device(spectrogram, t, required, n_bins)
+        n_labels = self.model.num_labels
+        agg = torch.zeros((n_out_pad + 1, n_labels), dtype=torch.float32, device=spec.device)
+        count = torch.zeros((n_out_pad + 1,), dtype=torch.float32, device=spec.device)
+        w0 = 0
+        for wpc, n_repeat in chunks:
+            for _ in range(n_repeat):
+                self._run_chunk(agg, count, spec, wpc, w0, min(wpc, n_win - w0))
+                w0 += wpc
+        return agg, count, t // self.down
+
+    @staticmethod
+    def fetch_aggregated(
+        agg_dev: torch.Tensor, count_dev: torch.Tensor, n_out_total: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """The recording's sync point -> (averaged probs (T//down, L), count)."""
+        agg = agg_dev[:n_out_total].cpu().numpy().copy()
+        count = count_dev[:n_out_total].cpu().numpy()
+        valid = count > 0
+        agg[valid] /= count[valid, None]
+        return agg, count
+
+    def aggregate(
+        self, spectrogram, n_frames: int | None = None
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Spectrogram (host (T, bins) array, or a padded device tensor with
+        n_frames valid rows) -> (aggregated (T//down, L), overlap_count):
+        averaged sigmoid probabilities per output step."""
+        agg_dev, count_dev, n_out_total = self.aggregate_device(
+            spectrogram, n_frames
+        )
+        return self.fetch_aggregated(agg_dev, count_dev, n_out_total)
+
+    @staticmethod
+    def binary_predictions(
+        aggregated: np.ndarray,
+        overlap_count: np.ndarray,
+        threshold: float = 0.5,
+    ) -> np.ndarray:
+        """Binarize averaged probabilities: > threshold / max(overlap)."""
+        adjusted = threshold / np.max(overlap_count)
+        return (aggregated > adjusted).astype(np.int8)

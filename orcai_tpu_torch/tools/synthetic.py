@@ -1,0 +1,27 @@
+"""Synthetic recordings for smoke runs and profiling, made from a seed."""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+from scipy.io import wavfile
+
+
+def synth_recording(path: Path | str, seed: int, minutes: float, sr: int = 48000) -> int:
+    """Write a mono int16 wav of noise with whistle-like tone sweeps.
+
+    Six 2-second linear chirps between 3 and 12 kHz per minute over white
+    noise at -26 dBFS; returns the number of samples written.
+    """
+    rng = np.random.default_rng(seed)
+    n = int(minutes * 60 * sr)
+    audio = (0.05 * rng.standard_normal(n)).astype(np.float32)
+    t = np.arange(sr * 2, dtype=np.float32) / sr
+    for start in rng.integers(0, n - 2 * sr, size=int(minutes * 6)):
+        f0, f1 = rng.uniform(3000, 12000, size=2)
+        phase = 2 * np.pi * (f0 * t + 0.5 * (f1 - f0) / 2.0 * t * t)
+        audio[start : start + 2 * sr] += (0.3 * np.sin(phase)).astype(np.float32)
+    pcm = np.clip(audio * 32767.0, -32768, 32767).astype(np.int16)
+    wavfile.write(str(path), sr, pcm)
+    return n

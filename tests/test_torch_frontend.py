@@ -1,0 +1,169 @@
+"""Port frontend (orcai_tpu_torch/ops/frontend.py, io/wav.py) on the CPU vs
+the JAX frontend: spectrogram within 2e-4 (tests/test_frontend.py:141) and
+the clip-bound order statistics bit-equal for the same magnitudes."""
+
+import numpy as np
+import pytest
+import torch
+from scipy.io import wavfile
+
+import jax.numpy as jnp
+
+from orcai_tpu.io.wav import load_wav_for_frontend as jax_load_wav
+from orcai_tpu.ops import frontend as jfront
+from orcai_tpu_torch.io.wav import load_wav_for_frontend
+from orcai_tpu_torch.ops import frontend as tfront
+
+SR, NFFT, HOP = 48000, 512, 256
+FREQ_RANGE, QUANTILES = [0, 16000], [0.01, 0.999]
+
+
+def setup_module():
+    torch.set_num_threads(1)
+
+
+def _audio(n, seed, dtype):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / SR
+    x = 0.3 * np.sin(2 * np.pi * 3000 * t * (1 + t / 10)) + 0.05 * rng.standard_normal(n)
+    x = x.astype(np.float32)
+    if dtype == "int16":
+        return np.clip(np.rint(x * 32768.0), -32768, 32767).astype(np.int16)
+    return x
+
+
+def _both(audio):
+    ours, f_t, t_t = tfront.compute_spectrogram(
+        audio, SR, NFFT, HOP, FREQ_RANGE, QUANTILES, device="cpu"
+    )
+    ref, f_j, t_j = jfront.compute_spectrogram(
+        audio, SR, NFFT, HOP, FREQ_RANGE, QUANTILES
+    )
+    np.testing.assert_array_equal(f_t, f_j)
+    np.testing.assert_array_equal(t_t, t_j)
+    return ours, ref
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int16"])
+def test_spectrogram_matches_jax_single_tile(dtype):
+    audio = _audio(48000 * 3 + 77, 0, dtype)
+    ours, ref = _both(audio)
+    assert ours.shape == ref.shape == (1 + audio.shape[0] // HOP, 171)
+    assert ours.dtype == np.float32 and ours.min() >= 0 and ours.max() <= 1
+    np.testing.assert_allclose(ours, ref, atol=2e-4, rtol=0)
+
+
+def test_spectrogram_multi_tile_with_zero_tile(monkeypatch):
+    """Small port tiles: 5000 frames in an 8192-frame bucket run as three
+    real 2048-frame tiles plus one all-padding tile; the result does not
+    depend on the tiling, so it must match the JAX frontend (one tile)."""
+    monkeypatch.setattr(tfront, "_TILE_FRAMES", 2048)
+    audio = _audio(4999 * HOP + 100, 1, "int16")
+    assert tfront._tile_plan(1 + audio.shape[0] // HOP) == (2048, 4, 3)
+    ours, ref = _both(audio)
+    np.testing.assert_allclose(ours, ref, atol=2e-4, rtol=0)
+
+
+def test_finalize_clip_bounds():
+    """Same magnitudes in, the port's finalize picks bit-equal clip-bound
+    order statistics and normalizes to the same spectrogram as the JAX sort
+    path. The dB of a bound is not bit-equal: torch.log10 and XLA's log10
+    round differently, and 20*log10(m) - ref20 carries that to a few
+    float32 ulps (recorded in ROADMAP.md, queue C)."""
+    from orcai_tpu_torch.ops.radix_select import select_order_statistics
+
+    rng = np.random.default_rng(2)
+    tile, n_tiles, nbins, n_valid = 2048, 2, 171, 3001
+    mags = rng.uniform(0.0, 2.0, (n_tiles * tile, nbins)).astype(np.float32)
+    mags[:n_valid:7] = 0.0  # values below amin: the -80 dB plateau
+    maxes = np.asarray([2.5, -np.inf], np.float32)
+    n_elem = n_valid * nbins
+    idx_lo = tfront.nearest_quantile_index(0.01, n_elem)
+    idx_hi = tfront.nearest_quantile_index(0.999, n_elem)
+
+    out, lo, hi = tfront.finalize(
+        torch.from_numpy(mags), torch.from_numpy(maxes), n_valid, idx_lo, idx_hi
+    )
+    ref = jfront._build_finalize_fn(n_tiles, tile, False)(
+        tuple(jnp.asarray(m) for m in np.split(mags, n_tiles)),
+        jnp.asarray(maxes), jnp.asarray(n_valid, jnp.int32),
+        jnp.asarray(idx_lo, jnp.int32), jnp.asarray(idx_hi, jnp.int32),
+    )
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-4, rtol=0)
+
+    # the JAX finalize's sort path on the same buffer: order statistics
+    # bit-equal, and its dB arithmetic on them
+    s = jnp.sort(jnp.where(jnp.arange(n_tiles * tile)[:, None] < n_valid,
+                           jnp.asarray(mags), jnp.inf).ravel())
+    m_lo, m_hi = select_order_statistics(
+        torch.from_numpy(mags).reshape(-1), torch.tensor([n_elem], dtype=torch.int32),
+        torch.tensor([idx_lo]), torch.tensor([idx_hi]),
+    )
+    assert m_lo.numpy().tobytes() == np.asarray(s[idx_lo]).tobytes()
+    assert m_hi.numpy().tobytes() == np.asarray(s[idx_hi]).tobytes()
+    ref20 = 20.0 * jnp.log10(jnp.maximum(jnp.max(jnp.asarray(maxes)), jfront._AMIN))
+
+    def db_of(m):
+        return jnp.maximum(20.0 * jnp.log10(jnp.maximum(m, jfront._AMIN)) - ref20,
+                           -jfront._TOP_DB)
+
+    for ours, j in ((lo, db_of(s[idx_lo])), (hi, db_of(s[idx_hi]))):
+        np.testing.assert_allclose(ours.numpy()[0], np.asarray(j), rtol=1e-6, atol=0)
+
+
+def test_host_helpers_match_reference():
+    freqs = tfront.fft_frequencies(SR, NFFT)
+    np.testing.assert_array_equal(freqs, jfront.fft_frequencies(SR, NFFT))
+    assert tfront.freq_crop_indices(freqs, FREQ_RANGE) == jfront.freq_crop_indices(
+        freqs, FREQ_RANGE) == (0, 171)
+    for n in (1, 2047, 2048, 2049, 11251, 225001, 10**6):
+        assert tfront._tile_plan(n) == jfront._tile_plan(n)
+        for q in (0.0, 0.01, 0.5, 0.999, 1.0):
+            assert tfront.nearest_quantile_index(q, n * 171) == (
+                jfront.nearest_quantile_index(q, n * 171))
+    audio = np.arange(10_000, dtype=np.int16)
+    for t in range(3):
+        np.testing.assert_array_equal(
+            tfront._audio_tile_chunk(audio, t, 16, NFFT, HOP),
+            jfront._audio_tile_chunk(audio, t, 16, NFFT, HOP),
+        )
+
+
+def test_cuda_request_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without CUDA")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tfront.compute_spectrogram(
+            np.zeros(48000, np.float32), SR, NFFT, HOP, FREQ_RANGE, QUANTILES
+        )
+
+
+@pytest.mark.parametrize(
+    "sr,channels,dtype",
+    [(48000, 1, np.int16), (48000, 2, np.int16), (44100, 1, np.int16),
+     (48000, 1, np.float32)],
+)
+def test_wav_loader_matches_reference(tmp_path, sr, channels, dtype):
+    rng = np.random.default_rng(3)
+    n = sr // 2
+    data = rng.uniform(-0.5, 0.5, (n, channels)).squeeze()
+    data = (data * 32767).astype(np.int16) if dtype == np.int16 else data.astype(dtype)
+    path = tmp_path / "x.wav"
+    wavfile.write(path, sr, data)
+    ours, multi = load_wav_for_frontend(path, sr=48000, channel=channels)
+    ref, multi_ref = jax_load_wav(path, sr=48000, channel=channels)
+    assert multi == multi_ref == (channels > 1)
+    assert ours.dtype == ref.dtype
+    np.testing.assert_array_equal(ours, ref)
+    if channels > 1:
+        with pytest.raises(ValueError, match="channel"):
+            load_wav_for_frontend(path, sr=48000, channel=channels + 1)
+
+
+def test_spectrogram_multi_tile_default_tiles():
+    """The production tiling: 70000 frames in a 131072-frame bucket run as
+    three real 32768-frame tiles plus one all-padding tile in both."""
+    audio = _audio(69999 * HOP + 10, 4, "int16")
+    assert tfront._tile_plan(1 + audio.shape[0] // HOP) == (32768, 4, 3)
+    ours, ref = _both(audio)
+    np.testing.assert_allclose(ours, ref, atol=2e-4, rtol=0)
