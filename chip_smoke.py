@@ -8,18 +8,22 @@ Phases, each printing one JSON line and failing the run on any error:
   env      torch/CUDA versions, the device, its capability and power limit
   build    compiles csrc/*.cu with nvcc (one process per source, together)
   kernels  holds each kernel against its plain PyTorch version on the card
-           at main-path shapes (B1 dft_magnitude at a 32768-frame tile,
-           f32 and int16, atol 2e-4; B2 digit_histograms at all three
-           digit levels and select_order_statistics on 38.5 M magnitudes,
-           bit-exact) and times kernel, plain version and a library call
-           (the selection is torch ops over three B2 launches, no kernel
-           of its own: it prints on a line of its own, not as a kernel)
+           at main-path shapes (B1 dft_magnitude at a 32768-frame tile and
+           on a ragged and an unaligned one, f32 and int16, atol 2e-4; B2
+           digit_histograms at all three digit levels on 38.5 M magnitudes,
+           on an offset view and with ragged valid counts, bit-exact; the
+           pick kernel bit-equal on the three levels and an edge set;
+           select_order_statistics bit-equal to a sort) and times kernel,
+           plain version and a library call (the selection is three B2
+           sweeps and three picks, no kernel of its own: it prints on a
+           line of its own, not as a kernel)
   golden   `predict` on tests/fixtures/golden.wav with the bundled orcai-v1
            weights in float32 on cuda: the TSV must be byte-equal to
            tests/fixtures/golden_expected.txt
   full     `predict` on a 20-minute 48 kHz int16 recording synthesized from
            --seed (the main path whose kernel launches are reported), the
-           frontend and CRNN timed on their own, the outputs checked
+           frontend and CRNN timed on their own, B2 and the selection timed
+           on that recording's real magnitudes, the outputs checked
            (finite, in range, the spectrogram against the port's CPU path
            and the CRNN against the CPU model on a few windows)
 
@@ -32,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -44,6 +49,7 @@ FIXTURES = ROOT / "tests" / "fixtures"
 MINUTES = 20.0  # the throughput cell: 225001 frames, 7 real tiles, 610 windows
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+SPIN_CYCLES = 8_000_000  # about 4 ms at the card's clock
 
 
 def emit(obj: dict) -> None:
@@ -51,7 +57,8 @@ def emit(obj: dict) -> None:
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of fn() in ms, from CUDA events around `iters` runs."""
+    """Mean device time of fn() in ms, from CUDA events around `iters`
+    back-to-back runs."""
     import torch
 
     for _ in range(warmup):
@@ -59,6 +66,11 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # a few ms of spinning on the device ahead of the first event lets the
+    # host queue the launches, so its launch overhead is not timed as theirs
+    # (without it a kernel of a few microseconds reads as the ~20 us that
+    # the host needs per launch); _sleep is torch's own test helper
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -112,49 +124,132 @@ def phase_build() -> dict:
             "built": sorted(logs), "ptxas": resources}
 
 
-def phase_kernels(torch, seed: int) -> tuple[dict, dict]:
-    """Kernel vs plain on the card; returns (phase line, per-kernel rows)."""
+def _b1_checks(torch, rng, dev) -> tuple[dict, dict]:
+    """B1 against its plain version (atol 2e-4, the reference suite's DFT
+    bar) at the main path's tile, on a ragged tile and on a view that is not
+    16-byte aligned; returns (errors, timing inputs)."""
     import numpy as np
 
     from orcai_tpu_torch.ops.dft import dft_magnitude, dft_magnitude_plain
-    from orcai_tpu_torch.ops.frontend import _dft_mats
-    from orcai_tpu_torch.ops.radix_select import (
-        digit_histograms,
-        digit_histograms_plain,
-        select_order_statistics,
-        select_order_statistics_plain,
-    )
+    from orcai_tpu_torch.ops.frontend import hann_window
 
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(seed)
     n_fft, hop, tile = 512, 256, 32768
-    C, S = (torch.from_numpy(m.copy()).to(dev) for m in _dft_mats(n_fft))
-    n_bins = C.shape[1]
-    n_samp = (tile - 1) * hop + n_fft
-    x32 = torch.from_numpy(
-        (0.3 * rng.standard_normal(n_samp)).astype(np.float32)).to(dev)
-    x16 = torch.from_numpy(
-        rng.integers(-32768, 32768, n_samp, dtype=np.int16)).to(dev)
+    window = hann_window(n_fft)
+
+    def audio(n_frames, kind):
+        n = (n_frames - 1) * hop + n_fft
+        if kind == "int16":
+            return torch.from_numpy(rng.integers(-32768, 32768, n, dtype=np.int16)).to(dev)
+        return torch.from_numpy((0.3 * rng.standard_normal(n)).astype(np.float32)).to(dev)
+
+    x32, x16 = audio(tile, "f32"), audio(tile, "int16")
+    # golden's frame count: odd, and no multiple of the kernel's 32-frame block
+    r32, r16 = audio(11251, "f32"), audio(11251, "int16")
+    shifted = torch.empty(r32.shape[0] + 1, dtype=torch.float32, device=dev)
+    shifted[1:] = r32
+    cases = {"f32": x32, "int16": x16, "ragged_f32": r32, "ragged_int16": r16,
+             "ragged_f32_unaligned": shifted[1:]}
     errs = {}
-    for name, x in (("f32", x32), ("int16", x16)):
-        got = dft_magnitude(x, C, S, n_fft=n_fft, hop=hop)
-        want = dft_magnitude_plain(x, C, S, n_fft=n_fft, hop=hop)
+    for name, x in cases.items():
+        got = dft_magnitude(x, window, n_fft=n_fft, hop=hop)
+        want = dft_magnitude_plain(x, window, n_fft=n_fft, hop=hop)
         torch.cuda.synchronize()
+        if got.shape != want.shape:
+            raise AssertionError(f"B1 {name}: shape {tuple(got.shape)}")
         errs[name] = float((got - want).abs().max())
         if not errs[name] <= 2e-4:
             raise AssertionError(f"B1 {name}: max |kernel - plain| {errs[name]} > 2e-4")
+    # both against the float64 FFT of the same windowed frames
+    frames = x32.double().unfold(0, n_fft, hop) * torch.from_numpy(window).to(dev)
+    exact = torch.fft.rfft(frames, dim=1).abs()
+    vs64 = {
+        "kernel": float((dft_magnitude(x32, window, n_fft=n_fft, hop=hop) - exact).abs().max()),
+        "plain": float((dft_magnitude_plain(x32, window, n_fft=n_fft, hop=hop) - exact).abs().max()),
+    }
+    return errs, {"x32": x32, "x16": x16, "window": window, "vs64": vs64,
+                  "n_fft": n_fft, "hop": hop, "tile": tile}
+
+
+def _pick_checks(torch, dev, level_hists, level_ranks, level_prefixes) -> float:
+    """The pick kernel bit-equal to its plain version (`_pick` and the
+    shifts around it) on the selection's three real histograms and on an
+    edge set; returns the largest difference seen (0.0)."""
+    from orcai_tpu_torch.ops.radix_select import _LEVELS, radix_pick, radix_pick_plain
+
+    cases = []
+    for level, (_, bits, pshift) in enumerate(_LEVELS):
+        cases.append((f"level {level}", level_hists[level], level_ranks[level],
+                      level_prefixes[level], bits, pshift is None))
+    h = torch.zeros((2, 2048), dtype=torch.int32, device=dev)
+    h[0, 5], h[0, 700], h[0, 2047] = 10, 1, 3  # row 1 stays an empty target
+    n = int(h[0].sum())
+    zeros = torch.zeros(2, dtype=torch.int32, device=dev)
+    some = torch.tensor([3, 0x1FFFFF], dtype=torch.int32, device=dev)
+    one_bin = torch.zeros((2, 1024), dtype=torch.int32, device=dev)
+    one_bin[:, 77] = 2_000_000_000
+    for name, hist, ranks, pref, bits, shared in (
+        ("k = 0 and k = n - 1", h, (0, n - 1), zeros, 11, True),
+        ("bin boundaries", h, (9, 10), some, 11, True),
+        ("an empty target", h, (11, 0), zeros, 11, False),
+        ("one bin holds everything", one_bin, (0, 1_999_999_999), some, 10, False),
+    ):
+        cases.append((name, hist, torch.tensor(ranks, dtype=torch.int64, device=dev),
+                      pref, bits, shared))
+    worst = 0.0
+    for name, hist, ranks, pref, bits, shared in cases:
+        got = radix_pick(hist, ranks, pref, bits, shared)
+        want = radix_pick_plain(hist, ranks, pref, bits, shared)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            worst = max(worst, float((g.double() - w.double()).abs().max()))
+            if not (g.dtype == w.dtype and torch.equal(g, w)):
+                raise AssertionError(f"pick kernel != plain on {name}: {g.tolist()} vs {w.tolist()}")
+    return worst
+
+
+def phase_kernels(torch, seed: int) -> tuple[dict, dict, dict]:
+    """Kernel vs plain on the card; returns (phase line, per-kernel rows,
+    the selection's line)."""
+    import numpy as np
+
+    from orcai_tpu_torch.ops.dft import dft_magnitude, dft_magnitude_plain
+    from orcai_tpu_torch.ops.radix_select import (
+        _LEVELS,
+        _launch_pick,
+        digit_histograms,
+        digit_histograms_plain,
+        radix_pick,
+        radix_pick_plain,
+        select_order_statistics,
+        select_order_statistics_plain,
+    )
+    from orcai_tpu_torch.tools.synthetic import synth_magnitudes
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    errs, b1_in = _b1_checks(torch, rng, dev)
+    x32, x16, window = b1_in["x32"], b1_in["x16"], b1_in["window"]
+    n_fft, hop, tile = b1_in["n_fft"], b1_in["hop"], b1_in["tile"]
+    n_bins = n_fft // 2 + 1
     win = torch.hann_window(n_fft, periodic=True, device=dev)
-    b1_bytes = n_samp * 4 + 2 * n_fft * n_bins * 4 + tile * n_bins * 4
-    b1_bound, b1_by = bound(b1_bytes, 4.0 * tile * n_fft * n_bins)
+    # the function reads each sample once and writes each magnitude once;
+    # an operation count would belong to one algorithm (the GEMM needs 40x
+    # the FFT's), not to the function, and the FFT's own arithmetic, about
+    # 5 N log2 N for two frames, stays far below the byte time
+    fft_flop = 0.5 * tile * 5.0 * n_fft * np.log2(n_fft)
+    b1_bound, b1_by = bound(x32.numel() * 4 + tile * n_bins * 4, fft_flop)
+    b1_bound16, _ = bound(x16.numel() * 2 + tile * n_bins * 4, fft_flop)
     b1 = {
         "name": "dft_magnitude", "route": "cuda",
         "source": "orcai_tpu_torch/csrc/dft_magnitude.cu",
         "replaces": "orcai_tpu/ops/pallas_dft.py:67",
         "max_abs_err": max(errs.values()),
-        "ms": cuda_ms(lambda: dft_magnitude(x32, C, S, n_fft=n_fft, hop=hop)),
-        "ms_int16": cuda_ms(lambda: dft_magnitude(x16, C, S, n_fft=n_fft, hop=hop)),
-        "plain_ms": cuda_ms(lambda: dft_magnitude_plain(x32, C, S, n_fft=n_fft, hop=hop)),
-        "bound_ms": b1_bound, "bound_by": b1_by,
+        "max_abs_err_vs_float64": b1_in["vs64"],
+        "ms": cuda_ms(lambda: dft_magnitude(x32, window, n_fft=n_fft, hop=hop)),
+        "ms_int16": cuda_ms(lambda: dft_magnitude(x16, window, n_fft=n_fft, hop=hop)),
+        # the framed GEMM and the upload of its two 0.5 MB matrices
+        "plain_ms": cuda_ms(lambda: dft_magnitude_plain(x32, window, n_fft=n_fft, hop=hop)),
+        "bound_ms": b1_bound, "bound_ms_int16": b1_bound16, "bound_by": b1_by,
         "library_ms": cuda_ms(lambda: torch.stft(
             x32, n_fft, hop_length=hop, window=win, center=False,
             return_complex=True).abs()),
@@ -164,12 +259,7 @@ def phase_kernels(torch, seed: int) -> tuple[dict, dict]:
     # 20-minute main-path shape: 225001 valid frames x 171 bins inside the
     # 262144-frame bucket, the padding rows zero as the frontend leaves them
     n_valid_elems, n_total = 225001 * 171, 262144 * 171
-    g = torch.Generator(device=dev).manual_seed(seed)
-    flat = torch.zeros(n_total, dtype=torch.float32, device=dev)
-    flat[:n_valid_elems] = (
-        torch.randn(n_valid_elems, generator=g, device=dev).abs()
-        * torch.exp(3.0 * torch.randn(n_valid_elems, generator=g, device=dev)))
-    flat[: n_valid_elems : 97] = 0.125  # heavy ties across a digit boundary
+    flat = synth_magnitudes(n_valid_elems, n_total, seed, dev)
     nv = torch.full((1,), n_valid_elems, dtype=torch.int32, device=dev)
     k_lo = torch.full((1,), int(np.round(0.01 * (n_valid_elems - 1))), dtype=torch.int64, device=dev)
     k_hi = torch.full((1,), int(np.round(0.999 * (n_valid_elems - 1))), dtype=torch.int64, device=dev)
@@ -177,22 +267,36 @@ def phase_kernels(torch, seed: int) -> tuple[dict, dict]:
     lo_p, hi_p = select_order_statistics_plain(flat, nv, k_lo, k_hi)
     if not (torch.equal(lo, lo_p) and torch.equal(hi, hi_p)):
         raise AssertionError(f"selection {lo.item()}, {hi.item()} != sort {lo_p.item()}, {hi_p.item()}")
-    # the three digit levels, with the prefixes the selection walks through
-    b_lo = int(lo.view(torch.int32)) & 0xFFFFFFFF
-    b_hi = int(hi.view(torch.int32)) & 0xFFFFFFFF
-    levels = [
-        (21, 11, None, (0, 0)),
-        (10, 11, 21, (b_lo >> 21, b_hi >> 21)),
-        (0, 10, 10, (b_lo >> 10, b_hi >> 10)),
-    ]
+    # the three digit levels, with the prefixes and ranks the selection
+    # walks through (taken from the plain versions)
     b2_err = 0.0
-    for shift, bits, pshift, pref in levels:
-        p = torch.tensor(pref, dtype=torch.int32, device=dev)
-        got = digit_histograms(flat, nv, p, shift, bits, pshift)
-        want = digit_histograms_plain(flat, nv, p, shift, bits, pshift)
+    ranks = torch.cat([k_lo, k_hi])
+    prefixes = torch.zeros(2, dtype=torch.int32, device=dev)
+    level_hists, level_ranks, level_prefixes = [], [], []
+    for shift, bits, pshift in _LEVELS:
+        got = digit_histograms(flat, nv, prefixes, shift, bits, pshift)
+        want = digit_histograms_plain(flat, nv, prefixes, shift, bits, pshift)
         b2_err = max(b2_err, float((got.double() - want.double()).abs().max()))
         if not torch.equal(got, want):
             raise AssertionError(f"B2 level shift={shift}: kernel != plain bincount")
+        level_hists.append(want)
+        level_ranks.append(ranks)
+        level_prefixes.append(prefixes)
+        prefixes, ranks = radix_pick_plain(want, ranks, prefixes, bits, pshift is None)
+    # the scalar ends: a view one element into the buffer (4-byte aligned
+    # only) and valid counts that are no multiple of 4
+    for offset, count in ((1, n_valid_elems - 3), (1, 1001), (3, 2), (0, n_valid_elems - 1)):
+        view = flat[offset:]
+        nv_c = torch.full((1,), count, dtype=torch.int32, device=dev)
+        for shift, bits, pshift in _LEVELS[:2]:
+            got = digit_histograms(view, nv_c, level_prefixes[1], shift, bits, pshift)
+            want = digit_histograms_plain(view, nv_c, level_prefixes[1], shift, bits, pshift)
+            b2_err = max(b2_err, float((got.double() - want.double()).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"B2 offset {offset}, n_valid {count}, shift {shift}: kernel != plain")
+    pick_err = _pick_checks(torch, dev, level_hists, level_ranks, level_prefixes)
+
     zeros2 = torch.zeros(2, dtype=torch.int32, device=dev)
     b2_bound, b2_by = bound(n_valid_elems * 4 + 2 * 2048 * 4, 0.0)
     b2 = {
@@ -201,36 +305,76 @@ def phase_kernels(torch, seed: int) -> tuple[dict, dict]:
         "replaces": "orcai_tpu/ops/pallas_hist.py:117",
         "max_abs_err": b2_err,
         "ms": cuda_ms(lambda: digit_histograms(flat, nv, zeros2, 21, 11, None)),
+        "ms_prefixed": cuda_ms(lambda: digit_histograms(
+            flat, nv, level_prefixes[1], 10, 11, 21)),
         "plain_ms": cuda_ms(lambda: digit_histograms_plain(flat, nv, zeros2, 21, 11, None)),
         "bound_ms": b2_bound, "bound_by": b2_by, "library_ms": None,
-        "shape": f"{n_valid_elems} valid of {n_total}, level 0",
+        "shape": f"{n_valid_elems} valid of {n_total}; ms: level 0 on the synthetic "
+                 "spread, ms_prefixed: level 1, ms_real: level 0 on the 20-minute "
+                 "recording's magnitudes",
     }
-    sel_bound, sel_by = bound(n_valid_elems * 4, 0.0)
+    pick_bound, pick_by = bound(2 * 2048 * 4 + 2 * (8 + 4) * 2, 0.0)
+    pick_args = (level_hists[1], level_ranks[1], level_prefixes[1], 11, False)
+    # the launch alone on preallocated state, as the selection launches it;
+    # the ranks it reads stay the level's own from one launch to the next
+    p_state, k_out = level_prefixes[1].clone(), torch.empty_like(level_ranks[1])
+    k_ptr = level_ranks[1].data_ptr()
+
+    def pick_launch():
+        _launch_pick(dev, level_hists[1].data_ptr(), 11, False, k_ptr, k_ptr + 8,
+                     p_state.data_ptr(), k_out.data_ptr(), None)
+    pick = {
+        "name": "radix_pick", "route": "cuda",
+        "source": "orcai_tpu_torch/csrc/digit_hist.cu",
+        "replaces": "orcai_tpu/ops/pallas_hist.py:170",
+        "replaces_note": "_pick, a plain-jnp helper of select_order_statistics "
+                         "(no pallas_call of its own), with the shifts around it",
+        "max_abs_err": pick_err,
+        "ms": cuda_ms(lambda: radix_pick(*pick_args)),
+        "ms_launch_only": cuda_ms(pick_launch, iters=50),
+        "plain_ms": cuda_ms(lambda: radix_pick_plain(*pick_args)),
+        "bound_ms": pick_bound, "bound_by": pick_by, "library_ms": None,
+        "shape": "(2, 2048) int32 counts, two targets; ms: the public wrapper, "
+                 "with its two small allocations, ms_launch_only: the launch "
+                 "alone as the selection makes it",
+    }
+    sel_bound, sel_by = bound(3 * n_valid_elems * 4, 0.0)
     valid = flat[:n_valid_elems]
     ks = (int(k_lo) + 1, int(k_hi) + 1)
     sel = {
-        "name": "select_order_statistics", "route": "torch over B2",
+        "name": "select_order_statistics", "route": "B2 + pick kernel",
         "source": "orcai_tpu_torch/ops/radix_select.py",
         "replaces": "orcai_tpu/ops/pallas_hist.py:178",
         "max_abs_err": float(torch.cat([lo - lo_p, hi - hi_p]).abs().max()),
-        "ms": cuda_ms(lambda: select_order_statistics(flat, nv, k_lo, k_hi)),
+        "ms_runs": [cuda_ms(lambda: select_order_statistics(flat, nv, k_lo, k_hi))
+                    for _ in range(3)],
         "plain_ms": cuda_ms(lambda: select_order_statistics_plain(flat, nv, k_lo, k_hi)),
         "bound_ms": sel_bound, "bound_by": sel_by,
         # two kthvalue calls, one per order statistic
         "library_ms": cuda_ms(lambda: (
-            torch.kthvalue(valid, ks[0]), torch.kthvalue(valid, ks[1]))),
-        "shape": f"{n_valid_elems} valid magnitudes, 3 sweeps of B2",
+            torch.kthvalue(valid, ks[0]), torch.kthvalue(valid, ks[1])), iters=2, warmup=1),
+        "shape": f"{n_valid_elems} valid magnitudes: 1 memset, 3 sweeps of B2, 3 picks",
     }
+    sel["ms"] = statistics.median(sel["ms_runs"])
     line = {"phase": "kernels", "b1_max_abs_err": errs,
-            "b2_levels_bit_exact": True, "selection_bit_equal_sort": True}
-    return line, {r["name"]: r for r in (b1, b2)}, sel
+            "b1_max_abs_err_vs_float64": b1_in["vs64"],
+            "b2_levels_bit_exact": True, "b2_unaligned_and_ragged_bit_exact": True,
+            "pick_bit_equal_plain": True, "selection_bit_equal_sort": True}
+    return line, {r["name"]: r for r in (b1, b2, pick)}, sel
 
 
 def _counters():
     from orcai_tpu_torch.ops.dft import dft_magnitude
-    from orcai_tpu_torch.ops.radix_select import digit_histograms
+    from orcai_tpu_torch.ops.radix_select import digit_histograms, radix_pick
 
-    return (dft_magnitude, digit_histograms)
+    return (dft_magnitude, digit_histograms, radix_pick)
+
+
+def check_counts(counts: dict, b1: int, where: str) -> None:
+    """One B1 launch per real tile, three sweeps and three picks."""
+    want = {"dft_magnitude": b1, "digit_histograms": 3, "radix_pick": 3}
+    if counts != want:
+        raise AssertionError(f"kernel launches on the {where} path {counts}, expected {want}")
 
 
 def reset_counts() -> None:
@@ -257,19 +401,25 @@ def phase_golden(torch, tmp: Path) -> dict:
         raise AssertionError(
             "golden TSV differs from tests/fixtures/golden_expected.txt:\n"
             + out.read_text())
-    if min(counts.values()) < 1:
-        raise AssertionError(f"a kernel was not launched on the golden path: {counts}")
+    check_counts(counts, 1, "golden")
     return {"phase": "golden", "tsv_byte_equal": True, "wall_s_first_call": wall,
             "launches": counts}
 
 
-def phase_full(torch, tmp: Path, seed: int) -> tuple[dict, dict]:
+def phase_full(torch, tmp: Path, seed: int) -> tuple[dict, dict, dict]:
     import numpy as np
 
     from orcai_tpu_torch.io.model_store import load_orcai_model
     from orcai_tpu_torch.io.wav import load_wav_for_frontend
-    from orcai_tpu_torch.ops.frontend import compute_spectrogram_device
+    from orcai_tpu_torch.ops.frontend import (
+        compute_spectrogram_device,
+        fft_frequencies,
+        freq_crop_indices,
+        nearest_quantile_index,
+        tile_magnitudes,
+    )
     from orcai_tpu_torch.ops.overlap import WindowPredictor
+    from orcai_tpu_torch.ops.radix_select import digit_histograms, select_order_statistics
     from orcai_tpu_torch.pipeline.predict import predict
     from orcai_tpu_torch.tools.synthetic import synth_recording
 
@@ -293,8 +443,7 @@ def phase_full(torch, tmp: Path, seed: int) -> tuple[dict, dict]:
     wall = time.perf_counter() - t0
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    if min(counts.values()) < 1:
-        raise AssertionError(f"a kernel was not launched on the main path: {counts}")
+    check_counts(counts, 7, "main")
     n_rows = len(out.read_text().splitlines()) - 1
 
     # stage times on the warm process (host clock around synchronized work)
@@ -334,15 +483,31 @@ def phase_full(torch, tmp: Path, seed: int) -> tuple[dict, dict]:
         crnn_err = float((model(windows).cpu() - model_cpu(windows.cpu())).abs().max())
     if not crnn_err <= 2e-5:
         raise AssertionError(f"CRNN cuda vs cpu: {crnn_err} > 2e-5")
+    # B2 level 0 and the selection on this recording's real magnitudes
+    dev = torch.device("cuda")
+    lo_idx, hi_idx = freq_crop_indices(
+        fft_frequencies(sp["sampling_rate"], sp["nfft"]), sp["freq_range"])
+    mag, _ = tile_magnitudes(audio, sp["nfft"], sp["n_overlap"], lo_idx, hi_idx, dev)
+    n_elem = n_frames * (hi_idx - lo_idx)
+    flat = mag.reshape(-1)
+    nv = torch.full((1,), n_elem, dtype=torch.int32, device=dev)
+    zeros2 = torch.zeros(2, dtype=torch.int32, device=dev)
+    ks = [torch.full((1,), nearest_quantile_index(float(q), n_elem), dtype=torch.int64,
+                     device=dev) for q in sp["quantiles"]]
+    real = {
+        "b2_ms_real": cuda_ms(lambda: digit_histograms(flat, nv, zeros2, 21, 11, None)),
+        "occupied_top_digits": int((digit_histograms(flat, nv, zeros2, 21, 11, None)[0] > 0).sum()),
+        "selection_ms_real": cuda_ms(lambda: select_order_statistics(flat, nv, *ks)),
+    }
     line = {
         "phase": "full", "minutes": MINUTES, "samples": n, "frames": n_frames,
         "windows": n_win, "batch_size": predictor.batch_size,
         "predict_wall_s": wall, "frontend_wall_s": t_front, "crnn_wall_s": t_crnn,
         "peak_device_bytes": peak, "tsv_rows": n_rows, "launches": counts,
         "spectrogram_max_abs_err_vs_cpu": spec_err,
-        "crnn_max_abs_err_vs_cpu": crnn_err,
+        "crnn_max_abs_err_vs_cpu": crnn_err, **real,
     }
-    return line, counts
+    return line, counts, real
 
 
 def main(argv=None) -> int:
@@ -371,7 +536,7 @@ def main(argv=None) -> int:
             phase = "golden"
             emit(phase_golden(torch, Path(tmp)))
             phase = "full"
-            line, counts = phase_full(torch, Path(tmp), args.seed)
+            line, counts, real = phase_full(torch, Path(tmp), args.seed)
             emit(line)
     except Exception as e:  # report the phase, then fail the run
         traceback.print_exc()
@@ -379,8 +544,12 @@ def main(argv=None) -> int:
         return 1
     for name, row in rows.items():
         row["launches"] = counts[name]
-    # not a kernel: torch ops over B2, whose main-path launches it made
+    rows["digit_histograms"]["ms_real"] = real["b2_ms_real"]
+    # not a kernel of its own: the sweeps and picks above, whose main-path
+    # launches it made
     sel["b2_launches"] = counts["digit_histograms"]
+    sel["pick_launches"] = counts["radix_pick"]
+    sel["ms_real"] = real["selection_ms_real"]
     emit({"selection": sel})
     emit({"kernels": list(rows.values())})
     print(env["nvidia_smi"], flush=True)

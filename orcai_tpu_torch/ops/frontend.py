@@ -9,16 +9,14 @@ nearest-method percentiles of the valid frames, min-max normalize.
 
 The recording is cut into tiles of up to 32768 frames inside a power-of-two
 frame bucket. Each real tile's audio chunk is uploaded and turned into
-magnitudes by kernel B1 (ops/dft.py); the tile max over the valid frames
-of the full 257-bin spectrum is kept as the dB reference, then the crop is
-stored. The finalize takes the percentiles as order statistics of the
+magnitudes by kernel B1 (ops/dft.py, a batched FFT); the tile max over the
+valid frames of the full 257-bin spectrum is kept as the dB reference, then
+the crop is stored. The finalize takes the percentiles as order statistics of the
 cropped magnitudes (dB is monotone in |S|) by radix selection, kernel B2
 (ops/radix_select.py), then applies the dB, clip and normalize.
 """
 
 from __future__ import annotations
-
-from functools import lru_cache
 
 import numpy as np
 import torch
@@ -60,21 +58,6 @@ def freq_crop_indices(frequencies: np.ndarray, freq_range) -> tuple[int, int]:
 def hann_window(n_fft: int) -> np.ndarray:
     """Periodic (fftbins=True) Hann window, as used by librosa.stft."""
     return 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n_fft) / n_fft)
-
-
-@lru_cache(maxsize=None)
-def _dft_mats(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
-    """Real/imag rDFT matrices (n_fft, n_fft//2 + 1) with the Hann window
-    folded in: for a raw frame x, re = x @ C and im = x @ S. Read-only."""
-    n = np.arange(n_fft)[:, None]
-    k = np.arange(n_fft // 2 + 1)[None, :]
-    ang = 2.0 * np.pi * n * k / n_fft
-    w = hann_window(n_fft)[:, None]
-    C = (np.cos(ang) * w).astype(np.float32)
-    S = (-np.sin(ang) * w).astype(np.float32)
-    C.setflags(write=False)
-    S.setflags(write=False)
-    return C, S
 
 
 def nearest_quantile_index(q: float, n: int) -> int:
@@ -145,6 +128,29 @@ def finalize(
     return torch.clamp(out, 0.0, 1.0), lo, hi
 
 
+def tile_magnitudes(
+    audio: np.ndarray, n_fft: int, hop: int, lo_idx: int, hi_idx: int,
+    dev: torch.device,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The recording's cropped magnitudes (bucket, hi_idx - lo_idx) on `dev`
+    (rows past the last frame are zero) and the per-tile maxima of the full
+    spectrum over the valid frames (-inf for an all-padding tile)."""
+    n_frames = 1 + audio.shape[0] // hop
+    tile, n_tiles, n_real = _tile_plan(n_frames)
+    window = hann_window(n_fft)
+    mag = torch.zeros((n_tiles * tile, hi_idx - lo_idx), dtype=torch.float32, device=dev)
+    maxes = torch.full((n_tiles,), float("-inf"), dtype=torch.float32, device=dev)
+    for t in range(n_real):
+        chunk = _audio_tile_chunk(audio, t, tile, n_fft, hop)
+        full = dft_magnitude(
+            torch.from_numpy(np.array(chunk)).to(dev), window, n_fft=n_fft, hop=hop
+        )
+        n_valid = min(tile, n_frames - t * tile)
+        maxes[t] = full[:n_valid].max()
+        mag[t * tile : (t + 1) * tile] = full[:, lo_idx:hi_idx]
+    return mag, maxes
+
+
 def compute_spectrogram_device(
     audio: np.ndarray,
     sampling_rate: int,
@@ -175,18 +181,7 @@ def compute_spectrogram_device(
     lo_idx, hi_idx = freq_crop_indices(frequencies, freq_range)
     n_bins = hi_idx - lo_idx
 
-    tile, n_tiles, n_real = _tile_plan(n_frames)
-    C, S = (torch.from_numpy(m.copy()).to(dev) for m in _dft_mats(n_fft))
-    mag = torch.zeros((n_tiles * tile, n_bins), dtype=torch.float32, device=dev)
-    maxes = torch.full((n_tiles,), float("-inf"), dtype=torch.float32, device=dev)
-    for t in range(n_real):
-        chunk = _audio_tile_chunk(audio, t, tile, n_fft, hop_length)
-        full = dft_magnitude(
-            torch.from_numpy(np.array(chunk)).to(dev), C, S, n_fft=n_fft, hop=hop_length
-        )
-        n_valid = min(tile, n_frames - t * tile)
-        maxes[t] = full[:n_valid].max()
-        mag[t * tile : (t + 1) * tile] = full[:, lo_idx:hi_idx]
+    mag, maxes = tile_magnitudes(audio, n_fft, hop_length, lo_idx, hi_idx, dev)
 
     n_elem = n_frames * n_bins
     out, _, _ = finalize(

@@ -4,13 +4,15 @@ Counterpart of orcai_tpu/ops/pallas_hist.py. Non-negative float32 bit
 patterns are monotone as uint32, so the k-th smallest of n magnitudes is
 found digit by digit: three histogram sweeps over 11/11/10-bit digits of
 the bit patterns, each keeping only the elements whose higher digits
-match the target's, pick the target's digit from a cumulative count.
+match the target's, and after each sweep a pick of the target's digit
+from the cumulative counts.
 
-`digit_histograms` launches the CUDA kernel csrc/digit_hist.cu for a CUDA
-tensor and runs the plain PyTorch version, `digit_histograms_plain` (a
-masked bincount), for a CPU tensor. `select_order_statistics` chains three
-of them with device-side picks (cumsum, compare, sum): no .item() and no
-host sync between the sweeps.
+`digit_histograms` and `radix_pick` launch the CUDA kernels of
+csrc/digit_hist.cu for CUDA tensors and run their plain PyTorch versions
+(`digit_histograms_plain`, a masked bincount; `radix_pick_plain`, cumsum,
+compare and sum) for CPU tensors. `select_order_statistics` chains three
+of each. On CUDA that is one memset, three sweeps and three picks on the
+stream, with no other launch, no .item() and no host sync in between.
 """
 
 from __future__ import annotations
@@ -21,7 +23,10 @@ import torch
 
 from orcai_tpu_torch.ops import _build
 
-_BLOCKS_PER_SM = 4  # 512-thread blocks with 16 KB of shared memory each
+# (digit_shift, digit_bits, prefix_shift) of the three sweeps
+_LEVELS = ((21, 11, None), (10, 11, 21), (0, 10, 10))
+_MAX_BINS = 2048
+_BLOCKS_PER_SM = 4  # 512-thread blocks of the persistent histogram grid
 
 
 def digit_histograms_plain(
@@ -50,15 +55,53 @@ def digit_histograms_plain(
     return out
 
 
-def _kernel():
-    fn = _build.load("digit_hist").orcai_digit_histograms
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+def _kernel(name: str):
+    lib = _build.load("digit_hist")
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = {
+            "orcai_digit_histograms": [p, ctypes.c_longlong, p, p, i, i, i, p, i, p],
+            "orcai_radix_pick": [p, i, i, p, p, p, p, p, p],
+        }[name]
+        fn.restype = ctypes.c_int
     return fn
+
+
+def _launch_hist(
+    flat: torch.Tensor,
+    n_valid_ptr: int,
+    prefixes_ptr: int,
+    digit_shift: int,
+    digit_bits: int,
+    prefix_shift: int | None,
+    out_ptr: int,
+) -> None:
+    """One sweep of the kernel over `flat` into zeroed counts at out_ptr."""
+    n_sm = torch.cuda.get_device_properties(flat.device).multi_processor_count
+    grid = max(1, min(_BLOCKS_PER_SM * n_sm, -(-flat.shape[0] // 8192)))
+    with torch.cuda.device(flat.device):
+        err = _kernel("orcai_digit_histograms")(
+            flat.data_ptr(), flat.shape[0], n_valid_ptr, prefixes_ptr,
+            digit_shift, digit_bits, -1 if prefix_shift is None else prefix_shift,
+            out_ptr, grid,
+            torch.cuda.current_stream(flat.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"digit_histograms kernel launch failed: CUDA error {err}")
+    digit_histograms.launches += 1
+
+
+def _check_cuda_flat(name: str, flat: torch.Tensor) -> None:
+    if flat.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {flat.device}")
+    if flat.dim() != 1 or flat.dtype != torch.float32 or not flat.is_contiguous():
+        raise ValueError(f"{name}: flat must be contiguous 1-D float32")
+
+
+def _check_small(name: str, what: str, t: torch.Tensor, dtype, numel, device) -> None:
+    if t.dtype != dtype or t.numel() != numel or t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name}: {what} must be {numel} contiguous {dtype} on {device}")
 
 
 def digit_histograms(
@@ -75,7 +118,9 @@ def digit_histograms(
     whose float32 bit pattern satisfies (bits >> prefix_shift) ==
     prefixes[t] (only t = 0, unconditionally, when prefix_shift is None),
     binned by (bits >> digit_shift) & (2**digit_bits - 1). int32 counts.
-    `flat` needs no padding; validity is bounded by n_valid alone.
+    `flat` needs no padding and no alignment beyond its own 4 bytes (a
+    view that starts inside a buffer is fine); validity is bounded by
+    n_valid alone.
     """
     if not 1 <= digit_bits <= 11:
         raise ValueError(f"digit_bits must be in 1..11, got {digit_bits}")
@@ -83,31 +128,12 @@ def digit_histograms(
         return digit_histograms_plain(
             flat, n_valid, prefixes, digit_shift, digit_bits, prefix_shift
         )
-    if flat.device.type != "cuda":
-        raise ValueError(f"digit_histograms: unsupported device {flat.device}")
-    if flat.dim() != 1 or flat.dtype != torch.float32 or not flat.is_contiguous():
-        raise ValueError("digit_histograms: flat must be contiguous 1-D float32")
-    for name, t, numel in (("n_valid", n_valid, 1), ("prefixes", prefixes, 2)):
-        if (t.dtype != torch.int32 or t.numel() != numel
-                or t.device != flat.device or not t.is_contiguous()):
-            raise ValueError(
-                f"digit_histograms: {name} must be {numel} contiguous int32 on "
-                f"{flat.device}"
-            )
+    _check_cuda_flat("digit_histograms", flat)
+    _check_small("digit_histograms", "n_valid", n_valid, torch.int32, 1, flat.device)
+    _check_small("digit_histograms", "prefixes", prefixes, torch.int32, 2, flat.device)
     out = torch.zeros((2, 1 << digit_bits), dtype=torch.int32, device=flat.device)
-    n_sm = torch.cuda.get_device_properties(flat.device).multi_processor_count
-    grid = max(1, min(_BLOCKS_PER_SM * n_sm, -(-flat.shape[0] // 512)))
-    with torch.cuda.device(flat.device):
-        stream = torch.cuda.current_stream(flat.device).cuda_stream
-        err = _kernel()(
-            flat.data_ptr(), flat.shape[0], n_valid.data_ptr(),
-            prefixes.data_ptr(), digit_shift, digit_bits,
-            -1 if prefix_shift is None else prefix_shift, out.data_ptr(),
-            grid, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"digit_histograms kernel launch failed: CUDA error {err}")
-    digit_histograms.launches += 1
+    _launch_hist(flat, n_valid.data_ptr(), prefixes.data_ptr(), digit_shift,
+                 digit_bits, prefix_shift, out.data_ptr())
     return out
 
 
@@ -128,6 +154,99 @@ def _pick(hist: torch.Tensor, k: torch.Tensor) -> tuple[torch.Tensor, torch.Tens
     return b, k - prev
 
 
+def radix_pick_plain(
+    hists: torch.Tensor, ranks: torch.Tensor, prefixes: torch.Tensor,
+    digit_bits: int, shared_row: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """radix_pick as two `_pick`s and the shift-and-or around them."""
+    new_prefixes, new_ranks = [], []
+    for t in range(2):
+        b, k = _pick(hists[0 if shared_row else t], ranks[t : t + 1].to(torch.int64))
+        new_prefixes.append((prefixes[t : t + 1].to(torch.int64) << digit_bits) | b)
+        new_ranks.append(k)
+    return torch.cat(new_prefixes).to(torch.int32), torch.cat(new_ranks)
+
+
+def _launch_pick(
+    device, hists_ptr: int, digit_bits: int, shared_row: bool, k_lo_ptr: int,
+    k_hi_ptr: int, prefixes_ptr: int, k_out_ptr: int, result_ptr: int | None,
+) -> None:
+    with torch.cuda.device(device):
+        err = _kernel("orcai_radix_pick")(
+            hists_ptr, digit_bits, int(shared_row), k_lo_ptr, k_hi_ptr,
+            prefixes_ptr, k_out_ptr, result_ptr,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"radix_pick kernel launch failed: CUDA error {err}")
+    radix_pick.launches += 1
+
+
+def radix_pick(
+    hists: torch.Tensor, ranks: torch.Tensor, prefixes: torch.Tensor,
+    digit_bits: int, shared_row: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One level's pick for both targets: (next prefixes, ranks inside).
+
+    hists (2, 2**digit_bits) int32 are a level's counts (both targets read
+    row 0 when shared_row, as at the unprefixed level), ranks (2,) int64
+    the targets' ranks among the counted elements, prefixes (2,) int32 the
+    digits found so far. For each target, b is the number of bins whose
+    cumulative count is <= rank; returns ((prefix << digit_bits) | b as
+    int32, rank - cum[b - 1] as int64). A CUDA tensor goes to the kernel, a
+    CPU tensor to radix_pick_plain.
+    """
+    if not 1 <= digit_bits <= 11:
+        raise ValueError(f"digit_bits must be in 1..11, got {digit_bits}")
+    if hists.device.type == "cpu":
+        return radix_pick_plain(hists, ranks, prefixes, digit_bits, shared_row)
+    if hists.device.type != "cuda":
+        raise ValueError(f"radix_pick: unsupported device {hists.device}")
+    _check_small("radix_pick", "hists", hists, torch.int32, 2 << digit_bits, hists.device)
+    _check_small("radix_pick", "ranks", ranks, torch.int64, 2, hists.device)
+    _check_small("radix_pick", "prefixes", prefixes, torch.int32, 2, hists.device)
+    new_prefixes = prefixes.clone()
+    new_ranks = torch.empty_like(ranks)
+    _launch_pick(
+        hists.device, hists.data_ptr(), digit_bits, shared_row, ranks.data_ptr(),
+        ranks.data_ptr() + 8, new_prefixes.data_ptr(), new_ranks.data_ptr(), None,
+    )
+    return new_prefixes, new_ranks
+
+
+radix_pick.launches = 0
+
+
+def _select_cuda(
+    flat: torch.Tensor, n_valid: torch.Tensor, k_lo: torch.Tensor, k_hi: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Three sweeps and three picks over one zeroed int32 scratch: the
+    three levels' (2, 2048) counts, then the two prefixes, the two int64
+    ranks and the two results."""
+    name = "select_order_statistics"
+    _check_cuda_flat(name, flat)
+    _check_small(name, "n_valid", n_valid, torch.int32, 1, flat.device)
+    _check_small(name, "k_lo", k_lo, torch.int64, 1, flat.device)
+    _check_small(name, "k_hi", k_hi, torch.int64, 1, flat.device)
+    level_ints = 2 * _MAX_BINS
+    o_prefix, o_rank, o_result = 3 * level_ints, 3 * level_ints + 4, 3 * level_ints + 8
+    scratch = torch.zeros(o_result + 2, dtype=torch.int32, device=flat.device)
+    base = scratch.data_ptr()
+    k_ptrs = (k_lo.data_ptr(), k_hi.data_ptr())
+    for level, (shift, bits, pshift) in enumerate(_LEVELS):
+        hist_ptr = base + 4 * level * level_ints
+        _launch_hist(flat, n_valid.data_ptr(), base + 4 * o_prefix, shift, bits,
+                     pshift, hist_ptr)
+        _launch_pick(
+            flat.device, hist_ptr, bits, pshift is None, *k_ptrs,
+            base + 4 * o_prefix, base + 4 * o_rank,
+            base + 4 * o_result if level == len(_LEVELS) - 1 else None,
+        )
+        k_ptrs = (base + 4 * o_rank, base + 4 * o_rank + 8)
+    result = scratch[o_result : o_result + 2].view(torch.float32)
+    return result[0:1], result[1:2]
+
+
 def select_order_statistics(
     flat: torch.Tensor,
     n_valid: torch.Tensor,
@@ -138,32 +257,18 @@ def select_order_statistics(
 
     Values must be non-negative and finite. n_valid is a (1,) int32 tensor
     and k_lo/k_hi are (1,) int64 tensors, all on flat's device; returns two
-    (1,) float32 tensors there. Three digit_histograms sweeps, 11/11/10 bits.
+    (1,) float32 tensors there. Three digit_histograms sweeps, 11/11/10
+    bits, each followed by a radix_pick.
     """
-    k_lo = k_lo.reshape(1).to(torch.int64)
-    k_hi = k_hi.reshape(1).to(torch.int64)
-    zeros2 = torch.zeros(2, dtype=torch.int32, device=flat.device)
-    h0 = digit_histograms(flat, n_valid, zeros2, 21, 11, None)
-    b_lo, k_lo = _pick(h0[0], k_lo)
-    b_hi, k_hi = _pick(h0[0], k_hi)
-
-    h1 = digit_histograms(
-        flat, n_valid, torch.cat([b_lo, b_hi]).to(torch.int32), 10, 11, 21
-    )
-    b1_lo, k_lo = _pick(h1[0], k_lo)
-    b1_hi, k_hi = _pick(h1[1], k_hi)
-    p_lo = (b_lo << 11) | b1_lo
-    p_hi = (b_hi << 11) | b1_hi
-
-    h2 = digit_histograms(
-        flat, n_valid, torch.cat([p_lo, p_hi]).to(torch.int32), 0, 10, 10
-    )
-    b2_lo, _ = _pick(h2[0], k_lo)
-    b2_hi, _ = _pick(h2[1], k_hi)
-
-    bits_lo = ((p_lo << 10) | b2_lo).to(torch.int32)
-    bits_hi = ((p_hi << 10) | b2_hi).to(torch.int32)
-    return bits_lo.view(torch.float32), bits_hi.view(torch.float32)
+    if flat.device.type != "cpu":
+        return _select_cuda(flat, n_valid, k_lo, k_hi)
+    ranks = torch.cat([k_lo.reshape(1), k_hi.reshape(1)]).to(torch.int64)
+    prefixes = torch.zeros(2, dtype=torch.int32)
+    for shift, bits, pshift in _LEVELS:
+        hists = digit_histograms(flat, n_valid, prefixes, shift, bits, pshift)
+        prefixes, ranks = radix_pick(hists, ranks, prefixes, bits, pshift is None)
+    result = prefixes.view(torch.float32)
+    return result[0:1], result[1:2]
 
 
 def select_order_statistics_plain(

@@ -28,7 +28,7 @@ MINUTES = 20.0
 BATCH_SIZE = 128
 
 
-def profile_stage(torch, name: str, fn, trace_dir: Path | None, top: int = 8):
+def profile_stage(torch, name: str, fn, trace_dir: Path | None, top: int = 12):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()

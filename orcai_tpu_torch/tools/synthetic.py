@@ -1,4 +1,5 @@
-"""Synthetic recordings for smoke runs and profiling, made from a seed."""
+"""Synthetic recordings and magnitudes for smoke runs and profiling, made
+from a seed."""
 
 from __future__ import annotations
 
@@ -25,3 +26,19 @@ def synth_recording(path: Path | str, seed: int, minutes: float, sr: int = 48000
     pcm = np.clip(audio * 32767.0, -32768, 32767).astype(np.int16)
     wavfile.write(str(path), sr, pcm)
     return n
+
+
+def synth_magnitudes(n_valid: int, n_total: int, seed: int, device):
+    """(n_total,) float32 magnitudes on `device`: the first n_valid are
+    |normal| * exp(3 * normal), a spread over ~80 top-level radix digits,
+    with every 97th set to 0.125 (heavy ties across a digit boundary); the
+    rest are zero, as the frontend leaves its padding rows."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    flat = torch.zeros(n_total, dtype=torch.float32, device=device)
+    flat[:n_valid] = torch.randn(n_valid, generator=g, device=device).abs() * torch.exp(
+        3.0 * torch.randn(n_valid, generator=g, device=device)
+    )
+    flat[:n_valid:97] = 0.125
+    return flat

@@ -111,6 +111,32 @@ def test_finalize_clip_bounds():
         np.testing.assert_allclose(ours.numpy()[0], np.asarray(j), rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize("form", ["log10", "log_over_ln10", "log_times_inv_ln10"])
+def test_log10_forms_stay_within_ulps_of_jax(form):
+    """The trial behind ROADMAP queue C: no float32 log10 that torch offers
+    on the CPU is bit-equal to jnp.log10 (itself log(x) / log(10)): torch's
+    log and XLA's round differently before any division. Each form stays
+    within 4 float32 ulps over the magnitudes' range, so `_db` keeps
+    torch.log10 and the clip bounds keep their rtol 1e-6 bar."""
+    import math
+
+    rng = np.random.default_rng(0)
+    m = np.concatenate([
+        rng.uniform(1e-5, 2.0, 200_000),
+        np.exp(rng.uniform(np.log(1e-5), np.log(300.0), 200_000)),
+    ]).astype(np.float32)
+    x = torch.from_numpy(m)
+    ours = {
+        "log10": lambda: torch.log10(x),
+        "log_over_ln10": lambda: torch.log(x) / math.log(10.0),
+        "log_times_inv_ln10": lambda: torch.log(x) * (1.0 / math.log(10.0)),
+    }[form]().numpy()
+    ref = np.asarray(jnp.log10(jnp.asarray(m)))
+    ulps = np.abs(ours.view(np.int32).astype(np.int64) - ref.view(np.int32).astype(np.int64))
+    print(f"{form}: max {ulps.max()} ulps, {np.mean(ulps > 0):.4f} of the values differ")
+    assert ulps.max() <= 4
+
+
 def test_host_helpers_match_reference():
     freqs = tfront.fft_frequencies(SR, NFFT)
     np.testing.assert_array_equal(freqs, jfront.fft_frequencies(SR, NFFT))

@@ -1,5 +1,6 @@
-"""The port's kernel modules on the CPU (their plain PyTorch versions) vs
-the JAX Pallas kernels in interpret mode and numpy.
+"""The port's kernel modules on the CPU (their plain PyTorch versions, and
+the step-by-step references of the kernels' own arithmetic) vs the JAX
+Pallas kernels in interpret mode and numpy.
 
 B1 ops/dft.py::dft_magnitude vs orcai_tpu/ops/pallas_dft.py, atol 2e-4
 (tests/test_pallas_dft.py); B2 ops/radix_select.py::digit_histograms vs
@@ -10,6 +11,7 @@ the JAX selection and to torch.sort (tests/test_pallas_hist.py).
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 import jax
 import jax.numpy as jnp
@@ -17,14 +19,25 @@ import jax.numpy as jnp
 from orcai_tpu.ops.frontend import _dft_mats as jax_dft_mats, hann_window
 from orcai_tpu.ops.pallas_dft import dft_magnitude as jax_dft_magnitude
 from orcai_tpu.ops.pallas_hist import (
+    _pick as jax_pick,
     digit_histograms as jax_digit_histograms,
     pad_unit,
     select_order_statistics as jax_select,
 )
-from orcai_tpu_torch.ops.dft import dft_magnitude, dft_magnitude_plain
-from orcai_tpu_torch.ops.frontend import _dft_mats
+from orcai_tpu_torch.ops.dft import (
+    FFT_SIZES,
+    _fft_pairs_reference,
+    dft_magnitude,
+    dft_magnitude_plain,
+    fft_tables,
+    windowed_dft_mats,
+)
+from orcai_tpu_torch.ops.frontend import hann_window as port_hann_window
 from orcai_tpu_torch.ops.radix_select import (
+    _pick,
     digit_histograms,
+    radix_pick,
+    radix_pick_plain,
     select_order_statistics,
     select_order_statistics_plain,
 )
@@ -45,13 +58,12 @@ def _numpy_mag(padded):
     return np.abs(np.fft.rfft(frames, axis=1)).astype(np.float32)
 
 
-def _mats():
-    C, S = _dft_mats(NFFT)
-    return torch.from_numpy(C.copy()), torch.from_numpy(S.copy())
+WINDOW = port_hann_window(NFFT)
 
 
 def test_dft_mats_match_reference():
-    for ours, ref in zip(_dft_mats(NFFT), jax_dft_mats(NFFT)):
+    np.testing.assert_array_equal(WINDOW, hann_window(NFFT))
+    for ours, ref in zip(windowed_dft_mats(WINDOW), jax_dft_mats(NFFT)):
         np.testing.assert_array_equal(ours, ref)
 
 
@@ -66,8 +78,7 @@ def test_dft_plain_matches_pallas_and_numpy(dtype):
     else:
         padded = (rng.uniform(-0.5, 0.5, size=n) * 32768).astype(np.int16)
         as_float = padded.astype(np.float32) / 32768.0
-    C, S = _mats()
-    got = dft_magnitude(torch.from_numpy(padded), C, S, n_fft=NFFT, hop=HOP)
+    got = dft_magnitude(torch.from_numpy(padded), WINDOW, n_fft=NFFT, hop=HOP)
     assert got.shape == (tpad, 257) and got.dtype == torch.float32
     ref = jax_dft_magnitude(
         jnp.asarray(padded), *map(jnp.asarray, jax_dft_mats(NFFT)),
@@ -78,13 +89,104 @@ def test_dft_plain_matches_pallas_and_numpy(dtype):
 
 
 def test_dft_wrapper_validates_geometry():
-    C, S = _mats()
     with pytest.raises(ValueError, match="hop"):
-        dft_magnitude_plain(torch.zeros(1024), C, S, n_fft=NFFT, hop=300)
+        dft_magnitude_plain(torch.zeros(1024), WINDOW, n_fft=NFFT, hop=300)
     with pytest.raises(ValueError, match="padded audio"):
-        dft_magnitude(torch.zeros(1000), C, S, n_fft=NFFT, hop=HOP)
+        dft_magnitude(torch.zeros(1000), WINDOW, n_fft=NFFT, hop=HOP)
     with pytest.raises(ValueError, match="unsupported device"):
-        dft_magnitude(torch.zeros(1024, device="meta"), C, S, n_fft=NFFT, hop=HOP)
+        dft_magnitude(torch.zeros(1024, device="meta"), WINDOW, n_fft=NFFT, hop=HOP)
+    with pytest.raises(ValueError, match="window"):
+        dft_magnitude(torch.zeros(1024), WINDOW[:-1], n_fft=NFFT, hop=HOP)
+
+
+@pytest.mark.parametrize("n_fft,hop", [(1024, 256), (256, 128), (384, 128)])
+def test_dft_wrapper_names_supported_sizes(n_fft, hop):
+    """Off the CPU a size without a kernel raises and names the sizes that
+    have one; nothing routes it to the plain version."""
+    x = torch.zeros(3 * hop + n_fft, device="meta")
+    with pytest.raises(ValueError, match=r"supported sizes: \(512,\)"):
+        dft_magnitude(x, port_hann_window(n_fft), n_fft=n_fft, hop=hop)
+
+
+def test_dft_wrapper_rejects_bad_hop_off_cpu():
+    with pytest.raises(ValueError, match="hop 300 must divide n_fft 512"):
+        dft_magnitude(torch.zeros(1112, device="meta"), WINDOW, n_fft=NFFT, hop=300)
+
+
+@pytest.mark.parametrize("n_fft", FFT_SIZES)
+def test_fft_tables_match_float64(n_fft):
+    """The kernel's window and roots of unity are float64 values rounded
+    once: bit-equal to the float32 cast of numpy's float64 results."""
+    win, tw = fft_tables(port_hann_window(n_fft))
+    m = np.arange(n_fft, dtype=np.float64)
+    want_win = (0.5 - 0.5 * np.cos(2.0 * np.pi * m / n_fft)).astype(np.float32)
+    want_tw = np.exp(-2j * np.pi * m / n_fft)
+    assert win.dtype == tw.dtype == np.float32 and tw.shape == (n_fft, 2)
+    np.testing.assert_array_equal(win, want_win)
+    np.testing.assert_array_equal(tw[:, 0], want_tw.real.astype(np.float32))
+    np.testing.assert_array_equal(tw[:, 1], want_tw.imag.astype(np.float32))
+    # half a float32 ulp of values in [-1, 1]
+    assert np.abs(tw[:, 0] + 1j * tw[:, 1] - want_tw).max() <= 2.0 ** -24
+
+
+@pytest.mark.parametrize("n_fft", FFT_SIZES)
+@pytest.mark.parametrize("tpad", [64, 37])
+@pytest.mark.parametrize("dtype", ["f32", "int16"])
+def test_fft_reference_matches_plain_and_pallas(dtype, tpad, n_fft):
+    """The kernel's arithmetic (two frames per complex FFT, radix-8
+    Stockham passes with the kernel's tables and index maps, untangle)
+    against the framed GEMM and the Pallas kernel, atol 2e-4 (the reference
+    suite's DFT bar), for an even and an odd frame count."""
+    hop = n_fft // 2
+    rng = np.random.default_rng(10 + tpad)
+    n = (tpad - 1) * hop + n_fft
+    if dtype == "f32":
+        padded = rng.standard_normal(n).astype(np.float32)
+    else:
+        padded = rng.integers(-32768, 32768, n, dtype=np.int16)
+    window = port_hann_window(n_fft)
+    x = torch.from_numpy(padded)
+    got = _fft_pairs_reference(x, window, n_fft=n_fft, hop=hop)
+    assert got.shape == (tpad, n_fft // 2 + 1) and got.dtype == torch.float32
+    plain = dft_magnitude_plain(x, window, n_fft=n_fft, hop=hop)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=2e-4, rtol=0)
+    # the Pallas kernel wants whole tiles of frames: zero-pad the audio
+    tile = 64
+    t_jax = -(-tpad // tile) * tile
+    padded_jax = np.pad(padded, (0, (t_jax - tpad) * hop))
+    ref = jax_dft_magnitude(
+        jnp.asarray(padded_jax), *map(jnp.asarray, jax_dft_mats(n_fft)),
+        n_fft=n_fft, hop=hop, tile_frames=tile, interpret=True,
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref)[:tpad], atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("hop", [512, 128, 64])
+def test_fft_reference_other_hops(hop):
+    """Any hop dividing n_fft, against numpy's rfft; atol 2e-4."""
+    rng = np.random.default_rng(hop)
+    tpad = 9
+    padded = rng.standard_normal((tpad - 1) * hop + NFFT).astype(np.float32)
+    got = _fft_pairs_reference(torch.from_numpy(padded), WINDOW, n_fft=NFFT, hop=hop)
+    frames = np.stack([padded[i * hop : i * hop + NFFT] * WINDOW for i in range(tpad)])
+    want = np.abs(np.fft.rfft(frames, axis=1))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=0)
+
+
+def test_fft_reference_is_closer_to_float64_than_the_gemm():
+    """An fp32 FFT does ~27 roundings per output where the 512-term fp32
+    dot does 512, so against the float64 rfft it must not be worse."""
+    rng = np.random.default_rng(5)
+    tpad = 32
+    padded = rng.standard_normal((tpad - 1) * HOP + NFFT).astype(np.float32)
+    x = torch.from_numpy(padded)
+    want = _numpy_mag(padded.astype(np.float64)).astype(np.float64)
+    frames = np.stack([padded[i * HOP : i * HOP + NFFT] * WINDOW for i in range(tpad)])
+    want = np.abs(np.fft.rfft(frames, axis=1))
+    err_fft = np.abs(_fft_pairs_reference(x, WINDOW, n_fft=NFFT, hop=HOP).numpy() - want).max()
+    err_gemm = np.abs(dft_magnitude_plain(x, WINDOW, n_fft=NFFT, hop=HOP).numpy() - want).max()
+    assert err_fft <= err_gemm
+    assert err_fft <= 2e-5  # magnitudes up to ~40: a few float32 ulps
 
 
 @pytest.fixture(scope="module")
@@ -173,6 +275,105 @@ def test_select_validity_bound_excludes_padding(data):
     )
     assert float(lo) == x.min() != 0.0
     assert float(hi) == x.max()
+
+
+def _pick_both(hist, k):
+    b, left = _pick(torch.from_numpy(hist), torch.tensor([k]))
+    jb, jleft = jax_pick(jnp.asarray(hist), jnp.asarray(k, jnp.int32))
+    assert int(b) == int(jb) and int(left) == int(jleft)
+    return int(b), int(left)
+
+
+@settings(max_examples=60, deadline=None)
+@given(
+    counts=st.lists(st.integers(0, 5), min_size=1, max_size=64),
+    frac=st.floats(0.0, 1.0),
+)
+def test_pick_matches_reference_hypothesis(counts, frac):
+    """`_pick` against orcai_tpu's, exact, on small histograms with many
+    empty bins and ties; the picked bin holds the k-th value."""
+    hist = np.asarray(counts, np.int32)
+    n = int(hist.sum())
+    if n == 0:
+        return
+    k = min(n - 1, int(frac * n))
+    b, left = _pick_both(hist, k)
+    cum = np.cumsum(hist)
+    assert cum[b] > k and (b == 0 or cum[b - 1] <= k) and 0 <= left < hist[b]
+
+
+@pytest.mark.parametrize("case", ["k0", "k_last", "one_bin", "ties"])
+def test_pick_edges_match_reference(case):
+    hist = np.zeros(2048, np.int32)
+    if case == "one_bin":
+        hist[1234] = 1000
+        assert _pick_both(hist, 0) == (1234, 0)
+        assert _pick_both(hist, 999) == (1234, 999)
+        return
+    rng = np.random.default_rng(7)
+    hist[rng.integers(0, 2048, 80)] = rng.integers(1, 10_000_000, 80)
+    n = int(hist.sum())
+    first, last = np.flatnonzero(hist)[[0, -1]]
+    if case == "k0":
+        assert _pick_both(hist, 0) == (first, 0)
+    elif case == "k_last":
+        assert _pick_both(hist, n - 1) == (last, hist[last] - 1)
+    else:  # a rank on either side of every bin boundary
+        for edge in np.cumsum(hist)[np.flatnonzero(hist)][:-1]:
+            assert _pick_both(hist, int(edge) - 1)[1] >= 0
+            assert _pick_both(hist, int(edge))[1] == 0
+
+
+@pytest.mark.parametrize("shared_row", [True, False])
+def test_radix_pick_plain_is_pick_with_shifts(shared_row):
+    """radix_pick (CPU: its plain version) = `_pick` per target plus
+    (prefix << bits) | digit, the form select_order_statistics chains."""
+    rng = np.random.default_rng(8)
+    hists = rng.integers(0, 1000, (2, 1024)).astype(np.int32)
+    hists[1, :100] = 0
+    ranks = np.asarray([17, int(hists[0 if shared_row else 1].sum()) - 1], np.int64)
+    prefixes = np.asarray([3, 0x1FFFFF], np.int32)
+    got_p, got_k = radix_pick(
+        torch.from_numpy(hists), torch.from_numpy(ranks), torch.from_numpy(prefixes),
+        10, shared_row,
+    )
+    assert got_p.dtype == torch.int32 and got_k.dtype == torch.int64
+    for t in range(2):
+        b, left = _pick_both(hists[0 if shared_row else t], int(ranks[t]))
+        want = ((int(prefixes[t]) << 10) | b) & 0xFFFFFFFF
+        assert int(got_p[t]) & 0xFFFFFFFF == want and int(got_k[t]) == left
+    # an empty target: every bin's cumulative count is <= k
+    empty = torch.zeros((2, 1024), dtype=torch.int32)
+    p, k = radix_pick_plain(empty, torch.tensor([5, 0]), torch.zeros(2, dtype=torch.int32), 10, False)
+    assert p.tolist() == [1024, 1024] and k.tolist() == [5, 0]
+
+
+@pytest.mark.parametrize("offset,n_valid", [(1, 9997), (3, 1001), (2, 2), (1, 0)])
+def test_digit_histograms_offset_view_and_ragged_count(data, offset, n_valid):
+    """A view that starts inside a buffer (4-byte aligned only) with a valid
+    count that is no multiple of 4: the wrapper takes it as it is."""
+    x, _ = data
+    flat = torch.from_numpy(x[:20000])[offset:]
+    assert flat.data_ptr() % 16 != 0 or offset == 0
+    got = digit_histograms(
+        flat, torch.tensor([n_valid], dtype=torch.int32),
+        torch.zeros(2, dtype=torch.int32), 21, 11, None,
+    )
+    b = x[offset : offset + n_valid].view(np.uint32)
+    np.testing.assert_array_equal(got[0].numpy(), np.bincount(b >> 21, minlength=2048))
+    assert int(got[1].sum()) == 0
+
+
+def test_digit_histograms_rejects_strided_off_cpu():
+    nv = torch.tensor([4], dtype=torch.int32, device="meta")
+    p = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        digit_histograms(torch.zeros(16, device="meta")[::2], nv, p, 21, 11, None)
+    with pytest.raises(ValueError, match="unsupported device"):
+        select_order_statistics(torch.zeros(16, device="meta"), nv, p[:1].long(), p[:1].long())
+    with pytest.raises(ValueError, match="unsupported device"):
+        radix_pick(torch.zeros((2, 2048), dtype=torch.int32, device="meta"),
+                   p.long(), p, 11, True)
 
 
 def test_digit_histograms_wrapper_validates():
