@@ -16,7 +16,10 @@ Phases, each printing one JSON line and failing the run on any error:
            select_order_statistics bit-equal to a sort) and times kernel,
            plain version and a library call (the selection is three B2
            sweeps and three picks, no kernel of its own: it prints on a
-           line of its own, not as a kernel)
+           line of its own, not as a kernel); B1 and B2 again at the
+           streaming path's shapes (B1 on the 188784-frame normalize tile
+           and the 262144-frame stats tile in int16, B2 on a stats tile's
+           44.8 M values with a ragged valid count, all three levels)
   golden   `predict` on tests/fixtures/golden.wav with the bundled orcai-v1
            weights in float32 on cuda: the TSV must be byte-equal to
            tests/fixtures/golden_expected.txt
@@ -27,6 +30,22 @@ Phases, each printing one JSON line and failing the run on any error:
            (finite, in range, the spectrogram against the port's CPU path
            and the CRNN against the CPU model on a few windows)
 
+  streaming  the two-pass streaming path (ops/streaming.py) through
+           `predict`: the 20-minute recording with
+           ORCAI_TPU_STREAM_SPEC_BYTES=1, the audio resident and host-sliced
+           (TSV byte-equal to the in-memory one, aggregate within 1e-5,
+           counts equal, B1 = 5 and B2 = 3 launches), the golden wav at the
+           default tiles (byte-equal TSV), then a 4 h 40 min recording (the
+           20-minute PCM 14 times over, each repeat at its own gain) that
+           streams at the default budgets, resident and host-sliced: equal
+           TSVs, finite outputs in [0, 1], overlap counts in {1, 2}, exact
+           launches, and the host-sliced peak device memory within 64 MB
+           of the 20-minute host-sliced run's
+  table_serve  a three-row recording table (golden, the 20-minute wav, a
+           missing file) through `predict` with probabilities and the
+           default duration limits, then `serve` over a folder with the
+           same two wavs: both reproduce the single-file TSVs byte for byte
+
 Then one {"selection": {...}} line, one {"kernels": [...]} line, the card's `name, power.limit` from
 nvidia-smi, and last {"ok": true, "device": {...}}. Exits non-zero, with no
 result, when CUDA is unavailable or the package is missing.
@@ -35,7 +54,11 @@ result, when CUDA is unavailable or the package is missing.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import logging
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -47,6 +70,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 FIXTURES = ROOT / "tests" / "fixtures"
 MINUTES = 20.0  # the throughput cell: 225001 frames, 7 real tiles, 610 windows
+LONG_REPEATS = 14  # the streaming cell: 4 h 40 min, 3150001 frames, 8559 windows
+STATS_TILE, CHUNK_TILE = 1 << 18, (512 + 1) * 368  # the streaming path's tiles, frames
+PEAK_SLACK_BYTES = 64 * 1024 * 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SPIN_CYCLES = 8_000_000  # about 4 ms at the card's clock
@@ -170,6 +196,62 @@ def _b1_checks(torch, rng, dev) -> tuple[dict, dict]:
                   "n_fft": n_fft, "hop": hop, "tile": tile}
 
 
+def _streaming_shape_checks(torch, rng, dev, window) -> tuple[dict, dict]:
+    """B1 and B2 against their plain versions at the streaming path's
+    shapes; returns (errors, times and bounds for the kernels' rows)."""
+    import numpy as np
+
+    from orcai_tpu_torch.ops.dft import dft_magnitude, dft_magnitude_plain
+    from orcai_tpu_torch.ops.radix_select import (
+        _LEVELS, digit_histograms, digit_histograms_plain, radix_pick_plain,
+    )
+
+    n_fft, hop, n_bins, crop = 512, 256, 257, 171
+    errs, extra = {}, {}
+    for name, frames in (("normalize_tile", CHUNK_TILE), ("stats_tile", STATS_TILE)):
+        n = (frames - 1) * hop + n_fft
+        x = torch.from_numpy(rng.integers(-32768, 32768, n, dtype=np.int16)).to(dev)
+        got = dft_magnitude(x, window, n_fft=n_fft, hop=hop)
+        want = dft_magnitude_plain(x, window, n_fft=n_fft, hop=hop)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if got.shape != (frames, n_bins) or not err <= 2e-4:
+            raise AssertionError(f"B1 {name} ({frames} frames, int16): "
+                                 f"shape {tuple(got.shape)}, max |kernel - plain| {err}")
+        errs[f"b1_{name}_int16"] = err
+        del got, want
+        extra[f"b1_ms_{name}_int16"] = cuda_ms(
+            lambda: dft_magnitude(x, window, n_fft=n_fft, hop=hop), iters=5)
+        extra[f"b1_bound_ms_{name}_int16"] = bound(n * 2 + frames * n_bins * 4, 0.0)[0]
+        del x
+    # a stats tile's cropped magnitudes: |normal| * exp(3 normal) in the
+    # 20-minute recording's 225001 valid frames (an odd count), zeros after
+    n_total, n_valid = STATS_TILE * crop, 225001 * crop
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    flat = torch.zeros(n_total, dtype=torch.float32, device=dev)
+    flat[:n_valid] = torch.randn(n_valid, generator=g, device=dev).abs() * torch.exp(
+        3.0 * torch.randn(n_valid, generator=g, device=dev))
+    nv = torch.full((1,), n_valid, dtype=torch.int32, device=dev)
+    ranks = torch.tensor([int(0.01 * n_valid), int(0.999 * n_valid)], dtype=torch.int64,
+                         device=dev)
+    prefixes = torch.zeros(2, dtype=torch.int32, device=dev)
+    worst = 0.0
+    for level, (shift, bits, pshift) in enumerate(_LEVELS):
+        got = digit_histograms(flat, nv, prefixes, shift, bits, pshift)
+        want = digit_histograms_plain(flat, nv, prefixes, shift, bits, pshift)
+        worst = max(worst, float((got.double() - want.double()).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"B2 stats tile, level {level}: kernel != plain bincount")
+        if int(got[0].sum()) != n_valid and pshift is None:
+            raise AssertionError("B2 stats tile: level 0 does not count every valid value")
+        extra[f"b2_ms_stats_tile_level{level}"] = cuda_ms(
+            lambda: digit_histograms(flat, nv, prefixes, shift, bits, pshift))
+        prefixes, ranks = radix_pick_plain(want, ranks, prefixes, bits, pshift is None)
+    errs["b2_stats_tile"] = worst
+    extra["b2_bound_ms_stats_tile"] = bound(n_valid * 4 + 2 * 2048 * 4, 0.0)[0]
+    return errs, extra
+
+
 def _pick_checks(torch, dev, level_hists, level_ranks, level_prefixes) -> float:
     """The pick kernel bit-equal to its plain version (`_pick` and the
     shifts around it) on the selection's three real histograms and on an
@@ -229,6 +311,8 @@ def phase_kernels(torch, seed: int) -> tuple[dict, dict, dict]:
     rng = np.random.default_rng(seed)
     errs, b1_in = _b1_checks(torch, rng, dev)
     x32, x16, window = b1_in["x32"], b1_in["x16"], b1_in["window"]
+    stream_errs, stream_extra = _streaming_shape_checks(torch, rng, dev, window)
+    errs.update({k[3:]: v for k, v in stream_errs.items() if k.startswith("b1_")})
     n_fft, hop, tile = b1_in["n_fft"], b1_in["hop"], b1_in["tile"]
     n_bins = n_fft // 2 + 1
     win = torch.hann_window(n_fft, periodic=True, device=dev)
@@ -253,7 +337,10 @@ def phase_kernels(torch, seed: int) -> tuple[dict, dict, dict]:
         "library_ms": cuda_ms(lambda: torch.stft(
             x32, n_fft, hop_length=hop, window=win, center=False,
             return_complex=True).abs()),
-        "shape": f"tile {tile} frames x {n_bins} bins",
+        "shape": f"tile {tile} frames x {n_bins} bins; the *_normalize_tile_int16 and "
+                 f"*_stats_tile_int16 keys: the streaming path's {CHUNK_TILE}- and "
+                 f"{STATS_TILE}-frame tiles",
+        **{k[3:]: v for k, v in stream_extra.items() if k.startswith("b1_")},
     }
 
     # 20-minute main-path shape: 225001 valid frames x 171 bins inside the
@@ -269,7 +356,7 @@ def phase_kernels(torch, seed: int) -> tuple[dict, dict, dict]:
         raise AssertionError(f"selection {lo.item()}, {hi.item()} != sort {lo_p.item()}, {hi_p.item()}")
     # the three digit levels, with the prefixes and ranks the selection
     # walks through (taken from the plain versions)
-    b2_err = 0.0
+    b2_err = stream_errs["b2_stats_tile"]
     ranks = torch.cat([k_lo, k_hi])
     prefixes = torch.zeros(2, dtype=torch.int32, device=dev)
     level_hists, level_ranks, level_prefixes = [], [], []
@@ -311,7 +398,9 @@ def phase_kernels(torch, seed: int) -> tuple[dict, dict, dict]:
         "bound_ms": b2_bound, "bound_by": b2_by, "library_ms": None,
         "shape": f"{n_valid_elems} valid of {n_total}; ms: level 0 on the synthetic "
                  "spread, ms_prefixed: level 1, ms_real: level 0 on the 20-minute "
-                 "recording's magnitudes",
+                 "recording's magnitudes; the *_stats_tile keys: the same valid "
+                 f"count inside a streaming stats tile of {STATS_TILE * 171} values",
+        **{k[3:]: v for k, v in stream_extra.items() if k.startswith("b2_")},
     }
     pick_bound, pick_by = bound(2 * 2048 * 4 + 2 * (8 + 4) * 2, 0.0)
     pick_args = (level_hists[1], level_ranks[1], level_prefixes[1], 11, False)
@@ -359,6 +448,7 @@ def phase_kernels(torch, seed: int) -> tuple[dict, dict, dict]:
     line = {"phase": "kernels", "b1_max_abs_err": errs,
             "b1_max_abs_err_vs_float64": b1_in["vs64"],
             "b2_levels_bit_exact": True, "b2_unaligned_and_ragged_bit_exact": True,
+            "b2_stats_tile_levels_bit_exact": True,
             "pick_bit_equal_plain": True, "selection_bit_equal_sort": True}
     return line, {r["name"]: r for r in (b1, b2, pick)}, sel
 
@@ -370,9 +460,11 @@ def _counters():
     return (dft_magnitude, digit_histograms, radix_pick)
 
 
-def check_counts(counts: dict, b1: int, where: str) -> None:
-    """One B1 launch per real tile, three sweeps and three picks."""
-    want = {"dft_magnitude": b1, "digit_histograms": 3, "radix_pick": 3}
+def check_counts(counts: dict, b1: int, where: str, b2: int = 3, pick: int = 3) -> None:
+    """In memory: one B1 launch per real tile, three sweeps and three picks.
+    Streaming: B1 three times per stats tile and once per chunk, B2 three
+    times per stats tile, and the pick on the host from int64 counts."""
+    want = {"dft_magnitude": b1, "digit_histograms": b2, "radix_pick": pick}
     if counts != want:
         raise AssertionError(f"kernel launches on the {where} path {counts}, expected {want}")
 
@@ -382,11 +474,16 @@ def reset_counts() -> None:
         fn.launches = 0
 
 
-def read_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in _counters()}
+def read_counts(total: dict | None = None) -> dict:
+    """This path's launches; added to `total`, the run's sum over its paths."""
+    counts = {fn.__name__: fn.launches for fn in _counters()}
+    if total is not None:
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+    return counts
 
 
-def phase_golden(torch, tmp: Path) -> dict:
+def phase_golden(torch, tmp: Path, total: dict) -> dict:
     from orcai_tpu_torch.pipeline.predict import predict
 
     out = tmp / "golden_pred.txt"
@@ -395,7 +492,7 @@ def phase_golden(torch, tmp: Path) -> dict:
     predict(FIXTURES / "golden.wav", output_path=out, overwrite=True, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    counts = read_counts(total)
     same = out.read_bytes() == (FIXTURES / "golden_expected.txt").read_bytes()
     if not same:
         raise AssertionError(
@@ -406,7 +503,7 @@ def phase_golden(torch, tmp: Path) -> dict:
             "launches": counts}
 
 
-def phase_full(torch, tmp: Path, seed: int) -> tuple[dict, dict, dict]:
+def phase_full(torch, tmp: Path, seed: int, total: dict) -> tuple[dict, dict, dict]:
     import numpy as np
 
     from orcai_tpu_torch.io.model_store import load_orcai_model
@@ -441,7 +538,7 @@ def phase_full(torch, tmp: Path, seed: int) -> tuple[dict, dict, dict]:
     predict(wav, output_path=out, overwrite=True, predictor=predictor)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    counts = read_counts(total)
     peak = torch.cuda.max_memory_allocated()
     check_counts(counts, 7, "main")
     n_rows = len(out.read_text().splitlines()) - 1
@@ -507,7 +604,242 @@ def phase_full(torch, tmp: Path, seed: int) -> tuple[dict, dict, dict]:
         "spectrogram_max_abs_err_vs_cpu": spec_err,
         "crnn_max_abs_err_vs_cpu": crnn_err, **real,
     }
-    return line, counts, real
+    state = {"wav": wav, "tsv": out, "predictor": predictor, "param": param,
+             "shape": shape, "aggregated": aggregated, "overlap": overlap, "n_samples": n}
+    return line, real, state
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """Set environment variables for the block; the earlier values come back."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def kept_aggregates():
+    """Within the block, every StreamingPredictor.aggregate result is also
+    appended to the list this yields: `predict` hands back a path only, and
+    the checks below need the numbers it decoded."""
+    from orcai_tpu_torch.ops.streaming import StreamingPredictor
+
+    kept, real = [], StreamingPredictor.aggregate
+
+    def keeping(self, audio):
+        kept.append(real(self, audio))
+        return kept[-1]
+
+    StreamingPredictor.aggregate = keeping
+    try:
+        yield kept
+    finally:
+        StreamingPredictor.aggregate = real
+
+
+def _streamed_predict(torch, wav, out, predictor, total, where, b1, b2, **env) -> dict:
+    """One `predict` that must take the streaming path, with the
+    environment given; returns its wall, peak memory, launches and
+    (aggregated, overlap counts)."""
+    from orcai_tpu_torch.pipeline.predict import predict
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with environ(**env), kept_aggregates() as kept:
+        t0 = time.perf_counter()
+        predict(wav, output_path=out, overwrite=True, predictor=predictor)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = read_counts(total)
+    if len(kept) != 1:
+        raise AssertionError(f"{where}: predict did not take the streaming path")
+    check_counts(counts, b1, where, b2=b2, pick=0)
+    return {"wall_s": wall, "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "device_bytes_before": base, "launches": counts, "result": kept[0]}
+
+
+def streaming_launches(n_samples: int, predictor, hop: int) -> tuple[int, int]:
+    """(B1, B2) launches of one streamed recording: B1 three times per stats
+    tile and once per 512-window chunk, B2 three times per stats tile."""
+    n_frames = 1 + n_samples // hop
+    n_win = (n_frames - predictor.snippet_len) // predictor.shift + 1
+    n_tiles, n_chunks = -(-n_frames // STATS_TILE), -(-n_win // 512)
+    return 3 * n_tiles + n_chunks, 3 * n_tiles
+
+
+def phase_streaming(torch, tmp: Path, seed: int, state: dict, total: dict) -> dict:
+    import numpy as np
+
+    from orcai_tpu_torch.pipeline.predict import _is_streaming_recording
+    from orcai_tpu_torch.tools.synthetic import synth_long_recording
+
+    predictor, sp = state["predictor"], state["param"]["spectrogram"]
+    n_bins = state["shape"]["input_shape"][1]
+    line = {"phase": "streaming"}
+
+    # the 20-minute recording, forced onto the streaming path: 225001 frames
+    # are 1 stats tile and 610 windows 2 chunks, so B1 = 5 and B2 = 3
+    tsv = state["tsv"].read_bytes()
+    b1_20, b2_20 = streaming_launches(state["n_samples"], predictor, sp["n_overlap"])
+    for name, env in (("resident", {}), ("host_sliced", {"ORCAI_TPU_HBM_AUDIO_BYTES": 0})):
+        out = tmp / f"stream20_{name}.txt"
+        run = _streamed_predict(torch, state["wav"], out, predictor, total,
+                                f"20-minute streaming ({name})", b1_20, b2_20,
+                                ORCAI_TPU_STREAM_SPEC_BYTES=1, **env)
+        agg, cnt = run.pop("result")
+        if out.read_bytes() != tsv:
+            raise AssertionError(f"20-minute streaming ({name}): TSV differs from in-memory")
+        if not np.array_equal(cnt, state["overlap"]):
+            raise AssertionError(f"20-minute streaming ({name}): overlap counts differ")
+        run["aggregate_max_abs_diff_vs_in_memory"] = float(
+            np.abs(agg - state["aggregated"]).max())
+        if not run["aggregate_max_abs_diff_vs_in_memory"] <= 1e-5:
+            raise AssertionError(f"20-minute streaming ({name}): aggregate off by "
+                                 f"{run['aggregate_max_abs_diff_vs_in_memory']} > 1e-5")
+        run["tsv_byte_equal_in_memory"] = True
+        line[f"min20_{name}"] = run
+    peak20 = line["min20_host_sliced"]["peak_device_bytes"]
+
+    # golden (60 s, 2880000 samples) at the default tiles: 1 stats tile, 1 chunk
+    out = tmp / "golden_stream.txt"
+    run = _streamed_predict(torch, FIXTURES / "golden.wav", out, predictor, total,
+                            "golden streaming",
+                            *streaming_launches(2_880_000, predictor, sp["n_overlap"]),
+                            ORCAI_TPU_STREAM_SPEC_BYTES=1)
+    run.pop("result")
+    if out.read_bytes() != (FIXTURES / "golden_expected.txt").read_bytes():
+        raise AssertionError("golden streaming: TSV differs from golden_expected.txt")
+    run["tsv_byte_equal"] = True
+    line["golden"] = run
+
+    # the path at a size that needs it: no variable set, `predict` streams
+    long_wav = tmp / "synthetic_long.wav"
+    t0 = time.perf_counter()
+    n = synth_long_recording(long_wav, state["wav"], seed, LONG_REPEATS)
+    line["long_synth_s"] = time.perf_counter() - t0
+    if not _is_streaming_recording(n, sp, state["shape"]):
+        raise AssertionError("the long recording does not pass the spectrogram budget")
+    n_frames = 1 + n // sp["n_overlap"]
+    n_win = (n_frames - predictor.snippet_len) // predictor.shift + 1
+    b1_long, b2_long = streaming_launches(n, predictor, sp["n_overlap"])
+    line.update({"long_samples": n, "long_frames": n_frames, "long_windows": n_win,
+                 "long_stats_tiles": b2_long // 3, "long_chunks": b1_long - b2_long})
+    outs = {}
+    for name, env in (("resident", {}), ("host_sliced", {"ORCAI_TPU_HBM_AUDIO_BYTES": 0})):
+        outs[name] = tmp / f"long_{name}.txt"
+        run = _streamed_predict(torch, long_wav, outs[name], predictor, total,
+                                f"long streaming ({name})", b1_long, b2_long, **env)
+        agg, cnt = run.pop("result")
+        if agg.shape != (n_frames // predictor.down, predictor.n_labels(n_bins)):
+            raise AssertionError(f"long streaming ({name}): aggregated shape {agg.shape}")
+        if not (np.isfinite(agg).all() and agg.min() >= 0 and agg.max() <= 1):
+            raise AssertionError(f"long streaming ({name}): outputs not finite in [0, 1]")
+        if set(np.unique(cnt[: (n_win - 1) * predictor.shift_out])) - {1.0, 2.0}:
+            raise AssertionError(f"long streaming ({name}): overlap counts outside {{1, 2}}")
+        run["tsv_rows"] = len(outs[name].read_text().splitlines()) - 1
+        line[f"long_{name}"] = run
+    if outs["resident"].read_bytes() != outs["host_sliced"].read_bytes():
+        raise AssertionError("long streaming: resident and host-sliced TSVs differ")
+    line["long_tsvs_byte_equal"] = True
+    growth = line["long_host_sliced"]["peak_device_bytes"] - peak20
+    line["long_host_sliced_peak_minus_min20_host_sliced_peak"] = growth
+    if abs(growth) > PEAK_SLACK_BYTES:
+        raise AssertionError(
+            f"peak device memory grew with the recording: {growth} bytes from the "
+            f"20-minute to the long host-sliced run (limit {PEAK_SLACK_BYTES})")
+    long_wav.unlink()
+    return line
+
+
+class _ServeLatency(logging.Handler):
+    """Collects (wav name, seconds) from the service's per-file log line."""
+
+    def __init__(self):
+        super().__init__(level=logging.INFO)
+        self.rows = []
+
+    def emit(self, record):
+        if isinstance(record.msg, str) and record.msg.startswith("%s -> %s"):
+            self.rows.append((record.args[0], float(record.args[2])))
+
+
+def phase_table_serve(torch, tmp: Path, state: dict, total: dict) -> dict:
+    from orcai_tpu_torch.pipeline.predict import DEFAULT_CALL_DURATION_LIMITS, predict
+    from orcai_tpu_torch.pipeline.serve import serve
+
+    golden_tsv = (FIXTURES / "golden_expected.txt").read_bytes()
+    full_tsv = state["tsv"].read_bytes()
+    recs = tmp / "recordings"
+    recs.mkdir()
+    shutil.copy(FIXTURES / "golden.wav", recs / "golden.wav")
+    os.link(state["wav"], recs / "synthetic_20min.wav")
+    table = tmp / "recording_table.csv"
+    table.write_text(
+        "recording,channel,base_dir_recording,rel_recording_path\n"
+        f"golden,1,{recs},golden.wav\n"
+        f"synthetic_20min,1,{recs},synthetic_20min.wav\n"
+        f"missing,1,{recs},missing.wav\n"
+    )
+    out_dir = tmp / "table_out"
+    reset_counts()
+    t0 = time.perf_counter()
+    saved = predict(table, output_path=out_dir, save_probabilities=True,
+                    call_duration_limits=DEFAULT_CALL_DURATION_LIMITS,
+                    predictor=state["predictor"])
+    torch.cuda.synchronize()
+    table_wall = time.perf_counter() - t0
+    table_counts = read_counts(total)
+    check_counts(table_counts, 1 + 7, "table", b2=6, pick=6)
+    want = {"golden": golden_tsv, "synthetic_20min": full_tsv}
+    if [p.name for p in saved] != [f"{r}_orcai-v1_predicted.txt" for r in want]:
+        raise AssertionError(f"table: saved {[p.name for p in saved]}")
+    for rec, tsv in want.items():
+        if (out_dir / f"{rec}_orcai-v1_predicted.txt").read_bytes() != tsv:
+            raise AssertionError(f"table: {rec} TSV differs from the single-file predict")
+        if not (out_dir / f"{rec}_orcai-v1_predicted_probabilities.csv.gz").exists():
+            raise AssertionError(f"table: {rec} has no probabilities file")
+    if (out_dir / "missing_orcai-v1_predicted.txt").exists():
+        raise AssertionError("table: the missing row produced a file")
+
+    # the service over the same two wavs: its own predictor, a stub sleep
+    serve_out = tmp / "serve_out"
+    latency = _ServeLatency()
+    serve_log = logging.getLogger("orcai_tpu_torch.pipeline.serve")
+    serve_log.addHandler(latency)
+    level = serve_log.level
+    serve_log.setLevel(logging.INFO)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        n = serve(recs, output_dir=serve_out, poll_seconds=0, max_files=2,
+                  sleep=lambda _: None)
+    finally:
+        serve_log.removeHandler(latency)
+        serve_log.setLevel(level)
+    torch.cuda.synchronize()
+    serve_wall = time.perf_counter() - t0
+    serve_counts = read_counts(total)
+    check_counts(serve_counts, 1 + 7, "serve", b2=6, pick=6)
+    if n != 2 or list(serve_out.glob("*.failed")):
+        raise AssertionError(f"serve: processed {n} files, markers "
+                             f"{[p.name for p in serve_out.glob('*.failed')]}")
+    for rec, tsv in want.items():
+        if (serve_out / f"{rec}_c1_orcai-v1_predicted.txt").read_bytes() != tsv:
+            raise AssertionError(f"serve: {rec} TSV differs from the single-file predict")
+    return {"phase": "table_serve", "table_wall_s": table_wall,
+            "table_launches": table_counts, "table_tsvs_byte_equal": True,
+            "missing_row_skipped": True, "serve_wall_s": serve_wall,
+            "serve_launches": serve_counts, "serve_tsvs_byte_equal": True,
+            "serve_file_latency_s": latency.rows}
 
 
 def main(argv=None) -> int:
@@ -533,22 +865,30 @@ def main(argv=None) -> int:
             phase = "kernels"
             line, rows, sel = phase_kernels(torch, args.seed)
             emit(line)
+            total: dict = {}
             phase = "golden"
-            emit(phase_golden(torch, Path(tmp)))
+            emit(phase_golden(torch, Path(tmp), total))
             phase = "full"
-            line, counts, real = phase_full(torch, Path(tmp), args.seed)
+            line, real, state = phase_full(torch, Path(tmp), args.seed, total)
             emit(line)
+            phase = "streaming"
+            emit(phase_streaming(torch, Path(tmp), args.seed, state, total))
+            phase = "table_serve"
+            emit(phase_table_serve(torch, Path(tmp), state, total))
     except Exception as e:  # report the phase, then fail the run
         traceback.print_exc()
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
+    # every kernel's launches, summed over the paths driven above (golden,
+    # 20-minute, streaming, table, service); each path asserted its own
     for name, row in rows.items():
-        row["launches"] = counts[name]
+        row["launches"] = total[name]
     rows["digit_histograms"]["ms_real"] = real["b2_ms_real"]
     # not a kernel of its own: the sweeps and picks above, whose main-path
     # launches it made
-    sel["b2_launches"] = counts["digit_histograms"]
-    sel["pick_launches"] = counts["radix_pick"]
+    # (picks run only inside a selection, each beside one of its sweeps; the
+    # streaming path's sweeps are B2's own and its pick is on the host)
+    sel["b2_launches"] = sel["pick_launches"] = total["radix_pick"]
     sel["ms_real"] = real["selection_ms_real"]
     emit({"selection": sel})
     emit({"kernels": list(rows.values())})

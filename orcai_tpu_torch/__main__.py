@@ -1,6 +1,9 @@
-"""Command line: python -m orcai_tpu_torch predict <wav> [options].
+"""Command line: python -m orcai_tpu_torch <command> [options].
 
-The flags follow `orcai predict` (orcai_tpu/cli.py) for a single wav file.
+The commands and flags follow `orcai predict`, `orcai filter-predictions`,
+`orcai serve` and `orcai warmup` (orcai_tpu/cli.py), without the wire
+codec and the choice among bundled models. Every command that computes
+runs on `--device cuda` unless told otherwise, and raises without CUDA.
 """
 
 from __future__ import annotations
@@ -9,46 +12,134 @@ import argparse
 import logging
 import sys
 
+_LOG_LEVELS = {0: logging.ERROR, 1: logging.WARNING, 2: logging.INFO, 3: logging.DEBUG}
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(
-        prog="python -m orcai_tpu_torch",
-        description="orcAI on PyTorch/CUDA",
-    )
-    sub = parser.add_subparsers(dest="command", required=True)
-    p = sub.add_parser("predict", help="Predicts call annotations in a wav file.")
-    p.add_argument("recording_path", help="path to a .wav recording")
+
+def _common(p: argparse.ArgumentParser, device: bool = True) -> None:
+    p.add_argument("--verbosity", "-v", type=int, choices=range(4), default=2,
+                   help="0: errors only, 1: warnings, 2: info (default), 3: debug")
+    if device:
+        p.add_argument("--device", default="cuda",
+                       help="torch device: cuda (default) or cpu")
+
+
+def _predict_options(p: argparse.ArgumentParser) -> None:
+    """The options `predict` and `serve` share."""
     p.add_argument("--channel", "-c", type=int, default=1,
                    help="channel to use for prediction (default: 1)")
     p.add_argument("--model_dir", "-md", default=None,
                    help="path to a model directory (default: bundled orcai-v1)")
-    p.add_argument("--output_path", "-o", default="default",
-                   help="output file, or 'default' to save next to the wav")
     p.add_argument("--overwrite", "-ow", action="store_true",
                    help="overwrite existing predictions")
+    p.add_argument("--save_probabilities", "-sp", action="store_true",
+                   help="save prediction probabilities beside each TSV")
+    p.add_argument("--call_duration_limits", "-cdl", default=None,
+                   help="JSON file with call duration limits (default: no filtering)")
     p.add_argument("--label_suffix", "-ls", default="*",
                    help="suffix to add to the label names (default: *)")
     p.add_argument("--predict_batch_size", "-bs", type=int, default=128,
                    help="window batch size for on-device inference (default: 128)")
-    p.add_argument("--device", default="cuda",
-                   help="torch device: cuda (default) or cpu")
-    args = parser.parse_args(argv)
 
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
 
-    from orcai_tpu_torch.pipeline.predict import predict
+def _parser() -> argparse.ArgumentParser:
+    from orcai_tpu_torch.pipeline.predict import DEFAULT_CALL_DURATION_LIMITS
 
-    out = predict(
-        args.recording_path,
-        channel=args.channel,
-        model_dir=args.model_dir,
-        output_path=args.output_path,
-        overwrite=args.overwrite,
-        label_suffix=args.label_suffix,
-        predict_batch_size=args.predict_batch_size,
-        device=args.device,
+    parser = argparse.ArgumentParser(
+        prog="python -m orcai_tpu_torch", description="orcAI on PyTorch/CUDA"
     )
-    print(out)
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    def command(name: str, text: str) -> argparse.ArgumentParser:
+        return sub.add_parser(name, help=text, description=text)
+
+    p = command(
+        "predict",
+        "Predicts call annotations in a wav file or in every row of a "
+        "recording table (.csv).",
+    )
+    p.add_argument("recording_path", help="path to a .wav recording or a .csv table")
+    _predict_options(p)
+    p.add_argument("--output_path", "-o", default="default",
+                   help="output file (folder for a table), or 'default' to save "
+                        "next to the wav")
+    p.add_argument("--base_dir_recording", "-bdr", default=None,
+                   help="alternative base directory containing the recordings")
+    _common(p)
+
+    p = command(
+        "serve",
+        "Watches WATCH_DIR for new wav recordings and predicts each as it "
+        "arrives, holding one model for the life of the process. Failures "
+        "leave a .failed marker and the service keeps running.",
+    )
+    p.add_argument("watch_dir", help="directory to watch for .wav files")
+    _predict_options(p)
+    p.add_argument("--output_dir", "-o", default=None,
+                   help="directory for the prediction TSVs (default: next to each wav)")
+    p.add_argument("--poll_seconds", "-ps", type=float, default=2.0,
+                   help="directory poll interval (default: 2)")
+    p.add_argument("--warm_minutes", "-wm", type=float, default=0.0,
+                   help="run every recording-length shape up to this duration "
+                        "before serving (default: 0)")
+    p.add_argument("--max_files", "-mf", type=int, default=None,
+                   help="stop after processing this many recordings")
+    _common(p)
+
+    p = command(
+        "warmup",
+        "Builds the kernels and runs the predict path once for every "
+        "recording-length shape up to --minutes.",
+    )
+    p.add_argument("--minutes", "-mi", type=float, default=90.0,
+                   help="longest recording duration to cover (default: 90)")
+    p.add_argument("--model_dir", "-md", default=None,
+                   help="path to a model directory (default: bundled orcai-v1)")
+    p.add_argument("--predict_batch_size", "-bs", type=int, default=128,
+                   help="window batch size (default: 128)")
+    _common(p)
+
+    p = command(
+        "filter-predictions",
+        "Filters the predictions file at PREDICTED_LABELS by call duration.",
+    )
+    p.add_argument("predicted_labels", help="path to a predictions TSV")
+    p.add_argument("--call_duration_limits", "-cdl",
+                   default=str(DEFAULT_CALL_DURATION_LIMITS),
+                   help="JSON file with call duration limits "
+                        "(default: default_call_duration_limits.json)")
+    p.add_argument("--output_file", "-o", default="default",
+                   help="output file, or 'default' to save next to the predictions")
+    p.add_argument("--overwrite", "-ow", action="store_true",
+                   help="overwrite existing predictions")
+    p.add_argument("--label_suffix", "-ls", default="*",
+                   help="suffix that was added to the label names (default: *)")
+    _common(p, device=False)
+    return parser
+
+
+def main(argv=None) -> int:
+    args = vars(_parser().parse_args(argv))
+    command = args.pop("command")
+    logging.basicConfig(level=_LOG_LEVELS[args.pop("verbosity")], format="%(message)s")
+
+    if command == "predict":
+        from orcai_tpu_torch.pipeline.predict import predict
+
+        print(predict(**args))
+    elif command == "serve":
+        from orcai_tpu_torch.pipeline.serve import serve
+
+        print(serve(**args))
+    elif command == "warmup":
+        from orcai_tpu_torch.tools.warmup import warmup
+
+        n = warmup(args["minutes"], args["model_dir"], args["predict_batch_size"],
+                   device=args["device"])
+        print(f"Warmed {n} recording-length shapes")
+    else:
+        from orcai_tpu_torch.pipeline.predict import filter_predictions_file
+
+        print(filter_predictions_file(**args))
     return 0
 
 

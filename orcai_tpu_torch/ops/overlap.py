@@ -8,8 +8,10 @@ binary threshold 0.5 / max(overlap_count). Windows are cut out of the
 device-resident spectrogram, run through the model in batches, and
 scatter-added (index_add_) into one output grid whose last row is a trash
 row for the padding windows of the last chunk; only that small grid comes
-back to the host. The sharded (mesh) path and the dense trunk are not
-ported yet.
+back to the host. A chunk's frame offset into the tensor it is given is
+separate from the window index that decides its output rows, so the
+streaming path (ops/streaming.py) can hand in one normalized tile at a time.
+The sharded (mesh) path and the dense trunk are not ported yet.
 """
 
 from __future__ import annotations
@@ -103,20 +105,45 @@ class WindowPredictor:
             n_out_pad += self.shift_out
         return n_win, tuple(chunks), required, n_out_pad
 
+    def plan_signature(self, t: int, src_len: int) -> tuple:
+        """(spec buffer length, chunks, n_out_pad) for a recording of t valid
+        frames arriving in a (src_len, bins) device buffer: the shapes that
+        decide which buffers and chunk sizes the recording runs with
+        (tools/warmup.py enumerates their distinct values)."""
+        _, chunks, required, n_out_pad = self.plan(t)
+        target = _next_pow2(required)
+        spec_len = src_len if src_len >= target else target
+        return spec_len, chunks, n_out_pad
+
+    def n_labels(self, n_bins: int) -> int:
+        """Number of labels the model predicts (n_bins is kept for the
+        reference's signature; the module knows its own width)."""
+        return int(self.model.num_labels)
+
+    def planned_spec_bytes(self, t: int, n_bins: int, src_len: int) -> int:
+        """Device bytes aggregate_device holds for a (src_len, bins) float32
+        spectrogram of t valid frames: the source buffer plus the re-padded
+        copy _ensure_device makes when the chunk plan's power-of-two span
+        exceeds src_len."""
+        target = _next_pow2(self.plan(t)[2])
+        padded = target if src_len < target else 0
+        return (src_len + padded) * n_bins * 4
+
     def _run_chunk(
         self,
         agg: torch.Tensor,
         count: torch.Tensor,
         spec: torch.Tensor,
         wpc: int,
+        f0: int,
         w0: int,
         n_win_valid: int,
     ) -> None:
-        """Scatter-add the wpc windows starting at window w0 into agg/count
-        (in place); windows >= n_win_valid go to the trash row."""
+        """Scatter-add the wpc windows that start at frame f0 of `spec` into
+        agg/count (in place) as windows w0, w0 + 1, ... of the recording;
+        the chunk's windows >= n_win_valid go to the trash row."""
         n_out_pad = agg.shape[0] - 1
         n_bins = spec.shape[1]
-        f0 = w0 * self.shift
         chunk = spec[f0 : f0 + (wpc + 1) * self.shift]
         halves = chunk.reshape(wpc + 1, self.shift, n_bins)
         windows = torch.cat([halves[:-1], halves[1:]], dim=1)[..., None]
@@ -148,6 +175,13 @@ class WindowPredictor:
         padded[: spectrogram.shape[0]] = spectrogram
         return padded
 
+    def _zero_grid(self, n_out_pad: int, n_labels: int):
+        """Fresh (agg, count) device buffers with a trash row."""
+        return (
+            torch.zeros((n_out_pad + 1, n_labels), dtype=torch.float32, device=self.device),
+            torch.zeros((n_out_pad + 1,), dtype=torch.float32, device=self.device),
+        )
+
     @torch.inference_mode()
     def aggregate_device(self, spectrogram, n_frames: int | None = None):
         """Spectrogram -> device (prob_sum (n_out_pad+1, L), count) buffers,
@@ -162,13 +196,13 @@ class WindowPredictor:
             )
         n_win, chunks, required, n_out_pad = self.plan(t)
         spec = self._ensure_device(spectrogram, t, required, n_bins)
-        n_labels = self.model.num_labels
-        agg = torch.zeros((n_out_pad + 1, n_labels), dtype=torch.float32, device=spec.device)
-        count = torch.zeros((n_out_pad + 1,), dtype=torch.float32, device=spec.device)
+        agg, count = self._zero_grid(n_out_pad, self.n_labels(n_bins))
         w0 = 0
         for wpc, n_repeat in chunks:
             for _ in range(n_repeat):
-                self._run_chunk(agg, count, spec, wpc, w0, min(wpc, n_win - w0))
+                self._run_chunk(
+                    agg, count, spec, wpc, w0 * self.shift, w0, min(wpc, n_win - w0)
+                )
                 w0 += wpc
         return agg, count, t // self.down
 

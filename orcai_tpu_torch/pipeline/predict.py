@@ -1,18 +1,28 @@
-"""Prediction pipeline: one wav recording -> Audacity-format label file.
+"""Prediction pipeline: wav recording(s) -> Audacity-format label files.
 
-Counterpart of orcai_tpu/pipeline/predict.py for a single .wav on the
-in-memory path: the spectrogram frontend, windowed inference and
-overlap-add run on the device (ops/frontend.py, ops/overlap.py); run
-lengths and the table output run on the host, without pandas. Output
-contract: `<stem>_c<channel>_<model>_predicted.txt`, a TSV of start/stop
-seconds rounded to 4 places and the label with its suffix, byte-equal to
-what the reference writes. Recording tables (.csv), duration filtering,
-probability files and the streaming path are not ported yet.
+Counterpart of orcai_tpu/pipeline/predict.py: one .wav or every row of a
+recording table (.csv). The spectrogram frontend, windowed inference and
+overlap-add run on the device (ops/frontend.py, ops/overlap.py, and
+ops/streaming.py for recordings beyond the spectrogram budget); run
+lengths, duration filtering and the table output run on the host, without
+pandas. Output contract: `<stem>_c<channel>_<model>_predicted.txt`, a TSV
+of start/stop seconds rounded to 4 places and the label with its suffix,
+an optional `*_probabilities.csv.gz`, both byte-equal in text to what the
+reference writes. The coded wires, the mesh and the per-process sharding
+of a table are not ported.
+
+Three byte budgets, each an environment variable: a recording whose
+spectrogram would pass ORCAI_TPU_STREAM_SPEC_BYTES (default 4e9) takes the
+two-pass streaming path; that path keeps the audio on the device when it
+fits ORCAI_TPU_HBM_AUDIO_BYTES (default 8e9); a table dispatches
+recordings in waves of at most ORCAI_TPU_WAVE_HBM_BYTES (default 6e9) of
+device-resident spectrograms before it fetches and saves them.
 """
 
 from __future__ import annotations
 
 import csv
+import gzip
 import logging
 import os
 from pathlib import Path
@@ -23,12 +33,102 @@ import torch
 from orcai_tpu_torch.io.jsonio import read_json
 from orcai_tpu_torch.io.model_store import DEFAULT_MODEL_DIR, load_orcai_model
 from orcai_tpu_torch.io.wav import load_wav_for_frontend
-from orcai_tpu_torch.ops.frontend import make_spectrogram_from_params_device
+from orcai_tpu_torch.ops.frontend import (
+    _bucket_frames,
+    make_spectrogram_from_params_device,
+)
 from orcai_tpu_torch.ops.overlap import WindowPredictor
+from orcai_tpu_torch.ops.streaming import StreamingPredictor
 from orcai_tpu_torch.utils.device import exact_f32_math, resolve_device
 from orcai_tpu_torch.utils.rle import runs_from_binary_matrix
 
 log = logging.getLogger(__name__)
+
+# the limits shipped with the repository, found by path beside this package
+DEFAULT_CALL_DURATION_LIMITS = (
+    Path(__file__).resolve().parents[2]
+    / "orcai_tpu" / "defaults" / "default_call_duration_limits.json"
+)
+
+
+# ---------------------------------------------------------------- filtering
+
+
+def _duration_bounds(label: str, limits: dict) -> tuple[float, float]:
+    if label in limits:
+        lo, hi = limits[label]
+    elif "default" in limits:
+        lo, hi = limits["default"]
+    else:
+        lo, hi = None, None
+    return (0.0 if lo is None else lo), (np.inf if hi is None else hi)
+
+
+def filter_predictions(
+    predicted_labels: list[tuple],
+    delta_t: float,
+    call_duration_limits: dict | Path | str = DEFAULT_CALL_DURATION_LIMITS,
+    label_suffix: str = "*",
+) -> list[tuple]:
+    """Drop (start, stop, label) rows outside their per-call duration limits.
+
+    Limits are keyed by the label with the prediction suffix stripped,
+    falling back to a "default" entry; durations are compared in seconds,
+    (stop - start) * delta_t. The kept rows keep their order.
+    """
+    if isinstance(call_duration_limits, (Path, str)):
+        call_duration_limits = read_json(call_duration_limits)
+    kept, n_short, n_long = [], 0, 0
+    for row in predicted_labels:
+        start, stop, label = row
+        lo, hi = _duration_bounds(
+            label.replace(label_suffix, ""), call_duration_limits
+        )
+        dur_s = (stop - start) * delta_t
+        if dur_s < lo:
+            n_short += 1
+        elif dur_s > hi:
+            n_long += 1
+        else:
+            kept.append(row)
+    log.info(
+        "Discarding %d calls based on duration (too short: %d, too long: %d)",
+        n_short + n_long, n_short, n_long,
+    )
+    return kept
+
+
+def filter_predictions_file(
+    predicted_labels: Path | str,
+    output_file: Path | str = "default",
+    overwrite: bool = False,
+    call_duration_limits: dict | Path | str = DEFAULT_CALL_DURATION_LIMITS,
+    label_suffix: str = "*",
+) -> Path:
+    """Re-filter an existing predictions TSV (already in seconds: delta_t=1);
+    returns the path written."""
+    if output_file == "default":
+        filename = Path(predicted_labels).stem + "_filtered.txt"
+        output_file = Path(predicted_labels).with_name(filename)
+    else:
+        output_file = Path(output_file)
+    log.info("Output file: %s", output_file)
+    if output_file.exists() and not overwrite:
+        raise FileExistsError(f"Annotation file already exists: {output_file}")
+    with open(predicted_labels, newline="", encoding="utf-8") as f:
+        rows = [
+            (float(r["start"]), float(r["stop"]), r["label"])
+            for r in csv.DictReader(f, delimiter="\t")
+        ]
+    kept = filter_predictions(
+        rows, delta_t=1, call_duration_limits=call_duration_limits,
+        label_suffix=label_suffix,
+    )
+    save_predictions(kept, output_file, delta_t=1)
+    return output_file
+
+
+# ---------------------------------------------------------------- decoding
 
 
 def compute_labels(
@@ -61,14 +161,43 @@ def resolve_predict_dtype() -> torch.dtype:
     return torch.bfloat16 if name == "bf16" else torch.float32
 
 
+def _is_streaming_recording(n_samples: int, sp: dict, shape: dict) -> bool:
+    """Whether a recording exceeds the spectrogram budget and takes the
+    two-pass streaming path (ops/streaming.py: bounded device memory, same
+    outputs)."""
+    n_frames_est = 1 + n_samples // sp["n_overlap"]
+    spec_budget = int(os.environ.get("ORCAI_TPU_STREAM_SPEC_BYTES", 4_000_000_000))
+    return 2 * n_frames_est * shape["input_shape"][1] * 4 > spec_budget
+
+
+def _check_bins(n_bins: int, recording_path: Path, shape: dict) -> None:
+    if n_bins != shape["input_shape"][1]:
+        raise ValueError(
+            f"Spectrogram shape ({n_bins}) for {recording_path.stem} not equal "
+            f"to input shape ({shape['input_shape'][1]})"
+        )
+
+
 def _dispatch_wav(
     recording_path: Path | str,
     channel: int,
     predictor: WindowPredictor,
     orcai_parameter: dict,
     shape: dict,
+    on_estimate=None,
 ) -> dict:
-    """Load one wav and queue its whole device chain, without fetching."""
+    """Load one wav and queue its whole device chain, without fetching.
+
+    `on_estimate(est_bytes)` fires after the host read and before any
+    device work, with this recording's device-resident estimate: a table's
+    wave uses it to fetch what is pending first, so peak device memory
+    stays at the wave budget and not at the budget plus one recording.
+
+    Returns a dispatch record for _finish_wav. An in-memory recording leaves
+    its output grids on the device (mode "device"); a recording beyond the
+    spectrogram budget runs the two-pass streaming path at once and comes
+    back fetched (mode "host").
+    """
     recording_path = Path(recording_path)
     sp = orcai_parameter["spectrogram"]
     audio, multichannel = load_wav_for_frontend(
@@ -77,23 +206,60 @@ def _dispatch_wav(
     if multichannel:
         log.warning("Multiple channels found, using channel %d", channel)
     log.info("Prediction of annotations for wav_file: %s", recording_path.stem)
+    n_frames_est = 1 + audio.shape[-1] // sp["n_overlap"]
+    n_bins_est = shape["input_shape"][1]
+
+    if _is_streaming_recording(audio.shape[-1], sp, shape):
+        log.info(
+            "Recording of %d frames exceeds the spectrogram budget: two-pass "
+            "streaming inference", n_frames_est,
+        )
+        if on_estimate is not None:
+            # the streaming path keeps the audio on the device (up to its own
+            # budget) beside its tile transients: fetch the pending wave
+            # first, so the peak is the larger of the two and not their sum
+            on_estimate(min(
+                int(audio.nbytes),
+                int(os.environ.get("ORCAI_TPU_HBM_AUDIO_BYTES", 8_000_000_000)),
+            ))
+        streaming = StreamingPredictor(predictor, sp)
+        _check_bins(streaming.hi_idx - streaming.lo_idx, recording_path, shape)
+        aggregated, overlap_count = streaming.aggregate(audio)
+        return {
+            "mode": "host",
+            "agg": aggregated,
+            "count": overlap_count,
+            "delta_t": sp["n_overlap"] / sp["sampling_rate"],
+            "est_bytes": 0,
+        }
+
+    if on_estimate is not None:
+        bucket = _bucket_frames(n_frames_est)
+        on_estimate(
+            bucket * n_bins_est * 4
+            + predictor.planned_spec_bytes(n_frames_est, n_bins_est, bucket)
+        )
     spec_dev, n_frames, _, times = make_spectrogram_from_params_device(
         audio, sp, device=predictor.device
     )
-    if spec_dev.shape[1] != shape["input_shape"][1]:
-        raise ValueError(
-            f"Spectrogram shape ({spec_dev.shape[1]}) for "
-            f"{recording_path.stem} not equal to input shape "
-            f"({shape['input_shape'][1]})"
-        )
+    _check_bins(spec_dev.shape[1], recording_path, shape)
     agg_dev, count_dev, n_out_total = predictor.aggregate_device(
         spec_dev, n_frames=n_frames
     )
+    # what this recording leaves on the device until its fetch: the
+    # frontend's magnitudes (one bucket), the spectrogram and any re-padded
+    # copy the chunk plan forces, beside the small output grids
+    est_bytes = _bucket_frames(n_frames) * spec_dev.shape[1] * 4
+    est_bytes += predictor.planned_spec_bytes(
+        n_frames, spec_dev.shape[1], spec_dev.shape[0]
+    )
     return {
+        "mode": "device",
         "agg_dev": agg_dev,
         "count_dev": count_dev,
         "n_out": n_out_total,
         "delta_t": float(times[1] - times[0]),
+        "est_bytes": est_bytes,
     }
 
 
@@ -104,9 +270,12 @@ def _finish_wav(
     label_suffix: str = "*",
 ) -> tuple[list[tuple[int, int, str]], np.ndarray, float]:
     """Fetch a dispatch record's outputs and decode them to a label table."""
-    aggregated, overlap_count = predictor.fetch_aggregated(
-        disp.pop("agg_dev"), disp.pop("count_dev"), disp["n_out"]
-    )
+    if disp["mode"] == "device":
+        aggregated, overlap_count = predictor.fetch_aggregated(
+            disp.pop("agg_dev"), disp.pop("count_dev"), disp["n_out"]
+        )
+    else:
+        aggregated, overlap_count = disp["agg"], disp["count"]
     binary = predictor.binary_predictions(aggregated, overlap_count, threshold=0.5)
     starts, stops, names = runs_from_binary_matrix(binary, orcai_parameter["calls"])
     time_steps_per_output_step = 2 ** len(orcai_parameter["model"]["filters"])
@@ -117,24 +286,50 @@ def _finish_wav(
     return labels, aggregated, disp["delta_t"]
 
 
+# ---------------------------------------------------------------- saving
+
+
 def save_predictions(
-    predicted_labels: list[tuple[int, int, str]],
+    predicted_labels: list[tuple],
     output_path: Path | str,
     delta_t: float,
 ) -> None:
     """Write the Audacity TSV as the reference's pandas writer does: start
     and stop in seconds (steps * delta_t, float64), rounded to 4 places
-    with numpy's round, floats in their shortest repr, tab separated."""
-    starts = np.array([r[0] for r in predicted_labels], dtype=np.int64)
-    stops = np.array([r[1] for r in predicted_labels], dtype=np.int64)
-    start_s = np.round(starts * delta_t, 4)
-    stop_s = np.round(stops * delta_t, 4)
+    with numpy's round, floats in their shortest repr, tab separated. The
+    rows hold steps as ints, or seconds as floats with delta_t = 1."""
+    start_s = np.round(np.array([r[0] for r in predicted_labels]) * float(delta_t), 4)
+    stop_s = np.round(np.array([r[1] for r in predicted_labels]) * float(delta_t), 4)
     with open(output_path, "w", newline="") as f:
         writer = csv.writer(f, delimiter="\t", lineterminator="\n")
         writer.writerow(["start", "stop", "label"])
         for a, b, row in zip(start_s, stop_s, predicted_labels):
             writer.writerow([repr(float(a)), repr(float(b)), row[2]])
     log.info("Predictions saved to %s", output_path)
+
+
+def save_prediction_probabilities(
+    aggregated_predictions: np.ndarray,
+    orcai_parameter: dict,
+    delta_t: float,
+    output_path: Path | str,
+) -> Path:
+    """Write `<output stem>_probabilities.csv.gz` beside the TSV: a "time"
+    column (delta_t * row, float64) and one float32 column per call, each
+    number in numpy's shortest text for its type, which is what the
+    reference's pandas writer puts out. Returns the path."""
+    output_path = Path(output_path)
+    probs_path = output_path.with_name(f"{output_path.stem}_probabilities.csv.gz")
+    probs = np.asarray(aggregated_predictions)
+    times = (delta_t * np.arange(len(probs))).astype(str)
+    cells = probs.astype(str)
+    cells[np.isnan(probs)] = ""  # the reference writes a missing value as empty
+    with gzip.open(probs_path, "wt", newline="", encoding="utf-8") as f:
+        writer = csv.writer(f, lineterminator="\n")
+        writer.writerow(["time", *orcai_parameter["calls"]])
+        writer.writerows([t, *row] for t, row in zip(times, cells))
+    log.info("Prediction probabilities saved to %s", probs_path)
+    return probs_path
 
 
 def _resolve_output_path(
@@ -160,33 +355,201 @@ def _resolve_output_path(
     return output_path
 
 
+def _finish_and_save(
+    disp: dict,
+    output_path: Path,
+    predictor: WindowPredictor,
+    orcai_parameter: dict,
+    save_probabilities: bool = False,
+    call_duration_limits: dict | Path | str | None = None,
+    label_suffix: str = "*",
+) -> None:
+    labels, aggregated, delta_t = _finish_wav(
+        disp, predictor, orcai_parameter, label_suffix
+    )
+    if call_duration_limits is not None:
+        labels = filter_predictions(
+            labels, delta_t=delta_t, call_duration_limits=call_duration_limits,
+            label_suffix=label_suffix,
+        )
+    save_predictions(labels, output_path, delta_t)
+    if save_probabilities:
+        save_prediction_probabilities(aggregated, orcai_parameter, delta_t, output_path)
+
+
+def _predict_and_save(
+    recording_path: Path,
+    channel: int,
+    predictor: WindowPredictor,
+    orcai_parameter: dict,
+    shape: dict,
+    output_path: Path | str | None = "default",
+    overwrite: bool = False,
+    save_probabilities: bool = False,
+    call_duration_limits: dict | Path | str | None = None,
+    label_suffix: str = "*",
+) -> Path:
+    output_path = _resolve_output_path(
+        recording_path, channel, orcai_parameter, output_path, overwrite
+    )
+    with exact_f32_math():
+        disp = _dispatch_wav(recording_path, channel, predictor, orcai_parameter, shape)
+    _finish_and_save(
+        disp, output_path, predictor, orcai_parameter,
+        save_probabilities=save_probabilities,
+        call_duration_limits=call_duration_limits, label_suffix=label_suffix,
+    )
+    return output_path
+
+
+def build_predictor(
+    model_dir: Path, predict_batch_size: int, device: str | torch.device
+) -> tuple[WindowPredictor, dict, dict]:
+    """(WindowPredictor on `device`, orcai_parameter, shape) for a model
+    directory, in the compute dtype ORCAI_TPU_PREDICT_DTYPE names."""
+    model, orcai_parameter, shape = load_orcai_model(
+        model_dir, resolve_predict_dtype(), resolve_device(device)
+    )
+    predictor = WindowPredictor(
+        model,
+        snippet_len=shape["input_shape"][0],
+        n_filters=len(orcai_parameter["model"]["filters"]),
+        batch_size=predict_batch_size,
+    )
+    return predictor, orcai_parameter, shape
+
+
+def _row_error(recording: str, e: Exception) -> None:
+    log.error("Error predicting %s: %s", recording, e)
+
+
+def _predict_table(
+    table_path: Path,
+    predictor: WindowPredictor,
+    orcai_parameter: dict,
+    shape: dict,
+    model_dir: Path,
+    output_path: Path | str | None,
+    overwrite: bool,
+    base_dir_recording: str | Path | None,
+    finish_kwargs: dict,
+) -> list[Path]:
+    """Every row of a recording table (columns recording, channel,
+    base_dir_recording, rel_recording_path), in waves: recordings are
+    dispatched, without a fetch, while their device-resident estimate fits
+    ORCAI_TPU_WAVE_HBM_BYTES, then fetched, decoded and saved in order. A
+    row that fails is logged and does not stop the batch."""
+    with open(table_path, newline="", encoding="utf-8") as f:
+        table = list(csv.DictReader(f))
+    if output_path is not None and output_path != "default":
+        # in table mode output_path names a folder, made up front
+        Path(output_path).mkdir(parents=True, exist_ok=True)
+    log.info("Predicting annotations for %d wav files", len(table))
+
+    wave_budget = int(os.environ.get("ORCAI_TPU_WAVE_HBM_BYTES", 6_000_000_000))
+    pending: list[tuple[str, Path, dict]] = []
+    pending_paths: set[Path] = set()
+    pending_bytes = 0
+    saved: list[Path] = []
+
+    def flush_wave() -> None:
+        nonlocal pending_bytes
+        for recording, out_path, disp in pending:
+            try:
+                _finish_and_save(
+                    disp, out_path, predictor, orcai_parameter, **finish_kwargs
+                )
+                saved.append(out_path)
+            except Exception as e:  # keep the batch going on a per-file failure
+                _row_error(recording, e)
+        pending.clear()
+        pending_paths.clear()
+        pending_bytes = 0
+
+    def flush_if_next_overflows(est: int) -> None:
+        # fetch the pending wave before this recording's upload commits
+        # memory, not after the overshoot has happened
+        if pending_bytes and pending_bytes + est > wave_budget:
+            flush_wave()
+
+    for row in table:
+        try:
+            channel = int(row["channel"])  # a csv cell is text
+            recording_path = Path(
+                base_dir_recording
+                if base_dir_recording is not None
+                else row["base_dir_recording"]
+            ).joinpath(row["rel_recording_path"])
+            if output_path is not None and output_path != "default":
+                row_output = Path(output_path).joinpath(
+                    f"{row['recording']}_{model_dir.stem}_predicted.txt"
+                )
+            else:
+                row_output = output_path
+            out_path = _resolve_output_path(
+                recording_path, channel, orcai_parameter, row_output, overwrite
+            )
+            # files are written when the wave is flushed, so the check on the
+            # disk cannot see a duplicate output path queued earlier in the
+            # same wave: without this guard the later row would overwrite it
+            if not overwrite and out_path in pending_paths:
+                raise FileExistsError(
+                    f"Annotation file already pending in this batch: {out_path}"
+                )
+            with exact_f32_math():
+                disp = _dispatch_wav(
+                    recording_path, channel, predictor, orcai_parameter, shape,
+                    on_estimate=flush_if_next_overflows,
+                )
+        except Exception as e:  # keep the batch going on a per-file failure
+            _row_error(row.get("recording"), e)
+            continue
+        pending.append((row["recording"], out_path, disp))
+        pending_paths.add(out_path)
+        pending_bytes += disp["est_bytes"]
+        if pending_bytes >= wave_budget:
+            flush_wave()
+    flush_wave()
+    return saved
+
+
 def predict(
     recording_path: str | Path,
     channel: int = 1,
     model_dir: str | Path | None = None,
     output_path: str | Path | None = "default",
     overwrite: bool = False,
+    save_probabilities: bool = False,
+    base_dir_recording: str | Path | None = None,
+    call_duration_limits: dict | str | Path | None = None,
     label_suffix: str = "*",
     predict_batch_size: int = 128,
     predictor: WindowPredictor | None = None,
     device: str | torch.device = "cuda",
-) -> Path:
-    """Predict calls in one wav file and write the label TSV; returns its path.
+) -> Path | list[Path]:
+    """Predict calls in one wav file, or in every row of a recording table
+    (.csv), and write the label TSVs. Returns the path written for a wav and
+    the list of paths written for a table.
+
+    For a table `output_path` names a folder (made if missing) that takes
+    `<recording>_<model folder>_predicted.txt` per row, `base_dir_recording`
+    replaces the table's column of that name, and a row that fails is
+    logged while the batch goes on. `call_duration_limits` (a dict or a
+    JSON file) drops calls outside their duration limits; None keeps all.
 
     Passing `predictor` reuses an already-built WindowPredictor for the same
     model (its device decides where the work runs). ORCAI_TPU_PREDICT_DTYPE
     =bf16 runs the CRNN forward in bfloat16 with float32 parameters.
     """
-    dtype = resolve_predict_dtype()
     model_dir = Path(model_dir) if model_dir is not None else DEFAULT_MODEL_DIR
     recording_path = Path(recording_path)
-    if recording_path.suffix != ".wav":
-        raise ValueError(
-            "Recording file must be a wav file (recording tables are not "
-            "supported by this package yet)"
-        )
+    if recording_path.suffix not in (".wav", ".csv"):
+        raise ValueError("Recording file must be a wav or csv file")
     log.info("Loading model: %s", model_dir.stem)
     if predictor is not None:
+        # the predictor's dtype governs here, but an invalid
+        # ORCAI_TPU_PREDICT_DTYPE still raises, as on the cold path
+        resolve_predict_dtype()
         orcai_parameter = read_json(model_dir / "orcai_parameter.json")
         shape = read_json(model_dir / "model_shape.json")
         if predictor.snippet_len != shape["input_shape"][0]:
@@ -195,21 +558,20 @@ def predict(
                 f"but {model_dir} expects {shape['input_shape'][0]}"
             )
     else:
-        dev = resolve_device(device)
-        model, orcai_parameter, shape = load_orcai_model(model_dir, dtype, dev)
-        predictor = WindowPredictor(
-            model,
-            snippet_len=shape["input_shape"][0],
-            n_filters=len(orcai_parameter["model"]["filters"]),
-            batch_size=predict_batch_size,
+        predictor, orcai_parameter, shape = build_predictor(
+            model_dir, predict_batch_size, device
         )
-    out_path = _resolve_output_path(
-        recording_path, channel, orcai_parameter, output_path, overwrite
+    finish_kwargs = dict(
+        save_probabilities=save_probabilities,
+        call_duration_limits=call_duration_limits,
+        label_suffix=label_suffix,
     )
-    with exact_f32_math():
-        disp = _dispatch_wav(
-            recording_path, channel, predictor, orcai_parameter, shape
+    if recording_path.suffix == ".wav":
+        return _predict_and_save(
+            recording_path, channel, predictor, orcai_parameter, shape,
+            output_path=output_path, overwrite=overwrite, **finish_kwargs,
         )
-    labels, _, delta_t = _finish_wav(disp, predictor, orcai_parameter, label_suffix)
-    save_predictions(labels, out_path, delta_t)
-    return out_path
+    return _predict_table(
+        recording_path, predictor, orcai_parameter, shape, model_dir,
+        output_path, overwrite, base_dir_recording, finish_kwargs,
+    )

@@ -1,7 +1,7 @@
 """Where the time of one warm `predict` goes, on a CUDA device.
 
     python -m orcai_tpu_torch.tools.profile_predict [--seed 0]
-        [--trace_dir chiprun_out]
+        [--trace_dir DIR] [--long_repeats 14]
 
 Takes the throughput cell of chip_smoke.py: a 20-minute 48 kHz int16
 recording synthesized from --seed (tools/synthetic.py) through the bundled
@@ -13,6 +13,14 @@ JSON line with the host wall time (around synchronized work), the summed
 device kernel time, the device idle share (1 - kernel time / wall) and the
 top kernels by device time. With --trace_dir it also writes a Chrome trace
 per stage there.
+
+Then the same recording goes through the two-pass streaming path
+(ops/streaming.py) with its audio resident on the device and host-sliced,
+staged as source (the upload, when resident), pass 1 (statistics) and
+pass 2 (inference). With --long_repeats N the recording is written N times
+over (tools/synthetic.py::synth_long_recording) and those three stages are
+timed on it too, with the host clock and without the profiler, whose trace
+of that many kernels would not fit.
 """
 
 from __future__ import annotations
@@ -26,6 +34,30 @@ from pathlib import Path
 
 MINUTES = 20.0
 BATCH_SIZE = 128
+
+
+def wall_stage(torch, name: str, fn):
+    """fn() timed by the host clock around synchronized work; one JSON line."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    print(json.dumps({"stage": name, "wall_s": time.perf_counter() - t0}), flush=True)
+    return out
+
+
+def streaming_stages(torch, stage, predictor, sp, audio, label: str, budget: int):
+    """The streaming path's three steps on `audio`, each through `stage`."""
+    from orcai_tpu_torch.ops.streaming import StreamingPredictor
+
+    streaming = StreamingPredictor(predictor, sp, hbm_audio_budget=budget)
+    with torch.inference_mode():
+        source, n_frames = stage(f"{label}_source", lambda: streaming.source(audio))
+        stats = stage(f"{label}_pass1_stats",
+                      lambda: streaming._select_percentiles(source, n_frames))
+        grids = stage(f"{label}_pass2_inference",
+                      lambda: streaming._infer(source, n_frames, *stats))
+    return predictor.fetch_aggregated(*grids)
 
 
 def profile_stage(torch, name: str, fn, trace_dir: Path | None, top: int = 12):
@@ -62,6 +94,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--trace_dir", default=None)
+    parser.add_argument("--long_repeats", type=int, default=0,
+                        help="also time the streaming stages on the recording "
+                             "written this many times over (default: 0, skip)")
     args = parser.parse_args(argv)
 
     import torch
@@ -74,7 +109,7 @@ def main(argv=None) -> int:
     from orcai_tpu_torch.ops.frontend import make_spectrogram_from_params_device
     from orcai_tpu_torch.ops.overlap import WindowPredictor
     from orcai_tpu_torch.pipeline.predict import _finish_wav, predict, save_predictions
-    from orcai_tpu_torch.tools.synthetic import synth_recording
+    from orcai_tpu_torch.tools.synthetic import synth_long_recording, synth_recording
     from orcai_tpu_torch.utils.device import exact_f32_math
 
     trace_dir = Path(args.trace_dir) if args.trace_dir else None
@@ -106,7 +141,7 @@ def main(argv=None) -> int:
         agg, count, n_out = profile_stage(
             torch, "crnn_overlap_add",
             lambda: predictor.aggregate_device(spec, n_frames=n_frames), trace_dir)
-        disp = {"agg_dev": agg, "count_dev": count, "n_out": n_out,
+        disp = {"mode": "device", "agg_dev": agg, "count_dev": count, "n_out": n_out,
                 "delta_t": float(times[1] - times[0])}
 
         def tail():
@@ -114,6 +149,23 @@ def main(argv=None) -> int:
             save_predictions(labels, out, delta_t)
 
         profile_stage(torch, "fetch_decode_tsv", tail, trace_dir)
+        del spec, agg, count, disp
+
+        def profiled(name, fn):
+            return profile_stage(torch, name, fn, trace_dir, top=8)
+
+        for label, budget in (("stream_resident", 1 << 40), ("stream_host_sliced", 0)):
+            streaming_stages(torch, profiled, predictor, sp, audio, label, budget)
+        if args.long_repeats:
+            long_wav = Path(tmp) / "synthetic_long.wav"
+            synth_long_recording(long_wav, wav, args.seed, args.long_repeats)
+            long_audio, _ = load_wav_for_frontend(long_wav, sr=sp["sampling_rate"])
+
+            def timed(name, fn):
+                return wall_stage(torch, name, fn)
+
+            for label, budget in (("long_resident", 1 << 40), ("long_host_sliced", 0)):
+                streaming_stages(torch, timed, predictor, sp, long_audio, label, budget)
     return 0
 
 

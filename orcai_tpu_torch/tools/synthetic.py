@@ -3,6 +3,7 @@ from a seed."""
 
 from __future__ import annotations
 
+import wave
 from pathlib import Path
 
 import numpy as np
@@ -26,6 +27,26 @@ def synth_recording(path: Path | str, seed: int, minutes: float, sr: int = 48000
     pcm = np.clip(audio * 32767.0, -32768, 32767).astype(np.int16)
     wavfile.write(str(path), sr, pcm)
     return n
+
+
+def synth_long_recording(
+    path: Path | str, source_wav: Path | str, seed: int, repeats: int
+) -> int:
+    """Write a long mono int16 wav: the PCM of `source_wav` `repeats` times
+    over, each repeat scaled by a gain drawn uniformly from [0.5, 1] with
+    `seed`, written repeat by repeat so that only one is in memory. Returns
+    the number of samples written."""
+    sr, pcm = wavfile.read(str(source_wav), mmap=True)
+    if pcm.dtype != np.int16 or pcm.ndim != 1:
+        raise ValueError(f"{source_wav} is not a mono int16 wav")
+    gains = np.random.default_rng(seed).uniform(0.5, 1.0, size=repeats)
+    with wave.open(str(path), "wb") as out:
+        out.setnchannels(1)
+        out.setsampwidth(2)
+        out.setframerate(sr)
+        for gain in gains:
+            out.writeframes(np.rint(pcm * np.float32(gain)).astype(np.int16).tobytes())
+    return repeats * pcm.shape[0]
 
 
 def synth_magnitudes(n_valid: int, n_total: int, seed: int, device):

@@ -1,6 +1,6 @@
-"""The port stands alone: importing its predict path loads none of jax,
-flax, pandas, msgpack or the JAX package, and no source of the port (or
-chip_smoke.py) imports the JAX package."""
+"""The port stands alone: importing any of its modules loads none of jax,
+flax, pandas, msgpack, click, tqdm or the JAX package, and no source of the
+port (or chip_smoke.py) imports one of them."""
 
 import ast
 import json
@@ -11,19 +11,32 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "pandas", "msgpack", "orcai_tpu")
+FORBIDDEN = ("jax", "flax", "pandas", "msgpack", "click", "tqdm", "orcai_tpu")
+# torch itself loads tqdm where it is installed, so the subprocess check
+# leaves tqdm and click to the source scan
+NOT_LOADED = ("jax", "flax", "pandas", "msgpack", "orcai_tpu")
 SOURCES = sorted((ROOT / "orcai_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+MODULES = [
+    ".".join(p.relative_to(ROOT).with_suffix("").parts)
+    for p in SOURCES
+    if p.name != "__init__.py"
+]
 
 
-@pytest.mark.parametrize(
-    "module", ["orcai_tpu_torch.pipeline.predict", "orcai_tpu_torch.__main__"]
-)
+def test_every_module_of_the_slice_is_scanned():
+    for name in ("ops.streaming", "pipeline.serve", "tools.warmup",
+                 "utils.device_health", "pipeline.predict", "__main__"):
+        assert f"orcai_tpu_torch.{name}" in MODULES
+    assert "chip_smoke" in MODULES
+
+
+@pytest.mark.parametrize("module", MODULES)
 def test_import_loads_no_jax_stack(module):
     # a subprocess: this pytest process already imported jax (conftest.py)
     code = (
         f"import json, sys, {module}\n"
         f"print(json.dumps(sorted(m for m in sys.modules "
-        f"if m.split('.')[0] in {FORBIDDEN!r})))"
+        f"if m.split('.')[0] in {NOT_LOADED!r})))"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

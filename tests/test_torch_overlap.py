@@ -101,3 +101,56 @@ def test_geometry_checks(models):
     ours = WindowPredictor(model, snippet_len=SNIPPET, n_filters=NFILT)
     with pytest.raises(ValueError, match="too short"):
         ours.aggregate(np.zeros((SNIPPET - 1, NBINS), np.float32))
+
+
+def _both(models, batch, cap):
+    jmodel, variables, model = models
+    ours = WindowPredictor(model, snippet_len=SNIPPET, n_filters=NFILT,
+                           batch_size=batch, max_windows_per_chunk=cap)
+    ref = JaxWindowPredictor(jmodel, variables, snippet_len=SNIPPET,
+                             n_filters=NFILT, batch_size=batch,
+                             max_windows_per_chunk=cap, dense_trunk=False)
+    return ours, ref
+
+
+@pytest.mark.parametrize("batch,cap", [(1, 2048), (16, 2048), (128, 2048), (5, 64)])
+def test_plan_signature_and_spec_bytes_match_jax(models, batch, cap):
+    """plan_signature and planned_spec_bytes, host arithmetic that the
+    warm-up and the wave budget rest on, equal the JAX methods for source
+    buffers below, at and above the plan's power-of-two span."""
+    ours, ref = _both(models, batch, cap)
+    for t in range(SNIPPET, 40_000, 211):
+        for src_len in (t, 2048, 4096, 8192, 65536):
+            if src_len < t:
+                continue
+            assert ours.plan_signature(t, src_len) == ref.plan_signature(t, src_len)
+            assert (ours.planned_spec_bytes(t, NBINS, src_len)
+                    == ref.planned_spec_bytes(t, NBINS, src_len))
+
+
+def test_n_labels_matches_jax(models):
+    ours, ref = _both(models, 4, 2048)
+    assert ours.n_labels(NBINS) == ref.n_labels(NBINS) == 3
+
+
+def test_chunk_frame_offset_is_separate_from_window_index(models):
+    """A chunk handed in as its own tile (frame offset 0, the real window
+    index) scatters into the same rows as the chunk cut from the whole
+    spectrogram: what the streaming path relies on."""
+    _, _, model = models
+    ours = WindowPredictor(model, snippet_len=SNIPPET, n_filters=NFILT,
+                           batch_size=4, max_windows_per_chunk=8)
+    t = 21 * 32 + 32  # 21 windows: chunks of 8, 8 and a remainder
+    spec = torch.from_numpy(np.random.default_rng(1).random((t, NBINS), np.float32))
+    agg0, count0, n_out = ours.aggregate_device(spec, n_frames=t)
+    n_win, _, required, _ = ours.plan(t)
+    padded = torch.zeros((required, NBINS))
+    padded[:t] = spec
+    agg1, count1 = ours._zero_grid(agg0.shape[0] - 1, 3)
+    wpc = 8
+    with torch.inference_mode():
+        for w0 in range(0, n_win, wpc):
+            tile = padded[w0 * ours.shift : (w0 + wpc + 1) * ours.shift].clone()
+            ours._run_chunk(agg1, count1, tile, wpc, 0, w0, min(wpc, n_win - w0))
+    np.testing.assert_array_equal(count1[:n_out].numpy(), count0[:n_out].numpy())
+    np.testing.assert_array_equal(agg1[:n_out].numpy(), agg0[:n_out].numpy())

@@ -85,8 +85,8 @@ def test_predict_restores_tf32_flags(tmp_path, monkeypatch):
 
 
 def test_non_wav_rejected(tmp_path):
-    with pytest.raises(ValueError, match="wav"):
-        predict(tmp_path / "table.csv", device="cpu")
+    with pytest.raises(ValueError, match="wav or csv"):
+        predict(tmp_path / "table.txt", device="cpu")
 
 
 def test_tsv_writer_matches_pandas_writer(tmp_path):
