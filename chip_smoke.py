@@ -45,6 +45,25 @@ Phases, each printing one JSON line and failing the run on any error:
            missing file) through `predict` with probabilities and the
            default duration limits, then `serve` over a folder with the
            same two wavs: both reproduce the single-file TSVs byte for byte
+  train    model development at the bundled orcai-v1's width (ResNetLSTM,
+           filters 30/40/50/60, 2x BiLSTM-128, input 736 x 171 x 1, 7
+           labels, batch 64, float32): a train/val/test directory of 512 /
+           128 / 70 snippets cut from the 20-minute recording's spectrogram
+           with labels that follow band energy (tools/synthetic.py);
+           `train` from fresh weights for 3 epochs with the data resident
+           on the card, then `train(load_model=True)` for one more with the
+           streaming runner; losses finite and falling; a run killed after
+           epoch 2 and started again against the uninterrupted history;
+           the resident and the streaming runner over one epoch from the
+           same state; `predict` on the golden wav with the trained model
+           (B1 1, B2 3, pick 3 launches); one step from the bundled weights
+           at dropout 0 on the card and on the CPU (loss and gradients);
+           step time, epoch walls, peak device memory
+  test_model  `test_model` on that directory: four CSVs and the metrics
+           JSON, all 70 snippets counted, the same bytes with a slab of one
+           batch; then the dense trunk (WindowPredictor(dense_trunk=True))
+           against the windowed path on the golden spectrogram, and both
+           CRNN walls on the 20-minute recording
 
 Then one {"selection": {...}} line, one {"kernels": [...]} line, the card's `name, power.limit` from
 nvidia-smi, and last {"ok": true, "device": {...}}. Exits non-zero, with no
@@ -73,6 +92,17 @@ MINUTES = 20.0  # the throughput cell: 225001 frames, 7 real tiles, 610 windows
 LONG_REPEATS = 14  # the streaming cell: 4 h 40 min, 3150001 frames, 8559 windows
 STATS_TILE, CHUNK_TILE = 1 << 18, (512 + 1) * 368  # the streaming path's tiles, frames
 PEAK_SLACK_BYTES = 64 * 1024 * 1024
+TVT_SNIPPETS = (512, 128, 70)  # train / val / test; 70 leaves a remainder batch at 64
+TRAIN_EPOCHS, TRAIN_LR = 3, 1e-3
+RUNNER_RTOL = 5e-3  # resident against streaming epoch metrics, same state (read
+#                     1.7e-5 and 1.1e-4: the batches are the same, cuDNN's sums are not)
+RESUME_ATOL = 1e-1  # resumed against uninterrupted history. cuDNN's backward is not
+#                     deterministic and the difference grows by the step (read 0.0067,
+#                     0.0063 and 0.012 after 24 steps, as much between two epochs that both
+#                     ran before the cut); a run that started over would be off by the 0.3
+#                     that the loss falls in an epoch. Exact on the CPU (the tests).
+CPU_STEP_RTOL = 5e-3  # card against CPU: loss, and gradients over the largest gradient
+#                       (read 6e-8 and 7e-4: the two sum in other orders)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SPIN_CYCLES = 8_000_000  # about 4 ms at the card's clock
@@ -605,7 +635,8 @@ def phase_full(torch, tmp: Path, seed: int, total: dict) -> tuple[dict, dict, di
         "crnn_max_abs_err_vs_cpu": crnn_err, **real,
     }
     state = {"wav": wav, "tsv": out, "predictor": predictor, "param": param,
-             "shape": shape, "aggregated": aggregated, "overlap": overlap, "n_samples": n}
+             "shape": shape, "aggregated": aggregated, "overlap": overlap, "n_samples": n,
+             "spec": spec, "n_frames": n_frames}
     return line, real, state
 
 
@@ -842,6 +873,282 @@ def phase_table_serve(torch, tmp: Path, state: dict, total: dict) -> dict:
             "serve_file_latency_s": latency.rows}
 
 
+class _Killed(Exception):
+    """Raised from a training run's epoch-end callback to cut it short."""
+
+
+def _history_diff(a: dict, b: dict) -> list[float]:
+    """Largest absolute difference of any metric, epoch by epoch."""
+    if sorted(a) != sorted(b) or any(len(a[k]) != len(b[k]) for k in a):
+        raise AssertionError(f"histories differ in shape: {a} against {b}")
+    return [max(abs(a[k][e] - b[k][e]) for k in a) for e in range(len(a["loss"]))]
+
+
+def _one_step(torch, model, x, y, device):
+    """(loss, {name: gradient on the host}) of the training loss at the
+    model's weights on `device`; the model's statistics are put back."""
+    from orcai_tpu_torch.train.trainer import Trainer
+
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    trainer = Trainer(model, 1e-3, device=device)
+    model.zero_grad(set_to_none=True)
+    logits = model(x.to(device), train=True, return_logits=True)
+    loss = trainer._loss(logits, y.to(device))
+    loss.backward()
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    model.load_state_dict(saved)
+    return float(loss.detach()), grads
+
+
+def phase_train(torch, tmp: Path, seed: int, state: dict, total: dict) -> tuple[dict, dict]:
+    import copy
+
+    import numpy as np
+
+    from orcai_tpu_torch.io.dataset import ArrayDataset
+    from orcai_tpu_torch.io.jsonio import read_json
+    from orcai_tpu_torch.io.model_store import load_orcai_model
+    from orcai_tpu_torch.models import build_model
+    from orcai_tpu_torch.pipeline.predict import predict
+    from orcai_tpu_torch.resources import DEFAULT_ORCAI_PARAMETER
+    from orcai_tpu_torch.tools.synthetic import synth_tvt
+    from orcai_tpu_torch.train.trainer import (
+        Trainer, device_runners, streaming_runners, train,
+    )
+    from orcai_tpu_torch.utils.seeds import SEED_ID_LOAD_TRAIN_DATA, SEED_ID_LOAD_VAL_DATA
+
+    data_dir, out = tmp / "tvt", tmp / "models"
+    spec_host = state["spec"][: state["n_frames"]].cpu().numpy()
+    t0 = time.perf_counter()
+    counts = synth_tvt(data_dir, spec_host, seed, *TVT_SNIPPETS)
+    tvt_s = time.perf_counter() - t0
+    param = read_json(DEFAULT_ORCAI_PARAMETER)
+    if (param["model"]["filters"], param["model"]["lstm_units"], param["model"]["batch_size"],
+            len(param["calls"])) != ([30, 40, 50, 60], 128, 64, 7):
+        raise AssertionError("the default parameter file is not the bundled model's width")
+    param["seed"] = seed
+    param["model"].update(epochs=TRAIN_EPOCHS, learning_rate=TRAIN_LR)
+    batch = param["model"]["batch_size"]
+
+    def run(name, **kwargs):
+        """`train` under `name`; returns (model dir, epoch-end times)."""
+        ends = []
+
+        def stamp(s, h, e, lr, c):
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+            if kwargs.get("kill_after") == e:
+                raise _Killed
+        extra = {k: v for k, v in kwargs.items() if k != "kill_after"}
+        begin = time.perf_counter()
+        train(data_dir, out, orcai_parameter={**param, "name": name}, on_epoch_end=stamp,
+              **extra)
+        torch.cuda.synchronize()
+        return out / name, [b - a for a, b in zip([begin] + ends, ends)]
+
+    # fresh weights, the data resident on the card
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    whole_dir, epoch_walls = run("smoke-train")
+    peak = torch.cuda.max_memory_allocated()
+    history = read_json(whole_dir / "training_history.json")
+    flat = [v for k in ("loss", "val_loss", "MBA", "val_MBA") for v in history[k]]
+    if len(history["loss"]) != TRAIN_EPOCHS or not np.isfinite(flat).all():
+        raise AssertionError(f"training history not finite over {TRAIN_EPOCHS} epochs: {history}")
+    if not history["loss"][-1] < history["loss"][0]:
+        raise AssertionError(f"training loss did not fall: {history['loss']}")
+    weights = (whole_dir / "smoke-train.msgpack").read_bytes()
+
+    # killed after epoch 2, then started again: the uninterrupted history
+    try:
+        run("smoke-cut", kill_after=1)
+        raise AssertionError("the run was not cut")
+    except _Killed:
+        pass
+    if [p.name for p in (out / "smoke-cut" / "resume").iterdir()] != ["epoch_1.pt"]:
+        raise AssertionError("the cut run left no checkpoint of epoch 2")
+    cut_dir, resumed_walls = run("smoke-cut")
+    resumed = read_json(cut_dir / "training_history.json")
+    # epochs 1 and 2 ran before the cut: their difference is what two runs
+    # of the same code differ by; epoch 3 ran from the checkpoint
+    resume_diffs = _history_diff(resumed, history)
+    resume_diff = max(resume_diffs)
+    if len(resumed_walls) != 1 or not resume_diff <= RESUME_ATOL:
+        raise AssertionError(f"resumed history off by {resume_diffs} > {RESUME_ATOL} after "
+                             f"{len(resumed_walls)} more epoch(s): {resumed} against {history}")
+    if (cut_dir / "resume").exists():
+        raise AssertionError("the finished run left its resume directory")
+
+    # one more epoch from the saved model, batches uploaded one by one
+    with environ(ORCAI_TPU_DEVICE_DATASET_BYTES=1):
+        _, stream_walls = run("smoke-train", load_model=True, max_epochs=1)
+    more = read_json(whole_dir / "training_history.json")
+    if len(more["loss"]) != 1 or not np.isfinite([v[0] for v in more.values()]).all():
+        raise AssertionError(f"load_model epoch: {more}")
+    if (whole_dir / "smoke-train.msgpack").read_bytes() == weights:
+        raise AssertionError("the load_model epoch left the weights as they were")
+
+    # the two runners over one epoch from the same state
+    train_ds = ArrayDataset.load(data_dir / "train_dataset")
+    val_ds = ArrayDataset.load(data_dir / "val_dataset")
+    seeds = ([SEED_ID_LOAD_TRAIN_DATA, seed], [SEED_ID_LOAD_VAL_DATA, seed])
+    runner_metrics, step_ms = {}, []
+    for name in ("resident", "streaming"):
+        model, _, _ = load_orcai_model(cut_dir, device="cuda")
+        trainer = Trainer(model, TRAIN_LR, device="cuda")
+        st = trainer.state_from_variables(seed=seed)
+        if name == "resident":
+            runners = device_runners(trainer, train_ds, val_ds, batch, *seeds)
+        else:
+            runners = streaming_runners(
+                trainer,
+                lambda e: train_ds.batches(batch, seed=seeds[0], epoch=e),
+                lambda e: val_ds.batches(batch, seed=seeds[1], epoch=e))
+        st, m = runners[0](st, 0)
+        runner_metrics[name] = {**m, **runners[1](st, 0)}
+    runner_diff = max(
+        abs(runner_metrics["resident"][k] - v) / max(abs(v), 1e-12)
+        for k, v in runner_metrics["streaming"].items())
+    if not runner_diff <= RUNNER_RTOL:
+        raise AssertionError(f"resident and streaming runners differ by {runner_diff} > "
+                             f"{RUNNER_RTOL}: {runner_metrics}")
+    # warm step time on that trainer: CUDA events around each of 10 steps
+    xb = torch.from_numpy(np.asarray(train_ds.x[:batch])).cuda()
+    yb = torch.from_numpy(np.asarray(train_ds.y[:batch])).cuda()
+    for i in range(12):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.train_step(st, xb, yb)
+        end.record()
+        end.synchronize()
+        if i >= 2:
+            step_ms.append(start.elapsed_time(end))
+
+    # the trained directory loads and predicts
+    reset_counts()
+    tsv = predict(FIXTURES / "golden.wav", model_dir=whole_dir,
+                  output_path=tmp / "golden_trained.txt", overwrite=True, device="cuda")
+    torch.cuda.synchronize()
+    predict_counts = read_counts(total)
+    check_counts(predict_counts, 1, "predict with the trained model")
+    if tsv.read_text().splitlines()[0].split("\t") != ["start", "stop", "label"]:
+        raise AssertionError("predict with the trained model wrote no TSV")
+
+    # one step from the bundled weights, dropout 0, on the card and the CPU
+    bundled, bparam, bshape = load_orcai_model(device="cuda")
+    plain = build_model({**bparam, "model": {**bparam["model"], "dropout_rate": 0.0}},
+                        bshape["input_shape"]).cuda()
+    plain.load_state_dict(bundled.state_dict())
+    test_ds = ArrayDataset.load(data_dir / "test_dataset")
+    xs = torch.from_numpy(np.asarray(test_ds.x[:8]))
+    ys = torch.from_numpy(np.asarray(test_ds.y[:8]))
+    loss_card, grads_card = _one_step(torch, plain, xs, ys, "cuda")
+    t0 = time.perf_counter()
+    loss_cpu, grads_cpu = _one_step(torch, copy.deepcopy(plain).cpu(), xs, ys, "cpu")
+    cpu_step_s = time.perf_counter() - t0
+    largest = max(float(g.abs().max()) for g in grads_cpu.values())
+    grad_diff = max(float((grads_card[k] - g).abs().max()) for k, g in grads_cpu.items()) / largest
+    loss_diff = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    if sorted(grads_card) != sorted(grads_cpu) or not np.isfinite([loss_card, grad_diff]).all():
+        raise AssertionError("the card's step has other or non-finite gradients")
+    if not (loss_diff <= CPU_STEP_RTOL and grad_diff <= CPU_STEP_RTOL):
+        raise AssertionError(f"card against CPU step: loss {loss_diff}, gradients {grad_diff} "
+                             f"> {CPU_STEP_RTOL}")
+    line = {
+        "phase": "train", "snippets": counts, "tvt_write_s": tvt_s, "batch_size": batch,
+        "learning_rate": TRAIN_LR, "history": history,
+        "epoch_wall_s_resident": epoch_walls, "epoch_wall_s_streaming": stream_walls,
+        "load_model_epoch": {k: v[0] for k, v in more.items()},
+        "step_ms_median_warm": statistics.median(step_ms), "step_ms": step_ms,
+        "peak_device_bytes": peak,
+        "resumed_vs_uninterrupted_max_abs_diff": resume_diff,
+        "resumed_vs_uninterrupted_abs_diff_by_epoch": resume_diffs,
+        "resumed_epoch_wall_s": resumed_walls, "resume_atol": RESUME_ATOL,
+        "runner_metrics": runner_metrics, "runners_max_rel_diff": runner_diff,
+        "runner_rtol": RUNNER_RTOL,
+        "trained_model_predict_launches": predict_counts,
+        "bundled_step_loss_card": loss_card, "bundled_step_loss_cpu": loss_cpu,
+        "card_vs_cpu_loss_rel_diff": loss_diff,
+        "card_vs_cpu_gradient_diff_over_largest": grad_diff, "card_vs_cpu_rtol": CPU_STEP_RTOL,
+        "cpu_step_s": cpu_step_s,
+    }
+    return line, {"data_dir": data_dir, "model_dir": whole_dir, "batch": batch}
+
+
+def phase_test_model(torch, tmp: Path, state: dict, trained: dict) -> dict:
+    import csv
+
+    import numpy as np
+
+    from orcai_tpu_torch.io.wav import load_wav_for_frontend
+    from orcai_tpu_torch.ops.frontend import make_spectrogram_from_params_device
+    from orcai_tpu_torch.ops.overlap import WindowPredictor
+    from orcai_tpu_torch.train.evaluate import test_model
+
+    names = ["test_data_confusion_table.csv", "test_data_metrics.json",
+             "test_data_misclassification_table_pred_true.csv",
+             "test_data_misclassification_table_true_pred.csv"]
+    walls = []
+    one_batch = trained["batch"] * 736 * 171 * 4
+    for where, env in (("test_a", {}), ("test_b", {"ORCAI_TPU_EVAL_SLAB_BYTES": one_batch})):
+        with environ(**env):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = test_model(trained["model_dir"], trained["data_dir"], output_dir=tmp / where)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        if sorted(p.name for p in out.iterdir()) != names:
+            raise AssertionError(f"test_model wrote {sorted(p.name for p in out.iterdir())}")
+    for name in names:
+        if (tmp / "test_a" / name).read_bytes() != (tmp / "test_b" / name).read_bytes():
+            raise AssertionError(f"{name} differs with a slab of one batch")
+    metrics = json.loads((tmp / "test_a" / names[1]).read_text())
+    if not (np.isfinite(metrics["loss"]) and 0.0 <= metrics["MBA"] <= 1.0):
+        raise AssertionError(f"test metrics {metrics}")
+    with open(tmp / "test_a" / names[0], newline="") as f:
+        totals = {r["Label"]: int(r["Total"]) for r in csv.DictReader(f)}
+    n_test, n_steps = TVT_SNIPPETS[2], 736 // 16
+    # the first five labels carry no mask: every snippet's every step counts
+    unmasked = state["param"]["calls"][:5]
+    if len(totals) != 7 or any(totals[c] != n_test * n_steps for c in unmasked):
+        raise AssertionError(f"confusion totals {totals}, expected {n_test * n_steps} "
+                             f"for {unmasked}")
+
+    # the dense trunk against the windowed path
+    predictor, sp = state["predictor"], state["param"]["spectrogram"]
+    dense = WindowPredictor(predictor.model, snippet_len=predictor.snippet_len,
+                            n_filters=4, batch_size=predictor.batch_size, dense_trunk=True)
+    audio, _ = load_wav_for_frontend(FIXTURES / "golden.wav", sr=sp["sampling_rate"])
+    gspec, g_frames, _, _ = make_spectrogram_from_params_device(audio, sp)
+    w_agg, w_count = predictor.aggregate(gspec, n_frames=g_frames)
+    d_agg, d_count = dense.aggregate(gspec, n_frames=g_frames)
+    if not (np.array_equal(w_count, d_count) and np.isfinite(d_agg).all()
+            and d_agg.min() >= 0 and d_agg.max() <= 1):
+        raise AssertionError("dense trunk on golden: counts or range")
+    crnn = {}
+    for name, pred in (("windowed", predictor), ("dense", dense)):
+        pred.aggregate_device(state["spec"], n_frames=state["n_frames"])  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        agg, count, n_out = pred.aggregate_device(state["spec"], n_frames=state["n_frames"])
+        torch.cuda.synchronize()
+        crnn[f"crnn_wall_s_{name}"] = time.perf_counter() - t0
+        crnn[f"crnn_peak_device_bytes_{name}"] = torch.cuda.max_memory_allocated()
+        crnn[name] = pred.fetch_aggregated(agg, count, n_out)
+    if not np.array_equal(crnn["windowed"][1], crnn["dense"][1]):
+        raise AssertionError("dense trunk on the 20-minute recording: overlap counts differ")
+    diff20 = float(np.abs(crnn.pop("windowed")[0] - crnn.pop("dense")[0]).max())
+    return {"phase": "test_model", "wall_s": walls, "metrics": metrics,
+            "confusion_totals": totals, "files_byte_equal_with_one_batch_slabs": True,
+            "slab_bytes_second_run": one_batch,
+            "dense_vs_windowed_max_abs_diff_golden": float(np.abs(w_agg - d_agg).max()),
+            "dense_vs_windowed_mean_abs_diff_golden": float(np.abs(w_agg - d_agg).mean()),
+            "dense_vs_windowed_max_abs_diff_20min": diff20, **crnn}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -875,12 +1182,19 @@ def main(argv=None) -> int:
             emit(phase_streaming(torch, Path(tmp), args.seed, state, total))
             phase = "table_serve"
             emit(phase_table_serve(torch, Path(tmp), state, total))
+            phase = "train"
+            line, trained = phase_train(torch, Path(tmp), args.seed, state, total)
+            emit(line)
+            phase = "test_model"
+            emit(phase_test_model(torch, Path(tmp), state, trained))
     except Exception as e:  # report the phase, then fail the run
         traceback.print_exc()
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
     # every kernel's launches, summed over the paths driven above (golden,
-    # 20-minute, streaming, table, service); each path asserted its own
+    # 20-minute, streaming, table, service, the trained model's predict);
+    # each path asserted its own. Training and evaluation read stored
+    # spectrograms and launch none of these kernels.
     for name, row in rows.items():
         row["launches"] = total[name]
     rows["digit_histograms"]["ms_real"] = real["b2_ms_real"]

@@ -1,8 +1,9 @@
 """Command line: python -m orcai_tpu_torch <command> [options].
 
 The commands and flags follow `orcai predict`, `orcai filter-predictions`,
-`orcai serve` and `orcai warmup` (orcai_tpu/cli.py), without the wire
-codec and the choice among bundled models. Every command that computes
+`orcai serve`, `orcai warmup`, `orcai train` and `orcai test`
+(orcai_tpu/cli.py), without the wire codec and the choice among bundled
+models. Every command that computes
 runs on `--device cuda` unless told otherwise, and raises without CUDA.
 """
 
@@ -42,7 +43,10 @@ def _predict_options(p: argparse.ArgumentParser) -> None:
 
 
 def _parser() -> argparse.ArgumentParser:
-    from orcai_tpu_torch.pipeline.predict import DEFAULT_CALL_DURATION_LIMITS
+    from orcai_tpu_torch.resources import (
+        DEFAULT_CALL_DURATION_LIMITS,
+        DEFAULT_ORCAI_PARAMETER,
+    )
 
     parser = argparse.ArgumentParser(
         prog="python -m orcai_tpu_torch", description="orcAI on PyTorch/CUDA"
@@ -98,6 +102,42 @@ def _parser() -> argparse.ArgumentParser:
                    help="window batch size (default: 128)")
     _common(p)
 
+    def data_compression(p: argparse.ArgumentParser) -> None:
+        p.add_argument("--data_compression", "-dc", default="None",
+                       type=lambda v: {"gzip": "GZIP", "none": "None"}.get(v.lower(), v),
+                       choices=["GZIP", "None"],
+                       help="compression the datasets were written with (default: "
+                            "None; the dataset's meta.json decides on load)")
+
+    p = command(
+        "train",
+        "Trains a model on the training dataset in DATA_DIR and saves it to "
+        "OUTPUT_DIR.",
+    )
+    p.add_argument("data_dir", help="directory with train_dataset and val_dataset")
+    p.add_argument("output_dir", help="directory the model directory is written into")
+    p.add_argument("--orcai_parameter", "-p", default=str(DEFAULT_ORCAI_PARAMETER),
+                   help="path to the orcAI parameter file "
+                        "(default: default_orcai_parameter.json)")
+    data_compression(p)
+    p.add_argument("--load_model", "-lm", action="store_true",
+                   help="load model from previous training")
+    _common(p)
+
+    p = command(
+        "test",
+        "Tests a model at MODEL_DIR on the test dataset in DATA_DIR and saves "
+        "the results to OUTPUT_DIR.",
+    )
+    p.add_argument("model_dir", help="path to a model directory")
+    p.add_argument("data_dir", help="directory with test_dataset")
+    p.add_argument("--test_unfiltered", "-tu", action="store_true",
+                   help="also test on the unfiltered test dataset")
+    p.add_argument("--output_dir", "-o", default=None,
+                   help="output directory (default: <model_dir>/test)")
+    data_compression(p)
+    _common(p)
+
     p = command(
         "filter-predictions",
         "Filters the predictions file at PREDICTED_LABELS by call duration.",
@@ -136,6 +176,17 @@ def main(argv=None) -> int:
         n = warmup(args["minutes"], args["model_dir"], args["predict_batch_size"],
                    device=args["device"])
         print(f"Warmed {n} recording-length shapes")
+    elif command in ("train", "test"):
+        if args["data_compression"] == "None":
+            args["data_compression"] = None
+        if command == "train":
+            from orcai_tpu_torch.train.trainer import train
+
+            train(**args)
+        else:
+            from orcai_tpu_torch.train.evaluate import test_model
+
+            print(test_model(**args))
     else:
         from orcai_tpu_torch.pipeline.predict import filter_predictions_file
 

@@ -1,9 +1,20 @@
-"""Model directory loading and the flax -> torch weight conversion.
+"""Model directory save/load and the flax <-> torch weight conversion.
 
-Counterpart of orcai_tpu/io/model_store.py (load side, msgpack format).
-A model dir holds orcai_parameter.json, model_shape.json and
-<name>.msgpack, the flax variables {"params", "batch_stats"}, which
-io/msgpack_lite.py decodes without the msgpack package.
+Counterpart of orcai_tpu/io/model_store.py (msgpack format). A model dir
+holds
+
+    orcai_parameter.json
+    model_shape.json
+    <name>.msgpack          flax variables {"params", "batch_stats"}
+    <name>.opt.pt           optimizer state (torch.save; optional, for resume)
+    train_state.json        epochs run (optional)
+    training_history.json   per-epoch metrics (written by the trainer)
+
+The weights are stored in flax's layout and msgpack framing
+(io/msgpack_lite.py, no msgpack package), so the JAX package loads a
+directory written here and this package loads one written there. The
+optimizer state is this package's own: optax's <name>.opt.msgpack is not
+read. Reference-format .keras and .h5 checkpoints are not read either.
 """
 
 from __future__ import annotations
@@ -13,8 +24,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from orcai_tpu_torch.io.jsonio import read_json
-from orcai_tpu_torch.io.msgpack_lite import unpackb
+from orcai_tpu_torch.io.jsonio import read_json, write_json
+from orcai_tpu_torch.io.msgpack_lite import packb, unpackb
 from orcai_tpu_torch.models import build_model
 from orcai_tpu_torch.utils.device import resolve_device
 
@@ -41,8 +52,8 @@ def _leaves(tree: dict, path: tuple = ()):
 def convert_flax_variables(variables: dict) -> dict[str, np.ndarray]:
     """flax {"params", "batch_stats"} tree of numpy leaves -> state dict.
 
-    Layout rules: conv kernels HWIO -> OIHW; Dense (in, out) -> (out, in);
-    BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var;
+    Layout rules: conv kernels HWIO -> OIHW; 1-D conv kernels (k, in, out)
+    -> (out, in, k); Dense (in, out) -> (out, in); BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var;
     a Keras LSTM's kernel (D, 4U) -> weight_ih (4U, D), recurrent_kernel
     (U, 4U) -> weight_hh (4U, U), bias -> bias_ih and a zero bias_hh (the
     gate order i, f, c, o is torch's i, f, g, o). Raises on any leaf it
@@ -71,6 +82,8 @@ def convert_flax_variables(variables: dict) -> dict[str, np.ndarray]:
                 torch_name = names[name]
                 if arr.ndim == 4:
                     arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+                elif arr.ndim == 3:
+                    arr = arr.transpose(2, 1, 0)  # (k, in, out) -> (out, in, k)
                 elif arr.ndim == 2:
                     arr = arr.T  # Dense (in, out) -> (out, in)
             key = ".".join(scopes + [torch_name])
@@ -80,9 +93,106 @@ def convert_flax_variables(variables: dict) -> dict[str, np.ndarray]:
     return state
 
 
+def _to_numpy(value) -> np.ndarray:
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu().numpy()
+    return np.asarray(value, np.float32)
+
+
+def _set_leaf(tree: dict, path: list[str], leaf: np.ndarray) -> None:
+    for scope in path[:-1]:
+        tree = tree.setdefault(scope, {})
+    if path[-1] in tree:
+        raise ValueError(f"two state-dict keys map to {'/'.join(path)}")
+    tree[path[-1]] = np.array(leaf, order="C")
+
+
+def _sorted_tree(tree: dict) -> dict:
+    return {k: _sorted_tree(v) if isinstance(v, dict) else v
+            for k, v in sorted(tree.items())}
+
+
+def to_flax_variables(state_dict: dict) -> dict:
+    """State dict (tensors or numpy) -> flax {"params", "batch_stats"} tree
+    of float32 numpy leaves: the exact inverse of convert_flax_variables.
+
+    Conv kernels OIHW -> HWIO, 1-D conv kernels (out, in, k) -> (k, in,
+    out), linear and LSTM kernels transposed back, BatchNorm names back,
+    bias_ih -> bias. An LSTM's bias_hh must be zero (flax has one bias)
+    and is dropped; anything else raises, as does an unknown key.
+    """
+    reverse_lstm = {v: k for k, v in _LSTM_NAMES.items()}
+    reverse_scopes = {v: k for k, v in _LSTM_SCOPES.items()}
+    reverse_stats = {v: k for k, v in _STAT_NAMES.items()}
+    variables: dict = {"params": {}, "batch_stats": {}}
+    for key, value in state_dict.items():
+        *scopes, name = key.split(".")
+        arr = _to_numpy(value)
+        if scopes and scopes[-1] in reverse_scopes:
+            scopes[-1] = reverse_scopes[scopes[-1]]
+            if name == "bias_hh":
+                if np.any(arr != 0):
+                    raise ValueError(
+                        f"{key} is not zero: the flax LSTM has one bias, so "
+                        "these weights cannot be exported"
+                    )
+                continue
+            if name not in reverse_lstm:
+                raise ValueError(f"unknown LSTM state-dict key {key}")
+            _set_leaf(variables["params"], scopes + [reverse_lstm[name]],
+                      arr.T if arr.ndim == 2 else arr)
+        elif name in reverse_stats:
+            _set_leaf(variables["batch_stats"], scopes + [reverse_stats[name]], arr)
+        elif name == "bias":
+            _set_leaf(variables["params"], scopes + ["bias"], arr)
+        elif name == "weight":
+            if arr.ndim == 4:
+                arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+            elif arr.ndim == 3:
+                arr = arr.transpose(2, 1, 0)  # (out, in, k) -> (k, in, out)
+            elif arr.ndim == 2:
+                arr = arr.T
+            _set_leaf(variables["params"], scopes + ["scale" if arr.ndim == 1 else "kernel"],
+                      arr)
+        else:
+            raise ValueError(f"unknown state-dict key {key}")
+    return _sorted_tree(variables)
+
+
 def load_variables(path: Path | str) -> dict:
     """Untyped load of a flax msgpack checkpoint: nested dict of numpy."""
     return unpackb(Path(path).read_bytes())
+
+
+def save_variables(variables: dict, path: Path | str) -> None:
+    """Write a flax {"params", "batch_stats"} tree of numpy leaves."""
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_bytes(packb(variables))
+
+
+def save_orcai_model(
+    model_dir: Path | str,
+    orcai_parameter: dict,
+    state_dict: dict,
+    input_shape=(736, 171, 1),
+    opt_state: dict | None = None,
+    train_state: dict | None = None,
+) -> None:
+    """Write a model directory from a torch state dict; `opt_state` (an
+    optimizer's state_dict) goes to <name>.opt.pt."""
+    model_dir = Path(model_dir)
+    model_dir.mkdir(parents=True, exist_ok=True)
+    name = orcai_parameter["name"]
+    save_variables(to_flax_variables(state_dict), model_dir / f"{name}.msgpack")
+    write_json(orcai_parameter, model_dir / "orcai_parameter.json")
+    write_json(
+        {"input_shape": list(input_shape), "num_labels": len(orcai_parameter["calls"])},
+        model_dir / "model_shape.json",
+    )
+    if opt_state is not None:
+        torch.save(opt_state, model_dir / f"{name}.opt.pt")
+    if train_state is not None:
+        write_json(train_state, model_dir / "train_state.json")
 
 
 def load_orcai_model(
@@ -90,7 +200,7 @@ def load_orcai_model(
     dtype: torch.dtype = torch.float32,
     device: str | torch.device = "cuda",
 ):
-    """Load (model in eval mode on `device`, orcai_parameter, shape).
+    """Load (model on `device`, orcai_parameter, shape).
 
     `dtype` is the CRNN compute dtype; the parameters stay float32.
     """

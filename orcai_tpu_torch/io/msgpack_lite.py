@@ -1,11 +1,12 @@
-"""A small pure-Python msgpack decoder for flax checkpoints.
+"""A small pure-Python msgpack decoder and encoder for flax checkpoints.
 
 flax.serialization writes a nested map of str keys whose leaves are numpy
 arrays, each packed as msgpack ExtType 1 holding another msgpack document:
 the tuple (shape, dtype name, raw C-order bytes). ExtType 3 is a numpy
 scalar in the same form. This module decodes that subset (maps, arrays,
-str, bin, ints, floats, nil, bools, ExtType 1 and 3) so the port can read
-the bundled weights without the `msgpack` package.
+str, bin, ints, floats, nil, bools, ExtType 1 and 3) and encodes it
+(`packb`), so the port reads the bundled weights and writes checkpoints
+that flax reads, without the `msgpack` package.
 """
 
 from __future__ import annotations
@@ -116,3 +117,85 @@ def unpackb(data: bytes):
     if reader.pos != len(reader.data):
         raise ValueError("trailing bytes after msgpack document")
     return out
+
+
+def _pack_len(n: int, fix: tuple[int, int] | None, codes: tuple[int, ...]) -> bytes:
+    """The header of a sized value: `fix` is (base byte, largest fix
+    length) where the format has a fix form, `codes` its 8/16/32-bit (or
+    16/32-bit) type bytes."""
+    if fix is not None and n <= fix[1]:
+        return bytes([fix[0] | n])
+    if len(codes) == 3 and n < 1 << 8:
+        return bytes([codes[0]]) + struct.pack(">B", n)
+    if n < 1 << 16:
+        return bytes([codes[-2]]) + struct.pack(">H", n)
+    if n < 1 << 32:
+        return bytes([codes[-1]]) + struct.pack(">I", n)
+    raise ValueError(f"value of length {n} does not fit a msgpack header")
+
+
+def _pack_ndarray(arr: np.ndarray) -> bytes:
+    if arr.dtype == object:
+        raise ValueError("object arrays cannot be packed")
+    payload = _pack([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+    n = len(payload)
+    if n in (1, 2, 4, 8, 16):
+        head = bytes([0xD4 + (1, 2, 4, 8, 16).index(n)])
+    else:
+        head = _pack_len(n, None, (0xC7, 0xC8, 0xC9))
+    return head + struct.pack(">b", _EXT_NDARRAY) + payload
+
+
+def _pack(obj) -> bytes:
+    if obj is None:
+        return b"\xc0"
+    if isinstance(obj, (bool, np.bool_)):
+        return b"\xc3" if obj else b"\xc2"
+    if isinstance(obj, (int, np.integer)):
+        v = int(obj)
+        if 0 <= v <= 0x7F:
+            return bytes([v])
+        if -32 <= v < 0:
+            return struct.pack(">b", v)
+        # the smallest form that holds it, as the msgpack package chooses
+        if v >= 0:
+            for code, fmt, bits in ((0xCC, ">B", 8), (0xCD, ">H", 16),
+                                    (0xCE, ">I", 32), (0xCF, ">Q", 64)):
+                if v < 1 << bits:
+                    return bytes([code]) + struct.pack(fmt, v)
+            raise ValueError(f"integer {v} does not fit msgpack")
+        for code, fmt, bits in ((0xD0, ">b", 8), (0xD1, ">h", 16),
+                                (0xD2, ">i", 32), (0xD3, ">q", 64)):
+            if v >= -(1 << (bits - 1)):
+                return bytes([code]) + struct.pack(fmt, v)
+        raise ValueError(f"integer {v} does not fit msgpack")
+    if isinstance(obj, (float, np.floating)):
+        return b"\xcb" + struct.pack(">d", float(obj))
+    if isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        return _pack_len(len(raw), (0xA0, 31), (0xD9, 0xDA, 0xDB)) + raw
+    if isinstance(obj, (bytes, bytearray, memoryview)):
+        raw = bytes(obj)
+        return _pack_len(len(raw), None, (0xC4, 0xC5, 0xC6)) + raw
+    if isinstance(obj, np.ndarray):
+        return _pack_ndarray(obj)
+    if isinstance(obj, (list, tuple)):
+        return _pack_len(len(obj), (0x90, 15), (0xDC, 0xDD)) + b"".join(
+            _pack(v) for v in obj)
+    if isinstance(obj, dict):
+        out = [_pack_len(len(obj), (0x80, 15), (0xDE, 0xDF))]
+        for key, value in obj.items():
+            if not isinstance(key, str):
+                raise ValueError(f"map key {key!r} is not a str")
+            out.append(_pack(key))
+            out.append(_pack(value))
+        return b"".join(out)
+    raise ValueError(f"cannot pack a {type(obj).__name__}")
+
+
+def packb(obj) -> bytes:
+    """Encode nested dicts (str keys), lists, scalars, bytes and numpy
+    arrays as one msgpack document in flax.serialization's layout: every
+    array is ExtType 1 around the packed (shape, dtype name, C-order
+    bytes), which is what `unpackb` and flax's `msgpack_restore` read."""
+    return _pack(obj)

@@ -1,3 +1,19 @@
-from orcai_tpu_torch.models.crnn import ResNetLSTM, build_model
+from orcai_tpu_torch.models.crnn import (
+    ORCAI_ARCHITECTURES,
+    ResNet1DConv,
+    ResNetLSTM,
+    ResNetTCN,
+    build_model,
+    init_variables,
+    l2_regularization,
+)
 
-__all__ = ["ResNetLSTM", "build_model"]
+__all__ = [
+    "ORCAI_ARCHITECTURES",
+    "ResNet1DConv",
+    "ResNetLSTM",
+    "ResNetTCN",
+    "build_model",
+    "init_variables",
+    "l2_regularization",
+]

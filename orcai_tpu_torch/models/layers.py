@@ -1,10 +1,14 @@
-"""Building-block layers for the CRNN detectors (inference).
+"""Building-block layers for the CRNN detectors, inference and training.
 
 Counterpart of orcai_tpu/models/layers.py. Parameters are kept in float32
-in torch layouts (conv OIHW, linear (out, in), LSTM weight_ih (4U, D));
-each forward casts them to the dtype of its input, as the flax layers cast
-theirs to the module dtype. Convolutions use TF-style SAME padding, which
-for the odd kernels and unit strides here is k // 2 on each side.
+in torch layouts (conv OIHW, 1-D conv (out, in, k), linear (out, in), LSTM
+weight_ih (4U, D)); each forward casts them to the dtype of its input, as
+the flax layers cast theirs to the module dtype, so gradients reach the
+float32 masters. Convolutions use TF-style SAME padding: for a span of k
+cells (dilation counted) k - 1 cells in all, the extra one on the high side.
+
+Like the flax modules, a layer that behaves differently in training takes
+the mode as an argument (`train`) and ignores `nn.Module.training`.
 """
 
 from __future__ import annotations
@@ -13,15 +17,29 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+BN_MOMENTUM = 0.99  # weight of the old running value, as flax counts it
+BN_EPS = 1e-3
+
+
+def _same_pads(kernel_size: int, dilation: int = 1) -> tuple[int, int]:
+    """(low, high) SAME padding of a stride-1 conv, as XLA splits it."""
+    total = dilation * (kernel_size - 1)
+    return total // 2, total - total // 2
+
 
 def _same_pad(kernel_size: int) -> int:
-    if kernel_size % 2 != 1:
-        raise ValueError(f"SAME padding needs an odd kernel, got {kernel_size}")
-    return kernel_size // 2
+    lo, hi = _same_pads(kernel_size)
+    if lo != hi:
+        raise ValueError(f"symmetric SAME padding needs an odd kernel, got {kernel_size}")
+    return lo
 
 
 class FrozenBiasConv(nn.Module):
-    """Dense conv with bias, stride 1, SAME padding (flax FrozenBiasConv)."""
+    """Dense conv with bias, stride 1, SAME padding (flax FrozenBiasConv).
+
+    It feeds a BatchNorm, so its bias has a zero gradient by construction;
+    as in the reference (stop_gradient) the bias is read but never trained.
+    """
 
     def __init__(self, in_ch: int, features: int, kernel_size: int):
         super().__init__()
@@ -29,7 +47,7 @@ class FrozenBiasConv(nn.Module):
         self.weight = nn.Parameter(
             torch.zeros(features, in_ch, kernel_size, kernel_size)
         )
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.bias = nn.Parameter(torch.zeros(features), requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv2d(
@@ -40,12 +58,16 @@ class FrozenBiasConv(nn.Module):
 class ConvParams(nn.Module):
     """Parameter holder matching a flax nn.Conv scope (weight [+ bias])."""
 
-    def __init__(self, out_ch: int, in_ch: int, kernel_size: int, bias: bool):
+    def __init__(self, out_ch: int, in_ch: int, kernel_size: int, bias: bool,
+                 frozen_bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(
             torch.zeros(out_ch, in_ch, kernel_size, kernel_size)
         )
-        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
+        self.bias = (
+            nn.Parameter(torch.zeros(out_ch), requires_grad=not frozen_bias)
+            if bias else None
+        )
 
 
 class SeparableConv(nn.Module):
@@ -53,14 +75,15 @@ class SeparableConv(nn.Module):
 
     Like the flax layer it composes K[o, i, h, w] = dw[i, h, w] * pw[o, i]
     in float32 (a single product per element, so K is bit-equal to the flax
-    einsum) and casts K to the compute dtype.
+    einsum) and casts K to the compute dtype. Every use in the trunk feeds
+    a BatchNorm, so the pointwise bias is frozen (flax frozen_bias=True).
     """
 
     def __init__(self, in_ch: int, features: int, kernel_size: int):
         super().__init__()
         self.pad = _same_pad(kernel_size)
         self.depthwise = ConvParams(in_ch, 1, kernel_size, bias=False)
-        self.pointwise = ConvParams(features, in_ch, 1, bias=True)
+        self.pointwise = ConvParams(features, in_ch, 1, bias=True, frozen_bias=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # (out, in, 1, 1) * (1, in, kh, kw) -> (out, in, kh, kw)
@@ -70,14 +93,39 @@ class SeparableConv(nn.Module):
         )
 
 
+class Conv1d(nn.Module):
+    """1-D conv over (B, C, T), stride 1, SAME padding, trainable bias
+    (flax nn.Conv with a 1-D kernel). An even kernel pads (k - 1) // 2 low
+    and k // 2 high; a dilated kernel of 3 pads its dilation on each side."""
+
+    def __init__(self, in_ch: int, features: int, kernel_size: int, dilation: int = 1):
+        super().__init__()
+        self.dilation = dilation
+        self.pads = _same_pads(kernel_size, dilation)
+        self.weight = nn.Parameter(torch.zeros(features, in_ch, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv1d(
+            F.pad(x, self.pads), self.weight.to(x.dtype), self.bias.to(x.dtype),
+            dilation=self.dilation,
+        )
+
+
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over dim 1 with eps 1e-3 (flax nn.BatchNorm).
+    """BatchNorm over dim 1 (flax nn.BatchNorm(momentum=0.99, epsilon=1e-3)).
 
     As in flax, the normalization runs in float32 and the result is cast
-    back to the input dtype.
+    back to the input dtype. In training the batch is normalized with its
+    own mean and biased variance, and the same biased variance goes into
+    the running average, ra = 0.99 * ra + 0.01 * batch. F.batch_norm hands
+    out the unbiased variance (and counts momentum the other way round), so
+    it runs here on scratch buffers with momentum 1, which leaves the
+    batch's own statistics in them, and the variance is scaled back by
+    (n - 1) / n, n being every element of a channel (B * T for a sequence).
     """
 
-    def __init__(self, features: int, eps: float = 1e-3):
+    def __init__(self, features: int, eps: float = BN_EPS):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(features))
@@ -85,20 +133,66 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            y = F.batch_norm(
+                x.float(), self.running_mean, self.running_var, self.weight,
+                self.bias, training=False, eps=self.eps,
+            )
+            return y.to(x.dtype)
+        n = x.numel() // x.shape[1]
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.ones_like(self.running_var)
         y = F.batch_norm(
-            x.float(), self.running_mean, self.running_var, self.weight,
-            self.bias, training=False, eps=self.eps,
+            x.float(), mean, var, self.weight, self.bias, training=True,
+            momentum=1.0, eps=self.eps,
         )
+        with torch.no_grad():
+            # out of place: the backward keeps the scratch buffers
+            var = var * ((n - 1) / n) if n > 1 else var
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
         return y.to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout whose mask comes from an explicit torch.Generator.
+
+    F.dropout draws from the global state; here the mask is a Bernoulli
+    draw from `generator` (set by the model, on the model's device), so a
+    checkpoint can store the generator's state and a resumed run draws the
+    masks an uninterrupted one would. Kept values are scaled by
+    1 / (1 - rate), as flax nn.Dropout scales them.
+    """
+
+    def __init__(self, rate: float):
+        super().__init__()
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"dropout rate {rate} outside [0, 1)")
+        self.rate = float(rate)
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError(
+                "dropout in training mode needs a generator: call the model's "
+                "set_dropout_generator first"
+            )
+        keep = 1.0 - self.rate
+        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        return x * mask * (1.0 / keep)
 
 
 class LSTM(nn.Module):
     """Weights of one LSTM direction, matching a flax LSTM scope.
 
     Keras gate math: gate order [input, forget, cell, output], which is
-    torch's i, f, g, o; the single Keras bias sits in bias_ih and bias_hh
-    is zero. BiLSTM runs both directions in one call.
+    torch's i, f, g, o; the single Keras bias sits in bias_ih. torch's
+    second bias, bias_hh, is a zero buffer and no parameter: trained, it
+    would take bias_ih's gradient too and the layer would stop being the
+    one-bias Keras LSTM. BiLSTM runs both directions in one call.
     """
 
     def __init__(self, in_features: int, units: int):
@@ -106,7 +200,7 @@ class LSTM(nn.Module):
         self.weight_ih = nn.Parameter(torch.zeros(4 * units, in_features))
         self.weight_hh = nn.Parameter(torch.zeros(4 * units, units))
         self.bias_ih = nn.Parameter(torch.zeros(4 * units))
-        self.bias_hh = nn.Parameter(torch.zeros(4 * units))
+        self.register_buffer("bias_hh", torch.zeros(4 * units))
 
     def flat_weights(self, dtype: torch.dtype) -> list[torch.Tensor]:
         return [
@@ -121,7 +215,8 @@ class BiLSTM(nn.Module):
     original positions.
 
     Both directions run in one bidirectional torch.lstm call (cuDNN on the
-    card); the submodules only hold the per-direction weights.
+    card); the submodules only hold the per-direction weights. `train`
+    goes to torch.lstm so that cuDNN keeps what its backward needs.
     """
 
     def __init__(self, in_features: int, units: int):
@@ -130,9 +225,9 @@ class BiLSTM(nn.Module):
         self.fwd = LSTM(in_features, units)
         self.bwd = LSTM(in_features, units)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         h0 = x.new_zeros(2, x.shape[0], self.units)
         weights = self.fwd.flat_weights(x.dtype) + self.bwd.flat_weights(x.dtype)
         return torch.lstm(
-            x, (h0, h0), weights, True, 1, 0.0, False, True, True
+            x, (h0, h0), weights, True, 1, 0.0, train, True, True
         )[0]

@@ -11,10 +11,22 @@ row for the padding windows of the last chunk; only that small grid comes
 back to the host. A chunk's frame offset into the tensor it is given is
 separate from the window index that decides its output rows, so the
 streaming path (ops/streaming.py) can hand in one normalized tile at a time.
-The sharded (mesh) path and the dense trunk are not ported yet.
+
+Dense-trunk inference (opt-in: dense_trunk=True or ORCAI_TPU_DENSE_TRUNK=1)
+runs the conv trunk ONCE over slabs of consecutive windows (50%-overlapping
+windows compute every trunk frame twice on the windowed path) and windows
+only the sequence head's inputs, on the trunk's 16x coarser grid. It is
+exact overlap-save: each slab carries a halo of at least the trunk's
+receptive-field radius, so interior trunk steps equal a dense trunk over
+the whole recording; the numbers differ from the windowed path's only where
+a window's zero padding differs from the real neighbouring frames. Off by
+default, as in the reference, and never taken by the streaming path. The
+sharded (mesh) path is not ported.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -30,9 +42,10 @@ def _next_pow2(n: int, minimum: int = 4096) -> int:
 class WindowPredictor:
     """Batched overlapping-window predictor for one loaded model.
 
-    `model` is an eval-mode module on the device the spectrograms live on;
-    it maps (B, snippet_len, bins, 1) to (B, snippet_len / 2**n_filters,
-    num_labels) float32 probabilities.
+    `model` is a module on the device the spectrograms live on; it maps
+    (B, snippet_len, bins, 1) to (B, snippet_len / 2**n_filters, num_labels)
+    float32 probabilities, and for the dense trunk takes `trunk_only` and
+    `head_input` (models/crnn.py).
     """
 
     def __init__(
@@ -42,6 +55,7 @@ class WindowPredictor:
         n_filters: int = 4,
         batch_size: int = 128,
         max_windows_per_chunk: int = 2048,
+        dense_trunk: bool | None = None,
     ):
         self.model = model
         self.device = next(model.parameters()).device
@@ -64,6 +78,18 @@ class WindowPredictor:
             self.batch_size,
             max_windows_per_chunk // self.batch_size * self.batch_size,
         )
+        if dense_trunk is None:
+            dense_trunk = os.environ.get("ORCAI_TPU_DENSE_TRUNK") == "1"
+        self.dense_trunk = bool(dense_trunk)
+        # trunk receptive-field radius in input frames: entry conv (k//2)
+        # + per block b: two separable convs (2 * 2^b * (k//2)) + pool3
+        # (2^b) + head separable conv (2^n_filters * (k//2)), rounded up to
+        # the downsample grid so slab starts stay pool-aligned
+        k_half = getattr(model, "kernel_size", 3) // 2
+        radius = k_half + sum(
+            (2 * k_half + 1) * 2**b for b in range(n_filters)
+        ) + self.down * k_half
+        self.halo = -(-radius // self.down) * self.down
 
     def _plan_chunk_size(self, n_win: int) -> int:
         """Windows per chunk: the batch-size multiple covering n_win, rounded
@@ -142,7 +168,6 @@ class WindowPredictor:
         """Scatter-add the wpc windows that start at frame f0 of `spec` into
         agg/count (in place) as windows w0, w0 + 1, ... of the recording;
         the chunk's windows >= n_win_valid go to the trash row."""
-        n_out_pad = agg.shape[0] - 1
         n_bins = spec.shape[1]
         chunk = spec[f0 : f0 + (wpc + 1) * self.shift]
         halves = chunk.reshape(wpc + 1, self.shift, n_bins)
@@ -151,14 +176,72 @@ class WindowPredictor:
         preds = torch.cat(
             [self.model(windows[i : i + bsz]) for i in range(0, wpc, bsz)]
         )
-        n_labels = preds.shape[-1]
-        win_ids = torch.arange(wpc, device=spec.device)[:, None]
+        self._scatter(agg, count, preds, w0, n_win_valid)
+
+    def _scatter(self, agg, count, preds: torch.Tensor, w0: int, n_win_valid: int) -> None:
+        """Add the (wpc, out_len, L) predictions of windows w0, w0 + 1, ...
+        to their output rows; windows >= n_win_valid go to the trash row."""
+        n_out_pad = agg.shape[0] - 1
+        wpc, _, n_labels = preds.shape
+        win_ids = torch.arange(wpc, device=preds.device)[:, None]
         rows = (w0 + win_ids) * self.shift_out + torch.arange(
-            self.out_len, device=spec.device
+            self.out_len, device=preds.device
         )[None, :]
         rows = torch.where(win_ids < n_win_valid, rows, n_out_pad).reshape(-1)
         agg.index_add_(0, rows, preds.reshape(-1, n_labels).float())
         count.index_add_(0, rows, torch.ones_like(rows, dtype=torch.float32))
+
+    def _dense_slab_windows(self, wpc: int) -> int:
+        """Windows per trunk slab: bounds the slab's trunk activations (a
+        33-window slab at the bundled geometry holds a ~165 MB entry-conv
+        activation, a whole 640-window chunk ~2.9 GB) while keeping the
+        trunk's saving near 2x: trunk frames per window = (S+1)/S * shift
+        + 2*halo/S, about 381 against the windowed path's 736 at S=32.
+        Must divide wpc; chunk sizes are batch-size multiples, so 32 works
+        whenever 32 | wpc."""
+        for s in (32, self.batch_size, wpc):
+            if wpc % s == 0:
+                return min(s, wpc)
+        return wpc
+
+    def _run_chunk_dense(
+        self,
+        agg: torch.Tensor,
+        count: torch.Tensor,
+        spec_pad: torch.Tensor,
+        wpc: int,
+        f0: int,
+        w0: int,
+        n_win_valid: int,
+    ) -> None:
+        """Dense-trunk variant of _run_chunk, same scatter-add tail.
+
+        `spec_pad` is the spectrogram with `halo` zero rows on both sides
+        (recording edges see zeros, as the windowed path's out-of-range
+        frames do): frame f is its row f + halo. Slab i covers S windows
+        from frame f0 + i*S*shift and reads halo frames more on each side;
+        the trunk runs once over it and the halo-free (S+1)*shift_out trunk
+        steps are kept. Head inputs are adjacent step-halves, the halves
+        trick of the windowed path on the trunk's grid; the head then runs
+        over window batches.
+        """
+        shift, shift_out = self.shift, self.shift_out
+        n_slab = self._dense_slab_windows(wpc)
+        slab_len = (n_slab + 1) * shift + 2 * self.halo
+        h_steps = self.halo // self.down
+        wins = []
+        for start in range(f0, f0 + wpc * shift, n_slab * shift):
+            slab = spec_pad[start : start + slab_len]
+            steps = self.model(slab[None, :, :, None], trunk_only=True)[0]
+            steps = steps[h_steps : h_steps + (n_slab + 1) * shift_out]
+            halves = steps.reshape(n_slab + 1, shift_out, *steps.shape[1:])
+            wins.append(torch.cat([halves[:-1], halves[1:]], dim=1))
+        wins = torch.cat(wins)  # (wpc, out_len, F', C)
+        bsz = min(self.batch_size, wpc)
+        preds = torch.cat(
+            [self.model(wins[i : i + bsz], head_input=True) for i in range(0, wpc, bsz)]
+        )
+        self._scatter(agg, count, preds, w0, n_win_valid)
 
     def _ensure_device(self, spectrogram, t: int, required: int, n_bins: int):
         """Device tensor of shape (>= required, bins) holding the spectrogram."""
@@ -197,12 +280,14 @@ class WindowPredictor:
         n_win, chunks, required, n_out_pad = self.plan(t)
         spec = self._ensure_device(spectrogram, t, required, n_bins)
         agg, count = self._zero_grid(n_out_pad, self.n_labels(n_bins))
+        run = self._run_chunk
+        if self.dense_trunk:
+            run = self._run_chunk_dense
+            spec = torch.nn.functional.pad(spec, (0, 0, self.halo, self.halo))
         w0 = 0
         for wpc, n_repeat in chunks:
             for _ in range(n_repeat):
-                self._run_chunk(
-                    agg, count, spec, wpc, w0 * self.shift, w0, min(wpc, n_win - w0)
-                )
+                run(agg, count, spec, wpc, w0 * self.shift, w0, min(wpc, n_win - w0))
                 w0 += wpc
         return agg, count, t // self.down
 

@@ -39,16 +39,12 @@ from orcai_tpu_torch.ops.frontend import (
 )
 from orcai_tpu_torch.ops.overlap import WindowPredictor
 from orcai_tpu_torch.ops.streaming import StreamingPredictor
+from orcai_tpu_torch.resources import DEFAULT_CALL_DURATION_LIMITS
 from orcai_tpu_torch.utils.device import exact_f32_math, resolve_device
 from orcai_tpu_torch.utils.rle import runs_from_binary_matrix
 
 log = logging.getLogger(__name__)
 
-# the limits shipped with the repository, found by path beside this package
-DEFAULT_CALL_DURATION_LIMITS = (
-    Path(__file__).resolve().parents[2]
-    / "orcai_tpu" / "defaults" / "default_call_duration_limits.json"
-)
 
 
 # ---------------------------------------------------------------- filtering

@@ -63,3 +63,61 @@ def synth_magnitudes(n_valid: int, n_total: int, seed: int, device):
     )
     flat[:n_valid:97] = 0.125
     return flat
+
+
+def synth_tvt(
+    data_dir: Path | str,
+    spectrogram: np.ndarray,
+    seed: int,
+    n_train: int = 512,
+    n_val: int = 128,
+    n_test: int = 70,
+    snippet_len: int = 736,
+    n_labels: int = 7,
+    down: int = 16,
+) -> dict:
+    """Write a materialized train/val/test directory cut from one (T, bins)
+    spectrogram in [0, 1]: {split}_dataset folders in the ArrayDataset
+    format and dataset_shapes.json.
+
+    Snippets start at frames drawn from `seed`. Label l of an output step is
+    1 where the step's mean energy in the l-th of n_labels equal frequency
+    bands lies more than one standard deviation over that band's mean over
+    the whole spectrogram (a tone sweep crossing the band), so the labels
+    can be learnt from the snippet. A fifth of the snippets have their last
+    label masked throughout and a tenth of all steps the one before it.
+    Returns the number of snippets per split and the share of ones.
+    """
+    from orcai_tpu_torch.io.dataset import ArrayDataset
+    from orcai_tpu_torch.io.jsonio import write_json
+    from orcai_tpu_torch.utils.seeds import MASK_VALUE
+
+    data_dir = Path(data_dir)
+    spec = np.asarray(spectrogram, np.float32)
+    n_steps, band = snippet_len // down, spec.shape[1] // n_labels
+    usable = spec.shape[0] // down * down
+    energy = spec[:usable, : band * n_labels].reshape(usable // down, down, n_labels, band)
+    energy = energy.mean(axis=(1, 3))  # (steps of the recording, labels)
+    active = (energy > energy.mean(axis=0) + energy.std(axis=0)).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    counts = {}
+    for split, n in (("train", n_train), ("val", n_val), ("test", n_test)):
+        starts = rng.integers(0, usable // down - n_steps, size=n) * down
+        labels = np.stack([active[s // down : s // down + n_steps] for s in starts])
+        labels[rng.uniform(size=n) < 0.2, :, -1] = MASK_VALUE
+        labels[..., -2][rng.uniform(size=(n, n_steps)) < 0.1] = MASK_VALUE
+
+        class Snippets:
+            def __len__(self):
+                return n
+
+            def __iter__(self):
+                for s, y in zip(starts, labels):
+                    yield spec[s : s + snippet_len, :, None], y
+
+        ArrayDataset.save_from_loader(Snippets(), data_dir / f"{split}_dataset", overwrite=True)
+        counts[split] = int(n)
+    write_json({"spectrogram": [snippet_len, spec.shape[1], 1], "labels": [n_steps, n_labels]},
+               data_dir / "dataset_shapes.json")
+    counts["share_of_ones"] = float(active.mean())
+    return counts

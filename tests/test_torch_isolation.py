@@ -1,6 +1,6 @@
 """The port stands alone: importing any of its modules loads none of jax,
-flax, pandas, msgpack, click, tqdm or the JAX package, and no source of the
-port (or chip_smoke.py) imports one of them."""
+flax, optax, orbax, pandas, msgpack, click, tqdm or the JAX package, and no
+source of the port (or chip_smoke.py) imports one of them."""
 
 import ast
 import json
@@ -11,10 +11,11 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "pandas", "msgpack", "click", "tqdm", "orcai_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "pandas", "msgpack", "click", "tqdm",
+             "orcai_tpu")
 # torch itself loads tqdm where it is installed, so the subprocess check
 # leaves tqdm and click to the source scan
-NOT_LOADED = ("jax", "flax", "pandas", "msgpack", "orcai_tpu")
+NOT_LOADED = ("jax", "flax", "optax", "orbax", "pandas", "msgpack", "orcai_tpu")
 SOURCES = sorted((ROOT / "orcai_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 MODULES = [
     ".".join(p.relative_to(ROOT).with_suffix("").parts)
@@ -25,7 +26,11 @@ MODULES = [
 
 def test_every_module_of_the_slice_is_scanned():
     for name in ("ops.streaming", "pipeline.serve", "tools.warmup",
-                 "utils.device_health", "pipeline.predict", "__main__"):
+                 "utils.device_health", "pipeline.predict", "__main__",
+                 "models.crnn", "models.layers", "io.model_store", "io.msgpack_lite",
+                 "io.dataset", "io.jsonio", "utils.seeds", "ops.losses", "ops.overlap",
+                 "train.trainer", "train.checkpoint", "train.evaluate", "resources",
+                 "tools.profile_train"):
         assert f"orcai_tpu_torch.{name}" in MODULES
     assert "chip_smoke" in MODULES
 

@@ -78,8 +78,12 @@ def test_max_pool_same_matches_flax(hw):
 
 
 def test_unported_architecture_rejected():
-    with pytest.raises(ValueError, match="not ported"):
-        build_model(dict(NARROW, architecture="ResNet1DConv"))
+    """All three of the reference's architectures build; any other name is
+    refused with the reference's message."""
+    for arch in ("ResNetLSTM", "ResNet1DConv", "ResNetTCN"):
+        assert type(build_model(dict(NARROW, architecture=arch))).__name__ == arch
+    with pytest.raises(ValueError, match="Unknown model architecture: ResNetGRU"):
+        build_model(dict(NARROW, architecture="ResNetGRU"))
 
 
 @pytest.mark.parametrize("btd", [(3, 11, 5), (1, 46, 9)])

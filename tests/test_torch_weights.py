@@ -147,3 +147,53 @@ def test_load_orcai_model_on_cpu():
     assert param["name"] == "orcai-v1" and shape["input_shape"] == [736, 171, 1]
     assert all(p.device.type == "cpu" and p.dtype == torch.float32
                for p in model.parameters())
+
+
+def test_packb_round_trips_and_is_what_flax_reads():
+    """The writer's subset: nested str-keyed maps, lists, scalars of every
+    width, bytes, arrays of several dtypes and shapes."""
+    import flax.serialization
+
+    from orcai_tpu_torch.io.msgpack_lite import packb
+
+    rng = np.random.default_rng(0)
+    tree = {
+        "params": {"w": rng.standard_normal((3, 4, 5)).astype(np.float32),
+                   "empty": np.zeros((0, 2), np.float32),
+                   "scalar": np.full((), 2.5, np.float32),
+                   "i": np.arange(300, dtype=np.int32), "d": rng.standard_normal(17)},
+        "ints": [0, 127, 128, 255, 256, 65535, 65536, 2**32 - 1, 2**32, 2**63,
+                 -1, -32, -33, -128, -129, -32768, -32769, -(2**31), -(2**31) - 1, -(2**63)],
+        "floats": [0.0, -1.5, 1e300], "none": None, "flags": [True, False],
+        "text": ["", "a" * 31, "b" * 32, "c" * 256, "d" * 70000, "\u00e9"],
+        "raw": b"\x00\x01" * 200,
+        "wide": {f"k{i}": i for i in range(20)}, "long": list(range(70000)),
+    }
+    raw = packb(tree)
+    back = unpackb(raw)
+
+    def same(a, b):
+        if isinstance(a, dict):
+            assert sorted(a) == sorted(b)
+            for k in a:
+                same(a[k], b[k])
+        elif isinstance(a, np.ndarray):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
+        elif isinstance(a, list):
+            assert len(a) == len(b)
+            for x, y in zip(a, b):
+                same(x, y)
+        else:
+            assert a == b and type(a) is type(b)
+
+    same(tree, back)
+    same(tree, flax.serialization.msgpack_restore(raw))
+
+    def by_key(t):  # flax walks a dict in key order
+        return {k: by_key(v) if isinstance(v, dict) else v for k, v in sorted(t.items())}
+
+    assert packb(by_key(tree)) == flax.serialization.msgpack_serialize(tree)
+    for bad in ({1: 2}, object(), 2**64, -(2**63) - 1, np.array([object()])):
+        with pytest.raises(ValueError):
+            packb(bad)
