@@ -64,6 +64,19 @@ Phases, each printing one JSON line and failing the run on any error:
            batch; then the dense trunk (WindowPredictor(dense_trunk=True))
            against the windowed path on the golden spectrogram, and both
            CRNN walls on the 20-minute recording
+  data_prep  the data chain on a synthetic project at orcai-v1's widths (3
+           recordings of 20 minutes from --seed, 8 calls a minute over the 7
+           labels; one recording without annotation, one with BR and BUZZ
+           not possible; the default parameter file with n_batch
+           train/val/test cut from 3750/375/375 to 8/2/2 at batch 64):
+           create-recording-table, create-spectrograms through the CLI on
+           cuda (B1 7, B2 3, pick 3 launches per annotated recording; each
+           store bit-equal to the frontend run in this process and within
+           2e-4 of its plain versions on the card), create-label-arrays
+           ((frames, 7), masked columns at MASK_VALUE), create-snippet-table,
+           create-tvt-snippet-tables, create-tvt-data (shapes [736, 171, 1]
+           and [46, 7]) and one train epoch on the result (finite loss);
+           stage walls, the zarr codec, bytes written, peak device memory
 
 Then one {"selection": {...}} line, one {"kernels": [...]} line, the card's `name, power.limit` from
 nvidia-smi, and last {"ok": true, "device": {...}}. Exits non-zero, with no
@@ -548,10 +561,10 @@ def phase_full(torch, tmp: Path, seed: int, total: dict) -> tuple[dict, dict, di
     from orcai_tpu_torch.ops.overlap import WindowPredictor
     from orcai_tpu_torch.ops.radix_select import digit_histograms, select_order_statistics
     from orcai_tpu_torch.pipeline.predict import predict
-    from orcai_tpu_torch.tools.synthetic import synth_recording
+    from orcai_tpu_torch.tools.synthetic import synth_sweep_wav
 
     wav = tmp / "synthetic_20min.wav"
-    n = synth_recording(wav, seed, MINUTES)
+    n = synth_sweep_wav(wav, seed, MINUTES)
     model, param, shape = load_orcai_model(device="cuda")
     sp = param["spectrogram"]
     predictor = WindowPredictor(model, snippet_len=shape["input_shape"][0],
@@ -1149,6 +1162,175 @@ def phase_test_model(torch, tmp: Path, state: dict, trained: dict) -> dict:
             "dense_vs_windowed_max_abs_diff_20min": diff20, **crnn}
 
 
+DP_RECORDINGS, DP_MINUTES = 3, 20.0  # the data-prep project: 3 x 20 min at 48 kHz
+DP_BATCHES = (8, 2, 2)  # n_batch_train / val / test at batch 64 (orcai-v1: 3750 / 375 / 375)
+DP_MASKED = ("BR", "BUZZ")  # the calls one row marks as not possible
+
+
+def _tree_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def phase_data_prep(torch, tmp: Path, seed: int, total: dict) -> dict:
+    """The data chain of the port on a synthetic project at orcai-v1's
+    widths: create-recording-table, create-spectrograms through the CLI on
+    cuda, create-label-arrays, create-snippet-table,
+    create-tvt-snippet-tables, create-tvt-data, then one train epoch on the
+    datasets it made."""
+    import ast
+    import io
+
+    import numpy as np
+
+    from orcai_tpu_torch import __main__ as cli
+    from orcai_tpu_torch.io.jsonio import read_json, write_json
+    from orcai_tpu_torch.io.tables import Table
+    from orcai_tpu_torch.io.zarrlite import open_zarr
+    from orcai_tpu_torch.ops import frontend
+    from orcai_tpu_torch.ops.dft import dft_magnitude_plain
+    from orcai_tpu_torch.ops.radix_select import select_order_statistics_plain
+    from orcai_tpu_torch.pipeline.helpers import create_recording_table
+    from orcai_tpu_torch.pipeline.labels import create_label_arrays
+    from orcai_tpu_torch.pipeline.snippets import (
+        create_snippet_table, create_tvt_data, create_tvt_snippet_tables,
+    )
+    from orcai_tpu_torch.pipeline.spectrogram import load_recording_audio
+    from orcai_tpu_torch.resources import DEFAULT_ORCAI_PARAMETER
+    from orcai_tpu_torch.tools.synthetic import make_synthetic_project
+    from orcai_tpu_torch.train.trainer import train
+    from orcai_tpu_torch.utils.seeds import MASK_VALUE
+
+    root = tmp / "data_prep"
+    walls = {}
+    t0 = time.perf_counter()
+    make_synthetic_project(root, DP_RECORDINGS, DP_MINUTES * 60, seed=seed)
+    walls["synthesize_s"] = time.perf_counter() - t0
+    wav_dir = root / "recordings"
+    names = sorted(p.stem for p in wav_dir.glob("*.wav"))
+    unannotated, masked_rec = names[-1], names[1]
+    (wav_dir / f"{unannotated}.txt").unlink()  # one recording without annotation
+
+    param = read_json(DEFAULT_ORCAI_PARAMETER)
+    if (param["model"]["filters"], param["model"]["batch_size"], len(param["calls"]),
+            param["snippets"]["fraction_removal"]) != ([30, 40, 50, 60], 64, 7, 0.99):
+        raise AssertionError("the default parameter file is not orcai-v1's")
+    param["seed"], param["name"] = seed, "smoke-data-prep"
+    param["model"].update(dict(zip(("n_batch_train", "n_batch_val", "n_batch_test"),
+                                   DP_BATCHES)), epochs=1)
+    param_path = root / "param.json"
+    write_json(param, param_path)
+    calls = param["calls"]
+
+    # the scan, then the user fills the call columns: every call possible,
+    # two not possible in one recording
+    table_path = root / "recording_table.csv"
+    t0 = time.perf_counter()
+    create_recording_table(wav_dir, output_path=root / "scanned.csv",
+                           orcai_parameter=param_path)
+    walls["recording_table_s"] = time.perf_counter() - t0
+    table = Table.read_csv(root / "scanned.csv")
+    for call in calls:
+        table[call] = np.array([not (r == masked_rec and call in DP_MASKED)
+                                for r in table["recording"]])
+    table.to_csv(table_path, index=False)
+
+    data_dir, tvt = root / "data", root / "tvt"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(["create-spectrograms", str(table_path), str(data_dir), "-p", str(param_path),
+                  "--device", "cuda", "-v", "1"])
+    torch.cuda.synchronize()
+    walls["create_spectrograms_s"] = time.perf_counter() - t0
+    counts = read_counts(total)
+    peak = torch.cuda.max_memory_allocated()
+    report = ast.literal_eval(out.getvalue().strip().splitlines()[-1])
+    annotated = [r for r in names if r != unannotated]
+    check_counts(counts, 7 * len(annotated), "data_prep", b2=3 * len(annotated),
+                 pick=3 * len(annotated))
+    if report["n_recordings"] != len(annotated) or sorted(
+            p.name for p in data_dir.iterdir()) != annotated:
+        raise AssertionError(f"spectrograms for {sorted(p.name for p in data_dir.iterdir())}, "
+                             f"expected {annotated}")
+
+    # each store against the frontend run here, and against its plain versions
+    sp = param["spectrogram"]
+    args = (sp["sampling_rate"], sp["nfft"], sp["n_overlap"], sp["freq_range"],
+            sp["quantiles"])
+    plain_err, n_frames = 0.0, {}
+    for rec in annotated:
+        stored = open_zarr(data_dir / rec / "spectrogram" / "spectrogram.zarr")[:]
+        audio = load_recording_audio(wav_dir / f"{rec}.wav", sp["sampling_rate"])
+        spec, nf, _, _ = frontend.compute_spectrogram_device(audio, *args, device="cuda")
+        if not np.array_equal(stored, spec[:nf].cpu().numpy()):
+            raise AssertionError(f"{rec}: stored spectrogram differs from the frontend's")
+        kernels = frontend.dft_magnitude, frontend.select_order_statistics
+        frontend.dft_magnitude = dft_magnitude_plain
+        frontend.select_order_statistics = select_order_statistics_plain
+        try:
+            plain, _, _, _ = frontend.compute_spectrogram_device(audio, *args, device="cuda")
+        finally:
+            frontend.dft_magnitude, frontend.select_order_statistics = kernels
+        plain_err = max(plain_err, float(np.abs(plain[:nf].cpu().numpy() - stored).max()))
+        times = read_json(data_dir / rec / "spectrogram" / "times.json")
+        if times["length"] != nf or stored.shape != (nf, 171):
+            raise AssertionError(f"{rec}: times.json {times}, store {stored.shape}, {nf} frames")
+        n_frames[rec] = nf
+    if not plain_err <= 2e-4:
+        raise AssertionError(f"stored spectrograms vs the plain versions: {plain_err} > 2e-4")
+
+    t0 = time.perf_counter()
+    create_label_arrays(table_path, data_dir, orcai_parameter=param_path)
+    walls["labels_s"] = time.perf_counter() - t0
+    masked_idx = [calls.index(c) for c in DP_MASKED]
+    for rec in annotated:
+        y = open_zarr(data_dir / rec / "labels" / "labels.zarr")[:]
+        if y.shape != (n_frames[rec], len(calls)):
+            raise AssertionError(f"{rec}: labels {y.shape}")
+        is_masked = (y[:, masked_idx] == MASK_VALUE).all()
+        if is_masked != (rec == masked_rec) or not set(np.unique(y)) <= {MASK_VALUE, 0.0, 1.0}:
+            raise AssertionError(f"{rec}: masked columns {is_masked}, values {np.unique(y)}")
+    t0 = time.perf_counter()
+    create_snippet_table(table_path, data_dir, output_dir=tvt, orcai_parameter=param_path)
+    walls["snippet_table_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    create_tvt_snippet_tables(tvt, orcai_parameter=param_path)
+    walls["tvt_tables_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    create_tvt_data(tvt, orcai_parameter=param_path)
+    walls["tvt_data_s"] = time.perf_counter() - t0
+    shapes = read_json(tvt / "dataset_shapes.json")
+    if shapes != {"spectrogram": [736, 171, 1], "labels": [46, len(calls)]}:
+        raise AssertionError(f"dataset_shapes.json {shapes}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train(tvt, root / "models", orcai_parameter=param_path, device="cuda")
+    torch.cuda.synchronize()
+    walls["train_epoch_s"] = time.perf_counter() - t0
+    history = read_json(root / "models" / param["name"] / "training_history.json")
+    if len(history["loss"]) != 1 or not np.isfinite([v[0] for v in history.values()]).all():
+        raise AssertionError(f"train on the made datasets: {history}")
+    return {
+        "phase": "data_prep", "recordings": DP_RECORDINGS, "minutes": DP_MINUTES,
+        "annotated": len(annotated), "masked": {masked_rec: list(DP_MASKED)},
+        "reduced": {"n_batch_train/val/test": [3750, 375, 375], "to": list(DP_BATCHES),
+                    "batch_size": 64},
+        "launches": counts, "codec": report["codec"],
+        "stage_wall_s": {"wav_load": report["load_s"], "frontend": report["frontend_s"],
+                         "fetch_to_host": report["fetch_s"], "store_write": report["write_s"],
+                         **walls},
+        "spectrogram_bytes_written": report["bytes_written"],
+        "data_dir_bytes": _tree_bytes(data_dir), "tvt_dir_bytes": _tree_bytes(tvt),
+        "peak_device_bytes_create_spectrograms": peak,
+        "stored_vs_frontend_bit_equal": True, "stored_vs_plain_max_abs_err": plain_err,
+        "frames": n_frames, "dataset_shapes": shapes, "train_history": history,
+    }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1187,14 +1369,16 @@ def main(argv=None) -> int:
             emit(line)
             phase = "test_model"
             emit(phase_test_model(torch, Path(tmp), state, trained))
+            phase = "data_prep"
+            emit(phase_data_prep(torch, Path(tmp), args.seed, total))
     except Exception as e:  # report the phase, then fail the run
         traceback.print_exc()
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
     # every kernel's launches, summed over the paths driven above (golden,
-    # 20-minute, streaming, table, service, the trained model's predict);
-    # each path asserted its own. Training and evaluation read stored
-    # spectrograms and launch none of these kernels.
+    # 20-minute, streaming, table, service, the trained model's predict,
+    # create-spectrograms); each path asserted its own. Training and
+    # evaluation read stored spectrograms and launch none of these kernels.
     for name, row in rows.items():
         row["launches"] = total[name]
     rows["digit_histograms"]["ms_real"] = real["b2_ms_real"]

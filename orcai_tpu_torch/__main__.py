@@ -1,10 +1,14 @@
 """Command line: python -m orcai_tpu_torch <command> [options].
 
 The commands and flags follow `orcai predict`, `orcai filter-predictions`,
-`orcai serve`, `orcai warmup`, `orcai train` and `orcai test`
-(orcai_tpu/cli.py), without the wire codec and the choice among bundled
-models. Every command that computes
-runs on `--device cuda` unless told otherwise, and raises without CUDA.
+`orcai serve`, `orcai warmup`, `orcai train`, `orcai test` and the data
+preparation commands `orcai init`, `create-recording-table`,
+`create-spectrograms`, `create-label-arrays`, `create-snippet-table`,
+`create-tvt-snippet-tables` and `create-tvt-data` (orcai_tpu/cli.py),
+without the wire codec and the choice among bundled models. Every command
+that computes on a device runs on `--device cuda` unless told otherwise,
+and raises without CUDA; the table, label and dataset steps run on the
+host, as in the reference.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
+from pathlib import Path
 
 _LOG_LEVELS = {0: logging.ERROR, 1: logging.WARNING, 2: logging.INFO, 3: logging.DEBUG}
 
@@ -102,12 +107,14 @@ def _parser() -> argparse.ArgumentParser:
                    help="window batch size (default: 128)")
     _common(p)
 
-    def data_compression(p: argparse.ArgumentParser) -> None:
+    def data_compression(p: argparse.ArgumentParser, text: str) -> None:
+        # "None" on the command line is None in the call
         p.add_argument("--data_compression", "-dc", default="None",
-                       type=lambda v: {"gzip": "GZIP", "none": "None"}.get(v.lower(), v),
-                       choices=["GZIP", "None"],
-                       help="compression the datasets were written with (default: "
-                            "None; the dataset's meta.json decides on load)")
+                       type=lambda v: {"gzip": "GZIP", "none": None}.get(v.lower(), v),
+                       choices=["GZIP", None], help=text)
+
+    reading = ("compression the datasets were written with (default: None; the "
+               "dataset's meta.json decides on load)")
 
     p = command(
         "train",
@@ -119,7 +126,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--orcai_parameter", "-p", default=str(DEFAULT_ORCAI_PARAMETER),
                    help="path to the orcAI parameter file "
                         "(default: default_orcai_parameter.json)")
-    data_compression(p)
+    data_compression(p, reading)
     p.add_argument("--load_model", "-lm", action="store_true",
                    help="load model from previous training")
     _common(p)
@@ -135,8 +142,119 @@ def _parser() -> argparse.ArgumentParser:
                    help="also test on the unfiltered test dataset")
     p.add_argument("--output_dir", "-o", default=None,
                    help="output directory (default: <model_dir>/test)")
-    data_compression(p)
+    data_compression(p, reading)
     _common(p)
+
+    p = command("init", "Initializes a new orcAI project with PROJECT_NAME in PROJECT_DIR.")
+    p.add_argument("project_dir", help="project directory (created if missing)")
+    p.add_argument("project_name", help="project name")
+    p.add_argument("--parameter", "-p", default=None,
+                   help="JSON file with orcAI parameter overrides")
+    _common(p, device=False)
+
+    p = command(
+        "create-recording-table",
+        "Create a table of recordings in BASE_DIR_RECORDING for use with other "
+        "orcAI functions.",
+    )
+    p.add_argument("base_dir_recording", help="directory scanned for .wav files")
+    p.add_argument("--output_path", "-o", default=None,
+                   help="path to save the table (default: "
+                        "BASE_DIR_RECORDING/recording_table.csv)")
+    p.add_argument("--base_dir_annotation", "-bda", default=None,
+                   help="base directory containing the annotations")
+    p.add_argument("--default_channel", "-dc", type=int, default=1,
+                   help="default channel number (default: 1)")
+    p.add_argument("--orcai_parameter", "-p", default=None,
+                   help="path to the orcAI parameter file (its calls become columns)")
+    p.add_argument("--update_table", "-ut", default=None,
+                   help="previous recording table to update")
+    p.add_argument("--update_paths", "-up", action="store_true",
+                   help="update paths from the new scan when updating a table")
+    p.add_argument("--exclude_patterns", "-ep", default=None,
+                   help="JSON file with filename patterns to exclude")
+    p.add_argument("--remove_duplicate_filenames", "-rdf", action="store_true",
+                   help="remove duplicate filenames from the table")
+    _common(p, device=False)
+
+    def parameter(p: argparse.ArgumentParser) -> None:
+        p.add_argument("--orcai_parameter", "-p", default=str(DEFAULT_ORCAI_PARAMETER),
+                       help="path to the orcAI parameter file "
+                            "(default: default_orcai_parameter.json)")
+
+    p = command(
+        "create-spectrograms",
+        "Creates spectrograms for all files in recording table at "
+        "RECORDING_TABLE_PATH and writes them to OUTPUT_DIR.",
+    )
+    p.add_argument("recording_table_path", help="recording table (.csv)")
+    p.add_argument("output_dir", help="directory the recording data is written into")
+    p.add_argument("--base_dir_recording", "-bdr", default=None,
+                   help="base directory for the wav files")
+    parameter(p)
+    p.add_argument("--include_not_annotated", "-en", action="store_true",
+                   help="include recordings without annotations")
+    p.add_argument("--include_no_possible_annotations", "-enp", action="store_true",
+                   help="include recordings without possible annotations")
+    p.add_argument("--overwrite", "-ow", action="store_true",
+                   help="recreate existing spectrograms")
+    _common(p)
+
+    p = command(
+        "create-label-arrays",
+        "Creates label arrays for all files in recording table at "
+        "RECORDING_TABLE_PATH and writes them to OUTPUT_DIR.",
+    )
+    p.add_argument("recording_table_path", help="recording table (.csv)")
+    p.add_argument("output_dir", help="directory with the recording data")
+    p.add_argument("--base_dir_annotation", "-bda", default=None,
+                   help="base directory for the annotation files")
+    parameter(p)
+    p.add_argument("--call_equivalences", "-ce", default=None,
+                   help="JSON mapping original call labels to new call labels")
+    p.add_argument("--overwrite", "-ow", action="store_true",
+                   help="recreate existing label arrays")
+    _common(p, device=False)
+
+    p = command(
+        "create-snippet-table",
+        "Creates a table of snippets for all files in recording table at "
+        "RECORDING_TABLE_PATH using data in RECORDING_DATA_DIR.",
+    )
+    p.add_argument("recording_table_path", help="recording table (.csv)")
+    p.add_argument("recording_data_dir", help="directory with the recording data")
+    p.add_argument("--output_dir", "-o", default=None,
+                   help="output directory (default: tvt_data next to the recording table)")
+    parameter(p)
+    _common(p, device=False)
+
+    p = command(
+        "create-tvt-snippet-tables",
+        "Creates snippet tables for training, validation and test datasets and "
+        "saves them to OUTPUT_DIR.",
+    )
+    p.add_argument("output_dir", help="directory of the snippet tables")
+    p.add_argument("--snippet_table", "-st", default=None,
+                   help="snippet table csv (default: OUTPUT_DIR/all_snippets.csv.gz)")
+    parameter(p)
+    p.add_argument("--create_unfiltered_test_snippets", "-uts", action="store_true",
+                   help="also create an unfiltered test snippet table")
+    p.add_argument("--n_unfiltered_test_snippets", "-n_uts", type=int, default=None,
+                   help="number of unfiltered test snippets")
+    p.add_argument("--overwrite", "-ow", action="store_true",
+                   help="overwrite existing snippet tables")
+    _common(p, device=False)
+
+    p = command(
+        "create-tvt-data",
+        "Creates training, validation and test datasets from snippet tables in TVT_DIR.",
+    )
+    p.add_argument("tvt_dir", help="directory of the snippet tables")
+    parameter(p)
+    p.add_argument("--overwrite", "-ow", action="store_true", help="recreate existing data")
+    data_compression(p, "data compression for the datasets (default: None keeps the "
+                        "shards memory-mappable)")
+    _common(p, device=False)
 
     p = command(
         "filter-predictions",
@@ -157,9 +275,22 @@ def _parser() -> argparse.ArgumentParser:
     return parser
 
 
+# path arguments of the data preparation commands, made absolute as the
+# reference's click paths are (they end up in the tables these commands write)
+_DATA_PREP_PATHS = {
+    "project_dir", "parameter", "base_dir_recording", "output_path", "base_dir_annotation",
+    "orcai_parameter", "update_table", "exclude_patterns", "recording_table_path",
+    "output_dir", "call_equivalences", "recording_data_dir", "snippet_table", "tvt_dir",
+}
+
+
 def main(argv=None) -> int:
     args = vars(_parser().parse_args(argv))
     command = args.pop("command")
+    if command == "init" or command.startswith("create-"):
+        for key in _DATA_PREP_PATHS & args.keys():
+            if args[key] is not None:
+                args[key] = str(Path(args[key]).resolve())
     logging.basicConfig(level=_LOG_LEVELS[args.pop("verbosity")], format="%(message)s")
 
     if command == "predict":
@@ -176,17 +307,42 @@ def main(argv=None) -> int:
         n = warmup(args["minutes"], args["model_dir"], args["predict_batch_size"],
                    device=args["device"])
         print(f"Warmed {n} recording-length shapes")
-    elif command in ("train", "test"):
-        if args["data_compression"] == "None":
-            args["data_compression"] = None
-        if command == "train":
-            from orcai_tpu_torch.train.trainer import train
+    elif command == "train":
+        from orcai_tpu_torch.train.trainer import train
 
-            train(**args)
-        else:
-            from orcai_tpu_torch.train.evaluate import test_model
+        train(**args)
+    elif command == "test":
+        from orcai_tpu_torch.train.evaluate import test_model
 
-            print(test_model(**args))
+        print(test_model(**args))
+    elif command == "init":
+        from orcai_tpu_torch.pipeline.helpers import init_project
+
+        init_project(**args)
+    elif command == "create-recording-table":
+        from orcai_tpu_torch.pipeline.helpers import create_recording_table
+
+        create_recording_table(**args)
+    elif command == "create-spectrograms":
+        from orcai_tpu_torch.pipeline.spectrogram import create_spectrograms
+
+        print(create_spectrograms(**args))
+    elif command == "create-label-arrays":
+        from orcai_tpu_torch.pipeline.labels import create_label_arrays
+
+        create_label_arrays(**args)
+    elif command == "create-snippet-table":
+        from orcai_tpu_torch.pipeline.snippets import create_snippet_table
+
+        create_snippet_table(**args)
+    elif command == "create-tvt-snippet-tables":
+        from orcai_tpu_torch.pipeline.snippets import create_tvt_snippet_tables
+
+        create_tvt_snippet_tables(**args)
+    elif command == "create-tvt-data":
+        from orcai_tpu_torch.pipeline.snippets import create_tvt_data
+
+        create_tvt_data(**args)
     else:
         from orcai_tpu_torch.pipeline.predict import filter_predictions_file
 

@@ -1,12 +1,15 @@
-"""Materialized TVT dataset storage (counterpart of orcai_tpu/io/dataset.py,
-without the snippet loader, which needs pandas and zarr).
+"""Snippet loading and materialized TVT dataset storage (counterpart of
+orcai_tpu/io/dataset.py).
 
-`ArrayDataset` is the on-disk format training and evaluation read:
-contiguous .npy shards (optionally gzipped) + meta.json. Uncompressed
-shards are memory-mapped, so an epoch of batches is index math and
-page-cache reads. Batch iteration does a full seeded permutation per
-epoch, drawn with numpy exactly as the reference draws it, so both
-packages see the same batches from the same seed.
+- `SnippetDataLoader` fetches (spectrogram, labels) snippet pairs from the
+  zarr stores by row range, downsampling labels by mean+round over
+  2**n_filters blocks. Zarr handles are cached per recording.
+- `ArrayDataset` is the on-disk format training and evaluation read:
+  contiguous .npy shards (optionally gzipped) + meta.json. Uncompressed
+  shards are memory-mapped, so an epoch of batches is index math and
+  page-cache reads. Batch iteration does a full seeded permutation per
+  epoch, drawn with numpy exactly as the reference draws it, so both
+  packages see the same batches from the same seed.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from pathlib import Path
 
 import numpy as np
 
+from orcai_tpu_torch.io.tables import Table
+from orcai_tpu_torch.io.zarrlite import open_zarr
 from orcai_tpu_torch.utils.seeds import shuffle_seed_from
 
 
@@ -36,6 +41,54 @@ def reshape_labels(labels: np.ndarray, n_filters: int) -> np.ndarray:
         )
     averaged = labels.reshape(t // down, down, n).mean(axis=1)
     return np.round(averaged).astype(np.float32)
+
+
+class SnippetDataLoader:
+    """Snippet fetcher over a snippet table (recording_data_dir, row range).
+
+    With shuffle, the rows are permuted as DataFrame.sample(frac=1,
+    random_state=rng) permutes them: rng.choice(n, n, replace=False).
+    """
+
+    def __init__(self, snippet_table, n_filters: int, shuffle: bool = True,
+                 rng: np.random.Generator | None = None):
+        if rng is None:
+            rng = np.random.default_rng()
+        if shuffle:
+            n = len(snippet_table)
+            snippet_table = snippet_table.take(rng.choice(n, size=n, replace=False))
+        self.snippet_table = snippet_table
+        self.n_filters = n_filters
+        self._stores: dict[str, tuple] = {}
+
+    @classmethod
+    def from_csv(cls, path: Path | str, n_filters: int, shuffle: bool = True,
+                 rng: np.random.Generator | None = None) -> "SnippetDataLoader":
+        return cls(Table.read_csv(path), n_filters, shuffle, rng)
+
+    def _store(self, recording_data_dir: str):
+        if recording_data_dir not in self._stores:
+            base = Path(recording_data_dir)
+            self._stores[recording_data_dir] = (
+                open_zarr(base / "spectrogram" / "spectrogram.zarr"),
+                open_zarr(base / "labels" / "labels.zarr"),
+            )
+        return self._stores[recording_data_dir]
+
+    def __len__(self) -> int:
+        return len(self.snippet_table)
+
+    def __getitem__(self, index: int) -> tuple[np.ndarray, np.ndarray]:
+        table = self.snippet_table
+        spec_z, label_z = self._store(str(table["recording_data_dir"][index]))
+        start, stop = int(table["row_start"][index]), int(table["row_stop"][index])
+        spec = spec_z[start:stop, :][..., None]  # (T, bins, 1)
+        labels = reshape_labels(label_z[start:stop, :].astype(np.float32), self.n_filters)
+        return spec.astype(np.float32), labels
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
 
 
 class _ShardStack:

@@ -1,4 +1,5 @@
-"""JSON file reading and writing (counterpart of orcai_tpu/io/jsonio.py and
+"""JSON file reading and writing, and the {min, max, length} form of an
+equally spaced vector (counterpart of orcai_tpu/io/jsonio.py and
 orcai_tpu/utils/jsonenc.py)."""
 
 from __future__ import annotations
@@ -35,3 +36,18 @@ def write_json(dictionary: dict, filename: Path | str) -> None:
     Path(filename).parent.mkdir(parents=True, exist_ok=True)
     with open(filename, "w") as f:
         f.write(json.dumps(dictionary, indent=4, cls=JsonEncoderExt))
+
+
+def write_vector_to_json(vector, filename: Path | str) -> None:
+    """Store an equally spaced vector as {min, max, length}."""
+    Path(filename).parent.mkdir(parents=True, exist_ok=True)
+    payload = {"min": vector[0], "max": vector[-1], "length": len(vector)}
+    with open(filename, "w") as f:
+        json.dump(payload, f, indent=4, cls=JsonEncoderExt)
+
+
+def generate_times_from_spectrogram(filename: Path | str) -> np.ndarray:
+    """Rebuild the equally spaced vector from its {min, max, length}."""
+    with open(filename, "r") as f:
+        d = json.load(f)
+    return np.linspace(d["min"], d["max"], d["length"])

@@ -7,14 +7,18 @@ holds
     model_shape.json
     <name>.msgpack          flax variables {"params", "batch_stats"}
     <name>.opt.pt           optimizer state (torch.save; optional, for resume)
+    <name>.opt.msgpack      optax's optimizer state, in a directory the JAX
+                            package trained (read, never written, here)
     train_state.json        epochs run (optional)
     training_history.json   per-epoch metrics (written by the trainer)
 
 The weights are stored in flax's layout and msgpack framing
 (io/msgpack_lite.py, no msgpack package), so the JAX package loads a
 directory written here and this package loads one written there. The
-optimizer state is this package's own: optax's <name>.opt.msgpack is not
-read. Reference-format .keras and .h5 checkpoints are not read either.
+optimizer state this package writes is its own <name>.opt.pt; a directory
+the JAX package trained holds optax's <name>.opt.msgpack instead, which
+`load_optax_adam_state` reads into torch.optim.Adam's state.
+Reference-format .keras and .h5 checkpoints are not read.
 """
 
 from __future__ import annotations
@@ -218,3 +222,47 @@ def load_orcai_model(
     state = convert_flax_variables(load_variables(msgpack_path))
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
     return model.to(dev).eval(), orcai_parameter, shape
+
+
+_ADAM_HYPERPARAMS = {"b1": 0.9, "b2": 0.999, "eps": 1e-8, "eps_root": 0.0}
+
+
+def load_optax_adam_state(path: Path | str, model: torch.nn.Module,
+                          optimizer: torch.optim.Optimizer) -> float:
+    """Load optax's inject_hyperparams(adam) state from <name>.opt.msgpack
+    into `optimizer`, trainer.make_optimizer(model)'s torch.optim.Adam;
+    returns the restored learning rate.
+
+    mu and nu are parameter trees in flax's layout; they take the weights'
+    transposes (convert_flax_variables) and become exp_avg and exp_avg_sq,
+    and Adam's count becomes every parameter's step. Parameters the model
+    freezes are not in the optimizer and their moments are dropped.
+    """
+    tree = unpackb(Path(path).read_bytes())
+    hyper = tree["hyperparams"]
+    for name, want in _ADAM_HYPERPARAMS.items():
+        if name in hyper and not np.isclose(float(hyper[name]), want, rtol=1e-6, atol=0):
+            raise ValueError(f"{path}: optax adam {name}={float(hyper[name])}, the port's "
+                             f"Adam has {want}")
+    adam = tree["inner_state"]["0"]
+    mu = convert_flax_variables({"params": adam["mu"]})
+    nu = convert_flax_variables({"params": adam["nu"]})
+    step = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)
+    state = {}
+    trainable = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    for i, (name, param) in enumerate(trainable):
+        if name not in mu:
+            raise ValueError(f"{path}: no Adam moments for {name}")
+        if mu[name].shape != tuple(param.shape):
+            raise ValueError(f"{path}: Adam moments of {name} have shape {mu[name].shape}, "
+                             f"the parameter {tuple(param.shape)}")
+        state[i] = {
+            "step": step.clone(),
+            "exp_avg": torch.from_numpy(mu[name]).to(param),
+            "exp_avg_sq": torch.from_numpy(nu[name]).to(param),
+        }
+    saved = optimizer.state_dict()
+    saved["state"] = state
+    saved["param_groups"][0]["lr"] = float(np.asarray(hyper["learning_rate"]))
+    optimizer.load_state_dict(saved)
+    return saved["param_groups"][0]["lr"]

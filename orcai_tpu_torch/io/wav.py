@@ -1,7 +1,9 @@
 """WAV decode + resample for the frontend (no librosa/soundfile).
 
-Counterpart of orcai_tpu/io/wav.py: `load_wav_for_frontend` and
-`resample_audio` are copied from it, int16 fast path included.
+Counterpart of orcai_tpu/io/wav.py: `load_wav`, `load_wav_for_frontend`,
+`resample_audio` and `write_wav` are copied from it, int16 fast path
+included. Multi-channel audio is returned as (channels, n), as librosa
+returns it.
 """
 
 from __future__ import annotations
@@ -13,6 +15,29 @@ from pathlib import Path
 import numpy as np
 from scipy.io import wavfile
 from scipy.signal import firwin, resample_poly
+
+
+def load_wav(
+    path: Path | str,
+    sr: int | None = None,
+    mono: bool = False,
+) -> tuple[np.ndarray, int]:
+    """Load a wav file as float32 in [-1, 1], optionally resampled to ``sr``.
+
+    Returns (audio, sample_rate). Mono audio has shape (n,); multi-channel
+    audio has shape (channels, n), so a caller picks channel c as
+    ``audio[c - 1]``; mono=True averages the channels.
+    """
+    native_sr, data = wavfile.read(str(path))
+    audio = _pcm_to_float(data)
+    if audio.ndim == 2:  # scipy gives (n, ch)
+        audio = np.ascontiguousarray(audio.T)
+    if mono and audio.ndim == 2:
+        audio = audio.mean(axis=0)
+    if sr is not None and sr != native_sr:
+        audio = resample_audio(audio, native_sr, sr)
+        native_sr = sr
+    return audio, native_sr
 
 
 @lru_cache(maxsize=16)
@@ -81,3 +106,13 @@ def load_wav_for_frontend(
     if native_sr != sr:
         audio = resample_audio(audio, native_sr, sr)
     return audio, multichannel
+
+
+def write_wav(path: Path | str, sr: int, audio: np.ndarray) -> None:
+    """Write float32 audio ((n,) or (channels, n)) as 16-bit PCM WAV."""
+    data = np.asarray(audio)
+    if data.ndim == 2:
+        data = data.T  # back to scipy's (n, ch)
+    pcm = np.clip(data, -1.0, 1.0)
+    pcm = (pcm * 32767.0).astype(np.int16)
+    wavfile.write(str(path), sr, pcm)

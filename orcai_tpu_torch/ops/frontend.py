@@ -225,3 +225,69 @@ def make_spectrogram_from_params_device(
         quantiles=spectrogram_parameter["quantiles"],
         device=device,
     )
+
+
+def compute_spectrogram_host(
+    audio: np.ndarray,
+    sampling_rate: int,
+    n_fft: int,
+    hop_length: int,
+    freq_range,
+    quantiles,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host (numpy rFFT) frontend with the device path's semantics, a copy
+    of the reference's `compute_spectrogram_host`.
+
+    The same chain (centered STFT with a periodic Hann window, dB against
+    the full-spectrum max with amin 1e-5 and top_db 80, crop, nearest
+    percentile clip, min-max normalize) on one host core: strided window
+    views, a per-chunk rFFT of about 16 MB, and the dB computed on the
+    cropped bins only. Returns the (spectrogram (T, bins) float32 in
+    [0, 1], uncropped frequencies, frame times) triple of
+    compute_spectrogram.
+    """
+    audio = np.asarray(audio)
+    if audio.dtype == np.int16:
+        audio = audio.astype(np.float32) / 32768.0
+    elif audio.dtype != np.float32:
+        audio = audio.astype(np.float32)
+    if audio.ndim != 1:
+        raise ValueError("compute_spectrogram_host expects mono audio (n,)")
+    n = audio.shape[0]
+    n_frames = 1 + n // hop_length
+
+    frequencies = fft_frequencies(sampling_rate, n_fft)
+    times = frames_to_time(n_frames, sampling_rate, hop_length)
+    lo_idx, hi_idx = freq_crop_indices(frequencies, freq_range)
+    n_bins = hi_idx - lo_idx
+
+    padded = np.zeros((n_frames - 1) * hop_length + n_fft, np.float32)
+    padded[n_fft // 2 : n_fft // 2 + n] = audio
+    win = hann_window(n_fft).astype(np.float32)
+
+    out = np.empty((n_frames, n_bins), np.float32)
+    ref = np.float32(0.0)
+    chunk = max(1, (1 << 22) // (n_fft * 4))  # ~16 MB of framed f32
+    for t0 in range(0, n_frames, chunk):
+        t1 = min(t0 + chunk, n_frames)
+        view = np.lib.stride_tricks.sliding_window_view(
+            padded[t0 * hop_length : (t1 - 1) * hop_length + n_fft], n_fft
+        )[::hop_length]
+        S = np.abs(np.fft.rfft(view * win, axis=1))
+        ref = max(ref, S.max())  # dB reference: the full uncropped spectrum
+        out[t0:t1] = S[:, lo_idx:hi_idx]
+
+    np.maximum(out, np.float32(_AMIN), out=out)
+    np.log10(out, out=out)
+    out *= np.float32(20.0)
+    out -= np.float32(20.0) * np.log10(np.maximum(ref, np.float32(_AMIN)))
+    np.maximum(out, np.float32(-_TOP_DB), out=out)
+
+    q_lo, q_hi = quantiles
+    lo, hi = np.percentile(out, [100.0 * q_lo, 100.0 * q_hi], method="nearest")
+    np.clip(out, lo, hi, out=out)
+    mn, mx = out.min(), out.max()
+    out -= mn
+    if mx > mn:
+        out /= mx - mn
+    return out, frequencies, times

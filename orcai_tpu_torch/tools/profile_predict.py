@@ -109,7 +109,7 @@ def main(argv=None) -> int:
     from orcai_tpu_torch.ops.frontend import make_spectrogram_from_params_device
     from orcai_tpu_torch.ops.overlap import WindowPredictor
     from orcai_tpu_torch.pipeline.predict import _finish_wav, predict, save_predictions
-    from orcai_tpu_torch.tools.synthetic import synth_long_recording, synth_recording
+    from orcai_tpu_torch.tools.synthetic import synth_long_recording, synth_sweep_wav
     from orcai_tpu_torch.utils.device import exact_f32_math
 
     trace_dir = Path(args.trace_dir) if args.trace_dir else None
@@ -121,7 +121,7 @@ def main(argv=None) -> int:
     )
     with exact_f32_math(), tempfile.TemporaryDirectory() as tmp:
         wav = Path(tmp) / "synthetic.wav"
-        synth_recording(wav, args.seed, MINUTES)
+        synth_sweep_wav(wav, args.seed, MINUTES)
         out = Path(tmp) / "pred.txt"
         predict(wav, output_path=out, overwrite=True, predictor=predictor)  # warm-up
         torch.cuda.synchronize()

@@ -120,7 +120,7 @@ def main(argv=None) -> int:
     from orcai_tpu_torch.models import build_model
     from orcai_tpu_torch.ops.frontend import make_spectrogram_from_params_device
     from orcai_tpu_torch.resources import DEFAULT_ORCAI_PARAMETER
-    from orcai_tpu_torch.tools.synthetic import synth_recording, synth_tvt
+    from orcai_tpu_torch.tools.synthetic import synth_sweep_wav, synth_tvt
     from orcai_tpu_torch.train.trainer import (
         DeviceData, Trainer, device_runners, streaming_runners,
     )
@@ -131,7 +131,7 @@ def main(argv=None) -> int:
     seeds = ([7, args.seed], [8, args.seed])
     with exact_f32_math(), tempfile.TemporaryDirectory() as tmp:
         wav = Path(tmp) / "synthetic.wav"
-        synth_recording(wav, args.seed, MINUTES)
+        synth_sweep_wav(wav, args.seed, MINUTES)
         audio, _ = load_wav_for_frontend(wav, sr=param["spectrogram"]["sampling_rate"])
         spec, n_frames, _, _ = make_spectrogram_from_params_device(audio, param["spectrogram"])
         synth_tvt(Path(tmp) / "tvt", spec[:n_frames].cpu().numpy(), args.seed, N_TRAIN, N_VAL, 8)

@@ -1,5 +1,12 @@
-"""Synthetic recordings and magnitudes for smoke runs and profiling, made
-from a seed."""
+"""Synthetic recordings, projects and magnitudes for tests, smoke runs and
+profiling, made from a seed.
+
+`synth_call`, `synth_recording` and `make_synthetic_project` are copies of
+orcai_tpu/tools/synthetic.py: wav recordings with Audacity-format
+annotations of the seven orcai-v1 call types (BR, BUZZ, HERDING, PHS, SS,
+TAILSLAP, WHISTLE), each with its own time-frequency signature, and a
+filled recording table, drawn in the same order from the same seed.
+"""
 
 from __future__ import annotations
 
@@ -10,7 +17,7 @@ import numpy as np
 from scipy.io import wavfile
 
 
-def synth_recording(path: Path | str, seed: int, minutes: float, sr: int = 48000) -> int:
+def synth_sweep_wav(path: Path | str, seed: int, minutes: float, sr: int = 48000) -> int:
     """Write a mono int16 wav of noise with whistle-like tone sweeps.
 
     Six 2-second linear chirps between 3 and 12 kHz per minute over white
@@ -27,6 +34,175 @@ def synth_recording(path: Path | str, seed: int, minutes: float, sr: int = 48000
     pcm = np.clip(audio * 32767.0, -32768, 32767).astype(np.int16)
     wavfile.write(str(path), sr, pcm)
     return n
+
+
+SR = 48000
+CALLS = ["BR", "BUZZ", "HERDING", "PHS", "SS", "TAILSLAP", "WHISTLE"]
+
+
+def _env(n: int, attack: float = 0.1, release: float = 0.2) -> np.ndarray:
+    """Smooth attack/release amplitude envelope."""
+    t = np.linspace(0, 1, n)
+    e = np.ones(n)
+    a = max(int(attack * n), 1)
+    r = max(int(release * n), 1)
+    e[:a] = np.linspace(0, 1, a)
+    e[-r:] = np.linspace(1, 0, r)
+    return e
+
+
+def synth_call(kind: str, rng: np.random.Generator) -> tuple[np.ndarray, float]:
+    """One call instance -> (waveform, duration_s)."""
+    if kind == "BR":  # broadband low-frequency breath burst
+        dur = rng.uniform(0.6, 1.5)
+        n = int(dur * SR)
+        noise = rng.standard_normal(n)
+        # low-pass via cumulative smoothing
+        kernel = np.hanning(129)
+        kernel /= kernel.sum()
+        x = np.convolve(noise, kernel, mode="same")
+        x *= _env(n, 0.3, 0.4)
+        return 0.8 * x / (np.abs(x).max() + 1e-9), dur
+
+    if kind == "BUZZ":  # rapid pulse train, mid-band
+        dur = rng.uniform(0.4, 1.2)
+        n = int(dur * SR)
+        rate = rng.uniform(80, 200)  # pulses per second
+        t = np.arange(n) / SR
+        carrier = np.sin(2 * np.pi * rng.uniform(3000, 7000) * t)
+        gate = (np.sin(2 * np.pi * rate * t) > 0.3).astype(float)
+        x = carrier * gate * _env(n)
+        return 0.5 * x, dur
+
+    if kind == "HERDING":  # long low tone with slow AM
+        dur = rng.uniform(2.0, 4.5)
+        n = int(dur * SR)
+        t = np.arange(n) / SR
+        f0 = rng.uniform(400, 900)
+        am = 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(2, 6) * t)
+        x = np.sin(2 * np.pi * f0 * t) * am * _env(n, 0.15, 0.15)
+        return 0.45 * x, dur
+
+    if kind == "PHS":  # harmonic stack
+        dur = rng.uniform(0.6, 2.0)
+        n = int(dur * SR)
+        t = np.arange(n) / SR
+        f0 = rng.uniform(900, 1800)
+        x = np.zeros(n)
+        for h, amp in [(1, 1.0), (2, 0.6), (3, 0.35), (4, 0.2)]:
+            x += amp * np.sin(2 * np.pi * h * f0 * t)
+        x *= _env(n)
+        return 0.4 * x / (np.abs(x).max() + 1e-9), dur
+
+    if kind == "SS":  # high-to-mid downsweep
+        dur = rng.uniform(0.5, 1.4)
+        n = int(dur * SR)
+        t = np.arange(n) / SR
+        f_start = rng.uniform(8000, 12000)
+        f_stop = rng.uniform(2500, 4500)
+        phase = 2 * np.pi * (f_start * t + (f_stop - f_start) * t**2 / (2 * dur))
+        x = np.sin(phase) * _env(n)
+        return 0.5 * x, dur
+
+    if kind == "TAILSLAP":  # broadband slap + splash decay
+        dur = rng.uniform(0.25, 0.6)
+        n = int(dur * SR)
+        x = rng.standard_normal(n) * np.exp(-np.linspace(0, 5, n))
+        # secondary splash
+        i1 = int(n * rng.uniform(0.2, 0.4))
+        x[i1:] += 0.5 * rng.standard_normal(n - i1) * np.exp(
+            -np.linspace(0, 6, n - i1)
+        )
+        return 0.9 * x / (np.abs(x).max() + 1e-9), dur
+
+    if kind == "WHISTLE":  # FM contour
+        dur = rng.uniform(0.6, 2.5)
+        n = int(dur * SR)
+        t = np.arange(n) / SR
+        f_center = rng.uniform(5000, 10000)
+        f_dev = rng.uniform(300, 1500)
+        f_mod = rng.uniform(1, 4)
+        phase = 2 * np.pi * (
+            f_center * t - f_dev / (2 * np.pi * f_mod) * np.cos(2 * np.pi * f_mod * t)
+        )
+        x = np.sin(phase) * _env(n)
+        return 0.45 * x, dur
+
+    raise ValueError(f"unknown call kind {kind}")
+
+
+def synth_recording(
+    duration_s: float,
+    rng: np.random.Generator,
+    calls: list[str] = CALLS,
+    calls_per_minute: float = 8.0,
+    noise_level: float = 0.01,
+) -> tuple[np.ndarray, list[tuple[float, float, str]]]:
+    """One recording -> (float32 waveform, [(start, stop, label), ...])."""
+    n = int(duration_s * SR)
+    x = noise_level * rng.standard_normal(n).astype(np.float32)
+    annotations: list[tuple[float, float, str]] = []
+    n_calls = rng.poisson(calls_per_minute * duration_s / 60)
+    for _ in range(n_calls):
+        kind = calls[rng.integers(len(calls))]
+        wave, dur = synth_call(kind, rng)
+        if dur + 0.1 >= duration_s:
+            continue  # drawn call longer than the recording: skip it
+        start = rng.uniform(0, duration_s - dur - 0.1)
+        i0 = int(start * SR)
+        gain = rng.uniform(0.5, 1.0)
+        x[i0 : i0 + len(wave)] += (gain * wave).astype(np.float32)
+        annotations.append((start, start + dur, kind))
+    annotations.sort()
+    return x, annotations
+
+
+def make_synthetic_project(
+    root: Path | str,
+    n_recordings: int = 20,
+    duration_s: float = 600.0,
+    seed: int = 0,
+    calls: list[str] = CALLS,
+    calls_per_minute: float = 8.0,
+) -> Path:
+    """Write wavs + annotation TSVs + a filled recording table under root.
+
+    Returns the recording-table path.
+    """
+    from orcai_tpu_torch.io.tables import Table
+    from orcai_tpu_torch.io.wav import write_wav
+
+    root = Path(root)
+    wav_dir = root / "recordings"
+    wav_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+
+    rows = []
+    for i in range(n_recordings):
+        name = f"synth{i:03d}"
+        x, annotations = synth_recording(
+            duration_s, rng, calls=calls, calls_per_minute=calls_per_minute
+        )
+        write_wav(wav_dir / f"{name}.wav", SR, x)
+        lines = [f"{s:.4f}\t{e:.4f}\t{lab}" for s, e, lab in annotations]
+        (wav_dir / f"{name}.txt").write_text("\n".join(lines) + "\n")
+        rows.append(
+            {
+                "recording": name,
+                "channel": 1,
+                "duplicate": False,
+                "base_dir_recording": str(wav_dir),
+                "rel_recording_path": f"{name}.wav",
+                "base_dir_annotation": str(wav_dir),
+                "rel_annotation_path": f"{name}.txt",
+                **{c: True for c in calls},
+            }
+        )
+    table_path = root / "recording_table.csv"
+    columns = {k: [r[k] for r in rows] for k in rows[0]}
+    Table(None, {k: np.array(v, dtype=object if isinstance(v[0], str) else None)
+                 for k, v in columns.items()}).to_csv(table_path, index=False)
+    return table_path
 
 
 def synth_long_recording(

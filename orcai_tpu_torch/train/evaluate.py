@@ -1,7 +1,7 @@
 """Model evaluation: confusion tables + misclassification tables.
 
-Counterpart of orcai_tpu/train/evaluate.py, without pandas: a table is a
-small `Table` of numpy columns whose `to_csv` writes the text that
+Counterpart of orcai_tpu/train/evaluate.py, without pandas: a table is an
+io/tables.py `Table` of numpy columns whose `to_csv` writes the text that
 DataFrame.to_csv writes. Both tables are vectorized one-hot matrix
 products over the stacked (rows, labels) matrices:
 
@@ -18,7 +18,6 @@ products over the stacked (rows, labels) matrices:
 
 from __future__ import annotations
 
-import csv
 import json
 import logging
 import os
@@ -28,6 +27,7 @@ import numpy as np
 import torch
 
 from orcai_tpu_torch.io.dataset import ArrayDataset, epoch_permutation
+from orcai_tpu_torch.io.tables import Table
 from orcai_tpu_torch.io.model_store import load_orcai_model
 from orcai_tpu_torch.utils.device import exact_f32_math, resolve_device
 from orcai_tpu_torch.utils.seeds import (
@@ -37,52 +37,6 @@ from orcai_tpu_torch.utils.seeds import (
 )
 
 log = logging.getLogger(__name__)
-
-
-class Table:
-    """Row labels plus named numpy columns, each float64 or int64."""
-
-    def __init__(self, index: list[str], columns: dict[str, np.ndarray]):
-        self.index = list(index)
-        self.columns = {k: np.asarray(v) for k, v in columns.items()}
-        for name, col in self.columns.items():
-            if col.shape != (len(self.index),):
-                raise ValueError(f"column {name} has shape {col.shape}")
-
-    def __getitem__(self, name: str) -> np.ndarray:
-        return self.columns[name]
-
-    def row(self, label: str) -> dict:
-        i = self.index.index(label)
-        return {k: v[i] for k, v in self.columns.items()}
-
-    def take(self, order) -> "Table":
-        order = np.asarray(order)
-        return Table([self.index[i] for i in order],
-                     {k: v[order] for k, v in self.columns.items()})
-
-    @staticmethod
-    def _cell(value) -> str:
-        if isinstance(value, (np.integer, int)):
-            return str(int(value))
-        value = float(value)
-        # the shortest text that reads back as the same float64; NaN is empty
-        return "" if np.isnan(value) else repr(value)
-
-    def rows(self):
-        for i, label in enumerate(self.index):
-            yield [label] + [self._cell(col[i]) for col in self.columns.values()]
-
-    def to_csv(self, path: Path | str, index_label: str = "Label") -> None:
-        with open(path, "w", newline="", encoding="utf-8") as f:
-            writer = csv.writer(f, lineterminator="\n")
-            writer.writerow([index_label] + list(self.columns))
-            writer.writerows(self.rows())
-
-    def __str__(self) -> str:
-        lines = ["\t".join(["", *self.columns])]
-        lines += ["\t".join(r) for r in self.rows()]
-        return "\n".join(lines)
 
 
 def compute_confusion_table(

@@ -38,6 +38,7 @@ from orcai_tpu_torch.io.dataset import ArrayDataset, epoch_permutation
 from orcai_tpu_torch.io.jsonio import read_json, write_json
 from orcai_tpu_torch.io.model_store import (
     convert_flax_variables,
+    load_optax_adam_state,
     load_orcai_model,
     load_variables,
     save_orcai_model,
@@ -439,8 +440,9 @@ def train(
     Reads {train,val}_dataset + dataset_shapes.json (+ call_weights.json
     when configured) from data_dir, writes <output_dir>/<name>/ with the
     weights, the history and the parameter and shape JSONs. `load_model`
-    continues from the saved model (and its optimizer state, when this
-    package wrote one).
+    continues from the saved model and its optimizer state: this package's
+    <name>.opt.pt, or optax's <name>.opt.msgpack in a directory the JAX
+    package trained.
 
     With preemption_checkpointing (default), every epoch end writes the
     full training state under <model_dir>/resume and an interrupted run
@@ -507,17 +509,20 @@ def train(
         trainer = Trainer(model, mp["learning_rate"], call_weights, device=dev)
         state = trainer.state_from_variables(seed=seed_int)
         opt_path = model_dir / f"{model_name}.opt.pt"
+        optax_path = model_dir / f"{model_name}.opt.msgpack"
         if opt_path.exists():
             log.info("Restoring optimizer state")
             state.optimizer.load_state_dict(torch.load(opt_path, map_location=dev))
+        elif optax_path.exists():
+            log.info("Restoring optax's optimizer state from %s", optax_path.name)
+            load_optax_adam_state(optax_path, model, state.optimizer)
+        else:
+            log.info("No optimizer state %s or %s: Adam starts fresh",
+                     opt_path.name, optax_path.name)
+        if opt_path.exists() or optax_path.exists():
             # continue at the restored LR: ReduceLROnPlateau must never
             # raise the effective rate back to the config value
             resumed_lr = get_learning_rate(state)
-        else:
-            log.info(
-                "No optimizer state %s (an optax .opt.msgpack is not read): "
-                "Adam starts fresh", opt_path.name,
-            )
     else:
         log.info("Building model")
         model = build_model(orcai_parameter, input_shape, dtype=model_dtype)

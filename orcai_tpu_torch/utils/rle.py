@@ -1,12 +1,16 @@
 """Run-length utilities for binary detection tracks.
 
-Counterpart of orcai_tpu/utils/rle.py (find_consecutive_ones and
-runs_from_binary_matrix, copied verbatim).
+Counterpart of orcai_tpu/utils/rle.py (copied; filter_filepaths logs
+where the reference's Messenger printed).
 """
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
+
+log = logging.getLogger(__name__)
 
 
 def find_consecutive_ones(binary_vector: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -37,3 +41,19 @@ def runs_from_binary_matrix(
             row_stops += list(stops)
             label_names += [name] * len(starts)
     return row_starts, row_stops, label_names
+
+
+def filter_filepaths(filepaths, exclude_patterns):
+    """Drop paths containing any exclude pattern (reference auxiliary.py:368)."""
+    for pattern in exclude_patterns:
+        filepaths = [f for f in filepaths if pattern not in str(f)]
+        log.info("Remaining files after filtering files that contain %s: %d",
+                 pattern, len(filepaths))
+    return filepaths
+
+
+def seconds_to_hms(seconds: float) -> str:
+    """Format a duration in seconds as hh:mm:ss."""
+    hours, rem = divmod(seconds, 3600)
+    minutes, secs = divmod(rem, 60)
+    return f"{int(hours):02}:{int(minutes):02}:{int(secs):02}"

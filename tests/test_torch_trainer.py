@@ -774,12 +774,73 @@ def test_load_model_without_optimizer_state_starts_adam_fresh(tmp_path, caplog):
     param["model"]["epochs"] = 1
     model_dir = _run_train(tmp_path, param, preemption_checkpointing=False)
     (model_dir / "fresh-adam.opt.pt").unlink()
-    (model_dir / "fresh-adam.opt.msgpack").write_bytes(b"")  # optax's: not read
     with caplog.at_level(logging.INFO, logger="orcai_tpu_torch.train.trainer"):
         _run_train(tmp_path, param, load_model=True, preemption_checkpointing=False)
     assert "Adam starts fresh" in caplog.text
     history = read_json(model_dir / "training_history.json")
     assert history["learning_rate"] == [param["model"]["learning_rate"]]
+
+
+def test_load_model_resumes_adam_from_the_jax_package_s_opt_msgpack(tmp_path, caplog):
+    """The JAX package trains one epoch and saves; the port loads that
+    directory with load_model and holds optax's Adam moments, count and
+    learning rate. One step on a shared batch (the reference's gradient fed
+    to both optimizers) lands on the reference's next weights within 1e-7
+    plus one float32 ulp of the weight (ROADMAP.md C: the Adam bar), while a
+    fresh Adam lands far from them."""
+    import flax.serialization
+
+    from orcai_tpu.utils import Messenger
+    from orcai_tpu_torch.io.model_store import load_optax_adam_state, load_orcai_model
+
+    _write_tvt(tmp_path, n=16)
+    param = _param(name="from-jax", dropout=0.0)
+    param["model"]["epochs"] = 1
+    (tmp_path / "out").mkdir()
+    jax_trainer.train(tmp_path, tmp_path / "out", orcai_parameter=param,
+                      msgr=Messenger(verbosity=0), preemption_checkpointing=False)
+    model_dir = tmp_path / "out" / "from-jax"
+    assert (model_dir / "from-jax.opt.msgpack").exists()
+    assert not (model_dir / "from-jax.opt.pt").exists()
+
+    # the reference's next step from its saved state, on a shared batch
+    _, variables, _, _ = jax_load_orcai_model(model_dir)
+    opt = jax_trainer.make_optimizer(param["model"]["learning_rate"])
+    jstate = flax.serialization.from_bytes(opt.init(variables["params"]),
+                                           (model_dir / "from-jax.opt.msgpack").read_bytes())
+    x, y = _synthetic_arrays(8, seed=4)
+    _, _, grads = _reference_step(param, variables, x, y, None, jnp.float32)
+    updates, _ = opt.update(grads, jstate, variables["params"])
+    want = _flat(optax.apply_updates(variables["params"], updates))
+
+    def port_step(restore: bool) -> dict:
+        model, _, _ = load_orcai_model(model_dir, device="cpu")
+        state = Trainer(model, param["model"]["learning_rate"], device="cpu") \
+            .state_from_variables(seed=0)
+        if restore:
+            lr = load_optax_adam_state(model_dir / "from-jax.opt.msgpack", model,
+                                       state.optimizer)
+            assert lr == pytest.approx(float(jstate.hyperparams["learning_rate"]))
+        grad = convert_flax_variables({"params": grads})
+        for name, p in model.named_parameters():
+            p.grad = torch.from_numpy(grad[name]) if p.requires_grad else None
+        state.optimizer.step()
+        return _flat(to_flax_variables(model.state_dict())["params"])
+
+    got, fresh = port_step(True), port_step(False)
+    assert sorted(got) == sorted(want)
+    for key, w in want.items():
+        np.testing.assert_allclose(got[key], w, atol=1e-7, rtol=2.0**-23, err_msg=key)
+    assert max(np.abs(fresh[k] - w).max() for k, w in want.items()) > 1e-4
+
+    # train(load_model=True) restores it and continues at the saved rate
+    with caplog.at_level(logging.INFO, logger="orcai_tpu_torch.train.trainer"):
+        _run_train(tmp_path, param, load_model=True, max_epochs=1,
+                   preemption_checkpointing=False)
+    assert "Restoring optax's optimizer state" in caplog.text
+    history = read_json(model_dir / "training_history.json")
+    assert history["learning_rate"] == [pytest.approx(param["model"]["learning_rate"])]
+    assert (model_dir / "from-jax.opt.pt").exists()
 
 
 def test_call_weights_are_checked_and_used(tmp_path):
