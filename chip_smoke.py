@@ -78,7 +78,25 @@ Phases, each printing one JSON line and failing the run on any error:
            and [46, 7]) and one train epoch on the result (finite loss);
            stage walls, the zarr codec, bytes written, peak device memory
 
-Then one {"selection": {...}} line, one {"kernels": [...]} line, the card's `name, power.limit` from
+  wires    the coded and spectral wires: B1 against its plain version at
+           (n_fft, hop) 384/192, 352/176 and 1024/256 (the GEMM route) in
+           float32, int16 and uint8 mu-law codes and at 512/256 in uint8 (the
+           FFT route), on a 32768-frame tile, the ragged 11251-frame one and a
+           uint8 view one byte off alignment (atol 2e-4), B1 of the codes
+           bit-equal to B1 of their int16 decode on both routes, with kernel,
+           plain and torch.stft times; `predict` on golden through mulaw8,
+           bfp6, bfp5, sp-bfp6, sp-bfp5 and sp11-bfp5, each inside the
+           reference's golden bar (B1 1, B2 3, pick 3 launches on the wire's
+           route); the 20-minute recording in memory on exact, mulaw8, bfp5
+           and sp-bfp5 (7 / 3 / 3 launches, the spectrogram within 2e-4 of the
+           port's CPU path on the same wire, the frontend's wall, device copy
+           and kernel time, host encode or resample time and bytes uploaded);
+           streamed on mulaw8 and sp-bfp5, resident and host-sliced (5 / 3
+           launches, the two TSVs byte-equal, the aggregate held to the
+           in-memory one of the same wire); the host C codecs loaded
+
+Then one {"selection": {...}} line, one {"kernels": [...]} line (B1 as two
+rows, its FFT and its GEMM route), the card's `name, power.limit` from
 nvidia-smi, and last {"ok": true, "device": {...}}. Exits non-zero, with no
 result, when CUDA is unavailable or the package is missing.
 """
@@ -367,7 +385,7 @@ def phase_kernels(torch, seed: int) -> tuple[dict, dict, dict]:
     b1_bound, b1_by = bound(x32.numel() * 4 + tile * n_bins * 4, fft_flop)
     b1_bound16, _ = bound(x16.numel() * 2 + tile * n_bins * 4, fft_flop)
     b1 = {
-        "name": "dft_magnitude", "route": "cuda",
+        "name": "dft_magnitude_fft", "route": "cuda",
         "source": "orcai_tpu_torch/csrc/dft_magnitude.cu",
         "replaces": "orcai_tpu/ops/pallas_dft.py:67",
         "max_abs_err": max(errs.values()),
@@ -380,9 +398,10 @@ def phase_kernels(torch, seed: int) -> tuple[dict, dict, dict]:
         "library_ms": cuda_ms(lambda: torch.stft(
             x32, n_fft, hop_length=hop, window=win, center=False,
             return_complex=True).abs()),
-        "shape": f"tile {tile} frames x {n_bins} bins; the *_normalize_tile_int16 and "
-                 f"*_stats_tile_int16 keys: the streaming path's {CHUNK_TILE}- and "
-                 f"{STATS_TILE}-frame tiles",
+        "shape": f"B1's FFT route (n_fft 512): tile {tile} frames x {n_bins} bins; the "
+                 f"*_normalize_tile_int16 and *_stats_tile_int16 keys: the streaming path's "
+                 f"{CHUNK_TILE}- and {STATS_TILE}-frame tiles; cases: the wires phase "
+                 "(uint8 mu-law codes)",
         **{k[3:]: v for k, v in stream_extra.items() if k.startswith("b1_")},
     }
 
@@ -503,11 +522,15 @@ def _counters():
     return (dft_magnitude, digit_histograms, radix_pick)
 
 
-def check_counts(counts: dict, b1: int, where: str, b2: int = 3, pick: int = 3) -> None:
+def check_counts(counts: dict, b1: int, where: str, b2: int = 3, pick: int = 3,
+                 route: str = "fft") -> None:
     """In memory: one B1 launch per real tile, three sweeps and three picks.
     Streaming: B1 three times per stats tile and once per chunk, B2 three
-    times per stats tile, and the pick on the host from int64 counts."""
-    want = {"dft_magnitude": b1, "digit_histograms": b2, "radix_pick": pick}
+    times per stats tile, and the pick on the host from int64 counts. Every
+    B1 launch takes `route` (the FFT at n_fft 512, the GEMM at any other)."""
+    want = {"dft_magnitude": b1, "digit_histograms": b2, "radix_pick": pick,
+            "b1_routes": {"fft": b1 if route == "fft" else 0,
+                          "gemm": b1 if route == "gemm" else 0}}
     if counts != want:
         raise AssertionError(f"kernel launches on the {where} path {counts}, expected {want}")
 
@@ -515,14 +538,21 @@ def check_counts(counts: dict, b1: int, where: str, b2: int = 3, pick: int = 3) 
 def reset_counts() -> None:
     for fn in _counters():
         fn.launches = 0
+    _counters()[0].route_launches = {"fft": 0, "gemm": 0}
 
 
 def read_counts(total: dict | None = None) -> dict:
-    """This path's launches; added to `total`, the run's sum over its paths."""
+    """This path's launches; added to `total`, the run's sum over its paths
+    (B1 by route: dft_magnitude_fft, dft_magnitude_gemm)."""
     counts = {fn.__name__: fn.launches for fn in _counters()}
+    routes = dict(_counters()[0].route_launches)
     if total is not None:
-        for name, n in counts.items():
+        per = {"digit_histograms": counts["digit_histograms"],
+               "radix_pick": counts["radix_pick"],
+               "dft_magnitude_fft": routes["fft"], "dft_magnitude_gemm": routes["gemm"]}
+        for name, n in per.items():
             total[name] = total.get(name, 0) + n
+    counts["b1_routes"] = routes
     return counts
 
 
@@ -688,8 +718,9 @@ def kept_aggregates():
         StreamingPredictor.aggregate = real
 
 
-def _streamed_predict(torch, wav, out, predictor, total, where, b1, b2, **env) -> dict:
-    """One `predict` that must take the streaming path, with the
+def _streamed_predict(torch, wav, out, predictor, total, where, b1, b2, wire=None,
+                      route="fft", **env) -> dict:
+    """One `predict` on `wire` that must take the streaming path, with the
     environment given; returns its wall, peak memory, launches and
     (aggregated, overlap counts)."""
     from orcai_tpu_torch.pipeline.predict import predict
@@ -700,13 +731,13 @@ def _streamed_predict(torch, wav, out, predictor, total, where, b1, b2, **env) -
     reset_counts()
     with environ(**env), kept_aggregates() as kept:
         t0 = time.perf_counter()
-        predict(wav, output_path=out, overwrite=True, predictor=predictor)
+        predict(wav, output_path=out, overwrite=True, predictor=predictor, wire=wire)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     counts = read_counts(total)
     if len(kept) != 1:
         raise AssertionError(f"{where}: predict did not take the streaming path")
-    check_counts(counts, b1, where, b2=b2, pick=0)
+    check_counts(counts, b1, where, b2=b2, pick=0, route=route)
     return {"wall_s": wall, "peak_device_bytes": torch.cuda.max_memory_allocated(),
             "device_bytes_before": base, "launches": counts, "result": kept[0]}
 
@@ -1331,6 +1362,366 @@ def phase_data_prep(torch, tmp: Path, seed: int, total: dict) -> dict:
     }
 
 
+CODED_WIRES = ("mulaw8", "bfp6", "bfp5", "sp-bfp6", "sp-bfp5", "sp11-bfp5")
+ROW_S = 16 * 256 / 48000  # one aggregation row of orcai-v1, seconds
+# where bfp5 at the native rate departs from the golden annotations in both
+# packages (tests/test_torch_wire_codec.py): the HERDING call splits around
+# a dip, and a zero-length WHISTLE becomes one aggregation row long
+BFP5_SPLIT = {(0.9387, 3.1573, "HERDING*"), (3.328, 6.0587, "HERDING*"),
+              (54.6987, 54.784, "WHISTLE*")}
+GOLDEN_SPLIT = {(0.9387, 6.0587, "HERDING*")}
+# streamed against in-memory sp-bfp5, the largest aggregate difference. The
+# reference's 0.05 (tests/test_streaming.py:206-245, a tiny model) does not
+# hold for orcai-v1 in either package: the JAX package on the CPU reads 0.0776
+# and 0.1004 on one-minute sweeps, the card 0.0963 on this run's 20 minutes
+# (tests/test_torch_streaming.py::test_streamed_sp_bfp5_departs_from_in_memory_as_the_reference_does)
+SP_BFP5_STREAMED_MAX = 0.2
+
+
+def _b1_route(wire: str) -> str:
+    """The B1 route a wire's predict takes with orcai-v1's n_fft 512: the
+    spectral wires run at 384 or 352."""
+    return "gemm" if wire.startswith("sp") else "fft"
+
+
+def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict]:
+    """B1 at the wires' sizes and types against its plain version (atol
+    2e-4), on a 32768-frame tile, the ragged 11251-frame one, a uint8 view
+    one byte off alignment and, at 384 / 192, the tiles streamed sp-bfp5
+    gives the GEMM route; B1 of the codes bit-equal to B1 of their host
+    decode to int16 on each route. Returns (the phase's record, the GEMM
+    route's kernels row)."""
+    import numpy as np
+
+    from orcai_tpu_torch.ops.dft import dft_magnitude, dft_magnitude_plain, dft_route
+    from orcai_tpu_torch.ops.frontend import hann_window
+    from orcai_tpu_torch.ops.wire_codec import (
+        mulaw_decode_f32, mulaw_decode_host, mulaw_encode)
+
+    record = {"max_abs_err": {}, "codes_bit_equal_decoded": {}, "gemm_fp32_floor_ms": {}}
+    cases = {}
+    every, tiles = ("f32", "int16", "uint8"), (32768, 11251)
+    streamed = {CHUNK_TILE: "normalize_tile", STATS_TILE: "stats_tile"}
+    sizes = ((384, 192, every, tiles + tuple(streamed)), (352, 176, every, tiles),
+             (1024, 256, every, tiles), (512, 256, ("uint8",), tiles))
+    streaming = {}  # the GEMM route's times at the streaming tiles
+    for n_fft, hop, kinds, frame_counts in sizes:
+        window = hann_window(n_fft)
+        win = torch.hann_window(n_fft, periodic=True, device=dev)
+        n_bins = n_fft // 2 + 1
+        for frames in frame_counts:
+            n = (frames - 1) * hop + n_fft
+            pcm = rng.integers(-32768, 32768, n, dtype=np.int16)
+            codes = mulaw_encode(pcm)
+            xs = {"f32": torch.from_numpy((0.3 * rng.standard_normal(n)).astype(np.float32)),
+                  "int16": torch.from_numpy(pcm), "uint8": torch.from_numpy(codes)}
+            xs = {k: v.to(dev) for k, v in xs.items() if k in kinds}
+            off = torch.empty(n + 1, dtype=torch.uint8, device=dev)
+            off[1:] = xs["uint8"]
+            xs["uint8_unaligned"] = off[1:]
+            for kind, x in xs.items():
+                key = f"{n_fft}/{hop}/{frames}/{kind}"
+                got = dft_magnitude(x, window, n_fft=n_fft, hop=hop)
+                want = dft_magnitude_plain(x, window, n_fft=n_fft, hop=hop)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                record["max_abs_err"][key] = err
+                if got.shape != (frames, n_bins) or not err <= 2e-4:
+                    raise AssertionError(f"B1 {key}: shape {tuple(got.shape)}, "
+                                         f"max |kernel - plain| {err} > 2e-4")
+            decoded = torch.from_numpy(mulaw_decode_host(codes)).to(dev)
+            a = dft_magnitude(xs["uint8"], window, n_fft=n_fft, hop=hop)
+            same = (torch.equal(a, dft_magnitude(decoded, window, n_fft=n_fft, hop=hop))
+                    and torch.equal(a, dft_magnitude(xs["uint8_unaligned"], window,
+                                                     n_fft=n_fft, hop=hop)))
+            record["codes_bit_equal_decoded"][f"{n_fft}/{hop}/{frames}"] = same
+            if not same:
+                raise AssertionError(f"B1 ({dft_route(n_fft)} route) {n_fft}/{hop}: the codes "
+                                     "and their int16 decode give different magnitudes")
+            if frames in streamed:
+                for kind in ("int16", "uint8"):
+                    x, name = xs[kind], f"{streamed[frames]}_{kind}"
+                    streaming[f"ms_{name}"] = cuda_ms(
+                        lambda: dft_magnitude(x, window, n_fft=n_fft, hop=hop), iters=5)
+                    streaming[f"bound_ms_{name}"] = bound(
+                        x.numel() * x.element_size() + frames * n_bins * 4, 0.0)[0]
+            if frames != 32768:
+                del xs, off, decoded, a
+                continue
+            fft_flop = 0.5 * frames * 5.0 * n_fft * np.log2(n_fft)
+            for kind in kinds:
+                x = xs[kind]
+                as_f32 = {"f32": x, "int16": x.float() * (1.0 / 32768.0),
+                          "uint8": mulaw_decode_f32(x)}[kind]
+                t_bound, by = bound(x.numel() * x.element_size() + frames * n_bins * 4, fft_flop)
+                cases[f"{n_fft}/{hop}/{kind}"] = {
+                    "route": dft_route(n_fft),
+                    "ms": cuda_ms(lambda: dft_magnitude(x, window, n_fft=n_fft, hop=hop)),
+                    "plain_ms": cuda_ms(lambda: dft_magnitude_plain(
+                        x, window, n_fft=n_fft, hop=hop), iters=5),
+                    "library_ms": cuda_ms(lambda: torch.stft(
+                        as_f32, n_fft, hop_length=hop, window=win, center=False,
+                        return_complex=True).abs(), iters=5),
+                    "bound_ms": t_bound, "bound_by": by,
+                }
+            if dft_route(n_fft) == "gemm":
+                # the GEMM's own floor, not the function's bound: 2 T n_fft
+                # n_bins fp32 FMAs (re and im), 2 FLOP each
+                record["gemm_fp32_floor_ms"][f"{n_fft}/{hop}"] = (
+                    4.0 * frames * n_fft * n_bins / FP32_FLOP_PER_S * 1e3)
+            del xs, off, decoded, a
+    main_case = cases["384/192/int16"]  # sp-bfp5 and sp-bfp6: int16 after the bfp decode
+    gemm_row = {
+        "name": "dft_magnitude_gemm", "route": "cuda",
+        "source": "orcai_tpu_torch/csrc/dft_gemm.cu",
+        "replaces": "orcai_tpu/ops/pallas_dft.py:67",
+        "max_abs_err": max(v for k, v in record["max_abs_err"].items()
+                           if not k.startswith("512/")),
+        **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": "B1's GEMM route (every n_fft but 512): ms etc. at n_fft 384 / hop 192 "
+                 "(the sp-bfp5 and sp-bfp6 wires), a 32768-frame int16 tile x 193 bins; "
+                 f"the *_normalize_tile_* and *_stats_tile_* keys: streamed sp-bfp5's "
+                 f"{CHUNK_TILE}- and {STATS_TILE}-frame tiles at 384 / 192; "
+                 "cases: every size and type the wires phase held, library_ms: "
+                 "torch.stft(...).abs() at the same n_fft",
+        **streaming,
+        "cases": {k: v for k, v in cases.items() if v["route"] == "gemm"},
+    }
+    record["fft_route_uint8"] = {k: v for k, v in cases.items() if v["route"] == "fft"}
+    return record, gemm_row
+
+
+def _rows(path):
+    """(start, stop, label) rows of a TSV, zero-length rows dropped."""
+    from orcai_tpu_torch.tools.parity import read_annotations
+
+    return [r for r in read_annotations(path) if r[1] > r[0]]
+
+
+def _golden_wire_bar(wire: str, path) -> None:
+    """The reference's golden bar for a coded wire: mulaw8 as
+    tests/test_wire_codec.py:197-225, bfp6 as :405-440, bfp5 as that bar
+    outside the rows it splits in both packages, the spectral wires as
+    tests/test_spectral.py:369-466. Raises when the TSV misses it."""
+    import numpy as np
+
+    got, want = _rows(path), _rows(FIXTURES / "golden_expected.txt")
+    tol = 2 * ROW_S
+
+    def same_rows(a, b, **close):
+        return ([r[2] for r in a] == [r[2] for r in b]
+                and np.allclose([r[:2] for r in a], [r[:2] for r in b], **close))
+
+    if wire == "mulaw8":
+        ok = same_rows(got, want, rtol=1e-5, atol=1e-8)  # pandas' assert_frame_equal
+    elif wire in ("bfp6", "sp-bfp6"):
+        ok = same_rows(got, want, rtol=0, atol=tol)
+    elif wire == "bfp5":
+        kept = [r for r in got if r not in BFP5_SPLIT]
+        ok = (len(kept) == len(got) - len(BFP5_SPLIT)
+              and same_rows(kept, [r for r in want if r not in GOLDEN_SPLIT], rtol=0, atol=tol))
+    elif wire == "sp-bfp5":
+        used = set()
+        ok = True
+        for s0, e0, lab in want:
+            hit = next((j for j, (s1, e1, l1) in enumerate(got) if j not in used
+                        and l1 == lab and abs(s1 - s0) <= tol and abs(e1 - e0) <= tol), None)
+            if hit is None:
+                ok = False
+                break
+            used.add(hit)
+        residual = [r for j, r in enumerate(got) if j not in used]
+        ok = ok and len(residual) <= 2 and all(e - s < 0.5 for s, e, _ in residual)
+    else:  # sp11-bfp5: coverage
+        lost_short, ok = 0, True
+        for s0, e0, lab in want:
+            cov = sum(max(0.0, min(e1, e0) - max(s1, s0)) for s1, e1, l1 in got if l1 == lab)
+            if e0 - s0 < 0.25 and cov < 0.9 * (e0 - s0):
+                lost_short += 1
+            elif cov < 0.9 * (e0 - s0):
+                ok = False
+        outside = [g for g in got if not any(
+            g[0] >= s0 - tol and g[1] <= e0 + tol for s0, e0, lab in want if lab == g[2])]
+        ok = ok and lost_short <= 2 and len(outside) <= 2 and all(
+            e - s < 0.5 for s, e, _ in outside)
+    if not ok:
+        raise AssertionError(f"golden on {wire} misses the reference's bar:\n"
+                             + Path(path).read_text())
+
+
+def _profiled_wire_costs(torch, prof, trace: Path) -> dict:
+    """A wire's host cost and upload, read from a profiled frontend call: the
+    frontend's own spans (ops/frontend.py: the resample and whole-recording
+    encode, each tile's bfp encode) and the bytes of the trace's
+    host-to-device copies."""
+    from orcai_tpu_torch.ops.frontend import SPAN_PREPARE, SPAN_TILE_ENCODE
+
+    spans = {e.key: e.cpu_time_total * 1e-6 for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CPU
+             and e.key in (SPAN_PREPARE, SPAN_TILE_ENCODE)}
+    prof.export_chrome_trace(str(trace))
+    copies = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    trace.unlink()
+    if not copies or any("bytes" not in e.get("args", {}) for e in copies):
+        raise AssertionError(f"the trace holds no host-to-device copy with its bytes: {copies[:2]}")
+    return {"host_resample_or_encode_s": spans.get(SPAN_PREPARE, 0.0),
+            "host_tile_encode_s": spans.get(SPAN_TILE_ENCODE, 0.0),
+            "h2d_copies": len(copies), "bytes_uploaded": sum(e["args"]["bytes"] for e in copies)}
+
+
+def phase_wires(torch, tmp: Path, seed: int, state: dict, total: dict) -> tuple[dict, dict]:
+    """The coded and spectral wires on the card: B1 at their sizes and types,
+    golden through each, the 20-minute recording in memory and streamed, and
+    the host C codecs. Returns (the phase line, the GEMM route's row)."""
+    import numpy as np
+
+    from orcai_tpu_torch import native
+    from orcai_tpu_torch.io.wav import load_wav_for_frontend
+    from orcai_tpu_torch.ops.frontend import compute_spectrogram_device
+    from orcai_tpu_torch.ops.spectral import design_taps
+    from orcai_tpu_torch.ops.wire_codec import encode_table
+    from orcai_tpu_torch.pipeline.predict import predict
+    from orcai_tpu_torch.tools.parity import check_wire_parity, compare_annotations
+    from orcai_tpu_torch.tools.profile_data_prep import _device_items
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    line = {"phase": "wires"}
+    line["b1"], gemm_row = _b1_wire_checks(torch, np.random.default_rng(seed + 6), dev)
+
+    # golden through every coded wire, on the card, against the reference's bars
+    predictor, sp = state["predictor"], state["param"]["spectrogram"]
+    golden = {}
+    for wire in CODED_WIRES:
+        out = tmp / f"golden_{wire}.txt"
+        reset_counts()
+        t0 = time.perf_counter()
+        predict(FIXTURES / "golden.wav", output_path=out, overwrite=True, predictor=predictor,
+                wire=wire)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(total)
+        check_counts(counts, 1, f"golden {wire}", route=_b1_route(wire))
+        _golden_wire_bar(wire, out)
+        parity = compare_annotations(out, FIXTURES / "golden_expected.txt")
+        parity.pop("residual_durations_raw_s")
+        golden[wire] = {"wall_s": wall, "launches": counts, "inside_reference_bar": True,
+                        "vs_exact": parity,
+                        "contract_at_1_min": check_wire_parity(parity, 1.0)}
+    line["golden"] = golden
+
+    # the 20-minute recording in memory: the cost of each wire on this card
+    audio, _ = load_wav_for_frontend(state["wav"], sr=sp["sampling_rate"])
+    args = (sp["sampling_rate"], sp["nfft"], sp["n_overlap"], sp["freq_range"], sp["quantiles"])
+    in_memory = {}
+    for wire in ("exact", "mulaw8", "bfp5", "sp-bfp5"):
+        rec = {}
+        out = tmp / f"min20_{wire}.txt"
+        reset_counts()
+        t0 = time.perf_counter()
+        predict(state["wav"], output_path=out, overwrite=True, predictor=predictor, wire=wire)
+        torch.cuda.synchronize()
+        rec["predict_wall_s"] = time.perf_counter() - t0
+        rec["launches"] = read_counts(total)
+        check_counts(rec["launches"], 7, f"20-minute {wire}", route=_b1_route(wire))
+        rec["tsv_rows"] = len(out.read_text().splitlines()) - 1
+        if wire != "exact":
+            rec["vs_exact"] = compare_annotations(out, state["tsv"])
+            rec["vs_exact"].pop("residual_durations_raw_s")
+            rec["contract"] = check_wire_parity(
+                compare_annotations(out, state["tsv"]), MINUTES)
+        compute_spectrogram_device(audio, *args, device="cuda", wire=wire)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spec, n_frames, _, _ = compute_spectrogram_device(audio, *args, device="cuda",
+                                                          wire=wire)
+        torch.cuda.synchronize()
+        rec["frontend_wall_s"] = time.perf_counter() - t0
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            compute_spectrogram_device(audio, *args, device="cuda", wire=wire)
+            torch.cuda.synchronize()
+        rec["frontend_device_ms"] = _device_items(torch, prof)["device_ms"]
+        rec.update(_profiled_wire_costs(torch, prof, tmp / f"trace_{wire}.json"))
+        if wire != "exact":
+            cpu, _, _, _ = compute_spectrogram_device(audio, *args, device="cpu", wire=wire)
+            err = float((cpu[:n_frames] - spec[:n_frames].cpu()).abs().max())
+            rec["spectrogram_max_abs_err_vs_cpu"] = err
+            if not err <= 2e-4:
+                raise AssertionError(f"20-minute {wire}: spectrogram cuda vs cpu {err} > 2e-4")
+            del cpu
+        rec["aggregate"] = predictor.fetch_aggregated(
+            *predictor.aggregate_device(spec, n_frames=n_frames))
+        del spec
+        in_memory[wire] = rec
+
+    # streamed on mulaw8 and sp-bfp5, the audio resident and host-sliced
+    streamed = {}
+    b1_20, b2_20 = streaming_launches(state["n_samples"], predictor, sp["n_overlap"])
+    for wire in ("mulaw8", "sp-bfp5"):
+        agg0, cnt0 = in_memory[wire]["aggregate"]
+        runs = {}
+        for name, env in (("resident", {}), ("host_sliced", {"ORCAI_TPU_HBM_AUDIO_BYTES": 0})):
+            out = tmp / f"stream20_{wire}_{name}.txt"
+            run = _streamed_predict(torch, state["wav"], out, predictor, total,
+                                    f"20-minute streaming {wire} ({name})", b1_20, b2_20,
+                                    wire=wire, route=_b1_route(wire),
+                                    ORCAI_TPU_STREAM_SPEC_BYTES=1, **env)
+            agg, cnt = run.pop("result")
+            if not np.array_equal(cnt, cnt0):
+                raise AssertionError(f"streaming {wire} ({name}): overlap counts differ "
+                                     "from in-memory")
+            diff = np.abs(agg - agg0)
+            run["aggregate_vs_in_memory"] = {"max": float(diff.max()), "mean": float(diff.mean())}
+            parity = compare_annotations(out, tmp / f"min20_{wire}.txt")
+            run["contract_vs_in_memory"] = check_wire_parity(parity, MINUTES)
+            parity.pop("residual_durations_raw_s")
+            run["vs_in_memory_tsv"] = parity
+            # mulaw8 slices its codes anywhere: the exact wire's bar. The bfp
+            # blocks sit on the recording's grid streamed and on each tile's
+            # in memory (64 samples apart at hop 192), two encodings of one
+            # wire: the reference's mean bar (tests/test_streaming.py:206-245),
+            # its annotation contract (tools/parity.py) and SP_BFP5_STREAMED_MAX
+            if wire == "mulaw8" and not diff.max() <= 1e-5:
+                raise AssertionError(f"streaming mulaw8 ({name}): aggregate off by "
+                                     f"{diff.max()} > 1e-5")
+            if wire != "mulaw8" and not (diff.max() <= SP_BFP5_STREAMED_MAX
+                                         and diff.mean() < 0.01
+                                         and run["contract_vs_in_memory"]["ok"]):
+                raise AssertionError(f"streaming {wire} ({name}): aggregate off by "
+                                     f"{diff.max()} (mean {diff.mean()}), contract "
+                                     f"{run['contract_vs_in_memory']}")
+            runs[name] = (run, out, agg)
+        if runs["resident"][1].read_bytes() != runs["host_sliced"][1].read_bytes():
+            raise AssertionError(f"streaming {wire}: resident and host-sliced TSVs differ")
+        if not np.array_equal(runs["resident"][2], runs["host_sliced"][2]):
+            raise AssertionError(f"streaming {wire}: resident and host-sliced aggregates differ")
+        streamed[wire] = {name: run for name, (run, _, _) in runs.items()}
+        streamed[wire]["resident_host_sliced_tsv_byte_equal"] = True
+    for rec in in_memory.values():
+        rec.pop("aggregate")
+    line["min20_in_memory"] = in_memory
+    line["min20_streamed"] = streamed
+
+    # the host C codecs were loaded, not their numpy paths
+    x = np.zeros(4096, np.int16)
+    taps34 = design_taps(48000, 15937.5, 3, 4)
+    taps11 = design_taps(48000, 15937.5, 11, 16)
+    loaded = {
+        "library": native.library_path().name,
+        "mulaw_encode": native.mulaw_encode_native(x, encode_table()) is not None,
+        "bfp_encode": native.bfp_encode_native(x, 5, 128, 80) is not None,
+        "resample34": native.resample34_native(x, taps34, 3072) is not None,
+        "resample_poly": native.resample_poly_native(x, taps11, 11, 16, 2816) is not None,
+    }
+    if not all(v for k, v in loaded.items() if k != "library"):
+        raise AssertionError(f"native host codecs not loaded: {loaded}")
+    line["native"] = loaded
+    line["seconds"] = time.perf_counter() - t_phase
+    return line, gemm_row
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1371,6 +1762,13 @@ def main(argv=None) -> int:
             emit(phase_test_model(torch, Path(tmp), state, trained))
             phase = "data_prep"
             emit(phase_data_prep(torch, Path(tmp), args.seed, total))
+            phase = "wires"
+            line, gemm_row = phase_wires(torch, Path(tmp), args.seed, state, total)
+            rows["dft_magnitude_fft"]["cases"] = line["b1"].pop("fft_route_uint8")
+            rows = {"dft_magnitude_fft": rows["dft_magnitude_fft"],
+                    "dft_magnitude_gemm": gemm_row,
+                    **{k: v for k, v in rows.items() if k != "dft_magnitude_fft"}}
+            emit(line)
     except Exception as e:  # report the phase, then fail the run
         traceback.print_exc()
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})

@@ -5,7 +5,7 @@ The commands and flags follow `orcai predict`, `orcai filter-predictions`,
 preparation commands `orcai init`, `create-recording-table`,
 `create-spectrograms`, `create-label-arrays`, `create-snippet-table`,
 `create-tvt-snippet-tables` and `create-tvt-data` (orcai_tpu/cli.py),
-without the wire codec and the choice among bundled models. Every command
+with the same options, plus `--device`. Every command
 that computes on a device runs on `--device cuda` unless told otherwise,
 and raises without CUDA; the table, label and dataset steps run on the
 host, as in the reference.
@@ -29,12 +29,40 @@ def _common(p: argparse.ArgumentParser, device: bool = True) -> None:
                        help="torch device: cuda (default) or cpu")
 
 
-def _predict_options(p: argparse.ArgumentParser) -> None:
+def _model_options(p: argparse.ArgumentParser, models: list[str]) -> None:
+    """--model and --model_dir, of `predict`, `serve` and `warmup`."""
+    p.add_argument("--model", "-m", default="orcai-v1", choices=models or None,
+                   type=str.lower if models else str,
+                   help="bundled model to use; overridden by --model_dir "
+                        "(default: orcai-v1)")
+    p.add_argument("--model_dir", "-md", default=None,
+                   help="path to a model directory (default: the bundled --model)")
+
+
+def _wire_option(p: argparse.ArgumentParser, text: str) -> None:
+    from orcai_tpu_torch.ops.wire_names import WIRE_CODECS
+
+    p.add_argument("--wire_codec", "-wc", dest="wire", default="auto",
+                   choices=["auto", *WIRE_CODECS], help=text)
+
+
+_WIRE_HELP = (
+    "Host->device audio byte format: exact PCM; 8-bit mu-law codes (1 "
+    "byte/sample, 38 dB SNR); packed block-floating-point (bfp6 0.76 "
+    "bytes/sample ~33 dB, bfp5 0.63 ~27 dB) decoded on device; or the "
+    "spectral wires (sp-bfp6 0.57, sp-bfp5 0.47, sp11-bfp5 0.44) - a host "
+    "3/4 (sp11: 11/16) resample that drops only the band the frontend "
+    "crops, then the base codec. All hold annotation-level parity. auto = "
+    "ORCAI_TPU_WIRE if set, else exact (the reference's auto gives sp-bfp5 "
+    "on a TPU only) (default: auto)"
+)
+
+
+def _predict_options(p: argparse.ArgumentParser, models: list[str]) -> None:
     """The options `predict` and `serve` share."""
     p.add_argument("--channel", "-c", type=int, default=1,
                    help="channel to use for prediction (default: 1)")
-    p.add_argument("--model_dir", "-md", default=None,
-                   help="path to a model directory (default: bundled orcai-v1)")
+    _model_options(p, models)
     p.add_argument("--overwrite", "-ow", action="store_true",
                    help="overwrite existing predictions")
     p.add_argument("--save_probabilities", "-sp", action="store_true",
@@ -48,14 +76,18 @@ def _predict_options(p: argparse.ArgumentParser) -> None:
 
 
 def _parser() -> argparse.ArgumentParser:
+    from orcai_tpu_torch import __version__
+    from orcai_tpu_torch.io.model_store import bundled_models
     from orcai_tpu_torch.resources import (
         DEFAULT_CALL_DURATION_LIMITS,
         DEFAULT_ORCAI_PARAMETER,
     )
 
+    models = bundled_models()
     parser = argparse.ArgumentParser(
         prog="python -m orcai_tpu_torch", description="orcAI on PyTorch/CUDA"
     )
+    parser.add_argument("--version", action="version", version=f"%(prog)s {__version__}")
     sub = parser.add_subparsers(dest="command", required=True)
 
     def command(name: str, text: str) -> argparse.ArgumentParser:
@@ -67,12 +99,13 @@ def _parser() -> argparse.ArgumentParser:
         "recording table (.csv).",
     )
     p.add_argument("recording_path", help="path to a .wav recording or a .csv table")
-    _predict_options(p)
+    _predict_options(p, models)
     p.add_argument("--output_path", "-o", default="default",
                    help="output file (folder for a table), or 'default' to save "
                         "next to the wav")
     p.add_argument("--base_dir_recording", "-bdr", default=None,
                    help="alternative base directory containing the recordings")
+    _wire_option(p, _WIRE_HELP)
     _common(p)
 
     p = command(
@@ -82,7 +115,8 @@ def _parser() -> argparse.ArgumentParser:
         "leave a .failed marker and the service keeps running.",
     )
     p.add_argument("watch_dir", help="directory to watch for .wav files")
-    _predict_options(p)
+    _predict_options(p, models)
+    _wire_option(p, "host->device audio byte format (see predict; default: auto)")
     p.add_argument("--output_dir", "-o", default=None,
                    help="directory for the prediction TSVs (default: next to each wav)")
     p.add_argument("--poll_seconds", "-ps", type=float, default=2.0,
@@ -101,10 +135,11 @@ def _parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--minutes", "-mi", type=float, default=90.0,
                    help="longest recording duration to cover (default: 90)")
-    p.add_argument("--model_dir", "-md", default=None,
-                   help="path to a model directory (default: bundled orcai-v1)")
+    _model_options(p, models)
     p.add_argument("--predict_batch_size", "-bs", type=int, default=128,
                    help="window batch size (default: 128)")
+    _wire_option(p, "wire codec to warm (must match production predicts; the "
+                    "frontends differ per codec; default: auto)")
     _common(p)
 
     def data_compression(p: argparse.ArgumentParser, text: str) -> None:
@@ -292,6 +327,12 @@ def main(argv=None) -> int:
             if args[key] is not None:
                 args[key] = str(Path(args[key]).resolve())
     logging.basicConfig(level=_LOG_LEVELS[args.pop("verbosity")], format="%(message)s")
+    if "model" in args:  # predict, serve, warmup: --model_dir wins over --model
+        from orcai_tpu_torch.io.model_store import MODELS_DATA_DIR
+
+        model = args.pop("model")
+        if args["model_dir"] is None:
+            args["model_dir"] = str(MODELS_DATA_DIR / model)
 
     if command == "predict":
         from orcai_tpu_torch.pipeline.predict import predict
@@ -305,7 +346,7 @@ def main(argv=None) -> int:
         from orcai_tpu_torch.tools.warmup import warmup
 
         n = warmup(args["minutes"], args["model_dir"], args["predict_batch_size"],
-                   device=args["device"])
+                   device=args["device"], wire=args["wire"])
         print(f"Warmed {n} recording-length shapes")
     elif command == "train":
         from orcai_tpu_torch.train.trainer import train

@@ -48,6 +48,13 @@
 // six 8-point DFTs, 28 complex twiddle products, 18 IEEE square roots and
 // about 150 shared-memory accesses; float32 and int16 input take nearly
 // the same time although int16 halves the bytes read.
+//
+// uint8 input is mu-law codes (the mulaw8 wire), staged as bytes and
+// decoded where a sample is read. The 16-byte copies need a 16-byte aligned
+// source and a hop that is a multiple of 16 samples; a tile view that
+// starts at any other byte (a slice of the streaming path's resident
+// buffer) takes the one-sample-a-thread copy instead, as float32 and int16
+// views do.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,6 +74,15 @@ constexpr int Z_BYTES = WARPS * ZBUF * 8;
 __device__ __forceinline__ float sample_to_f32(float v) { return v; }
 __device__ __forceinline__ float sample_to_f32(int16_t v) {
   return static_cast<float>(v) * (1.0f / 32768.0f);
+}
+// a mu-law code (ops/wire_codec.py): sign = bit 7, e = bits 6:4, mant =
+// bits 3:0, m14 = ((2 mant + 33) << e) - 33, the sample +-(m14 << 2) as an
+// int16 value, scaled as int16 is; so the codes and their host decode to
+// int16 give the same float samples
+__device__ __forceinline__ float sample_to_f32(uint8_t c) {
+  const int e = (c >> 4) & 7, mant = c & 15;
+  const int x16 = (((2 * mant + 33) << e) - 33) << 2;
+  return static_cast<float>((c & 0x80) ? -x16 : x16) * (1.0f / 32768.0f);
 }
 
 __device__ __forceinline__ int pad_a(int a) { return a + (a >> 4); }
@@ -335,12 +351,12 @@ int launch(const void* audio, long long n_samples, const float* window,
 
 }  // namespace
 
-// audio: (n_frames - 1) * hop + n_fft samples, float32 or int16 (by
-// audio_is_int16); window: (n_fft,) float32; twiddle: (n_fft, 2) float32
-// (cos, -sin)(2 pi m / n_fft); out: (n_frames, n_fft/2 + 1) float32.
-// n_fft must be 512 and hop must divide it. Launches on `stream` and
-// returns cudaGetLastError().
-extern "C" int orcai_dft_magnitude(const void* audio, int audio_is_int16,
+// audio: (n_frames - 1) * hop + n_fft samples of float32 (dtype 0), int16
+// (dtype 1) or uint8 mu-law codes (dtype 2); window: (n_fft,) float32;
+// twiddle: (n_fft, 2) float32 (cos, -sin)(2 pi m / n_fft); out: (n_frames,
+// n_fft/2 + 1) float32. n_fft must be 512 and hop must divide it. Launches
+// on `stream` and returns cudaGetLastError().
+extern "C" int orcai_dft_magnitude(const void* audio, int dtype,
                                    const float* window, const float* twiddle,
                                    float* out, int n_frames, int n_fft, int hop,
                                    void* stream) {
@@ -348,8 +364,14 @@ extern "C" int orcai_dft_magnitude(const void* audio, int audio_is_int16,
     return static_cast<int>(cudaErrorInvalidValue);
   const long long n_samples = static_cast<long long>(n_frames - 1) * hop + N;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (audio_is_int16)
-    return launch<int16_t>(audio, n_samples, window, twiddle, out, n_frames,
-                           hop, s);
-  return launch<float>(audio, n_samples, window, twiddle, out, n_frames, hop, s);
+  switch (dtype) {
+    case 0:
+      return launch<float>(audio, n_samples, window, twiddle, out, n_frames, hop, s);
+    case 1:
+      return launch<int16_t>(audio, n_samples, window, twiddle, out, n_frames, hop, s);
+    case 2:
+      return launch<uint8_t>(audio, n_samples, window, twiddle, out, n_frames, hop, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -33,10 +33,17 @@ from orcai_tpu_torch.io.msgpack_lite import packb, unpackb
 from orcai_tpu_torch.models import build_model
 from orcai_tpu_torch.utils.device import resolve_device
 
-# the model shipped with the repository, found by path beside this package
-DEFAULT_MODEL_DIR = (
-    Path(__file__).resolve().parents[2] / "orcai_tpu" / "models_data" / "orcai-v1"
-)
+# the models shipped with the repository, found by path beside this package
+MODELS_DATA_DIR = Path(__file__).resolve().parents[2] / "orcai_tpu" / "models_data"
+DEFAULT_MODEL_DIR = MODELS_DATA_DIR / "orcai-v1"
+
+
+def bundled_models() -> list[str]:
+    """Names of the models shipped with the repository."""
+    if not MODELS_DATA_DIR.is_dir():
+        return []
+    return sorted(p.name for p in MODELS_DATA_DIR.iterdir()
+                  if p.is_dir() and not p.name.startswith("."))
 
 # flax leaf name -> torch name, per collection
 _PARAM_NAMES = {"scale": "weight", "bias": "bias", "kernel": "weight"}

@@ -1,15 +1,19 @@
 """Host C helpers built at first use and loaded with ctypes: the LZ4 block
-codec behind blosc-framed zarr stores (lz4enc.c, lz4dec.c).
+codec behind blosc-framed zarr stores (lz4enc.c, lz4dec.c), the wire-codec
+encoders (wirecodec.c: mu-law, bfp6/bfp5) and the L/M polyphase resamplers
+of the spectral wires (resample.c).
 
-Counterpart of the LZ4 part of orcai_tpu/native/__init__.py. The sources
-are compiled together by the host C compiler into
-`orcai_tpu_torch/_build/liborcai_lz4-<hash>.so`, the directory the CUDA
+Counterpart of orcai_tpu/native/__init__.py. The sources are compiled
+together by the host C compiler into
+`orcai_tpu_torch/_build/liborcai_native-<hash>.so`, the directory the CUDA
 kernels are built into (ops/_build.py); the hash covers the sources and the
 host's instruction-set flags, since the library is built with
--march=native. Every entry point returns None when the library cannot be
-built or loaded (no compiler, or ORCAI_TPU_DISABLE_NATIVE=1): io/blosc.py
-then decodes in Python and refuses to encode, and zarrlite's "auto" codec
-is gzip. These are host codecs, not device kernels.
+-march=native. Every entry point returns None (or False) when the library
+cannot be built or loaded (no compiler, or ORCAI_TPU_DISABLE_NATIVE=1):
+io/blosc.py then decodes in Python and refuses to encode, zarrlite's "auto"
+codec is gzip, and the wire codecs and the resampler take their numpy
+paths, which give the same integers. These are host codecs, not device
+kernels.
 """
 
 from __future__ import annotations
@@ -23,7 +27,9 @@ import tempfile
 from functools import lru_cache
 from pathlib import Path
 
-_SOURCES = ("lz4enc.c", "lz4dec.c")
+import numpy as np
+
+_SOURCES = ("lz4enc.c", "lz4dec.c", "wirecodec.c", "resample.c")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 
@@ -52,7 +58,7 @@ def library_path() -> Path:
         h.update(name.encode())
         h.update((Path(__file__).parent / name).read_bytes())
     h.update(_isa_fingerprint())
-    return BUILD_DIR / f"liborcai_lz4-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"liborcai_native-{h.hexdigest()[:16]}.so"
 
 
 def _build(out: Path) -> bool:
@@ -93,6 +99,24 @@ def _load() -> ctypes.CDLL | None:
         for fn in (lib.orcai_lz4_decompress, lib.orcai_lz4_compress):
             fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64]
             fn.restype = ctypes.c_int64
+        lib.orcai_mulaw_encode.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.orcai_mulaw_encode.restype = None
+        lib.orcai_bfp_encode.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.orcai_bfp_encode.restype = None
+        lib.orcai_resample34.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64,
+        ]
+        lib.orcai_resample34.restype = ctypes.c_int64
+        lib.orcai_resample_poly.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+        ]
+        lib.orcai_resample_poly.restype = ctypes.c_int64
         return lib
     except Exception:  # noqa: BLE001 - any failure means no native codec
         return None
@@ -134,3 +158,131 @@ def lz4_compress_native(src: bytes) -> bytes | None:
     if written < 0:  # pragma: no cover - cap is the worst case by the spec
         raise ValueError("lz4 compress: output buffer overflow")
     return dst.raw[:written]
+
+
+def mulaw_encode_native(x: np.ndarray, lut: np.ndarray) -> np.ndarray | None:
+    """int16 PCM -> uint8 mu-law codes via C, or None if unavailable.
+    `lut` is wire_codec.encode_table(): sharing it keeps the native path
+    identical to the numpy path by construction."""
+    lib = _load()
+    if lib is None:
+        return None
+    x = np.ascontiguousarray(x, dtype=np.int16)
+    out = np.empty(x.size, np.uint8)
+    lib.orcai_mulaw_encode(x.ctypes.data, x.size, lut.ctypes.data, out.ctypes.data)
+    return out.reshape(x.shape)
+
+
+# the C kernel's fixed layout (wirecodec.c): 128-sample blocks, packed
+# bytes per block keyed by mantissa width
+_BFP_C_BLOCK = 128
+_BFP_C_BLOCK_BYTES = {6: 96, 5: 80}
+
+
+def bfp_encode_into(
+    x: np.ndarray, mant_bits: int, block: int, packed_out: np.ndarray,
+    shifts_out: np.ndarray,
+) -> bool:
+    """Encode into caller-provided output views (e.g. one shared buffer).
+
+    Returns False, without touching the outputs, when the library is
+    unavailable. The outputs must be C-contiguous uint8 views sized for
+    ceil(len(x)/block) blocks; x is zero-padded to a whole block count.
+    Raises ValueError for a geometry the C kernel does not implement (it
+    takes 128-sample blocks and 6/5-bit mantissas only) and for outputs of
+    the wrong size or type (the C side cannot check them).
+    """
+    lib = _load()
+    if lib is None:
+        return False
+    if block != _BFP_C_BLOCK or mant_bits not in _BFP_C_BLOCK_BYTES:
+        raise ValueError(
+            f"native bfp encoder supports block={_BFP_C_BLOCK}, mant_bits in "
+            f"{sorted(_BFP_C_BLOCK_BYTES)}; got block={block}, mant_bits={mant_bits}"
+        )
+    x = np.ascontiguousarray(x, dtype=np.int16)
+    pad = (-x.shape[0]) % block
+    if pad:
+        x = np.pad(x, (0, pad))
+    n_blocks = x.shape[0] // block
+    for name, out, want in (
+        ("packed_out", packed_out, n_blocks * _BFP_C_BLOCK_BYTES[mant_bits]),
+        ("shifts_out", shifts_out, n_blocks),
+    ):
+        if out.dtype != np.uint8 or not out.flags.c_contiguous:
+            raise ValueError(f"{name} must be a C-contiguous uint8 array")
+        if out.size != want:
+            raise ValueError(f"{name} has {out.size} bytes, need {want}")
+    lib.orcai_bfp_encode(
+        x.ctypes.data, n_blocks, mant_bits, packed_out.ctypes.data, shifts_out.ctypes.data,
+    )
+    return True
+
+
+def bfp_encode_native(
+    x: np.ndarray, mant_bits: int, block: int, block_bytes: int
+) -> tuple[np.ndarray, np.ndarray] | None:
+    """int16 PCM (n,) -> (packed uint8, shifts uint8) via C, or None;
+    bit-exact with wire_codec.bfp_encode."""
+    n_blocks = -(-np.asarray(x).shape[0] // block)
+    packed = np.empty(n_blocks * block_bytes, np.uint8)
+    shifts = np.empty(n_blocks, np.uint8)
+    if not bfp_encode_into(x, mant_bits, block, packed, shifts):
+        return None
+    return packed, shifts
+
+
+def resample34_native(x: np.ndarray, taps: np.ndarray, n_out: int) -> np.ndarray | None:
+    """3/4 polyphase resample via C (resample.c), or None if unavailable.
+
+    `taps` is the int16 Q15 prototype of ops.spectral.design_taps(sr,
+    pass_hz, 3, 4). Bit-exact with the numpy path of ops/spectral.py.
+    Raises ValueError when the C kernel rejects the geometry: the designer
+    never makes one it rejects, so that is a fault, not a fallback.
+    """
+    lib = _load()
+    if lib is None:
+        return None
+    x = np.ascontiguousarray(x, dtype=np.int16)
+    taps = np.ascontiguousarray(taps, dtype=np.int16)
+    out = np.empty(int(n_out), np.int16)
+    rc = lib.orcai_resample34(
+        x.ctypes.data, x.size, taps.ctypes.data, taps.size, out.ctypes.data, out.size,
+    )
+    if rc == -2:
+        return None  # allocation failure: the numpy path still works
+    if rc != 0:
+        raise ValueError(
+            f"native resampler rejected geometry (rc={rc}): n_taps={taps.size}, "
+            f"n_in={x.size}, n_out={n_out}"
+        )
+    return out
+
+
+def resample_poly_native(
+    x: np.ndarray, taps: np.ndarray, L: int, M: int, n_out: int
+) -> np.ndarray | None:
+    """Generic L/M polyphase resample via C (resample.c), or None if
+    unavailable (or L beyond the C kernel's per-phase arrays, 64).
+    Bit-exact with ops/spectral._resample_poly_numpy; raises ValueError on
+    a geometry the C kernel rejects."""
+    if int(L) > 64:
+        return None
+    lib = _load()
+    if lib is None:
+        return None
+    x = np.ascontiguousarray(x, dtype=np.int16)
+    taps = np.ascontiguousarray(taps, dtype=np.int16)
+    out = np.empty(int(n_out), np.int16)
+    rc = lib.orcai_resample_poly(
+        x.ctypes.data, x.size, taps.ctypes.data, taps.size, int(L), int(M),
+        out.ctypes.data, out.size,
+    )
+    if rc == -2:
+        return None
+    if rc != 0:
+        raise ValueError(
+            f"native poly resampler rejected geometry (rc={rc}): L={L} M={M} "
+            f"n_taps={taps.size}, n_in={x.size}, n_out={n_out}"
+        )
+    return out

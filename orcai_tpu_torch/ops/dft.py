@@ -1,17 +1,27 @@
 """Windowed rDFT magnitude of hop-framed audio (kernel B1).
 
-Counterpart of orcai_tpu/ops/pallas_dft.py. `dft_magnitude` launches the
-CUDA kernel csrc/dft_magnitude.cu for a CUDA tensor and runs the plain
-PyTorch version, `dft_magnitude_plain`, for a CPU tensor.
+Counterpart of orcai_tpu/ops/pallas_dft.py. The function is
+|rDFT(window * frame)| of every frame of float32, int16 (scaled by 1/32768)
+or uint8 mu-law audio (the mulaw8 wire's codes, decoded as
+ops/wire_codec.py::mulaw_decode_f32 does), at any n_fft that hop divides.
 
-The function is |rDFT(window * frame)| of every frame. The plain version
-computes it as the reference does, a GEMM of the framed audio with the
-window-folded cos/sin matrices (`windowed_dft_mats`). The kernel computes it
-as a batched FFT in shared memory: two real frames ride one 512-point complex
-FFT (three radix-8 Stockham passes) and are untangled afterwards.
-`_fft_pairs_reference` is that arithmetic step by step in PyTorch, with the
-kernel's tables (`fft_tables`) and index maps, so the algorithm is testable
-where no card is.
+`dft_magnitude` takes one of two CUDA routes for a CUDA tensor and runs the
+plain PyTorch version, `dft_magnitude_plain`, for a CPU tensor:
+
+- the FFT route, csrc/dft_magnitude.cu, at n_fft in FFT_SIZES (512, the
+  reference geometry): a batched FFT in shared memory, two real frames on
+  one 512-point complex FFT (three radix-8 Stockham passes), untangled
+  afterwards. `_fft_pairs_reference` is that arithmetic step by step in
+  PyTorch, with the kernel's tables (`fft_tables`) and index maps, so the
+  algorithm is testable where no card is;
+- the GEMM route, csrc/dft_gemm.cu, at every other n_fft (the spectral
+  wires' 384 and 352 among them): the reference's own algorithm, a tiled
+  IEEE fp32 GEMM of the frames, read straight from the audio, with the
+  window-folded cos/sin matrices (`windowed_dft_mats`).
+
+The plain version computes the reference's GEMM with torch.matmul.
+`dft_magnitude.launches` counts every kernel launch and
+`dft_magnitude.route_launches` splits them by route.
 """
 
 from __future__ import annotations
@@ -23,8 +33,10 @@ import numpy as np
 import torch
 
 from orcai_tpu_torch.ops import _build
+from orcai_tpu_torch.ops.wire_codec import mulaw_decode_f32
 
 FFT_SIZES = (512,)  # the sizes csrc/dft_magnitude.cu is instantiated for
+_DTYPE_CODES = {torch.float32: 0, torch.int16: 1, torch.uint8: 2}  # the kernels' dtype
 _RADIX = 8
 _SQRT_HALF = float(np.float32(np.sqrt(0.5)))
 
@@ -89,9 +101,26 @@ def fft_tables(window: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
 @lru_cache(maxsize=None)
 def _tables_on_device(window_bytes: bytes, device: torch.device):
-    """The kernel's tables for this window as tensors on `device`, uploaded
-    once (6 KB for n_fft 512) and kept."""
+    """The FFT kernel's tables for this window as tensors on `device`,
+    uploaded once (6 KB for n_fft 512) and kept."""
     return tuple(torch.from_numpy(a.copy()).to(device) for a in _tables_cached(window_bytes))
+
+
+@lru_cache(maxsize=None)
+def _mats_on_device(window_bytes: bytes, device: torch.device):
+    """The GEMM kernel's window-folded C, S for this window on `device`,
+    uploaded once (0.6 MB for n_fft 384) and kept."""
+    return tuple(torch.from_numpy(a.copy()).to(device) for a in _mats_cached(window_bytes))
+
+
+def _to_f32(padded: torch.Tensor) -> torch.Tensor:
+    """Samples as float32 in [-1, 1]: int16 scaled by 1/32768, uint8
+    mu-law codes decoded."""
+    if padded.dtype == torch.uint8:
+        return mulaw_decode_f32(padded)
+    if padded.dtype == torch.int16:
+        return padded.float() * (1.0 / 32768.0)
+    return padded.float()
 
 
 def dft_magnitude_plain(
@@ -101,16 +130,16 @@ def dft_magnitude_plain(
 
     Frame t is padded[t*hop : t*hop + n_fft], built as the concatenation of
     n_fft/hop consecutive hop-blocks (orcai_tpu/ops/frontend.py:154-166).
-    int16 input is scaled by 1/32768. The two matrices go to padded's device
-    on every call and are not kept there.
+    int16 input is scaled by 1/32768 and uint8 mu-law codes are decoded
+    (mulaw_decode_f32). The two matrices go to padded's device on every
+    call and are not kept there.
     """
     tpad = _frames_count(padded.shape[0], n_fft, hop)
     C, S = (
         torch.from_numpy(a.copy()).to(padded.device)
         for a in windowed_dft_mats(_check_window(window, n_fft))
     )
-    x = padded.float() * (1.0 / 32768.0) if padded.dtype == torch.int16 else padded.float()
-    x2 = x.reshape(-1, hop)
+    x2 = _to_f32(padded).reshape(-1, hop)
     frames = torch.cat([x2[i : i + tpad] for i in range(n_fft // hop)], dim=1)
     re = frames @ C
     im = frames @ S
@@ -168,8 +197,7 @@ def _fft_pairs_reference(
         raise ValueError(f"n_fft {n_fft} not supported; supported sizes: {FFT_SIZES}")
     tpad = _frames_count(padded.shape[0], n_fft, hop)
     win, tw = (torch.from_numpy(a.copy()) for a in fft_tables(_check_window(window, n_fft)))
-    x = padded.float() * (1.0 / 32768.0) if padded.dtype == torch.int16 else padded.float()
-    frames = x.unfold(0, n_fft, hop)  # (tpad, n_fft) view
+    frames = _to_f32(padded).unfold(0, n_fft, hop)  # (tpad, n_fft) view
     if tpad % 2:
         frames = torch.cat([frames, torch.zeros(1, n_fft)])
     zr = frames[0::2] * win
@@ -203,8 +231,15 @@ def _fft_pairs_reference(
     return torch.stack([mag_a, mag_b], dim=1).reshape(-1, n_fft // 2 + 1)[:tpad]
 
 
-def _kernel():
-    fn = _build.load("dft_magnitude").orcai_dft_magnitude
+@lru_cache(maxsize=None)
+def _kernel(route: str):
+    """The C entry point of a route's library: (audio, dtype, table_a,
+    table_b, out, n_frames, n_fft, hop, stream) -> CUDA error code. The FFT
+    route's tables are the window and the roots of unity, the GEMM route's
+    the window-folded C and S."""
+    lib, name = {"fft": ("dft_magnitude", "orcai_dft_magnitude"),
+                 "gemm": ("dft_gemm", "orcai_dft_gemm")}[route]
+    fn = getattr(_build.load(lib), name)
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -214,46 +249,53 @@ def _kernel():
     return fn
 
 
+def dft_route(n_fft: int) -> str:
+    """The CUDA route of an n_fft: "fft" for FFT_SIZES, "gemm" otherwise."""
+    return "fft" if n_fft in FFT_SIZES else "gemm"
+
+
 def dft_magnitude(
     padded: torch.Tensor, window: np.ndarray, *, n_fft: int, hop: int
 ) -> torch.Tensor:
     """(Npad,) padded audio -> (T, n_fft//2 + 1) windowed |DFT|, float32.
 
-    `padded` holds (T - 1) * hop + n_fft samples, float32 or int16 (scaled
-    to [-1, 1]); `window` is the (n_fft,) float64 analysis window on the
-    host. A CUDA tensor goes to the kernel, which takes n_fft in FFT_SIZES
-    and any hop dividing n_fft; a CPU tensor goes to dft_magnitude_plain.
+    `padded` holds (T - 1) * hop + n_fft samples, float32, int16 (scaled
+    to [-1, 1]) or uint8 mu-law codes; `window` is the (n_fft,) float64
+    analysis window on the host; hop must divide n_fft. A CUDA tensor goes
+    to the FFT kernel at n_fft in FFT_SIZES and to the GEMM kernel at any
+    other n_fft; a CPU tensor goes to dft_magnitude_plain. Anything else
+    raises.
     """
     if padded.device.type == "cpu":
         return dft_magnitude_plain(padded, window, n_fft=n_fft, hop=hop)
-    if n_fft not in FFT_SIZES:
-        raise ValueError(
-            f"dft_magnitude: n_fft {n_fft} has no kernel on CUDA; supported "
-            f"sizes: {FFT_SIZES}"
-        )
     window = _check_window(window, n_fft)
-    if padded.dim() != 1 or padded.dtype not in (torch.float32, torch.int16):
+    if padded.dim() != 1 or padded.dtype not in _DTYPE_CODES:
         raise ValueError(
-            f"dft_magnitude: audio must be 1-D float32 or int16, got "
+            f"dft_magnitude: audio must be 1-D float32, int16 or uint8, got "
             f"{tuple(padded.shape)} {padded.dtype}"
         )
     tpad = _frames_count(padded.shape[0], n_fft, hop)
-    if padded.device.type != "cuda":
-        raise ValueError(f"dft_magnitude: unsupported device {padded.device}")
     if not padded.is_contiguous():
         raise ValueError("dft_magnitude: audio must be contiguous")
-    win, tw = _tables_on_device(window.tobytes(), padded.device)
+    if padded.device.type != "cuda":
+        raise ValueError(f"dft_magnitude: unsupported device {padded.device}")
+    route = dft_route(n_fft)
+    tables = _tables_on_device if route == "fft" else _mats_on_device
+    a, b = tables(window.tobytes(), padded.device)
     out = torch.empty((tpad, n_fft // 2 + 1), dtype=torch.float32, device=padded.device)
     with torch.cuda.device(padded.device):
         stream = torch.cuda.current_stream(padded.device).cuda_stream
-        err = _kernel()(
-            padded.data_ptr(), int(padded.dtype == torch.int16), win.data_ptr(),
-            tw.data_ptr(), out.data_ptr(), tpad, n_fft, hop, stream,
+        err = _kernel(route)(
+            padded.data_ptr(), _DTYPE_CODES[padded.dtype], a.data_ptr(),
+            b.data_ptr(), out.data_ptr(), tpad, n_fft, hop, stream,
         )
     if err != 0:
-        raise RuntimeError(f"dft_magnitude kernel launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"dft_magnitude ({route} route) kernel launch failed: CUDA error {err}")
     dft_magnitude.launches += 1
+    dft_magnitude.route_launches[route] += 1
     return out
 
 
 dft_magnitude.launches = 0
+dft_magnitude.route_launches = {"fft": 0, "gemm": 0}

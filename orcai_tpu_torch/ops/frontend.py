@@ -1,8 +1,6 @@
 """Audio frontend: wav samples -> normalized spectrogram, on the device.
 
-Counterpart of orcai_tpu/ops/frontend.py on the exact wire (the PCM is
-uploaded as it is; off the TPU the reference resolves its wire to exact).
-The chain follows librosa's defaults as the reference does: center=True
+Counterpart of orcai_tpu/ops/frontend.py. The chain follows librosa's defaults as the reference does: center=True
 zero padding, periodic Hann, |rFFT|, amplitude_to_db(ref=global max over
 the full spectrum, amin 1e-5, top_db 80), frequency crop, clip to the
 nearest-method percentiles of the valid frames, min-max normalize.
@@ -14,6 +12,14 @@ valid frames of the full 257-bin spectrum is kept as the dB reference, then
 the crop is stored. The finalize takes the percentiles as order statistics of the
 cropped magnitudes (dB is monotone in |S|) by radix selection, kernel B2
 (ops/radix_select.py), then applies the dB, clip and normalize.
+
+The upload takes one of the wires of ops/wire_codec.py (`prepare_wire_audio`):
+exact uploads the PCM as it is (the default: "auto" resolves to exact off
+the TPU); mulaw8 uploads uint8 codes, which B1 decodes as it reads them;
+bfp6/bfp5 upload one [packed mantissas || shifts] buffer per tile, decoded to
+int16 on the device before B1; the spectral wires resample L/M on the host
+(ops/spectral.py) and run the same chain at the scaled geometry through
+their base codec.
 """
 
 from __future__ import annotations
@@ -23,12 +29,25 @@ import torch
 
 from orcai_tpu_torch.ops.dft import dft_magnitude
 from orcai_tpu_torch.ops.radix_select import select_order_statistics
+from orcai_tpu_torch.ops.wire_codec import (
+    bfp_decode_wire_i16,
+    bfp_encode_wire,
+    mulaw_encode,
+    resolve_wire,
+    round_to_int16,
+    spectral_wire_base,
+    spectral_wire_ratio,
+    wire_bfp_bits,
+)
 from orcai_tpu_torch.utils.device import resolve_device
 
 _AMIN = 1e-5  # librosa amplitude_to_db amin
 _TOP_DB = 80.0
 _MIN_BUCKET = 2048  # minimum padded frame count
 _TILE_FRAMES = 32768  # frames per upload/DFT tile
+# profiler spans of a wire's host work: the resample and whole-recording
+# encode, and each tile's bfp encode (read by chip_smoke.py's wires phase)
+SPAN_PREPARE, SPAN_TILE_ENCODE = "wire.prepare", "wire.tile_encode"
 
 
 def fft_frequencies(sr: int, n_fft: int) -> np.ndarray:
@@ -130,25 +149,80 @@ def finalize(
 
 def tile_magnitudes(
     audio: np.ndarray, n_fft: int, hop: int, lo_idx: int, hi_idx: int,
-    dev: torch.device,
+    dev: torch.device, bfp_bits: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The recording's cropped magnitudes (bucket, hi_idx - lo_idx) on `dev`
     (rows past the last frame are zero) and the per-tile maxima of the full
-    spectrum over the valid frames (-inf for an all-padding tile)."""
+    spectrum over the valid frames (-inf for an all-padding tile).
+
+    `audio` is in the byte form of prepare_wire_audio: float32 or int16
+    samples, or uint8 mu-law codes, uploaded per tile as they are; with
+    `bfp_bits` (int16 audio) each tile's chunk is uploaded as one
+    bfp_encode_wire buffer and decoded to int16 on the device."""
     n_frames = 1 + audio.shape[0] // hop
     tile, n_tiles, n_real = _tile_plan(n_frames)
+    tlen = (tile - 1) * hop + n_fft
     window = hann_window(n_fft)
     mag = torch.zeros((n_tiles * tile, hi_idx - lo_idx), dtype=torch.float32, device=dev)
     maxes = torch.full((n_tiles,), float("-inf"), dtype=torch.float32, device=dev)
     for t in range(n_real):
         chunk = _audio_tile_chunk(audio, t, tile, n_fft, hop)
-        full = dft_magnitude(
-            torch.from_numpy(np.array(chunk)).to(dev), window, n_fft=n_fft, hop=hop
-        )
+        if bfp_bits:
+            with torch.profiler.record_function(SPAN_TILE_ENCODE):
+                encoded = bfp_encode_wire(chunk, bfp_bits)
+            wirebuf = torch.from_numpy(encoded).to(dev)
+            samples = bfp_decode_wire_i16(wirebuf, bfp_bits)[:tlen]
+        else:
+            samples = torch.from_numpy(np.array(chunk)).to(dev)
+        full = dft_magnitude(samples, window, n_fft=n_fft, hop=hop)
         n_valid = min(tile, n_frames - t * tile)
         maxes[t] = full[:n_valid].max()
         mag[t * tile : (t + 1) * tile] = full[:, lo_idx:hi_idx]
     return mag, maxes
+
+
+def prepare_wire_audio(
+    audio: np.ndarray,
+    sampling_rate: int,
+    n_fft: int,
+    hop_length: int,
+    freq_range,
+    wire: str | None,
+) -> tuple[np.ndarray, int, int, int, str, int]:
+    """The host side of a wire: resolve it, apply the spectral L/M resample
+    where the geometry allows, and put the audio in the byte form the
+    per-tile upload takes. Returns (audio, sampling_rate, n_fft, hop_length,
+    effective wire, bfp_bits); the geometry is the scaled one under a
+    spectral wire, and a geometry the transform cannot hold runs the base
+    codec at the native rate."""
+    audio = np.asarray(audio)
+    if audio.dtype not in (np.float32, np.int16):
+        audio = audio.astype(np.float32)
+    if audio.ndim != 1:
+        raise ValueError("compute_spectrogram expects mono audio (n,)")
+    wire = resolve_wire(wire)
+    spectral_base = spectral_wire_base(wire)
+    with torch.profiler.record_function(SPAN_PREPARE):
+        if spectral_base is not None:
+            from orcai_tpu_torch.ops.spectral import spectral_downsample
+
+            ds = spectral_downsample(
+                audio, sampling_rate, n_fft, hop_length, freq_range,
+                ratio=spectral_wire_ratio(wire),
+            )
+            wire = spectral_base
+            if ds is not None:
+                audio, sampling_rate, n_fft, hop_length = ds
+        bfp_bits = wire_bfp_bits(wire)
+        if wire == "mulaw8":
+            # the uint8 dtype is the wire's marker downstream: raw uint8 PCM
+            # never gets here (it was widened to float32 above)
+            audio = mulaw_encode(audio)
+        elif bfp_bits:
+            # bfp encodes per tile; round float input to int16 once so each
+            # tile's encode is a slice of an integer buffer
+            audio = round_to_int16(audio)
+    return audio, sampling_rate, n_fft, hop_length, wire, bfp_bits
 
 
 def compute_spectrogram_device(
@@ -159,6 +233,7 @@ def compute_spectrogram_device(
     freq_range,
     quantiles,
     device: str | torch.device = "cuda",
+    wire: str | None = None,
 ) -> tuple[torch.Tensor, int, np.ndarray, np.ndarray]:
     """Device-resident frontend for one recording.
 
@@ -166,22 +241,29 @@ def compute_spectrogram_device(
     frequencies of the uncropped spectrum, frame times). Rows >= n_frames
     are padding; every statistic covers the valid frames only. Accepts
     float32 audio in [-1, 1] or int16 PCM (scaled on the device).
+
+    `wire` is the upload's byte form (prepare_wire_audio, ops/wire_codec.py);
+    None or "auto" resolves through ORCAI_TPU_WIRE, else to "exact". The
+    frequency vector is the caller's native geometry's whatever the wire,
+    and so are the crop indices; the times come from the geometry the DFT
+    ran at, which a spectral wire keeps on the same grid.
     """
     dev = resolve_device(device)
-    audio = np.asarray(audio)
-    if audio.dtype not in (np.float32, np.int16):
-        audio = audio.astype(np.float32)
-    if audio.ndim != 1:
-        raise ValueError("compute_spectrogram expects mono audio (n,)")
+    native_sr, native_n_fft = sampling_rate, n_fft
+    audio, sampling_rate, n_fft, hop_length, wire, bfp_bits = prepare_wire_audio(
+        audio, sampling_rate, n_fft, hop_length, freq_range, wire
+    )
     if n_fft % hop_length != 0:
         raise ValueError("the frontend requires hop_length dividing n_fft")
     n_frames = 1 + audio.shape[0] // hop_length
-    frequencies = fft_frequencies(sampling_rate, n_fft)
+    frequencies = fft_frequencies(native_sr, native_n_fft)
     times = frames_to_time(n_frames, sampling_rate, hop_length)
     lo_idx, hi_idx = freq_crop_indices(frequencies, freq_range)
     n_bins = hi_idx - lo_idx
 
-    mag, maxes = tile_magnitudes(audio, n_fft, hop_length, lo_idx, hi_idx, dev)
+    mag, maxes = tile_magnitudes(
+        audio, n_fft, hop_length, lo_idx, hi_idx, dev, bfp_bits=bfp_bits
+    )
 
     n_elem = n_frames * n_bins
     out, _, _ = finalize(
@@ -202,17 +284,22 @@ def compute_spectrogram(
     freq_range,
     quantiles,
     device: str | torch.device = "cuda",
+    wire: str | None = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Full frontend for one recording, returned to the host: (spectrogram
     (T, bins) float32 in [0, 1], uncropped frequencies, frame times)."""
     out, n_frames, frequencies, times = compute_spectrogram_device(
-        audio, sampling_rate, n_fft, hop_length, freq_range, quantiles, device
+        audio, sampling_rate, n_fft, hop_length, freq_range, quantiles, device,
+        wire=wire,
     )
     return out[:n_frames].cpu().numpy(), frequencies, times
 
 
 def make_spectrogram_from_params_device(
-    audio: np.ndarray, spectrogram_parameter: dict, device: str | torch.device = "cuda"
+    audio: np.ndarray,
+    spectrogram_parameter: dict,
+    device: str | torch.device = "cuda",
+    wire: str | None = None,
 ):
     """compute_spectrogram_device keyed by the orcai parameter schema (its
     "n_overlap" key holds the hop length, as in the reference)."""
@@ -224,6 +311,7 @@ def make_spectrogram_from_params_device(
         freq_range=spectrogram_parameter["freq_range"],
         quantiles=spectrogram_parameter["quantiles"],
         device=device,
+        wire=wire,
     )
 
 

@@ -8,8 +8,9 @@ lengths, duration filtering and the table output run on the host, without
 pandas. Output contract: `<stem>_c<channel>_<model>_predicted.txt`, a TSV
 of start/stop seconds rounded to 4 places and the label with its suffix,
 an optional `*_probabilities.csv.gz`, both byte-equal in text to what the
-reference writes. The coded wires, the mesh and the per-process sharding
-of a table are not ported.
+reference writes. `wire` picks the upload's byte form (ops/wire_codec.py,
+ops/spectral.py); None or "auto" resolves through ORCAI_TPU_WIRE, else to
+exact. The mesh and the per-process sharding of a table are not ported.
 
 Three byte budgets, each an environment variable: a recording whose
 spectrogram would pass ORCAI_TPU_STREAM_SPEC_BYTES (default 4e9) takes the
@@ -181,6 +182,7 @@ def _dispatch_wav(
     orcai_parameter: dict,
     shape: dict,
     on_estimate=None,
+    wire: str | None = None,
 ) -> dict:
     """Load one wav and queue its whole device chain, without fetching.
 
@@ -218,7 +220,7 @@ def _dispatch_wav(
                 int(audio.nbytes),
                 int(os.environ.get("ORCAI_TPU_HBM_AUDIO_BYTES", 8_000_000_000)),
             ))
-        streaming = StreamingPredictor(predictor, sp)
+        streaming = StreamingPredictor(predictor, sp, wire=wire)
         _check_bins(streaming.hi_idx - streaming.lo_idx, recording_path, shape)
         aggregated, overlap_count = streaming.aggregate(audio)
         return {
@@ -236,7 +238,7 @@ def _dispatch_wav(
             + predictor.planned_spec_bytes(n_frames_est, n_bins_est, bucket)
         )
     spec_dev, n_frames, _, times = make_spectrogram_from_params_device(
-        audio, sp, device=predictor.device
+        audio, sp, device=predictor.device, wire=wire
     )
     _check_bins(spec_dev.shape[1], recording_path, shape)
     agg_dev, count_dev, n_out_total = predictor.aggregate_device(
@@ -384,12 +386,15 @@ def _predict_and_save(
     save_probabilities: bool = False,
     call_duration_limits: dict | Path | str | None = None,
     label_suffix: str = "*",
+    wire: str | None = None,
 ) -> Path:
     output_path = _resolve_output_path(
         recording_path, channel, orcai_parameter, output_path, overwrite
     )
     with exact_f32_math():
-        disp = _dispatch_wav(recording_path, channel, predictor, orcai_parameter, shape)
+        disp = _dispatch_wav(
+            recording_path, channel, predictor, orcai_parameter, shape, wire=wire
+        )
     _finish_and_save(
         disp, output_path, predictor, orcai_parameter,
         save_probabilities=save_probabilities,
@@ -429,6 +434,7 @@ def _predict_table(
     overwrite: bool,
     base_dir_recording: str | Path | None,
     finish_kwargs: dict,
+    wire: str | None = None,
 ) -> list[Path]:
     """Every row of a recording table (columns recording, channel,
     base_dir_recording, rel_recording_path), in waves: recordings are
@@ -495,7 +501,7 @@ def _predict_table(
             with exact_f32_math():
                 disp = _dispatch_wav(
                     recording_path, channel, predictor, orcai_parameter, shape,
-                    on_estimate=flush_if_next_overflows,
+                    on_estimate=flush_if_next_overflows, wire=wire,
                 )
         except Exception as e:  # keep the batch going on a per-file failure
             _row_error(row.get("recording"), e)
@@ -522,6 +528,7 @@ def predict(
     predict_batch_size: int = 128,
     predictor: WindowPredictor | None = None,
     device: str | torch.device = "cuda",
+    wire: str | None = None,
 ) -> Path | list[Path]:
     """Predict calls in one wav file, or in every row of a recording table
     (.csv), and write the label TSVs. Returns the path written for a wav and
@@ -536,6 +543,12 @@ def predict(
     Passing `predictor` reuses an already-built WindowPredictor for the same
     model (its device decides where the work runs). ORCAI_TPU_PREDICT_DTYPE
     =bf16 runs the CRNN forward in bfloat16 with float32 parameters.
+
+    `wire` is the upload's byte form: "exact" (the PCM as it is), "mulaw8",
+    "bfp6", "bfp5", or a spectral wire ("sp-bfp6", "sp-bfp5", "sp11-bfp5":
+    a host L/M resample, then the base codec); every coded wire holds the
+    reference's annotation-level parity, not byte equality. None or "auto"
+    resolves through ORCAI_TPU_WIRE, else to exact.
     """
     model_dir = Path(model_dir) if model_dir is not None else DEFAULT_MODEL_DIR
     recording_path = Path(recording_path)
@@ -565,9 +578,9 @@ def predict(
     if recording_path.suffix == ".wav":
         return _predict_and_save(
             recording_path, channel, predictor, orcai_parameter, shape,
-            output_path=output_path, overwrite=overwrite, **finish_kwargs,
+            output_path=output_path, overwrite=overwrite, wire=wire, **finish_kwargs,
         )
     return _predict_table(
         recording_path, predictor, orcai_parameter, shape, model_dir,
-        output_path, overwrite, base_dir_recording, finish_kwargs,
+        output_path, overwrite, base_dir_recording, finish_kwargs, wire=wire,
     )

@@ -89,6 +89,7 @@ def serve(
     max_idle_polls: int | None = None,
     sleep=time.sleep,
     device: str | torch.device = "cuda",
+    wire: str | None = None,
 ) -> int:
     """Watch `watch_dir` for wav files and predict each as it arrives.
 
@@ -101,7 +102,8 @@ def serve(
 
     `warm_minutes > 0` runs every recording-length shape up to that duration
     through this predictor (tools/warmup.py) before the first poll, and
-    again after a rebuild. Raises on a sticky CUDA error (see the module
+    again after a rebuild, on the same `wire` the files are predicted with
+    (see `predict`). Raises on a sticky CUDA error (see the module
     docstring).
     """
     watch_dir = Path(watch_dir)
@@ -120,7 +122,9 @@ def serve(
             model_dir, predict_batch_size, device
         )
         if warm_minutes > 0:
-            n = warm_predictor(predictor, orcai_parameter["spectrogram"], warm_minutes)
+            n = warm_predictor(
+                predictor, orcai_parameter["spectrogram"], warm_minutes, wire=wire
+            )
             log.info("Warmed %d recording-length shapes", n)
         return predictor, orcai_parameter, shape
 
@@ -139,6 +143,7 @@ def serve(
             save_probabilities=save_probabilities,
             call_duration_limits=call_duration_limits,
             label_suffix=label_suffix,
+            wire=wire,
         )
 
     prev_sigs: dict[Path, tuple[int, int]] = {}

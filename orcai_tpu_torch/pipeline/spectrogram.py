@@ -49,14 +49,6 @@ def resolve_spectrogram_engine(engine: str = "auto") -> str:
     return "device" if engine == "auto" else engine
 
 
-def _check_wire(wire: str) -> None:
-    if wire != "exact":
-        raise NotImplementedError(
-            f"wire {wire!r}: the coded upload wires (ROADMAP A15) are not ported; "
-            "data preparation uploads the exact samples (wire='exact')"
-        )
-
-
 def load_recording_audio(path: Path | str, sampling_rate: int, channel: int = 1) -> np.ndarray:
     """float32 mono audio of `channel` (1-based), resampled to the rate."""
     audio, _ = load_wav(path, sr=sampling_rate, mono=False)
@@ -73,10 +65,13 @@ def make_spectrogram(
     device: str = "cuda",
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """wav file -> (normalized spectrogram (T, bins), frequencies, times),
-    computed on `device` and returned to the host."""
+    computed on `device` and returned to the host.
+
+    `wire` defaults to "exact" here, where predict's default is "auto": these
+    spectrograms are stored for training and evaluation. A coded wire
+    (ops/wire_codec.py) is the caller's choice."""
     from orcai_tpu_torch.ops.frontend import make_spectrogram_from_params_device
 
-    _check_wire(wire)
     if isinstance(orcai_parameter, (Path, str)):
         orcai_parameter = read_json(orcai_parameter)
     sp = orcai_parameter["spectrogram"]
@@ -84,7 +79,7 @@ def make_spectrogram(
              sp["sampling_rate"] / 1000, Path(wav_file_path).stem)
     audio = load_recording_audio(wav_file_path, sp["sampling_rate"], channel)
     spec, n_frames, frequencies, times = make_spectrogram_from_params_device(
-        audio, sp, device=device)
+        audio, sp, device=device, wire=wire)
     if len(times) > 1:
         log.info("Duration of wav file: %.2f seconds", times[-1])
     return spec[:n_frames].cpu().numpy(), frequencies, times
@@ -130,8 +125,9 @@ def create_spectrograms(
     report: the engine, the number of recordings, the codec, the bytes
     written and the summed wall of each stage (wav load, frontend dispatch,
     fetch to the host, store write; the fetch waits for the device).
+    `wire` is the device engine's upload (see make_spectrogram); the host
+    engine reads the samples as they are, as the reference's does.
     """
-    _check_wire(wire)
     log.info("Reading recordings table")
     table = Table.read_csv(recording_table_path)
     output_dir = Path(output_dir)
@@ -175,7 +171,8 @@ def create_spectrograms(
     rows = list(table.records())
     log.info("Creating %d spectrograms (%s engine)", len(rows), engine)
     stats = _run_spectrogram_pipeline(
-        rows, orcai_parameter, output_dir, engine, dev if engine == "device" else None)
+        rows, orcai_parameter, output_dir, engine, dev if engine == "device" else None,
+        wire)
     log.info("Spectrograms created.")
     return {"engine": engine, "n_recordings": len(rows),
             "codec": resolve_zarr_codec("auto"), **stats}
@@ -200,7 +197,7 @@ def _dir_bytes(path: Path) -> int:
 
 
 def _run_spectrogram_pipeline(rows, orcai_parameter: dict, output_dir: Path, engine: str,
-                              dev) -> dict:
+                              dev, wire: str) -> dict:
     """load || compute || store-write, one recording of lookahead each.
 
     Loader and writer errors propagate to the caller. Every enqueue polls
@@ -297,7 +294,7 @@ def _run_spectrogram_pipeline(rows, orcai_parameter: dict, output_dir: Path, eng
                 submit_write(spec, freqs, times, out)
                 continue
             dev_spec, n_frames, freqs, times = make_spectrogram_from_params_device(
-                audio, sp, device=dev)
+                audio, sp, device=dev, wire=wire)
             walls["frontend_s"] += time.perf_counter() - t0
             prev, pending = pending, (dev_spec, n_frames, freqs, times, out)
             if prev is not None:

@@ -10,7 +10,7 @@ the kernels built, cuDNN's algorithms chosen and the allocator's pools
 filled. `bucket_sample_counts` and `bucket_warm_counts` are host arithmetic
 copied from the reference.
 
-Usage:  python -m orcai_tpu_torch warmup [--minutes 90]
+Usage:  python -m orcai_tpu_torch warmup [--minutes 90] [--wire_codec auto]
 """
 
 from __future__ import annotations
@@ -96,11 +96,15 @@ def bucket_warm_counts(
 
 
 def warm_predictor(
-    predictor: WindowPredictor, spectrogram_parameter: dict, max_minutes: float
+    predictor: WindowPredictor, spectrogram_parameter: dict, max_minutes: float,
+    wire: str | None = None,
 ) -> int:
     """Send one silent int16 recording per `bucket_warm_counts` length
-    through the frontend and `predictor`; returns the number of lengths. On
-    a CUDA predictor the kernels are built first."""
+    through the frontend on `wire` and `predictor`; returns the number of
+    lengths. On a CUDA predictor the kernels are built first. The wire
+    decides what is warmed: its host encode or resample, its device decode,
+    and B1's route for the geometry it runs at (a spectral wire's n_fft 384
+    or 352 takes the GEMM route)."""
     sp = spectrogram_parameter
     if predictor.device.type == "cuda":
         _build.build()
@@ -111,7 +115,7 @@ def warm_predictor(
         t0 = time.perf_counter()
         with exact_f32_math():
             spec_dev, n_frames, _, _ = make_spectrogram_from_params_device(
-                np.zeros(n, dtype=np.int16), sp, device=predictor.device
+                np.zeros(n, dtype=np.int16), sp, device=predictor.device, wire=wire
             )
             aggregated, overlap_count = predictor.aggregate(spec_dev, n_frames=n_frames)
         predictor.binary_predictions(aggregated, overlap_count, threshold=0.5)
@@ -127,13 +131,15 @@ def warmup(
     model_dir: Path | str | None = None,
     predict_batch_size: int = 128,
     device: str | torch.device = "cuda",
+    wire: str | None = None,
 ) -> int:
     """Build the kernels and run every reachable predict shape up to
-    max_minutes once; returns the number of warmed lengths."""
+    max_minutes once, on the wire production predicts use (None or "auto"
+    resolves as `predict` does); returns the number of warmed lengths."""
     from orcai_tpu_torch.pipeline.predict import build_predictor
 
     model_dir = Path(model_dir) if model_dir is not None else DEFAULT_MODEL_DIR
     predictor, orcai_parameter, _ = build_predictor(
         model_dir, predict_batch_size, device
     )
-    return warm_predictor(predictor, orcai_parameter["spectrogram"], max_minutes)
+    return warm_predictor(predictor, orcai_parameter["spectrogram"], max_minutes, wire=wire)

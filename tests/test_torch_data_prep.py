@@ -321,10 +321,36 @@ def test_a_table_that_filters_to_no_row_writes_nothing(project, tmp_path):
 
 
 def test_coded_wires_are_refused(project, tmp_path):
-    with pytest.raises(NotImplementedError, match="A15"):
+    """A wire that is no codec is refused before any recording is read;
+    the coded wires themselves are taken (the next test)."""
+    with pytest.raises(ValueError, match="unknown wire codec"):
         spectrogram.create_spectrograms(project["table"], tmp_path,
                                         orcai_parameter=project["param"], device="cpu",
-                                        wire="mulaw8")
+                                        wire="gzip")
+    assert not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("wire", ["mulaw8", "sp-bfp5"])
+def test_create_spectrograms_on_a_coded_wire(project, tmp_path, wire):
+    """Each stored spectrogram of a coded wire is the frontend's on that
+    wire, and its frequency vector the native one, as on the exact wire."""
+    from orcai_tpu_torch.ops.frontend import make_spectrogram_from_params_device
+
+    data = tmp_path / "data"
+    report = spectrogram.create_spectrograms(project["table"], data,
+                                             orcai_parameter=project["param"], device="cpu",
+                                             wire=wire)
+    recs = sorted(p.name for p in data.iterdir())
+    assert report["n_recordings"] == len(recs) > 0
+    sp = PARAM["spectrogram"]
+    for rec in recs:
+        audio = spectrogram.load_recording_audio(project["wav_dir"] / f"{rec}.wav",
+                                                 sp["sampling_rate"])
+        want, n, _, _ = make_spectrogram_from_params_device(audio, sp, device="cpu", wire=wire)
+        out = data / rec / "spectrogram"
+        np.testing.assert_array_equal(open_zarr(out / "spectrogram.zarr")[:], want[:n].numpy())
+        assert ((out / "frequencies.json").read_bytes()
+                == (project["port_data"] / rec / "spectrogram" / "frequencies.json").read_bytes())
 
 
 def test_a_dead_writer_with_a_full_queue_raises(project, monkeypatch, tmp_path):

@@ -193,3 +193,77 @@ def test_spectrogram_multi_tile_default_tiles():
     assert tfront._tile_plan(1 + audio.shape[0] // HOP) == (32768, 4, 3)
     ours, ref = _both(audio)
     np.testing.assert_allclose(ours, ref, atol=2e-4, rtol=0)
+
+
+WIRES = ["exact", "mulaw8", "bfp6", "bfp5", "sp-bfp6", "sp-bfp5", "sp11-bfp5"]
+
+
+@pytest.fixture(scope="module")
+def golden_audio():
+    from pathlib import Path
+
+    audio, _ = load_wav_for_frontend(
+        Path(__file__).parent / "fixtures" / "golden.wav", sr=SR)
+    return audio
+
+
+@pytest.mark.parametrize("wire", WIRES)
+def test_spectrogram_of_each_wire_matches_jax(golden_audio, wire):
+    """Every wire on the golden wav (the spectrogram level of the golden
+    predicts that tests/test_torch_wire_codec.py and
+    tests/test_torch_spectral.py run end to end): within 2e-4 of the JAX
+    frontend on the same wire, the same native frequency vector and the
+    same frame times."""
+    ours, f_t, t_t = tfront.compute_spectrogram(
+        golden_audio, SR, NFFT, HOP, FREQ_RANGE, QUANTILES, device="cpu", wire=wire)
+    ref, f_j, t_j = jfront.compute_spectrogram(
+        golden_audio, SR, NFFT, HOP, FREQ_RANGE, QUANTILES, wire=wire)
+    np.testing.assert_array_equal(f_t, f_j)
+    assert f_t.shape == (NFFT // 2 + 1,)
+    np.testing.assert_array_equal(t_t, t_j)
+    assert ours.shape == ref.shape == (1 + golden_audio.shape[0] // HOP, 171)
+    np.testing.assert_allclose(ours, ref, atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("wire", ["mulaw8", "bfp6", "sp-bfp5", "sp11-bfp5"])
+def test_wire_frontend_is_its_host_form_then_exact(wire):
+    """Plumbing: a coded wire's spectrogram equals the exact wire's on the
+    audio the host decodes (tests/test_wire_codec.py:132-147, 297-311) at
+    the geometry prepare_wire_audio gives; the native frequency vector
+    comes back whatever the wire."""
+    from orcai_tpu_torch.ops.wire_codec import (
+        bfp_decode_host, bfp_encode, mulaw_decode_host, wire_bfp_bits)
+
+    audio = _audio(48000 * 2 + 11, 5, "int16")
+    coded, sr, n_fft, hop, base, bits = tfront.prepare_wire_audio(
+        audio, SR, NFFT, HOP, FREQ_RANGE, wire)
+    assert bits == wire_bfp_bits(base)
+    if base == "mulaw8":
+        host = mulaw_decode_host(coded)
+    else:
+        # per-tile bfp blocks are anchored at each tile's first sample; one
+        # tile here, which starts n_fft // 2 before the recording
+        head = np.concatenate([np.zeros(n_fft // 2, np.int16), coded])
+        host = bfp_decode_host(*bfp_encode(head, bits), bits)[n_fft // 2 : n_fft // 2
+                                                               + coded.shape[0]]
+    got, freqs, times = tfront.compute_spectrogram(
+        audio, SR, NFFT, HOP, FREQ_RANGE, QUANTILES, device="cpu", wire=wire)
+    want, _, want_times = tfront.compute_spectrogram(
+        host, sr, n_fft, hop, FREQ_RANGE, QUANTILES, device="cpu", wire="exact")
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(times, want_times)
+    np.testing.assert_array_equal(freqs, tfront.fft_frequencies(SR, NFFT))
+
+
+def test_auto_wire_is_exact_unless_the_variable_says(monkeypatch):
+    audio = _audio(48000, 6, "int16")
+    args = (audio, SR, NFFT, HOP, FREQ_RANGE, QUANTILES)
+    exact, _, _ = tfront.compute_spectrogram(*args, device="cpu", wire="exact")
+    monkeypatch.delenv("ORCAI_TPU_WIRE", raising=False)
+    for wire in (None, "auto"):
+        np.testing.assert_array_equal(
+            tfront.compute_spectrogram(*args, device="cpu", wire=wire)[0], exact)
+    monkeypatch.setenv("ORCAI_TPU_WIRE", "mulaw8")
+    np.testing.assert_array_equal(
+        tfront.compute_spectrogram(*args, device="cpu")[0],
+        tfront.compute_spectrogram(*args, device="cpu", wire="mulaw8")[0])

@@ -33,7 +33,8 @@ def test_every_module_of_the_slice_is_scanned():
                  "tools.profile_train", "io.blosc", "io.zarrlite", "io.tables",
                  "io.annotations", "io.wav", "utils.rle", "native", "pipeline.helpers",
                  "pipeline.spectrogram", "pipeline.labels", "pipeline.snippets",
-                 "tools.synthetic", "tools.profile_data_prep"):
+                 "tools.synthetic", "tools.profile_data_prep", "ops.wire_names",
+                 "ops.wire_codec", "ops.spectral", "tools.parity", "ops.dft"):
         assert f"orcai_tpu_torch.{name}" in MODULES
     assert "chip_smoke" in MODULES
 

@@ -24,11 +24,13 @@ from orcai_tpu.ops.pallas_hist import (
     pad_unit,
     select_order_statistics as jax_select,
 )
+from orcai_tpu.ops.wire_codec import mulaw_decode_host, mulaw_encode
 from orcai_tpu_torch.ops.dft import (
     FFT_SIZES,
     _fft_pairs_reference,
     dft_magnitude,
     dft_magnitude_plain,
+    dft_route,
     fft_tables,
     windowed_dft_mats,
 )
@@ -88,6 +90,51 @@ def test_dft_plain_matches_pallas_and_numpy(dtype):
     np.testing.assert_allclose(got.numpy(), _numpy_mag(as_float), atol=2e-4, rtol=0)
 
 
+def _pallas(padded, n_fft, hop, tile_frames):
+    return np.asarray(jax_dft_magnitude(
+        jnp.asarray(padded), *map(jnp.asarray, jax_dft_mats(n_fft)),
+        n_fft=n_fft, hop=hop, tile_frames=tile_frames, interpret=True,
+    ))
+
+
+@pytest.mark.parametrize("n_fft,hop", [(384, 192), (352, 176), (1024, 256), (512, 128)])
+@pytest.mark.parametrize("dtype", ["f32", "int16", "uint8"])
+def test_dft_plain_other_sizes_and_codes_match_pallas(n_fft, hop, dtype):
+    """Every size the GEMM route takes (the spectral wires' 384/192 and
+    352/176, a longer window, a quarter hop) and the mulaw8 wire's codes,
+    against the Pallas kernel in interpret mode: atol 2e-4."""
+    rng = np.random.default_rng(n_fft + hop)
+    tpad = 64
+    n = (tpad - 1) * hop + n_fft
+    pcm = (rng.uniform(-0.9, 0.9, size=n) * 32768).astype(np.int16)
+    padded = {"f32": (0.3 * rng.standard_normal(n)).astype(np.float32), "int16": pcm,
+              "uint8": mulaw_encode(pcm)}[dtype]
+    window = port_hann_window(n_fft)
+    np.testing.assert_array_equal(window, hann_window(n_fft))
+    got = dft_magnitude(torch.from_numpy(padded), window, n_fft=n_fft, hop=hop)
+    assert got.shape == (tpad, n_fft // 2 + 1) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _pallas(padded, n_fft, hop, 32), atol=2e-4, rtol=0)
+    for ours, theirs in zip(windowed_dft_mats(window), jax_dft_mats(n_fft)):
+        np.testing.assert_array_equal(ours, theirs)
+
+
+@pytest.mark.parametrize("n_fft,hop", [(512, 256), (384, 192)])
+def test_dft_of_codes_is_dft_of_their_int16_decode(n_fft, hop):
+    """The codes and their host decode to int16 are the same float samples
+    through the same arithmetic: bit-equal on the plain version and on the
+    FFT route's step-by-step reference (tests/test_wire_codec.py:132-147)."""
+    rng = np.random.default_rng(9)
+    n = 63 * hop + n_fft
+    codes = mulaw_encode((rng.uniform(-1, 1, n) * 32767).astype(np.int16))
+    decoded = torch.from_numpy(mulaw_decode_host(codes))
+    window = port_hann_window(n_fft)
+    a = dft_magnitude(torch.from_numpy(codes), window, n_fft=n_fft, hop=hop)
+    assert torch.equal(a, dft_magnitude(decoded, window, n_fft=n_fft, hop=hop))
+    if n_fft in FFT_SIZES:
+        b = _fft_pairs_reference(torch.from_numpy(codes), window, n_fft=n_fft, hop=hop)
+        assert torch.equal(b, _fft_pairs_reference(decoded, window, n_fft=n_fft, hop=hop))
+
+
 def test_dft_wrapper_validates_geometry():
     with pytest.raises(ValueError, match="hop"):
         dft_magnitude_plain(torch.zeros(1024), WINDOW, n_fft=NFFT, hop=300)
@@ -101,11 +148,21 @@ def test_dft_wrapper_validates_geometry():
 
 @pytest.mark.parametrize("n_fft,hop", [(1024, 256), (256, 128), (384, 128)])
 def test_dft_wrapper_names_supported_sizes(n_fft, hop):
-    """Off the CPU a size without a kernel raises and names the sizes that
-    have one; nothing routes it to the plain version."""
-    x = torch.zeros(3 * hop + n_fft, device="meta")
-    with pytest.raises(ValueError, match=r"supported sizes: \(512,\)"):
-        dft_magnitude(x, port_hann_window(n_fft), n_fft=n_fft, hop=hop)
+    """Off the CPU every n_fft that hop divides has a kernel: 512 the FFT,
+    any other the GEMM. What no kernel takes raises and names what they
+    take; nothing routes it to the plain version."""
+    assert dft_route(n_fft) == "gemm" and dft_route(512) == "fft"
+    for dtype in (torch.float64, torch.int32, torch.bool):
+        x = torch.zeros(3 * hop + n_fft, dtype=dtype, device="meta")
+        with pytest.raises(ValueError, match="float32, int16 or uint8"):
+            dft_magnitude(x, port_hann_window(n_fft), n_fft=n_fft, hop=hop)
+    with pytest.raises(ValueError, match="1-D"):
+        dft_magnitude(torch.zeros(2, 3 * hop + n_fft, device="meta"), port_hann_window(n_fft),
+                      n_fft=n_fft, hop=hop)
+    for dtype in (torch.float32, torch.int16, torch.uint8):
+        x = torch.zeros(3 * hop + n_fft, dtype=dtype, device="meta")
+        with pytest.raises(ValueError, match="unsupported device meta"):
+            dft_magnitude(x, port_hann_window(n_fft), n_fft=n_fft, hop=hop)
 
 
 def test_dft_wrapper_rejects_bad_hop_off_cpu():

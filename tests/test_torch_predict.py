@@ -107,3 +107,63 @@ def test_tsv_writer_matches_pandas_writer(tmp_path):
         )
         assert ours.read_bytes() == ref.read_bytes()
     assert pd.read_csv(ours, sep="\t").shape == (400, 3)
+
+
+def test_cli_options_match_the_reference_command_by_command():
+    """Every command of `python -m orcai_tpu_torch` takes the options and
+    arguments of its namesake in orcai_tpu/cli.py, `--device` aside, and
+    the top level takes `--version`."""
+    import argparse
+
+    import click
+
+    from orcai_tpu.cli import cli
+    from orcai_tpu_torch.__main__ import _parser
+
+    parser = _parser()
+    assert "--version" in {o for a in parser._actions for o in a.option_strings}
+    assert "--version" in {o for p in cli.params for o in p.opts}
+    sub = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
+    assert set(sub.choices) == set(cli.commands) - {"hpsearch", "convert-dataset"}
+    for name, port in sub.choices.items():
+        ref_cmd = cli.commands[name]
+        ref_opts = {o for p in ref_cmd.params if isinstance(p, click.Option)
+                    for o in (*p.opts, *p.secondary_opts)}
+        port_opts = {o for a in port._actions for o in a.option_strings}
+        assert port_opts - {"-h", "--help", "--device"} == ref_opts, name
+        assert ([a.dest for a in port._actions if not a.option_strings]
+                == [p.name for p in ref_cmd.params if isinstance(p, click.Argument)]), name
+    for name in ("predict", "serve", "warmup"):
+        wire = next(p for p in cli.commands[name].params if p.name == "wire")
+        ours = next(a for a in sub.choices[name]._actions if a.dest == "wire")
+        assert list(ours.choices) == list(wire.type.choices) and ours.default == wire.default
+
+
+def test_cli_wire_and_model_reach_predict(tmp_path, monkeypatch):
+    seen = {}
+
+    def fake_predict(**kwargs):
+        seen.update(kwargs)
+        return tmp_path / "x.txt"
+
+    monkeypatch.setattr(tpredict, "predict", fake_predict)
+    wav = str(FIXTURES / "golden.wav")
+    assert cli_main(["predict", wav, "-wc", "sp-bfp5", "-m", "orcai-v1", "--device", "cpu"]) == 0
+    assert seen["wire"] == "sp-bfp5" and Path(seen["model_dir"]).name == "orcai-v1"
+    assert "model" not in seen
+    cli_main(["predict", wav, "--device", "cpu", "-md", str(tmp_path)])
+    assert seen["wire"] == "auto" and seen["model_dir"] == str(tmp_path)
+    with pytest.raises(SystemExit):
+        cli_main(["predict", wav, "-wc", "gzip"])
+    with pytest.raises(SystemExit):
+        cli_main(["predict", wav, "-m", "no-such-model"])
+
+
+@pytest.mark.parametrize("wire", ["exact", "auto"])
+def test_golden_tsv_byte_equal_on_the_exact_and_the_auto_wire(tmp_path, monkeypatch, wire):
+    """With no ORCAI_TPU_WIRE, auto is the exact wire: the golden TSV stays
+    byte-equal."""
+    monkeypatch.delenv("ORCAI_TPU_WIRE", raising=False)
+    out = predict(FIXTURES / "golden.wav", output_path=tmp_path / "pred.txt",
+                  predict_batch_size=16, device="cpu", wire=wire)
+    assert out.read_bytes() == GOLDEN

@@ -188,7 +188,7 @@ def test_streaming_branch_flushes_wave_first(world, tmp_path, monkeypatch):
     events = []
 
     class StubStreaming:
-        def __init__(self, predictor, sp):
+        def __init__(self, predictor, sp, wire):
             events.append("streaming_init")
             self.lo_idx, self.hi_idx = 0, shape["input_shape"][1]
 
@@ -219,10 +219,10 @@ def test_predict_streams_past_the_spectrogram_budget(
     card); the TSVs stay byte-equal to the JAX package's."""
     built = []
 
-    def small_tiles(predictor, sp):
+    def small_tiles(predictor, sp, wire):
         built.append(1)
         return StreamingPredictor(predictor, sp, windows_per_chunk=8,
-                                  stats_tile_frames=512)
+                                  stats_tile_frames=512, wire=wire)
 
     monkeypatch.setattr(tpredict, "StreamingPredictor", small_tiles)
     monkeypatch.setenv("ORCAI_TPU_STREAM_SPEC_BYTES", "1")

@@ -317,12 +317,13 @@ def test_bucket_warm_counts_equal_the_originals(model_dir, minutes, batch, cap):
 def test_warmup_runs_the_predict_path(model_dir, monkeypatch):
     """`warmup` sends one recording per warm count through the frontend and
     the predictor, and `serve(warm_minutes=...)` warms its own predictor."""
-    lengths = []
+    lengths, wires = [], []
     real = twarmup.make_spectrogram_from_params_device
 
-    def spy(audio, sp, device):
+    def spy(audio, sp, device, wire):
         lengths.append(audio.shape[0])
-        return real(audio, sp, device=device)
+        wires.append(wire)
+        return real(audio, sp, device=device, wire=wire)
 
     monkeypatch.setattr(twarmup, "make_spectrogram_from_params_device", spy)
     predictor, param, _ = build_predictor(model_dir, BATCH, "cpu")
@@ -331,9 +332,13 @@ def test_warmup_runs_the_predict_path(model_dir, monkeypatch):
     assert twarmup.warmup(0.25, model_dir, BATCH, device="cpu") == len(want)
     assert lengths == want
     lengths.clear()
+    assert set(wires) == {None}
+    lengths.clear()
+    wires.clear()
     assert cli_main(["warmup", "--minutes", "0.25", "-md", str(model_dir),
-                     "-bs", str(BATCH), "--device", "cpu", "-v", "0"]) == 0
+                     "-bs", str(BATCH), "--device", "cpu", "-v", "0", "-wc", "sp-bfp5"]) == 0
     assert lengths == want
+    assert set(wires) == {"sp-bfp5"}
 
 
 def test_serve_warms_its_own_predictor(model_dir, folders, monkeypatch):
@@ -341,9 +346,21 @@ def test_serve_warms_its_own_predictor(model_dir, folders, monkeypatch):
     warmed = []
     monkeypatch.setattr(
         serve_mod, "warm_predictor",
-        lambda predictor, sp, minutes: warmed.append((predictor, minutes)) or 0,
+        lambda predictor, sp, minutes, wire: warmed.append((predictor, minutes, wire)) or 0,
     )
     _wav(watch / "a.wav", seed=0)
     seen = _flaky(monkeypatch, lambda i, name: None)
-    assert _serve(watch, model_dir, out, warm_minutes=0.1) == 1
-    assert warmed == [(seen[0][1], 0.1)]
+    assert _serve(watch, model_dir, out, warm_minutes=0.1, wire="mulaw8") == 1
+    assert warmed == [(seen[0][1], 0.1, "mulaw8")]
+
+
+@pytest.mark.parametrize("wire", ["mulaw8", "sp-bfp5"])
+def test_serve_on_a_coded_wire_writes_what_predict_writes(model_dir, folders, tmp_path, wire):
+    watch, out = folders
+    _wav(watch / "a.wav", seed=2)
+    assert cli_main(["serve", str(watch), "-o", str(out), "-md", str(model_dir), "-bs",
+                     str(BATCH), "-mf", "1", "-ps", "0", "-wc", wire, "--device", "cpu",
+                     "-v", "0"]) == 0
+    ref = predict(watch / "a.wav", model_dir=model_dir, output_path=tmp_path / "ref.txt",
+                  predict_batch_size=BATCH, device="cpu", wire=wire)
+    assert (out / "a_c1_srv-test_predicted.txt").read_bytes() == ref.read_bytes()

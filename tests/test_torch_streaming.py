@@ -283,3 +283,220 @@ def test_statistics_above_int32_totals(models, monkeypatch):
     assert n_frames * NBINS * scale > 2**31
     _, lo_big, hi_big = streaming._select_percentiles(source, n_frames)
     assert (lo_big, hi_big) == (lo_mag, hi_mag)
+
+
+# ---------------------------------------------------------------- wires
+
+# a regriddable geometry with the tiny model's 21 bins: 75 Hz bins, the
+# band [0, 1575) (top bin 1500); 3/4 gives (3600, 48, 24), 11/16 (3300, 44, 22)
+SP_WIRE = {"sampling_rate": 4800, "nfft": 64, "n_overlap": 32,
+           "freq_range": [0, 1575], "quantiles": [0.01, 0.999]}
+
+
+def _tiles(source, t0s, tpad=64):
+    return [np.asarray(source.tile(t0, tpad)) for t0 in t0s]
+
+
+@pytest.mark.parametrize("budget", [0, 1 << 30])
+@pytest.mark.parametrize("n_fft,hop", [(512, 256), (384, 192), (400, 100), (48, 24)])
+@pytest.mark.parametrize("wire", ["exact", "mulaw8", "bfp6", "bfp5"])
+def test_audio_source_tiles_match_jax_per_wire(wire, n_fft, hop, budget):
+    """Resident and host-sliced tiles of every byte codec, at aligned and
+    misaligned block geometries and tile starts inside a block: equal to the
+    JAX package's tiles (uint8 codes on mulaw8, int16 after the bfp decode)."""
+    rng = np.random.default_rng(4)
+    audio = (rng.uniform(-1, 1, 50_000) * 32767).astype(np.int16)
+    ours = _AudioSource(audio, n_fft, hop, budget, 64, torch.device("cpu"), wire=wire)
+    theirs = JaxAudioSource(audio, n_fft, hop, budget, 64, wire=wire)
+    assert ours.resident == (budget > 0)
+    for t0, a, b in zip((0, 1, 37, 150), _tiles(ours, (0, 1, 37, 150)),
+                        _tiles(theirs, (0, 1, 37, 150))):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b, err_msg=f"tile at frame {t0}")
+
+
+@pytest.mark.parametrize("budget", [0, 1 << 30])
+@pytest.mark.parametrize("L,M", [(3, 4), (11, 16)])
+def test_audio_source_tiles_of_a_resampled_stream_match_jax(L, M, budget):
+    from orcai_tpu.ops.spectral import ResampledStream as JaxResampledStream
+    from orcai_tpu_torch.ops.spectral import ResampledStream
+
+    rng = np.random.default_rng(5)
+    audio = (rng.uniform(-0.7, 0.7, 60_000) * 32767).astype(np.int16)
+    n_fft, hop = 512 * L // M, 256 * L // M
+    ours = _AudioSource(ResampledStream(audio, 48000, 15937.5, L, M), n_fft, hop, budget, 64,
+                        torch.device("cpu"), wire="bfp5")
+    theirs = JaxAudioSource(JaxResampledStream(audio, 48000, 15937.5, L, M), n_fft, hop,
+                            budget, 64, wire="bfp5")
+    for a, b in zip(_tiles(ours, (0, 3, 40)), _tiles(theirs, (0, 3, 40))):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_host_sliced_bfp_tiles_fill_their_last_block():
+    """C1 (ROADMAP, ADVICE.md): on audio whose level changes inside each
+    128-sample block, a tile whose span ends inside a block must encode that
+    block from the recording, not from zeros, or its shift differs from the
+    whole-recording encode. The port's host-sliced tiles equal the global
+    round trip and the resident tiles; the JAX package's host-sliced tiles
+    do not (the fault is the reference's, shown here, not inherited)."""
+    from orcai_tpu_torch.ops.wire_codec import bfp_decode_host, bfp_encode
+
+    t = np.arange(50_000)
+    loud = (t % 128) >= 64  # quiet first half, loud second half of each block
+    audio = np.where(loud, 20000, 100) * np.sin(0.3 * t)
+    audio = audio.astype(np.int16)
+    round_trip = bfp_decode_host(*bfp_encode(audio, 5), 5)[: len(audio)]
+    cpu = torch.device("cpu")
+    n_fft, hop = 384, 192  # the sp wires' geometry: hop and offset off the grid
+    exact = _AudioSource(round_trip, n_fft, hop, 0, 64, cpu)
+    host = _AudioSource(audio, n_fft, hop, 0, 64, cpu, wire="bfp5")
+    resident = _AudioSource(audio, n_fft, hop, 1 << 30, 64, cpu, wire="bfp5")
+    jax_host = JaxAudioSource(audio, n_fft, hop, 0, 64, wire="bfp5")
+    diverged = 0
+    for t0 in (0, 1, 37, 150):
+        want = np.asarray(exact.tile(t0, 64))
+        np.testing.assert_array_equal(np.asarray(host.tile(t0, 64)), want)
+        np.testing.assert_array_equal(np.asarray(resident.tile(t0, 64)), want)
+        diverged += int((np.asarray(jax_host.tile(t0, 64)) != want).sum())
+    assert diverged > 0
+
+
+@pytest.fixture(scope="module")
+def wire_models():
+    return _pair(PARAM, SNIPPET, 7)
+
+
+@pytest.mark.parametrize("wire", ["mulaw8", "bfp6", "sp-bfp5", "sp11-bfp5"])
+def test_streaming_wire_resident_equals_host_sliced_and_holds_in_memory(wire_models, wire):
+    """Resident and host-sliced streaming on one wire are equal (the same
+    decoded samples in every tile); against the in-memory path on the same
+    wire, mulaw8 holds the exact wire's bar (1e-5, counts equal) and the
+    bfp wires the reference's (tests/test_streaming.py:206-245: counts
+    equal, atol 0.05, mean below 0.01), since the in-memory path anchors
+    its bfp blocks at each tile and streaming at the recording's start."""
+    _, _, model = wire_models
+    rng = np.random.default_rng(12)
+    audio = (rng.uniform(-0.7, 0.7, 24_000) * 32767).astype(np.int16)
+    spec, _, _ = compute_spectrogram(
+        audio, SP_WIRE["sampling_rate"], SP_WIRE["nfft"], SP_WIRE["n_overlap"],
+        SP_WIRE["freq_range"], SP_WIRE["quantiles"], device="cpu", wire=wire)
+    agg0, cnt0 = _predictor(model).aggregate(spec)
+    runs = []
+    for budget in (1 << 40, 0):
+        s = StreamingPredictor(_predictor(model), SP_WIRE, windows_per_chunk=8,
+                               stats_tile_frames=128, hbm_audio_budget=budget, wire=wire)
+        assert s.wire_label == wire
+        runs.append(s.aggregate(audio))
+    (agg1, cnt1), (agg2, cnt2) = runs
+    np.testing.assert_array_equal(agg1, agg2)
+    np.testing.assert_array_equal(cnt1, cnt2)
+    np.testing.assert_array_equal(cnt1, cnt0)
+    if wire == "mulaw8":
+        np.testing.assert_allclose(agg1, agg0, atol=1e-5, rtol=0)
+    else:
+        np.testing.assert_allclose(agg1, agg0, atol=0.05, rtol=0)
+        assert float(np.abs(agg1 - agg0).mean()) < 0.01
+
+
+@pytest.mark.parametrize("budget", [1 << 40, 0])
+def test_streaming_sp_wire_equals_base_on_preresampled(wire_models, budget):
+    """tests/test_streaming.py:160-203: sp-bfp5 streaming equals bfp5
+    streaming over the globally resampled audio at the scaled geometry."""
+    from orcai_tpu_torch.ops.spectral import resample_poly, spectral_geometry
+
+    _, _, model = wire_models
+    audio = (np.random.default_rng(11).uniform(-0.7, 0.7, 24_000) * 32767).astype(np.int16)
+    sr, n_fft, hop, pass_hz = spectral_geometry(4800, 64, 32, SP_WIRE["freq_range"])
+    assert (sr, n_fft, hop) == (3600, 48, 24)
+    kw = dict(windows_per_chunk=8, stats_tile_frames=128, hbm_audio_budget=budget)
+    a1, c1 = StreamingPredictor(_predictor(model), SP_WIRE, wire="sp-bfp5", **kw).aggregate(
+        audio)
+    scaled = dict(SP_WIRE, sampling_rate=sr, nfft=n_fft, n_overlap=hop)
+    a2, c2 = StreamingPredictor(_predictor(model), scaled, wire="bfp5", **kw).aggregate(
+        resample_poly(audio, 4800, pass_hz, 3, 4))
+    np.testing.assert_array_equal(c1, c2)
+    np.testing.assert_allclose(a1, a2, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("wire", ["mulaw8", "sp-bfp5"])
+def test_streaming_wire_matches_jax_streaming(wire_models, wire):
+    jmodel, variables, model = wire_models
+    audio = (np.random.default_rng(13).uniform(-0.7, 0.7, 24_000) * 32767).astype(np.int16)
+    kw = dict(windows_per_chunk=8, stats_tile_frames=128, hbm_audio_budget=0, wire=wire)
+    ref = JaxStreamingPredictor(
+        JaxWindowPredictor(jmodel, variables, snippet_len=SNIPPET, n_filters=NFILT,
+                           batch_size=4, max_windows_per_chunk=16, dense_trunk=False),
+        SP_WIRE, **kw)
+    ref_agg, ref_cnt = ref.aggregate(audio)
+    agg, cnt = StreamingPredictor(_predictor(model), SP_WIRE, **kw).aggregate(audio)
+    np.testing.assert_array_equal(cnt, ref_cnt)
+    np.testing.assert_allclose(agg, ref_agg, atol=1e-4, rtol=0)
+
+
+# streamed against in-memory sp-bfp5 with orcai-v1: the largest difference
+# allowed. The reference's own bar (tests/test_streaming.py:206-245, atol 0.05
+# on a tiny model) does not hold for orcai-v1 in either package: one-minute
+# sweeps read 0.0776 and 0.1004 (seeds 0 and 3, below), the port and the JAX
+# package alike, and the card 0.0963 on 20 minutes; chip_smoke.py holds the
+# card to this.
+SP_BFP5_STREAMED_MAX = 0.2
+
+
+@pytest.fixture(scope="module")
+def orcai_v1_pair():
+    from orcai_tpu.io.model_store import load_orcai_model as jax_load_orcai_model
+    from orcai_tpu.resources import MODELS_DATA_DIR
+    from orcai_tpu_torch.io.model_store import load_orcai_model
+
+    jmodel, variables, param, _ = jax_load_orcai_model(MODELS_DATA_DIR / "orcai-v1")
+    model, _, _ = load_orcai_model(None, torch.float32, "cpu")
+    return jmodel, variables, model, param["spectrogram"]
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_streamed_sp_bfp5_departs_from_in_memory_as_the_reference_does(
+        orcai_v1_pair, seed, tmp_path):
+    """One minute of chip_smoke.py's sweep recording through orcai-v1 on
+    sp-bfp5, streamed and in memory, in both packages. In memory the bfp
+    blocks start at each tile, streamed at the recording's first sample (64
+    samples apart at hop 192): the JAX package's difference exceeds its own
+    0.05 bar, and the port's equals it within 1e-4 (the bar between the
+    packages' aggregates above). Both stay under SP_BFP5_STREAMED_MAX, with
+    the reference's mean bar of 0.01."""
+    from scipy.io import wavfile
+
+    from orcai_tpu.ops.frontend import compute_spectrogram as jax_compute_spectrogram
+    from orcai_tpu_torch.tools.synthetic import synth_sweep_wav
+
+    jmodel, variables, model, sp = orcai_v1_pair
+    synth_sweep_wav(tmp_path / "sweep.wav", seed, 1.0)
+    _, audio = wavfile.read(tmp_path / "sweep.wav")
+    args = (sp["sampling_rate"], sp["nfft"], sp["n_overlap"], sp["freq_range"],
+            sp["quantiles"])
+    kw = dict(windows_per_chunk=64, stats_tile_frames=8192, wire="sp-bfp5")
+
+    def jax_wp():
+        return JaxWindowPredictor(jmodel, variables, snippet_len=736, n_filters=4,
+                                  batch_size=32, dense_trunk=False)
+
+    def port_wp():
+        return WindowPredictor(model, snippet_len=736, n_filters=4, batch_size=32)
+
+    spec, _, _ = jax_compute_spectrogram(audio, *args, wire="sp-bfp5")
+    ref0, ref_cnt0 = jax_wp().aggregate(spec)
+    ref1, ref_cnt1 = JaxStreamingPredictor(jax_wp(), sp, **kw).aggregate(audio)
+    spec, _, _ = compute_spectrogram(audio, *args, device="cpu", wire="sp-bfp5")
+    agg0, cnt0 = port_wp().aggregate(spec)
+    agg1, cnt1 = StreamingPredictor(port_wp(), sp, **kw).aggregate(audio)
+
+    for c in (ref_cnt1, cnt0, cnt1):
+        np.testing.assert_array_equal(c, ref_cnt0)
+    ref_diff = np.asarray(ref1) - np.asarray(ref0)
+    diff = agg1 - agg0
+    print(f"seed {seed}: streamed - in-memory max {np.abs(ref_diff).max()} (JAX), "
+          f"{np.abs(diff).max()} (port)")
+    assert np.abs(ref_diff).max() > 0.05
+    np.testing.assert_allclose(diff, ref_diff, atol=1e-4, rtol=0)
+    for d in (ref_diff, diff):
+        assert np.abs(d).max() <= SP_BFP5_STREAMED_MAX
+        assert float(np.abs(d).mean()) < 0.01
