@@ -78,16 +78,23 @@ Phases, each printing one JSON line and failing the run on any error:
            and [46, 7]) and one train epoch on the result (finite loss);
            stage walls, the zarr codec, bytes written, peak device memory
 
-  wires    the coded and spectral wires: B1 against its plain version at
-           (n_fft, hop) 384/192, 352/176 and 1024/256 (the GEMM route) in
-           float32, int16 and uint8 mu-law codes and at 512/256 in uint8 (the
-           FFT route), on a 32768-frame tile, the ragged 11251-frame one and a
-           uint8 view one byte off alignment (atol 2e-4), B1 of the codes
-           bit-equal to B1 of their int16 decode on both routes, with kernel,
-           plain and torch.stft times; `predict` on golden through mulaw8,
-           bfp6, bfp5, sp-bfp6, sp-bfp5 and sp11-bfp5, each inside the
+  wires    the coded and spectral wires: B1 against its plain version on a
+           32768-frame tile, the ragged 11251-frame one and a uint8 view one
+           byte off alignment (atol 2e-4): the mixed route at (n_fft, hop)
+           384/192, 352/176 and 1024/256 in float32, int16 and uint8 mu-law
+           codes and at 768/384, 704/352 and 2048/512 in int16 and uint8, also
+           at streamed sp-bfp5's 188784- and 262144-frame tiles at 384/192;
+           the GEMM route at 416/208 and the FFT route at 512/256 in uint8;
+           B1 of the codes bit-equal to B1 of their int16 decode on every
+           route; kernel, plain, torch.stft and the GEMM kernel called
+           directly at the same n_fft, timed side by side; `predict` on
+           golden through mulaw8, bfp6, bfp5, sp-bfp6, sp-bfp5 and
+           sp11-bfp5, each inside the
            reference's golden bar (B1 1, B2 3, pick 3 launches on the wire's
-           route); the 20-minute recording in memory on exact, mulaw8, bfp5
+           route: the spectral wires on the mixed route); create-spectrograms
+           through the CLI on a one-minute project at nfft 416 (B1 1 on the
+           GEMM route, B2 3, pick 3; the store against the CPU path within
+           2e-4); the 20-minute recording in memory on exact, mulaw8, bfp5
            and sp-bfp5 (7 / 3 / 3 launches, the spectrogram within 2e-4 of the
            port's CPU path on the same wire, the frontend's wall, device copy
            and kernel time, host encode or resample time and bytes uploaded);
@@ -95,8 +102,8 @@ Phases, each printing one JSON line and failing the run on any error:
            launches, the two TSVs byte-equal, the aggregate held to the
            in-memory one of the same wire); the host C codecs loaded
 
-Then one {"selection": {...}} line, one {"kernels": [...]} line (B1 as two
-rows, its FFT and its GEMM route), the card's `name, power.limit` from
+Then one {"selection": {...}} line, one {"kernels": [...]} line (B1 as three
+rows, its FFT, mixed-radix and GEMM routes), the card's `name, power.limit` from
 nvidia-smi, and last {"ok": true, "device": {...}}. Exits non-zero, with no
 result, when CUDA is unavailable or the package is missing.
 """
@@ -122,6 +129,7 @@ FIXTURES = ROOT / "tests" / "fixtures"
 MINUTES = 20.0  # the throughput cell: 225001 frames, 7 real tiles, 610 windows
 LONG_REPEATS = 14  # the streaming cell: 4 h 40 min, 3150001 frames, 8559 windows
 STATS_TILE, CHUNK_TILE = 1 << 18, (512 + 1) * 368  # the streaming path's tiles, frames
+B1_TILES = (32768, 11251)  # frames: the in-memory tile, golden's (odd, ragged) count
 PEAK_SLACK_BYTES = 64 * 1024 * 1024
 TVT_SNIPPETS = (512, 128, 70)  # train / val / test; 70 leaves a remainder batch at 64
 TRAIN_EPOCHS, TRAIN_LR = 3, 1e-3
@@ -527,10 +535,10 @@ def check_counts(counts: dict, b1: int, where: str, b2: int = 3, pick: int = 3,
     """In memory: one B1 launch per real tile, three sweeps and three picks.
     Streaming: B1 three times per stats tile and once per chunk, B2 three
     times per stats tile, and the pick on the host from int64 counts. Every
-    B1 launch takes `route` (the FFT at n_fft 512, the GEMM at any other)."""
+    B1 launch takes `route` (ops/dft.py::dft_route: the FFT at n_fft 512, the
+    mixed-radix FFT at the spectral wires' 384 and 352, the GEMM at 416)."""
     want = {"dft_magnitude": b1, "digit_histograms": b2, "radix_pick": pick,
-            "b1_routes": {"fft": b1 if route == "fft" else 0,
-                          "gemm": b1 if route == "gemm" else 0}}
+            "b1_routes": {r: b1 if r == route else 0 for r in counts["b1_routes"]}}
     if counts != want:
         raise AssertionError(f"kernel launches on the {where} path {counts}, expected {want}")
 
@@ -538,18 +546,19 @@ def check_counts(counts: dict, b1: int, where: str, b2: int = 3, pick: int = 3,
 def reset_counts() -> None:
     for fn in _counters():
         fn.launches = 0
-    _counters()[0].route_launches = {"fft": 0, "gemm": 0}
+    b1 = _counters()[0]
+    b1.route_launches = dict.fromkeys(b1.route_launches, 0)
 
 
 def read_counts(total: dict | None = None) -> dict:
     """This path's launches; added to `total`, the run's sum over its paths
-    (B1 by route: dft_magnitude_fft, dft_magnitude_gemm)."""
+    (B1 by route: dft_magnitude_fft, dft_magnitude_mixed, dft_magnitude_gemm)."""
     counts = {fn.__name__: fn.launches for fn in _counters()}
     routes = dict(_counters()[0].route_launches)
     if total is not None:
         per = {"digit_histograms": counts["digit_histograms"],
                "radix_pick": counts["radix_pick"],
-               "dft_magnitude_fft": routes["fft"], "dft_magnitude_gemm": routes["gemm"]}
+               **{f"dft_magnitude_{r}": n for r, n in routes.items()}}
         for name, n in per.items():
             total[name] = total.get(name, 0) + n
     counts["b1_routes"] = routes
@@ -1380,41 +1389,88 @@ SP_BFP5_STREAMED_MAX = 0.2
 
 def _b1_route(wire: str) -> str:
     """The B1 route a wire's predict takes with orcai-v1's n_fft 512: the
-    spectral wires run at 384 or 352."""
-    return "gemm" if wire.startswith("sp") else "fft"
+    spectral wires run at 384 or 352, the mixed-radix FFT."""
+    return "mixed" if wire.startswith("sp") else "fft"
 
 
-def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict]:
+def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict]:
     """B1 at the wires' sizes and types against its plain version (atol
-    2e-4), on a 32768-frame tile, the ragged 11251-frame one, a uint8 view
-    one byte off alignment and, at 384 / 192, the tiles streamed sp-bfp5
-    gives the GEMM route; B1 of the codes bit-equal to B1 of their host
-    decode to int16 on each route. Returns (the phase's record, the GEMM
-    route's kernels row)."""
+    2e-4), on a 32768-frame tile, the ragged 11251-frame one and a uint8 view
+    one byte off alignment: the mixed route at 384/192, 352/176 and
+    1024/256 in float32, int16 and uint8 and at 768/384, 704/352 and
+    2048/512 in int16 and uint8, also at streamed sp-bfp5's tiles (384/192);
+    the GEMM route at 416/208 (int16, uint8); the FFT route at 512/256 in
+    uint8. B1 of the codes bit-equal to B1 of their host decode to int16 on
+    each route; the mixed route, int16 on the 32768-frame tile, no farther
+    from the float64 rFFT than the plain version. Times, on the 32768-frame tile and the streamed tiles: the
+    route's kernel, the GEMM kernel called directly at the same n_fft, the
+    plain version, torch.stft(...).abs() and the byte bound. Returns (the
+    phase's record, the mixed and the GEMM route's kernels rows)."""
     import numpy as np
 
-    from orcai_tpu_torch.ops.dft import dft_magnitude, dft_magnitude_plain, dft_route
+    from orcai_tpu_torch.ops.dft import (
+        _DTYPE_CODES, _kernel, _mats_on_device, dft_magnitude, dft_magnitude_plain, dft_route)
     from orcai_tpu_torch.ops.frontend import hann_window
     from orcai_tpu_torch.ops.wire_codec import (
         mulaw_decode_f32, mulaw_decode_host, mulaw_encode)
 
-    record = {"max_abs_err": {}, "codes_bit_equal_decoded": {}, "gemm_fp32_floor_ms": {}}
+    t_start = time.perf_counter()
+    record = {"max_abs_err": {}, "codes_bit_equal_decoded": {}, "gemm_fp32_floor_ms": {},
+              "gemm_direct_max_abs_err": {}, "max_abs_err_vs_float64": {}}
     cases = {}
-    every, tiles = ("f32", "int16", "uint8"), (32768, 11251)
+    every, coded, tiles = ("f32", "int16", "uint8"), ("int16", "uint8"), B1_TILES
     streamed = {CHUNK_TILE: "normalize_tile", STATS_TILE: "stats_tile"}
     sizes = ((384, 192, every, tiles + tuple(streamed)), (352, 176, every, tiles),
-             (1024, 256, every, tiles), (512, 256, ("uint8",), tiles))
-    streaming = {}  # the GEMM route's times at the streaming tiles
+             (1024, 256, every, tiles), (768, 384, coded, tiles), (704, 352, coded, tiles),
+             (2048, 512, coded, tiles), (416, 208, coded, tiles), (512, 256, ("uint8",), tiles))
+    streaming = {}  # the mixed route's times at the streaming tiles
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def gemm_direct(x, window, n_fft, hop, frames):
+        """The GEMM route's kernel at this n_fft, whatever route dft_route
+        gives it: a launch on a preallocated output, as a yardstick."""
+        C, S = _mats_on_device(window.tobytes(), dev)
+        out = torch.empty((frames, n_fft // 2 + 1), dtype=torch.float32, device=dev)
+
+        def run():
+            err = _kernel("gemm")(x.data_ptr(), _DTYPE_CODES[x.dtype], C.data_ptr(),
+                                  S.data_ptr(), out.data_ptr(), frames, n_fft, hop, stream)
+            if err != 0:
+                raise RuntimeError(f"GEMM kernel at {n_fft}/{hop}: CUDA error {err}")
+            return out
+        return run
+
+    def timed(x, window, win, n_fft, hop, frames, with_plain=True):
+        as_f32 = {torch.float32: x, torch.int16: x.float() * (1.0 / 32768.0),
+                  torch.uint8: mulaw_decode_f32(x)}[x.dtype]
+        n_bins = n_fft // 2 + 1
+        fft_flop = 0.5 * frames * 5.0 * n_fft * np.log2(n_fft)
+        t_bound, by = bound(x.numel() * x.element_size() + frames * n_bins * 4, fft_flop)
+        rec = {"route": dft_route(n_fft),
+               "ms": cuda_ms(lambda: dft_magnitude(x, window, n_fft=n_fft, hop=hop), iters=5),
+               "library_ms": cuda_ms(lambda: torch.stft(
+                   as_f32, n_fft, hop_length=hop, window=win, center=False,
+                   return_complex=True).abs(), iters=5),
+               "bound_ms": t_bound, "bound_by": by}
+        if with_plain:
+            rec["plain_ms"] = cuda_ms(lambda: dft_magnitude_plain(
+                x, window, n_fft=n_fft, hop=hop), iters=5)
+        if rec["route"] != "gemm":
+            rec["gemm_ms"] = cuda_ms(gemm_direct(x, window, n_fft, hop, frames), iters=5)
+        return rec
+
     for n_fft, hop, kinds, frame_counts in sizes:
         window = hann_window(n_fft)
         win = torch.hann_window(n_fft, periodic=True, device=dev)
         n_bins = n_fft // 2 + 1
+        route = dft_route(n_fft)
         for frames in frame_counts:
             n = (frames - 1) * hop + n_fft
             pcm = rng.integers(-32768, 32768, n, dtype=np.int16)
             codes = mulaw_encode(pcm)
-            xs = {"f32": torch.from_numpy((0.3 * rng.standard_normal(n)).astype(np.float32)),
-                  "int16": torch.from_numpy(pcm), "uint8": torch.from_numpy(codes)}
+            xs = {"int16": torch.from_numpy(pcm), "uint8": torch.from_numpy(codes)}
+            if "f32" in kinds:
+                xs["f32"] = torch.from_numpy((0.3 * rng.standard_normal(n)).astype(np.float32))
             xs = {k: v.to(dev) for k, v in xs.items() if k in kinds}
             off = torch.empty(n + 1, dtype=torch.uint8, device=dev)
             off[1:] = xs["uint8"]
@@ -1427,8 +1483,28 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict]:
                 err = float((got - want).abs().max())
                 record["max_abs_err"][key] = err
                 if got.shape != (frames, n_bins) or not err <= 2e-4:
-                    raise AssertionError(f"B1 {key}: shape {tuple(got.shape)}, "
+                    raise AssertionError(f"B1 ({route} route) {key}: shape {tuple(got.shape)}, "
                                          f"max |kernel - plain| {err} > 2e-4")
+                if route == "mixed" and frames == tiles[0] and kind != "uint8_unaligned":
+                    # the yardstick, timed below, is right too
+                    err = float((gemm_direct(x, window, n_fft, hop, frames)() - want).abs().max())
+                    record["gemm_direct_max_abs_err"][key] = err
+                    if not err <= 2e-4:
+                        raise AssertionError(f"GEMM kernel called directly {key}: {err} > 2e-4")
+                if route == "mixed" and frames == tiles[0] and kind == "int16":
+                    # kernel and plain against the float64 rFFT of the same
+                    # windowed frames: the kernel must be no farther
+                    frames64 = (x.double() / 32768.0).unfold(0, n_fft, hop) * torch.from_numpy(
+                        window).to(dev)
+                    exact = torch.fft.rfft(frames64, dim=1).abs()
+                    vs64 = {"kernel": float((got - exact).abs().max()),
+                            "plain": float((want - exact).abs().max())}
+                    record["max_abs_err_vs_float64"][key] = vs64
+                    del frames64, exact
+                    if not vs64["kernel"] <= vs64["plain"]:
+                        raise AssertionError(f"B1 {key}: the kernel is farther from float64 "
+                                             f"than the plain version: {vs64}")
+                del got, want
             decoded = torch.from_numpy(mulaw_decode_host(codes)).to(dev)
             a = dft_magnitude(xs["uint8"], window, n_fft=n_fft, hop=hop)
             same = (torch.equal(a, dft_magnitude(decoded, window, n_fft=n_fft, hop=hop))
@@ -1436,59 +1512,100 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict]:
                                                      n_fft=n_fft, hop=hop)))
             record["codes_bit_equal_decoded"][f"{n_fft}/{hop}/{frames}"] = same
             if not same:
-                raise AssertionError(f"B1 ({dft_route(n_fft)} route) {n_fft}/{hop}: the codes "
+                raise AssertionError(f"B1 ({route} route) {n_fft}/{hop}: the codes "
                                      "and their int16 decode give different magnitudes")
             if frames in streamed:
-                for kind in ("int16", "uint8"):
-                    x, name = xs[kind], f"{streamed[frames]}_{kind}"
-                    streaming[f"ms_{name}"] = cuda_ms(
-                        lambda: dft_magnitude(x, window, n_fft=n_fft, hop=hop), iters=5)
-                    streaming[f"bound_ms_{name}"] = bound(
-                        x.numel() * x.element_size() + frames * n_bins * 4, 0.0)[0]
-            if frames != 32768:
-                del xs, off, decoded, a
-                continue
-            fft_flop = 0.5 * frames * 5.0 * n_fft * np.log2(n_fft)
-            for kind in kinds:
-                x = xs[kind]
-                as_f32 = {"f32": x, "int16": x.float() * (1.0 / 32768.0),
-                          "uint8": mulaw_decode_f32(x)}[kind]
-                t_bound, by = bound(x.numel() * x.element_size() + frames * n_bins * 4, fft_flop)
-                cases[f"{n_fft}/{hop}/{kind}"] = {
-                    "route": dft_route(n_fft),
-                    "ms": cuda_ms(lambda: dft_magnitude(x, window, n_fft=n_fft, hop=hop)),
-                    "plain_ms": cuda_ms(lambda: dft_magnitude_plain(
-                        x, window, n_fft=n_fft, hop=hop), iters=5),
-                    "library_ms": cuda_ms(lambda: torch.stft(
-                        as_f32, n_fft, hop_length=hop, window=win, center=False,
-                        return_complex=True).abs(), iters=5),
-                    "bound_ms": t_bound, "bound_by": by,
-                }
-            if dft_route(n_fft) == "gemm":
+                for kind in coded:
+                    rec = timed(xs[kind], window, win, n_fft, hop, frames, with_plain=False)
+                    name = f"{streamed[frames]}_{kind}"
+                    streaming.update({f"{k}_{name}": v for k, v in rec.items()
+                                      if k not in ("route", "bound_by")})
+            if frames == tiles[0]:
+                for kind in kinds:
+                    cases[f"{n_fft}/{hop}/{kind}"] = timed(xs[kind], window, win, n_fft, hop,
+                                                           frames)
                 # the GEMM's own floor, not the function's bound: 2 T n_fft
                 # n_bins fp32 FMAs (re and im), 2 FLOP each
                 record["gemm_fp32_floor_ms"][f"{n_fft}/{hop}"] = (
                     4.0 * frames * n_fft * n_bins / FP32_FLOP_PER_S * 1e3)
             del xs, off, decoded, a
-    main_case = cases["384/192/int16"]  # sp-bfp5 and sp-bfp6: int16 after the bfp decode
-    gemm_row = {
-        "name": "dft_magnitude_gemm", "route": "cuda",
-        "source": "orcai_tpu_torch/csrc/dft_gemm.cu",
-        "replaces": "orcai_tpu/ops/pallas_dft.py:67",
-        "max_abs_err": max(v for k, v in record["max_abs_err"].items()
-                           if not k.startswith("512/")),
-        **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "shape": "B1's GEMM route (every n_fft but 512): ms etc. at n_fft 384 / hop 192 "
-                 "(the sp-bfp5 and sp-bfp6 wires), a 32768-frame int16 tile x 193 bins; "
-                 f"the *_normalize_tile_* and *_stats_tile_* keys: streamed sp-bfp5's "
-                 f"{CHUNK_TILE}- and {STATS_TILE}-frame tiles at 384 / 192; "
-                 "cases: every size and type the wires phase held, library_ms: "
-                 "torch.stft(...).abs() at the same n_fft",
-        **streaming,
-        "cases": {k: v for k, v in cases.items() if v["route"] == "gemm"},
-    }
+
+    def row(name, source, route, main_key, shape):
+        main = cases[main_key]
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": "orcai_tpu/ops/pallas_dft.py:67",
+            "max_abs_err": max(v for k, v in record["max_abs_err"].items()
+                               if dft_route(int(k.split("/")[0])) == route),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "shape": shape,
+            "cases": {k: v for k, v in cases.items() if v["route"] == route},
+        }
+
+    mixed_row = row(
+        "dft_magnitude_mixed", "orcai_tpu_torch/csrc/dft_mixed.cu", "mixed", "384/192/int16",
+        "B1's mixed-radix route (every {2,3,5,7,11}-smooth n_fft up to 2048 but 512): ms "
+        "etc. at n_fft 384 / hop 192 (the sp-bfp5 and sp-bfp6 wires), a 32768-frame int16 "
+        "tile x 193 bins; the *_normalize_tile_* and *_stats_tile_* keys: streamed "
+        f"sp-bfp5's {CHUNK_TILE}- and {STATS_TILE}-frame tiles at 384 / 192; cases: every "
+        "size and type held, gemm_ms: the GEMM kernel called directly at the same n_fft, "
+        "library_ms: torch.stft(...).abs() at the same n_fft")
+    mixed_row.update(streaming)
+    gemm_row = row(
+        "dft_magnitude_gemm", "orcai_tpu_torch/csrc/dft_gemm.cu", "gemm", "416/208/int16",
+        "B1's GEMM route (an n_fft with a prime factor of 13 or more, or above 2048): ms "
+        "etc. at n_fft 416 / hop 208, a 32768-frame int16 tile x 209 bins; its times at "
+        "the mixed route's sizes: gemm_ms in that row's cases")
     record["fft_route_uint8"] = {k: v for k, v in cases.items() if v["route"] == "fft"}
-    return record, gemm_row
+    record["seconds"] = time.perf_counter() - t_start
+    return record, mixed_row, gemm_row
+
+
+def _gemm_route_path(torch, tmp: Path, seed: int, total: dict) -> dict:
+    """The GEMM route through an entry point: create-spectrograms through
+    the CLI on cuda on a one-minute synthetic project with the default
+    parameter file at nfft 416 / n_overlap 208 (416 = 2^5 * 13), 1 / 3 / 3
+    launches; the stored spectrogram against the port's CPU path."""
+    import contextlib as ctx
+    import io
+
+    import numpy as np
+
+    from orcai_tpu_torch import __main__ as cli
+    from orcai_tpu_torch.io.jsonio import read_json, write_json
+    from orcai_tpu_torch.io.zarrlite import open_zarr
+    from orcai_tpu_torch.ops.frontend import compute_spectrogram_device
+    from orcai_tpu_torch.pipeline.spectrogram import load_recording_audio
+    from orcai_tpu_torch.resources import DEFAULT_ORCAI_PARAMETER
+    from orcai_tpu_torch.tools.synthetic import make_synthetic_project
+
+    root = tmp / "gemm_route"
+    table = make_synthetic_project(root, 1, 60.0, seed=seed)
+    param = read_json(DEFAULT_ORCAI_PARAMETER)
+    param["spectrogram"].update(nfft=416, n_overlap=208)
+    write_json(param, root / "param.json")
+    reset_counts()
+    t0 = time.perf_counter()
+    with ctx.redirect_stdout(io.StringIO()):
+        cli.main(["create-spectrograms", str(table), str(root / "data"), "-p",
+                  str(root / "param.json"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts(total)
+    check_counts(counts, 1, "create-spectrograms at nfft 416", route="gemm")
+    (rec,) = sorted((root / "data").iterdir())
+    stored = open_zarr(rec / "spectrogram" / "spectrogram.zarr")[:]
+    sp = param["spectrogram"]
+    audio = load_recording_audio(root / "recordings" / f"{rec.name}.wav", sp["sampling_rate"])
+    cpu, nf, _, _ = compute_spectrogram_device(
+        audio, sp["sampling_rate"], sp["nfft"], sp["n_overlap"], sp["freq_range"],
+        sp["quantiles"], device="cpu")
+    err = float(np.abs(cpu[:nf].numpy() - stored).max())
+    if stored.shape != (nf, cpu.shape[1]) or not err <= 2e-4:
+        raise AssertionError(f"create-spectrograms at nfft 416: store {stored.shape}, "
+                             f"{nf} frames, vs the CPU path {err} > 2e-4")
+    return {"wall_s": wall, "launches": counts, "frames_bins": list(stored.shape),
+            "stored_vs_cpu_max_abs_err": err}
 
 
 def _rows(path):
@@ -1570,10 +1687,12 @@ def _profiled_wire_costs(torch, prof, trace: Path) -> dict:
             "h2d_copies": len(copies), "bytes_uploaded": sum(e["args"]["bytes"] for e in copies)}
 
 
-def phase_wires(torch, tmp: Path, seed: int, state: dict, total: dict) -> tuple[dict, dict]:
+def phase_wires(torch, tmp: Path, seed: int, state: dict,
+                total: dict) -> tuple[dict, dict, dict]:
     """The coded and spectral wires on the card: B1 at their sizes and types,
-    golden through each, the 20-minute recording in memory and streamed, and
-    the host C codecs. Returns (the phase line, the GEMM route's row)."""
+    golden through each, the GEMM route through create-spectrograms, the
+    20-minute recording in memory and streamed, and the host C codecs.
+    Returns (the phase line, the mixed and the GEMM route's rows)."""
     import numpy as np
 
     from orcai_tpu_torch import native
@@ -1588,7 +1707,8 @@ def phase_wires(torch, tmp: Path, seed: int, state: dict, total: dict) -> tuple[
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
     line = {"phase": "wires"}
-    line["b1"], gemm_row = _b1_wire_checks(torch, np.random.default_rng(seed + 6), dev)
+    line["b1"], mixed_row, gemm_row = _b1_wire_checks(
+        torch, np.random.default_rng(seed + 6), dev)
 
     # golden through every coded wire, on the card, against the reference's bars
     predictor, sp = state["predictor"], state["param"]["spectrogram"]
@@ -1610,6 +1730,7 @@ def phase_wires(torch, tmp: Path, seed: int, state: dict, total: dict) -> tuple[
                         "vs_exact": parity,
                         "contract_at_1_min": check_wire_parity(parity, 1.0)}
     line["golden"] = golden
+    line["gemm_route_create_spectrograms"] = _gemm_route_path(torch, tmp, seed, total)
 
     # the 20-minute recording in memory: the cost of each wire on this card
     audio, _ = load_wav_for_frontend(state["wav"], sr=sp["sampling_rate"])
@@ -1719,7 +1840,7 @@ def phase_wires(torch, tmp: Path, seed: int, state: dict, total: dict) -> tuple[
         raise AssertionError(f"native host codecs not loaded: {loaded}")
     line["native"] = loaded
     line["seconds"] = time.perf_counter() - t_phase
-    return line, gemm_row
+    return line, mixed_row, gemm_row
 
 
 def main(argv=None) -> int:
@@ -1763,10 +1884,10 @@ def main(argv=None) -> int:
             phase = "data_prep"
             emit(phase_data_prep(torch, Path(tmp), args.seed, total))
             phase = "wires"
-            line, gemm_row = phase_wires(torch, Path(tmp), args.seed, state, total)
+            line, mixed_row, gemm_row = phase_wires(torch, Path(tmp), args.seed, state, total)
             rows["dft_magnitude_fft"]["cases"] = line["b1"].pop("fft_route_uint8")
             rows = {"dft_magnitude_fft": rows["dft_magnitude_fft"],
-                    "dft_magnitude_gemm": gemm_row,
+                    "dft_magnitude_mixed": mixed_row, "dft_magnitude_gemm": gemm_row,
                     **{k: v for k, v in rows.items() if k != "dft_magnitude_fft"}}
             emit(line)
     except Exception as e:  # report the phase, then fail the run

@@ -5,8 +5,9 @@ Counterpart of orcai_tpu/ops/pallas_dft.py. The function is
 or uint8 mu-law audio (the mulaw8 wire's codes, decoded as
 ops/wire_codec.py::mulaw_decode_f32 does), at any n_fft that hop divides.
 
-`dft_magnitude` takes one of two CUDA routes for a CUDA tensor and runs the
-plain PyTorch version, `dft_magnitude_plain`, for a CPU tensor:
+`dft_magnitude` takes one of three CUDA routes for a CUDA tensor, chosen by
+n_fft alone (`dft_route`), and runs the plain PyTorch version,
+`dft_magnitude_plain`, for a CPU tensor:
 
 - the FFT route, csrc/dft_magnitude.cu, at n_fft in FFT_SIZES (512, the
   reference geometry): a batched FFT in shared memory, two real frames on
@@ -14,10 +15,15 @@ plain PyTorch version, `dft_magnitude_plain`, for a CPU tensor:
   afterwards. `_fft_pairs_reference` is that arithmetic step by step in
   PyTorch, with the kernel's tables (`fft_tables`) and index maps, so the
   algorithm is testable where no card is;
-- the GEMM route, csrc/dft_gemm.cu, at every other n_fft (the spectral
-  wires' 384 and 352 among them): the reference's own algorithm, a tiled
-  IEEE fp32 GEMM of the frames, read straight from the audio, with the
-  window-folded cos/sin matrices (`windowed_dft_mats`).
+- the mixed route, csrc/dft_mixed.cu, at every other n_fft up to
+  MIXED_MAX whose prime factors are all in MIXED_PRIMES (the spectral
+  wires' 384 and 352, and 256, 768, 704, 1024, 2048, ...): the same shape
+  with one Stockham pass per radix of `fft_plan(n_fft)` (16, 8, 4, 2, 3, 5,
+  7, 11). `_fft_mixed_reference` is its arithmetic step by step;
+- the GEMM route, csrc/dft_gemm.cu, at the n_fft neither FFT takes (a prime
+  factor of 13 or more, or above MIXED_MAX): the reference's own
+  algorithm, a tiled IEEE fp32 GEMM of the frames, read straight from the
+  audio, with the window-folded cos/sin matrices (`windowed_dft_mats`).
 
 The plain version computes the reference's GEMM with torch.matmul.
 `dft_magnitude.launches` counts every kernel launch and
@@ -36,6 +42,9 @@ from orcai_tpu_torch.ops import _build
 from orcai_tpu_torch.ops.wire_codec import mulaw_decode_f32
 
 FFT_SIZES = (512,)  # the sizes csrc/dft_magnitude.cu is instantiated for
+MIXED_PRIMES = (2, 3, 5, 7, 11)  # csrc/dft_mixed.cu's radices: these and 4, 8, 16
+MIXED_MAX = 2048  # the largest n_fft of the mixed route (its shared memory)
+ROUTES = ("fft", "mixed", "gemm")
 _DTYPE_CODES = {torch.float32: 0, torch.int16: 1, torch.uint8: 2}  # the kernels' dtype
 _RADIX = 8
 _SQRT_HALF = float(np.float32(np.sqrt(0.5)))
@@ -146,6 +155,16 @@ def dft_magnitude_plain(
     return torch.sqrt(re * re + im * im)
 
 
+def _fft4(re: list, im: list) -> tuple[list, list]:
+    """4-point DFT, natural order: sums and differences."""
+    s02r, s02i = re[0] + re[2], im[0] + im[2]
+    d02r, d02i = re[0] - re[2], im[0] - im[2]
+    s13r, s13i = re[1] + re[3], im[1] + im[3]
+    d13r, d13i = re[1] - re[3], im[1] - im[3]
+    return ([s02r + s13r, d02r + d13i, s02r - s13r, d02r - d13i],
+            [s02i + s13i, d02i - d13r, s02i - s13i, d02i + d13r])
+
+
 def _fft8(re: list, im: list) -> tuple[list, list]:
     """8-point DFT of eight complex tensors, outputs in natural order, with
     the kernel's operations: radix-2 on (n, n+4), the W8 twiddles, then two
@@ -159,19 +178,8 @@ def _fft8(re: list, im: list) -> tuple[list, list]:
     br[1], bi[1] = c * (br[1] + bi[1]), c * (bi[1] - br[1])
     br[2], bi[2] = bi[2], -br[2]
     br[3], bi[3] = c * (bi[3] - br[3]), -c * (br[3] + bi[3])
-
-    def fft4(xr, xi):
-        s02r, s02i = xr[0] + xr[2], xi[0] + xi[2]
-        d02r, d02i = xr[0] - xr[2], xi[0] - xi[2]
-        s13r, s13i = xr[1] + xr[3], xi[1] + xi[3]
-        d13r, d13i = xr[1] - xr[3], xi[1] - xi[3]
-        return (
-            [s02r + s13r, d02r + d13i, s02r - s13r, d02r - d13i],
-            [s02i + s13i, d02i - d13r, s02i - s13i, d02i + d13r],
-        )
-
-    er, ei = fft4(ar, ai)  # X[0], X[2], X[4], X[6]
-    odr, odi = fft4(br, bi)  # X[1], X[3], X[5], X[7]
+    er, ei = _fft4(ar, ai)  # X[0], X[2], X[4], X[6]
+    odr, odi = _fft4(br, bi)  # X[1], X[3], X[5], X[7]
     out_r = [None] * 8
     out_i = [None] * 8
     for k1 in range(4):
@@ -231,27 +239,254 @@ def _fft_pairs_reference(
     return torch.stack([mag_a, mag_b], dim=1).reshape(-1, n_fft // 2 + 1)[:tpad]
 
 
+def fft_plan(n_fft: int) -> tuple[int, ...]:
+    """The mixed route's radices for n_fft, in the order its Stockham passes
+    run: the power-of-two part 2^a in the fewest passes of radix at most 16,
+    split as evenly as possible with the larger radices first, then 3, 5, 7
+    and 11 (384 -> 16, 8, 3; 352 -> 8, 4, 11; 1024 -> 16, 8, 8). Raises for
+    an n_fft the route does not take."""
+    if not 2 <= n_fft <= MIXED_MAX:
+        raise ValueError(f"n_fft {n_fft}: the mixed route takes 2 to {MIXED_MAX}")
+    n, a = n_fft, 0
+    while n % 2 == 0:
+        n //= 2
+        a += 1
+    passes = -(-a // 4)
+    plan = [1 << (a // passes + (i < a % passes)) for i in range(passes)] if a else []
+    for r in MIXED_PRIMES[1:]:
+        while n % r == 0:
+            plan.append(r)
+            n //= r
+    if n != 1:
+        raise ValueError(f"n_fft {n_fft} has a prime factor outside {MIXED_PRIMES}")
+    return tuple(plan)
+
+
+@lru_cache(maxsize=None)
+def _odd_roots(radix: int) -> tuple[np.ndarray, np.ndarray]:
+    """cos and sin of 2 pi m / radix for m = 1 .. (radix - 1) / 2, float64
+    rounded once to float32: the constants of csrc/dft_mixed.cu's odd
+    butterflies."""
+    m = np.arange(1, (radix - 1) // 2 + 1)
+    ang = 2.0 * np.pi * m / radix
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+# cos and sin of 2 pi m / 16 for the radix-16 twiddles W16^m, m = n2 * k1 < 10:
+# float64 rounded once to float32, the zeros of cos(pi/2) and sin(pi) exact
+_C16, _S16 = (np.where(np.abs(v) < 1e-12, 0.0, v).astype(np.float32)
+              for v in (np.cos(2.0 * np.pi * np.arange(10) / 16),
+                        np.sin(2.0 * np.pi * np.arange(10) / 16)))
+
+
+def _dft_small(radix: int, re: list, im: list) -> tuple[list, list]:
+    """radix-point DFT of `radix` complex tensors, outputs in natural order,
+    with the kernel's operations: 2 and 4 as sums and differences, 8 by
+    `_fft8`, 16 as 4 x 4 (a 4-point DFT over n1 of x[4 n1 + n2] for each
+    n2, times W16^(n2 k1), a 4-point DFT over n2 giving X[k1 + 4 k2]), an odd
+    radix directly over symmetric pairs: X[k] = A_k - i B_k,
+    X[R-k] = A_k + i B_k with A_k = x0 + sum_n cos(2 pi nk/R) (x_n + x_R-n) and
+    B_k = sum_n sin(2 pi nk/R) (x_n - x_R-n), n = 1 .. (R-1)/2."""
+    if radix == 8:
+        return _fft8(re, im)
+    if radix == 2:
+        return [re[0] + re[1], re[0] - re[1]], [im[0] + im[1], im[0] - im[1]]
+    if radix == 4:
+        return _fft4(re, im)
+    if radix == 16:
+        cols = [_fft4(re[n2::4], im[n2::4]) for n2 in range(4)]  # [n2] -> (re, im)[k1]
+        out_r, out_i = [None] * 16, [None] * 16
+        for k1 in range(4):
+            col_r, col_i = [], []
+            for n2 in range(4):
+                vr, vi = cols[n2][0][k1], cols[n2][1][k1]
+                if n2 and k1:  # times exp(-2 pi i m / 16)
+                    c, s = float(_C16[n2 * k1]), float(_S16[n2 * k1])
+                    vr, vi = vr * c + vi * s, vi * c - vr * s
+                col_r.append(vr)
+                col_i.append(vi)
+            xr, xi = _fft4(col_r, col_i)
+            for k2 in range(4):
+                out_r[k1 + 4 * k2], out_i[k1 + 4 * k2] = xr[k2], xi[k2]
+        return out_r, out_i
+    half = (radix - 1) // 2
+    cos, sin = (torch.from_numpy(a.copy()) for a in _odd_roots(radix))
+    sr = [re[n] + re[radix - n] for n in range(1, half + 1)]
+    si = [im[n] + im[radix - n] for n in range(1, half + 1)]
+    dr = [re[n] - re[radix - n] for n in range(1, half + 1)]
+    di = [im[n] - im[radix - n] for n in range(1, half + 1)]
+    out_r, out_i = [None] * radix, [None] * radix
+    out_r[0], out_i[0] = re[0], im[0]
+    for n in range(half):
+        out_r[0], out_i[0] = out_r[0] + sr[n], out_i[0] + si[n]
+    for k in range(1, half + 1):
+        ar, ai, br, bi = re[0], im[0], 0.0, 0.0
+        for n in range(1, half + 1):
+            m = n * k % radix  # cos(2 pi m / R) and sin, folded to m <= (R-1)/2
+            c, sgn = (cos[m - 1], 1.0) if m <= half else (cos[radix - m - 1], -1.0)
+            s = sgn * (sin[m - 1] if m <= half else sin[radix - m - 1])
+            ar, ai = ar + c * sr[n - 1], ai + c * si[n - 1]
+            br, bi = br + s * dr[n - 1], bi + s * di[n - 1]
+        out_r[k], out_i[k] = ar + bi, ai - br
+        out_r[radix - k], out_i[radix - k] = ar - bi, ai + br
+    return out_r, out_i
+
+
+def _fft_mixed_reference(
+    padded: torch.Tensor, window: np.ndarray, *, n_fft: int, hop: int
+) -> torch.Tensor:
+    """csrc/dft_mixed.cu's arithmetic, pass by pass, in float32 PyTorch.
+
+    Frames t and t+1 (t even) become one complex signal z = w*x_t + i*w*x_t+1.
+    Its n_fft-point FFT runs one Stockham pass per radix R of fft_plan(n_fft),
+    Ns the product of the earlier radices: butterfly j < n_fft/R reads
+    z[j + r*n_fft/R], r = 0..R-1, multiplies by tw[r * (j % Ns) * n_fft /
+    (Ns*R)] (tw from fft_tables), takes an R-point DFT (`_dft_small`) and
+    writes z'[(j // Ns) * Ns*R + j % Ns + r*Ns], which leaves the last pass
+    in natural order. Then X_t[k] = (Z[k] + conj Z[(N-k) % N]) / 2 and
+    X_t+1[k] = (Z[k] - conj Z[(N-k) % N]) / 2i for k <= N/2, and the
+    magnitudes; odd N works unchanged.
+    """
+    plan = fft_plan(n_fft)
+    tpad = _frames_count(padded.shape[0], n_fft, hop)
+    win, tw = (torch.from_numpy(a.copy()) for a in fft_tables(_check_window(window, n_fft)))
+    frames = _to_f32(padded).unfold(0, n_fft, hop)  # (tpad, n_fft) view
+    if tpad % 2:
+        frames = torch.cat([frames, torch.zeros(1, n_fft)])
+    zr = frames[0::2] * win
+    zi = frames[1::2] * win
+    ns = 1
+    for radix in plan:
+        nb = n_fft // radix
+        j = torch.arange(nb)
+        jm = j % ns
+        in_r, in_i = [], []
+        for r in range(radix):
+            vr, vi = zr[:, j + r * nb], zi[:, j + r * nb]
+            if ns > 1 and r > 0:
+                t = tw[r * jm * (n_fft // (ns * radix))]
+                vr, vi = vr * t[:, 0] - vi * t[:, 1], vr * t[:, 1] + vi * t[:, 0]
+            in_r.append(vr)
+            in_i.append(vi)
+        out_r, out_i = _dft_small(radix, in_r, in_i)
+        base = (j // ns) * (ns * radix) + jm
+        zr, zi = torch.empty_like(zr), torch.empty_like(zi)
+        for r in range(radix):
+            zr[:, base + r * ns] = out_r[r]
+            zi[:, base + r * ns] = out_i[r]
+        ns *= radix
+    k = torch.arange(n_fft // 2 + 1)
+    mirror = (n_fft - k) % n_fft
+    yr, yi = zr[:, mirror], zi[:, mirror]
+    zr, zi = zr[:, k], zi[:, k]
+    mag_a = 0.5 * torch.sqrt((zr + yr) ** 2 + (zi - yi) ** 2)
+    mag_b = 0.5 * torch.sqrt((zi + yi) ** 2 + (zr - yr) ** 2)
+    return torch.stack([mag_a, mag_b], dim=1).reshape(-1, n_fft // 2 + 1)[:tpad]
+
+
+# exchange layouts a + ((a >> s) << g); (0, 0) leaves a as it is
+_PADS = ((0, 0), *((s, g) for s in range(2, 9) for g in range(s - 1)))
+
+
+def _pad_address(addr: np.ndarray, pad: tuple[int, int]) -> np.ndarray:
+    s, g = pad
+    return addr + ((addr >> s) << g) if s else addr
+
+
+def _wavefronts(addr: np.ndarray) -> int:
+    """Shared-memory wavefronts of warp-wide 8-byte accesses, one row of 32
+    lane addresses (float2 units, -1 for an idle lane) per instruction: each
+    half-warp takes as many as the most distinct addresses that share a
+    bank pair (address mod 16); a repeated address is one broadcast."""
+    halves = np.sort(addr.reshape(-1, 16), axis=1)
+    first = np.ones_like(halves, dtype=bool)
+    first[:, 1:] = halves[:, 1:] != halves[:, :-1]
+    keep = first & (halves >= 0)
+    counts = np.zeros((halves.shape[0], 16), dtype=np.int64)
+    np.add.at(counts, (np.nonzero(keep)[0], halves[keep] % 16), 1)
+    return int(counts.max(axis=1).sum())
+
+
+def _exchange_accesses(n_fft: int, plan: tuple[int, ...]) -> list[tuple[np.ndarray, np.ndarray]]:
+    """For each pass of `plan`: (its writes, the reads of the buffer it
+    writes by the next pass or the untangle), as rows of 32 lane addresses,
+    -1 for an idle lane. Lane l takes butterflies (and bins) l, l + 32, ..."""
+    def rows(count):
+        idx = np.arange(-(-count // 32) * 32).reshape(-1, 32)
+        return idx, idx >= count
+
+    passes, ns = [], 1
+    for radix in plan:
+        nb = n_fft // radix
+        j, idle = rows(nb)
+        r = np.arange(radix)[None, :, None]
+        reads = np.where(idle[:, None, :], -1, j[:, None, :] + r * nb)
+        writes = np.where(idle[:, None, :], -1, (j // ns * ns * radix + j % ns)[:, None, :] + r * ns)
+        passes.append((reads.reshape(-1, 32), writes.reshape(-1, 32)))
+        ns *= radix
+    k, idle = rows(n_fft // 2 + 1)
+    untangle = np.concatenate([np.where(idle, -1, k), np.where(idle, -1, (n_fft - k) % n_fft)])
+    nexts = [reads for reads, _ in passes[1:]] + [untangle]
+    return [(writes, nxt) for (_, writes), nxt in zip(passes, nexts)]
+
+
+@lru_cache(maxsize=None)
+def exchange_pads(n_fft: int, plan: tuple[int, ...] | None = None) -> tuple[tuple[int, int], ...]:
+    """For each pass of `plan` (default fft_plan(n_fft)), the layout (s, g)
+    of the exchange buffer it writes, a complex value z[a] at
+    a + ((a >> s) << g) ((0, 0): at a): of _PADS the one of fewest
+    wavefronts over that pass's writes and the next reads
+    (`_exchange_accesses`), the least padding on a tie."""
+    def cost(accesses, pad):
+        return sum(_wavefronts(np.where(a >= 0, _pad_address(a, pad), -1)) for a in accesses)
+
+    return tuple(
+        min(_PADS, key=lambda pad: (cost(acc, pad), (n_fft >> pad[0]) << pad[1] if pad[0] else 0))
+        for acc in _exchange_accesses(n_fft, plan or fft_plan(n_fft)))
+
+
+def pack_plan(plan: tuple[int, ...], pads: tuple[tuple[int, int], ...]):
+    """A plan as the mixed kernel takes it, int32 on the host:
+    [P, R_1..R_P, s_1..s_P, g_1..g_P] (radices, then exchange layouts)."""
+    values = (len(plan), *plan, *(s for s, _ in pads), *(g for _, g in pads))
+    return (ctypes.c_int * len(values))(*values)
+
+
+@lru_cache(maxsize=None)
+def _plan_array(n_fft: int):
+    """fft_plan(n_fft) with exchange_pads(n_fft), packed (pack_plan)."""
+    return pack_plan(fft_plan(n_fft), exchange_pads(n_fft))
+
+
 @lru_cache(maxsize=None)
 def _kernel(route: str):
-    """The C entry point of a route's library: (audio, dtype, table_a,
-    table_b, out, n_frames, n_fft, hop, stream) -> CUDA error code. The FFT
-    route's tables are the window and the roots of unity, the GEMM route's
-    the window-folded C and S."""
+    """The C entry point of a route's library, returning a CUDA error code.
+    FFT and GEMM: (audio, dtype, table_a, table_b, out, n_frames, n_fft, hop,
+    stream), the FFT route's tables the window and the roots of unity, the
+    GEMM route's the window-folded C and S. Mixed: (audio, dtype, window,
+    roots, plan, out, n_frames, n_fft, hop, stream), plan from _plan_array."""
     lib, name = {"fft": ("dft_magnitude", "orcai_dft_magnitude"),
+                 "mixed": ("dft_mixed", "orcai_dft_mixed"),
                  "gemm": ("dft_gemm", "orcai_dft_gemm")}[route]
     fn = getattr(_build.load(lib), name)
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    plan = [ctypes.POINTER(ctypes.c_int)] if route == "mixed" else []
+    fn.argtypes = [ptr, i32, ptr, ptr, *plan, ptr, i32, i32, i32, ptr]
     fn.restype = ctypes.c_int
     return fn
 
 
 def dft_route(n_fft: int) -> str:
-    """The CUDA route of an n_fft: "fft" for FFT_SIZES, "gemm" otherwise."""
-    return "fft" if n_fft in FFT_SIZES else "gemm"
+    """The CUDA route of an n_fft: "fft" for FFT_SIZES; "mixed" for any
+    other n_fft from 2 to MIXED_MAX whose prime factors are in MIXED_PRIMES;
+    "gemm" otherwise."""
+    if n_fft in FFT_SIZES:
+        return "fft"
+    try:
+        fft_plan(n_fft)
+    except ValueError:
+        return "gemm"
+    return "mixed"
 
 
 def dft_magnitude(
@@ -262,9 +497,8 @@ def dft_magnitude(
     `padded` holds (T - 1) * hop + n_fft samples, float32, int16 (scaled
     to [-1, 1]) or uint8 mu-law codes; `window` is the (n_fft,) float64
     analysis window on the host; hop must divide n_fft. A CUDA tensor goes
-    to the FFT kernel at n_fft in FFT_SIZES and to the GEMM kernel at any
-    other n_fft; a CPU tensor goes to dft_magnitude_plain. Anything else
-    raises.
+    to the kernel of dft_route(n_fft); a CPU tensor goes to
+    dft_magnitude_plain. Anything else raises.
     """
     if padded.device.type == "cpu":
         return dft_magnitude_plain(padded, window, n_fft=n_fft, hop=hop)
@@ -280,14 +514,15 @@ def dft_magnitude(
     if padded.device.type != "cuda":
         raise ValueError(f"dft_magnitude: unsupported device {padded.device}")
     route = dft_route(n_fft)
-    tables = _tables_on_device if route == "fft" else _mats_on_device
+    tables = _mats_on_device if route == "gemm" else _tables_on_device
     a, b = tables(window.tobytes(), padded.device)
+    plan = (_plan_array(n_fft),) if route == "mixed" else ()
     out = torch.empty((tpad, n_fft // 2 + 1), dtype=torch.float32, device=padded.device)
     with torch.cuda.device(padded.device):
         stream = torch.cuda.current_stream(padded.device).cuda_stream
         err = _kernel(route)(
             padded.data_ptr(), _DTYPE_CODES[padded.dtype], a.data_ptr(),
-            b.data_ptr(), out.data_ptr(), tpad, n_fft, hop, stream,
+            b.data_ptr(), *plan, out.data_ptr(), tpad, n_fft, hop, stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -298,4 +533,4 @@ def dft_magnitude(
 
 
 dft_magnitude.launches = 0
-dft_magnitude.route_launches = {"fft": 0, "gemm": 0}
+dft_magnitude.route_launches = dict.fromkeys(ROUTES, 0)

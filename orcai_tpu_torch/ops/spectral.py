@@ -19,8 +19,8 @@ identical spectrogram grid:
 
 What remains is the resampler's in-band ripple and the alias fold near the
 new Nyquist, both held about 55 dB down by the tap design below. Kernel B1
-runs the regridded geometry through its GEMM route (n_fft 384 and 352 are
-no power of 8; ops/dft.py).
+runs the regridded geometry through its mixed-radix FFT route (384 = 8*8*2*3,
+352 = 8*4*11; csrc/dft_mixed.cu, ops/dft.py::dft_route).
 
 The hot loop runs in C (native/resample.c) with a bit-exact numpy path
 here: both accumulate int32 Q15 products in ascending tap order, so they

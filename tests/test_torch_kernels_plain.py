@@ -25,12 +25,23 @@ from orcai_tpu.ops.pallas_hist import (
     select_order_statistics as jax_select,
 )
 from orcai_tpu.ops.wire_codec import mulaw_decode_host, mulaw_encode
+from orcai_tpu_torch.ops import _build
 from orcai_tpu_torch.ops.dft import (
+    _C16,
+    _S16,
     FFT_SIZES,
+    MIXED_MAX,
+    _exchange_accesses,
+    _fft_mixed_reference,
     _fft_pairs_reference,
+    _odd_roots,
+    _pad_address,
+    _wavefronts,
     dft_magnitude,
     dft_magnitude_plain,
     dft_route,
+    exchange_pads,
+    fft_plan,
     fft_tables,
     windowed_dft_mats,
 )
@@ -146,12 +157,15 @@ def test_dft_wrapper_validates_geometry():
         dft_magnitude(torch.zeros(1024), WINDOW[:-1], n_fft=NFFT, hop=HOP)
 
 
-@pytest.mark.parametrize("n_fft,hop", [(1024, 256), (256, 128), (384, 128)])
+@pytest.mark.parametrize(
+    "n_fft,hop", [(1024, 256), (256, 128), (384, 128), (416, 208), (4096, 1024), (512, 256)])
 def test_dft_wrapper_names_supported_sizes(n_fft, hop):
     """Off the CPU every n_fft that hop divides has a kernel: 512 the FFT,
-    any other the GEMM. What no kernel takes raises and names what they
-    take; nothing routes it to the plain version."""
-    assert dft_route(n_fft) == "gemm" and dft_route(512) == "fft"
+    a {2, 3, 5, 7, 11}-smooth n_fft up to 2048 the mixed-radix FFT, any
+    other the GEMM. What no kernel takes raises and names what they take;
+    nothing routes it to the plain version."""
+    want = {512: "fft", 416: "gemm", 4096: "gemm"}.get(n_fft, "mixed")
+    assert dft_route(n_fft) == want and dft_route(512) == "fft"
     for dtype in (torch.float64, torch.int32, torch.bool):
         x = torch.zeros(3 * hop + n_fft, dtype=dtype, device="meta")
         with pytest.raises(ValueError, match="float32, int16 or uint8"):
@@ -244,6 +258,155 @@ def test_fft_reference_is_closer_to_float64_than_the_gemm():
     err_gemm = np.abs(dft_magnitude_plain(x, WINDOW, n_fft=NFFT, hop=HOP).numpy() - want).max()
     assert err_fft <= err_gemm
     assert err_fft <= 2e-5  # magnitudes up to ~40: a few float32 ulps
+
+
+MIXED_SIZES = [(384, 192), (352, 176), (768, 384), (704, 352), (1024, 256), (256, 128),
+               (2048, 512), (375, 125)]
+
+
+def _smooth(n):
+    for p in (2, 3, 5, 7, 11):
+        while n % p == 0:
+            n //= p
+    return n == 1
+
+
+def test_dft_route_and_fft_plan_cover_the_smooth_sizes():
+    """dft_route sends 512 to the FFT route, every other {2, 3, 5, 7,
+    11}-smooth n_fft from 2 to 2048 to the mixed route, and the rest (a
+    prime factor of 13 or more, or over 2048) to the GEMM; fft_plan's
+    radices multiply back to n_fft: the power-of-two part first, in the
+    fewest passes of radix 16 at most, split as evenly as possible with the
+    larger radices first, then the odd primes in ascending order."""
+    assert dft_route(512) == "fft"
+    for n in (384, 352, 768, 704, 1024, 256, 2048, 375):
+        assert dft_route(n) == "mixed"
+    for n in (416, 4096, 13, 2 * 2048, 1, 2053):
+        assert dft_route(n) == "gemm"
+    mixed = [n for n in range(1, 4 * MIXED_MAX) if dft_route(n) == "mixed"]
+    assert mixed == [n for n in range(2, MIXED_MAX + 1) if _smooth(n) and n != 512]
+    for n in mixed + [512]:
+        plan = fft_plan(n)
+        assert int(np.prod(plan)) == n and set(plan) <= {2, 3, 4, 5, 7, 8, 11, 16}
+        twos = [r for r in plan if r in (2, 4, 8, 16)]
+        a = int(np.log2(np.prod(twos)))
+        assert list(plan) == twos + sorted(r for r in plan if r not in twos)
+        assert len(twos) == -(-a // 4) and twos == sorted(twos, reverse=True)
+        assert not twos or twos[0] <= 2 * twos[-1]
+    assert fft_plan(384) == (16, 8, 3) and fft_plan(352) == (8, 4, 11)
+    assert fft_plan(1024) == (16, 8, 8) and fft_plan(375) == (3, 5, 5, 5)
+    for n in (416, 4096, 1):
+        with pytest.raises(ValueError):
+            fft_plan(n)
+
+
+@pytest.mark.parametrize("n_fft,hop", MIXED_SIZES)
+@pytest.mark.parametrize("tpad", [64, 37])
+@pytest.mark.parametrize("dtype", ["f32", "int16", "uint8"])
+def test_fft_mixed_reference_matches_pallas_and_float64(n_fft, hop, tpad, dtype):
+    """The mixed route's arithmetic (two frames per complex FFT, one
+    Stockham pass per radix of fft_plan with the kernel's tables, index
+    maps and butterfly constants, untangle) against the Pallas kernel in
+    interpret mode and numpy's float64 rfft, atol 2e-4 (the reference
+    suite's DFT bar), at an even and an odd frame count; odd N included."""
+    rng = np.random.default_rng(n_fft + tpad)
+    n = (tpad - 1) * hop + n_fft
+    pcm = rng.integers(-32768, 32768, n, dtype=np.int16)
+    padded = {"f32": (0.3 * rng.standard_normal(n)).astype(np.float32), "int16": pcm,
+              "uint8": mulaw_encode(pcm)}[dtype]
+    window = port_hann_window(n_fft)
+    got = _fft_mixed_reference(torch.from_numpy(padded), window, n_fft=n_fft, hop=hop)
+    assert got.shape == (tpad, n_fft // 2 + 1) and got.dtype == torch.float32
+    as_f64 = {"f32": padded.astype(np.float64), "int16": pcm / 32768.0,
+              "uint8": mulaw_decode_host(padded) / 32768.0}[dtype]
+    frames = np.stack([as_f64[i * hop : i * hop + n_fft] * window for i in range(tpad)])
+    np.testing.assert_allclose(got.numpy(), np.abs(np.fft.rfft(frames, axis=1)), atol=2e-4, rtol=0)
+    tile = 32
+    padded_jax = np.pad(padded, (0, (-(-tpad // tile) * tile - tpad) * hop))
+    ref = _pallas(padded_jax, n_fft, hop, tile)[:tpad]
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-4, rtol=0)
+
+
+@pytest.mark.parametrize("n_fft,hop", MIXED_SIZES)
+def test_fft_mixed_reference_of_codes_is_of_their_int16_decode(n_fft, hop):
+    """Codes and their host decode to int16 are the same float samples
+    through the mixed route's arithmetic: bit-equal."""
+    rng = np.random.default_rng(n_fft)
+    codes = mulaw_encode(rng.integers(-32768, 32768, 37 * hop + n_fft, dtype=np.int16))
+    window = port_hann_window(n_fft)
+    a = _fft_mixed_reference(torch.from_numpy(codes), window, n_fft=n_fft, hop=hop)
+    b = _fft_mixed_reference(torch.from_numpy(mulaw_decode_host(codes)), window,
+                             n_fft=n_fft, hop=hop)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_fft,hop", [(384, 192), (352, 176)])
+def test_fft_mixed_reference_is_no_farther_from_float64_than_the_gemm(n_fft, hop):
+    """An 11-point direct DFT rounds more than a radix-8 one, but the
+    mixed FFT's few roundings an output still beat the n_fft-term fp32
+    dot against the float64 rfft, as at 512."""
+    rng = np.random.default_rng(n_fft)
+    tpad = 32
+    padded = rng.standard_normal((tpad - 1) * hop + n_fft).astype(np.float32)
+    x = torch.from_numpy(padded)
+    window = port_hann_window(n_fft)
+    frames = np.stack([padded[i * hop : i * hop + n_fft] * window for i in range(tpad)])
+    want = np.abs(np.fft.rfft(frames, axis=1))
+    err_fft = np.abs(_fft_mixed_reference(x, window, n_fft=n_fft, hop=hop).numpy() - want).max()
+    err_gemm = np.abs(dft_magnitude_plain(x, window, n_fft=n_fft, hop=hop).numpy() - want).max()
+    assert err_fft <= err_gemm
+    assert err_fft <= 2e-5
+
+
+def test_mixed_kernel_constants_are_the_reference_s():
+    """The butterflies' float32 constants written in csrc/dft_mixed.cu (the
+    odd radices' roots, radix 16's W16 twiddles) are those of the reference
+    (_odd_roots, _C16, _S16): float64 values rounded once."""
+    import re
+
+    src = (_build.CSRC / "dft_mixed.cu").read_text()
+    for fn, col in (("root_cos", 0), ("root_sin", 1)):
+        body = src[src.index(f"float {fn}(int R, int m)"):]
+        body = body[:body.index("return 0.0f;")]
+        got = {(int(r), int(m)): np.float32(v) for r, m, v in re.findall(
+            r"case (\d+) \* 16 \+ (\d+): return (-?[0-9.]+)f;", body)}
+        want = {(r, m + 1): v for r in (3, 5, 7, 11) for m, v in enumerate(_odd_roots(r)[col])}
+        assert got == want
+    for name, want in (("wc", _C16), ("ws", _S16)):
+        table = re.search(rf"const float {name}\[10\] = {{([^}}]*)}};", src).group(1)
+        got = np.array([float(v.strip().rstrip("f")) for v in table.split(",")], np.float32)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_exchange_pads_leave_no_bank_conflict_at_the_main_sizes():
+    """The layouts the host picks for the mixed kernel's exchange buffers
+    (a + ((a >> s) << g)) give each warp access its fewest shared-memory
+    wavefronts at 256, 384, 768, 1024 and 2048, within 10 % of that at 352
+    and 704, and never more than no padding."""
+    for n, slack in ((256, 0), (384, 0), (768, 0), (1024, 0), (2048, 0), (352, 0.1), (704, 0.1)):
+        got = ideal = bare = 0
+        for accesses, pad in zip(_exchange_accesses(n, fft_plan(n)), exchange_pads(n)):
+            for addr in accesses:
+                got += _wavefronts(np.where(addr >= 0, _pad_address(addr, pad), -1))
+                bare += _wavefronts(addr)
+                ideal += int((addr.reshape(-1, 16) >= 0).any(axis=1).sum())
+        assert ideal <= got <= (1 + slack) * ideal and got <= bare, (n, got, ideal, bare)
+
+
+def test_b1_tools_plans_and_refusal_without_a_card():
+    """tools/bench_dft_plans.py's radix-8 plans multiply back to n_fft; it
+    and tools/time_b1_routes.py stop without a card instead of timing the
+    CPU."""
+    from orcai_tpu_torch.tools import bench_dft_plans, time_b1_routes
+
+    assert bench_dft_plans.radix8_plan(384) == (8, 8, 2, 3)
+    assert bench_dft_plans.radix8_plan(1024) == (8, 8, 8, 2)
+    for n, _ in bench_dft_plans.SIZES:
+        assert int(np.prod(bench_dft_plans.radix8_plan(n))) == n
+    assert bench_dft_plans.radix8_plan(352) == fft_plan(352)
+    for tool in (bench_dft_plans, time_b1_routes):
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            tool.main([])
 
 
 @pytest.fixture(scope="module")
