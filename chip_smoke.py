@@ -102,6 +102,42 @@ Phases, each printing one JSON line and failing the run on any error:
            launches, the two TSVs byte-equal, the aggregate held to the
            in-memory one of the same wire); the host C codecs loaded
 
+  hpsearch  Hyperband (train/hpsearch.py) over default_hps_parameter.json at
+           its full widths (filter sets 10-40, 20-50, 30-60, LSTM 64/128,
+           dropout 0.3/0.4/0.5, kernel 3/5/7, batch 64, 736 x 171 x 1, 7
+           labels) with the default parameter file at seed 7, on the train
+           phase's 512 / 128 snippets (8 steps an epoch), max_epochs 4 and
+           factor 2: 3 brackets, 14 rung-trials, 28 trial-epochs, promotions
+           carrying weights; each trial's epoch walls and peak device memory;
+           the same call again, every trial CACHED and the outputs equal but
+           the status column; golden through the best model's directory (B1
+           1, B2 3, pick 3 launches)
+  first_epoch  where a first epoch's extra wall goes
+           (tools/profile_first_epoch.py): in this process, a shape of the
+           search space that no trial ran, the same shape in a fresh model,
+           and a second new shape under torch.profiler, each trained two
+           resident epochs with build, move, init, the first step's stages,
+           the other steps and the evaluation timed and the allocator's
+           counters read; then orcai-v1's width in four fresh processes that
+           trained nothing before (as it is, under torch.profiler, with the
+           weight initialiser's and Adam's first calls timed apart, and after
+           predicting the 20-minute recording)
+  bf16     predict with ORCAI_TPU_PREDICT_DTYPE=bf16: golden in memory and
+           streamed byte-equal to golden_expected.txt (1 / 3 / 3 and 4 / 3
+           launches), the 20-minute cell's warm wall beside float32's and
+           its aggregated probabilities' distance from float32's
+  bf16_train  `train` with compute_dtype bfloat16 at orcai-v1's width, batch
+           64, one epoch: warm step ms, peak memory, the loss beside the
+           float32 run's; the saved weights float32 and loaded back
+  architectures  ResNet1DConv and ResNetTCN at orcai-v1's widths: two
+           resident epochs through `train`, warm step ms, peak memory, the
+           forward on the card against the CPU (2e-5), golden through the
+           trained directory (1 / 3 / 3)
+  warmup_serve  `python -m orcai_tpu_torch warmup --minutes 1`, then `serve`
+           over a folder holding golden in a cold process and in one given
+           --warm_minutes 1: both TSVs byte-equal to golden's, the warm-up's
+           wall and each first file's latency
+
 Then one {"selection": {...}} line, one {"kernels": [...]} line (B1 as three
 rows, its FFT, mixed-radix and GEMM routes), the card's `name, power.limit` from
 nvidia-smi, and last {"ok": true, "device": {...}}. Exits non-zero, with no
@@ -114,6 +150,7 @@ import argparse
 import contextlib
 import json
 import logging
+import math
 import os
 import shutil
 import statistics
@@ -955,6 +992,51 @@ def _one_step(torch, model, x, y, device):
     return float(loss.detach()), grads
 
 
+def _train_run(torch, data_dir: Path, out: Path, param: dict, kill_after: int | None = None,
+               **kwargs) -> tuple[Path, list[float]]:
+    """`train` into out/<name>; returns the model directory and each epoch's
+    wall (the first from the call). `kill_after` cuts the run with _Killed
+    at the end of that epoch."""
+    from orcai_tpu_torch.train.trainer import train
+
+    ends = []
+
+    def stamp(s, h, e, lr, c):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        if kill_after == e:
+            raise _Killed
+
+    begin = time.perf_counter()
+    train(data_dir, out, orcai_parameter=param, on_epoch_end=stamp, **kwargs)
+    torch.cuda.synchronize()
+    return out / param["name"], [b - a for a, b in zip([begin] + ends, ends)]
+
+
+def _finite_history(model_dir: Path, epochs: int) -> dict:
+    history = json.loads((model_dir / "training_history.json").read_text())
+    flat = [v for k in ("loss", "val_loss", "MBA", "val_MBA") for v in history[k]]
+    if len(history["loss"]) != epochs or not all(math.isfinite(v) for v in flat):
+        raise AssertionError(f"{model_dir.name}: history not finite over {epochs} epochs: "
+                             f"{history}")
+    return history
+
+
+def _steps_ms(torch, trainer, state, x, y, n: int = 10, warm: int = 2) -> list[float]:
+    """Device ms of each of n train steps on one batch, CUDA events around
+    each, after `warm` untimed ones."""
+    times = []
+    for i in range(n + warm):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.train_step(state, x, y)
+        end.record()
+        end.synchronize()
+        if i >= warm:
+            times.append(start.elapsed_time(end))
+    return times
+
+
 def phase_train(torch, tmp: Path, seed: int, state: dict, total: dict) -> tuple[dict, dict]:
     import copy
 
@@ -966,9 +1048,10 @@ def phase_train(torch, tmp: Path, seed: int, state: dict, total: dict) -> tuple[
     from orcai_tpu_torch.models import build_model
     from orcai_tpu_torch.pipeline.predict import predict
     from orcai_tpu_torch.resources import DEFAULT_ORCAI_PARAMETER
+    from orcai_tpu_torch.tools.profile_first_epoch import alloc_stats
     from orcai_tpu_torch.tools.synthetic import synth_tvt
     from orcai_tpu_torch.train.trainer import (
-        Trainer, device_runners, streaming_runners, train,
+        Trainer, device_runners, streaming_runners,
     )
     from orcai_tpu_torch.utils.seeds import SEED_ID_LOAD_TRAIN_DATA, SEED_ID_LOAD_VAL_DATA
 
@@ -986,30 +1069,16 @@ def phase_train(torch, tmp: Path, seed: int, state: dict, total: dict) -> tuple[
     batch = param["model"]["batch_size"]
 
     def run(name, **kwargs):
-        """`train` under `name`; returns (model dir, epoch-end times)."""
-        ends = []
-
-        def stamp(s, h, e, lr, c):
-            torch.cuda.synchronize()
-            ends.append(time.perf_counter())
-            if kwargs.get("kill_after") == e:
-                raise _Killed
-        extra = {k: v for k, v in kwargs.items() if k != "kill_after"}
-        begin = time.perf_counter()
-        train(data_dir, out, orcai_parameter={**param, "name": name}, on_epoch_end=stamp,
-              **extra)
-        torch.cuda.synchronize()
-        return out / name, [b - a for a, b in zip([begin] + ends, ends)]
+        return _train_run(torch, data_dir, out, {**param, "name": name}, **kwargs)
 
     # fresh weights, the data resident on the card
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    alloc_before = alloc_stats()
     whole_dir, epoch_walls = run("smoke-train")
+    alloc_after = alloc_stats()
     peak = torch.cuda.max_memory_allocated()
-    history = read_json(whole_dir / "training_history.json")
-    flat = [v for k in ("loss", "val_loss", "MBA", "val_MBA") for v in history[k]]
-    if len(history["loss"]) != TRAIN_EPOCHS or not np.isfinite(flat).all():
-        raise AssertionError(f"training history not finite over {TRAIN_EPOCHS} epochs: {history}")
+    history = _finite_history(whole_dir, TRAIN_EPOCHS)
     if not history["loss"][-1] < history["loss"][0]:
         raise AssertionError(f"training loss did not fall: {history['loss']}")
     weights = (whole_dir / "smoke-train.msgpack").read_bytes()
@@ -1047,7 +1116,7 @@ def phase_train(torch, tmp: Path, seed: int, state: dict, total: dict) -> tuple[
     train_ds = ArrayDataset.load(data_dir / "train_dataset")
     val_ds = ArrayDataset.load(data_dir / "val_dataset")
     seeds = ([SEED_ID_LOAD_TRAIN_DATA, seed], [SEED_ID_LOAD_VAL_DATA, seed])
-    runner_metrics, step_ms = {}, []
+    runner_metrics = {}
     for name in ("resident", "streaming"):
         model, _, _ = load_orcai_model(cut_dir, device="cuda")
         trainer = Trainer(model, TRAIN_LR, device="cuda")
@@ -1070,14 +1139,7 @@ def phase_train(torch, tmp: Path, seed: int, state: dict, total: dict) -> tuple[
     # warm step time on that trainer: CUDA events around each of 10 steps
     xb = torch.from_numpy(np.asarray(train_ds.x[:batch])).cuda()
     yb = torch.from_numpy(np.asarray(train_ds.y[:batch])).cuda()
-    for i in range(12):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        trainer.train_step(st, xb, yb)
-        end.record()
-        end.synchronize()
-        if i >= 2:
-            step_ms.append(start.elapsed_time(end))
+    step_ms = _steps_ms(torch, trainer, st, xb, yb)
 
     # the trained directory loads and predicts
     reset_counts()
@@ -1113,6 +1175,7 @@ def phase_train(torch, tmp: Path, seed: int, state: dict, total: dict) -> tuple[
         "phase": "train", "snippets": counts, "tvt_write_s": tvt_s, "batch_size": batch,
         "learning_rate": TRAIN_LR, "history": history,
         "epoch_wall_s_resident": epoch_walls, "epoch_wall_s_streaming": stream_walls,
+        "allocator_before_first_run": alloc_before, "allocator_after_first_run": alloc_after,
         "load_model_epoch": {k: v[0] for k, v in more.items()},
         "step_ms_median_warm": statistics.median(step_ms), "step_ms": step_ms,
         "peak_device_bytes": peak,
@@ -1127,7 +1190,9 @@ def phase_train(torch, tmp: Path, seed: int, state: dict, total: dict) -> tuple[
         "card_vs_cpu_gradient_diff_over_largest": grad_diff, "card_vs_cpu_rtol": CPU_STEP_RTOL,
         "cpu_step_s": cpu_step_s,
     }
-    return line, {"data_dir": data_dir, "model_dir": whole_dir, "batch": batch}
+    return line, {"data_dir": data_dir, "model_dir": whole_dir, "batch": batch, "seed": seed,
+                  "history": history, "step_ms": line["step_ms_median_warm"],
+                  "epoch_walls": epoch_walls}
 
 
 def phase_test_model(torch, tmp: Path, state: dict, trained: dict) -> dict:
@@ -1154,10 +1219,26 @@ def phase_test_model(torch, tmp: Path, state: dict, trained: dict) -> dict:
             walls.append(time.perf_counter() - t0)
         if sorted(p.name for p in out.iterdir()) != names:
             raise AssertionError(f"test_model wrote {sorted(p.name for p in out.iterdir())}")
+    # the u8 upload (native/quant.c on the host), at both slab sizes
+    for where, env in (("test_u8_a", {}),
+                       ("test_u8_b", {"ORCAI_TPU_EVAL_SLAB_BYTES": one_batch})):
+        with environ(ORCAI_TPU_EVAL_UPLOAD="u8", **env):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            test_model(trained["model_dir"], trained["data_dir"], output_dir=tmp / where)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
     for name in names:
         if (tmp / "test_a" / name).read_bytes() != (tmp / "test_b" / name).read_bytes():
             raise AssertionError(f"{name} differs with a slab of one batch")
+        if (tmp / "test_u8_a" / name).read_bytes() != (tmp / "test_u8_b" / name).read_bytes():
+            raise AssertionError(f"{name} differs with a slab of one batch on the u8 upload")
+    from orcai_tpu_torch import native
+
+    if native.quantize_linear_native(np.zeros(4, np.float32), np.uint8) is None:
+        raise AssertionError("the native quantizer did not load")
     metrics = json.loads((tmp / "test_a" / names[1]).read_text())
+    metrics_u8 = json.loads((tmp / "test_u8_a" / names[1]).read_text())
     if not (np.isfinite(metrics["loss"]) and 0.0 <= metrics["MBA"] <= 1.0):
         raise AssertionError(f"test metrics {metrics}")
     with open(tmp / "test_a" / names[0], newline="") as f:
@@ -1195,7 +1276,9 @@ def phase_test_model(torch, tmp: Path, state: dict, trained: dict) -> dict:
         raise AssertionError("dense trunk on the 20-minute recording: overlap counts differ")
     diff20 = float(np.abs(crnn.pop("windowed")[0] - crnn.pop("dense")[0]).max())
     return {"phase": "test_model", "wall_s": walls, "metrics": metrics,
+            "metrics_u8_upload": metrics_u8,
             "confusion_totals": totals, "files_byte_equal_with_one_batch_slabs": True,
+            "u8_files_byte_equal_with_one_batch_slabs": True,
             "slab_bytes_second_run": one_batch,
             "dense_vs_windowed_max_abs_diff_golden": float(np.abs(w_agg - d_agg).max()),
             "dense_vs_windowed_mean_abs_diff_golden": float(np.abs(w_agg - d_agg).mean()),
@@ -1843,6 +1926,412 @@ def phase_wires(torch, tmp: Path, seed: int, state: dict,
     return line, mixed_row, gemm_row
 
 
+HPS_SEED = 7  # the search's project seed
+HPS_MAX_EPOCHS, HPS_FACTOR = 4, 2  # 3 brackets, 14 rung-trials, 28 trial-epochs (10, 3 by default)
+
+
+class _EpochClock:
+    """on_epoch_end hook of a search: the wall of each trained epoch (from
+    the previous stamp, so a trial's first epoch includes its model build)
+    and the peak device memory since the previous stamp, by trial."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.trials: dict[str, dict] = {}
+        self.start()
+
+    def start(self) -> None:
+        self.torch.cuda.synchronize()
+        self.torch.cuda.reset_peak_memory_stats()
+        self.last = time.perf_counter()
+
+    def __call__(self, trial_id, state, history, epoch, lr, counters) -> None:
+        self.torch.cuda.synchronize()
+        now = time.perf_counter()
+        trial = self.trials.setdefault(trial_id, {"epoch_walls_s": [], "peak_device_bytes": 0})
+        trial["epoch_walls_s"].append(now - self.last)
+        trial["peak_device_bytes"] = max(trial["peak_device_bytes"],
+                                         self.torch.cuda.max_memory_allocated())
+        self.torch.cuda.reset_peak_memory_stats()
+        self.last = time.perf_counter()
+
+
+def _without_status(csv_text: str) -> list[list[str]]:
+    """all_trials.csv's rows with the status column left out."""
+    rows = [line.split(",") for line in csv_text.splitlines()]
+    col = rows[0].index("status")
+    return [r[:col] + r[col + 1:] for r in rows]
+
+
+def phase_hpsearch(torch, tmp: Path, trained: dict, total: dict) -> dict:
+    """The slab's main path: Hyperband over default_hps_parameter.json at
+    its full widths, twice on one output directory, then the best model's
+    predict."""
+    from orcai_tpu_torch.io.jsonio import read_json
+    from orcai_tpu_torch.pipeline.predict import predict
+    from orcai_tpu_torch.resources import DEFAULT_HPS_PARAMETER, DEFAULT_ORCAI_PARAMETER
+    from orcai_tpu_torch.train.hpsearch import hyperband_schedule, hyperparameter_search
+
+    hps = read_json(DEFAULT_HPS_PARAMETER)
+    if (sorted(map(tuple, hps["filters"].values())), hps["lstm_units"], hps["batch_size"]) != (
+            [(10, 20, 30, 40), (20, 30, 40, 50), (30, 40, 50, 60)], [64, 128], [64]):
+        raise AssertionError(f"the default search space is not the published one: {hps}")
+    param = {**read_json(DEFAULT_ORCAI_PARAMETER), "seed": HPS_SEED}
+    out = tmp / "hps_out"
+    brackets = hyperband_schedule(HPS_MAX_EPOCHS, HPS_FACTOR)
+    n_trials = sum(n for rungs in brackets for n, _ in rungs)
+
+    clock = _EpochClock(torch)
+    t0 = time.perf_counter()
+    hyperparameter_search(trained["data_dir"], out, orcai_parameter=param, hps_parameter=hps,
+                          max_epochs=HPS_MAX_EPOCHS, factor=HPS_FACTOR, on_epoch_end=clock)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    logs = out / "hps_logs"
+    csv_first = (logs / "all_trials.csv").read_text()
+    best_first = (logs / "best_hyperparameters.json").read_bytes()
+    records = {}
+    for path in sorted((logs / param["name"]).glob("trial_*.json")):
+        records[path.stem[len("trial_"):]] = json.loads(path.read_text())
+    if len(records) != n_trials or sorted(clock.trials) != sorted(records):
+        raise AssertionError(f"{len(records)} trial records and {len(clock.trials)} trained "
+                             f"trials, expected {n_trials}")
+    trials, epochs_trained = [], 0
+    for trial_id, rec in records.items():
+        walls = clock.trials[trial_id]["epoch_walls_s"]
+        epochs_trained += len(walls)
+        history = rec["history"]
+        if not (all(math.isfinite(v) for k in ("loss", "val_loss", "val_MBA")
+                    for v in history[k]) and 0.0 <= rec["score"] <= 1.0):
+            raise AssertionError(f"trial {trial_id}: history {history}")
+        trials.append({
+            "trial_id": trial_id,
+            "config": {k: rec[k] for k in ("filters", "kernel_size", "dropout_rate",
+                                           "batch_size", "lstm_units")},
+            "epochs": rec["epochs"], "epochs_trained": len(walls),
+            "first_epoch_wall_s": walls[0],
+            "warm_epoch_wall_s": walls[-1] if len(walls) > 1 else None,
+            "epoch_walls_s": walls,
+            "peak_device_bytes": clock.trials[trial_id]["peak_device_bytes"],
+            "score": rec["score"],
+        })
+    promoted = [t["trial_id"] for t in trials if t["epochs"] > t["epochs_trained"]]
+    if not promoted:
+        raise AssertionError("no promotion carried weights")
+
+    # the same call again on the same directory: every trial CACHED
+    t0 = time.perf_counter()
+    hyperparameter_search(trained["data_dir"], out, orcai_parameter=param, hps_parameter=hps,
+                          max_epochs=HPS_MAX_EPOCHS, factor=HPS_FACTOR)
+    torch.cuda.synchronize()
+    wall_cached = time.perf_counter() - t0
+    csv_again = (logs / "all_trials.csv").read_text()
+    statuses = [r[-1] for r in (line.split(",") for line in csv_again.splitlines()[1:])]
+    if statuses != ["CACHED"] * n_trials:
+        raise AssertionError(f"the second search ran trials again: {statuses}")
+    if _without_status(csv_again) != _without_status(csv_first):
+        raise AssertionError("all_trials.csv differs on the second search")
+    if (logs / "best_hyperparameters.json").read_bytes() != best_first:
+        raise AssertionError("best_hyperparameters.json differs on the second search")
+
+    # the best model, from its model directory, predicts golden
+    best_dir = out / param["name"] / "hps"
+    reset_counts()
+    tsv = predict(FIXTURES / "golden.wav", model_dir=best_dir,
+                  output_path=tmp / "golden_hps.txt", overwrite=True, device="cuda")
+    torch.cuda.synchronize()
+    counts = read_counts(total)
+    check_counts(counts, 1, "predict with the searched model")
+    if tsv.read_text().splitlines()[0].split("\t") != ["start", "stop", "label"]:
+        raise AssertionError("predict with the searched model wrote no TSV")
+    return {"phase": "hpsearch", "max_epochs": HPS_MAX_EPOCHS, "factor": HPS_FACTOR,
+            "brackets": brackets, "rung_trials": n_trials, "trial_epochs": epochs_trained,
+            "steps_per_epoch": TVT_SNIPPETS[0] // 64, "trials": trials,
+            "promoted_with_carried_weights": promoted, "search_wall_s": wall,
+            "trials_per_hour": n_trials / wall * 3600.0,
+            "first_epoch_wall_s_sum": sum(t["first_epoch_wall_s"] for t in trials),
+            "best": json.loads(best_first), "second_search_wall_s": wall_cached,
+            "second_search_all_cached": True, "outputs_equal_but_status": True,
+            "best_model_predict_launches": counts}
+
+
+def _fresh_process_trial(data_dir: Path, *extra: str) -> dict:
+    """tools/profile_first_epoch.py in a process of its own."""
+    args = [sys.executable, "-m", "orcai_tpu_torch.tools.profile_first_epoch", str(data_dir),
+            "--seed", str(HPS_SEED), *extra]
+    proc = subprocess.run(args, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(args[1:])} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_first_epoch(torch, state: dict, trained: dict, searched: dict) -> dict:
+    """Where a first epoch's extra wall goes (tools/profile_first_epoch.py).
+    In this process, which has trained already: a shape of the search space
+    that no trial ran (A), the same shape in a fresh model (A again) and a
+    second new shape (B, under torch.profiler), each built, moved and
+    trained two resident epochs with its stages timed. Then the bundled
+    model's width in fresh processes that have trained nothing: as it is,
+    under torch.profiler, with the initialiser's operations called once
+    first, and after a predict of the 20-minute recording."""
+    import itertools
+
+    from orcai_tpu_torch.io.dataset import ArrayDataset
+    from orcai_tpu_torch.io.jsonio import read_json
+    from orcai_tpu_torch.resources import DEFAULT_HPS_PARAMETER, DEFAULT_ORCAI_PARAMETER
+    from orcai_tpu_torch.tools.profile_first_epoch import timed, trial_stages
+    from orcai_tpu_torch.train.hpsearch import _apply_config
+    from orcai_tpu_torch.train.trainer import DeviceData
+    from orcai_tpu_torch.utils.seeds import SEED_ID_LOAD_TRAIN_DATA, SEED_ID_LOAD_VAL_DATA
+
+    hps = read_json(DEFAULT_HPS_PARAMETER)
+    param = {**read_json(DEFAULT_ORCAI_PARAMETER), "seed": HPS_SEED}
+    run = {(t["config"]["filters"], t["config"]["kernel_size"], t["config"]["lstm_units"])
+           for t in searched["trials"]}
+    fresh = [s for s in itertools.product(hps["filters"], hps["kernel_size"],
+                                          hps["lstm_units"]) if s not in run]
+    a = fresh[0]
+    b = next(s for s in fresh if s[1] != a[1])
+    train_ds = ArrayDataset.load(trained["data_dir"] / "train_dataset")
+    val_ds = ArrayDataset.load(trained["data_dir"] / "val_dataset")
+    data, upload_s = timed(lambda: (DeviceData(train_ds), DeviceData(val_ds)))
+    seeds = ([SEED_ID_LOAD_TRAIN_DATA, HPS_SEED], [SEED_ID_LOAD_VAL_DATA, HPS_SEED])
+    line = {"phase": "first_epoch", "upload_s": upload_s,
+            "train_phase_epoch_walls_s": trained["epoch_walls"]}
+    for name, (filters, kernel, units) in (("A", a), ("A_again", a), ("B", b)):
+        cfg = {"filters": filters, "kernel_size": kernel, "dropout_rate": 0.5,
+               "batch_size": 64, "lstm_units": units}
+        rec = trial_stages(_apply_config(param, hps, cfg), data, seeds, HPS_SEED,
+                           profile=name == "B")
+        line[name] = {"config": cfg, **rec}
+    del data
+    for name, extra in (("fresh", ()), ("fresh_profiled", ("--profile",)),
+                        ("fresh_first_calls", ("--first_calls",)),
+                        ("after_predict", ("--predict_wav", str(state["wav"])))):
+        t0 = time.perf_counter()
+        line[f"process_{name}"] = _fresh_process_trial(trained["data_dir"], *extra)
+        line[f"process_{name}"]["process_wall_s"] = time.perf_counter() - t0
+    return line
+
+
+def phase_bf16(torch, tmp: Path, state: dict, total: dict) -> dict:
+    """predict with ORCAI_TPU_PREDICT_DTYPE=bf16: golden in memory and
+    streamed against golden_expected.txt, and the 20-minute cell's wall and
+    aggregated probabilities beside float32's."""
+    import numpy as np
+
+    from orcai_tpu_torch.io.model_store import DEFAULT_MODEL_DIR
+    from orcai_tpu_torch.pipeline.predict import build_predictor, predict
+    from orcai_tpu_torch.tools.profile_first_epoch import timed
+
+    golden = (FIXTURES / "golden_expected.txt").read_bytes()
+    line = {"phase": "bf16"}
+    with environ(ORCAI_TPU_PREDICT_DTYPE="bf16"):
+        out = tmp / "golden_bf16.txt"
+        reset_counts()
+        _, line["golden_wall_s_first_call"] = timed(lambda: predict(
+            FIXTURES / "golden.wav", output_path=out, overwrite=True, device="cuda"))
+        counts = read_counts(total)
+        check_counts(counts, 1, "golden bf16")
+        line["golden_launches"] = counts
+        line["golden_tsv_byte_equal"] = out.read_bytes() == golden
+        bf16, _, _ = build_predictor(DEFAULT_MODEL_DIR, 128, "cuda")
+        if next(bf16.model.parameters()).dtype != torch.float32:
+            raise AssertionError("bf16 predict: the parameters are not float32")
+        sp = state["param"]["spectrogram"]
+        out_s = tmp / "golden_bf16_stream.txt"
+        run = _streamed_predict(torch, FIXTURES / "golden.wav", out_s, bf16, total,
+                                "golden bf16 streaming",
+                                *streaming_launches(2_880_000, bf16, sp["n_overlap"]),
+                                ORCAI_TPU_STREAM_SPEC_BYTES=1)
+        run.pop("result")
+        line["golden_streamed"] = run
+        line["golden_streamed_tsv_byte_equal"] = out_s.read_bytes() == golden
+        # the 20-minute cell, warm, bf16 then f32 on the same recording
+        walls = {}
+        for name, predictor in (("bf16", bf16), ("f32", state["predictor"])):
+            walls[name] = []
+            for i in range(3):
+                reset_counts()
+                _, wall = timed(lambda: predict(
+                    state["wav"], output_path=tmp / f"min20_{name}.txt", overwrite=True,
+                    predictor=predictor))
+                check_counts(read_counts(total), 7, f"20-minute {name}")
+                walls[name].append(wall)
+        agg, count, n_out = bf16.aggregate_device(state["spec"], n_frames=state["n_frames"])
+        aggregated, overlap = bf16.fetch_aggregated(agg, count, n_out)
+    line["min20_predict_wall_s"] = walls
+    line["min20_bf16_over_f32_warm"] = walls["bf16"][-1] / walls["f32"][-1]
+    diff = np.abs(aggregated - state["aggregated"])
+    line["min20_aggregated_max_abs_diff_vs_f32"] = float(diff.max())
+    line["min20_aggregated_mean_abs_diff_vs_f32"] = float(diff.mean())
+    line["min20_tsv_byte_equal_f32"] = (tmp / "min20_bf16.txt").read_bytes() == \
+        state["tsv"].read_bytes()
+    if not np.array_equal(overlap, state["overlap"]):
+        raise AssertionError("bf16 20-minute: overlap counts differ from float32's")
+    if not (line["golden_tsv_byte_equal"] and line["golden_streamed_tsv_byte_equal"]):
+        raise AssertionError(
+            "bf16 golden TSV differs from golden_expected.txt:\n"
+            + (out.read_text() if not line["golden_tsv_byte_equal"] else out_s.read_text()))
+    return line
+
+
+def phase_bf16_train(torch, tmp: Path, trained: dict) -> dict:
+    """`train` with compute_dtype bfloat16 at orcai-v1's width: one epoch,
+    then warm steps; the weights saved in float32 and loaded back."""
+    import numpy as np
+
+    from orcai_tpu_torch.io.dataset import ArrayDataset
+    from orcai_tpu_torch.io.jsonio import read_json
+    from orcai_tpu_torch.io.model_store import load_orcai_model, load_variables
+    from orcai_tpu_torch.resources import DEFAULT_ORCAI_PARAMETER
+    from orcai_tpu_torch.train.trainer import Trainer
+
+    param = read_json(DEFAULT_ORCAI_PARAMETER)
+    param.update(name="smoke-bf16", seed=trained["seed"])
+    param["model"].update(compute_dtype="bfloat16", learning_rate=TRAIN_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model_dir, walls = _train_run(torch, trained["data_dir"], tmp / "models", param, max_epochs=1)
+    peak = torch.cuda.max_memory_allocated()
+    history = _finite_history(model_dir, 1)
+    leaves = []
+
+    def walk(tree):
+        for v in tree.values():
+            walk(v) if isinstance(v, dict) else leaves.append(v)
+
+    walk(load_variables(model_dir / "smoke-bf16.msgpack"))
+    if {np.asarray(v).dtype for v in leaves} != {np.dtype(np.float32)}:
+        raise AssertionError("bf16 training saved weights that are not float32")
+    model, _, _ = load_orcai_model(model_dir, dtype=torch.bfloat16, device="cuda")
+    batch = param["model"]["batch_size"]
+    ds = ArrayDataset.load(trained["data_dir"] / "train_dataset")
+    x = torch.from_numpy(np.asarray(ds.x[:batch])).cuda()
+    y = torch.from_numpy(np.asarray(ds.y[:batch])).cuda()
+    trainer = Trainer(model, TRAIN_LR, device="cuda")
+    state = trainer.state_from_variables(seed=trained["seed"])
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = _steps_ms(torch, trainer, state, x, y)
+    f32 = trained["history"]
+    return {"phase": "bf16_train", "epoch_wall_s": walls, "peak_device_bytes_train": peak,
+            "peak_device_bytes_steps": torch.cuda.max_memory_allocated(),
+            "step_ms_median_warm": statistics.median(step_ms), "step_ms": step_ms,
+            "step_ms_median_f32": trained["step_ms"],
+            "loss_epoch_1": history["loss"][0], "loss_epoch_1_f32": f32["loss"][0],
+            "val_loss_epoch_1": history["val_loss"][0],
+            "val_loss_epoch_1_f32": f32["val_loss"][0],
+            "weights_float32_and_load": True}
+
+
+ARCH_CPU_ATOL = 2e-5  # the CRNN bar (tests/test_model_parity.py:59), card against CPU
+
+
+def phase_architectures(torch, tmp: Path, trained: dict, total: dict) -> dict:
+    """ResNet1DConv and ResNetTCN at orcai-v1's widths: two resident epochs
+    through `train`, warm steps, the forward on the card against the CPU,
+    and golden through `predict` with the trained directory."""
+    import numpy as np
+
+    from orcai_tpu_torch.io.dataset import ArrayDataset
+    from orcai_tpu_torch.io.jsonio import read_json
+    from orcai_tpu_torch.io.model_store import load_orcai_model
+    from orcai_tpu_torch.pipeline.predict import predict
+    from orcai_tpu_torch.resources import DEFAULT_ORCAI_PARAMETER
+    from orcai_tpu_torch.train.trainer import Trainer
+
+    line = {"phase": "architectures"}
+    test_ds = ArrayDataset.load(trained["data_dir"] / "test_dataset")
+    xs = torch.from_numpy(np.asarray(test_ds.x[:8]))
+    for arch in ("ResNet1DConv", "ResNetTCN"):
+        param = read_json(DEFAULT_ORCAI_PARAMETER)
+        param.update(name=f"smoke-{arch}", architecture=arch, seed=trained["seed"])
+        param["model"].update(learning_rate=TRAIN_LR)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model_dir, walls = _train_run(torch, trained["data_dir"], tmp / "models", param,
+                                      max_epochs=2)
+        peak = torch.cuda.max_memory_allocated()
+        history = _finite_history(model_dir, 2)
+        model, _, _ = load_orcai_model(model_dir, device="cuda")
+        batch = param["model"]["batch_size"]
+        ds = ArrayDataset.load(trained["data_dir"] / "train_dataset")
+        trainer = Trainer(model, TRAIN_LR, device="cuda")
+        state = trainer.state_from_variables(seed=trained["seed"])
+        step_ms = _steps_ms(torch, trainer, state,
+                            torch.from_numpy(np.asarray(ds.x[:batch])).cuda(),
+                            torch.from_numpy(np.asarray(ds.y[:batch])).cuda())
+        card, _, _ = load_orcai_model(model_dir, device="cuda")
+        cpu, _, _ = load_orcai_model(model_dir, device="cpu")
+        with torch.inference_mode():
+            err = float((card(xs.cuda()).cpu() - cpu(xs)).abs().max())
+        if not err <= ARCH_CPU_ATOL:
+            raise AssertionError(f"{arch}: card against CPU forward {err} > {ARCH_CPU_ATOL}")
+        reset_counts()
+        tsv = predict(FIXTURES / "golden.wav", model_dir=model_dir,
+                      output_path=tmp / f"golden_{arch}.txt", overwrite=True, device="cuda")
+        torch.cuda.synchronize()
+        counts = read_counts(total)
+        check_counts(counts, 1, f"predict with the trained {arch}")
+        if tsv.read_text().splitlines()[0].split("\t") != ["start", "stop", "label"]:
+            raise AssertionError(f"predict with the trained {arch} wrote no TSV")
+        line[arch] = {"history": history, "first_epoch_wall_s": walls[0],
+                      "warm_epoch_wall_s": walls[1], "peak_device_bytes": peak,
+                      "step_ms_median_warm": statistics.median(step_ms), "step_ms": step_ms,
+                      "card_vs_cpu_forward_max_abs_diff": err, "atol": ARCH_CPU_ATOL,
+                      "trainable_parameters": sum(p.numel() for p in model.parameters()
+                                                  if p.requires_grad),
+                      "predict_launches": counts}
+    line["step_ms_median_resnetlstm"] = trained["step_ms"]
+    return line
+
+
+def _cli(args: list[str], timeout: int = 600) -> tuple[subprocess.CompletedProcess, float]:
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "orcai_tpu_torch", *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m orcai_tpu_torch {' '.join(args)} exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    return proc, wall
+
+
+def _served_latency(stderr: str, name: str) -> float:
+    """The service's `<wav> -> <tsv> (<s> s)` line for `name`."""
+    for text in stderr.splitlines():
+        if text.startswith(f"{name} -> ") and text.endswith(" s)"):
+            return float(text.rsplit("(", 1)[1].split()[0])
+    raise AssertionError(f"the service logged no latency for {name}:\n{stderr[-2000:]}")
+
+
+def phase_warmup_serve(torch, tmp: Path) -> dict:
+    """`warmup --minutes 1` and `serve` through the command line, each in a
+    process of its own: a cold service and one given --warm_minutes 1,
+    each over a folder holding golden (its TSV byte-equal to golden's).
+    Their kernel launches are their processes', not counted here."""
+    golden = (FIXTURES / "golden_expected.txt").read_bytes()
+    line = {"phase": "warmup_serve"}
+    proc, line["warmup_process_wall_s"] = _cli(["warmup", "--minutes", "1", "-v", "2"])
+    line["warmup_stdout"] = proc.stdout.strip().splitlines()[-1]
+    line["warmup_shape_walls_s"] = [float(t.rsplit(" in ", 1)[1].split()[0])
+                                    for t in proc.stderr.splitlines() if "shape ready in" in t]
+    for name, warm in (("cold", []), ("warm", ["--warm_minutes", "1"])):
+        watch, out = tmp / f"serve_{name}_in", tmp / f"serve_{name}_out"
+        watch.mkdir()
+        shutil.copy(FIXTURES / "golden.wav", watch / "golden.wav")
+        proc, wall = _cli(["serve", str(watch), "-o", str(out), "-mf", "1", "-ps", "0",
+                           "-v", "2", *warm])
+        tsv = out / "golden_c1_orcai-v1_predicted.txt"
+        if tsv.read_bytes() != golden:
+            raise AssertionError(f"serve ({name}): golden TSV differs from golden_expected.txt")
+        line[f"serve_{name}"] = {"process_wall_s": wall, "tsv_byte_equal": True,
+                                 "first_file_latency_s": _served_latency(proc.stderr,
+                                                                         "golden.wav")}
+    return line
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1890,14 +2379,29 @@ def main(argv=None) -> int:
                     "dft_magnitude_mixed": mixed_row, "dft_magnitude_gemm": gemm_row,
                     **{k: v for k, v in rows.items() if k != "dft_magnitude_fft"}}
             emit(line)
+            phase = "hpsearch"
+            searched = phase_hpsearch(torch, Path(tmp), trained, total)
+            emit(searched)
+            phase = "first_epoch"
+            emit(phase_first_epoch(torch, state, trained, searched))
+            phase = "bf16"
+            emit(phase_bf16(torch, Path(tmp), state, total))
+            phase = "bf16_train"
+            emit(phase_bf16_train(torch, Path(tmp), trained))
+            phase = "architectures"
+            emit(phase_architectures(torch, Path(tmp), trained, total))
+            phase = "warmup_serve"
+            emit(phase_warmup_serve(torch, Path(tmp)))
     except Exception as e:  # report the phase, then fail the run
         traceback.print_exc()
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
     # every kernel's launches, summed over the paths driven above (golden,
-    # 20-minute, streaming, table, service, the trained model's predict,
-    # create-spectrograms); each path asserted its own. Training and
-    # evaluation read stored spectrograms and launch none of these kernels.
+    # 20-minute, streaming, table, service, the trained models' and the
+    # searched model's predicts, bf16 predict, create-spectrograms); each
+    # path asserted its own. Training, the search and evaluation read stored
+    # spectrograms and launch none of these kernels; the warmup and serve
+    # processes count their own.
     for name, row in rows.items():
         row["launches"] = total[name]
     rows["digit_histograms"]["ms_real"] = real["b2_ms_real"]

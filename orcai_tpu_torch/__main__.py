@@ -1,11 +1,11 @@
 """Command line: python -m orcai_tpu_torch <command> [options].
 
 The commands and flags follow `orcai predict`, `orcai filter-predictions`,
-`orcai serve`, `orcai warmup`, `orcai train`, `orcai test` and the data
-preparation commands `orcai init`, `create-recording-table`,
-`create-spectrograms`, `create-label-arrays`, `create-snippet-table`,
-`create-tvt-snippet-tables` and `create-tvt-data` (orcai_tpu/cli.py),
-with the same options, plus `--device`. Every command
+`orcai serve`, `orcai warmup`, `orcai train`, `orcai test`, `orcai
+hpsearch` and the data preparation commands `orcai init`,
+`create-recording-table`, `create-spectrograms`, `create-label-arrays`,
+`create-snippet-table`, `create-tvt-snippet-tables` and `create-tvt-data`
+(orcai_tpu/cli.py), with the same options, plus `--device`. Every command
 that computes on a device runs on `--device cuda` unless told otherwise,
 and raises without CUDA; the table, label and dataset steps run on the
 host, as in the reference.
@@ -80,6 +80,7 @@ def _parser() -> argparse.ArgumentParser:
     from orcai_tpu_torch.io.model_store import bundled_models
     from orcai_tpu_torch.resources import (
         DEFAULT_CALL_DURATION_LIMITS,
+        DEFAULT_HPS_PARAMETER,
         DEFAULT_ORCAI_PARAMETER,
     )
 
@@ -177,6 +178,24 @@ def _parser() -> argparse.ArgumentParser:
                    help="also test on the unfiltered test dataset")
     p.add_argument("--output_dir", "-o", default=None,
                    help="output directory (default: <model_dir>/test)")
+    data_compression(p, reading)
+    _common(p)
+
+    p = command(
+        "hpsearch",
+        "Performs hyperparameter search on the training dataset in DATA_DIR "
+        "and saves the results to OUTPUT_DIR.",
+    )
+    p.add_argument("data_dir", help="directory with train_dataset and val_dataset")
+    p.add_argument("output_dir", help="directory hps_logs and the best model are written into")
+    p.add_argument("--orcai_parameter", "-p", default=str(DEFAULT_ORCAI_PARAMETER),
+                   help="path to the orcAI parameter file "
+                        "(default: default_orcai_parameter.json)")
+    p.add_argument("--hps_parameter", "-hp", default=str(DEFAULT_HPS_PARAMETER),
+                   help="path to the hyperparameter search parameter file "
+                        "(default: default_hps_parameter.json)")
+    p.add_argument("--parallel", "-pl", action="store_true",
+                   help="run a rung's trials side by side, one per visible CUDA device")
     data_compression(p, reading)
     _common(p)
 
@@ -352,6 +371,10 @@ def main(argv=None) -> int:
         from orcai_tpu_torch.train.trainer import train
 
         train(**args)
+    elif command == "hpsearch":
+        from orcai_tpu_torch.train.hpsearch import hyperparameter_search
+
+        hyperparameter_search(**args)
     elif command == "test":
         from orcai_tpu_torch.train.evaluate import test_model
 

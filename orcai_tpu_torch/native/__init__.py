@@ -1,7 +1,8 @@
 """Host C helpers built at first use and loaded with ctypes: the LZ4 block
 codec behind blosc-framed zarr stores (lz4enc.c, lz4dec.c), the wire-codec
-encoders (wirecodec.c: mu-law, bfp6/bfp5) and the L/M polyphase resamplers
-of the spectral wires (resample.c).
+encoders (wirecodec.c: mu-law, bfp6/bfp5), the L/M polyphase resamplers
+of the spectral wires (resample.c) and the evaluation upload's u8/u16
+quantizer (quant.c).
 
 Counterpart of orcai_tpu/native/__init__.py. The sources are compiled
 together by the host C compiler into
@@ -11,8 +12,8 @@ host's instruction-set flags, since the library is built with
 -march=native. Every entry point returns None (or False) when the library
 cannot be built or loaded (no compiler, or ORCAI_TPU_DISABLE_NATIVE=1):
 io/blosc.py then decodes in Python and refuses to encode, zarrlite's "auto"
-codec is gzip, and the wire codecs and the resampler take their numpy
-paths, which give the same integers. These are host codecs, not device
+codec is gzip, and the wire codecs, the resampler and the quantizer take
+their numpy paths, which give the same integers. These are host codecs, not device
 kernels.
 """
 
@@ -29,7 +30,7 @@ from pathlib import Path
 
 import numpy as np
 
-_SOURCES = ("lz4enc.c", "lz4dec.c", "wirecodec.c", "resample.c")
+_SOURCES = ("lz4enc.c", "lz4dec.c", "wirecodec.c", "resample.c", "quant.c")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 
@@ -117,6 +118,9 @@ def _load() -> ctypes.CDLL | None:
             ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
         ]
         lib.orcai_resample_poly.restype = ctypes.c_int64
+        for fn in (lib.orcai_quant_u8, lib.orcai_quant_u16):
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+            fn.restype = None
         return lib
     except Exception:  # noqa: BLE001 - any failure means no native codec
         return None
@@ -158,6 +162,20 @@ def lz4_compress_native(src: bytes) -> bytes | None:
     if written < 0:  # pragma: no cover - cap is the worst case by the spec
         raise ValueError("lz4 compress: output buffer overflow")
     return dst.raw[:written]
+
+
+def quantize_linear_native(x: np.ndarray, dtype) -> np.ndarray | None:
+    """float32 -> uint8 / uint16 codes, rint(x * scale) clipped to [0,
+    scale] (255 or 65535), via C in one pass, or None if unavailable.
+    Bit-equal to the numpy chain of train/evaluate.quantize_eval_upload."""
+    lib = _load()
+    if lib is None:
+        return None
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    out = np.empty(x.shape, dtype)
+    fn = lib.orcai_quant_u8 if out.dtype == np.uint8 else lib.orcai_quant_u16
+    fn(x.ctypes.data, x.size, out.ctypes.data)
+    return out
 
 
 def mulaw_encode_native(x: np.ndarray, lut: np.ndarray) -> np.ndarray | None:

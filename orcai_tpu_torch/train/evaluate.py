@@ -29,6 +29,7 @@ import torch
 from orcai_tpu_torch.io.dataset import ArrayDataset, epoch_permutation
 from orcai_tpu_torch.io.tables import Table
 from orcai_tpu_torch.io.model_store import load_orcai_model
+from orcai_tpu_torch.native import quantize_linear_native
 from orcai_tpu_torch.utils.device import exact_f32_math, resolve_device
 from orcai_tpu_torch.utils.seeds import (
     MASK_VALUE,
@@ -189,15 +190,20 @@ def resolve_eval_upload(upload: str | None = None) -> str:
 
 def quantize_eval_upload(x: np.ndarray, upload: str) -> np.ndarray:
     """Host-side encode for resolve_eval_upload's format (the device's
-    decode is one multiply by 1 / scale)."""
+    decode is one multiply by 1 / scale): native/quant.c's one pass where
+    the host C library loads, else the numpy chain it is bit-equal to."""
     x = np.asarray(x, np.float32)
     if upload == "f32":
         return x
+    dtype = np.uint8 if upload == "u8" else np.uint16
+    out = quantize_linear_native(x, dtype)
+    if out is not None:
+        return out
     scale = _UPLOAD_SCALE[upload]
     buf = np.multiply(x, scale, dtype=np.float32)
     np.rint(buf, out=buf)
     np.clip(buf, 0.0, scale, out=buf)
-    return buf.astype(np.uint8 if upload == "u8" else np.uint16)
+    return buf.astype(dtype)
 
 
 def _dequantize(x: torch.Tensor, upload: str) -> torch.Tensor:

@@ -417,7 +417,9 @@ def fit(
     return state, history
 
 
-def _torch_state(flax_variables: dict) -> dict[str, torch.Tensor]:
+def state_dict_from_flax(flax_variables: dict) -> dict[str, torch.Tensor]:
+    """A flax {"params", "batch_stats"} tree as a model state dict of host
+    tensors."""
     return {k: torch.from_numpy(v)
             for k, v in convert_flax_variables(flax_variables).items()}
 
@@ -548,7 +550,7 @@ def train(
             best_path = model_dir / f"{model_name}.msgpack"
             if best_path.exists():
                 # best-so-far weights saved by the checkpoint callback
-                initial_best_state = _torch_state(load_variables(best_path))
+                initial_best_state = state_dict_from_flax(load_variables(best_path))
 
     if profile_dir is None:
         profile_dir = os.environ.get("ORCAI_TPU_PROFILE_DIR")

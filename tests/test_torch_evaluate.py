@@ -208,6 +208,55 @@ def test_eval_upload_policy_and_quantizer(monkeypatch):
         np.testing.assert_array_equal(q, buf.astype(dtype))
 
 
+def _quantizer_inputs() -> np.ndarray:
+    """tests/test_native_codec.py:272's inputs: uniform [0, 1], the clipping
+    range, exact ties at both scales and the edges, in a non-flat shape."""
+    rng = np.random.default_rng(21)
+    return np.concatenate([
+        rng.uniform(0, 1, 100_000).astype(np.float32),
+        np.linspace(-0.1, 1.1, 4096, dtype=np.float32),
+        (np.arange(0, 512, dtype=np.float32) + 0.5) / 255.0,
+        (np.arange(0, 512, dtype=np.float32) + 0.5) / 65535.0,
+        np.array([0.0, 0.5, 1.0, np.float32(1.0) - np.float32(1e-7)], np.float32),
+    ]).reshape(-1, 4)
+
+
+@pytest.mark.parametrize("upload, dtype, scale",
+                         [("u8", np.uint8, 255.0), ("u16", np.uint16, 65535.0)])
+def test_native_quantizer_is_bit_equal_to_numpy_and_to_the_jax_package(upload, dtype, scale):
+    from orcai_tpu.native import quantize_linear_native as jax_quantize_native
+    from orcai_tpu_torch.native import native_available, quantize_linear_native
+
+    assert native_available()  # quant.c builds beside the LZ4 codec here
+    x = _quantizer_inputs()
+    ref = np.clip(np.rint(np.multiply(x, scale, dtype=np.float32)), 0.0, scale).astype(dtype)
+    got = quantize_linear_native(x, dtype)
+    assert got.dtype == dtype and got.shape == x.shape
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, jax_quantize_native(x, dtype))
+    np.testing.assert_array_equal(quantize_eval_upload(x, upload), ref)
+    # the ties round to even, and the out-of-range values clip
+    assert got[x <= 0].max() == 0 and got[x >= 1].min() == scale
+
+
+@pytest.mark.parametrize("upload, dtype", [("u8", np.uint8), ("u16", np.uint16)])
+def test_quantize_eval_upload_without_the_native_library(upload, dtype, monkeypatch):
+    from orcai_tpu_torch import native
+
+    x = _quantizer_inputs()
+    with_c = quantize_eval_upload(x, upload)
+    monkeypatch.setenv("ORCAI_TPU_DISABLE_NATIVE", "1")
+    native._load.cache_clear()
+    try:
+        assert native.quantize_linear_native(x, dtype) is None
+        without = quantize_eval_upload(x, upload)
+    finally:
+        monkeypatch.delenv("ORCAI_TPU_DISABLE_NATIVE")
+        native._load.cache_clear()
+    assert without.dtype == with_c.dtype == dtype
+    np.testing.assert_array_equal(without, with_c)
+
+
 def test_slabs_are_sized_by_the_float32_bytes_staged_on_the_host():
     """ROADMAP C2 (orcai_tpu/train/evaluate.py:239-246): the reference caps
     a slab by its coded bytes, but gathers it on the host as float32 first,

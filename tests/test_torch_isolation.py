@@ -34,7 +34,8 @@ def test_every_module_of_the_slice_is_scanned():
                  "io.annotations", "io.wav", "utils.rle", "native", "pipeline.helpers",
                  "pipeline.spectrogram", "pipeline.labels", "pipeline.snippets",
                  "tools.synthetic", "tools.profile_data_prep", "ops.wire_names",
-                 "ops.wire_codec", "ops.spectral", "tools.parity", "ops.dft"):
+                 "ops.wire_codec", "ops.spectral", "tools.parity", "ops.dft",
+                 "train.hpsearch", "tools.profile_first_epoch"):
         assert f"orcai_tpu_torch.{name}" in MODULES
     assert "chip_smoke" in MODULES
 
