@@ -137,6 +137,21 @@ Phases, each printing one JSON line and failing the run on any error:
            over a folder holding golden in a cold process and in one given
            --warm_minutes 1: both TSVs byte-equal to golden's, the warm-up's
            wall and each first file's latency
+  reference_formats  the reference's own formats, from
+           tests/fixtures/reference_formats (written by Keras and TensorFlow,
+           which the card does not have): `convert-dataset` through the CLI
+           on GZIP tf.data snapshots of 8 and 4 samples at orcai-v1's shapes
+           (every file's sha256 as in expected.json, the JAX package's
+           output; a second run skips both splits; -ow and -o write the same
+           bytes), the conversion's wall and MB/s in this process, one epoch
+           at orcai-v1's widths, batch 4, on the converted data; the
+           orcai-v1.keras dir and a dir holding only its model.weights.h5 as
+           model_weights.h5, each loaded on cuda bit-equal to the bundled
+           msgpack (load walls beside the msgpack's) and predicting golden in
+           memory (1 / 3 / 3) and streamed (4 / 3) byte-equal to
+           golden_expected.txt; `train --load_model` with the .keras dir as
+           the model dir, its weights before the first step bit-equal to the
+           bundled ones
 
 Then one {"selection": {...}} line, one {"kernels": [...]} line (B1 as three
 rows, its FFT, mixed-radix and GEMM routes), the card's `name, power.limit` from
@@ -148,6 +163,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import logging
 import math
@@ -159,6 +175,7 @@ import sys
 import tempfile
 import time
 import traceback
+import zipfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -2332,6 +2349,169 @@ def phase_warmup_serve(torch, tmp: Path) -> dict:
     return line
 
 
+REFERENCE_FORMATS = FIXTURES / "reference_formats"
+
+
+def _sha256_tree(root: Path) -> dict[str, str]:
+    return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def _convert_cli(tvt: Path, *args: str) -> tuple[dict, float, str]:
+    """`convert-dataset` in a subprocess: (sha256 of each file it wrote or
+    changed under the output dir, wall, its summary line)."""
+    out = Path(args[args.index("-o") + 1]) if "-o" in args else tvt
+    before = _sha256_tree(out) if out.exists() else {}
+    proc, wall = _cli(["convert-dataset", str(tvt), *args, "-v", "1"])
+    after = _sha256_tree(out)
+    return {k: v for k, v in after.items() if before.get(k) != v}, wall, \
+        proc.stdout.strip().splitlines()[-1]
+
+
+def _state_equal(state: dict, want: dict, where: str) -> None:
+    for key, value in want.items():
+        got = state[key].detach().cpu().contiguous().numpy()
+        if got.dtype != value.dtype or got.tobytes() != value.tobytes():
+            raise AssertionError(f"{where}: {key} is not bit-equal to the bundled msgpack's")
+
+
+def phase_reference_formats(torch, tmp: Path, seed: int, state: dict, total: dict) -> dict:
+    """The reference formats on the card (tests/fixtures/reference_formats,
+    written by Keras and TensorFlow): `convert-dataset` on the GZIP tf.data
+    snapshots through the CLI (every file's sha256 as the JAX package wrote
+    it, a second run skipping both splits, -ow and -o writing the same
+    bytes), one epoch on the converted data at orcai-v1's widths, the
+    orcai-v1.keras dir and its bare model_weights.h5 loaded bit-equal to the
+    bundled msgpack and predicting golden in memory and streamed, and
+    `train --load_model` starting from the archive's weights."""
+    from orcai_tpu_torch.io.jsonio import read_json
+    from orcai_tpu_torch.io.model_store import (
+        DEFAULT_MODEL_DIR, convert_flax_variables, load_orcai_model, load_variables,
+    )
+    from orcai_tpu_torch.io.tfdata_convert import convert_tvt_datasets
+    from orcai_tpu_torch.native import native_available
+    from orcai_tpu_torch.pipeline.predict import build_predictor, predict
+    from orcai_tpu_torch.resources import DEFAULT_ORCAI_PARAMETER
+    from orcai_tpu_torch.train import trainer as trainer_module
+
+    if not native_available():
+        raise AssertionError("the host C library (crc32c) did not build")
+    line = {"phase": "reference_formats"}
+    src = REFERENCE_FORMATS / "tvt"
+    expected = json.loads((src / "expected.json").read_text())
+    tvt = tmp / "ref_tvt"
+    shutil.copytree(src, tvt, ignore=shutil.ignore_patterns("expected.json"))
+    written, line["convert_cli_wall_s"], summary = _convert_cli(tvt)
+    if written != expected:
+        raise AssertionError(f"convert-dataset wrote {written}, expected.json has {expected}")
+    if summary != "Converted train_dataset (8 samples), val_dataset (4 samples)":
+        raise AssertionError(f"convert-dataset printed {summary!r}")
+    written, _, summary = _convert_cli(tvt)
+    if written or summary != "Nothing to convert (all splits already converted)":
+        raise AssertionError(f"the second run did not skip both splits: {summary!r} {written}")
+    before = _sha256_tree(tvt)
+    _, line["convert_cli_overwrite_wall_s"], _ = _convert_cli(tvt, "-ow")
+    if _sha256_tree(tvt) != before:
+        raise AssertionError("convert-dataset -ow wrote other bytes")
+    elsewhere = tmp / "ref_tvt_out"
+    written, _, _ = _convert_cli(tvt, "-o", str(elsewhere))
+    want = {**expected, "dataset_shapes.json": before["dataset_shapes.json"]}
+    if written != want:
+        raise AssertionError(f"convert-dataset -o wrote {written}, expected {want}")
+    # the conversion's own wall, in this process, on a fresh copy
+    again = tmp / "ref_tvt_again"
+    shutil.copytree(src, again)
+    read_bytes = sum(p.stat().st_size for p in again.rglob("*.snapshot"))
+    t0 = time.perf_counter()
+    convert_tvt_datasets(again)
+    wall = time.perf_counter() - t0
+    out_bytes = sum(p.stat().st_size for p in again.rglob("*.npy"))
+    line["convert"] = {"wall_s": wall, "snapshot_bytes": read_bytes, "npy_bytes": out_bytes,
+                       "snapshot_MB_per_s": read_bytes / wall / 1e6,
+                       "npy_MB_per_s": out_bytes / wall / 1e6}
+
+    # one epoch at orcai-v1's widths, batch 4, on the converted snapshots
+    param = read_json(DEFAULT_ORCAI_PARAMETER)
+    param.update(name="smoke-converted", seed=seed)
+    param["model"].update(batch_size=4, learning_rate=TRAIN_LR)
+    model_dir, walls = _train_run(torch, tvt, tmp / "models", param, max_epochs=1)
+    line["train_converted"] = {"history": _finite_history(model_dir, 1), "epoch_wall_s": walls}
+
+    # the .keras dir and a dir with only its model.weights.h5 as model_weights.h5
+    bundled = convert_flax_variables(load_variables(DEFAULT_MODEL_DIR / "orcai-v1.msgpack"))
+    keras_dir = REFERENCE_FORMATS / "orcai-v1"
+    h5_dir = tmp / "ref_h5_model"
+    h5_dir.mkdir()
+    for name in ("orcai_parameter.json", "model_shape.json"):
+        shutil.copy2(keras_dir / name, h5_dir / name)
+    with zipfile.ZipFile(keras_dir / "orcai-v1.keras") as archive:
+        (h5_dir / "model_weights.h5").write_bytes(archive.read("model.weights.h5"))
+    load_walls = {"msgpack": [], "keras": [], "model_weights_h5": []}
+    for name in ("msgpack", "keras", "model_weights_h5", "model_weights_h5", "keras",
+                 "msgpack"):
+        where = {"msgpack": DEFAULT_MODEL_DIR, "keras": keras_dir,
+                 "model_weights_h5": h5_dir}[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, _, _ = load_orcai_model(where, device="cuda")
+        torch.cuda.synchronize()
+        load_walls[name].append(time.perf_counter() - t0)
+        _state_equal(model.state_dict(), bundled, f"load_orcai_model({where.name})")
+    line["load_wall_s"] = load_walls
+    golden = (FIXTURES / "golden_expected.txt").read_bytes()
+    sp = state["param"]["spectrogram"]
+    for name, where in (("keras", keras_dir), ("model_weights_h5", h5_dir)):
+        out = tmp / f"golden_{name}.txt"
+        reset_counts()
+        predict(FIXTURES / "golden.wav", model_dir=where, output_path=out, overwrite=True,
+                device="cuda")
+        torch.cuda.synchronize()
+        counts = read_counts(total)
+        check_counts(counts, 1, f"golden from the {name} dir")
+        if out.read_bytes() != golden:
+            raise AssertionError(f"golden from the {name} dir differs:\n{out.read_text()}")
+        predictor, _, _ = build_predictor(where, 128, "cuda")
+        out_s = tmp / f"golden_{name}_stream.txt"
+        run = _streamed_predict(torch, FIXTURES / "golden.wav", out_s, predictor, total,
+                                f"golden streamed from the {name} dir",
+                                *streaming_launches(2_880_000, predictor, sp["n_overlap"]),
+                                ORCAI_TPU_STREAM_SPEC_BYTES=1)
+        if out_s.read_bytes() != golden:
+            raise AssertionError(f"golden streamed from the {name} dir differs:\n"
+                                 + out_s.read_text())
+        line[f"golden_{name}"] = {"tsv_byte_equal": True, "launches": counts,
+                                  "streamed_tsv_byte_equal": True,
+                                  "streamed_launches": run["launches"]}
+
+    # train --load_model with the .keras dir as the model dir
+    models = tmp / "keras_models"
+    shutil.copytree(keras_dir, models / "orcai-v1")
+    param = read_json(keras_dir / "orcai_parameter.json")
+    param["seed"] = seed
+    param["model"].update(batch_size=4, learning_rate=TRAIN_LR)
+    first = {}
+    real_step = trainer_module.Trainer.train_step
+
+    def step(self, train_state, x, y):
+        if not first:
+            first.update(train_state.model.state_dict())
+            _state_equal(first, bundled, "train --load_model before its first step")
+        return real_step(self, train_state, x, y)
+
+    trainer_module.Trainer.train_step = step
+    try:
+        model_dir, walls = _train_run(torch, tvt, models, param, max_epochs=1,
+                                      load_model=True)
+    finally:
+        trainer_module.Trainer.train_step = real_step
+    if not first:
+        raise AssertionError("train --load_model took no step")
+    line["train_load_keras"] = {"history": _finite_history(model_dir, 1), "epoch_wall_s": walls,
+                                "weights_before_first_step_bit_equal": True}
+    line["nvidia_smi"] = nvidia_smi_line()
+    return line
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2392,13 +2572,16 @@ def main(argv=None) -> int:
             emit(phase_architectures(torch, Path(tmp), trained, total))
             phase = "warmup_serve"
             emit(phase_warmup_serve(torch, Path(tmp)))
+            phase = "reference_formats"
+            emit(phase_reference_formats(torch, Path(tmp), args.seed, state, total))
     except Exception as e:  # report the phase, then fail the run
         traceback.print_exc()
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
         return 1
     # every kernel's launches, summed over the paths driven above (golden,
     # 20-minute, streaming, table, service, the trained models' and the
-    # searched model's predicts, bf16 predict, create-spectrograms); each
+    # searched model's predicts, bf16 predict, create-spectrograms, golden
+    # from the reference-format dirs); each
     # path asserted its own. Training, the search and evaluation read stored
     # spectrograms and launch none of these kernels; the warmup and serve
     # processes count their own.

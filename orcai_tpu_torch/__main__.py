@@ -4,11 +4,11 @@ The commands and flags follow `orcai predict`, `orcai filter-predictions`,
 `orcai serve`, `orcai warmup`, `orcai train`, `orcai test`, `orcai
 hpsearch` and the data preparation commands `orcai init`,
 `create-recording-table`, `create-spectrograms`, `create-label-arrays`,
-`create-snippet-table`, `create-tvt-snippet-tables` and `create-tvt-data`
-(orcai_tpu/cli.py), with the same options, plus `--device`. Every command
-that computes on a device runs on `--device cuda` unless told otherwise,
-and raises without CUDA; the table, label and dataset steps run on the
-host, as in the reference.
+`create-snippet-table`, `create-tvt-snippet-tables`, `create-tvt-data` and
+`convert-dataset` (orcai_tpu/cli.py), with the same options, plus
+`--device`. Every command that computes on a device runs on `--device cuda`
+unless told otherwise, and raises without CUDA; the table, label and
+dataset steps run on the host, as in the reference.
 """
 
 from __future__ import annotations
@@ -143,11 +143,11 @@ def _parser() -> argparse.ArgumentParser:
                     "frontends differ per codec; default: auto)")
     _common(p)
 
-    def data_compression(p: argparse.ArgumentParser, text: str) -> None:
-        # "None" on the command line is None in the call
-        p.add_argument("--data_compression", "-dc", default="None",
-                       type=lambda v: {"gzip": "GZIP", "none": None}.get(v.lower(), v),
-                       choices=["GZIP", None], help=text)
+    def data_compression(p: argparse.ArgumentParser, text: str, auto: bool = False) -> None:
+        # "None" on the command line is None in the call; case is ignored
+        p.add_argument("--data_compression", "-dc", default="auto" if auto else "None",
+                       type=lambda v: {"gzip": "GZIP", "none": None}.get(v.lower(), v.lower()),
+                       choices=["GZIP", None, "auto"] if auto else ["GZIP", None], help=text)
 
     reading = ("compression the datasets were written with (default: None; the "
                "dataset's meta.json decides on load)")
@@ -311,6 +311,24 @@ def _parser() -> argparse.ArgumentParser:
     _common(p, device=False)
 
     p = command(
+        "convert-dataset",
+        "Converts reference-materialized tf.data dataset snapshots "
+        "({train,val,test[,test_unfiltered]}_dataset dirs under TVT_DIR, as "
+        "written by upstream orcAI's create-tvt-data) into ArrayDataset "
+        "shards, in place by default; afterwards `train` and `test` run on "
+        "TVT_DIR directly. Reads the snapshot files themselves: no "
+        "TensorFlow is needed.",
+    )
+    p.add_argument("tvt_dir", help="directory holding the *_dataset snapshot dirs")
+    p.add_argument("--output_dir", "-o", default=None,
+                   help="write converted datasets here instead of in place")
+    data_compression(p, "compression the snapshots were saved with (reference default "
+                        "GZIP); auto probes (default: auto)", auto=True)
+    p.add_argument("--overwrite", "-ow", action="store_true",
+                   help="redo datasets that were already converted")
+    _common(p, device=False)
+
+    p = command(
         "filter-predictions",
         "Filters the predictions file at PREDICTED_LABELS by call duration.",
     )
@@ -407,6 +425,17 @@ def main(argv=None) -> int:
         from orcai_tpu_torch.pipeline.snippets import create_tvt_data
 
         create_tvt_data(**args)
+    elif command == "convert-dataset":
+        from orcai_tpu_torch.io.tfdata_convert import convert_tvt_datasets
+
+        converted = convert_tvt_datasets(
+            args["tvt_dir"], output_dir=args["output_dir"], overwrite=args["overwrite"],
+            compression=args["data_compression"],
+        )
+        if converted:
+            print("Converted " + ", ".join(f"{k} ({v} samples)" for k, v in converted.items()))
+        else:
+            print("Nothing to convert (all splits already converted)")
     else:
         from orcai_tpu_torch.pipeline.predict import filter_predictions_file
 

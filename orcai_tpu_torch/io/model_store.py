@@ -18,7 +18,9 @@ directory written here and this package loads one written there. The
 optimizer state this package writes is its own <name>.opt.pt; a directory
 the JAX package trained holds optax's <name>.opt.msgpack instead, which
 `load_optax_adam_state` reads into torch.optim.Adam's state.
-Reference-format .keras and .h5 checkpoints are not read.
+Loading falls back to a reference-format `<name>.keras` archive and then to
+a `model_weights.h5`, read without Keras or h5py (io/keras_convert.py), so
+reference model dirs are drop-in usable.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from orcai_tpu_torch.io.jsonio import read_json, write_json
+from orcai_tpu_torch.io.keras_convert import load_keras_checkpoint, load_keras_weights_h5
 from orcai_tpu_torch.io.msgpack_lite import packb, unpackb
 from orcai_tpu_torch.models import build_model
 from orcai_tpu_torch.utils.device import resolve_device
@@ -213,20 +216,33 @@ def load_orcai_model(
 ):
     """Load (model on `device`, orcai_parameter, shape).
 
-    `dtype` is the CRNN compute dtype; the parameters stay float32.
+    The weights are `<name>.msgpack`, else a reference `<name>.keras`
+    archive, else a reference `model_weights.h5`, in that order. `dtype` is
+    the CRNN compute dtype; the parameters stay float32.
     """
     dev = resolve_device(device)
     model_dir = Path(model_dir) if model_dir is not None else DEFAULT_MODEL_DIR
     orcai_parameter = read_json(model_dir / "orcai_parameter.json")
     shape = read_json(model_dir / "model_shape.json")
-    msgpack_path = model_dir / f"{orcai_parameter['name']}.msgpack"
-    if not msgpack_path.exists():
+    name = orcai_parameter["name"]
+    msgpack_path = model_dir / f"{name}.msgpack"
+    keras_path = model_dir / f"{name}.keras"
+    legacy_h5_path = model_dir / "model_weights.h5"
+    if msgpack_path.exists():
+        variables = load_variables(msgpack_path)
+    elif keras_path.exists():
+        variables = load_keras_checkpoint(keras_path, orcai_parameter,
+                                          tuple(shape["input_shape"]))
+    elif legacy_h5_path.exists():
+        variables = load_keras_weights_h5(legacy_h5_path, orcai_parameter,
+                                          tuple(shape["input_shape"]))
+    else:
         raise ValueError(
-            f"Couldn't find model weights {msgpack_path.name} in {model_dir} "
-            "(only flax msgpack checkpoints are read by this package)"
+            f"Couldn't find model weights ({name}.msgpack, {name}.keras or "
+            f"model_weights.h5) in {model_dir}"
         )
     model = build_model(orcai_parameter, shape["input_shape"], dtype=dtype)
-    state = convert_flax_variables(load_variables(msgpack_path))
+    state = convert_flax_variables(variables)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
     return model.to(dev).eval(), orcai_parameter, shape
 

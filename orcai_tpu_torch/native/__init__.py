@@ -1,8 +1,9 @@
 """Host C helpers built at first use and loaded with ctypes: the LZ4 block
 codec behind blosc-framed zarr stores (lz4enc.c, lz4dec.c), the wire-codec
 encoders (wirecodec.c: mu-law, bfp6/bfp5), the L/M polyphase resamplers
-of the spectral wires (resample.c) and the evaluation upload's u8/u16
-quantizer (quant.c).
+of the spectral wires (resample.c), the evaluation upload's u8/u16
+quantizer (quant.c) and the CRC-32C that checks every record of a tf.data
+snapshot (crc32c.c).
 
 Counterpart of orcai_tpu/native/__init__.py. The sources are compiled
 together by the host C compiler into
@@ -13,8 +14,9 @@ host's instruction-set flags, since the library is built with
 cannot be built or loaded (no compiler, or ORCAI_TPU_DISABLE_NATIVE=1):
 io/blosc.py then decodes in Python and refuses to encode, zarrlite's "auto"
 codec is gzip, and the wire codecs, the resampler and the quantizer take
-their numpy paths, which give the same integers. These are host codecs, not device
-kernels.
+their numpy paths, which give the same integers. The snapshot reader has no
+Python path: without the library it raises. These are host codecs, not
+device kernels.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from pathlib import Path
 
 import numpy as np
 
-_SOURCES = ("lz4enc.c", "lz4dec.c", "wirecodec.c", "resample.c", "quant.c")
+_SOURCES = ("lz4enc.c", "lz4dec.c", "wirecodec.c", "resample.c", "quant.c", "crc32c.c")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 
@@ -121,6 +123,8 @@ def _load() -> ctypes.CDLL | None:
         for fn in (lib.orcai_quant_u8, lib.orcai_quant_u16):
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
             fn.restype = None
+        lib.orcai_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_uint32]
+        lib.orcai_crc32c.restype = ctypes.c_uint32
         return lib
     except Exception:  # noqa: BLE001 - any failure means no native codec
         return None
@@ -162,6 +166,14 @@ def lz4_compress_native(src: bytes) -> bytes | None:
     if written < 0:  # pragma: no cover - cap is the worst case by the spec
         raise ValueError("lz4 compress: output buffer overflow")
     return dst.raw[:written]
+
+
+def crc32c_native(data: bytes) -> int | None:
+    """CRC-32C of `data` via C, or None if the library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    return int(lib.orcai_crc32c(data, len(data), 0))
 
 
 def quantize_linear_native(x: np.ndarray, dtype) -> np.ndarray | None:

@@ -1,6 +1,7 @@
 """The port stands alone: importing any of its modules loads none of jax,
-flax, optax, orbax, pandas, zarr, msgpack, click, tqdm or the JAX package,
-and no source of the port (or chip_smoke.py) imports one of them."""
+flax, optax, orbax, pandas, zarr, msgpack, click, tqdm, tensorflow, keras,
+h5py, google.protobuf or the JAX package, and no source of the port (or
+chip_smoke.py) imports one of them."""
 
 import ast
 import json
@@ -12,10 +13,11 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "pandas", "zarr", "msgpack", "click", "tqdm",
-             "orcai_tpu")
+             "tensorflow", "keras", "h5py", "google.protobuf", "orcai_tpu")
 # torch itself loads tqdm where it is installed, so the subprocess check
 # leaves tqdm and click to the source scan
-NOT_LOADED = ("jax", "flax", "optax", "orbax", "pandas", "zarr", "msgpack", "orcai_tpu")
+NOT_LOADED = ("jax", "flax", "optax", "orbax", "pandas", "zarr", "msgpack", "tensorflow",
+              "keras", "h5py", "google.protobuf", "orcai_tpu")
 SOURCES = sorted((ROOT / "orcai_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 # a package's __init__.py is imported as the package
 MODULES = [
@@ -35,7 +37,8 @@ def test_every_module_of_the_slice_is_scanned():
                  "pipeline.spectrogram", "pipeline.labels", "pipeline.snippets",
                  "tools.synthetic", "tools.profile_data_prep", "ops.wire_names",
                  "ops.wire_codec", "ops.spectral", "tools.parity", "ops.dft",
-                 "train.hpsearch", "tools.profile_first_epoch"):
+                 "train.hpsearch", "tools.profile_first_epoch", "io.tfrecord",
+                 "io.tfdata_convert", "io.hdf5", "io.keras_convert"):
         assert f"orcai_tpu_torch.{name}" in MODULES
     assert "chip_smoke" in MODULES
 
@@ -46,7 +49,7 @@ def test_import_loads_no_jax_stack(module):
     code = (
         f"import json, sys, {module}\n"
         f"print(json.dumps(sorted(m for m in sys.modules "
-        f"if m.split('.')[0] in {NOT_LOADED!r})))"
+        f"if any(m == n or m.startswith(n + '.') for n in {NOT_LOADED!r}))))"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -60,13 +63,15 @@ def test_sources_import_nothing_forbidden(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            roots = [alias.name.split(".")[0] for alias in node.names]
-        elif isinstance(node, ast.ImportFrom):
-            roots = [(node.module or "").split(".")[0]]
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):  # `from google import protobuf` too
+            names = [node.module or ""] + [f"{node.module}.{a.name}" for a in node.names]
         else:
             continue
-        for root in roots:
-            assert root not in FORBIDDEN, f"{path.name}:{node.lineno} imports {root}"
+        for name in names:
+            for bad in FORBIDDEN:
+                assert name != bad and not name.startswith(bad + "."), (
+                    f"{path.name}:{node.lineno} imports {name}")
     text = path.read_text()
     assert "orcai_tpu." not in text.replace("orcai_tpu/", "")
     assert "from orcai_tpu " not in text

@@ -124,7 +124,7 @@ def test_cli_options_match_the_reference_command_by_command():
     assert "--version" in {o for a in parser._actions for o in a.option_strings}
     assert "--version" in {o for p in cli.params for o in p.opts}
     sub = next(a for a in parser._actions if isinstance(a, argparse._SubParsersAction))
-    assert set(sub.choices) == set(cli.commands) - {"convert-dataset"}
+    assert set(sub.choices) == set(cli.commands)
     for name, port in sub.choices.items():
         ref_cmd = cli.commands[name]
         ref_opts = {o for p in ref_cmd.params if isinstance(p, click.Option)
