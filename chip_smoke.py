@@ -152,6 +152,33 @@ Phases, each printing one JSON line and failing the run on any error:
            golden_expected.txt; `train --load_model` with the .keras dir as
            the model dir, its weights before the first step bit-equal to the
            bundled ones
+  parallel  parallel/ on the one card: the plain Trainer and the distributed
+           one (DDP, BatchNorm statistics all-reduced, the loss's count
+           global) in an NCCL group of one rank, 8 steps at batch 64 from
+           the bundled weights (losses, weights and statistics within
+           RUNNER_RTOL, both step times); `train(load_model=True)` from the
+           bundled weights over ["cuda:0", "cuda:0"] (two spawned processes
+           in a gloo group, 32 + 32 of each batch) against one process, one
+           epoch (history, weights and statistics within RUNNER_RTOL); 8
+           steps at 64 from the bundled weights over two gloo ranks through
+           the distributed Trainer and through a plain DDP wrap (the
+           control), each against one process: the first step's gradients
+           and the BatchNorm statistics' change within RUNNER_RTOL, the
+           weights' change within PAR_CHANGE_RTOL, the control above all
+           three; a search without --parallel over ["cuda:0", "cuda:0"]
+           (its one trial data-parallel over two spawned processes) against
+           the same search on one device (the trial, its config, its losses
+           within RUNNER_RTOL); the bundled predictor split over ["cuda:0", "cuda:0"]: golden
+           byte-equal in memory (1 / 3 / 3) and streamed (4 / 3), the
+           20-minute TSV byte-equal (7 / 3 / 3) and its aggregate within 1e-6
+           of one replica's; two processes joined through a launcher's
+           environment running create-spectrograms over the data_prep
+           project and predict over a three-row table (stores and TSVs
+           byte-equal to one process's) and a search on the train phase's
+           data (max_epochs 2, factor 2: 5 rung-trials at the default
+           space's widths; each trial recorded once, process 1 publishing
+           nothing, the rerun all CACHED). One card: no time here is a
+           multi-GPU speed-up
 
 Then one {"selection": {...}} line, one {"kernels": [...]} line (B1 as three
 rows, its FFT, mixed-radix and GEMM routes), the card's `name, power.limit` from
@@ -2512,6 +2539,515 @@ def phase_reference_formats(torch, tmp: Path, seed: int, state: dict, total: dic
     return line
 
 
+PAR_STEPS = 8  # the NCCL comparison: steps at batch 64 over the train data's batches
+PAR_CHANGE_RTOL = 5e-2  # the weights' change over PAR_STEPS, two ranks against one process,
+#                         of the change itself (read 1.0e-2: the first step's gradients
+#                         read 1.0e-4 apart and Adam's normalised steps carry that into every
+#                         weight; one process against itself 7.4e-4, a plain DDP wrap 0.60)
+PAR_SPLIT_ATOL = 1e-6  # window split against one replica: the reference's bar for its
+#                        sharded predictor (tests/test_overlap.py:154)
+PAR_HPS_MAX_EPOCHS, PAR_HPS_FACTOR = 2, 2  # the two-process search: 2 brackets, 5 rung-trials
+PAR_CHILD = r"""
+import json, logging, sys, time
+logging.basicConfig(level=logging.INFO, format="%(message)s")
+from orcai_tpu_torch.parallel.distributed import initialize_distributed, process_count, process_index
+
+initialize_distributed()  # WORLD_SIZE, RANK, MASTER_ADDR, MASTER_PORT
+from orcai_tpu_torch.io.jsonio import read_json
+from orcai_tpu_torch.pipeline.predict import DEFAULT_CALL_DURATION_LIMITS, predict
+from orcai_tpu_torch.pipeline.spectrogram import create_spectrograms
+from orcai_tpu_torch.resources import DEFAULT_HPS_PARAMETER
+from orcai_tpu_torch.train.hpsearch import hyperparameter_search
+
+a = json.loads(sys.argv[1])
+line = {"rank": process_index(), "count": process_count()}
+t0 = time.perf_counter()
+report = create_spectrograms(a["spec_table"], a["spec_out"], orcai_parameter=a["spec_param"],
+                             device="cuda")
+line["create_spectrograms_s"] = time.perf_counter() - t0
+line["spectrograms"] = report["n_recordings"]
+t0 = time.perf_counter()
+saved = predict(a["pred_table"], output_path=a["pred_out"], save_probabilities=True,
+                call_duration_limits=DEFAULT_CALL_DURATION_LIMITS, device="cuda")
+line["predict_table_s"] = time.perf_counter() - t0
+line["predicted"] = [p.name for p in saved]
+for run in ("search", "rerun"):
+    t0 = time.perf_counter()
+    hyperparameter_search(a["tvt"], a["hps_out"], orcai_parameter=a["hps_param"],
+                          hps_parameter=read_json(DEFAULT_HPS_PARAMETER),
+                          max_epochs=a["max_epochs"], factor=a["factor"], device="cuda")
+    line[f"{run}_s"] = time.perf_counter() - t0
+    csv = a["hps_out"] + "/hps_logs/all_trials.csv"
+    if process_index() == 0:
+        line[f"{run}_all_trials_csv"] = open(csv).read()
+print("PAR-CHILD " + json.dumps(line), flush=True)
+import torch.distributed as dist
+dist.destroy_process_group()
+"""
+
+
+def _norm_rel(a: dict, b: dict, keys) -> float:
+    """||a - b|| / ||b|| over the tensors named: Adam moves a weight whose
+    gradient is near float noise by about the learning rate either way, so
+    an elementwise bar would read that noise, not the split."""
+    num = sum(float(((a[k].double() - b[k].double()) ** 2).sum()) for k in keys)
+    den = sum(float((b[k].double() ** 2).sum()) for k in keys)
+    return math.sqrt(num / max(den, 1e-300))
+
+
+def _max_elem_rel(a: dict, b: dict, keys) -> float:
+    return max(float((a[k] - b[k]).abs().max() / b[k].abs().max().clamp(min=1e-30))
+               for k in keys)
+
+
+def _dp_batches(torch, data_dir: Path, device) -> list:
+    """The train data's first PAR_STEPS batches of 64, on `device`."""
+    import numpy as np
+
+    from orcai_tpu_torch.io.dataset import ArrayDataset
+
+    ds = ArrayDataset.load(Path(data_dir) / "train_dataset")
+    return [(torch.from_numpy(np.asarray(ds.x[i * 64:(i + 1) * 64])).to(device),
+             torch.from_numpy(np.asarray(ds.y[i * 64:(i + 1) * 64], np.float32)).to(device))
+            for i in range(PAR_STEPS)]
+
+
+def _dp_steps(torch, trainer, seed: int, batches) -> dict:
+    """PAR_STEPS train steps from the trainer's weights, each on this
+    process's block of the batch: the first step's gradients (DDP's average
+    when distributed), every step's global loss, the state after."""
+    import numpy as np
+    import torch.distributed as dist
+
+    st = trainer.state_from_variables(seed=seed)
+    losses, grads = [], None
+    for x, y in batches:
+        idx = torch.from_numpy(trainer.block(np.arange(x.shape[0]))).to(x.device)
+        m = trainer.train_step(st, x[idx], y[idx])
+        if grads is None:
+            grads = {k: p.grad.detach().double().cpu()
+                     for k, p in trainer.model.named_parameters() if p.grad is not None}
+        if trainer.distributed:
+            dist.all_reduce(m)
+        losses.append(float(m[0]))
+    state = {k: v.detach().double().cpu() for k, v in trainer.model.state_dict().items()
+             if v.dtype.is_floating_point}
+    return {"grads": grads, "losses": losses, "state": state}
+
+
+def _dp_worker(data_dir: str, seed: int, naive: bool, out: str, device) -> None:
+    """One of two processes on the card (launch): _dp_steps from the
+    bundled weights over the distributed Trainer, or with `naive` over a
+    plain DDP wrap (each process's own BatchNorm statistics and dropout
+    masks, the mean of the processes' loss means), the control that the
+    comparison must tell apart. Rank 0 saves what it read."""
+    import torch
+
+    from orcai_tpu_torch.io.model_store import load_orcai_model
+    from orcai_tpu_torch.models import l2_regularization
+    from orcai_tpu_torch.ops.losses import weighted_masked_bce_from_logits
+    from orcai_tpu_torch.train.trainer import Trainer
+
+    model, _, _ = load_orcai_model(device=device)
+    trainer = Trainer(model, TRAIN_LR, device=device, distributed=True)
+    if naive:
+        model.set_data_parallel(None)
+        trainer._loss = lambda logits, y: (weighted_masked_bce_from_logits(logits, y, None)
+                                           + l2_regularization(model))
+    result = _dp_steps(torch, trainer, seed, _dp_batches(torch, data_dir, device))
+    if trainer.rank == 0:
+        torch.save(result, out)
+
+
+def _change_rel(run: dict, plain: dict, start: dict, keys) -> float:
+    """||(run - start) - (plain - start)|| / ||plain - start||: the
+    difference of two updates against the update itself."""
+    return _norm_rel({k: run[k].double() - start[k].double() for k in keys},
+                     {k: plain[k].double() - start[k].double() for k in keys}, keys)
+
+
+def _two_ranks_against_control(torch, tmp: Path, data_dir: Path, seed: int) -> dict:
+    """PAR_STEPS steps at 64 from the bundled weights: one process, the
+    same again (cuDNN's backward is not deterministic: the floor), two gloo
+    ranks sharing the card (32 + 32) through the distributed Trainer, and
+    the same two ranks under a plain DDP wrap. Each run is read against the
+    one process on the first step's gradients and on the change of the
+    weights and of the BatchNorm statistics over the steps; the distributed
+    run must read within the bars and the plain wrap above them, so the
+    check can fail a wrong split."""
+    from orcai_tpu_torch.io.model_store import load_orcai_model
+    from orcai_tpu_torch.parallel.distributed import launch
+    from orcai_tpu_torch.train.trainer import Trainer
+
+    start = {k: v.detach().double().cpu()
+             for k, v in load_orcai_model(device="cpu")[0].state_dict().items()
+             if v.dtype.is_floating_point}
+    batches = _dp_batches(torch, data_dir, "cuda")
+    plain, again = (_dp_steps(torch, Trainer(load_orcai_model(device="cuda")[0], TRAIN_LR,
+                                             device="cuda"), seed, batches)
+                    for _ in range(2))
+    params = sorted(plain["grads"])
+    stats = [k for k in start if "running" in k]
+    line = {"steps": PAR_STEPS, "batch": 64, "losses_one_process": plain["losses"]}
+    runs = {"one_process_again": again}
+    for name, naive in (("two_ranks", False), ("plain_ddp_control", True)):
+        out = tmp / f"dp_steps_{name}.pt"
+        t0 = time.perf_counter()
+        launch(_dp_worker, ["cuda:0", "cuda:0"], tmp, args=(str(data_dir), seed, naive, str(out)))
+        runs[name] = torch.load(out)
+        runs[name]["wall_s"] = time.perf_counter() - t0
+    for name, run in runs.items():
+        moved = {k: float(((run["state"][k] - plain["state"][k]) ** 2).sum()) for k in params}
+        line[name] = {
+            "grads_norm_rel_diff": _norm_rel(run["grads"], plain["grads"], params),
+            "weights_change_rel_diff": _change_rel(run["state"], plain["state"], start, params),
+            "bn_stats_change_rel_diff": _change_rel(run["state"], plain["state"], start, stats),
+            "loss_max_rel_diff": max(abs(a - b) / abs(b)
+                                     for a, b in zip(run["losses"], plain["losses"])),
+            "losses": run["losses"], "wall_s": run.get("wall_s"),
+            "weights_change_diff_top": sorted(moved, key=moved.get)[-5:]}
+    bars = {"grads_norm_rel_diff": RUNNER_RTOL, "bn_stats_change_rel_diff": RUNNER_RTOL,
+            "weights_change_rel_diff": PAR_CHANGE_RTOL}
+    real, control = line["two_ranks"], line["plain_ddp_control"]
+    if not all(real[k] <= bar < control[k] for k, bar in bars.items()):
+        raise AssertionError(f"two gloo ranks against one process and a plain DDP wrap: "
+                             f"the first must read within {bars}, the second above: {line}")
+    line["bars"] = bars
+    return line
+
+
+def _nccl_one_rank(torch, tmp: Path, data_dir: Path, seed: int) -> dict:
+    """The plain Trainer and the distributed one (DDP, global BatchNorm,
+    the loss's count all-reduced) in an NCCL group of one rank, PAR_STEPS
+    steps each from the bundled weights over the train data's first
+    batches: per-step losses and weights within RUNNER_RTOL, step ms."""
+    import torch.distributed as dist
+
+    from orcai_tpu_torch.io.model_store import load_orcai_model
+    from orcai_tpu_torch.train.trainer import Trainer
+
+    batches = _dp_batches(torch, data_dir, "cuda")
+
+    def run(distributed: bool):
+        model, _, _ = load_orcai_model(device="cuda")
+        trainer = Trainer(model, TRAIN_LR, device="cuda", distributed=distributed)
+        st = trainer.state_from_variables(seed=seed)
+        losses, ms = [], []
+        for x, y in batches:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = trainer.train_step(st, x, y)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append(float(m[0]))
+        return losses, ms, {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    plain = run(False)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp / "nccl_store"), 1),
+                            rank=0, world_size=1)
+    try:
+        backend = dist.get_backend()
+        ddp = run(True)
+    finally:
+        dist.destroy_process_group()
+    params = [k for k in plain[2] if "running" not in k and "bias_hh" not in k]
+    stats = [k for k in plain[2] if "running" in k]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(ddp[0], plain[0]))
+    w_rel, s_rel = _norm_rel(ddp[2], plain[2], params), _norm_rel(ddp[2], plain[2], stats)
+    if backend != "nccl" or not max(loss_rel, w_rel, s_rel) <= RUNNER_RTOL:
+        raise AssertionError(f"NCCL group of one ({backend}) against the plain Trainer: "
+                             f"losses {loss_rel}, weights {w_rel}, statistics {s_rel} > "
+                             f"{RUNNER_RTOL}")
+    version = torch.cuda.nccl.version()
+    return {"backend": backend,
+            "nccl_version": ".".join(map(str, version)) if isinstance(version, tuple)
+            else str(version),
+            "steps": PAR_STEPS, "batch": 64, "losses_plain": plain[0], "losses_ddp": ddp[0],
+            "loss_max_rel_diff": loss_rel, "weights_norm_rel_diff": w_rel,
+            "weights_max_elem_rel_diff": _max_elem_rel(ddp[2], plain[2], params),
+            "bn_stats_norm_rel_diff": s_rel,
+            "step_ms_plain": plain[1], "step_ms_ddp": ddp[1],
+            "step_ms_median_warm_plain": statistics.median(plain[1][2:]),
+            "step_ms_median_warm_ddp": statistics.median(ddp[1][2:])}
+
+
+def _two_gloo_ranks(torch, tmp: Path, data_dir: Path, seed: int) -> dict:
+    """`train(load_model=True)` from the bundled weights over ["cuda:0",
+    "cuda:0"] (two spawned processes in a gloo group, 32 + 32 of every batch
+    of 64) against the same call on "cuda" in this process, one epoch each.
+    From a trained model: near its initialisation half the probabilities sit
+    by 0.5 and a validation MBA reads the card's float noise."""
+    from orcai_tpu_torch.io.jsonio import read_json
+    from orcai_tpu_torch.io.model_store import DEFAULT_MODEL_DIR, load_orcai_model
+    from orcai_tpu_torch.train.trainer import train
+
+    param = read_json(DEFAULT_MODEL_DIR / "orcai_parameter.json")
+    param["seed"] = seed
+    param["model"].update(epochs=1, learning_rate=TRAIN_LR)
+    walls, dirs = {}, {}
+    for name, device in (("one_process", "cuda"), ("two_ranks", ["cuda:0", "cuda:0"])):
+        dirs[name] = tmp / f"dp_{name}" / param["name"]
+        shutil.copytree(DEFAULT_MODEL_DIR, dirs[name], ignore=shutil.ignore_patterns(
+            "test", "*.md", "training_history.json", "train_state.json"))
+        t0 = time.perf_counter()
+        train(data_dir, dirs[name].parent, orcai_parameter=param, device=device,
+              load_model=True)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+    hist = {k: read_json(d / "training_history.json") for k, d in dirs.items()}
+    metric_rel = max(abs(hist["two_ranks"][k][0] - v[0]) / max(abs(v[0]), 1e-12)
+                     for k, v in hist["one_process"].items())
+    states = {k: load_orcai_model(d, device="cpu")[0].state_dict() for k, d in dirs.items()}
+    one, two = states["one_process"], states["two_ranks"]
+    params = [k for k in one if "running" not in k and "bias_hh" not in k]
+    stats = [k for k in one if "running" in k]
+    w_rel, s_rel = _norm_rel(two, one, params), _norm_rel(two, one, stats)
+    if not max(metric_rel, w_rel, s_rel) <= RUNNER_RTOL:
+        raise AssertionError(f"two gloo ranks against one process: metrics {metric_rel}, "
+                             f"weights {w_rel}, statistics {s_rel} > {RUNNER_RTOL}: {hist}")
+    start = load_orcai_model(device="cpu")[0].state_dict()
+    return {"histories": hist, "metrics_max_rel_diff": metric_rel,
+            "weights_norm_rel_diff": w_rel,
+            "weights_max_elem_rel_diff": _max_elem_rel(two, one, params),
+            "bn_stats_norm_rel_diff": s_rel,
+            "weights_change_rel_diff": _change_rel(two, one, start, params),
+            "bn_stats_change_rel_diff": _change_rel(two, one, start, stats),
+            "train_wall_s": walls}
+
+
+def _search_trial_mesh(torch, tmp: Path, data_dir: Path) -> dict:
+    """`hyperparameter_search` without `parallel` over ["cuda:0", "cuda:0"]
+    (each trial data-parallel over both, two spawned gloo processes, as
+    mesh_for_batch gives the reference's trial its mesh) against the same
+    search on "cuda": one bracket of one trial (max_epochs 1) at the
+    default space's widths; the same trial and config, its losses within
+    RUNNER_RTOL. From fresh weights the validation MBA reads the card's
+    noise (half the probabilities sit by 0.5): reported, not held."""
+    from orcai_tpu_torch.io.jsonio import read_json
+    from orcai_tpu_torch.resources import DEFAULT_HPS_PARAMETER, DEFAULT_ORCAI_PARAMETER
+    from orcai_tpu_torch.train.hpsearch import hyperparameter_search
+
+    param = {**read_json(DEFAULT_ORCAI_PARAMETER), "seed": HPS_SEED}
+    records, walls = {}, {}
+    for name, device in (("one_device", "cuda"), ("two_ranks", ["cuda:0", "cuda:0"])):
+        out = tmp / f"hps_mesh_{name}"
+        t0 = time.perf_counter()
+        hyperparameter_search(data_dir, out, orcai_parameter=param,
+                              hps_parameter=read_json(DEFAULT_HPS_PARAMETER), max_epochs=1,
+                              factor=2, device=device)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        store = out / "hps_logs" / param["name"]
+        records[name] = {p.stem: read_json(p) for p in sorted(store.glob("trial_*.json"))}
+    one, two = records["one_device"], records["two_ranks"]
+    if sorted(one) != sorted(two) or len(one) != 1:
+        raise AssertionError(f"trials {sorted(one)} and {sorted(two)}")
+    trial = next(iter(one))
+    h1, h2 = one[trial].pop("history"), two[trial].pop("history")
+    loss_rel = max(abs(h2[k][0] - h1[k][0]) / abs(h1[k][0]) for k in ("loss", "val_loss"))
+    config = ("filters", "kernel_size", "dropout_rate", "batch_size", "lstm_units", "epochs")
+    if any(one[trial][k] != two[trial][k] for k in config) or not loss_rel <= RUNNER_RTOL:
+        raise AssertionError(f"a trial over two ranks against one device: {h2} against {h1}")
+    return {"trial": trial, "config": {k: one[trial][k] for k in config},
+            "loss_max_rel_diff": loss_rel, "histories": {"one_device": h1, "two_ranks": h2},
+            "search_wall_s": walls}
+
+
+def _window_split(torch, tmp: Path, state: dict, total: dict) -> dict:
+    """The bundled model's predictor over ["cuda:0", "cuda:0"]: golden in
+    memory and streamed, the 20-minute recording's TSV and aggregate against
+    one replica's, the kernels' launches as on one device."""
+    import numpy as np
+
+    from orcai_tpu_torch.io.model_store import DEFAULT_MODEL_DIR
+    from orcai_tpu_torch.io.wav import load_wav_for_frontend
+    from orcai_tpu_torch.pipeline.predict import build_predictor, predict
+
+    golden = (FIXTURES / "golden_expected.txt").read_bytes()
+    split, _, _ = build_predictor(DEFAULT_MODEL_DIR, 128, ["cuda:0", "cuda:0"])
+    if len(split.replicas) != 2 or split.dense_trunk:
+        raise AssertionError("the predictor did not split over two replicas")
+    line = {}
+    reset_counts()
+    predict(FIXTURES / "golden.wav", output_path=tmp / "split_golden.txt", overwrite=True,
+            predictor=split)
+    torch.cuda.synchronize()
+    counts = read_counts(total)
+    check_counts(counts, 1, "split golden")
+    if (tmp / "split_golden.txt").read_bytes() != golden:
+        raise AssertionError("golden through the window split differs")
+    line["golden_launches"] = counts
+    sp = state["param"]["spectrogram"]
+    n_golden = load_wav_for_frontend(FIXTURES / "golden.wav", sr=sp["sampling_rate"])[0].shape[-1]
+    b1, b2 = streaming_launches(n_golden, split, sp["n_overlap"])
+    run = _streamed_predict(torch, FIXTURES / "golden.wav", tmp / "split_golden_s.txt", split,
+                            total, "split golden streamed", b1, b2,
+                            ORCAI_TPU_STREAM_SPEC_BYTES=1)
+    if (tmp / "split_golden_s.txt").read_bytes() != golden:
+        raise AssertionError("golden streamed through the window split differs")
+    line["golden_streamed_launches"] = run["launches"]
+    reset_counts()
+    t0 = time.perf_counter()
+    predict(state["wav"], output_path=tmp / "split_20min.txt", overwrite=True, predictor=split)
+    torch.cuda.synchronize()
+    line["min20_predict_wall_s"] = time.perf_counter() - t0
+    counts = read_counts(total)
+    check_counts(counts, 7, "split 20 min")
+    line["min20_launches"] = counts
+    if (tmp / "split_20min.txt").read_bytes() != state["tsv"].read_bytes():
+        raise AssertionError("the 20-minute TSV through the window split differs")
+    walls = {}
+    for name, pred in (("one_replica", state["predictor"]), ("two_replicas", split),
+                       ("two_replicas_again", split), ("one_replica_again", state["predictor"])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agg, count, n_out = pred.aggregate_device(state["spec"], n_frames=state["n_frames"])
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        if name == "two_replicas":
+            aggregated, overlap = pred.fetch_aggregated(agg, count, n_out)
+    diff = float(np.abs(aggregated - state["aggregated"]).max())
+    if not np.array_equal(overlap, state["overlap"]) or not diff <= PAR_SPLIT_ATOL:
+        raise AssertionError(f"20-minute aggregate through the split: {diff} > {PAR_SPLIT_ATOL}")
+    line.update(min20_aggregate_max_abs_diff=diff, min20_crnn_walls_s=walls,
+                split_atol=PAR_SPLIT_ATOL)
+    return line
+
+
+def _two_process_fan_out(torch, tmp: Path, state: dict, data_dir: Path, total: dict) -> dict:
+    """create-spectrograms over the data_prep project, predict over a
+    three-row table and a search on `data_dir`, each in two processes joined
+    by a launcher's environment, against one process."""
+    import gzip
+    import socket
+
+    from orcai_tpu_torch.io.jsonio import read_json
+    from orcai_tpu_torch.pipeline.predict import DEFAULT_CALL_DURATION_LIMITS, predict
+    from orcai_tpu_torch.resources import DEFAULT_ORCAI_PARAMETER
+    from orcai_tpu_torch.train.hpsearch import hyperband_schedule
+
+    project = tmp / "data_prep"
+    recs = tmp / "par_recordings"
+    recs.mkdir()
+    shutil.copy(FIXTURES / "golden.wav", recs / "golden.wav")
+    os.link(state["wav"], recs / "synthetic_20min.wav")
+    table = tmp / "par_table.csv"
+    table.write_text(
+        "recording,channel,base_dir_recording,rel_recording_path\n"
+        f"golden,1,{recs},golden.wav\n"
+        f"synthetic_20min,1,{recs},synthetic_20min.wav\n"
+        f"missing,1,{recs},missing.wav\n"
+    )
+    reset_counts()
+    one_pred = predict(table, output_path=tmp / "par_pred_one", save_probabilities=True,
+                       call_duration_limits=DEFAULT_CALL_DURATION_LIMITS,
+                       predictor=state["predictor"])
+    torch.cuda.synchronize()
+    check_counts(read_counts(total), 1 + 7, "the one-process table", b2=6, pick=6)
+    hps_param = {**read_json(DEFAULT_ORCAI_PARAMETER), "seed": HPS_SEED}
+    args = {"spec_table": str(project / "recording_table.csv"),
+            "spec_param": str(project / "param.json"), "spec_out": str(tmp / "par_spec"),
+            "pred_table": str(table), "pred_out": str(tmp / "par_pred"),
+            "tvt": str(data_dir), "hps_out": str(tmp / "par_hps"), "hps_param": hps_param,
+            "max_epochs": PAR_HPS_MAX_EPOCHS, "factor": PAR_HPS_FACTOR}
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", PAR_CHILD, json.dumps(args)], cwd=ROOT,
+        env={**os.environ, "WORLD_SIZE": "2", "RANK": str(rank), "MASTER_ADDR": "localhost",
+             "MASTER_PORT": str(port)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for rank in range(2)]
+    lines, logs = [], []
+    for rank, proc in enumerate(procs):
+        out, err = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"fan-out process {rank} exited {proc.returncode}:\n"
+                                 f"{err[-4000:]}")
+        lines.append(json.loads(out.split("PAR-CHILD ", 1)[1]))
+        logs.append(err)
+    wall = time.perf_counter() - t0
+
+    # create-spectrograms: disjoint shares, the stores byte-equal to data_prep's
+    spec_out, spec_one = tmp / "par_spec", project / "data"
+    made = sorted(p.name for p in spec_out.iterdir())
+    if sum(line["spectrograms"] for line in lines) != len(made) or made != sorted(
+            p.parent.name for p in spec_one.glob("*/spectrogram")):
+        raise AssertionError(f"fanned-out spectrograms {made}, shares "
+                             f"{[line['spectrograms'] for line in lines]}")
+    for rec in made:
+        for path in sorted((spec_out / rec / "spectrogram").rglob("*")):
+            twin = spec_one / rec / "spectrogram" / path.relative_to(spec_out / rec / "spectrogram")
+            if path.is_file() and path.read_bytes() != twin.read_bytes():
+                raise AssertionError(f"fanned-out store {path} differs from one process's")
+    # predict: rows 0 and 2 in process 0, row 1 in process 1; byte-equal TSVs
+    shares = [line["predicted"] for line in lines]
+    if shares != [["golden_orcai-v1_predicted.txt"], ["synthetic_20min_orcai-v1_predicted.txt"]]:
+        raise AssertionError(f"predict shares {shares}")
+    probabilities_equal = True
+    for p in one_pred:
+        twin = tmp / "par_pred" / p.name
+        if twin.read_bytes() != p.read_bytes():
+            raise AssertionError(f"fanned-out {p.name} differs from one process's")
+        for q in p.parent.glob(p.name.replace("_predicted.txt", "*.csv.gz")):
+            probabilities_equal &= (gzip.decompress(q.read_bytes()) == gzip.decompress(
+                (tmp / "par_pred" / q.name).read_bytes()))
+    # the search: every trial once, process 1 published nothing, rerun CACHED
+    store = tmp / "par_hps" / "hps_logs" / hps_param["name"]
+    n_trials = sum(n for rungs in hyperband_schedule(PAR_HPS_MAX_EPOCHS, PAR_HPS_FACTOR)
+                   for n, _ in rungs)
+    first = [r[-1] for r in (t.split(",") for t in
+                             lines[0]["search_all_trials_csv"].splitlines()[1:])]
+    rerun = [r[-1] for r in (t.split(",") for t in
+                             lines[0]["rerun_all_trials_csv"].splitlines()[1:])]
+    if (len(list(store.glob("trial_*.json"))) != n_trials or len(first) != n_trials
+            or not {"COMPLETED", "CACHED"} <= set(first) or rerun != ["CACHED"] * n_trials):
+        raise AssertionError(f"two-process search: {len(list(store.glob('trial_*.json')))} "
+                             f"records, first {first}, rerun {rerun}")
+    if "worker process" not in logs[1] or "Saved best model" in logs[1]:
+        raise AssertionError("process 1 published search outputs")
+    if _without_status(lines[0]["search_all_trials_csv"]) != _without_status(
+            lines[0]["rerun_all_trials_csv"]):
+        raise AssertionError("all_trials.csv differs on the rerun")
+    return {"wall_s": wall, "processes": [{k: v for k, v in line.items()
+                                           if not k.endswith("_csv")} for line in lines],
+            "spectrograms_byte_equal": made, "predict_tsvs_byte_equal": True,
+            "probabilities_equal": probabilities_equal,
+            "search": {"max_epochs": PAR_HPS_MAX_EPOCHS, "factor": PAR_HPS_FACTOR,
+                       "rung_trials": n_trials, "first_statuses": first,
+                       "rerun_all_cached": True,
+                       "best": read_json(tmp / "par_hps" / "hps_logs" /
+                                         "best_hyperparameters.json")}}
+
+
+def phase_parallel(torch, tmp: Path, seed: int, state: dict, data_dir: Path,
+                   total: dict) -> dict:
+    """parallel/ on one card: an NCCL group of one rank against the plain
+    Trainer, two gloo ranks sharing the card against one process (an epoch
+    of `train`, and 8 steps beside a plain DDP wrap as the control), the
+    window split over the card named twice, and the two-process fan-out of
+    the table commands and of a search."""
+    line = {"phase": "parallel"}
+    walls = {}
+    for name, part in (
+            ("nccl_one_rank", lambda: _nccl_one_rank(torch, tmp, data_dir, seed)),
+            ("two_gloo_ranks", lambda: _two_gloo_ranks(torch, tmp, data_dir, seed)),
+            ("two_ranks_against_control",
+             lambda: _two_ranks_against_control(torch, tmp, data_dir, seed)),
+            ("search_trial_mesh", lambda: _search_trial_mesh(torch, tmp, data_dir)),
+            ("window_split", lambda: _window_split(torch, tmp, state, total)),
+            ("fan_out", lambda: _two_process_fan_out(torch, tmp, state, data_dir, total))):
+        t0 = time.perf_counter()
+        line[name] = part()
+        walls[name] = time.perf_counter() - t0
+    line["walls_s"] = walls
+    line["note"] = ("one card: the ranks and replicas share it, so no time here is a "
+                    "multi-GPU speed-up")
+    return line
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2574,6 +3110,8 @@ def main(argv=None) -> int:
             emit(phase_warmup_serve(torch, Path(tmp)))
             phase = "reference_formats"
             emit(phase_reference_formats(torch, Path(tmp), args.seed, state, total))
+            phase = "parallel"
+            emit(phase_parallel(torch, Path(tmp), args.seed, state, trained["data_dir"], total))
     except Exception as e:  # report the phase, then fail the run
         traceback.print_exc()
         emit({"phase": phase, "ok": False, "error": f"{type(e).__name__}: {e}"})
@@ -2581,7 +3119,9 @@ def main(argv=None) -> int:
     # every kernel's launches, summed over the paths driven above (golden,
     # 20-minute, streaming, table, service, the trained models' and the
     # searched model's predicts, bf16 predict, create-spectrograms, golden
-    # from the reference-format dirs); each
+    # from the reference-format dirs, the window split's predicts and the
+    # fan-out's one-process table; the fan-out's own processes count their
+    # own); each
     # path asserted its own. Training, the search and evaluation read stored
     # spectrograms and launch none of these kernels; the warmup and serve
     # processes count their own.

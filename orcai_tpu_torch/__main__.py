@@ -8,7 +8,9 @@ hpsearch` and the data preparation commands `orcai init`,
 `convert-dataset` (orcai_tpu/cli.py), with the same options, plus
 `--device`. Every command that computes on a device runs on `--device cuda`
 unless told otherwise, and raises without CUDA; the table, label and
-dataset steps run on the host, as in the reference.
+dataset steps run on the host, as in the reference. Started once per
+process by a launcher (WORLD_SIZE > 1, with RANK, LOCAL_RANK, MASTER_ADDR
+and MASTER_PORT), a command joins the launcher's process group first.
 """
 
 from __future__ import annotations
@@ -364,6 +366,11 @@ def main(argv=None) -> int:
             if args[key] is not None:
                 args[key] = str(Path(args[key]).resolve())
     logging.basicConfig(level=_LOG_LEVELS[args.pop("verbosity")], format="%(message)s")
+    # started by a launcher once per process (torchrun and the like): join
+    # its group; the batch commands then split their work over it
+    from orcai_tpu_torch.parallel.distributed import join_launched_group
+
+    join_launched_group()
     if "model" in args:  # predict, serve, warmup: --model_dir wins over --model
         from orcai_tpu_torch.io.model_store import MODELS_DATA_DIR
 

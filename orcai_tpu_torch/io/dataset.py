@@ -295,11 +295,16 @@ class ArrayDataset:
         shuffle: bool = True,
         drop_remainder: bool = True,
         epoch: int = 0,
+        rows=None,
     ):
-        """Yield (x, y) numpy batches with a per-epoch seeded permutation."""
+        """Yield (x, y) numpy batches with a per-epoch seeded permutation;
+        `rows` maps each batch's index row before it is read (a process of
+        data-parallel training takes its block of it)."""
         for idx in epoch_permutation(
             len(self), batch_size, seed, epoch, shuffle, drop_remainder
         ):
+            if rows is not None:
+                idx = rows(idx)
             yield self.x[idx], self.y[idx]
 
     def n_batches(self, batch_size: int, drop_remainder: bool = True) -> int:

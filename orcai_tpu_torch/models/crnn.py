@@ -137,6 +137,16 @@ class _Detector(nn.Module):
             if isinstance(module, Dropout):
                 module.generator = generator
 
+    def set_data_parallel(self, rank: int | None, world: int = 1) -> None:
+        """Train as block `rank` of a global batch split over `world`
+        processes of the default group: global BatchNorm statistics and
+        dropout masks (models/layers.py). rank None trains alone again."""
+        for module in self.modules():
+            if isinstance(module, BatchNorm):
+                module.sync = rank is not None
+            elif isinstance(module, Dropout):
+                module.shard = None if rank is None else (int(rank), int(world))
+
     def head(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         raise NotImplementedError
 

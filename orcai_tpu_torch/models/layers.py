@@ -9,11 +9,19 @@ cells (dilation counted) k - 1 cells in all, the extra one on the high side.
 
 Like the flax modules, a layer that behaves differently in training takes
 the mode as an argument (`train`) and ignores `nn.Module.training`.
+
+In data-parallel training (each process of a group holding a contiguous
+block of the global batch) BatchNorm's statistics and Dropout's masks are
+those of the global batch, as they are under the reference's GSPMD
+partitioning: BatchNorm.sync all-reduces the statistics over the group,
+Dropout.shard draws the global mask and keeps the process's rows.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 from torch import nn
 
@@ -123,11 +131,18 @@ class BatchNorm(nn.Module):
     it runs here on scratch buffers with momentum 1, which leaves the
     batch's own statistics in them, and the variance is scaled back by
     (n - 1) / n, n being every element of a channel (B * T for a sequence).
+
+    With `sync` (data-parallel training) the mean and the biased variance
+    are those of every process's batch: two all-reduces over the default
+    group, of the per-channel sums and then of the squared deviations from
+    the global mean, both differentiable (their backward all-reduces the
+    gradients), and n counts the global batch.
     """
 
     def __init__(self, features: int, eps: float = BN_EPS):
         super().__init__()
         self.eps = eps
+        self.sync = False
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -140,6 +155,8 @@ class BatchNorm(nn.Module):
                 self.bias, training=False, eps=self.eps,
             )
             return y.to(x.dtype)
+        if self.sync:
+            return self._forward_sync(x)
         n = x.numel() // x.shape[1]
         mean = torch.zeros_like(self.running_mean)
         var = torch.ones_like(self.running_var)
@@ -154,6 +171,28 @@ class BatchNorm(nn.Module):
             self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
         return y.to(x.dtype)
 
+    def _forward_sync(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        dims = [d for d in range(xf.dim()) if d != 1]
+        shape = [1, -1] + [1] * (xf.dim() - 2)
+        # every process holds a block of the same size
+        n = xf.numel() // xf.shape[1] * dist.get_world_size()
+        mean = dist_nn.all_reduce(xf.sum(dims)) / n
+        centered = xf - mean.view(shape)
+        var = dist_nn.all_reduce((centered * centered).sum(dims)) / n
+        y = centered * torch.rsqrt(var + self.eps).view(shape)
+        y = y * self.weight.view(shape) + self.bias.view(shape)
+        with torch.no_grad():
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean.detach(), alpha=1 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var.detach(), alpha=1 - BN_MOMENTUM)
+        # F.batch_norm's output layout (a dropout mask drawn next fills
+        # memory in order, so the layout is part of the result)
+        channels_last = (x.dim() == 4 and not x.is_contiguous()
+                         and x.is_contiguous(memory_format=torch.channels_last))
+        return y.to(x.dtype).contiguous(
+            memory_format=torch.channels_last if channels_last else torch.contiguous_format
+        )
+
 
 class Dropout(nn.Module):
     """Inverted dropout whose mask comes from an explicit torch.Generator.
@@ -163,6 +202,11 @@ class Dropout(nn.Module):
     checkpoint can store the generator's state and a resumed run draws the
     masks an uninterrupted one would. Kept values are scaled by
     1 / (1 - rate), as flax nn.Dropout scales them.
+
+    With `shard` = (rank, world) the input is block `rank` of a global
+    batch `world` times its size: the mask is drawn for the global batch
+    (the generators of all processes move in step) and the block's rows
+    are kept, so the masks do not depend on the number of processes.
     """
 
     def __init__(self, rate: float):
@@ -171,6 +215,7 @@ class Dropout(nn.Module):
             raise ValueError(f"dropout rate {rate} outside [0, 1)")
         self.rate = float(rate)
         self.generator: torch.Generator | None = None
+        self.shard: tuple[int, int] | None = None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if not train or self.rate == 0.0:
@@ -181,8 +226,30 @@ class Dropout(nn.Module):
                 "set_dropout_generator first"
             )
         keep = 1.0 - self.rate
-        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        if self.shard is None:
+            mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        else:
+            rank, world = self.shard
+            b = x.shape[0]
+            mask = _global_like(x, world).bernoulli_(keep, generator=self.generator)
+            mask = mask[rank * b : (rank + 1) * b]
         return x * mask * (1.0 / keep)
+
+
+def _global_like(x: torch.Tensor, world: int) -> torch.Tensor:
+    """An empty tensor of `world` times x's rows, laid out in memory as
+    torch.empty_like lays out such a tensor in one process: a draw fills
+    memory in order, so the layout decides which element gets which
+    number (an LSTM's batch-first output, say, is time-major)."""
+    shape = (x.shape[0] * world, *x.shape[1:])
+    order = sorted(range(x.dim()), key=lambda d: -x.stride(d))
+    span = 1
+    for d in reversed(order):
+        if x.shape[d] != 1 and x.stride(d) != span:
+            return x.new_empty(shape)  # not dense: empty_like is contiguous
+        span *= x.shape[d]
+    inverse = sorted(range(x.dim()), key=order.__getitem__)
+    return x.new_empty([shape[d] for d in order]).permute(inverse)
 
 
 class LSTM(nn.Module):

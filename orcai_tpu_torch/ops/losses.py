@@ -25,10 +25,8 @@ def _bce_elements(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def masked_bce_from_logits(logits: torch.Tensor, y_true: torch.Tensor) -> torch.Tensor:
     """Mean binary cross-entropy over unmasked positions, from logits."""
-    mask = _mask(y_true)
-    y = torch.where(mask, y_true, 0.0)
-    total = torch.where(mask, _bce_elements(logits, y), 0.0).sum()
-    return total / mask.sum().clamp(min=1)
+    total, count = weighted_masked_bce_sums(logits, y_true, None)
+    return total / count.clamp(min=1)
 
 
 def masked_bce_from_probs(probs: torch.Tensor, y_true: torch.Tensor) -> torch.Tensor:
@@ -58,20 +56,29 @@ def masked_binary_accuracy(
     return correct / total.clamp(min=1)
 
 
+def weighted_masked_bce_sums(
+    logits: torch.Tensor, y_true: torch.Tensor, call_weights: torch.Tensor | None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum, count) of weighted_masked_bce_from_logits, before the count is
+    clamped and divides: data-parallel training adds the counts of every
+    process first, since the mean of per-process means is not the mean."""
+    mask = _mask(y_true)
+    y = torch.where(mask, y_true, 0.0)
+    if call_weights is None:
+        return torch.where(mask, _bce_elements(logits, y), 0.0).sum(), mask.sum()
+    w = torch.where(y > 0.5, call_weights.to(logits.dtype), 1.0)
+    total = torch.where(mask, _bce_elements(logits, y) * w, 0.0).sum()
+    return total, torch.where(mask, w, 0.0).sum()
+
+
 def weighted_masked_bce_from_logits(
     logits: torch.Tensor, y_true: torch.Tensor, call_weights: torch.Tensor | None
 ) -> torch.Tensor:
     """Masked BCE with per-call weights applied to positive positions
     (Keras' class_weight for multi-label outputs): positions where a call
     is present are scaled by that call's weight, in the sum and the count."""
-    if call_weights is None:
-        return masked_bce_from_logits(logits, y_true)
-    mask = _mask(y_true)
-    y = torch.where(mask, y_true, 0.0)
-    w = torch.where(y > 0.5, call_weights.to(logits.dtype), 1.0)
-    total = torch.where(mask, _bce_elements(logits, y) * w, 0.0).sum()
-    count = torch.where(mask, w, 0.0).sum().clamp(min=1.0)
-    return total / count
+    total, count = weighted_masked_bce_sums(logits, y_true, call_weights)
+    return total / count.clamp(min=1)
 
 
 def masked_auc_roc(

@@ -1,6 +1,6 @@
 """Sliding-window CRNN inference with overlap-add, on the device.
 
-Counterpart of orcai_tpu/ops/overlap.py (single-device windowed path).
+Counterpart of orcai_tpu/ops/overlap.py.
 Window geometry matches the reference exactly: stride = snippet_len // 2,
 output grid = T // 2**n_filters rows, window i writing output rows
 [i * shift_out, i * shift_out + out_len), average over overlap counts,
@@ -20,8 +20,15 @@ exact overlap-save: each slab carries a halo of at least the trunk's
 receptive-field radius, so interior trunk steps equal a dense trunk over
 the whole recording; the numbers differ from the windowed path's only where
 a window's zero padding differs from the real neighbouring frames. Off by
-default, as in the reference, and never taken by the streaming path. The
-sharded (mesh) path is not ported.
+default, as in the reference, and never taken by the streaming path.
+
+Several devices (`devices`, a mesh of parallel/mesh.py): each batch of
+windows is cut into contiguous blocks, one for a replica of the model on
+each device, as the reference shards the window axis over its mesh's
+"data" axis; the predictions come back to the first device, where the
+spectrogram and the output grid live, so every output row receives the
+same contributions as on one device. The batch size is rounded up to a
+multiple of the device count and the dense trunk is off, as there.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ import os
 
 import numpy as np
 import torch
+
+from orcai_tpu_torch.parallel.mesh import Replicas, shard_batch_size
 
 
 def _next_pow2(n: int, minimum: int = 4096) -> int:
@@ -45,7 +54,8 @@ class WindowPredictor:
     `model` is a module on the device the spectrograms live on; it maps
     (B, snippet_len, bins, 1) to (B, snippet_len / 2**n_filters, num_labels)
     float32 probabilities, and for the dense trunk takes `trunk_only` and
-    `head_input` (models/crnn.py).
+    `head_input` (models/crnn.py). `devices`, a list of more than one
+    device whose first is the model's, splits every batch over them.
     """
 
     def __init__(
@@ -56,9 +66,16 @@ class WindowPredictor:
         batch_size: int = 128,
         max_windows_per_chunk: int = 2048,
         dense_trunk: bool | None = None,
+        devices=None,
     ):
         self.model = model
         self.device = next(model.parameters()).device
+        self.replicas = None
+        if devices is not None and len(devices) > 1:
+            self.replicas = Replicas(model, devices)
+            self.model = self.replicas.models[0]
+            self.device = self.replicas.devices[0]
+            batch_size = shard_batch_size(batch_size, devices)
         self.batch_size = batch_size
         self.snippet_len = snippet_len
         self.shift = snippet_len // 2
@@ -80,7 +97,7 @@ class WindowPredictor:
         )
         if dense_trunk is None:
             dense_trunk = os.environ.get("ORCAI_TPU_DENSE_TRUNK") == "1"
-        self.dense_trunk = bool(dense_trunk)
+        self.dense_trunk = bool(dense_trunk) and self.replicas is None
         # trunk receptive-field radius in input frames: entry conv (k//2)
         # + per block b: two separable convs (2 * 2^b * (k//2)) + pool3
         # (2^b) + head separable conv (2^n_filters * (k//2)), rounded up to
@@ -173,8 +190,9 @@ class WindowPredictor:
         halves = chunk.reshape(wpc + 1, self.shift, n_bins)
         windows = torch.cat([halves[:-1], halves[1:]], dim=1)[..., None]
         bsz = min(self.batch_size, wpc)
+        forward = self.model if self.replicas is None else self.replicas
         preds = torch.cat(
-            [self.model(windows[i : i + bsz]) for i in range(0, wpc, bsz)]
+            [forward(windows[i : i + bsz]) for i in range(0, wpc, bsz)]
         )
         self._scatter(agg, count, preds, w0, n_win_valid)
 

@@ -255,9 +255,3 @@ def create_recording_table(
              int((~isna(table["rel_annotation_path"])).sum()))
     return table
 
-
-def shard_table_for_process(table: Table) -> Table:
-    """The rows this process produces: all of them. The reference splits
-    the recordings round-robin over the processes of a multi-host run
-    (orcai_tpu/parallel/distributed.py), which the port does not have."""
-    return table

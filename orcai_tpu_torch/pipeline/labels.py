@@ -19,7 +19,7 @@ from orcai_tpu_torch.io.annotations import read_annotation_file
 from orcai_tpu_torch.io.jsonio import generate_times_from_spectrogram, read_json, write_json
 from orcai_tpu_torch.io.tables import Table, isna
 from orcai_tpu_torch.io.zarrlite import save_as_zarr
-from orcai_tpu_torch.pipeline.helpers import shard_table_for_process
+from orcai_tpu_torch.parallel.distributed import shard_table_for_process
 from orcai_tpu_torch.resources import DEFAULT_ORCAI_PARAMETER as DEFAULT_PARAMETER
 from orcai_tpu_torch.utils.seeds import MASK_VALUE
 

@@ -10,7 +10,9 @@ of start/stop seconds rounded to 4 places and the label with its suffix,
 an optional `*_probabilities.csv.gz`, both byte-equal in text to what the
 reference writes. `wire` picks the upload's byte form (ops/wire_codec.py,
 ops/spectral.py); None or "auto" resolves through ORCAI_TPU_WIRE, else to
-exact. The mesh and the per-process sharding of a table are not ported.
+exact. The windows of every batch are split over the process's local
+devices (parallel/mesh.py), and in a group of several processes each
+predicts its round-robin share of a table's recordings.
 
 Three byte budgets, each an environment variable: a recording whose
 spectrogram would pass ORCAI_TPU_STREAM_SPEC_BYTES (default 4e9) takes the
@@ -40,8 +42,10 @@ from orcai_tpu_torch.ops.frontend import (
 )
 from orcai_tpu_torch.ops.overlap import WindowPredictor
 from orcai_tpu_torch.ops.streaming import StreamingPredictor
+from orcai_tpu_torch.parallel.distributed import shard_table_for_process
+from orcai_tpu_torch.parallel.mesh import local_devices
 from orcai_tpu_torch.resources import DEFAULT_CALL_DURATION_LIMITS
-from orcai_tpu_torch.utils.device import exact_f32_math, resolve_device
+from orcai_tpu_torch.utils.device import exact_f32_math
 from orcai_tpu_torch.utils.rle import runs_from_binary_matrix
 
 log = logging.getLogger(__name__)
@@ -404,18 +408,25 @@ def _predict_and_save(
 
 
 def build_predictor(
-    model_dir: Path, predict_batch_size: int, device: str | torch.device
+    model_dir: Path, predict_batch_size: int, device
 ) -> tuple[WindowPredictor, dict, dict]:
-    """(WindowPredictor on `device`, orcai_parameter, shape) for a model
-    directory, in the compute dtype ORCAI_TPU_PREDICT_DTYPE names."""
+    """(WindowPredictor, orcai_parameter, shape) for a model directory, in
+    the compute dtype ORCAI_TPU_PREDICT_DTYPE names, its windows split over
+    local_devices(device): every visible card for "cuda" (in a group of
+    several processes, this process's share: each process predicts other
+    recordings), or a list of devices."""
+    devices = local_devices(device)
     model, orcai_parameter, shape = load_orcai_model(
-        model_dir, resolve_predict_dtype(), resolve_device(device)
+        model_dir, resolve_predict_dtype(), devices[0]
     )
+    if len(devices) > 1:
+        log.info("Sharding inference windows over %d devices", len(devices))
     predictor = WindowPredictor(
         model,
         snippet_len=shape["input_shape"][0],
         n_filters=len(orcai_parameter["model"]["filters"]),
         batch_size=predict_batch_size,
+        devices=devices,
     )
     return predictor, orcai_parameter, shape
 
@@ -446,6 +457,9 @@ def _predict_table(
     if output_path is not None and output_path != "default":
         # in table mode output_path names a folder, made up front
         Path(output_path).mkdir(parents=True, exist_ok=True)
+    # in a group of several processes each predicts its round-robin share
+    # of the table's independent recordings; one process keeps them all
+    table = shard_table_for_process(table)
     log.info("Predicting annotations for %d wav files", len(table))
 
     wave_budget = int(os.environ.get("ORCAI_TPU_WAVE_HBM_BYTES", 6_000_000_000))
@@ -540,8 +554,10 @@ def predict(
     logged while the batch goes on. `call_duration_limits` (a dict or a
     JSON file) drops calls outside their duration limits; None keeps all.
 
+    `device` "cuda" splits each batch of windows over every visible card
+    (build_predictor); "cuda:<i>", "cpu" or a list of devices name them.
     Passing `predictor` reuses an already-built WindowPredictor for the same
-    model (its device decides where the work runs). ORCAI_TPU_PREDICT_DTYPE
+    model (its devices decide where the work runs). ORCAI_TPU_PREDICT_DTYPE
     =bf16 runs the CRNN forward in bfloat16 with float32 parameters.
 
     `wire` is the upload's byte form: "exact" (the PCM as it is), "mulaw8",

@@ -31,7 +31,7 @@ from orcai_tpu_torch.io.jsonio import read_json, write_vector_to_json
 from orcai_tpu_torch.io.tables import Table, isna
 from orcai_tpu_torch.io.wav import load_wav
 from orcai_tpu_torch.io.zarrlite import resolve_zarr_codec, save_as_zarr
-from orcai_tpu_torch.pipeline.helpers import shard_table_for_process
+from orcai_tpu_torch.parallel.distributed import shard_table_for_process
 from orcai_tpu_torch.resources import DEFAULT_ORCAI_PARAMETER as DEFAULT_PARAMETER
 
 log = logging.getLogger(__name__)

@@ -30,7 +30,8 @@ from orcai_tpu_torch.io.dataset import ArrayDataset, epoch_permutation
 from orcai_tpu_torch.io.tables import Table
 from orcai_tpu_torch.io.model_store import load_orcai_model
 from orcai_tpu_torch.native import quantize_linear_native
-from orcai_tpu_torch.utils.device import exact_f32_math, resolve_device
+from orcai_tpu_torch.parallel.mesh import local_devices, mesh_for_batch
+from orcai_tpu_torch.utils.device import exact_f32_math
 from orcai_tpu_torch.utils.seeds import (
     MASK_VALUE,
     SEED_ID_LOAD_TEST_DATA,
@@ -343,19 +344,29 @@ def test_model(
 ) -> Path:
     """Evaluate a trained model on the test (and optional unfiltered test)
     dataset; writes metrics JSON + confusion/misclassification CSVs and
-    returns the directory they are in (default <model_dir>/test)."""
+    returns the directory they are in (default <model_dir>/test).
+
+    Each batch is split over the largest number of local_devices(device)
+    that divides the batch size (every visible card for "cuda", or a list
+    of devices), as the reference's mesh_for_batch splits it; the loss and
+    the counts are those of the whole batch."""
     from orcai_tpu_torch.train.trainer import Trainer
 
-    dev = resolve_device(device)
     data_dir = Path(data_dir)
     model_dir = Path(model_dir)
     output_dir = Path(output_dir) if output_dir else model_dir / "test"
 
+    devices = local_devices(device)
     log.info("Loading model")
-    model, orcai_parameter, _ = load_orcai_model(model_dir, device=dev)
+    # on the host first: the batch size decides the devices, the Trainer
+    # moves the model to the first
+    model, orcai_parameter, _ = load_orcai_model(model_dir, device="cpu")
     mp = orcai_parameter["model"]
     calls = orcai_parameter["calls"]
-    trainer = Trainer(model, mp["learning_rate"], device=dev)
+    devices = mesh_for_batch(mp["batch_size"], devices)
+    if len(devices) > 1:
+        log.info("Splitting test batches over %d devices", len(devices))
+    trainer = Trainer(model, mp["learning_rate"], device=devices[0], eval_devices=devices)
 
     splits = [("test_dataset", "test_data", SEED_ID_LOAD_TEST_DATA)]
     if test_unfiltered and (data_dir / "test_unfiltered_dataset").exists():

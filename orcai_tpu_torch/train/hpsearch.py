@@ -1,11 +1,14 @@
 """Hyperparameter search: Hyperband as a host-side scheduler.
 
-Counterpart of orcai_tpu/train/hpsearch.py on one process:
+Counterpart of orcai_tpu/train/hpsearch.py:
 - the Hyperband brackets and successive halving are explicit
   (`hyperband_schedule`), configs are drawn from the choice grid of
   default_hps_parameter.json (`sample_configs`) by
   np.random.default_rng([13, search_seed]);
-- every trial is one `fit` of a fresh model on the trainer's device; a
+- every trial is one `fit` of a fresh model, over the largest share of the
+  local devices that divides its batch (mesh_for_batch), as the reference
+  trains a trial on its mesh: on one device in this process, over several
+  data-parallel in one process each (parallel/distributed.py::launch); a
   promoted config continues from its previous rung's best weights, history
   and epoch, with fresh EarlyStopping / ReduceLROnPlateau counters;
 - completed trials persist under <output_dir>/hps_logs/<name>/ (`TrialStore`:
@@ -13,15 +16,18 @@ Counterpart of orcai_tpu/train/hpsearch.py on one process:
   search resumes without repeating a trial. The store's files are the JAX
   package's, byte for byte where the numbers are the same: either package
   resumes a search the other started;
-- `parallel` runs a rung's trials in one thread per visible CUDA device,
+- `parallel` runs a rung's trials in one thread per local CUDA device,
   each device holding its own resident copy of the datasets; with one
-  device it warns and runs them in sequence.
+  device it warns and runs them in sequence;
+- in a process group of several processes (parallel/distributed.py) every
+  process computes the same schedule, runs its round-robin share of each
+  rung and reads the other trials' records from the shared store, which is
+  the rendezvous; process 0 alone draws a null seed's search seed and
+  publishes the outputs.
 
 Outputs: hps_logs/best_hyperparameters.json, hps_logs/all_trials.csv (the
 records without their histories, as pandas writes them) and the best model
-at <output_dir>/<name>/hps/. Multi-process fan-out (the reference's
-process_trial_partition over pod-slice hosts) is not part of this package:
-one process runs every trial.
+at <output_dir>/<name>/hps/.
 """
 
 from __future__ import annotations
@@ -31,7 +37,9 @@ import logging
 import math
 import os
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
@@ -43,6 +51,13 @@ from orcai_tpu_torch.io.model_store import save_orcai_model, to_flax_variables
 from orcai_tpu_torch.io.msgpack_lite import packb, unpackb
 from orcai_tpu_torch.io.tables import Table, object_column
 from orcai_tpu_torch.models import build_model
+from orcai_tpu_torch.parallel.distributed import (
+    launch,
+    process_count,
+    process_index,
+    process_partition,
+)
+from orcai_tpu_torch.parallel.mesh import local_devices, mesh_for_batch
 from orcai_tpu_torch.resources import DEFAULT_HPS_PARAMETER, DEFAULT_ORCAI_PARAMETER
 from orcai_tpu_torch.train.trainer import (
     DeviceData,
@@ -53,7 +68,7 @@ from orcai_tpu_torch.train.trainer import (
     state_dict_from_flax,
     streaming_runners,
 )
-from orcai_tpu_torch.utils.device import exact_f32_math, resolve_device
+from orcai_tpu_torch.utils.device import exact_f32_math
 from orcai_tpu_torch.utils.seeds import SEED_ID_LOAD_TRAIN_DATA, SEED_ID_LOAD_VAL_DATA
 
 log = logging.getLogger(__name__)
@@ -85,18 +100,26 @@ def sample_configs(hps_parameter: dict, n: int, rng: np.random.Generator):
 
 def local_device_ranks(indices) -> dict[int, int]:
     """Submission index -> dense 0-based rank among the submissions this
-    process runs (all of a rung's, with one process); a trial runs on
-    devices[rank % n_workers]."""
+    process runs; a trial runs on devices[rank % n_workers]. The rank, not
+    the index: a round-robin share's indices are all congruent to the
+    process id modulo the process count, so `devices[i % n_workers]` would
+    put all of a process's trials on one device."""
     return {i: r for r, i in enumerate(sorted(indices))}
 
 
-def local_devices(device: str | torch.device = "cuda") -> list[torch.device]:
-    """The devices `parallel` fans trials out to: every visible CUDA device
-    for "cuda", the one named for "cuda:<i>" or "cpu"."""
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    return [dev]
+def _wait_for_trial(store: "TrialStore", trial_id: str, timeout_s: float) -> dict:
+    """Block until another process's trial record lands in the shared store."""
+    t0 = time.time()
+    while True:
+        record = store.load(trial_id)
+        if record is not None:
+            return {**record, "status": "CACHED"}
+        if time.time() - t0 > timeout_s:
+            raise TimeoutError(
+                f"trial {trial_id} (assigned to another process) did not "
+                f"appear in the trial store within {timeout_s:.0f}s"
+            )
+        time.sleep(2.0)
 
 
 def hyperband_schedule(max_epochs: int, factor: int = 3):
@@ -199,11 +222,19 @@ def trials_table(all_trials: list[dict]) -> Table:
 
 def _search_seed(orcai_parameter: dict, store: TrialStore) -> int:
     """The project seed, or for a null one the seed this search drew on its
-    first run, persisted beside the trials."""
+    first run, persisted beside the trials. In a group only process 0
+    draws; the others wait for its file, so every process searches the
+    same schedule."""
     seed = orcai_parameter["seed"]
     if seed is not None:  # seed 0 is a real seed; only null draws one
         return seed
     seed_file = store.directory / "search_seed.json"
+    if process_index() != 0:
+        deadline = time.time() + 300
+        while not seed_file.exists():
+            if time.time() > deadline:
+                raise TimeoutError("waiting for process 0 to persist search_seed.json")
+            time.sleep(0.5)
     if seed_file.exists():
         return json.loads(seed_file.read_text())["seed"]
     seed = int(np.random.SeedSequence().entropy % (2**63))
@@ -211,6 +242,119 @@ def _search_seed(orcai_parameter: dict, store: TrialStore) -> int:
     tmp.write_text(json.dumps({"seed": seed}))
     tmp.replace(seed_file)  # atomic publish
     return seed
+
+
+@dataclass(frozen=True)
+class _Search:
+    """What every trial of a search shares. Picklable: a trial trained over
+    several devices runs in processes of its own."""
+
+    orcai_parameter: dict
+    hps_parameter: dict
+    input_shape: tuple
+    store_dir: Path
+    train_seed: list
+    val_seed: list
+    seed_int: int
+    monitor: str
+    early_stopping_patience: int
+    on_epoch_end: object = None
+
+
+def _train_trial(
+    search: _Search,
+    cfg: dict,
+    epochs: int,
+    trial_id: str,
+    device: torch.device,
+    data: tuple,
+    initial_epoch: int = 0,
+    carry_from: str | None = None,
+    distributed: bool = False,
+) -> dict:
+    """Train one trial on `device` over `data` (a DeviceData pair, or the
+    ArrayDatasets to stream) and record it in the store; distributed, this
+    process trains its block of every batch and process 0 records."""
+    store = TrialStore(search.store_dir)
+    param = _apply_config(search.orcai_parameter, search.hps_parameter, cfg)
+    mp = param["model"]
+    model = build_model(param, search.input_shape, dtype=resolve_compute_dtype(mp))
+    trainer = Trainer(model, mp["learning_rate"], device=device, distributed=distributed)
+    state = trainer.init_state(seed=search.seed_int)
+    initial_history = None
+    initial_best_state = None
+    if carry_from is not None:
+        carried = store.load_weights(carry_from)
+        prev_record = store.load(carry_from)
+        if carried is not None and prev_record is not None:
+            # the previous rung's best weights, a fresh Adam
+            initial_best_state = state_dict_from_flax(unpackb(carried))
+            state = trainer.state_from_variables(initial_best_state, seed=search.seed_int)
+            initial_history = prev_record.get("history")
+
+    train_data, val_data = data
+    if not isinstance(train_data, ArrayDataset):
+        run_train, run_val = device_runners(
+            trainer, train_data, val_data, mp["batch_size"], search.train_seed,
+            search.val_seed,
+        )
+    else:
+        run_train, run_val = streaming_runners(
+            trainer,
+            lambda e: train_data.batches(mp["batch_size"], seed=search.train_seed, epoch=e,
+                                         rows=trainer.block),
+            lambda e: val_data.batches(mp["batch_size"], seed=search.val_seed, epoch=e,
+                                       rows=trainer.block),
+        )
+    hook = None if search.on_epoch_end is None else (
+        lambda s, h, e, lr, c: search.on_epoch_end(trial_id, s, h, e, lr, c))
+    state, history = fit(
+        trainer,
+        state,
+        run_train,
+        run_val,
+        epochs=epochs,
+        monitor=search.monitor,
+        early_stopping_patience=search.early_stopping_patience,
+        reduce_lr_patience=mp["ReduceLROnPlateau_patience"],
+        reduce_lr_factor=mp["ReduceLROnPlateau_factor"],
+        reduce_lr_min=mp["ReduceLROnPlateau_min_learning_rate"],
+        on_epoch_end=hook,
+        initial_lr=mp["learning_rate"],
+        initial_epoch=initial_epoch,
+        initial_history=initial_history,
+        initial_best_state=initial_best_state,
+        # a promoted config starts its rung with fresh callbacks (as
+        # keras-tuner restarts them per fit): counters approximated from
+        # the carried history could stop it after one epoch
+        initial_counters={"stale_early": 0, "stale_lr": 0},
+    )
+    score = max(history[search.monitor])
+    record = {
+        **cfg,
+        "trial_id": trial_id,
+        "epochs": epochs,
+        "score": score,
+        search.monitor: score,
+        "val_loss": min(history["val_loss"]),
+        "status": "COMPLETED",
+        "history": history,
+    }
+    if trainer.rank == 0:
+        store.save(trial_id, record, packb(to_flax_variables(state.model.state_dict())))
+    return record
+
+
+def _trial_worker(search: _Search, data_dir: Path, resident: bool, cfg: dict, epochs: int,
+                  trial_id: str, initial_epoch: int, carry_from: str | None,
+                  device: torch.device) -> None:
+    """One process of a trial trained over several devices (launch)."""
+    data = (ArrayDataset.load(data_dir / "train_dataset"),
+            ArrayDataset.load(data_dir / "val_dataset"))
+    if resident:
+        data = tuple(DeviceData(ds, device=device) for ds in data)
+    _train_trial(search, cfg, epochs, trial_id, device, data, initial_epoch, carry_from,
+                 distributed=True)
 
 
 def hyperparameter_search(
@@ -237,9 +381,11 @@ def hyperparameter_search(
     after every trained epoch. The datasets stay on the device when their
     spectrograms fit ORCAI_TPU_DEVICE_DATASET_BYTES (default 6e9) per
     device; larger ones are uploaded batch by batch. float32 math is IEEE
-    (no TF32), as in `train`.
+    (no TF32), as in `train`. `device` as `train` takes it: "cuda" means
+    every local card (a list names the devices); a trial over several of
+    them runs in processes of its own, so on_epoch_end must then be
+    picklable.
     """
-    dev = resolve_device(device)
     log.info("Loading Hyperparameter search parameter")
     if isinstance(orcai_parameter, (Path, str)):
         orcai_parameter = read_json(orcai_parameter)
@@ -265,11 +411,22 @@ def hyperparameter_search(
     # takes the train seed id (the upstream search's test-data id is a slip
     # the JAX package does not copy either)
     search_seed = _search_seed(orcai_parameter, store)
+    # several processes: each runs its round-robin share of every rung and
+    # reads the rest from the store
+    process_id, n_processes = process_index(), process_count()
+    rendezvous_timeout = float(os.environ.get("ORCAI_TPU_HPS_RENDEZVOUS_TIMEOUT_S", 3600))
+    if n_processes > 1:
+        log.info("Multi-host search: process %d/%d, trials partitioned round-robin "
+                 "with the trial store as rendezvous", process_id, n_processes)
     train_seed = [SEED_ID_LOAD_TRAIN_DATA, search_seed]
     val_seed = [SEED_ID_LOAD_VAL_DATA, search_seed]
 
-    devices = local_devices(dev) if parallel else [dev]
-    n_workers = len(devices)
+    # this process's devices (its share of the host's in a group): one a
+    # trial side by side under `parallel`, else every trial over the
+    # largest share of them that divides its batch (mesh_for_batch), one
+    # process each
+    devices = local_devices(device)
+    n_workers = len(devices) if parallel else 1
     if parallel and n_workers == 1:
         log.warning(
             "--parallel requested but only one device is visible; "
@@ -284,9 +441,9 @@ def hyperparameter_search(
     # trial) must not upload a second copy onto a device another is filling
     device_data_lock = threading.Lock()
 
-    def device_data_for(rank: int) -> tuple[DeviceData, DeviceData] | None:
+    def device_data_for(rank: int) -> tuple:
         if not resident:
-            return None
+            return train_ds, val_ds
         with device_data_lock:
             if rank not in device_data_cache:
                 device_data_cache[rank] = (
@@ -298,7 +455,9 @@ def hyperparameter_search(
     if resident:
         log.info("Datasets resident on the device: shared across trials")
     rng = np.random.default_rng([13, search_seed])
-    seed_int = int(search_seed) % (2**31)
+    search = _Search(orcai_parameter, hps_parameter, input_shape, store.directory,
+                     train_seed, val_seed, int(search_seed) % (2**31), monitor,
+                     early_stopping_patience, on_epoch_end)
 
     def run_trial(
         cfg: dict,
@@ -311,70 +470,17 @@ def hyperparameter_search(
         cached = store.load(trial_id)
         if cached is not None:
             return {**cached, "status": "CACHED"}
-
-        param = _apply_config(orcai_parameter, hps_parameter, cfg)
-        mp = param["model"]
-        model = build_model(param, input_shape, dtype=resolve_compute_dtype(mp))
-        trainer = Trainer(model, mp["learning_rate"], device=devices[rank])
-        state = trainer.init_state(seed=seed_int)
-        initial_history = None
-        initial_best_state = None
-        if carry_from is not None:
-            carried = store.load_weights(carry_from)
-            prev_record = store.load(carry_from)
-            if carried is not None and prev_record is not None:
-                # the previous rung's best weights, a fresh Adam
-                initial_best_state = state_dict_from_flax(unpackb(carried))
-                state = trainer.state_from_variables(initial_best_state, seed=seed_int)
-                initial_history = prev_record.get("history")
-
-        dd = device_data_for(rank)
-        if dd is not None:
-            run_train, run_val = device_runners(
-                trainer, dd[0], dd[1], mp["batch_size"], train_seed, val_seed
-            )
-        else:
-            run_train, run_val = streaming_runners(
-                trainer,
-                lambda e: train_ds.batches(mp["batch_size"], seed=train_seed, epoch=e),
-                lambda e: val_ds.batches(mp["batch_size"], seed=val_seed, epoch=e),
-            )
-        hook = None if on_epoch_end is None else (
-            lambda s, h, e, lr, c: on_epoch_end(trial_id, s, h, e, lr, c))
-        state, history = fit(
-            trainer,
-            state,
-            run_train,
-            run_val,
-            epochs=epochs,
-            monitor=monitor,
-            early_stopping_patience=early_stopping_patience,
-            reduce_lr_patience=mp["ReduceLROnPlateau_patience"],
-            reduce_lr_factor=mp["ReduceLROnPlateau_factor"],
-            reduce_lr_min=mp["ReduceLROnPlateau_min_learning_rate"],
-            on_epoch_end=hook,
-            initial_lr=mp["learning_rate"],
-            initial_epoch=initial_epoch,
-            initial_history=initial_history,
-            initial_best_state=initial_best_state,
-            # a promoted config starts its rung with fresh callbacks (as
-            # keras-tuner restarts them per fit): counters approximated from
-            # the carried history could stop it after one epoch
-            initial_counters={"stale_early": 0, "stale_lr": 0},
-        )
-        score = max(history[monitor])
-        record = {
-            **cfg,
-            "trial_id": trial_id,
-            "epochs": epochs,
-            "score": score,
-            monitor: score,
-            "val_loss": min(history["val_loss"]),
-            "status": "COMPLETED",
-            "history": history,
-        }
-        store.save(trial_id, record, packb(to_flax_variables(state.model.state_dict())))
-        return record
+        if not parallel:
+            batch_size = _apply_config(orcai_parameter, hps_parameter, cfg)["model"]["batch_size"]
+            mesh = mesh_for_batch(batch_size, devices)
+            if len(mesh) > 1:
+                log.info("  trial %s: data-parallel over %d devices", trial_id, len(mesh))
+                launch(_trial_worker, mesh, store.directory, args=(
+                    search, data_dir, resident, cfg, epochs, trial_id, initial_epoch,
+                    carry_from))
+                return store.load(trial_id)
+        return _train_trial(search, cfg, epochs, trial_id, devices[rank],
+                            device_data_for(rank), initial_epoch, carry_from)
 
     brackets = hyperband_schedule(max_epochs, factor)
     log.info(
@@ -403,7 +509,8 @@ def hyperparameter_search(
                     trial_counter += 1
                     key = tuple(sorted(cfg.items()))
                     submissions.append((cfg, trial_id, prev_trial_id.get(key)))
-                local_rank = local_device_ranks(range(len(submissions)))
+                mine = set(process_partition(len(submissions), process_id, n_processes))
+                local_rank = local_device_ranks(mine)
                 records: list[dict | None] = [None] * len(submissions)
                 if n_workers > 1:
                     with ThreadPoolExecutor(max_workers=n_workers) as pool:
@@ -414,16 +521,21 @@ def hyperparameter_search(
                                 carry_from=carry,
                             )
                             for i, (cfg, tid, carry) in enumerate(submissions)
+                            if i in mine
                         }
                         for i, f in futures.items():
                             records[i] = f.result()
                 else:
                     for i, (cfg, tid, carry) in enumerate(submissions):
-                        records[i] = run_trial(
-                            cfg, r_i, tid, 0,
-                            initial_epoch=prev_epochs if carry else 0,
-                            carry_from=carry,
-                        )
+                        if i in mine:
+                            records[i] = run_trial(
+                                cfg, r_i, tid, 0,
+                                initial_epoch=prev_epochs if carry else 0,
+                                carry_from=carry,
+                            )
+                for i, (_, tid, _) in enumerate(submissions):
+                    if records[i] is None:
+                        records[i] = _wait_for_trial(store, tid, rendezvous_timeout)
 
                 scored = []
                 for (cfg, trial_id, _), record in zip(submissions, records):
@@ -444,6 +556,11 @@ def hyperparameter_search(
                 # promote the top 1/factor to the next rung
                 scored.sort(key=lambda t: t[0], reverse=True)
                 configs = [cfg for _, cfg in scored]
+
+    if process_id != 0:
+        # the shared store holds every record; process 0 publishes
+        log.info("Hyperparameter search completed (worker process)")
+        return
 
     log.info("Best Hyperparameters: %s", best["config"])
     write_json(best["config"], hps_logs_dir / "best_hyperparameters.json")

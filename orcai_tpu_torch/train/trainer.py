@@ -1,6 +1,6 @@
 """Training: one autograd train step + keras-semantics callback loop.
 
-Counterpart of orcai_tpu/train/trainer.py on one device:
+Counterpart of orcai_tpu/train/trainer.py:
 - a train step in the model's compute dtype: weighted masked BCE from
   logits + l2 regularization, torch.optim.Adam (optax adam's formula: b1
   0.9, b2 0.999, eps 1e-8; the l2 term is in the loss, so weight_decay 0),
@@ -19,6 +19,18 @@ fetched once an epoch, so no step waits for the host.
 The training state is a TrainState: the model (parameters and BatchNorm
 statistics), its optimizer and the dropout generator. Steps change it in
 place; a Trainer and the states it makes share one model.
+
+Data-parallel training (`Trainer(..., distributed=True)`, which `train`
+takes in a process group of several processes) is the one-device step
+partitioned, as the reference's GSPMD step is: every process draws the
+same global batches and runs a contiguous block of each under
+DistributedDataParallel, with global BatchNorm statistics and dropout
+masks (models/layers.py), the masked loss divided by the count of every
+process's labels, and the epoch's metric sums all-reduced before they are
+fetched. `train` in one process with several local devices starts one
+process per device itself (parallel/distributed.py::launch). A Trainer
+given `eval_devices` splits its forward-only evaluation batches over them
+instead (parallel/mesh.py::Replicas).
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from orcai_tpu_torch.io.dataset import ArrayDataset, epoch_permutation
 from orcai_tpu_torch.io.jsonio import read_json, write_json
@@ -46,8 +59,16 @@ from orcai_tpu_torch.io.model_store import (
 from orcai_tpu_torch.models import build_model, init_variables, l2_regularization
 from orcai_tpu_torch.ops.losses import (
     masked_binary_accuracy_counts,
-    weighted_masked_bce_from_logits,
+    weighted_masked_bce_sums,
 )
+from orcai_tpu_torch.parallel.distributed import (
+    barrier,
+    broadcast_object,
+    launch,
+    process_count,
+    process_index,
+)
+from orcai_tpu_torch.parallel.mesh import Replicas, block_bounds, local_devices, mesh_for_batch
 from orcai_tpu_torch.resources import DEFAULT_ORCAI_PARAMETER
 from orcai_tpu_torch.utils.device import exact_f32_math, resolve_device
 from orcai_tpu_torch.utils.seeds import SEED_ID_LOAD_TRAIN_DATA, SEED_ID_LOAD_VAL_DATA
@@ -105,7 +126,14 @@ def model_state_to_host(model: torch.nn.Module) -> dict[str, torch.Tensor]:
 
 
 class Trainer:
-    """Owns the model on its device and the train/eval steps."""
+    """Owns the model on its device and the train/eval steps.
+
+    `distributed`: this process trains one block of every batch in the
+    default process group (see the module docstring); the model is wrapped
+    in DistributedDataParallel at the first train step, after any weights
+    were loaded. `eval_devices`: more than one device to split the
+    evaluation batches over (the model's device first).
+    """
 
     def __init__(
         self,
@@ -113,6 +141,8 @@ class Trainer:
         learning_rate: float,
         call_weights: np.ndarray | None = None,
         device: str | torch.device = "cuda",
+        distributed: bool = False,
+        eval_devices=None,
     ):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -121,6 +151,16 @@ class Trainer:
             torch.as_tensor(np.asarray(call_weights, np.float32), device=self.device)
             if call_weights is not None
             else None
+        )
+        self.distributed = distributed
+        self.rank = dist.get_rank() if distributed else 0
+        self.world = dist.get_world_size() if distributed else 1
+        self._ddp = None
+        if distributed:
+            self.model.set_data_parallel(self.rank, self.world)
+        self.replicas = (
+            Replicas(self.model, eval_devices)
+            if eval_devices is not None and len(eval_devices) > 1 else None
         )
 
     # -- state -------------------------------------------------------------
@@ -150,23 +190,49 @@ class Trainer:
     # -- steps -------------------------------------------------------------
 
     def _loss(self, logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        return (
-            weighted_masked_bce_from_logits(logits, y, self.call_weights)
-            + l2_regularization(self.model)
-        )
+        """The step's loss: weighted masked BCE plus the l2 term.
+        Distributed, the count is every process's, and the block's sum is
+        scaled by the world size so that DDP's average of the gradients is
+        the global mean's; the l2 term, the same on every process, is left
+        as it is by the average."""
+        total, count = weighted_masked_bce_sums(logits, y, self.call_weights)
+        if self.distributed:
+            count = count.detach().float().clone()
+            dist.all_reduce(count)
+        return total * self.world / count.clamp(min=1) + l2_regularization(self.model)
 
-    @staticmethod
     @torch.no_grad()
-    def _metrics(loss: torch.Tensor, logits: torch.Tensor, y: torch.Tensor):
+    def _metrics(self, loss: torch.Tensor, logits: torch.Tensor, y: torch.Tensor):
+        """[loss, correct, total] of this block and the probabilities; the
+        world's losses sum to the global batch's (see _epoch_metrics)."""
         probs = torch.sigmoid(logits)
         correct, total = masked_binary_accuracy_counts(probs, y)
-        return torch.stack([loss.detach().float(), correct.float(), total.float()]), probs
+        loss = loss.detach().float() / self.world
+        return torch.stack([loss, correct.float(), total.float()]), probs
+
+    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.distributed:
+            return self.model(x, train=True, return_logits=True)
+        if self._ddp is None:
+            from torch.nn.parallel import DistributedDataParallel
+
+            # BatchNorm's running statistics are global already: nothing
+            # to broadcast before a forward
+            index = self.device.index
+            if self.device.type == "cuda" and index is None:
+                index = torch.cuda.current_device()
+            self._ddp = DistributedDataParallel(
+                self.model,
+                device_ids=[index] if self.device.type == "cuda" else None,
+                broadcast_buffers=False,
+            )
+        return self._ddp(x, train=True, return_logits=True)
 
     def train_step(self, state: TrainState, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """One optimizer step on a device batch; returns [loss, correct,
         total] as a device tensor (nothing is fetched)."""
         state.optimizer.zero_grad(set_to_none=True)
-        logits = self.model(x, train=True, return_logits=True)
+        logits = self._train_forward(x)
         loss = self._loss(logits, y)
         loss.backward()
         state.optimizer.step()
@@ -176,7 +242,10 @@ class Trainer:
     def eval_step_probs(self, x: torch.Tensor, y: torch.Tensor):
         """([loss, correct, total], float32 probabilities) from one forward;
         the loss includes the l2 term, as in training."""
-        logits = self.model(x, train=False, return_logits=True)
+        if self.replicas is not None:
+            logits = self.replicas(x, train=False, return_logits=True)
+        else:
+            logits = self.model(x, train=False, return_logits=True)
         return self._metrics(self._loss(logits, y), logits, y)
 
     def eval_step(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -188,15 +257,27 @@ class Trainer:
         return (_host_tensor(x, np.float32).to(self.device),
                 _host_tensor(y, np.float32).to(self.device))
 
+    def block(self, rows):
+        """This process's contiguous block of every batch's index row (the
+        rows themselves when training alone)."""
+        if self.world == 1:
+            return rows
+        rows = np.asarray(rows)
+        lo, hi = block_bounds(rows.shape[-1], self.world, self.rank)
+        return rows[..., lo:hi]
+
     def _epoch_metrics(self, step, batches, prefix: str) -> dict:
         """Sum step(x, y) over device batches in a float64 device tensor;
-        one fetch at the end. loss is the mean over batches, MBA the ratio
-        of the summed counts."""
+        one fetch at the end (after one all-reduce over the processes when
+        distributed). loss is the mean over batches, MBA the ratio of the
+        summed counts."""
         acc = torch.zeros(3, dtype=torch.float64, device=self.device)
         n = 0
         for x, y in batches:
             acc += step(x, y).double()
             n += 1
+        if self.distributed:
+            dist.all_reduce(acc)
         loss_sum, correct, total = acc.tolist()
         return {
             f"{prefix}loss": float(loss_sum / max(n, 1)),
@@ -266,9 +347,10 @@ def device_runners(
     once, then every batch is an index_select on the device.
 
     Batch for batch identical to the streaming path (the same seeded epoch
-    permutations); optional uint8 quantization of the [0, 1] spectrograms
-    quarters the upload and the footprint. Accepts ArrayDataset (uploads
-    now) or pre-uploaded DeviceData.
+    permutations, each process taking its block of them); optional uint8
+    quantization of the [0, 1] spectrograms quarters the upload and the
+    footprint. Accepts ArrayDataset (uploads now) or pre-uploaded
+    DeviceData.
     """
     if not isinstance(train_ds, DeviceData):
         train_ds = DeviceData(train_ds, quantize, trainer.device)
@@ -276,12 +358,12 @@ def device_runners(
         val_ds = DeviceData(val_ds, quantize, trainer.device)
 
     def run_train(state, epoch):
-        perm = epoch_permutation(train_ds.n, batch_size, train_seed, epoch)
+        perm = trainer.block(epoch_permutation(train_ds.n, batch_size, train_seed, epoch))
         return state, trainer._epoch_metrics(
             lambda x, y: trainer.train_step(state, x, y), train_ds.batches(perm), "")
 
     def run_val(state, epoch):
-        perm = epoch_permutation(val_ds.n, batch_size, val_seed, epoch)
+        perm = trainer.block(epoch_permutation(val_ds.n, batch_size, val_seed, epoch))
         return trainer._epoch_metrics(trainer.eval_step, val_ds.batches(perm), "val_")
 
     return run_train, run_val
@@ -455,13 +537,48 @@ def train(
     device when their spectrograms fit ORCAI_TPU_DEVICE_DATASET_BYTES
     (default 6e9), as uint8 under ORCAI_TPU_QUANTIZE_DATASET=1; larger
     ones are uploaded batch by batch. float32 math is IEEE (no TF32).
+
+    Several devices: "cuda" with more than one visible card, or a list of
+    devices, trains data-parallel over the largest number of them that
+    divides the batch size (as the reference's mesh_for_batch), one process
+    each, started here (on_epoch_end must then be picklable). In a process
+    group of several processes (initialize_distributed, or a launcher's
+    RANK / WORLD_SIZE / LOCAL_RANK) each process trains its block of every
+    batch on cuda:<local rank> for "cuda"; the batch size must divide by
+    the group's size. Process 0 writes every file, the others wait for it.
     """
-    dev = resolve_device(device)
-    log.info("Training on %s", dev)
     output_dir = Path(output_dir)
     data_dir = Path(data_dir)
     if isinstance(orcai_parameter, (Path, str)):
         orcai_parameter = read_json(orcai_parameter)
+    distributed = process_count() > 1
+    if distributed:
+        dev = local_devices(device)[0]
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)  # NCCL's collectives run on the current device
+        if orcai_parameter["model"]["batch_size"] % process_count():
+            raise ValueError(
+                f"batch size {orcai_parameter['model']['batch_size']} does not "
+                f"divide over {process_count()} processes"
+            )
+    else:
+        devices = mesh_for_batch(orcai_parameter["model"]["batch_size"],
+                                 local_devices(device))
+        if len(devices) > 1:
+            log.info("Data-parallel training over %d devices, one process each",
+                     len(devices))
+            output_dir.mkdir(parents=True, exist_ok=True)
+            launch(train, devices, output_dir, args=(data_dir, output_dir), kwargs=dict(
+                orcai_parameter=orcai_parameter, data_compression=data_compression,
+                load_model=load_model, max_epochs=max_epochs, model_dtype=model_dtype,
+                preemption_checkpointing=preemption_checkpointing,
+                profile_dir=profile_dir, on_epoch_end=on_epoch_end,
+            ))
+            return
+        dev = devices[0]
+    writer = process_index() == 0
+    log.info("Training on %s%s", dev, f" (process {process_index()} of "
+             f"{process_count()})" if distributed else "")
     model_name = orcai_parameter["name"]
     mp = orcai_parameter["model"]
     label_calls = orcai_parameter["calls"]
@@ -487,6 +604,11 @@ def train(
     seed = orcai_parameter["seed"]
     train_seed = [SEED_ID_LOAD_TRAIN_DATA, seed] if seed is not None else None
     val_seed = [SEED_ID_LOAD_VAL_DATA, seed] if seed is not None else None
+    if seed is None and distributed:
+        # every process must draw the same batches: process 0's draw
+        shuffle = broadcast_object(int(np.random.SeedSequence().entropy % (2**63)))
+        train_seed = [SEED_ID_LOAD_TRAIN_DATA, shuffle]
+        val_seed = [SEED_ID_LOAD_VAL_DATA, shuffle]
 
     if mp.get("call_weights") is not None:
         call_weights_dict = read_json(data_dir / "call_weights.json")
@@ -508,7 +630,8 @@ def train(
     if load_model:
         log.info("Loading model")
         model, _, _ = load_orcai_model(model_dir, dtype=model_dtype, device=dev)
-        trainer = Trainer(model, mp["learning_rate"], call_weights, device=dev)
+        trainer = Trainer(model, mp["learning_rate"], call_weights, device=dev,
+                          distributed=distributed)
         state = trainer.state_from_variables(seed=seed_int)
         opt_path = model_dir / f"{model_name}.opt.pt"
         optax_path = model_dir / f"{model_name}.opt.msgpack"
@@ -528,7 +651,8 @@ def train(
     else:
         log.info("Building model")
         model = build_model(orcai_parameter, input_shape, dtype=model_dtype)
-        trainer = Trainer(model, mp["learning_rate"], call_weights, device=dev)
+        trainer = Trainer(model, mp["learning_rate"], call_weights, device=dev,
+                          distributed=distributed)
         state = trainer.init_state(seed=seed_int)
 
     # preemption-safe resume
@@ -559,14 +683,18 @@ def train(
     log.info("Fitting model: %s, monitoring %s", model_name, mp["monitor"])
 
     def save_checkpoint(current_state, history):
-        save_orcai_model(
-            model_dir, orcai_parameter, current_state.model.state_dict(),
-            input_shape=input_shape,
-        )
+        if writer:
+            save_orcai_model(
+                model_dir, orcai_parameter, current_state.model.state_dict(),
+                input_shape=input_shape,
+            )
+        barrier()
 
     def epoch_end(s, h, e, lr, c):
         if ckpt is not None:
-            ckpt.save(e, s, h, lr, counters=c)
+            if writer:
+                ckpt.save(e, s, h, lr, counters=c)
+            barrier()
         if on_epoch_end is not None:
             on_epoch_end(s, h, e, lr, c)
 
@@ -586,8 +714,9 @@ def train(
         log.info("Datasets exceed the device budget: streaming batches")
         run_train, run_val = streaming_runners(
             trainer,
-            lambda e: train_ds.batches(batch_size, seed=train_seed, epoch=e),
-            lambda e: val_ds.batches(batch_size, seed=val_seed, epoch=e),
+            lambda e: train_ds.batches(batch_size, seed=train_seed, epoch=e,
+                                       rows=trainer.block),
+            lambda e: val_ds.batches(batch_size, seed=val_seed, epoch=e, rows=trainer.block),
         )
 
     with exact_f32_math():
@@ -611,17 +740,18 @@ def train(
             initial_counters=initial_counters,
             profile_dir=profile_dir,
         )
-    if ckpt is not None:
-        ckpt.cleanup()
-
-    log.info("Saving model")
-    save_orcai_model(
-        model_dir,
-        orcai_parameter,
-        state.model.state_dict(),
-        input_shape=input_shape,
-        opt_state=state.optimizer.state_dict(),
-        train_state={"epochs_run": len(history.get("loss", []))},
-    )
-    write_json(history, model_dir / "training_history.json")
-    log.info("Training model finished. Model saved to %s.msgpack", model_name)
+    if writer:
+        if ckpt is not None:
+            ckpt.cleanup()
+        log.info("Saving model")
+        save_orcai_model(
+            model_dir,
+            orcai_parameter,
+            state.model.state_dict(),
+            input_shape=input_shape,
+            opt_state=state.optimizer.state_dict(),
+            train_state={"epochs_run": len(history.get("loss", []))},
+        )
+        write_json(history, model_dir / "training_history.json")
+        log.info("Training model finished. Model saved to %s.msgpack", model_name)
+    barrier()

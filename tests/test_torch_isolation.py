@@ -38,7 +38,8 @@ def test_every_module_of_the_slice_is_scanned():
                  "tools.synthetic", "tools.profile_data_prep", "ops.wire_names",
                  "ops.wire_codec", "ops.spectral", "tools.parity", "ops.dft",
                  "train.hpsearch", "tools.profile_first_epoch", "io.tfrecord",
-                 "io.tfdata_convert", "io.hdf5", "io.keras_convert"):
+                 "io.tfdata_convert", "io.hdf5", "io.keras_convert", "parallel",
+                 "parallel.distributed", "parallel.mesh"):
         assert f"orcai_tpu_torch.{name}" in MODULES
     assert "chip_smoke" in MODULES
 
