@@ -69,8 +69,8 @@ Phases, each printing one JSON line and failing the run on any error:
            labels; one recording without annotation, one with BR and BUZZ
            not possible; the default parameter file with n_batch
            train/val/test cut from 3750/375/375 to 8/2/2 at batch 64):
-           create-recording-table, create-spectrograms through the CLI on
-           cuda (B1 7, B2 3, pick 3 launches per annotated recording; each
+           create-recording-table, create-spectrograms on cuda, its report's
+           stage walls (B1 7, B2 3, pick 3 launches per annotated recording; each
            store bit-equal to the frontend run in this process and within
            2e-4 of its plain versions on the card), create-label-arrays
            ((frames, 7), masked columns at MASK_VALUE), create-snippet-table,
@@ -106,8 +106,8 @@ Phases, each printing one JSON line and failing the run on any error:
            its full widths (filter sets 10-40, 20-50, 30-60, LSTM 64/128,
            dropout 0.3/0.4/0.5, kernel 3/5/7, batch 64, 736 x 171 x 1, 7
            labels) with the default parameter file at seed 7, on the train
-           phase's 512 / 128 snippets (8 steps an epoch), max_epochs 4 and
-           factor 2: 3 brackets, 14 rung-trials, 28 trial-epochs, promotions
+           phase's 512 / 128 snippets (8 steps an epoch), max_epochs 2 and
+           factor 2: 2 brackets, 5 rung-trials, 8 trial-epochs, promotions
            carrying weights; each trial's epoch walls and peak device memory;
            the same call again, every trial CACHED and the outputs equal but
            the status column; golden through the best model's directory (B1
@@ -136,7 +136,7 @@ Phases, each printing one JSON line and failing the run on any error:
   warmup_serve  `python -m orcai_tpu_torch warmup --minutes 1`, then `serve`
            over a folder holding golden in a cold process and in one given
            --warm_minutes 1: both TSVs byte-equal to golden's, the warm-up's
-           wall and each first file's latency
+           wall, each first file's latency and the service's console report
   reference_formats  the reference's own formats, from
            tests/fixtures/reference_formats (written by Keras and TensorFlow,
            which the card does not have): `convert-dataset` through the CLI
@@ -165,7 +165,19 @@ Phases, each printing one JSON line and failing the run on any error:
            control), each against one process: the first step's gradients
            and the BatchNorm statistics' change within RUNNER_RTOL, the
            weights' change within PAR_CHANGE_RTOL, the control above all
-           three; a search without --parallel over ["cuda:0", "cuda:0"]
+           three, each run also read against the first step in float64 and
+           the two ranks against one process running their synced
+           BatchNorm (read, not held); before it, grad_split
+           (tools/probe_grad_split.py on the first batch of 64 in this
+           process: two 32-row halves against the 64 rows with BatchNorm on
+           running statistics, cuDNN on and off, the training step with
+           cuDNN's and the synced BatchNorm, each against float64); after
+           it, tensor_parallel: 8 steps at 64 from the bundled weights over a
+           (1 data x 2 model) grid of gloo ranks sharing the card, the
+           parameters sharded (parallel/sharding_rules.py), against the one
+           process: losses, first gradients and the statistics' change
+           within RUNNER_RTOL, the weights' change within PAR_CHANGE_RTOL,
+           each rank's parameter bytes and the step ms; a search without --parallel over ["cuda:0", "cuda:0"]
            (its one trial data-parallel over two spawned processes) against
            the same search on one device (the trial, its config, its losses
            within RUNNER_RTOL); the bundled predictor split over ["cuda:0", "cuda:0"]: golden
@@ -191,10 +203,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import hashlib
+import io
 import json
-import logging
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -229,7 +242,9 @@ SPIN_CYCLES = 8_000_000  # about 4 ms at the card's clock
 
 
 def emit(obj: dict) -> None:
-    print(json.dumps(obj), flush=True)
+    """One result line on the process's standard output (the phases' console
+    reports go to standard error, main())."""
+    print(json.dumps(obj), file=sys.__stdout__, flush=True)
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -925,16 +940,14 @@ def phase_streaming(torch, tmp: Path, seed: int, state: dict, total: dict) -> di
     return line
 
 
-class _ServeLatency(logging.Handler):
-    """Collects (wav name, seconds) from the service's per-file log line."""
-
-    def __init__(self):
-        super().__init__(level=logging.INFO)
-        self.rows = []
-
-    def emit(self, record):
-        if isinstance(record.msg, str) and record.msg.startswith("%s -> %s"):
-            self.rows.append((record.args[0], float(record.args[2])))
+def _served_latencies(report: str) -> list[tuple[str, float]]:
+    """(wav name, seconds) from the service's `<wav> -> <tsv> (<s> s)` lines."""
+    rows = []
+    for text in report.splitlines():
+        text = text.strip()
+        if " -> " in text and text.endswith(" s)"):
+            rows.append((text.split(" -> ")[0], float(text.rsplit("(", 1)[1].split()[0])))
+    return rows
 
 
 def phase_table_serve(torch, tmp: Path, state: dict, total: dict) -> dict:
@@ -976,20 +989,14 @@ def phase_table_serve(torch, tmp: Path, state: dict, total: dict) -> dict:
         raise AssertionError("table: the missing row produced a file")
 
     # the service over the same two wavs: its own predictor, a stub sleep
+    from orcai_tpu_torch.utils.messenger import Messenger
+
     serve_out = tmp / "serve_out"
-    latency = _ServeLatency()
-    serve_log = logging.getLogger("orcai_tpu_torch.pipeline.serve")
-    serve_log.addHandler(latency)
-    level = serve_log.level
-    serve_log.setLevel(logging.INFO)
+    report = io.StringIO()
     reset_counts()
     t0 = time.perf_counter()
-    try:
-        n = serve(recs, output_dir=serve_out, poll_seconds=0, max_files=2,
-                  sleep=lambda _: None)
-    finally:
-        serve_log.removeHandler(latency)
-        serve_log.setLevel(level)
+    n = serve(recs, output_dir=serve_out, poll_seconds=0, max_files=2, sleep=lambda _: None,
+              msgr=Messenger(file=report))
     torch.cuda.synchronize()
     serve_wall = time.perf_counter() - t0
     serve_counts = read_counts(total)
@@ -1004,7 +1011,7 @@ def phase_table_serve(torch, tmp: Path, state: dict, total: dict) -> dict:
             "table_launches": table_counts, "table_tsvs_byte_equal": True,
             "missing_row_skipped": True, "serve_wall_s": serve_wall,
             "serve_launches": serve_counts, "serve_tsvs_byte_equal": True,
-            "serve_file_latency_s": latency.rows}
+            "serve_file_latency_s": _served_latencies(report.getvalue())}
 
 
 class _Killed(Exception):
@@ -1340,16 +1347,12 @@ def _tree_bytes(path: Path) -> int:
 
 def phase_data_prep(torch, tmp: Path, seed: int, total: dict) -> dict:
     """The data chain of the port on a synthetic project at orcai-v1's
-    widths: create-recording-table, create-spectrograms through the CLI on
-    cuda, create-label-arrays, create-snippet-table,
+    widths: create-recording-table, create-spectrograms on cuda (its
+    report's stage walls), create-label-arrays, create-snippet-table,
     create-tvt-snippet-tables, create-tvt-data, then one train epoch on the
     datasets it made."""
-    import ast
-    import io
-
     import numpy as np
 
-    from orcai_tpu_torch import __main__ as cli
     from orcai_tpu_torch.io.jsonio import read_json, write_json
     from orcai_tpu_torch.io.tables import Table
     from orcai_tpu_torch.io.zarrlite import open_zarr
@@ -1361,7 +1364,7 @@ def phase_data_prep(torch, tmp: Path, seed: int, total: dict) -> dict:
     from orcai_tpu_torch.pipeline.snippets import (
         create_snippet_table, create_tvt_data, create_tvt_snippet_tables,
     )
-    from orcai_tpu_torch.pipeline.spectrogram import load_recording_audio
+    from orcai_tpu_torch.pipeline.spectrogram import create_spectrograms, load_recording_audio
     from orcai_tpu_torch.resources import DEFAULT_ORCAI_PARAMETER
     from orcai_tpu_torch.tools.synthetic import make_synthetic_project
     from orcai_tpu_torch.train.trainer import train
@@ -1404,17 +1407,14 @@ def phase_data_prep(torch, tmp: Path, seed: int, total: dict) -> dict:
     data_dir, tvt = root / "data", root / "tvt"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    out = io.StringIO()
     reset_counts()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        cli.main(["create-spectrograms", str(table_path), str(data_dir), "-p", str(param_path),
-                  "--device", "cuda", "-v", "1"])
+    report = create_spectrograms(table_path, data_dir, orcai_parameter=param_path,
+                                 device="cuda")
     torch.cuda.synchronize()
     walls["create_spectrograms_s"] = time.perf_counter() - t0
     counts = read_counts(total)
     peak = torch.cuda.max_memory_allocated()
-    report = ast.literal_eval(out.getvalue().strip().splitlines()[-1])
     annotated = [r for r in names if r != unannotated]
     check_counts(counts, 7 * len(annotated), "data_prep", b2=3 * len(annotated),
                  pick=3 * len(annotated))
@@ -1971,7 +1971,9 @@ def phase_wires(torch, tmp: Path, seed: int, state: dict,
 
 
 HPS_SEED = 7  # the search's project seed
-HPS_MAX_EPOCHS, HPS_FACTOR = 4, 2  # 3 brackets, 14 rung-trials, 28 trial-epochs (10, 3 by default)
+HPS_MAX_EPOCHS, HPS_FACTOR = 2, 2  # 2 brackets, 5 rung-trials, 8 trial-epochs (10, 3 by
+#                                     default; 4, 2 until the parallel phase's TP part needed
+#                                     the wall)
 
 
 class _EpochClock:
@@ -2342,12 +2344,12 @@ def _cli(args: list[str], timeout: int = 600) -> tuple[subprocess.CompletedProce
     return proc, wall
 
 
-def _served_latency(stderr: str, name: str) -> float:
+def _served_latency(report: str, name: str) -> float:
     """The service's `<wav> -> <tsv> (<s> s)` line for `name`."""
-    for text in stderr.splitlines():
-        if text.startswith(f"{name} -> ") and text.endswith(" s)"):
-            return float(text.rsplit("(", 1)[1].split()[0])
-    raise AssertionError(f"the service logged no latency for {name}:\n{stderr[-2000:]}")
+    for wav, seconds in _served_latencies(report):
+        if wav == name:
+            return seconds
+    raise AssertionError(f"the service reported no latency for {name}:\n{report[-2000:]}")
 
 
 def phase_warmup_serve(torch, tmp: Path) -> dict:
@@ -2360,7 +2362,7 @@ def phase_warmup_serve(torch, tmp: Path) -> dict:
     proc, line["warmup_process_wall_s"] = _cli(["warmup", "--minutes", "1", "-v", "2"])
     line["warmup_stdout"] = proc.stdout.strip().splitlines()[-1]
     line["warmup_shape_walls_s"] = [float(t.rsplit(" in ", 1)[1].split()[0])
-                                    for t in proc.stderr.splitlines() if "shape ready in" in t]
+                                    for t in proc.stdout.splitlines() if "bucket ready in" in t]
     for name, warm in (("cold", []), ("warm", ["--warm_minutes", "1"])):
         watch, out = tmp / f"serve_{name}_in", tmp / f"serve_{name}_out"
         watch.mkdir()
@@ -2371,8 +2373,9 @@ def phase_warmup_serve(torch, tmp: Path) -> dict:
         if tsv.read_bytes() != golden:
             raise AssertionError(f"serve ({name}): golden TSV differs from golden_expected.txt")
         line[f"serve_{name}"] = {"process_wall_s": wall, "tsv_byte_equal": True,
-                                 "first_file_latency_s": _served_latency(proc.stderr,
-                                                                         "golden.wav")}
+                                 "first_file_latency_s": _served_latency(proc.stdout,
+                                                                         "golden.wav"),
+                                 "console_report": proc.stdout.splitlines()}
     return line
 
 
@@ -2389,10 +2392,11 @@ def _convert_cli(tvt: Path, *args: str) -> tuple[dict, float, str]:
     changed under the output dir, wall, its summary line)."""
     out = Path(args[args.index("-o") + 1]) if "-o" in args else tvt
     before = _sha256_tree(out) if out.exists() else {}
-    proc, wall = _cli(["convert-dataset", str(tvt), *args, "-v", "1"])
+    proc, wall = _cli(["convert-dataset", str(tvt), *args])
     after = _sha256_tree(out)
-    return {k: v for k, v in after.items() if before.get(k) != v}, wall, \
-        proc.stdout.strip().splitlines()[-1]
+    # the report's last section header, without its mark and times
+    summary = re.sub(r"^🐳 (.*) \[[^\]]*\]$", r"\1", proc.stdout.strip().splitlines()[-1])
+    return {k: v for k, v in after.items() if before.get(k) != v}, wall, summary
 
 
 def _state_equal(state: dict, want: dict, where: str) -> None:
@@ -2547,9 +2551,9 @@ PAR_CHANGE_RTOL = 5e-2  # the weights' change over PAR_STEPS, two ranks against 
 PAR_SPLIT_ATOL = 1e-6  # window split against one replica: the reference's bar for its
 #                        sharded predictor (tests/test_overlap.py:154)
 PAR_HPS_MAX_EPOCHS, PAR_HPS_FACTOR = 2, 2  # the two-process search: 2 brackets, 5 rung-trials
+TP_GRID = (1, 2)  # (data, model) ranks of the tensor-parallel part
 PAR_CHILD = r"""
-import json, logging, sys, time
-logging.basicConfig(level=logging.INFO, format="%(message)s")
+import json, sys, time
 from orcai_tpu_torch.parallel.distributed import initialize_distributed, process_count, process_index
 
 initialize_distributed()  # WORLD_SIZE, RANK, MASTER_ADDR, MASTER_PORT
@@ -2615,24 +2619,36 @@ def _dp_batches(torch, data_dir: Path, device) -> list:
 def _dp_steps(torch, trainer, seed: int, batches) -> dict:
     """PAR_STEPS train steps from the trainer's weights, each on this
     process's block of the batch: the first step's gradients (DDP's average
-    when distributed), every step's global loss, the state after."""
+    when distributed), every step's global loss and ms (CUDA events), the
+    state after; a sharded model's blocks gathered whole."""
     import numpy as np
     import torch.distributed as dist
 
+    from orcai_tpu_torch.models.layers import shard_of
+    from orcai_tpu_torch.parallel.sharding_rules import gather_params
+
     st = trainer.state_from_variables(seed=seed)
-    losses, grads = [], None
+    model = trainer.model
+    shard = next((shard_of(m) for m in model.modules() if shard_of(m) is not None), None)
+    losses, grads, ms = [], None, []
     for x, y in batches:
         idx = torch.from_numpy(trainer.block(np.arange(x.shape[0]))).to(x.device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         m = trainer.train_step(st, x[idx], y[idx])
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
         if grads is None:
-            grads = {k: p.grad.detach().double().cpu()
-                     for k, p in trainer.model.named_parameters() if p.grad is not None}
+            grads = {k: (shard.gather(p.grad, 0) if shard and k in shard.names else p.grad)
+                     .detach().double().cpu()
+                     for k, p in model.named_parameters() if p.grad is not None}
         if trainer.distributed:
-            dist.all_reduce(m)
+            dist.all_reduce(m, group=trainer.data_group)
         losses.append(float(m[0]))
-    state = {k: v.detach().double().cpu() for k, v in trainer.model.state_dict().items()
+    state = {k: v.detach().double().cpu() for k, v in gather_params(model).items()
              if v.dtype.is_floating_point}
-    return {"grads": grads, "losses": losses, "state": state}
+    return {"grads": grads, "losses": losses, "state": state, "step_ms": ms}
 
 
 def _dp_worker(data_dir: str, seed: int, naive: bool, out: str, device) -> None:
@@ -2659,6 +2675,29 @@ def _dp_worker(data_dir: str, seed: int, naive: bool, out: str, device) -> None:
         torch.save(result, out)
 
 
+def _tp_worker(data_dir: str, seed: int, out: str, device) -> None:
+    """One of the TP_GRID processes on the card (launch): _dp_steps from
+    the bundled weights over a (data, model) mesh, the parameters sharded
+    over its model axis. Each rank saves its own parameter bytes; rank 0
+    saves what it read and the sharded leaves' names."""
+    import torch
+
+    from orcai_tpu_torch.io.model_store import load_orcai_model
+    from orcai_tpu_torch.parallel.mesh import make_mesh
+    from orcai_tpu_torch.train.trainer import Trainer
+
+    mesh = make_mesh(n_model=TP_GRID[1])
+    model, _, _ = load_orcai_model(device=device)
+    trainer = Trainer(model, TRAIN_LR, device=device, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    result = _dp_steps(torch, trainer, seed, _dp_batches(torch, data_dir, device))
+    result["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+    result["sharded"] = sorted({k for m in model.modules()
+                                for k in getattr(getattr(m, "tp", None), "names", ())})
+    result["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.save(result, f"{out}.{torch.distributed.get_rank()}")
+
+
 def _change_rel(run: dict, plain: dict, start: dict, keys) -> float:
     """||(run - start) - (plain - start)|| / ||plain - start||: the
     difference of two updates against the update itself."""
@@ -2666,7 +2705,8 @@ def _change_rel(run: dict, plain: dict, start: dict, keys) -> float:
                      {k: plain[k].double() - start[k].double() for k in keys}, keys)
 
 
-def _two_ranks_against_control(torch, tmp: Path, data_dir: Path, seed: int) -> dict:
+def _two_ranks_against_control(torch, tmp: Path, data_dir: Path, seed: int,
+                               float64_grads: dict) -> tuple[dict, dict, dict]:
     """PAR_STEPS steps at 64 from the bundled weights: one process, the
     same again (cuDNN's backward is not deterministic: the floor), two gloo
     ranks sharing the card (32 + 32) through the distributed Trainer, and
@@ -2674,10 +2714,16 @@ def _two_ranks_against_control(torch, tmp: Path, data_dir: Path, seed: int) -> d
     one process on the first step's gradients and on the change of the
     weights and of the BatchNorm statistics over the steps; the distributed
     run must read within the bars and the plain wrap above them, so the
-    check can fail a wrong split."""
+    check can fail a wrong split. Every run's first gradients are also read
+    against `float64_grads` (the same step in float64, _grad_split), and
+    the two ranks against one process running their BatchNorm
+    (one_process_synced_bn); neither reading is held. Returns the line,
+    the one process's run and the starting state."""
     from orcai_tpu_torch.io.model_store import load_orcai_model
     from orcai_tpu_torch.parallel.distributed import launch
     from orcai_tpu_torch.train.trainer import Trainer
+
+    import torch.distributed as dist
 
     start = {k: v.detach().double().cpu()
              for k, v in load_orcai_model(device="cpu")[0].state_dict().items()
@@ -2686,10 +2732,20 @@ def _two_ranks_against_control(torch, tmp: Path, data_dir: Path, seed: int) -> d
     plain, again = (_dp_steps(torch, Trainer(load_orcai_model(device="cuda")[0], TRAIN_LR,
                                              device="cuda"), seed, batches)
                     for _ in range(2))
+    # the distributed Trainer's arithmetic (the synced BatchNorm) in one
+    # process: a gloo group of one
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp / "synced_store"), 1),
+                            rank=0, world_size=1)
+    try:
+        synced = _dp_steps(torch, Trainer(load_orcai_model(device="cuda")[0], TRAIN_LR,
+                                          device="cuda", distributed=True), seed, batches)
+    finally:
+        dist.destroy_process_group()
     params = sorted(plain["grads"])
     stats = [k for k in start if "running" in k]
-    line = {"steps": PAR_STEPS, "batch": 64, "losses_one_process": plain["losses"]}
-    runs = {"one_process_again": again}
+    line = {"steps": PAR_STEPS, "batch": 64, "losses_one_process": plain["losses"],
+            "one_process_grads_vs_float64": _norm_rel(plain["grads"], float64_grads, params)}
+    runs = {"one_process_again": again, "one_process_synced_bn": synced}
     for name, naive in (("two_ranks", False), ("plain_ddp_control", True)):
         out = tmp / f"dp_steps_{name}.pt"
         t0 = time.perf_counter()
@@ -2704,8 +2760,17 @@ def _two_ranks_against_control(torch, tmp: Path, data_dir: Path, seed: int) -> d
             "bn_stats_change_rel_diff": _change_rel(run["state"], plain["state"], start, stats),
             "loss_max_rel_diff": max(abs(a - b) / abs(b)
                                      for a, b in zip(run["losses"], plain["losses"])),
+            "grads_vs_float64": _norm_rel(run["grads"], float64_grads, params),
             "losses": run["losses"], "wall_s": run.get("wall_s"),
             "weights_change_diff_top": sorted(moved, key=moved.get)[-5:]}
+    # the two ranks against the same arithmetic in one process (read, not held)
+    two, one = runs["two_ranks"], synced
+    line["two_ranks_vs_one_process_synced_bn"] = {
+        "grads_norm_rel_diff": _norm_rel(two["grads"], one["grads"], params),
+        "weights_change_rel_diff": _change_rel(two["state"], one["state"], start, params),
+        "bn_stats_change_rel_diff": _change_rel(two["state"], one["state"], start, stats),
+        "loss_max_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(two["losses"],
+                                                                     one["losses"]))}
     bars = {"grads_norm_rel_diff": RUNNER_RTOL, "bn_stats_change_rel_diff": RUNNER_RTOL,
             "weights_change_rel_diff": PAR_CHANGE_RTOL}
     real, control = line["two_ranks"], line["plain_ddp_control"]
@@ -2713,7 +2778,68 @@ def _two_ranks_against_control(torch, tmp: Path, data_dir: Path, seed: int) -> d
         raise AssertionError(f"two gloo ranks against one process and a plain DDP wrap: "
                              f"the first must read within {bars}, the second above: {line}")
     line["bars"] = bars
+    return line, plain, start
+
+
+def _tensor_parallel(torch, tmp: Path, data_dir: Path, seed: int, plain: dict,
+                     start: dict) -> dict:
+    """PAR_STEPS steps at 64 from the bundled weights over a TP_GRID (data,
+    model) grid of gloo ranks sharing the card, the parameters sharded over
+    the model axis (parallel/sharding_rules.py), against the one plain
+    process of _two_ranks_against_control: the losses and the first step's
+    gradients within RUNNER_RTOL, the change of the BatchNorm statistics
+    within RUNNER_RTOL and of the weights within PAR_CHANGE_RTOL; each
+    rank's parameter bytes against one process's (the sharded leaves
+    halved), the TP step's ms against the plain step's."""
+    from orcai_tpu_torch.io.model_store import load_orcai_model
+    from orcai_tpu_torch.parallel.distributed import launch
+
+    out = tmp / "tp_steps.pt"
+    t0 = time.perf_counter()
+    launch(_tp_worker, ["cuda:0"] * (TP_GRID[0] * TP_GRID[1]), tmp,
+           args=(str(data_dir), seed, str(out)))
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(f"{out}.{r}") for r in range(TP_GRID[0] * TP_GRID[1])]
+    tp = ranks[0]
+    params = sorted(plain["grads"])
+    stats = [k for k in start if "running" in k]
+    line = {
+        "grid": {"data": TP_GRID[0], "model": TP_GRID[1]}, "steps": PAR_STEPS, "batch": 64,
+        "losses": tp["losses"], "losses_one_process": plain["losses"],
+        "loss_max_rel_diff": max(abs(a - b) / abs(b)
+                                 for a, b in zip(tp["losses"], plain["losses"])),
+        "grads_norm_rel_diff": _norm_rel(tp["grads"], plain["grads"], params),
+        "weights_change_rel_diff": _change_rel(tp["state"], plain["state"], start, params),
+        "bn_stats_change_rel_diff": _change_rel(tp["state"], plain["state"], start, stats),
+        "sharded_leaves": len(tp["sharded"]),
+        "param_bytes_per_rank": [r["param_bytes"] for r in ranks],
+        "param_bytes_one_process": sum(p.numel() * p.element_size()
+                                       for p in load_orcai_model(device="cpu")[0].parameters()),
+        "step_ms": tp["step_ms"], "step_ms_median_warm": statistics.median(tp["step_ms"][2:]),
+        "step_ms_plain": plain["step_ms"],
+        "step_ms_median_warm_plain": statistics.median(plain["step_ms"][2:]),
+        "peak_gb_per_rank": [r["peak_gb"] for r in ranks], "wall_s": wall,
+        "note": "two ranks share one card; gloo carries the gathers through host memory"}
+    bars = {"loss_max_rel_diff": RUNNER_RTOL, "grads_norm_rel_diff": RUNNER_RTOL,
+            "bn_stats_change_rel_diff": RUNNER_RTOL, "weights_change_rel_diff": PAR_CHANGE_RTOL}
+    if not all(line[k] <= bar for k, bar in bars.items()):
+        raise AssertionError(f"tensor-parallel steps against one process: {line}")
+    if not line["sharded_leaves"] or not all(
+            b < line["param_bytes_one_process"] for b in line["param_bytes_per_rank"]):
+        raise AssertionError(f"no parameter was sharded: {line}")
+    line["bars"] = bars
     return line
+
+
+def _grad_split(torch, tmp: Path, data_dir: Path, seed: int) -> tuple[dict, dict]:
+    """tools/probe_grad_split.py on the train data's first batch of 64 in
+    this process (no DDP; the synced BatchNorm in a gloo group of one): its
+    readings and the float64 gradients of the first training step."""
+    from orcai_tpu_torch.tools.probe_grad_split import probe
+
+    x, y = _dp_batches(torch, data_dir, "cuda")[0]
+    # the cuDNN-off gradients (about 25 s) are the tool's own run's
+    return probe(torch, x, y, seed, tmp / "probe_store", cudnn_off=False)
 
 
 def _nccl_one_rank(torch, tmp: Path, data_dir: Path, seed: int) -> dict:
@@ -2967,7 +3093,7 @@ def _two_process_fan_out(torch, tmp: Path, state: dict, data_dir: Path, total: d
             raise AssertionError(f"fan-out process {rank} exited {proc.returncode}:\n"
                                  f"{err[-4000:]}")
         lines.append(json.loads(out.split("PAR-CHILD ", 1)[1]))
-        logs.append(err)
+        logs.append(out)  # the console report
     wall = time.perf_counter() - t0
 
     # create-spectrograms: disjoint shares, the stores byte-equal to data_prep's
@@ -3031,11 +3157,24 @@ def phase_parallel(torch, tmp: Path, seed: int, state: dict, data_dir: Path,
     the table commands and of a search."""
     line = {"phase": "parallel"}
     walls = {}
+    plain = {}
+
+    def grad_split():
+        part, plain["float64"] = _grad_split(torch, tmp, data_dir, seed)
+        return part
+
+    def against_control():
+        part, plain["run"], plain["start"] = _two_ranks_against_control(
+            torch, tmp, data_dir, seed, plain["float64"])
+        return part
+
     for name, part in (
             ("nccl_one_rank", lambda: _nccl_one_rank(torch, tmp, data_dir, seed)),
             ("two_gloo_ranks", lambda: _two_gloo_ranks(torch, tmp, data_dir, seed)),
-            ("two_ranks_against_control",
-             lambda: _two_ranks_against_control(torch, tmp, data_dir, seed)),
+            ("grad_split", grad_split),
+            ("two_ranks_against_control", against_control),
+            ("tensor_parallel", lambda: _tensor_parallel(torch, tmp, data_dir, seed,
+                                                         plain["run"], plain["start"])),
             ("search_trial_mesh", lambda: _search_trial_mesh(torch, tmp, data_dir)),
             ("window_split", lambda: _window_split(torch, tmp, state, total)),
             ("fan_out", lambda: _two_process_fan_out(torch, tmp, state, data_dir, total))):
@@ -3066,8 +3205,11 @@ def main(argv=None) -> int:
         emit(env)
         phase = "build"
         emit(phase_build())
-        # the f32 CRNN checks and stage timings below call the model directly
-        with exact_f32_math(), tempfile.TemporaryDirectory() as tmp:
+        # the f32 CRNN checks and stage timings below call the model directly;
+        # the port's console reports go to standard error, the results to
+        # standard output
+        with exact_f32_math(), tempfile.TemporaryDirectory() as tmp, \
+                contextlib.redirect_stdout(sys.stderr):
             phase = "kernels"
             line, rows, sel = phase_kernels(torch, args.seed)
             emit(line)

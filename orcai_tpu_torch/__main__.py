@@ -8,19 +8,18 @@ hpsearch` and the data preparation commands `orcai init`,
 `convert-dataset` (orcai_tpu/cli.py), with the same options, plus
 `--device`. Every command that computes on a device runs on `--device cuda`
 unless told otherwise, and raises without CUDA; the table, label and
-dataset steps run on the host, as in the reference. Started once per
-process by a launcher (WORLD_SIZE > 1, with RANK, LOCAL_RANK, MASTER_ADDR
-and MASTER_PORT), a command joins the launcher's process group first.
+dataset steps run on the host, as in the reference. Each command reports
+on the console through a Messenger titled as the reference's
+(utils/messenger.py), at --verbosity 0-3. Started once per process by a
+launcher (WORLD_SIZE > 1, with RANK, LOCAL_RANK, MASTER_ADDR and
+MASTER_PORT), a command joins the launcher's process group first.
 """
 
 from __future__ import annotations
 
 import argparse
-import logging
 import sys
 from pathlib import Path
-
-_LOG_LEVELS = {0: logging.ERROR, 1: logging.WARNING, 2: logging.INFO, 3: logging.DEBUG}
 
 
 def _common(p: argparse.ArgumentParser, device: bool = True) -> None:
@@ -349,23 +348,44 @@ def _parser() -> argparse.ArgumentParser:
     return parser
 
 
-# path arguments of the data preparation commands, made absolute as the
-# reference's click paths are (they end up in the tables these commands write)
-_DATA_PREP_PATHS = {
+# path arguments made absolute, as the reference's click paths are (they end
+# up in the tables the commands write and in the console report); predict's
+# --output_path and filter-predictions' --output_file are plain text there
+_PATHS = {
     "project_dir", "parameter", "base_dir_recording", "output_path", "base_dir_annotation",
     "orcai_parameter", "update_table", "exclude_patterns", "recording_table_path",
     "output_dir", "call_equivalences", "recording_data_dir", "snippet_table", "tvt_dir",
+    "recording_path", "model_dir", "call_duration_limits", "watch_dir", "predicted_labels",
+    "data_dir", "hps_parameter",
+}
+
+# each command's console report title (orcai_tpu/cli.py)
+_TITLES = {
+    "predict": "Predicting calls", "serve": "Serving predictions",
+    "warmup": "Warming predict executables", "filter-predictions": "Filtering predictions",
+    "init": "Initializing project", "create-recording-table": "Creating recording table",
+    "create-spectrograms": "Creating spectrograms",
+    "create-label-arrays": "Creating label arrays",
+    "create-snippet-table": "Creating snippet table",
+    "create-tvt-snippet-tables": "Creating train, validation and test snippet tables",
+    "create-tvt-data": "Creating train, validation and test datasets",
+    "convert-dataset": "Converting tf.data datasets", "train": "Training model",
+    "hpsearch": "Hyperparameter search",
 }
 
 
 def main(argv=None) -> int:
+    from orcai_tpu_torch.utils.messenger import Messenger
+
     args = vars(_parser().parse_args(argv))
     command = args.pop("command")
-    if command == "init" or command.startswith("create-"):
-        for key in _DATA_PREP_PATHS & args.keys():
-            if args[key] is not None:
-                args[key] = str(Path(args[key]).resolve())
-    logging.basicConfig(level=_LOG_LEVELS[args.pop("verbosity")], format="%(message)s")
+    plain_text = {"predict": "output_path", "filter-predictions": "output_file"}.get(command)
+    for key in _PATHS & args.keys() - {plain_text}:
+        if args[key] is not None:
+            args[key] = str(Path(args[key]).resolve())
+    verbosity = args["verbosity"]
+    title = (f"Testing model {Path(args['model_dir']).name}" if command == "test"
+             else _TITLES[command])
     # started by a launcher once per process (torchrun and the like): join
     # its group; the batch commands then split their work over it
     from orcai_tpu_torch.parallel.distributed import join_launched_group
@@ -377,21 +397,23 @@ def main(argv=None) -> int:
         model = args.pop("model")
         if args["model_dir"] is None:
             args["model_dir"] = str(MODELS_DATA_DIR / model)
+    msgr = Messenger(verbosity=verbosity, title=title)
+    args["msgr"] = msgr
 
     if command == "predict":
         from orcai_tpu_torch.pipeline.predict import predict
 
-        print(predict(**args))
+        predict(**args)
     elif command == "serve":
         from orcai_tpu_torch.pipeline.serve import serve
 
-        print(serve(**args))
+        serve(**args)
     elif command == "warmup":
         from orcai_tpu_torch.tools.warmup import warmup
 
         n = warmup(args["minutes"], args["model_dir"], args["predict_batch_size"],
-                   device=args["device"], wire=args["wire"])
-        print(f"Warmed {n} recording-length shapes")
+                   device=args["device"], wire=args["wire"], msgr=msgr)
+        msgr.part(f"Warmed {n} recording-length executables")
     elif command == "train":
         from orcai_tpu_torch.train.trainer import train
 
@@ -403,7 +425,7 @@ def main(argv=None) -> int:
     elif command == "test":
         from orcai_tpu_torch.train.evaluate import test_model
 
-        print(test_model(**args))
+        test_model(**args)
     elif command == "init":
         from orcai_tpu_torch.pipeline.helpers import init_project
 
@@ -415,7 +437,7 @@ def main(argv=None) -> int:
     elif command == "create-spectrograms":
         from orcai_tpu_torch.pipeline.spectrogram import create_spectrograms
 
-        print(create_spectrograms(**args))
+        create_spectrograms(**args)
     elif command == "create-label-arrays":
         from orcai_tpu_torch.pipeline.labels import create_label_arrays
 
@@ -437,16 +459,17 @@ def main(argv=None) -> int:
 
         converted = convert_tvt_datasets(
             args["tvt_dir"], output_dir=args["output_dir"], overwrite=args["overwrite"],
-            compression=args["data_compression"],
+            compression=args["data_compression"], msgr=msgr,
         )
         if converted:
-            print("Converted " + ", ".join(f"{k} ({v} samples)" for k, v in converted.items()))
+            msgr.part("Converted "
+                      + ", ".join(f"{k} ({v} samples)" for k, v in converted.items()))
         else:
-            print("Nothing to convert (all splits already converted)")
+            msgr.part("Nothing to convert (all splits already converted)")
     else:
         from orcai_tpu_torch.pipeline.predict import filter_predictions_file
 
-        print(filter_predictions_file(**args))
+        filter_predictions_file(**args)
     return 0
 
 

@@ -266,3 +266,83 @@ class Table:
         lines = ["\t".join(([""] if self.index is not None else []) + self.names)]
         lines += ["\t".join(r) for r in self.rows(self.index is not None)]
         return "\n".join(lines)
+
+    def to_string(self) -> str:
+        """The table as pandas' DataFrame.to_string lays it out: the row
+        labels left-justified (their name on a row of its own), each column
+        right-justified under its name (a numeric column's name after a
+        space), one space between columns."""
+        index = [str(v) for v in (self.index if self.index is not None else range(self._n))]
+        columns = []
+        for name, col in self.columns.items():
+            cells = _display_cells(col)
+            header = f" {name}" if col.dtype.kind in "biuf" else name  # numeric: a sign's space
+            width = max([len(header), *map(len, cells)])
+            columns.append([header.rjust(width)] + [c.rjust(width) for c in cells])
+        width = max([len(self.index_name or ""), *map(len, index)])
+        lines = [" " * width + "".join(" " + c[0] for c in columns)]
+        if self.index_name:
+            lines.append(self.index_name.ljust(width)
+                         + "".join(" " + " " * len(c[0]) for c in columns))
+        lines += [index[i].ljust(width) + "".join(" " + c[i + 1] for c in columns)
+                  for i in range(self._n)]
+        return "\n".join(lines)
+
+
+class Counts(Table):
+    """Rows counted per value of a column, as pandas'
+    `table.groupby(key).size()` gives them (the values sorted); printed as
+    that Series prints."""
+
+    def __init__(self, table: Table, key: str):
+        groups, counts = np.unique(np.asarray(table[key], dtype=object).astype(str),
+                                   return_counts=True)
+        super().__init__(list(groups), {"": counts.astype(np.int64)}, index_name=key)
+
+    def to_string(self) -> str:
+        cells = _display_cells(self.columns[""])
+        width = max(map(len, cells), default=0)
+        labels = [str(v) for v in self.index]
+        label_width = max(map(len, labels), default=0)
+        return "\n".join([self.index_name] + [
+            label.ljust(label_width) + "   " + cell.rjust(width)
+            for label, cell in zip(labels, cells)])
+
+
+_DECIMAL_TEXT = re.compile(r"^\s*[\+-]?[0-9]+\.[0-9]*$")
+
+
+def _trim_zeros(cells: list[str]) -> list[str]:
+    """pandas' _trim_zeros_float: drop trailing zeros from every decimal
+    number of a column alike, keeping one digit after the point."""
+    def trimmable(values):
+        numbers = [x for x in values if _DECIMAL_TEXT.match(x)]
+        return bool(numbers) and all(x.endswith("0") for x in numbers)
+
+    while trimmable(cells):
+        cells = [x[:-1] if _DECIMAL_TEXT.match(x) else x for x in cells]
+    return [x + "0" if _DECIMAL_TEXT.match(x) and x.endswith(".") else x for x in cells]
+
+
+def _display_cells(col: np.ndarray) -> list[str]:
+    """A column's cells as pandas' to_string formats them at its default
+    precision of 6: a space where a sign would go, floats to 6 decimals
+    with the column's common trailing zeros trimmed (in e-notation where a
+    value is under 1e-6, or over 1e6 in a column that grows too wide),
+    NaN as NaN."""
+    if col.dtype.kind == "f":
+        values = col.astype(np.float64)
+        nan = np.isnan(values)
+
+        def cells(spec: str) -> list[str]:
+            return _trim_zeros(["NaN" if m else spec.format(v) for v, m in zip(values, nan)])
+
+        out = cells("{: .6f}")
+        size = np.abs(values[~nan])
+        too_long = max(map(len, out), default=0) > 6 + 6
+        if ((size < 1e-6) & (size > 0)).any() or (too_long and (size > 1e6).any()):
+            out = cells("{: .6e}")
+        return out
+    if col.dtype.kind in "iu":
+        return [f"{int(v): d}" for v in col]
+    return ["NaN" if isinstance(v, float) and v != v else f" {v}" for v in col]

@@ -13,14 +13,12 @@ are byte-equal to the JAX package's.
 from __future__ import annotations
 
 import json
-import logging
 import shutil
 from pathlib import Path
 
 from orcai_tpu_torch.io.dataset import ArrayDataset
 from orcai_tpu_torch.io.tfrecord import DataLossError, TFSnapshot
-
-log = logging.getLogger(__name__)
+from orcai_tpu_torch.utils.messenger import Messenger
 
 #: dataset directory names the reference's create_tvt_data may materialize
 #: (the unfiltered test split is optional)
@@ -95,6 +93,7 @@ def convert_tf_dataset(
     compression: str | None = "auto",
     shard_size: int = 2048,
     overwrite: bool = False,
+    msgr: Messenger | None = None,
 ) -> int:
     """Convert ONE tf.data snapshot dir into ArrayDataset shards.
 
@@ -118,7 +117,7 @@ def convert_tf_dataset(
     ArrayDataset.save_from_loader(
         loader, dst, compression=None, shard_size=shard_size, overwrite=True
     )
-    log.info("%s: %d samples -> %s", src.name, len(loader), dst)
+    (msgr or Messenger(verbosity=0)).info(f"{src.name}: {len(loader)} samples -> {dst}")
     return len(loader)
 
 
@@ -128,6 +127,7 @@ def convert_tvt_datasets(
     compression: str | None = "auto",
     shard_size: int = 2048,
     overwrite: bool = False,
+    msgr: Messenger | None = None,
 ) -> dict[str, int]:
     """Convert every reference-materialized dataset under a TVT dir.
 
@@ -140,6 +140,8 @@ def convert_tvt_datasets(
     """
     tvt_dir = Path(tvt_dir)
     out_base = Path(output_dir) if output_dir is not None else tvt_dir
+    if msgr is None:
+        msgr = Messenger(verbosity=0)
     if not tvt_dir.is_dir():
         raise NotADirectoryError(f"tvt_dir does not exist: {tvt_dir}")
 
@@ -155,13 +157,13 @@ def convert_tvt_datasets(
         try:
             converted[name] = convert_tf_dataset(
                 src, dst, compression=compression, shard_size=shard_size,
-                overwrite=overwrite,
+                overwrite=overwrite, msgr=msgr,
             )
         except FileExistsError:
             # a split converted by an earlier run is skipped, so an
             # interrupted conversion resumes where it stopped
-            log.warning("%s already converted at %s; skipping (use --overwrite to redo)",
-                        name, dst)
+            msgr.warning(f"{name} already converted at {dst}; skipping "
+                         "(use --overwrite to redo)")
     if not found:
         raise FileNotFoundError(
             f"No tf.data snapshot dataset dirs found under {tvt_dir} "

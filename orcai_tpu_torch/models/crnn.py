@@ -33,6 +33,9 @@ from orcai_tpu_torch.models.layers import (
     FrozenBiasConv,
     LSTM,
     SeparableConv,
+    full,
+    model_input,
+    shard_of,
 )
 
 L2_SCALE = 0.001
@@ -61,6 +64,7 @@ def max_pool_same(x: torch.Tensor) -> torch.Tensor:
 
 
 def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    x = model_input(layer, x)
     return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
 
@@ -90,25 +94,32 @@ class ResNetTrunk(nn.Module):
         self.block_dropout = Dropout(dropout_rate) if block_dropout else None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """(B, C, T, F) -> (B, 36, T / 2**n, ceil-halved F), NCHW."""
-        x = F.relu(self.entry_bn(self.entry_conv(x), train))
+        """(B, C, T, F) -> (B, 36, T / 2**n, ceil-halved F), NCHW.
+
+        Sharded (tensor parallelism), each conv + BatchNorm computes its
+        block of channels and the whole is gathered after the BatchNorm;
+        a block's shortcut conv has the same channels as its second
+        BatchNorm, so the two are sharded alike and added as blocks."""
+        x = full(F.relu(self.entry_bn(self.entry_conv(x), train)), self.entry_bn)
         previous = x
         for bi in range(len(self.filters)):
             y = F.relu(x)
             y = getattr(self, f"block{bi}_sep1")(y)
-            y = F.relu(getattr(self, f"block{bi}_bn1")(y, train))
+            bn1 = getattr(self, f"block{bi}_bn1")
+            y = full(F.relu(bn1(y, train)), bn1)
             y = getattr(self, f"block{bi}_sep2")(y)
-            y = max_pool_same(getattr(self, f"block{bi}_bn2")(y, train))
+            bn2 = getattr(self, f"block{bi}_bn2")
+            y = max_pool_same(bn2(y, train))
             shortcut = getattr(self, f"block{bi}_shortcut")
             # 1x1 stride-2 SAME conv: no padding at any size
-            x = y + F.conv2d(
-                previous, shortcut.weight.to(x.dtype), shortcut.bias.to(x.dtype),
-                stride=2,
-            )
+            x = full(y + F.conv2d(
+                model_input(shortcut, previous), shortcut.weight.to(x.dtype),
+                shortcut.bias.to(x.dtype), stride=2,
+            ), bn2)
             previous = x
             if self.block_dropout is not None:
                 x = self.block_dropout(x, train)
-        return F.relu(self.head_bn(self.head_sep(x), train))
+        return full(F.relu(self.head_bn(self.head_sep(x), train)), self.head_bn)
 
 
 class _Detector(nn.Module):
@@ -137,13 +148,14 @@ class _Detector(nn.Module):
             if isinstance(module, Dropout):
                 module.generator = generator
 
-    def set_data_parallel(self, rank: int | None, world: int = 1) -> None:
+    def set_data_parallel(self, rank: int | None, world: int = 1, group=None) -> None:
         """Train as block `rank` of a global batch split over `world`
-        processes of the default group: global BatchNorm statistics and
-        dropout masks (models/layers.py). rank None trains alone again."""
+        processes of `group` (default: the default group): global BatchNorm
+        statistics and dropout masks (models/layers.py). rank None trains
+        alone again."""
         for module in self.modules():
             if isinstance(module, BatchNorm):
-                module.sync = rank is not None
+                module.sync = False if rank is None else (group if group is not None else True)
             elif isinstance(module, Dropout):
                 module.shard = None if rank is None else (int(rank), int(world))
 
@@ -173,9 +185,10 @@ def _add_dense_head(model: _Detector, in_features: int) -> None:
 def _dense_head(model: _Detector, x: torch.Tensor, train: bool) -> torch.Tensor:
     x = F.relu(_linear(model.dense, x))
     # statistics over B * T: the channel goes to dim 1 for the normalization
-    x = model.dense_bn(x.transpose(1, 2), train).transpose(1, 2)
+    # (and a sharded block is gathered there, in BatchNorm's layout)
+    x = full(model.dense_bn(x.transpose(1, 2), train), model.dense_bn).transpose(1, 2)
     x = model.dropout(x, train)
-    return _linear(model.out, x)
+    return full(_linear(model.out, x), model.out, dim=2)
 
 
 class ResNetLSTM(_Detector):
@@ -223,7 +236,7 @@ class ResNet1DConv(_Detector):
     def head(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         x = self.dropout(x, train)
         x = x.mean(dim=2)  # frequency, dim 2 of NHWC -> (B, T, C)
-        return self.out_conv1d(x.transpose(1, 2)).transpose(1, 2)
+        return full(self.out_conv1d(x.transpose(1, 2)), self.out_conv1d).transpose(1, 2)
 
 
 class ResNetTCN(_Detector):
@@ -251,10 +264,12 @@ class ResNetTCN(_Detector):
 
     def head(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         b, t, f, c = x.shape
-        x = _linear(self.proj, x.reshape(b, t, f * c)).transpose(1, 2)  # (B, C, T)
+        x = full(_linear(self.proj, x.reshape(b, t, f * c)), self.proj, dim=2)
+        x = x.transpose(1, 2)  # (B, C, T)
         for i in range(len(TCN_DILATIONS)):
             y = getattr(self, f"tcn{i}_conv")(F.relu(x))
-            y = getattr(self, f"tcn{i}_bn")(y, train)
+            bn = getattr(self, f"tcn{i}_bn")
+            y = full(bn(y, train), bn)
             x = x + self.dropout(y, train)
         return _dense_head(self, x.transpose(1, 2), train)
 
@@ -361,15 +376,23 @@ def l2_regularization(model: nn.Module) -> torch.Tensor:
     As the reference places it: bilstm1 / bilstm2 `weight_ih` of both
     directions (never the recurrent kernel) and the kernel of the layer
     named exactly `dense` (not dense_bn, out or proj); scale * sum(x**2).
-    A model without those layers has a zero penalty.
+    A model without those layers has a zero penalty. A sharded kernel's
+    squares are summed over the model group (each block once), a
+    replicated one's counted once.
     """
-    total = next(model.parameters()).new_zeros(())
-    for name in ("bilstm1", "bilstm2"):
-        layer = getattr(model, name, None)
-        if layer is not None:
-            total = total + layer.fwd.weight_ih.float().square().sum()
-            total = total + layer.bwd.weight_ih.float().square().sum()
-    dense = getattr(model, "dense", None)
-    if dense is not None:
-        total = total + dense.weight.float().square().sum()
+    total = sharded = next(model.parameters()).new_zeros(())
+    tp = None
+    layers = [getattr(getattr(model, name, None), d, None)
+              for name in ("bilstm1", "bilstm2") for d in ("fwd", "bwd")]
+    for layer in [*layers, getattr(model, "dense", None)]:
+        if layer is None:
+            continue
+        weight = layer.weight_ih if isinstance(layer, LSTM) else layer.weight
+        square = weight.float().square().sum()
+        if shard_of(layer) is None:
+            total = total + square
+        else:
+            tp, sharded = shard_of(layer), sharded + square
+    if tp is not None:
+        total = total + tp.sum(sharded)
     return L2_SCALE * total

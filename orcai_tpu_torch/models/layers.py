@@ -15,6 +15,14 @@ block of the global batch) BatchNorm's statistics and Dropout's masks are
 those of the global batch, as they are under the reference's GSPMD
 partitioning: BatchNorm.sync all-reduces the statistics over the group,
 Dropout.shard draws the global mask and keeps the process's rows.
+
+In tensor-parallel training (parallel/sharding_rules.py) a layer whose
+weight is sharded over the mesh's "model" axis holds a `tp` (a ModelShard):
+it computes its block of output channels from its whole input, which it
+takes through `tp.copy` (the input's gradient is summed over the model
+group); the model gathers the blocks where a whole tensor is needed
+(models/crnn.py). A BiLSTM whose gate columns are sharded runs its steps
+in a loop that gathers the gate pre-activations every step.
 """
 
 from __future__ import annotations
@@ -27,6 +35,24 @@ from torch import nn
 
 BN_MOMENTUM = 0.99  # weight of the old running value, as flax counts it
 BN_EPS = 1e-3
+
+
+def shard_of(module: nn.Module):
+    """The ModelShard of a layer whose parameters are sharded, else None."""
+    return getattr(module, "tp", None)
+
+
+def model_input(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """x as the input of a layer whose output channels may be sharded."""
+    tp = shard_of(module)
+    return x if tp is None else tp.copy(x)
+
+
+def full(x: torch.Tensor, module: nn.Module, dim: int = 1) -> torch.Tensor:
+    """The whole of x along `dim` where `module` computed only its block of
+    that dim (x itself otherwise)."""
+    tp = shard_of(module)
+    return x if tp is None else tp.gather(x, dim)
 
 
 def _same_pads(kernel_size: int, dilation: int = 1) -> tuple[int, int]:
@@ -58,6 +84,7 @@ class FrozenBiasConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features), requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = model_input(self, x)
         return F.conv2d(
             x, self.weight.to(x.dtype), self.bias.to(x.dtype), padding=self.pad
         )
@@ -94,8 +121,11 @@ class SeparableConv(nn.Module):
         self.pointwise = ConvParams(features, in_ch, 1, bias=True, frozen_bias=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # (out, in, 1, 1) * (1, in, kh, kw) -> (out, in, kh, kw)
-        k = self.pointwise.weight * self.depthwise.weight.permute(1, 0, 2, 3)
+        # (out, in, 1, 1) * (1, in, kh, kw) -> (out, in, kh, kw); the
+        # replicated depthwise factor enters each block of output channels
+        depthwise = model_input(self.pointwise, self.depthwise.weight)
+        x = model_input(self.pointwise, x)
+        k = self.pointwise.weight * depthwise.permute(1, 0, 2, 3)
         return F.conv2d(
             x, k.to(x.dtype), self.pointwise.bias.to(x.dtype), padding=self.pad
         )
@@ -114,6 +144,7 @@ class Conv1d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = model_input(self, x)
         return F.conv1d(
             F.pad(x, self.pads), self.weight.to(x.dtype), self.bias.to(x.dtype),
             dilation=self.dilation,
@@ -132,11 +163,13 @@ class BatchNorm(nn.Module):
     batch's own statistics in them, and the variance is scaled back by
     (n - 1) / n, n being every element of a channel (B * T for a sequence).
 
-    With `sync` (data-parallel training) the mean and the biased variance
-    are those of every process's batch: two all-reduces over the default
-    group, of the per-channel sums and then of the squared deviations from
-    the global mean, both differentiable (their backward all-reduces the
-    gradients), and n counts the global batch.
+    With `sync` (data-parallel training: True for the default group, or
+    the process group of the data ranks) the mean and the biased variance
+    are those of every process's batch: two all-reduces over the group, of
+    the per-channel sums and then of the squared deviations from the
+    global mean, both differentiable (their backward all-reduces the
+    gradients), and n counts the global batch. Under tensor parallelism
+    the layer holds its block of the channels and normalizes only those.
     """
 
     def __init__(self, features: int, eps: float = BN_EPS):
@@ -155,7 +188,7 @@ class BatchNorm(nn.Module):
                 self.bias, training=False, eps=self.eps,
             )
             return y.to(x.dtype)
-        if self.sync:
+        if self.sync is not False:
             return self._forward_sync(x)
         n = x.numel() // x.shape[1]
         mean = torch.zeros_like(self.running_mean)
@@ -172,14 +205,15 @@ class BatchNorm(nn.Module):
         return y.to(x.dtype)
 
     def _forward_sync(self, x: torch.Tensor) -> torch.Tensor:
+        group = None if self.sync is True else self.sync
         xf = x.float()
         dims = [d for d in range(xf.dim()) if d != 1]
         shape = [1, -1] + [1] * (xf.dim() - 2)
         # every process holds a block of the same size
-        n = xf.numel() // xf.shape[1] * dist.get_world_size()
-        mean = dist_nn.all_reduce(xf.sum(dims)) / n
+        n = xf.numel() // xf.shape[1] * dist.get_world_size(group)
+        mean = dist_nn.all_reduce(xf.sum(dims), group=group) / n
         centered = xf - mean.view(shape)
-        var = dist_nn.all_reduce((centered * centered).sum(dims)) / n
+        var = dist_nn.all_reduce((centered * centered).sum(dims), group=group) / n
         y = centered * torch.rsqrt(var + self.eps).view(shape)
         y = y * self.weight.view(shape) + self.bias.view(shape)
         with torch.no_grad():
@@ -231,17 +265,19 @@ class Dropout(nn.Module):
         else:
             rank, world = self.shard
             b = x.shape[0]
-            mask = _global_like(x, world).bernoulli_(keep, generator=self.generator)
+            mask = expanded_like(x, 0, world).bernoulli_(keep, generator=self.generator)
             mask = mask[rank * b : (rank + 1) * b]
         return x * mask * (1.0 / keep)
 
 
-def _global_like(x: torch.Tensor, world: int) -> torch.Tensor:
-    """An empty tensor of `world` times x's rows, laid out in memory as
-    torch.empty_like lays out such a tensor in one process: a draw fills
-    memory in order, so the layout decides which element gets which
-    number (an LSTM's batch-first output, say, is time-major)."""
-    shape = (x.shape[0] * world, *x.shape[1:])
+def expanded_like(x: torch.Tensor, dim: int, factor: int) -> torch.Tensor:
+    """An empty tensor of x's shape with `factor` times its size along
+    `dim`, laid out in memory as torch.empty_like lays out such a tensor in
+    one process: a draw fills memory in order, so the layout decides which
+    element gets which number (an LSTM's batch-first output, say, is
+    time-major)."""
+    shape = list(x.shape)
+    shape[dim] *= factor
     order = sorted(range(x.dim()), key=lambda d: -x.stride(d))
     span = 1
     for d in reversed(order):
@@ -293,8 +329,37 @@ class BiLSTM(nn.Module):
         self.bwd = LSTM(in_features, units)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if shard_of(self.fwd) is not None:
+            return self._forward_sharded(x)
         h0 = x.new_zeros(2, x.shape[0], self.units)
         weights = self.fwd.flat_weights(x.dtype) + self.bwd.flat_weights(x.dtype)
         return torch.lstm(
             x, (h0, h0), weights, True, 1, 0.0, train, True, True
         )[0]
+
+    def _forward_sharded(self, x: torch.Tensor) -> torch.Tensor:
+        """Both directions step by step, as torch.lstm computes them: each
+        process holds a block of the [i f g o] gate columns, so every step
+        gathers the two directions' gate pre-activations over the model
+        group. The output is time-major in memory, as torch.lstm's
+        batch-first output is (a dropout mask drawn on it fills memory in
+        order)."""
+        tp = shard_of(self.fwd)
+        xt = tp.copy(x).transpose(0, 1)  # (T, B, D)
+        cells = (self.fwd, self.bwd)
+        inputs = [F.linear(xt, c.weight_ih.to(x.dtype), c.bias_ih.to(x.dtype)) for c in cells]
+        recurrent = [c.weight_hh.to(x.dtype) for c in cells]
+        steps = xt.shape[0]
+        h = c = x.new_zeros(2, x.shape[0], self.units)
+        out = []
+        for s in range(steps):
+            hs = tp.copy(h)
+            gates = torch.stack([inputs[0][s] + hs[0] @ recurrent[0].T,
+                                 inputs[1][steps - 1 - s] + hs[1] @ recurrent[1].T])
+            i, f, g, o = tp.gather(gates, 2).chunk(4, dim=2)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            out.append(h)
+        forward = torch.stack([h[0] for h in out])
+        backward = torch.stack([h[1] for h in reversed(out)])
+        return torch.cat([forward, backward], dim=2).transpose(0, 1)

@@ -18,15 +18,12 @@ rendezvous (train uses it for the local devices).
 
 from __future__ import annotations
 
-import logging
 import os
 import uuid
 from pathlib import Path
 
 import torch
 import torch.distributed as dist
-
-log = logging.getLogger(__name__)
 
 
 def default_backend() -> str:
@@ -135,7 +132,7 @@ def process_partition(
     return [i for i in range(n) if i % count == process_id]
 
 
-def shard_table_for_process(table):
+def shard_table_for_process(table, msgr=None):
     """This process's rows of a per-recording work table (a Table or a list
     of rows), split round-robin by position.
 
@@ -149,10 +146,11 @@ def shard_table_for_process(table):
     if count <= 1 or len(table) == 0:
         return table
     rows = process_partition(len(table))
-    log.info(
-        "Multi-host run: process %d/%d owns %d of %d recordings",
-        process_index(), count, len(rows), len(table),
-    )
+    if msgr is not None:
+        msgr.info(
+            f"Multi-host run: process {process_index()}/{count} owns "
+            f"{len(rows)} of {len(table)} recordings"
+        )
     if isinstance(table, list):
         return [table[i] for i in rows]
     return table.take(rows)
@@ -209,9 +207,8 @@ def _set_backend_flags(flags: dict) -> None:
     torch.set_num_threads(flags["threads"])
 
 
-def _worker(i, fn, devices, store_path, backend, flags, log_level, args, kwargs):
+def _worker(i, fn, devices, store_path, backend, flags, args, kwargs):
     _set_backend_flags(flags)
-    logging.basicConfig(level=log_level, format=f"[rank {i}] %(message)s")
     os.environ["LOCAL_RANK"] = str(i)
     os.environ["LOCAL_WORLD_SIZE"] = str(len(devices))
     device = devices[i]
@@ -244,8 +241,7 @@ def launch(fn, devices, rendezvous_dir: Path | str, args: tuple = (),
         mp.start_processes(
             _worker,
             args=(fn, devices, str(store_path), launch_backend(devices),
-                  _backend_flags(), logging.getLogger().getEffectiveLevel(),
-                  tuple(args), dict(kwargs or {})),
+                  _backend_flags(), tuple(args), dict(kwargs or {})),
             nprocs=len(devices), join=True, start_method="spawn",
         )
     finally:

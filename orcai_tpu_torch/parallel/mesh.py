@@ -10,6 +10,10 @@ Forward-only work (predict, serve, warmup, test) splits each batch over the
 mesh in one process with `Replicas`: a copy of the model on each device, a
 contiguous block of the batch each, the outputs gathered on the first
 device. Training splits it over processes instead (train/trainer.py).
+
+A mesh with a "model" axis (tensor parallelism, parallel/sharding_rules.py)
+is a ProcessMesh: a (data, model) grid of the default group's processes,
+each on its own device, with a data and a model subgroup.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from orcai_tpu_torch.parallel.distributed import (
     local_process_count,
     local_rank,
     process_count,
+    process_index,
 )
 from orcai_tpu_torch.utils.device import resolve_device
 
@@ -47,10 +52,48 @@ def local_devices(device="cuda") -> list[torch.device]:
     return [torch.device("cuda", i) for i in range(n)]
 
 
-def make_mesh(n_data: int | None = None, devices=None) -> list[torch.device]:
-    """The first n_data of `devices` (default: every local device)."""
-    devices = local_devices() if devices is None else local_devices(list(devices))
-    return devices[: n_data if n_data is not None else len(devices)]
+class ProcessMesh:
+    """A (data, model) grid of processes: rank = data * n_model + model, as
+    the JAX mesh lays its device list out (n_data, n_model). `data_group`
+    holds the processes of this one's model coordinate (they split the
+    batch), `model_group` those of its data coordinate (they hold the
+    blocks of the sharded parameters); both are None on a mesh made
+    without a process group (its shape alone, for params_shardings)."""
+
+    def __init__(self, n_data: int, n_model: int, rank: int = 0):
+        self.shape = {"data": n_data, "model": n_model}
+        self.data_index, self.model_index = divmod(rank, n_model)
+        self.data_group = self.model_group = None
+
+
+def make_mesh(n_data: int | None = None, devices=None, n_model: int = 1):
+    """The first n_data of `devices` (default: every local device) for a
+    data-parallel mesh. With n_model > 1, the ProcessMesh over the default
+    process group (n_data defaults to its size over n_model): every process
+    of the group calls this, in the same order as its other groups."""
+    if n_model == 1:
+        devices = local_devices() if devices is None else local_devices(list(devices))
+        return devices[: n_data if n_data is not None else len(devices)]
+    if devices is not None:
+        raise ValueError("a (data, model) mesh is the process group's: each process "
+                         "computes on its own device")
+    world = process_count()
+    if n_data is None:
+        n_data = world // n_model
+    if n_data * n_model != world:
+        raise ValueError(f"mesh {n_data} x {n_model} does not cover {world} processes")
+    mesh = ProcessMesh(n_data, n_model, process_index())
+    import torch.distributed as dist
+
+    for d in range(n_data):  # every process makes every group, in one order
+        group = dist.new_group([d * n_model + m for m in range(n_model)])
+        if d == mesh.data_index:
+            mesh.model_group = group
+    for m in range(n_model):
+        group = dist.new_group([d * n_model + m for d in range(n_data)])
+        if m == mesh.model_index:
+            mesh.data_group = group
+    return mesh
 
 
 def shard_batch_size(batch_size: int, mesh: list) -> int:

@@ -13,7 +13,6 @@ differ).
 
 from __future__ import annotations
 
-import logging
 import shutil
 import sys
 from pathlib import Path
@@ -24,9 +23,9 @@ from numpy.random import SeedSequence
 from orcai_tpu_torch.io.jsonio import read_json, write_json
 from orcai_tpu_torch.io.tables import Table, isna, object_column
 from orcai_tpu_torch.resources import DEFAULTS_DIR
+from orcai_tpu_torch.utils.messenger import Messenger
 from orcai_tpu_torch.utils.rle import filter_filepaths
 
-log = logging.getLogger(__name__)
 
 # columns every recording table carries, in output order (per-call
 # possibility columns and carried-over columns are appended)
@@ -41,38 +40,41 @@ _TABLE_COLUMNS = [
 _PATH_COLUMNS = _TABLE_COLUMNS[2:]
 
 
-def _stage_default_configs(project_dir: Path, project_name: str) -> Path:
+def _stage_default_configs(project_dir: Path, project_name: str, msgr: Messenger) -> Path:
     """Copy each packaged default JSON as <project>_<file>.json; returns the
     path of the staged orcai parameter file."""
     param_path = None
     for source in sorted(DEFAULTS_DIR.glob("*.json")):
         target = project_dir / source.name.replace("default", project_name)
-        log.info("Creating %s", target.name)
+        msgr.info(f"Creating {target.name}")
         shutil.copy(source, target)
         if "orcai_parameter" in source.name:
             param_path = target
     return param_path
 
 
-def _merge_overrides(base: dict, overrides: dict) -> dict:
+def _merge_overrides(base: dict, overrides: dict, msgr: Messenger) -> dict:
     """Section-wise deep merge of user overrides into the default parameter
     schema; sections unknown to the schema are dropped with a warning."""
     merged = dict(base)
     for section, value in overrides.items():
         if section not in merged:
-            log.warning("%s not found in default orcAI parameter. Ignoring.", section)
+            msgr.warning(f"{section} not found in default orcAI parameter. Ignoring.")
             continue
         if isinstance(merged[section], dict):
             merged[section] = {**merged[section], **value}
         else:
             merged[section] = value
-        log.info('Updating "%s" in default orcAI parameter with %s', section, value)
+        msgr.info(f'Updating "{section}" in default orcAI parameter with', indent=1)
+        msgr.info(value, indent=-1)
     return merged
 
 
 def init_project(
     project_dir: Path | str,
     project_name: str,
+    verbosity: int = 2,
+    msgr: Messenger | None = None,
     parameter: Path | str | dict | None = None,
 ) -> None:
     """Scaffold a project: staged default configs + merged parameter file.
@@ -81,30 +83,33 @@ def init_project(
     section-wise, and the master seed is fresh 128-bit SeedSequence entropy
     unless the overrides pin one.
     """
-    log.info("Creating project directory: %s", project_dir)
+    if msgr is None:
+        msgr = Messenger(verbosity=verbosity, title="Initializing project")
+    msgr.part(f"Creating project directory: {project_dir}")
     project_dir = Path(project_dir)
     project_dir.mkdir(parents=True, exist_ok=True)
 
-    param_path = _stage_default_configs(project_dir, project_name)
+    param_path = _stage_default_configs(project_dir, project_name, msgr)
     orcai_parameter = read_json(param_path)
 
     overrides = parameter
     if isinstance(overrides, (Path, str)):
         overrides = read_json(overrides)
     if overrides:
-        orcai_parameter = _merge_overrides(orcai_parameter, overrides)
+        orcai_parameter = _merge_overrides(orcai_parameter, overrides, msgr)
     if not overrides or "seed" not in overrides:
-        log.info("Drawing a fresh 128-bit master seed")
+        msgr.info("Drawing a fresh 128-bit master seed")
         orcai_parameter["seed"] = SeedSequence().entropy
 
     orcai_parameter["name"] = project_name
     write_json(orcai_parameter, param_path)
-    log.info("Project ready.")
+    msgr.success("Project ready.")
 
 
-def _scan_files(root: Path, pattern: str, exclude: list[str] | None) -> list[Path]:
+def _scan_files(root: Path, pattern: str, exclude: list[str] | None,
+                msgr: Messenger) -> list[Path]:
     """Recursive scan, sorted, with substring exclusion."""
-    return filter_filepaths(sorted(root.glob(pattern)), exclude or [])
+    return filter_filepaths(sorted(root.glob(pattern)), exclude or [], msgr)
 
 
 
@@ -175,6 +180,8 @@ def create_recording_table(
     update_paths: bool = True,
     exclude_patterns: Path | str | list[str] | None = None,
     remove_duplicate_filenames: bool = False,
+    verbosity: int = 2,
+    msgr: Messenger | None = None,
 ) -> Table:
     """Catalog wav recordings and their annotation files into one table.
 
@@ -182,7 +189,10 @@ def create_recording_table(
     base+relative path columns, per-call possibility columns left blank for
     the user, and in update mode any extra columns of the previous table.
     """
-    log.info("Resolving file paths")
+    if msgr is None:
+        msgr = Messenger(verbosity=verbosity, title="Creating recording table")
+
+    msgr.part("Resolving file paths")
     base_dir_recording = Path(base_dir_recording)
     output_path = (
         Path(output_path)
@@ -190,15 +200,15 @@ def create_recording_table(
         else base_dir_recording / "recording_table.csv"
     )
     if output_path.exists():
-        log.error("Output path %s already exists!", output_path)
+        msgr.error(f"Output path {output_path} already exists!")
         sys.exit(1)
 
     base_dir_annotation = Path(base_dir_annotation or base_dir_recording)
     exclude = exclude_patterns
     if isinstance(exclude, (Path, str)):
         exclude = read_json(exclude)
-    wavs = _scan_files(base_dir_recording, "**/*.wav", exclude)
-    annotations = _scan_files(base_dir_annotation, "**/*.txt", exclude)
+    wavs = _scan_files(base_dir_recording, "**/*.wav", exclude, msgr)
+    annotations = _scan_files(base_dir_annotation, "**/*.txt", exclude, msgr)
 
     calls = read_json(orcai_parameter)["calls"] if orcai_parameter else []
 
@@ -207,8 +217,10 @@ def create_recording_table(
         by_stem.setdefault(p.stem, []).append(p)
     orphans = set(by_stem) - {p.stem for p in wavs}
     if orphans:
-        log.warning("%d annotations with missing recordings: %s. These will be ignored.",
-                    len(orphans), orphans)
+        msgr.warning(
+            f"{len(orphans)} annotations with missing recordings: {orphans}. "
+            "These will be ignored."
+        )
 
     # the left join on the stem: one row per (wav, matching annotation)
     rows = []
@@ -233,9 +245,9 @@ def create_recording_table(
         if remove_duplicate_filenames:
             table = table.take(~table["duplicate"])
         else:
-            log.warning("Duplicate filenames found.")
-            log.warning("Rows sharing a file stem are marked in the 'duplicate' "
-                        "column; stems must be unique for downstream steps.")
+            msgr.warning("Duplicate filenames found.")
+            msgr.warning("Rows sharing a file stem are marked in the 'duplicate' "
+                         "column; stems must be unique for downstream steps.")
 
     carried_columns: list[str] = []
     if update_table is not None:
@@ -248,10 +260,11 @@ def create_recording_table(
 
     table = table.select([*_TABLE_COLUMNS, *carried_columns, *calls])
 
-    log.info("Saving recording table to %s", output_path)
+    msgr.part(f"Saving recording table to {output_path}")
     table.to_csv(output_path)
-    log.info("Total recordings: %d", len(table))
-    log.info("Recordings with annotations: %d",
-             int((~isna(table["rel_annotation_path"])).sum()))
+    msgr.info(f"Total recordings: {len(table)}", set_indent=1)
+    msgr.info(f"Recordings with annotations: "
+              f"{int((~isna(table['rel_annotation_path'])).sum())}")
+    msgr.success("Recording table written.")
     return table
 

@@ -10,7 +10,6 @@ as possible here, as the reference's NaN -> True cast does.
 
 from __future__ import annotations
 
-import logging
 from pathlib import Path
 
 import numpy as np
@@ -21,9 +20,8 @@ from orcai_tpu_torch.io.tables import Table, isna
 from orcai_tpu_torch.io.zarrlite import save_as_zarr
 from orcai_tpu_torch.parallel.distributed import shard_table_for_process
 from orcai_tpu_torch.resources import DEFAULT_ORCAI_PARAMETER as DEFAULT_PARAMETER
+from orcai_tpu_torch.utils.messenger import Messenger
 from orcai_tpu_torch.utils.seeds import MASK_VALUE
-
-log = logging.getLogger(__name__)
 
 
 def intervals_to_mask(t_vec: np.ndarray, starts, stops) -> np.ndarray:
@@ -45,19 +43,24 @@ def convert_annotation(
     labels_present: list[str],
     labels_masked: list[str],
     call_equivalences: dict | Path | str | None = None,
+    msgr: Messenger | None = None,
 ) -> tuple[np.ndarray, dict]:
     """One annotation file -> (label array (T, n_calls) float64,
     {call: "present" | "masked"})."""
+    if msgr is None:
+        msgr = Messenger(verbosity=0)
+    msgr.part("Rasterizing annotation intervals onto the frame grid")
     recording = annotation_file_path.stem
     annotations = read_annotation_file(annotation_file_path)
     origlabel = annotations["origlabel"]
     if call_equivalences is not None:
+        msgr.info("Applying call equivalences")
         if isinstance(call_equivalences, (Path, str)):
             call_equivalences = read_json(call_equivalences)
         labels = np.array([call_equivalences.get(v) for v in origlabel], dtype=object)
         unmapped = set(origlabel) - set(call_equivalences)
         if unmapped:
-            log.info("Annotation labels missing from the equivalence map: %s", unmapped)
+            msgr.info(f"Annotation labels missing from the equivalence map: {unmapped}")
     else:
         labels = origlabel
 
@@ -65,8 +68,8 @@ def convert_annotation(
     try:
         t_vec = generate_times_from_spectrogram(spectrogram_dir / "times.json")
     except FileNotFoundError:
-        log.error("File not found: %s. Did you create the spectrogram?",
-                  spectrogram_dir / "times.json")
+        msgr.error(f"File not found: {spectrogram_dir / 'times.json'}")
+        msgr.error("Did you create the spectrogram?")
         raise
 
     columns = {}
@@ -89,13 +92,18 @@ def create_label_arrays(
     orcai_parameter: dict | Path | str = DEFAULT_PARAMETER,
     call_equivalences: dict | Path | str | None = None,
     overwrite: bool = False,
+    verbosity: int = 2,
+    msgr: Messenger | None = None,
 ) -> None:
     """Label arrays for the annotated rows of a recording table.
 
     Writes <recording>/labels/labels.zarr + label_list.json; skips
     recordings that already have labels unless overwrite.
     """
-    log.info("Loading the recording table")
+    if msgr is None:
+        msgr = Messenger(verbosity=verbosity, title="Making label arrays")
+
+    msgr.part("Loading the recording table")
     output_dir = Path(output_dir)
     table = Table.read_csv(recording_table_path)
     if base_dir_annotation is not None:
@@ -103,34 +111,34 @@ def create_label_arrays(
 
     not_annotated = isna(table["base_dir_annotation"])
     if not_annotated.any():
-        log.info("%d recordings have no annotation file; skipping them.",
-                 int(not_annotated.sum()))
+        msgr.info(f"{int(not_annotated.sum())} recordings have no annotation file; "
+                  "skipping them.")
         table = table.take(~not_annotated)
 
     if isinstance(orcai_parameter, (Path, str)):
         orcai_parameter = read_json(orcai_parameter)
     label_calls = orcai_parameter["calls"]
 
-    table = shard_table_for_process(table)
+    table = shard_table_for_process(table, msgr)
 
     if not overwrite:
         existing = np.array([output_dir.joinpath(str(r), "labels").exists()
                              for r in table["recording"]], dtype=bool)
         if existing.sum() > 0:
-            log.info("Skipping %d recordings because they already have labels.",
-                     int(existing.sum()))
+            msgr.info(f"Skipping {int(existing.sum())} recordings because they already "
+                      "have labels.")
         table = table.take(~existing)
 
     recordings_no_labels = []
-    log.info("Building label arrays")
+    msgr.part("Building label arrays")
     for rec in table.records():
         cells = {c: rec[c] for c in label_calls}
         blank = [c for c, v in cells.items() if isna(np.array([v], dtype=object))[0]]
         if blank:
-            log.warning(
-                "Recording %r has blank call-possibility cells for %s; treating blank as "
-                "'possible' (the reference's NaN->True cast). Fill every call column with "
-                "0/False or 1/True to silence this.", rec["recording"], blank)
+            msgr.warning(
+                f"Recording {rec['recording']!r} has blank call-possibility cells for "
+                f"{blank}; treating blank as 'possible' (the reference's NaN->True "
+                "cast). Fill every call column with 0/False or 1/True to silence this.")
         labels_present = [c for c, v in cells.items() if c in blank or bool(v)]
         if not labels_present:
             recordings_no_labels.append(rec["recording"])
@@ -144,11 +152,12 @@ def create_label_arrays(
             labels_present=labels_present,
             labels_masked=labels_masked,
             call_equivalences=call_equivalences,
+            msgr=Messenger(verbosity=0),
         )
         labels_dir = output_dir.joinpath(str(rec["recording"]), "labels")
         save_as_zarr(array, labels_dir / "labels.zarr", compress="auto")
         write_json(label_dict, labels_dir / "label_list.json")
 
     if recordings_no_labels:
-        log.warning("Recordings without any valid label: %s", recordings_no_labels)
-    log.info("Label arrays written")
+        msgr.warning(f"Recordings without any valid label: {recordings_no_labels}")
+    msgr.success("Label arrays written")

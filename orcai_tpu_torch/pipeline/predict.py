@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import csv
 import gzip
-import logging
 import os
 from pathlib import Path
 
@@ -46,10 +45,8 @@ from orcai_tpu_torch.parallel.distributed import shard_table_for_process
 from orcai_tpu_torch.parallel.mesh import local_devices
 from orcai_tpu_torch.resources import DEFAULT_CALL_DURATION_LIMITS
 from orcai_tpu_torch.utils.device import exact_f32_math
+from orcai_tpu_torch.utils.messenger import Messenger
 from orcai_tpu_torch.utils.rle import runs_from_binary_matrix
-
-log = logging.getLogger(__name__)
-
 
 
 # ---------------------------------------------------------------- filtering
@@ -70,6 +67,8 @@ def filter_predictions(
     delta_t: float,
     call_duration_limits: dict | Path | str = DEFAULT_CALL_DURATION_LIMITS,
     label_suffix: str = "*",
+    verbosity: int = 2,
+    msgr: Messenger | None = None,
 ) -> list[tuple]:
     """Drop (start, stop, label) rows outside their per-call duration limits.
 
@@ -77,8 +76,12 @@ def filter_predictions(
     falling back to a "default" entry; durations are compared in seconds,
     (stop - start) * delta_t. The kept rows keep their order.
     """
+    if msgr is None:
+        msgr = Messenger(verbosity=verbosity, title="Filtering predictions")
+    msgr.part("Filtering predictions")
     if isinstance(call_duration_limits, (Path, str)):
         call_duration_limits = read_json(call_duration_limits)
+    msgr.part("Filtering calls based on duration")
     kept, n_short, n_long = [], 0, 0
     for row in predicted_labels:
         start, stop, label = row
@@ -92,10 +95,11 @@ def filter_predictions(
             n_long += 1
         else:
             kept.append(row)
-    log.info(
-        "Discarding %d calls based on duration (too short: %d, too long: %d)",
-        n_short + n_long, n_short, n_long,
+    msgr.info(
+        f"Discarding {n_short + n_long} calls based on duration "
+        f"(too short: {n_short}, too long: {n_long})"
     )
+    msgr.success("Filtering predictions finished.")
     return kept
 
 
@@ -105,15 +109,19 @@ def filter_predictions_file(
     overwrite: bool = False,
     call_duration_limits: dict | Path | str = DEFAULT_CALL_DURATION_LIMITS,
     label_suffix: str = "*",
+    verbosity: int = 2,
+    msgr: Messenger | None = None,
 ) -> Path:
     """Re-filter an existing predictions TSV (already in seconds: delta_t=1);
     returns the path written."""
+    if msgr is None:
+        msgr = Messenger(verbosity=verbosity, title="Filtering predictions")
     if output_file == "default":
         filename = Path(predicted_labels).stem + "_filtered.txt"
         output_file = Path(predicted_labels).with_name(filename)
     else:
         output_file = Path(output_file)
-    log.info("Output file: %s", output_file)
+    msgr.info(f"Output file: {output_file}")
     if output_file.exists() and not overwrite:
         raise FileExistsError(f"Annotation file already exists: {output_file}")
     with open(predicted_labels, newline="", encoding="utf-8") as f:
@@ -123,9 +131,9 @@ def filter_predictions_file(
         ]
     kept = filter_predictions(
         rows, delta_t=1, call_duration_limits=call_duration_limits,
-        label_suffix=label_suffix,
+        label_suffix=label_suffix, verbosity=verbosity, msgr=msgr,
     )
-    save_predictions(kept, output_file, delta_t=1)
+    save_predictions(kept, output_file, delta_t=1, msgr=msgr)
     return output_file
 
 
@@ -187,6 +195,7 @@ def _dispatch_wav(
     shape: dict,
     on_estimate=None,
     wire: str | None = None,
+    msgr: Messenger | None = None,
 ) -> dict:
     """Load one wav and queue its whole device chain, without fetching.
 
@@ -200,21 +209,23 @@ def _dispatch_wav(
     spectrogram budget runs the two-pass streaming path at once and comes
     back fetched (mode "host").
     """
+    if msgr is None:
+        msgr = Messenger(verbosity=0)
     recording_path = Path(recording_path)
     sp = orcai_parameter["spectrogram"]
     audio, multichannel = load_wav_for_frontend(
         recording_path, sr=sp["sampling_rate"], channel=channel
     )
     if multichannel:
-        log.warning("Multiple channels found, using channel %d", channel)
-    log.info("Prediction of annotations for wav_file: %s", recording_path.stem)
+        msgr.warning(f"Multiple channels found, using channel {channel}")
+    msgr.part(f"Prediction of annotations for wav_file: {recording_path.stem}")
     n_frames_est = 1 + audio.shape[-1] // sp["n_overlap"]
     n_bins_est = shape["input_shape"][1]
 
     if _is_streaming_recording(audio.shape[-1], sp, shape):
-        log.info(
-            "Recording of %d frames exceeds the spectrogram budget: two-pass "
-            "streaming inference", n_frames_est,
+        msgr.info(
+            f"Recording of {n_frames_est} frames exceeds the spectrogram HBM "
+            "budget: two-pass streaming inference"
         )
         if on_estimate is not None:
             # the streaming path keeps the audio on the device (up to its own
@@ -270,8 +281,11 @@ def _finish_wav(
     predictor: WindowPredictor,
     orcai_parameter: dict,
     label_suffix: str = "*",
+    msgr: Messenger | None = None,
 ) -> tuple[list[tuple[int, int, str]], np.ndarray, float]:
     """Fetch a dispatch record's outputs and decode them to a label table."""
+    if msgr is None:
+        msgr = Messenger(verbosity=0)
     if disp["mode"] == "device":
         aggregated, overlap_count = predictor.fetch_aggregated(
             disp.pop("agg_dev"), disp.pop("count_dev"), disp["n_out"]
@@ -279,12 +293,14 @@ def _finish_wav(
     else:
         aggregated, overlap_count = disp["agg"], disp["count"]
     binary = predictor.binary_predictions(aggregated, overlap_count, threshold=0.5)
+    msgr.info("converting binary predictions into start and stop frames")
     starts, stops, names = runs_from_binary_matrix(binary, orcai_parameter["calls"])
     time_steps_per_output_step = 2 ** len(orcai_parameter["model"]["filters"])
     labels = compute_labels(
         starts, stops, names, time_steps_per_output_step, label_suffix
     )
-    log.info("found %d acoustic signals", len(labels))
+    msgr.info(f"found {len(labels)} acoustic signals")
+    msgr.success("Prediction finished.")
     return labels, aggregated, disp["delta_t"]
 
 
@@ -295,6 +311,7 @@ def save_predictions(
     predicted_labels: list[tuple],
     output_path: Path | str,
     delta_t: float,
+    msgr: Messenger | None = None,
 ) -> None:
     """Write the Audacity TSV as the reference's pandas writer does: start
     and stop in seconds (steps * delta_t, float64), rounded to 4 places
@@ -307,7 +324,7 @@ def save_predictions(
         writer.writerow(["start", "stop", "label"])
         for a, b, row in zip(start_s, stop_s, predicted_labels):
             writer.writerow([repr(float(a)), repr(float(b)), row[2]])
-    log.info("Predictions saved to %s", output_path)
+    (msgr or Messenger(verbosity=0)).info(f"Predictions saved to {output_path}")
 
 
 def save_prediction_probabilities(
@@ -315,6 +332,7 @@ def save_prediction_probabilities(
     orcai_parameter: dict,
     delta_t: float,
     output_path: Path | str,
+    msgr: Messenger | None = None,
 ) -> Path:
     """Write `<output stem>_probabilities.csv.gz` beside the TSV: a "time"
     column (delta_t * row, float64) and one float32 column per call, each
@@ -330,7 +348,7 @@ def save_prediction_probabilities(
         writer = csv.writer(f, lineterminator="\n")
         writer.writerow(["time", *orcai_parameter["calls"]])
         writer.writerows([t, *row] for t, row in zip(times, cells))
-    log.info("Prediction probabilities saved to %s", probs_path)
+    (msgr or Messenger(verbosity=0)).info(f"Prediction probabilities saved to {probs_path}")
     return probs_path
 
 
@@ -340,6 +358,7 @@ def _resolve_output_path(
     orcai_parameter: dict,
     output_path: Path | str | None,
     overwrite: bool,
+    msgr: Messenger,
 ) -> Path:
     if output_path is None or output_path == "default":
         filename = (
@@ -349,11 +368,11 @@ def _resolve_output_path(
         output_path = recording_path.with_name(filename)
     else:
         output_path = Path(output_path)
-    log.info("Output file: %s", output_path)
+    msgr.info(f"Output file: {output_path}")
     if output_path.exists():
         if not overwrite:
             raise FileExistsError(f"Annotation file already exists: {output_path}")
-        log.warning("Output file %s already exists. Overwriting.", output_path)
+        msgr.warning(f"Output file {output_path} already exists. Overwriting.")
     return output_path
 
 
@@ -365,18 +384,22 @@ def _finish_and_save(
     save_probabilities: bool = False,
     call_duration_limits: dict | Path | str | None = None,
     label_suffix: str = "*",
+    msgr: Messenger | None = None,
 ) -> None:
+    if msgr is None:
+        msgr = Messenger(verbosity=0)
     labels, aggregated, delta_t = _finish_wav(
-        disp, predictor, orcai_parameter, label_suffix
+        disp, predictor, orcai_parameter, label_suffix, msgr=msgr
     )
     if call_duration_limits is not None:
         labels = filter_predictions(
             labels, delta_t=delta_t, call_duration_limits=call_duration_limits,
-            label_suffix=label_suffix,
+            label_suffix=label_suffix, msgr=msgr,
         )
-    save_predictions(labels, output_path, delta_t)
+    save_predictions(labels, output_path, delta_t, msgr=msgr)
     if save_probabilities:
-        save_prediction_probabilities(aggregated, orcai_parameter, delta_t, output_path)
+        save_prediction_probabilities(aggregated, orcai_parameter, delta_t, output_path,
+                                      msgr=msgr)
 
 
 def _predict_and_save(
@@ -391,24 +414,28 @@ def _predict_and_save(
     call_duration_limits: dict | Path | str | None = None,
     label_suffix: str = "*",
     wire: str | None = None,
+    msgr: Messenger | None = None,
 ) -> Path:
+    if msgr is None:
+        msgr = Messenger(verbosity=0)
     output_path = _resolve_output_path(
-        recording_path, channel, orcai_parameter, output_path, overwrite
+        recording_path, channel, orcai_parameter, output_path, overwrite, msgr
     )
     with exact_f32_math():
         disp = _dispatch_wav(
-            recording_path, channel, predictor, orcai_parameter, shape, wire=wire
+            recording_path, channel, predictor, orcai_parameter, shape, wire=wire,
+            msgr=msgr,
         )
     _finish_and_save(
         disp, output_path, predictor, orcai_parameter,
         save_probabilities=save_probabilities,
-        call_duration_limits=call_duration_limits, label_suffix=label_suffix,
+        call_duration_limits=call_duration_limits, label_suffix=label_suffix, msgr=msgr,
     )
     return output_path
 
 
 def build_predictor(
-    model_dir: Path, predict_batch_size: int, device
+    model_dir: Path, predict_batch_size: int, device, msgr: Messenger | None = None
 ) -> tuple[WindowPredictor, dict, dict]:
     """(WindowPredictor, orcai_parameter, shape) for a model directory, in
     the compute dtype ORCAI_TPU_PREDICT_DTYPE names, its windows split over
@@ -420,7 +447,8 @@ def build_predictor(
         model_dir, resolve_predict_dtype(), devices[0]
     )
     if len(devices) > 1:
-        log.info("Sharding inference windows over %d devices", len(devices))
+        (msgr or Messenger(verbosity=0)).info(
+            f"Sharding inference windows over {len(devices)} devices")
     predictor = WindowPredictor(
         model,
         snippet_len=shape["input_shape"][0],
@@ -431,8 +459,8 @@ def build_predictor(
     return predictor, orcai_parameter, shape
 
 
-def _row_error(recording: str, e: Exception) -> None:
-    log.error("Error predicting %s: %s", recording, e)
+def _row_error(msgr: Messenger, recording: str, e: Exception) -> None:
+    msgr.error(f"Error predicting {recording}: {e.args[0] if e.args else e}")
 
 
 def _predict_table(
@@ -446,6 +474,7 @@ def _predict_table(
     base_dir_recording: str | Path | None,
     finish_kwargs: dict,
     wire: str | None = None,
+    msgr: Messenger | None = None,
 ) -> list[Path]:
     """Every row of a recording table (columns recording, channel,
     base_dir_recording, rel_recording_path), in waves: recordings are
@@ -459,8 +488,10 @@ def _predict_table(
         Path(output_path).mkdir(parents=True, exist_ok=True)
     # in a group of several processes each predicts its round-robin share
     # of the table's independent recordings; one process keeps them all
-    table = shard_table_for_process(table)
-    log.info("Predicting annotations for %d wav files", len(table))
+    if msgr is None:
+        msgr = Messenger(verbosity=0)
+    table = shard_table_for_process(table, msgr)
+    msgr.part(f"Predicting annotations for {len(table)} wav files")
 
     wave_budget = int(os.environ.get("ORCAI_TPU_WAVE_HBM_BYTES", 6_000_000_000))
     pending: list[tuple[str, Path, dict]] = []
@@ -473,11 +504,12 @@ def _predict_table(
         for recording, out_path, disp in pending:
             try:
                 _finish_and_save(
-                    disp, out_path, predictor, orcai_parameter, **finish_kwargs
+                    disp, out_path, predictor, orcai_parameter, **finish_kwargs,
+                    msgr=Messenger(verbosity=0),
                 )
                 saved.append(out_path)
             except Exception as e:  # keep the batch going on a per-file failure
-                _row_error(recording, e)
+                _row_error(msgr, recording, e)
         pending.clear()
         pending_paths.clear()
         pending_bytes = 0
@@ -502,8 +534,9 @@ def _predict_table(
                 )
             else:
                 row_output = output_path
+            quiet = Messenger(verbosity=0)
             out_path = _resolve_output_path(
-                recording_path, channel, orcai_parameter, row_output, overwrite
+                recording_path, channel, orcai_parameter, row_output, overwrite, quiet
             )
             # files are written when the wave is flushed, so the check on the
             # disk cannot see a duplicate output path queued earlier in the
@@ -515,10 +548,10 @@ def _predict_table(
             with exact_f32_math():
                 disp = _dispatch_wav(
                     recording_path, channel, predictor, orcai_parameter, shape,
-                    on_estimate=flush_if_next_overflows, wire=wire,
+                    on_estimate=flush_if_next_overflows, wire=wire, msgr=quiet,
                 )
         except Exception as e:  # keep the batch going on a per-file failure
-            _row_error(row.get("recording"), e)
+            _row_error(msgr, row.get("recording"), e)
             continue
         pending.append((row["recording"], out_path, disp))
         pending_paths.add(out_path)
@@ -526,6 +559,7 @@ def _predict_table(
         if pending_bytes >= wave_budget:
             flush_wave()
     flush_wave()
+    msgr.success("Predictions finished.")
     return saved
 
 
@@ -543,6 +577,8 @@ def predict(
     predictor: WindowPredictor | None = None,
     device: str | torch.device = "cuda",
     wire: str | None = None,
+    verbosity: int = 2,
+    msgr: Messenger | None = None,
 ) -> Path | list[Path]:
     """Predict calls in one wav file, or in every row of a recording table
     (.csv), and write the label TSVs. Returns the path written for a wav and
@@ -564,13 +600,16 @@ def predict(
     "bfp6", "bfp5", or a spectral wire ("sp-bfp6", "sp-bfp5", "sp11-bfp5":
     a host L/M resample, then the base codec); every coded wire holds the
     reference's annotation-level parity, not byte equality. None or "auto"
-    resolves through ORCAI_TPU_WIRE, else to exact.
+    resolves through ORCAI_TPU_WIRE, else to exact. The console report goes
+    through `msgr` (one of `verbosity` titled "Predicting calls" if None).
     """
+    if msgr is None:
+        msgr = Messenger(verbosity=verbosity, title="Predicting calls")
     model_dir = Path(model_dir) if model_dir is not None else DEFAULT_MODEL_DIR
     recording_path = Path(recording_path)
     if recording_path.suffix not in (".wav", ".csv"):
         raise ValueError("Recording file must be a wav or csv file")
-    log.info("Loading model: %s", model_dir.stem)
+    msgr.part(f"Loading model: {model_dir.stem}")
     if predictor is not None:
         # the predictor's dtype governs here, but an invalid
         # ORCAI_TPU_PREDICT_DTYPE still raises, as on the cold path
@@ -584,7 +623,7 @@ def predict(
             )
     else:
         predictor, orcai_parameter, shape = build_predictor(
-            model_dir, predict_batch_size, device
+            model_dir, predict_batch_size, device, msgr
         )
     finish_kwargs = dict(
         save_probabilities=save_probabilities,
@@ -594,9 +633,10 @@ def predict(
     if recording_path.suffix == ".wav":
         return _predict_and_save(
             recording_path, channel, predictor, orcai_parameter, shape,
-            output_path=output_path, overwrite=overwrite, wire=wire, **finish_kwargs,
+            output_path=output_path, overwrite=overwrite, wire=wire, msgr=msgr,
+            **finish_kwargs,
         )
     return _predict_table(
         recording_path, predictor, orcai_parameter, shape, model_dir,
-        output_path, overwrite, base_dir_recording, finish_kwargs, wire=wire,
+        output_path, overwrite, base_dir_recording, finish_kwargs, wire=wire, msgr=msgr,
     )

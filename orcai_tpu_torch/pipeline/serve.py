@@ -30,7 +30,6 @@ Failures (utils/device_health.py::classify_error):
 
 from __future__ import annotations
 
-import logging
 import time
 from pathlib import Path
 
@@ -40,8 +39,7 @@ from orcai_tpu_torch.io.model_store import DEFAULT_MODEL_DIR
 from orcai_tpu_torch.pipeline import predict as predict_mod
 from orcai_tpu_torch.tools.warmup import warm_predictor
 from orcai_tpu_torch.utils.device_health import classify_error
-
-log = logging.getLogger(__name__)
+from orcai_tpu_torch.utils.messenger import Messenger
 
 
 def scan_ready(
@@ -90,6 +88,8 @@ def serve(
     sleep=time.sleep,
     device: str | torch.device = "cuda",
     wire: str | None = None,
+    verbosity: int = 2,
+    msgr: Messenger | None = None,
 ) -> int:
     """Watch `watch_dir` for wav files and predict each as it arrives.
 
@@ -106,6 +106,8 @@ def serve(
     (see `predict`). Raises on a sticky CUDA error (see the module
     docstring).
     """
+    if msgr is None:
+        msgr = Messenger(verbosity=verbosity, title="Serving predictions")
     watch_dir = Path(watch_dir)
     if not watch_dir.is_dir():
         raise NotADirectoryError(f"watch_dir does not exist: {watch_dir}")
@@ -113,23 +115,21 @@ def serve(
         output_dir = Path(output_dir)
         output_dir.mkdir(parents=True, exist_ok=True)
     model_dir = Path(model_dir) if model_dir is not None else DEFAULT_MODEL_DIR
-    log.info("Loading model: %s", model_dir.stem)
+    msgr.part(f"Loading model: {model_dir.stem}")
 
     def build():
         # also the recovery path: weights are read from disk again and the
         # whole device state is made anew
         predictor, orcai_parameter, shape = predict_mod.build_predictor(
-            model_dir, predict_batch_size, device
+            model_dir, predict_batch_size, device, msgr
         )
         if warm_minutes > 0:
-            n = warm_predictor(
-                predictor, orcai_parameter["spectrogram"], warm_minutes, wire=wire
-            )
-            log.info("Warmed %d recording-length shapes", n)
+            warm_predictor(predictor, orcai_parameter["spectrogram"], warm_minutes,
+                           wire=wire, msgr=msgr)
         return predictor, orcai_parameter, shape
 
     predictor, orcai_parameter, shape = build()
-    log.info("Watching %s (poll every %g s; stop with ^C)", watch_dir, poll_seconds)
+    msgr.part(f"Watching {watch_dir} (poll every {poll_seconds:g} s; stop with ^C)")
 
     def predict_one(wav: Path, out_path: Path) -> None:
         predict_mod._predict_and_save(
@@ -144,6 +144,7 @@ def serve(
             call_duration_limits=call_duration_limits,
             label_suffix=label_suffix,
             wire=wire,
+            msgr=Messenger(verbosity=0),
         )
 
     prev_sigs: dict[Path, tuple[int, int]] = {}
@@ -165,7 +166,7 @@ def serve(
             out_path = (output_dir or wav.parent) / name
             failed_marker = out_path.with_suffix(out_path.suffix + ".failed")
             if not overwrite and (out_path.exists() or failed_marker.exists()):
-                log.info("%s: output exists, skipping", wav.name)
+                msgr.info(f"{wav.name}: output exists, skipping")
                 continue
             t0 = time.perf_counter()
             try:
@@ -176,9 +177,9 @@ def serve(
                     if classify_error(e) != "out_of_memory":
                         raise  # the input's fault or a dead context: no retry
                     out_of_memory = True
-                    log.error(
-                        "Out of device memory while predicting %s (%s); "
-                        "rebuilding the predictor and retrying once", wav.name, e,
+                    msgr.error(
+                        f"Out of device memory while predicting {wav.name} ({e}); "
+                        "rebuilding the predictor and retrying once"
                     )
                 if out_of_memory:
                     # outside the handler: the exception's traceback held
@@ -188,13 +189,13 @@ def serve(
                     predictor, orcai_parameter, shape = build()
                     predict_one(wav, out_path)
                 failed_marker.unlink(missing_ok=True)
-                log.info("%s -> %s (%.1f s)", wav.name, out_path.name,
-                         time.perf_counter() - t0)
+                msgr.info(f"{wav.name} -> {out_path.name} "
+                          f"({time.perf_counter() - t0:.1f} s)")
             except Exception as e:  # keep serving on a per-file failure
                 if classify_error(e) == "device_lost":
-                    log.error(
-                        "CUDA context lost while predicting %s (%s): no marker "
-                        "written, the process must be restarted", wav.name, e,
+                    msgr.error(
+                        f"CUDA context lost while predicting {wav.name} ({e}): no marker "
+                        "written, the process must be restarted"
                     )
                     raise
                 try:
@@ -203,8 +204,8 @@ def serve(
                     # the marker can fail for the reason the predict did
                     # (disk full, read-only folder); `done` already keeps
                     # this path out of a retry loop
-                    log.error("Could not write %s: %s", failed_marker.name, marker_err)
-                log.error("Error predicting %s: %s", wav.name, e)
+                    msgr.error(f"Could not write {failed_marker.name}: {marker_err}")
+                msgr.error(f"Error predicting {wav.name}: {e}")
             n_processed += 1
             if max_files is not None and n_processed >= max_files:
                 return n_processed

@@ -15,16 +15,16 @@ Kahan-compensated as pandas' groupby sum is.
 
 from __future__ import annotations
 
-import logging
 from pathlib import Path
 
 import numpy as np
 
 from orcai_tpu_torch.io.dataset import ArrayDataset, SnippetDataLoader
 from orcai_tpu_torch.io.jsonio import read_json, write_json
-from orcai_tpu_torch.io.tables import Table, isna, object_column
+from orcai_tpu_torch.io.tables import Counts, Table, isna, object_column
 from orcai_tpu_torch.io.zarrlite import open_zarr
 from orcai_tpu_torch.resources import DEFAULT_ORCAI_PARAMETER as DEFAULT_PARAMETER
+from orcai_tpu_torch.utils.messenger import Messenger
 from orcai_tpu_torch.utils.rle import seconds_to_hms
 from orcai_tpu_torch.utils.seeds import (
     SEED_ID_CREATE_DATALOADER,
@@ -34,7 +34,6 @@ from orcai_tpu_torch.utils.seeds import (
     rng_for,
 )
 
-log = logging.getLogger(__name__)
 
 DATA_TYPES = ["train", "val", "test"]
 
@@ -62,6 +61,7 @@ def make_snippet_table(
     recording_dir: Path,
     orcai_parameter: dict,
     rng: np.random.Generator | None = None,
+    msgr: Messenger | None = None,
 ) -> tuple[Table | None, float, int, str, str]:
     """Sample random snippet windows for one recording.
 
@@ -73,6 +73,8 @@ def make_snippet_table(
     """
     if rng is None:
         rng = np.random.default_rng()
+    if msgr is None:
+        msgr = Messenger(verbosity=0)
     recording = recording_dir.stem
     label_zarr_path = recording_dir / "labels" / "labels.zarr"
     label_list_path = recording_dir / "labels" / "label_list.json"
@@ -81,7 +83,8 @@ def make_snippet_table(
     try:
         spectrogram_times = read_json(times_path)
     except FileNotFoundError:
-        log.error("File not found: %s. Did you create the spectrogram?", times_path)
+        msgr.error(f"File not found: {times_path}")
+        msgr.error("Did you create the spectrogram?")
         raise
 
     model_parameter = orcai_parameter["model"]
@@ -90,21 +93,23 @@ def make_snippet_table(
     recording_duration = spectrogram_times["max"]
     n_segments = int(recording_duration // snippet_parameter["segment_duration"])
     if n_segments <= 0:
-        log.warning("Duration of recording (%s) is shorter than segment length (%s). "
-                    "Skipping recording.", recording_duration,
-                    snippet_parameter["segment_duration"])
+        msgr.warning(
+            f"Duration of recording ({recording_duration}) is shorter than "
+            f"segment length ({snippet_parameter['segment_duration']}). "
+            "Skipping recording."
+        )
         return (None, recording_duration, n_segments, recording,
                 "shorter than segment_duration")
 
     try:
         label_store = open_zarr(label_zarr_path)
     except (FileNotFoundError, ValueError):
-        log.warning("Label file not found: %s", label_zarr_path)
+        msgr.warning(f"Label file not found: {label_zarr_path}")
         return None, recording_duration, n_segments, recording, "missing label files"
     try:
         label_list = read_json(label_list_path)
     except FileNotFoundError:
-        log.warning("Label file not found: %s", label_list_path)
+        msgr.warning(f"Label file not found: {label_list_path}")
         return None, recording_duration, n_segments, recording, "missing label files"
 
     label_names = list(label_list.keys())
@@ -113,6 +118,7 @@ def make_snippet_table(
     delta_t = times[1] - times[0]
     down = 2 ** len(model_parameter["filters"])
     n_snippet_steps = int(down * ((snippet_parameter["snippet_duration"] / delta_t) // down))
+    msgr.info(f"Number of spectrogram snippet timesteps: {n_snippet_steps}")
 
     # one bulk read instead of a zarr window per snippet
     labels = label_store[:].astype(np.float64)
@@ -199,10 +205,15 @@ def create_snippet_table(
     recording_data_dir: Path | str,
     output_dir: Path | str | None = None,
     orcai_parameter: dict | Path | str = DEFAULT_PARAMETER,
+    verbosity: int = 2,
+    msgr: Messenger | None = None,
 ) -> None:
     """Sample snippets for every annotated recording with data; write
     all_snippets.csv.gz and failed_snippets.csv."""
-    log.info("Loading the recording table")
+    if msgr is None:
+        msgr = Messenger(verbosity=verbosity, title="Making snippet table")
+
+    msgr.part("Loading the recording table")
     if isinstance(orcai_parameter, (Path, str)):
         orcai_parameter = read_json(orcai_parameter)
     if output_dir is None:
@@ -217,17 +228,20 @@ def create_snippet_table(
                  for r in table["recording"]]
     missing = np.array([d is None for d in data_dirs], dtype=bool)
     if missing.any():
-        log.warning("Missing recording data directories for %d recordings. Skipping "
-                    "these recordings. Did you create the spectrograms & labels?",
-                    int(missing.sum()))
+        msgr.warning(
+            f"Missing recording data directories for {int(missing.sum())} recordings. "
+            "Skipping these recordings."
+        )
+        msgr.warning("Did you create the spectrograms & labels?")
     data_dirs = [d for d in data_dirs if d is not None]
 
     lengths, segments, tables, failed, failed_reason = [], [], [], [], []
-    log.info("Sampling snippet tables")
+    msgr.part("Sampling snippet tables")
     rng = rng_for(SEED_ID_MAKE_SNIPPET_TABLE, orcai_parameter["seed"])
     for data_dir in data_dirs:
         snippets, duration, n_seg, recording, status = make_snippet_table(
-            recording_dir=data_dir, orcai_parameter=orcai_parameter, rng=rng)
+            recording_dir=data_dir, orcai_parameter=orcai_parameter, rng=rng,
+            msgr=Messenger(verbosity=0))
         if status == "success":
             tables.append(snippets)
             lengths.append(duration)
@@ -241,16 +255,16 @@ def create_snippet_table(
     snippet_table = Table.concat(tables)
     failed_table = Table(None, {"recording": object_column(failed),
                                 "reason": object_column(failed_reason)})
-    log.info("Created snippet table for %d recordings.",
-             len(set(snippet_table["recording"])))
-    log.info("Total recording duration: %s.", seconds_to_hms(np.sum(lengths)))
-    log.info("Total number of snippets: %d.", len(snippet_table))
-    log.info("Total number of segments: %d", int(np.sum(segments)))
-    log.info("Creating snippet table failed for %d recordings.", len(failed))
+    msgr.info(f"Created snippet table for {len(set(snippet_table['recording']))} recordings.")
+    msgr.info(f"Total recording duration: {seconds_to_hms(np.sum(lengths))}.")
+    msgr.info(f"Total number of snippets: {len(snippet_table)}.")
+    msgr.info(f"Total number of segments: {int(np.sum(segments))}")
+    msgr.info(f"Creating snippet table failed for {len(failed)} recordings.")
 
+    msgr.part("Writing the combined snippet table")
     failed_table.to_csv(output_dir / "failed_snippets.csv", index=False)
     snippet_table.to_csv(output_dir / "all_snippets.csv.gz", index=False)
-    log.info("Snippet table saved to %s", output_dir / "all_snippets.csv.gz")
+    msgr.success(f"Snippet table saved to {output_dir / 'all_snippets.csv.gz'}")
 
 
 def _label_free(table: Table, calls: list[str]) -> np.ndarray:
@@ -265,21 +279,28 @@ def filter_snippet_table(
     snippet_table: Table,
     orcai_parameter: dict,
     rng: np.random.Generator | None = None,
+    msgr: Messenger | None = None,
 ) -> Table:
     """Drop fraction_removal of the snippets that contain no label."""
     if rng is None:
         rng = np.random.default_rng()
+    if msgr is None:
+        msgr = Messenger(verbosity=0)
+    msgr.part("Thinning label-free snippets")
     calls = orcai_parameter["calls"]
     no_label = np.flatnonzero(_label_free(snippet_table, calls))
-    log.info("Label-free snippets before thinning: %s %%",
-             np.around(100 * len(no_label) / len(snippet_table), 2))
+    p_before = np.around(100 * len(no_label) / len(snippet_table), 2)
+    msgr.info(f"Label-free snippets before thinning: {p_before} %")
     frac = orcai_parameter["snippets"]["fraction_removal"]
+    msgr.info(f"Thinning out {np.around(frac * 100, 2)}% of the label-free snippets")
     drop = rng.choice(no_label, size=int(frac * len(no_label)), replace=False)
     keep = np.ones(len(snippet_table), dtype=bool)
     keep[np.asarray(drop, dtype=np.int64)] = False
     snippet_table = snippet_table.take(keep)
-    log.info("Label-free snippets after thinning: %s %%",
-             np.around(100 * _label_free(snippet_table, calls).sum() / len(snippet_table), 2))
+    p_after = np.around(100 * _label_free(snippet_table, calls).sum() / len(snippet_table), 2)
+    msgr.info(f"Label-free snippets after thinning: {p_after} %")
+    msgr.info("Number of train, val, test snippets:", indent=1)
+    msgr.info(Counts(snippet_table, "data_type"), indent=-1)
     return snippet_table
 
 
@@ -295,12 +316,19 @@ def create_tvt_snippet_tables(
     create_unfiltered_test_snippets: bool = False,
     n_unfiltered_test_snippets: int | None = None,
     overwrite: bool = False,
+    verbosity: int = 2,
+    msgr: Messenger | None = None,
 ) -> None:
     """Sample n_batch_<split> * batch_size snippets per split and write
     {train,val,test}.csv.gz (+ test_unfiltered.csv.gz on request) and the
     duration-stat CSVs."""
+    if msgr is None:
+        msgr = Messenger(verbosity=verbosity,
+                         title="Creating train, validation and test snippet tables")
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
+
+    msgr.part("Loading the snippet table")
     if isinstance(orcai_parameter, (Path, str)):
         orcai_parameter = read_json(orcai_parameter)
     if snippet_table is None:
@@ -310,18 +338,19 @@ def create_tvt_snippet_tables(
     calls = orcai_parameter["calls"]
 
     all_stats_duration = _stats_duration(compute_snippet_stats(snippet_table, calls))
-    log.info("Snippet stats [HMS]:\n%s", all_stats_duration)
+    msgr.info("Snippet stats [HMS]:", indent=1)
+    msgr.info(all_stats_duration, indent=-1)
     all_stats_duration.to_csv(output_dir / "all_snippet_stats_duration.csv")
 
     rng = rng_for(SEED_ID_FILTER_SNIPPET_TABLE, orcai_parameter["seed"])
-    filtered = filter_snippet_table(snippet_table, orcai_parameter, rng)
+    filtered = filter_snippet_table(snippet_table, orcai_parameter, rng, msgr)
 
     model = orcai_parameter["model"]
     selected = []
     for itype in DATA_TYPES:
         n_snippets = model[f"n_batch_{itype}"] * model["batch_size"]
-        log.info("Extracting %d batches of %d random %s snippets (%d snippets)",
-                 model[f"n_batch_{itype}"], model["batch_size"], itype, n_snippets)
+        msgr.info(f"Extracting {model[f'n_batch_{itype}']} batches of "
+                  f"{model['batch_size']} random {itype} snippets ({n_snippets} snippets)")
         pool = filtered.take(filtered["data_type"] == itype)
         if len(pool) < n_snippets:
             raise ValueError(f"Number of {itype} snippets ({n_snippets}) larger than "
@@ -330,38 +359,41 @@ def create_tvt_snippet_tables(
         selected.append(sample)
         out_path = output_dir / f"{itype}.csv.gz"
         if out_path.exists() and not overwrite:
-            log.warning("File %s already exists. Skipping. Set overwrite=True to "
-                        "overwrite.", out_path)
+            msgr.warning(f"File {out_path} already exists. Skipping. "
+                         "Set overwrite=True to overwrite.")
             continue
         sample.select(["recording_data_dir", "row_start", "row_stop"]).to_csv(
             out_path, index=False)
-        log.info("%s snippet table written", itype)
+        msgr.info(f"{itype} snippet table written")
 
     selected_stats_duration = _stats_duration(
         compute_snippet_stats(Table.concat(selected), calls))
-    log.info("Snippet stats for train, val and test datasets [HMS]:\n%s",
-             selected_stats_duration)
+    msgr.info("Snippet stats for train, val and test datasets [HMS]:", indent=1)
+    msgr.info(selected_stats_duration, indent=-1)
     selected_stats_duration.to_csv(output_dir / "selected_snippet_stats_duration.csv")
 
     if create_unfiltered_test_snippets:
         if n_unfiltered_test_snippets is None:
             n_unfiltered_test_snippets = model["n_batch_train"] * model["batch_size"]
+        msgr.info(f"Extracting {n_unfiltered_test_snippets} unfiltered test snippets")
         pool = snippet_table.take(snippet_table["data_type"] == "test")
         if len(pool) < n_unfiltered_test_snippets:
-            log.warning("Number of unfiltered test snippets (%d) larger than available "
-                        "snippets (%d). Using all test snippets.",
-                        n_unfiltered_test_snippets, len(pool))
+            msgr.warning(
+                f"Number of unfiltered test snippets ({n_unfiltered_test_snippets}) "
+                f"larger than available snippets ({len(pool)})."
+            )
+            msgr.warning("Using all test snippets.")
             n_unfiltered_test_snippets = len(pool)
         rng = rng_for(SEED_ID_UNFILTERED_TEST_DATA, orcai_parameter["seed"])
         sample = _sample(pool, n_unfiltered_test_snippets, rng)
         out_path = output_dir / "test_unfiltered.csv.gz"
         if out_path.exists() and not overwrite:
-            log.warning("File %s already exists. Skipping. Set overwrite=True to "
-                        "overwrite.", out_path)
+            msgr.warning(f"File {out_path} already exists. Skipping. "
+                         "Set overwrite=True to overwrite.")
         else:
             sample.to_csv(out_path, index=False)
-            log.info("Unfiltered test snippet table written")
-    log.info("All snippet tables created and saved to disk")
+            msgr.info("Unfiltered test snippet table written")
+    msgr.success("All snippet tables created and saved to disk")
 
 
 def get_call_weights(loader: SnippetDataLoader, call_names: list[str],
@@ -387,14 +419,21 @@ def create_tvt_data(
     orcai_parameter: dict | Path | str = DEFAULT_PARAMETER,
     overwrite: bool = False,
     data_compression: str | None = None,
+    verbosity: int = 2,
+    msgr: Messenger | None = None,
 ) -> None:
     """Materialize {train,val,test[,test_unfiltered]}_dataset directories
     from the split snippet tables, plus dataset_shapes.json and, when the
     model asks for call weights, call_weights.json."""
+    if msgr is None:
+        msgr = Messenger(verbosity=verbosity,
+                         title="Creating train, validation and test datasets")
     tvt_dir = Path(tvt_dir)
     data_types = list(DATA_TYPES)
     if (tvt_dir / "test_unfiltered.csv.gz").exists():
         data_types.append("test_unfiltered")
+
+    msgr.part("Reading in snippet tables and generating loaders")
     if isinstance(orcai_parameter, (Path, str)):
         orcai_parameter = read_json(orcai_parameter)
 
@@ -406,24 +445,29 @@ def create_tvt_data(
         for itype in data_types
     }
     spec_sample, label_sample = loaders[data_types[0]][0]
-    log.info("Input spectrogram shape: %s, label shape: %s",
-             spec_sample.shape, label_sample.shape)
+    msgr.info("Data shape:", indent=1)
+    msgr.info(f"Input spectrogram batch shape: {spec_sample.shape}")
+    msgr.info(f"Input label batch shape: {label_sample.shape}", indent=-1)
 
     if orcai_parameter["model"].get("call_weights") is not None:
+        msgr.part("Calculating training call weights")
         call_weights = get_call_weights(loaders["train"], call_names=orcai_parameter["calls"],
                                         method=orcai_parameter["model"]["call_weights"])
         write_json(call_weights, tvt_dir / "call_weights.json")
-        log.info("Call weights: %s", call_weights)
+        msgr.info("Call weights:")
+        msgr.info(call_weights)
 
+    msgr.part("Saving datasets to disk")
     for itype in data_types:
         out = tvt_dir / f"{itype}_dataset"
         try:
             ArrayDataset.save_from_loader(loaders[itype], out, compression=data_compression,
                                           overwrite=overwrite)
         except FileExistsError:
-            log.warning("File %s already exists. Skipping. Set overwrite=True to "
-                        "overwrite.", out)
+            msgr.warning(f"File {out} already exists. Skipping. "
+                         "Set overwrite=True to overwrite.")
+        msgr.print_directory_size(out)
 
     write_json({"spectrogram": list(spec_sample.shape), "labels": list(label_sample.shape)},
                tvt_dir / "dataset_shapes.json")
-    log.info("Train, validation and test datasets created and saved to disk")
+    msgr.success("Train, validation and test datasets created and saved to disk")

@@ -19,7 +19,6 @@ fetches recording i to the host, as the reference does.
 
 from __future__ import annotations
 
-import logging
 import queue
 import threading
 import time
@@ -33,8 +32,7 @@ from orcai_tpu_torch.io.wav import load_wav
 from orcai_tpu_torch.io.zarrlite import resolve_zarr_codec, save_as_zarr
 from orcai_tpu_torch.parallel.distributed import shard_table_for_process
 from orcai_tpu_torch.resources import DEFAULT_ORCAI_PARAMETER as DEFAULT_PARAMETER
-
-log = logging.getLogger(__name__)
+from orcai_tpu_torch.utils.messenger import Messenger
 
 SPEC_ENGINES = ("auto", "device", "host")
 _PUT_POLL_S = 0.1  # how often a blocked enqueue looks at the other thread
@@ -61,6 +59,8 @@ def make_spectrogram(
     wav_file_path: Path | str,
     channel: int = 1,
     orcai_parameter: dict | Path | str = DEFAULT_PARAMETER,
+    verbosity: int = 2,
+    msgr: Messenger | None = None,
     wire: str = "exact",
     device: str = "cuda",
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -72,16 +72,22 @@ def make_spectrogram(
     (ops/wire_codec.py) is the caller's choice."""
     from orcai_tpu_torch.ops.frontend import make_spectrogram_from_params_device
 
+    if msgr is None:
+        msgr = Messenger(verbosity=verbosity, title="Making spectrogram")
     if isinstance(orcai_parameter, (Path, str)):
         orcai_parameter = read_json(orcai_parameter)
     sp = orcai_parameter["spectrogram"]
-    log.info("Loading & resampling (to %.2f kHz) wav file: %s",
-             sp["sampling_rate"] / 1000, Path(wav_file_path).stem)
-    audio = load_recording_audio(wav_file_path, sp["sampling_rate"], channel)
+    msgr.part("Computing spectrogram on device")
+    msgr.info(f"Loading & resampling (to {sp['sampling_rate'] / 1000:.2f} kHz) "
+              f"wav file: {Path(wav_file_path).stem}")
+    audio, _ = load_wav(wav_file_path, sr=sp["sampling_rate"], mono=False)
+    if audio.ndim > 1:
+        msgr.warning(f"Multiple channels found, using channel {channel}")
+        audio = audio[int(channel) - 1]
     spec, n_frames, frequencies, times = make_spectrogram_from_params_device(
         audio, sp, device=device, wire=wire)
     if len(times) > 1:
-        log.info("Duration of wav file: %.2f seconds", times[-1])
+        msgr.info(f"Duration of wav file: {times[-1]:.2f} seconds")
     return spec[:n_frames].cpu().numpy(), frequencies, times
 
 
@@ -90,8 +96,13 @@ def save_spectrogram(
     frequencies: np.ndarray,
     times: np.ndarray,
     output_dir: Path | str,
+    verbosity: int = 2,
+    msgr: Messenger | None = None,
 ) -> None:
     """Write spectrogram.zarr + frequencies.json + times.json to output_dir."""
+    if msgr is None:
+        msgr = Messenger(verbosity=verbosity, title="Saving spectrogram")
+    msgr.part("Saving spectrogram")
     output_dir = Path(output_dir)
     save_as_zarr(spectrogram, output_dir / "spectrogram.zarr", compress="auto")
     write_vector_to_json(frequencies, output_dir / "frequencies.json")
@@ -113,6 +124,8 @@ def create_spectrograms(
     include_not_annotated: bool = False,
     include_no_possible_annotations: bool = False,
     overwrite: bool = False,
+    verbosity: int = 2,
+    msgr: Messenger | None = None,
     wire: str = "exact",
     engine: str = "auto",
     device: str = "cuda",
@@ -128,7 +141,10 @@ def create_spectrograms(
     `wire` is the device engine's upload (see make_spectrogram); the host
     engine reads the samples as they are, as the reference's does.
     """
-    log.info("Reading recordings table")
+    if msgr is None:
+        msgr = Messenger(verbosity=verbosity, title="Creating spectrograms")
+
+    msgr.part("Reading recordings table")
     table = Table.read_csv(recording_table_path)
     output_dir = Path(output_dir)
     if isinstance(orcai_parameter, (Path, str)):
@@ -137,8 +153,8 @@ def create_spectrograms(
     if not include_not_annotated:
         not_annotated = isna(table["base_dir_annotation"])
         if not_annotated.sum() > 0:
-            log.info("Excluded %d recordings because they are not annotated.",
-                     int(not_annotated.sum()))
+            msgr.info(f"Excluded {int(not_annotated.sum())} recordings because they are "
+                      "not annotated.")
         table = table.take(~not_annotated)
 
     if not include_no_possible_annotations:
@@ -146,18 +162,19 @@ def create_spectrograms(
         included = np.array([any(_truthy(table[c][i]) for c in calls)
                              for i in range(len(table))], dtype=bool)
         if (~included).sum() > 0:
-            log.info("Excluded recordings because they lack any possible annotations: %s",
-                     list(table["recording"][~included]))
+            msgr.info("Excluded recordings because they lack any possible annotations:",
+                      indent=1)
+            msgr.info(str(np.asarray(table["recording"][~included], dtype=object)), indent=-1)
         table = table.take(included)
 
-    table = shard_table_for_process(table)
+    table = shard_table_for_process(table, msgr)
 
     if not overwrite:
         existing = np.array([output_dir.joinpath(str(r), "spectrogram").exists()
                              for r in table["recording"]], dtype=bool)
         if existing.sum() > 0:
-            log.info("Skipping %d recordings because they already have spectrograms.",
-                     int(existing.sum()))
+            msgr.info(f"Skipping {int(existing.sum())} recordings because they already "
+                      "have spectrograms.")
         table = table.take(~existing)
 
     if base_dir_recording is not None:
@@ -169,11 +186,11 @@ def create_spectrograms(
 
         dev = resolve_device(device)
     rows = list(table.records())
-    log.info("Creating %d spectrograms (%s engine)", len(rows), engine)
+    msgr.part(f"Creating {len(rows)} spectrograms ({engine} engine)")
     stats = _run_spectrogram_pipeline(
         rows, orcai_parameter, output_dir, engine, dev if engine == "device" else None,
         wire)
-    log.info("Spectrograms created.")
+    msgr.success("Spectrograms created.")
     return {"engine": engine, "n_recordings": len(rows),
             "codec": resolve_zarr_codec("auto"), **stats}
 

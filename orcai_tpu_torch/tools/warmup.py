@@ -15,7 +15,6 @@ Usage:  python -m orcai_tpu_torch warmup [--minutes 90] [--wire_codec auto]
 
 from __future__ import annotations
 
-import logging
 import time
 from pathlib import Path
 
@@ -30,8 +29,7 @@ from orcai_tpu_torch.ops.frontend import (
 )
 from orcai_tpu_torch.ops.overlap import WindowPredictor
 from orcai_tpu_torch.utils.device import exact_f32_math
-
-log = logging.getLogger(__name__)
+from orcai_tpu_torch.utils.messenger import Messenger
 
 
 def bucket_sample_counts(max_minutes: float, sr: int, hop: int) -> list[int]:
@@ -97,20 +95,23 @@ def bucket_warm_counts(
 
 def warm_predictor(
     predictor: WindowPredictor, spectrogram_parameter: dict, max_minutes: float,
-    wire: str | None = None,
+    wire: str | None = None, msgr: Messenger | None = None,
 ) -> int:
     """Send one silent int16 recording per `bucket_warm_counts` length
     through the frontend on `wire` and `predictor`; returns the number of
     lengths. On a CUDA predictor the kernels are built first. The wire
     decides what is warmed: its host encode or resample, its device decode,
     and B1's route for the geometry it runs at (a spectral wire's n_fft 384
-    or 352 takes the GEMM route)."""
+    or 352 takes the GEMM route). Each length's wall goes to `msgr`."""
+    if msgr is None:
+        msgr = Messenger(verbosity=0)
     sp = spectrogram_parameter
     if predictor.device.type == "cuda":
         _build.build()
     counts = bucket_warm_counts(
         max_minutes, sp["sampling_rate"], sp["n_overlap"], predictor
     )
+    msgr.part(f"Warming {len(counts)} recording-length executables")
     for i, n in enumerate(counts):
         t0 = time.perf_counter()
         with exact_f32_math():
@@ -119,10 +120,8 @@ def warm_predictor(
             )
             aggregated, overlap_count = predictor.aggregate(spec_dev, n_frames=n_frames)
         predictor.binary_predictions(aggregated, overlap_count, threshold=0.5)
-        log.info(
-            "[%d/%d] %6.1f min shape ready in %.1f s", i + 1, len(counts),
-            n / sp["sampling_rate"] / 60, time.perf_counter() - t0,
-        )
+        msgr.info(f"[{i + 1}/{len(counts)}] {n / sp['sampling_rate'] / 60:.1f} min bucket "
+                  f"ready in {time.perf_counter() - t0:.1f} s")
     return len(counts)
 
 
@@ -132,6 +131,7 @@ def warmup(
     predict_batch_size: int = 128,
     device: str | torch.device = "cuda",
     wire: str | None = None,
+    msgr: Messenger | None = None,
 ) -> int:
     """Build the kernels and run every reachable predict shape up to
     max_minutes once, on the wire production predicts use (None or "auto"
@@ -142,4 +142,5 @@ def warmup(
     predictor, orcai_parameter, _ = build_predictor(
         model_dir, predict_batch_size, device
     )
-    return warm_predictor(predictor, orcai_parameter["spectrogram"], max_minutes, wire=wire)
+    return warm_predictor(predictor, orcai_parameter["spectrogram"], max_minutes, wire=wire,
+                          msgr=msgr)

@@ -19,7 +19,6 @@ products over the stacked (rows, labels) matrices:
 from __future__ import annotations
 
 import json
-import logging
 import os
 from pathlib import Path
 
@@ -32,13 +31,12 @@ from orcai_tpu_torch.io.model_store import load_orcai_model
 from orcai_tpu_torch.native import quantize_linear_native
 from orcai_tpu_torch.parallel.mesh import local_devices, mesh_for_batch
 from orcai_tpu_torch.utils.device import exact_f32_math
+from orcai_tpu_torch.utils.messenger import Messenger
 from orcai_tpu_torch.utils.seeds import (
     MASK_VALUE,
     SEED_ID_LOAD_TEST_DATA,
     SEED_ID_LOAD_UNFILTERED_TEST_DATA,
 )
-
-log = logging.getLogger(__name__)
 
 
 def compute_confusion_table(
@@ -227,8 +225,11 @@ def _test_model_on_dataset(
     label_names: list[str],
     dataset_name: str,
     upload: str | None = None,
+    msgr: Messenger | None = None,
 ) -> dict:
-    log.info("Testing model on %s", dataset_name)
+    if msgr is None:
+        msgr = Messenger(verbosity=0)
+    msgr.part(f"Testing model on {dataset_name}")
     upload = resolve_eval_upload(upload)
     device = trainer.device
 
@@ -294,21 +295,24 @@ def _test_model_on_dataset(
         "loss": float(losses / max(n_snippets, 1)),
         "MBA": float(correct / max(total, 1.0)),
     }
-    log.info("%s", data_metrics)
+    msgr.info(data_metrics)
 
     y_true = np.concatenate(y_true_parts, axis=0)
     y_pred = np.concatenate(y_pred_parts, axis=0)
 
+    msgr.part(f"Calculating confusion table for {dataset_name}")
     confusion_table = compute_confusion_table(y_true, y_pred, label_names)
-    log.info("Confusion table for %s\n%s", dataset_name, confusion_table)
+    msgr.info(confusion_table)
 
     y_true_stacked = np.vstack(y_true).astype(int)
     y_pred_stacked = np.vstack((y_pred >= 0.5).astype(int))
     tables = compute_misclassification_tables(
         y_true_stacked, y_pred_stacked, "true", "pred", label_names
     )
+    msgr.part("Misclassification tables on dataset:")
     for key, tbl in tables.items():
-        log.info("Misclassification table %s\n%s", key, tbl)
+        msgr.info("\n" + key, indent=1)
+        msgr.info(tbl, indent=-1)
 
     return {
         "dataset": dataset_name,
@@ -319,7 +323,8 @@ def _test_model_on_dataset(
     }
 
 
-def _save_test_results(results: dict, save_dir: Path) -> None:
+def _save_test_results(results: dict, save_dir: Path, msgr: Messenger | None = None) -> None:
+    (msgr or Messenger(verbosity=0)).part("Saving test results")
     name = results["dataset"]
     os.makedirs(save_dir, exist_ok=True)
     with open(save_dir / f"{name}_metrics.json", "w") as f:
@@ -340,6 +345,8 @@ def test_model(
     test_unfiltered: bool = True,
     output_dir: Path | str | None = None,
     data_compression: str | None = None,
+    verbosity: int = 2,
+    msgr: Messenger | None = None,
     device: str | torch.device = "cuda",
 ) -> Path:
     """Evaluate a trained model on the test (and optional unfiltered test)
@@ -352,12 +359,14 @@ def test_model(
     the counts are those of the whole batch."""
     from orcai_tpu_torch.train.trainer import Trainer
 
+    if msgr is None:
+        msgr = Messenger(verbosity=verbosity, title="Testing model")
     data_dir = Path(data_dir)
     model_dir = Path(model_dir)
     output_dir = Path(output_dir) if output_dir else model_dir / "test"
 
     devices = local_devices(device)
-    log.info("Loading model")
+    msgr.part("Loading model")
     # on the host first: the batch size decides the devices, the Trainer
     # moves the model to the first
     model, orcai_parameter, _ = load_orcai_model(model_dir, device="cpu")
@@ -365,7 +374,7 @@ def test_model(
     calls = orcai_parameter["calls"]
     devices = mesh_for_batch(mp["batch_size"], devices)
     if len(devices) > 1:
-        log.info("Splitting test batches over %d devices", len(devices))
+        msgr.info(f"Splitting test batches over {len(devices)} devices")
     trainer = Trainer(model, mp["learning_rate"], device=devices[0], eval_devices=devices)
 
     splits = [("test_dataset", "test_data", SEED_ID_LOAD_TEST_DATA)]
@@ -381,11 +390,12 @@ def test_model(
                 else None
             )
             results = _test_model_on_dataset(
-                trainer, dataset, mp["batch_size"], seed, calls, name
+                trainer, dataset, mp["batch_size"], seed, calls, name, msgr=msgr
             )
-            _save_test_results(results, output_dir)
-            log.info("Saved test results to %s", output_dir)
-    log.info("Model testing completed.")
+            _save_test_results(results, output_dir, msgr)
+            if name == "test_data":
+                msgr.info(f"Saved test results to {output_dir}")
+    msgr.success("Model testing completed.")
     return output_dir
 
 

@@ -33,7 +33,6 @@ at <output_dir>/<name>/hps/.
 from __future__ import annotations
 
 import json
-import logging
 import math
 import os
 import threading
@@ -69,9 +68,9 @@ from orcai_tpu_torch.train.trainer import (
     streaming_runners,
 )
 from orcai_tpu_torch.utils.device import exact_f32_math
+from orcai_tpu_torch.utils.messenger import Messenger
 from orcai_tpu_torch.utils.seeds import SEED_ID_LOAD_TRAIN_DATA, SEED_ID_LOAD_VAL_DATA
 
-log = logging.getLogger(__name__)
 
 
 def sample_configs(hps_parameter: dict, n: int, rng: np.random.Generator):
@@ -367,6 +366,8 @@ def hyperparameter_search(
     max_epochs: int = 10,
     factor: int = 3,
     early_stopping_patience: int = 5,
+    verbosity: int = 2,
+    msgr: Messenger | None = None,
     on_epoch_end=None,
     device: str | torch.device = "cuda",
 ) -> None:
@@ -386,16 +387,19 @@ def hyperparameter_search(
     them runs in processes of its own, so on_epoch_end must then be
     picklable.
     """
-    log.info("Loading Hyperparameter search parameter")
+    if msgr is None:
+        msgr = Messenger(verbosity=verbosity, title="Hyperparameter search")
+
+    msgr.part("Loading Hyperparameter search parameter")
     if isinstance(orcai_parameter, (Path, str)):
         orcai_parameter = read_json(orcai_parameter)
     if isinstance(hps_parameter, (Path, str)):
         hps_parameter = read_json(hps_parameter)
-    log.debug(hps_parameter)
+    msgr.debug(hps_parameter)
     model_name = orcai_parameter["name"]
     monitor = orcai_parameter["model"]["monitor"]
 
-    log.info("Loading training and validation datasets from %s", data_dir)
+    msgr.part(f"Loading training and validation datasets from {data_dir}")
     data_dir = Path(data_dir)
     dataset_shape = read_json(data_dir / "dataset_shapes.json")
     input_shape = tuple(dataset_shape["spectrogram"])
@@ -416,8 +420,8 @@ def hyperparameter_search(
     process_id, n_processes = process_index(), process_count()
     rendezvous_timeout = float(os.environ.get("ORCAI_TPU_HPS_RENDEZVOUS_TIMEOUT_S", 3600))
     if n_processes > 1:
-        log.info("Multi-host search: process %d/%d, trials partitioned round-robin "
-                 "with the trial store as rendezvous", process_id, n_processes)
+        msgr.info(f"Multi-host search: process {process_id}/{n_processes}, trials "
+                  "partitioned round-robin with the trial store as rendezvous")
     train_seed = [SEED_ID_LOAD_TRAIN_DATA, search_seed]
     val_seed = [SEED_ID_LOAD_VAL_DATA, search_seed]
 
@@ -428,7 +432,7 @@ def hyperparameter_search(
     devices = local_devices(device)
     n_workers = len(devices) if parallel else 1
     if parallel and n_workers == 1:
-        log.warning(
+        msgr.warning(
             "--parallel requested but only one device is visible; "
             "trials run sequentially"
         )
@@ -453,7 +457,7 @@ def hyperparameter_search(
             return device_data_cache[rank]
 
     if resident:
-        log.info("Datasets resident on the device: shared across trials")
+        msgr.info("Datasets HBM-resident: shared across trials")
     rng = np.random.default_rng([13, search_seed])
     search = _Search(orcai_parameter, hps_parameter, input_shape, store.directory,
                      train_seed, val_seed, int(search_seed) % (2**31), monitor,
@@ -474,7 +478,7 @@ def hyperparameter_search(
             batch_size = _apply_config(orcai_parameter, hps_parameter, cfg)["model"]["batch_size"]
             mesh = mesh_for_batch(batch_size, devices)
             if len(mesh) > 1:
-                log.info("  trial %s: data-parallel over %d devices", trial_id, len(mesh))
+                msgr.info(f"  trial {trial_id}: data-parallel over {len(mesh)} devices")
                 launch(_trial_worker, mesh, store.directory, args=(
                     search, data_dir, resident, cfg, epochs, trial_id, initial_epoch,
                     carry_from))
@@ -483,10 +487,10 @@ def hyperparameter_search(
                             device_data_for(rank), initial_epoch, carry_from)
 
     brackets = hyperband_schedule(max_epochs, factor)
-    log.info(
-        "Searching hyperparameters: Hyperband max_epochs=%d factor=%d, %d brackets%s",
-        max_epochs, factor, len(brackets),
-        f", {n_workers} trial workers" if n_workers > 1 else "",
+    msgr.part(
+        f"Searching hyperparameters: Hyperband max_epochs={max_epochs} "
+        f"factor={factor}, {len(brackets)} brackets"
+        + (f", {n_workers} trial workers" if n_workers > 1 else "")
     )
 
     all_trials: list[dict] = []
@@ -497,7 +501,7 @@ def hyperparameter_search(
         for b, rungs in enumerate(brackets):
             n0, _ = rungs[0]
             configs = sample_configs(hps_parameter, n0, rng)
-            log.info("Bracket %d: rungs %s, %d configs", b, rungs, len(configs))
+            msgr.info(f"Bracket {b}: rungs {rungs}, {len(configs)} configs")
             # per-config trial id of the previous rung (for weight carrying)
             prev_trial_id: dict[tuple, str] = {}
             prev_epochs = 0
@@ -544,9 +548,9 @@ def hyperparameter_search(
                     cfg = {k: record.get(k, v) for k, v in cfg.items()}
                     all_trials.append({k: v for k, v in record.items() if k != "history"})
                     scored.append((record["score"], cfg))
-                    log.info(
-                        "  trial %s: %s -> %s=%.4f%s", trial_id, cfg, monitor,
-                        record["score"], " (cached)" if record["status"] == "CACHED" else "",
+                    msgr.info(
+                        f"  trial {trial_id}: {cfg} -> {monitor}={record['score']:.4f}"
+                        + (" (cached)" if record["status"] == "CACHED" else "")
                     )
                     if record["score"] > best["score"]:
                         best = {"score": record["score"], "config": cfg,
@@ -559,13 +563,14 @@ def hyperparameter_search(
 
     if process_id != 0:
         # the shared store holds every record; process 0 publishes
-        log.info("Hyperparameter search completed (worker process)")
+        msgr.success("Hyperparameter search completed (worker process)")
         return
 
-    log.info("Best Hyperparameters: %s", best["config"])
+    msgr.part("Best Hyperparameters")
+    msgr.info(best["config"])
     write_json(best["config"], hps_logs_dir / "best_hyperparameters.json")
     trials_table(all_trials).to_csv(hps_logs_dir / "all_trials.csv", index=False)
-    log.info("Saved trial data to %s", hps_logs_dir / "all_trials.csv")
+    msgr.info(f"Saved trial data to {hps_logs_dir / 'all_trials.csv'}")
 
     # the overall best model, loadable as a model directory
     best_bytes = store.load_weights(best["trial_id"]) if best["trial_id"] else None
@@ -575,5 +580,5 @@ def hyperparameter_search(
         model = build_model(param, input_shape)
         model.load_state_dict(state_dict_from_flax(unpackb(best_bytes)))
         save_orcai_model(hps_model_dir, param, model.state_dict(), input_shape=input_shape)
-        log.info("Saved best model to %s", hps_model_dir)
-    log.info("Hyperparameter search completed")
+        msgr.info(f"Saved best model to {hps_model_dir}")
+    msgr.success("Hyperparameter search completed")

@@ -30,13 +30,16 @@ process's labels, and the epoch's metric sums all-reduced before they are
 fetched. `train` in one process with several local devices starts one
 process per device itself (parallel/distributed.py::launch). A Trainer
 given `eval_devices` splits its forward-only evaluation batches over them
-instead (parallel/mesh.py::Replicas).
+instead (parallel/mesh.py::Replicas). A Trainer given a (data, model)
+`mesh` (tensor parallelism) shards the model's parameters over the model
+axis when it makes the state (parallel/sharding_rules.py) and splits the
+batch over the data axis as above, with DDP, the BatchNorm statistics, the
+loss's count and the metrics over the data ranks only.
 """
 
 from __future__ import annotations
 
 import contextlib
-import logging
 import os
 import time
 import warnings
@@ -68,12 +71,13 @@ from orcai_tpu_torch.parallel.distributed import (
     process_count,
     process_index,
 )
+from orcai_tpu_torch.models.layers import shard_of
 from orcai_tpu_torch.parallel.mesh import Replicas, block_bounds, local_devices, mesh_for_batch
+from orcai_tpu_torch.parallel.sharding_rules import shard_params
 from orcai_tpu_torch.resources import DEFAULT_ORCAI_PARAMETER
 from orcai_tpu_torch.utils.device import exact_f32_math, resolve_device
+from orcai_tpu_torch.utils.messenger import Messenger
 from orcai_tpu_torch.utils.seeds import SEED_ID_LOAD_TRAIN_DATA, SEED_ID_LOAD_VAL_DATA
-
-log = logging.getLogger(__name__)
 
 
 def _host_tensor(arr, dtype=None) -> torch.Tensor:
@@ -86,7 +90,9 @@ def _host_tensor(arr, dtype=None) -> torch.Tensor:
 
 
 def _count_params(model: torch.nn.Module) -> int:
-    return sum(p.numel() for p in model.parameters() if p.requires_grad)
+    """Every parameter's elements, frozen biases too, as the reference
+    counts the flax parameter tree."""
+    return sum(p.numel() for p in model.parameters())
 
 
 def resolve_compute_dtype(model_parameter: dict) -> torch.dtype:
@@ -132,7 +138,11 @@ class Trainer:
     default process group (see the module docstring); the model is wrapped
     in DistributedDataParallel at the first train step, after any weights
     were loaded. `eval_devices`: more than one device to split the
-    evaluation batches over (the model's device first).
+    evaluation batches over (the model's device first). `mesh`: a
+    ProcessMesh (parallel/mesh.py::make_mesh with n_model) to train on,
+    the batch split over its data axis and the parameters sharded over its
+    model axis (parallel/sharding_rules.py) when the state is made; every
+    process of the group runs the same calls.
     """
 
     def __init__(
@@ -143,6 +153,7 @@ class Trainer:
         device: str | torch.device = "cuda",
         distributed: bool = False,
         eval_devices=None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -152,12 +163,19 @@ class Trainer:
             if call_weights is not None
             else None
         )
+        self.mesh = mesh
+        if mesh is not None:
+            self.data_group = mesh.data_group
+            self.rank, self.world = mesh.data_index, mesh.shape["data"]
+            distributed = self.world > 1
+        else:
+            self.data_group = None
+            self.rank = dist.get_rank() if distributed else 0
+            self.world = dist.get_world_size() if distributed else 1
         self.distributed = distributed
-        self.rank = dist.get_rank() if distributed else 0
-        self.world = dist.get_world_size() if distributed else 1
         self._ddp = None
         if distributed:
-            self.model.set_data_parallel(self.rank, self.world)
+            self.model.set_data_parallel(self.rank, self.world, self.data_group)
         self.replicas = (
             Replicas(self.model, eval_devices)
             if eval_devices is not None and len(eval_devices) > 1 else None
@@ -166,20 +184,29 @@ class Trainer:
     # -- state -------------------------------------------------------------
 
     def _fresh_state(self, seed: int) -> TrainState:
+        if self.mesh is not None and self.mesh.shape["model"] > 1:
+            shard_params(self.model, self.mesh)
         generator = torch.Generator(device=self.device).manual_seed(int(seed) + 1)
         self.model.set_dropout_generator(generator)
         return TrainState(
             self.model, make_optimizer(self.model, self.learning_rate), generator
         )
 
+    def _whole_model(self) -> None:
+        if any(shard_of(m) is not None for m in self.model.modules()):
+            raise RuntimeError("the model's parameters are sharded already: a new state "
+                               "needs a new Trainer")
+
     def init_state(self, seed: int = 0) -> TrainState:
         """Fresh weights from `seed`, a fresh Adam, dropout from seed + 1."""
+        self._whole_model()
         init_variables(self.model, seed=seed)
         return self._fresh_state(seed)
 
     def state_from_variables(self, state_dict: dict | None = None, seed: int = 0) -> TrainState:
         """A fresh Adam and generator around given weights (a state dict of
         tensors or numpy arrays; None keeps the model's own)."""
+        self._whole_model()
         if state_dict is not None:
             self.model.load_state_dict(
                 {k: torch.as_tensor(np.asarray(v)) if not isinstance(v, torch.Tensor) else v
@@ -198,7 +225,7 @@ class Trainer:
         total, count = weighted_masked_bce_sums(logits, y, self.call_weights)
         if self.distributed:
             count = count.detach().float().clone()
-            dist.all_reduce(count)
+            dist.all_reduce(count, group=self.data_group)
         return total * self.world / count.clamp(min=1) + l2_regularization(self.model)
 
     @torch.no_grad()
@@ -225,6 +252,7 @@ class Trainer:
                 self.model,
                 device_ids=[index] if self.device.type == "cuda" else None,
                 broadcast_buffers=False,
+                process_group=self.data_group,
             )
         return self._ddp(x, train=True, return_logits=True)
 
@@ -277,7 +305,7 @@ class Trainer:
             acc += step(x, y).double()
             n += 1
         if self.distributed:
-            dist.all_reduce(acc)
+            dist.all_reduce(acc, group=self.data_group)
         loss_sum, correct, total = acc.tolist()
         return {
             f"{prefix}loss": float(loss_sum / max(n, 1)),
@@ -405,6 +433,7 @@ def fit(
     initial_best_state: dict | None = None,
     initial_counters: dict | None = None,
     profile_dir: str | None = None,
+    msgr: Messenger | None = None,
 ) -> tuple[TrainState, dict]:
     """Epoch loop with EarlyStopping / ReduceLROnPlateau / best-restore.
 
@@ -422,14 +451,16 @@ def fit(
     The best-so-far weights are kept in host memory and loaded back at the
     end. Returns (state, history dict).
     """
+    if msgr is None:
+        msgr = Messenger(verbosity=0)
     if "loss" in monitor.lower():
         # keras EarlyStopping / ModelCheckpoint run in mode="max" in the
         # reference project, so a loss-like monitor inverts there too:
         # warn instead of silently optimizing the wrong way
-        log.warning(
-            "monitor %r looks like a loss but monitoring is max-mode (as in "
-            "the reference); early stopping, LR plateau and best-restore "
-            "will treat RISING values as improvement", monitor,
+        msgr.warning(
+            f"monitor {monitor!r} looks like a loss but monitoring is "
+            "max-mode (as in the reference); early stopping, LR plateau "
+            "and best-restore will treat RISING values as improvement"
         )
 
     # copy the metric lists, not just the dict: fit appends per epoch and
@@ -461,10 +492,10 @@ def fit(
 
         current = epoch_metrics[monitor]
         improved = current > best_metric
-        log.info(
-            "epoch %d/%d [%.1fs] %s%s", epoch + 1, epochs, time.time() - t0,
-            " ".join(f"{k}={v:.4f}" for k, v in epoch_metrics.items()),
-            " *" if improved else "",
+        msgr.info(
+            f"epoch {epoch + 1}/{epochs} [{time.time() - t0:.1f}s] "
+            + " ".join(f"{k}={v:.4f}" for k, v in epoch_metrics.items())
+            + (" *" if improved else "")
         )
 
         if improved:
@@ -482,7 +513,7 @@ def fit(
                 if new_lr < lr:  # the rate is never raised
                     lr = new_lr
                     set_learning_rate(state, lr)
-                    log.info("ReduceLROnPlateau: learning rate -> %.2e", lr)
+                    msgr.info(f"ReduceLROnPlateau: learning rate -> {lr:.2e}")
                 stale_lr = 0
         if on_epoch_end is not None:
             on_epoch_end(
@@ -490,7 +521,7 @@ def fit(
                 {"stale_early": stale_early, "stale_lr": stale_lr},
             )
         if stale_early >= early_stopping_patience:
-            log.info("EarlyStopping at epoch %d", epoch + 1)
+            msgr.info(f"EarlyStopping at epoch {epoch + 1}")
             break
 
     # restore best weights (EarlyStopping(restore_best_weights=True))
@@ -512,6 +543,8 @@ def train(
     orcai_parameter: dict | Path | str = DEFAULT_ORCAI_PARAMETER,
     data_compression: str | None = None,
     load_model: bool = False,
+    verbosity: int = 2,
+    msgr: Messenger | None = None,
     max_epochs: int | None = None,
     model_dtype: torch.dtype | None = None,
     preemption_checkpointing: bool = True,
@@ -546,7 +579,12 @@ def train(
     RANK / WORLD_SIZE / LOCAL_RANK) each process trains its block of every
     batch on cuda:<local rank> for "cuda"; the batch size must divide by
     the group's size. Process 0 writes every file, the others wait for it.
+    The console report goes through `msgr` (one of `verbosity` titled
+    "Training model" if None); in a group, process 0 reports alone.
     """
+    if msgr is None:
+        msgr = Messenger(verbosity=verbosity if process_index() == 0 else 0,
+                         title="Training model")
     output_dir = Path(output_dir)
     data_dir = Path(data_dir)
     if isinstance(orcai_parameter, (Path, str)):
@@ -565,20 +603,26 @@ def train(
         devices = mesh_for_batch(orcai_parameter["model"]["batch_size"],
                                  local_devices(device))
         if len(devices) > 1:
-            log.info("Data-parallel training over %d devices, one process each",
-                     len(devices))
+            msgr.info(f"Data-parallel training over {len(devices)} devices, one "
+                      "process each")
             output_dir.mkdir(parents=True, exist_ok=True)
             launch(train, devices, output_dir, args=(data_dir, output_dir), kwargs=dict(
                 orcai_parameter=orcai_parameter, data_compression=data_compression,
-                load_model=load_model, max_epochs=max_epochs, model_dtype=model_dtype,
-                preemption_checkpointing=preemption_checkpointing,
+                load_model=load_model, msgr=msgr, max_epochs=max_epochs,
+                model_dtype=model_dtype, preemption_checkpointing=preemption_checkpointing,
                 profile_dir=profile_dir, on_epoch_end=on_epoch_end,
             ))
             return
         dev = devices[0]
     writer = process_index() == 0
-    log.info("Training on %s%s", dev, f" (process {process_index()} of "
-             f"{process_count()})" if distributed else "")
+    if not writer:
+        msgr = Messenger(verbosity=0)
+    msgr.print_platform_info(set_indent=1)
+    msgr.print_device_info(set_indent=1)
+    msgr.debug(f"Training on {dev}" + (f" (process {process_index()} of "
+                                       f"{process_count()})" if distributed else ""))
+
+    msgr.part("Loading parameter")
     model_name = orcai_parameter["name"]
     mp = orcai_parameter["model"]
     label_calls = orcai_parameter["calls"]
@@ -587,13 +631,13 @@ def train(
         # optional schema extension: model.compute_dtype; parameters stay
         # float32, and parameter files without the key train in float32
         model_dtype = resolve_compute_dtype(mp)
-    log.info("Compute dtype: %s", str(model_dtype).replace("torch.", ""))
+        msgr.info(f"Compute dtype: {str(model_dtype).replace('torch.', '')}")
 
-    log.info("Loading training and validation datasets from %s", data_dir)
+    msgr.part(f"Loading training and validation datasets from {data_dir}")
     if (data_dir / "dataset_shapes.json").exists():
         dataset_shape = read_json(data_dir / "dataset_shapes.json")
     else:
-        log.info("Using default OrcAI dataset shapes")
+        msgr.info("Using default OrcAI dataset shapes")
         dataset_shape = {"spectrogram": [736, 171, 1], "labels": [46, 7]}
     input_shape = tuple(dataset_shape["spectrogram"])
 
@@ -619,16 +663,16 @@ def train(
                 "the orcAI parameter file."
             )
         call_weights = np.asarray(list(call_weights_dict.values()), np.float32)
-        log.info("Call weights: %s", call_weights_dict)
+        msgr.info(f"Call weights: {call_weights_dict}")
     else:
         call_weights = None
 
-    log.info("Batch size %d", mp["batch_size"])
+    msgr.info(f"Batch size {mp['batch_size']}")
     model_dir = output_dir / model_name
     seed_int = int(seed) % (2**31) if seed is not None else 0
     resumed_lr = None
     if load_model:
-        log.info("Loading model")
+        msgr.part("Loading model")
         model, _, _ = load_orcai_model(model_dir, dtype=model_dtype, device=dev)
         trainer = Trainer(model, mp["learning_rate"], call_weights, device=dev,
                           distributed=distributed)
@@ -636,20 +680,20 @@ def train(
         opt_path = model_dir / f"{model_name}.opt.pt"
         optax_path = model_dir / f"{model_name}.opt.msgpack"
         if opt_path.exists():
-            log.info("Restoring optimizer state")
+            msgr.info("Restoring optimizer state")
             state.optimizer.load_state_dict(torch.load(opt_path, map_location=dev))
         elif optax_path.exists():
-            log.info("Restoring optax's optimizer state from %s", optax_path.name)
+            msgr.info(f"Restoring optax's optimizer state from {optax_path.name}")
             load_optax_adam_state(optax_path, model, state.optimizer)
         else:
-            log.info("No optimizer state %s or %s: Adam starts fresh",
-                     opt_path.name, optax_path.name)
+            msgr.debug(f"No optimizer state {opt_path.name} or {optax_path.name}: "
+                       "Adam starts fresh")
         if opt_path.exists() or optax_path.exists():
             # continue at the restored LR: ReduceLROnPlateau must never
             # raise the effective rate back to the config value
             resumed_lr = get_learning_rate(state)
     else:
-        log.info("Building model")
+        msgr.part("Building model")
         model = build_model(orcai_parameter, input_shape, dtype=model_dtype)
         trainer = Trainer(model, mp["learning_rate"], call_weights, device=dev,
                           distributed=distributed)
@@ -670,7 +714,7 @@ def train(
         if restored is not None:
             state, initial_history, initial_lr, last_epoch, initial_counters = restored
             initial_epoch = last_epoch + 1
-            log.info("Resuming interrupted training from epoch %d", initial_epoch + 1)
+            msgr.info(f"Resuming interrupted training from epoch {initial_epoch + 1}")
             best_path = model_dir / f"{model_name}.msgpack"
             if best_path.exists():
                 # best-so-far weights saved by the checkpoint callback
@@ -679,8 +723,12 @@ def train(
     if profile_dir is None:
         profile_dir = os.environ.get("ORCAI_TPU_PROFILE_DIR")
 
-    log.info("Trainable parameter: %d", _count_params(state.model))
-    log.info("Fitting model: %s, monitoring %s", model_name, mp["monitor"])
+    msgr.info("Model size:", indent=1)
+    msgr.info(f"Trainable parameter: {_count_params(state.model)}", indent=-1)
+    msgr.print_memory_usage()
+
+    msgr.part(f"Fitting model: {model_name}")
+    msgr.info(f"Monitoring {mp['monitor']}")
 
     def save_checkpoint(current_state, history):
         if writer:
@@ -705,13 +753,14 @@ def train(
     limit = int(os.environ.get("ORCAI_TPU_DEVICE_DATASET_BYTES", 6_000_000_000))
     data_bytes = train_ds.x.nbytes + val_ds.x.nbytes
     if data_bytes <= limit:
-        log.info("Datasets resident on the device (%.2f GB)", data_bytes / 1e9)
+        msgr.info(f"Datasets HBM-resident ({data_bytes / 1e9:.2f} GB): batches gathered "
+                  "on the device")
         run_train, run_val = device_runners(
             trainer, train_ds, val_ds, batch_size, train_seed, val_seed,
             quantize=os.environ.get("ORCAI_TPU_QUANTIZE_DATASET") == "1",
         )
     else:
-        log.info("Datasets exceed the device budget: streaming batches")
+        msgr.info("Datasets exceed HBM budget: streaming batches")
         run_train, run_val = streaming_runners(
             trainer,
             lambda e: train_ds.batches(batch_size, seed=train_seed, epoch=e,
@@ -739,11 +788,12 @@ def train(
             initial_best_state=initial_best_state,
             initial_counters=initial_counters,
             profile_dir=profile_dir,
+            msgr=msgr,
         )
     if writer:
         if ckpt is not None:
             ckpt.cleanup()
-        log.info("Saving model")
+        msgr.part("Saving Model")
         save_orcai_model(
             model_dir,
             orcai_parameter,
@@ -753,5 +803,5 @@ def train(
             train_state={"epochs_run": len(history.get("loss", []))},
         )
         write_json(history, model_dir / "training_history.json")
-        log.info("Training model finished. Model saved to %s.msgpack", model_name)
+        msgr.success(f"Training model finished. Model saved to {model_name}.msgpack")
     barrier()

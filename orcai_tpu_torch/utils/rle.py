@@ -1,16 +1,11 @@
 """Run-length utilities for binary detection tracks.
 
-Counterpart of orcai_tpu/utils/rle.py (copied; filter_filepaths logs
-where the reference's Messenger printed).
+Counterpart of orcai_tpu/utils/rle.py (copied).
 """
 
 from __future__ import annotations
 
-import logging
-
 import numpy as np
-
-log = logging.getLogger(__name__)
 
 
 def find_consecutive_ones(binary_vector: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -43,12 +38,15 @@ def runs_from_binary_matrix(
     return row_starts, row_stops, label_names
 
 
-def filter_filepaths(filepaths, exclude_patterns):
+def filter_filepaths(filepaths, exclude_patterns, msgr=None):
     """Drop paths containing any exclude pattern (reference auxiliary.py:368)."""
     for pattern in exclude_patterns:
         filepaths = [f for f in filepaths if pattern not in str(f)]
-        log.info("Remaining files after filtering files that contain %s: %d",
-                 pattern, len(filepaths))
+        if msgr is not None:
+            msgr.info(
+                f"Remaining files after filtering files that contain "
+                f"{pattern}: {len(filepaths)}"
+            )
     return filepaths
 
 

@@ -206,7 +206,7 @@ def _two_process_search(root: Path) -> list[str]:
         out, err = p.communicate(timeout=600)
         assert p.returncode == 0, err[-3000:]
         assert f"HPS-PROC-{pid}-DONE" in out
-        logs.append(err)
+        logs.append(out)  # the console report
     return logs
 
 
@@ -260,7 +260,7 @@ def test_two_process_search_equals_a_one_process_search(tmp_path):
     assert set(_statuses((published / "all_trials.csv").read_text())) == {"CACHED"}
 
 
-def test_a_search_trains_each_trial_over_the_devices_its_batch_divides(tmp_path, caplog):
+def test_a_search_trains_each_trial_over_the_devices_its_batch_divides(tmp_path, capsys):
     """Without `parallel`, a search given two devices trains every trial
     data-parallel over both (mesh_for_batch of its batch 8), one process
     each, as the reference trains a trial on its mesh. Against a one-device
@@ -276,13 +276,13 @@ def test_a_search_trains_each_trial_over_the_devices_its_batch_divides(tmp_path,
     data = _write_data(tmp_path / "data")
     param = {**PARAM, "seed": 7}
     runs = {}
-    with torch.backends.mkldnn.flags(enabled=False), caplog.at_level("INFO"):
+    with torch.backends.mkldnn.flags(enabled=False):
         for name, device in (("one", "cpu"), ("two", ["cpu", "cpu"])):
             hpsearch.hyperparameter_search(data, tmp_path / name, orcai_parameter=param,
                                            hps_parameter=HPS, max_epochs=2, factor=2,
                                            device=device)
             runs[name] = tmp_path / name / "hps_logs"
-    assert caplog.text.count("data-parallel over 2 devices") == 5  # every rung-trial
+    assert capsys.readouterr().out.count("data-parallel over 2 devices") == 5  # every rung-trial
     one, two = runs["one"], runs["two"]
     assert (two / "best_hyperparameters.json").read_bytes() == \
         (one / "best_hyperparameters.json").read_bytes()

@@ -10,7 +10,6 @@ search resumed; `parallel` over one and over two devices; `_apply_config`'s
 refusals; and the `hpsearch` command."""
 
 import json
-import logging
 import shutil
 import threading
 from pathlib import Path
@@ -428,12 +427,12 @@ def test_datasets_over_the_device_budget_stream_to_the_same_search(tmp_path, mon
 # -- parallel ----------------------------------------------------------------------
 
 
-def test_parallel_with_one_device_warns_and_runs_in_sequence(tmp_path, caplog):
+def test_parallel_with_one_device_warns_and_runs_in_sequence(tmp_path, capsys):
     data = _write_data(tmp_path / "data")
     _port_search(data, tmp_path / "seq")
-    with caplog.at_level(logging.WARNING, logger="orcai_tpu_torch.train.hpsearch"):
-        _port_search(data, tmp_path / "par", parallel=True)
-    assert any("only one device is visible" in r.getMessage() for r in caplog.records)
+    capsys.readouterr()
+    _port_search(data, tmp_path / "par", parallel=True)
+    assert "‼️ --parallel requested but only one device is visible" in capsys.readouterr().out
     assert _logs(tmp_path / "par") == _logs(tmp_path / "seq")
 
 

@@ -1,7 +1,7 @@
 """The port stands alone: importing any of its modules loads none of jax,
-flax, optax, orbax, pandas, zarr, msgpack, click, tqdm, tensorflow, keras,
-h5py, google.protobuf or the JAX package, and no source of the port (or
-chip_smoke.py) imports one of them."""
+flax, optax, orbax, pandas, zarr, msgpack, click, tqdm, humanize, psutil,
+tensorflow, keras, h5py, google.protobuf or the JAX package, and no source
+of the port (or chip_smoke.py) imports one of them."""
 
 import ast
 import json
@@ -13,11 +13,12 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "pandas", "zarr", "msgpack", "click", "tqdm",
-             "tensorflow", "keras", "h5py", "google.protobuf", "orcai_tpu")
+             "humanize", "psutil", "tensorflow", "keras", "h5py", "google.protobuf",
+             "orcai_tpu")
 # torch itself loads tqdm where it is installed, so the subprocess check
 # leaves tqdm and click to the source scan
-NOT_LOADED = ("jax", "flax", "optax", "orbax", "pandas", "zarr", "msgpack", "tensorflow",
-              "keras", "h5py", "google.protobuf", "orcai_tpu")
+NOT_LOADED = ("jax", "flax", "optax", "orbax", "pandas", "zarr", "msgpack", "humanize",
+              "psutil", "tensorflow", "keras", "h5py", "google.protobuf", "orcai_tpu")
 SOURCES = sorted((ROOT / "orcai_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 # a package's __init__.py is imported as the package
 MODULES = [
@@ -39,7 +40,8 @@ def test_every_module_of_the_slice_is_scanned():
                  "ops.wire_codec", "ops.spectral", "tools.parity", "ops.dft",
                  "train.hpsearch", "tools.profile_first_epoch", "io.tfrecord",
                  "io.tfdata_convert", "io.hdf5", "io.keras_convert", "parallel",
-                 "parallel.distributed", "parallel.mesh"):
+                 "parallel.distributed", "parallel.mesh", "parallel.sharding_rules",
+                 "utils.messenger", "tools.probe_grad_split"):
         assert f"orcai_tpu_torch.{name}" in MODULES
     assert "chip_smoke" in MODULES
 

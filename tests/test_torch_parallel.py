@@ -38,6 +38,7 @@ from orcai_tpu_torch.io.jsonio import read_json
 from orcai_tpu_torch.io.model_store import DEFAULT_MODEL_DIR, convert_flax_variables, load_orcai_model
 from orcai_tpu_torch.io.wav import load_wav_for_frontend
 from orcai_tpu_torch.models import build_model
+from orcai_tpu_torch.models.layers import BatchNorm
 from orcai_tpu_torch.ops.losses import weighted_masked_bce_from_logits
 from orcai_tpu_torch.ops.overlap import WindowPredictor
 from orcai_tpu_torch.ops.streaming import StreamingPredictor
@@ -584,3 +585,39 @@ def test_initialize_distributed_is_a_no_op_for_one_process(monkeypatch):
     assert distributed.launch_backend([torch.device("cuda", 0)] * 2) == "gloo"
     assert distributed.launch_backend(
         [torch.device("cuda", 0), torch.device("cuda", 1)]) == "cpu:gloo,cuda:nccl"
+
+
+def test_the_split_probe_on_a_narrow_model(tmp_path, no_onednn):
+    """tools/probe_grad_split.py's parts on the narrow ResNetLSTM at 8 rows
+    on the CPU (the card runs them on orcai-v1 at 64, chip_smoke.py phase
+    parallel): with every row independent the two halves' averaged
+    gradients are the whole batch's up to float32 noise and repeat exactly;
+    in training mode the plain and the synced BatchNorm (a gloo group of
+    one) give gradients within the trainer's bar of each other and of
+    float64, and every BatchNorm's synced forward and backward sit within
+    float32 noise of F.batch_norm's."""
+    from orcai_tpu_torch.models import init_variables
+    from orcai_tpu_torch.tools import probe_grad_split as probe
+
+    model = init_variables(build_model(_param(), INPUT_SHAPE), seed=0)
+    x, y = (torch.from_numpy(a) for a in _synthetic(8, seed=4, masked=0.2))
+    rows = probe.rows_independent(torch, model, x, y)
+    assert set(rows["halves_vs_whole"]) == {"trunk_conv", "trunk_bn", "bilstm1", "bilstm2",
+                                            "dense", "dense_bn", "out", "all"}
+    assert rows["whole_again_vs_whole"]["all"] == 0.0
+    assert rows["halves_vs_whole"]["all"] < 1e-5
+    assert rows["whole_vs_float64"]["all"] < GRAD_BAR
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        train, reference = probe.train_mode(torch, model, x, y, seed=0)
+        layers = probe.synced_batchnorm(torch, model, x, seed=0)
+    finally:
+        dist.destroy_process_group()
+    assert train["library_again_vs_library"]["all"] == 0.0
+    for key in ("synced_vs_library", "library_vs_float64", "synced_vs_float64"):
+        assert 0.0 < train[key]["all"] < GRAD_BAR, (key, train[key])
+    assert sorted(reference) == sorted(n for n, p in model.named_parameters() if p.requires_grad)
+    assert layers["layers"] == sum(isinstance(m, BatchNorm) for m in model.modules())
+    for reading in layers["synced_vs_library"].values():
+        assert reading["rel_norm"] < 1e-5, layers

@@ -346,7 +346,7 @@ def test_serve_warms_its_own_predictor(model_dir, folders, monkeypatch):
     warmed = []
     monkeypatch.setattr(
         serve_mod, "warm_predictor",
-        lambda predictor, sp, minutes, wire: warmed.append((predictor, minutes, wire)) or 0,
+        lambda predictor, sp, minutes, wire, msgr: warmed.append((predictor, minutes, wire)) or 0,
     )
     _wav(watch / "a.wav", seed=0)
     seen = _flaky(monkeypatch, lambda i, name: None)

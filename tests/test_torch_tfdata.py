@@ -7,7 +7,6 @@ against a bytewise table, and the reader's refusals: corrupted framing,
 another dtype, another snapshot version, a tensor without content.
 """
 
-import logging
 import multiprocessing
 import shutil
 import struct
@@ -24,6 +23,7 @@ from orcai_tpu_torch.__main__ import main as port_main  # noqa: E402
 from orcai_tpu_torch.io import tfdata_convert as port_convert  # noqa: E402
 from orcai_tpu_torch.io import tfrecord  # noqa: E402
 from orcai_tpu_torch.native import crc32c_native  # noqa: E402
+from orcai_tpu_torch.utils.messenger import Messenger as PortMessenger  # noqa: E402
 
 QUIET = Messenger(verbosity=0)
 SPEC, LABELS = (16, 5, 1), (2, 3)
@@ -191,7 +191,7 @@ def test_sharded_snapshots_come_in_dataset_load_order(tmp_path, n_shards):
     assert tree_jax == tree_port
 
 
-def test_resume_after_a_partial_run_and_overwrite(tmp_path, caplog):
+def test_resume_after_a_partial_run_and_overwrite(tmp_path, capsys):
     tvt = _tvt(tmp_path)
     copies = {}
     for side in ("jax", "port"):
@@ -200,9 +200,9 @@ def test_resume_after_a_partial_run_and_overwrite(tmp_path, caplog):
     # a run cut after the first split
     jax_convert.convert_tf_dataset(copies["jax"] / "train_dataset", msgr=QUIET)
     port_convert.convert_tf_dataset(copies["port"] / "train_dataset")
-    with caplog.at_level(logging.WARNING):
-        got_port = port_convert.convert_tvt_datasets(copies["port"])
-    assert "train_dataset already converted" in caplog.text
+    capsys.readouterr()
+    got_port = port_convert.convert_tvt_datasets(copies["port"], msgr=PortMessenger(verbosity=1))
+    assert "‼️ train_dataset already converted" in capsys.readouterr().out
     got_jax = jax_convert.convert_tvt_datasets(copies["jax"], msgr=QUIET)
     assert got_jax == got_port == {"val_dataset": 5}
     assert _tree(copies["jax"]) == _tree(copies["port"])
@@ -317,12 +317,13 @@ def test_cli_convert_dataset(tmp_path, capsys):
     ref = tmp_path / "ref"
     shutil.copytree(tvt, ref)
     jax_convert.convert_tvt_datasets(ref, msgr=QUIET)
-    assert port_main(["convert-dataset", str(tvt), "-dc", "gzip", "-v", "0"]) == 0
-    assert capsys.readouterr().out.strip() == (
-        "Converted train_dataset (11 samples), val_dataset (5 samples)")
+    assert port_main(["convert-dataset", str(tvt), "-dc", "gzip"]) == 0
+    assert capsys.readouterr().out.splitlines()[-1].startswith(
+        "🐳 Converted train_dataset (11 samples), val_dataset (5 samples) [")
     assert _tree(tvt) == _tree(ref)
-    assert port_main(["convert-dataset", str(tvt), "-v", "0"]) == 0
-    assert capsys.readouterr().out.strip() == "Nothing to convert (all splits already converted)"
+    assert port_main(["convert-dataset", str(tvt)]) == 0
+    assert capsys.readouterr().out.splitlines()[-1].startswith(
+        "🐳 Nothing to convert (all splits already converted) [")
     out = tmp_path / "out"
     assert port_main(["convert-dataset", str(tvt), "-o", str(out), "-ow", "-dc", "auto",
                       "-v", "0"]) == 0

@@ -7,7 +7,6 @@ scripted metric sequences, the resident and streaming runners, resume, and
 `train` end to end."""
 
 import json
-import logging
 
 import numpy as np
 import pytest
@@ -41,6 +40,7 @@ from orcai_tpu_torch.train.trainer import (
     streaming_runners,
     train,
 )
+from orcai_tpu_torch.utils.messenger import Messenger
 from orcai_tpu_torch.utils.seeds import MASK_VALUE
 
 ARCHS = ["ResNetLSTM", "ResNet1DConv", "ResNetTCN"]
@@ -628,11 +628,12 @@ def test_fit_restores_the_best_epochs_weights():
         assert torch.equal(v, snapshots[2][k]), k
 
 
-def test_fit_warns_on_a_loss_monitor(caplog):
+def test_fit_warns_on_a_loss_monitor(capsys):
     trainer, state = _port_fit_setup()
-    with caplog.at_level(logging.WARNING, logger="orcai_tpu_torch.train.trainer"):
-        _, history = fit(trainer, state, *_scripted([0.5, 0.5]), epochs=2, monitor="val_loss")
-    assert "max-mode" in caplog.text
+    _, history = fit(trainer, state, *_scripted([0.5, 0.5]), epochs=2, monitor="val_loss",
+                     msgr=Messenger(verbosity=1))
+    assert "‼️ monitor 'val_loss' looks like a loss but monitoring is max-mode" in \
+        capsys.readouterr().out
     assert len(history["val_loss"]) == 2
 
 
@@ -740,9 +741,10 @@ def test_command_line_train_and_test(tmp_path, capsys):
                  "-lm", "--device", "cpu", "-v", "0"]) == 0
     model_dir = out / "cli"
     assert (model_dir / "cli.msgpack").exists() and (model_dir / "cli.opt.pt").exists()
+    capsys.readouterr()
     assert main(["test", str(model_dir), str(tmp_path), "-tu", "-o", str(tmp_path / "results"),
-                 "--device", "cpu", "-v", "0"]) == 0
-    assert str(tmp_path / "results") in capsys.readouterr().out
+                 "--device", "cpu"]) == 0
+    assert f"    Saved test results to {tmp_path / 'results'}\n" in capsys.readouterr().out
     assert sorted(p.name for p in (tmp_path / "results").iterdir()) == [
         "test_data_confusion_table.csv", "test_data_metrics.json",
         "test_data_misclassification_table_pred_true.csv",
@@ -768,20 +770,20 @@ def test_load_model_resume_keeps_reduced_lr(tmp_path):
     assert history["learning_rate"][-1] == pytest.approx(1e-5)
 
 
-def test_load_model_without_optimizer_state_starts_adam_fresh(tmp_path, caplog):
+def test_load_model_without_optimizer_state_starts_adam_fresh(tmp_path, capsys):
     _write_tvt(tmp_path, n=16)
     param = _param(name="fresh-adam")
     param["model"]["epochs"] = 1
     model_dir = _run_train(tmp_path, param, preemption_checkpointing=False)
     (model_dir / "fresh-adam.opt.pt").unlink()
-    with caplog.at_level(logging.INFO, logger="orcai_tpu_torch.train.trainer"):
-        _run_train(tmp_path, param, load_model=True, preemption_checkpointing=False)
-    assert "Adam starts fresh" in caplog.text
+    capsys.readouterr()
+    _run_train(tmp_path, param, load_model=True, preemption_checkpointing=False, verbosity=3)
+    assert "Adam starts fresh" in capsys.readouterr().out
     history = read_json(model_dir / "training_history.json")
     assert history["learning_rate"] == [param["model"]["learning_rate"]]
 
 
-def test_load_model_resumes_adam_from_the_jax_package_s_opt_msgpack(tmp_path, caplog):
+def test_load_model_resumes_adam_from_the_jax_package_s_opt_msgpack(tmp_path, capsys):
     """The JAX package trains one epoch and saves; the port loads that
     directory with load_model and holds optax's Adam moments, count and
     learning rate. One step on a shared batch (the reference's gradient fed
@@ -790,7 +792,7 @@ def test_load_model_resumes_adam_from_the_jax_package_s_opt_msgpack(tmp_path, ca
     fresh Adam lands far from them."""
     import flax.serialization
 
-    from orcai_tpu.utils import Messenger
+    from orcai_tpu.utils import Messenger as JaxMessenger
     from orcai_tpu_torch.io.model_store import load_optax_adam_state, load_orcai_model
 
     _write_tvt(tmp_path, n=16)
@@ -798,7 +800,7 @@ def test_load_model_resumes_adam_from_the_jax_package_s_opt_msgpack(tmp_path, ca
     param["model"]["epochs"] = 1
     (tmp_path / "out").mkdir()
     jax_trainer.train(tmp_path, tmp_path / "out", orcai_parameter=param,
-                      msgr=Messenger(verbosity=0), preemption_checkpointing=False)
+                      msgr=JaxMessenger(verbosity=0), preemption_checkpointing=False)
     model_dir = tmp_path / "out" / "from-jax"
     assert (model_dir / "from-jax.opt.msgpack").exists()
     assert not (model_dir / "from-jax.opt.pt").exists()
@@ -834,10 +836,10 @@ def test_load_model_resumes_adam_from_the_jax_package_s_opt_msgpack(tmp_path, ca
     assert max(np.abs(fresh[k] - w).max() for k, w in want.items()) > 1e-4
 
     # train(load_model=True) restores it and continues at the saved rate
-    with caplog.at_level(logging.INFO, logger="orcai_tpu_torch.train.trainer"):
-        _run_train(tmp_path, param, load_model=True, max_epochs=1,
-                   preemption_checkpointing=False)
-    assert "Restoring optax's optimizer state" in caplog.text
+    capsys.readouterr()
+    _run_train(tmp_path, param, load_model=True, max_epochs=1, preemption_checkpointing=False)
+    assert "    Restoring optax's optimizer state from from-jax.opt.msgpack\n" in \
+        capsys.readouterr().out
     history = read_json(model_dir / "training_history.json")
     assert history["learning_rate"] == [pytest.approx(param["model"]["learning_rate"])]
     assert (model_dir / "from-jax.opt.pt").exists()
