@@ -4,22 +4,24 @@
 // folded into C and S.
 //
 // Replaces the TPU kernel orcai_tpu/ops/pallas_dft.py::dft_magnitude
-// (kernel _kernel) at the sizes neither FFT route takes: an n_fft with a
-// prime factor of 13 or more (416 = 2^5 * 13, 390, ...) or above 2048.
-// dft_magnitude.cu takes 512, dft_mixed.cu every other n_fft up to 2048
-// whose prime factors are in {2, 3, 5, 7, 11} (the spectral wires' 384 and
-// 352 among them). The Pallas kernel sums n_fft/hop partial MXU GEMMs over
-// shifted hop-blocks, so the (T, n_fft) frames matrix never reaches HBM;
-// so does this one, and it decodes uint8 mu-law codes where it loads them,
-// as the Pallas kernel does.
+// (kernel _kernel) at the only sizes no FFT of this package takes: an n_fft
+// above 8192 whose prime factors are all in {2, 3, 5, 7, 11, 13} (16384),
+// and any other n_fft above 4096 (4352 = 2^8 * 17, 4097). dft_magnitude.cu
+// takes 512; dft_mixed.cu every other smooth n_fft up to 8192 and, in its
+// chirp-z mode, every other n_fft up to 4096 (its convolution length M >=
+// 2 n_fft - 1 must stay within 8192). The Pallas kernel sums n_fft/hop
+// partial MXU GEMMs over shifted hop-blocks, so the (T, n_fft) frames
+// matrix never reaches HBM; so does this one, and it decodes uint8 mu-law
+// codes where it loads them, as the Pallas kernel does.
 //
-// Bound on the card: operations, for this algorithm. A 32768-frame tile at
-// n_fft 416 is 4 * T * 416 * 209 = 11.4 GFLOP of fp32 FMA against 13.6 MB in
-// and 27.4 MB out (0.012 ms of bytes at 3.35 TB/s), about 0.17 ms at the
-// card's 67 TFLOP/s of fp32 outside the tensor cores. TF32 cannot hold the
-// 2e-4 bar (the reference runs Precision.HIGHEST), so the tensor cores are
-// closed to it. An FFT needs far less; this route is the simple kernel that
-// is right for the sizes no FFT of this package takes.
+// Bound on the card: operations, for this algorithm. An 11251-frame tile at
+// n_fft 4352 / hop 2176 is 4 * T * 4352 * 2177 = 426 GFLOP of fp32 FMA
+// against 49 MB in and 98 MB out (0.044 ms of bytes at 3.35 TB/s), about
+// 6.4 ms at the card's 67 TFLOP/s of fp32 outside the tensor cores. TF32
+// cannot hold the 2e-4 bar (the reference runs Precision.HIGHEST), so the
+// tensor cores are closed to it. An FFT needs far less; this route is the
+// simple kernel that is right for the sizes no FFT of this package takes,
+// none of which a wire or a default parameter file reaches.
 //
 // Design (the tiled kernel of the port's first B1, generalised): each
 // 256-thread block owns a 64-frame x 64-bin output tile and walks n in

@@ -1,62 +1,90 @@
-// Windowed rDFT magnitude of hop-framed audio at any n_fft from 2 to 2048
-// whose prime factors are all in {2, 3, 5, 7, 11}, straight from the padded
-// samples: out[t, k] = |sum_n w[n] x[t*hop + n] exp(-2 pi i n k / N)|,
-// k = 0..N/2, as a batched mixed-radix FFT in shared memory.
+// Windowed rDFT magnitude of hop-framed audio at any n_fft from 2 to 8192
+// whose prime factors are all in {2, 3, 5, 7, 11, 13}, and, in its chirp-z
+// mode, at any other n_fft from 2 to 4096, straight from the padded samples:
+// out[t, k] = |sum_n w[n] x[t*hop + n] exp(-2 pi i n k / N)|, k = 0..N/2, as
+// a batched mixed-radix FFT in shared memory.
 //
 // Replaces the TPU kernel orcai_tpu/ops/pallas_dft.py::dft_magnitude
 // (kernel _kernel) at the sizes the radix-8 FFT route (dft_magnitude.cu,
 // n_fft 512) does not take: the spectral wires' 384 / 192 (384 = 16*8*3)
 // and 352 / 176 (8*4*11), 768 and 704 for a parameter file at n_fft 1024,
-// and 256, 1024, 2048, ... The Pallas kernel multiplies each frame by the
+// 416 = 8*4*13, the 4096 and 8192 of recordings at 96-192 kHz, and in the
+// chirp mode every n_fft with a prime factor of 17 or more (1088, 2038,
+// primes) up to 4096. The Pallas kernel multiplies each frame by the
 // (N, N/2 + 1) DFT matrix because a TPU has a matrix unit and no FFT; an
-// fp32 GEMM on this card's CUDA cores needs 9.7 GFLOP for a 32768-frame
-// tile at 384 (dft_gemm.cu, which keeps the n_fft this kernel does not).
+// IEEE fp32 GEMM on this card's CUDA cores needs 4 T N (N/2 + 1) FLOP, 1.1
+// TFLOP for a 32768-frame tile at 4096, where an FFT needs about
+// 5 N log2(N) / 2 a frame. dft_gemm.cu keeps only what this kernel does
+// not take: smooth n_fft above 8192 and any other n_fft above 4096.
 //
 // Bound on the card: bytes. The function reads each sample once and writes
 // each magnitude once: at 384 / 192 a 32768-frame tile is 12.6 MB of int16
-// in and 25.3 MB out, 0.0113 ms at 3.35 TB/s. Its FFT is about
-// 5 N log2(N) / 2 FLOP a frame, 0.27 GFLOP a tile, 0.004 ms at 67 TFLOP/s.
+// in and 25.3 MB out, 0.0113 ms at 3.35 TB/s; at 4096 / 2048 134 MB in and
+// 268.6 MB out, 0.120 ms. The FFT's operations are far below that (0.27
+// GFLOP a tile at 384, 0.004 ms at 67 TFLOP/s of fp32; the chirp mode's
+// two FFTs of M >= 2N - 1 points about four times an FFT of N).
 //
 // Design (dft_magnitude.cu's shape without its fixed radix). Frames are
 // taken in groups of F. A persistent grid walks the groups; for each, the
 // block copies the one contiguous span of (F - 1)*hop + N samples the group
 // covers into shared memory with 16-byte cp.async copies (int16 stays int16,
 // mu-law codes stay bytes), so each sample leaves device memory once (plus
-// the overlap of N - hop per group). Two span buffers alternate: the next
-// group's copy is in flight while this group is transformed. Each warp
-// transforms two frames at a time, z = w*x_t + i*w*x_t+1, one complex FFT as
-// one Stockham pass per radix of a plan the host chooses
-// (ops/dft.py::fft_plan: the power-of-two part in the fewest passes of
-// radix 16 at most, as even as possible, then 3, 5, 7, 11; 384 = 16*8*3,
-// 352 = 8*4*11, 1024 = 16*8*8). Butterfly j of a pass of radix R, Ns the
+// the overlap of N - hop per group). Span buffers alternate where two fit:
+// the next group's copy is in flight while this group is transformed. Two
+// frames at a time become one complex FFT, z = w*x_t + i*w*x_t+1, as one
+// Stockham pass per radix of a plan the host chooses (ops/dft.py::fft_plan:
+// the power-of-two part in the fewest passes of radix 16 at most, as even
+// as possible, then 3, 5, 7, 11, 13; 384 = 16*8*3, 352 = 8*4*11, 416 =
+// 8*4*13, 4096 = 16*16*16). Butterfly j of a pass of radix R, Ns the
 // product of the earlier radices, reads z[j + r*N/R], multiplies by
 // tw[r * (j % Ns) * N/(Ns*R)], takes an R-point DFT and writes
 // z'[(j / Ns)*Ns*R + j % Ns + r*Ns]; the last pass leaves Z in natural
-// order. A lane takes whole butterflies j = lane, lane + 32, ...; the last
-// ones of a pass may leave lanes idle (384/16 = 24 butterflies). Radix 16
-// is 4 x 4 with its W16 twiddles; the odd radices are direct R-point DFTs
-// over symmetric pairs; their float32 constants are rounded once from
-// float64 (ops/dft.py::_odd_roots, _C16). The passes exchange through two
-// buffers of N complex values per warp; the host lays each buffer out as
-// a + ((a >> s) << g), the (s, g) that leaves its writes and the next
-// reads with the fewest shared-memory wavefronts (ops/dft.py::exchange_pads;
-// none left at 384, 768, 1024 or 2048). The roots of unity (one table,
-// tw[m] = exp(-2 pi i m/N), from the host in float64 rounded once) are
-// copied into shared memory in the order the passes read them, [r - 1][j %
-// Ns] per pass, so a warp reads consecutive words or broadcasts. The
-// untangle X_t[k] = (Z[k] + conj Z[(N-k) % N])/2, X_t+1[k] = (Z[k] - conj
-// Z[(N-k) % N])/2i, k = 0..N/2, holds for odd N too; it writes IEEE
-// sqrtf magnitudes as coalesced row stores. Frames past n_frames are
-// neither computed nor written; a phantom second frame of an odd count
-// reads zeros. F and the warps per block are chosen on the host for each
-// N, hop and sample type to keep the most warps resident within the SM's
-// shared memory (two span buffers beside two exchange buffers a warp).
+// order. Radix 16 is 4 x 4 with its W16 twiddles; the odd radices are
+// direct R-point DFTs over symmetric pairs; their float32 constants are
+// rounded once from float64 (ops/dft.py::_odd_roots, _C16). The passes
+// exchange through two buffers of N complex values, laid out as
+// a + ((a >> s) << g), the (s, g) that leaves a pass's writes and the next
+// reads with the fewest shared-memory wavefronts (ops/dft.py::exchange_pads).
+// The roots of unity come from the host in the order the passes read them,
+// [r - 1][j % Ns] per pass (ops/dft.py::pass_roots, float64 rounded once),
+// so a warp reads consecutive words or broadcasts. The untangle
+// X_t[k] = (Z[k] + conj Z[(N-k) % N])/2, X_t+1[k] = (Z[k] - conj
+// Z[(N-k) % N])/2i, k = 0..N/2, holds for odd N too; it writes IEEE sqrtf
+// magnitudes as coalesced row stores. Frames past n_frames are neither
+// computed nor written; a phantom second frame of an odd count reads zeros.
 //
-// What holds it: shared memory and the latency of its warp-synchronous
-// passes, not HBM. Every pass reads and writes N complex values (two
-// wavefronts a warp access) and reads (R-1)/R*N roots, so the plan takes
-// the fewest passes: radix 16 made 384, 768 and 1024 about 15 % faster
-// than radix 8 with one pass more (PERF.md; tools/bench_dft_plans.py).
+// Two layouts, chosen on the host for each plan, hop and sample type
+// (choose_layout). The warp layout: each warp owns a frame pair and its
+// two exchange buffers, the passes synchronise the warp only, and the
+// roots and the window sit in shared memory; it is taken where it keeps at
+// least 4 warps resident on an SM (every n_fft up to 2048 at the spectral
+// and default hops). The block layout: the whole block (up to 512 threads)
+// owns one frame pair at a time, with __syncthreads() between the passes
+// and one pair of exchange buffers, 128 KB at 8192; the roots and the
+// window stay in shared memory where they fit beside the buffers and are
+// read from device memory through L1 where they do not. It takes every
+// larger n_fft and the chirp mode.
+//
+// The chirp-z (Bluestein) mode, for an n_fft N with a prime factor of 17 or
+// more: X[k] = a[k] sum_n (w a)[n] x[n] b[k - n] with a[n] = exp(-i pi (n^2
+// mod 2N) / N) and b[m] = conj a[|m|], a circular convolution of length M,
+// a {2, 3, 5, 7, 11, 13}-smooth M >= 2N - 1 whose passes move the fewest
+// values (ops/dft.py::chirp_length: 1088 -> 2197 = 13^3, 2038 -> 4096, not
+// the five passes of 2178 or 4095). On the block layout: z = (w a)[n]
+// (x_t + i x_t+1)[n] zero-padded to M, its M-point FFT by the same passes,
+// the product with B = FFT_M(b) / M folded into the first pass of a second
+// forward FFT of the conjugate (the inverse as conj -> forward -> conj),
+// then Z[k] = a[k] conj(u[k]) and the same untangle:
+// Bluestein is linear, so two real frames still share one complex
+// transform. The tables (w a, a, B: ops/dft.py::chirp_tables) are computed
+// on the host from n^2 mod 2N in integers and the angle in float64, rounded
+// once to float32, and read through L1.
+//
+// What holds it: shared memory and the latency of its synchronised passes,
+// not HBM. Every pass reads and writes N complex values (two wavefronts a
+// warp access) and reads (R-1)/R*N roots, so the plan takes the fewest
+// passes; the block layout leaves one or two blocks on an SM, whose warps
+// wait at each pass's barrier.
 //
 // uint8 input is mu-law codes (the mulaw8 wire), staged as bytes and
 // decoded where a sample is read, by the integer steps dft_magnitude.cu and
@@ -64,29 +92,37 @@
 // magnitudes. The 16-byte copies need a 16-byte aligned source and a hop of
 // a multiple of 16 bytes; any other tile (a view of resident codes one
 // byte off) takes the one-sample-a-thread copy. IEEE fp32 throughout: no
-// TF32, no fast-math sqrt or sincos.
+// TF32, no fast-math sqrt, sincos or exp.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int MAX_N = 2048;
+constexpr int MAX_N = 8192;        // the largest FFT: n_fft, or M in the chirp mode
+constexpr int CHIRP_MAX_N = 4096;  // the chirp mode's largest n_fft (M <= 8192)
 constexpr int MAX_PASSES = 12;
-constexpr int MAX_WARPS = 8;
-constexpr int NO_PAD = 31;  // a >> 31 is 0 for every index
+constexpr int MAX_WARPS = 8;            // the warp layout's largest block
+constexpr int MAX_BLOCK_THREADS = 512;  // the block layout's largest block
+constexpr int MIN_RESIDENT_WARPS = 4;   // the warp layout's floor on an SM
+constexpr int NO_PAD = 31;              // a >> 31 is 0 for every index
 
 struct Plan {
-  int n, n_passes, tw_len, zbuf;  // zbuf: one exchange buffer, complex values
+  int n, n_passes, tw_len, zbuf;  // n: the FFT's size; zbuf: one exchange buffer
+  int chirp_n;                    // the chirp mode's n_fft; 0 in the FFT mode
   int radix[MAX_PASSES];
   int ns[MAX_PASSES];      // product of the earlier radices
-  int tw_off[MAX_PASSES];  // the pass's roots in the shared layout
+  int tw_off[MAX_PASSES];  // the pass's roots in the pass-ordered table
   int pad_s[MAX_PASSES];   // the buffer the pass writes: a + ((a >> s) << g)
   int pad_g[MAX_PASSES];
 };
 
-struct Layout {  // the block's dynamic shared memory; offsets in bytes
-  int warps, frames, span_len, span_stride, win_off, z_off, span_off, bytes;
+struct Layout {  // the block's shape and dynamic shared memory; offsets in bytes
+  int block;     // 1: the whole block owns a frame pair; 0: each warp owns one
+  int threads, units;  // threads a block; owners of frame pairs (warps, or 1)
+  int frames, spans;   // frames a group; span buffers (2: the copy overlaps)
+  int tables;          // 1: roots and window in shared memory
+  int span_len, span_stride, win_off, z_off, span_off, bytes;
 };
 
 __device__ __forceinline__ float sample_to_f32(float v) { return v; }
@@ -119,6 +155,12 @@ __device__ __forceinline__ float root_cos(int R, int m) {
     case 11 * 16 + 3: return -0.142314836f;
     case 11 * 16 + 4: return -0.654860735f;
     case 11 * 16 + 5: return -0.959492981f;
+    case 13 * 16 + 1: return 0.885456026f;
+    case 13 * 16 + 2: return 0.568064749f;
+    case 13 * 16 + 3: return 0.120536678f;
+    case 13 * 16 + 4: return -0.354604900f;
+    case 13 * 16 + 5: return -0.748510778f;
+    case 13 * 16 + 6: return -0.970941842f;
   }
   return 0.0f;
 }
@@ -135,6 +177,12 @@ __device__ __forceinline__ float root_sin(int R, int m) {
     case 11 * 16 + 3: return 0.989821434f;
     case 11 * 16 + 4: return 0.755749583f;
     case 11 * 16 + 5: return 0.281732559f;
+    case 13 * 16 + 1: return 0.464723170f;
+    case 13 * 16 + 2: return 0.822983861f;
+    case 13 * 16 + 3: return 0.992708862f;
+    case 13 * 16 + 4: return 0.935016215f;
+    case 13 * 16 + 5: return 0.663122654f;
+    case 13 * 16 + 6: return 0.239315659f;
   }
   return 0.0f;
 }
@@ -263,20 +311,20 @@ __device__ __forceinline__ void dft(float (&re)[R], float (&im)[R]) {
   im[0] = o0i;
 }
 
-// the first pass (Ns = 1, no roots): butterfly j reads the windowed samples
-// n = j + r*N/R of both frames and writes z'[j*R + r]
-template <int R, typename T>
-__device__ __forceinline__ void first_pass(const T* xa, const T* xb, const float* win,
-                                           float2* dst, int ds, int dg, int N, int lane) {
+// The first pass (Ns = 1, no roots): butterfly j reads its inputs
+// n = j + r*N/R through `load` and writes z'[j*R + r]. Thread `lane` of
+// the `width` that share the FFT takes butterflies lane, lane + width, ...
+template <int R, typename Load>
+__device__ __forceinline__ void first_pass(const Load& load, float2* dst, int ds, int dg,
+                                           int N, int lane, int width) {
   const int nb = N / R;
-  for (int j = lane; j < nb; j += 32) {
+  for (int j = lane; j < nb; j += width) {
     float re[R], im[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const int n = j + r * nb;
-      const float w = win[n];
-      re[r] = w * sample_to_f32(xa[n]);
-      im[r] = w * sample_to_f32(xb[n]);
+      const float2 v = load(j + r * nb);
+      re[r] = v.x;
+      im[r] = v.y;
     }
     dft(re, im);
 #pragma unroll
@@ -289,11 +337,11 @@ __device__ __forceinline__ void first_pass(const T* xa, const T* xb, const float
 template <int R>
 __device__ __forceinline__ void pass(const float2* src, int ss, int sg, float2* dst,
                                      int ds, int dg, const float2* tw, int N, int ns,
-                                     int lane) {
+                                     int lane, int width) {
   const int nb = N / R;
   int jm = lane % ns, q = lane / ns;  // j % ns and j / ns, stepped with j
-  const int step_m = 32 % ns, step_q = 32 / ns;
-  for (int j = lane; j < nb; j += 32) {
+  const int step_m = width % ns, step_q = width / ns;
+  for (int j = lane; j < nb; j += width) {
     float re[R], im[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -322,6 +370,8 @@ __device__ __forceinline__ void pass(const float2* src, int ss, int sg, float2* 
   }
 }
 
+// R13 false leaves the radix-13 butterfly out of a kernel whose plans have
+// no 13: its registers would cost the other passes a few percent
 #define ORCAI_RADIX_CASES(CALL)  \
   case 2: CALL(2); break;        \
   case 3: CALL(3); break;        \
@@ -330,55 +380,153 @@ __device__ __forceinline__ void pass(const float2* src, int ss, int sg, float2* 
   case 7: CALL(7); break;        \
   case 8: CALL(8); break;        \
   case 11: CALL(11); break;      \
+  case 13: if constexpr (R13) { CALL(13); } break; \
   case 16: CALL(16); break;
 
-// Transform frames t and t + 1, whose samples start at xa and xa + hop, and
-// write their magnitude rows. One warp; za and zb are its exchange buffers.
-template <typename T>
-__device__ __forceinline__ void transform_pair(const T* xa, int hop, const float* win,
-                                               const float2* tw, float2* za, float2* zb,
-                                               const Plan& plan, float* __restrict__ out,
-                                               int t, int n_frames, int lane) {
+// the warp layout synchronises the warp that owns the pair, the block
+// layout the block
+template <bool BLOCK>
+__device__ __forceinline__ void fft_sync() {
+  if (BLOCK) __syncthreads();
+  else __syncwarp();
+}
+
+// One complex FFT of plan.n points by the plan's passes. The first pass
+// reads its input through `load` and writes `first`; the later passes
+// alternate between the two buffers. Returns the buffer that holds the
+// result, in natural order in the last pass's layout.
+template <bool BLOCK, bool R13, typename Load>
+__device__ __forceinline__ float2* fft(const Load& load, float2* first, float2* second,
+                                       const float2* tw, const Plan& plan, int lane,
+                                       int width) {
   const int N = plan.n;
-  const T* xb = xa + hop;
   switch (plan.radix[0]) {
-#define ORCAI_FIRST(R) first_pass<R>(xa, xb, win, za, plan.pad_s[0], plan.pad_g[0], N, lane)
+#define ORCAI_FIRST(R) first_pass<R>(load, first, plan.pad_s[0], plan.pad_g[0], N, lane, width)
     ORCAI_RADIX_CASES(ORCAI_FIRST)
 #undef ORCAI_FIRST
   }
-  __syncwarp();
-  float2* src = za;
-  float2* dst = zb;
+  fft_sync<BLOCK>();
+  float2* src = first;
+  float2* dst = second;
   for (int p = 1; p < plan.n_passes; ++p) {
     const int ss = plan.pad_s[p - 1], sg = plan.pad_g[p - 1];
     const int ds = plan.pad_s[p], dg = plan.pad_g[p], ns = plan.ns[p];
     const float2* twp = tw + plan.tw_off[p];
     switch (plan.radix[p]) {
-#define ORCAI_PASS(R) pass<R>(src, ss, sg, dst, ds, dg, twp, N, ns, lane)
+#define ORCAI_PASS(R) pass<R>(src, ss, sg, dst, ds, dg, twp, N, ns, lane, width)
       ORCAI_RADIX_CASES(ORCAI_PASS)
 #undef ORCAI_PASS
     }
-    __syncwarp();
+    fft_sync<BLOCK>();
     float2* tmp = src;
     src = dst;
     dst = tmp;
   }
+  return src;
+}
 
-  // untangle the two real frames and write their magnitudes
-  const int last = plan.n_passes - 1;
-  const int s = plan.pad_s[last], g = plan.pad_g[last];
+// the two real frames as one windowed complex signal: z = w x_t + i w x_t+1
+template <typename T>
+struct PairLoad {
+  const T* xa;
+  const T* xb;
+  const float* win;
+  __device__ __forceinline__ float2 operator()(int n) const {
+    const float w = win[n];
+    return make_float2(w * sample_to_f32(xa[n]), w * sample_to_f32(xb[n]));
+  }
+};
+
+// the chirp mode's input: z = (w a)[n] (x_t + i x_t+1)[n] for n < n_fft,
+// zero past it
+template <typename T>
+struct ChirpLoad {
+  const T* xa;
+  const T* xb;
+  const float2* wa;
+  int n_fft;
+  __device__ __forceinline__ float2 operator()(int n) const {
+    if (n >= n_fft) return make_float2(0.0f, 0.0f);
+    const float2 c = wa[n];
+    const float u = sample_to_f32(xa[n]), v = sample_to_f32(xb[n]);
+    return make_float2(c.x * u - c.y * v, c.x * v + c.y * u);
+  }
+};
+
+// the chirp mode's product, conjugated: conj(Y[m] B[m]), Y the forward
+// FFT in its buffer, B = FFT_M(b) / M
+struct ProductLoad {
+  const float2* y;
+  int s, g;
+  const float2* b;
+  __device__ __forceinline__ float2 operator()(int m) const {
+    const float2 v = y[padded(m, s, g)], w = b[m];
+    return make_float2(v.x * w.x - v.y * w.y, -(v.x * w.y + v.y * w.x));
+  }
+};
+
+// Z[k] of the FFT mode: the last pass's output
+struct FftBin {
+  const float2* z;
+  int s, g;
+  __device__ __forceinline__ float2 operator()(int k) const { return z[padded(k, s, g)]; }
+};
+
+// Z[k] of the chirp mode: a[k] conj(u[k]), u the second FFT's output
+struct ChirpBin {
+  const float2* u;
+  int s, g;
+  const float2* a;
+  __device__ __forceinline__ float2 operator()(int k) const {
+    const float2 v = u[padded(k, s, g)], c = a[k];
+    return make_float2(c.x * v.x + c.y * v.y, c.y * v.x - c.x * v.y);
+  }
+};
+
+// untangle the two real frames t and t + 1 from Z (N points) and write
+// their magnitude rows
+template <typename Bin>
+__device__ __forceinline__ void untangle(const Bin& bin, int N, float* __restrict__ out,
+                                         int t, int n_frames, int lane, int width) {
   const int n_bins = N / 2 + 1;
   float* row_a = out + static_cast<long long>(t) * n_bins;
   const bool has_b = t + 1 < n_frames;
-  for (int k = lane; k < n_bins; k += 32) {
-    const float2 za_k = src[padded(k, s, g)];
-    const float2 zy = src[padded(k == 0 ? 0 : N - k, s, g)];
+  for (int k = lane; k < n_bins; k += width) {
+    const float2 za_k = bin(k);
+    const float2 zy = bin(k == 0 ? 0 : N - k);
     const float pr = za_k.x + zy.x, pi = za_k.y - zy.y;  // 2 X_t[k]
     const float qr = za_k.y + zy.y, qi = za_k.x - zy.x;  // 2 |X_t+1[k]| parts
     row_a[k] = 0.5f * sqrtf(pr * pr + pi * pi);
     if (has_b) row_a[n_bins + k] = 0.5f * sqrtf(qr * qr + qi * qi);
   }
-  __syncwarp();  // the buffers are free for the next pair
+}
+
+// Transform frames t and t + 1, whose samples start at xa and xa + hop, and
+// write their magnitude rows. za and zb are the owner's exchange buffers;
+// chirp holds the chirp mode's tables (w a, a: n_fft each; B: M).
+template <bool BLOCK, bool R13, typename T>
+__device__ __forceinline__ void transform_pair(const T* xa, int hop, const float* win,
+                                               const float2* tw, const float2* chirp,
+                                               float2* za, float2* zb, const Plan& plan,
+                                               float* __restrict__ out, int t, int n_frames,
+                                               int lane, int width) {
+  const T* xb = xa + hop;
+  const int last = plan.n_passes - 1;  // its layout is read after the passes
+  if (!BLOCK || plan.chirp_n == 0) {
+    const float2* z = fft<BLOCK, R13>(PairLoad<T>{xa, xb, win}, za, zb, tw, plan, lane, width);
+    untangle(FftBin{z, plan.pad_s[last], plan.pad_g[last]}, plan.n, out, t, n_frames, lane,
+             width);
+  } else {
+    const int n_fft = plan.chirp_n;
+    float2* y =
+        fft<BLOCK, R13>(ChirpLoad<T>{xa, xb, chirp, n_fft}, za, zb, tw, plan, lane, width);
+    const int s = plan.pad_s[last], g = plan.pad_g[last];
+    float2* other = y == za ? zb : za;
+    const float2* u = fft<BLOCK, R13>(ProductLoad{y, s, g, chirp + 2 * n_fft}, other, y, tw,
+                                      plan, lane, width);
+    untangle(ChirpBin{u, s, g, chirp + n_fft}, n_fft, out, t, n_frames, lane, width);
+  }
+  fft_sync<BLOCK>();  // the buffers are free for the next pair
 }
 
 // 16-byte asynchronous copy from device to shared memory
@@ -414,23 +562,30 @@ __device__ __forceinline__ void stage(const T* __restrict__ audio, long long n_s
   async_commit();
 }
 
-template <typename T>
-__global__ void __launch_bounds__(MAX_WARPS * 32, 2)
+// BLOCK false: the warp layout, each warp transforms its own frame pairs of
+// a group (two span buffers always); true: the block layout, the whole
+// block transforms the group's pairs one after the other.
+template <typename T, bool BLOCK, bool R13>
+__global__ void __launch_bounds__(BLOCK ? MAX_BLOCK_THREADS : MAX_WARPS * 32, BLOCK ? 1 : 2)
 dft_mixed_kernel(const T* __restrict__ audio, long long n_samples,
                  const float* __restrict__ window, const float2* __restrict__ roots,
-                 float* __restrict__ out, int n_frames, int hop, int vec_ok,
-                 const Plan plan, const Layout lay) {
+                 const float2* __restrict__ chirp, float* __restrict__ out, int n_frames,
+                 int hop, int vec_ok, const Plan plan, const Layout lay) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Plan sp;  // read with the pass index, so from shared memory
-  float2* tw = reinterpret_cast<float2*>(smem);
-  float* win = reinterpret_cast<float*>(smem + lay.win_off);
+  const bool tables = !BLOCK || lay.tables;
+  float2* tw_s = reinterpret_cast<float2*>(smem);
+  float* win_s = reinterpret_cast<float*>(smem + lay.win_off);
+  const float2* tw = tables ? tw_s : roots;
+  const float* win = tables ? win_s : window;
   T* span = reinterpret_cast<T*>(smem + lay.span_off);
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int n_threads = blockDim.x;
-  float2* za = reinterpret_cast<float2*>(smem + lay.z_off) + 2 * warp * plan.zbuf;
+  const int lane = BLOCK ? tid : (tid & 31);
+  const int width = BLOCK ? n_threads : 32;
+  const int unit = BLOCK ? 0 : (tid >> 5);  // this thread's owner of frame pairs
+  float2* za = reinterpret_cast<float2*>(smem + lay.z_off) + 2 * unit * plan.zbuf;
   float2* zb = za + plan.zbuf;
 
   const int frames = lay.frames;
@@ -439,22 +594,16 @@ dft_mixed_kernel(const T* __restrict__ audio, long long n_samples,
     stage(audio, n_samples, span, lay.span_len,
           static_cast<long long>(blockIdx.x) * frames * hop, vec_ok, tid, n_threads);
   if (tid == 0) sp = plan;
-  for (int n = tid; n < plan.n; n += n_threads) win[n] = window[n];
-  __syncthreads();  // sp
-  // the roots as the passes read them: pass p's tw[r * jm * N / (Ns * R)]
-  // at [r - 1][jm], jm < Ns
-  for (int p = 1; p < sp.n_passes; ++p) {
-    const int R = sp.radix[p], ns = sp.ns[p], stride = sp.n / (ns * R);
-    for (int i = tid; i < (R - 1) * ns; i += n_threads) {
-      const int r = i / ns + 1, jm = i - (r - 1) * ns;
-      tw[sp.tw_off[p] + i] = roots[r * jm * stride];
-    }
+  if (tables) {
+    for (int i = tid; i < plan.tw_len; i += n_threads) tw_s[i] = roots[i];
+    if (plan.chirp_n == 0)
+      for (int n = tid; n < plan.n; n += n_threads) win_s[n] = window[n];
   }
 
   int cur = 0;
   for (int g = blockIdx.x; g < n_groups; g += gridDim.x) {
     const int next = g + gridDim.x;
-    if (next < n_groups) {
+    if ((!BLOCK || lay.spans == 2) && next < n_groups) {
       stage(audio, n_samples, span + (cur ^ 1) * lay.span_stride, lay.span_len,
             static_cast<long long>(next) * frames * hop, vec_ok, tid, n_threads);
       async_wait<1>();
@@ -462,41 +611,56 @@ dft_mixed_kernel(const T* __restrict__ audio, long long n_samples,
       async_wait<0>();
     }
     __syncthreads();  // group g's samples (and the tables) are in place
-    for (int pair = warp; pair < frames / 2; pair += lay.warps) {
+    for (int pair = unit; pair < frames / 2; pair += lay.units) {
       const int t = g * frames + 2 * pair;
-      if (t >= n_frames) break;  // the same for the whole warp
+      if (t >= n_frames) break;  // the same for every thread of the owner
       const T* xa = span + cur * lay.span_stride + 2 * pair * hop;
-      transform_pair(xa, hop, win, tw, za, zb, sp, out, t, n_frames, lane);
+      transform_pair<BLOCK, R13>(xa, hop, win, tw, chirp, za, zb, sp, out, t, n_frames, lane,
+                                 width);
     }
-    __syncthreads();  // every warp is done with this span buffer
-    cur ^= 1;
+    __syncthreads();  // every owner is done with this span buffer
+    if (!BLOCK || lay.spans == 2)
+      cur ^= 1;
+    else if (next < n_groups)
+      stage(audio, n_samples, span, lay.span_len, static_cast<long long>(next) * frames * hop,
+            vec_ok, tid, n_threads);
   }
 }
 
-// [P, R_1..R_P, s_1..s_P, g_1..g_P] -> Plan; nonzero when it is not a plan
-// of n_fft
-int make_plan(const int* packed, int n_fft, Plan* plan) {
+// [P, R_1..R_P, s_1..s_P, g_1..g_P] -> Plan of an FFT of the radices'
+// product: n_fft itself, or in the chirp mode an M from 2 n_fft - 1 to
+// MAX_N. Nonzero when it is not such a plan.
+int make_plan(const int* packed, int n_fft, bool chirp, Plan* plan) {
   const int P = packed[0];
   if (P < 1 || P > MAX_PASSES) return 1;
-  plan->n = n_fft;
+  long long prod = 1;
+  for (int p = 0; p < P; ++p) {
+    const int R = packed[1 + p];
+    if (R != 2 && R != 3 && R != 4 && R != 5 && R != 7 && R != 8 && R != 11 && R != 13 &&
+        R != 16)
+      return 1;
+    prod *= R;
+    if (prod > MAX_N) return 1;
+  }
+  if (chirp ? prod < 2LL * n_fft - 1 : prod != n_fft) return 1;
+  const int n = static_cast<int>(prod);
+  plan->n = n;
+  plan->chirp_n = chirp ? n_fft : 0;
   plan->n_passes = P;
-  int prod = 1, tw = 0, zbuf = 0;
+  int ns = 1, tw = 0, zbuf = 0;
   for (int p = 0; p < P; ++p) {
     const int R = packed[1 + p], s = packed[1 + P + p], g = packed[1 + 2 * P + p];
-    if (R != 2 && R != 3 && R != 4 && R != 5 && R != 7 && R != 8 && R != 11 && R != 16)
-      return 1;
     if (s < 0 || s > 16 || g < 0 || (s > 0 && g > s - 2) || (s == 0 && g != 0)) return 1;
     plan->radix[p] = R;
-    plan->ns[p] = prod;
+    plan->ns[p] = ns;
     plan->tw_off[p] = tw;
-    if (p > 0) tw += (R - 1) * prod;
-    prod *= R;
+    if (p > 0) tw += (R - 1) * ns;
+    ns *= R;
     plan->pad_s[p] = s ? s : NO_PAD;
     plan->pad_g[p] = g;
-    const int top = (n_fft - 1) + (((n_fft - 1) >> plan->pad_s[p]) << g) + 1;
+    const int top = (n - 1) + (((n - 1) >> plan->pad_s[p]) << g) + 1;
     zbuf = top > zbuf ? top : zbuf;
   }
-  if (prod != n_fft) return 1;
   plan->tw_len = tw;
   plan->zbuf = (zbuf + 1) & ~1;  // even: every buffer 16-byte aligned
   return 0;
@@ -504,93 +668,162 @@ int make_plan(const int* packed, int n_fft, Plan* plan) {
 
 int round16(int bytes) { return (bytes + 15) & ~15; }
 
-// The block's shape for this plan, hop and sample size: of 8, 4, 2 or 1
-// warps and 1, 2 or 4 frame pairs a warp per group, the one that keeps the
-// most warps resident on an SM (at most 16: __launch_bounds__ gives each
-// thread up to 128 registers), then the most frames a group.
+// Fill in the offsets and size of `lay` (block, threads, units, frames,
+// spans and tables set) for this plan, hop and sample size.
+void size_layout(const Plan& plan, int hop, int elem, Layout* lay) {
+  const int frame_len = plan.chirp_n ? plan.chirp_n : plan.n;  // samples a frame
+  const int win_bytes = plan.chirp_n ? 0 : 4 * plan.n;
+  lay->span_len = (lay->frames - 1) * hop + frame_len;
+  lay->span_stride = round16(lay->span_len * elem) / elem;
+  lay->win_off = lay->tables ? plan.tw_len * 8 : 0;
+  lay->z_off = lay->tables ? round16(lay->win_off + win_bytes) : 0;
+  lay->span_off = lay->z_off + lay->units * 2 * plan.zbuf * 8;
+  lay->bytes = lay->span_off + lay->spans * lay->span_stride * elem;
+}
+
+// The block's shape for this plan, hop and sample size. The warp layout:
+// of 8, 4, 2 or 1 warps and 1, 2 or 4 frame pairs a warp per group, the
+// one that keeps the most warps resident on an SM (at most 16:
+// __launch_bounds__ gives each thread up to 128 registers), then the most
+// frames a group; taken when that is at least MIN_RESIDENT_WARPS. Else, and
+// always in the chirp mode, the block layout: a block of up to 512 threads,
+// as many as the passes' fewest butterflies (plan.n over its largest
+// radix) fill, with 1, 2 or 4 frame pairs a group; the most warps resident,
+// then two span buffers, then the tables in shared memory, then the most
+// frames.
 int choose_layout(const Plan& plan, int hop, int elem, Layout* best) {
   int device = 0, optin = 0, per_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
   const int reserved = 1024 + static_cast<int>(sizeof(Plan));  // per block
+  const int limit = optin - static_cast<int>(sizeof(Plan));
   int best_key = -1;
-  for (int warps = MAX_WARPS; warps >= 1; warps /= 2) {
-    for (int per_warp = 1; per_warp <= 4; per_warp *= 2) {
-      Layout lay;
-      lay.warps = warps;
-      lay.frames = 2 * warps * per_warp;
-      lay.span_len = (lay.frames - 1) * hop + plan.n;
-      lay.span_stride = round16(lay.span_len * elem) / elem;
-      lay.win_off = plan.tw_len * 8;
-      lay.z_off = round16(lay.win_off + 4 * plan.n);
-      lay.span_off = lay.z_off + warps * 2 * plan.zbuf * 8;
-      lay.bytes = lay.span_off + 2 * lay.span_stride * elem;
-      if (lay.bytes + static_cast<int>(sizeof(Plan)) > optin) continue;
-      int blocks = per_sm / (lay.bytes + reserved);
-      if (blocks > 16 / warps) blocks = 16 / warps;
-      const int key = blocks * warps * 64 + (lay.frames > 32 ? 0 : lay.frames);
-      if (blocks > 0 && key > best_key) {
-        best_key = key;
-        *best = lay;
+  if (plan.chirp_n == 0) {
+    for (int warps = MAX_WARPS; warps >= 1; warps /= 2) {
+      for (int per_warp = 1; per_warp <= 4; per_warp *= 2) {
+        Layout lay;
+        lay.block = 0;
+        lay.threads = 32 * warps;
+        lay.units = warps;
+        lay.frames = 2 * warps * per_warp;
+        lay.spans = 2;
+        lay.tables = 1;
+        size_layout(plan, hop, elem, &lay);
+        if (lay.bytes > limit) continue;
+        int blocks = per_sm / (lay.bytes + reserved);
+        if (blocks > 16 / warps) blocks = 16 / warps;
+        const int key = blocks * warps * 64 + (lay.frames > 32 ? 0 : lay.frames);
+        if (blocks * warps >= MIN_RESIDENT_WARPS && key > best_key) {
+          best_key = key;
+          *best = lay;
+        }
+      }
+    }
+    if (best_key >= 0) return 0;
+  }
+  int largest = 1;
+  for (int p = 0; p < plan.n_passes; ++p)
+    largest = plan.radix[p] > largest ? plan.radix[p] : largest;
+  int threads = (plan.n / largest + 31) / 32 * 32;
+  threads = threads < 32 ? 32 : threads > MAX_BLOCK_THREADS ? MAX_BLOCK_THREADS : threads;
+  for (int frames = 2; frames <= 8; frames *= 2) {
+    for (int spans = 1; spans <= 2; ++spans) {
+      for (int tables = 0; tables <= 1; ++tables) {
+        Layout lay;
+        lay.block = 1;
+        lay.threads = threads;
+        lay.units = 1;
+        lay.frames = frames;
+        lay.spans = spans;
+        lay.tables = tables;
+        size_layout(plan, hop, elem, &lay);
+        if (lay.bytes > limit) continue;
+        int blocks = per_sm / (lay.bytes + reserved);
+        const int by_regs = 65536 / (threads * 128), by_threads = 2048 / threads;
+        blocks = blocks < by_regs ? blocks : by_regs;
+        blocks = blocks < by_threads ? blocks : by_threads;
+        const int key = blocks * threads / 32 * 10000 + spans * 1000 + tables * 100 + frames;
+        if (blocks > 0 && key > best_key) {
+          best_key = key;
+          *best = lay;
+        }
       }
     }
   }
   return best_key < 0;
 }
 
-template <typename T>
-int launch(const void* audio, const float* window, const float* roots, const Plan& plan,
-           float* out, int n_frames, int hop, cudaStream_t s) {
-  Layout lay;
-  if (choose_layout(plan, hop, static_cast<int>(sizeof(T)), &lay))
-    return static_cast<int>(cudaErrorInvalidConfiguration);
+template <typename T, bool BLOCK, bool R13>
+int run(const void* audio, const float* window, const float* roots, const float* chirp,
+        const Plan& plan, const Layout& lay, float* out, int n_frames, int hop,
+        cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
-      dft_mixed_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
+      dft_mixed_kernel<T, BLOCK, R13>, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   int device = 0, n_sm = 0, per_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dft_mixed_kernel<T>,
-                                                      lay.warps * 32, lay.bytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dft_mixed_kernel<T, BLOCK, R13>,
+                                                      lay.threads, lay.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int per = 16 / static_cast<int>(sizeof(T));
   const int vec_ok = reinterpret_cast<uintptr_t>(audio) % 16 == 0 && hop % per == 0;
-  const long long n_samples = static_cast<long long>(n_frames - 1) * hop + plan.n;
+  const int frame_len = plan.chirp_n ? plan.chirp_n : plan.n;
+  const long long n_samples = static_cast<long long>(n_frames - 1) * hop + frame_len;
   const int n_groups = (n_frames + lay.frames - 1) / lay.frames;
   const int grid = n_groups < per_sm * n_sm ? n_groups : per_sm * n_sm;
-  dft_mixed_kernel<T><<<grid, lay.warps * 32, lay.bytes, s>>>(
+  dft_mixed_kernel<T, BLOCK, R13><<<grid, lay.threads, lay.bytes, s>>>(
       static_cast<const T*>(audio), n_samples, window,
-      reinterpret_cast<const float2*>(roots), out, n_frames, hop, vec_ok, plan, lay);
+      reinterpret_cast<const float2*>(roots), reinterpret_cast<const float2*>(chirp), out,
+      n_frames, hop, vec_ok, plan, lay);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const void* audio, const float* window, const float* roots, const float* chirp,
+           const Plan& plan, float* out, int n_frames, int hop, cudaStream_t s) {
+  Layout lay;
+  if (choose_layout(plan, hop, static_cast<int>(sizeof(T)), &lay))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  bool r13 = false;
+  for (int p = 0; p < plan.n_passes; ++p) r13 = r13 || plan.radix[p] == 13;
+  if (lay.block)
+    return run<T, true, true>(audio, window, roots, chirp, plan, lay, out, n_frames, hop, s);
+  return r13 ? run<T, false, true>(audio, window, roots, chirp, plan, lay, out, n_frames, hop, s)
+             : run<T, false, false>(audio, window, roots, chirp, plan, lay, out, n_frames, hop, s);
 }
 
 }  // namespace
 
 // audio: (n_frames - 1) * hop + n_fft samples of float32 (dtype 0), int16
-// (dtype 1) or uint8 mu-law codes (dtype 2); window: (n_fft,) float32;
-// roots: (n_fft, 2) float32 (cos, -sin)(2 pi m / n_fft); plan: host int32
-// [P, R_1..R_P, s_1..s_P, g_1..g_P] (ops/dft.py::_plan_array), the radices
-// multiplying to n_fft; out: (n_frames, n_fft/2 + 1) float32. n_fft from 2
-// to 2048, hop dividing it. Launches on `stream` and returns
-// cudaGetLastError().
+// (dtype 1) or uint8 mu-law codes (dtype 2); plan: host int32 [P, R_1..R_P,
+// s_1..s_P, g_1..g_P] (ops/dft.py::pack_plan); roots: the plan's roots of
+// unity in pass order, (tw_len, 2) float32 (ops/dft.py::pass_roots); out:
+// (n_frames, n_fft/2 + 1) float32; hop divides n_fft. With chirp null (the
+// FFT mode) the radices multiply to n_fft, from 2 to 8192, and window is
+// the (n_fft,) float32 window. Otherwise (the chirp mode, n_fft from 2 to
+// 4096) they multiply to an M >= 2 n_fft - 1, chirp is ops/dft.py::
+// chirp_tables' (2 n_fft + M, 2) float32 and window is not read. Launches
+// on `stream` and returns cudaGetLastError().
 extern "C" int orcai_dft_mixed(const void* audio, int dtype, const float* window,
-                               const float* roots, const int* plan, float* out,
-                               int n_frames, int n_fft, int hop, void* stream) {
-  if (n_fft < 2 || n_fft > MAX_N || hop < 1 || hop > n_fft || n_fft % hop != 0 ||
-      n_frames < 1 || plan == nullptr)
+                               const float* roots, const float* chirp, const int* plan,
+                               float* out, int n_frames, int n_fft, int hop, void* stream) {
+  const int max_n = chirp ? CHIRP_MAX_N : MAX_N;
+  if (n_fft < 2 || n_fft > max_n || hop < 1 || hop > n_fft || n_fft % hop != 0 ||
+      n_frames < 1 || plan == nullptr || (chirp == nullptr && window == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Plan p;
-  if (make_plan(plan, n_fft, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (make_plan(plan, n_fft, chirp != nullptr, &p)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(audio, window, roots, p, out, n_frames, hop, s);
+      return launch<float>(audio, window, roots, chirp, p, out, n_frames, hop, s);
     case 1:
-      return launch<int16_t>(audio, window, roots, p, out, n_frames, hop, s);
+      return launch<int16_t>(audio, window, roots, chirp, p, out, n_frames, hop, s);
     case 2:
-      return launch<uint8_t>(audio, window, roots, p, out, n_frames, hop, s);
+      return launch<uint8_t>(audio, window, roots, chirp, p, out, n_frames, hop, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

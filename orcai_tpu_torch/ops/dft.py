@@ -5,25 +5,33 @@ Counterpart of orcai_tpu/ops/pallas_dft.py. The function is
 or uint8 mu-law audio (the mulaw8 wire's codes, decoded as
 ops/wire_codec.py::mulaw_decode_f32 does), at any n_fft that hop divides.
 
-`dft_magnitude` takes one of three CUDA routes for a CUDA tensor, chosen by
+`dft_magnitude` takes one of four CUDA routes for a CUDA tensor, chosen by
 n_fft alone (`dft_route`), and runs the plain PyTorch version,
 `dft_magnitude_plain`, for a CPU tensor:
 
-- the FFT route, csrc/dft_magnitude.cu, at n_fft in FFT_SIZES (512, the
-  reference geometry): a batched FFT in shared memory, two real frames on
-  one 512-point complex FFT (three radix-8 Stockham passes), untangled
+- "fft", csrc/dft_magnitude.cu, at n_fft in FFT_SIZES (512, the reference
+  geometry): a batched FFT in shared memory, two real frames on one
+  512-point complex FFT (three radix-8 Stockham passes), untangled
   afterwards. `_fft_pairs_reference` is that arithmetic step by step in
   PyTorch, with the kernel's tables (`fft_tables`) and index maps, so the
   algorithm is testable where no card is;
-- the mixed route, csrc/dft_mixed.cu, at every other n_fft up to
-  MIXED_MAX whose prime factors are all in MIXED_PRIMES (the spectral
-  wires' 384 and 352, and 256, 768, 704, 1024, 2048, ...): the same shape
-  with one Stockham pass per radix of `fft_plan(n_fft)` (16, 8, 4, 2, 3, 5,
-  7, 11). `_fft_mixed_reference` is its arithmetic step by step;
-- the GEMM route, csrc/dft_gemm.cu, at the n_fft neither FFT takes (a prime
-  factor of 13 or more, or above MIXED_MAX): the reference's own
-  algorithm, a tiled IEEE fp32 GEMM of the frames, read straight from the
-  audio, with the window-folded cos/sin matrices (`windowed_dft_mats`).
+- "mixed", csrc/dft_mixed.cu, at every other n_fft from 2 to MIXED_MAX
+  (8192) whose prime factors are all in MIXED_PRIMES (the spectral wires'
+  384 and 352, 416, 1024, 2048, 4096, 8192, ...): the same shape with one
+  Stockham pass per radix of `fft_plan(n_fft)` (16, 8, 4, 2, 3, 5, 7, 11,
+  13), each warp owning a frame pair where four warps fit on an SM (up to
+  2048 at the usual hops) and the whole block owning one otherwise.
+  `_fft_mixed_reference` is its arithmetic step by step;
+- "chirp", the same kernel's chirp-z (Bluestein) mode, at every other
+  n_fft from 2 to CHIRP_MAX (4096), those with a prime factor of 17 or
+  more: the DFT as a circular convolution of length `chirp_length(n_fft)`
+  (a smooth M >= 2 n_fft - 1 whose passes move the fewest values) with the
+  tables of `chirp_tables`. `_chirp_reference` is its arithmetic step by
+  step;
+- "gemm", csrc/dft_gemm.cu, at what is left (a smooth n_fft above 8192,
+  any other above 4096): the reference's own algorithm, a tiled IEEE fp32
+  GEMM of the frames, read straight from the audio, with the window-folded
+  cos/sin matrices (`windowed_dft_mats`).
 
 The plain version computes the reference's GEMM with torch.matmul.
 `dft_magnitude.launches` counts every kernel launch and
@@ -42,9 +50,10 @@ from orcai_tpu_torch.ops import _build
 from orcai_tpu_torch.ops.wire_codec import mulaw_decode_f32
 
 FFT_SIZES = (512,)  # the sizes csrc/dft_magnitude.cu is instantiated for
-MIXED_PRIMES = (2, 3, 5, 7, 11)  # csrc/dft_mixed.cu's radices: these and 4, 8, 16
-MIXED_MAX = 2048  # the largest n_fft of the mixed route (its shared memory)
-ROUTES = ("fft", "mixed", "gemm")
+MIXED_PRIMES = (2, 3, 5, 7, 11, 13)  # csrc/dft_mixed.cu's radices: these and 4, 8, 16
+MIXED_MAX = 8192  # the largest FFT of csrc/dft_mixed.cu (two buffers of it in shared memory)
+CHIRP_MAX = 4096  # the largest n_fft of the chirp mode: its M stays within MIXED_MAX
+ROUTES = ("fft", "mixed", "chirp", "gemm")
 _DTYPE_CODES = {torch.float32: 0, torch.int16: 1, torch.uint8: 2}  # the kernels' dtype
 _RADIX = 8
 _SQRT_HALF = float(np.float32(np.sqrt(0.5)))
@@ -90,15 +99,21 @@ def windowed_dft_mats(window: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
 
 @lru_cache(maxsize=None)
+def roots_of_unity(n: int) -> np.ndarray:
+    """tw[m] = (cos, -sin)(2 pi m / n), (n, 2), computed in float64 and
+    rounded once to float32. Read-only."""
+    ang = 2.0 * np.pi * np.arange(n) / n
+    tw = np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+    tw.setflags(write=False)
+    return tw
+
+
+@lru_cache(maxsize=None)
 def _tables_cached(window_bytes: bytes) -> tuple[np.ndarray, np.ndarray]:
     w = np.frombuffer(window_bytes, dtype=np.float64)
-    n_fft = w.shape[0]
-    ang = 2.0 * np.pi * np.arange(n_fft) / n_fft
-    tw = np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
     win = w.astype(np.float32)
-    tw.setflags(write=False)
     win.setflags(write=False)
-    return win, tw
+    return win, roots_of_unity(w.shape[0])
 
 
 def fft_tables(window: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -106,20 +121,6 @@ def fft_tables(window: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     tw[m] = (cos, -sin)(2 pi m / n_fft), (n_fft, 2), both computed in
     float64 and rounded once to float32. Read-only."""
     return _tables_cached(np.asarray(window, dtype=np.float64).tobytes())
-
-
-@lru_cache(maxsize=None)
-def _tables_on_device(window_bytes: bytes, device: torch.device):
-    """The FFT kernel's tables for this window as tensors on `device`,
-    uploaded once (6 KB for n_fft 512) and kept."""
-    return tuple(torch.from_numpy(a.copy()).to(device) for a in _tables_cached(window_bytes))
-
-
-@lru_cache(maxsize=None)
-def _mats_on_device(window_bytes: bytes, device: torch.device):
-    """The GEMM kernel's window-folded C, S for this window on `device`,
-    uploaded once (0.6 MB for n_fft 384) and kept."""
-    return tuple(torch.from_numpy(a.copy()).to(device) for a in _mats_cached(window_bytes))
 
 
 def _to_f32(padded: torch.Tensor) -> torch.Tensor:
@@ -188,6 +189,29 @@ def _fft8(re: list, im: list) -> tuple[list, list]:
     return out_r, out_i
 
 
+def _pair_frames(padded: torch.Tensor, n_fft: int, hop: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Frames t (t even) and t + 1 of the float32 samples as two
+    (ceil(T/2), n_fft) tensors; a phantom last frame of an odd count is
+    zeros."""
+    frames = _to_f32(padded).unfold(0, n_fft, hop)  # (tpad, n_fft) view
+    if frames.shape[0] % 2:
+        frames = torch.cat([frames, torch.zeros(1, n_fft)])
+    return frames[0::2], frames[1::2]
+
+
+def _untangle(zr: torch.Tensor, zi: torch.Tensor, n_fft: int, tpad: int) -> torch.Tensor:
+    """X_t[k] = (Z[k] + conj Z[(N-k) % N]) / 2 and X_t+1[k] = (Z[k] - conj
+    Z[(N-k) % N]) / 2i for k <= N/2, and their magnitudes, interleaved back
+    into (tpad, N/2 + 1) rows; odd N works unchanged."""
+    k = torch.arange(n_fft // 2 + 1)
+    mirror = (n_fft - k) % n_fft
+    yr, yi = zr[:, mirror], zi[:, mirror]
+    zr, zi = zr[:, k], zi[:, k]
+    mag_a = 0.5 * torch.sqrt((zr + yr) ** 2 + (zi - yi) ** 2)
+    mag_b = 0.5 * torch.sqrt((zi + yi) ** 2 + (zr - yr) ** 2)
+    return torch.stack([mag_a, mag_b], dim=1).reshape(-1, n_fft // 2 + 1)[:tpad]
+
+
 def _fft_pairs_reference(
     padded: torch.Tensor, window: np.ndarray, *, n_fft: int, hop: int
 ) -> torch.Tensor:
@@ -205,11 +229,8 @@ def _fft_pairs_reference(
         raise ValueError(f"n_fft {n_fft} not supported; supported sizes: {FFT_SIZES}")
     tpad = _frames_count(padded.shape[0], n_fft, hop)
     win, tw = (torch.from_numpy(a.copy()) for a in fft_tables(_check_window(window, n_fft)))
-    frames = _to_f32(padded).unfold(0, n_fft, hop)  # (tpad, n_fft) view
-    if tpad % 2:
-        frames = torch.cat([frames, torch.zeros(1, n_fft)])
-    zr = frames[0::2] * win
-    zi = frames[1::2] * win
+    xa, xb = _pair_frames(padded, n_fft, hop)
+    zr, zi = xa * win, xb * win
     n_butterflies = n_fft // _RADIX
     j = torch.arange(n_butterflies)
     ns = 1
@@ -230,21 +251,24 @@ def _fft_pairs_reference(
             zr[:, j0 + r * ns] = out_r[r]
             zi[:, j0 + r * ns] = out_i[r]
         ns *= _RADIX
-    k = torch.arange(n_fft // 2 + 1)
-    mirror = (n_fft - k) % n_fft
-    yr, yi = zr[:, mirror], zi[:, mirror]
-    zr, zi = zr[:, k], zi[:, k]
-    mag_a = 0.5 * torch.sqrt((zr + yr) ** 2 + (zi - yi) ** 2)
-    mag_b = 0.5 * torch.sqrt((zi + yi) ** 2 + (zr - yr) ** 2)
-    return torch.stack([mag_a, mag_b], dim=1).reshape(-1, n_fft // 2 + 1)[:tpad]
+    return _untangle(zr, zi, n_fft, tpad)
+
+
+def _smooth(n: int) -> bool:
+    """Every prime factor of n is in MIXED_PRIMES."""
+    for r in MIXED_PRIMES:
+        while n % r == 0:
+            n //= r
+    return n == 1
 
 
 def fft_plan(n_fft: int) -> tuple[int, ...]:
     """The mixed route's radices for n_fft, in the order its Stockham passes
     run: the power-of-two part 2^a in the fewest passes of radix at most 16,
-    split as evenly as possible with the larger radices first, then 3, 5, 7
-    and 11 (384 -> 16, 8, 3; 352 -> 8, 4, 11; 1024 -> 16, 8, 8). Raises for
-    an n_fft the route does not take."""
+    split as evenly as possible with the larger radices first, then 3, 5, 7,
+    11 and 13 (384 -> 16, 8, 3; 352 -> 8, 4, 11; 416 -> 8, 4, 13; 1024 ->
+    16, 8, 8; 8192 -> 16, 8, 8, 8). Raises for an n_fft the route does not
+    take."""
     if not 2 <= n_fft <= MIXED_MAX:
         raise ValueError(f"n_fft {n_fft}: the mixed route takes 2 to {MIXED_MAX}")
     n, a = n_fft, 0
@@ -332,39 +356,26 @@ def _dft_small(radix: int, re: list, im: list) -> tuple[list, list]:
     return out_r, out_i
 
 
-def _fft_mixed_reference(
-    padded: torch.Tensor, window: np.ndarray, *, n_fft: int, hop: int
-) -> torch.Tensor:
-    """csrc/dft_mixed.cu's arithmetic, pass by pass, in float32 PyTorch.
-
-    Frames t and t+1 (t even) become one complex signal z = w*x_t + i*w*x_t+1.
-    Its n_fft-point FFT runs one Stockham pass per radix R of fft_plan(n_fft),
-    Ns the product of the earlier radices: butterfly j < n_fft/R reads
-    z[j + r*n_fft/R], r = 0..R-1, multiplies by tw[r * (j % Ns) * n_fft /
-    (Ns*R)] (tw from fft_tables), takes an R-point DFT (`_dft_small`) and
+def _stockham(zr: torch.Tensor, zi: torch.Tensor, plan: tuple[int, ...],
+              tw: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The complex FFT of each row of zr + i zi (n = prod(plan) points) as
+    csrc/dft_mixed.cu's passes: one Stockham pass per radix R of `plan`, Ns
+    the product of the earlier radices. Butterfly j < n/R reads z[j + r*n/R],
+    r = 0..R-1, multiplies by tw[r * (j % Ns) * n / (Ns*R)] (tw: the n roots
+    of unity, `roots_of_unity`), takes an R-point DFT (`_dft_small`) and
     writes z'[(j // Ns) * Ns*R + j % Ns + r*Ns], which leaves the last pass
-    in natural order. Then X_t[k] = (Z[k] + conj Z[(N-k) % N]) / 2 and
-    X_t+1[k] = (Z[k] - conj Z[(N-k) % N]) / 2i for k <= N/2, and the
-    magnitudes; odd N works unchanged.
-    """
-    plan = fft_plan(n_fft)
-    tpad = _frames_count(padded.shape[0], n_fft, hop)
-    win, tw = (torch.from_numpy(a.copy()) for a in fft_tables(_check_window(window, n_fft)))
-    frames = _to_f32(padded).unfold(0, n_fft, hop)  # (tpad, n_fft) view
-    if tpad % 2:
-        frames = torch.cat([frames, torch.zeros(1, n_fft)])
-    zr = frames[0::2] * win
-    zi = frames[1::2] * win
+    in natural order."""
+    n = zr.shape[1]
     ns = 1
     for radix in plan:
-        nb = n_fft // radix
+        nb = n // radix
         j = torch.arange(nb)
         jm = j % ns
         in_r, in_i = [], []
         for r in range(radix):
             vr, vi = zr[:, j + r * nb], zi[:, j + r * nb]
             if ns > 1 and r > 0:
-                t = tw[r * jm * (n_fft // (ns * radix))]
+                t = tw[r * jm * (n // (ns * radix))]
                 vr, vi = vr * t[:, 0] - vi * t[:, 1], vr * t[:, 1] + vi * t[:, 0]
             in_r.append(vr)
             in_i.append(vi)
@@ -375,13 +386,101 @@ def _fft_mixed_reference(
             zr[:, base + r * ns] = out_r[r]
             zi[:, base + r * ns] = out_i[r]
         ns *= radix
-    k = torch.arange(n_fft // 2 + 1)
-    mirror = (n_fft - k) % n_fft
-    yr, yi = zr[:, mirror], zi[:, mirror]
-    zr, zi = zr[:, k], zi[:, k]
-    mag_a = 0.5 * torch.sqrt((zr + yr) ** 2 + (zi - yi) ** 2)
-    mag_b = 0.5 * torch.sqrt((zi + yi) ** 2 + (zr - yr) ** 2)
-    return torch.stack([mag_a, mag_b], dim=1).reshape(-1, n_fft // 2 + 1)[:tpad]
+    return zr, zi
+
+
+def _fft_mixed_reference(
+    padded: torch.Tensor, window: np.ndarray, *, n_fft: int, hop: int
+) -> torch.Tensor:
+    """csrc/dft_mixed.cu's arithmetic in its FFT mode, pass by pass, in
+    float32 PyTorch.
+
+    Frames t and t+1 (t even) become one complex signal z = w*x_t + i*w*x_t+1.
+    Its n_fft-point FFT runs the passes of fft_plan(n_fft) (`_stockham`, the
+    roots from fft_tables); then the untangle (`_untangle`) and the
+    magnitudes.
+    """
+    plan = fft_plan(n_fft)
+    tpad = _frames_count(padded.shape[0], n_fft, hop)
+    win, tw = (torch.from_numpy(a.copy()) for a in fft_tables(_check_window(window, n_fft)))
+    xa, xb = _pair_frames(padded, n_fft, hop)
+    zr, zi = _stockham(xa * win, xb * win, plan, tw)
+    return _untangle(zr, zi, n_fft, tpad)
+
+
+@lru_cache(maxsize=None)
+def chirp_length(n_fft: int) -> int:
+    """The chirp mode's convolution length: of the M from 2 n_fft - 1 to
+    min(4 n_fft, MIXED_MAX) whose prime factors are all in MIXED_PRIMES, the
+    one of least M * len(fft_plan(M)) (every pass moves M values through
+    shared memory), the smallest on a tie: 1088 -> 2197 = 13^3 (not 2178 =
+    2 * 3^2 * 11^2, five passes), 2038 -> 4096 (not 4095 = 3^2 * 5 * 7 * 13)."""
+    top = min(4 * n_fft, MIXED_MAX)
+    return min((m for m in range(2 * n_fft - 1, top + 1) if _smooth(m)),
+               key=lambda m: (m * len(fft_plan(m)), m))
+
+
+@lru_cache(maxsize=None)
+def _chirp_cached(window_bytes: bytes, m: int) -> np.ndarray:
+    w = np.frombuffer(window_bytes, dtype=np.float64)
+    n_fft = w.shape[0]
+    n = np.arange(n_fft, dtype=np.int64)
+    a = np.exp(-1j * np.pi * ((n * n) % (2 * n_fft)).astype(np.float64) / n_fft)
+    b = np.zeros(m, dtype=np.complex128)  # b[m] = conj a[|m|], circular
+    b[:n_fft] = np.conj(a)
+    b[m - n_fft + 1:] = np.conj(a[1:])[::-1]
+    table = np.concatenate([w * a, a, np.fft.fft(b) / m])
+    out = np.stack([table.real, table.imag], axis=1).astype(np.float32)
+    out.setflags(write=False)
+    return out
+
+
+def chirp_tables(window: np.ndarray, m: int | None = None) -> np.ndarray:
+    """The chirp mode's tables for an (n_fft,) window, (2 n_fft + M, 2)
+    float32 (re, im), M = m or chirp_length(n_fft): w a (n_fft), a (n_fft) and
+    B = FFT_M(b) / M (M), a[n] = exp(-i pi (n^2 mod 2 n_fft) / n_fft) from
+    n^2 mod 2 n_fft in int64 and the angle in float64, b[m] = conj a[|m|]
+    zero-padded circularly to M, B its float64 FFT; every value computed in
+    float64 and rounded once. Read-only."""
+    window = np.asarray(window, dtype=np.float64)
+    m = m or chirp_length(window.shape[0])
+    if m < 2 * window.shape[0] - 1:
+        raise ValueError(f"chirp length {m} is below 2 n_fft - 1 = {2 * window.shape[0] - 1}")
+    return _chirp_cached(window.tobytes(), m)
+
+
+def _chirp_reference(
+    padded: torch.Tensor, window: np.ndarray, *, n_fft: int, hop: int
+) -> torch.Tensor:
+    """csrc/dft_mixed.cu's arithmetic in its chirp mode (Bluestein), pass by
+    pass, in float32 PyTorch.
+
+    With M = chirp_length(n_fft) and the tables wa, a, B of chirp_tables:
+    frames t and t+1 (t even) become z = wa[n] (x_t + i x_t+1)[n] for
+    n < n_fft, zeros up to M; its M-point FFT Y by the passes of fft_plan(M)
+    (`_stockham`, the M roots of unity); conj(Y B) (B carries the 1/M of the
+    inverse) through the same forward FFT, u; Z[k] = a[k] conj u[k], the
+    n_fft-point DFT of z / wa * w; then the untangle and the magnitudes.
+    """
+    tpad = _frames_count(padded.shape[0], n_fft, hop)
+    m = chirp_length(n_fft)
+    plan = fft_plan(m)
+    table = torch.from_numpy(chirp_tables(_check_window(window, n_fft)).copy())
+    wa, a, bq = table[:n_fft], table[n_fft:2 * n_fft], table[2 * n_fft:]
+    tw = torch.from_numpy(roots_of_unity(m).copy())
+    xa, xb = _pair_frames(padded, n_fft, hop)
+    zr = torch.zeros(xa.shape[0], m)
+    zi = torch.zeros(xa.shape[0], m)
+    zr[:, :n_fft] = wa[:, 0] * xa - wa[:, 1] * xb
+    zi[:, :n_fft] = wa[:, 0] * xb + wa[:, 1] * xa
+    yr, yi = _stockham(zr, zi, plan, tw)
+    vr = yr * bq[:, 0] - yi * bq[:, 1]
+    vi = -(yr * bq[:, 1] + yi * bq[:, 0])
+    ur, ui = _stockham(vr, vi, plan, tw)
+    ur, ui = ur[:, :n_fft], ui[:, :n_fft]
+    zr = a[:, 0] * ur + a[:, 1] * ui
+    zi = a[:, 1] * ur - a[:, 0] * ui
+    return _untangle(zr, zi, n_fft, tpad)
 
 
 # exchange layouts a + ((a >> s) << g); (0, 0) leaves a as it is
@@ -453,9 +552,47 @@ def pack_plan(plan: tuple[int, ...], pads: tuple[tuple[int, int], ...]):
 
 
 @lru_cache(maxsize=None)
-def _plan_array(n_fft: int):
-    """fft_plan(n_fft) with exchange_pads(n_fft), packed (pack_plan)."""
-    return pack_plan(fft_plan(n_fft), exchange_pads(n_fft))
+def _plan_array(n: int):
+    """fft_plan(n) with exchange_pads(n), packed (pack_plan)."""
+    return pack_plan(fft_plan(n), exchange_pads(n))
+
+
+@lru_cache(maxsize=None)
+def pass_roots(n: int, plan: tuple[int, ...]) -> np.ndarray:
+    """The roots of unity of an n-point FFT in the order csrc/dft_mixed.cu's
+    passes read them: for each pass p > 0 of radix R, Ns the product of the
+    earlier radices, tw[r * jm * n / (Ns*R)] at [r - 1][jm], r = 1..R-1,
+    jm < Ns (tw = roots_of_unity(n)); (sum of (R-1) Ns, 2) float32, one
+    unread row for a one-pass plan. Read-only."""
+    tw, parts, ns = roots_of_unity(n), [], plan[0]
+    for radix in plan[1:]:
+        r, jm = np.arange(1, radix)[:, None], np.arange(ns)[None, :]
+        parts.append(tw[(r * jm * (n // (ns * radix))).reshape(-1)])
+        ns *= radix
+    table = np.concatenate(parts) if parts else np.zeros((1, 2), np.float32)
+    table.setflags(write=False)
+    return table
+
+
+@lru_cache(maxsize=None)
+def _route_tables(route: str, window_bytes: bytes, device: torch.device):
+    """A route's two tables for this window as tensors on `device`, uploaded
+    once and kept: the FFT route's window and roots of unity (fft_tables),
+    the mixed route's window and pass-ordered roots (pass_roots), the chirp
+    route's chirp_tables and the pass-ordered roots of its M, the GEMM
+    route's window-folded C and S (windowed_dft_mats, 0.6 MB at n_fft
+    384)."""
+    n_fft = len(window_bytes) // 8
+    if route == "gemm":
+        arrays = _mats_cached(window_bytes)
+    elif route == "fft":
+        arrays = _tables_cached(window_bytes)
+    elif route == "mixed":
+        arrays = (_tables_cached(window_bytes)[0], pass_roots(n_fft, fft_plan(n_fft)))
+    else:
+        m = chirp_length(n_fft)
+        arrays = (_chirp_cached(window_bytes, m), pass_roots(m, fft_plan(m)))
+    return tuple(torch.from_numpy(a.copy()).to(device) for a in arrays)
 
 
 @lru_cache(maxsize=None)
@@ -463,15 +600,20 @@ def _kernel(route: str):
     """The C entry point of a route's library, returning a CUDA error code.
     FFT and GEMM: (audio, dtype, table_a, table_b, out, n_frames, n_fft, hop,
     stream), the FFT route's tables the window and the roots of unity, the
-    GEMM route's the window-folded C and S. Mixed: (audio, dtype, window,
-    roots, plan, out, n_frames, n_fft, hop, stream), plan from _plan_array."""
+    GEMM route's the window-folded C and S. Mixed and chirp, one entry point
+    (csrc/dft_mixed.cu): (audio, dtype, window, roots, chirp, plan, out,
+    n_frames, n_fft, hop, stream), roots from pass_roots, chirp from
+    chirp_tables (null for the mixed route, whose plan is of n_fft; the
+    chirp route's is of chirp_length(n_fft) and its window is not read),
+    plan from _plan_array."""
     lib, name = {"fft": ("dft_magnitude", "orcai_dft_magnitude"),
                  "mixed": ("dft_mixed", "orcai_dft_mixed"),
+                 "chirp": ("dft_mixed", "orcai_dft_mixed"),
                  "gemm": ("dft_gemm", "orcai_dft_gemm")}[route]
     fn = getattr(_build.load(lib), name)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    plan = [ctypes.POINTER(ctypes.c_int)] if route == "mixed" else []
-    fn.argtypes = [ptr, i32, ptr, ptr, *plan, ptr, i32, i32, i32, ptr]
+    chirp = [ptr, ctypes.POINTER(ctypes.c_int)] if lib == "dft_mixed" else []
+    fn.argtypes = [ptr, i32, ptr, ptr, *chirp, ptr, i32, i32, i32, ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -479,14 +621,13 @@ def _kernel(route: str):
 def dft_route(n_fft: int) -> str:
     """The CUDA route of an n_fft: "fft" for FFT_SIZES; "mixed" for any
     other n_fft from 2 to MIXED_MAX whose prime factors are in MIXED_PRIMES;
-    "gemm" otherwise."""
+    "chirp" for any other n_fft from 2 to CHIRP_MAX; "gemm" otherwise (a
+    smooth n_fft above MIXED_MAX, any other above CHIRP_MAX)."""
     if n_fft in FFT_SIZES:
         return "fft"
-    try:
-        fft_plan(n_fft)
-    except ValueError:
-        return "gemm"
-    return "mixed"
+    if 2 <= n_fft <= MIXED_MAX and _smooth(n_fft):
+        return "mixed"
+    return "chirp" if 2 <= n_fft <= CHIRP_MAX else "gemm"
 
 
 def dft_magnitude(
@@ -514,15 +655,19 @@ def dft_magnitude(
     if padded.device.type != "cuda":
         raise ValueError(f"dft_magnitude: unsupported device {padded.device}")
     route = dft_route(n_fft)
-    tables = _mats_on_device if route == "gemm" else _tables_on_device
-    a, b = tables(window.tobytes(), padded.device)
-    plan = (_plan_array(n_fft),) if route == "mixed" else ()
+    a, b = _route_tables(route, window.tobytes(), padded.device)
+    if route == "mixed":
+        tables = (a.data_ptr(), b.data_ptr(), None, _plan_array(n_fft))
+    elif route == "chirp":
+        tables = (None, b.data_ptr(), a.data_ptr(), _plan_array(chirp_length(n_fft)))
+    else:
+        tables = (a.data_ptr(), b.data_ptr())
     out = torch.empty((tpad, n_fft // 2 + 1), dtype=torch.float32, device=padded.device)
     with torch.cuda.device(padded.device):
         stream = torch.cuda.current_stream(padded.device).cuda_stream
         err = _kernel(route)(
-            padded.data_ptr(), _DTYPE_CODES[padded.dtype], a.data_ptr(),
-            b.data_ptr(), *plan, out.data_ptr(), tpad, n_fft, hop, stream,
+            padded.data_ptr(), _DTYPE_CODES[padded.dtype], *tables, out.data_ptr(), tpad,
+            n_fft, hop, stream,
         )
     if err != 0:
         raise RuntimeError(

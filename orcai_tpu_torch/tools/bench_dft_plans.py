@@ -1,4 +1,5 @@
-"""B1's mixed route on other plans and exchange layouts, on a CUDA device.
+"""B1's mixed route on other plans and exchange layouts, and its chirp mode
+on other convolution lengths, on a CUDA device.
 
     python -m orcai_tpu_torch.tools.bench_dft_plans [--frames 32768] [--iters 20] [--seed 0]
 
@@ -11,8 +12,12 @@ exchange layouts of exchange_pads), the same radices with no padding, and
 the radix-8 plan (8 as often as it divides, then one 4 or 2, then the odd
 primes) with its own layouts. They run in turns (a, b, c, c, b, a), each
 timed with CUDA events over --iters launches, and every output is held
-against the plain version (atol 2e-4). Prints one JSON line per size, then
-the card's name and power limit.
+against the plain version (atol 2e-4). The chirp mode (the same kernel)
+at 1088/544 and 2038/1019 the same way on three convolution lengths M:
+the default (ops/dft.py::chirp_length, the smooth M >= 2 n_fft - 1 whose
+passes move the fewest values), the smallest smooth M >= 2 n_fft - 1 and
+the power of two. Prints one JSON line per size, then the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import json
 import subprocess
 
 SIZES = ((384, 192), (352, 176), (768, 384), (1024, 256), (2048, 512))
+CHIRP_SIZES = ((1088, 544), (2038, 1019))
 SPIN_CYCLES = 8_000_000  # about 4 ms at an H100's clock
 
 
@@ -71,8 +77,8 @@ def main(argv=None) -> int:
     import torch
 
     from orcai_tpu_torch.ops.dft import (
-        _DTYPE_CODES, _kernel, _tables_on_device, dft_magnitude_plain, exchange_pads,
-        fft_plan, pack_plan)
+        _DTYPE_CODES, _kernel, _smooth, chirp_length, chirp_tables, dft_magnitude_plain,
+        exchange_pads, fft_plan, fft_tables, pack_plan, pass_roots)
     from orcai_tpu_torch.ops.frontend import hann_window
 
     if not torch.cuda.is_available():
@@ -81,29 +87,45 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     stream = torch.cuda.current_stream().cuda_stream
     frames = args.frames
-    for n_fft, hop in SIZES:
+
+    def on_device(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    for n_fft, hop in SIZES + CHIRP_SIZES:
         window = hann_window(n_fft)
-        win, roots = _tables_on_device(window.tobytes(), dev)
         n = (frames - 1) * hop + n_fft
         x = torch.from_numpy(rng.integers(-32768, 32768, n, dtype=np.int16)).to(dev)
         want = dft_magnitude_plain(x, window, n_fft=n_fft, hop=hop)
         out = torch.empty_like(want)
-        default, eights = fft_plan(n_fft), radix8_plan(n_fft)
-        variants = {
-            "default": (default, exchange_pads(n_fft)),
-            "default_unpadded": (default, ((0, 0),) * len(default)),
-            "radix8": (eights, exchange_pads(n_fft, eights)),
-        }
+        if (n_fft, hop) in CHIRP_SIZES:  # (FFT length, plan, layouts) of each variant
+            lengths = {"default": chirp_length(n_fft),
+                       "smallest": next(m for m in range(2 * n_fft - 1, 4 * n_fft)
+                                        if _smooth(m)),
+                       "power_of_two": 1 << (2 * n_fft - 2).bit_length()}
+            variants = {k: (m, fft_plan(m), exchange_pads(m)) for k, m in lengths.items()}
+        else:
+            default, eights = fft_plan(n_fft), radix8_plan(n_fft)
+            variants = {
+                "default": (n_fft, default, exchange_pads(n_fft)),
+                "default_unpadded": (n_fft, default, ((0, 0),) * len(default)),
+                "radix8": (n_fft, eights, exchange_pads(n_fft, eights)),
+            }
+        chirp = (n_fft, hop) in CHIRP_SIZES
         line = {"n_fft": n_fft, "hop": hop, "frames": frames, "dtype": "int16",
-                "plans": {k: {"radices": list(p), "pads": [list(x) for x in pads]}
-                          for k, (p, pads) in variants.items()},
+                "plans": {k: {"length": m, "radices": list(p), "pads": [list(x) for x in pads]}
+                          for k, (m, p, pads) in variants.items()},
                 "ms": {k: [] for k in variants}, "max_abs_err": {}}
-        packed = {k: pack_plan(p, pads) for k, (p, pads) in variants.items()}
+        packed = {k: pack_plan(p, pads) for k, (_, p, pads) in variants.items()}
+        roots = {k: on_device(pass_roots(m, p)) for k, (m, p, _) in variants.items()}
+        tables = {k: on_device(chirp_tables(window, m)) if chirp else None
+                  for k, (m, _, _) in variants.items()}
+        win = None if chirp else on_device(fft_tables(window)[0])
 
         def launch(name):
-            err = _kernel("mixed")(x.data_ptr(), _DTYPE_CODES[x.dtype], win.data_ptr(),
-                                   roots.data_ptr(), packed[name], out.data_ptr(), frames,
-                                   n_fft, hop, stream)
+            err = _kernel("mixed")(
+                x.data_ptr(), _DTYPE_CODES[x.dtype], None if chirp else win.data_ptr(),
+                roots[name].data_ptr(), tables[name].data_ptr() if chirp else None,
+                packed[name], out.data_ptr(), frames, n_fft, hop, stream)
             if err != 0:
                 raise RuntimeError(f"{n_fft}/{hop} {name}: CUDA error {err}")
 

@@ -29,20 +29,26 @@ from orcai_tpu_torch.ops import _build
 from orcai_tpu_torch.ops.dft import (
     _C16,
     _S16,
+    CHIRP_MAX,
     FFT_SIZES,
     MIXED_MAX,
+    _chirp_reference,
     _exchange_accesses,
     _fft_mixed_reference,
     _fft_pairs_reference,
     _odd_roots,
     _pad_address,
     _wavefronts,
+    chirp_length,
+    chirp_tables,
     dft_magnitude,
     dft_magnitude_plain,
     dft_route,
     exchange_pads,
     fft_plan,
     fft_tables,
+    pass_roots,
+    roots_of_unity,
     windowed_dft_mats,
 )
 from orcai_tpu_torch.ops.frontend import hann_window as port_hann_window
@@ -158,13 +164,15 @@ def test_dft_wrapper_validates_geometry():
 
 
 @pytest.mark.parametrize(
-    "n_fft,hop", [(1024, 256), (256, 128), (384, 128), (416, 208), (4096, 1024), (512, 256)])
+    "n_fft,hop", [(1024, 256), (256, 128), (384, 128), (416, 208), (4096, 1024), (512, 256),
+                  (1088, 544), (4352, 2176)])
 def test_dft_wrapper_names_supported_sizes(n_fft, hop):
     """Off the CPU every n_fft that hop divides has a kernel: 512 the FFT,
-    a {2, 3, 5, 7, 11}-smooth n_fft up to 2048 the mixed-radix FFT, any
-    other the GEMM. What no kernel takes raises and names what they take;
-    nothing routes it to the plain version."""
-    want = {512: "fft", 416: "gemm", 4096: "gemm"}.get(n_fft, "mixed")
+    a {2, 3, 5, 7, 11, 13}-smooth n_fft up to 8192 the mixed-radix FFT, any
+    other up to 4096 its chirp mode, the rest the GEMM. What no kernel takes
+    raises and names what they take; nothing routes it to the plain
+    version."""
+    want = {512: "fft", 1088: "chirp", 4352: "gemm"}.get(n_fft, "mixed")
     assert dft_route(n_fft) == want and dft_route(512) == "fft"
     for dtype in (torch.float64, torch.int32, torch.bool):
         x = torch.zeros(3 * hop + n_fft, dtype=dtype, device="meta")
@@ -265,37 +273,55 @@ MIXED_SIZES = [(384, 192), (352, 176), (768, 384), (704, 352), (1024, 256), (256
 
 
 def _smooth(n):
-    for p in (2, 3, 5, 7, 11):
+    for p in (2, 3, 5, 7, 11, 13):
         while n % p == 0:
             n //= p
     return n == 1
 
 
 def test_dft_route_and_fft_plan_cover_the_smooth_sizes():
-    """dft_route sends 512 to the FFT route, every other {2, 3, 5, 7,
-    11}-smooth n_fft from 2 to 2048 to the mixed route, and the rest (a
-    prime factor of 13 or more, or over 2048) to the GEMM; fft_plan's
-    radices multiply back to n_fft: the power-of-two part first, in the
-    fewest passes of radix 16 at most, split as evenly as possible with the
-    larger radices first, then the odd primes in ascending order."""
+    """dft_route sends 512 to the FFT route, every other {2, 3, 5, 7, 11,
+    13}-smooth n_fft from 2 to 8192 to the mixed route (416, 4096, 8192),
+    every other n_fft from 2 to 4096 to the chirp mode (a prime, 1088), and
+    the rest (a smooth n_fft above 8192, any other above 4096) to the GEMM;
+    fft_plan's radices multiply back to n_fft (for the chirp mode to its
+    convolution length, the least smooth M >= 2 n_fft - 1): the power-of-two
+    part first, in the fewest passes of radix 16 at most, split as evenly as
+    possible with the larger radices first, then the odd primes in
+    ascending order."""
     assert dft_route(512) == "fft"
-    for n in (384, 352, 768, 704, 1024, 256, 2048, 375):
+    for n in (384, 352, 768, 704, 1024, 256, 2048, 375, 416, 13, 4096, 8192):
         assert dft_route(n) == "mixed"
-    for n in (416, 4096, 13, 2 * 2048, 1, 2053):
+    for n in (1021, 1088, 2038, 17, 2053, 4093):
+        assert dft_route(n) == "chirp"
+    for n in (4352, 16384, 1, 4097, 2 * MIXED_MAX):
         assert dft_route(n) == "gemm"
-    mixed = [n for n in range(1, 4 * MIXED_MAX) if dft_route(n) == "mixed"]
+    assert MIXED_MAX == 8192 and CHIRP_MAX == 4096
+    routes = {n: dft_route(n) for n in range(1, 4 * MIXED_MAX)}
+    mixed = [n for n, r in routes.items() if r == "mixed"]
     assert mixed == [n for n in range(2, MIXED_MAX + 1) if _smooth(n) and n != 512]
-    for n in mixed + [512]:
+    chirp = [n for n, r in routes.items() if r == "chirp"]
+    assert chirp == [n for n in range(2, CHIRP_MAX + 1) if not _smooth(n)]
+    for n in mixed + [512] + [chirp_length(n) for n in chirp]:
         plan = fft_plan(n)
-        assert int(np.prod(plan)) == n and set(plan) <= {2, 3, 4, 5, 7, 8, 11, 16}
+        assert int(np.prod(plan)) == n and set(plan) <= {2, 3, 4, 5, 7, 8, 11, 13, 16}
         twos = [r for r in plan if r in (2, 4, 8, 16)]
         a = int(np.log2(np.prod(twos)))
         assert list(plan) == twos + sorted(r for r in plan if r not in twos)
         assert len(twos) == -(-a // 4) and twos == sorted(twos, reverse=True)
         assert not twos or twos[0] <= 2 * twos[-1]
+    for n in chirp:
+        m = chirp_length(n)
+        assert 2 * n - 1 <= m <= min(4 * n, MIXED_MAX) and _smooth(m)
+    for n in chirp[::37]:  # of the smooth lengths it may take, the fewest values moved
+        m = chirp_length(n)
+        for k in range(2 * n - 1, min(4 * n, MIXED_MAX) + 1):
+            assert not _smooth(k) or (m * len(fft_plan(m)), m) <= (k * len(fft_plan(k)), k)
+    assert chirp_length(1088) == 2197 and chirp_length(2038) == 4096
     assert fft_plan(384) == (16, 8, 3) and fft_plan(352) == (8, 4, 11)
     assert fft_plan(1024) == (16, 8, 8) and fft_plan(375) == (3, 5, 5, 5)
-    for n in (416, 4096, 1):
+    assert fft_plan(416) == (8, 4, 13) and fft_plan(8192) == (16, 8, 8, 8)
+    for n in (1088, 16384, 1):
         with pytest.raises(ValueError):
             fft_plan(n)
 
@@ -358,6 +384,118 @@ def test_fft_mixed_reference_is_no_farther_from_float64_than_the_gemm(n_fft, hop
     assert err_fft <= 2e-5
 
 
+NEW_SIZES = [(416, 208), (4096, 2048), (8192, 4096), (1088, 544), (2038, 1019), (1021, 1021)]
+
+
+def _reference(n_fft):
+    """The step-by-step arithmetic of the CUDA route that takes n_fft."""
+    return {"mixed": _fft_mixed_reference, "chirp": _chirp_reference}[dft_route(n_fft)]
+
+
+@pytest.mark.parametrize("n_fft,hop", NEW_SIZES)
+@pytest.mark.parametrize("dtype", ["f32", "int16", "uint8"])
+def test_mixed_and_chirp_references_at_the_new_sizes(n_fft, hop, dtype):
+    """The mixed route at 416 (8, 4, 13), 4096 and 8192 and the chirp mode
+    at 1088, 2038 and the prime 1021 (two Bluestein FFTs of the kernel's
+    passes with its chirp tables) against the Pallas kernel in interpret
+    mode, atol 2e-4, and no farther from numpy's float64 rfft than the plain
+    version (the framed fp32 GEMM), in float32, int16 and uint8."""
+    rng = np.random.default_rng(n_fft + hop)
+    tpad = 64 if n_fft < 8192 else 32
+    n = (tpad - 1) * hop + n_fft
+    pcm = rng.integers(-32768, 32768, n, dtype=np.int16)
+    padded = {"f32": (0.3 * rng.standard_normal(n)).astype(np.float32), "int16": pcm,
+              "uint8": mulaw_encode(pcm)}[dtype]
+    window = port_hann_window(n_fft)
+    x = torch.from_numpy(padded)
+    got = _reference(n_fft)(x, window, n_fft=n_fft, hop=hop)
+    assert got.shape == (tpad, n_fft // 2 + 1) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _pallas(padded, n_fft, hop, 32), atol=2e-4, rtol=0)
+    as_f64 = {"f32": padded.astype(np.float64), "int16": pcm / 32768.0,
+              "uint8": mulaw_decode_host(padded) / 32768.0}[dtype]
+    frames = np.lib.stride_tricks.sliding_window_view(as_f64, n_fft)[::hop] * window
+    want = np.abs(np.fft.rfft(frames, axis=1))
+    err = np.abs(got.numpy() - want).max()
+    err_plain = np.abs(dft_magnitude_plain(x, window, n_fft=n_fft, hop=hop).numpy() - want).max()
+    assert err <= err_plain, (err, err_plain)
+
+
+@pytest.mark.parametrize("n_fft,hop", [(1088, 544), (1021, 1021), (17, 17)])
+def test_chirp_reference_odd_count_and_codes(n_fft, hop):
+    """The chirp mode at an odd frame count (a phantom second frame of
+    zeros) against numpy's float64 rfft, atol 2e-4, and the codes through
+    it bit-equal to their host decode to int16."""
+    rng = np.random.default_rng(n_fft)
+    tpad = 37
+    pcm = rng.integers(-32768, 32768, (tpad - 1) * hop + n_fft, dtype=np.int16)
+    codes = mulaw_encode(pcm)
+    window = port_hann_window(n_fft)
+    got = _chirp_reference(torch.from_numpy(pcm), window, n_fft=n_fft, hop=hop)
+    frames = np.lib.stride_tricks.sliding_window_view(pcm / 32768.0, n_fft)[::hop] * window
+    np.testing.assert_allclose(got.numpy(), np.abs(np.fft.rfft(frames, axis=1)), atol=2e-4,
+                               rtol=0)
+    a = _chirp_reference(torch.from_numpy(codes), window, n_fft=n_fft, hop=hop)
+    b = _chirp_reference(torch.from_numpy(mulaw_decode_host(codes)), window, n_fft=n_fft,
+                         hop=hop)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_fft", [46349, 1088, 17])
+def test_chirp_tables_match_float64(n_fft):
+    """chirp_tables' a[n] = exp(-i pi (n^2 mod 2N) / N), w a and B =
+    FFT_M(b) / M are float64 values rounded once to float32, also at an N
+    (46349, past the chirp mode's sizes, with a power-of-two M) where n^2
+    overflows an int32 (where an int32 square would give other angles); in
+    float64 the rounded tables still give the DFT."""
+    window = port_hann_window(n_fft)
+    m = chirp_length(n_fft) if n_fft <= CHIRP_MAX else 1 << (2 * n_fft - 1).bit_length()
+    table = chirp_tables(window, m)
+    assert table.dtype == np.float32 and table.shape == (2 * n_fft + m, 2)
+    n = np.arange(n_fft, dtype=np.float64)  # n^2 exact in float64 below 2^53
+    a64 = np.exp(-1j * np.pi * np.fmod(n * n, 2.0 * n_fft) / n_fft)
+    got = table[:, 0] + 1j * table[:, 1].astype(np.complex128)
+    np.testing.assert_array_equal(table[:n_fft, 0], (window * a64).real.astype(np.float32))
+    np.testing.assert_array_equal(table[:n_fft, 1], (window * a64).imag.astype(np.float32))
+    np.testing.assert_array_equal(table[n_fft:2 * n_fft, 0], a64.real.astype(np.float32))
+    np.testing.assert_array_equal(table[n_fft:2 * n_fft, 1], a64.imag.astype(np.float32))
+    if (n_fft - 1) ** 2 > np.iinfo(np.int32).max:
+        with np.errstate(over="ignore"):
+            k32 = np.arange(n_fft, dtype=np.int32)
+            wrapped = np.exp(-1j * np.pi * ((k32 * k32) % (2 * n_fft)) / n_fft)
+        assert not np.allclose(wrapped.real.astype(np.float32), table[n_fft:2 * n_fft, 0])
+    b = np.zeros(m, np.complex128)
+    b[:n_fft] = np.conj(a64)
+    b[m - n_fft + 1:] = np.conj(a64[1:])[::-1]
+    big = np.fft.fft(b) / m
+    assert np.abs(got[2 * n_fft:] - big).max() <= 2.0 ** -24 * np.abs(big).max()
+    if n_fft < 4096:  # the Bluestein identity with the float32 tables, in float64
+        x = np.random.default_rng(0).standard_normal(n_fft)
+        z = np.zeros(m, np.complex128)
+        z[:n_fft] = got[:n_fft] * x
+        dft = got[n_fft:2 * n_fft] * np.fft.ifft(np.fft.fft(z) * got[2 * n_fft:] * m)[:n_fft]
+        want = np.fft.fft(window * x)
+        assert np.abs(dft - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("n", [384, 416, 4096, 2178, 13])
+def test_pass_roots_are_the_roots_each_pass_reads(n):
+    """pass_roots lays the n roots of unity out as the mixed kernel's passes
+    read them: for pass p > 0 of radix R after Ns points, tw[r jm n/(Ns R)]
+    at tw_off[p] + (r - 1) Ns + jm."""
+    plan = fft_plan(n)
+    tw = roots_of_unity(n)
+    table = pass_roots(n, plan)
+    off, ns = 0, plan[0]
+    for radix in plan[1:]:
+        for r in range(1, radix):
+            for jm in range(ns):
+                np.testing.assert_array_equal(table[off + (r - 1) * ns + jm],
+                                              tw[r * jm * (n // (ns * radix))])
+        off += (radix - 1) * ns
+        ns *= radix
+    assert len(table) == max(off, 1)
+
+
 def test_mixed_kernel_constants_are_the_reference_s():
     """The butterflies' float32 constants written in csrc/dft_mixed.cu (the
     odd radices' roots, radix 16's W16 twiddles) are those of the reference
@@ -370,7 +508,8 @@ def test_mixed_kernel_constants_are_the_reference_s():
         body = body[:body.index("return 0.0f;")]
         got = {(int(r), int(m)): np.float32(v) for r, m, v in re.findall(
             r"case (\d+) \* 16 \+ (\d+): return (-?[0-9.]+)f;", body)}
-        want = {(r, m + 1): v for r in (3, 5, 7, 11) for m, v in enumerate(_odd_roots(r)[col])}
+        want = {(r, m + 1): v for r in (3, 5, 7, 11, 13)
+                for m, v in enumerate(_odd_roots(r)[col])}
         assert got == want
     for name, want in (("wc", _C16), ("ws", _S16)):
         table = re.search(rf"const float {name}\[10\] = {{([^}}]*)}};", src).group(1)
@@ -381,9 +520,10 @@ def test_mixed_kernel_constants_are_the_reference_s():
 def test_exchange_pads_leave_no_bank_conflict_at_the_main_sizes():
     """The layouts the host picks for the mixed kernel's exchange buffers
     (a + ((a >> s) << g)) give each warp access its fewest shared-memory
-    wavefronts at 256, 384, 768, 1024 and 2048, within 10 % of that at 352
-    and 704, and never more than no padding."""
-    for n, slack in ((256, 0), (384, 0), (768, 0), (1024, 0), (2048, 0), (352, 0.1), (704, 0.1)):
+    wavefronts at 256, 384, 768, 1024, 2048, 4096 and 8192, within 10 % of
+    that at 352, 704 and 416, and never more than no padding."""
+    for n, slack in ((256, 0), (384, 0), (768, 0), (1024, 0), (2048, 0), (4096, 0), (8192, 0),
+                     (352, 0.1), (704, 0.1), (416, 0.1)):
         got = ideal = bare = 0
         for accesses, pad in zip(_exchange_accesses(n, fft_plan(n)), exchange_pads(n)):
             for addr in accesses:
