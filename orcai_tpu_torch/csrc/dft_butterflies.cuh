@@ -1,0 +1,209 @@
+// The butterflies and sample decoders that csrc/dft_mixed.cu and
+// csrc/dft_cluster.cu share: float32, int16 and uint8 mu-law samples as
+// float32, and R-point DFTs in registers for R = 2, 3, 4, 5, 7, 8, 11, 13,
+// 16 and 17, outputs in natural order. The odd radices' cos and sin and
+// radix 16's twiddles are float64 values rounded once to float32
+// (ops/dft.py::_odd_roots, _C16, _S16). Included in an anonymous
+// namespace of each kernel's source.
+
+#pragma once
+
+__device__ __forceinline__ float sample_to_f32(float v) { return v; }
+__device__ __forceinline__ float sample_to_f32(int16_t v) {
+  return static_cast<float>(v) * (1.0f / 32768.0f);
+}
+// a mu-law code (ops/wire_codec.py): sign = bit 7, e = bits 6:4, mant =
+// bits 3:0, m14 = ((2 mant + 33) << e) - 33, the sample +-(m14 << 2) as an
+// int16 value, scaled as int16 is
+__device__ __forceinline__ float sample_to_f32(uint8_t c) {
+  const int e = (c >> 4) & 7, mant = c & 15;
+  const int x16 = (((2 * mant + 33) << e) - 33) << 2;
+  return static_cast<float>((c & 0x80) ? -x16 : x16) * (1.0f / 32768.0f);
+}
+
+// cos and sin of 2 pi m / R for m = 1 .. (R - 1) / 2, float64 values rounded
+// once to float32 (ops/dft.py::_odd_roots)
+__device__ __forceinline__ float root_cos(int R, int m) {
+  switch (R * 16 + m) {
+    case 3 * 16 + 1: return -0.5f;
+    case 5 * 16 + 1: return 0.309017003f;
+    case 5 * 16 + 2: return -0.809017003f;
+    case 7 * 16 + 1: return 0.623489797f;
+    case 7 * 16 + 2: return -0.222520933f;
+    case 7 * 16 + 3: return -0.900968850f;
+    case 11 * 16 + 1: return 0.841253519f;
+    case 11 * 16 + 2: return 0.415415019f;
+    case 11 * 16 + 3: return -0.142314836f;
+    case 11 * 16 + 4: return -0.654860735f;
+    case 11 * 16 + 5: return -0.959492981f;
+    case 13 * 16 + 1: return 0.885456026f;
+    case 13 * 16 + 2: return 0.568064749f;
+    case 13 * 16 + 3: return 0.120536678f;
+    case 13 * 16 + 4: return -0.354604900f;
+    case 13 * 16 + 5: return -0.748510778f;
+    case 13 * 16 + 6: return -0.970941842f;
+    case 17 * 16 + 1: return 0.932472229f;
+    case 17 * 16 + 2: return 0.739008904f;
+    case 17 * 16 + 3: return 0.445738345f;
+    case 17 * 16 + 4: return 0.0922683626f;
+    case 17 * 16 + 5: return -0.273662984f;
+    case 17 * 16 + 6: return -0.602634609f;
+    case 17 * 16 + 7: return -0.850217164f;
+    case 17 * 16 + 8: return -0.982973099f;
+  }
+  return 0.0f;
+}
+__device__ __forceinline__ float root_sin(int R, int m) {
+  switch (R * 16 + m) {
+    case 3 * 16 + 1: return 0.866025388f;
+    case 5 * 16 + 1: return 0.951056540f;
+    case 5 * 16 + 2: return 0.587785244f;
+    case 7 * 16 + 1: return 0.781831503f;
+    case 7 * 16 + 2: return 0.974927902f;
+    case 7 * 16 + 3: return 0.433883727f;
+    case 11 * 16 + 1: return 0.540640831f;
+    case 11 * 16 + 2: return 0.909631968f;
+    case 11 * 16 + 3: return 0.989821434f;
+    case 11 * 16 + 4: return 0.755749583f;
+    case 11 * 16 + 5: return 0.281732559f;
+    case 13 * 16 + 1: return 0.464723170f;
+    case 13 * 16 + 2: return 0.822983861f;
+    case 13 * 16 + 3: return 0.992708862f;
+    case 13 * 16 + 4: return 0.935016215f;
+    case 13 * 16 + 5: return 0.663122654f;
+    case 13 * 16 + 6: return 0.239315659f;
+    case 17 * 16 + 1: return 0.361241668f;
+    case 17 * 16 + 2: return 0.673695624f;
+    case 17 * 16 + 3: return 0.895163298f;
+    case 17 * 16 + 4: return 0.995734155f;
+    case 17 * 16 + 5: return 0.961825669f;
+    case 17 * 16 + 6: return 0.798017204f;
+    case 17 * 16 + 7: return 0.526432157f;
+    case 17 * 16 + 8: return 0.183749512f;
+  }
+  return 0.0f;
+}
+
+// R-point DFTs in place, outputs in natural order
+
+__device__ __forceinline__ void dft(float (&re)[2], float (&im)[2]) {
+  const float r0 = re[0] + re[1], i0 = im[0] + im[1];
+  re[1] = re[0] - re[1];
+  im[1] = im[0] - im[1];
+  re[0] = r0;
+  im[0] = i0;
+}
+
+__device__ __forceinline__ void fft4(float& r0, float& i0, float& r1, float& i1,
+                                     float& r2, float& i2, float& r3, float& i3) {
+  const float s02r = r0 + r2, s02i = i0 + i2, d02r = r0 - r2, d02i = i0 - i2;
+  const float s13r = r1 + r3, s13i = i1 + i3, d13r = r1 - r3, d13i = i1 - i3;
+  r0 = s02r + s13r; i0 = s02i + s13i;
+  r1 = d02r + d13i; i1 = d02i - d13r;
+  r2 = s02r - s13r; i2 = s02i - s13i;
+  r3 = d02r - d13i; i3 = d02i + d13r;
+}
+
+__device__ __forceinline__ void dft(float (&re)[4], float (&im)[4]) {
+  fft4(re[0], im[0], re[1], im[1], re[2], im[2], re[3], im[3]);
+}
+
+// radix-2 on (n, n + 4), the W8 twiddles, two 4-point DFTs (the even and
+// the odd outputs), as dft_magnitude.cu's fft8 and ops/dft.py::_fft8
+__device__ __forceinline__ void dft(float (&re)[8], float (&im)[8]) {
+  constexpr float C = 0.70710678118654752440f;
+  float ar[4], ai[4], br[4], bi[4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    ar[n] = re[n] + re[n + 4]; ai[n] = im[n] + im[n + 4];
+    br[n] = re[n] - re[n + 4]; bi[n] = im[n] - im[n + 4];
+  }
+  {  // b[n] times W8^n
+    const float r1 = C * (br[1] + bi[1]), i1 = C * (bi[1] - br[1]);
+    const float r2 = bi[2], i2 = -br[2];
+    const float r3 = C * (bi[3] - br[3]), i3 = -C * (br[3] + bi[3]);
+    br[1] = r1; bi[1] = i1; br[2] = r2; bi[2] = i2; br[3] = r3; bi[3] = i3;
+  }
+  fft4(ar[0], ai[0], ar[1], ai[1], ar[2], ai[2], ar[3], ai[3]);
+  fft4(br[0], bi[0], br[1], bi[1], br[2], bi[2], br[3], bi[3]);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    re[2 * k] = ar[k]; im[2 * k] = ai[k];
+    re[2 * k + 1] = br[k]; im[2 * k + 1] = bi[k];
+  }
+}
+
+// 16 points as 4 x 4: a 4-point DFT over n1 of x[4 n1 + n2] for each n2,
+// times W16^(n2 k1), a 4-point DFT over n2 giving X[k1 + 4 k2]
+__device__ __forceinline__ void dft(float (&re)[16], float (&im)[16]) {
+  // cos and sin of 2 pi m / 16, float64 rounded once (ops/dft.py::_C16, _S16)
+  const float wc[10] = {1.0f, 0.923879504f, 0.707106769f, 0.382683426f, 0.0f, -0.382683426f, -0.707106769f, -0.923879504f, -1.0f, -0.923879504f};
+  const float ws[10] = {0.0f, 0.382683426f, 0.707106769f, 0.923879504f, 1.0f, 0.923879504f, 0.707106769f, 0.382683426f, 0.0f, -0.382683426f};
+  float ar[4][4], ai[4][4];  // [n2][k1]
+#pragma unroll
+  for (int n2 = 0; n2 < 4; ++n2) {
+#pragma unroll
+    for (int n1 = 0; n1 < 4; ++n1) {
+      ar[n2][n1] = re[4 * n1 + n2];
+      ai[n2][n1] = im[4 * n1 + n2];
+    }
+    fft4(ar[n2][0], ai[n2][0], ar[n2][1], ai[n2][1], ar[n2][2], ai[n2][2], ar[n2][3], ai[n2][3]);
+  }
+#pragma unroll
+  for (int n2 = 1; n2 < 4; ++n2) {
+#pragma unroll
+    for (int k1 = 1; k1 < 4; ++k1) {  // times exp(-2 pi i n2 k1 / 16)
+      const float c = wc[n2 * k1], s = ws[n2 * k1];
+      const float vr = ar[n2][k1] * c + ai[n2][k1] * s;
+      const float vi = ai[n2][k1] * c - ar[n2][k1] * s;
+      ar[n2][k1] = vr;
+      ai[n2][k1] = vi;
+    }
+  }
+#pragma unroll
+  for (int k1 = 0; k1 < 4; ++k1) {
+    fft4(ar[0][k1], ai[0][k1], ar[1][k1], ai[1][k1], ar[2][k1], ai[2][k1], ar[3][k1], ai[3][k1]);
+#pragma unroll
+    for (int k2 = 0; k2 < 4; ++k2) {
+      re[k1 + 4 * k2] = ar[k2][k1];
+      im[k1 + 4 * k2] = ai[k2][k1];
+    }
+  }
+}
+
+// odd R, over symmetric pairs: X[k] = A_k - i B_k, X[R-k] = A_k + i B_k with
+// A_k = x0 + sum_n cos(2 pi nk/R) (x_n + x_R-n), B_k = sum_n sin(2 pi nk/R)
+// (x_n - x_R-n), n = 1 .. (R-1)/2
+template <int R>
+__device__ __forceinline__ void dft(float (&re)[R], float (&im)[R]) {
+  constexpr int H = (R - 1) / 2;
+  float sr[H], si[H], dr[H], di[H];
+#pragma unroll
+  for (int n = 1; n <= H; ++n) {
+    sr[n - 1] = re[n] + re[R - n]; si[n - 1] = im[n] + im[R - n];
+    dr[n - 1] = re[n] - re[R - n]; di[n - 1] = im[n] - im[R - n];
+  }
+  const float x0r = re[0], x0i = im[0];
+  float o0r = x0r, o0i = x0i;
+#pragma unroll
+  for (int n = 0; n < H; ++n) {
+    o0r += sr[n];
+    o0i += si[n];
+  }
+#pragma unroll
+  for (int k = 1; k <= H; ++k) {
+    float ar = x0r, ai = x0i, br = 0.0f, bi = 0.0f;
+#pragma unroll
+    for (int n = 1; n <= H; ++n) {
+      const int m = n * k % R;
+      const float c = m <= H ? root_cos(R, m) : root_cos(R, R - m);
+      const float s = m <= H ? root_sin(R, m) : -root_sin(R, R - m);
+      ar += c * sr[n - 1]; ai += c * si[n - 1];
+      br += s * dr[n - 1]; bi += s * di[n - 1];
+    }
+    re[k] = ar + bi; im[k] = ai - br;
+    re[R - k] = ar - bi; im[R - k] = ai + br;
+  }
+  re[0] = o0r;
+  im[0] = o0i;
+}

@@ -5,23 +5,25 @@
 //
 // Replaces the TPU kernel orcai_tpu/ops/pallas_dft.py::dft_magnitude
 // (kernel _kernel) at the only sizes no FFT of this package takes: an n_fft
-// above 8192 whose prime factors are all in {2, 3, 5, 7, 11, 13} (16384),
-// and any other n_fft above 4096 (4352 = 2^8 * 17, 4097). dft_magnitude.cu
-// takes 512; dft_mixed.cu every other smooth n_fft up to 8192 and, in its
-// chirp-z mode, every other n_fft up to 4096 (its convolution length M >=
-// 2 n_fft - 1 must stay within 8192). The Pallas kernel sums n_fft/hop
-// partial MXU GEMMs over shifted hop-blocks, so the (T, n_fft) frames
-// matrix never reaches HBM; so does this one, and it decodes uint8 mu-law
-// codes where it loads them, as the Pallas kernel does.
+// above 32768 whose prime factors are all in {2, 3, 5, 7, 11, 13, 17}, and
+// any other n_fft above 16384 (16418 = 2 * 8209). dft_magnitude.cu takes
+// 512; dft_mixed.cu every other smooth n_fft up to 8192 and, in its chirp-z
+// mode, every other n_fft up to 4096; dft_cluster.cu the smooth n_fft up to
+// 32768 and, in its chirp-z mode, every other n_fft up to 16384 (its
+// convolution length M >= 2 n_fft - 1 must stay within 32768). The Pallas
+// kernel sums n_fft/hop partial MXU GEMMs over shifted hop-blocks, so the
+// (T, n_fft) frames matrix never reaches HBM; so does this one, and it
+// decodes uint8 mu-law codes where it loads them, as the Pallas kernel does.
 //
-// Bound on the card: operations, for this algorithm. An 11251-frame tile at
-// n_fft 4352 / hop 2176 is 4 * T * 4352 * 2177 = 426 GFLOP of fp32 FMA
-// against 49 MB in and 98 MB out (0.044 ms of bytes at 3.35 TB/s), about
-// 6.4 ms at the card's 67 TFLOP/s of fp32 outside the tensor cores. TF32
-// cannot hold the 2e-4 bar (the reference runs Precision.HIGHEST), so the
-// tensor cores are closed to it. An FFT needs far less; this route is the
-// simple kernel that is right for the sizes no FFT of this package takes,
-// none of which a wire or a default parameter file reaches.
+// Bound on the card: operations, for this algorithm. A 301-frame tile at
+// n_fft 16418 / hop 8209 is 4 * T * 16418 * 8210 = 162 GFLOP of fp32 FMA
+// against 5 MB in and 10 MB out (0.0044 ms of bytes at 3.35 TB/s), about
+// 2.4 ms at the card's 67 TFLOP/s of fp32 outside the tensor cores; a
+// 32768-frame tile would be 109 times that. TF32 cannot hold the 2e-4 bar
+// (the reference runs Precision.HIGHEST), so the tensor cores are closed to
+// it. An FFT needs far less; this route is the simple kernel that is right
+// for the sizes no FFT of this package takes, none of which a wire or a
+// default parameter file reaches.
 //
 // Design (the tiled kernel of the port's first B1, generalised): each
 // 256-thread block owns a 64-frame x 64-bin output tile and walks n in
@@ -75,11 +77,18 @@ dft_gemm_kernel(const T* __restrict__ audio, const float* __restrict__ C,
   const long long f0 = static_cast<long long>(blockIdx.x) * BM;
   const int b0 = blockIdx.y * BN;
 
-  float re[4][4], im[4][4];
+  // The sums over n: each BK-sample step sums its products into a partial
+  // (pre, pim), which is added to the running sum (re, im); the part of the
+  // partial that addition rounds away starts the next step's partial, so
+  // it is not lost (compensated summation: a single running fp32 sum over
+  // all n_fft products drifts by about eps * sqrt(n_fft) of the magnitude,
+  // past the 2e-4 bar at 16418). Without fast-math the compiler keeps the
+  // order.
+  float re[4][4], im[4][4], pre[4][4], pim[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) re[i][j] = im[i][j] = 0.0f;
+    for (int j = 0; j < 4; ++j) re[i][j] = im[i][j] = pre[i][j] = pim[i][j] = 0.0f;
 
   for (int k0 = 0; k0 < n_fft; k0 += BK) {
     // frames: each warp covers 8 consecutive samples x 4 frames
@@ -121,10 +130,20 @@ dft_gemm_kernel(const T* __restrict__ audio, const float* __restrict__ C,
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          re[i][j] = fmaf(av[i], cv[j], re[i][j]);
-          im[i][j] = fmaf(av[i], sv[j], im[i][j]);
+          pre[i][j] = fmaf(av[i], cv[j], pre[i][j]);
+          pim[i][j] = fmaf(av[i], sv[j], pim[i][j]);
         }
     }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float tr = re[i][j] + pre[i][j], ti = im[i][j] + pim[i][j];
+        pre[i][j] -= tr - re[i][j];
+        pim[i][j] -= ti - im[i][j];
+        re[i][j] = tr;
+        im[i][j] = ti;
+      }
     __syncthreads();
   }
 
@@ -135,8 +154,8 @@ dft_gemm_kernel(const T* __restrict__ audio, const float* __restrict__ C,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int bin = b0 + tx * 4 + j;
-      if (bin < n_bins)
-        out[frame * n_bins + bin] = sqrtf(re[i][j] * re[i][j] + im[i][j] * im[i][j]);
+      const float r = re[i][j] + pre[i][j], m = im[i][j] + pim[i][j];
+      if (bin < n_bins) out[frame * n_bins + bin] = sqrtf(r * r + m * m);
     }
   }
 }

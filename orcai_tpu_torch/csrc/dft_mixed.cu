@@ -1,21 +1,22 @@
 // Windowed rDFT magnitude of hop-framed audio at any n_fft from 2 to 8192
-// whose prime factors are all in {2, 3, 5, 7, 11, 13}, and, in its chirp-z
-// mode, at any other n_fft from 2 to 4096, straight from the padded samples:
-// out[t, k] = |sum_n w[n] x[t*hop + n] exp(-2 pi i n k / N)|, k = 0..N/2, as
-// a batched mixed-radix FFT in shared memory.
+// whose prime factors are all in {2, 3, 5, 7, 11, 13, 17}, and, in its
+// chirp-z mode, at any other n_fft from 2 to 4096, straight from the padded
+// samples: out[t, k] = |sum_n w[n] x[t*hop + n] exp(-2 pi i n k / N)|,
+// k = 0..N/2, as a batched mixed-radix FFT in shared memory.
 //
 // Replaces the TPU kernel orcai_tpu/ops/pallas_dft.py::dft_magnitude
 // (kernel _kernel) at the sizes the radix-8 FFT route (dft_magnitude.cu,
 // n_fft 512) does not take: the spectral wires' 384 / 192 (384 = 16*8*3)
 // and 352 / 176 (8*4*11), 768 and 704 for a parameter file at n_fft 1024,
-// 416 = 8*4*13, the 4096 and 8192 of recordings at 96-192 kHz, and in the
-// chirp mode every n_fft with a prime factor of 17 or more (1088, 2038,
-// primes) up to 4096. The Pallas kernel multiplies each frame by the
-// (N, N/2 + 1) DFT matrix because a TPU has a matrix unit and no FFT; an
-// IEEE fp32 GEMM on this card's CUDA cores needs 4 T N (N/2 + 1) FLOP, 1.1
-// TFLOP for a 32768-frame tile at 4096, where an FFT needs about
-// 5 N log2(N) / 2 a frame. dft_gemm.cu keeps only what this kernel does
-// not take: smooth n_fft above 8192 and any other n_fft above 4096.
+// 416 = 8*4*13, 1088 = 8*8*17, the 4096, 4352 = 16*16*17 and 8192 of
+// recordings at 96-192 kHz, and in the chirp mode every n_fft with a prime
+// factor above 17 (1216 = 2^6 * 19, 2038, primes) up to 4096. The Pallas
+// kernel multiplies each frame by the (N, N/2 + 1) DFT matrix because a
+// TPU has a matrix unit and no FFT; an IEEE fp32 GEMM on this card's CUDA
+// cores needs 4 T N (N/2 + 1) FLOP, 1.1 TFLOP for a 32768-frame tile at
+// 4096, where an FFT needs about 5 N log2(N) / 2 a frame. Larger sizes go
+// to dft_cluster.cu (a frame pair across a cluster of CTAs, up to 32768,
+// and its chirp mode up to 16384); dft_gemm.cu keeps what neither takes.
 //
 // Bound on the card: bytes. The function reads each sample once and writes
 // each magnitude once: at 384 / 192 a 32768-frame tile is 12.6 MB of int16
@@ -34,12 +35,13 @@
 // frames at a time become one complex FFT, z = w*x_t + i*w*x_t+1, as one
 // Stockham pass per radix of a plan the host chooses (ops/dft.py::fft_plan:
 // the power-of-two part in the fewest passes of radix 16 at most, as even
-// as possible, then 3, 5, 7, 11, 13; 384 = 16*8*3, 352 = 8*4*11, 416 =
-// 8*4*13, 4096 = 16*16*16). Butterfly j of a pass of radix R, Ns the
+// as possible, then 3, 5, 7, 11, 13, 17; 384 = 16*8*3, 352 = 8*4*11, 1088 =
+// 8*8*17, 4096 = 16*16*16). Butterfly j of a pass of radix R, Ns the
 // product of the earlier radices, reads z[j + r*N/R], multiplies by
 // tw[r * (j % Ns) * N/(Ns*R)], takes an R-point DFT and writes
 // z'[(j / Ns)*Ns*R + j % Ns + r*Ns]; the last pass leaves Z in natural
-// order. Radix 16 is 4 x 4 with its W16 twiddles; the odd radices are
+// order. The butterflies (dft_butterflies.cuh, shared with dft_cluster.cu)
+// are radix 16 as 4 x 4 with its W16 twiddles and the odd radices as
 // direct R-point DFTs over symmetric pairs; their float32 constants are
 // rounded once from float64 (ops/dft.py::_odd_roots, _C16). The passes
 // exchange through two buffers of N complex values, laid out as
@@ -58,27 +60,29 @@
 // two exchange buffers, the passes synchronise the warp only, and the
 // roots and the window sit in shared memory; it is taken where it keeps at
 // least 4 warps resident on an SM (every n_fft up to 2048 at the spectral
-// and default hops). The block layout: the whole block (up to 512 threads)
-// owns one frame pair at a time, with __syncthreads() between the passes
-// and one pair of exchange buffers, 128 KB at 8192; the roots and the
-// window stay in shared memory where they fit beside the buffers and are
-// read from device memory through L1 where they do not. It takes every
-// larger n_fft and the chirp mode.
+// and default hops, 1088). The block layout: the whole block (up to 512
+// threads) owns one frame pair at a time, with __syncthreads() between the
+// passes and one pair of exchange buffers, 128 KB at 8192; the roots and
+// the window stay in shared memory where they fit beside the buffers and
+// are read from device memory through L1 where they do not. It takes every
+// larger n_fft (4352) and the chirp mode. A kernel is built for the
+// largest odd radix its plans need (11, 13 or 17): the radix-13 and
+// radix-17 butterflies' registers would cost the passes of the plans that
+// lack them a few percent.
 //
-// The chirp-z (Bluestein) mode, for an n_fft N with a prime factor of 17 or
-// more: X[k] = a[k] sum_n (w a)[n] x[n] b[k - n] with a[n] = exp(-i pi (n^2
+// The chirp-z (Bluestein) mode, for an n_fft N with a prime factor above
+// 17: X[k] = a[k] sum_n (w a)[n] x[n] b[k - n] with a[n] = exp(-i pi (n^2
 // mod 2N) / N) and b[m] = conj a[|m|], a circular convolution of length M,
-// a {2, 3, 5, 7, 11, 13}-smooth M >= 2N - 1 whose passes move the fewest
-// values (ops/dft.py::chirp_length: 1088 -> 2197 = 13^3, 2038 -> 4096, not
-// the five passes of 2178 or 4095). On the block layout: z = (w a)[n]
-// (x_t + i x_t+1)[n] zero-padded to M, its M-point FFT by the same passes,
-// the product with B = FFT_M(b) / M folded into the first pass of a second
-// forward FFT of the conjugate (the inverse as conj -> forward -> conj),
-// then Z[k] = a[k] conj(u[k]) and the same untangle:
-// Bluestein is linear, so two real frames still share one complex
-// transform. The tables (w a, a, B: ops/dft.py::chirp_tables) are computed
-// on the host from n^2 mod 2N in integers and the angle in float64, rounded
-// once to float32, and read through L1.
+// a {2, ..., 17}-smooth M >= 2N - 1 whose passes move the fewest values
+// (ops/dft.py::chirp_length: 1216 -> 2431 = 11*13*17, 2038 -> 4096). On
+// the block layout: z = (w a)[n] (x_t + i x_t+1)[n] zero-padded to M, its
+// M-point FFT by the same passes, the product with B = FFT_M(b) / M folded
+// into the first pass of a second forward FFT of the conjugate (the
+// inverse as conj -> forward -> conj), then Z[k] = a[k] conj(u[k]) and the
+// same untangle: Bluestein is linear, so two real frames still share one
+// complex transform. The tables (w a, a, B: ops/dft.py::chirp_tables) are
+// computed on the host from n^2 mod 2N in integers and the angle in
+// float64, rounded once to float32, and read through L1.
 //
 // What holds it: shared memory and the latency of its synchronised passes,
 // not HBM. Every pass reads and writes N complex values (two wavefronts a
@@ -98,6 +102,8 @@
 #include <stdint.h>
 
 namespace {
+
+#include "dft_butterflies.cuh"
 
 constexpr int MAX_N = 8192;        // the largest FFT: n_fft, or M in the chirp mode
 constexpr int CHIRP_MAX_N = 4096;  // the chirp mode's largest n_fft (M <= 8192)
@@ -125,191 +131,7 @@ struct Layout {  // the block's shape and dynamic shared memory; offsets in byte
   int span_len, span_stride, win_off, z_off, span_off, bytes;
 };
 
-__device__ __forceinline__ float sample_to_f32(float v) { return v; }
-__device__ __forceinline__ float sample_to_f32(int16_t v) {
-  return static_cast<float>(v) * (1.0f / 32768.0f);
-}
-// a mu-law code (ops/wire_codec.py): sign = bit 7, e = bits 6:4, mant =
-// bits 3:0, m14 = ((2 mant + 33) << e) - 33, the sample +-(m14 << 2) as an
-// int16 value, scaled as int16 is
-__device__ __forceinline__ float sample_to_f32(uint8_t c) {
-  const int e = (c >> 4) & 7, mant = c & 15;
-  const int x16 = (((2 * mant + 33) << e) - 33) << 2;
-  return static_cast<float>((c & 0x80) ? -x16 : x16) * (1.0f / 32768.0f);
-}
-
 __device__ __forceinline__ int padded(int a, int s, int g) { return a + ((a >> s) << g); }
-
-// cos and sin of 2 pi m / R for m = 1 .. (R - 1) / 2, float64 values rounded
-// once to float32 (ops/dft.py::_odd_roots)
-__device__ __forceinline__ float root_cos(int R, int m) {
-  switch (R * 16 + m) {
-    case 3 * 16 + 1: return -0.5f;
-    case 5 * 16 + 1: return 0.309017003f;
-    case 5 * 16 + 2: return -0.809017003f;
-    case 7 * 16 + 1: return 0.623489797f;
-    case 7 * 16 + 2: return -0.222520933f;
-    case 7 * 16 + 3: return -0.900968850f;
-    case 11 * 16 + 1: return 0.841253519f;
-    case 11 * 16 + 2: return 0.415415019f;
-    case 11 * 16 + 3: return -0.142314836f;
-    case 11 * 16 + 4: return -0.654860735f;
-    case 11 * 16 + 5: return -0.959492981f;
-    case 13 * 16 + 1: return 0.885456026f;
-    case 13 * 16 + 2: return 0.568064749f;
-    case 13 * 16 + 3: return 0.120536678f;
-    case 13 * 16 + 4: return -0.354604900f;
-    case 13 * 16 + 5: return -0.748510778f;
-    case 13 * 16 + 6: return -0.970941842f;
-  }
-  return 0.0f;
-}
-__device__ __forceinline__ float root_sin(int R, int m) {
-  switch (R * 16 + m) {
-    case 3 * 16 + 1: return 0.866025388f;
-    case 5 * 16 + 1: return 0.951056540f;
-    case 5 * 16 + 2: return 0.587785244f;
-    case 7 * 16 + 1: return 0.781831503f;
-    case 7 * 16 + 2: return 0.974927902f;
-    case 7 * 16 + 3: return 0.433883727f;
-    case 11 * 16 + 1: return 0.540640831f;
-    case 11 * 16 + 2: return 0.909631968f;
-    case 11 * 16 + 3: return 0.989821434f;
-    case 11 * 16 + 4: return 0.755749583f;
-    case 11 * 16 + 5: return 0.281732559f;
-    case 13 * 16 + 1: return 0.464723170f;
-    case 13 * 16 + 2: return 0.822983861f;
-    case 13 * 16 + 3: return 0.992708862f;
-    case 13 * 16 + 4: return 0.935016215f;
-    case 13 * 16 + 5: return 0.663122654f;
-    case 13 * 16 + 6: return 0.239315659f;
-  }
-  return 0.0f;
-}
-
-// R-point DFTs in place, outputs in natural order
-
-__device__ __forceinline__ void dft(float (&re)[2], float (&im)[2]) {
-  const float r0 = re[0] + re[1], i0 = im[0] + im[1];
-  re[1] = re[0] - re[1];
-  im[1] = im[0] - im[1];
-  re[0] = r0;
-  im[0] = i0;
-}
-
-__device__ __forceinline__ void fft4(float& r0, float& i0, float& r1, float& i1,
-                                     float& r2, float& i2, float& r3, float& i3) {
-  const float s02r = r0 + r2, s02i = i0 + i2, d02r = r0 - r2, d02i = i0 - i2;
-  const float s13r = r1 + r3, s13i = i1 + i3, d13r = r1 - r3, d13i = i1 - i3;
-  r0 = s02r + s13r; i0 = s02i + s13i;
-  r1 = d02r + d13i; i1 = d02i - d13r;
-  r2 = s02r - s13r; i2 = s02i - s13i;
-  r3 = d02r - d13i; i3 = d02i + d13r;
-}
-
-__device__ __forceinline__ void dft(float (&re)[4], float (&im)[4]) {
-  fft4(re[0], im[0], re[1], im[1], re[2], im[2], re[3], im[3]);
-}
-
-// radix-2 on (n, n + 4), the W8 twiddles, two 4-point DFTs (the even and
-// the odd outputs), as dft_magnitude.cu's fft8 and ops/dft.py::_fft8
-__device__ __forceinline__ void dft(float (&re)[8], float (&im)[8]) {
-  constexpr float C = 0.70710678118654752440f;
-  float ar[4], ai[4], br[4], bi[4];
-#pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    ar[n] = re[n] + re[n + 4]; ai[n] = im[n] + im[n + 4];
-    br[n] = re[n] - re[n + 4]; bi[n] = im[n] - im[n + 4];
-  }
-  {  // b[n] times W8^n
-    const float r1 = C * (br[1] + bi[1]), i1 = C * (bi[1] - br[1]);
-    const float r2 = bi[2], i2 = -br[2];
-    const float r3 = C * (bi[3] - br[3]), i3 = -C * (br[3] + bi[3]);
-    br[1] = r1; bi[1] = i1; br[2] = r2; bi[2] = i2; br[3] = r3; bi[3] = i3;
-  }
-  fft4(ar[0], ai[0], ar[1], ai[1], ar[2], ai[2], ar[3], ai[3]);
-  fft4(br[0], bi[0], br[1], bi[1], br[2], bi[2], br[3], bi[3]);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    re[2 * k] = ar[k]; im[2 * k] = ai[k];
-    re[2 * k + 1] = br[k]; im[2 * k + 1] = bi[k];
-  }
-}
-
-// 16 points as 4 x 4: a 4-point DFT over n1 of x[4 n1 + n2] for each n2,
-// times W16^(n2 k1), a 4-point DFT over n2 giving X[k1 + 4 k2]
-__device__ __forceinline__ void dft(float (&re)[16], float (&im)[16]) {
-  // cos and sin of 2 pi m / 16, float64 rounded once (ops/dft.py::_C16, _S16)
-  const float wc[10] = {1.0f, 0.923879504f, 0.707106769f, 0.382683426f, 0.0f, -0.382683426f, -0.707106769f, -0.923879504f, -1.0f, -0.923879504f};
-  const float ws[10] = {0.0f, 0.382683426f, 0.707106769f, 0.923879504f, 1.0f, 0.923879504f, 0.707106769f, 0.382683426f, 0.0f, -0.382683426f};
-  float ar[4][4], ai[4][4];  // [n2][k1]
-#pragma unroll
-  for (int n2 = 0; n2 < 4; ++n2) {
-#pragma unroll
-    for (int n1 = 0; n1 < 4; ++n1) {
-      ar[n2][n1] = re[4 * n1 + n2];
-      ai[n2][n1] = im[4 * n1 + n2];
-    }
-    fft4(ar[n2][0], ai[n2][0], ar[n2][1], ai[n2][1], ar[n2][2], ai[n2][2], ar[n2][3], ai[n2][3]);
-  }
-#pragma unroll
-  for (int n2 = 1; n2 < 4; ++n2) {
-#pragma unroll
-    for (int k1 = 1; k1 < 4; ++k1) {  // times exp(-2 pi i n2 k1 / 16)
-      const float c = wc[n2 * k1], s = ws[n2 * k1];
-      const float vr = ar[n2][k1] * c + ai[n2][k1] * s;
-      const float vi = ai[n2][k1] * c - ar[n2][k1] * s;
-      ar[n2][k1] = vr;
-      ai[n2][k1] = vi;
-    }
-  }
-#pragma unroll
-  for (int k1 = 0; k1 < 4; ++k1) {
-    fft4(ar[0][k1], ai[0][k1], ar[1][k1], ai[1][k1], ar[2][k1], ai[2][k1], ar[3][k1], ai[3][k1]);
-#pragma unroll
-    for (int k2 = 0; k2 < 4; ++k2) {
-      re[k1 + 4 * k2] = ar[k2][k1];
-      im[k1 + 4 * k2] = ai[k2][k1];
-    }
-  }
-}
-
-// odd R, over symmetric pairs: X[k] = A_k - i B_k, X[R-k] = A_k + i B_k with
-// A_k = x0 + sum_n cos(2 pi nk/R) (x_n + x_R-n), B_k = sum_n sin(2 pi nk/R)
-// (x_n - x_R-n), n = 1 .. (R-1)/2
-template <int R>
-__device__ __forceinline__ void dft(float (&re)[R], float (&im)[R]) {
-  constexpr int H = (R - 1) / 2;
-  float sr[H], si[H], dr[H], di[H];
-#pragma unroll
-  for (int n = 1; n <= H; ++n) {
-    sr[n - 1] = re[n] + re[R - n]; si[n - 1] = im[n] + im[R - n];
-    dr[n - 1] = re[n] - re[R - n]; di[n - 1] = im[n] - im[R - n];
-  }
-  const float x0r = re[0], x0i = im[0];
-  float o0r = x0r, o0i = x0i;
-#pragma unroll
-  for (int n = 0; n < H; ++n) {
-    o0r += sr[n];
-    o0i += si[n];
-  }
-#pragma unroll
-  for (int k = 1; k <= H; ++k) {
-    float ar = x0r, ai = x0i, br = 0.0f, bi = 0.0f;
-#pragma unroll
-    for (int n = 1; n <= H; ++n) {
-      const int m = n * k % R;
-      const float c = m <= H ? root_cos(R, m) : root_cos(R, R - m);
-      const float s = m <= H ? root_sin(R, m) : -root_sin(R, R - m);
-      ar += c * sr[n - 1]; ai += c * si[n - 1];
-      br += s * dr[n - 1]; bi += s * di[n - 1];
-    }
-    re[k] = ar + bi; im[k] = ai - br;
-    re[R - k] = ar - bi; im[R - k] = ai + br;
-  }
-  re[0] = o0r;
-  im[0] = o0i;
-}
 
 // The first pass (Ns = 1, no roots): butterfly j reads its inputs
 // n = j + r*N/R through `load` and writes z'[j*R + r]. Thread `lane` of
@@ -370,8 +192,9 @@ __device__ __forceinline__ void pass(const float2* src, int ss, int sg, float2* 
   }
 }
 
-// R13 false leaves the radix-13 butterfly out of a kernel whose plans have
-// no 13: its registers would cost the other passes a few percent
+// ODD, the largest odd radix a kernel is built for (11, 13 or 17), leaves
+// the radix-13 and radix-17 butterflies out of a kernel whose plans lack
+// them: their registers would cost the other passes a few percent
 #define ORCAI_RADIX_CASES(CALL)  \
   case 2: CALL(2); break;        \
   case 3: CALL(3); break;        \
@@ -380,8 +203,9 @@ __device__ __forceinline__ void pass(const float2* src, int ss, int sg, float2* 
   case 7: CALL(7); break;        \
   case 8: CALL(8); break;        \
   case 11: CALL(11); break;      \
-  case 13: if constexpr (R13) { CALL(13); } break; \
-  case 16: CALL(16); break;
+  case 13: if constexpr (ODD >= 13) { CALL(13); } break; \
+  case 16: CALL(16); break;      \
+  case 17: if constexpr (ODD >= 17) { CALL(17); } break;
 
 // the warp layout synchronises the warp that owns the pair, the block
 // layout the block
@@ -395,7 +219,7 @@ __device__ __forceinline__ void fft_sync() {
 // reads its input through `load` and writes `first`; the later passes
 // alternate between the two buffers. Returns the buffer that holds the
 // result, in natural order in the last pass's layout.
-template <bool BLOCK, bool R13, typename Load>
+template <bool BLOCK, int ODD, typename Load>
 __device__ __forceinline__ float2* fft(const Load& load, float2* first, float2* second,
                                        const float2* tw, const Plan& plan, int lane,
                                        int width) {
@@ -504,7 +328,7 @@ __device__ __forceinline__ void untangle(const Bin& bin, int N, float* __restric
 // Transform frames t and t + 1, whose samples start at xa and xa + hop, and
 // write their magnitude rows. za and zb are the owner's exchange buffers;
 // chirp holds the chirp mode's tables (w a, a: n_fft each; B: M).
-template <bool BLOCK, bool R13, typename T>
+template <bool BLOCK, int ODD, typename T>
 __device__ __forceinline__ void transform_pair(const T* xa, int hop, const float* win,
                                                const float2* tw, const float2* chirp,
                                                float2* za, float2* zb, const Plan& plan,
@@ -513,16 +337,16 @@ __device__ __forceinline__ void transform_pair(const T* xa, int hop, const float
   const T* xb = xa + hop;
   const int last = plan.n_passes - 1;  // its layout is read after the passes
   if (!BLOCK || plan.chirp_n == 0) {
-    const float2* z = fft<BLOCK, R13>(PairLoad<T>{xa, xb, win}, za, zb, tw, plan, lane, width);
+    const float2* z = fft<BLOCK, ODD>(PairLoad<T>{xa, xb, win}, za, zb, tw, plan, lane, width);
     untangle(FftBin{z, plan.pad_s[last], plan.pad_g[last]}, plan.n, out, t, n_frames, lane,
              width);
   } else {
     const int n_fft = plan.chirp_n;
     float2* y =
-        fft<BLOCK, R13>(ChirpLoad<T>{xa, xb, chirp, n_fft}, za, zb, tw, plan, lane, width);
+        fft<BLOCK, ODD>(ChirpLoad<T>{xa, xb, chirp, n_fft}, za, zb, tw, plan, lane, width);
     const int s = plan.pad_s[last], g = plan.pad_g[last];
     float2* other = y == za ? zb : za;
-    const float2* u = fft<BLOCK, R13>(ProductLoad{y, s, g, chirp + 2 * n_fft}, other, y, tw,
+    const float2* u = fft<BLOCK, ODD>(ProductLoad{y, s, g, chirp + 2 * n_fft}, other, y, tw,
                                       plan, lane, width);
     untangle(ChirpBin{u, s, g, chirp + n_fft}, n_fft, out, t, n_frames, lane, width);
   }
@@ -565,7 +389,7 @@ __device__ __forceinline__ void stage(const T* __restrict__ audio, long long n_s
 // BLOCK false: the warp layout, each warp transforms its own frame pairs of
 // a group (two span buffers always); true: the block layout, the whole
 // block transforms the group's pairs one after the other.
-template <typename T, bool BLOCK, bool R13>
+template <typename T, bool BLOCK, int ODD>
 __global__ void __launch_bounds__(BLOCK ? MAX_BLOCK_THREADS : MAX_WARPS * 32, BLOCK ? 1 : 2)
 dft_mixed_kernel(const T* __restrict__ audio, long long n_samples,
                  const float* __restrict__ window, const float2* __restrict__ roots,
@@ -615,7 +439,7 @@ dft_mixed_kernel(const T* __restrict__ audio, long long n_samples,
       const int t = g * frames + 2 * pair;
       if (t >= n_frames) break;  // the same for every thread of the owner
       const T* xa = span + cur * lay.span_stride + 2 * pair * hop;
-      transform_pair<BLOCK, R13>(xa, hop, win, tw, chirp, za, zb, sp, out, t, n_frames, lane,
+      transform_pair<BLOCK, ODD>(xa, hop, win, tw, chirp, za, zb, sp, out, t, n_frames, lane,
                                  width);
     }
     __syncthreads();  // every owner is done with this span buffer
@@ -637,7 +461,7 @@ int make_plan(const int* packed, int n_fft, bool chirp, Plan* plan) {
   for (int p = 0; p < P; ++p) {
     const int R = packed[1 + p];
     if (R != 2 && R != 3 && R != 4 && R != 5 && R != 7 && R != 8 && R != 11 && R != 13 &&
-        R != 16)
+        R != 16 && R != 17)
       return 1;
     prod *= R;
     if (prod > MAX_N) return 1;
@@ -754,17 +578,17 @@ int choose_layout(const Plan& plan, int hop, int elem, Layout* best) {
   return best_key < 0;
 }
 
-template <typename T, bool BLOCK, bool R13>
+template <typename T, bool BLOCK, int ODD>
 int run(const void* audio, const float* window, const float* roots, const float* chirp,
         const Plan& plan, const Layout& lay, float* out, int n_frames, int hop,
         cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
-      dft_mixed_kernel<T, BLOCK, R13>, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
+      dft_mixed_kernel<T, BLOCK, ODD>, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   int device = 0, n_sm = 0, per_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dft_mixed_kernel<T, BLOCK, R13>,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dft_mixed_kernel<T, BLOCK, ODD>,
                                                       lay.threads, lay.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -774,7 +598,7 @@ int run(const void* audio, const float* window, const float* roots, const float*
   const long long n_samples = static_cast<long long>(n_frames - 1) * hop + frame_len;
   const int n_groups = (n_frames + lay.frames - 1) / lay.frames;
   const int grid = n_groups < per_sm * n_sm ? n_groups : per_sm * n_sm;
-  dft_mixed_kernel<T, BLOCK, R13><<<grid, lay.threads, lay.bytes, s>>>(
+  dft_mixed_kernel<T, BLOCK, ODD><<<grid, lay.threads, lay.bytes, s>>>(
       static_cast<const T*>(audio), n_samples, window,
       reinterpret_cast<const float2*>(roots), reinterpret_cast<const float2*>(chirp), out,
       n_frames, hop, vec_ok, plan, lay);
@@ -787,12 +611,18 @@ int launch(const void* audio, const float* window, const float* roots, const flo
   Layout lay;
   if (choose_layout(plan, hop, static_cast<int>(sizeof(T)), &lay))
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  bool r13 = false;
-  for (int p = 0; p < plan.n_passes; ++p) r13 = r13 || plan.radix[p] == 13;
+  int odd = 11;  // the largest odd radix the plan needs a kernel for
+  for (int p = 0; p < plan.n_passes; ++p)
+    odd = plan.radix[p] == 17 || (plan.radix[p] == 13 && odd < 13) ? plan.radix[p] : odd;
   if (lay.block)
-    return run<T, true, true>(audio, window, roots, chirp, plan, lay, out, n_frames, hop, s);
-  return r13 ? run<T, false, true>(audio, window, roots, chirp, plan, lay, out, n_frames, hop, s)
-             : run<T, false, false>(audio, window, roots, chirp, plan, lay, out, n_frames, hop, s);
+    return odd == 17
+               ? run<T, true, 17>(audio, window, roots, chirp, plan, lay, out, n_frames, hop, s)
+               : run<T, true, 13>(audio, window, roots, chirp, plan, lay, out, n_frames, hop, s);
+  switch (odd) {
+    case 17: return run<T, false, 17>(audio, window, roots, chirp, plan, lay, out, n_frames, hop, s);
+    case 13: return run<T, false, 13>(audio, window, roots, chirp, plan, lay, out, n_frames, hop, s);
+    default: return run<T, false, 11>(audio, window, roots, chirp, plan, lay, out, n_frames, hop, s);
+  }
 }
 
 }  // namespace

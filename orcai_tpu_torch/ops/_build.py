@@ -2,8 +2,8 @@
 
 Each csrc/<name>.cu has a plain C interface and becomes its own shared
 library, _build/lib<name>-<hash>.so, compiled for Hopper (sm_90a) the first
-time it is needed. The hash covers the source and the flags, so an edited
-kernel is rebuilt and an unchanged one is not. Missing libraries are
+time it is needed. The hash covers the source, the headers of csrc/ (*.cuh)
+and the flags, so an edited kernel is rebuilt and an unchanged one is not. Missing libraries are
 compiled by nvcc processes started together, one per source. Nothing here
 runs at import time.
 """
@@ -20,7 +20,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("dft_magnitude", "dft_mixed", "dft_gemm", "digit_hist")
+KERNELS = ("dft_magnitude", "dft_mixed", "dft_cluster", "dft_gemm", "digit_hist")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,6 +46,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

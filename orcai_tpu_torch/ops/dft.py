@@ -5,7 +5,7 @@ Counterpart of orcai_tpu/ops/pallas_dft.py. The function is
 or uint8 mu-law audio (the mulaw8 wire's codes, decoded as
 ops/wire_codec.py::mulaw_decode_f32 does), at any n_fft that hop divides.
 
-`dft_magnitude` takes one of four CUDA routes for a CUDA tensor, chosen by
+`dft_magnitude` takes one of five CUDA routes for a CUDA tensor, chosen by
 n_fft alone (`dft_route`), and runs the plain PyTorch version,
 `dft_magnitude_plain`, for a CPU tensor:
 
@@ -17,21 +17,28 @@ n_fft alone (`dft_route`), and runs the plain PyTorch version,
   algorithm is testable where no card is;
 - "mixed", csrc/dft_mixed.cu, at every other n_fft from 2 to MIXED_MAX
   (8192) whose prime factors are all in MIXED_PRIMES (the spectral wires'
-  384 and 352, 416, 1024, 2048, 4096, 8192, ...): the same shape with one
-  Stockham pass per radix of `fft_plan(n_fft)` (16, 8, 4, 2, 3, 5, 7, 11,
-  13), each warp owning a frame pair where four warps fit on an SM (up to
-  2048 at the usual hops) and the whole block owning one otherwise.
-  `_fft_mixed_reference` is its arithmetic step by step;
-- "chirp", the same kernel's chirp-z (Bluestein) mode, at every other
-  n_fft from 2 to CHIRP_MAX (4096), those with a prime factor of 17 or
-  more: the DFT as a circular convolution of length `chirp_length(n_fft)`
-  (a smooth M >= 2 n_fft - 1 whose passes move the fewest values) with the
-  tables of `chirp_tables`. `_chirp_reference` is its arithmetic step by
-  step;
-- "gemm", csrc/dft_gemm.cu, at what is left (a smooth n_fft above 8192,
-  any other above 4096): the reference's own algorithm, a tiled IEEE fp32
-  GEMM of the frames, read straight from the audio, with the window-folded
-  cos/sin matrices (`windowed_dft_mats`).
+  384 and 352, 416, 1024, 1088, 2048, 4096, 4352, 8192, ...): the same
+  shape with one Stockham pass per radix of `fft_plan(n_fft)` (16, 8, 4,
+  2, 3, 5, 7, 11, 13, 17), each warp owning a frame pair where four warps
+  fit on an SM (up to 2048 at the usual hops) and the whole block owning
+  one otherwise. `_fft_mixed_reference` is its arithmetic step by step;
+- "cluster", csrc/dft_cluster.cu, at such an n_fft from MIXED_MAX + 1 to
+  CLUSTER_MAX (32768): one frame pair's FFT on a thread block cluster of 2
+  or 4 CTAs that read each other's shared memory, as the four-step split
+  of `cluster_plan(n_fft)` (column FFTs, twiddles, one exchange, row FFTs;
+  the tables of `cluster_tables`). `_fft_cluster_reference` is its
+  arithmetic step by step;
+- "chirp", at every other n_fft from 2 to CHIRP_MAX (16384), those with a
+  prime factor above 17: the DFT as a circular convolution of length
+  `chirp_length(n_fft)` (a smooth M >= 2 n_fft - 1 whose passes move the
+  fewest values) with the tables of `chirp_tables`, in the chirp-z
+  (Bluestein) mode of csrc/dft_mixed.cu where M is within MIXED_MAX and of
+  csrc/dft_cluster.cu above (`_chirp_kernel`). `_chirp_reference` and
+  `_chirp_cluster_reference` are their arithmetic step by step;
+- "gemm", csrc/dft_gemm.cu, at what is left (a smooth n_fft above
+  CLUSTER_MAX, any other above CHIRP_MAX): the reference's own algorithm,
+  a tiled IEEE fp32 GEMM of the frames, read straight from the audio, with
+  the window-folded cos/sin matrices (`windowed_dft_mats`).
 
 The plain version computes the reference's GEMM with torch.matmul.
 `dft_magnitude.launches` counts every kernel launch and
@@ -50,10 +57,12 @@ from orcai_tpu_torch.ops import _build
 from orcai_tpu_torch.ops.wire_codec import mulaw_decode_f32
 
 FFT_SIZES = (512,)  # the sizes csrc/dft_magnitude.cu is instantiated for
-MIXED_PRIMES = (2, 3, 5, 7, 11, 13)  # csrc/dft_mixed.cu's radices: these and 4, 8, 16
+MIXED_PRIMES = (2, 3, 5, 7, 11, 13, 17)  # the FFT kernels' radices: these and 4, 8, 16
 MIXED_MAX = 8192  # the largest FFT of csrc/dft_mixed.cu (two buffers of it in shared memory)
-CHIRP_MAX = 4096  # the largest n_fft of the chirp mode: its M stays within MIXED_MAX
-ROUTES = ("fft", "mixed", "chirp", "gemm")
+CLUSTER_MAX = 32768  # the largest FFT of csrc/dft_cluster.cu (N/C of each buffer on C CTAs)
+CHIRP_MAX = 16384  # the largest n_fft of the chirp mode: its M stays within CLUSTER_MAX
+CLUSTER_CTA_BYTES = 160 * 1024  # a cluster CTA's two exchange buffers, of 227 KB
+ROUTES = ("fft", "mixed", "cluster", "chirp", "gemm")
 _DTYPE_CODES = {torch.float32: 0, torch.int16: 1, torch.uint8: 2}  # the kernels' dtype
 _RADIX = 8
 _SQRT_HALF = float(np.float32(np.sqrt(0.5)))
@@ -195,7 +204,7 @@ def _pair_frames(padded: torch.Tensor, n_fft: int, hop: int) -> tuple[torch.Tens
     zeros."""
     frames = _to_f32(padded).unfold(0, n_fft, hop)  # (tpad, n_fft) view
     if frames.shape[0] % 2:
-        frames = torch.cat([frames, torch.zeros(1, n_fft)])
+        frames = torch.cat([frames, torch.zeros(1, n_fft, device=frames.device)])
     return frames[0::2], frames[1::2]
 
 
@@ -203,7 +212,7 @@ def _untangle(zr: torch.Tensor, zi: torch.Tensor, n_fft: int, tpad: int) -> torc
     """X_t[k] = (Z[k] + conj Z[(N-k) % N]) / 2 and X_t+1[k] = (Z[k] - conj
     Z[(N-k) % N]) / 2i for k <= N/2, and their magnitudes, interleaved back
     into (tpad, N/2 + 1) rows; odd N works unchanged."""
-    k = torch.arange(n_fft // 2 + 1)
+    k = torch.arange(n_fft // 2 + 1, device=zr.device)
     mirror = (n_fft - k) % n_fft
     yr, yi = zr[:, mirror], zi[:, mirror]
     zr, zi = zr[:, k], zi[:, k]
@@ -266,9 +275,9 @@ def fft_plan(n_fft: int) -> tuple[int, ...]:
     """The mixed route's radices for n_fft, in the order its Stockham passes
     run: the power-of-two part 2^a in the fewest passes of radix at most 16,
     split as evenly as possible with the larger radices first, then 3, 5, 7,
-    11 and 13 (384 -> 16, 8, 3; 352 -> 8, 4, 11; 416 -> 8, 4, 13; 1024 ->
-    16, 8, 8; 8192 -> 16, 8, 8, 8). Raises for an n_fft the route does not
-    take."""
+    11, 13 and 17 (384 -> 16, 8, 3; 352 -> 8, 4, 11; 416 -> 8, 4, 13; 1024
+    -> 16, 8, 8; 1088 -> 8, 8, 17; 8192 -> 16, 8, 8, 8). Raises for an n_fft
+    the route does not take."""
     if not 2 <= n_fft <= MIXED_MAX:
         raise ValueError(f"n_fft {n_fft}: the mixed route takes 2 to {MIXED_MAX}")
     n, a = n_fft, 0
@@ -334,7 +343,7 @@ def _dft_small(radix: int, re: list, im: list) -> tuple[list, list]:
                 out_r[k1 + 4 * k2], out_i[k1 + 4 * k2] = xr[k2], xi[k2]
         return out_r, out_i
     half = (radix - 1) // 2
-    cos, sin = (torch.from_numpy(a.copy()) for a in _odd_roots(radix))
+    cos, sin = (torch.from_numpy(a.copy()).to(re[0].device) for a in _odd_roots(radix))
     sr = [re[n] + re[radix - n] for n in range(1, half + 1)]
     si = [im[n] + im[radix - n] for n in range(1, half + 1)]
     dr = [re[n] - re[radix - n] for n in range(1, half + 1)]
@@ -369,7 +378,7 @@ def _stockham(zr: torch.Tensor, zi: torch.Tensor, plan: tuple[int, ...],
     ns = 1
     for radix in plan:
         nb = n // radix
-        j = torch.arange(nb)
+        j = torch.arange(nb, device=zr.device)
         jm = j % ns
         in_r, in_i = [], []
         for r in range(radix):
@@ -408,16 +417,29 @@ def _fft_mixed_reference(
     return _untangle(zr, zi, n_fft, tpad)
 
 
+def _passes(m: int) -> int:
+    """Passes that move all m values of an m-point FFT through shared
+    memory: fft_plan's on the block layout (m <= MIXED_MAX), on the cluster
+    layout the two sides' plus the exchange between them."""
+    if m <= MIXED_MAX:
+        return len(fft_plan(m))
+    n1, n2, _ = cluster_plan(m)
+    return len(fft_plan(n1)) + len(fft_plan(n2)) + 1
+
+
 @lru_cache(maxsize=None)
 def chirp_length(n_fft: int) -> int:
     """The chirp mode's convolution length: of the M from 2 n_fft - 1 to
-    min(4 n_fft, MIXED_MAX) whose prime factors are all in MIXED_PRIMES, the
-    one of least M * len(fft_plan(M)) (every pass moves M values through
-    shared memory), the smallest on a tie: 1088 -> 2197 = 13^3 (not 2178 =
-    2 * 3^2 * 11^2, five passes), 2038 -> 4096 (not 4095 = 3^2 * 5 * 7 * 13)."""
-    top = min(4 * n_fft, MIXED_MAX)
+    4 n_fft whose prime factors are all in MIXED_PRIMES, the one of least
+    M * _passes(M) (every pass moves M values through shared memory), the
+    smallest on a tie. Up to n_fft 4096 M stays within MIXED_MAX (the block
+    layout); above it M is above MIXED_MAX and within CLUSTER_MAX (the
+    cluster layout). 1216 -> 2431 = 11 * 13 * 17 (three passes), 2038 ->
+    4096 (not 4095 = 3^2 * 5 * 7 * 13), 8198 -> 16456 = 2^3 * 11^2 * 17
+    (136 x 121, five passes with the exchange)."""
+    top = min(4 * n_fft, MIXED_MAX if n_fft <= MIXED_MAX // 2 else CLUSTER_MAX)
     return min((m for m in range(2 * n_fft - 1, top + 1) if _smooth(m)),
-               key=lambda m: (m * len(fft_plan(m)), m))
+               key=lambda m: (m * _passes(m), m))
 
 
 @lru_cache(maxsize=None)
@@ -477,6 +499,140 @@ def _chirp_reference(
     vr = yr * bq[:, 0] - yi * bq[:, 1]
     vi = -(yr * bq[:, 1] + yi * bq[:, 0])
     ur, ui = _stockham(vr, vi, plan, tw)
+    ur, ui = ur[:, :n_fft], ui[:, :n_fft]
+    zr = a[:, 0] * ur + a[:, 1] * ui
+    zi = a[:, 1] * ur - a[:, 0] * ui
+    return _untangle(zr, zi, n_fft, tpad)
+
+
+@lru_cache(maxsize=None)
+def cluster_plan(n: int) -> tuple[int, int, int]:
+    """csrc/dft_cluster.cu's four-step split of an n-point FFT, n from
+    MIXED_MAX + 1 to CLUSTER_MAX with every prime factor in MIXED_PRIMES:
+    (N1, N2, C), N1 * N2 = n with both from 2 to MIXED_MAX, the split of
+    fewest passes (fft_plan(N1) and fft_plan(N2)), then the most even, the
+    larger factor first (16384 -> 128 x 128, 32768 -> 256 x 128); C, the
+    CTAs of a cluster, the fewer of 2 and 4 whose two exchange buffers of
+    n / C complex values fit in CLUSTER_CTA_BYTES of a CTA's shared memory:
+    2 up to 20480 points (128 KB a CTA at 16384), 4 above (128 KB at 32768).
+    Raises for an n the layout does not take."""
+    if not MIXED_MAX < n <= CLUSTER_MAX or not _smooth(n):
+        raise ValueError(f"n {n}: the cluster layout takes {MIXED_PRIMES}-smooth sizes from "
+                         f"{MIXED_MAX + 1} to {CLUSTER_MAX}")
+    splits = [(d, n // d) for d in range(n // MIXED_MAX, MIXED_MAX + 1)
+              if d >= 2 and n % d == 0 and 2 <= n // d <= MIXED_MAX]
+    n1, n2 = min(splits, key=lambda s: (len(fft_plan(s[0])) + len(fft_plan(s[1])),
+                                        max(s) / min(s), -s[0]))
+    return n1, n2, 2 if 8 * n <= CLUSTER_CTA_BYTES else 4  # 2 buffers of n/2 float2
+
+
+@lru_cache(maxsize=None)
+def four_step_roots(n1: int, n2: int) -> np.ndarray:
+    """The four-step twiddles of an N = n1 * n2-point FFT: W_N^(k1 j) =
+    exp(-2 pi i k1 j / N) at [k1 * n2 + j], k1 < n1, j < n2, (N, 2) float32
+    (re, im), the roots_of_unity(N) entry of (k1 j) mod N: float64 rounded
+    once. Read-only."""
+    n = n1 * n2
+    k1, j = np.arange(n1)[:, None], np.arange(n2)[None, :]
+    table = roots_of_unity(n)[((k1 * j) % n).reshape(-1)]
+    table.setflags(write=False)
+    return table
+
+
+def _cluster_fft(zr: torch.Tensor, zi: torch.Tensor,
+                 split: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor]:
+    """The complex FFT of each row of zr + i zi (N = n1 * n2 points, natural
+    order in and out) as csrc/dft_cluster.cu's four steps: for each column
+    j < n2 the n1-point FFT of z[n2 n1' + j] over n1' (`_stockham`,
+    fft_plan(n1)), giving Y[k1, j]; Y times four_step_roots [k1 * n2 + j];
+    for each row k1 the n2-point FFT over j (fft_plan(n2)), giving
+    Z[k1 + n1 k2]."""
+    n1, n2 = split
+    p = zr.shape[0]
+    tw1, tw2 = (torch.from_numpy(roots_of_unity(n).copy()).to(zr.device) for n in (n1, n2))
+    t = torch.from_numpy(four_step_roots(n1, n2).copy()).to(zr.device).reshape(n1, n2, 2)
+    cols = [v.reshape(p, n1, n2).transpose(1, 2).reshape(-1, n1) for v in (zr, zi)]
+    yr, yi = (v.reshape(p, n2, n1).transpose(1, 2) for v in _stockham(*cols, fft_plan(n1), tw1))
+    vr = yr * t[..., 0] - yi * t[..., 1]
+    vi = yr * t[..., 1] + yi * t[..., 0]
+    zr, zi = _stockham(vr.reshape(-1, n2), vi.reshape(-1, n2), fft_plan(n2), tw2)
+    return tuple(v.reshape(p, n1, n2).transpose(1, 2).reshape(p, -1) for v in (zr, zi))
+
+
+def _cluster_fft_rows_first(vr: torch.Tensor, vi: torch.Tensor,
+                            split: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chirp mode's second FFT on the cluster layout, natural order in
+    and out, in the order its input lies after the first (v[k1 + n1 k2] on
+    the CTA that owns row k1): for each k1 the n2-point FFT over k2
+    (fft_plan(n2)), giving G[k1, p2]; G times four_step_roots [k1 * n2 +
+    p2]; for each p2 the n1-point FFT over k1 (fft_plan(n1)), giving
+    U[n2 p1 + p2]."""
+    n1, n2 = split
+    p = vr.shape[0]
+    tw1, tw2 = (torch.from_numpy(roots_of_unity(n).copy()).to(vr.device) for n in (n1, n2))
+    t = torch.from_numpy(four_step_roots(n1, n2).copy()).to(vr.device).reshape(n1, n2, 2)
+    rows = [v.reshape(p, n2, n1).transpose(1, 2).reshape(-1, n2) for v in (vr, vi)]
+    gr, gi = (v.reshape(p, n1, n2) for v in _stockham(*rows, fft_plan(n2), tw2))
+    hr = gr * t[..., 0] - gi * t[..., 1]
+    hi = gr * t[..., 1] + gi * t[..., 0]
+    cols = [v.transpose(1, 2).reshape(-1, n1) for v in (hr, hi)]
+    return tuple(v.reshape(p, n2, n1).transpose(1, 2).reshape(p, -1)
+                 for v in _stockham(*cols, fft_plan(n1), tw1))
+
+
+def _fft_cluster_reference(
+    padded: torch.Tensor, window: np.ndarray, *, n_fft: int, hop: int,
+    split: tuple[int, int] | None = None,
+) -> torch.Tensor:
+    """csrc/dft_cluster.cu's arithmetic in its FFT mode, step by step, in
+    float32 PyTorch.
+
+    Frames t and t+1 (t even) become one complex signal z = w*x_t + i*w*x_t+1;
+    its n_fft-point FFT runs as the four steps of `_cluster_fft` with
+    split = cluster_plan(n_fft)[:2] (or the split given, which lets a test
+    run the same arithmetic at a small n_fft); then the untangle and the
+    magnitudes. The kernel's rank count changes where each value lies, not
+    the arithmetic.
+    """
+    split = split or cluster_plan(n_fft)[:2]
+    if split[0] * split[1] != n_fft:
+        raise ValueError(f"split {split} is not of n_fft {n_fft}")
+    tpad = _frames_count(padded.shape[0], n_fft, hop)
+    win = torch.from_numpy(fft_tables(_check_window(window, n_fft))[0].copy()).to(padded.device)
+    xa, xb = _pair_frames(padded, n_fft, hop)
+    zr, zi = _cluster_fft(xa * win, xb * win, split)
+    return _untangle(zr, zi, n_fft, tpad)
+
+
+def _chirp_cluster_reference(
+    padded: torch.Tensor, window: np.ndarray, *, n_fft: int, hop: int,
+    m: int | None = None, split: tuple[int, int] | None = None,
+) -> torch.Tensor:
+    """csrc/dft_cluster.cu's arithmetic in its chirp mode (Bluestein), step
+    by step, in float32 PyTorch: `_chirp_reference` with its two M-point
+    FFTs on the cluster layout, M = m or chirp_length(n_fft) and split =
+    cluster_plan(M)[:2] (or those given). The first is `_cluster_fft`; the
+    product with B and the conjugate is taken where its output lies, and the
+    second runs rows first (`_cluster_fft_rows_first`), so that no exchange
+    comes between the two; then Z[k] = a[k] conj u[k], the untangle and the
+    magnitudes.
+    """
+    m = m or chirp_length(n_fft)
+    split = split or cluster_plan(m)[:2]
+    if split[0] * split[1] != m:
+        raise ValueError(f"split {split} is not of M {m}")
+    tpad = _frames_count(padded.shape[0], n_fft, hop)
+    table = torch.from_numpy(chirp_tables(_check_window(window, n_fft), m).copy()).to(padded.device)
+    wa, a, bq = table[:n_fft], table[n_fft:2 * n_fft], table[2 * n_fft:]
+    xa, xb = _pair_frames(padded, n_fft, hop)
+    zr = torch.zeros(xa.shape[0], m, device=padded.device)
+    zi = torch.zeros(xa.shape[0], m, device=padded.device)
+    zr[:, :n_fft] = wa[:, 0] * xa - wa[:, 1] * xb
+    zi[:, :n_fft] = wa[:, 0] * xb + wa[:, 1] * xa
+    yr, yi = _cluster_fft(zr, zi, split)
+    vr = yr * bq[:, 0] - yi * bq[:, 1]
+    vi = -(yr * bq[:, 1] + yi * bq[:, 0])
+    ur, ui = _cluster_fft_rows_first(vr, vi, split)
     ur, ui = ur[:, :n_fft], ui[:, :n_fft]
     zr = a[:, 0] * ur + a[:, 1] * ui
     zi = a[:, 1] * ur - a[:, 0] * ui
@@ -575,13 +731,48 @@ def pass_roots(n: int, plan: tuple[int, ...]) -> np.ndarray:
 
 
 @lru_cache(maxsize=None)
+def cluster_tables(n: int) -> np.ndarray:
+    """csrc/dft_cluster.cu's roots for an n-point FFT split as cluster_plan(n):
+    pass_roots of fft_plan(N1), pass_roots of fft_plan(N2),
+    four_step_roots(N1, N2) (the order the chirp mode's second exchange
+    reads them) and the same twiddles at [j * N1 + k1] (the order the first
+    exchange reads them), (len1 + len2 + 2n, 2) float32. Read-only."""
+    n1, n2, _ = cluster_plan(n)
+    t = four_step_roots(n1, n2)
+    table = np.concatenate([pass_roots(n1, fft_plan(n1)), pass_roots(n2, fft_plan(n2)), t,
+                            t.reshape(n1, n2, 2).transpose(1, 0, 2).reshape(n, 2)])
+    table.setflags(write=False)
+    return table
+
+
+@lru_cache(maxsize=None)
+def _cluster_plan_array(n: int):
+    """cluster_plan(n) as csrc/dft_cluster.cu takes it, int32 on the host:
+    [C, N1, N2, len1, len2, P1, radices of N1, P2, radices of N2], len1 and
+    len2 the rows of the two pass_roots in cluster_tables(n)."""
+    n1, n2, ranks = cluster_plan(n)
+    plan1, plan2 = fft_plan(n1), fft_plan(n2)
+    values = (ranks, n1, n2, len(pass_roots(n1, plan1)), len(pass_roots(n2, plan2)),
+              len(plan1), *plan1, len(plan2), *plan2)
+    return (ctypes.c_int * len(values))(*values)
+
+
+def _chirp_kernel(n_fft: int) -> str:
+    """The kernel of the chirp mode at n_fft: "mixed" (the block layout of
+    csrc/dft_mixed.cu) where chirp_length(n_fft) is within MIXED_MAX,
+    "cluster" (csrc/dft_cluster.cu) above it."""
+    return "mixed" if chirp_length(n_fft) <= MIXED_MAX else "cluster"
+
+
+@lru_cache(maxsize=None)
 def _route_tables(route: str, window_bytes: bytes, device: torch.device):
     """A route's two tables for this window as tensors on `device`, uploaded
     once and kept: the FFT route's window and roots of unity (fft_tables),
-    the mixed route's window and pass-ordered roots (pass_roots), the chirp
-    route's chirp_tables and the pass-ordered roots of its M, the GEMM
-    route's window-folded C and S (windowed_dft_mats, 0.6 MB at n_fft
-    384)."""
+    the mixed route's window and pass-ordered roots (pass_roots), the
+    cluster route's window and cluster_tables, the chirp route's
+    chirp_tables and the roots of its M (pass_roots, or cluster_tables above
+    MIXED_MAX), the GEMM route's window-folded C and S (windowed_dft_mats,
+    0.6 MB at n_fft 384)."""
     n_fft = len(window_bytes) // 8
     if route == "gemm":
         arrays = _mats_cached(window_bytes)
@@ -589,30 +780,34 @@ def _route_tables(route: str, window_bytes: bytes, device: torch.device):
         arrays = _tables_cached(window_bytes)
     elif route == "mixed":
         arrays = (_tables_cached(window_bytes)[0], pass_roots(n_fft, fft_plan(n_fft)))
+    elif route == "cluster":
+        arrays = (_tables_cached(window_bytes)[0], cluster_tables(n_fft))
     else:
         m = chirp_length(n_fft)
-        arrays = (_chirp_cached(window_bytes, m), pass_roots(m, fft_plan(m)))
+        roots = pass_roots(m, fft_plan(m)) if m <= MIXED_MAX else cluster_tables(m)
+        arrays = (_chirp_cached(window_bytes, m), roots)
     return tuple(torch.from_numpy(a.copy()).to(device) for a in arrays)
 
 
 @lru_cache(maxsize=None)
-def _kernel(route: str):
-    """The C entry point of a route's library, returning a CUDA error code.
-    FFT and GEMM: (audio, dtype, table_a, table_b, out, n_frames, n_fft, hop,
-    stream), the FFT route's tables the window and the roots of unity, the
-    GEMM route's the window-folded C and S. Mixed and chirp, one entry point
-    (csrc/dft_mixed.cu): (audio, dtype, window, roots, chirp, plan, out,
-    n_frames, n_fft, hop, stream), roots from pass_roots, chirp from
-    chirp_tables (null for the mixed route, whose plan is of n_fft; the
-    chirp route's is of chirp_length(n_fft) and its window is not read),
-    plan from _plan_array."""
+def _kernel(kernel: str):
+    """The C entry point of a kernel's library, returning a CUDA error code.
+    "fft" and "gemm": (audio, dtype, table_a, table_b, out, n_frames, n_fft,
+    hop, stream), the FFT route's tables the window and the roots of unity,
+    the GEMM route's the window-folded C and S. "mixed" (csrc/dft_mixed.cu)
+    and "cluster" (csrc/dft_cluster.cu), each in an FFT and a chirp mode:
+    (audio, dtype, window, roots, chirp, plan, out, n_frames, n_fft, hop,
+    stream), roots from pass_roots (mixed) or cluster_tables (cluster), chirp
+    from chirp_tables (null in the FFT mode, whose plan is of n_fft; the
+    chirp mode's is of chirp_length(n_fft) and its window is not read), plan
+    from _plan_array or _cluster_plan_array."""
     lib, name = {"fft": ("dft_magnitude", "orcai_dft_magnitude"),
                  "mixed": ("dft_mixed", "orcai_dft_mixed"),
-                 "chirp": ("dft_mixed", "orcai_dft_mixed"),
-                 "gemm": ("dft_gemm", "orcai_dft_gemm")}[route]
+                 "cluster": ("dft_cluster", "orcai_dft_cluster"),
+                 "gemm": ("dft_gemm", "orcai_dft_gemm")}[kernel]
     fn = getattr(_build.load(lib), name)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    chirp = [ptr, ctypes.POINTER(ctypes.c_int)] if lib == "dft_mixed" else []
+    chirp = [ptr, ctypes.POINTER(ctypes.c_int)] if kernel in ("mixed", "cluster") else []
     fn.argtypes = [ptr, i32, ptr, ptr, *chirp, ptr, i32, i32, i32, ptr]
     fn.restype = ctypes.c_int
     return fn
@@ -621,12 +816,13 @@ def _kernel(route: str):
 def dft_route(n_fft: int) -> str:
     """The CUDA route of an n_fft: "fft" for FFT_SIZES; "mixed" for any
     other n_fft from 2 to MIXED_MAX whose prime factors are in MIXED_PRIMES;
-    "chirp" for any other n_fft from 2 to CHIRP_MAX; "gemm" otherwise (a
-    smooth n_fft above MIXED_MAX, any other above CHIRP_MAX)."""
+    "cluster" for such an n_fft from MIXED_MAX + 1 to CLUSTER_MAX; "chirp"
+    for any other n_fft from 2 to CHIRP_MAX; "gemm" otherwise (a smooth
+    n_fft above CLUSTER_MAX, any other above CHIRP_MAX)."""
     if n_fft in FFT_SIZES:
         return "fft"
-    if 2 <= n_fft <= MIXED_MAX and _smooth(n_fft):
-        return "mixed"
+    if 2 <= n_fft <= CLUSTER_MAX and _smooth(n_fft):
+        return "mixed" if n_fft <= MIXED_MAX else "cluster"
     return "chirp" if 2 <= n_fft <= CHIRP_MAX else "gemm"
 
 
@@ -654,18 +850,22 @@ def dft_magnitude(
         raise ValueError("dft_magnitude: audio must be contiguous")
     if padded.device.type != "cuda":
         raise ValueError(f"dft_magnitude: unsupported device {padded.device}")
-    route = dft_route(n_fft)
+    route = kernel = dft_route(n_fft)
     a, b = _route_tables(route, window.tobytes(), padded.device)
     if route == "mixed":
         tables = (a.data_ptr(), b.data_ptr(), None, _plan_array(n_fft))
+    elif route == "cluster":
+        tables = (a.data_ptr(), b.data_ptr(), None, _cluster_plan_array(n_fft))
     elif route == "chirp":
-        tables = (None, b.data_ptr(), a.data_ptr(), _plan_array(chirp_length(n_fft)))
+        kernel, m = _chirp_kernel(n_fft), chirp_length(n_fft)
+        plan = _plan_array(m) if kernel == "mixed" else _cluster_plan_array(m)
+        tables = (None, b.data_ptr(), a.data_ptr(), plan)
     else:
         tables = (a.data_ptr(), b.data_ptr())
     out = torch.empty((tpad, n_fft // 2 + 1), dtype=torch.float32, device=padded.device)
     with torch.cuda.device(padded.device):
         stream = torch.cuda.current_stream(padded.device).cuda_stream
-        err = _kernel(route)(
+        err = _kernel(kernel)(
             padded.data_ptr(), _DTYPE_CODES[padded.dtype], *tables, out.data_ptr(), tpad,
             n_fft, hop, stream,
         )

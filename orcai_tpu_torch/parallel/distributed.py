@@ -162,7 +162,9 @@ def make_hybrid_mesh(ici_data: int | None = None, dcn_data: int | None = None):
     on the host and only the one over "dcn" crosses the network.
 
     Defaults: dcn = ranks / processes per host, data = the rest. Returns a
-    torch DeviceMesh; mesh.get_group("data") is the in-host group.
+    torch DeviceMesh; mesh.get_group("data") is the in-host group. The mesh
+    keeps the group alive: drop it before dist.destroy_process_group(), or
+    the group's threads are torn down only at interpreter exit.
     """
     from torch.distributed.device_mesh import init_device_mesh
 

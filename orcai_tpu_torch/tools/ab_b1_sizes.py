@@ -1,0 +1,107 @@
+"""B1 (ops/dft.py::dft_magnitude) of two trees of this package, timed in
+turns on one CUDA device.
+
+    python -m orcai_tpu_torch.tools.ab_b1_sizes --trees A B [--sizes 384/192,352/176]
+        [--frames 32768] [--iters 20] [--rounds 2] [--seed 0]
+
+A and B are directories that hold an orcai_tpu_torch package (this
+checkout and another commit's, unpacked with `git archive`). The two
+packages share a name, so each run is a process of its own that imports
+its tree's package; the runs go A, B, B, A for each of --rounds. A run
+builds its tree's kernels (once a tree: the build stays in its _build/),
+makes an int16 tile of --frames frames at each n_fft / hop of --sizes from
+--seed, holds dft_magnitude against the tree's plain version (atol 2e-4,
+or 2e-4 of the float64 rFFT where the plain fp32 GEMM is itself farther)
+and times it with CUDA events over --iters launches behind a short device
+spin. Prints one JSON line of every run's ms by size, then the card's name
+and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+RUN = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from orcai_tpu_torch.ops.dft import dft_magnitude, dft_magnitude_plain
+from orcai_tpu_torch.ops.frontend import hann_window
+
+sizes, frames, iters, seed = json.loads(sys.argv[2]), *map(int, sys.argv[3:6])
+dev = torch.device("cuda")
+out = {}
+for n_fft, hop in sizes:
+    rng = np.random.default_rng(seed + n_fft)
+    n = (frames - 1) * hop + n_fft
+    x = torch.from_numpy(rng.integers(-32768, 32768, n, dtype=np.int16)).to(dev)
+    window = hann_window(n_fft)
+    got = dft_magnitude(x, window, n_fft=n_fft, hop=hop)
+    want = dft_magnitude_plain(x, window, n_fft=n_fft, hop=hop)
+    err = float((got - want).abs().max())
+    if not err <= 2e-4:
+        frames64 = (x.double() / 32768.0).unfold(0, n_fft, hop)
+        exact = torch.fft.rfft(frames64 * torch.from_numpy(window).to(dev), dim=1).abs()
+        kernel, plain = float((got - exact).abs().max()), float((want - exact).abs().max())
+        if not (plain > 2e-4 and kernel <= 2e-4):
+            raise SystemExit(f"{n_fft}/{hop}: kernel {err} from plain; against float64 "
+                             f"kernel {kernel}, plain {plain}")
+        del frames64, exact
+    del got, want
+    for _ in range(3):
+        dft_magnitude(x, window, n_fft=n_fft, hop=hop)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(8_000_000)
+    start.record()
+    for _ in range(iters):
+        dft_magnitude(x, window, n_fft=n_fft, hop=hop)
+    end.record()
+    end.synchronize()
+    out[f"{n_fft}/{hop}"] = start.elapsed_time(end) / iters
+print(json.dumps(out))
+"""
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--trees", nargs=2, required=True, metavar=("A", "B"))
+    parser.add_argument("--sizes", default="384/192,352/176,416/208,1024/256,2048/512")
+    parser.add_argument("--frames", type=int, default=32768)
+    parser.add_argument("--iters", type=int, default=20)
+    parser.add_argument("--rounds", type=int, default=2)
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_b1_sizes: no CUDA device")
+    sizes = [[int(v) for v in s.split("/")] for s in args.sizes.split(",")]
+    trees = [str(Path(t).resolve()) for t in args.trees]
+    runs = {t: [] for t in args.trees}
+    for _ in range(args.rounds):
+        for name, tree in zip([*args.trees, *reversed(args.trees)], [*trees, *reversed(trees)]):
+            proc = subprocess.run(
+                [sys.executable, "-c", RUN, tree, json.dumps(sizes), str(args.frames),
+                 str(args.iters), str(args.seed)],
+                capture_output=True, text=True, timeout=1800)
+            if proc.returncode != 0:
+                raise SystemExit(f"ab_b1_sizes: the run of {name} failed:\n{proc.stderr[-3000:]}")
+            runs[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    print(json.dumps({"frames": args.frames, "dtype": "int16", "order": "A B B A",
+                      "ms": {name: {size: [r[size] for r in rs] for size in rs[0]}
+                             for name, rs in runs.items()}}), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -13,7 +13,7 @@ the radix-8 plan (8 as often as it divides, then one 4 or 2, then the odd
 primes) with its own layouts. They run in turns (a, b, c, c, b, a), each
 timed with CUDA events over --iters launches, and every output is held
 against the plain version (atol 2e-4). The chirp mode (the same kernel)
-at 1088/544 and 2038/1019 the same way on three convolution lengths M:
+at 1216/608 and 2038/1019 the same way on three convolution lengths M:
 the default (ops/dft.py::chirp_length, the smooth M >= 2 n_fft - 1 whose
 passes move the fewest values), the smallest smooth M >= 2 n_fft - 1 and
 the power of two. Prints one JSON line per size, then the card's name and
@@ -27,7 +27,7 @@ import json
 import subprocess
 
 SIZES = ((384, 192), (352, 176), (768, 384), (1024, 256), (2048, 512))
-CHIRP_SIZES = ((1088, 544), (2038, 1019))
+CHIRP_SIZES = ((1216, 608), (2038, 1019))
 SPIN_CYCLES = 8_000_000  # about 4 ms at an H100's clock
 
 

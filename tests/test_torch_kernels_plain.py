@@ -30,23 +30,32 @@ from orcai_tpu_torch.ops.dft import (
     _C16,
     _S16,
     CHIRP_MAX,
+    CLUSTER_MAX,
     FFT_SIZES,
     MIXED_MAX,
+    _chirp_cluster_reference,
+    _chirp_kernel,
     _chirp_reference,
+    _cluster_plan_array,
     _exchange_accesses,
+    _fft_cluster_reference,
     _fft_mixed_reference,
     _fft_pairs_reference,
     _odd_roots,
     _pad_address,
+    _passes,
     _wavefronts,
     chirp_length,
     chirp_tables,
+    cluster_plan,
+    cluster_tables,
     dft_magnitude,
     dft_magnitude_plain,
     dft_route,
     exchange_pads,
     fft_plan,
     fft_tables,
+    four_step_roots,
     pass_roots,
     roots_of_unity,
     windowed_dft_mats,
@@ -165,14 +174,17 @@ def test_dft_wrapper_validates_geometry():
 
 @pytest.mark.parametrize(
     "n_fft,hop", [(1024, 256), (256, 128), (384, 128), (416, 208), (4096, 1024), (512, 256),
-                  (1088, 544), (4352, 2176)])
+                  (1088, 544), (4352, 2176), (1216, 608), (16384, 8192), (8198, 4099),
+                  (16418, 8209)])
 def test_dft_wrapper_names_supported_sizes(n_fft, hop):
     """Off the CPU every n_fft that hop divides has a kernel: 512 the FFT,
-    a {2, 3, 5, 7, 11, 13}-smooth n_fft up to 8192 the mixed-radix FFT, any
-    other up to 4096 its chirp mode, the rest the GEMM. What no kernel takes
-    raises and names what they take; nothing routes it to the plain
-    version."""
-    want = {512: "fft", 1088: "chirp", 4352: "gemm"}.get(n_fft, "mixed")
+    a {2, 3, 5, 7, 11, 13, 17}-smooth n_fft up to 8192 the mixed-radix FFT
+    (1088, 4352), such an n_fft up to 32768 the cluster layout, any other up
+    to 16384 the chirp mode (1216, 8198), the rest the GEMM (16418). What no
+    kernel takes raises and names what they take; nothing routes it to the
+    plain version."""
+    want = {512: "fft", 1216: "chirp", 8198: "chirp", 16384: "cluster",
+            16418: "gemm"}.get(n_fft, "mixed")
     assert dft_route(n_fft) == want and dft_route(512) == "fft"
     for dtype in (torch.float64, torch.int32, torch.bool):
         x = torch.zeros(3 * hop + n_fft, dtype=dtype, device="meta")
@@ -273,7 +285,7 @@ MIXED_SIZES = [(384, 192), (352, 176), (768, 384), (704, 352), (1024, 256), (256
 
 
 def _smooth(n):
-    for p in (2, 3, 5, 7, 11, 13):
+    for p in (2, 3, 5, 7, 11, 13, 17):
         while n % p == 0:
             n //= p
     return n == 1
@@ -281,49 +293,128 @@ def _smooth(n):
 
 def test_dft_route_and_fft_plan_cover_the_smooth_sizes():
     """dft_route sends 512 to the FFT route, every other {2, 3, 5, 7, 11,
-    13}-smooth n_fft from 2 to 8192 to the mixed route (416, 4096, 8192),
-    every other n_fft from 2 to 4096 to the chirp mode (a prime, 1088), and
-    the rest (a smooth n_fft above 8192, any other above 4096) to the GEMM;
-    fft_plan's radices multiply back to n_fft (for the chirp mode to its
-    convolution length, the least smooth M >= 2 n_fft - 1): the power-of-two
-    part first, in the fewest passes of radix 16 at most, split as evenly as
-    possible with the larger radices first, then the odd primes in
-    ascending order."""
+    13, 17}-smooth n_fft from 2 to 8192 to the mixed route (416, 1088,
+    4096, 4352, 8192), such an n_fft from 8193 to 32768 to the cluster
+    layout (16384, 32768), every other n_fft from 2 to 16384 to the chirp
+    mode (a prime, 1216, 8198), and the rest (a smooth n_fft above 32768,
+    any other above 16384) to the GEMM; fft_plan's radices multiply back to
+    n_fft (for the chirp mode on the block layout to its convolution
+    length): the power-of-two part first, in the fewest passes of radix 16
+    at most, split as evenly as possible with the larger radices first,
+    then the odd primes in ascending order."""
     assert dft_route(512) == "fft"
-    for n in (384, 352, 768, 704, 1024, 256, 2048, 375, 416, 13, 4096, 8192):
+    for n in (384, 352, 768, 704, 1024, 256, 2048, 375, 416, 13, 17, 1088, 4096, 4352, 8192):
         assert dft_route(n) == "mixed"
-    for n in (1021, 1088, 2038, 17, 2053, 4093):
+    for n in (16384, 32768, 8232, 19683, 28561):
+        assert dft_route(n) == "cluster"
+    for n in (1021, 1216, 2038, 19, 2053, 4093, 4097, 8198, 16381):
         assert dft_route(n) == "chirp"
-    for n in (4352, 16384, 1, 4097, 2 * MIXED_MAX):
+    for n in (16418, 1, 16411, 2 * CLUSTER_MAX, CLUSTER_MAX + 2):
         assert dft_route(n) == "gemm"
-    assert MIXED_MAX == 8192 and CHIRP_MAX == 4096
+    assert MIXED_MAX == 8192 and CHIRP_MAX == 16384 and CLUSTER_MAX == 32768
     routes = {n: dft_route(n) for n in range(1, 4 * MIXED_MAX)}
     mixed = [n for n, r in routes.items() if r == "mixed"]
     assert mixed == [n for n in range(2, MIXED_MAX + 1) if _smooth(n) and n != 512]
     chirp = [n for n, r in routes.items() if r == "chirp"]
     assert chirp == [n for n in range(2, CHIRP_MAX + 1) if not _smooth(n)]
-    for n in mixed + [512] + [chirp_length(n) for n in chirp]:
+    block = [n for n in chirp if n <= MIXED_MAX // 2]
+    for n in mixed + [512] + [chirp_length(n) for n in block]:
         plan = fft_plan(n)
-        assert int(np.prod(plan)) == n and set(plan) <= {2, 3, 4, 5, 7, 8, 11, 13, 16}
+        assert int(np.prod(plan)) == n and set(plan) <= {2, 3, 4, 5, 7, 8, 11, 13, 16, 17}
         twos = [r for r in plan if r in (2, 4, 8, 16)]
         a = int(np.log2(np.prod(twos)))
         assert list(plan) == twos + sorted(r for r in plan if r not in twos)
         assert len(twos) == -(-a // 4) and twos == sorted(twos, reverse=True)
         assert not twos or twos[0] <= 2 * twos[-1]
-    for n in chirp:
+    for n in block:
         m = chirp_length(n)
         assert 2 * n - 1 <= m <= min(4 * n, MIXED_MAX) and _smooth(m)
-    for n in chirp[::37]:  # of the smooth lengths it may take, the fewest values moved
+    for n in chirp[len(block)::397]:  # the cluster layout's lengths
         m = chirp_length(n)
-        for k in range(2 * n - 1, min(4 * n, MIXED_MAX) + 1):
-            assert not _smooth(k) or (m * len(fft_plan(m)), m) <= (k * len(fft_plan(k)), k)
-    assert chirp_length(1088) == 2197 and chirp_length(2038) == 4096
+        assert MIXED_MAX < 2 * n - 1 <= m <= min(4 * n, CLUSTER_MAX) and _smooth(m)
+        assert _chirp_kernel(n) == "cluster"
+    for n in chirp[::37] + chirp[len(block)::797]:  # of the lengths it may take, the fewest
+        m = chirp_length(n)                         # values moved
+        top = min(4 * n, MIXED_MAX if n <= MIXED_MAX // 2 else CLUSTER_MAX)
+        for k in range(2 * n - 1, top + 1):
+            assert not _smooth(k) or (m * _passes(m), m) <= (k * _passes(k), k)
+    # radix 17 gives 1088's length (2197 = 13^3 without it) and 1216's
+    assert chirp_length(1088) == 2176 and chirp_length(1216) == 2431
+    assert chirp_length(2038) == 4096 and chirp_length(8198) == 16456
     assert fft_plan(384) == (16, 8, 3) and fft_plan(352) == (8, 4, 11)
     assert fft_plan(1024) == (16, 8, 8) and fft_plan(375) == (3, 5, 5, 5)
     assert fft_plan(416) == (8, 4, 13) and fft_plan(8192) == (16, 8, 8, 8)
-    for n in (1088, 16384, 1):
+    assert fft_plan(1088) == (8, 8, 17) and fft_plan(4352) == (16, 16, 17)
+    assert fft_plan(2431) == (11, 13, 17)
+    for n in (1216, 16384, 1):
         with pytest.raises(ValueError):
             fft_plan(n)
+
+
+def test_dft_route_partitions_every_size_to_twice_the_cluster_limit():
+    """Every n_fft from 1 to 2 * 32768 has exactly one route, by its
+    factors and size alone: 512 the FFT; a {2, ..., 17}-smooth n_fft the
+    mixed route up to 8192 and the cluster layout up to 32768; any other
+    the chirp mode from 2 to 16384; the GEMM for the rest (a smooth n_fft
+    above 32768, any other above 16384, and 1)."""
+    counts = dict.fromkeys(("fft", "mixed", "cluster", "chirp", "gemm"), 0)
+    for n in range(1, 2 * CLUSTER_MAX + 1):
+        route = dft_route(n)
+        smooth = n >= 2 and _smooth(n)
+        if n == 512:
+            want = "fft"
+        elif smooth and n <= MIXED_MAX:
+            want = "mixed"
+        elif smooth and n <= CLUSTER_MAX:
+            want = "cluster"
+        elif not smooth and 2 <= n <= CHIRP_MAX:
+            want = "chirp"
+        else:
+            want = "gemm"
+        assert route == want, (n, route, want)
+        counts[route] += 1
+    assert sum(counts.values()) == 2 * CLUSTER_MAX and counts["fft"] == 1
+    assert counts["gemm"] == 2 * CLUSTER_MAX - CHIRP_MAX + 1 - sum(
+        1 for n in range(CHIRP_MAX + 1, CLUSTER_MAX + 1) if _smooth(n))
+
+
+def test_cluster_plan_splits_and_tables():
+    """cluster_plan splits N = N1 * N2 with the fewest passes, then the most
+    even split, on 2 CTAs up to 20480 and 4 above; four_step_roots are the
+    float64 roots of unity W_N^(k1 j) rounded once; cluster_tables and the
+    packed plan hold the two sides' pass roots, the twiddles in both orders
+    and the lengths the kernel checks."""
+    assert cluster_plan(16384) == (128, 128, 2) and cluster_plan(32768) == (256, 128, 4)
+    assert cluster_plan(16456) == (136, 121, 2) and cluster_plan(8228) == (121, 68, 2)
+    assert cluster_plan(20480)[2] == 2 and cluster_plan(20736) == (144, 144, 4)
+    for n in (MIXED_MAX, CLUSTER_MAX + 1, 16418, 1):
+        with pytest.raises(ValueError):
+            cluster_plan(n)
+    for n in (8232, 9801, 19683, 28561, 30000, 32768):
+        n1, n2, ranks = cluster_plan(n)
+        assert n1 * n2 == n and 2 <= n2 <= n1 <= MIXED_MAX
+        assert ranks == (2 if n <= 20480 else 4)
+        passes = len(fft_plan(n1)) + len(fft_plan(n2))
+        for d in range(2, MIXED_MAX + 1):
+            if n % d == 0 and n // d <= MIXED_MAX:
+                assert passes <= len(fft_plan(d)) + len(fft_plan(n // d))
+    n1, n2 = 24, 40
+    t = four_step_roots(n1, n2)
+    k1, j = np.meshgrid(np.arange(n1), np.arange(n2), indexing="ij")
+    want = np.exp(-2j * np.pi * (k1 * j % (n1 * n2)) / (n1 * n2)).reshape(-1)
+    np.testing.assert_array_equal(t[:, 0], want.real.astype(np.float32))
+    np.testing.assert_array_equal(t[:, 1], want.imag.astype(np.float32))
+    n1, n2, ranks = cluster_plan(32768)
+    table = cluster_tables(32768)
+    len1, len2 = len(pass_roots(n1, fft_plan(n1))), len(pass_roots(n2, fft_plan(n2)))
+    assert table.shape == (len1 + len2 + 2 * 32768, 2)
+    np.testing.assert_array_equal(table[:len1], pass_roots(n1, fft_plan(n1)))
+    np.testing.assert_array_equal(table[len1:len1 + len2], pass_roots(n2, fft_plan(n2)))
+    t = four_step_roots(n1, n2).reshape(n1, n2, 2)
+    np.testing.assert_array_equal(table[len1 + len2:len1 + len2 + 32768].reshape(n1, n2, 2), t)
+    np.testing.assert_array_equal(table[len1 + len2 + 32768:].reshape(n2, n1, 2),
+                                  t.transpose(1, 0, 2))
+    assert list(_cluster_plan_array(32768)) == [4, 256, 128, len1, len2, 2, 16, 16, 2, 16, 8]
 
 
 @pytest.mark.parametrize("n_fft,hop", MIXED_SIZES)
@@ -384,7 +475,8 @@ def test_fft_mixed_reference_is_no_farther_from_float64_than_the_gemm(n_fft, hop
     assert err_fft <= 2e-5
 
 
-NEW_SIZES = [(416, 208), (4096, 2048), (8192, 4096), (1088, 544), (2038, 1019), (1021, 1021)]
+NEW_SIZES = [(416, 208), (4096, 2048), (8192, 4096), (1088, 544), (2038, 1019), (1021, 1021),
+             (4352, 2176), (1216, 608)]
 
 
 def _reference(n_fft):
@@ -395,13 +487,15 @@ def _reference(n_fft):
 @pytest.mark.parametrize("n_fft,hop", NEW_SIZES)
 @pytest.mark.parametrize("dtype", ["f32", "int16", "uint8"])
 def test_mixed_and_chirp_references_at_the_new_sizes(n_fft, hop, dtype):
-    """The mixed route at 416 (8, 4, 13), 4096 and 8192 and the chirp mode
-    at 1088, 2038 and the prime 1021 (two Bluestein FFTs of the kernel's
-    passes with its chirp tables) against the Pallas kernel in interpret
-    mode, atol 2e-4, and no farther from numpy's float64 rfft than the plain
-    version (the framed fp32 GEMM), in float32, int16 and uint8."""
+    """The mixed route at 416 (8, 4, 13), 4096, 8192 and with radix 17 at
+    1088 (8, 8, 17) and 4352 (16, 16, 17), and the chirp mode at 2038, the
+    prime 1021 and 1216 = 2^6 * 19 (two Bluestein FFTs of the kernel's
+    passes with its chirp tables; M = 2431 = 11 * 13 * 17) against the
+    Pallas kernel in interpret mode, atol 2e-4, and no farther from numpy's
+    float64 rfft than the plain version (the framed fp32 GEMM), in float32,
+    int16 and uint8."""
     rng = np.random.default_rng(n_fft + hop)
-    tpad = 64 if n_fft < 8192 else 32
+    tpad = 64 if n_fft < 4352 else 32
     n = (tpad - 1) * hop + n_fft
     pcm = rng.integers(-32768, 32768, n, dtype=np.int16)
     padded = {"f32": (0.3 * rng.standard_normal(n)).astype(np.float32), "int16": pcm,
@@ -420,7 +514,7 @@ def test_mixed_and_chirp_references_at_the_new_sizes(n_fft, hop, dtype):
     assert err <= err_plain, (err, err_plain)
 
 
-@pytest.mark.parametrize("n_fft,hop", [(1088, 544), (1021, 1021), (17, 17)])
+@pytest.mark.parametrize("n_fft,hop", [(1216, 608), (1088, 544), (1021, 1021), (19, 19), (17, 17)])
 def test_chirp_reference_odd_count_and_codes(n_fft, hop):
     """The chirp mode at an odd frame count (a phantom second frame of
     zeros) against numpy's float64 rfft, atol 2e-4, and the codes through
@@ -438,6 +532,86 @@ def test_chirp_reference_odd_count_and_codes(n_fft, hop):
     b = _chirp_reference(torch.from_numpy(mulaw_decode_host(codes)), window, n_fft=n_fft,
                          hop=hop)
     assert torch.equal(a, b)
+
+
+def _signal(dtype, n, seed):
+    """(samples, their float64 values) of a synthetic tile."""
+    rng = np.random.default_rng(seed)
+    pcm = rng.integers(-32768, 32768, n, dtype=np.int16)
+    padded = {"f32": (0.3 * rng.standard_normal(n)).astype(np.float32), "int16": pcm,
+              "uint8": mulaw_encode(pcm)}[dtype]
+    as_f64 = {"f32": padded.astype(np.float64), "int16": pcm / 32768.0,
+              "uint8": mulaw_decode_host(padded) / 32768.0}[dtype]
+    return padded, as_f64
+
+
+def _rfft_mag(as_f64, window, n_fft, hop):
+    frames = np.lib.stride_tricks.sliding_window_view(as_f64, n_fft)[::hop] * window
+    return np.abs(np.fft.rfft(frames, axis=1))
+
+
+@pytest.mark.parametrize("n_fft,hop,split", [(1024, 256, (32, 32)), (2048, 512, (64, 32)),
+                                             (1000, 500, (40, 25))])
+@pytest.mark.parametrize("dtype", ["f32", "int16", "uint8"])
+def test_cluster_reference_at_small_splits_matches_pallas(n_fft, hop, split, dtype):
+    """The cluster layout's arithmetic (the four steps: N1-point column
+    FFTs, the four-step twiddles, N2-point row FFTs, then the untangle) at
+    small splits against the Pallas kernel in interpret mode and numpy's
+    float64 rfft, atol 2e-4; the split changes the arithmetic, the kernel's
+    rank count does not."""
+    tpad = 32
+    padded, as_f64 = _signal(dtype, (tpad - 1) * hop + n_fft, n_fft + split[1])
+    window = port_hann_window(n_fft)
+    got = _fft_cluster_reference(torch.from_numpy(padded), window, n_fft=n_fft, hop=hop,
+                                 split=split)
+    assert got.shape == (tpad, n_fft // 2 + 1) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _pallas(padded, n_fft, hop, 32), atol=2e-4, rtol=0)
+    np.testing.assert_allclose(got.numpy(), _rfft_mag(as_f64, window, n_fft, hop), atol=2e-4,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("n_fft,hop,m,split", [(1021, 1021, 2048, (64, 32)),
+                                               (607, 607, 1224, (51, 24)),
+                                               (1216, 608, 2448, (48, 51))])
+@pytest.mark.parametrize("dtype", ["f32", "int16", "uint8"])
+def test_chirp_cluster_reference_at_small_splits_matches_pallas(n_fft, hop, m, split, dtype):
+    """The chirp mode on the cluster layout (the first FFT in four steps,
+    the product with B where it leaves each value, the second FFT rows
+    first) at small lengths and splits against the Pallas kernel in
+    interpret mode and numpy's float64 rfft, atol 2e-4."""
+    tpad = 32
+    padded, as_f64 = _signal(dtype, (tpad - 1) * hop + n_fft, n_fft + m)
+    window = port_hann_window(n_fft)
+    got = _chirp_cluster_reference(torch.from_numpy(padded), window, n_fft=n_fft, hop=hop, m=m,
+                                   split=split)
+    assert got.shape == (tpad, n_fft // 2 + 1) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _pallas(padded, n_fft, hop, 32), atol=2e-4, rtol=0)
+    np.testing.assert_allclose(got.numpy(), _rfft_mag(as_f64, window, n_fft, hop), atol=2e-4,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("n_fft,hop,tpad", [(16384, 8192, 3), (32768, 16384, 2),
+                                            (8198, 4099, 3), (16383, 16383, 2)])
+@pytest.mark.parametrize("dtype", ["f32", "int16", "uint8"])
+def test_cluster_references_at_the_route_sizes_match_float64(n_fft, hop, tpad, dtype):
+    """The cluster route's arithmetic at 16384 (128 x 128) and 32768
+    (256 x 128), and the chirp mode on the cluster layout at 8198 (M =
+    16456 = 136 x 121) and 16383 (M = 32768), on a few frames (an odd count
+    included) against numpy's float64 rfft, atol 2e-4; the codes through
+    each bit-equal to their host decode to int16. (The Pallas kernel's
+    matrices at these sizes are too heavy for this suite.)"""
+    padded, as_f64 = _signal(dtype, (tpad - 1) * hop + n_fft, n_fft + tpad)
+    window = port_hann_window(n_fft)
+    ref = (_fft_cluster_reference if dft_route(n_fft) == "cluster"
+           else _chirp_cluster_reference)
+    assert dft_route(n_fft) == "cluster" or _chirp_kernel(n_fft) == "cluster"
+    got = ref(torch.from_numpy(padded), window, n_fft=n_fft, hop=hop)
+    assert got.shape == (tpad, n_fft // 2 + 1) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _rfft_mag(as_f64, window, n_fft, hop), atol=2e-4,
+                               rtol=0)
+    if dtype == "uint8":
+        decoded = ref(torch.from_numpy(mulaw_decode_host(padded)), window, n_fft=n_fft, hop=hop)
+        assert torch.equal(got, decoded)
 
 
 @pytest.mark.parametrize("n_fft", [46349, 1088, 17])
@@ -477,7 +651,7 @@ def test_chirp_tables_match_float64(n_fft):
         assert np.abs(dft - want).max() <= 1e-5 * np.abs(want).max()
 
 
-@pytest.mark.parametrize("n", [384, 416, 4096, 2178, 13])
+@pytest.mark.parametrize("n", [384, 416, 4096, 2178, 13, 1088, 4352, 2431, 17])
 def test_pass_roots_are_the_roots_each_pass_reads(n):
     """pass_roots lays the n roots of unity out as the mixed kernel's passes
     read them: for pass p > 0 of radix R after Ns points, tw[r jm n/(Ns R)]
@@ -497,18 +671,21 @@ def test_pass_roots_are_the_roots_each_pass_reads(n):
 
 
 def test_mixed_kernel_constants_are_the_reference_s():
-    """The butterflies' float32 constants written in csrc/dft_mixed.cu (the
-    odd radices' roots, radix 16's W16 twiddles) are those of the reference
-    (_odd_roots, _C16, _S16): float64 values rounded once."""
+    """The butterflies' float32 constants written in csrc/dft_butterflies.cuh
+    (the odd radices' roots up to 17, radix 16's W16 twiddles), which
+    csrc/dft_mixed.cu and csrc/dft_cluster.cu include, are those of the
+    reference (_odd_roots, _C16, _S16): float64 values rounded once."""
+    for name in ("dft_mixed.cu", "dft_cluster.cu"):
+        assert '#include "dft_butterflies.cuh"' in (_build.CSRC / name).read_text()
     import re
 
-    src = (_build.CSRC / "dft_mixed.cu").read_text()
+    src = (_build.CSRC / "dft_butterflies.cuh").read_text()  # included by both FFT kernels
     for fn, col in (("root_cos", 0), ("root_sin", 1)):
         body = src[src.index(f"float {fn}(int R, int m)"):]
         body = body[:body.index("return 0.0f;")]
         got = {(int(r), int(m)): np.float32(v) for r, m, v in re.findall(
             r"case (\d+) \* 16 \+ (\d+): return (-?[0-9.]+)f;", body)}
-        want = {(r, m + 1): v for r in (3, 5, 7, 11, 13)
+        want = {(r, m + 1): v for r in (3, 5, 7, 11, 13, 17)
                 for m, v in enumerate(_odd_roots(r)[col])}
         assert got == want
     for name, want in (("wc", _C16), ("ws", _S16)):
@@ -520,10 +697,11 @@ def test_mixed_kernel_constants_are_the_reference_s():
 def test_exchange_pads_leave_no_bank_conflict_at_the_main_sizes():
     """The layouts the host picks for the mixed kernel's exchange buffers
     (a + ((a >> s) << g)) give each warp access its fewest shared-memory
-    wavefronts at 256, 384, 768, 1024, 2048, 4096 and 8192, within 10 % of
-    that at 352, 704 and 416, and never more than no padding."""
+    wavefronts at 256, 384, 768, 1024, 2048, 4096, 8192 and 4352 = 16 * 16
+    * 17, within 10 % of that at 352, 704, 416 and 1088 = 8 * 8 * 17, and
+    never more than no padding."""
     for n, slack in ((256, 0), (384, 0), (768, 0), (1024, 0), (2048, 0), (4096, 0), (8192, 0),
-                     (352, 0.1), (704, 0.1), (416, 0.1)):
+                     (4352, 0), (352, 0.1), (704, 0.1), (416, 0.1), (1088, 0.1)):
         got = ideal = bare = 0
         for accesses, pad in zip(_exchange_accesses(n, fft_plan(n)), exchange_pads(n)):
             for addr in accesses:
@@ -534,19 +712,21 @@ def test_exchange_pads_leave_no_bank_conflict_at_the_main_sizes():
 
 
 def test_b1_tools_plans_and_refusal_without_a_card():
-    """tools/bench_dft_plans.py's radix-8 plans multiply back to n_fft; it
-    and tools/time_b1_routes.py stop without a card instead of timing the
-    CPU."""
-    from orcai_tpu_torch.tools import bench_dft_plans, time_b1_routes
+    """tools/bench_dft_plans.py's radix-8 plans multiply back to n_fft and
+    its chirp sizes are the chirp route's; it, tools/time_b1_routes.py and
+    tools/ab_b1_sizes.py stop without a card instead of timing the CPU."""
+    from orcai_tpu_torch.tools import ab_b1_sizes, bench_dft_plans, time_b1_routes
 
     assert bench_dft_plans.radix8_plan(384) == (8, 8, 2, 3)
     assert bench_dft_plans.radix8_plan(1024) == (8, 8, 8, 2)
     for n, _ in bench_dft_plans.SIZES:
         assert int(np.prod(bench_dft_plans.radix8_plan(n))) == n
     assert bench_dft_plans.radix8_plan(352) == fft_plan(352)
-    for tool in (bench_dft_plans, time_b1_routes):
+    assert all(dft_route(n) == "chirp" for n, _ in bench_dft_plans.CHIRP_SIZES)
+    for tool, argv in ((bench_dft_plans, []), (time_b1_routes, []),
+                       (ab_b1_sizes, ["--trees", ".", "."])):
         with pytest.raises(SystemExit, match="no CUDA device"):
-            tool.main([])
+            tool.main(argv)
 
 
 @pytest.fixture(scope="module")

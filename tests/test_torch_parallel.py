@@ -560,6 +560,10 @@ x = torch.arange(4, dtype=torch.float32)
 dist.all_reduce(x, group=mesh.get_group("data"))
 assert x.tolist() == [0.0, 1.0, 2.0, 3.0], x
 print("DISTRIBUTED-OK", dist.get_backend())
+# the mesh holds the group: dropped first, destroy_process_group joins the
+# gloo and store threads here instead of leaving them to interpreter exit,
+# where their teardown can abort the process
+del mesh
 dist.destroy_process_group()
 """
 
