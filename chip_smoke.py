@@ -84,28 +84,35 @@ Phases, each printing one JSON line and failing the run on any error:
            plain fp32 GEMM itself misses it, at 4096 and above): the mixed
            route at (n_fft, hop) 384/192, 352/176, 1024/256, 4096/2048 and
            8192/4096 in float32, int16 and uint8 mu-law codes and at
-           768/384, 704/352, 2048/512, 416/208 and with radix 17 at
-           1088/544 and 4352/2176 in int16 and uint8, also at streamed
-           sp-bfp5's 188784- and 262144-frame tiles at 384/192; the cluster
-           route at 16384/8192 and 32768/16384 in all three types (at 32768,
-           where the plain GEMM's tables are 2.1 GB each, against the
-           kernel's arithmetic step by step on the card on a 33-frame tile
-           and against the float64 rFFT on every frame); the chirp route at
-           2038/1019 and 1216/608 (block layout) and 8198/4099 (cluster
-           layout), the GEMM route at 16418/8209 on a 301-frame tile and the
-           FFT route at 512/256 in uint8; B1 of the codes bit-equal to B1 of
-           their int16 decode on every route; the new sizes no farther from
-           the float64 rFFT than the plain version; kernel, plain,
+           768/384, 704/352, 2048/512, 416/208, with radix 17 at 1088/544
+           and 4352/2176, with radix 19 at 1216/608 and with radix 23 at
+           1472/736 and 368/184 in int16 and uint8,
+           also at streamed sp-bfp5's 188784- and 262144-frame tiles at
+           384/192; the cluster route at 16384/8192 and 32768/16384 in all
+           three types and at 65536/32768 (8 CTAs) in int16 and uint8 on
+           the 11251-frame tile (at 32768 and 65536, where the plain GEMM's
+           tables are 4.3 and 17 GB, against the kernel's arithmetic step by
+           step on the card on a 33-frame tile and against the float64 rFFT
+           on every frame); the chirp route at 2038/1019 and 470/235 (block
+           layout), 8198/4099 and 16418/8209 (cluster layout, 2 and 4 CTAs;
+           16418 also on a 301-frame tile) and 24578/12289 (8 CTAs, on the
+           11251-frame tile, held as 65536 is), the GEMM route at
+           40962/20481 on a 301-frame tile (also against the float64 rFFT)
+           and the FFT route at 512/256 in uint8; how many clusters the card
+           holds at once on 2, 4 and 8 CTAs; B1 of the codes bit-equal to B1
+           of their int16 decode on every route; the new sizes no farther
+           from the float64 rFFT than the plain version; kernel, plain,
            torch.stft and the GEMM kernel called directly at the same n_fft
            (on a 301-frame tile above 8192), timed side by side; `predict`
            on golden through mulaw8, bfp6, bfp5, sp-bfp6, sp-bfp5 and
            sp11-bfp5, each inside the reference's golden bar (B1 1, B2 3,
            pick 3 launches on the wire's
            route: the spectral wires on the mixed route); create-spectrograms
-           through the CLI on a one-minute project at nfft 416 and 1088 (B1
-           1 on the mixed route), 2038 (the chirp route), 16384 (the cluster
-           route) and 16418 (the GEMM route), B2 3, pick 3; the store against
-           the CPU path within 2e-4;
+           through the CLI on a one-minute project at nfft 416 and 1216 (B1
+           1 on the mixed route), 2038 and 16418 (the chirp route on the
+           block and the cluster layout), 16384 (the cluster route) and
+           40962 (the GEMM route), B2 3, pick 3; the store against the CPU
+           path within 2e-4;
            the 20-minute recording in memory on exact, mulaw8, bfp5
            and sp-bfp5 (7 / 3 / 3 launches, the spectrogram within 2e-4 of the
            port's CPU path on the same wire, the frontend's wall, device copy
@@ -226,6 +233,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 import zipfile
@@ -237,10 +245,11 @@ MINUTES = 20.0  # the throughput cell: 225001 frames, 7 real tiles, 610 windows
 LONG_REPEATS = 14  # the streaming cell: 4 h 40 min, 3150001 frames, 8559 windows
 STATS_TILE, CHUNK_TILE = 1 << 18, (512 + 1) * 368  # the streaming path's tiles, frames
 B1_TILES = (32768, 11251)  # frames: the in-memory tile, golden's (odd, ragged) count
-GEMM_FRAMES = 301  # frames of B1's tile at 16418 (the GEMM route) and of the GEMM kernel
-#   called directly above 8192, where its time grows as n_fft^2
-PLAIN_MAX = 16418  # the largest n_fft held against B1's plain version: at 32768 its
-#   tables are 2.1 GB each in float32, built through float64 on the host
+GEMM_FRAMES = 301  # frames of B1's tile at 40962 (the GEMM route), of 16418's old GEMM
+#   tile and of the GEMM kernel called directly above 8192: its time grows as n_fft^2
+PLAIN_MAX = 16418  # the largest n_fft held against B1's plain version but the GEMM
+#   route's: at 24578, 32768 and 65536 its tables are 2.4, 4.3 and 17 GB in float32,
+#   built through float64 on the host; the step-by-step reference holds those
 B1_SHORT = 33  # frames of the step-by-step reference run on the card above PLAIN_MAX
 PEAK_SLACK_BYTES = 64 * 1024 * 1024
 TVT_SNIPPETS = (512, 128, 70)  # train / val / test; 70 leaves a remainder batch at 64
@@ -650,9 +659,9 @@ def check_counts(counts: dict, b1: int, where: str, b2: int = 3, pick: int = 3,
     Streaming: B1 three times per stats tile and once per chunk, B2 three
     times per stats tile, and the pick on the host from int64 counts. Every
     B1 launch takes `route` (ops/dft.py::dft_route: the FFT at n_fft 512, the
-    mixed-radix FFT at the spectral wires' 384 and 352 and at 416 and 1088,
-    the cluster layout at 16384, the chirp mode at 2038, the GEMM at
-    16418)."""
+    mixed-radix FFT at the spectral wires' 384 and 352 and at 416 and 1216,
+    the cluster layout at 16384, the chirp mode at 2038 and 16418, the GEMM
+    at 40962)."""
     want = {"dft_magnitude": b1, "digit_histograms": b2, "radix_pick": pick,
             "b1_routes": {r: b1 if r == route else 0 for r in counts["b1_routes"]}}
     if counts != want:
@@ -1546,33 +1555,45 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict]:
     plain version (atol 2e-4), on a 32768-frame tile, the ragged 11251-frame
     one and a uint8 view one byte off alignment: the mixed route at 384/192,
     352/176, 1024/256, 4096/2048 and 8192/4096 in float32, int16 and uint8
-    and at 768/384, 704/352, 2048/512, 416/208, 1088/544 and 4352/2176 (radix
-    17) in int16 and uint8, also at streamed sp-bfp5's tiles (384/192); the
-    cluster route at 16384/8192 and 32768/16384 in all three types; the
-    chirp route at 2038/1019 and 1216/608 (block layout) and 8198/4099
-    (cluster layout) in int16 and uint8; the GEMM route at 16418/8209 on a
-    GEMM_FRAMES-frame tile (int16, uint8); the FFT route at 512/256 in uint8.
-    B1 of the codes bit-equal to B1 of their int16 decode on each route; on
-    the 32768-frame tile, the mixed route in int16 and every type at this
-    PR's sizes no farther from the float64 rFFT than the plain version.
-    Where the kernel is more than 2e-4 from the plain version, the plain
-    fp32 GEMM must itself be more than 2e-4 from the float64 rFFT and the
-    kernel within 2e-4 of it (recorded in plain_past_bar). Above PLAIN_MAX
-    (32768, whose plain tables are 2.1 GB each in float32, built through
-    float64 on the host) the kernel is held instead against its arithmetic
-    step by step (ops/dft.py::_fft_cluster_reference) run on the card on a
-    B1_SHORT-frame tile, and against the float64 rFFT on every frame, both
-    at 2e-4. Times, on the 32768-frame tile, at this PR's sizes on the
-    other tiles too, and on the streamed tiles: the route's kernel, the
-    GEMM kernel called directly at the same n_fft (above 8192 on a
-    GEMM_FRAMES-frame tile: its time grows as N^2), the plain version,
-    torch.stft(...).abs() and the byte bound. Returns (the phase's record,
-    the mixed, the cluster, the chirp and the GEMM route's kernels rows)."""
+    and at 768/384, 704/352, 2048/512, 416/208, 1088/544, 4352/2176 (radix
+    17), 1216/608 (radix 19), 1472/736 and 368/184 (radix 23; 368 on the
+    32768-frame tile) in int16 and uint8, also at streamed
+    sp-bfp5's tiles (384/192); the cluster route at 16384/8192 and
+    32768/16384 in all three types and at 65536/32768 (8 CTAs) in int16 and
+    uint8 on the 11251-frame tile; the chirp route at 2038/1019 and 470/235
+    (block layout), 8198/4099 and 16418/8209 (cluster layout, 2 and 4 CTAs;
+    16418 also on a GEMM_FRAMES-frame tile) in int16 and uint8, and at
+    24578/12289 (8 CTAs) on the 11251-frame tile; the GEMM route at
+    40962/20481 on a GEMM_FRAMES-frame tile (int16, uint8); the FFT route
+    at 512/256 in uint8. B1 of the codes bit-equal to B1 of their int16
+    decode on each route; on the 32768-frame tile, the mixed route in int16
+    and every type at this PR's sizes no farther from the float64 rFFT than
+    the plain version, and the GEMM route so on its tile. Where the kernel
+    is more than 2e-4 from the plain version, the plain fp32 GEMM must
+    itself be more than 2e-4 from the float64 rFFT and the kernel within
+    2e-4 of it (recorded in plain_past_bar). Above PLAIN_MAX off the GEMM
+    route (24578, 32768, 65536: plain tables of 2.4 to 17 GB in float32,
+    built through float64 on the host) the kernel is held instead against
+    its arithmetic step by step (ops/dft.py::_fft_cluster_reference,
+    _chirp_cluster_reference) run on the card on a B1_SHORT-frame tile, and
+    against the float64 rFFT on every frame, both at 2e-4; the GEMM route at
+    40962 against the float64 rFFT, in int16 also against its plain version
+    (6.7 GB of tables, uploaded in each call, built on the host beside the
+    other sizes' checks: gemm_plain_tables_s). Times, on the 32768-frame
+    tile, at this PR's sizes on the other tiles too, and on the streamed
+    tiles: the route's kernel, the GEMM kernel called directly at the same
+    n_fft (above 8192 on a GEMM_FRAMES-frame tile: its time grows as N^2),
+    the plain version, torch.stft(...).abs() and the byte bound; and how
+    many clusters of the cluster layout the card holds at once at each of
+    its sizes (active_clusters: 2, 4 and 8 CTAs). Returns (the phase's
+    record, the mixed, the cluster, the chirp and the GEMM route's kernels
+    rows)."""
     import numpy as np
 
     from orcai_tpu_torch.ops.dft import (
-        MIXED_MAX, _DTYPE_CODES, _chirp_kernel, _fft_cluster_reference, _kernel, _route_tables,
-        dft_magnitude, dft_magnitude_plain, dft_route)
+        MIXED_MAX, _DTYPE_CODES, _chirp_cluster_reference, _chirp_kernel, _fft_cluster_reference,
+        _kernel, _route_tables, active_clusters, chirp_length, cluster_plan, dft_magnitude,
+        dft_magnitude_plain, dft_route, windowed_dft_mats)
     from orcai_tpu_torch.ops.frontend import hann_window
     from orcai_tpu_torch.ops.wire_codec import (
         mulaw_decode_f32, mulaw_decode_host, mulaw_encode)
@@ -1580,7 +1601,8 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict]:
     t_start = time.perf_counter()
     record = {"max_abs_err": {}, "codes_bit_equal_decoded": {}, "gemm_fp32_floor_ms": {},
               "gemm_direct_max_abs_err": {}, "max_abs_err_vs_float64": {}, "plain_past_bar": {},
-              "max_abs_err_vs_reference": {}, "gemm_direct_past_bar": {}}
+              "max_abs_err_vs_reference": {}, "gemm_direct_past_bar": {},
+              "gemm_plain_tables_s": {}, "active_clusters": {}, "seconds_by_size": {}}
     cases = {}
     every, coded, tiles = ("f32", "int16", "uint8"), ("int16", "uint8"), B1_TILES
     streamed = {CHUNK_TILE: "normalize_tile", STATS_TILE: "stats_tile"}
@@ -1588,12 +1610,28 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict]:
              (1024, 256, every, tiles), (768, 384, coded, tiles), (704, 352, coded, tiles),
              (2048, 512, coded, tiles), (416, 208, coded, tiles), (4096, 2048, every, tiles),
              (8192, 4096, every, tiles), (1088, 544, coded, tiles), (4352, 2176, coded, tiles),
-             (16384, 8192, every, tiles), (32768, 16384, every, tiles),
-             (2038, 1019, coded, tiles), (1216, 608, coded, tiles), (8198, 4099, coded, tiles),
-             (16418, 8209, coded, (GEMM_FRAMES,)), (512, 256, ("uint8",), tiles))
-    new_sizes = (1088, 4352, 16384, 32768, 1216, 8198, 16418)  # every tile timed
+             (1216, 608, coded, tiles), (1472, 736, coded, tiles), (368, 184, coded, tiles[:1]),
+             (16384, 8192, every, tiles),
+             (32768, 16384, every, tiles), (65536, 32768, coded, tiles[1:]),
+             (2038, 1019, coded, tiles), (470, 235, coded, tiles), (8198, 4099, coded, tiles),
+             (16418, 8209, coded, (tiles[0], GEMM_FRAMES)), (24578, 12289, coded, tiles[1:]),
+             (40962, 20481, coded, (GEMM_FRAMES,)), (512, 256, ("uint8",), tiles))
+    new_sizes = (1216, 1472, 65536, 470, 16418, 24578, 40962)  # every tile timed
     streaming = {}  # the mixed route's times at the streaming tiles
     stream = torch.cuda.current_stream().cuda_stream
+
+    def build_plain_tables(n_fft):
+        t0 = time.perf_counter()
+        windowed_dft_mats(hann_window(n_fft))
+        record["gemm_plain_tables_s"][f"{n_fft}"] = time.perf_counter() - t0
+
+    # the plain version's tables on the GEMM route (6.7 GB at 40962, most of
+    # a minute of numpy through float64) are built on the host while the card
+    # checks the other sizes; numpy lets go of the GIL in its loops
+    builders = {n_fft: threading.Thread(target=build_plain_tables, args=(n_fft,), daemon=True)
+                for n_fft, *_ in sizes if dft_route(n_fft) == "gemm"}
+    for builder in builders.values():
+        builder.start()
 
     def gemm_direct(x, window, n_fft, hop, frames):
         """The GEMM route's kernel at this n_fft, whatever route dft_route
@@ -1641,24 +1679,40 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict]:
                "bound_ms": t_bound, "bound_by": by}
         if rec["route"] == "chirp":
             rec["layout"] = "block" if _chirp_kernel(n_fft) == "mixed" else "cluster"
-        # the yardsticks take up to 0.35 s a call at 16384: two timed calls
-        if with_plain and n_fft <= PLAIN_MAX:
+        # the yardsticks take up to 0.35 s a call at 16384: two timed calls;
+        # the plain version at 40962 (the GEMM route) uploads its 6.7 GB of
+        # tables in each call, seconds: one
+        if with_plain:
+            big = n_fft > PLAIN_MAX
             rec["plain_ms"] = cuda_ms(lambda: dft_magnitude_plain(
-                x, window, n_fft=n_fft, hop=hop), iters=2, warmup=1)
+                x, window, n_fft=n_fft, hop=hop), iters=1 if big else 2, warmup=0 if big else 1)
         if rec["route"] != "gemm" and n_fft <= MIXED_MAX:
             rec["gemm_ms"] = cuda_ms(gemm_direct(x, window, n_fft, hop, frames), iters=2,
                                      warmup=1)
-        elif rec["route"] != "gemm" and n_fft <= PLAIN_MAX and frames == tiles[0]:
+        elif rec["route"] != "gemm" and n_fft <= PLAIN_MAX and frames in (tiles[0], GEMM_FRAMES):
             rec[f"gemm_ms_{GEMM_FRAMES}_frames"] = cuda_ms(
                 gemm_direct(x, window, n_fft, hop, GEMM_FRAMES), iters=2, warmup=1)
         return rec
 
     for n_fft, hop, kinds, frame_counts in sizes:
+        t_size = time.perf_counter()
         window = hann_window(n_fft)
         win = torch.hann_window(n_fft, periodic=True, device=dev)
         n_bins = n_fft // 2 + 1
         route = dft_route(n_fft)
-        with_plain = n_fft <= PLAIN_MAX
+        with_plain = n_fft <= PLAIN_MAX or route == "gemm"
+
+        def plain(kind):
+            """The plain version runs on this kind: at the GEMM route's 40962
+            (its 6.7 GB of tables uploaded in each call) on int16 alone, the
+            codes held to their int16 decode bit for bit."""
+            return with_plain and (route != "gemm" or kind == "int16")
+        if route == "gemm":
+            builders[n_fft].join()
+        if route == "cluster" or route == "chirp" and _chirp_kernel(n_fft) == "cluster":
+            record["active_clusters"][f"{n_fft}"] = {
+                "ranks": cluster_plan(n_fft if route == "cluster" else chirp_length(n_fft))[2],
+                "clusters": active_clusters(n_fft)}
         for frames in frame_counts:
             n = (frames - 1) * hop + n_fft
             pcm = rng.integers(-32768, 32768, n, dtype=np.int16)
@@ -1676,34 +1730,37 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict]:
                 torch.cuda.synchronize()
                 if got.shape != (frames, n_bins):
                     raise AssertionError(f"B1 ({route} route) {key}: shape {tuple(got.shape)}")
-                if with_plain:
+                if plain(kind):
                     want = dft_magnitude_plain(x, window, n_fft=n_fft, hop=hop)
                     err = float((got - want).abs().max())
                     record["max_abs_err"][key] = err
+                elif with_plain:  # the GEMM route's codes: bit-equal to the int16 decode below
+                    want, err = None, 0.0
                 else:
                     want = None
                     short = x[:(B1_SHORT - 1) * hop + n_fft]
-                    ref = _fft_cluster_reference(short, window, n_fft=n_fft, hop=hop)
+                    step_by_step = (_fft_cluster_reference if route == "cluster"
+                                    else _chirp_cluster_reference)
+                    ref = step_by_step(short, window, n_fft=n_fft, hop=hop)
                     err = float((got[:B1_SHORT] - ref).abs().max())
                     record["max_abs_err_vs_reference"][key] = err
                     del short, ref
                     if not err <= 2e-4:
                         raise AssertionError(f"B1 ({route} route) {key}: max |kernel - "
                                              f"reference| {err} > 2e-4 on {B1_SHORT} frames")
-                to_float64 = not with_plain or (
-                    route != "gemm" and frames == tiles[0]
-                    and (kind == "int16" or n_fft in new_sizes and kind in every))
+                to_float64 = not with_plain or route == "gemm" or frames == tiles[0] and (
+                    kind == "int16" or n_fft in new_sizes and kind in every)
                 if to_float64 or not err <= 2e-4:
                     # kernel and plain against the float64 rFFT of the same
                     # windowed frames: the kernel must be no farther
                     vs64 = {"kernel": vs_float64(got, x, window, n_fft, hop)}
-                    if with_plain:
+                    if plain(kind):
                         vs64["plain"] = vs_float64(want, x, window, n_fft, hop)
                     record["max_abs_err_vs_float64"][key] = vs64
-                    if with_plain and to_float64 and not vs64["kernel"] <= vs64["plain"]:
+                    if plain(kind) and to_float64 and not vs64["kernel"] <= vs64["plain"]:
                         raise AssertionError(f"B1 {key}: the kernel is farther from float64 "
                                              f"than the plain version: {vs64}")
-                    if not with_plain and not vs64["kernel"] <= 2e-4:
+                    if (not with_plain or route == "gemm") and not vs64["kernel"] <= 2e-4:
                         raise AssertionError(f"B1 {key}: the kernel is {vs64['kernel']} from "
                                              "the float64 rFFT (> 2e-4)")
                 if with_plain and not err <= 2e-4:
@@ -1750,13 +1807,14 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict]:
                 suffix = "" if frames == tiles[0] else f"/{frames}"
                 for kind in kinds:
                     cases[f"{n_fft}/{hop}/{kind}{suffix}"] = timed(
-                        xs[kind], window, win, n_fft, hop, frames)
+                        xs[kind], window, win, n_fft, hop, frames, plain(kind))
                 # the GEMM's own floor, not the function's bound: 2 T n_fft
                 # n_bins fp32 FMAs (re and im), 2 FLOP each
                 record["gemm_fp32_floor_ms"][f"{n_fft}/{hop}{suffix}"] = (
                     4.0 * frames * n_fft * n_bins / FP32_FLOP_PER_S * 1e3)
             del xs, off, decoded, a
             torch.cuda.empty_cache()
+        record["seconds_by_size"][f"{n_fft}/{hop}"] = time.perf_counter() - t_size
 
     def of_route(table, route):
         return {k: v for k, v in record[table].items()
@@ -1773,8 +1831,9 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict]:
             "max_abs_err": max(of_route("max_abs_err", route).values()),
             "tolerance": "2e-4 against the plain version, or against the float64 rFFT where "
                          "the plain fp32 GEMM is itself farther than 2e-4 from it "
-                         "(plain_past_bar); above 16418, where no plain version runs, 2e-4 "
-                         "against the step-by-step reference on the card and against the "
+                         "(plain_past_bar); the GEMM route also 2e-4 against the float64 "
+                         "rFFT; above 16418 off the GEMM route, where no plain version runs, "
+                         "2e-4 against the step-by-step reference on the card and against the "
                          "float64 rFFT",
             "max_abs_err_vs_float64": max([v["kernel"] for v in of_route(
                 "max_abs_err_vs_float64", route).values()], default=None),
@@ -1788,7 +1847,7 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict]:
 
     mixed_row = row(
         "dft_magnitude_mixed", "mixed", "384/192/int16",
-        "B1's mixed-radix route (every {2,...,17}-smooth n_fft up to 8192 but 512): "
+        "B1's mixed-radix route (every {2,...,23}-smooth n_fft up to 8192 but 512): "
         "ms etc. at n_fft 384 / hop 192 (the sp-bfp5 and sp-bfp6 wires), a 32768-frame "
         "int16 tile x 193 bins; the *_normalize_tile_* and *_stats_tile_* keys: streamed "
         f"sp-bfp5's {CHUNK_TILE}- and {STATS_TILE}-frame tiles at 384 / 192; cases: every "
@@ -1799,28 +1858,29 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict]:
     cluster_row = row(
         "dft_magnitude_cluster", "cluster", "16384/8192/int16",
         "B1's cluster layout (csrc/dft_cluster.cu: a frame pair's FFT across a cluster of "
-        "2 or 4 CTAs; every {2,...,17}-smooth n_fft from 8193 to 32768): ms etc. at n_fft "
+        "2, 4 or 8 CTAs; every {2,...,23}-smooth n_fft from 8193 to 81920): ms etc. at n_fft "
         "16384 / hop 8192, a 32768-frame int16 tile x 8193 bins; cases as the mixed row's "
         f"(gemm_ms_{GEMM_FRAMES}_frames: the GEMM kernel on a {GEMM_FRAMES}-frame tile)")
     chirp_row = row(
         "dft_magnitude_chirp", "chirp", "2038/1019/int16",
-        "B1's chirp-z (Bluestein) mode (every other n_fft up to 16384): on dft_mixed.cu's "
+        "B1's chirp-z (Bluestein) mode (every other n_fft up to 40960): on dft_mixed.cu's "
         "block layout where its length M is within 8192, on dft_cluster.cu above; ms etc. "
         "at n_fft 2038 / hop 1019, a 32768-frame int16 tile x 1020 bins; cases as the "
         "mixed row's, each with its layout")
     gemm_row = row(
-        "dft_magnitude_gemm", "gemm", f"16418/8209/int16/{GEMM_FRAMES}",
-        "B1's GEMM route (a smooth n_fft above 32768, any other above 16384): ms etc. at "
-        f"n_fft 16418 / hop 8209, a {GEMM_FRAMES}-frame int16 tile x 8210 bins; its times "
+        "dft_magnitude_gemm", "gemm", f"40962/20481/int16/{GEMM_FRAMES}",
+        "B1's GEMM route (a smooth n_fft above 81920, any other above 40960): ms etc. at "
+        f"n_fft 40962 / hop 20481, a {GEMM_FRAMES}-frame int16 tile x 20482 bins; its times "
         "at the other routes' sizes: gemm_ms in their rows' cases")
     record["fft_route_uint8"] = {k: v for k, v in cases.items() if v["route"] == "fft"}
     record["seconds"] = time.perf_counter() - t_start
     return record, mixed_row, cluster_row, chirp_row, gemm_row
 
 
-CLI_SPECTROGRAM_SIZES = ((416, 208), (1088, 544), (2038, 1019), (16384, 8192), (16418, 8209))
-#   B1 on the mixed route (416 = 8*4*13, 1088 = 8*8*17), the chirp route, the
-#   cluster route, the GEMM route
+CLI_SPECTROGRAM_SIZES = ((416, 208), (1216, 608), (2038, 1019), (16418, 8209), (16384, 8192),
+                         (40962, 20481))
+#   B1 on the mixed route (416 = 8*4*13, 1216 = 8*8*19), the chirp mode on the
+#   block and on the cluster layout, the cluster route, the GEMM route
 
 
 def _create_spectrograms_path(torch, tmp: Path, seed: int, total: dict, nfft: int,
@@ -1962,6 +2022,7 @@ def phase_wires(torch, tmp: Path, seed: int, state: dict,
 
     from orcai_tpu_torch import native
     from orcai_tpu_torch.io.wav import load_wav_for_frontend
+    from orcai_tpu_torch.ops.dft import _mats_cached, _route_tables
     from orcai_tpu_torch.ops.frontend import compute_spectrogram_device
     from orcai_tpu_torch.ops.spectral import design_taps
     from orcai_tpu_torch.ops.wire_codec import encode_table
@@ -1998,6 +2059,11 @@ def phase_wires(torch, tmp: Path, seed: int, state: dict,
     line["create_spectrograms_cli"] = {
         f"{nfft}/{n_overlap}": _create_spectrograms_path(torch, tmp, seed, total, nfft, n_overlap)
         for nfft, n_overlap in CLI_SPECTROGRAM_SIZES}
+    # the GEMM route's tables at 40962 (6.7 GB on the card, as much on the
+    # host) are not read again
+    _route_tables.cache_clear()
+    _mats_cached.cache_clear()
+    torch.cuda.empty_cache()
 
     # the 20-minute recording in memory: the cost of each wire on this card
     audio, _ = load_wav_for_frontend(state["wav"], sr=sp["sampling_rate"])

@@ -1,10 +1,21 @@
 // The butterflies and sample decoders that csrc/dft_mixed.cu and
 // csrc/dft_cluster.cu share: float32, int16 and uint8 mu-law samples as
 // float32, and R-point DFTs in registers for R = 2, 3, 4, 5, 7, 8, 11, 13,
-// 16 and 17, outputs in natural order. The odd radices' cos and sin and
-// radix 16's twiddles are float64 values rounded once to float32
+// 16, 17, 19 and 23, outputs in natural order. The odd radices' cos and
+// sin and radix 16's twiddles are float64 values rounded once to float32
 // (ops/dft.py::_odd_roots, _C16, _S16). Included in an anonymous
 // namespace of each kernel's source.
+//
+// Both kernels replace the TPU kernel orcai_tpu/ops/pallas_dft.py::
+// dft_magnitude, whose bound on this card is bytes (each sample read once,
+// each magnitude written once). A direct odd radix costs about R - 1 real
+// multiply-adds a complex value where a power of two costs a few, but it
+// is one pass through shared memory, which is what holds these FFTs:
+// radix 19 puts 1216 = 8 * 8 * 19 on three passes, where the chirp mode
+// ran two FFTs of 2431 points, and radix 23 puts 1472 = 8 * 8 * 23 on
+// three. A butterfly keeps its R values in registers; the kernels are
+// built per largest odd radix, so a plan without a 17, 19 or 23 does not
+// pay their registers.
 
 #pragma once
 
@@ -50,6 +61,26 @@ __device__ __forceinline__ float root_cos(int R, int m) {
     case 17 * 16 + 6: return -0.602634609f;
     case 17 * 16 + 7: return -0.850217164f;
     case 17 * 16 + 8: return -0.982973099f;
+    case 19 * 16 + 1: return 0.945817232f;
+    case 19 * 16 + 2: return 0.789140522f;
+    case 19 * 16 + 3: return 0.546948135f;
+    case 19 * 16 + 4: return 0.245485485f;
+    case 19 * 16 + 5: return -0.0825793445f;
+    case 19 * 16 + 6: return -0.401695430f;
+    case 19 * 16 + 7: return -0.677281559f;
+    case 19 * 16 + 8: return -0.879473746f;
+    case 19 * 16 + 9: return -0.986361325f;
+    case 23 * 16 + 1: return 0.962917268f;
+    case 23 * 16 + 2: return 0.854419410f;
+    case 23 * 16 + 3: return 0.682553172f;
+    case 23 * 16 + 4: return 0.460065037f;
+    case 23 * 16 + 5: return 0.203456014f;
+    case 23 * 16 + 6: return -0.0682424158f;
+    case 23 * 16 + 7: return -0.334879607f;
+    case 23 * 16 + 8: return -0.576680303f;
+    case 23 * 16 + 9: return -0.775711298f;
+    case 23 * 16 + 10: return -0.917211294f;
+    case 23 * 16 + 11: return -0.990685940f;
   }
   return 0.0f;
 }
@@ -80,6 +111,26 @@ __device__ __forceinline__ float root_sin(int R, int m) {
     case 17 * 16 + 6: return 0.798017204f;
     case 17 * 16 + 7: return 0.526432157f;
     case 17 * 16 + 8: return 0.183749512f;
+    case 19 * 16 + 1: return 0.324699461f;
+    case 19 * 16 + 2: return 0.614212692f;
+    case 19 * 16 + 3: return 0.837166488f;
+    case 19 * 16 + 4: return 0.969400287f;
+    case 19 * 16 + 5: return 0.996584475f;
+    case 19 * 16 + 6: return 0.915773332f;
+    case 19 * 16 + 7: return 0.735723913f;
+    case 19 * 16 + 8: return 0.475947380f;
+    case 19 * 16 + 9: return 0.164594591f;
+    case 23 * 16 + 1: return 0.269796759f;
+    case 23 * 16 + 2: return 0.519583941f;
+    case 23 * 16 + 3: return 0.730835974f;
+    case 23 * 16 + 4: return 0.887885213f;
+    case 23 * 16 + 5: return 0.979084074f;
+    case 23 * 16 + 6: return 0.997668743f;
+    case 23 * 16 + 7: return 0.942260921f;
+    case 23 * 16 + 8: return 0.816969872f;
+    case 23 * 16 + 9: return 0.631087959f;
+    case 23 * 16 + 10: return 0.398401082f;
+    case 23 * 16 + 11: return 0.136166647f;
   }
   return 0.0f;
 }

@@ -1,6 +1,6 @@
 // Windowed rDFT magnitude of hop-framed audio at any n_fft from 8193 to
-// 32768 whose prime factors are all in {2, 3, 5, 7, 11, 13, 17}, and, in its
-// chirp-z mode, at any other n_fft from 4097 to 16384, straight from the
+// 81920 whose prime factors are all in {2, 3, 5, 7, 11, 13, 17, 19, 23},
+// and, in its chirp-z mode, at any other n_fft from 4097 to 40960, from the
 // padded samples: out[t, k] = |sum_n w[n] x[t*hop + n] exp(-2 pi i n k / N)|,
 // k = 0..N/2, as a batched FFT whose frame pair spans a thread block cluster.
 //
@@ -10,23 +10,29 @@
 // memory, which caps it at 8192 points (4096 in its chirp mode, whose
 // convolution length M >= 2N - 1 must fit). Recordings at 96-192 kHz and
 // parameter files with such an nfft reach these sizes; before this kernel
-// they took dft_gemm.cu's GEMM, whose work grows as N^2 a frame.
+// they took dft_gemm.cu's GEMM, whose work grows as N^2 a frame (16418 =
+// 2 * 8209 in the chirp mode on 4 CTAs: 7.2 ms on 301 frames there).
 //
 // Bound on the card: bytes. The function reads each sample once and writes
 // each magnitude once: at 16384 / 8192 a 32768-frame int16 tile is 0.54 GB
-// in and 1.07 GB out, 0.48 ms at 3.35 TB/s; at 32768 / 16384 twice that.
-// The FFT's operations stay below that (about 2.5 N log2 N a frame: 0.28 ms
-// of fp32 at 67 TFLOP/s for that tile).
+// in and 1.07 GB out, 0.48 ms at 3.35 TB/s (16418 / 8209 the same); at
+// 32768 / 16384 twice that, at 65536 / 32768 four times. The FFT's
+// operations stay below that (about 2.5 N log2 N a frame: 0.28 ms of fp32
+// at 67 TFLOP/s at 16384; the chirp mode's two FFTs of M points about four
+// times an FFT of N).
 //
-// Design. A cluster of C CTAs (C = 2 up to 20480 points, 4 above; the host
+// Design. A cluster of C CTAs (C = 2 up to 20480 points, 4 up to 40960, 8
+// up to 81920: the fewest whose buffers fit in 160 KB a CTA; the host
 // chooses it, ops/dft.py::cluster_plan) owns one frame pair at a time, on
-// neighbouring SMs that read each other's shared memory (Hopper's
-// distributed shared memory, cooperative_groups::this_cluster()), so each
-// CTA holds N/C of each of the pair's two exchange buffers: 128 KB a CTA at
-// 16384 with C = 2 and at 32768 with C = 4. A persistent grid of as many
-// clusters as fit (cudaOccupancyMaxActiveClusters) walks the pairs. The
-// FFT of z = w*x_t + i*w*x_t+1 runs as the four-step split N = N1 * N2 (both
-// at most 8192; 16384 = 128 x 128, 32768 = 256 x 128):
+// SMs of one GPC that read each other's shared memory (Hopper's distributed
+// shared memory, cooperative_groups::this_cluster(); 8 is the portable
+// cluster size), so each CTA holds N/C of each of the pair's two exchange
+// buffers: 128 KB a CTA at 16384 with C = 2, at 32768 with C = 4 and at
+// 65536 with C = 8. A persistent grid of as many clusters as fit
+// (cudaOccupancyMaxActiveClusters; none is an error, never a fallback)
+// walks the pairs. The FFT of z = w*x_t + i*w*x_t+1 runs as the four-step
+// split N = N1 * N2 (both at most 8192; 16384 = 128 x 128, 32768 = 256 x
+// 128, 65536 = 256 x 256):
 //   1. rank c takes the columns j in [col_lo[c], col_lo[c+1]) and runs their
 //      N1-point FFTs over z[N2 n1 + j], reading the samples straight from
 //      device memory (consecutive columns are consecutive samples), with the
@@ -50,16 +56,23 @@
 // stride odd), so a warp's butterflies read and write consecutive words
 // and the exchange's strided writes fall on distinct banks; the roots are
 // the same across the batch (broadcasts) and sit in shared memory in pass
-// order (ops/dft.py::pass_roots). The butterflies are dft_mixed.cu's
-// (dft_butterflies.cuh): radix 16 as 4 x 4, the odd radices up to 17
-// direct over symmetric pairs.
+// order (ops/dft.py::pass_roots). Where a row or a column lives is a
+// 16-bit lookup, rank << 13 | local index, which holds 8 ranks of up to
+// 8192 each with no bit to spare (static_assert below). The butterflies
+// are dft_mixed.cu's (dft_butterflies.cuh): radix 16 as 4 x 4, the odd
+// radices up to 23 direct over symmetric pairs; the kernel is built for
+// the largest odd radix its plans need (17, or 23 also for the plans of
+// 19), so a plan without a 19 or a 23 runs the kernel it ran before they
+// were added; each of those, for each sample type, is a build of its own
+// (-DORCAI_ODD, -DORCAI_DTYPE, ops/_build.py), compiled beside the others.
 //
-// The chirp-z (Bluestein) mode, for an n_fft N with a prime factor above 17
-// whose convolution length M (ops/dft.py::chirp_length, 8198 -> 16456 = 136
-// x 121) is above dft_mixed.cu's 8192: z = (w a)[n] (x_t + i x_t+1)[n]
-// zero-padded to M, its M-point FFT by the four steps above, then the
-// product with B = FFT_M(b) / M and the conjugate, taken where the first
-// FFT leaves each value; the second forward FFT runs rows first (the
+// The chirp-z (Bluestein) mode, for an n_fft N with a prime factor above 23
+// whose convolution length M (ops/dft.py::chirp_length: 8198 -> 16456 =
+// 136 x 121 on 2 CTAs, 16418 -> 32851 = 247 x 133 on 4, 24578 -> 50864 =
+// 272 x 187 on 8) is above dft_mixed.cu's 8192: z = (w a)[n] (x_t +
+// i x_t+1)[n] zero-padded to M, its M-point FFT by the four steps above,
+// then the product with B = FFT_M(b) / M and the conjugate, taken where the
+// first FFT leaves each value; the second forward FFT runs rows first (the
 // N2-point FFTs over k2 of each row k1 the rank already holds, W_M^(k1 p2),
 // an exchange back to the columns, the N1-point FFTs over k1), so no
 // exchange comes between the two FFTs; then Z[k] = a[k] conj(u[k]) and the
@@ -68,8 +81,9 @@
 //
 // What holds it: the latency of its synchronised passes and barriers with
 // one 512-thread CTA on an SM (its buffers fill the SM's shared memory), and
-// the exchange through the SM-to-SM network; see PERF.md for its times
-// against the bound and torch.stft.
+// the exchange through the SM-to-SM network, which (C-1)/C of the values
+// cross (7/8 on 8 CTAs); see PERF.md for its times against the bound and
+// torch.stft.
 //
 // uint8 input is mu-law codes (the mulaw8 wire), decoded where a sample is
 // read, so the codes and their int16 decode give the same magnitudes. IEEE
@@ -79,15 +93,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#if !defined(ORCAI_ODD) || (ORCAI_ODD != 17 && ORCAI_ODD != 23)
+#error "build with -DORCAI_ODD=17 or 23 (ops/_build.py::VARIANTS)"
+#endif
+#if !defined(ORCAI_DTYPE) || ORCAI_DTYPE < 0 || ORCAI_DTYPE > 2
+#error "build with -DORCAI_DTYPE=0 (float32), 1 (int16) or 2 (uint8 mu-law codes)"
+#endif
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 #include "dft_butterflies.cuh"
 
-constexpr int MAX_N = 32768;        // the largest FFT: n_fft, or M in the chirp mode
+constexpr int MAX_N = 81920;        // the largest FFT: n_fft, or M in the chirp mode
 constexpr int MAX_SIDE = 8192;      // N1 and N2
-constexpr int CHIRP_MAX_N = 16384;  // the chirp mode's largest n_fft (M <= 32768)
+constexpr int CHIRP_MAX_N = 40960;  // the chirp mode's largest n_fft (M <= 81920)
 constexpr int MAX_RANKS = 8;        // the portable cluster size
 constexpr int MAX_PASSES = 12;
 constexpr int THREADS = 512;
@@ -125,9 +148,13 @@ __device__ __forceinline__ int owner(const int* lo, int ranks, int i) {
 }
 
 // Where a row or a column lies, as the launch's lookup tables hold it: the
-// rank << HOME_SHIFT | the local row or column there (both below 8192).
+// rank << HOME_SHIFT | the local row or column there (both below 8192), in
+// an unsigned short: rank 7 and local 8191 fill its 16 bits exactly.
 constexpr int HOME_SHIFT = 13;
 constexpr int HOME_MASK = (1 << HOME_SHIFT) - 1;
+static_assert(MAX_SIDE <= 1 << HOME_SHIFT, "a local row or column must fit in HOME_MASK");
+static_assert(((MAX_RANKS - 1) << HOME_SHIFT | HOME_MASK) <= 0xFFFF,
+              "a rank and a local index must fit in an unsigned short");
 
 __device__ __forceinline__ float2 cmul(float2 v, float2 w) {
   return make_float2(v.x * w.x - v.y * w.y, v.x * w.y + v.y * w.x);
@@ -214,6 +241,9 @@ __device__ __forceinline__ void pass(const float2* src, float2* dst, int stride,
   }
 }
 
+// ORCAI_ODD, the largest odd radix a build is for (17 or 23), leaves the
+// radix-19 and -23 butterflies out of the kernels of the plans that lack
+// them
 #define ORCAI_RADIX_CASES(CALL) \
   case 2: CALL(2); break;       \
   case 3: CALL(3); break;       \
@@ -224,7 +254,9 @@ __device__ __forceinline__ void pass(const float2* src, float2* dst, int stride,
   case 11: CALL(11); break;     \
   case 13: CALL(13); break;     \
   case 16: CALL(16); break;     \
-  case 17: CALL(17); break;
+  case 17: CALL(17); break;     \
+  case 19: if constexpr (ORCAI_ODD >= 19) { CALL(19); } break; \
+  case 23: if constexpr (ORCAI_ODD >= 23) { CALL(23); } break;
 
 // `batch` FFTs of side.n points, element e of FFT b at e * stride + b. The
 // first pass reads through `load` and writes `first`; the later passes
@@ -546,7 +578,7 @@ int make_side(const int* radices, int P, int n, int tw_off, int len, Side* side)
   for (int p = 0; p < P; ++p) {
     const int R = radices[p];
     if (R != 2 && R != 3 && R != 4 && R != 5 && R != 7 && R != 8 && R != 11 && R != 13 &&
-        R != 16 && R != 17)
+        R != 16 && R != 17 && R != 19 && R != 23)
       return 1;
     side->radix[p] = R;
     side->ns[p] = ns;
@@ -614,9 +646,13 @@ int make_plan(const int* packed, int n_fft, bool chirp, Plan* plan) {
   return 0;
 }
 
+// The launch of a plan: the kernel's shared memory raised to plan.bytes,
+// one cluster of plan.ranks CTAs (config, with its attribute in attr), and
+// in *clusters how many such clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters; 0 is an error).
 template <typename T>
-int run(const void* audio, const float* window, const float* tables, const float* chirp,
-        const Plan& plan, float* out, int n_frames, int hop, cudaStream_t s) {
+int configure(const Plan& plan, cudaStream_t s, cudaLaunchAttribute* attr,
+              cudaLaunchConfig_t* config, int* clusters) {
   const int bytes = plan.bytes;
   int device = 0, optin = 0;
   cudaGetDevice(&device);
@@ -625,29 +661,64 @@ int run(const void* audio, const float* window, const float* tables, const float
   cudaError_t err = cudaFuncSetAttribute(dft_cluster_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = plan.ranks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(plan.ranks, 1, 1);
-  config.blockDim = dim3(THREADS, 1, 1);
-  config.dynamicSmemBytes = bytes;
-  config.stream = s;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, dft_cluster_kernel<T>, &config);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = plan.ranks;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *config = {};
+  config->gridDim = dim3(plan.ranks, 1, 1);
+  config->blockDim = dim3(THREADS, 1, 1);
+  config->dynamicSmemBytes = bytes;
+  config->stream = s;
+  config->attrs = attr;
+  config->numAttrs = 1;
+  *clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(clusters, dft_cluster_kernel<T>, config);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  return *clusters < 1 ? static_cast<int>(cudaErrorInvalidConfiguration) : 0;
+}
+
+template <typename T>
+int run(const void* audio, const float* window, const float* tables, const float* chirp,
+        const Plan& plan, float* out, int n_frames, int hop, cudaStream_t s, int* active) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t config;
+  int clusters = 0;
+  const int err0 = configure<T>(plan, s, &attr, &config, &clusters);
+  if (active) *active = clusters;
+  if (err0 != 0 || out == nullptr) return err0;  // no output: the query alone
   const int n_pairs = (n_frames + 1) / 2;
   config.gridDim = dim3((n_pairs < clusters ? n_pairs : clusters) * plan.ranks, 1, 1);
-  err = cudaLaunchKernelEx(&config, dft_cluster_kernel<T>, static_cast<const T*>(audio), window,
-                           reinterpret_cast<const float2*>(tables),
-                           reinterpret_cast<const float2*>(chirp), out, n_frames, hop, plan);
+  cudaError_t err = cudaLaunchKernelEx(
+      &config, dft_cluster_kernel<T>, static_cast<const T*>(audio), window,
+      reinterpret_cast<const float2*>(tables), reinterpret_cast<const float2*>(chirp), out,
+      n_frames, hop, plan);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The plan's checks, then the launch where the largest odd radix of its
+// sides is within this build's and the dtype is its; chirp_mode: the plan
+// is of a convolution length M for n_fft. With out null, the occupancy
+// query alone.
+int dispatch(const void* audio, int dtype, const float* window, const float* tables,
+             const float* chirp, bool chirp_mode, const int* plan, float* out, int n_frames,
+             int n_fft, int hop, cudaStream_t s, int* active) {
+  const int max_n = chirp_mode ? CHIRP_MAX_N : MAX_N;
+  if (n_fft < 2 || n_fft > max_n || hop < 1 || hop > n_fft || n_fft % hop != 0 ||
+      n_frames < 1 || plan == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Plan p;
+  if (make_plan(plan, n_fft, chirp_mode, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  int odd = 1;  // the largest odd radix the plan needs: within this build's
+  const Side* sides[2] = {&p.col, &p.row};
+  for (const Side* side : sides)
+    for (int i = 0; i < side->n_passes; ++i)
+      if (side->radix[i] % 2 && side->radix[i] > odd) odd = side->radix[i];
+  if (odd > ORCAI_ODD || dtype != ORCAI_DTYPE) return static_cast<int>(cudaErrorInvalidValue);
+  using Sample = std::conditional_t<ORCAI_DTYPE == 0, float,
+                                    std::conditional_t<ORCAI_DTYPE == 1, int16_t, uint8_t>>;
+  return run<Sample>(audio, window, tables, chirp, p, out, n_frames, hop, s, active);
 }
 
 }  // namespace
@@ -657,30 +728,30 @@ int run(const void* audio, const float* window, const float* tables, const float
 // len1, len2, P1, radices, P2, radices] (ops/dft.py::_cluster_plan_array);
 // tables: ops/dft.py::cluster_tables of N1 * N2, float32 (re, im); out:
 // (n_frames, n_fft/2 + 1) float32; hop divides n_fft. With chirp null (the
-// FFT mode) N1 * N2 is n_fft, up to 32768, and window is the (n_fft,)
-// float32 window. Otherwise (the chirp mode, n_fft up to 16384) N1 * N2 is
-// an M >= 2 n_fft - 1 up to 32768, chirp is ops/dft.py::chirp_tables'
-// (2 n_fft + M, 2) float32 and window is not read. Launches on `stream` and
-// returns the first CUDA error; a plan that cannot launch is an error.
+// FFT mode) N1 * N2 is n_fft, up to 81920, and window is the (n_fft,)
+// float32 window. Otherwise (the chirp mode, n_fft up to 40960) N1 * N2 is
+// an M >= 2 n_fft - 1 up to 81920, chirp is ops/dft.py::chirp_tables'
+// (2 n_fft + M, 2) float32 and window is not read. C is 2 to 8 CTAs; the
+// plan's largest odd radix may not pass this build's ORCAI_ODD, and dtype
+// must be its ORCAI_DTYPE.
+// Launches on `stream` and returns the first CUDA error; a plan that cannot
+// launch (no cluster of C CTAs fits on the card) is an error.
 extern "C" int orcai_dft_cluster(const void* audio, int dtype, const float* window,
                                  const float* tables, const float* chirp, const int* plan,
                                  float* out, int n_frames, int n_fft, int hop, void* stream) {
-  const int max_n = chirp ? CHIRP_MAX_N : MAX_N;
-  if (n_fft < 2 || n_fft > max_n || hop < 1 || hop > n_fft || n_fft % hop != 0 ||
-      n_frames < 1 || plan == nullptr || tables == nullptr ||
-      (chirp == nullptr && window == nullptr))
+  if (out == nullptr || tables == nullptr || (chirp == nullptr && window == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  Plan p;
-  if (make_plan(plan, n_fft, chirp != nullptr, &p)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return run<float>(audio, window, tables, chirp, p, out, n_frames, hop, s);
-    case 1:
-      return run<int16_t>(audio, window, tables, chirp, p, out, n_frames, hop, s);
-    case 2:
-      return run<uint8_t>(audio, window, tables, chirp, p, out, n_frames, hop, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch(audio, dtype, window, tables, chirp, chirp != nullptr, plan, out, n_frames,
+                  n_fft, hop, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// How many clusters of the plan's kernel (the FFT mode at n_fft, or with
+// chirp nonzero the chirp mode) the current device holds at once, in
+// *clusters: the size of its persistent grid in clusters. Returns the CUDA
+// error a launch would meet (a plan whose cluster does not fit is one).
+extern "C" int orcai_dft_cluster_occupancy(int dtype, const int* plan, int n_fft, int hop,
+                                           int chirp, int* clusters) {
+  if (clusters == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(nullptr, dtype, nullptr, nullptr, nullptr, chirp != 0, plan, nullptr, 1, n_fft,
+                  hop, nullptr, clusters);
 }

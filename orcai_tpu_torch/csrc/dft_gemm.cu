@@ -5,20 +5,23 @@
 //
 // Replaces the TPU kernel orcai_tpu/ops/pallas_dft.py::dft_magnitude
 // (kernel _kernel) at the only sizes no FFT of this package takes: an n_fft
-// above 32768 whose prime factors are all in {2, 3, 5, 7, 11, 13, 17}, and
-// any other n_fft above 16384 (16418 = 2 * 8209). dft_magnitude.cu takes
-// 512; dft_mixed.cu every other smooth n_fft up to 8192 and, in its chirp-z
-// mode, every other n_fft up to 4096; dft_cluster.cu the smooth n_fft up to
-// 32768 and, in its chirp-z mode, every other n_fft up to 16384 (its
-// convolution length M >= 2 n_fft - 1 must stay within 32768). The Pallas
+// above 81920 whose prime factors are all in {2, 3, 5, 7, 11, 13, 17, 19,
+// 23}, any other n_fft above 40960 (40962 = 2 * 3 * 6827), and 1.
+// dft_magnitude.cu takes 512; dft_mixed.cu every other smooth n_fft up to
+// 8192 and, in its chirp-z mode, every other n_fft up to 4096;
+// dft_cluster.cu the smooth n_fft up to 81920 (clusters of up to 8 CTAs)
+// and, in its chirp-z mode, every other n_fft up to 40960 (its convolution
+// length M >= 2 n_fft - 1 must stay within 81920). At these sizes the
+// window-folded C and S the kernel reads are 4 N (N/2 + 1) bytes, 6.7 GB
+// at 40962. The Pallas
 // kernel sums n_fft/hop partial MXU GEMMs over shifted hop-blocks, so the
 // (T, n_fft) frames matrix never reaches HBM; so does this one, and it
 // decodes uint8 mu-law codes where it loads them, as the Pallas kernel does.
 //
 // Bound on the card: operations, for this algorithm. A 301-frame tile at
-// n_fft 16418 / hop 8209 is 4 * T * 16418 * 8210 = 162 GFLOP of fp32 FMA
-// against 5 MB in and 10 MB out (0.0044 ms of bytes at 3.35 TB/s), about
-// 2.4 ms at the card's 67 TFLOP/s of fp32 outside the tensor cores; a
+// n_fft 40962 / hop 20481 is 4 * T * 40962 * 20482 = 1.01 TFLOP of fp32 FMA
+// against 12 MB in and 25 MB out (0.011 ms of bytes at 3.35 TB/s), about
+// 15 ms at the card's 67 TFLOP/s of fp32 outside the tensor cores; a
 // 32768-frame tile would be 109 times that. TF32 cannot hold the 2e-4 bar
 // (the reference runs Precision.HIGHEST), so the tensor cores are closed to
 // it. An FFT needs far less; this route is the simple kernel that is right

@@ -1,27 +1,30 @@
 // Windowed rDFT magnitude of hop-framed audio at any n_fft from 2 to 8192
-// whose prime factors are all in {2, 3, 5, 7, 11, 13, 17}, and, in its
-// chirp-z mode, at any other n_fft from 2 to 4096, straight from the padded
-// samples: out[t, k] = |sum_n w[n] x[t*hop + n] exp(-2 pi i n k / N)|,
+// whose prime factors are all in {2, 3, 5, 7, 11, 13, 17, 19, 23}, and, in
+// its chirp-z mode, at any other n_fft from 2 to 4096, straight from the
+// padded samples: out[t, k] = |sum_n w[n] x[t*hop + n] exp(-2 pi i n k / N)|,
 // k = 0..N/2, as a batched mixed-radix FFT in shared memory.
 //
 // Replaces the TPU kernel orcai_tpu/ops/pallas_dft.py::dft_magnitude
 // (kernel _kernel) at the sizes the radix-8 FFT route (dft_magnitude.cu,
 // n_fft 512) does not take: the spectral wires' 384 / 192 (384 = 16*8*3)
 // and 352 / 176 (8*4*11), 768 and 704 for a parameter file at n_fft 1024,
-// 416 = 8*4*13, 1088 = 8*8*17, the 4096, 4352 = 16*16*17 and 8192 of
-// recordings at 96-192 kHz, and in the chirp mode every n_fft with a prime
-// factor above 17 (1216 = 2^6 * 19, 2038, primes) up to 4096. The Pallas
-// kernel multiplies each frame by the (N, N/2 + 1) DFT matrix because a
-// TPU has a matrix unit and no FFT; an IEEE fp32 GEMM on this card's CUDA
-// cores needs 4 T N (N/2 + 1) FLOP, 1.1 TFLOP for a 32768-frame tile at
-// 4096, where an FFT needs about 5 N log2(N) / 2 a frame. Larger sizes go
-// to dft_cluster.cu (a frame pair across a cluster of CTAs, up to 32768,
-// and its chirp mode up to 16384); dft_gemm.cu keeps what neither takes.
+// 416 = 8*4*13, 1088 = 8*8*17, 1216 = 8*8*19, 1472 = 8*8*23, the 4096,
+// 4352 = 16*16*17 and 8192 of recordings at 96-192 kHz, and in the chirp
+// mode every n_fft with a prime factor above 23 (470 = 2*5*47, 2038,
+// primes) up to 4096. The
+// Pallas kernel multiplies each frame by the (N, N/2 + 1) DFT matrix
+// because a TPU has a matrix unit and no FFT; an IEEE fp32 GEMM on this
+// card's CUDA cores needs 4 T N (N/2 + 1) FLOP, 1.1 TFLOP for a
+// 32768-frame tile at 4096, where an FFT needs about 5 N log2(N) / 2 a
+// frame. Larger sizes go to dft_cluster.cu (a frame pair across a cluster
+// of up to 8 CTAs, up to 81920, and its chirp mode up to 40960);
+// dft_gemm.cu keeps what neither takes.
 //
 // Bound on the card: bytes. The function reads each sample once and writes
 // each magnitude once: at 384 / 192 a 32768-frame tile is 12.6 MB of int16
-// in and 25.3 MB out, 0.0113 ms at 3.35 TB/s; at 4096 / 2048 134 MB in and
-// 268.6 MB out, 0.120 ms. The FFT's operations are far below that (0.27
+// in and 25.3 MB out, 0.0113 ms at 3.35 TB/s; at 1216 / 608 39.8 MB in and
+// 79.8 MB out, 0.0357 ms; at 4096 / 2048 134 MB in and 268.6 MB out, 0.120
+// ms. The FFT's operations are far below that (0.27
 // GFLOP a tile at 384, 0.004 ms at 67 TFLOP/s of fp32; the chirp mode's
 // two FFTs of M >= 2N - 1 points about four times an FFT of N).
 //
@@ -35,12 +38,12 @@
 // frames at a time become one complex FFT, z = w*x_t + i*w*x_t+1, as one
 // Stockham pass per radix of a plan the host chooses (ops/dft.py::fft_plan:
 // the power-of-two part in the fewest passes of radix 16 at most, as even
-// as possible, then 3, 5, 7, 11, 13, 17; 384 = 16*8*3, 352 = 8*4*11, 1088 =
-// 8*8*17, 4096 = 16*16*16). Butterfly j of a pass of radix R, Ns the
-// product of the earlier radices, reads z[j + r*N/R], multiplies by
-// tw[r * (j % Ns) * N/(Ns*R)], takes an R-point DFT and writes
-// z'[(j / Ns)*Ns*R + j % Ns + r*Ns]; the last pass leaves Z in natural
-// order. The butterflies (dft_butterflies.cuh, shared with dft_cluster.cu)
+// as possible, then 3, 5, 7, 11, 13, 17, 19, 23; 384 = 16*8*3, 352 =
+// 8*4*11, 1088 = 8*8*17, 1216 = 8*8*19, 4096 = 16*16*16). Butterfly j of
+// a pass of radix R, Ns the product of the earlier radices, reads
+// z[j + r*N/R], multiplies by tw[r * (j % Ns) * N/(Ns*R)], takes an
+// R-point DFT and writes z'[(j / Ns)*Ns*R + j % Ns + r*Ns]; the last pass
+// leaves Z in natural order. The butterflies (dft_butterflies.cuh, shared with dft_cluster.cu)
 // are radix 16 as 4 x 4 with its W16 twiddles and the odd radices as
 // direct R-point DFTs over symmetric pairs; their float32 constants are
 // rounded once from float64 (ops/dft.py::_odd_roots, _C16). The passes
@@ -60,21 +63,26 @@
 // two exchange buffers, the passes synchronise the warp only, and the
 // roots and the window sit in shared memory; it is taken where it keeps at
 // least 4 warps resident on an SM (every n_fft up to 2048 at the spectral
-// and default hops, 1088). The block layout: the whole block (up to 512
-// threads) owns one frame pair at a time, with __syncthreads() between the
-// passes and one pair of exchange buffers, 128 KB at 8192; the roots and
+// and default hops, 1088, 1216). The block layout: the whole block (up to
+// 512 threads) owns one frame pair at a time, with __syncthreads() between
+// the passes and one pair of exchange buffers, 128 KB at 8192; the roots and
 // the window stay in shared memory where they fit beside the buffers and
 // are read from device memory through L1 where they do not. It takes every
 // larger n_fft (4352) and the chirp mode. A kernel is built for the
-// largest odd radix its plans need (11, 13 or 17): the radix-13 and
-// radix-17 butterflies' registers would cost the passes of the plans that
-// lack them a few percent.
+// largest odd radix its plans need (11, 13, 17, or 23 also for the plans
+// of 19): the radix-13, -17, -19 and -23 butterflies' registers would cost
+// the passes of the plans that lack them a few percent, so each plan runs
+// the kernel of its own largest odd radix. Each of those, for each sample
+// type, is a build of its own (-DORCAI_ODD, -DORCAI_DTYPE, ops/_build.py:
+// its warp and its block kernel), so that the kernels compile side by
+// side; the host picks the build (ops/dft.py::_build_variant) and a build
+// refuses another sample type or a plan with a larger odd radix.
 //
 // The chirp-z (Bluestein) mode, for an n_fft N with a prime factor above
-// 17: X[k] = a[k] sum_n (w a)[n] x[n] b[k - n] with a[n] = exp(-i pi (n^2
+// 23: X[k] = a[k] sum_n (w a)[n] x[n] b[k - n] with a[n] = exp(-i pi (n^2
 // mod 2N) / N) and b[m] = conj a[|m|], a circular convolution of length M,
-// a {2, ..., 17}-smooth M >= 2N - 1 whose passes move the fewest values
-// (ops/dft.py::chirp_length: 1216 -> 2431 = 11*13*17, 2038 -> 4096). On
+// a {2, ..., 19}-smooth M >= 2N - 1 whose passes move the fewest values
+// (ops/dft.py::chirp_length: 470 -> 952 = 8*7*17, 2038 -> 4096). On
 // the block layout: z = (w a)[n] (x_t + i x_t+1)[n] zero-padded to M, its
 // M-point FFT by the same passes, the product with B = FFT_M(b) / M folded
 // into the first pass of a second forward FFT of the conjugate (the
@@ -100,6 +108,16 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#if !defined(ORCAI_ODD) || \
+    (ORCAI_ODD != 11 && ORCAI_ODD != 13 && ORCAI_ODD != 17 && ORCAI_ODD != 23)
+#error "build with -DORCAI_ODD=11, 13, 17 or 23 (ops/_build.py::VARIANTS)"
+#endif
+#if !defined(ORCAI_DTYPE) || ORCAI_DTYPE < 0 || ORCAI_DTYPE > 2
+#error "build with -DORCAI_DTYPE=0 (float32), 1 (int16) or 2 (uint8 mu-law codes)"
+#endif
 
 namespace {
 
@@ -192,9 +210,9 @@ __device__ __forceinline__ void pass(const float2* src, int ss, int sg, float2* 
   }
 }
 
-// ODD, the largest odd radix a kernel is built for (11, 13 or 17), leaves
-// the radix-13 and radix-17 butterflies out of a kernel whose plans lack
-// them: their registers would cost the other passes a few percent
+// ODD, the largest odd radix a kernel is built for (11, 13, 17 or 23),
+// leaves the radix-13, -17, -19 and -23 butterflies out of a kernel whose
+// plans lack them: their registers would cost the other passes a few percent
 #define ORCAI_RADIX_CASES(CALL)  \
   case 2: CALL(2); break;        \
   case 3: CALL(3); break;        \
@@ -205,7 +223,9 @@ __device__ __forceinline__ void pass(const float2* src, int ss, int sg, float2* 
   case 11: CALL(11); break;      \
   case 13: if constexpr (ODD >= 13) { CALL(13); } break; \
   case 16: CALL(16); break;      \
-  case 17: if constexpr (ODD >= 17) { CALL(17); } break;
+  case 17: if constexpr (ODD >= 17) { CALL(17); } break; \
+  case 19: if constexpr (ODD >= 19) { CALL(19); } break; \
+  case 23: if constexpr (ODD >= 23) { CALL(23); } break;
 
 // the warp layout synchronises the warp that owns the pair, the block
 // layout the block
@@ -461,7 +481,7 @@ int make_plan(const int* packed, int n_fft, bool chirp, Plan* plan) {
   for (int p = 0; p < P; ++p) {
     const int R = packed[1 + p];
     if (R != 2 && R != 3 && R != 4 && R != 5 && R != 7 && R != 8 && R != 11 && R != 13 &&
-        R != 16 && R != 17)
+        R != 16 && R != 17 && R != 19 && R != 23)
       return 1;
     prod *= R;
     if (prod > MAX_N) return 1;
@@ -611,18 +631,14 @@ int launch(const void* audio, const float* window, const float* roots, const flo
   Layout lay;
   if (choose_layout(plan, hop, static_cast<int>(sizeof(T)), &lay))
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  int odd = 11;  // the largest odd radix the plan needs a kernel for
+  int odd = 1;  // the largest odd radix the plan needs: within this build's
   for (int p = 0; p < plan.n_passes; ++p)
-    odd = plan.radix[p] == 17 || (plan.radix[p] == 13 && odd < 13) ? plan.radix[p] : odd;
-  if (lay.block)
-    return odd == 17
-               ? run<T, true, 17>(audio, window, roots, chirp, plan, lay, out, n_frames, hop, s)
-               : run<T, true, 13>(audio, window, roots, chirp, plan, lay, out, n_frames, hop, s);
-  switch (odd) {
-    case 17: return run<T, false, 17>(audio, window, roots, chirp, plan, lay, out, n_frames, hop, s);
-    case 13: return run<T, false, 13>(audio, window, roots, chirp, plan, lay, out, n_frames, hop, s);
-    default: return run<T, false, 11>(audio, window, roots, chirp, plan, lay, out, n_frames, hop, s);
-  }
+    if (plan.radix[p] % 2 && plan.radix[p] > odd) odd = plan.radix[p];
+  if (odd > ORCAI_ODD) return static_cast<int>(cudaErrorInvalidValue);
+  if (lay.block)  // no radix-11 block kernel: its plans run the radix-13 one
+    return run<T, true, (ORCAI_ODD < 13 ? 13 : ORCAI_ODD)>(audio, window, roots, chirp, plan, lay,
+                                                         out, n_frames, hop, s);
+  return run<T, false, ORCAI_ODD>(audio, window, roots, chirp, plan, lay, out, n_frames, hop, s);
 }
 
 }  // namespace
@@ -635,8 +651,10 @@ int launch(const void* audio, const float* window, const float* roots, const flo
 // FFT mode) the radices multiply to n_fft, from 2 to 8192, and window is
 // the (n_fft,) float32 window. Otherwise (the chirp mode, n_fft from 2 to
 // 4096) they multiply to an M >= 2 n_fft - 1, chirp is ops/dft.py::
-// chirp_tables' (2 n_fft + M, 2) float32 and window is not read. Launches
-// on `stream` and returns cudaGetLastError().
+// chirp_tables' (2 n_fft + M, 2) float32 and window is not read. The
+// plan's largest odd radix may not pass this build's ORCAI_ODD, and dtype
+// must be its ORCAI_DTYPE. Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int orcai_dft_mixed(const void* audio, int dtype, const float* window,
                                const float* roots, const float* chirp, const int* plan,
                                float* out, int n_frames, int n_fft, int hop, void* stream) {
@@ -646,15 +664,9 @@ extern "C" int orcai_dft_mixed(const void* audio, int dtype, const float* window
     return static_cast<int>(cudaErrorInvalidValue);
   Plan p;
   if (make_plan(plan, n_fft, chirp != nullptr, &p)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch<float>(audio, window, roots, chirp, p, out, n_frames, hop, s);
-    case 1:
-      return launch<int16_t>(audio, window, roots, chirp, p, out, n_frames, hop, s);
-    case 2:
-      return launch<uint8_t>(audio, window, roots, chirp, p, out, n_frames, hop, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (dtype != ORCAI_DTYPE) return static_cast<int>(cudaErrorInvalidValue);
+  using Sample = std::conditional_t<ORCAI_DTYPE == 0, float,
+                                    std::conditional_t<ORCAI_DTYPE == 1, int16_t, uint8_t>>;
+  return launch<Sample>(audio, window, roots, chirp, p, out, n_frames, hop,
+                        static_cast<cudaStream_t>(stream));
 }

@@ -2,10 +2,13 @@
 
 Each csrc/<name>.cu has a plain C interface and becomes its own shared
 library, _build/lib<name>-<hash>.so, compiled for Hopper (sm_90a) the first
-time it is needed. The hash covers the source, the headers of csrc/ (*.cuh)
-and the flags, so an edited kernel is rebuilt and an unchanged one is not. Missing libraries are
-compiled by nvcc processes started together, one per source. Nothing here
-runs at import time.
+time it is needed. The FFT sources of VARIANTS are built once per largest
+odd radix they take and sample type (-DORCAI_ODD=<r> -DORCAI_DTYPE=<t>,
+lib<name>-odd<r>-t<t>-<hash>.so), so that their kernels compile in
+processes of their own. The hash covers the source, the headers of csrc/
+(*.cuh) and the flags, so an edited kernel is rebuilt and an unchanged one
+is not. Missing libraries are compiled by nvcc processes started together,
+one per library. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -21,12 +24,20 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("dft_magnitude", "dft_mixed", "dft_cluster", "dft_gemm", "digit_hist")
+# the builds of a source, (the largest odd radix it takes, sample type: 0
+# float32, 1 int16, 2 uint8; ops/dft.py::_build_variant picks the build of
+# a plan): one nvcc would compile dft_mixed.cu's 24 and dft_cluster.cu's 6
+# kernels one after another, where the card's host has cores for them side
+# by side; radix 19 shares radix 23's builds, which no size of the earlier
+# radices runs
+VARIANTS = {"dft_mixed": tuple((r, t) for r in (11, 13, 17, 23) for t in range(3)),
+            "dft_cluster": tuple((r, t) for r in (17, 23) for t in range(3))}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple[str, tuple[int, int] | None], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -43,38 +54,51 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path(name: str) -> Path:
+def _flags(variant: tuple[int, int] | None) -> tuple[str, ...]:
+    if variant is None:
+        return NVCC_FLAGS
+    return (*NVCC_FLAGS, f"-DORCAI_ODD={variant[0]}", f"-DORCAI_DTYPE={variant[1]}")
+
+
+def _tag(variant: tuple[int, int] | None) -> str:
+    return "" if variant is None else f"-odd{variant[0]}-t{variant[1]}"
+
+
+def library_path(name: str, variant: tuple[int, int] | None = None) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(_flags(variant)).encode())
+    return BUILD_DIR / f"lib{name}{_tag(variant)}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=KERNELS) -> dict[str, str]:
-    """Compile every library of `names` that is not built yet.
+    """Compile every library of `names` (each build of VARIANTS) that is
+    not built yet.
 
-    Returns {name: nvcc output} for the sources compiled by this call
-    (ptxas prints each kernel's registers, shared memory and spills).
+    Returns {name or name-odd<r>-t<t>: nvcc output} for the libraries
+    compiled by this call (ptxas prints each kernel's registers, shared
+    memory and spills).
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        procs[name] = (proc, tmp, out)
+        for variant in VARIANTS.get(name, (None,)):
+            out = library_path(name, variant)
+            if out.exists():
+                continue
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *_flags(variant), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )
+            procs[f"{name}{_tag(variant)}"] = (proc, tmp, out)
     logs, failed = {}, []
     for name, (proc, tmp, out) in procs.items():
         logs[name], _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu:\n{logs[name]}")
+            failed.append(f"nvcc failed for {name}:\n{logs[name]}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     if failed:
@@ -82,11 +106,15 @@ def build(names=KERNELS) -> dict[str, str]:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built on first use."""
-    if name not in _loaded:
-        path = library_path(name)
+def load(name: str, variant: tuple[int, int] | None = None) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu (its build for `variant`, one
+    of VARIANTS[name]), built on first use with the other builds of name."""
+    if variant not in VARIANTS.get(name, (None,)):
+        raise ValueError(f"{name}.cu has the builds {VARIANTS.get(name, (None,))}, not {variant}")
+    key = (name, variant)
+    if key not in _loaded:
+        path = library_path(name, variant)
         if not path.exists():
             build([name])
-        _loaded[name] = ctypes.CDLL(str(path))
-    return _loaded[name]
+        _loaded[key] = ctypes.CDLL(str(path))
+    return _loaded[key]

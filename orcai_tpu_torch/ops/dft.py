@@ -17,28 +17,30 @@ n_fft alone (`dft_route`), and runs the plain PyTorch version,
   algorithm is testable where no card is;
 - "mixed", csrc/dft_mixed.cu, at every other n_fft from 2 to MIXED_MAX
   (8192) whose prime factors are all in MIXED_PRIMES (the spectral wires'
-  384 and 352, 416, 1024, 1088, 2048, 4096, 4352, 8192, ...): the same
-  shape with one Stockham pass per radix of `fft_plan(n_fft)` (16, 8, 4,
-  2, 3, 5, 7, 11, 13, 17), each warp owning a frame pair where four warps
-  fit on an SM (up to 2048 at the usual hops) and the whole block owning
-  one otherwise. `_fft_mixed_reference` is its arithmetic step by step;
+  384 and 352, 416, 1024, 1088, 1216, 1472, 2048, 4096, 4352, 8192, ...):
+  the same shape with one Stockham pass per radix of `fft_plan(n_fft)` (16,
+  8, 4, 2, 3, 5, 7, 11, 13, 17, 19, 23), each warp owning a frame pair
+  where four warps fit on an SM (up to 2048 at the usual hops) and the
+  whole block owning one otherwise. `_fft_mixed_reference` is its
+  arithmetic step by step;
 - "cluster", csrc/dft_cluster.cu, at such an n_fft from MIXED_MAX + 1 to
-  CLUSTER_MAX (32768): one frame pair's FFT on a thread block cluster of 2
-  or 4 CTAs that read each other's shared memory, as the four-step split
+  CLUSTER_MAX (81920): one frame pair's FFT on a thread block cluster of 2,
+  4 or 8 CTAs that read each other's shared memory, as the four-step split
   of `cluster_plan(n_fft)` (column FFTs, twiddles, one exchange, row FFTs;
   the tables of `cluster_tables`). `_fft_cluster_reference` is its
   arithmetic step by step;
-- "chirp", at every other n_fft from 2 to CHIRP_MAX (16384), those with a
-  prime factor above 17: the DFT as a circular convolution of length
+- "chirp", at every other n_fft from 2 to CHIRP_MAX (40960), those with a
+  prime factor above 23: the DFT as a circular convolution of length
   `chirp_length(n_fft)` (a smooth M >= 2 n_fft - 1 whose passes move the
   fewest values) with the tables of `chirp_tables`, in the chirp-z
   (Bluestein) mode of csrc/dft_mixed.cu where M is within MIXED_MAX and of
-  csrc/dft_cluster.cu above (`_chirp_kernel`). `_chirp_reference` and
-  `_chirp_cluster_reference` are their arithmetic step by step;
+  csrc/dft_cluster.cu above, on up to 8 CTAs (`_chirp_kernel`).
+  `_chirp_reference` and `_chirp_cluster_reference` are their arithmetic
+  step by step;
 - "gemm", csrc/dft_gemm.cu, at what is left (a smooth n_fft above
-  CLUSTER_MAX, any other above CHIRP_MAX): the reference's own algorithm,
-  a tiled IEEE fp32 GEMM of the frames, read straight from the audio, with
-  the window-folded cos/sin matrices (`windowed_dft_mats`).
+  CLUSTER_MAX, any other above CHIRP_MAX, and 1): the reference's own
+  algorithm, a tiled IEEE fp32 GEMM of the frames, read straight from the
+  audio, with the window-folded cos/sin matrices (`windowed_dft_mats`).
 
 The plain version computes the reference's GEMM with torch.matmul.
 `dft_magnitude.launches` counts every kernel launch and
@@ -57,10 +59,12 @@ from orcai_tpu_torch.ops import _build
 from orcai_tpu_torch.ops.wire_codec import mulaw_decode_f32
 
 FFT_SIZES = (512,)  # the sizes csrc/dft_magnitude.cu is instantiated for
-MIXED_PRIMES = (2, 3, 5, 7, 11, 13, 17)  # the FFT kernels' radices: these and 4, 8, 16
+MIXED_PRIMES = (2, 3, 5, 7, 11, 13, 17, 19, 23)  # the FFT kernels' radices, and 4, 8, 16
+CHIRP_PRIMES = MIXED_PRIMES[:-1]  # of the chirp mode's convolution lengths: no radix-23 pass
 MIXED_MAX = 8192  # the largest FFT of csrc/dft_mixed.cu (two buffers of it in shared memory)
-CLUSTER_MAX = 32768  # the largest FFT of csrc/dft_cluster.cu (N/C of each buffer on C CTAs)
-CHIRP_MAX = 16384  # the largest n_fft of the chirp mode: its M stays within CLUSTER_MAX
+CLUSTER_MAX = 81920  # the largest FFT of csrc/dft_cluster.cu (N/C of each buffer on C CTAs)
+CHIRP_MAX = 40960  # the largest n_fft of the chirp mode: its M stays within CLUSTER_MAX
+CLUSTER_RANKS = (2, 4, 8)  # the cluster sizes csrc/dft_cluster.cu runs (8: the portable most)
 CLUSTER_CTA_BYTES = 160 * 1024  # a cluster CTA's two exchange buffers, of 227 KB
 ROUTES = ("fft", "mixed", "cluster", "chirp", "gemm")
 _DTYPE_CODES = {torch.float32: 0, torch.int16: 1, torch.uint8: 2}  # the kernels' dtype
@@ -263,9 +267,9 @@ def _fft_pairs_reference(
     return _untangle(zr, zi, n_fft, tpad)
 
 
-def _smooth(n: int) -> bool:
-    """Every prime factor of n is in MIXED_PRIMES."""
-    for r in MIXED_PRIMES:
+def _smooth(n: int, primes: tuple[int, ...] = MIXED_PRIMES) -> bool:
+    """Every prime factor of n is in `primes`."""
+    for r in primes:
         while n % r == 0:
             n //= r
     return n == 1
@@ -275,9 +279,9 @@ def fft_plan(n_fft: int) -> tuple[int, ...]:
     """The mixed route's radices for n_fft, in the order its Stockham passes
     run: the power-of-two part 2^a in the fewest passes of radix at most 16,
     split as evenly as possible with the larger radices first, then 3, 5, 7,
-    11, 13 and 17 (384 -> 16, 8, 3; 352 -> 8, 4, 11; 416 -> 8, 4, 13; 1024
-    -> 16, 8, 8; 1088 -> 8, 8, 17; 8192 -> 16, 8, 8, 8). Raises for an n_fft
-    the route does not take."""
+    11, 13, 17, 19 and 23 (384 -> 16, 8, 3; 352 -> 8, 4, 11; 416 -> 8, 4,
+    13; 1024 -> 16, 8, 8; 1088 -> 8, 8, 17; 1216 -> 8, 8, 19; 1472 -> 8, 8,
+    23; 8192 -> 16, 8, 8, 8). Raises for an n_fft the route does not take."""
     if not 2 <= n_fft <= MIXED_MAX:
         raise ValueError(f"n_fft {n_fft}: the mixed route takes 2 to {MIXED_MAX}")
     n, a = n_fft, 0
@@ -430,15 +434,19 @@ def _passes(m: int) -> int:
 @lru_cache(maxsize=None)
 def chirp_length(n_fft: int) -> int:
     """The chirp mode's convolution length: of the M from 2 n_fft - 1 to
-    4 n_fft whose prime factors are all in MIXED_PRIMES, the one of least
+    4 n_fft whose prime factors are all in CHIRP_PRIMES, the one of least
     M * _passes(M) (every pass moves M values through shared memory), the
-    smallest on a tie. Up to n_fft 4096 M stays within MIXED_MAX (the block
-    layout); above it M is above MIXED_MAX and within CLUSTER_MAX (the
-    cluster layout). 1216 -> 2431 = 11 * 13 * 17 (three passes), 2038 ->
-    4096 (not 4095 = 3^2 * 5 * 7 * 13), 8198 -> 16456 = 2^3 * 11^2 * 17
-    (136 x 121, five passes with the exchange)."""
+    smallest on a tie. CHIRP_PRIMES leave radix 23 out: an odd pass costs
+    more than this count gives it, and 23 would move 8198 to 16445 = 143 x
+    115 (11 * 13 x 5 * 23), a slower length on the card (PERF.md). Up to
+    n_fft 4096 M stays within MIXED_MAX (the block layout); above it M is
+    above MIXED_MAX and within CLUSTER_MAX (the cluster layout). 470 -> 952
+    = 8 * 7 * 17 (three passes), 2038 -> 4096 (not 4095 = 3^2 * 5 * 7 *
+    13), 8198 -> 16456 = 2^3 * 11^2 * 17 (136 x 121, five passes with the
+    exchange), 16418 -> 32851 = 247 x 133 (13 * 19 and 7 * 19, on 4 CTAs),
+    24578 -> 50864 = 272 x 187 (on 8 CTAs)."""
     top = min(4 * n_fft, MIXED_MAX if n_fft <= MIXED_MAX // 2 else CLUSTER_MAX)
-    return min((m for m in range(2 * n_fft - 1, top + 1) if _smooth(m)),
+    return min((m for m in range(2 * n_fft - 1, top + 1) if _smooth(m, CHIRP_PRIMES)),
                key=lambda m: (m * _passes(m), m))
 
 
@@ -511,11 +519,12 @@ def cluster_plan(n: int) -> tuple[int, int, int]:
     MIXED_MAX + 1 to CLUSTER_MAX with every prime factor in MIXED_PRIMES:
     (N1, N2, C), N1 * N2 = n with both from 2 to MIXED_MAX, the split of
     fewest passes (fft_plan(N1) and fft_plan(N2)), then the most even, the
-    larger factor first (16384 -> 128 x 128, 32768 -> 256 x 128); C, the
-    CTAs of a cluster, the fewer of 2 and 4 whose two exchange buffers of
-    n / C complex values fit in CLUSTER_CTA_BYTES of a CTA's shared memory:
-    2 up to 20480 points (128 KB a CTA at 16384), 4 above (128 KB at 32768).
-    Raises for an n the layout does not take."""
+    larger factor first (16384 -> 128 x 128, 32768 -> 256 x 128, 65536 ->
+    256 x 256); C, the CTAs of a cluster, the fewest of CLUSTER_RANKS whose
+    two exchange buffers of n / C complex values fit in CLUSTER_CTA_BYTES of
+    a CTA's shared memory: 2 up to 20480 points (128 KB a CTA at 16384), 4
+    up to 40960 (128 KB at 32768), 8 up to 81920 (128 KB at 65536). Raises
+    for an n the layout does not take."""
     if not MIXED_MAX < n <= CLUSTER_MAX or not _smooth(n):
         raise ValueError(f"n {n}: the cluster layout takes {MIXED_PRIMES}-smooth sizes from "
                          f"{MIXED_MAX + 1} to {CLUSTER_MAX}")
@@ -523,7 +532,8 @@ def cluster_plan(n: int) -> tuple[int, int, int]:
               if d >= 2 and n % d == 0 and 2 <= n // d <= MIXED_MAX]
     n1, n2 = min(splits, key=lambda s: (len(fft_plan(s[0])) + len(fft_plan(s[1])),
                                         max(s) / min(s), -s[0]))
-    return n1, n2, 2 if 8 * n <= CLUSTER_CTA_BYTES else 4  # 2 buffers of n/2 float2
+    # two buffers of n / C float2 a CTA
+    return n1, n2, next(c for c in CLUSTER_RANKS if 16 * n <= c * CLUSTER_CTA_BYTES)
 
 
 @lru_cache(maxsize=None)
@@ -772,7 +782,8 @@ def _route_tables(route: str, window_bytes: bytes, device: torch.device):
     cluster route's window and cluster_tables, the chirp route's
     chirp_tables and the roots of its M (pass_roots, or cluster_tables above
     MIXED_MAX), the GEMM route's window-folded C and S (windowed_dft_mats,
-    0.6 MB at n_fft 384)."""
+    4 N (N/2 + 1) bytes: 6.7 GB at 40962, the smallest n_fft with a hop
+    that divides it the route takes)."""
     n_fft = len(window_bytes) // 8
     if route == "gemm":
         arrays = _mats_cached(window_bytes)
@@ -789,9 +800,28 @@ def _route_tables(route: str, window_bytes: bytes, device: torch.device):
     return tuple(torch.from_numpy(a.copy()).to(device) for a in arrays)
 
 
+def _build_variant(kernel: str, n: int, dtype: torch.dtype) -> tuple[int, int] | None:
+    """The build of a kernel's library (ops/_build.py::VARIANTS) that runs
+    an FFT of n points on `dtype` samples: (of the builds' odd radices the
+    least at or above the largest odd radix of its plan, fft_plan(n) for
+    "mixed" or cluster_plan(n)'s two sides for "cluster"; the dtype's code);
+    None for the kernels built once."""
+    if kernel == "mixed":
+        radices = fft_plan(n)
+    elif kernel == "cluster":
+        n1, n2, _ = cluster_plan(n)
+        radices = fft_plan(n1) + fft_plan(n2)
+    else:
+        return None
+    odd = max(r for r in (1, *radices) if r % 2)
+    builds = sorted({r for r, _ in _build.VARIANTS[f"dft_{kernel}"]})
+    return next(r for r in builds if r >= odd), _DTYPE_CODES[dtype]
+
+
 @lru_cache(maxsize=None)
-def _kernel(kernel: str):
-    """The C entry point of a kernel's library, returning a CUDA error code.
+def _kernel(kernel: str, variant: tuple[int, int] | None = None):
+    """The C entry point of a kernel's library (its build for `variant`,
+    _build_variant), returning a CUDA error code.
     "fft" and "gemm": (audio, dtype, table_a, table_b, out, n_frames, n_fft,
     hop, stream), the FFT route's tables the window and the roots of unity,
     the GEMM route's the window-folded C and S. "mixed" (csrc/dft_mixed.cu)
@@ -805,7 +835,7 @@ def _kernel(kernel: str):
                  "mixed": ("dft_mixed", "orcai_dft_mixed"),
                  "cluster": ("dft_cluster", "orcai_dft_cluster"),
                  "gemm": ("dft_gemm", "orcai_dft_gemm")}[kernel]
-    fn = getattr(_build.load(lib), name)
+    fn = getattr(_build.load(lib, variant), name)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     chirp = [ptr, ctypes.POINTER(ctypes.c_int)] if kernel in ("mixed", "cluster") else []
     fn.argtypes = [ptr, i32, ptr, ptr, *chirp, ptr, i32, i32, i32, ptr]
@@ -815,15 +845,41 @@ def _kernel(kernel: str):
 
 def dft_route(n_fft: int) -> str:
     """The CUDA route of an n_fft: "fft" for FFT_SIZES; "mixed" for any
-    other n_fft from 2 to MIXED_MAX whose prime factors are in MIXED_PRIMES;
-    "cluster" for such an n_fft from MIXED_MAX + 1 to CLUSTER_MAX; "chirp"
-    for any other n_fft from 2 to CHIRP_MAX; "gemm" otherwise (a smooth
-    n_fft above CLUSTER_MAX, any other above CHIRP_MAX)."""
+    other n_fft from 2 to MIXED_MAX (8192) whose prime factors are in
+    MIXED_PRIMES (1216 = 2^6 * 19, 1472 = 2^6 * 23); "cluster" for such an
+    n_fft from MIXED_MAX + 1 to CLUSTER_MAX (81920; 65536 on 8 CTAs);
+    "chirp" for any other n_fft from 2 to CHIRP_MAX (40960; 16418 and 24578
+    on the cluster layout, 4 and 8 CTAs); "gemm" otherwise (a smooth n_fft
+    above CLUSTER_MAX, any other above CHIRP_MAX, and 1)."""
     if n_fft in FFT_SIZES:
         return "fft"
     if 2 <= n_fft <= CLUSTER_MAX and _smooth(n_fft):
         return "mixed" if n_fft <= MIXED_MAX else "cluster"
     return "chirp" if 2 <= n_fft <= CHIRP_MAX else "gemm"
+
+
+def active_clusters(n_fft: int, dtype: torch.dtype = torch.int16) -> int:
+    """How many thread block clusters of csrc/dft_cluster.cu's kernel at
+    n_fft (the cluster route, or the chirp mode on the cluster layout) the
+    current CUDA device holds at once: cudaOccupancyMaxActiveClusters for
+    clusters of cluster_plan's C CTAs, the size of the kernel's persistent
+    grid in clusters. Raises where a launch would fail (none fits)."""
+    route = dft_route(n_fft)
+    chirp = route == "chirp" and _chirp_kernel(n_fft) == "cluster"
+    if route != "cluster" and not chirp:
+        raise ValueError(f"n_fft {n_fft} does not take the cluster layout")
+    n = chirp_length(n_fft) if chirp else n_fft
+    fn = _build.load("dft_cluster", _build_variant("cluster", n, dtype)).orcai_dft_cluster_occupancy
+    i32 = ctypes.c_int
+    fn.argtypes = [i32, ctypes.POINTER(i32), i32, i32, i32, ctypes.POINTER(i32)]
+    fn.restype = i32
+    clusters = i32(0)
+    plan = _cluster_plan_array(n)
+    err = fn(_DTYPE_CODES[dtype], plan, n_fft, n_fft, int(chirp), ctypes.byref(clusters))
+    if err != 0:
+        raise RuntimeError(f"dft_magnitude at n_fft {n_fft}: no cluster of {plan[0]} CTAs "
+                           f"fits (CUDA error {err})")
+    return clusters.value
 
 
 def dft_magnitude(
@@ -852,20 +908,21 @@ def dft_magnitude(
         raise ValueError(f"dft_magnitude: unsupported device {padded.device}")
     route = kernel = dft_route(n_fft)
     a, b = _route_tables(route, window.tobytes(), padded.device)
+    n = n_fft  # the FFT's points: n_fft, or the chirp mode's convolution length
     if route == "mixed":
         tables = (a.data_ptr(), b.data_ptr(), None, _plan_array(n_fft))
     elif route == "cluster":
         tables = (a.data_ptr(), b.data_ptr(), None, _cluster_plan_array(n_fft))
     elif route == "chirp":
-        kernel, m = _chirp_kernel(n_fft), chirp_length(n_fft)
-        plan = _plan_array(m) if kernel == "mixed" else _cluster_plan_array(m)
+        kernel, n = _chirp_kernel(n_fft), chirp_length(n_fft)
+        plan = _plan_array(n) if kernel == "mixed" else _cluster_plan_array(n)
         tables = (None, b.data_ptr(), a.data_ptr(), plan)
     else:
         tables = (a.data_ptr(), b.data_ptr())
     out = torch.empty((tpad, n_fft // 2 + 1), dtype=torch.float32, device=padded.device)
     with torch.cuda.device(padded.device):
         stream = torch.cuda.current_stream(padded.device).cuda_stream
-        err = _kernel(kernel)(
+        err = _kernel(kernel, _build_variant(kernel, n, padded.dtype))(
             padded.data_ptr(), _DTYPE_CODES[padded.dtype], *tables, out.data_ptr(), tpad,
             n_fft, hop, stream,
         )

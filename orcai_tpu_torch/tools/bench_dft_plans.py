@@ -2,6 +2,7 @@
 on other convolution lengths, on a CUDA device.
 
     python -m orcai_tpu_torch.tools.bench_dft_plans [--frames 32768] [--iters 20] [--seed 0]
+        [--sweep]
 
 The mixed-radix kernel (csrc/dft_mixed.cu) takes its plan from the host, so
 one build runs any plan of an n_fft. At (n_fft, hop) 384/192 and 352/176
@@ -12,12 +13,23 @@ exchange layouts of exchange_pads), the same radices with no padding, and
 the radix-8 plan (8 as often as it divides, then one 4 or 2, then the odd
 primes) with its own layouts. They run in turns (a, b, c, c, b, a), each
 timed with CUDA events over --iters launches, and every output is held
-against the plain version (atol 2e-4). The chirp mode (the same kernel)
-at 1216/608 and 2038/1019 the same way on three convolution lengths M:
-the default (ops/dft.py::chirp_length, the smooth M >= 2 n_fft - 1 whose
-passes move the fewest values), the smallest smooth M >= 2 n_fft - 1 and
-the power of two. Prints one JSON line per size, then the card's name and
-power limit.
+against the plain version (atol 2e-4). The chirp mode the same way on
+its convolution lengths M: the default (ops/dft.py::chirp_length, the
+{2, ..., 19}-smooth M >= 2 n_fft - 1 whose passes move the fewest values),
+the same rule's pick over {2, ..., 23}-smooth M where it differs
+("with_23"), the smallest smooth M >= 2 n_fft - 1 and the power of two;
+at 470/235 and 2038/1019 on the mixed kernel's block layout, at
+8198/4099, 16418/8209 and 24578/12289 on the cluster kernel
+(csrc/dft_cluster.cu: 2, 4 and 8 CTAs at the default M, 8 at 65536), each
+held against the float64 rFFT of its first CHECK_FRAMES frames (atol 2e-4;
+the plain fp32 GEMM is itself about 2e-4 from it at 16418).
+
+With --sweep it times instead dft_magnitude against torch.stft(...).abs()
+on the same tile at SWEEP_SIZES, in turns (a, b, b, a), each held against
+the float64 rFFT of its first CHECK_FRAMES frames: n_fft of 2^a * 23 (the
+FFT routes since radix 23) and n_fft with a prime factor above 23 (the
+chirp mode) on both of its layouts. Prints one JSON line per size, then the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -27,7 +39,17 @@ import json
 import subprocess
 
 SIZES = ((384, 192), (352, 176), (768, 384), (1024, 256), (2048, 512))
-CHIRP_SIZES = ((1216, 608), (2038, 1019))
+CHIRP_SIZES = ((470, 235), (2038, 1019), (8198, 4099), (16418, 8209), (24578, 12289))
+SWEEP_SIZES = (
+    # 2^a * 23: the mixed route, then the cluster route
+    (368, 184), (736, 368), (1472, 736), (2944, 1472), (5888, 2944), (11776, 5888),
+    (23552, 11776),
+    # a prime factor above 23 (29, 31, 47, 1021, 1019, 89, 4099, 8209, 12289,
+    # 20479): the chirp mode's block layout (M <= 8192), then its cluster layout
+    (464, 232), (496, 248), (470, 235), (1021, 1021), (1856, 928), (1984, 992),
+    (2038, 1019), (4094, 2047), (8198, 4099), (16418, 8209), (24578, 12289),
+    (40958, 20479))
+CHECK_FRAMES = 64  # frames held against the float64 rFFT
 SPIN_CYCLES = 8_000_000  # about 4 ms at an H100's clock
 
 
@@ -71,14 +93,18 @@ def main(argv=None) -> int:
     parser.add_argument("--frames", type=int, default=32768)
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--sweep", action="store_true",
+                        help="dft_magnitude against torch.stft at SWEEP_SIZES")
     args = parser.parse_args(argv)
 
     import numpy as np
     import torch
 
     from orcai_tpu_torch.ops.dft import (
-        _DTYPE_CODES, _kernel, _smooth, chirp_length, chirp_tables, dft_magnitude_plain,
-        exchange_pads, fft_plan, fft_tables, pack_plan, pass_roots)
+        CLUSTER_MAX, MIXED_MAX, _DTYPE_CODES, _chirp_kernel, _cluster_plan_array, _kernel,
+        _build_variant, _passes, _smooth, chirp_length, chirp_tables, cluster_plan, cluster_tables,
+        dft_magnitude, dft_magnitude_plain, dft_route, exchange_pads, fft_plan, fft_tables,
+        pack_plan, pass_roots)
     from orcai_tpu_torch.ops.frontend import hann_window
 
     if not torch.cuda.is_available():
@@ -91,18 +117,62 @@ def main(argv=None) -> int:
     def on_device(a):
         return torch.from_numpy(np.array(a)).to(dev)
 
-    for n_fft, hop in SIZES + CHIRP_SIZES:
+    def vs_float64(got, x, window, n_fft, hop):
+        """max |got - |rFFT(window * frame)|| over the first CHECK_FRAMES
+        frames, the rFFT in float64."""
+        x64 = x[:(CHECK_FRAMES - 1) * hop + n_fft].double() / 32768.0
+        exact = torch.fft.rfft(x64.unfold(0, n_fft, hop) * on_device(window), dim=1).abs()
+        return float((got[:CHECK_FRAMES] - exact).abs().max())
+
+    if args.sweep:
+        for n_fft, hop in SWEEP_SIZES:
+            window = hann_window(n_fft)
+            n = (frames - 1) * hop + n_fft
+            x = torch.from_numpy(rng.integers(-32768, 32768, n, dtype=np.int16)).to(dev)
+            samples = x.float() * (1.0 / 32768.0)
+            win = torch.hann_window(n_fft, periodic=True, device=dev)
+            route = dft_route(n_fft)
+            m = chirp_length(n_fft) if route == "chirp" else n_fft
+            line = {"n_fft": n_fft, "hop": hop, "frames": frames, "dtype": "int16",
+                    "route": route, "length": m,
+                    "plan": list(fft_plan(m)) if m <= MIXED_MAX else list(cluster_plan(m))}
+            if route == "chirp":
+                line["layout"] = "block" if _chirp_kernel(n_fft) == "mixed" else "cluster"
+            got = dft_magnitude(x, window, n_fft=n_fft, hop=hop)
+            line["max_abs_err_vs_float64"] = err = vs_float64(got, x, window, n_fft, hop)
+            if not err <= 2e-4:
+                raise AssertionError(f"{n_fft}/{hop}: {err} from the float64 rFFT > 2e-4")
+            del got
+            runs = {"kernel": lambda: dft_magnitude(x, window, n_fft=n_fft, hop=hop),
+                    "torch_stft": lambda: torch.stft(samples, n_fft, hop_length=hop, window=win,
+                                                     center=False, return_complex=True).abs()}
+            line["ms"] = {k: [] for k in runs}
+            for name in [*runs, *reversed(runs)]:
+                line["ms"][name].append(event_ms(torch, runs[name], args.iters))
+            kernel, library = (sum(line["ms"][k]) for k in runs)
+            line["library_over_kernel"] = library / kernel
+            print(json.dumps(line), flush=True)
+            del x, samples
+            torch.cuda.empty_cache()
+    for n_fft, hop in () if args.sweep else SIZES + CHIRP_SIZES:
         window = hann_window(n_fft)
         n = (frames - 1) * hop + n_fft
         x = torch.from_numpy(rng.integers(-32768, 32768, n, dtype=np.int16)).to(dev)
-        want = dft_magnitude_plain(x, window, n_fft=n_fft, hop=hop)
-        out = torch.empty_like(want)
-        if (n_fft, hop) in CHIRP_SIZES:  # (FFT length, plan, layouts) of each variant
+        chirp = (n_fft, hop) in CHIRP_SIZES
+        want = None if chirp else dft_magnitude_plain(x, window, n_fft=n_fft, hop=hop)
+        out = torch.empty((frames, n_fft // 2 + 1), dtype=torch.float32, device=dev)
+        if chirp:  # (FFT length, plan, layouts) of each variant
             lengths = {"default": chirp_length(n_fft),
                        "smallest": next(m for m in range(2 * n_fft - 1, 4 * n_fft)
                                         if _smooth(m)),
                        "power_of_two": 1 << (2 * n_fft - 2).bit_length()}
-            variants = {k: (m, fft_plan(m), exchange_pads(m)) for k, m in lengths.items()}
+            top = min(4 * n_fft, MIXED_MAX if n_fft <= MIXED_MAX // 2 else CLUSTER_MAX)
+            with_23 = min((m for m in range(2 * n_fft - 1, top + 1) if _smooth(m)),
+                          key=lambda m: (m * _passes(m), m))
+            if with_23 != lengths["default"]:
+                lengths["with_23"] = with_23
+            variants = {k: (m, fft_plan(m), exchange_pads(m)) if m <= MIXED_MAX
+                        else (m, cluster_plan(m), None) for k, m in lengths.items()}
         else:
             default, eights = fft_plan(n_fft), radix8_plan(n_fft)
             variants = {
@@ -110,19 +180,24 @@ def main(argv=None) -> int:
                 "default_unpadded": (n_fft, default, ((0, 0),) * len(default)),
                 "radix8": (n_fft, eights, exchange_pads(n_fft, eights)),
             }
-        chirp = (n_fft, hop) in CHIRP_SIZES
         line = {"n_fft": n_fft, "hop": hop, "frames": frames, "dtype": "int16",
-                "plans": {k: {"length": m, "radices": list(p), "pads": [list(x) for x in pads]}
+                "plans": {k: {"length": m, "radices": list(p),
+                              **({"pads": [list(x) for x in pads]} if pads else {})}
                           for k, (m, p, pads) in variants.items()},
                 "ms": {k: [] for k in variants}, "max_abs_err": {}}
-        packed = {k: pack_plan(p, pads) for k, (_, p, pads) in variants.items()}
-        roots = {k: on_device(pass_roots(m, p)) for k, (m, p, _) in variants.items()}
+        # a plan of the mixed kernel, or above its 8192 points the cluster
+        # kernel's (N1, N2, C): its packed plan and roots
+        kernel = {k: "mixed" if m <= MIXED_MAX else "cluster" for k, (m, _, _) in variants.items()}
+        packed = {k: pack_plan(p, pads) if kernel[k] == "mixed" else _cluster_plan_array(m)
+                  for k, (m, p, pads) in variants.items()}
+        roots = {k: on_device(pass_roots(m, p) if kernel[k] == "mixed" else cluster_tables(m))
+                 for k, (m, p, _) in variants.items()}
         tables = {k: on_device(chirp_tables(window, m)) if chirp else None
                   for k, (m, _, _) in variants.items()}
         win = None if chirp else on_device(fft_tables(window)[0])
 
         def launch(name):
-            err = _kernel("mixed")(
+            err = _kernel(kernel[name], _build_variant(kernel[name], variants[name][0], x.dtype))(
                 x.data_ptr(), _DTYPE_CODES[x.dtype], None if chirp else win.data_ptr(),
                 roots[name].data_ptr(), tables[name].data_ptr() if chirp else None,
                 packed[name], out.data_ptr(), frames, n_fft, hop, stream)
@@ -132,12 +207,17 @@ def main(argv=None) -> int:
         for name in variants:
             launch(name)
             torch.cuda.synchronize()
-            line["max_abs_err"][name] = err = float((out - want).abs().max())
+            line["max_abs_err"][name] = err = (
+                vs_float64(out, x, window, n_fft, hop) if chirp
+                else float((out - want).abs().max()))
             if not err <= 2e-4:
-                raise AssertionError(f"{n_fft}/{hop} {name}: max |kernel - plain| {err} > 2e-4")
+                raise AssertionError(f"{n_fft}/{hop} {name}: max |kernel - "
+                                     f"{'float64' if chirp else 'plain'}| {err} > 2e-4")
         for name in [*variants, *reversed(variants)]:
             line["ms"][name].append(event_ms(torch, lambda: launch(name), args.iters))
         print(json.dumps(line), flush=True)
+        del x, want, out
+        torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)

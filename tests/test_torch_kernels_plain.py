@@ -44,7 +44,9 @@ from orcai_tpu_torch.ops.dft import (
     _odd_roots,
     _pad_address,
     _passes,
+    _build_variant,
     _wavefronts,
+    active_clusters,
     chirp_length,
     chirp_tables,
     cluster_plan,
@@ -175,16 +177,16 @@ def test_dft_wrapper_validates_geometry():
 @pytest.mark.parametrize(
     "n_fft,hop", [(1024, 256), (256, 128), (384, 128), (416, 208), (4096, 1024), (512, 256),
                   (1088, 544), (4352, 2176), (1216, 608), (16384, 8192), (8198, 4099),
-                  (16418, 8209)])
+                  (16418, 8209), (470, 235), (24578, 12289), (65536, 32768), (40962, 20481)])
 def test_dft_wrapper_names_supported_sizes(n_fft, hop):
     """Off the CPU every n_fft that hop divides has a kernel: 512 the FFT,
-    a {2, 3, 5, 7, 11, 13, 17}-smooth n_fft up to 8192 the mixed-radix FFT
-    (1088, 4352), such an n_fft up to 32768 the cluster layout, any other up
-    to 16384 the chirp mode (1216, 8198), the rest the GEMM (16418). What no
-    kernel takes raises and names what they take; nothing routes it to the
-    plain version."""
-    want = {512: "fft", 1216: "chirp", 8198: "chirp", 16384: "cluster",
-            16418: "gemm"}.get(n_fft, "mixed")
+    a {2, 3, 5, 7, 11, 13, 17, 19, 23}-smooth n_fft up to 8192 the mixed-radix
+    FFT (1088, 4352, 1216), such an n_fft up to 81920 the cluster layout
+    (16384, 65536), any other up to 40960 the chirp mode (470, 8198, 16418,
+    24578), the rest the GEMM (40962). What no kernel takes raises and names
+    what they take; nothing routes it to the plain version."""
+    want = {512: "fft", 470: "chirp", 8198: "chirp", 16418: "chirp", 24578: "chirp",
+            16384: "cluster", 65536: "cluster", 40962: "gemm"}.get(n_fft, "mixed")
     assert dft_route(n_fft) == want and dft_route(512) == "fft"
     for dtype in (torch.float64, torch.int32, torch.bool):
         x = torch.zeros(3 * hop + n_fft, dtype=dtype, device="meta")
@@ -197,6 +199,41 @@ def test_dft_wrapper_names_supported_sizes(n_fft, hop):
         x = torch.zeros(3 * hop + n_fft, dtype=dtype, device="meta")
         with pytest.raises(ValueError, match="unsupported device meta"):
             dft_magnitude(x, port_hann_window(n_fft), n_fft=n_fft, hop=hop)
+
+
+@pytest.mark.parametrize("n_fft", [512, 1216, 470, 40962])
+def test_active_clusters_takes_only_the_cluster_layout(n_fft):
+    """active_clusters reads the card's cluster occupancy only where n_fft
+    runs on the cluster layout (the cluster route, the chirp mode above a
+    length of 8192); any other n_fft raises before a kernel is loaded."""
+    with pytest.raises(ValueError, match="does not take the cluster layout"):
+        active_clusters(n_fft)
+
+
+def test_fft_sources_build_per_largest_odd_radix_and_sample_type():
+    """dft_mixed.cu and dft_cluster.cu are built once per (largest odd radix
+    a build takes, sample type), each build a library of its own flags and
+    path, so that their kernels compile side by side; _build_variant picks
+    the build of a plan, the least that takes its largest odd radix (a plan
+    without a 13, 17, 19 or 23 the radix-11 build of the mixed kernel, the
+    radix-17 one of the cluster kernel; a 19 the radix-23 build); a source
+    with builds is not loaded without one."""
+    paths = set()
+    for name, variants in _build.VARIANTS.items():
+        for odd, dtype in variants:
+            flags = _build._flags((odd, dtype))
+            assert f"-DORCAI_ODD={odd}" in flags and f"-DORCAI_DTYPE={dtype}" in flags
+            paths.add(_build.library_path(name, (odd, dtype)))
+    assert len(paths) == sum(len(v) for v in _build.VARIANTS.values()) == 18
+    for n, odd in ((384, 11), (4096, 11), (416, 13), (1088, 17), (1216, 23), (1472, 23),
+                   (952, 17), (2431, 17)):
+        assert _build_variant("mixed", n, torch.int16) == (odd, 1)
+    for n, odd in ((16384, 17), (16456, 17), (32851, 23), (50864, 17), (65536, 17),
+                   (11776, 23)):
+        assert _build_variant("cluster", n, torch.uint8) == (odd, 2)
+    assert _build_variant("gemm", 40962, torch.float32) is None
+    with pytest.raises(ValueError, match="builds"):
+        _build.load("dft_mixed")
 
 
 def test_dft_wrapper_rejects_bad_hop_off_cpu():
@@ -284,8 +321,11 @@ MIXED_SIZES = [(384, 192), (352, 176), (768, 384), (704, 352), (1024, 256), (256
                (2048, 512), (375, 125)]
 
 
-def _smooth(n):
-    for p in (2, 3, 5, 7, 11, 13, 17):
+CHIRP = (2, 3, 5, 7, 11, 13, 17, 19)  # the chirp mode's lengths' primes
+
+
+def _smooth(n, primes=CHIRP + (23,)):
+    for p in primes:
         while n % p == 0:
             n //= p
     return n == 1
@@ -293,26 +333,28 @@ def _smooth(n):
 
 def test_dft_route_and_fft_plan_cover_the_smooth_sizes():
     """dft_route sends 512 to the FFT route, every other {2, 3, 5, 7, 11,
-    13, 17}-smooth n_fft from 2 to 8192 to the mixed route (416, 1088,
-    4096, 4352, 8192), such an n_fft from 8193 to 32768 to the cluster
-    layout (16384, 32768), every other n_fft from 2 to 16384 to the chirp
-    mode (a prime, 1216, 8198), and the rest (a smooth n_fft above 32768,
-    any other above 16384) to the GEMM; fft_plan's radices multiply back to
-    n_fft (for the chirp mode on the block layout to its convolution
-    length): the power-of-two part first, in the fewest passes of radix 16
-    at most, split as evenly as possible with the larger radices first,
-    then the odd primes in ascending order."""
+    13, 17, 19, 23}-smooth n_fft from 2 to 8192 to the mixed route (416,
+    1088, 1216, 1472, 4096, 4352, 8192), such an n_fft from 8193 to 81920 to
+    the cluster layout (16384, 32768, 65536), every other n_fft from 2 to
+    40960 to the chirp mode (a prime, 470, 2038, 8198, 16418, 24578), and
+    the rest (a smooth n_fft above 81920, any other above 40960) to the
+    GEMM; fft_plan's radices multiply back to n_fft (for the chirp mode on
+    the block layout to its convolution length, {2, ..., 19}-smooth): the
+    power-of-two part first, in the fewest passes of radix 16 at most, split
+    as evenly as possible with the larger radices first, then the odd
+    primes in ascending order."""
     assert dft_route(512) == "fft"
-    for n in (384, 352, 768, 704, 1024, 256, 2048, 375, 416, 13, 17, 1088, 4096, 4352, 8192):
+    for n in (384, 352, 768, 704, 1024, 256, 2048, 375, 416, 13, 17, 19, 23, 1088, 1216, 368,
+              1472, 4096, 4352, 8192):
         assert dft_route(n) == "mixed"
-    for n in (16384, 32768, 8232, 19683, 28561):
+    for n in (16384, 32768, 8232, 19683, 28561, 40960, 65536, 81920, 46189, 11776):
         assert dft_route(n) == "cluster"
-    for n in (1021, 1216, 2038, 19, 2053, 4093, 4097, 8198, 16381):
+    for n in (1021, 470, 2038, 29, 2053, 4093, 4097, 8198, 16381, 16411, 16418, 24578, 40959):
         assert dft_route(n) == "chirp"
-    for n in (16418, 1, 16411, 2 * CLUSTER_MAX, CLUSTER_MAX + 2):
+    for n in (40961, 40962, 1, 2 * CLUSTER_MAX, CLUSTER_MAX + 2, 81921):
         assert dft_route(n) == "gemm"
-    assert MIXED_MAX == 8192 and CHIRP_MAX == 16384 and CLUSTER_MAX == 32768
-    routes = {n: dft_route(n) for n in range(1, 4 * MIXED_MAX)}
+    assert MIXED_MAX == 8192 and CHIRP_MAX == 40960 and CLUSTER_MAX == 81920
+    routes = {n: dft_route(n) for n in range(1, CHIRP_MAX + 1)}
     mixed = [n for n, r in routes.items() if r == "mixed"]
     assert mixed == [n for n in range(2, MIXED_MAX + 1) if _smooth(n) and n != 512]
     chirp = [n for n, r in routes.items() if r == "chirp"]
@@ -320,7 +362,7 @@ def test_dft_route_and_fft_plan_cover_the_smooth_sizes():
     block = [n for n in chirp if n <= MIXED_MAX // 2]
     for n in mixed + [512] + [chirp_length(n) for n in block]:
         plan = fft_plan(n)
-        assert int(np.prod(plan)) == n and set(plan) <= {2, 3, 4, 5, 7, 8, 11, 13, 16, 17}
+        assert int(np.prod(plan)) == n and set(plan) <= {2, 3, 4, 5, 7, 8, 11, 13, 16, 17, 19, 23}
         twos = [r for r in plan if r in (2, 4, 8, 16)]
         a = int(np.log2(np.prod(twos)))
         assert list(plan) == twos + sorted(r for r in plan if r not in twos)
@@ -328,35 +370,41 @@ def test_dft_route_and_fft_plan_cover_the_smooth_sizes():
         assert not twos or twos[0] <= 2 * twos[-1]
     for n in block:
         m = chirp_length(n)
-        assert 2 * n - 1 <= m <= min(4 * n, MIXED_MAX) and _smooth(m)
+        assert 2 * n - 1 <= m <= min(4 * n, MIXED_MAX) and _smooth(m, CHIRP)
     for n in chirp[len(block)::397]:  # the cluster layout's lengths
         m = chirp_length(n)
-        assert MIXED_MAX < 2 * n - 1 <= m <= min(4 * n, CLUSTER_MAX) and _smooth(m)
+        assert MIXED_MAX < 2 * n - 1 <= m <= min(4 * n, CLUSTER_MAX) and _smooth(m, CHIRP)
         assert _chirp_kernel(n) == "cluster"
-    for n in chirp[::37] + chirp[len(block)::797]:  # of the lengths it may take, the fewest
-        m = chirp_length(n)                         # values moved
+    upto = [n for n in chirp if n <= 16384]  # of the lengths it may take, the fewest values
+    for n in upto[::37] + chirp[len(block)::797] + chirp[len(upto)::2797]:  # moved
+        m = chirp_length(n)
         top = min(4 * n, MIXED_MAX if n <= MIXED_MAX // 2 else CLUSTER_MAX)
         for k in range(2 * n - 1, top + 1):
-            assert not _smooth(k) or (m * _passes(m), m) <= (k * _passes(k), k)
-    # radix 17 gives 1088's length (2197 = 13^3 without it) and 1216's
-    assert chirp_length(1088) == 2176 and chirp_length(1216) == 2431
+            assert not _smooth(k, CHIRP) or (m * _passes(m), m) <= (k * _passes(k), k)
+    # radix 17 gives 1088's length (2197 = 13^3 without it); 470's uses it,
+    # 16418's radix 19 (247 x 133 = 13 * 19 x 7 * 19); radix 23 takes no
+    # part (with it 8198 would take 16445 = 143 x 115 = 11 * 13 x 5 * 23)
+    assert chirp_length(1088) == 2176 and chirp_length(470) == 952
     assert chirp_length(2038) == 4096 and chirp_length(8198) == 16456
+    assert chirp_length(16418) == 32851 and chirp_length(24578) == 50864
     assert fft_plan(384) == (16, 8, 3) and fft_plan(352) == (8, 4, 11)
     assert fft_plan(1024) == (16, 8, 8) and fft_plan(375) == (3, 5, 5, 5)
     assert fft_plan(416) == (8, 4, 13) and fft_plan(8192) == (16, 8, 8, 8)
     assert fft_plan(1088) == (8, 8, 17) and fft_plan(4352) == (16, 16, 17)
-    assert fft_plan(2431) == (11, 13, 17)
-    for n in (1216, 16384, 1):
+    assert fft_plan(2431) == (11, 13, 17) and fft_plan(1216) == (8, 8, 19)
+    assert fft_plan(952) == (8, 7, 17) and fft_plan(247) == (13, 19)
+    assert fft_plan(1472) == (8, 8, 23) and fft_plan(368) == (16, 23)
+    for n in (1856, 29, 16384, 1):
         with pytest.raises(ValueError):
             fft_plan(n)
 
 
 def test_dft_route_partitions_every_size_to_twice_the_cluster_limit():
-    """Every n_fft from 1 to 2 * 32768 has exactly one route, by its
-    factors and size alone: 512 the FFT; a {2, ..., 17}-smooth n_fft the
-    mixed route up to 8192 and the cluster layout up to 32768; any other
-    the chirp mode from 2 to 16384; the GEMM for the rest (a smooth n_fft
-    above 32768, any other above 16384, and 1)."""
+    """Every n_fft from 1 to 2 * 81920 has exactly one route, by its
+    factors and size alone: 512 the FFT; a {2, ..., 23}-smooth n_fft the
+    mixed route up to 8192 and the cluster layout up to 81920; any other
+    the chirp mode from 2 to 40960; the GEMM for the rest (a smooth n_fft
+    above 81920, any other above 40960, and 1)."""
     counts = dict.fromkeys(("fft", "mixed", "cluster", "chirp", "gemm"), 0)
     for n in range(1, 2 * CLUSTER_MAX + 1):
         route = dft_route(n)
@@ -380,20 +428,27 @@ def test_dft_route_partitions_every_size_to_twice_the_cluster_limit():
 
 def test_cluster_plan_splits_and_tables():
     """cluster_plan splits N = N1 * N2 with the fewest passes, then the most
-    even split, on 2 CTAs up to 20480 and 4 above; four_step_roots are the
-    float64 roots of unity W_N^(k1 j) rounded once; cluster_tables and the
-    packed plan hold the two sides' pass roots, the twiddles in both orders
-    and the lengths the kernel checks."""
+    even split, on the fewest CTAs whose two buffers of N/C values fit in
+    160 KB: 2 up to 20480, 4 up to 40960, 8 up to 81920 (the first
+    {2, ..., 19}-smooth sizes past each limit, 20482 and 40964, take the
+    next); each side is at least C (every rank has columns and row pairs);
+    four_step_roots are the float64 roots of unity W_N^(k1 j) rounded once;
+    cluster_tables and the packed plan hold the two sides' pass roots, the
+    twiddles in both orders and the lengths the kernel checks."""
     assert cluster_plan(16384) == (128, 128, 2) and cluster_plan(32768) == (256, 128, 4)
     assert cluster_plan(16456) == (136, 121, 2) and cluster_plan(8228) == (121, 68, 2)
     assert cluster_plan(20480)[2] == 2 and cluster_plan(20736) == (144, 144, 4)
-    for n in (MIXED_MAX, CLUSTER_MAX + 1, 16418, 1):
+    assert cluster_plan(20482)[2] == 4 and cluster_plan(40960) == (256, 160, 4)
+    assert cluster_plan(40964)[2] == 8 and cluster_plan(81920) == (320, 256, 8)
+    assert cluster_plan(65536) == (256, 256, 8) and cluster_plan(32851) == (247, 133, 4)
+    assert cluster_plan(50864) == (272, 187, 8)
+    for n in (MIXED_MAX, CLUSTER_MAX + 1, 16418, 1, 2 * CLUSTER_MAX):
         with pytest.raises(ValueError):
             cluster_plan(n)
-    for n in (8232, 9801, 19683, 28561, 30000, 32768):
+    for n in (8232, 9801, 19683, 28561, 30000, 32768, 46189, 57344, 69632, 73728, 81796):
         n1, n2, ranks = cluster_plan(n)
-        assert n1 * n2 == n and 2 <= n2 <= n1 <= MIXED_MAX
-        assert ranks == (2 if n <= 20480 else 4)
+        assert n1 * n2 == n and 2 <= n2 <= n1 <= MIXED_MAX and n2 >= ranks
+        assert ranks == (2 if n <= 20480 else 4 if n <= 40960 else 8)
         passes = len(fft_plan(n1)) + len(fft_plan(n2))
         for d in range(2, MIXED_MAX + 1):
             if n % d == 0 and n // d <= MIXED_MAX:
@@ -415,6 +470,7 @@ def test_cluster_plan_splits_and_tables():
     np.testing.assert_array_equal(table[len1 + len2 + 32768:].reshape(n2, n1, 2),
                                   t.transpose(1, 0, 2))
     assert list(_cluster_plan_array(32768)) == [4, 256, 128, len1, len2, 2, 16, 16, 2, 16, 8]
+    assert list(_cluster_plan_array(65536)) == [8, 256, 256, 240, 240, 2, 16, 16, 2, 16, 16]
 
 
 @pytest.mark.parametrize("n_fft,hop", MIXED_SIZES)
@@ -476,7 +532,7 @@ def test_fft_mixed_reference_is_no_farther_from_float64_than_the_gemm(n_fft, hop
 
 
 NEW_SIZES = [(416, 208), (4096, 2048), (8192, 4096), (1088, 544), (2038, 1019), (1021, 1021),
-             (4352, 2176), (1216, 608)]
+             (4352, 2176), (1216, 608), (470, 235), (1472, 736)]
 
 
 def _reference(n_fft):
@@ -487,13 +543,13 @@ def _reference(n_fft):
 @pytest.mark.parametrize("n_fft,hop", NEW_SIZES)
 @pytest.mark.parametrize("dtype", ["f32", "int16", "uint8"])
 def test_mixed_and_chirp_references_at_the_new_sizes(n_fft, hop, dtype):
-    """The mixed route at 416 (8, 4, 13), 4096, 8192 and with radix 17 at
-    1088 (8, 8, 17) and 4352 (16, 16, 17), and the chirp mode at 2038, the
-    prime 1021 and 1216 = 2^6 * 19 (two Bluestein FFTs of the kernel's
-    passes with its chirp tables; M = 2431 = 11 * 13 * 17) against the
-    Pallas kernel in interpret mode, atol 2e-4, and no farther from numpy's
-    float64 rfft than the plain version (the framed fp32 GEMM), in float32,
-    int16 and uint8."""
+    """The mixed route at 416 (8, 4, 13), 4096, 8192, with radix 17 at 1088
+    (8, 8, 17) and 4352 (16, 16, 17), with radix 19 at 1216 (8, 8, 19) and
+    with radix 23 at 1472 (8, 8, 23), and the chirp mode at 2038, the prime 1021 and 470 = 2 * 5 * 47 (two
+    Bluestein FFTs of the kernel's passes with its chirp tables; M = 952 =
+    8 * 7 * 17) against the Pallas kernel in interpret mode, atol 2e-4, and
+    no farther from numpy's float64 rfft than the plain version (the framed
+    fp32 GEMM), in float32, int16 and uint8."""
     rng = np.random.default_rng(n_fft + hop)
     tpad = 64 if n_fft < 4352 else 32
     n = (tpad - 1) * hop + n_fft
@@ -514,7 +570,8 @@ def test_mixed_and_chirp_references_at_the_new_sizes(n_fft, hop, dtype):
     assert err <= err_plain, (err, err_plain)
 
 
-@pytest.mark.parametrize("n_fft,hop", [(1216, 608), (1088, 544), (1021, 1021), (19, 19), (17, 17)])
+@pytest.mark.parametrize("n_fft,hop", [(470, 235), (1088, 544), (1021, 1021), (19, 19), (17, 17),
+                                       (23, 23)])
 def test_chirp_reference_odd_count_and_codes(n_fft, hop):
     """The chirp mode at an odd frame count (a phantom second frame of
     zeros) against numpy's float64 rfft, atol 2e-4, and the codes through
@@ -591,15 +648,19 @@ def test_chirp_cluster_reference_at_small_splits_matches_pallas(n_fft, hop, m, s
 
 
 @pytest.mark.parametrize("n_fft,hop,tpad", [(16384, 8192, 3), (32768, 16384, 2),
-                                            (8198, 4099, 3), (16383, 16383, 2)])
+                                            (8198, 4099, 3), (16383, 16383, 2),
+                                            (16418, 8209, 3), (24578, 12289, 2),
+                                            (65536, 32768, 2)])
 @pytest.mark.parametrize("dtype", ["f32", "int16", "uint8"])
 def test_cluster_references_at_the_route_sizes_match_float64(n_fft, hop, tpad, dtype):
-    """The cluster route's arithmetic at 16384 (128 x 128) and 32768
-    (256 x 128), and the chirp mode on the cluster layout at 8198 (M =
-    16456 = 136 x 121) and 16383 (M = 32768), on a few frames (an odd count
-    included) against numpy's float64 rfft, atol 2e-4; the codes through
-    each bit-equal to their host decode to int16. (The Pallas kernel's
-    matrices at these sizes are too heavy for this suite.)"""
+    """The cluster route's arithmetic at 16384 (128 x 128), 32768 (256 x
+    128) and 65536 (256 x 256, 8 CTAs), and the chirp mode on the cluster
+    layout at 8198 (M = 16456 = 136 x 121), 16383 (M = 32768), 16418 (M =
+    32851 = 247 x 133, radix 19 on both sides, 4 CTAs) and 24578 (M = 50864
+    = 272 x 187, 8 CTAs), on a few frames (an odd count included) against
+    numpy's float64 rfft, atol 2e-4; the codes through each bit-equal to
+    their host decode to int16. (The Pallas kernel's matrices at these sizes
+    are too heavy for this suite.)"""
     padded, as_f64 = _signal(dtype, (tpad - 1) * hop + n_fft, n_fft + tpad)
     window = port_hann_window(n_fft)
     ref = (_fft_cluster_reference if dft_route(n_fft) == "cluster"
@@ -651,7 +712,7 @@ def test_chirp_tables_match_float64(n_fft):
         assert np.abs(dft - want).max() <= 1e-5 * np.abs(want).max()
 
 
-@pytest.mark.parametrize("n", [384, 416, 4096, 2178, 13, 1088, 4352, 2431, 17])
+@pytest.mark.parametrize("n", [384, 416, 4096, 2178, 13, 1088, 4352, 2431, 17, 1216, 247, 1472])
 def test_pass_roots_are_the_roots_each_pass_reads(n):
     """pass_roots lays the n roots of unity out as the mixed kernel's passes
     read them: for pass p > 0 of radix R after Ns points, tw[r jm n/(Ns R)]
@@ -672,7 +733,7 @@ def test_pass_roots_are_the_roots_each_pass_reads(n):
 
 def test_mixed_kernel_constants_are_the_reference_s():
     """The butterflies' float32 constants written in csrc/dft_butterflies.cuh
-    (the odd radices' roots up to 17, radix 16's W16 twiddles), which
+    (the odd radices' roots up to 23, radix 16's W16 twiddles), which
     csrc/dft_mixed.cu and csrc/dft_cluster.cu include, are those of the
     reference (_odd_roots, _C16, _S16): float64 values rounded once."""
     for name in ("dft_mixed.cu", "dft_cluster.cu"):
@@ -685,7 +746,7 @@ def test_mixed_kernel_constants_are_the_reference_s():
         body = body[:body.index("return 0.0f;")]
         got = {(int(r), int(m)): np.float32(v) for r, m, v in re.findall(
             r"case (\d+) \* 16 \+ (\d+): return (-?[0-9.]+)f;", body)}
-        want = {(r, m + 1): v for r in (3, 5, 7, 11, 13, 17)
+        want = {(r, m + 1): v for r in (3, 5, 7, 11, 13, 17, 19, 23)
                 for m, v in enumerate(_odd_roots(r)[col])}
         assert got == want
     for name, want in (("wc", _C16), ("ws", _S16)):
@@ -698,10 +759,12 @@ def test_exchange_pads_leave_no_bank_conflict_at_the_main_sizes():
     """The layouts the host picks for the mixed kernel's exchange buffers
     (a + ((a >> s) << g)) give each warp access its fewest shared-memory
     wavefronts at 256, 384, 768, 1024, 2048, 4096, 8192 and 4352 = 16 * 16
-    * 17, within 10 % of that at 352, 704, 416 and 1088 = 8 * 8 * 17, and
-    never more than no padding."""
+    * 17 and 368 = 16 * 23, within 10 % of that at 352, 704, 416, 1088 = 8 *
+    8 * 17, 1216 = 8 * 8 * 19 and 1472 = 8 * 8 * 23, and never more than no
+    padding."""
     for n, slack in ((256, 0), (384, 0), (768, 0), (1024, 0), (2048, 0), (4096, 0), (8192, 0),
-                     (4352, 0), (352, 0.1), (704, 0.1), (416, 0.1), (1088, 0.1)):
+                     (4352, 0), (368, 0), (352, 0.1), (704, 0.1), (416, 0.1), (1088, 0.1),
+                     (1216, 0.1), (1472, 0.1)):
         got = ideal = bare = 0
         for accesses, pad in zip(_exchange_accesses(n, fft_plan(n)), exchange_pads(n)):
             for addr in accesses:
@@ -712,9 +775,11 @@ def test_exchange_pads_leave_no_bank_conflict_at_the_main_sizes():
 
 
 def test_b1_tools_plans_and_refusal_without_a_card():
-    """tools/bench_dft_plans.py's radix-8 plans multiply back to n_fft and
-    its chirp sizes are the chirp route's; it, tools/time_b1_routes.py and
-    tools/ab_b1_sizes.py stop without a card instead of timing the CPU."""
+    """tools/bench_dft_plans.py's radix-8 plans multiply back to n_fft, its
+    chirp sizes are the chirp route's, and its sweep holds sizes of 2^a * 23
+    on the FFT routes and sizes with a prime factor above 23 on both layouts
+    of the chirp mode; it, tools/time_b1_routes.py and tools/ab_b1_sizes.py
+    stop without a card instead of timing the CPU."""
     from orcai_tpu_torch.tools import ab_b1_sizes, bench_dft_plans, time_b1_routes
 
     assert bench_dft_plans.radix8_plan(384) == (8, 8, 2, 3)
@@ -723,6 +788,13 @@ def test_b1_tools_plans_and_refusal_without_a_card():
         assert int(np.prod(bench_dft_plans.radix8_plan(n))) == n
     assert bench_dft_plans.radix8_plan(352) == fft_plan(352)
     assert all(dft_route(n) == "chirp" for n, _ in bench_dft_plans.CHIRP_SIZES)
+    sweep = bench_dft_plans.SWEEP_SIZES
+    assert all(n % hop == 0 for n, hop in sweep)
+    by23 = [n for n, _ in sweep if n % 23 == 0 and _smooth(n)]
+    assert {368, 1472} <= set(by23) and {dft_route(n) for n in by23} == {"mixed", "cluster"}
+    chirp = [n for n, _ in sweep if n not in by23]
+    assert all(dft_route(n) == "chirp" for n in chirp)
+    assert {_chirp_kernel(n) for n in chirp} == {"mixed", "cluster"}
     for tool, argv in ((bench_dft_plans, []), (time_b1_routes, []),
                        (ab_b1_sizes, ["--trees", ".", "."])):
         with pytest.raises(SystemExit, match="no CUDA device"):
