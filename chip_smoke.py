@@ -6,7 +6,9 @@
 Phases, each printing one JSON line and failing the run on any error:
 
   env      torch/CUDA versions, the device, its capability and power limit
-  build    compiles csrc/*.cu with nvcc (one process per source, together)
+  build    compiles csrc/*.cu with nvcc (one process per library, together):
+           the wall, each library's, every kernel's registers and spills
+           (none may spill)
   kernels  holds each kernel against its plain PyTorch version on the card
            at main-path shapes (B1 dft_magnitude at a 32768-frame tile and
            on a ragged and an unaligned one, f32 and int16, atol 2e-4; B2
@@ -86,7 +88,8 @@ Phases, each printing one JSON line and failing the run on any error:
            8192/4096 in float32, int16 and uint8 mu-law codes and at
            768/384, 704/352, 2048/512, 416/208, with radix 17 at 1088/544
            and 4352/2176, with radix 19 at 1216/608 and with radix 23 at
-           1472/736 and 368/184 in int16 and uint8,
+           1472/736 and 368/184 in int16 and uint8, with radices 29 and 31
+           at 464/232, 496/248, 1856/928 and 1984/992 in all three types,
            also at streamed sp-bfp5's 188784- and 262144-frame tiles at
            384/192; the cluster route at 16384/8192 and 32768/16384 in all
            three types and at 65536/32768 (8 CTAs) in int16 and uint8 on
@@ -96,9 +99,17 @@ Phases, each printing one JSON line and failing the run on any error:
            on every frame); the chirp route at 2038/1019 and 470/235 (block
            layout), 8198/4099 and 16418/8209 (cluster layout, 2 and 4 CTAs;
            16418 also on a 301-frame tile) and 24578/12289 (8 CTAs, on the
-           11251-frame tile, held as 65536 is), the GEMM route at
-           40962/20481 on a 301-frame tile (also against the float64 rFFT)
-           and the FFT route at 512/256 in uint8; how many clusters the card
+           11251-frame tile, held as 65536 is), the staged route at
+           40962/20481 (its chirp mode) on a 301-frame tile (against the
+           plain version in int16, 6.7 GB of tables) and a 2048-frame one,
+           at 131072/65536 and 98304/49152 (its FFT mode) on 2048 frames and
+           at 14848/7424 (2^9 * 29) on a 301-frame tile (each also
+           against its arithmetic step by step on the card and the float64
+           rFFT), the staged kernels called directly at 65536/32768 beside
+           the cluster route, the GEMM kernel called directly at 40962 on
+           301 frames and through dft_magnitude at n_fft 1 (its route's
+           one size below 2^20; 1 launch, no B2 or pick), and the FFT route
+           at 512/256 in uint8; how many clusters the card
            holds at once on 2, 4 and 8 CTAs; B1 of the codes bit-equal to B1
            of their int16 decode on every route; the new sizes no farther
            from the float64 rFFT than the plain version; kernel, plain,
@@ -108,11 +119,12 @@ Phases, each printing one JSON line and failing the run on any error:
            sp11-bfp5, each inside the reference's golden bar (B1 1, B2 3,
            pick 3 launches on the wire's
            route: the spectral wires on the mixed route); create-spectrograms
-           through the CLI on a one-minute project at nfft 416 and 1216 (B1
-           1 on the mixed route), 2038 and 16418 (the chirp route on the
-           block and the cluster layout), 16384 (the cluster route) and
-           40962 (the GEMM route), B2 3, pick 3; the store against the CPU
-           path within 2e-4;
+           through the CLI on a one-minute project at nfft 416, 1216 and
+           1856 (B1 1 on the mixed route), 2038 and 16418 (the chirp route
+           on the block and the cluster layout), 16384 (the cluster route),
+           40962 and 131072 (the staged route's two modes), B2 3, pick 3;
+           the store against the CPU path within 2e-4 (at 131072, whose
+           plain tables are 68.7 GB, bit-equal to the frontend on cuda);
            the 20-minute recording in memory on exact, mulaw8, bfp5
            and sp-bfp5 (7 / 3 / 3 launches, the spectrogram within 2e-4 of the
            port's CPU path on the same wire, the frontend's wall, device copy
@@ -211,9 +223,9 @@ Phases, each printing one JSON line and failing the run on any error:
            nothing, the rerun all CACHED). One card: no time here is a
            multi-GPU speed-up
 
-Then one {"selection": {...}} line, one {"kernels": [...]} line (B1 as five
-rows, its FFT, mixed-radix, cluster, chirp and GEMM routes; the run fails if a row's
-kernel no path launched), the card's `name, power.limit` from
+Then one {"selection": {...}} line, one {"kernels": [...]} line (B1 as six
+rows, its FFT, mixed-radix, cluster, chirp, staged and GEMM routes; the run fails
+if a row's kernel no path launched), the card's `name, power.limit` from
 nvidia-smi, and last {"ok": true, "device": {...}}. Exits non-zero, with no
 result, when CUDA is unavailable or the package is missing.
 """
@@ -245,11 +257,15 @@ MINUTES = 20.0  # the throughput cell: 225001 frames, 7 real tiles, 610 windows
 LONG_REPEATS = 14  # the streaming cell: 4 h 40 min, 3150001 frames, 8559 windows
 STATS_TILE, CHUNK_TILE = 1 << 18, (512 + 1) * 368  # the streaming path's tiles, frames
 B1_TILES = (32768, 11251)  # frames: the in-memory tile, golden's (odd, ragged) count
-GEMM_FRAMES = 301  # frames of B1's tile at 40962 (the GEMM route), of 16418's old GEMM
-#   tile and of the GEMM kernel called directly above 8192: its time grows as n_fft^2
-PLAIN_MAX = 16418  # the largest n_fft held against B1's plain version but the GEMM
-#   route's: at 24578, 32768 and 65536 its tables are 2.4, 4.3 and 17 GB in float32,
-#   built through float64 on the host; the step-by-step reference holds those
+GEMM_FRAMES = 301  # frames of B1's tile at 40962 (the GEMM route's last size until the
+#   staged route), of 16418's old GEMM tile and of the GEMM kernel called directly above
+#   8192: its time grows as n_fft^2
+GEMM_NFFT = 40962  # above PLAIN_MAX, the one n_fft held against the plain version (int16,
+#   GEMM_FRAMES frames: 6.7 GB of tables) and timed against the GEMM kernel called directly
+STAGED_FRAMES = 2048  # frames of B1's tiles on the staged route (0.27 GB of int16 at 131072)
+PLAIN_MAX = 16418  # the largest n_fft held against B1's plain version but GEMM_NFFT:
+#   at 24578, 32768 and 65536 its tables are 2.4, 4.3 and 17 GB in float32, 68.7 GB at
+#   131072, built through float64 on the host; the step-by-step reference holds those
 B1_SHORT = 33  # frames of the step-by-step reference run on the card above PLAIN_MAX
 PEAK_SLACK_BYTES = 64 * 1024 * 1024
 TVT_SNIPPETS = (512, 128, 70)  # train / val / test; 70 leaves a remainder batch at 64
@@ -338,8 +354,15 @@ def phase_build() -> dict:
                if "registers" in ln or "spill" in ln]
         for name, log in logs.items()
     }
+    # ptxas's "N bytes spill stores, M bytes spill loads" a kernel: none may
+    # spill to local memory
+    spills = [f"{name}: {ln}" for name, lines in resources.items() for ln in lines
+              if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
+    if spills:
+        raise AssertionError(f"kernels spill: {spills}")
     return {"phase": "build", "seconds": time.perf_counter() - t0,
-            "built": sorted(logs), "ptxas": resources}
+            "libraries": len(logs), "library_seconds": _build.build.seconds,
+            "built": sorted(logs), "ptxas": resources, "spills": spills}
 
 
 def _b1_checks(torch, rng, dev) -> tuple[dict, dict]:
@@ -659,9 +682,9 @@ def check_counts(counts: dict, b1: int, where: str, b2: int = 3, pick: int = 3,
     Streaming: B1 three times per stats tile and once per chunk, B2 three
     times per stats tile, and the pick on the host from int64 counts. Every
     B1 launch takes `route` (ops/dft.py::dft_route: the FFT at n_fft 512, the
-    mixed-radix FFT at the spectral wires' 384 and 352 and at 416 and 1216,
-    the cluster layout at 16384, the chirp mode at 2038 and 16418, the GEMM
-    at 40962)."""
+    mixed-radix FFT at the spectral wires' 384 and 352 and at 416, 1216 and
+    1856, the cluster layout at 16384, the chirp mode at 2038 and 16418, the
+    staged route at 40962 and 131072, the GEMM at n_fft 1)."""
     want = {"dft_magnitude": b1, "digit_histograms": b2, "radix_pick": pick,
             "b1_routes": {r: b1 if r == route else 0 for r in counts["b1_routes"]}}
     if counts != want:
@@ -678,7 +701,7 @@ def reset_counts() -> None:
 def read_counts(total: dict | None = None) -> dict:
     """This path's launches; added to `total`, the run's sum over its paths
     (B1 by route: dft_magnitude_fft, dft_magnitude_mixed, dft_magnitude_cluster,
-    dft_magnitude_chirp, dft_magnitude_gemm)."""
+    dft_magnitude_chirp, dft_magnitude_staged, dft_magnitude_gemm)."""
     counts = {fn.__name__: fn.launches for fn in _counters()}
     routes = dict(_counters()[0].route_launches)
     if total is not None:
@@ -1550,50 +1573,57 @@ def _b1_route(wire: str) -> str:
     return "mixed" if wire.startswith("sp") else "fft"
 
 
-def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict]:
+def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict]:
     """B1 at the wires' and the parameter files' sizes and types against its
     plain version (atol 2e-4), on a 32768-frame tile, the ragged 11251-frame
     one and a uint8 view one byte off alignment: the mixed route at 384/192,
     352/176, 1024/256, 4096/2048 and 8192/4096 in float32, int16 and uint8
     and at 768/384, 704/352, 2048/512, 416/208, 1088/544, 4352/2176 (radix
     17), 1216/608 (radix 19), 1472/736 and 368/184 (radix 23; 368 on the
-    32768-frame tile) in int16 and uint8, also at streamed
-    sp-bfp5's tiles (384/192); the cluster route at 16384/8192 and
-    32768/16384 in all three types and at 65536/32768 (8 CTAs) in int16 and
-    uint8 on the 11251-frame tile; the chirp route at 2038/1019 and 470/235
-    (block layout), 8198/4099 and 16418/8209 (cluster layout, 2 and 4 CTAs;
-    16418 also on a GEMM_FRAMES-frame tile) in int16 and uint8, and at
-    24578/12289 (8 CTAs) on the 11251-frame tile; the GEMM route at
-    40962/20481 on a GEMM_FRAMES-frame tile (int16, uint8); the FFT route
-    at 512/256 in uint8. B1 of the codes bit-equal to B1 of their int16
-    decode on each route; on the 32768-frame tile, the mixed route in int16
-    and every type at this PR's sizes no farther from the float64 rFFT than
-    the plain version, and the GEMM route so on its tile. Where the kernel
-    is more than 2e-4 from the plain version, the plain fp32 GEMM must
-    itself be more than 2e-4 from the float64 rFFT and the kernel within
-    2e-4 of it (recorded in plain_past_bar). Above PLAIN_MAX off the GEMM
-    route (24578, 32768, 65536: plain tables of 2.4 to 17 GB in float32,
-    built through float64 on the host) the kernel is held instead against
-    its arithmetic step by step (ops/dft.py::_fft_cluster_reference,
-    _chirp_cluster_reference) run on the card on a B1_SHORT-frame tile, and
-    against the float64 rFFT on every frame, both at 2e-4; the GEMM route at
-    40962 against the float64 rFFT, in int16 also against its plain version
-    (6.7 GB of tables, uploaded in each call, built on the host beside the
-    other sizes' checks: gemm_plain_tables_s). Times, on the 32768-frame
-    tile, at this PR's sizes on the other tiles too, and on the streamed
-    tiles: the route's kernel, the GEMM kernel called directly at the same
-    n_fft (above 8192 on a GEMM_FRAMES-frame tile: its time grows as N^2),
-    the plain version, torch.stft(...).abs() and the byte bound; and how
-    many clusters of the cluster layout the card holds at once at each of
-    its sizes (active_clusters: 2, 4 and 8 CTAs). Returns (the phase's
-    record, the mixed, the cluster, the chirp and the GEMM route's kernels
-    rows)."""
+    32768-frame tile) in int16 and uint8, at 464/232, 496/248, 1856/928 and
+    1984/992 (radices 29 and 31, on the 32768-frame tile) in all three
+    types, also at streamed sp-bfp5's tiles (384/192); the cluster route at
+    16384/8192 and 32768/16384 in all three types and at 65536/32768 (8
+    CTAs) in int16 and uint8 on the 11251-frame tile; the chirp route at
+    2038/1019 and 470/235 (block layout), 8198/4099 and 16418/8209 (cluster
+    layout, 2 and 4 CTAs; 16418 also on a GEMM_FRAMES-frame tile) in int16
+    and uint8, and at 24578/12289 (8 CTAs) on the 11251-frame tile; the
+    staged route at 14848/7424 (2^9 * 29) on a GEMM_FRAMES-frame tile, at
+    GEMM_NFFT 40962/20481 (its chirp mode) on a GEMM_FRAMES- and a
+    STAGED_FRAMES-frame tile and at 131072/65536 and 98304/49152 (its FFT
+    mode) on STAGED_FRAMES frames, in int16 and uint8; the FFT route at
+    512/256 in uint8. B1 of the codes bit-equal to B1 of their int16 decode
+    on each route; on the 32768-frame tile, the mixed route in int16 and
+    every type at this PR's sizes no farther from the float64 rFFT than the
+    plain version. Where the kernel is more than 2e-4 from the plain
+    version, the plain fp32 GEMM must itself be more than 2e-4 from the
+    float64 rFFT and the kernel within 2e-4 of it (recorded in
+    plain_past_bar). Above PLAIN_MAX (plain tables of 2.4 GB at 24578 to
+    68.7 GB at 131072 in float32, built through float64 on the host) the
+    kernel is held against its arithmetic step by step (ops/dft.py::
+    _fft_cluster_reference, _chirp_cluster_reference, _staged_reference,
+    _chirp_staged_reference) run on the card on a B1_SHORT-frame tile, and
+    against the float64 rFFT on every frame, both at 2e-4; at GEMM_NFFT on
+    the GEMM_FRAMES-frame int16 tile also against its plain version (6.7 GB
+    of tables, uploaded in each call, built on the host beside the other
+    sizes' checks: gemm_plain_tables_s). Times, on the 32768-frame tile, at
+    this PR's sizes on the other tiles too, and on the streamed tiles: the
+    route's kernel, the GEMM kernel called directly at the same n_fft
+    (above 8192 on a GEMM_FRAMES-frame tile: its time grows as N^2), the
+    plain version, torch.stft(...).abs() and the byte bound; how many
+    clusters of the cluster layout the card holds at once at each of its
+    sizes (active_clusters: 2, 4 and 8 CTAs); the staged kernels called
+    directly at 65536 beside the cluster route. Returns (the phase's
+    record, the mixed, the cluster, the chirp, the staged and the GEMM
+    route's kernels rows)."""
     import numpy as np
 
     from orcai_tpu_torch.ops.dft import (
-        MIXED_MAX, _DTYPE_CODES, _chirp_cluster_reference, _chirp_kernel, _fft_cluster_reference,
-        _kernel, _route_tables, active_clusters, chirp_length, cluster_plan, dft_magnitude,
-        dft_magnitude_plain, dft_route, windowed_dft_mats)
+        MIXED_MAX, _DTYPE_CODES, _chirp_cluster_reference, _chirp_kernel,
+        _chirp_staged_reference, _fft_cluster_reference, _kernel, _launch_staged,
+        _route_tables, _staged_reference, active_clusters, chirp_length, cluster_plan,
+        dft_magnitude, dft_magnitude_plain, dft_route, staged_mode, staged_plan,
+        windowed_dft_mats)
     from orcai_tpu_torch.ops.frontend import hann_window
     from orcai_tpu_torch.ops.wire_codec import (
         mulaw_decode_f32, mulaw_decode_host, mulaw_encode)
@@ -1602,7 +1632,8 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict]:
     record = {"max_abs_err": {}, "codes_bit_equal_decoded": {}, "gemm_fp32_floor_ms": {},
               "gemm_direct_max_abs_err": {}, "max_abs_err_vs_float64": {}, "plain_past_bar": {},
               "max_abs_err_vs_reference": {}, "gemm_direct_past_bar": {},
-              "gemm_plain_tables_s": {}, "active_clusters": {}, "seconds_by_size": {}}
+              "gemm_plain_tables_s": {}, "active_clusters": {}, "seconds_by_size": {},
+              "staged_plans": {}}
     cases = {}
     every, coded, tiles = ("f32", "int16", "uint8"), ("int16", "uint8"), B1_TILES
     streamed = {CHUNK_TILE: "normalize_tile", STATS_TILE: "stats_tile"}
@@ -1615,8 +1646,14 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict]:
              (32768, 16384, every, tiles), (65536, 32768, coded, tiles[1:]),
              (2038, 1019, coded, tiles), (470, 235, coded, tiles), (8198, 4099, coded, tiles),
              (16418, 8209, coded, (tiles[0], GEMM_FRAMES)), (24578, 12289, coded, tiles[1:]),
-             (40962, 20481, coded, (GEMM_FRAMES,)), (512, 256, ("uint8",), tiles))
-    new_sizes = (1216, 1472, 65536, 470, 16418, 24578, 40962)  # every tile timed
+             (464, 232, every, tiles[:1]), (496, 248, every, tiles[:1]),
+             (1856, 928, every, tiles[:1]), (1984, 992, every, tiles[:1]),
+             (14848, 7424, coded, (GEMM_FRAMES,)),
+             (GEMM_NFFT, 20481, coded, (GEMM_FRAMES, STAGED_FRAMES)),
+             (131072, 65536, coded, (STAGED_FRAMES,)), (98304, 49152, coded, (STAGED_FRAMES,)),
+             (512, 256, ("uint8",), tiles))
+    # every tile timed
+    new_sizes = (464, 496, 1856, 1984, 14848, GEMM_NFFT, 131072, 98304)
     streaming = {}  # the mixed route's times at the streaming tiles
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -1625,11 +1662,11 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict]:
         windowed_dft_mats(hann_window(n_fft))
         record["gemm_plain_tables_s"][f"{n_fft}"] = time.perf_counter() - t0
 
-    # the plain version's tables on the GEMM route (6.7 GB at 40962, most of
-    # a minute of numpy through float64) are built on the host while the card
-    # checks the other sizes; numpy lets go of the GIL in its loops
-    builders = {n_fft: threading.Thread(target=build_plain_tables, args=(n_fft,), daemon=True)
-                for n_fft, *_ in sizes if dft_route(n_fft) == "gemm"}
+    # the plain version's tables at GEMM_NFFT (6.7 GB, most of a minute of
+    # numpy through float64) are built on the host while the card checks the
+    # other sizes; numpy lets go of the GIL in its loops
+    builders = {GEMM_NFFT: threading.Thread(target=build_plain_tables, args=(GEMM_NFFT,),
+                                            daemon=True)}
     for builder in builders.values():
         builder.start()
 
@@ -1679,9 +1716,11 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict]:
                "bound_ms": t_bound, "bound_by": by}
         if rec["route"] == "chirp":
             rec["layout"] = "block" if _chirp_kernel(n_fft) == "mixed" else "cluster"
+        if rec["route"] == "staged":
+            rec["mode"] = staged_mode(n_fft)
         # the yardsticks take up to 0.35 s a call at 16384: two timed calls;
-        # the plain version at 40962 (the GEMM route) uploads its 6.7 GB of
-        # tables in each call, seconds: one
+        # the plain version at GEMM_NFFT uploads its 6.7 GB of tables in each
+        # call, seconds: one
         if with_plain:
             big = n_fft > PLAIN_MAX
             rec["plain_ms"] = cuda_ms(lambda: dft_magnitude_plain(
@@ -1689,7 +1728,8 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict]:
         if rec["route"] != "gemm" and n_fft <= MIXED_MAX:
             rec["gemm_ms"] = cuda_ms(gemm_direct(x, window, n_fft, hop, frames), iters=2,
                                      warmup=1)
-        elif rec["route"] != "gemm" and n_fft <= PLAIN_MAX and frames in (tiles[0], GEMM_FRAMES):
+        elif (rec["route"] != "gemm" and (n_fft <= PLAIN_MAX or n_fft == GEMM_NFFT)
+              and frames in (tiles[0], GEMM_FRAMES)):
             rec[f"gemm_ms_{GEMM_FRAMES}_frames"] = cuda_ms(
                 gemm_direct(x, window, n_fft, hop, GEMM_FRAMES), iters=2, warmup=1)
         return rec
@@ -1700,19 +1740,24 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict]:
         win = torch.hann_window(n_fft, periodic=True, device=dev)
         n_bins = n_fft // 2 + 1
         route = dft_route(n_fft)
-        with_plain = n_fft <= PLAIN_MAX or route == "gemm"
 
-        def plain(kind):
-            """The plain version runs on this kind: at the GEMM route's 40962
-            (its 6.7 GB of tables uploaded in each call) on int16 alone, the
-            codes held to their int16 decode bit for bit."""
-            return with_plain and (route != "gemm" or kind == "int16")
-        if route == "gemm":
+        def plain(kind, frames):
+            """The plain version runs on this kind and tile: up to PLAIN_MAX,
+            and at GEMM_NFFT (its 6.7 GB of tables uploaded in each call) on
+            the GEMM_FRAMES-frame int16 tile alone, the codes held to their
+            int16 decode bit for bit."""
+            return n_fft <= PLAIN_MAX or (n_fft == GEMM_NFFT and frames == GEMM_FRAMES
+                                          and kind == "int16")
+        if n_fft in builders:
             builders[n_fft].join()
         if route == "cluster" or route == "chirp" and _chirp_kernel(n_fft) == "cluster":
             record["active_clusters"][f"{n_fft}"] = {
                 "ranks": cluster_plan(n_fft if route == "cluster" else chirp_length(n_fft))[2],
                 "clusters": active_clusters(n_fft)}
+        if route == "staged":
+            m = n_fft if staged_mode(n_fft) == "fft" else chirp_length(n_fft)
+            record["staged_plans"][f"{n_fft}"] = {"mode": staged_mode(n_fft), "length": m,
+                                                  "n1_n2_g1_g2": list(staged_plan(m))}
         for frames in frame_counts:
             n = (frames - 1) * hop + n_fft
             pcm = rng.integers(-32768, 32768, n, dtype=np.int16)
@@ -1730,37 +1775,41 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict]:
                 torch.cuda.synchronize()
                 if got.shape != (frames, n_bins):
                     raise AssertionError(f"B1 ({route} route) {key}: shape {tuple(got.shape)}")
-                if plain(kind):
+                with_plain = plain(kind, frames)
+                if with_plain:
                     want = dft_magnitude_plain(x, window, n_fft=n_fft, hop=hop)
                     err = float((got - want).abs().max())
                     record["max_abs_err"][key] = err
-                elif with_plain:  # the GEMM route's codes: bit-equal to the int16 decode below
-                    want, err = None, 0.0
-                else:
-                    want = None
+                if n_fft > PLAIN_MAX:
+                    if not with_plain:
+                        want = None
                     short = x[:(B1_SHORT - 1) * hop + n_fft]
-                    step_by_step = (_fft_cluster_reference if route == "cluster"
-                                    else _chirp_cluster_reference)
+                    step_by_step = {"cluster": _fft_cluster_reference,
+                                    "chirp": _chirp_cluster_reference}.get(route) or (
+                        _staged_reference if staged_mode(n_fft) == "fft"
+                        else _chirp_staged_reference)
                     ref = step_by_step(short, window, n_fft=n_fft, hop=hop)
-                    err = float((got[:B1_SHORT] - ref).abs().max())
-                    record["max_abs_err_vs_reference"][key] = err
+                    ref_err = float((got[:B1_SHORT] - ref).abs().max())
+                    record["max_abs_err_vs_reference"][key] = ref_err
                     del short, ref
-                    if not err <= 2e-4:
+                    if not ref_err <= 2e-4:
                         raise AssertionError(f"B1 ({route} route) {key}: max |kernel - "
-                                             f"reference| {err} > 2e-4 on {B1_SHORT} frames")
-                to_float64 = not with_plain or route == "gemm" or frames == tiles[0] and (
+                                             f"reference| {ref_err} > 2e-4 on {B1_SHORT} frames")
+                    if not with_plain:
+                        err = ref_err
+                to_float64 = n_fft > PLAIN_MAX or frames == tiles[0] and (
                     kind == "int16" or n_fft in new_sizes and kind in every)
                 if to_float64 or not err <= 2e-4:
                     # kernel and plain against the float64 rFFT of the same
                     # windowed frames: the kernel must be no farther
                     vs64 = {"kernel": vs_float64(got, x, window, n_fft, hop)}
-                    if plain(kind):
+                    if with_plain:
                         vs64["plain"] = vs_float64(want, x, window, n_fft, hop)
                     record["max_abs_err_vs_float64"][key] = vs64
-                    if plain(kind) and to_float64 and not vs64["kernel"] <= vs64["plain"]:
+                    if with_plain and to_float64 and not vs64["kernel"] <= vs64["plain"]:
                         raise AssertionError(f"B1 {key}: the kernel is farther from float64 "
                                              f"than the plain version: {vs64}")
-                    if (not with_plain or route == "gemm") and not vs64["kernel"] <= 2e-4:
+                    if n_fft > PLAIN_MAX and not vs64["kernel"] <= 2e-4:
                         raise AssertionError(f"B1 {key}: the kernel is {vs64['kernel']} from "
                                              "the float64 rFFT (> 2e-4)")
                 if with_plain and not err <= 2e-4:
@@ -1771,8 +1820,8 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict]:
                         raise AssertionError(f"B1 ({route} route) {key}: max |kernel - plain| "
                                              f"{err} > 2e-4; against float64 {vs64}")
                     record["plain_past_bar"][key] = {"kernel_vs_plain": err, **vs64}
-                if (route != "gemm" and with_plain and frames == tiles[0]
-                        and kind != "uint8_unaligned"):
+                if (route != "gemm" and with_plain and kind != "uint8_unaligned" and (
+                        frames == tiles[0] or n_fft == GEMM_NFFT and frames == GEMM_FRAMES)):
                     # the yardstick, timed below, is right too (above 8192 on
                     # the frames it is timed on), by the same rule
                     t = frames if n_fft <= MIXED_MAX else GEMM_FRAMES
@@ -1807,7 +1856,7 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict]:
                 suffix = "" if frames == tiles[0] else f"/{frames}"
                 for kind in kinds:
                     cases[f"{n_fft}/{hop}/{kind}{suffix}"] = timed(
-                        xs[kind], window, win, n_fft, hop, frames, plain(kind))
+                        xs[kind], window, win, n_fft, hop, frames, plain(kind, frames))
                 # the GEMM's own floor, not the function's bound: 2 T n_fft
                 # n_bins fp32 FMAs (re and im), 2 FLOP each
                 record["gemm_fp32_floor_ms"][f"{n_fft}/{hop}{suffix}"] = (
@@ -1822,19 +1871,19 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict]:
 
     def row(name, route, main_key, shape):
         main = cases[main_key]
-        source = {"gemm": "dft_gemm", "cluster": "dft_cluster"}.get(route, "dft_mixed")
+        source = {"gemm": "dft_gemm", "cluster": "dft_cluster",
+                  "staged": "dft_staged"}.get(route, "dft_mixed")
         also = {"sources": ["orcai_tpu_torch/csrc/dft_mixed.cu",
                             "orcai_tpu_torch/csrc/dft_cluster.cu"]} if route == "chirp" else {}
         return {
             "name": name, "route": "cuda", "source": f"orcai_tpu_torch/csrc/{source}.cu", **also,
             "replaces": "orcai_tpu/ops/pallas_dft.py:67",
-            "max_abs_err": max(of_route("max_abs_err", route).values()),
+            "max_abs_err": max(of_route("max_abs_err", route).values(), default=0.0),
             "tolerance": "2e-4 against the plain version, or against the float64 rFFT where "
                          "the plain fp32 GEMM is itself farther than 2e-4 from it "
-                         "(plain_past_bar); the GEMM route also 2e-4 against the float64 "
-                         "rFFT; above 16418 off the GEMM route, where no plain version runs, "
-                         "2e-4 against the step-by-step reference on the card and against the "
-                         "float64 rFFT",
+                         "(plain_past_bar); above 16418, where the plain version runs at "
+                         f"{GEMM_NFFT} alone (int16, {GEMM_FRAMES} frames), 2e-4 against the "
+                         "step-by-step reference on the card and against the float64 rFFT",
             "max_abs_err_vs_float64": max([v["kernel"] for v in of_route(
                 "max_abs_err_vs_float64", route).values()], default=None),
             "max_abs_err_vs_reference": max(of_route(
@@ -1847,7 +1896,7 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict]:
 
     mixed_row = row(
         "dft_magnitude_mixed", "mixed", "384/192/int16",
-        "B1's mixed-radix route (every {2,...,23}-smooth n_fft up to 8192 but 512): "
+        "B1's mixed-radix route (every {2,...,31}-smooth n_fft up to 8192 but 512): "
         "ms etc. at n_fft 384 / hop 192 (the sp-bfp5 and sp-bfp6 wires), a 32768-frame "
         "int16 tile x 193 bins; the *_normalize_tile_* and *_stats_tile_* keys: streamed "
         f"sp-bfp5's {CHUNK_TILE}- and {STATS_TILE}-frame tiles at 384 / 192; cases: every "
@@ -1863,24 +1912,75 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict]:
         f"(gemm_ms_{GEMM_FRAMES}_frames: the GEMM kernel on a {GEMM_FRAMES}-frame tile)")
     chirp_row = row(
         "dft_magnitude_chirp", "chirp", "2038/1019/int16",
-        "B1's chirp-z (Bluestein) mode (every other n_fft up to 40960): on dft_mixed.cu's "
-        "block layout where its length M is within 8192, on dft_cluster.cu above; ms etc. "
-        "at n_fft 2038 / hop 1019, a 32768-frame int16 tile x 1020 bins; cases as the "
-        "mixed row's, each with its layout")
-    gemm_row = row(
-        "dft_magnitude_gemm", "gemm", f"40962/20481/int16/{GEMM_FRAMES}",
-        "B1's GEMM route (a smooth n_fft above 81920, any other above 40960): ms etc. at "
-        f"n_fft 40962 / hop 20481, a {GEMM_FRAMES}-frame int16 tile x 20482 bins; its times "
-        "at the other routes' sizes: gemm_ms in their rows' cases")
+        "B1's chirp-z (Bluestein) mode (every n_fft up to 40960 with a prime factor above "
+        "31): on dft_mixed.cu's block layout where its length M is within 8192, on "
+        "dft_cluster.cu above; ms etc. at n_fft 2038 / hop 1019, a 32768-frame int16 tile x "
+        "1020 bins; cases as the mixed row's, each with its layout")
+    staged_row = row(
+        "dft_magnitude_staged", "staged", f"{GEMM_NFFT}/20481/int16/{GEMM_FRAMES}",
+        "B1's staged route (csrc/dft_staged.cu: the four-step split in kernels of their own "
+        "through a scratch buffer in device memory; every n_fft from 8193 to 2^20 no other "
+        "route takes): ms etc. at n_fft 40962 / hop 20481 (its chirp mode), a "
+        f"{GEMM_FRAMES}-frame int16 tile x 20482 bins; cases as the mixed row's, each with "
+        f"its mode (gemm_ms_{GEMM_FRAMES}_frames: the GEMM kernel called directly); "
+        "staged_65536: the FFT mode called directly at 65536 (the cluster route's size) beside "
+        "the cluster route in this call")
+    staged_row["plans"] = record.pop("staged_plans")
+    # the staged kernels at 65536, called directly with their plan, beside
+    # the cluster route on the same 11251-frame tile: a finding, not a route
+    n_fft, hop, frames = 65536, 32768, tiles[1]
+    window = hann_window(n_fft)
+    x = torch.from_numpy(rng.integers(-32768, 32768, (frames - 1) * hop + n_fft,
+                                      dtype=np.int16)).to(dev)
+    out = torch.empty((frames, n_fft // 2 + 1), dtype=torch.float32, device=dev)
+    if _launch_staged(x, window, out, n_fft, hop) != 0:
+        raise RuntimeError("the staged kernels at 65536: launch failed")
+    got = dft_magnitude(x, window, n_fft=n_fft, hop=hop)  # the cluster route
+    staged_row["staged_65536"] = {
+        "frames": frames, "plan": list(staged_plan(n_fft)),
+        "max_abs_err_vs_cluster_route": float((out - got).abs().max()),
+        "max_abs_err_vs_float64": vs_float64(out, x, window, n_fft, hop),
+        "ms": cuda_ms(lambda: _launch_staged(x, window, out, n_fft, hop), iters=5),
+        "cluster_route_ms": cuda_ms(lambda: dft_magnitude(x, window, n_fft=n_fft, hop=hop),
+                                    iters=5)}
+    if not staged_row["staged_65536"]["max_abs_err_vs_float64"] <= 2e-4:
+        raise AssertionError(f"the staged kernels at 65536: {staged_row['staged_65536']}")
+    del x, out, got
+    # the GEMM route keeps n_fft 1 and what lies above 2^20: its kernel
+    # timed directly at GEMM_NFFT (the "Earlier" yardstick) against the same
+    # plain version, torch.stft and bound as the staged route's row
+    main = cases[f"{GEMM_NFFT}/20481/int16/{GEMM_FRAMES}"]
+    gemm_errs = {k: v for k, v in record["gemm_direct_max_abs_err"].items()
+                 if k.startswith(f"{GEMM_NFFT}/")}
+    gemm_row = {
+        "name": "dft_magnitude_gemm", "route": "cuda",
+        "source": "orcai_tpu_torch/csrc/dft_gemm.cu",
+        "replaces": "orcai_tpu/ops/pallas_dft.py:67",
+        "max_abs_err": max(gemm_errs.values()),
+        "tolerance": "2e-4 against the plain version (or the float64 rFFT where the plain "
+                     "fp32 GEMM is itself farther: gemm_direct_past_bar)",
+        "ms": main[f"gemm_ms_{GEMM_FRAMES}_frames"],
+        **{k: main[k] for k in ("plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "gemm_direct_past_bar": {k: v for k, v in record["gemm_direct_past_bar"].items()
+                                 if k.startswith(f"{GEMM_NFFT}/")},
+        "shape": "B1's GEMM route (n_fft 1, and a smooth n_fft above 2^20, whose tables no "
+                 "card holds): ms: its kernel called directly at n_fft 40962 / hop 20481 on "
+                 f"a {GEMM_FRAMES}-frame int16 tile (the staged route's size there), plain_ms, "
+                 "library_ms and bound_ms as the staged row's; launches: the n_fft 1 path "
+                 "(phase wires, gemm_route_n_fft_1)",
+    }
     record["fft_route_uint8"] = {k: v for k, v in cases.items() if v["route"] == "fft"}
     record["seconds"] = time.perf_counter() - t_start
-    return record, mixed_row, cluster_row, chirp_row, gemm_row
+    return record, mixed_row, cluster_row, chirp_row, staged_row, gemm_row
 
 
-CLI_SPECTROGRAM_SIZES = ((416, 208), (1216, 608), (2038, 1019), (16418, 8209), (16384, 8192),
-                         (40962, 20481))
-#   B1 on the mixed route (416 = 8*4*13, 1216 = 8*8*19), the chirp mode on the
-#   block and on the cluster layout, the cluster route, the GEMM route
+CLI_SPECTROGRAM_SIZES = ((416, 208), (1216, 608), (1856, 928), (2038, 1019), (16418, 8209),
+                         (16384, 8192), (40962, 20481), (131072, 65536))
+#   B1 on the mixed route (416 = 8*4*13, 1216 = 8*8*19, 1856 = 8*8*29), the chirp
+#   mode on the block and on the cluster layout, the cluster route, the staged
+#   route in its chirp mode and in its FFT mode
+CPU_PATH_MAX = 40962  # the largest nfft whose CLI store is held against the CPU path: its
+#   plain tables are 6.7 GB there and 68.7 GB at 131072
 
 
 def _create_spectrograms_path(torch, tmp: Path, seed: int, total: dict, nfft: int,
@@ -1888,7 +1988,10 @@ def _create_spectrograms_path(torch, tmp: Path, seed: int, total: dict, nfft: in
     """B1's other routes through an entry point: create-spectrograms through
     the CLI on cuda on a one-minute synthetic project with the default
     parameter file at this nfft / n_overlap, 1 / 3 / 3 launches, B1 on
-    dft_route(nfft); the stored spectrogram against the port's CPU path."""
+    dft_route(nfft); the stored spectrogram against the port's CPU path up
+    to CPU_PATH_MAX (whose plain tables are 4 N (N/2 + 1) bytes), above it
+    bit-equal to the frontend run on cuda in this process (B1 there is held
+    against the float64 rFFT in _b1_wire_checks)."""
     import contextlib as ctx
     import io
 
@@ -1921,15 +2024,51 @@ def _create_spectrograms_path(torch, tmp: Path, seed: int, total: dict, nfft: in
     stored = open_zarr(rec / "spectrogram" / "spectrogram.zarr")[:]
     sp = param["spectrogram"]
     audio = load_recording_audio(root / "recordings" / f"{rec.name}.wav", sp["sampling_rate"])
-    cpu, nf, _, _ = compute_spectrogram_device(
-        audio, sp["sampling_rate"], sp["nfft"], sp["n_overlap"], sp["freq_range"],
-        sp["quantiles"], device="cpu")
-    err = float(np.abs(cpu[:nf].numpy() - stored).max())
-    if stored.shape != (nf, cpu.shape[1]) or not err <= 2e-4:
-        raise AssertionError(f"create-spectrograms at nfft {nfft}: store {stored.shape}, "
-                             f"{nf} frames, vs the CPU path {err} > 2e-4")
+    args = (audio, sp["sampling_rate"], sp["nfft"], sp["n_overlap"], sp["freq_range"],
+            sp["quantiles"])
+    if nfft <= CPU_PATH_MAX:
+        cpu, nf, _, _ = compute_spectrogram_device(*args, device="cpu")
+        err = float(np.abs(cpu[:nf].numpy() - stored).max())
+        if stored.shape != (nf, cpu.shape[1]) or not err <= 2e-4:
+            raise AssertionError(f"create-spectrograms at nfft {nfft}: store {stored.shape}, "
+                                 f"{nf} frames, vs the CPU path {err} > 2e-4")
+        check = {"stored_vs_cpu_max_abs_err": err}
+    else:
+        spec, nf, _, _ = compute_spectrogram_device(*args, device="cuda")
+        same = stored.shape == (nf, spec.shape[1]) and np.array_equal(
+            spec[:nf].cpu().numpy(), stored)
+        if not same:
+            raise AssertionError(f"create-spectrograms at nfft {nfft}: the store is not the "
+                                 "frontend's run on cuda bit for bit")
+        check = {"stored_bit_equal_cuda_frontend": True}
     return {"route": dft_route(nfft), "wall_s": wall, "launches": counts,
-            "frames_bins": list(stored.shape), "stored_vs_cpu_max_abs_err": err}
+            "frames_bins": list(stored.shape), **check}
+
+
+def _gemm_route_path(torch, rng, total: dict) -> dict:
+    """The GEMM route's kernel where dft_route still sends it: n_fft 1 (hop
+    1, a window of one), B1 called on a minute of int16 audio on cuda with
+    the counts reset before and read after (1 launch on the GEMM route, no
+    B2 or pick: no entry point reaches n_fft 1, whose one bin
+    create-spectrograms' frequency range cannot crop), against the plain
+    version (atol 2e-4)."""
+    import numpy as np
+
+    from orcai_tpu_torch.ops.dft import dft_magnitude, dft_magnitude_plain, dft_route
+
+    x = torch.from_numpy(rng.integers(-32768, 32768, 48000 * 60, dtype=np.int16)).to("cuda")
+    window = np.ones(1)
+    reset_counts()
+    got = dft_magnitude(x, window, n_fft=1, hop=1)
+    torch.cuda.synchronize()
+    counts = read_counts(total)
+    check_counts(counts, 1, "the GEMM route at n_fft 1", b2=0, pick=0, route=dft_route(1))
+    err = float((got - dft_magnitude_plain(x, window, n_fft=1, hop=1)).abs().max())
+    if got.shape != (x.numel(), 1) or not err <= 2e-4:
+        raise AssertionError(f"B1 at n_fft 1: shape {tuple(got.shape)}, max |kernel - plain| "
+                             f"{err}")
+    return {"route": dft_route(1), "launches": counts, "frames": x.numel(),
+            "max_abs_err": err}
 
 
 def _rows(path):
@@ -2014,10 +2153,11 @@ def _profiled_wire_costs(torch, prof, trace: Path) -> dict:
 def phase_wires(torch, tmp: Path, seed: int, state: dict,
                 total: dict) -> tuple[dict, dict, dict, dict, dict]:
     """The coded and spectral wires on the card: B1 at their sizes and types,
-    golden through each, B1's mixed, cluster, chirp and GEMM routes through
-    create-spectrograms, the 20-minute recording in memory and streamed, and
-    the host C codecs. Returns (the phase line, the mixed, the cluster, the
-    chirp and the GEMM route's rows)."""
+    golden through each, B1's mixed, cluster, chirp and staged routes
+    through create-spectrograms and the GEMM route at n_fft 1, the 20-minute
+    recording in memory and streamed, and the host C codecs. Returns (the
+    phase line, the mixed, the cluster, the chirp, the staged and the GEMM
+    route's rows)."""
     import numpy as np
 
     from orcai_tpu_torch import native
@@ -2033,7 +2173,7 @@ def phase_wires(torch, tmp: Path, seed: int, state: dict,
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
     line = {"phase": "wires"}
-    line["b1"], mixed_row, cluster_row, chirp_row, gemm_row = _b1_wire_checks(
+    line["b1"], mixed_row, cluster_row, chirp_row, staged_row, gemm_row = _b1_wire_checks(
         torch, np.random.default_rng(seed + 6), dev)
 
     # golden through every coded wire, on the card, against the reference's bars
@@ -2059,6 +2199,7 @@ def phase_wires(torch, tmp: Path, seed: int, state: dict,
     line["create_spectrograms_cli"] = {
         f"{nfft}/{n_overlap}": _create_spectrograms_path(torch, tmp, seed, total, nfft, n_overlap)
         for nfft, n_overlap in CLI_SPECTROGRAM_SIZES}
+    line["gemm_route_n_fft_1"] = _gemm_route_path(torch, np.random.default_rng(seed + 7), total)
     # the GEMM route's tables at 40962 (6.7 GB on the card, as much on the
     # host) are not read again
     _route_tables.cache_clear()
@@ -2173,7 +2314,7 @@ def phase_wires(torch, tmp: Path, seed: int, state: dict,
         raise AssertionError(f"native host codecs not loaded: {loaded}")
     line["native"] = loaded
     line["seconds"] = time.perf_counter() - t_phase
-    return line, mixed_row, cluster_row, chirp_row, gemm_row
+    return line, mixed_row, cluster_row, chirp_row, staged_row, gemm_row
 
 
 HPS_SEED = 7  # the search's project seed
@@ -3437,12 +3578,13 @@ def main(argv=None) -> int:
             phase = "data_prep"
             emit(phase_data_prep(torch, Path(tmp), args.seed, total))
             phase = "wires"
-            line, mixed_row, cluster_row, chirp_row, gemm_row = phase_wires(
+            line, mixed_row, cluster_row, chirp_row, staged_row, gemm_row = phase_wires(
                 torch, Path(tmp), args.seed, state, total)
             rows["dft_magnitude_fft"]["cases"] = line["b1"].pop("fft_route_uint8")
             rows = {"dft_magnitude_fft": rows["dft_magnitude_fft"],
                     "dft_magnitude_mixed": mixed_row, "dft_magnitude_cluster": cluster_row,
-                    "dft_magnitude_chirp": chirp_row, "dft_magnitude_gemm": gemm_row,
+                    "dft_magnitude_chirp": chirp_row, "dft_magnitude_staged": staged_row,
+                    "dft_magnitude_gemm": gemm_row,
                     **{k: v for k, v in rows.items() if k != "dft_magnitude_fft"}}
             emit(line)
             phase = "hpsearch"

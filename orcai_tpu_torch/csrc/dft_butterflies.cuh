@@ -1,10 +1,10 @@
 // The butterflies and sample decoders that csrc/dft_mixed.cu and
-// csrc/dft_cluster.cu share: float32, int16 and uint8 mu-law samples as
+// csrc/dft_cluster.cu and csrc/dft_staged.cu share: float32, int16 and uint8 mu-law samples as
 // float32, and R-point DFTs in registers for R = 2, 3, 4, 5, 7, 8, 11, 13,
-// 16, 17, 19 and 23, outputs in natural order. The odd radices' cos and
+// 16, 17, 19, 23, 29 and 31, outputs in natural order. The odd radices' cos and
 // sin and radix 16's twiddles are float64 values rounded once to float32
 // (ops/dft.py::_odd_roots, _C16, _S16). Included in an anonymous
-// namespace of each kernel's source.
+// namespace of each kernel's source, which includes <utility> first.
 //
 // Both kernels replace the TPU kernel orcai_tpu/ops/pallas_dft.py::
 // dft_magnitude, whose bound on this card is bytes (each sample read once,
@@ -13,9 +13,12 @@
 // is one pass through shared memory, which is what holds these FFTs:
 // radix 19 puts 1216 = 8 * 8 * 19 on three passes, where the chirp mode
 // ran two FFTs of 2431 points, and radix 23 puts 1472 = 8 * 8 * 23 on
-// three. A butterfly keeps its R values in registers; the kernels are
-// built per largest odd radix, so a plan without a 17, 19 or 23 does not
-// pay their registers.
+// three, as 29 and 31 put 1856 = 8 * 8 * 29 and 1984 = 8 * 8 * 31. A
+// butterfly keeps its R values in registers; the kernels are built per
+// largest odd radix, so a plan without a 17, 19, 23, 29 or 31 does not pay
+// their registers. Radices 29 and 31 hand each output pair on as soon as it
+// is summed (dft_emit), so that a thread never holds all R outputs beside
+// the sums they are made of, within the kernels' 128 registers.
 
 #pragma once
 
@@ -33,7 +36,11 @@ __device__ __forceinline__ float sample_to_f32(uint8_t c) {
 }
 
 // cos and sin of 2 pi m / R for m = 1 .. (R - 1) / 2, float64 values rounded
-// once to float32 (ops/dft.py::_odd_roots)
+// once to float32 (ops/dft.py::_odd_roots), keyed R * 16 + m: m < 16 holds up
+// to radix 31 (m = 15) with no slot to spare; radix 37 needs a wider key
+constexpr int ROOT_KEY_SLOTS = 16;
+constexpr int LARGEST_ODD_RADIX = 31;
+static_assert((LARGEST_ODD_RADIX - 1) / 2 < ROOT_KEY_SLOTS, "R * 16 + m must be unique");
 __device__ __forceinline__ float root_cos(int R, int m) {
   switch (R * 16 + m) {
     case 3 * 16 + 1: return -0.5f;
@@ -81,6 +88,35 @@ __device__ __forceinline__ float root_cos(int R, int m) {
     case 23 * 16 + 9: return -0.775711298f;
     case 23 * 16 + 10: return -0.917211294f;
     case 23 * 16 + 11: return -0.990685940f;
+    case 29 * 16 + 1: return 0.976620555f;
+    case 29 * 16 + 2: return 0.907575428f;
+    case 29 * 16 + 3: return 0.796093047f;
+    case 29 * 16 + 4: return 0.647386312f;
+    case 29 * 16 + 5: return 0.468408436f;
+    case 29 * 16 + 6: return 0.267528325f;
+    case 29 * 16 + 7: return 0.05413891f;
+    case 29 * 16 + 8: return -0.161781996f;
+    case 29 * 16 + 9: return -0.370138168f;
+    case 29 * 16 + 10: return -0.561187088f;
+    case 29 * 16 + 11: return -0.725995481f;
+    case 29 * 16 + 12: return -0.856857181f;
+    case 29 * 16 + 13: return -0.947653174f;
+    case 29 * 16 + 14: return -0.994137943f;
+    case 31 * 16 + 1: return 0.979529917f;
+    case 31 * 16 + 2: return 0.918957829f;
+    case 31 * 16 + 3: return 0.820763469f;
+    case 31 * 16 + 4: return 0.68896693f;
+    case 31 * 16 + 5: return 0.528963983f;
+    case 31 * 16 + 6: return 0.347305238f;
+    case 31 * 16 + 7: return 0.151427776f;
+    case 31 * 16 + 8: return -0.0506491698f;
+    case 31 * 16 + 9: return -0.250652522f;
+    case 31 * 16 + 10: return -0.440394163f;
+    case 31 * 16 + 11: return -0.612105966f;
+    case 31 * 16 + 12: return -0.758758128f;
+    case 31 * 16 + 13: return -0.874346614f;
+    case 31 * 16 + 14: return -0.954139233f;
+    case 31 * 16 + 15: return -0.994869351f;
   }
   return 0.0f;
 }
@@ -131,6 +167,35 @@ __device__ __forceinline__ float root_sin(int R, int m) {
     case 23 * 16 + 9: return 0.631087959f;
     case 23 * 16 + 10: return 0.398401082f;
     case 23 * 16 + 11: return 0.136166647f;
+    case 29 * 16 + 1: return 0.21497044f;
+    case 29 * 16 + 2: return 0.419889092f;
+    case 29 * 16 + 3: return 0.605174243f;
+    case 29 * 16 + 4: return 0.76216203f;
+    case 29 * 16 + 5: return 0.88351202f;
+    case 29 * 16 + 6: return 0.963549972f;
+    case 29 * 16 + 7: return 0.998533428f;
+    case 29 * 16 + 8: return 0.986826539f;
+    case 29 * 16 + 9: return 0.928976715f;
+    case 29 * 16 + 10: return 0.827688992f;
+    case 29 * 16 + 11: return 0.687699437f;
+    case 29 * 16 + 12: return 0.515553832f;
+    case 29 * 16 + 13: return 0.319301516f;
+    case 29 * 16 + 14: return 0.108119018f;
+    case 31 * 16 + 1: return 0.20129852f;
+    case 31 * 16 + 2: return 0.394355863f;
+    case 31 * 16 + 3: return 0.571268201f;
+    case 31 * 16 + 4: return 0.724792778f;
+    case 31 * 16 + 5: return 0.848644257f;
+    case 31 * 16 + 6: return 0.937752128f;
+    case 31 * 16 + 7: return 0.988468349f;
+    case 31 * 16 + 8: return 0.998716533f;
+    case 31 * 16 + 9: return 0.968077123f;
+    case 31 * 16 + 10: return 0.897804558f;
+    case 31 * 16 + 11: return 0.790775716f;
+    case 31 * 16 + 12: return 0.651372492f;
+    case 31 * 16 + 13: return 0.485301971f;
+    case 31 * 16 + 14: return 0.299363136f;
+    case 31 * 16 + 15: return 0.10116832f;
   }
   return 0.0f;
 }
@@ -258,3 +323,66 @@ __device__ __forceinline__ void dft(float (&re)[R], float (&im)[R]) {
   re[0] = o0r;
   im[0] = o0i;
 }
+
+// odd R from 29 up: dft<R>'s sums in the same order, each output handed to
+// emit(r, re, im) as soon as it is summed (dft<31> would hold 62 outputs
+// beside its 60 sums). The passes store each output where dft<R>'s would go.
+// The sums over n and k are unrolled by templates, not by #pragma unroll:
+// at R = 31 (15 x 15 terms) nvcc left the loops rolled, the root lookups
+// switches at run time and the sums in local memory (1984 = 8 * 8 * 31 read
+// 3.8 ms where 1856 = 8 * 8 * 29 read 0.35, PERF.md).
+template <int R, int M>
+__device__ __forceinline__ float odd_cos() {
+  return M <= (R - 1) / 2 ? root_cos(R, M) : root_cos(R, R - M);
+}
+template <int R, int M>
+__device__ __forceinline__ float odd_sin() {
+  return M <= (R - 1) / 2 ? root_sin(R, M) : -root_sin(R, R - M);
+}
+
+// X[K] and X[R - K] from the symmetric sums, n = 1 .. H in order
+template <int R, int K, typename Emit, int... I>
+__device__ __forceinline__ void odd_pair(const float* sr, const float* si, const float* dr,
+                                         const float* di, float x0r, float x0i, const Emit& emit,
+                                         std::integer_sequence<int, I...>) {
+  float ar = x0r, ai = x0i, br = 0.0f, bi = 0.0f;
+  ((ar += odd_cos<R, (I + 1) * K % R>() * sr[I], ai += odd_cos<R, (I + 1) * K % R>() * si[I],
+    br += odd_sin<R, (I + 1) * K % R>() * dr[I], bi += odd_sin<R, (I + 1) * K % R>() * di[I]),
+   ...);
+  emit(K, ar + bi, ai - br);
+  emit(R - K, ar - bi, ai + br);
+}
+
+template <int R, typename Emit, int... K>
+__device__ __forceinline__ void odd_pairs(const float* sr, const float* si, const float* dr,
+                                          const float* di, float x0r, float x0i,
+                                          const Emit& emit, std::integer_sequence<int, K...>) {
+  (odd_pair<R, K + 1>(sr, si, dr, di, x0r, x0i, emit,
+                      std::make_integer_sequence<int, (R - 1) / 2>()),
+   ...);
+}
+
+template <int R, typename Emit>
+__device__ __forceinline__ void dft_emit(const float (&re)[R], const float (&im)[R],
+                                         const Emit& emit) {
+  constexpr int H = (R - 1) / 2;
+  float sr[H], si[H], dr[H], di[H];
+#pragma unroll
+  for (int n = 1; n <= H; ++n) {
+    sr[n - 1] = re[n] + re[R - n]; si[n - 1] = im[n] + im[R - n];
+    dr[n - 1] = re[n] - re[R - n]; di[n - 1] = im[n] - im[R - n];
+  }
+  const float x0r = re[0], x0i = im[0];
+  float o0r = x0r, o0i = x0i;
+#pragma unroll
+  for (int n = 0; n < H; ++n) {
+    o0r += sr[n];
+    o0i += si[n];
+  }
+  emit(0, o0r, o0i);
+  odd_pairs<R>(sr, si, dr, di, x0r, x0i, emit, std::make_integer_sequence<int, H>());
+}
+
+// The radices whose passes go through dft_emit
+template <int R>
+constexpr bool EMITS = R >= 29;

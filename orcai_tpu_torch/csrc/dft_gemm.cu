@@ -4,16 +4,16 @@
 // folded into C and S.
 //
 // Replaces the TPU kernel orcai_tpu/ops/pallas_dft.py::dft_magnitude
-// (kernel _kernel) at the only sizes no FFT of this package takes: an n_fft
-// above 81920 whose prime factors are all in {2, 3, 5, 7, 11, 13, 17, 19,
-// 23}, any other n_fft above 40960 (40962 = 2 * 3 * 6827), and 1.
+// (kernel _kernel) at the only sizes no FFT of this package takes: n_fft 1
+// (one product a frame) and a smooth n_fft above 2^20, whose window-folded
+// C and S (4 N (N/2 + 1) bytes, 4.4 TB there) no card holds.
 // dft_magnitude.cu takes 512; dft_mixed.cu every other smooth n_fft up to
 // 8192 and, in its chirp-z mode, every other n_fft up to 4096;
-// dft_cluster.cu the smooth n_fft up to 81920 (clusters of up to 8 CTAs)
-// and, in its chirp-z mode, every other n_fft up to 40960 (its convolution
-// length M >= 2 n_fft - 1 must stay within 81920). At these sizes the
-// window-folded C and S the kernel reads are 4 N (N/2 + 1) bytes, 6.7 GB
-// at 40962. The Pallas
+// dft_cluster.cu the {2, ..., 23}-smooth n_fft up to 81920 (clusters of up
+// to 8 CTAs) and, in its chirp-z mode, every other n_fft up to 40960;
+// dft_staged.cu every other n_fft up to 2^20 (40962 = 2 * 3 * 6827, which
+// this kernel took until then: 6.7 GB of tables, 40.5 ms for 301 frames on
+// the H100 where the staged route takes 0.5). The Pallas
 // kernel sums n_fft/hop partial MXU GEMMs over shifted hop-blocks, so the
 // (T, n_fft) frames matrix never reaches HBM; so does this one, and it
 // decodes uint8 mu-law codes where it loads them, as the Pallas kernel does.
@@ -25,8 +25,9 @@
 // 32768-frame tile would be 109 times that. TF32 cannot hold the 2e-4 bar
 // (the reference runs Precision.HIGHEST), so the tensor cores are closed to
 // it. An FFT needs far less; this route is the simple kernel that is right
-// for the sizes no FFT of this package takes, none of which a wire or a
-// default parameter file reaches.
+// for the sizes no FFT of this package takes, none of which a wire, a
+// parameter file or an entry point reaches (create-spectrograms cannot crop
+// the one bin of n_fft 1).
 //
 // Design (the tiled kernel of the port's first B1, generalised): each
 // 256-thread block owns a 64-frame x 64-bin output tile and walks n in

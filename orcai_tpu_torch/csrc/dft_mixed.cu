@@ -1,5 +1,5 @@
 // Windowed rDFT magnitude of hop-framed audio at any n_fft from 2 to 8192
-// whose prime factors are all in {2, 3, 5, 7, 11, 13, 17, 19, 23}, and, in
+// whose prime factors are all in {2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31}, and, in
 // its chirp-z mode, at any other n_fft from 2 to 4096, straight from the
 // padded samples: out[t, k] = |sum_n w[n] x[t*hop + n] exp(-2 pi i n k / N)|,
 // k = 0..N/2, as a batched mixed-radix FFT in shared memory.
@@ -8,17 +8,18 @@
 // (kernel _kernel) at the sizes the radix-8 FFT route (dft_magnitude.cu,
 // n_fft 512) does not take: the spectral wires' 384 / 192 (384 = 16*8*3)
 // and 352 / 176 (8*4*11), 768 and 704 for a parameter file at n_fft 1024,
-// 416 = 8*4*13, 1088 = 8*8*17, 1216 = 8*8*19, 1472 = 8*8*23, the 4096,
+// 416 = 8*4*13, 1088 = 8*8*17, 1216 = 8*8*19, 1472 = 8*8*23, 464 = 16*29,
+// 496 = 16*31, 1856 = 8*8*29, 1984 = 8*8*31, the 4096,
 // 4352 = 16*16*17 and 8192 of recordings at 96-192 kHz, and in the chirp
-// mode every n_fft with a prime factor above 23 (470 = 2*5*47, 2038,
+// mode every n_fft with a prime factor above 31 (470 = 2*5*47, 2038,
 // primes) up to 4096. The
 // Pallas kernel multiplies each frame by the (N, N/2 + 1) DFT matrix
 // because a TPU has a matrix unit and no FFT; an IEEE fp32 GEMM on this
 // card's CUDA cores needs 4 T N (N/2 + 1) FLOP, 1.1 TFLOP for a
 // 32768-frame tile at 4096, where an FFT needs about 5 N log2(N) / 2 a
 // frame. Larger sizes go to dft_cluster.cu (a frame pair across a cluster
-// of up to 8 CTAs, up to 81920, and its chirp mode up to 40960);
-// dft_gemm.cu keeps what neither takes.
+// of up to 8 CTAs, up to 81920, and its chirp mode up to 40960) and to
+// dft_staged.cu (up to 2^20, through device memory).
 //
 // Bound on the card: bytes. The function reads each sample once and writes
 // each magnitude once: at 384 / 192 a 32768-frame tile is 12.6 MB of int16
@@ -38,14 +39,15 @@
 // frames at a time become one complex FFT, z = w*x_t + i*w*x_t+1, as one
 // Stockham pass per radix of a plan the host chooses (ops/dft.py::fft_plan:
 // the power-of-two part in the fewest passes of radix 16 at most, as even
-// as possible, then 3, 5, 7, 11, 13, 17, 19, 23; 384 = 16*8*3, 352 =
+// as possible, then 3, 5, 7, 11, 13, 17, 19, 23, 29, 31; 384 = 16*8*3, 352 =
 // 8*4*11, 1088 = 8*8*17, 1216 = 8*8*19, 4096 = 16*16*16). Butterfly j of
 // a pass of radix R, Ns the product of the earlier radices, reads
 // z[j + r*N/R], multiplies by tw[r * (j % Ns) * N/(Ns*R)], takes an
 // R-point DFT and writes z'[(j / Ns)*Ns*R + j % Ns + r*Ns]; the last pass
 // leaves Z in natural order. The butterflies (dft_butterflies.cuh, shared with dft_cluster.cu)
 // are radix 16 as 4 x 4 with its W16 twiddles and the odd radices as
-// direct R-point DFTs over symmetric pairs; their float32 constants are
+// direct R-point DFTs over symmetric pairs (29 and 31 storing each output
+// pair as it is summed, dft_emit); their float32 constants are
 // rounded once from float64 (ops/dft.py::_odd_roots, _C16). The passes
 // exchange through two buffers of N complex values, laid out as
 // a + ((a >> s) << g), the (s, g) that leaves a pass's writes and the next
@@ -69,8 +71,8 @@
 // the window stay in shared memory where they fit beside the buffers and
 // are read from device memory through L1 where they do not. It takes every
 // larger n_fft (4352) and the chirp mode. A kernel is built for the
-// largest odd radix its plans need (11, 13, 17, or 23 also for the plans
-// of 19): the radix-13, -17, -19 and -23 butterflies' registers would cost
+// largest odd radix its plans need (11, 13, 17, 23 also for the plans of
+// 19, or 31 also for those of 29): the larger butterflies' registers would cost
 // the passes of the plans that lack them a few percent, so each plan runs
 // the kernel of its own largest odd radix. Each of those, for each sample
 // type, is a build of its own (-DORCAI_ODD, -DORCAI_DTYPE, ops/_build.py:
@@ -79,7 +81,7 @@
 // refuses another sample type or a plan with a larger odd radix.
 //
 // The chirp-z (Bluestein) mode, for an n_fft N with a prime factor above
-// 23: X[k] = a[k] sum_n (w a)[n] x[n] b[k - n] with a[n] = exp(-i pi (n^2
+// 31: X[k] = a[k] sum_n (w a)[n] x[n] b[k - n] with a[n] = exp(-i pi (n^2
 // mod 2N) / N) and b[m] = conj a[|m|], a circular convolution of length M,
 // a {2, ..., 19}-smooth M >= 2N - 1 whose passes move the fewest values
 // (ops/dft.py::chirp_length: 470 -> 952 = 8*7*17, 2038 -> 4096). On
@@ -110,10 +112,11 @@
 #include <stdint.h>
 
 #include <type_traits>
+#include <utility>
 
-#if !defined(ORCAI_ODD) || \
-    (ORCAI_ODD != 11 && ORCAI_ODD != 13 && ORCAI_ODD != 17 && ORCAI_ODD != 23)
-#error "build with -DORCAI_ODD=11, 13, 17 or 23 (ops/_build.py::VARIANTS)"
+#if !defined(ORCAI_ODD) || (ORCAI_ODD != 11 && ORCAI_ODD != 13 && ORCAI_ODD != 17 && \
+                             ORCAI_ODD != 23 && ORCAI_ODD != 31)
+#error "build with -DORCAI_ODD=11, 13, 17, 23 or 31 (ops/_build.py::VARIANTS)"
 #endif
 #if !defined(ORCAI_DTYPE) || ORCAI_DTYPE < 0 || ORCAI_DTYPE > 2
 #error "build with -DORCAI_DTYPE=0 (float32), 1 (int16) or 2 (uint8 mu-law codes)"
@@ -166,9 +169,15 @@ __device__ __forceinline__ void first_pass(const Load& load, float2* dst, int ds
       re[r] = v.x;
       im[r] = v.y;
     }
-    dft(re, im);
+    if constexpr (EMITS<R>) {
+      dft_emit(re, im, [&](int r, float x, float y) {
+        dst[padded(j * R + r, ds, dg)] = make_float2(x, y);
+      });
+    } else {
+      dft(re, im);
 #pragma unroll
-    for (int r = 0; r < R; ++r) dst[padded(j * R + r, ds, dg)] = make_float2(re[r], im[r]);
+      for (int r = 0; r < R; ++r) dst[padded(j * R + r, ds, dg)] = make_float2(re[r], im[r]);
+    }
   }
 }
 
@@ -197,10 +206,16 @@ __device__ __forceinline__ void pass(const float2* src, int ss, int sg, float2* 
       re[r] = vr;
       im[r] = vi;
     }
-    dft(re, im);
     const int base = q * ns * R + jm;
+    if constexpr (EMITS<R>) {
+      dft_emit(re, im, [&](int r, float x, float y) {
+        dst[padded(base + r * ns, ds, dg)] = make_float2(x, y);
+      });
+    } else {
+      dft(re, im);
 #pragma unroll
-    for (int r = 0; r < R; ++r) dst[padded(base + r * ns, ds, dg)] = make_float2(re[r], im[r]);
+      for (int r = 0; r < R; ++r) dst[padded(base + r * ns, ds, dg)] = make_float2(re[r], im[r]);
+    }
     jm += step_m;
     q += step_q;
     if (jm >= ns) {
@@ -210,9 +225,10 @@ __device__ __forceinline__ void pass(const float2* src, int ss, int sg, float2* 
   }
 }
 
-// ODD, the largest odd radix a kernel is built for (11, 13, 17 or 23),
-// leaves the radix-13, -17, -19 and -23 butterflies out of a kernel whose
-// plans lack them: their registers would cost the other passes a few percent
+// ODD, the largest odd radix a kernel is built for (11, 13, 17, 23 or 31),
+// leaves the radix-13, -17, -19, -23, -29 and -31 butterflies out of a
+// kernel whose plans lack them: their registers would cost the other passes
+// a few percent
 #define ORCAI_RADIX_CASES(CALL)  \
   case 2: CALL(2); break;        \
   case 3: CALL(3); break;        \
@@ -225,7 +241,9 @@ __device__ __forceinline__ void pass(const float2* src, int ss, int sg, float2* 
   case 16: CALL(16); break;      \
   case 17: if constexpr (ODD >= 17) { CALL(17); } break; \
   case 19: if constexpr (ODD >= 19) { CALL(19); } break; \
-  case 23: if constexpr (ODD >= 23) { CALL(23); } break;
+  case 23: if constexpr (ODD >= 23) { CALL(23); } break; \
+  case 29: if constexpr (ODD >= 29) { CALL(29); } break; \
+  case 31: if constexpr (ODD >= 31) { CALL(31); } break;
 
 // the warp layout synchronises the warp that owns the pair, the block
 // layout the block
@@ -481,7 +499,7 @@ int make_plan(const int* packed, int n_fft, bool chirp, Plan* plan) {
   for (int p = 0; p < P; ++p) {
     const int R = packed[1 + p];
     if (R != 2 && R != 3 && R != 4 && R != 5 && R != 7 && R != 8 && R != 11 && R != 13 &&
-        R != 16 && R != 17 && R != 19 && R != 23)
+        R != 16 && R != 17 && R != 19 && R != 23 && R != 29 && R != 31)
       return 1;
     prod *= R;
     if (prod > MAX_N) return 1;

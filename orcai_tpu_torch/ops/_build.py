@@ -18,20 +18,23 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("dft_magnitude", "dft_mixed", "dft_cluster", "dft_gemm", "digit_hist")
+KERNELS = ("dft_magnitude", "dft_mixed", "dft_cluster", "dft_staged", "dft_gemm", "digit_hist")
 # the builds of a source, (the largest odd radix it takes, sample type: 0
 # float32, 1 int16, 2 uint8; ops/dft.py::_build_variant picks the build of
-# a plan): one nvcc would compile dft_mixed.cu's 24 and dft_cluster.cu's 6
-# kernels one after another, where the card's host has cores for them side
-# by side; radix 19 shares radix 23's builds, which no size of the earlier
-# radices runs
-VARIANTS = {"dft_mixed": tuple((r, t) for r in (11, 13, 17, 23) for t in range(3)),
-            "dft_cluster": tuple((r, t) for r in (17, 23) for t in range(3))}
+# a plan): one nvcc would compile dft_mixed.cu's 30, dft_cluster.cu's 6 and
+# dft_staged.cu's 12 kernels one after another, where the card's host has
+# cores for them side by side; radix 19 shares radix 23's builds and 29
+# radix 31's, which no size of the earlier radices runs
+VARIANTS = {"dft_mixed": tuple((r, t) for r in (11, 13, 17, 23, 31) for t in range(3)),
+            "dft_cluster": tuple((r, t) for r in (17, 23) for t in range(3)),
+            "dft_staged": tuple((r, t) for r in (13, 31) for t in range(3))}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -79,10 +82,12 @@ def build(names=KERNELS) -> dict[str, str]:
 
     Returns {name or name-odd<r>-t<t>: nvcc output} for the libraries
     compiled by this call (ptxas prints each kernel's registers, shared
-    memory and spills).
+    memory and spills); build.seconds holds each one's wall from the start
+    of the call to the end of its nvcc.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for name in names:
         for variant in VARIANTS.get(name, (None,)):
             out = library_path(name, variant)
@@ -94,16 +99,29 @@ def build(names=KERNELS) -> dict[str, str]:
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )
             procs[f"{name}{_tag(variant)}"] = (proc, tmp, out)
-    logs, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
+    logs, seconds, failed = {}, {}, []
+
+    def wait(name, proc):
         logs[name], _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+
+    waiters = [threading.Thread(target=wait, args=(name, proc)) for name, (proc, _, _) in procs.items()]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
+    for name, (proc, tmp, out) in procs.items():
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}:\n{logs[name]}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    build.seconds = dict(sorted(seconds.items(), key=lambda kv: kv[1]))
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs
+
+
+build.seconds = {}
 
 
 def load(name: str, variant: tuple[int, int] | None = None) -> ctypes.CDLL:

@@ -5,7 +5,7 @@ Counterpart of orcai_tpu/ops/pallas_dft.py. The function is
 or uint8 mu-law audio (the mulaw8 wire's codes, decoded as
 ops/wire_codec.py::mulaw_decode_f32 does), at any n_fft that hop divides.
 
-`dft_magnitude` takes one of five CUDA routes for a CUDA tensor, chosen by
+`dft_magnitude` takes one of six CUDA routes for a CUDA tensor, chosen by
 n_fft alone (`dft_route`), and runs the plain PyTorch version,
 `dft_magnitude_plain`, for a CPU tensor:
 
@@ -17,30 +17,42 @@ n_fft alone (`dft_route`), and runs the plain PyTorch version,
   algorithm is testable where no card is;
 - "mixed", csrc/dft_mixed.cu, at every other n_fft from 2 to MIXED_MAX
   (8192) whose prime factors are all in MIXED_PRIMES (the spectral wires'
-  384 and 352, 416, 1024, 1088, 1216, 1472, 2048, 4096, 4352, 8192, ...):
-  the same shape with one Stockham pass per radix of `fft_plan(n_fft)` (16,
-  8, 4, 2, 3, 5, 7, 11, 13, 17, 19, 23), each warp owning a frame pair
-  where four warps fit on an SM (up to 2048 at the usual hops) and the
-  whole block owning one otherwise. `_fft_mixed_reference` is its
-  arithmetic step by step;
-- "cluster", csrc/dft_cluster.cu, at such an n_fft from MIXED_MAX + 1 to
-  CLUSTER_MAX (81920): one frame pair's FFT on a thread block cluster of 2,
-  4 or 8 CTAs that read each other's shared memory, as the four-step split
-  of `cluster_plan(n_fft)` (column FFTs, twiddles, one exchange, row FFTs;
-  the tables of `cluster_tables`). `_fft_cluster_reference` is its
-  arithmetic step by step;
-- "chirp", at every other n_fft from 2 to CHIRP_MAX (40960), those with a
-  prime factor above 23: the DFT as a circular convolution of length
-  `chirp_length(n_fft)` (a smooth M >= 2 n_fft - 1 whose passes move the
-  fewest values) with the tables of `chirp_tables`, in the chirp-z
-  (Bluestein) mode of csrc/dft_mixed.cu where M is within MIXED_MAX and of
-  csrc/dft_cluster.cu above, on up to 8 CTAs (`_chirp_kernel`).
-  `_chirp_reference` and `_chirp_cluster_reference` are their arithmetic
+  384 and 352, 416, 464, 496, 1024, 1088, 1216, 1472, 1856, 1984, 2048,
+  4096, 4352, 8192, ...): the same shape with one Stockham pass per radix of
+  `fft_plan(n_fft)` (16, 8, 4, 2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31), each
+  warp owning a frame pair where four warps fit on an SM (up to 2048 at the
+  usual hops) and the whole block owning one otherwise.
+  `_fft_mixed_reference` is its arithmetic step by step;
+- "cluster", csrc/dft_cluster.cu, at an n_fft from MIXED_MAX + 1 to
+  CLUSTER_MAX (81920) whose prime factors are all in CLUSTER_PRIMES (no 29,
+  31): one frame pair's FFT on a thread block cluster of 2, 4 or 8 CTAs that
+  read each other's shared memory, as the four-step split of
+  `cluster_plan(n_fft)` (column FFTs, twiddles, one exchange, row FFTs; the
+  tables of `cluster_tables`). `_fft_cluster_reference` is its arithmetic
   step by step;
-- "gemm", csrc/dft_gemm.cu, at what is left (a smooth n_fft above
-  CLUSTER_MAX, any other above CHIRP_MAX, and 1): the reference's own
-  algorithm, a tiled IEEE fp32 GEMM of the frames, read straight from the
-  audio, with the window-folded cos/sin matrices (`windowed_dft_mats`).
+- "chirp", at every other n_fft from 2 to CHIRP_MAX (40960), those with a
+  prime factor above 31: the DFT as a circular
+  convolution of length `chirp_length(n_fft)` (a smooth M >= 2 n_fft - 1
+  whose passes move the fewest values) with the tables of `chirp_tables`,
+  in the chirp-z (Bluestein) mode of csrc/dft_mixed.cu where M is within
+  MIXED_MAX and of csrc/dft_cluster.cu above, on up to 8 CTAs
+  (`_chirp_kernel`). `_chirp_reference` and `_chirp_cluster_reference` are
+  their arithmetic step by step;
+- "staged", csrc/dft_staged.cu, at every n_fft the routes above leave from
+  MIXED_MAX + 1 to STAGED_MAX (2^20: a smooth n_fft with a 29 or 31 from
+  8193, any n_fft from 40961): the four-step split of `staged_plan(n)` in
+  kernels of their own that pass each frame pair's values through a
+  scratch buffer in device memory, in chunks of frame pairs
+  (`staged_chunk_pairs`). A MIXED_PRIMES-smooth n_fft it splits runs in
+  its FFT mode (14848, 98304, 131072);
+  any other runs in its chirp-z mode, on a convolution length up to
+  STAGED_M_MAX (40962, 49154). `_staged_reference` and
+  `_chirp_staged_reference` are their arithmetic step by step;
+- "gemm", csrc/dft_gemm.cu, at what is left: n_fft 1 (one product a frame)
+  and a smooth n_fft above STAGED_MAX, whose 4 N (N/2 + 1) bytes of tables
+  no card holds. The reference's own algorithm, a tiled IEEE fp32 GEMM of
+  the frames, read straight from the audio, with the window-folded cos/sin
+  matrices (`windowed_dft_mats`).
 
 The plain version computes the reference's GEMM with torch.matmul.
 `dft_magnitude.launches` counts every kernel launch and
@@ -59,14 +71,23 @@ from orcai_tpu_torch.ops import _build
 from orcai_tpu_torch.ops.wire_codec import mulaw_decode_f32
 
 FFT_SIZES = (512,)  # the sizes csrc/dft_magnitude.cu is instantiated for
-MIXED_PRIMES = (2, 3, 5, 7, 11, 13, 17, 19, 23)  # the FFT kernels' radices, and 4, 8, 16
-CHIRP_PRIMES = MIXED_PRIMES[:-1]  # of the chirp mode's convolution lengths: no radix-23 pass
+MIXED_PRIMES = (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31)  # the FFT kernels' radices, and 4, 8, 16
+# of the chirp mode's convolution lengths: no radix-23, -29 or -31 pass (23
+# makes 8198 slower, PERF.md)
+CHIRP_PRIMES = (2, 3, 5, 7, 11, 13, 17, 19)
+CLUSTER_PRIMES = (2, 3, 5, 7, 11, 13, 17, 19, 23)  # csrc/dft_cluster.cu's radices: no 29, 31
 MIXED_MAX = 8192  # the largest FFT of csrc/dft_mixed.cu (two buffers of it in shared memory)
 CLUSTER_MAX = 81920  # the largest FFT of csrc/dft_cluster.cu (N/C of each buffer on C CTAs)
 CHIRP_MAX = 40960  # the largest n_fft of the chirp mode: its M stays within CLUSTER_MAX
 CLUSTER_RANKS = (2, 4, 8)  # the cluster sizes csrc/dft_cluster.cu runs (8: the portable most)
 CLUSTER_CTA_BYTES = 160 * 1024  # a cluster CTA's two exchange buffers, of 227 KB
-ROUTES = ("fft", "mixed", "cluster", "chirp", "gemm")
+STAGED_MAX = 1 << 20  # the largest n_fft of csrc/dft_staged.cu, either mode
+STAGED_M_MAX = 2 * STAGED_MAX  # its largest FFT: its chirp mode's M at STAGED_MAX
+STAGED_BATCH = 16  # the most columns, or row pairs, one staged CTA transforms
+STAGED_CTA_BYTES = 96 * 1024  # a staged CTA's two buffers, so that two CTAs share an SM
+STAGED_CTA_MAX_BYTES = 200 * 1024  # ... and the most they take, for a batch of one
+STAGED_CHUNK_BYTES = 512 << 20  # a chunk's scratch: fewer, larger launches beat L2 (PERF.md)
+ROUTES = ("fft", "mixed", "cluster", "chirp", "staged", "gemm")
 _DTYPE_CODES = {torch.float32: 0, torch.int16: 1, torch.uint8: 2}  # the kernels' dtype
 _RADIX = 8
 _SQRT_HALF = float(np.float32(np.sqrt(0.5)))
@@ -279,9 +300,10 @@ def fft_plan(n_fft: int) -> tuple[int, ...]:
     """The mixed route's radices for n_fft, in the order its Stockham passes
     run: the power-of-two part 2^a in the fewest passes of radix at most 16,
     split as evenly as possible with the larger radices first, then 3, 5, 7,
-    11, 13, 17, 19 and 23 (384 -> 16, 8, 3; 352 -> 8, 4, 11; 416 -> 8, 4,
-    13; 1024 -> 16, 8, 8; 1088 -> 8, 8, 17; 1216 -> 8, 8, 19; 1472 -> 8, 8,
-    23; 8192 -> 16, 8, 8, 8). Raises for an n_fft the route does not take."""
+    11, 13, 17, 19, 23, 29 and 31 (384 -> 16, 8, 3; 352 -> 8, 4, 11; 416 ->
+    8, 4, 13; 1024 -> 16, 8, 8; 1088 -> 8, 8, 17; 1216 -> 8, 8, 19; 1472 ->
+    8, 8, 23; 464 -> 16, 29; 1984 -> 8, 8, 31; 8192 -> 16, 8, 8, 8). Raises
+    for an n_fft the route does not take."""
     if not 2 <= n_fft <= MIXED_MAX:
         raise ValueError(f"n_fft {n_fft}: the mixed route takes 2 to {MIXED_MAX}")
     n, a = n_fft, 0
@@ -421,14 +443,34 @@ def _fft_mixed_reference(
     return _untangle(zr, zi, n_fft, tpad)
 
 
+STAGED_TRIPS = 2  # device-memory trips of an FFT on the staged layout, counted as passes
+
+
 def _passes(m: int) -> int:
     """Passes that move all m values of an m-point FFT through shared
     memory: fft_plan's on the block layout (m <= MIXED_MAX), on the cluster
-    layout the two sides' plus the exchange between them."""
+    layout (up to CLUSTER_MAX) the two sides' plus the exchange between
+    them, on the staged layout the two sides' plus its STAGED_TRIPS through
+    device memory (the scratch's write and read)."""
     if m <= MIXED_MAX:
         return len(fft_plan(m))
-    n1, n2, _ = cluster_plan(m)
-    return len(fft_plan(n1)) + len(fft_plan(n2)) + 1
+    n1, n2 = cluster_plan(m)[:2] if m <= CLUSTER_MAX else staged_plan(m)[:2]
+    return len(fft_plan(n1)) + len(fft_plan(n2)) + (1 if m <= CLUSTER_MAX else STAGED_TRIPS)
+
+
+def _smooth_range(lo: int, hi: int, primes: tuple[int, ...]) -> list[int]:
+    """Every n from lo to hi whose prime factors are all in `primes`,
+    ascending."""
+    found = []
+
+    def walk(n, i):
+        if n >= lo:
+            found.append(n)
+        for j in range(i, len(primes)):
+            if n * primes[j] <= hi:
+                walk(n * primes[j], j)
+    walk(1, 0)
+    return sorted(found)
 
 
 @lru_cache(maxsize=None)
@@ -436,18 +478,28 @@ def chirp_length(n_fft: int) -> int:
     """The chirp mode's convolution length: of the M from 2 n_fft - 1 to
     4 n_fft whose prime factors are all in CHIRP_PRIMES, the one of least
     M * _passes(M) (every pass moves M values through shared memory), the
-    smallest on a tie. CHIRP_PRIMES leave radix 23 out: an odd pass costs
-    more than this count gives it, and 23 would move 8198 to 16445 = 143 x
-    115 (11 * 13 x 5 * 23), a slower length on the card (PERF.md). Up to
-    n_fft 4096 M stays within MIXED_MAX (the block layout); above it M is
-    above MIXED_MAX and within CLUSTER_MAX (the cluster layout). 470 -> 952
-    = 8 * 7 * 17 (three passes), 2038 -> 4096 (not 4095 = 3^2 * 5 * 7 *
-    13), 8198 -> 16456 = 2^3 * 11^2 * 17 (136 x 121, five passes with the
-    exchange), 16418 -> 32851 = 247 x 133 (13 * 19 and 7 * 19, on 4 CTAs),
-    24578 -> 50864 = 272 x 187 (on 8 CTAs)."""
-    top = min(4 * n_fft, MIXED_MAX if n_fft <= MIXED_MAX // 2 else CLUSTER_MAX)
-    return min((m for m in range(2 * n_fft - 1, top + 1) if _smooth(m, CHIRP_PRIMES)),
-               key=lambda m: (m * _passes(m), m))
+    smallest on a tie. CHIRP_PRIMES leave radices 23, 29 and 31 out: an odd
+    pass costs more than this count gives it, and 23 would move 8198 to
+    16445 = 143 x 115 (11 * 13 x 5 * 23), a slower length on the card
+    (PERF.md). Up to n_fft 4096 M stays within MIXED_MAX (the block layout);
+    up to CHIRP_MAX above MIXED_MAX and within CLUSTER_MAX (the cluster
+    layout); above CHIRP_MAX, up to STAGED_MAX, it takes any M up to 4 n_fft
+    that staged_plan splits (the staged layout, M above CLUSTER_MAX). 470
+    -> 952 = 8 * 7 * 17 (three passes), 2038 -> 4096 (not 4095 = 3^2 * 5 *
+    7 * 13), 8198 -> 16456 = 2^3 * 11^2 * 17 (136 x 121, five passes with
+    the exchange), 16418 -> 32851 = 247 x 133 (13 * 19 and 7 * 19, on 4
+    CTAs), 24578 -> 50864 = 272 x 187 (on 8 CTAs), 40962 -> 82688 = 2^8 *
+    17 * 19 (256 x 323 on the staged layout; 81928 = 2^3 * 7^2 * 11 * 19
+    reads 1.6x slower there, PERF.md)."""
+    if n_fft <= CHIRP_MAX:
+        top = min(4 * n_fft, MIXED_MAX if n_fft <= MIXED_MAX // 2 else CLUSTER_MAX)
+    elif n_fft <= STAGED_MAX:
+        top = min(4 * n_fft, STAGED_M_MAX)
+    else:
+        raise ValueError(f"n_fft {n_fft}: the chirp mode takes 2 to {STAGED_MAX}")
+    lengths = [m for m in _smooth_range(2 * n_fft - 1, top, CHIRP_PRIMES)
+               if m <= CLUSTER_MAX or _staged_split(m) is not None]
+    return min(lengths, key=lambda m: (m * _passes(m), m))
 
 
 @lru_cache(maxsize=None)
@@ -516,7 +568,7 @@ def _chirp_reference(
 @lru_cache(maxsize=None)
 def cluster_plan(n: int) -> tuple[int, int, int]:
     """csrc/dft_cluster.cu's four-step split of an n-point FFT, n from
-    MIXED_MAX + 1 to CLUSTER_MAX with every prime factor in MIXED_PRIMES:
+    MIXED_MAX + 1 to CLUSTER_MAX with every prime factor in CLUSTER_PRIMES:
     (N1, N2, C), N1 * N2 = n with both from 2 to MIXED_MAX, the split of
     fewest passes (fft_plan(N1) and fft_plan(N2)), then the most even, the
     larger factor first (16384 -> 128 x 128, 32768 -> 256 x 128, 65536 ->
@@ -525,8 +577,8 @@ def cluster_plan(n: int) -> tuple[int, int, int]:
     a CTA's shared memory: 2 up to 20480 points (128 KB a CTA at 16384), 4
     up to 40960 (128 KB at 32768), 8 up to 81920 (128 KB at 65536). Raises
     for an n the layout does not take."""
-    if not MIXED_MAX < n <= CLUSTER_MAX or not _smooth(n):
-        raise ValueError(f"n {n}: the cluster layout takes {MIXED_PRIMES}-smooth sizes from "
+    if not MIXED_MAX < n <= CLUSTER_MAX or not _smooth(n, CLUSTER_PRIMES):
+        raise ValueError(f"n {n}: the cluster layout takes {CLUSTER_PRIMES}-smooth sizes from "
                          f"{MIXED_MAX + 1} to {CLUSTER_MAX}")
     splits = [(d, n // d) for d in range(n // MIXED_MAX, MIXED_MAX + 1)
               if d >= 2 and n % d == 0 and 2 <= n // d <= MIXED_MAX]
@@ -590,21 +642,11 @@ def _cluster_fft_rows_first(vr: torch.Tensor, vi: torch.Tensor,
                  for v in _stockham(*cols, fft_plan(n1), tw1))
 
 
-def _fft_cluster_reference(
-    padded: torch.Tensor, window: np.ndarray, *, n_fft: int, hop: int,
-    split: tuple[int, int] | None = None,
-) -> torch.Tensor:
-    """csrc/dft_cluster.cu's arithmetic in its FFT mode, step by step, in
-    float32 PyTorch.
-
-    Frames t and t+1 (t even) become one complex signal z = w*x_t + i*w*x_t+1;
-    its n_fft-point FFT runs as the four steps of `_cluster_fft` with
-    split = cluster_plan(n_fft)[:2] (or the split given, which lets a test
-    run the same arithmetic at a small n_fft); then the untangle and the
-    magnitudes. The kernel's rank count changes where each value lies, not
-    the arithmetic.
-    """
-    split = split or cluster_plan(n_fft)[:2]
+def _four_step_reference(padded: torch.Tensor, window: np.ndarray, n_fft: int, hop: int,
+                         split: tuple[int, int]) -> torch.Tensor:
+    """Frames t and t+1 (t even) as one complex signal z = w*x_t + i*w*x_t+1,
+    its n_fft-point FFT by the four steps of `_cluster_fft` on `split`, then
+    the untangle and the magnitudes."""
     if split[0] * split[1] != n_fft:
         raise ValueError(f"split {split} is not of n_fft {n_fft}")
     tpad = _frames_count(padded.shape[0], n_fft, hop)
@@ -614,21 +656,13 @@ def _fft_cluster_reference(
     return _untangle(zr, zi, n_fft, tpad)
 
 
-def _chirp_cluster_reference(
-    padded: torch.Tensor, window: np.ndarray, *, n_fft: int, hop: int,
-    m: int | None = None, split: tuple[int, int] | None = None,
-) -> torch.Tensor:
-    """csrc/dft_cluster.cu's arithmetic in its chirp mode (Bluestein), step
-    by step, in float32 PyTorch: `_chirp_reference` with its two M-point
-    FFTs on the cluster layout, M = m or chirp_length(n_fft) and split =
-    cluster_plan(M)[:2] (or those given). The first is `_cluster_fft`; the
-    product with B and the conjugate is taken where its output lies, and the
-    second runs rows first (`_cluster_fft_rows_first`), so that no exchange
-    comes between the two; then Z[k] = a[k] conj u[k], the untangle and the
-    magnitudes.
-    """
-    m = m or chirp_length(n_fft)
-    split = split or cluster_plan(m)[:2]
+def _chirp_four_step_reference(padded: torch.Tensor, window: np.ndarray, n_fft: int, hop: int,
+                               m: int, split: tuple[int, int]) -> torch.Tensor:
+    """`_chirp_reference` with its two M-point FFTs as four steps on
+    `split`: the first by `_cluster_fft`, the product with B and the
+    conjugate where its output lies, the second rows first
+    (`_cluster_fft_rows_first`); then Z[k] = a[k] conj u[k], the untangle
+    and the magnitudes."""
     if split[0] * split[1] != m:
         raise ValueError(f"split {split} is not of M {m}")
     tpad = _frames_count(padded.shape[0], n_fft, hop)
@@ -647,6 +681,156 @@ def _chirp_cluster_reference(
     zr = a[:, 0] * ur + a[:, 1] * ui
     zi = a[:, 1] * ur - a[:, 0] * ui
     return _untangle(zr, zi, n_fft, tpad)
+
+
+def _fft_cluster_reference(
+    padded: torch.Tensor, window: np.ndarray, *, n_fft: int, hop: int,
+    split: tuple[int, int] | None = None,
+) -> torch.Tensor:
+    """csrc/dft_cluster.cu's arithmetic in its FFT mode, step by step, in
+    float32 PyTorch: `_four_step_reference` with split =
+    cluster_plan(n_fft)[:2] (or the split given, which lets a test run the
+    same arithmetic at a small n_fft). The kernel's rank count changes where
+    each value lies, not the arithmetic.
+    """
+    return _four_step_reference(padded, window, n_fft, hop, split or cluster_plan(n_fft)[:2])
+
+
+def _chirp_cluster_reference(
+    padded: torch.Tensor, window: np.ndarray, *, n_fft: int, hop: int,
+    m: int | None = None, split: tuple[int, int] | None = None,
+) -> torch.Tensor:
+    """csrc/dft_cluster.cu's arithmetic in its chirp mode (Bluestein), step
+    by step, in float32 PyTorch: `_chirp_four_step_reference` with M = m or
+    chirp_length(n_fft) and split = cluster_plan(M)[:2] (or those given);
+    the kernel takes the product where the first FFT leaves each value and
+    runs the second rows first, so that no exchange comes between the two.
+    """
+    m = m or chirp_length(n_fft)
+    return _chirp_four_step_reference(padded, window, n_fft, hop, m, split or cluster_plan(m)[:2])
+
+
+def _divisors(n: int) -> list[int]:
+    divs, p, left = [1], 2, n
+    while p * p <= left:
+        k = 0
+        while left % p == 0:
+            left //= p
+            k += 1
+        if k:
+            divs = [d * p ** e for d in divs for e in range(k + 1)]
+        p += 1
+    if left > 1:
+        divs = divs + [d * left for d in divs]
+    return sorted(divs)
+
+
+def _staged_bytes(n: int, ffts: int) -> int:
+    """Shared memory of a staged CTA's two buffers: `ffts` FFTs of n complex
+    values, element-major with an odd stride (csrc/dft_staged.cu)."""
+    return 2 * n * (ffts | 1) * 8
+
+
+def _staged_batch(n: int, rows: int) -> int | None:
+    """How many batches of `rows` FFTs of n points one staged CTA takes: the
+    most, a power of two up to STAGED_BATCH, whose buffers fit in
+    STAGED_CTA_BYTES; else 1 within STAGED_CTA_MAX_BYTES; else None."""
+    for g in (16, 8, 4, 2, 1):
+        if g <= STAGED_BATCH and _staged_bytes(n, rows * g) <= STAGED_CTA_BYTES:
+            return g
+    return 1 if _staged_bytes(n, rows) <= STAGED_CTA_MAX_BYTES else None
+
+
+def _staged_sides(n1: int, n2: int) -> tuple[int, int, int, int] | None:
+    """(N1, N2, G1, G2) where both sides are MIXED_PRIMES-smooth from 2 to
+    MIXED_MAX and a CTA takes a batch of each kernel's FFTs; else None."""
+    if not (2 <= n1 <= MIXED_MAX and 2 <= n2 <= MIXED_MAX and _smooth(n1) and _smooth(n2)):
+        return None
+    g1, g2 = _staged_batch(n1, 1), _staged_batch(n2, 2)
+    return None if g1 is None or g2 is None else (n1, n2, g1, g2)
+
+
+@lru_cache(maxsize=None)
+def _staged_split(n: int) -> tuple[int, int, int, int] | None:
+    """staged_plan(n), or None where csrc/dft_staged.cu cannot split n."""
+    if not 4 <= n <= STAGED_M_MAX or not _smooth(n):
+        return None
+    plans = [p for d in _divisors(n) if (p := _staged_sides(d, n // d)) is not None]
+    if not plans:
+        return None
+    return min(plans, key=lambda p: (len(fft_plan(p[0])) + len(fft_plan(p[1])),
+                                     -min(p[2], 2 * p[3]), p[0]))
+
+
+def staged_plan(n: int, split: tuple[int, int] | None = None) -> tuple[int, int, int, int]:
+    """csrc/dft_staged.cu's four-step split of an n-point FFT (n up to
+    STAGED_M_MAX, every prime factor in MIXED_PRIMES): (N1, N2, G1, G2),
+    N1 * N2 = n with both from 2 to MIXED_MAX. Kernel 1 runs the N1-point
+    FFTs of G1 adjacent columns j < N2 a CTA, kernel 2 the N2-point FFTs of
+    G2 adjacent row pairs {k1, N1 - k1} a CTA, so that each reads and writes
+    device memory in runs of adjacent values. G1 and G2 are the most, a
+    power of two up to STAGED_BATCH, whose two buffers of shared memory fit
+    in STAGED_CTA_BYTES (two CTAs an SM), else 1 within STAGED_CTA_MAX_BYTES.
+    Of the splits, the one of fewest passes (fft_plan(N1) and fft_plan(N2)),
+    then of the largest batch of columns or rows the smaller of G1 and 2 G2
+    lets each CTA take, then the shorter column side (131072 -> 256 x 512,
+    G1 16, G2 4; 98304 -> 256 x 384; 82688 -> 256 x 323, G2 8). The rule is
+    the card's: at 131072 on 2048 frames 256 x 512 read 3.21 ms, 512 x 256
+    3.30, 128 x 1024 3.30, 1024 x 128 3.66, 64 x 2048 3.70 and 32 x 4096,
+    one long row pair a CTA, 4.70 (tools/bench_dft_plans.py --staged,
+    PERF.md). `split` (N1, N2) takes that split instead, for the tools and
+    the tests. Raises for an n the kernels do not take."""
+    plan = _staged_split(n) if split is None else (
+        _staged_sides(*split) if split[0] * split[1] == n and n <= STAGED_M_MAX else None)
+    if plan is None:
+        raise ValueError(f"n {n}: the staged layout takes {MIXED_PRIMES}-smooth sizes up to "
+                         f"{STAGED_M_MAX} split as N1 x N2, both from 2 to {MIXED_MAX}, whose "
+                         f"buffers fit in {STAGED_CTA_MAX_BYTES} bytes" +
+                         (f" (split {split})" if split else ""))
+    return plan
+
+
+def staged_mode(n_fft: int) -> str:
+    """The staged route's mode at n_fft: "fft" where staged_plan splits
+    n_fft itself, "chirp" otherwise (an n_fft with a prime factor above 31,
+    or one no split of whose fits)."""
+    return "fft" if _staged_split(n_fft) is not None else "chirp"
+
+
+def staged_chunk_pairs(n: int) -> int:
+    """Frame pairs of a staged chunk for an n-point FFT: as many as whose
+    scratch of n complex values each fits in STAGED_CHUNK_BYTES, at least
+    one."""
+    return max(1, STAGED_CHUNK_BYTES // (8 * n))
+
+
+def _staged_reference(
+    padded: torch.Tensor, window: np.ndarray, *, n_fft: int, hop: int,
+    split: tuple[int, int] | None = None,
+) -> torch.Tensor:
+    """csrc/dft_staged.cu's arithmetic in its FFT mode, step by step, in
+    float32 PyTorch: `_four_step_reference` with split = staged_plan(n_fft)
+    [:2] (or the split given): kernel 1's N1-point column FFTs and the
+    four-step twiddles W_N^(k1 j), kernel 2's N2-point row FFTs, the
+    untangle. The batches and the chunks change where each value lies and
+    when, not the arithmetic.
+    """
+    return _four_step_reference(padded, window, n_fft, hop, split or staged_plan(n_fft)[:2])
+
+
+def _chirp_staged_reference(
+    padded: torch.Tensor, window: np.ndarray, *, n_fft: int, hop: int,
+    m: int | None = None, split: tuple[int, int] | None = None,
+) -> torch.Tensor:
+    """csrc/dft_staged.cu's arithmetic in its chirp mode (Bluestein), step by
+    step, in float32 PyTorch: `_chirp_four_step_reference` with M = m or
+    chirp_length(n_fft) and split = staged_plan(M)[:2] (or those given):
+    kernel 1 the first FFT's columns, kernel 2 its rows, the product with B
+    and the second FFT's rows with W_M^(k1 p2), kernel 3 its columns, kernel
+    4 Z[k] = a[k] conj u[k] and the untangle.
+    """
+    m = m or chirp_length(n_fft)
+    return _chirp_four_step_reference(padded, window, n_fft, hop, m, split or staged_plan(m)[:2])
 
 
 # exchange layouts a + ((a >> s) << g); (0, 0) leaves a as it is
@@ -767,6 +951,31 @@ def _cluster_plan_array(n: int):
     return (ctypes.c_int * len(values))(*values)
 
 
+@lru_cache(maxsize=None)
+def staged_tables(n: int, split: tuple[int, int] | None = None) -> np.ndarray:
+    """csrc/dft_staged.cu's roots for an n-point FFT split as staged_plan(n,
+    split): pass_roots of fft_plan(N1), pass_roots of fft_plan(N2) and
+    four_step_roots(N1, N2), (len1 + len2 + n, 2) float32; read from device
+    memory through L1. Read-only."""
+    n1, n2, _, _ = staged_plan(n, split)
+    table = np.concatenate([pass_roots(n1, fft_plan(n1)), pass_roots(n2, fft_plan(n2)),
+                            four_step_roots(n1, n2)])
+    table.setflags(write=False)
+    return table
+
+
+@lru_cache(maxsize=None)
+def _staged_plan_array(n: int, split: tuple[int, int] | None = None):
+    """staged_plan(n, split) as csrc/dft_staged.cu takes it, int32 on the
+    host: [N1, N2, G1, G2, len1, len2, P1, radices of N1, P2, radices of
+    N2], len1 and len2 the rows of the two pass_roots in staged_tables."""
+    n1, n2, g1, g2 = staged_plan(n, split)
+    plan1, plan2 = fft_plan(n1), fft_plan(n2)
+    values = (n1, n2, g1, g2, len(pass_roots(n1, plan1)), len(pass_roots(n2, plan2)),
+              len(plan1), *plan1, len(plan2), *plan2)
+    return (ctypes.c_int * len(values))(*values)
+
+
 def _chirp_kernel(n_fft: int) -> str:
     """The kernel of the chirp mode at n_fft: "mixed" (the block layout of
     csrc/dft_mixed.cu) where chirp_length(n_fft) is within MIXED_MAX,
@@ -781,9 +990,10 @@ def _route_tables(route: str, window_bytes: bytes, device: torch.device):
     the mixed route's window and pass-ordered roots (pass_roots), the
     cluster route's window and cluster_tables, the chirp route's
     chirp_tables and the roots of its M (pass_roots, or cluster_tables above
-    MIXED_MAX), the GEMM route's window-folded C and S (windowed_dft_mats,
-    4 N (N/2 + 1) bytes: 6.7 GB at 40962, the smallest n_fft with a hop
-    that divides it the route takes)."""
+    MIXED_MAX), the staged route's window (its chirp mode: chirp_tables)
+    and staged_tables of its FFT, the GEMM route's window-folded C and S
+    (windowed_dft_mats, 4 N (N/2 + 1) bytes, which is why the route takes
+    no size a user sets: 6.7 GB at 40962, 4.4 TB above STAGED_MAX)."""
     n_fft = len(window_bytes) // 8
     if route == "gemm":
         arrays = _mats_cached(window_bytes)
@@ -793,6 +1003,11 @@ def _route_tables(route: str, window_bytes: bytes, device: torch.device):
         arrays = (_tables_cached(window_bytes)[0], pass_roots(n_fft, fft_plan(n_fft)))
     elif route == "cluster":
         arrays = (_tables_cached(window_bytes)[0], cluster_tables(n_fft))
+    elif route == "staged" and staged_mode(n_fft) == "fft":
+        arrays = (_tables_cached(window_bytes)[0], staged_tables(n_fft))
+    elif route == "staged":
+        m = chirp_length(n_fft)
+        arrays = (_chirp_cached(window_bytes, m), staged_tables(m))
     else:
         m = chirp_length(n_fft)
         roots = pass_roots(m, fft_plan(m)) if m <= MIXED_MAX else cluster_tables(m)
@@ -800,16 +1015,18 @@ def _route_tables(route: str, window_bytes: bytes, device: torch.device):
     return tuple(torch.from_numpy(a.copy()).to(device) for a in arrays)
 
 
-def _build_variant(kernel: str, n: int, dtype: torch.dtype) -> tuple[int, int] | None:
+def _build_variant(kernel: str, n: int, dtype: torch.dtype,
+                   split: tuple[int, int] | None = None) -> tuple[int, int] | None:
     """The build of a kernel's library (ops/_build.py::VARIANTS) that runs
     an FFT of n points on `dtype` samples: (of the builds' odd radices the
     least at or above the largest odd radix of its plan, fft_plan(n) for
-    "mixed" or cluster_plan(n)'s two sides for "cluster"; the dtype's code);
-    None for the kernels built once."""
+    "mixed", cluster_plan(n)'s two sides for "cluster", staged_plan(n,
+    split)'s for "staged"; the dtype's code); None for the kernels built
+    once."""
     if kernel == "mixed":
         radices = fft_plan(n)
-    elif kernel == "cluster":
-        n1, n2, _ = cluster_plan(n)
+    elif kernel in ("cluster", "staged"):
+        n1, n2 = cluster_plan(n)[:2] if kernel == "cluster" else staged_plan(n, split)[:2]
         radices = fft_plan(n1) + fft_plan(n2)
     else:
         return None
@@ -830,15 +1047,19 @@ def _kernel(kernel: str, variant: tuple[int, int] | None = None):
     stream), roots from pass_roots (mixed) or cluster_tables (cluster), chirp
     from chirp_tables (null in the FFT mode, whose plan is of n_fft; the
     chirp mode's is of chirp_length(n_fft) and its window is not read), plan
-    from _plan_array or _cluster_plan_array."""
+    from _plan_array or _cluster_plan_array. "staged" (csrc/dft_staged.cu)
+    the same with, after the plan (_staged_plan_array), its scratch and the
+    frame pairs of a chunk: (..., plan, scratch, chunk_pairs, out, ...)."""
     lib, name = {"fft": ("dft_magnitude", "orcai_dft_magnitude"),
                  "mixed": ("dft_mixed", "orcai_dft_mixed"),
                  "cluster": ("dft_cluster", "orcai_dft_cluster"),
+                 "staged": ("dft_staged", "orcai_dft_staged"),
                  "gemm": ("dft_gemm", "orcai_dft_gemm")}[kernel]
     fn = getattr(_build.load(lib, variant), name)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    chirp = [ptr, ctypes.POINTER(ctypes.c_int)] if kernel in ("mixed", "cluster") else []
-    fn.argtypes = [ptr, i32, ptr, ptr, *chirp, ptr, i32, i32, i32, ptr]
+    chirp = [ptr, ctypes.POINTER(ctypes.c_int)] if kernel in ("mixed", "cluster", "staged") else []
+    scratch = [ptr, i32] if kernel == "staged" else []
+    fn.argtypes = [ptr, i32, ptr, ptr, *chirp, *scratch, ptr, i32, i32, i32, ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -846,16 +1067,23 @@ def _kernel(kernel: str, variant: tuple[int, int] | None = None):
 def dft_route(n_fft: int) -> str:
     """The CUDA route of an n_fft: "fft" for FFT_SIZES; "mixed" for any
     other n_fft from 2 to MIXED_MAX (8192) whose prime factors are in
-    MIXED_PRIMES (1216 = 2^6 * 19, 1472 = 2^6 * 23); "cluster" for such an
-    n_fft from MIXED_MAX + 1 to CLUSTER_MAX (81920; 65536 on 8 CTAs);
-    "chirp" for any other n_fft from 2 to CHIRP_MAX (40960; 16418 and 24578
-    on the cluster layout, 4 and 8 CTAs); "gemm" otherwise (a smooth n_fft
-    above CLUSTER_MAX, any other above CHIRP_MAX, and 1)."""
+    MIXED_PRIMES (1216 = 2^6 * 19, 1472 = 2^6 * 23, 1856 = 2^6 * 29, 1984 =
+    2^6 * 31); "cluster" for an n_fft from MIXED_MAX + 1 to CLUSTER_MAX
+    (81920; 65536 on 8 CTAs) whose prime factors are in CLUSTER_PRIMES;
+    "chirp" for an n_fft from 2 to CHIRP_MAX (40960) with a prime factor
+    above 31 (16418 and 24578 on the cluster layout); "staged" for any other
+    n_fft from MIXED_MAX + 1 to STAGED_MAX (2^20; staged_mode: 14848 = 2^9
+    * 29, 98304 and 131072 in its FFT mode, 40962 in its chirp mode);
+    "gemm" for the rest (1, and a smooth n_fft above STAGED_MAX)."""
     if n_fft in FFT_SIZES:
         return "fft"
-    if 2 <= n_fft <= CLUSTER_MAX and _smooth(n_fft):
-        return "mixed" if n_fft <= MIXED_MAX else "cluster"
-    return "chirp" if 2 <= n_fft <= CHIRP_MAX else "gemm"
+    if 2 <= n_fft <= MIXED_MAX and _smooth(n_fft):
+        return "mixed"
+    if MIXED_MAX < n_fft <= CLUSTER_MAX and _smooth(n_fft, CLUSTER_PRIMES):
+        return "cluster"
+    if 2 <= n_fft <= CHIRP_MAX and not (n_fft > MIXED_MAX and _smooth(n_fft)):
+        return "chirp"
+    return "staged" if MIXED_MAX < n_fft <= STAGED_MAX else "gemm"
 
 
 def active_clusters(n_fft: int, dtype: torch.dtype = torch.int16) -> int:
@@ -880,6 +1108,38 @@ def active_clusters(n_fft: int, dtype: torch.dtype = torch.int16) -> int:
         raise RuntimeError(f"dft_magnitude at n_fft {n_fft}: no cluster of {plan[0]} CTAs "
                            f"fits (CUDA error {err})")
     return clusters.value
+
+
+def _launch_staged(padded: torch.Tensor, window: np.ndarray, out: torch.Tensor, n_fft: int,
+                   hop: int, *, m: int | None = None, split: tuple[int, int] | None = None,
+                   chunk_pairs: int | None = None) -> int:
+    """csrc/dft_staged.cu's kernels on the CUDA tensor `padded` into `out`,
+    on the current stream: the FFT mode at staged_mode(n_fft) "fft", else
+    (or with a convolution length m given) the chirp mode on M = m or
+    chirp_length(n_fft); split (N1, N2) of staged_plan, chunk_pairs frame
+    pairs a chunk (staged_chunk_pairs). The scratch, chunk_pairs FFTs of M
+    complex values, comes from the caching allocator on the audio's device.
+    Returns the CUDA error code; counts nothing (dft_magnitude counts its
+    calls), so a tool can call it beside the route."""
+    tpad = _frames_count(padded.shape[0], n_fft, hop)
+    chirp = m is not None or staged_mode(n_fft) == "chirp"
+    n = (m or chirp_length(n_fft)) if chirp else n_fft
+    window = _check_window(window, n_fft)
+    if split is None and (m is None or m == chirp_length(n_fft)):
+        table, roots = _route_tables("staged", window.tobytes(), padded.device)
+    else:
+        table = torch.from_numpy(
+            (chirp_tables(window, n) if chirp else fft_tables(window)[0]).copy()).to(padded.device)
+        roots = torch.from_numpy(staged_tables(n, split).copy()).to(padded.device)
+    pairs = max(1, min(chunk_pairs or staged_chunk_pairs(n), (tpad + 1) // 2))
+    scratch = torch.empty(pairs * n * 2, dtype=torch.float32, device=padded.device)
+    tables = ((None, roots.data_ptr(), table.data_ptr()) if chirp
+              else (table.data_ptr(), roots.data_ptr(), None))
+    with torch.cuda.device(padded.device):
+        stream = torch.cuda.current_stream(padded.device).cuda_stream
+        return _kernel("staged", _build_variant("staged", n, padded.dtype, split))(
+            padded.data_ptr(), _DTYPE_CODES[padded.dtype], *tables, _staged_plan_array(n, split),
+            scratch.data_ptr(), pairs, out.data_ptr(), tpad, n_fft, hop, stream)
 
 
 def dft_magnitude(
@@ -907,25 +1167,28 @@ def dft_magnitude(
     if padded.device.type != "cuda":
         raise ValueError(f"dft_magnitude: unsupported device {padded.device}")
     route = kernel = dft_route(n_fft)
-    a, b = _route_tables(route, window.tobytes(), padded.device)
-    n = n_fft  # the FFT's points: n_fft, or the chirp mode's convolution length
-    if route == "mixed":
-        tables = (a.data_ptr(), b.data_ptr(), None, _plan_array(n_fft))
-    elif route == "cluster":
-        tables = (a.data_ptr(), b.data_ptr(), None, _cluster_plan_array(n_fft))
-    elif route == "chirp":
-        kernel, n = _chirp_kernel(n_fft), chirp_length(n_fft)
-        plan = _plan_array(n) if kernel == "mixed" else _cluster_plan_array(n)
-        tables = (None, b.data_ptr(), a.data_ptr(), plan)
-    else:
-        tables = (a.data_ptr(), b.data_ptr())
     out = torch.empty((tpad, n_fft // 2 + 1), dtype=torch.float32, device=padded.device)
-    with torch.cuda.device(padded.device):
-        stream = torch.cuda.current_stream(padded.device).cuda_stream
-        err = _kernel(kernel, _build_variant(kernel, n, padded.dtype))(
-            padded.data_ptr(), _DTYPE_CODES[padded.dtype], *tables, out.data_ptr(), tpad,
-            n_fft, hop, stream,
-        )
+    if route == "staged":
+        err = _launch_staged(padded, window, out, n_fft, hop)
+    else:
+        a, b = _route_tables(route, window.tobytes(), padded.device)
+        n = n_fft  # the FFT's points: n_fft, or the chirp mode's convolution length
+        if route == "mixed":
+            tables = (a.data_ptr(), b.data_ptr(), None, _plan_array(n_fft))
+        elif route == "cluster":
+            tables = (a.data_ptr(), b.data_ptr(), None, _cluster_plan_array(n_fft))
+        elif route == "chirp":
+            kernel, n = _chirp_kernel(n_fft), chirp_length(n_fft)
+            plan = _plan_array(n) if kernel == "mixed" else _cluster_plan_array(n)
+            tables = (None, b.data_ptr(), a.data_ptr(), plan)
+        else:
+            tables = (a.data_ptr(), b.data_ptr())
+        with torch.cuda.device(padded.device):
+            stream = torch.cuda.current_stream(padded.device).cuda_stream
+            err = _kernel(kernel, _build_variant(kernel, n, padded.dtype))(
+                padded.data_ptr(), _DTYPE_CODES[padded.dtype], *tables, out.data_ptr(), tpad,
+                n_fft, hop, stream,
+            )
     if err != 0:
         raise RuntimeError(
             f"dft_magnitude ({route} route) kernel launch failed: CUDA error {err}")

@@ -1,7 +1,7 @@
 """B1 (ops/dft.py::dft_magnitude) of two trees of this package, timed in
 turns on one CUDA device.
 
-    python -m orcai_tpu_torch.tools.ab_b1_sizes --trees A B [--sizes 384/192,352/176]
+    python -m orcai_tpu_torch.tools.ab_b1_sizes --trees A B [--sizes 384/192,352/176,...]
         [--frames 32768] [--iters 20] [--rounds 2] [--seed 0]
 
 A and B are directories that hold an orcai_tpu_torch package (this
@@ -25,6 +25,11 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+
+# the mixed route (the spectral wires' 384 and 352, 416, 1024, 2048, radices
+# 17, 19 and 23), the cluster route and the chirp mode on both layouts
+DEFAULT_SIZES = ("384/192,352/176,416/208,1024/256,2048/512,1088/544,1216/608,1472/736,"
+                 "16384/8192,32768/16384,8198/4099,16418/8209")
 
 RUN = r"""
 import json, sys
@@ -79,7 +84,7 @@ print(json.dumps(out))
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trees", nargs=2, required=True, metavar=("A", "B"))
-    parser.add_argument("--sizes", default="384/192,352/176,416/208,1024/256,2048/512")
+    parser.add_argument("--sizes", default=DEFAULT_SIZES)
     parser.add_argument("--frames", type=int, default=32768)
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--rounds", type=int, default=2)

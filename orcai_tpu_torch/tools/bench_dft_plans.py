@@ -2,7 +2,7 @@
 on other convolution lengths, on a CUDA device.
 
     python -m orcai_tpu_torch.tools.bench_dft_plans [--frames 32768] [--iters 20] [--seed 0]
-        [--sweep]
+        [--sweep | --staged]
 
 The mixed-radix kernel (csrc/dft_mixed.cu) takes its plan from the host, so
 one build runs any plan of an n_fft. At (n_fft, hop) 384/192 and 352/176
@@ -26,9 +26,22 @@ the plain fp32 GEMM is itself about 2e-4 from it at 16418).
 
 With --sweep it times instead dft_magnitude against torch.stft(...).abs()
 on the same tile at SWEEP_SIZES, in turns (a, b, b, a), each held against
-the float64 rFFT of its first CHECK_FRAMES frames: n_fft of 2^a * 23 (the
-FFT routes since radix 23) and n_fft with a prime factor above 23 (the
-chirp mode) on both of its layouts. Prints one JSON line per size, then the
+the float64 rFFT of its first CHECK_FRAMES frames: n_fft of 2^a * 23, 29
+and 31 (the FFT routes since radices 23, 29 and 31; above 8192 the 2^a *
+29 and 31 take the staged route), n_fft with a prime factor above 31 (the chirp mode) on both of its
+layouts and the staged route's chirp mode, and the staged route's FFT mode
+(98304, 131072); the tile is --frames frames, or fewer where its samples
+would pass 2^27 (2048 at hop 65536).
+
+With --staged it times the staged route's kernels (csrc/dft_staged.cu,
+called as dft_magnitude calls them, ops/dft.py::_launch_staged) on the
+splits N1 x N2 of STAGED_SPLITS and the chunks of STAGED_CHUNKS (frame
+pairs a chunk: ops/dft.py::staged_chunk_pairs' default, then 64, 256 and
+the whole tile) at 131072 / 65536 on 2048 frames, and its chirp mode at
+40962 / 20481 on 301 and 2048 frames on the convolution lengths of
+STAGED_LENGTHS (the default, chirp_length's, and the others named), each
+held against the float64 rFFT of its first CHECK_FRAMES frames (atol
+2e-4), in turns (a, b, ..., b, a). Prints one JSON line per size, then the
 card's name and power limit.
 """
 
@@ -44,11 +57,21 @@ SWEEP_SIZES = (
     # 2^a * 23: the mixed route, then the cluster route
     (368, 184), (736, 368), (1472, 736), (2944, 1472), (5888, 2944), (11776, 5888),
     (23552, 11776),
-    # a prime factor above 23 (29, 31, 47, 1021, 1019, 89, 4099, 8209, 12289,
-    # 20479): the chirp mode's block layout (M <= 8192), then its cluster layout
-    (464, 232), (496, 248), (470, 235), (1021, 1021), (1856, 928), (1984, 992),
-    (2038, 1019), (4094, 2047), (8198, 4099), (16418, 8209), (24578, 12289),
-    (40958, 20479))
+    # 2^a * 29 and 2^a * 31: the mixed route up to 8192, then the staged route's
+    # FFT mode (dft_cluster.cu has no radix 29 or 31)
+    (464, 232), (496, 248), (1856, 928), (1984, 992), (3712, 1856), (3968, 1984),
+    (7424, 3712), (7936, 3968), (14848, 7424), (15872, 7936),
+    # a prime factor above 31 (47, 1021, 1019, 89, 4099, 8209, 12289, 20479,
+    # 6827, 24577): the chirp mode's block layout (M <= 8192), its cluster
+    # layout, then the staged route's chirp mode
+    (470, 235), (1021, 1021), (2038, 1019), (4094, 2047), (8198, 4099), (16418, 8209),
+    (24578, 12289), (40958, 20479), (40962, 20481), (49154, 24577),
+    # the staged route's FFT mode
+    (98304, 49152), (131072, 65536))
+SWEEP_SAMPLES = 1 << 27  # a sweep tile's most samples
+STAGED_SPLITS = ((256, 512), (512, 256), (128, 1024), (1024, 128), (64, 2048), (32, 4096))
+STAGED_CHUNKS = (None, 64, 256, 1 << 30)  # frame pairs a chunk: the default, ..., the tile
+STAGED_LENGTHS = (81928, 82944, 98304, 131072)  # at 40962, beside chirp_length's
 CHECK_FRAMES = 64  # frames held against the float64 rFFT
 SPIN_CYCLES = 8_000_000  # about 4 ms at an H100's clock
 
@@ -93,8 +116,11 @@ def main(argv=None) -> int:
     parser.add_argument("--frames", type=int, default=32768)
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--sweep", action="store_true",
-                        help="dft_magnitude against torch.stft at SWEEP_SIZES")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--sweep", action="store_true",
+                      help="dft_magnitude against torch.stft at SWEEP_SIZES")
+    mode.add_argument("--staged", action="store_true",
+                      help="the staged route's splits, chunks and chirp lengths")
     args = parser.parse_args(argv)
 
     import numpy as np
@@ -102,9 +128,9 @@ def main(argv=None) -> int:
 
     from orcai_tpu_torch.ops.dft import (
         CLUSTER_MAX, MIXED_MAX, _DTYPE_CODES, _chirp_kernel, _cluster_plan_array, _kernel,
-        _build_variant, _passes, _smooth, chirp_length, chirp_tables, cluster_plan, cluster_tables,
-        dft_magnitude, dft_magnitude_plain, dft_route, exchange_pads, fft_plan, fft_tables,
-        pack_plan, pass_roots)
+        _build_variant, _launch_staged, _passes, _smooth, chirp_length, chirp_tables,
+        cluster_plan, cluster_tables, dft_magnitude, dft_magnitude_plain, dft_route,
+        exchange_pads, fft_plan, fft_tables, pack_plan, pass_roots, staged_mode, staged_plan)
     from orcai_tpu_torch.ops.frontend import hann_window
 
     if not torch.cuda.is_available():
@@ -124,18 +150,56 @@ def main(argv=None) -> int:
         exact = torch.fft.rfft(x64.unfold(0, n_fft, hop) * on_device(window), dim=1).abs()
         return float((got[:CHECK_FRAMES] - exact).abs().max())
 
+    def staged_line(n_fft, hop, frames, variants):
+        """Time each variant (kwargs of _launch_staged) in turns on one
+        int16 tile, each held against the float64 rFFT first."""
+        window = hann_window(n_fft)
+        x = torch.from_numpy(rng.integers(-32768, 32768, (frames - 1) * hop + n_fft,
+                                          dtype=np.int16)).to(dev)
+        out = torch.empty((frames, n_fft // 2 + 1), dtype=torch.float32, device=dev)
+        line = {"n_fft": n_fft, "hop": hop, "frames": frames, "dtype": "int16",
+                "variants": {}, "ms": {k: [] for k in variants}}
+        for name, kw in variants.items():
+            m = kw.get("m") or (chirp_length(n_fft) if staged_mode(n_fft) == "chirp" else n_fft)
+            if _launch_staged(x, window, out, n_fft, hop, **kw) != 0:
+                raise RuntimeError(f"{n_fft}/{hop} {name}: launch failed")
+            torch.cuda.synchronize()
+            err = vs_float64(out, x, window, n_fft, hop)
+            line["variants"][name] = {"length": m, "plan": list(staged_plan(m, kw.get("split"))),
+                                      "max_abs_err_vs_float64": err}
+            if not err <= 2e-4:
+                raise AssertionError(f"{n_fft}/{hop} {name}: {err} from the float64 rFFT")
+        for name in [*variants, *reversed(variants)]:
+            line["ms"][name].append(event_ms(
+                torch, lambda: _launch_staged(x, window, out, n_fft, hop, **variants[name]),
+                args.iters))
+        print(json.dumps(line), flush=True)
+        del x, out
+        torch.cuda.empty_cache()
+
+    if args.staged:
+        staged_line(131072, 65536, 2048, {
+            f"{n1}x{n2}/{chunk or 'default'}": {"split": (n1, n2), "chunk_pairs": chunk}
+            for n1, n2 in STAGED_SPLITS for chunk in STAGED_CHUNKS})
+        for frames_40962 in (301, 2048):
+            staged_line(40962, 20481, frames_40962, {
+                f"{m}/{chunk or 'default'}": {"m": m, "chunk_pairs": chunk}
+                for m in (chirp_length(40962), *STAGED_LENGTHS) for chunk in STAGED_CHUNKS})
     if args.sweep:
         for n_fft, hop in SWEEP_SIZES:
             window = hann_window(n_fft)
+            frames = min(args.frames, max(64, SWEEP_SAMPLES // hop))
             n = (frames - 1) * hop + n_fft
             x = torch.from_numpy(rng.integers(-32768, 32768, n, dtype=np.int16)).to(dev)
             samples = x.float() * (1.0 / 32768.0)
             win = torch.hann_window(n_fft, periodic=True, device=dev)
             route = dft_route(n_fft)
-            m = chirp_length(n_fft) if route == "chirp" else n_fft
+            chirp = route == "chirp" or route == "staged" and staged_mode(n_fft) == "chirp"
+            m = chirp_length(n_fft) if chirp else n_fft
             line = {"n_fft": n_fft, "hop": hop, "frames": frames, "dtype": "int16",
                     "route": route, "length": m,
-                    "plan": list(fft_plan(m)) if m <= MIXED_MAX else list(cluster_plan(m))}
+                    "plan": list(fft_plan(m)) if m <= MIXED_MAX else
+                    list(cluster_plan(m)) if m <= CLUSTER_MAX else list(staged_plan(m))}
             if route == "chirp":
                 line["layout"] = "block" if _chirp_kernel(n_fft) == "mixed" else "cluster"
             got = dft_magnitude(x, window, n_fft=n_fft, hop=hop)
@@ -154,7 +218,7 @@ def main(argv=None) -> int:
             print(json.dumps(line), flush=True)
             del x, samples
             torch.cuda.empty_cache()
-    for n_fft, hop in () if args.sweep else SIZES + CHIRP_SIZES:
+    for n_fft, hop in () if args.sweep or args.staged else SIZES + CHIRP_SIZES:
         window = hann_window(n_fft)
         n = (frames - 1) * hop + n_fft
         x = torch.from_numpy(rng.integers(-32768, 32768, n, dtype=np.int16)).to(dev)

@@ -30,12 +30,21 @@ from orcai_tpu_torch.ops.dft import (
     _C16,
     _S16,
     CHIRP_MAX,
+    CHIRP_PRIMES,
     CLUSTER_MAX,
+    CLUSTER_PRIMES,
     FFT_SIZES,
     MIXED_MAX,
+    MIXED_PRIMES,
+    STAGED_BATCH,
+    STAGED_CTA_BYTES,
+    STAGED_CTA_MAX_BYTES,
+    STAGED_M_MAX,
+    STAGED_MAX,
     _chirp_cluster_reference,
     _chirp_kernel,
     _chirp_reference,
+    _chirp_staged_reference,
     _cluster_plan_array,
     _exchange_accesses,
     _fft_cluster_reference,
@@ -45,6 +54,9 @@ from orcai_tpu_torch.ops.dft import (
     _pad_address,
     _passes,
     _build_variant,
+    _staged_bytes,
+    _staged_plan_array,
+    _staged_reference,
     _wavefronts,
     active_clusters,
     chirp_length,
@@ -60,6 +72,10 @@ from orcai_tpu_torch.ops.dft import (
     four_step_roots,
     pass_roots,
     roots_of_unity,
+    staged_chunk_pairs,
+    staged_mode,
+    staged_plan,
+    staged_tables,
     windowed_dft_mats,
 )
 from orcai_tpu_torch.ops.frontend import hann_window as port_hann_window
@@ -177,16 +193,23 @@ def test_dft_wrapper_validates_geometry():
 @pytest.mark.parametrize(
     "n_fft,hop", [(1024, 256), (256, 128), (384, 128), (416, 208), (4096, 1024), (512, 256),
                   (1088, 544), (4352, 2176), (1216, 608), (16384, 8192), (8198, 4099),
-                  (16418, 8209), (470, 235), (24578, 12289), (65536, 32768), (40962, 20481)])
+                  (16418, 8209), (470, 235), (24578, 12289), (65536, 32768), (40962, 20481),
+                  (464, 232), (496, 248), (1856, 928), (1984, 992), (14848, 7424),
+                  (49154, 24577), (98304, 49152), (131072, 65536), (1, 1)])
 def test_dft_wrapper_names_supported_sizes(n_fft, hop):
     """Off the CPU every n_fft that hop divides has a kernel: 512 the FFT,
-    a {2, 3, 5, 7, 11, 13, 17, 19, 23}-smooth n_fft up to 8192 the mixed-radix
-    FFT (1088, 4352, 1216), such an n_fft up to 81920 the cluster layout
-    (16384, 65536), any other up to 40960 the chirp mode (470, 8198, 16418,
-    24578), the rest the GEMM (40962). What no kernel takes raises and names
-    what they take; nothing routes it to the plain version."""
+    a {2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31}-smooth n_fft up to 8192 the
+    mixed-radix FFT (1088, 4352, 1216, 464, 496, 1856, 1984), a
+    {2, ..., 23}-smooth n_fft up to 81920 the cluster layout (16384, 65536),
+    any other up to 40960 with a prime factor above 31 the chirp mode (470,
+    8198, 16418, 24578), any other up to 2^20 the staged route (40962, 49154
+    in its chirp mode, 14848 = 2^9 * 29, 98304 and 131072 in its FFT mode),
+    1 the GEMM. What no
+    kernel takes raises and names what they take; nothing routes it to the
+    plain version."""
     want = {512: "fft", 470: "chirp", 8198: "chirp", 16418: "chirp", 24578: "chirp",
-            16384: "cluster", 65536: "cluster", 40962: "gemm"}.get(n_fft, "mixed")
+            14848: "staged", 16384: "cluster", 65536: "cluster", 40962: "staged",
+            49154: "staged", 98304: "staged", 131072: "staged", 1: "gemm"}.get(n_fft, "mixed")
     assert dft_route(n_fft) == want and dft_route(512) == "fft"
     for dtype in (torch.float64, torch.int32, torch.bool):
         x = torch.zeros(3 * hop + n_fft, dtype=dtype, device="meta")
@@ -211,23 +234,29 @@ def test_active_clusters_takes_only_the_cluster_layout(n_fft):
 
 
 def test_fft_sources_build_per_largest_odd_radix_and_sample_type():
-    """dft_mixed.cu and dft_cluster.cu are built once per (largest odd radix
-    a build takes, sample type), each build a library of its own flags and
-    path, so that their kernels compile side by side; _build_variant picks
-    the build of a plan, the least that takes its largest odd radix (a plan
-    without a 13, 17, 19 or 23 the radix-11 build of the mixed kernel, the
-    radix-17 one of the cluster kernel; a 19 the radix-23 build); a source
-    with builds is not loaded without one."""
+    """dft_mixed.cu, dft_cluster.cu and dft_staged.cu are built once per
+    (largest odd radix a build takes, sample type), each build a library of
+    its own flags and path, so that their kernels compile side by side;
+    _build_variant picks the build of a plan, the least that takes its
+    largest odd radix (a plan without a 13, 17, 19, 23, 29 or 31 the
+    radix-11 build of the mixed kernel, the radix-17 one of the cluster
+    kernel, the radix-13 one of the staged kernels; a 19 the radix-23
+    build, a 29 the radix-31 build); a source with builds is not loaded
+    without one."""
     paths = set()
     for name, variants in _build.VARIANTS.items():
         for odd, dtype in variants:
             flags = _build._flags((odd, dtype))
             assert f"-DORCAI_ODD={odd}" in flags and f"-DORCAI_DTYPE={dtype}" in flags
             paths.add(_build.library_path(name, (odd, dtype)))
-    assert len(paths) == sum(len(v) for v in _build.VARIANTS.values()) == 18
+    assert len(paths) == sum(len(v) for v in _build.VARIANTS.values()) == 27
+    assert "dft_staged" in _build.KERNELS
     for n, odd in ((384, 11), (4096, 11), (416, 13), (1088, 17), (1216, 23), (1472, 23),
-                   (952, 17), (2431, 17)):
+                   (952, 17), (2431, 17), (464, 31), (496, 31), (1856, 31), (1984, 31)):
         assert _build_variant("mixed", n, torch.int16) == (odd, 1)
+    for n, odd in ((131072, 13), (98304, 13), (chirp_length(40962), 31), (59392, 31),
+                   (1 << 20, 13)):
+        assert _build_variant("staged", n, torch.float32) == (odd, 0)
     for n, odd in ((16384, 17), (16456, 17), (32851, 23), (50864, 17), (65536, 17),
                    (11776, 23)):
         assert _build_variant("cluster", n, torch.uint8) == (odd, 2)
@@ -324,7 +353,11 @@ MIXED_SIZES = [(384, 192), (352, 176), (768, 384), (704, 352), (1024, 256), (256
 CHIRP = (2, 3, 5, 7, 11, 13, 17, 19)  # the chirp mode's lengths' primes
 
 
-def _smooth(n, primes=CHIRP + (23,)):
+CLUSTER = CHIRP + (23,)  # the cluster layout's primes
+MIXED = CLUSTER + (29, 31)  # the mixed route's and the staged route's primes
+
+
+def _smooth(n, primes=MIXED):
     for p in primes:
         while n % p == 0:
             n //= p
@@ -333,27 +366,34 @@ def _smooth(n, primes=CHIRP + (23,)):
 
 def test_dft_route_and_fft_plan_cover_the_smooth_sizes():
     """dft_route sends 512 to the FFT route, every other {2, 3, 5, 7, 11,
-    13, 17, 19, 23}-smooth n_fft from 2 to 8192 to the mixed route (416,
-    1088, 1216, 1472, 4096, 4352, 8192), such an n_fft from 8193 to 81920 to
-    the cluster layout (16384, 32768, 65536), every other n_fft from 2 to
-    40960 to the chirp mode (a prime, 470, 2038, 8198, 16418, 24578), and
-    the rest (a smooth n_fft above 81920, any other above 40960) to the
-    GEMM; fft_plan's radices multiply back to n_fft (for the chirp mode on
-    the block layout to its convolution length, {2, ..., 19}-smooth): the
+    13, 17, 19, 23, 29, 31}-smooth n_fft from 2 to 8192 to the mixed route
+    (416, 1088, 1216, 1472, 464, 496, 1856, 1984, 4096, 4352, 8192), every
+    {2, ..., 23}-smooth n_fft from 8193 to 81920 to the cluster layout
+    (16384, 32768, 65536), every other n_fft from 2 to 40960 with a prime
+    factor above 31 to the chirp mode (a prime, 470, 2038, 8198, 16418,
+    24578), every other n_fft from 8193 to 2^20 to the staged route (14848
+    = 2^9 * 29, 15872 = 2^9 * 31, 40962, 2 * 81920, 81922, 98304, 131072),
+    and 1 and what lies above 2^20 to the GEMM;
+    fft_plan's radices multiply back to n_fft (for the chirp mode on the
+    block layout to its convolution length, {2, ..., 19}-smooth): the
     power-of-two part first, in the fewest passes of radix 16 at most, split
     as evenly as possible with the larger radices first, then the odd
     primes in ascending order."""
     assert dft_route(512) == "fft"
     for n in (384, 352, 768, 704, 1024, 256, 2048, 375, 416, 13, 17, 19, 23, 1088, 1216, 368,
-              1472, 4096, 4352, 8192):
+              1472, 4096, 4352, 8192, 29, 31, 464, 496, 1856, 1984, 3712, 7936, 899):
         assert dft_route(n) == "mixed"
     for n in (16384, 32768, 8232, 19683, 28561, 40960, 65536, 81920, 46189, 11776):
         assert dft_route(n) == "cluster"
-    for n in (1021, 470, 2038, 29, 2053, 4093, 4097, 8198, 16381, 16411, 16418, 24578, 40959):
+    for n in (1021, 470, 2038, 37, 2053, 4093, 4097, 8198, 16381, 16411, 16418, 24578, 40959):
         assert dft_route(n) == "chirp"
-    for n in (40961, 40962, 1, 2 * CLUSTER_MAX, CLUSTER_MAX + 2, 81921):
+    for n in (40961, 40962, 2 * CLUSTER_MAX, CLUSTER_MAX + 2, 81921, 98304, 131072, 59392,
+              STAGED_MAX, 14848, 15872, 29 * 31 * 16):
+        assert dft_route(n) == "staged"
+    for n in (1, STAGED_MAX + 1, 2 * STAGED_MAX, 3 * STAGED_MAX):
         assert dft_route(n) == "gemm"
     assert MIXED_MAX == 8192 and CHIRP_MAX == 40960 and CLUSTER_MAX == 81920
+    assert MIXED_PRIMES == MIXED and CLUSTER_PRIMES == CLUSTER and CHIRP_PRIMES == CHIRP
     routes = {n: dft_route(n) for n in range(1, CHIRP_MAX + 1)}
     mixed = [n for n, r in routes.items() if r == "mixed"]
     assert mixed == [n for n in range(2, MIXED_MAX + 1) if _smooth(n) and n != 512]
@@ -362,7 +402,8 @@ def test_dft_route_and_fft_plan_cover_the_smooth_sizes():
     block = [n for n in chirp if n <= MIXED_MAX // 2]
     for n in mixed + [512] + [chirp_length(n) for n in block]:
         plan = fft_plan(n)
-        assert int(np.prod(plan)) == n and set(plan) <= {2, 3, 4, 5, 7, 8, 11, 13, 16, 17, 19, 23}
+        assert int(np.prod(plan)) == n and set(plan) <= {2, 3, 4, 5, 7, 8, 11, 13, 16, 17, 19, 23,
+                                                          29, 31}
         twos = [r for r in plan if r in (2, 4, 8, 16)]
         a = int(np.log2(np.prod(twos)))
         assert list(plan) == twos + sorted(r for r in plan if r not in twos)
@@ -394,36 +435,67 @@ def test_dft_route_and_fft_plan_cover_the_smooth_sizes():
     assert fft_plan(2431) == (11, 13, 17) and fft_plan(1216) == (8, 8, 19)
     assert fft_plan(952) == (8, 7, 17) and fft_plan(247) == (13, 19)
     assert fft_plan(1472) == (8, 8, 23) and fft_plan(368) == (16, 23)
-    for n in (1856, 29, 16384, 1):
+    assert fft_plan(464) == (16, 29) and fft_plan(496) == (16, 31)
+    assert fft_plan(1856) == (8, 8, 29) and fft_plan(1984) == (8, 8, 31)
+    assert fft_plan(3712) == (16, 8, 29) and fft_plan(7936) == (16, 16, 31)
+    for n in (37, 16384, 1, 29 * 37):
         with pytest.raises(ValueError):
             fft_plan(n)
 
 
 def test_dft_route_partitions_every_size_to_twice_the_cluster_limit():
     """Every n_fft from 1 to 2 * 81920 has exactly one route, by its
-    factors and size alone: 512 the FFT; a {2, ..., 23}-smooth n_fft the
-    mixed route up to 8192 and the cluster layout up to 81920; any other
-    the chirp mode from 2 to 40960; the GEMM for the rest (a smooth n_fft
-    above 81920, any other above 40960, and 1)."""
-    counts = dict.fromkeys(("fft", "mixed", "cluster", "chirp", "gemm"), 0)
+    factors and size alone: 512 the FFT; a {2, ..., 31}-smooth n_fft the
+    mixed route up to 8192; a {2, ..., 23}-smooth one the cluster layout
+    from 8193 to 81920; one with a prime factor above 31 the chirp mode
+    from 2 to 40960; every other n_fft from 8193 the staged route; the GEMM
+    for 1 alone."""
+    counts = dict.fromkeys(("fft", "mixed", "cluster", "chirp", "staged", "gemm"), 0)
     for n in range(1, 2 * CLUSTER_MAX + 1):
         route = dft_route(n)
-        smooth = n >= 2 and _smooth(n)
         if n == 512:
             want = "fft"
-        elif smooth and n <= MIXED_MAX:
+        elif 2 <= n <= MIXED_MAX and _smooth(n):
             want = "mixed"
-        elif smooth and n <= CLUSTER_MAX:
+        elif MIXED_MAX < n <= CLUSTER_MAX and _smooth(n, CLUSTER):
             want = "cluster"
-        elif not smooth and 2 <= n <= CHIRP_MAX:
+        elif 2 <= n <= CHIRP_MAX and not _smooth(n):
             want = "chirp"
+        elif n > MIXED_MAX:
+            want = "staged"
         else:
             want = "gemm"
         assert route == want, (n, route, want)
         counts[route] += 1
     assert sum(counts.values()) == 2 * CLUSTER_MAX and counts["fft"] == 1
-    assert counts["gemm"] == 2 * CLUSTER_MAX - CHIRP_MAX + 1 - sum(
-        1 for n in range(CHIRP_MAX + 1, CLUSTER_MAX + 1) if _smooth(n))
+    assert counts["gemm"] == 1 and dft_route(1) == "gemm"
+    assert counts["staged"] == 2 * CLUSTER_MAX - MIXED_MAX - counts["cluster"] - sum(
+        1 for n in range(MIXED_MAX + 1, CHIRP_MAX + 1) if not _smooth(n))
+
+
+def test_no_n_fft_up_to_the_staged_reach_takes_the_gemm():
+    """No n_fft from 2 to STAGED_MAX (2^20) routes to the GEMM, whose
+    tables (4 N (N/2 + 1) bytes) no card holds there; each staged n_fft has
+    a mode: the FFT mode where staged_plan splits it, else the chirp mode
+    on a convolution length from 2 n_fft - 1 up to STAGED_M_MAX that
+    staged_plan splits (checked on a sample: chirp_length at 2^20 takes a
+    second)."""
+    assert STAGED_MAX == 1 << 20 and STAGED_M_MAX == 2 * STAGED_MAX
+    routes = [dft_route(n) for n in range(2, STAGED_MAX + 1)]
+    assert "gemm" not in routes
+    staged = [n for n, r in zip(range(2, STAGED_MAX + 1), routes) if r == "staged"]
+    assert MIXED_MAX < staged[0] < CHIRP_MAX and staged[-1] == STAGED_MAX
+    below = [n for n in staged if n <= CHIRP_MAX]  # a 29 or a 31: the FFT mode
+    assert all(_smooth(n) and not _smooth(n, CLUSTER) for n in below)
+    assert all(staged_mode(n) == "fft" for n in below)
+    for n in staged[::20011] + [40962, 49154, 98304, 131072, STAGED_MAX - 1, STAGED_MAX]:
+        if staged_mode(n) == "fft":
+            n1, n2, _, _ = staged_plan(n)
+            assert n1 * n2 == n and _smooth(n)
+        else:
+            m = chirp_length(n)
+            assert 2 * n - 1 <= m <= min(4 * n, STAGED_M_MAX) and _smooth(m, CHIRP)
+            assert staged_plan(m)[0] * staged_plan(m)[1] == m
 
 
 def test_cluster_plan_splits_and_tables():
@@ -675,6 +747,138 @@ def test_cluster_references_at_the_route_sizes_match_float64(n_fft, hop, tpad, d
         assert torch.equal(got, decoded)
 
 
+@pytest.mark.parametrize("n_fft,hop,split", [(96, 48, (8, 12)), (240, 120, (16, 15)),
+                                             (105, 105, (7, 15)), (1984, 992, (62, 32))])
+@pytest.mark.parametrize("dtype", ["f32", "int16", "uint8"])
+def test_staged_reference_at_small_splits_matches_pallas(n_fft, hop, split, dtype):
+    """The staged route's arithmetic (kernel 1's N1-point column FFTs and
+    the four-step twiddles, kernel 2's N2-point row FFTs and the untangle)
+    at small splits, an even and an odd N1 (7: row 0 alone pairs with
+    itself) and radix 31 on the column side, against the Pallas kernel in
+    interpret mode and numpy's float64 rfft, atol 2e-4."""
+    tpad = 32
+    padded, as_f64 = _signal(dtype, (tpad - 1) * hop + n_fft, n_fft + split[0])
+    window = port_hann_window(n_fft)
+    got = _staged_reference(torch.from_numpy(padded), window, n_fft=n_fft, hop=hop, split=split)
+    assert got.shape == (tpad, n_fft // 2 + 1) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _pallas(padded, n_fft, hop, 32), atol=2e-4, rtol=0)
+    np.testing.assert_allclose(got.numpy(), _rfft_mag(as_f64, window, n_fft, hop), atol=2e-4,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("n_fft,hop,m,split", [(47, 47, 96, (8, 12)), (101, 101, 210, (15, 14)),
+                                               (1021, 1021, 2048, (32, 64))])
+@pytest.mark.parametrize("dtype", ["f32", "int16", "uint8"])
+def test_chirp_staged_reference_at_small_splits_matches_pallas(n_fft, hop, m, split, dtype):
+    """The staged route's chirp mode (kernel 1 the first FFT's columns,
+    kernel 2 its rows, the product with B and the second FFT's rows, kernel
+    3 its columns, kernel 4 a[k] conj u[k] and the untangle) at small
+    lengths and splits, an odd N1 among them, against the Pallas kernel in
+    interpret mode and numpy's float64 rfft, atol 2e-4."""
+    tpad = 32
+    padded, as_f64 = _signal(dtype, (tpad - 1) * hop + n_fft, n_fft + m)
+    window = port_hann_window(n_fft)
+    got = _chirp_staged_reference(torch.from_numpy(padded), window, n_fft=n_fft, hop=hop, m=m,
+                                  split=split)
+    assert got.shape == (tpad, n_fft // 2 + 1) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _pallas(padded, n_fft, hop, 32), atol=2e-4, rtol=0)
+    np.testing.assert_allclose(got.numpy(), _rfft_mag(as_f64, window, n_fft, hop), atol=2e-4,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("n_fft,hop,tpad", [(40962, 20481, 3), (131072, 65536, 2),
+                                            (98304, 49152, 2), (49154, 24577, 2)])
+@pytest.mark.parametrize("dtype", ["f32", "int16", "uint8"])
+def test_staged_references_at_the_route_sizes_match_float64(n_fft, hop, tpad, dtype):
+    """The staged route at its sizes: 40962 and 49154 in its chirp mode (M =
+    chirp_length: 82688 = 256 x 323, 104329 = 289 x 361), 131072 (256 x
+    512) and 98304 (256 x 384) in its FFT mode, on a few frames (an odd
+    count included) against numpy's float64 rfft, atol 2e-4; the codes
+    through each bit-equal to their host decode to int16. (No Pallas
+    matrices or plain tables at these sizes: 6.7 GB and more.)"""
+    padded, as_f64 = _signal(dtype, (tpad - 1) * hop + n_fft, n_fft + tpad)
+    window = port_hann_window(n_fft)
+    assert dft_route(n_fft) == "staged"
+    ref = _staged_reference if staged_mode(n_fft) == "fft" else _chirp_staged_reference
+    got = ref(torch.from_numpy(padded), window, n_fft=n_fft, hop=hop)
+    assert got.shape == (tpad, n_fft // 2 + 1) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _rfft_mag(as_f64, window, n_fft, hop), atol=2e-4,
+                               rtol=0)
+    if dtype == "uint8":
+        decoded = ref(torch.from_numpy(mulaw_decode_host(padded)), window, n_fft=n_fft, hop=hop)
+        assert torch.equal(got, decoded)
+
+
+@pytest.mark.parametrize("n_fft,hop", [(464, 232), (496, 248), (1856, 928), (1984, 992)])
+@pytest.mark.parametrize("dtype", ["f32", "int16", "uint8"])
+def test_fft_mixed_reference_at_radix_29_and_31(n_fft, hop, dtype):
+    """The mixed route at 464 (16, 29), 496 (16, 31), 1856 (8, 8, 29) and
+    1984 (8, 8, 31), which took the chirp mode before radices 29 and 31,
+    against the Pallas kernel in interpret mode and numpy's float64 rfft,
+    atol 2e-4, and no farther from the float64 rfft than the plain version;
+    the codes bit-equal to their int16 decode."""
+    tpad = 32
+    padded, as_f64 = _signal(dtype, (tpad - 1) * hop + n_fft, n_fft)
+    window = port_hann_window(n_fft)
+    x = torch.from_numpy(padded)
+    got = _fft_mixed_reference(x, window, n_fft=n_fft, hop=hop)
+    assert dft_route(n_fft) == "mixed" and got.shape == (tpad, n_fft // 2 + 1)
+    np.testing.assert_allclose(got.numpy(), _pallas(padded, n_fft, hop, 32), atol=2e-4, rtol=0)
+    want = _rfft_mag(as_f64, window, n_fft, hop)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=0)
+    err_plain = np.abs(dft_magnitude_plain(x, window, n_fft=n_fft, hop=hop).numpy() - want).max()
+    assert np.abs(got.numpy() - want).max() <= err_plain
+    if dtype == "uint8":
+        decoded = _fft_mixed_reference(torch.from_numpy(mulaw_decode_host(padded)), window,
+                                       n_fft=n_fft, hop=hop)
+        assert torch.equal(got, decoded)
+
+
+def test_staged_plan_splits_limits_and_tables():
+    """staged_plan splits N = N1 * N2 (both {2, ..., 31}-smooth, 2 to 8192)
+    with the fewest passes, then the largest batch a CTA takes (the smaller
+    of G1 and 2 G2), then the shorter column side; G1 and G2 are the most,
+    a power of two up to 16, whose two buffers fit in 96 KB, else 1 within
+    200 KB; a split given is taken; it raises for a size or split the
+    kernels do not take. The tables hold both sides' pass roots and the
+    four-step twiddles; the packed plan the lengths the kernel checks; a
+    chunk's scratch stays within 512 MB."""
+    assert staged_plan(131072) == (256, 512, 16, 4)
+    assert staged_plan(98304) == (256, 384, 16, 4)
+    assert staged_plan(1 << 20)[:2] == (256, 4096) or staged_plan(1 << 20)[0] * staged_plan(
+        1 << 20)[1] == 1 << 20
+    assert staged_plan(STAGED_M_MAX) == (512, 4096, 8, 1)
+    assert staged_plan(131072, (32, 4096)) == (32, 4096, 16, 1)
+    assert staged_plan(131072, (128, 1024)) == (128, 1024, 16, 2)
+    for n in (131072, 98304, 82688, 104329, 59392, 1 << 20, STAGED_M_MAX, 96, 240):
+        n1, n2, g1, g2 = staged_plan(n)
+        assert n1 * n2 == n and 2 <= min(n1, n2) and max(n1, n2) <= MIXED_MAX
+        assert 1 <= g1 <= STAGED_BATCH and 1 <= g2 <= STAGED_BATCH
+        for side, rows, g in ((n1, 1, g1), (n2, 2, g2)):
+            assert _staged_bytes(side, rows * g) <= STAGED_CTA_MAX_BYTES
+            assert g == 1 or _staged_bytes(side, rows * g) <= STAGED_CTA_BYTES
+            assert g == STAGED_BATCH or _staged_bytes(side, rows * 2 * g) > STAGED_CTA_BYTES
+        passes = len(fft_plan(n1)) + len(fft_plan(n2))
+        for d in range(2, MIXED_MAX + 1):
+            if n % d == 0 and 2 <= n // d <= MIXED_MAX:
+                assert passes <= len(fft_plan(d)) + len(fft_plan(n // d))
+    for n, split in ((3, None), (STAGED_M_MAX * 2, None), (131072 * 37, None), (37 * 4096, None),
+                     (131072, (64, 1024)), (131072, (16, 8192)), (1 << 24, (4096, 4096))):
+        with pytest.raises(ValueError):
+            staged_plan(n, split)
+    n1, n2, g1, g2 = staged_plan(131072)
+    table = staged_tables(131072)
+    len1, len2 = len(pass_roots(n1, fft_plan(n1))), len(pass_roots(n2, fft_plan(n2)))
+    assert table.shape == (len1 + len2 + 131072, 2)
+    np.testing.assert_array_equal(table[:len1], pass_roots(n1, fft_plan(n1)))
+    np.testing.assert_array_equal(table[len1:len1 + len2], pass_roots(n2, fft_plan(n2)))
+    np.testing.assert_array_equal(table[len1 + len2:], four_step_roots(n1, n2))
+    assert list(_staged_plan_array(131072)) == [256, 512, 16, 4, len1, len2, 2, 16, 16, 3, 8, 8, 8]
+    assert staged_chunk_pairs(131072) == 512 and staged_chunk_pairs(STAGED_M_MAX) == 32
+    assert staged_mode(131072) == "fft" and staged_mode(40962) == "chirp"
+    assert staged_mode(37 * 4096) == "chirp" and staged_mode(59392) == "fft"
+
+
 @pytest.mark.parametrize("n_fft", [46349, 1088, 17])
 def test_chirp_tables_match_float64(n_fft):
     """chirp_tables' a[n] = exp(-i pi (n^2 mod 2N) / N), w a and B =
@@ -733,10 +937,11 @@ def test_pass_roots_are_the_roots_each_pass_reads(n):
 
 def test_mixed_kernel_constants_are_the_reference_s():
     """The butterflies' float32 constants written in csrc/dft_butterflies.cuh
-    (the odd radices' roots up to 23, radix 16's W16 twiddles), which
-    csrc/dft_mixed.cu and csrc/dft_cluster.cu include, are those of the
-    reference (_odd_roots, _C16, _S16): float64 values rounded once."""
-    for name in ("dft_mixed.cu", "dft_cluster.cu"):
+    (the odd radices' roots up to 31, radix 16's W16 twiddles), which
+    csrc/dft_mixed.cu, csrc/dft_cluster.cu and csrc/dft_staged.cu include,
+    are those of the reference (_odd_roots, _C16, _S16): float64 values
+    rounded once."""
+    for name in ("dft_mixed.cu", "dft_cluster.cu", "dft_staged.cu"):
         assert '#include "dft_butterflies.cuh"' in (_build.CSRC / name).read_text()
     import re
 
@@ -746,7 +951,7 @@ def test_mixed_kernel_constants_are_the_reference_s():
         body = body[:body.index("return 0.0f;")]
         got = {(int(r), int(m)): np.float32(v) for r, m, v in re.findall(
             r"case (\d+) \* 16 \+ (\d+): return (-?[0-9.]+)f;", body)}
-        want = {(r, m + 1): v for r in (3, 5, 7, 11, 13, 17, 19, 23)
+        want = {(r, m + 1): v for r in (3, 5, 7, 11, 13, 17, 19, 23, 29, 31)
                 for m, v in enumerate(_odd_roots(r)[col])}
         assert got == want
     for name, want in (("wc", _C16), ("ws", _S16)):
@@ -776,10 +981,13 @@ def test_exchange_pads_leave_no_bank_conflict_at_the_main_sizes():
 
 def test_b1_tools_plans_and_refusal_without_a_card():
     """tools/bench_dft_plans.py's radix-8 plans multiply back to n_fft, its
-    chirp sizes are the chirp route's, and its sweep holds sizes of 2^a * 23
-    on the FFT routes and sizes with a prime factor above 23 on both layouts
-    of the chirp mode; it, tools/time_b1_routes.py and tools/ab_b1_sizes.py
-    stop without a card instead of timing the CPU."""
+    chirp sizes are the chirp route's, its sweep holds sizes of 2^a * 23 on
+    the FFT routes, of 2^a * 29 and 31 on the mixed route and in the chirp
+    route's FFT mode above 8192, sizes with a prime factor above 31 on both layouts of
+    the chirp mode and in the staged route's, and the staged route's FFT
+    mode, and its staged splits are staged_plan's; it, tools/time_b1_routes.py
+    and tools/ab_b1_sizes.py stop without a card instead of timing the
+    CPU."""
     from orcai_tpu_torch.tools import ab_b1_sizes, bench_dft_plans, time_b1_routes
 
     assert bench_dft_plans.radix8_plan(384) == (8, 8, 2, 3)
@@ -792,9 +1000,17 @@ def test_b1_tools_plans_and_refusal_without_a_card():
     assert all(n % hop == 0 for n, hop in sweep)
     by23 = [n for n, _ in sweep if n % 23 == 0 and _smooth(n)]
     assert {368, 1472} <= set(by23) and {dft_route(n) for n in by23} == {"mixed", "cluster"}
-    chirp = [n for n, _ in sweep if n not in by23]
-    assert all(dft_route(n) == "chirp" for n in chirp)
+    by29 = [n for n, _ in sweep if (n % 29 == 0 or n % 31 == 0) and _smooth(n)]
+    assert {464, 496, 1856, 1984, 3712, 3968, 7424, 7936, 14848, 15872} == set(by29)
+    assert {dft_route(n) for n in by29} == {"mixed", "staged"}
+    staged = [n for n, _ in sweep if dft_route(n) == "staged"]
+    assert {14848, 15872, 40962, 49154, 98304, 131072} == set(staged)
+    assert {staged_mode(n) for n in staged} == {"fft", "chirp"}
+    chirp = [n for n, _ in sweep if n not in by23 + staged and dft_route(n) == "chirp"]
     assert {_chirp_kernel(n) for n in chirp} == {"mixed", "cluster"}
+    for n1, n2 in bench_dft_plans.STAGED_SPLITS:
+        assert staged_plan(131072, (n1, n2))[:2] == (n1, n2)
+    assert all(staged_plan(m) for m in bench_dft_plans.STAGED_LENGTHS)
     for tool, argv in ((bench_dft_plans, []), (time_b1_routes, []),
                        (ab_b1_sizes, ["--trees", ".", "."])):
         with pytest.raises(SystemExit, match="no CUDA device"):
