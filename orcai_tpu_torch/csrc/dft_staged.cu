@@ -18,13 +18,16 @@
 // each magnitude once: at 131072 / 65536 a 2048-frame int16 tile is 0.27 GB
 // in and 0.54 GB out, 0.24 ms at 3.35 TB/s; at 40962 / 20481 on 301 frames
 // 0.011 ms. This design moves more: each frame pair's N complex values go
-// to a scratch buffer and back between its kernels (twice in the chirp
-// mode, on M values), 16 N bytes a pair: at 131072 on 2048 frames another
-// 2.1 GB, 0.64 ms, its own floor of 0.88 ms. Chunks whose scratch fits in
-// the 50 MB L2 would keep that off HBM, but on the H100 they ran slower
-// than large ones (3.80 against 3.21 ms there: many short launches with
-// partial waves cost more than the trip), so a chunk holds up to 512 MB.
-// The FFT's operations stay below the bytes.
+// to a scratch buffer and back between its kernels (in the chirp mode M
+// values, twice: kernel 2 writes back over what kernel 1 wrote), 16 N bytes
+// a pair: at 131072 on 2048 frames another 2.1 GB, 0.64 ms, its own floor of
+// 0.88 ms. Chunks whose scratch fits in the 50 MB L2 would keep that off
+// HBM, but on the H100 they ran slower than large ones (3.80 against 3.21
+// ms there: many short launches with partial waves cost more than the
+// trip), so a chunk holds up to 512 MB. The FFT's operations stay below the
+// bytes on paper, yet in the chirp mode at 40962 kernels 1 and 2 move their
+// bytes at 0.78-0.90 TB/s (an H100 80GB HBM3 at 700 W, tools/trace_staged.py,
+// PERF.md): their passes, not their bytes, bound them.
 //
 // Design: the cluster route's four-step split (dft_cluster.cu) with kernel
 // boundaries in place of cluster.sync() and a scratch buffer in device
@@ -48,35 +51,45 @@
 //      adjacent bins (the rows k1 of a CTA are adjacent, and so are their
 //      mirrors), where one row pair a CTA would write every N1-th bin.
 // The chirp-z (Bluestein) mode follows dft_cluster.cu's, one stage a
-// kernel: kernel 1 the first FFT's columns of z = (w a)[n] (x_t + i
-// x_t+1)[n] zero-padded to M; kernel 2 its rows, the product with B =
-// FFT_M(b) / M and the conjugate where each value lies, and the second
-// FFT's rows with W_M^(k1 p2), written back over the same rows of the
-// scratch; kernel 3 (columns_kernel again, from the scratch) the second
-// FFT's columns in place, which leaves u in natural order; kernel 4
-// (chirp_untangle_kernel) Z[k] = a[k] conj u[k] and the untangle, whose
-// mirror u[n_fft - k] lies in another column: a pass of its own over the
-// scratch, both reads and the writes in runs.
+// kernel, three kernels a chunk: kernel 1 the first FFT's columns of z =
+// (w a)[n] (x_t + i x_t+1)[n] zero-padded to M; kernel 2 its rows, the
+// product with B = FFT_M(b) / M and the conjugate where each value lies,
+// and the second FFT's rows with W_M^(k1 p2), written back over the same
+// rows of the scratch; kernel 3 (columns_untangle_kernel) the second FFT's
+// columns, u[N2 p1 + p2] in column p2, and the untangle in shared memory,
+// so that u never returns to device memory. The mirror u[n_fft - k] of a
+// bin k = N2 p1 + p2 lies in the partner column (r - p2) mod N2 (r = n_fft
+// mod N2), at row q - p1, or q - p1 - 1 where p2 > r (q = n_fft / N2); bin
+// 0 is its own mirror. So a CTA owns G3 adjacent columns f + d and their
+// partners f + e - d (ops/dft.py::staged_fold: the host's centre f and e =
+// (r - 2 f) mod N2, 0 or 1; where N2 is odd one column is its own
+// partner), runs their N1-point FFTs, forms Z[k] = a[k] conj u[k] and the
+// mirror's, and writes the magnitudes of the bins k <= n_fft / 2 of its
+// columns, each bin once, as runs of adjacent bins (adjacent columns hold
+// adjacent bins). A stored u and a pass of its own to untangle it would
+// move a third more device-memory bytes at 40962 (3.92 against 2.93 MB a
+// frame pair by tools/trace_staged.py's count, on any card) and launch a
+// fourth kernel.
 //
 // Chunks. The host walks the frame pairs in chunks of ops/dft.py::
 // staged_chunk_pairs(M) (a chunk's scratch within 512 MB), each chunk's
 // kernels back to back on one stream; the scratch (chunk pairs x M complex
 // values) comes from the caller (the caching allocator).
-// Each kernel's batch of G columns or row pairs is the most whose two
-// buffers fit in 96 KB (two CTAs on an SM), at least one within 200 KB;
-// the roots are read from device memory through L1 (the same across a
-// batch: broadcasts).
+// Each kernel's batch of G columns, row pairs or column pairs is the most
+// whose two buffers fit in 96 KB (two CTAs on an SM), at least one within
+// 200 KB; the roots are read from device memory through L1 (the same
+// across a batch: broadcasts).
 //
 // The butterflies are dft_mixed.cu's and dft_cluster.cu's
 // (dft_butterflies.cuh, dft_batched.cuh): radix 16 as 4 x 4, the odd radices
 // up to 31 direct over symmetric pairs. A build takes the plans of its
-// largest odd radix (13, or 31 for the plans of 17 to 31) and one sample
-// type (-DORCAI_ODD, -DORCAI_DTYPE, ops/_build.py), compiled beside the
-// others. uint8 input is mu-law codes (the mulaw8 wire), decoded where a
-// sample is read, so the codes and their int16 decode give the same
-// magnitudes. IEEE fp32 throughout: no TF32, no fast-math sqrt, sincos or
-// exp. A scratch the caller could not allocate, or a launch that fails, is
-// an error, never a fallback.
+// largest odd radix (13, or 31 for the plans of 17 to 31; -DORCAI_ODD,
+// ops/_build.py), compiled beside the other, and every sample type, chosen
+// at run time (only kernel 1 reads samples). uint8 input is mu-law codes
+// (the mulaw8 wire), decoded where a sample is read, so the codes and their
+// int16 decode give the same magnitudes. IEEE fp32 throughout: no TF32, no
+// fast-math sqrt, sincos or exp. A scratch the caller could not allocate, or
+// a launch that fails, is an error, never a fallback.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,9 +99,6 @@
 
 #if !defined(ORCAI_ODD) || (ORCAI_ODD != 13 && ORCAI_ODD != 31)
 #error "build with -DORCAI_ODD=13 or 31 (ops/_build.py::VARIANTS)"
-#endif
-#if !defined(ORCAI_DTYPE) || ORCAI_DTYPE < 0 || ORCAI_DTYPE > 2
-#error "build with -DORCAI_DTYPE=0 (float32), 1 (int16) or 2 (uint8 mu-law codes)"
 #endif
 
 namespace {
@@ -118,10 +128,9 @@ namespace {
 constexpr int MAX_SIDE = 8192;             // N1 and N2
 constexpr long long MAX_N = 1LL << 21;     // the largest FFT: n_fft, or M in the chirp mode
 constexpr int MAX_N_FFT = 1 << 20;         // the largest n_fft, either mode (STAGED_MAX)
-constexpr int MAX_BATCH = 16;              // columns, or row pairs, a CTA
+constexpr int MAX_BATCH = 16;              // columns, row pairs or column pairs a CTA
 constexpr int MAX_THREADS = 256;
 constexpr int MAX_CTA_BYTES = 200 * 1024;  // a CTA's two buffers
-constexpr int UNTANGLE_THREADS = 256;
 
 struct Plan {
   int n, n1, n2;        // N = n1 * n2 points
@@ -132,19 +141,24 @@ struct Plan {
   int col_groups, row_groups;  // kernel-1 and kernel-2 CTAs a frame pair
   int col_threads, row_threads;
   int col_bytes, row_bytes;    // their shared memory
+  // the chirp mode's kernel 3: G3 column pairs a CTA, the representatives d
+  // = e .. top of the columns f + d (mod n2), each with its partner f + e - d
+  int g3, fold_f, fold_e, fold_top;
+  int fstride, fold_groups, fold_threads, fold_bytes;
   Side col, row;        // col: N1-point FFTs of the columns; row: N2-point of the rows
 };
 
-// a column of the scratch: element e of column c0 + b at e * n2 + c0 + b
-struct ScratchColumns {
+// the columns cols[b] of the scratch: element e of local column b
+struct ListColumns {
   const float2* s;
-  int n2, c0;
-  __device__ __forceinline__ float2 operator()(int e, int b) const { return s[e * n2 + c0 + b]; }
+  const unsigned short* cols;
+  int n2;
+  __device__ __forceinline__ float2 operator()(int e, int b) const { return s[e * n2 + cols[b]]; }
 };
 
 // The G1 (or fewer, at the right edge) columns c0.. of one frame pair: their
 // N1-point FFTs from `load`, then element k1 of column j, times t[k1 * n2 +
-// j] (the four-step twiddles; none with t null), stored at s[k1 * n2 + j].
+// j] (the four-step twiddles), stored at s[k1 * n2 + j].
 // Consecutive threads take consecutive columns: runs of `cols` values.
 template <typename Load>
 __device__ __forceinline__ void columns(const Load& load, const float2* __restrict__ tables,
@@ -154,16 +168,14 @@ __device__ __forceinline__ void columns(const Load& load, const float2* __restri
   const float2* y = batched_fft(load, za, zb, tables, p.col, p.cstride, cols, tid, nthreads);
   for (Walk w(tid, nthreads, cols); w.o < p.n1; w.step()) {
     const int at = w.o * p.n2 + c0 + w.i;
-    const float2 v = y[w.o * p.cstride + w.i];
-    s[at] = t ? cmul(v, t[at]) : v;
+    s[at] = cmul(y[w.o * p.cstride + w.i], t[at]);
   }
 }
 
-// Kernel 1 (and in the chirp mode kernel 3): CTA blockIdx.x owns column
-// group blockIdx.x % col_groups of the chunk's frame pair blockIdx.x /
-// col_groups, whose scratch is scratch + that pair * n. MODE 0: the FFT
-// mode's columns of the audio; 1: the chirp mode's first FFT from the audio;
-// 2: the chirp mode's second FFT from the scratch, in place, no twiddles.
+// Kernel 1: CTA blockIdx.x owns column group blockIdx.x % col_groups of the
+// chunk's frame pair blockIdx.x / col_groups, whose scratch is scratch +
+// that pair * n. MODE 0: the FFT mode's columns of the audio; 1: the chirp
+// mode's first FFT.
 template <typename T, int MODE>
 __global__ void __launch_bounds__(MAX_THREADS, 2)
 columns_kernel(const T* __restrict__ audio, const float* __restrict__ window,
@@ -181,20 +193,15 @@ columns_kernel(const T* __restrict__ audio, const float* __restrict__ window,
   float2* zb = za + plan.n1 * plan.cstride;
   float2* s = scratch + static_cast<long long>(local) * plan.n;
   const float2* t = tables + plan.tw_len;
-  if constexpr (MODE == 2) {
-    columns(ScratchColumns{s, plan.n2, c0}, tables, nullptr, s, p, c0, cols, za, zb, tid,
-            nthreads);
-  } else {
-    const int t0 = 2 * (pair0 + local);
-    const T* xa = audio + static_cast<long long>(t0) * hop;
-    const bool has_b = t0 + 1 < n_frames;
-    if constexpr (MODE == 0)
-      columns(PairColumns<T>{xa, xa + hop, has_b, window, plan.n2, c0}, tables, t, s, p, c0,
-              cols, za, zb, tid, nthreads);
-    else
-      columns(ChirpColumns<T>{xa, xa + hop, has_b, chirp, plan.chirp_n, plan.n2, c0}, tables, t,
-              s, p, c0, cols, za, zb, tid, nthreads);
-  }
+  const int t0 = 2 * (pair0 + local);
+  const T* xa = audio + static_cast<long long>(t0) * hop;
+  const bool has_b = t0 + 1 < n_frames;
+  if constexpr (MODE == 0)
+    columns(PairColumns<T>{xa, xa + hop, has_b, window, plan.n2, c0}, tables, t, s, p, c0, cols,
+            za, zb, tid, nthreads);
+  else
+    columns(ChirpColumns<T>{xa, xa + hop, has_b, chirp, plan.chirp_n, plan.n2, c0}, tables, t, s,
+            p, c0, cols, za, zb, tid, nthreads);
 }
 
 // Kernel 2: CTA blockIdx.x owns row group blockIdx.x % row_groups (the row
@@ -258,22 +265,62 @@ rows_kernel(const float2* __restrict__ tables, const float2* __restrict__ chirp,
   }
 }
 
-// Kernel 4 of the chirp mode: u (the second FFT, natural order) in the
-// scratch of the chunk's frame pair blockIdx.y; Z[k] = a[k] conj(u[k]) and
-// the mirror from u[n_fft - k], the untangle, the magnitudes of bins k =
-// blockIdx.x * blockDim.x + threadIdx.x <= n_fft / 2.
-__global__ void __launch_bounds__(UNTANGLE_THREADS)
-chirp_untangle_kernel(const float2* __restrict__ a, const float2* __restrict__ scratch,
-                      float* __restrict__ out, int pair0, int n_frames, int n, int nf) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  const int n_bins = nf / 2 + 1;
-  if (k >= n_bins) return;
-  const float2* u = scratch + static_cast<long long>(blockIdx.y) * n;
-  const int t = 2 * (pair0 + static_cast<int>(blockIdx.y)), m = k == 0 ? 0 : nf - k;
-  const float2 uk = u[k], um = u[m], ck = a[k], cm = a[m];
-  write_bin(out + static_cast<long long>(t) * n_bins, n_bins, t + 1 < n_frames, k,
-            make_float2(ck.x * uk.x + ck.y * uk.y, ck.y * uk.x - ck.x * uk.y),
-            make_float2(cm.x * um.x + cm.y * um.y, cm.y * um.x - cm.x * um.y));
+// Kernel 3 of the chirp mode: CTA blockIdx.x owns fold group blockIdx.x %
+// fold_groups of the chunk's frame pair blockIdx.x / fold_groups, the
+// representatives d in [lo, hi) (lo = e + group * g3): local columns 0 ..
+// alen - 1 are the columns f + d, then the partners f + e - d of those d
+// that are not their own (d = 0 where e is 0, d = top where 2 top - e is
+// n2: only at the ends of the range). It runs their N1-point FFTs over k1
+// (u[n2 p1 + p2], p1 < n1, in shared memory) and writes the magnitudes of
+// the bins k = n2 p1 + p2 <= n_fft / 2 of its columns: Z[k] = a[k] conj u[k]
+// and its mirror Z[n_fft - k] from the partner column, untangled.
+__global__ void __launch_bounds__(MAX_THREADS, 2)
+columns_untangle_kernel(const float2* __restrict__ tables, const float2* __restrict__ a,
+                        const float2* __restrict__ scratch, float* __restrict__ out, int pair0,
+                        int n_frames, const Plan plan) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Plan p;
+  __shared__ unsigned short cols[2 * MAX_BATCH], partner[2 * MAX_BATCH];
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int n2 = plan.n2, f = plan.fold_f, e = plan.fold_e, top = plan.fold_top;
+  const int local = blockIdx.x / plan.fold_groups;
+  const int lo = e + (blockIdx.x % plan.fold_groups) * plan.g3;
+  const int hi = lo + plan.g3 < top + 1 ? lo + plan.g3 : top + 1;
+  // the representatives with a partner of their own: [b_lo, b_hi)
+  const int b_lo = lo == 0 ? 1 : lo;
+  const int b_hi = hi == top + 1 && 2 * top - e == n2 ? top : hi;
+  const int alen = hi - lo, blen = b_hi > b_lo ? b_hi - b_lo : 0, ncols = alen + blen;
+  if (tid == 0) p = plan;
+  if (tid < ncols) {
+    const int d = tid < alen ? lo + tid : b_lo + tid - alen;
+    const int c = tid < alen ? f + d : f + e - d;  // from -n2 to 2 n2 - 1
+    cols[tid] = static_cast<unsigned short>(c < 0 ? c + n2 : c >= n2 ? c - n2 : c);
+    partner[tid] = static_cast<unsigned short>(
+        tid >= alen ? d - lo : d < b_lo || d >= b_hi ? tid : alen + d - b_lo);
+  }
+  float2* za = reinterpret_cast<float2*>(smem);
+  float2* zb = za + plan.n1 * plan.fstride;
+  const float2* s = scratch + static_cast<long long>(local) * plan.n;
+  __syncthreads();
+  const float2* u = batched_fft(ListColumns{s, cols, n2}, za, zb, tables, p.col, plan.fstride,
+                                ncols, tid, nthreads);
+  const int nf = plan.chirp_n, n_bins = nf / 2 + 1, t = 2 * (pair0 + local);
+  const int q = nf / n2, r = nf - q * n2;
+  float* row_a = out + static_cast<long long>(t) * n_bins;
+  const bool has_b = t + 1 < n_frames;
+  for (Walk w(tid, nthreads, ncols); w.o <= (nf / 2) / n2; w.step()) {
+    const int p1 = w.o, l = w.i, p2 = cols[l], k = p1 * n2 + p2;
+    if (k > nf / 2) continue;
+    // the mirror n_fft - k at row q - p1 (q - p1 - 1 where p2 > r) of the
+    // partner column; bin 0 its own
+    const int m = k == 0 ? 0 : nf - k;
+    const float2 uk = u[p1 * plan.fstride + l];
+    const float2 um = k == 0 ? uk : u[(p2 <= r ? q - p1 : q - p1 - 1) * plan.fstride + partner[l]];
+    const float2 ck = a[k], cm = a[m];
+    write_bin(row_a, n_bins, has_b, k,
+              make_float2(ck.x * uk.x + ck.y * uk.y, ck.y * uk.x - ck.x * uk.y),
+              make_float2(cm.x * um.x + cm.y * um.y, cm.y * um.x - cm.x * um.y));
+  }
 }
 
 // radices[0..P) -> the side's passes; nonzero when they are not of n or
@@ -315,9 +362,11 @@ int threads_for(const Side& side, int batch) {
   return t < 64 ? 64 : t > MAX_THREADS ? MAX_THREADS : t;
 }
 
-// [N1, N2, G1, G2, len1, len2, P1, radices of N1, P2, radices of N2] ->
-// Plan of an FFT of N1 * N2 points: n_fft itself, or in the chirp mode an M
-// from 2 n_fft - 1 to MAX_N. Nonzero when it is not such a plan.
+// [N1, N2, G1, G2, len1, len2, P1, radices of N1, P2, radices of N2] and,
+// in the chirp mode, [G3, f] -> Plan of an FFT of N1 * N2 points: n_fft
+// itself, or in the chirp mode an M from 2 n_fft - 1 to MAX_N whose kernel 3
+// takes G3 column pairs a CTA about the centre f, e = (n_fft - 2 f) mod N2
+// being 0 or 1. Nonzero when it is not such a plan.
 int make_plan(const int* packed, int n_fft, bool chirp, Plan* plan) {
   const int n1 = packed[0], n2 = packed[1], g1 = packed[2], g2 = packed[3];
   const int len1 = packed[4], len2 = packed[5], P1 = packed[6];
@@ -344,7 +393,21 @@ int make_plan(const int* packed, int n_fft, bool chirp, Plan* plan) {
   plan->col_bytes = 2 * n1 * plan->cstride * 8;
   plan->row_bytes = 2 * n2 * plan->rstride * 8;
   if (plan->col_bytes > MAX_CTA_BYTES || plan->row_bytes > MAX_CTA_BYTES) return 1;
-  return 0;
+  plan->g3 = plan->fold_f = plan->fold_e = plan->fold_top = 0;
+  plan->fstride = plan->fold_groups = plan->fold_threads = plan->fold_bytes = 0;
+  if (!chirp) return 0;
+  const int* fold = packed + 8 + P1 + packed[7 + P1];
+  const int g3 = fold[0], f = fold[1], e = ((n_fft - 2 * f) % n2 + n2) % n2;
+  if (g3 < 1 || g3 > MAX_BATCH || f < 0 || f >= n2 || e > 1) return 1;
+  plan->g3 = g3;
+  plan->fold_f = f;
+  plan->fold_e = e;
+  plan->fold_top = (n2 + e) / 2;
+  plan->fstride = (2 * g3) | 1;
+  plan->fold_groups = (plan->fold_top - e + g3) / g3;
+  plan->fold_threads = threads_for(plan->col, 2 * g3);
+  plan->fold_bytes = 2 * n1 * plan->fstride * 8;
+  return plan->fold_bytes > MAX_CTA_BYTES;
 }
 
 template <typename Kernel>
@@ -355,7 +418,7 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 template <typename T>
 int run(const void* audio_v, const float* window, const float* tables_f, const float* chirp_f,
         const Plan& plan, float* scratch_f, int chunk_pairs, float* out, int n_frames, int hop,
-        cudaStream_t s) {
+        cudaStream_t s, int* launched) {
   const T* audio = static_cast<const T*>(audio_v);
   const float2* tables = reinterpret_cast<const float2*>(tables_f);
   const float2* chirp = reinterpret_cast<const float2*>(chirp_f);
@@ -366,7 +429,7 @@ int run(const void* audio_v, const float* window, const float* tables_f, const f
   if (err == cudaSuccess)
     err = chirp_mode ? allow_smem(rows_kernel<true>, plan.row_bytes)
                      : allow_smem(rows_kernel<false>, plan.row_bytes);
-  if (err == cudaSuccess && chirp_mode) err = allow_smem(columns_kernel<T, 2>, plan.col_bytes);
+  if (err == cudaSuccess && chirp_mode) err = allow_smem(columns_untangle_kernel, plan.fold_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_pairs = (n_frames + 1) / 2;
   for (int pair0 = 0; pair0 < n_pairs; pair0 += chunk_pairs) {
@@ -378,19 +441,17 @@ int run(const void* audio_v, const float* window, const float* tables_f, const f
       rows_kernel<false><<<rows_grid, plan.row_threads, plan.row_bytes, s>>>(
           tables, chirp, scratch, out, pair0, n_frames, plan);
     } else {
-      const int nf = plan.chirp_n;
       columns_kernel<T, 1><<<cols_grid, plan.col_threads, plan.col_bytes, s>>>(
           audio, window, tables, chirp, scratch, pair0, n_frames, hop, plan);
       rows_kernel<true><<<rows_grid, plan.row_threads, plan.row_bytes, s>>>(
           tables, chirp, scratch, out, pair0, n_frames, plan);
-      columns_kernel<T, 2><<<cols_grid, plan.col_threads, plan.col_bytes, s>>>(
-          audio, window, tables, chirp, scratch, pair0, n_frames, hop, plan);
-      const dim3 grid((nf / 2 + 1 + UNTANGLE_THREADS - 1) / UNTANGLE_THREADS, pairs);
-      chirp_untangle_kernel<<<grid, UNTANGLE_THREADS, 0, s>>>(chirp + nf, scratch, out, pair0,
-                                                              n_frames, plan.n, nf);
+      columns_untangle_kernel<<<pairs * plan.fold_groups, plan.fold_threads, plan.fold_bytes,
+                                s>>>(tables, chirp + plan.chirp_n, scratch, out, pair0,
+                                     n_frames, plan);
     }
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
+    *launched += chirp_mode ? 3 : 2;
   }
   return 0;
 }
@@ -399,8 +460,8 @@ int run(const void* audio_v, const float* window, const float* tables_f, const f
 
 // audio: (n_frames - 1) * hop + n_fft samples of float32 (dtype 0), int16
 // (dtype 1) or uint8 mu-law codes (dtype 2); plan: host int32 [N1, N2, G1,
-// G2, len1, len2, P1, radices, P2, radices] (ops/dft.py::
-// _staged_plan_array); tables: ops/dft.py::staged_tables of N1 * N2,
+// G2, len1, len2, P1, radices, P2, radices] and in the chirp mode [G3, f]
+// (ops/dft.py::_staged_plan_array); tables: ops/dft.py::staged_tables of N1 * N2,
 // float32 (re, im); scratch: chunk_pairs * N1 * N2 complex float32 on the
 // device (chunk_pairs frame pairs a chunk); out: (n_frames, n_fft/2 + 1)
 // float32; hop divides n_fft. With chirp null (the FFT mode) N1 * N2 is
@@ -408,15 +469,17 @@ int run(const void* audio_v, const float* window, const float* tables_f, const f
 // mode) N1 * N2 is an M >= 2 n_fft - 1 up to 2^21, chirp is ops/dft.py::
 // chirp_tables' (2 n_fft + M, 2) float32 and window is not read. n_fft is
 // at most 2^20; the plan's largest odd radix may not pass this build's
-// ORCAI_ODD, and dtype must be its ORCAI_DTYPE. Launches 2 kernels a chunk
-// (4 in the chirp mode) on `stream` and returns the first CUDA error.
+// ORCAI_ODD. Launches 2 kernels a chunk (3 in the chirp mode) on `stream`,
+// adds the kernels it launched to *launched and returns the first CUDA
+// error.
 extern "C" int orcai_dft_staged(const void* audio, int dtype, const float* window,
                                 const float* tables, const float* chirp, const int* plan,
                                 float* scratch, int chunk_pairs, float* out, int n_frames,
-                                int n_fft, int hop, void* stream) {
+                                int n_fft, int hop, void* stream, int* launched) {
   if (n_fft < 2 || n_fft > MAX_N_FFT || hop < 1 || hop > n_fft || n_fft % hop != 0 ||
       n_frames < 1 || plan == nullptr || tables == nullptr || scratch == nullptr ||
-      out == nullptr || chunk_pairs < 1 || (chirp == nullptr && window == nullptr))
+      out == nullptr || chunk_pairs < 1 || (chirp == nullptr && window == nullptr) ||
+      launched == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   Plan p;
   if (make_plan(plan, n_fft, chirp != nullptr, &p)) return static_cast<int>(cudaErrorInvalidValue);
@@ -425,9 +488,15 @@ extern "C" int orcai_dft_staged(const void* audio, int dtype, const float* windo
   for (const Side* side : sides)
     for (int i = 0; i < side->n_passes; ++i)
       if (side->radix[i] % 2 && side->radix[i] > odd) odd = side->radix[i];
-  if (odd > ORCAI_ODD || dtype != ORCAI_DTYPE) return static_cast<int>(cudaErrorInvalidValue);
-  using Sample = std::conditional_t<ORCAI_DTYPE == 0, float,
-                                    std::conditional_t<ORCAI_DTYPE == 1, int16_t, uint8_t>>;
-  return run<Sample>(audio, window, tables, chirp, p, scratch, chunk_pairs, out, n_frames, hop,
-                     static_cast<cudaStream_t>(stream));
+  if (odd > ORCAI_ODD) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return run<float>(audio, window, tables, chirp, p, scratch, chunk_pairs, out, n_frames,
+                              hop, s, launched);
+    case 1: return run<int16_t>(audio, window, tables, chirp, p, scratch, chunk_pairs, out,
+                                n_frames, hop, s, launched);
+    case 2: return run<uint8_t>(audio, window, tables, chirp, p, scratch, chunk_pairs, out,
+                                n_frames, hop, s, launched);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -44,19 +44,23 @@ n_fft alone (`dft_route`), and runs the plain PyTorch version,
   kernels of their own that pass each frame pair's values through a
   scratch buffer in device memory, in chunks of frame pairs
   (`staged_chunk_pairs`). A MIXED_PRIMES-smooth n_fft it splits runs in
-  its FFT mode (14848, 98304, 131072);
+  its FFT mode (14848, 98304, 131072; two kernels a chunk);
   any other runs in its chirp-z mode, on a convolution length up to
-  STAGED_M_MAX (40962, 49154). `_staged_reference` and
+  STAGED_M_MAX (40962, 49154; three kernels a chunk, the last one on the
+  column pairs of `staged_mirror_groups`). `_staged_reference` and
   `_chirp_staged_reference` are their arithmetic step by step;
-- "gemm", csrc/dft_gemm.cu, at what is left: n_fft 1 (one product a frame)
-  and a smooth n_fft above STAGED_MAX, whose 4 N (N/2 + 1) bytes of tables
-  no card holds. The reference's own algorithm, a tiled IEEE fp32 GEMM of
-  the frames, read straight from the audio, with the window-folded cos/sin
-  matrices (`windowed_dft_mats`).
+- "gemm", csrc/dft_gemm.cu, at n_fft 1 (one product a frame): the
+  reference's own algorithm, a tiled IEEE fp32 GEMM of the frames, read
+  straight from the audio, with the window-folded cos/sin matrices
+  (`windowed_dft_mats`).
+
+Above STAGED_MAX no route runs: the GEMM's 4 N (N/2 + 1) bytes of tables
+(2.2 TB at 2^20 + 2) fit on no card, and `dft_route` raises.
 
 The plain version computes the reference's GEMM with torch.matmul.
 `dft_magnitude.launches` counts every kernel launch and
-`dft_magnitude.route_launches` splits them by route.
+`dft_magnitude.route_launches` splits them by route; a staged call launches
+its kernels chunk by chunk, counted in `dft_magnitude.staged_kernels`.
 """
 
 from __future__ import annotations
@@ -239,11 +243,16 @@ def _untangle(zr: torch.Tensor, zi: torch.Tensor, n_fft: int, tpad: int) -> torc
     into (tpad, N/2 + 1) rows; odd N works unchanged."""
     k = torch.arange(n_fft // 2 + 1, device=zr.device)
     mirror = (n_fft - k) % n_fft
-    yr, yi = zr[:, mirror], zi[:, mirror]
-    zr, zi = zr[:, k], zi[:, k]
-    mag_a = 0.5 * torch.sqrt((zr + yr) ** 2 + (zi - yi) ** 2)
-    mag_b = 0.5 * torch.sqrt((zi + yi) ** 2 + (zr - yr) ** 2)
+    mag_a, mag_b = _pair_magnitudes(zr[:, k], zi[:, k], zr[:, mirror], zi[:, mirror])
     return torch.stack([mag_a, mag_b], dim=1).reshape(-1, n_fft // 2 + 1)[:tpad]
+
+
+def _pair_magnitudes(zr: torch.Tensor, zi: torch.Tensor, yr: torch.Tensor,
+                     yi: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """|X_t[k]| and |X_t+1[k]| from Z[k] = zr + i zi and its mirror Z[N-k] =
+    yr + i yi."""
+    return (0.5 * torch.sqrt((zr + yr) ** 2 + (zi - yi) ** 2),
+            0.5 * torch.sqrt((zi + yi) ** 2 + (zr - yr) ** 2))
 
 
 def _fft_pairs_reference(
@@ -631,15 +640,24 @@ def _cluster_fft_rows_first(vr: torch.Tensor, vi: torch.Tensor,
     U[n2 p1 + p2]."""
     n1, n2 = split
     p = vr.shape[0]
-    tw1, tw2 = (torch.from_numpy(roots_of_unity(n).copy()).to(vr.device) for n in (n1, n2))
+    tw1 = torch.from_numpy(roots_of_unity(n1).copy()).to(vr.device)
+    cols = [v.transpose(1, 2).reshape(-1, n1) for v in _rows_and_twiddles(vr, vi, split)]
+    return tuple(v.reshape(p, n2, n1).transpose(1, 2).reshape(p, -1)
+                 for v in _stockham(*cols, fft_plan(n1), tw1))
+
+
+def _rows_and_twiddles(vr: torch.Tensor, vi: torch.Tensor,
+                       split: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first half of `_cluster_fft_rows_first`: for each k1 the
+    n2-point FFT over k2, times four_step_roots [k1 * n2 + p2]; (pairs, n1,
+    n2) tensors H[k1, p2]."""
+    n1, n2 = split
+    p = vr.shape[0]
+    tw2 = torch.from_numpy(roots_of_unity(n2).copy()).to(vr.device)
     t = torch.from_numpy(four_step_roots(n1, n2).copy()).to(vr.device).reshape(n1, n2, 2)
     rows = [v.reshape(p, n2, n1).transpose(1, 2).reshape(-1, n2) for v in (vr, vi)]
     gr, gi = (v.reshape(p, n1, n2) for v in _stockham(*rows, fft_plan(n2), tw2))
-    hr = gr * t[..., 0] - gi * t[..., 1]
-    hi = gr * t[..., 1] + gi * t[..., 0]
-    cols = [v.transpose(1, 2).reshape(-1, n1) for v in (hr, hi)]
-    return tuple(v.reshape(p, n2, n1).transpose(1, 2).reshape(p, -1)
-                 for v in _stockham(*cols, fft_plan(n1), tw1))
+    return gr * t[..., 0] - gi * t[..., 1], gr * t[..., 1] + gi * t[..., 0]
 
 
 def _four_step_reference(padded: torch.Tensor, window: np.ndarray, n_fft: int, hop: int,
@@ -663,9 +681,21 @@ def _chirp_four_step_reference(padded: torch.Tensor, window: np.ndarray, n_fft: 
     conjugate where its output lies, the second rows first
     (`_cluster_fft_rows_first`); then Z[k] = a[k] conj u[k], the untangle
     and the magnitudes."""
+    vr, vi, a = _chirp_first_fft(padded, window, n_fft, hop, m, split)
+    ur, ui = _cluster_fft_rows_first(vr, vi, split)
+    ur, ui = ur[:, :n_fft], ui[:, :n_fft]
+    zr = a[:, 0] * ur + a[:, 1] * ui
+    zi = a[:, 1] * ur - a[:, 0] * ui
+    return _untangle(zr, zi, n_fft, _frames_count(padded.shape[0], n_fft, hop))
+
+
+def _chirp_first_fft(padded: torch.Tensor, window: np.ndarray, n_fft: int, hop: int, m: int,
+                     split: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The chirp mode on `split` up to its second FFT: z = wa (x_t + i
+    x_t+1) zero-padded to M, its FFT by `_cluster_fft`, the product with B
+    and the conjugate, (pairs, M) each; and the (n_fft, 2) table a."""
     if split[0] * split[1] != m:
         raise ValueError(f"split {split} is not of M {m}")
-    tpad = _frames_count(padded.shape[0], n_fft, hop)
     table = torch.from_numpy(chirp_tables(_check_window(window, n_fft), m).copy()).to(padded.device)
     wa, a, bq = table[:n_fft], table[n_fft:2 * n_fft], table[2 * n_fft:]
     xa, xb = _pair_frames(padded, n_fft, hop)
@@ -674,13 +704,7 @@ def _chirp_four_step_reference(padded: torch.Tensor, window: np.ndarray, n_fft: 
     zr[:, :n_fft] = wa[:, 0] * xa - wa[:, 1] * xb
     zi[:, :n_fft] = wa[:, 0] * xb + wa[:, 1] * xa
     yr, yi = _cluster_fft(zr, zi, split)
-    vr = yr * bq[:, 0] - yi * bq[:, 1]
-    vi = -(yr * bq[:, 1] + yi * bq[:, 0])
-    ur, ui = _cluster_fft_rows_first(vr, vi, split)
-    ur, ui = ur[:, :n_fft], ui[:, :n_fft]
-    zr = a[:, 0] * ur + a[:, 1] * ui
-    zi = a[:, 1] * ur - a[:, 0] * ui
-    return _untangle(zr, zi, n_fft, tpad)
+    return yr * bq[:, 0] - yi * bq[:, 1], -(yr * bq[:, 1] + yi * bq[:, 0]), a
 
 
 def _fft_cluster_reference(
@@ -826,11 +850,101 @@ def _chirp_staged_reference(
     step, in float32 PyTorch: `_chirp_four_step_reference` with M = m or
     chirp_length(n_fft) and split = staged_plan(M)[:2] (or those given):
     kernel 1 the first FFT's columns, kernel 2 its rows, the product with B
-    and the second FFT's rows with W_M^(k1 p2), kernel 3 its columns, kernel
-    4 Z[k] = a[k] conj u[k] and the untangle.
+    and the second FFT's rows with W_M^(k1 p2), kernel 3 its columns, Z[k] =
+    a[k] conj u[k] and the untangle (`_chirp_staged_fold_reference` walks
+    kernel 3's column groups as the kernel does).
     """
     m = m or chirp_length(n_fft)
     return _chirp_four_step_reference(padded, window, n_fft, hop, m, split or staged_plan(m)[:2])
+
+
+def staged_fold(n_fft: int, m: int, split: tuple[int, int] | None = None) -> tuple[int, int, int]:
+    """(G3, f, e) of the staged chirp mode's kernel 3 at n_fft on M = m
+    split as staged_plan(m, split) = (N1, N2, ...). Its CTAs own column
+    pairs: the mirror n_fft - k of a bin k = N2 p1 + p2 lies in column (r -
+    p2) mod N2 (r = n_fft mod N2), so with 2 f + e = r (mod N2), e 0 or 1,
+    the columns f + d and f + e - d (mod N2) pair up; f = r / 2 where r is
+    even, (r + N2) / 2 where r is odd and N2 odd (e = 0: d and -d, one
+    column alone at d = 0, and one more at d = N2 / 2 where N2 is even),
+    (r - 1) / 2 where r is odd and N2 even (e = 1: d and 1 - d, none
+    alone). G3, the column pairs a CTA, is the most, a power of two up to
+    STAGED_BATCH, whose two buffers of 2 G3 N1-point FFTs fit in
+    STAGED_CTA_BYTES (_staged_batch)."""
+    n1, n2, _, _ = staged_plan(m, split)
+    r = n_fft % n2
+    f = r // 2 if r % 2 == 0 or n2 % 2 == 0 else (r + n2) // 2
+    g3 = _staged_batch(n1, 2)
+    if g3 is None:
+        raise ValueError(f"M {m}: no batch of column pairs of {n1} points fits")
+    return g3, f, (r - 2 * f) % n2
+
+
+def staged_mirror_groups(n_fft: int, m: int | None = None, split: tuple[int, int] | None = None
+                         ) -> list[tuple[tuple[int, ...], tuple[int, ...]]]:
+    """The column groups of the staged chirp mode's kernel 3, one a CTA of a
+    frame pair: (its columns f + d, mod N2, for G3 consecutive
+    representatives d from e to (N2 + e) // 2; the partners f + e - d of
+    those d that are not their own, in the same order) with (G3, f, e) of
+    staged_fold(n_fft, M, split), M = m or chirp_length(n_fft). Every column
+    lies in one group, with its partner."""
+    m = m or chirp_length(n_fft)
+    n2 = staged_plan(m, split)[1]
+    g3, f, e = staged_fold(n_fft, m, split)
+    top = (n2 + e) // 2
+    groups = []
+    for lo in range(e, top + 1, g3):
+        ds = range(lo, min(lo + g3, top + 1))
+        groups.append((tuple((f + d) % n2 for d in ds),
+                       tuple((f + e - d) % n2 for d in ds if (2 * d - e) % n2)))
+    return groups
+
+
+def _chirp_staged_fold_reference(
+    padded: torch.Tensor, window: np.ndarray, *, n_fft: int, hop: int,
+    m: int | None = None, split: tuple[int, int] | None = None,
+) -> torch.Tensor:
+    """`_chirp_staged_reference` with its last step as csrc/dft_staged.cu's
+    kernel 3 walks it: for each group of staged_mirror_groups, the N1-point
+    FFTs of its columns of H (kernel 2's rows times W_M^(k1 p2)), then for
+    each row p1 <= (n_fft/2) / N2 and local column l of column p2, the bin k
+    = N2 p1 + p2 <= n_fft / 2 with its mirror n_fft - k at row q - p1 (q -
+    p1 - 1 where p2 > r; q, r = divmod(n_fft, N2)) of the partner column,
+    bin 0 its own: Z = a conj u of both, untangled. The same arithmetic in
+    another order, so the same bits."""
+    m = m or chirp_length(n_fft)
+    n1, n2 = split or staged_plan(m)[:2]
+    vr, vi, a = _chirp_first_fft(padded, window, n_fft, hop, m, (n1, n2))
+    hr, hi = _rows_and_twiddles(vr, vi, (n1, n2))
+    pairs = hr.shape[0]
+    tw1 = torch.from_numpy(roots_of_unity(n1).copy()).to(padded.device)
+    q, r = divmod(n_fft, n2)
+    n_bins = n_fft // 2 + 1
+    out = torch.full((pairs, 2, n_bins), float("nan"), device=padded.device)
+    for cols_a, cols_b in staged_mirror_groups(n_fft, m, (n1, n2)):
+        cols = cols_a + cols_b
+        place = {c: l for l, c in enumerate(cols)}
+        ur, ui = (v.reshape(pairs, len(cols), n1)
+                  for v in _stockham(*(h[:, :, list(cols)].transpose(1, 2).reshape(-1, n1)
+                                       for h in (hr, hi)), fft_plan(n1), tw1))
+        ks, at, mirrors, at_m = [], [], [], []
+        for p1 in range((n_fft // 2) // n2 + 1):
+            for l, p2 in enumerate(cols):
+                k = p1 * n2 + p2
+                if k > n_fft // 2:
+                    continue
+                ks.append(k)
+                at.append((l, p1))
+                mirrors.append(0 if k == 0 else n_fft - k)
+                at_m.append((l, 0) if k == 0 else
+                            (place[(r - p2) % n2], q - p1 if p2 <= r else q - p1 - 1))
+        (lk, pk), (lm, pm) = (torch.tensor(v, device=padded.device).T for v in (at, at_m))
+        ck, cm = a[ks], a[mirrors]
+        zr = ck[:, 0] * ur[:, lk, pk] + ck[:, 1] * ui[:, lk, pk]
+        zi = ck[:, 1] * ur[:, lk, pk] - ck[:, 0] * ui[:, lk, pk]
+        yr = cm[:, 0] * ur[:, lm, pm] + cm[:, 1] * ui[:, lm, pm]
+        yi = cm[:, 1] * ur[:, lm, pm] - cm[:, 0] * ui[:, lm, pm]
+        out[:, 0, ks], out[:, 1, ks] = _pair_magnitudes(zr, zi, yr, yi)
+    return out.reshape(-1, n_bins)[:_frames_count(padded.shape[0], n_fft, hop)]
 
 
 # exchange layouts a + ((a >> s) << g); (0, 0) leaves a as it is
@@ -965,14 +1079,22 @@ def staged_tables(n: int, split: tuple[int, int] | None = None) -> np.ndarray:
 
 
 @lru_cache(maxsize=None)
-def _staged_plan_array(n: int, split: tuple[int, int] | None = None):
+def _staged_plan_array(n: int, split: tuple[int, int] | None = None, chirp_n: int | None = None,
+                       batches: tuple[int, int, int] | None = None):
     """staged_plan(n, split) as csrc/dft_staged.cu takes it, int32 on the
     host: [N1, N2, G1, G2, len1, len2, P1, radices of N1, P2, radices of
-    N2], len1 and len2 the rows of the two pass_roots in staged_tables."""
+    N2], len1 and len2 the rows of the two pass_roots in staged_tables; in
+    the chirp mode at n_fft chirp_n (n the convolution length) then [G3, f]
+    of staged_fold(chirp_n, n, split). `batches` (G1, G2, G3) takes those
+    batches instead, for the tools."""
     n1, n2, g1, g2 = staged_plan(n, split)
     plan1, plan2 = fft_plan(n1), fft_plan(n2)
+    fold = staged_fold(chirp_n, n, split)[:2] if chirp_n else ()
+    if batches:
+        g1, g2 = batches[:2]
+        fold = (batches[2], *fold[1:]) if chirp_n else ()
     values = (n1, n2, g1, g2, len(pass_roots(n1, plan1)), len(pass_roots(n2, plan2)),
-              len(plan1), *plan1, len(plan2), *plan2)
+              len(plan1), *plan1, len(plan2), *plan2, *fold)
     return (ctypes.c_int * len(values))(*values)
 
 
@@ -993,7 +1115,7 @@ def _route_tables(route: str, window_bytes: bytes, device: torch.device):
     MIXED_MAX), the staged route's window (its chirp mode: chirp_tables)
     and staged_tables of its FFT, the GEMM route's window-folded C and S
     (windowed_dft_mats, 4 N (N/2 + 1) bytes, which is why the route takes
-    no size a user sets: 6.7 GB at 40962, 4.4 TB above STAGED_MAX)."""
+    no size a user sets: 6.7 GB at 40962, 2.2 TB above STAGED_MAX)."""
     n_fft = len(window_bytes) // 8
     if route == "gemm":
         arrays = _mats_cached(window_bytes)
@@ -1016,13 +1138,13 @@ def _route_tables(route: str, window_bytes: bytes, device: torch.device):
 
 
 def _build_variant(kernel: str, n: int, dtype: torch.dtype,
-                   split: tuple[int, int] | None = None) -> tuple[int, int] | None:
+                   split: tuple[int, int] | None = None) -> tuple[int, int | None] | None:
     """The build of a kernel's library (ops/_build.py::VARIANTS) that runs
     an FFT of n points on `dtype` samples: (of the builds' odd radices the
     least at or above the largest odd radix of its plan, fft_plan(n) for
     "mixed", cluster_plan(n)'s two sides for "cluster", staged_plan(n,
-    split)'s for "staged"; the dtype's code); None for the kernels built
-    once."""
+    split)'s for "staged"; the dtype's code, None for "staged", whose builds
+    take every sample type); None for the kernels built once."""
     if kernel == "mixed":
         radices = fft_plan(n)
     elif kernel in ("cluster", "staged"):
@@ -1032,11 +1154,11 @@ def _build_variant(kernel: str, n: int, dtype: torch.dtype,
         return None
     odd = max(r for r in (1, *radices) if r % 2)
     builds = sorted({r for r, _ in _build.VARIANTS[f"dft_{kernel}"]})
-    return next(r for r in builds if r >= odd), _DTYPE_CODES[dtype]
+    return next(r for r in builds if r >= odd), None if kernel == "staged" else _DTYPE_CODES[dtype]
 
 
 @lru_cache(maxsize=None)
-def _kernel(kernel: str, variant: tuple[int, int] | None = None):
+def _kernel(kernel: str, variant: tuple[int, int | None] | None = None):
     """The C entry point of a kernel's library (its build for `variant`,
     _build_variant), returning a CUDA error code.
     "fft" and "gemm": (audio, dtype, table_a, table_b, out, n_frames, n_fft,
@@ -1049,7 +1171,8 @@ def _kernel(kernel: str, variant: tuple[int, int] | None = None):
     chirp mode's is of chirp_length(n_fft) and its window is not read), plan
     from _plan_array or _cluster_plan_array. "staged" (csrc/dft_staged.cu)
     the same with, after the plan (_staged_plan_array), its scratch and the
-    frame pairs of a chunk: (..., plan, scratch, chunk_pairs, out, ...)."""
+    frame pairs of a chunk, and last a pointer to the count of kernels it
+    launched: (..., plan, scratch, chunk_pairs, out, ..., stream, launched)."""
     lib, name = {"fft": ("dft_magnitude", "orcai_dft_magnitude"),
                  "mixed": ("dft_mixed", "orcai_dft_mixed"),
                  "cluster": ("dft_cluster", "orcai_dft_cluster"),
@@ -1059,7 +1182,8 @@ def _kernel(kernel: str, variant: tuple[int, int] | None = None):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     chirp = [ptr, ctypes.POINTER(ctypes.c_int)] if kernel in ("mixed", "cluster", "staged") else []
     scratch = [ptr, i32] if kernel == "staged" else []
-    fn.argtypes = [ptr, i32, ptr, ptr, *chirp, *scratch, ptr, i32, i32, i32, ptr]
+    launched = [ctypes.POINTER(i32)] if kernel == "staged" else []
+    fn.argtypes = [ptr, i32, ptr, ptr, *chirp, *scratch, ptr, i32, i32, i32, ptr, *launched]
     fn.restype = ctypes.c_int
     return fn
 
@@ -1074,7 +1198,9 @@ def dft_route(n_fft: int) -> str:
     above 31 (16418 and 24578 on the cluster layout); "staged" for any other
     n_fft from MIXED_MAX + 1 to STAGED_MAX (2^20; staged_mode: 14848 = 2^9
     * 29, 98304 and 131072 in its FFT mode, 40962 in its chirp mode);
-    "gemm" for the rest (1, and a smooth n_fft above STAGED_MAX)."""
+    "gemm" for n_fft 1. Raises above STAGED_MAX, where the GEMM's tables
+    (4 N (N/2 + 1) bytes) would be all that is left and no card holds
+    them."""
     if n_fft in FFT_SIZES:
         return "fft"
     if 2 <= n_fft <= MIXED_MAX and _smooth(n_fft):
@@ -1083,7 +1209,11 @@ def dft_route(n_fft: int) -> str:
         return "cluster"
     if 2 <= n_fft <= CHIRP_MAX and not (n_fft > MIXED_MAX and _smooth(n_fft)):
         return "chirp"
-    return "staged" if MIXED_MAX < n_fft <= STAGED_MAX else "gemm"
+    if n_fft > STAGED_MAX:
+        raise ValueError(f"n_fft {n_fft}: above {STAGED_MAX} only the GEMM route is left, whose "
+                         f"tables take {4 * n_fft * (n_fft // 2 + 1) / 1e12:.1f} TB; no card "
+                         "holds them")
+    return "staged" if MIXED_MAX < n_fft else "gemm"
 
 
 def active_clusters(n_fft: int, dtype: torch.dtype = torch.int16) -> int:
@@ -1112,15 +1242,19 @@ def active_clusters(n_fft: int, dtype: torch.dtype = torch.int16) -> int:
 
 def _launch_staged(padded: torch.Tensor, window: np.ndarray, out: torch.Tensor, n_fft: int,
                    hop: int, *, m: int | None = None, split: tuple[int, int] | None = None,
-                   chunk_pairs: int | None = None) -> int:
+                   chunk_pairs: int | None = None,
+                   batches: tuple[int, int, int] | None = None) -> int:
     """csrc/dft_staged.cu's kernels on the CUDA tensor `padded` into `out`,
     on the current stream: the FFT mode at staged_mode(n_fft) "fft", else
     (or with a convolution length m given) the chirp mode on M = m or
     chirp_length(n_fft); split (N1, N2) of staged_plan, chunk_pairs frame
-    pairs a chunk (staged_chunk_pairs). The scratch, chunk_pairs FFTs of M
+    pairs a chunk (staged_chunk_pairs), batches (G1, G2, G3) in place of
+    the plan's (_staged_plan_array). The scratch, chunk_pairs FFTs of M
     complex values, comes from the caching allocator on the audio's device.
-    Returns the CUDA error code; counts nothing (dft_magnitude counts its
-    calls), so a tool can call it beside the route."""
+    Returns the CUDA error code; counts no call (dft_magnitude counts its
+    calls), so a tool can call it beside the route. `_launch_staged.kernels`
+    holds the kernels the last call launched: 2 a chunk in the FFT mode, 3
+    in the chirp mode."""
     tpad = _frames_count(padded.shape[0], n_fft, hop)
     chirp = m is not None or staged_mode(n_fft) == "chirp"
     n = (m or chirp_length(n_fft)) if chirp else n_fft
@@ -1135,11 +1269,18 @@ def _launch_staged(padded: torch.Tensor, window: np.ndarray, out: torch.Tensor, 
     scratch = torch.empty(pairs * n * 2, dtype=torch.float32, device=padded.device)
     tables = ((None, roots.data_ptr(), table.data_ptr()) if chirp
               else (table.data_ptr(), roots.data_ptr(), None))
+    launched = ctypes.c_int(0)
     with torch.cuda.device(padded.device):
         stream = torch.cuda.current_stream(padded.device).cuda_stream
-        return _kernel("staged", _build_variant("staged", n, padded.dtype, split))(
-            padded.data_ptr(), _DTYPE_CODES[padded.dtype], *tables, _staged_plan_array(n, split),
-            scratch.data_ptr(), pairs, out.data_ptr(), tpad, n_fft, hop, stream)
+        err = _kernel("staged", _build_variant("staged", n, padded.dtype, split))(
+            padded.data_ptr(), _DTYPE_CODES[padded.dtype], *tables,
+            _staged_plan_array(n, split, n_fft if chirp else None, batches), scratch.data_ptr(),
+            pairs, out.data_ptr(), tpad, n_fft, hop, stream, ctypes.byref(launched))
+    _launch_staged.kernels = launched.value
+    return err
+
+
+_launch_staged.kernels = 0
 
 
 def dft_magnitude(
@@ -1162,14 +1303,15 @@ def dft_magnitude(
             f"{tuple(padded.shape)} {padded.dtype}"
         )
     tpad = _frames_count(padded.shape[0], n_fft, hop)
+    route = kernel = dft_route(n_fft)
     if not padded.is_contiguous():
         raise ValueError("dft_magnitude: audio must be contiguous")
     if padded.device.type != "cuda":
         raise ValueError(f"dft_magnitude: unsupported device {padded.device}")
-    route = kernel = dft_route(n_fft)
     out = torch.empty((tpad, n_fft // 2 + 1), dtype=torch.float32, device=padded.device)
     if route == "staged":
         err = _launch_staged(padded, window, out, n_fft, hop)
+        dft_magnitude.staged_kernels[staged_mode(n_fft)] += _launch_staged.kernels
     else:
         a, b = _route_tables(route, window.tobytes(), padded.device)
         n = n_fft  # the FFT's points: n_fft, or the chirp mode's convolution length
@@ -1199,3 +1341,6 @@ def dft_magnitude(
 
 dft_magnitude.launches = 0
 dft_magnitude.route_launches = dict.fromkeys(ROUTES, 0)
+# the staged route's calls each launch its kernels chunk by chunk: their
+# count by mode (2 a chunk in the FFT mode, 3 in the chirp mode)
+dft_magnitude.staged_kernels = {"fft": 0, "chirp": 0}

@@ -38,8 +38,11 @@ called as dft_magnitude calls them, ops/dft.py::_launch_staged) on the
 splits N1 x N2 of STAGED_SPLITS and the chunks of STAGED_CHUNKS (frame
 pairs a chunk: ops/dft.py::staged_chunk_pairs' default, then 64, 256 and
 the whole tile) at 131072 / 65536 on 2048 frames, and its chirp mode at
-40962 / 20481 on 301 and 2048 frames on the convolution lengths of
-STAGED_LENGTHS (the default, chirp_length's, and the others named), each
+the tiles of STAGED_CHIRP_TILES (40962 / 20481 on 301 and 2048 frames,
+49154 / 24577 on 301) on the convolution lengths of STAGED_LENGTHS (the
+default, chirp_length's, and the others named for that n_fft), and on
+the default length with the batches of STAGED_BATCHES (G1, G2, G3 a CTA)
+beside staged_plan's, each
 held against the float64 rFFT of its first CHECK_FRAMES frames (atol
 2e-4), in turns (a, b, ..., b, a). Prints one JSON line per size, then the
 card's name and power limit.
@@ -71,7 +74,15 @@ SWEEP_SIZES = (
 SWEEP_SAMPLES = 1 << 27  # a sweep tile's most samples
 STAGED_SPLITS = ((256, 512), (512, 256), (128, 1024), (1024, 128), (64, 2048), (32, 4096))
 STAGED_CHUNKS = (None, 64, 256, 1 << 30)  # frame pairs a chunk: the default, ..., the tile
-STAGED_LENGTHS = (81928, 82944, 98304, 131072)  # at 40962, beside chirp_length's
+# the chirp mode's batches (G1 columns, G2 row pairs, G3 column pairs a CTA)
+# timed on the default length at each n_fft, beside staged_plan's
+STAGED_BATCHES = {40962: ((16, 4, 8), (16, 2, 8), (8, 4, 4)),
+                  49154: ((8, 4, 4), (16, 4, 8), (8, 8, 4), (4, 2, 2))}
+# the chirp mode's tiles (n_fft, hop, frames) and, beside chirp_length's,
+# the convolution lengths timed at each n_fft
+STAGED_CHIRP_TILES = ((40962, 20481, 301), (40962, 20481, 2048), (49154, 24577, 301))
+STAGED_LENGTHS = {40962: (81928, 82944, 98304, 131072),
+                  49154: (98560, 102400, 109744, 131072)}
 CHECK_FRAMES = 64  # frames held against the float64 rFFT
 SPIN_CYCLES = 8_000_000  # about 4 ms at an H100's clock
 
@@ -166,6 +177,7 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             err = vs_float64(out, x, window, n_fft, hop)
             line["variants"][name] = {"length": m, "plan": list(staged_plan(m, kw.get("split"))),
+                                      "batches": kw.get("batches"),
                                       "max_abs_err_vs_float64": err}
             if not err <= 2e-4:
                 raise AssertionError(f"{n_fft}/{hop} {name}: {err} from the float64 rFFT")
@@ -181,10 +193,13 @@ def main(argv=None) -> int:
         staged_line(131072, 65536, 2048, {
             f"{n1}x{n2}/{chunk or 'default'}": {"split": (n1, n2), "chunk_pairs": chunk}
             for n1, n2 in STAGED_SPLITS for chunk in STAGED_CHUNKS})
-        for frames_40962 in (301, 2048):
-            staged_line(40962, 20481, frames_40962, {
+        for n_fft, hop, tile in STAGED_CHIRP_TILES:
+            staged_line(n_fft, hop, tile, {
                 f"{m}/{chunk or 'default'}": {"m": m, "chunk_pairs": chunk}
-                for m in (chirp_length(40962), *STAGED_LENGTHS) for chunk in STAGED_CHUNKS})
+                for m in (chirp_length(n_fft), *STAGED_LENGTHS[n_fft]) for chunk in STAGED_CHUNKS})
+            staged_line(n_fft, hop, tile, {
+                "default": {}, **{"batches_" + "_".join(map(str, g)): {"batches": g}
+                                  for g in STAGED_BATCHES[n_fft]}})
     if args.sweep:
         for n_fft, hop in SWEEP_SIZES:
             window = hann_window(n_fft)

@@ -44,6 +44,7 @@ from orcai_tpu_torch.ops.dft import (
     _chirp_cluster_reference,
     _chirp_kernel,
     _chirp_reference,
+    _chirp_staged_fold_reference,
     _chirp_staged_reference,
     _cluster_plan_array,
     _exchange_accesses,
@@ -73,6 +74,8 @@ from orcai_tpu_torch.ops.dft import (
     pass_roots,
     roots_of_unity,
     staged_chunk_pairs,
+    staged_fold,
+    staged_mirror_groups,
     staged_mode,
     staged_plan,
     staged_tables,
@@ -234,8 +237,9 @@ def test_active_clusters_takes_only_the_cluster_layout(n_fft):
 
 
 def test_fft_sources_build_per_largest_odd_radix_and_sample_type():
-    """dft_mixed.cu, dft_cluster.cu and dft_staged.cu are built once per
-    (largest odd radix a build takes, sample type), each build a library of
+    """dft_mixed.cu and dft_cluster.cu are built once per (largest odd
+    radix a build takes, sample type), dft_staged.cu once per largest odd
+    radix (it takes the sample type at run time), each build a library of
     its own flags and path, so that their kernels compile side by side;
     _build_variant picks the build of a plan, the least that takes its
     largest odd radix (a plan without a 13, 17, 19, 23, 29 or 31 the
@@ -247,22 +251,58 @@ def test_fft_sources_build_per_largest_odd_radix_and_sample_type():
     for name, variants in _build.VARIANTS.items():
         for odd, dtype in variants:
             flags = _build._flags((odd, dtype))
-            assert f"-DORCAI_ODD={odd}" in flags and f"-DORCAI_DTYPE={dtype}" in flags
+            assert f"-DORCAI_ODD={odd}" in flags
+            assert (dtype is None) == (name == "dft_staged")
+            assert (f"-DORCAI_DTYPE={dtype}" in flags) == (dtype is not None)
             paths.add(_build.library_path(name, (odd, dtype)))
-    assert len(paths) == sum(len(v) for v in _build.VARIANTS.values()) == 27
+    assert len(paths) == sum(len(v) for v in _build.VARIANTS.values()) == 23
     assert "dft_staged" in _build.KERNELS
     for n, odd in ((384, 11), (4096, 11), (416, 13), (1088, 17), (1216, 23), (1472, 23),
                    (952, 17), (2431, 17), (464, 31), (496, 31), (1856, 31), (1984, 31)):
         assert _build_variant("mixed", n, torch.int16) == (odd, 1)
     for n, odd in ((131072, 13), (98304, 13), (chirp_length(40962), 31), (59392, 31),
                    (1 << 20, 13)):
-        assert _build_variant("staged", n, torch.float32) == (odd, 0)
+        for dtype in (torch.float32, torch.int16, torch.uint8):
+            assert _build_variant("staged", n, dtype) == (odd, None)
     for n, odd in ((16384, 17), (16456, 17), (32851, 23), (50864, 17), (65536, 17),
                    (11776, 23)):
         assert _build_variant("cluster", n, torch.uint8) == (odd, 2)
     assert _build_variant("gemm", 40962, torch.float32) is None
     with pytest.raises(ValueError, match="builds"):
         _build.load("dft_mixed")
+
+
+def test_build_runs_each_missing_library_once_longest_first(tmp_path, monkeypatch):
+    """_build.build starts one nvcc a library not yet built, as many at once
+    as the process has cores, the longest first (_weight: the largest odd
+    radix, then the staged source); a library built is not built again; a
+    failed nvcc raises with its output. A stand-in nvcc records its calls."""
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(
+        "#!/bin/sh\nfor a; do [ \"$prev\" = -o ] && out=$a; prev=$a; done\n"
+        f"echo \"$@\" >> {calls}\n"
+        "case \"$*\" in *dft_gemm.cu*) [ -n \"$FAIL_GEMM\" ] && echo no && exit 1;; esac\n"
+        "echo 'ptxas info    : Used 10 registers'\n: > \"$out\"\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build.os, "sched_getaffinity", lambda pid: {0})  # one at a time
+    logs = _build.build(["dft_gemm", "dft_staged"])
+    assert sorted(logs) == ["dft_gemm", "dft_staged-odd13", "dft_staged-odd31"]
+    assert all("registers" in log for log in logs.values())
+    order = calls.read_text().splitlines()
+    assert ["ODD=31" in order[0], "ODD=13" in order[1], "dft_gemm.cu" in order[2]] == [True] * 3
+    assert all(_build.library_path(n, v).exists()
+               for n in ("dft_gemm", "dft_staged") for v in _build.VARIANTS.get(n, (None,)))
+    assert _build.build(["dft_gemm", "dft_staged"]) == {} and len(calls.read_text().splitlines()) == 3
+    assert _build._weight("dft_staged", (31, None)) > _build._weight("dft_mixed", (31, 2)) > (
+        _build._weight("dft_cluster", (23, 0))) > _build._weight("dft_magnitude", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "again")
+    monkeypatch.setenv("FAIL_GEMM", "1")
+    with pytest.raises(RuntimeError, match="nvcc failed for dft_gemm"):
+        _build.build(["dft_gemm"])
 
 
 def test_dft_wrapper_rejects_bad_hop_off_cpu():
@@ -373,7 +413,8 @@ def test_dft_route_and_fft_plan_cover_the_smooth_sizes():
     factor above 31 to the chirp mode (a prime, 470, 2038, 8198, 16418,
     24578), every other n_fft from 8193 to 2^20 to the staged route (14848
     = 2^9 * 29, 15872 = 2^9 * 31, 40962, 2 * 81920, 81922, 98304, 131072),
-    and 1 and what lies above 2^20 to the GEMM;
+    and 1 to the GEMM; what lies above 2^20 raises (the GEMM's tables, 2.2 TB
+    and more, fit on no card);
     fft_plan's radices multiply back to n_fft (for the chirp mode on the
     block layout to its convolution length, {2, ..., 19}-smooth): the
     power-of-two part first, in the fewest passes of radix 16 at most, split
@@ -390,8 +431,10 @@ def test_dft_route_and_fft_plan_cover_the_smooth_sizes():
     for n in (40961, 40962, 2 * CLUSTER_MAX, CLUSTER_MAX + 2, 81921, 98304, 131072, 59392,
               STAGED_MAX, 14848, 15872, 29 * 31 * 16):
         assert dft_route(n) == "staged"
-    for n in (1, STAGED_MAX + 1, 2 * STAGED_MAX, 3 * STAGED_MAX):
-        assert dft_route(n) == "gemm"
+    assert dft_route(1) == "gemm"
+    for n in (STAGED_MAX + 1, 2 * STAGED_MAX, 3 * STAGED_MAX):
+        with pytest.raises(ValueError, match="TB; no card holds them"):
+            dft_route(n)
     assert MIXED_MAX == 8192 and CHIRP_MAX == 40960 and CLUSTER_MAX == 81920
     assert MIXED_PRIMES == MIXED and CLUSTER_PRIMES == CLUSTER and CHIRP_PRIMES == CHIRP
     routes = {n: dft_route(n) for n in range(1, CHIRP_MAX + 1)}
@@ -809,6 +852,138 @@ def test_staged_references_at_the_route_sizes_match_float64(n_fft, hop, tpad, dt
         assert torch.equal(got, decoded)
 
 
+# The staged route's top reach (ROADMAP C1). The reference suite's bar is an
+# absolute 2e-4 on magnitudes that grow with n_fft: no float32 FFT holds it
+# far past 2^19. Where the step-by-step reference holds it, it is asserted;
+# where it cannot hold, the reference is held to within C1_FACTOR of float32
+# torch.fft.rfft's own error on the same windowed frames. The factor is set
+# from the readings of test_staged_reach_holds_float32s_own_error (0.91x at
+# 524290, 0.08x at 2^20, 1.03x at 2^20 - 2) with room for other draws of
+# the noise, which move the ratio.
+C1_FACTOR = 1.25
+
+
+@pytest.mark.parametrize("n_fft,holds_2e4", [(524288, True), (524290, False),
+                                             (1 << 20, False), ((1 << 20) - 2, False)])
+def test_staged_reach_holds_float32s_own_error(n_fft, holds_2e4, record_property):
+    """The staged route's references at the top of its reach and on each
+    side of where 2e-4 stops holding: 524288 (FFT mode, 256 x 2048) and
+    524290 (chirp mode, M = 1074944 = 256 x 4199), 2^20 (FFT mode) and
+    2^20 - 2 (chirp mode, M = 2^21 = 512 x 4096), on 2 full-scale int16
+    noise frames against numpy's float64 rfft. Each records its reading
+    beside float32 torch.fft.rfft's on the same windowed frames
+    (`max_abs_err`, `rfft_f32_max_abs_err`). At 524288 the reference holds
+    2e-4 (1.885e-4, torch.fft.rfft 1.878e-4: this size is the crossing, and
+    other draws of the noise land on either side of the bar); above, it is
+    held within C1_FACTOR (1.25x) of torch.fft.rfft's own error."""
+    hop, tpad = n_fft // 2, 2
+    padded, as_f64 = _signal("int16", (tpad - 1) * hop + n_fft, 0)
+    window = port_hann_window(n_fft)
+    assert dft_route(n_fft) == "staged"
+    ref = _staged_reference if staged_mode(n_fft) == "fft" else _chirp_staged_reference
+    got = ref(torch.from_numpy(padded), window, n_fft=n_fft, hop=hop).numpy()
+    frames = np.lib.stride_tricks.sliding_window_view(as_f64, n_fft)[::hop] * window
+    want = np.abs(np.fft.rfft(frames, axis=1))
+    err = float(np.abs(got - want).max())
+    err_f32 = float(np.abs(torch.fft.rfft(torch.from_numpy(frames.astype(np.float32)),
+                                          dim=1).abs().numpy() - want).max())
+    record_property("max_abs_err", err)
+    record_property("rfft_f32_max_abs_err", err_f32)
+    print(f"n_fft {n_fft} ({staged_mode(n_fft)} mode): reference {err:.3e}, "
+          f"float32 torch.fft.rfft {err_f32:.3e}")
+    if holds_2e4:
+        assert err <= 2e-4
+    else:
+        assert err > 2e-4 and err <= C1_FACTOR * err_f32
+
+
+@pytest.mark.parametrize("n_fft,m,split", [(40962, None, None), (49154, None, None),
+                                           ((1 << 20) - 2, None, None), (101, 225, (15, 15)),
+                                           (47, 96, (8, 12)), (101, 210, (15, 14))])
+def test_staged_mirror_groups_hold_each_bin_once_with_its_mirror(n_fft, m, split):
+    """The staged chirp mode's kernel 3 (csrc/dft_staged.cu) on the column
+    groups of staged_mirror_groups: every column lies in one group; a
+    group's columns f + d are adjacent (mod N2) and its partners too; its
+    two buffers fit two CTAs on an SM; walked as the kernel walks them
+    (rows p1 <= (n_fft/2) / N2 of each column p2, bins k = N2 p1 + p2 <=
+    n_fft / 2), every bin k <= n_fft / 2 is written once, and its mirror
+    n_fft - k (k itself at 0) lies in the same group, in the partner column
+    (r - p2) mod N2 at row q - p1, or q - p1 - 1 where p2 > r. At 40962 (N1
+    256, N2 323), 49154 (289, 361), 2^20 - 2 (512, 4096, where two columns
+    are their own partners) and small splits with an odd N1 and N2 (15 x
+    15), an even N2 and an odd n_fft (8 x 12: e = 1, no column alone)."""
+    m = m or chirp_length(n_fft)
+    n1, n2 = staged_plan(m, split)[:2]
+    g3, f, e = staged_fold(n_fft, m, split)
+    assert e in (0, 1) and (2 * f + e - n_fft) % n2 == 0
+    assert _staged_bytes(n1, 2 * g3) <= STAGED_CTA_BYTES
+    groups = staged_mirror_groups(n_fft, m, split)
+    group_of = np.full(n2, -1)
+    for i, (a, b) in enumerate(groups):
+        assert 1 <= len(a) <= g3 and len(b) <= len(a)
+        assert all((y - x) % n2 == 1 for x, y in zip(a, a[1:]))
+        assert all((x - y) % n2 == 1 for x, y in zip(b, b[1:]))
+        for c in a + b:
+            assert group_of[c] == -1
+            group_of[c] = i
+    assert (group_of >= 0).all()
+    q, r = divmod(n_fft, n2)
+    written = np.zeros(n_fft // 2 + 1, dtype=np.int64)
+    for i, (a, b) in enumerate(groups):
+        cols = np.array(a + b)
+        p1 = np.arange((n_fft // 2) // n2 + 1)[:, None]
+        k = (p1 * n2 + cols[None, :]).reshape(-1)
+        p1 = np.broadcast_to(p1, (p1.shape[0], cols.size)).reshape(-1)
+        p2 = np.broadcast_to(cols, (len(p1) // cols.size, cols.size)).reshape(-1)
+        keep = k <= n_fft // 2
+        k, p1, p2 = k[keep], p1[keep], p2[keep]
+        np.add.at(written, k, 1)
+        partner = (r - p2) % n2
+        assert (group_of[partner] == i).all()
+        row = np.where(p2 <= r, q - p1, q - p1 - 1)
+        mirror = np.where(k == 0, 0, row * n2 + partner)
+        assert (mirror == np.where(k == 0, 0, n_fft - k)).all()
+    assert (written == 1).all()
+
+
+@pytest.mark.parametrize("n_fft,hop,m,split", [(47, 47, 96, (8, 12)), (101, 101, 210, (15, 14)),
+                                               (1021, 1021, 2048, (32, 64))])
+@pytest.mark.parametrize("dtype", ["f32", "int16", "uint8"])
+def test_chirp_staged_fold_walk_is_bit_equal_to_the_reference(n_fft, hop, m, split, dtype):
+    """The staged chirp mode's kernel 3 walked step by step
+    (`_chirp_staged_fold_reference`: the N1-point FFTs of each group's
+    columns, then a conj u and the untangle of each bin of its columns with
+    its mirror from the partner column) is bit-equal to
+    `_chirp_staged_reference` at the small splits of
+    test_chirp_staged_reference_at_small_splits_matches_pallas: the same
+    arithmetic in another order."""
+    tpad = 5
+    padded, _ = _signal(dtype, (tpad - 1) * hop + n_fft, n_fft + m + 1)
+    window = port_hann_window(n_fft)
+    x = torch.from_numpy(padded)
+    got = _chirp_staged_fold_reference(x, window, n_fft=n_fft, hop=hop, m=m, split=split)
+    want = _chirp_staged_reference(x, window, n_fft=n_fft, hop=hop, m=m, split=split)
+    assert got.shape == want.shape == (tpad, n_fft // 2 + 1)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n_fft", [STAGED_MAX + 1, STAGED_MAX + 2, 3 << 20])
+def test_no_route_above_the_staged_reach(n_fft):
+    """Above STAGED_MAX (2^20) only the GEMM route would be left, whose
+    window-folded tables take 4 N (N/2 + 1) bytes (2.2 TB at 2^20 + 2):
+    dft_route and dft_magnitude raise, naming that size, before any table
+    or output is made (a meta tensor allocates nothing); n_fft 1 stays on
+    the GEMM route."""
+    hop = n_fft // 2 if n_fft % 2 == 0 else n_fft
+    tb = f"{4 * n_fft * (n_fft // 2 + 1) / 1e12:.1f} TB"
+    with pytest.raises(ValueError, match=tb):
+        dft_route(n_fft)
+    x = torch.zeros(hop + n_fft, dtype=torch.int16, device="meta")
+    with pytest.raises(ValueError, match=tb):
+        dft_magnitude(x, np.ones(n_fft), n_fft=n_fft, hop=hop)
+    assert dft_route(1) == "gemm"
+
+
 @pytest.mark.parametrize("n_fft,hop", [(464, 232), (496, 248), (1856, 928), (1984, 992)])
 @pytest.mark.parametrize("dtype", ["f32", "int16", "uint8"])
 def test_fft_mixed_reference_at_radix_29_and_31(n_fft, hop, dtype):
@@ -985,10 +1160,10 @@ def test_b1_tools_plans_and_refusal_without_a_card():
     the FFT routes, of 2^a * 29 and 31 on the mixed route and in the chirp
     route's FFT mode above 8192, sizes with a prime factor above 31 on both layouts of
     the chirp mode and in the staged route's, and the staged route's FFT
-    mode, and its staged splits are staged_plan's; it, tools/time_b1_routes.py
-    and tools/ab_b1_sizes.py stop without a card instead of timing the
-    CPU."""
-    from orcai_tpu_torch.tools import ab_b1_sizes, bench_dft_plans, time_b1_routes
+    mode, and its staged splits and lengths are staged_plan's, at the chirp
+    mode's sizes; it, tools/time_b1_routes.py, tools/ab_b1_sizes.py and
+    tools/trace_staged.py stop without a card instead of timing the CPU."""
+    from orcai_tpu_torch.tools import ab_b1_sizes, bench_dft_plans, time_b1_routes, trace_staged
 
     assert bench_dft_plans.radix8_plan(384) == (8, 8, 2, 3)
     assert bench_dft_plans.radix8_plan(1024) == (8, 8, 8, 2)
@@ -1010,9 +1185,14 @@ def test_b1_tools_plans_and_refusal_without_a_card():
     assert {_chirp_kernel(n) for n in chirp} == {"mixed", "cluster"}
     for n1, n2 in bench_dft_plans.STAGED_SPLITS:
         assert staged_plan(131072, (n1, n2))[:2] == (n1, n2)
-    assert all(staged_plan(m) for m in bench_dft_plans.STAGED_LENGTHS)
+    for n_fft, hop, _ in bench_dft_plans.STAGED_CHIRP_TILES:
+        assert dft_route(n_fft) == "staged" and staged_mode(n_fft) == "chirp"
+        assert all(m >= 2 * n_fft - 1 and staged_plan(m)
+                   for m in bench_dft_plans.STAGED_LENGTHS[n_fft])
+    for size in trace_staged.DEFAULT_SIZES.split(","):
+        assert dft_route(int(size.split("/")[0])) == "staged"
     for tool, argv in ((bench_dft_plans, []), (time_b1_routes, []),
-                       (ab_b1_sizes, ["--trees", ".", "."])):
+                       (ab_b1_sizes, ["--trees", ".", "."]), (trace_staged, [])):
         with pytest.raises(SystemExit, match="no CUDA device"):
             tool.main(argv)
 
