@@ -1601,7 +1601,10 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
     17), 1216/608 (radix 19), 1472/736 and 368/184 (radix 23; 368 on the
     32768-frame tile) in int16 and uint8, at 464/232, 496/248, 1856/928 and
     1984/992 (radices 29 and 31, on the 32768-frame tile) in all three
-    types, also at streamed sp-bfp5's tiles (384/192); the cluster route at
+    types, also at the streamed tiles (384/192 and 352/176, every type), and
+    at 480/240 (a plan outside dft_mixed.cu's compiled table) in all three
+    types on the 32768-frame tile, the compiled layout asserted at 384 and
+    352 and the warp layout at 480; the cluster route at
     16384/8192 and 32768/16384 in all three types and at 65536/32768 (8
     CTAs) in int16 and uint8 on the 11251-frame tile; the chirp route at
     2038/1019 and 470/235 (block layout), 8198/4099 and 16418/8209 (cluster
@@ -1648,8 +1651,8 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
         MIXED_MAX, _DTYPE_CODES, _chirp_cluster_reference, _chirp_kernel,
         _chirp_staged_reference, _fft_cluster_reference, _kernel, _launch_staged,
         _route_tables, _staged_reference, active_clusters, chirp_length, cluster_plan,
-        dft_magnitude, dft_magnitude_plain, dft_route, staged_chunk_pairs, staged_mode,
-        staged_plan, windowed_dft_mats)
+        dft_magnitude, dft_magnitude_plain, dft_route, mixed_layout, staged_chunk_pairs,
+        staged_mode, staged_plan, windowed_dft_mats)
     from orcai_tpu_torch.ops.frontend import hann_window
     from orcai_tpu_torch.ops.wire_codec import (
         mulaw_decode_f32, mulaw_decode_host, mulaw_encode)
@@ -1663,7 +1666,7 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
     cases = {}
     every, coded, tiles = ("f32", "int16", "uint8"), ("int16", "uint8"), B1_TILES
     streamed = {CHUNK_TILE: "normalize_tile", STATS_TILE: "stats_tile"}
-    sizes = ((384, 192, every, tiles + tuple(streamed)), (352, 176, every, tiles),
+    sizes = ((384, 192, every, tiles + tuple(streamed)), (352, 176, every, tiles + tuple(streamed)),
              (1024, 256, every, tiles), (768, 384, coded, tiles), (704, 352, coded, tiles),
              (2048, 512, coded, tiles), (416, 208, coded, tiles), (4096, 2048, every, tiles),
              (8192, 4096, every, tiles), (1088, 544, coded, tiles), (4352, 2176, coded, tiles),
@@ -1673,6 +1676,7 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
              (2038, 1019, coded, tiles), (470, 235, coded, tiles), (8198, 4099, coded, tiles),
              (16418, 8209, coded, (tiles[0], GEMM_FRAMES)), (24578, 12289, coded, tiles[1:]),
              (464, 232, every, tiles[:1]), (496, 248, every, tiles[:1]),
+             (480, 240, every, tiles[:1]),
              (1856, 928, every, tiles[:1]), (1984, 992, every, tiles[:1]),
              (14848, 7424, coded, (GEMM_FRAMES,)),
              (GEMM_NFFT, 20481, coded, (GEMM_FRAMES, STAGED_FRAMES)),
@@ -1683,7 +1687,7 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
              (512, 256, ("uint8",), tiles))
     # every tile timed
     new_sizes = (464, 496, 1856, 1984, 14848, GEMM_NFFT, 131072, 98304, 49154)
-    streaming = {}  # the mixed route's times at the streaming tiles
+    streaming = {}  # the mixed route's times at the streaming tiles (keys of 352 suffixed)
     stream = torch.cuda.current_stream().cuda_stream
 
     def build_plain_tables(n_fft):
@@ -1755,6 +1759,9 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
                "bound_ms": t_bound, "bound_by": by}
         if rec["route"] == "chirp":
             rec["layout"] = "block" if _chirp_kernel(n_fft) == "mixed" else "cluster"
+        if rec["route"] == "mixed" or rec.get("layout") == "block":
+            # dft_mixed.cu's layout, threads, resident warps, registers, spills
+            rec["kernel"] = mixed_layout(n_fft, hop, x.dtype)
         if rec["route"] == "staged":
             rec["mode"] = staged_mode(n_fft)
         # the yardsticks take up to 0.35 s a call at 16384: two timed calls;
@@ -1906,11 +1913,11 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
                 raise AssertionError(f"B1 ({route} route) {n_fft}/{hop}: the codes "
                                      "and their int16 decode give different magnitudes")
             if frames in streamed:
-                for kind in coded:
+                for kind in kinds:
                     rec = timed(xs[kind], window, win, n_fft, hop, frames, with_plain=False)
-                    name = f"{streamed[frames]}_{kind}"
+                    name = f"{streamed[frames]}_{kind}" + ("" if n_fft == 384 else f"_{n_fft}")
                     streaming.update({f"{k}_{name}": v for k, v in rec.items()
-                                      if k not in ("route", "bound_by")})
+                                      if k not in ("route", "bound_by", "kernel")})
             if frames == tiles[0] or n_fft in new_sizes:
                 suffix = "" if frames == tiles[0] else f"/{frames}"
                 for kind in kinds:
@@ -1923,6 +1930,15 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
             del xs, off, decoded, a
             torch.cuda.empty_cache()
         record["seconds_by_size"][f"{n_fft}/{hop}"] = time.perf_counter() - t_size
+
+    # dft_mixed.cu's compiled layout runs the spectral wires' plans, the
+    # warp layout a plan outside its table where four warps fit
+    for size, layout in (("384/192", "compiled"), ("352/176", "compiled"), ("480/240", "warp")):
+        for kind in every:
+            got = cases[f"{size}/{kind}"]["kernel"]["layout"]
+            if got != layout:
+                raise AssertionError(f"B1 {size}/{kind}: dft_mixed.cu's {got} layout, "
+                                     f"not the {layout} layout")
 
     def of_route(table, route):
         return {k: v for k, v in record[table].items()
@@ -1958,10 +1974,11 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
         "B1's mixed-radix route (every {2,...,31}-smooth n_fft up to 8192 but 512): "
         "ms etc. at n_fft 384 / hop 192 (the sp-bfp5 and sp-bfp6 wires), a 32768-frame "
         "int16 tile x 193 bins; the *_normalize_tile_* and *_stats_tile_* keys: streamed "
-        f"sp-bfp5's {CHUNK_TILE}- and {STATS_TILE}-frame tiles at 384 / 192; cases: every "
-        "size and type timed (a /11251 suffix: the ragged tile), gemm_ms: the GEMM kernel "
-        "called directly at the same n_fft, library_ms: torch.stft(...).abs() at the same "
-        "n_fft")
+        f"sp-bfp5's {CHUNK_TILE}- and {STATS_TILE}-frame tiles at 384 / 192 (a _352 suffix: "
+        "at 352 / 176, sp11-bfp5's); cases: every size and type timed (a /11251 suffix: the "
+        "ragged tile), kernel: dft_mixed.cu's layout (warp, block or compiled), threads, "
+        "resident warps, registers and spilled bytes, gemm_ms: the GEMM kernel called "
+        "directly at the same n_fft, library_ms: torch.stft(...).abs() at the same n_fft")
     mixed_row.update(streaming)
     cluster_row = row(
         "dft_magnitude_cluster", "cluster", "16384/8192/int16",

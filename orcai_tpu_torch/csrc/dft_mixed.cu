@@ -60,25 +60,43 @@
 // magnitudes as coalesced row stores. Frames past n_frames are neither
 // computed nor written; a phantom second frame of an odd count reads zeros.
 //
-// Two layouts, chosen on the host for each plan, hop and sample type
-// (choose_layout). The warp layout: each warp owns a frame pair and its
-// two exchange buffers, the passes synchronise the warp only, and the
-// roots and the window sit in shared memory; it is taken where it keeps at
-// least 4 warps resident on an SM (every n_fft up to 2048 at the spectral
-// and default hops, 1088, 1216). The block layout: the whole block (up to
-// 512 threads) owns one frame pair at a time, with __syncthreads() between
-// the passes and one pair of exchange buffers, 128 KB at 8192; the roots and
+// Three layouts, chosen on the host for each plan, hop and sample type
+// (choose_layout). The compiled layout, for the plans of COMPILED: those of
+// the spectral wires' 384 and 352 (ops/spectral.py), the sizes of this
+// route that a configuration of the repo runs. Each plan is compiled whole
+// into a kernel of its own, in the build of its largest odd radix, so that
+// every pass's radix, stride, root offset, exchange layout (derived from
+// the radices at compile time: dft_pads.cuh) and round count is a
+// constant: no switch on the radix, no division or shift by a pad at run
+// time, and only a last part-full round tests its lanes. Each warp owns a
+// frame pair and its two exchange buffers, lane l takes butterflies l,
+// l + 32, ... of each pass, and a pass's rounds are unrolled. The window
+// carries the samples' scale (1/32768, mu-law's 4/32768: exact), a lane's
+// first-pass window values stay in registers where they are 16 or fewer,
+// int16 becomes float by an add and a subtract on 1.5 * 2^23 and a mu-law
+// code by its bits, all exact, in place of the quarter-rate conversion
+// unit. Its radices are 16 at most, so a thread keeps 80 registers and an
+// SM three blocks of 8 warps (24 warps). A plan is compiled in only for a
+// size a configuration runs: each costs the build a kernel for each sample
+// type. The warp layout: the same shape for every other plan, read at run
+// time (the radix switched on a pass, the pads shifted by), 128 registers a
+// thread and 16 warps an SM. Both are taken where they keep at least 4
+// warps resident on an SM (every n_fft up to 2048 at the spectral and
+// default hops, 1088, 1216). The block layout: the whole block (up to 512
+// threads) owns one frame pair at a time, with __syncthreads() between the
+// passes and one pair of exchange buffers, 128 KB at 8192; the roots and
 // the window stay in shared memory where they fit beside the buffers and
 // are read from device memory through L1 where they do not. It takes every
 // larger n_fft (4352) and the chirp mode. A kernel is built for the
 // largest odd radix its plans need (11, 13, 17, 23 also for the plans of
-// 19, or 31 also for those of 29): the larger butterflies' registers would cost
-// the passes of the plans that lack them a few percent, so each plan runs
-// the kernel of its own largest odd radix. Each of those, for each sample
-// type, is a build of its own (-DORCAI_ODD, -DORCAI_DTYPE, ops/_build.py:
-// its warp and its block kernel), so that the kernels compile side by
-// side; the host picks the build (ops/dft.py::_build_variant) and a build
-// refuses another sample type or a plan with a larger odd radix.
+// 19, or 31 also for those of 29): the larger butterflies' registers would
+// cost the passes of the plans that lack them a few percent, so each plan
+// runs the kernel of its own largest odd radix. Each of those, for each
+// sample type, is a build of its own (-DORCAI_ODD, -DORCAI_DTYPE,
+// ops/_build.py: its warp, its block and its compiled kernels), so that
+// the kernels compile side by side; the host picks the build
+// (ops/dft.py::_build_variant) and a build refuses another sample type or
+// a plan with a larger odd radix.
 //
 // The chirp-z (Bluestein) mode, for an n_fft N with a prime factor above
 // 31: X[k] = a[k] sum_n (w a)[n] x[n] b[k - n] with a[n] = exp(-i pi (n^2
@@ -94,15 +112,21 @@
 // computed on the host from n^2 mod 2N in integers and the angle in
 // float64, rounded once to float32, and read through L1.
 //
-// What holds it: shared memory and the latency of its synchronised passes,
-// not HBM. Every pass reads and writes N complex values (two wavefronts a
-// warp access) and reads (R-1)/R*N roots, so the plan takes the fewest
-// passes; the block layout leaves one or two blocks on an SM, whose warps
-// wait at each pass's barrier.
+// What holds it: the passes' instructions, not HBM. Taken apart at 384 /
+// 192 on int16 (tools/probe_mixed.py, which builds its own copy of this
+// source with the passes or the row stores left out), the warp layout read
+// 0.0172 and 0.0440 of its 0.0472 ms on an H100; the compiled layout
+// 0.0160 and 0.0248 of 0.0281, and at 32 warps an SM (one exchange buffer,
+// the values in registers across it) no faster than at 24: issue, not
+// latency. Every pass reads and writes N
+// complex values (two wavefronts a warp access) and reads (R-1)/R*N roots,
+// so the plan takes the fewest passes; the block layout leaves one or two
+// blocks on an SM, whose warps wait at each pass's barrier.
 //
 // uint8 input is mu-law codes (the mulaw8 wire), staged as bytes and
 // decoded where a sample is read, by the integer steps dft_magnitude.cu and
-// dft_gemm.cu use, so the codes and their int16 decode give the same
+// dft_gemm.cu use (the compiled layout by the code's bits, to the same
+// float), so the codes and their int16 decode give the same
 // magnitudes. The 16-byte copies need a 16-byte aligned source and a hop of
 // a multiple of 16 bytes; any other tile (a view of resident codes one
 // byte off) takes the one-sample-a-thread copy. IEEE fp32 throughout: no
@@ -121,10 +145,10 @@
 #if !defined(ORCAI_DTYPE) || ORCAI_DTYPE < 0 || ORCAI_DTYPE > 2
 #error "build with -DORCAI_DTYPE=0 (float32), 1 (int16) or 2 (uint8 mu-law codes)"
 #endif
-
 namespace {
 
 #include "dft_butterflies.cuh"
+#include "dft_pads.cuh"
 
 constexpr int MAX_N = 8192;        // the largest FFT: n_fft, or M in the chirp mode
 constexpr int CHIRP_MAX_N = 4096;  // the chirp mode's largest n_fft (M <= 8192)
@@ -146,6 +170,7 @@ struct Plan {
 
 struct Layout {  // the block's shape and dynamic shared memory; offsets in bytes
   int block;     // 1: the whole block owns a frame pair; 0: each warp owns one
+  int compiled;  // the warp layout's plan in COMPILED (the compiled layout), or -1
   int threads, units;  // threads a block; owners of frame pairs (warps, or 1)
   int frames, spans;   // frames a group; span buffers (2: the copy overlaps)
   int tables;          // 1: roots and window in shared memory
@@ -358,8 +383,9 @@ __device__ __forceinline__ void untangle(const Bin& bin, int N, float* __restric
     const float2 zy = bin(k == 0 ? 0 : N - k);
     const float pr = za_k.x + zy.x, pi = za_k.y - zy.y;  // 2 X_t[k]
     const float qr = za_k.y + zy.y, qi = za_k.x - zy.x;  // 2 |X_t+1[k]| parts
-    row_a[k] = 0.5f * sqrtf(pr * pr + pi * pi);
-    if (has_b) row_a[n_bins + k] = 0.5f * sqrtf(qr * qr + qi * qi);
+    const float ma = 0.5f * sqrtf(pr * pr + pi * pi), mb = 0.5f * sqrtf(qr * qr + qi * qi);
+    row_a[k] = ma;
+    if (has_b) row_a[n_bins + k] = mb;
   }
 }
 
@@ -389,6 +415,264 @@ __device__ __forceinline__ void transform_pair(const T* xa, int hop, const float
     untangle(ChirpBin{u, s, g, chirp + n_fft}, n_fft, out, t, n_frames, lane, width);
   }
   fft_sync<BLOCK>();  // the buffers are free for the next pair
+}
+
+// The compiled layout's plans, ops/dft.py::fft_plan's radices of the sizes
+// that a configuration of the repo runs on this route: the spectral wires
+// (ops/spectral.py). Their exchange layouts are exchange_pads' (dft_pads.cuh),
+// derived at compile time. tests/test_torch_dft_mixed.py holds the table to
+// fft_plan.
+struct Compiled {
+  int n_passes;
+  int radix[3];
+};
+constexpr Compiled COMPILED[] = {
+    {3, {16, 8, 3}},  // 384 / 192, the sp-bfp5 and sp-bfp6 wires
+    {3, {8, 4, 11}},  // 352 / 176, the sp11-bfp5 wire
+};
+constexpr int N_COMPILED = sizeof(COMPILED) / sizeof(COMPILED[0]);
+
+// the build that runs plans of largest odd radix `odd` (ops/dft.py::_build_variant)
+__host__ __device__ constexpr int build_of(int odd) {
+  return odd <= 11 ? 11 : odd <= 13 ? 13 : odd <= 17 ? 17 : odd <= 23 ? 23 : 31;
+}
+
+// the product of the radices before pass p
+__host__ __device__ constexpr int ns_of(const Compiled& c, int p) {
+  int v = 1;
+  for (int q = 0; q < p; ++q) v *= c.radix[q];
+  return v;
+}
+__host__ __device__ constexpr int largest_of(const Compiled& c) {
+  int v = 1;
+  for (int p = 0; p < c.n_passes; ++p) v = c.radix[p] > v ? c.radix[p] : v;
+  return v;
+}
+__host__ __device__ constexpr int odd_of(const Compiled& c) {  // the largest odd radix
+  int v = 1;
+  for (int p = 0; p < c.n_passes; ++p) v = c.radix[p] % 2 && c.radix[p] > v ? c.radix[p] : v;
+  return v;
+}
+
+// what each plan's radices give at compile time: its exchange layouts, and
+// the length of one exchange buffer, even so that each is 16-byte aligned
+struct Derived {
+  Pads pads;
+  int zbuf;
+};
+struct DerivedTable {
+  Derived d[N_COMPILED];
+};
+__host__ __device__ constexpr DerivedTable derive() {
+  DerivedTable t{};
+  for (int i = 0; i < N_COMPILED; ++i) {
+    const Compiled& c = COMPILED[i];
+    const int n = ns_of(c, c.n_passes);
+    t.d[i].pads = exchange_pads(c.radix, c.n_passes);
+    int top = 0;
+    for (int p = 0; p < c.n_passes; ++p) {
+      const int s = t.d[i].pads.s[p], g = t.d[i].pads.g[p];
+      const int end = s ? (n - 1) + (((n - 1) >> s) << g) + 1 : n;
+      top = end > top ? end : top;
+    }
+    t.d[i].zbuf = (top + 1) & ~1;
+  }
+  return t;
+}
+constexpr DerivedTable DERIVED = derive();
+
+// blocks of MAX_WARPS warps an SM that __launch_bounds__ asks registers
+// for: the warp layout two (128 registers a thread), the compiled layout
+// three (80), which its passes of radix 16 at most take without a spill
+constexpr int WARP_MIN_BLOCKS = 2;
+constexpr int COMPILED_MIN_BLOCKS = 3;
+
+// COMPILED[I]'s constants
+template <int I>
+struct Fixed {
+  static constexpr Compiled C = COMPILED[I];
+  static constexpr Derived D = DERIVED.d[I];
+  static constexpr int P = C.n_passes;
+  static constexpr int N = ns_of(C, P);
+  static constexpr int ZBUF = D.zbuf;
+  __host__ __device__ static constexpr int R(int p) { return C.radix[p]; }
+  __host__ __device__ static constexpr int NS(int p) { return ns_of(C, p); }
+  __host__ __device__ static constexpr int S(int p) { return D.pads.s[p]; }
+  __host__ __device__ static constexpr int G(int p) { return D.pads.g[p]; }
+  // pass p's roots in the pass-ordered table (ops/dft.py::pass_roots)
+  __host__ __device__ static constexpr int TW(int p) {
+    int off = 0;
+    for (int q = 1; q < p; ++q) off += (C.radix[q] - 1) * ns_of(C, q);
+    return off;
+  }
+  __host__ __device__ static constexpr int ROUNDS(int p) { return (N / C.radix[p] + 31) / 32; }
+  static constexpr int MIN_BLOCKS = COMPILED_MIN_BLOCKS;
+  // a lane's first-pass window values, in registers where they are few
+  static constexpr int WIN_REGS =
+      (N / C.radix[0] + 31) / 32 * C.radix[0] <= 16 ? (N / C.radix[0] + 31) / 32 * C.radix[0] : 0;
+  static_assert(largest_of(C) <= 16, "COMPILED_MIN_BLOCKS' registers hold radix 16 at most");
+};
+
+template <int S, int G>
+__device__ __forceinline__ int pad(int a) {
+  if constexpr (S == 0) return a;
+  else return a + ((a >> S) << G);
+}
+
+// samples as float32 before the scale of int16 (1/32768) and of mu-law
+// (4/32768: the code's 14-bit magnitude m14 unshifted), which the window
+// carries: w * (x / 32768) and (w / 32768) * x are the same float, every
+// scaling exact. An integer below 2^22 becomes a float as the low bits of
+// 1.5 * 2^23 less that constant (an add and a float subtract, both exact),
+// not by the conversion unit's quarter-rate I2F.
+__device__ __forceinline__ float int_to_f32(int v) {
+  return __int_as_float(0x4B400000 + v) - 12582912.0f;
+}
+__device__ __forceinline__ float sample_unscaled(float v) { return v; }
+__device__ __forceinline__ float sample_unscaled(int16_t v) { return int_to_f32(v); }
+// a mu-law code's +-m14 = +-(((2 mant + 33) << e) - 33): (2 mant + 33) 2^e
+// is the float whose bits are 33.0f's plus the code's low 7 bits (e, mant)
+// shifted to the top of the mantissa; less 33 with the code's sign on both,
+// exact (+0 for both zero codes)
+__device__ __forceinline__ float sample_unscaled(uint8_t c) {
+  const unsigned sign = (c & 0x80u) << 24;
+  const float a = __uint_as_float((0x42040000u + ((c & 0x7Fu) << 19)) | sign);
+  return a - __uint_as_float(0x42040000u | sign);
+}
+template <typename T>
+constexpr float SAMPLE_SCALE = std::is_same_v<T, float>     ? 1.0f
+                               : std::is_same_v<T, int16_t> ? 1.0f / 32768.0f
+                                                            : 4.0f / 32768.0f;
+
+// an R-point DFT whose output r goes to put(r, re, im)
+template <int R, typename Put>
+__device__ __forceinline__ void butterfly(float (&re)[R], float (&im)[R], const Put& put) {
+  if constexpr (EMITS<R>) {
+    dft_emit(re, im, put);
+  } else {
+    dft(re, im);
+#pragma unroll
+    for (int r = 0; r < R; ++r) put(r, re[r], im[r]);
+  }
+}
+
+// pass 0: butterfly j reads the windowed samples n = j + r N/R of the two
+// frames and writes z'[j R + r]
+template <int I>
+using WinRegs = float[Fixed<I>::WIN_REGS ? Fixed<I>::WIN_REGS : 1];
+
+template <int I, typename T>
+__device__ __forceinline__ void compiled_first(const T* xa, int hop, const WinRegs<I>& wreg,
+                                               const float* win, float2* dst, int lane) {
+  using F = Fixed<I>;
+  constexpr int R = F::R(0), NB = F::N / R, H = F::ROUNDS(0);
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    const int j = lane + 32 * h;
+    if (NB % 32 == 0 || j < NB) {
+      float re[R], im[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int n = j + r * NB;
+        const float w = F::WIN_REGS ? wreg[h * R + r] : win[n];
+        re[r] = w * sample_unscaled(xa[n]);
+        im[r] = w * sample_unscaled(xa[hop + n]);
+      }
+      butterfly<R>(re, im, [&](int r, float x, float y) {
+        dst[pad<F::S(0), F::G(0)>(j * R + r)] = make_float2(x, y);
+      });
+    }
+  }
+}
+
+// pass p > 0, round h: butterfly j = lane + 32 h reads z[j + r N/R],
+// multiplies by the roots at tw[(r - 1) Ns + j % Ns] and writes
+// z'[(j / Ns) Ns R + j % Ns + r Ns]
+template <int I, int p>
+__device__ __forceinline__ void compiled_round(const float2* __restrict__ src,
+                                               float2* __restrict__ dst,
+                                               const float2* __restrict__ twp, int lane, int h) {
+  using F = Fixed<I>;
+  constexpr int R = F::R(p), NS = F::NS(p), NB = F::N / R;
+  const int j = lane + 32 * h;
+  if (NB % 32 != 0 && j >= NB) return;
+  float re[R], im[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float2 v = src[pad<F::S(p - 1), F::G(p - 1)>(j + r * NB)];
+    re[r] = v.x;
+    im[r] = v.y;
+  }
+  const int jm = j % NS;
+#pragma unroll
+  for (int r = 1; r < R; ++r) {
+    const float2 w = twp[(r - 1) * NS + jm];
+    const float vr = re[r] * w.x - im[r] * w.y;
+    const float vi = re[r] * w.y + im[r] * w.x;
+    re[r] = vr;
+    im[r] = vi;
+  }
+  const int base = j / NS * NS * R + jm;
+  butterfly<R>(re, im, [&](int r, float x, float y) {
+    dst[pad<F::S(p), F::G(p)>(base + r * NS)] = make_float2(x, y);
+  });
+}
+
+// pass p > 0: its rounds unrolled, so that one round's loads overlap
+// another's sums
+template <int I, int p>
+__device__ __forceinline__ void compiled_pass(const float2* __restrict__ src,
+                                              float2* __restrict__ dst,
+                                              const float2* __restrict__ tw, int lane) {
+  using F = Fixed<I>;
+  constexpr int H = F::ROUNDS(p), TW = F::TW(p);
+#pragma unroll
+  for (int h = 0; h < H; ++h) compiled_round<I, p>(src, dst, tw + TW, lane, h);
+}
+
+template <int I, int p>
+__device__ __forceinline__ void compiled_passes(float2*& src, float2*& dst,
+                                                const float2* tw, int lane) {
+  if constexpr (p < Fixed<I>::P) {
+    compiled_pass<I, p>(src, dst, tw, lane);
+    __syncwarp();
+    float2* tmp = src;
+    src = dst;
+    dst = tmp;
+    compiled_passes<I, p + 1>(src, dst, tw, lane);
+  }
+}
+
+// Frames t and t + 1 through COMPILED[I]'s passes, untangled, their rows
+// written: the warp layout's transform_pair with every constant folded
+template <int I, typename T>
+__device__ __forceinline__ void compiled_pair(const T* xa, int hop, const WinRegs<I>& wreg,
+                                              const float* win, const float2* tw, float2* za,
+                                              float2* zb, float* __restrict__ out, int t,
+                                              int n_frames, int lane) {
+  using F = Fixed<I>;
+  constexpr int N = F::N, NBINS = N / 2 + 1, SL = F::S(F::P - 1), GL = F::G(F::P - 1);
+  compiled_first<I>(xa, hop, wreg, win, za, lane);
+  __syncwarp();
+  float2* src = za;
+  float2* dst = zb;
+  compiled_passes<I, 1>(src, dst, tw, lane);
+  float* row_a = out + static_cast<long long>(t) * NBINS;
+  const bool has_b = t + 1 < n_frames;
+#pragma unroll
+  for (int m = 0; m < (NBINS + 31) / 32; ++m) {
+    const int k = lane + 32 * m;
+    if (NBINS % 32 == 0 || k < NBINS) {
+      const float2 za_k = src[pad<SL, GL>(k)];
+      const float2 zy = src[pad<SL, GL>(k == 0 ? 0 : N - k)];
+      const float pr = za_k.x + zy.x, pi = za_k.y - zy.y;  // 2 X_t[k]
+      const float qr = za_k.y + zy.y, qi = za_k.x - zy.x;  // 2 |X_t+1[k]| parts
+      const float ma = 0.5f * sqrtf(pr * pr + pi * pi), mb = 0.5f * sqrtf(qr * qr + qi * qi);
+      row_a[k] = ma;
+      if (has_b) row_a[NBINS + k] = mb;
+    }
+  }
+  __syncwarp();  // the buffers are free for the next pair
 }
 
 // 16-byte asynchronous copy from device to shared memory
@@ -424,11 +708,21 @@ __device__ __forceinline__ void stage(const T* __restrict__ audio, long long n_s
   async_commit();
 }
 
+// the compiled plan CI's constants, and the generic kernels' (CI < 0)
+template <int CI, bool = (CI >= 0)>
+struct Shape {
+  static constexpr int MIN_BLOCKS = WARP_MIN_BLOCKS, WIN_REGS = 0, ZBUF = 0;
+};
+template <int CI>
+struct Shape<CI, true> : Fixed<CI> {};
+
 // BLOCK false: the warp layout, each warp transforms its own frame pairs of
-// a group (two span buffers always); true: the block layout, the whole
-// block transforms the group's pairs one after the other.
-template <typename T, bool BLOCK, int ODD>
-__global__ void __launch_bounds__(BLOCK ? MAX_BLOCK_THREADS : MAX_WARPS * 32, BLOCK ? 1 : 2)
+// a group (two span buffers always), by the plan's passes or, CI >= 0, by
+// those of COMPILED[CI] compiled in (the compiled layout); true: the block
+// layout, the whole block transforms the group's pairs one after the other.
+template <typename T, bool BLOCK, int ODD, int CI = -1>
+__global__ void __launch_bounds__(BLOCK ? MAX_BLOCK_THREADS : MAX_WARPS * 32,
+                                  BLOCK ? 1 : Shape<CI>::MIN_BLOCKS)
 dft_mixed_kernel(const T* __restrict__ audio, long long n_samples,
                  const float* __restrict__ window, const float2* __restrict__ roots,
                  const float2* __restrict__ chirp, float* __restrict__ out, int n_frames,
@@ -447,8 +741,9 @@ dft_mixed_kernel(const T* __restrict__ audio, long long n_samples,
   const int lane = BLOCK ? tid : (tid & 31);
   const int width = BLOCK ? n_threads : 32;
   const int unit = BLOCK ? 0 : (tid >> 5);  // this thread's owner of frame pairs
-  float2* za = reinterpret_cast<float2*>(smem + lay.z_off) + 2 * unit * plan.zbuf;
-  float2* zb = za + plan.zbuf;
+  const int zbuf = Shape<CI>::ZBUF ? Shape<CI>::ZBUF : plan.zbuf;
+  float2* za = reinterpret_cast<float2*>(smem + lay.z_off) + 2 * unit * zbuf;
+  float2* zb = za + zbuf;
 
   const int frames = lay.frames;
   const int n_groups = (n_frames + frames - 1) / frames;
@@ -456,10 +751,22 @@ dft_mixed_kernel(const T* __restrict__ audio, long long n_samples,
     stage(audio, n_samples, span, lay.span_len,
           static_cast<long long>(blockIdx.x) * frames * hop, vec_ok, tid, n_threads);
   if (tid == 0) sp = plan;
+  // the compiled layout's window carries the samples' scale (sample_unscaled)
+  const float scale = CI >= 0 ? SAMPLE_SCALE<T> : 1.0f;
   if (tables) {
     for (int i = tid; i < plan.tw_len; i += n_threads) tw_s[i] = roots[i];
     if (plan.chirp_n == 0)
-      for (int n = tid; n < plan.n; n += n_threads) win_s[n] = window[n];
+      for (int n = tid; n < plan.n; n += n_threads) win_s[n] = window[n] * scale;
+  }
+  constexpr int WIN_REGS = Shape<CI>::WIN_REGS;
+  float wreg[WIN_REGS ? WIN_REGS : 1];
+  if constexpr (WIN_REGS > 0) {
+    constexpr int R0 = Fixed<CI>::R(0), NB0 = Fixed<CI>::N / R0;
+#pragma unroll
+    for (int i = 0; i < WIN_REGS; ++i) {
+      const int j = lane + 32 * (i / R0);
+      wreg[i] = j < NB0 ? window[j + i % R0 * NB0] * scale : 0.0f;
+    }
   }
 
   int cur = 0;
@@ -477,8 +784,11 @@ dft_mixed_kernel(const T* __restrict__ audio, long long n_samples,
       const int t = g * frames + 2 * pair;
       if (t >= n_frames) break;  // the same for every thread of the owner
       const T* xa = span + cur * lay.span_stride + 2 * pair * hop;
-      transform_pair<BLOCK, ODD>(xa, hop, win, tw, chirp, za, zb, sp, out, t, n_frames, lane,
-                                 width);
+      if constexpr (CI >= 0)
+        compiled_pair<CI>(xa, hop, wreg, win, tw, za, zb, out, t, n_frames, lane);
+      else
+        transform_pair<BLOCK, ODD>(xa, hop, win, tw, chirp, za, zb, sp, out, t, n_frames, lane,
+                                   width);
     }
     __syncthreads();  // every owner is done with this span buffer
     if (!BLOCK || lay.spans == 2)
@@ -531,29 +841,33 @@ int make_plan(const int* packed, int n_fft, bool chirp, Plan* plan) {
 int round16(int bytes) { return (bytes + 15) & ~15; }
 
 // Fill in the offsets and size of `lay` (block, threads, units, frames,
-// spans and tables set) for this plan, hop and sample size.
-void size_layout(const Plan& plan, int hop, int elem, Layout* lay) {
+// spans and tables set) for this plan, hop, sample size and exchange
+// buffer length.
+void size_layout(const Plan& plan, int hop, int elem, int zbuf, Layout* lay) {
   const int frame_len = plan.chirp_n ? plan.chirp_n : plan.n;  // samples a frame
   const int win_bytes = plan.chirp_n ? 0 : 4 * plan.n;
   lay->span_len = (lay->frames - 1) * hop + frame_len;
   lay->span_stride = round16(lay->span_len * elem) / elem;
   lay->win_off = lay->tables ? plan.tw_len * 8 : 0;
   lay->z_off = lay->tables ? round16(lay->win_off + win_bytes) : 0;
-  lay->span_off = lay->z_off + lay->units * 2 * plan.zbuf * 8;
+  lay->span_off = lay->z_off + lay->units * 2 * zbuf * 8;
   lay->bytes = lay->span_off + lay->spans * lay->span_stride * elem;
 }
 
-// The block's shape for this plan, hop and sample size. The warp layout:
-// of 8, 4, 2 or 1 warps and 1, 2 or 4 frame pairs a warp per group, the
-// one that keeps the most warps resident on an SM (at most 16:
-// __launch_bounds__ gives each thread up to 128 registers), then the most
-// frames a group; taken when that is at least MIN_RESIDENT_WARPS. Else, and
+// The block's shape for this plan, hop and sample size; compiled: the index
+// of the plan in COMPILED, or -1. The warp layout (the compiled layout
+// where the plan is compiled): of 8, 4, 2 or 1 warps and 1, 2 or 4 frame
+// pairs a warp per group, the one that keeps the most warps resident on an
+// SM (at most 8 x WARP_MIN_BLOCKS, 16, or in the compiled layout 8 x
+// COMPILED_MIN_BLOCKS, 24: the blocks __launch_bounds__ gives registers
+// for), then the most frames a group;
+// taken when that is at least MIN_RESIDENT_WARPS. Else, and
 // always in the chirp mode, the block layout: a block of up to 512 threads,
 // as many as the passes' fewest butterflies (plan.n over its largest
 // radix) fill, with 1, 2 or 4 frame pairs a group; the most warps resident,
 // then two span buffers, then the tables in shared memory, then the most
 // frames.
-int choose_layout(const Plan& plan, int hop, int elem, Layout* best) {
+int choose_layout(const Plan& plan, int hop, int elem, int compiled, Layout* best) {
   int device = 0, optin = 0, per_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -562,19 +876,22 @@ int choose_layout(const Plan& plan, int hop, int elem, Layout* best) {
   const int limit = optin - static_cast<int>(sizeof(Plan));
   int best_key = -1;
   if (plan.chirp_n == 0) {
+    const int zbuf = compiled < 0 ? plan.zbuf : DERIVED.d[compiled].zbuf;
+    const int max_warps = MAX_WARPS * (compiled < 0 ? WARP_MIN_BLOCKS : COMPILED_MIN_BLOCKS);
     for (int warps = MAX_WARPS; warps >= 1; warps /= 2) {
       for (int per_warp = 1; per_warp <= 4; per_warp *= 2) {
         Layout lay;
         lay.block = 0;
+        lay.compiled = compiled;
         lay.threads = 32 * warps;
         lay.units = warps;
         lay.frames = 2 * warps * per_warp;
         lay.spans = 2;
         lay.tables = 1;
-        size_layout(plan, hop, elem, &lay);
+        size_layout(plan, hop, elem, zbuf, &lay);
         if (lay.bytes > limit) continue;
         int blocks = per_sm / (lay.bytes + reserved);
-        if (blocks > 16 / warps) blocks = 16 / warps;
+        if (blocks > max_warps / warps) blocks = max_warps / warps;
         const int key = blocks * warps * 64 + (lay.frames > 32 ? 0 : lay.frames);
         if (blocks * warps >= MIN_RESIDENT_WARPS && key > best_key) {
           best_key = key;
@@ -594,12 +911,13 @@ int choose_layout(const Plan& plan, int hop, int elem, Layout* best) {
       for (int tables = 0; tables <= 1; ++tables) {
         Layout lay;
         lay.block = 1;
+        lay.compiled = -1;
         lay.threads = threads;
         lay.units = 1;
         lay.frames = frames;
         lay.spans = spans;
         lay.tables = tables;
-        size_layout(plan, hop, elem, &lay);
+        size_layout(plan, hop, elem, plan.zbuf, &lay);
         if (lay.bytes > limit) continue;
         int blocks = per_sm / (lay.bytes + reserved);
         const int by_regs = 65536 / (threads * 128), by_threads = 2048 / threads;
@@ -616,49 +934,120 @@ int choose_layout(const Plan& plan, int hop, int elem, Layout* best) {
   return best_key < 0;
 }
 
-template <typename T, bool BLOCK, int ODD>
+// The kernel's dynamic shared memory set to the layout's, then how many
+// of its blocks an SM holds
+template <typename Kernel>
+int resident_blocks(Kernel kernel, const Layout& lay, int* per_sm) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, lay.threads, lay.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return *per_sm < 1 ? static_cast<int>(cudaErrorInvalidConfiguration) : 0;
+}
+
+// [layout (0 warp, 1 block, 2 compiled), threads, blocks an SM, frames a
+// group, dynamic shared memory, registers a thread, local memory a thread]
+template <typename Kernel>
+int describe(Kernel kernel, const Layout& lay, int* info) {
+  int per_sm = 0;
+  if (const int err = resident_blocks(kernel, lay, &per_sm)) return err;
+  cudaFuncAttributes attr;
+  if (const cudaError_t err = cudaFuncGetAttributes(&attr, kernel); err != cudaSuccess)
+    return static_cast<int>(err);
+  const int kind = lay.block ? 1 : lay.compiled >= 0 ? 2 : 0;
+  const int values[7] = {kind, lay.threads, per_sm, lay.frames, lay.bytes, attr.numRegs,
+                         static_cast<int>(attr.localSizeBytes)};
+  for (int i = 0; i < 7; ++i) info[i] = values[i];
+  return 0;
+}
+
+template <typename T, bool BLOCK, int ODD, int CI = -1>
 int run(const void* audio, const float* window, const float* roots, const float* chirp,
         const Plan& plan, const Layout& lay, float* out, int n_frames, int hop,
-        cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(
-      dft_mixed_kernel<T, BLOCK, ODD>, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int device = 0, n_sm = 0, per_sm = 0;
+        cudaStream_t s, int* info) {
+  const auto kernel = dft_mixed_kernel<T, BLOCK, ODD, CI>;
+  if (info) return describe(kernel, lay, info);
+  int per_sm = 0;
+  if (const int err = resident_blocks(kernel, lay, &per_sm)) return err;
+  int device = 0, n_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dft_mixed_kernel<T, BLOCK, ODD>,
-                                                      lay.threads, lay.bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int per = 16 / static_cast<int>(sizeof(T));
   const int vec_ok = reinterpret_cast<uintptr_t>(audio) % 16 == 0 && hop % per == 0;
   const int frame_len = plan.chirp_n ? plan.chirp_n : plan.n;
   const long long n_samples = static_cast<long long>(n_frames - 1) * hop + frame_len;
   const int n_groups = (n_frames + lay.frames - 1) / lay.frames;
   const int grid = n_groups < per_sm * n_sm ? n_groups : per_sm * n_sm;
-  dft_mixed_kernel<T, BLOCK, ODD><<<grid, lay.threads, lay.bytes, s>>>(
+  kernel<<<grid, lay.threads, lay.bytes, s>>>(
       static_cast<const T*>(audio), n_samples, window,
       reinterpret_cast<const float2*>(roots), reinterpret_cast<const float2*>(chirp), out,
       n_frames, hop, vec_ok, plan, lay);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The index in COMPILED of the FFT-mode plan this build compiled in, or -1
+int compiled_index(const Plan& plan) {
+  if (plan.chirp_n) return -1;
+  for (int i = 0; i < N_COMPILED; ++i) {
+    const Compiled& c = COMPILED[i];
+    bool same = build_of(odd_of(c)) == ORCAI_ODD && c.n_passes == plan.n_passes;
+    for (int p = 0; same && p < c.n_passes; ++p) same = c.radix[p] == plan.radix[p];
+    if (same) return i;
+  }
+  return -1;
+}
+
+// the compiled layout's kernel of COMPILED[lay.compiled]: one for each plan
+// of this build
+template <typename T, int I = 0>
+int run_compiled(const void* audio, const float* window, const float* roots, const Plan& plan,
+                 const Layout& lay, float* out, int n_frames, int hop, cudaStream_t s,
+                 int* info) {
+  if constexpr (I == N_COMPILED) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if constexpr (build_of(odd_of(COMPILED[I])) == ORCAI_ODD) {
+      if (lay.compiled == I)
+        return run<T, false, ORCAI_ODD, I>(audio, window, roots, nullptr, plan, lay, out,
+                                           n_frames, hop, s, info);
+    }
+    return run_compiled<T, I + 1>(audio, window, roots, plan, lay, out, n_frames, hop, s, info);
+  }
+}
+
 template <typename T>
 int launch(const void* audio, const float* window, const float* roots, const float* chirp,
-           const Plan& plan, float* out, int n_frames, int hop, cudaStream_t s) {
-  Layout lay;
-  if (choose_layout(plan, hop, static_cast<int>(sizeof(T)), &lay))
-    return static_cast<int>(cudaErrorInvalidConfiguration);
+           const Plan& plan, float* out, int n_frames, int hop, cudaStream_t s, int* info) {
   int odd = 1;  // the largest odd radix the plan needs: within this build's
   for (int p = 0; p < plan.n_passes; ++p)
     if (plan.radix[p] % 2 && plan.radix[p] > odd) odd = plan.radix[p];
   if (odd > ORCAI_ODD) return static_cast<int>(cudaErrorInvalidValue);
+  Layout lay;
+  if (choose_layout(plan, hop, static_cast<int>(sizeof(T)), compiled_index(plan), &lay))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   if (lay.block)  // no radix-11 block kernel: its plans run the radix-13 one
     return run<T, true, (ORCAI_ODD < 13 ? 13 : ORCAI_ODD)>(audio, window, roots, chirp, plan, lay,
-                                                         out, n_frames, hop, s);
-  return run<T, false, ORCAI_ODD>(audio, window, roots, chirp, plan, lay, out, n_frames, hop, s);
+                                                         out, n_frames, hop, s, info);
+  if (lay.compiled >= 0)
+    return run_compiled<T>(audio, window, roots, plan, lay, out, n_frames, hop, s, info);
+  return run<T, false, ORCAI_ODD>(audio, window, roots, chirp, plan, lay, out, n_frames, hop, s,
+                                  info);
 }
 
+using Sample = std::conditional_t<ORCAI_DTYPE == 0, float,
+                                  std::conditional_t<ORCAI_DTYPE == 1, int16_t, uint8_t>>;
+
+int checked_plan(int dtype, const float* window, const float* chirp, const int* plan, int n_fft,
+                 int hop, int n_frames, Plan* p) {
+  const int max_n = chirp ? CHIRP_MAX_N : MAX_N;
+  if (n_fft < 2 || n_fft > max_n || hop < 1 || hop > n_fft || n_fft % hop != 0 ||
+      n_frames < 1 || plan == nullptr || (chirp == nullptr && window == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (make_plan(plan, n_fft, chirp != nullptr, p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != ORCAI_DTYPE) return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
 }  // namespace
 
 // audio: (n_frames - 1) * hop + n_fft samples of float32 (dtype 0), int16
@@ -676,15 +1065,24 @@ int launch(const void* audio, const float* window, const float* roots, const flo
 extern "C" int orcai_dft_mixed(const void* audio, int dtype, const float* window,
                                const float* roots, const float* chirp, const int* plan,
                                float* out, int n_frames, int n_fft, int hop, void* stream) {
-  const int max_n = chirp ? CHIRP_MAX_N : MAX_N;
-  if (n_fft < 2 || n_fft > max_n || hop < 1 || hop > n_fft || n_fft % hop != 0 ||
-      n_frames < 1 || plan == nullptr || (chirp == nullptr && window == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
   Plan p;
-  if (make_plan(plan, n_fft, chirp != nullptr, &p)) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype != ORCAI_DTYPE) return static_cast<int>(cudaErrorInvalidValue);
-  using Sample = std::conditional_t<ORCAI_DTYPE == 0, float,
-                                    std::conditional_t<ORCAI_DTYPE == 1, int16_t, uint8_t>>;
+  if (const int err = checked_plan(dtype, window, chirp, plan, n_fft, hop, n_frames, &p))
+    return err;
   return launch<Sample>(audio, window, roots, chirp, p, out, n_frames, hop,
-                        static_cast<cudaStream_t>(stream));
+                        static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// What orcai_dft_mixed would launch for these arguments (chirp nonzero: the
+// chirp mode) on the current device, into info[7]: the layout (0 warp, 1
+// block), threads a block, blocks resident on an SM, frames a group,
+// dynamic shared memory a block, registers and local memory a thread.
+// Launches nothing.
+extern "C" int orcai_dft_mixed_layout(int dtype, const int* plan, int n_fft, int hop, int chirp,
+                                      int* info) {
+  static const float dummy = 0.0f;
+  Plan p;
+  if (const int err = checked_plan(dtype, &dummy, chirp ? &dummy : nullptr, plan, n_fft, hop, 1,
+                                   &p))
+    return err;
+  return launch<Sample>(nullptr, nullptr, nullptr, nullptr, p, nullptr, 1, hop, nullptr, info);
 }

@@ -19,10 +19,17 @@ n_fft alone (`dft_route`), and runs the plain PyTorch version,
   (8192) whose prime factors are all in MIXED_PRIMES (the spectral wires'
   384 and 352, 416, 464, 496, 1024, 1088, 1216, 1472, 1856, 1984, 2048,
   4096, 4352, 8192, ...): the same shape with one Stockham pass per radix of
-  `fft_plan(n_fft)` (16, 8, 4, 2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31), each
-  warp owning a frame pair where four warps fit on an SM (up to 2048 at the
-  usual hops) and the whole block owning one otherwise.
-  `_fft_mixed_reference` is its arithmetic step by step;
+  `fft_plan(n_fft)` (16, 8, 4, 2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31). The
+  plans of the spectral wires' 384 and 352 (ops/spectral.py), the sizes of
+  this route that a configuration of the repo runs, are compiled whole
+  into kernels of their own, every stride, pad and round a constant (the
+  compiled layout: a warp a frame pair, 24 warps an SM; the exchange
+  layouts derived from the radices at compile time, csrc/dft_pads.cuh,
+  as `exchange_pads` derives them); any other plan is read at run time,
+  each warp owning a frame pair where four warps fit on an SM (the warp
+  layout, up to 2048 at the usual hops) and the whole block owning one
+  otherwise. `mixed_layout` reports the layout the card takes.
+  `_fft_mixed_reference` is the arithmetic of all three step by step;
 - "cluster", csrc/dft_cluster.cu, at an n_fft from MIXED_MAX + 1 to
   CLUSTER_MAX (81920) whose prime factors are all in CLUSTER_PRIMES (no 29,
   31): one frame pair's FFT on a thread block cluster of 2, 4 or 8 CTAs that
@@ -1238,6 +1245,40 @@ def active_clusters(n_fft: int, dtype: torch.dtype = torch.int16) -> int:
         raise RuntimeError(f"dft_magnitude at n_fft {n_fft}: no cluster of {plan[0]} CTAs "
                            f"fits (CUDA error {err})")
     return clusters.value
+
+
+MIXED_LAYOUTS = ("warp", "block", "compiled")  # csrc/dft_mixed.cu's layouts, by the code it reports
+
+
+def mixed_layout(n_fft: int, hop: int, dtype: torch.dtype = torch.int16,
+                 library: ctypes.CDLL | None = None) -> dict:
+    """What csrc/dft_mixed.cu launches at n_fft / hop on `dtype` samples (the
+    mixed route, the chirp mode where it runs on the block layout, or
+    FFT_SIZES, where the FFT route runs and the kernel is called directly) on the
+    current CUDA device: its layout (MIXED_LAYOUTS), threads a block, blocks
+    resident on an SM and the warps they make, frames a group, dynamic
+    shared memory a block, registers and local (spilled) memory a thread.
+    `library` asks another build of the source (a tool's) in place of
+    ops/_build's. Launches nothing; raises where a launch would fail."""
+    route = dft_route(n_fft)
+    chirp = route == "chirp" and _chirp_kernel(n_fft) == "mixed"
+    if route not in ("mixed", "fft") and not chirp:  # FFT_SIZES: the kernel called directly
+        raise ValueError(f"n_fft {n_fft} does not take csrc/dft_mixed.cu")
+    n = chirp_length(n_fft) if chirp else n_fft
+    fn = (library or _build.load("dft_mixed", _build_variant("mixed", n, dtype))
+          ).orcai_dft_mixed_layout
+    i32 = ctypes.c_int
+    fn.argtypes = [i32, ctypes.POINTER(i32), i32, i32, i32, ctypes.POINTER(i32)]
+    fn.restype = i32
+    info = (i32 * 7)()
+    err = fn(_DTYPE_CODES[dtype], _plan_array(n), n_fft, hop, int(chirp), info)
+    if err != 0:
+        raise RuntimeError(f"dft_magnitude at n_fft {n_fft}: no layout of csrc/dft_mixed.cu "
+                           f"launches (CUDA error {err})")
+    layout, threads, blocks, frames, smem, registers, local = info
+    return {"layout": MIXED_LAYOUTS[layout], "threads": threads, "blocks_per_sm": blocks,
+            "resident_warps": blocks * threads // 32, "group_frames": frames, "smem_bytes": smem,
+            "registers": registers, "local_bytes": local}
 
 
 def _launch_staged(padded: torch.Tensor, window: np.ndarray, out: torch.Tensor, n_fft: int,

@@ -2,18 +2,19 @@
 turns on one CUDA device.
 
     python -m orcai_tpu_torch.tools.ab_b1_sizes --trees A B [--sizes 384/192,352/176,...]
-        [--frames 32768] [--iters 20] [--rounds 2] [--seed 0]
+        [--frames 32768] [--dtype int16] [--iters 20] [--rounds 2] [--seed 0]
 
 A and B are directories that hold an orcai_tpu_torch package (this
 checkout and another commit's, unpacked with `git archive`). The two
 packages share a name, so each run is a process of its own that imports
 its tree's package; the runs go A, B, B, A for each of --rounds. A run
 builds its tree's kernels (once a tree: the build stays in its _build/),
-makes an int16 tile of --frames frames at each n_fft / hop of --sizes from
---seed, holds dft_magnitude against the tree's plain version (atol 2e-4,
-or 2e-4 of the float64 rFFT where the plain fp32 GEMM is itself farther;
-above n_fft 8192, where it is, and its tables take seconds to build,
-against the float64 rFFT of the first 512 frames alone) and times it with
+makes a tile of --frames frames at each n_fft / hop of --sizes from --seed
+(--dtype: int16, uint8 mu-law codes of it, or float32), holds dft_magnitude
+against the tree's plain version (atol 2e-4, or 2e-4 of the float64 rFFT
+where the plain fp32 GEMM is itself farther; above n_fft 8192, where it
+is, and its tables take seconds to build, against the float64 rFFT of the
+first 512 frames alone) and times it with
 CUDA events over --iters launches behind a short device spin. Prints one
 JSON line of every run's ms by size, then the card's name and power limit.
 """
@@ -26,10 +27,14 @@ import subprocess
 import sys
 from pathlib import Path
 
-# the mixed route (the spectral wires' 384 and 352, 416, 1024, 2048, radices
-# 17, 19 and 23), the cluster route and the chirp mode on both layouts
-DEFAULT_SIZES = ("384/192,352/176,416/208,1024/256,2048/512,1088/544,1216/608,1472/736,"
-                 "16384/8192,32768/16384,8198/4099,16418/8209")
+# the mixed route's compiled layout (the spectral wires' 384 and 352), its
+# warp layout (768, 704, 416, 480, 1024, 2048, radices 17, 19, 23, 29 and
+# 31) and block layout (4096, 8192, 4352), the cluster route and the chirp
+# mode on both layouts
+DEFAULT_SIZES = ("384/192,352/176,768/384,704/352,416/208,480/240,1024/256,2048/512,1088/544,"
+                 "1216/608,1472/736,368/184,464/232,496/248,1856/928,1984/992,4096/2048,"
+                 "8192/4096,4352/2176,16384/8192,32768/16384,470/235,2038/1019,8198/4099,"
+                 "16418/8209")
 
 RUN = r"""
 import json, sys
@@ -38,18 +43,24 @@ import numpy as np
 import torch
 from orcai_tpu_torch.ops.dft import dft_magnitude, dft_magnitude_plain
 from orcai_tpu_torch.ops.frontend import hann_window
+from orcai_tpu_torch.ops.wire_codec import mulaw_decode_f32, mulaw_encode
 
 sizes, frames, iters, seed = json.loads(sys.argv[2]), *map(int, sys.argv[3:6])
+kind = sys.argv[6]
 dev = torch.device("cuda")
 out = {}
 for n_fft, hop in sizes:
     rng = np.random.default_rng(seed + n_fft)
     n = (frames - 1) * hop + n_fft
-    x = torch.from_numpy(rng.integers(-32768, 32768, n, dtype=np.int16)).to(dev)
+    pcm = rng.integers(-32768, 32768, n, dtype=np.int16)
+    x = torch.from_numpy({"int16": pcm, "uint8": mulaw_encode(pcm),
+                          "f32": (0.3 * rng.standard_normal(n)).astype(np.float32)}[kind]).to(dev)
+    x64 = {"int16": lambda: x.double() / 32768.0, "uint8": lambda: mulaw_decode_f32(x).double(),
+           "f32": lambda: x.double()}[kind]
     window = hann_window(n_fft)
     got = dft_magnitude(x, window, n_fft=n_fft, hop=hop)
     if n_fft > 8192:
-        frames64 = (x[:511 * hop + n_fft].double() / 32768.0).unfold(0, n_fft, hop)
+        frames64 = x64()[:511 * hop + n_fft].unfold(0, n_fft, hop)
         exact = torch.fft.rfft(frames64 * torch.from_numpy(window).to(dev), dim=1).abs()
         kernel = float((got[:512] - exact).abs().max())
         if not kernel <= 2e-4:
@@ -58,7 +69,7 @@ for n_fft, hop in sizes:
     want = got if n_fft > 8192 else dft_magnitude_plain(x, window, n_fft=n_fft, hop=hop)
     err = float((got - want).abs().max())
     if not err <= 2e-4:
-        frames64 = (x.double() / 32768.0).unfold(0, n_fft, hop)
+        frames64 = x64().unfold(0, n_fft, hop)
         exact = torch.fft.rfft(frames64 * torch.from_numpy(window).to(dev), dim=1).abs()
         kernel, plain = float((got - exact).abs().max()), float((want - exact).abs().max())
         if not (plain > 2e-4 and kernel <= 2e-4):
@@ -86,6 +97,7 @@ def main(argv=None) -> int:
     parser.add_argument("--trees", nargs=2, required=True, metavar=("A", "B"))
     parser.add_argument("--sizes", default=DEFAULT_SIZES)
     parser.add_argument("--frames", type=int, default=32768)
+    parser.add_argument("--dtype", choices=("int16", "uint8", "f32"), default="int16")
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--rounds", type=int, default=2)
     parser.add_argument("--seed", type=int, default=0)
@@ -102,12 +114,12 @@ def main(argv=None) -> int:
         for name, tree in zip([*args.trees, *reversed(args.trees)], [*trees, *reversed(trees)]):
             proc = subprocess.run(
                 [sys.executable, "-c", RUN, tree, json.dumps(sizes), str(args.frames),
-                 str(args.iters), str(args.seed)],
+                 str(args.iters), str(args.seed), args.dtype],
                 capture_output=True, text=True, timeout=1800)
             if proc.returncode != 0:
                 raise SystemExit(f"ab_b1_sizes: the run of {name} failed:\n{proc.stderr[-3000:]}")
             runs[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
-    print(json.dumps({"frames": args.frames, "dtype": "int16", "order": "A B B A",
+    print(json.dumps({"frames": args.frames, "dtype": args.dtype, "order": "A B B A",
                       "ms": {name: {size: [r[size] for r in rs] for size in rs[0]}
                              for name, rs in runs.items()}}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
