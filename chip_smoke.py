@@ -92,15 +92,20 @@ the run on any error:
            1472/736 and 368/184 in int16 and uint8, with radices 29 and 31
            at 464/232, 496/248, 1856/928 and 1984/992 in all three types,
            also at streamed sp-bfp5's 188784- and 262144-frame tiles at
-           384/192; the cluster route at 16384/8192 and 32768/16384 in all
-           three types and at 65536/32768 (8 CTAs) in int16 and uint8 on
-           the 11251-frame tile (at 32768 and 65536, where the plain GEMM's
+           384/192; the cluster route at 16384/8192 (4 CTAs) and 32768/16384
+           (8; two CTAs an SM) in all three types and at 65536/32768 (8
+           CTAs, one an SM; all three plans compiled whole) in int16 and
+           uint8 on the 11251-frame tile, and at 20736/10368 (4 CTAs) and
+           40960/20480 (8; both two an SM, both on the generic kernel, which
+           serves every plan with an odd radix) in all three types on the
+           11251-frame tile (at 32768 and up, where the plain GEMM's
            tables are 4.3 and 17 GB, against the kernel's arithmetic step by
            step on the card on a 33-frame tile and against the float64 rFFT
            on every frame); the chirp route at 2038/1019 and 470/235 (block
-           layout), 8198/4099 and 16418/8209 (cluster layout, 2 and 4 CTAs;
-           16418 also on a 301-frame tile) and 24578/12289 (8 CTAs, on the
-           11251-frame tile, held as 65536 is), the staged route at
+           layout), 8198/4099 and 16418/8209 (cluster layout, 4 and 8 CTAs,
+           two an SM; 16418 also on a 301-frame tile) and 24578/12289 (8
+           CTAs, one an SM, on the 11251-frame tile, held as 65536 is), the
+           staged route at
            40962/20481 (its chirp mode) on a 301-frame tile (against the
            plain version in int16, 6.7 GB of tables) and a 2048-frame one,
            at 131072/65536 and 98304/49152 (its FFT mode) on 2048 frames and
@@ -115,8 +120,9 @@ the run on any error:
            the cluster route, the GEMM kernel called directly at 40962 on
            301 frames and through dft_magnitude at n_fft 1 (its route's
            one size below 2^20; 1 launch, no B2 or pick), and the FFT route
-           at 512/256 in uint8; how many clusters the card
-           holds at once on 2, 4 and 8 CTAs; B1 of the codes bit-equal to B1
+           at 512/256 in uint8; the cluster layout at each of its sizes (CTAs
+           a cluster, threads, CTAs an SM, clusters the card holds at once,
+           a plan compiled whole: asserted); B1 of the codes bit-equal to B1
            of their int16 decode on every route; the new sizes no farther
            from the float64 rFFT than the plain version; kernel, plain,
            torch.stft and the GEMM kernel called directly at the same n_fft
@@ -1605,11 +1611,15 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
     at 480/240 (a plan outside dft_mixed.cu's compiled table) in all three
     types on the 32768-frame tile, the compiled layout asserted at 384 and
     352 and the warp layout at 480; the cluster route at
-    16384/8192 and 32768/16384 in all three types and at 65536/32768 (8
-    CTAs) in int16 and uint8 on the 11251-frame tile; the chirp route at
-    2038/1019 and 470/235 (block layout), 8198/4099 and 16418/8209 (cluster
-    layout, 2 and 4 CTAs; 16418 also on a GEMM_FRAMES-frame tile) in int16
-    and uint8, and at 24578/12289 (8 CTAs) on the 11251-frame tile; the
+    16384/8192 (4 CTAs) and 32768/16384 (8; both two CTAs an SM, their
+    plans compiled whole) in all three types and at 65536/32768 (8 CTAs of
+    one an SM, compiled whole) in int16 and uint8 on the 11251-frame tile,
+    and at 20736/10368 (4 CTAs) and 40960/20480 (8; both two CTAs an SM,
+    both on the generic kernel: radices 3 and 5) in all three types on the
+    11251-frame tile; the chirp route at 2038/1019 and 470/235 (block layout), 8198/4099 and
+    16418/8209 (cluster layout, 4 and 8 CTAs, two an SM; 16418 also on a
+    GEMM_FRAMES-frame tile) in int16 and uint8, and at 24578/12289 (8 CTAs
+    of one an SM) on the 11251-frame tile; the
     staged route at 14848/7424 (2^9 * 29) and 49154/24577 (its chirp mode)
     on a GEMM_FRAMES-frame tile, at GEMM_NFFT 40962/20481 (its chirp mode)
     on a GEMM_FRAMES- and a STAGED_FRAMES-frame tile, at 131072/65536 and
@@ -1639,10 +1649,11 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
     this PR's sizes on the other tiles too, and on the streamed tiles: the
     route's kernel, the GEMM kernel called directly at the same n_fft
     (above 8192 on a GEMM_FRAMES-frame tile: its time grows as N^2), the
-    plain version, torch.stft(...).abs() and the byte bound; how many
-    clusters of the cluster layout the card holds at once at each of its
-    sizes (active_clusters: 2, 4 and 8 CTAs); the staged kernels called
-    directly at 65536 beside the cluster route. Returns (the phase's
+    plain version, torch.stft(...).abs() and the byte bound; the cluster
+    layout at each of its sizes and types (cluster_layouts: CTAs a cluster,
+    threads, CTAs an SM, clusters the card holds at once, registers,
+    spills, a plan compiled whole, each asserted); the staged kernels
+    called directly at 65536 beside the cluster route. Returns (the phase's
     record, the mixed, the cluster, the chirp, the staged and the GEMM
     route's kernels rows)."""
     import numpy as np
@@ -1650,7 +1661,7 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
     from orcai_tpu_torch.ops.dft import (
         MIXED_MAX, _DTYPE_CODES, _chirp_cluster_reference, _chirp_kernel,
         _chirp_staged_reference, _fft_cluster_reference, _kernel, _launch_staged,
-        _route_tables, _staged_reference, active_clusters, chirp_length, cluster_plan,
+        _route_tables, _staged_reference, chirp_length, cluster_layout,
         dft_magnitude, dft_magnitude_plain, dft_route, mixed_layout, staged_chunk_pairs,
         staged_mode, staged_plan, windowed_dft_mats)
     from orcai_tpu_torch.ops.frontend import hann_window
@@ -1661,7 +1672,7 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
     record = {"max_abs_err": {}, "codes_bit_equal_decoded": {}, "gemm_fp32_floor_ms": {},
               "gemm_direct_max_abs_err": {}, "max_abs_err_vs_float64": {}, "plain_past_bar": {},
               "max_abs_err_vs_reference": {}, "gemm_direct_past_bar": {},
-              "gemm_plain_tables_s": {}, "active_clusters": {}, "seconds_by_size": {},
+              "gemm_plain_tables_s": {}, "cluster_layouts": {}, "seconds_by_size": {},
               "staged_plans": {}, "staged_kernels_a_call": {}, "c1_reach": {}}
     cases = {}
     every, coded, tiles = ("f32", "int16", "uint8"), ("int16", "uint8"), B1_TILES
@@ -1673,6 +1684,7 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
              (1216, 608, coded, tiles), (1472, 736, coded, tiles), (368, 184, coded, tiles[:1]),
              (16384, 8192, every, tiles),
              (32768, 16384, every, tiles), (65536, 32768, coded, tiles[1:]),
+             (20736, 10368, every, tiles[1:]), (40960, 20480, every, tiles[1:]),
              (2038, 1019, coded, tiles), (470, 235, coded, tiles), (8198, 4099, coded, tiles),
              (16418, 8209, coded, (tiles[0], GEMM_FRAMES)), (24578, 12289, coded, tiles[1:]),
              (464, 232, every, tiles[:1]), (496, 248, every, tiles[:1]),
@@ -1686,7 +1698,7 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
              ((1 << 20) - 2, (1 << 19) - 1, coded, (C1_FRAMES,)),
              (512, 256, ("uint8",), tiles))
     # every tile timed
-    new_sizes = (464, 496, 1856, 1984, 14848, GEMM_NFFT, 131072, 98304, 49154)
+    new_sizes = (464, 496, 1856, 1984, 14848, GEMM_NFFT, 131072, 98304, 49154, 20736, 40960)
     streaming = {}  # the mixed route's times at the streaming tiles (keys of 352 suffixed)
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -1762,6 +1774,10 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
         if rec["route"] == "mixed" or rec.get("layout") == "block":
             # dft_mixed.cu's layout, threads, resident warps, registers, spills
             rec["kernel"] = mixed_layout(n_fft, hop, x.dtype)
+        elif rec["route"] == "cluster" or rec.get("layout") == "cluster":
+            # dft_cluster.cu's CTAs a cluster, threads, CTAs an SM, resident
+            # clusters, registers, spills, a plan compiled whole or not
+            rec["kernel"] = cluster_layout(n_fft, hop, x.dtype)
         if rec["route"] == "staged":
             rec["mode"] = staged_mode(n_fft)
         # the yardsticks take up to 0.35 s a call at 16384: two timed calls;
@@ -1797,9 +1813,10 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
         if n_fft in builders:
             builders[n_fft].join()
         if route == "cluster" or route == "chirp" and _chirp_kernel(n_fft) == "cluster":
-            record["active_clusters"][f"{n_fft}"] = {
-                "ranks": cluster_plan(n_fft if route == "cluster" else chirp_length(n_fft))[2],
-                "clusters": active_clusters(n_fft)}
+            for kind in kinds:
+                record["cluster_layouts"][f"{n_fft}/{kind}"] = cluster_layout(
+                    n_fft, hop, {"f32": torch.float32, "int16": torch.int16,
+                                 "uint8": torch.uint8}[kind])
         if route == "staged":
             m = n_fft if staged_mode(n_fft) == "fft" else chirp_length(n_fft)
             record["staged_plans"][f"{n_fft}"] = {"mode": staged_mode(n_fft), "length": m,
@@ -1931,6 +1948,20 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
             torch.cuda.empty_cache()
         record["seconds_by_size"][f"{n_fft}/{hop}"] = time.perf_counter() - t_size
 
+    # dft_cluster.cu: two CTAs of 256 threads, of two frame pairs, on every
+    # SM where a plan fits twice (up to about 48000 points: 16384, 20736,
+    # 32768, 40960 and the chirp mode's 8198 and 16418), one of 512 above
+    # (65536, 24578); compiled whole the plans whose radices are all powers
+    # of two (16384, 32768 and 65536), every other plan (20736 and 40960 in
+    # the FFT mode, the chirp mode's) read at run time; no spill
+    compiled = (16384, 32768, 65536)
+    for key, got in record["cluster_layouts"].items():
+        n_fft = int(key.split("/")[0])
+        pair = n_fft not in (65536, 24578)
+        want = {"ctas_per_sm": 2 if pair else 1, "threads": 256 if pair else 512,
+                "compiled": n_fft in compiled, "local_bytes": 0}
+        if {k: got[k] for k in want} != want:
+            raise AssertionError(f"B1 {key}: dft_cluster.cu's layout {got}, not {want}")
     # dft_mixed.cu's compiled layout runs the spectral wires' plans, the
     # warp layout a plan outside its table where four warps fit
     for size, layout in (("384/192", "compiled"), ("352/176", "compiled"), ("480/240", "warp")):
@@ -1986,12 +2017,16 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
         "2, 4 or 8 CTAs; every {2,...,23}-smooth n_fft from 8193 to 81920): ms etc. at n_fft "
         "16384 / hop 8192, a 32768-frame int16 tile x 8193 bins; cases as the mixed row's "
         f"(gemm_ms_{GEMM_FRAMES}_frames: the GEMM kernel on a {GEMM_FRAMES}-frame tile)")
+    cluster_row["cluster_layouts"] = {k: v for k, v in record["cluster_layouts"].items()
+                                      if dft_route(int(k.split("/")[0])) == "cluster"}
     chirp_row = row(
         "dft_magnitude_chirp", "chirp", "2038/1019/int16",
         "B1's chirp-z (Bluestein) mode (every n_fft up to 40960 with a prime factor above "
         "31): on dft_mixed.cu's block layout where its length M is within 8192, on "
         "dft_cluster.cu above; ms etc. at n_fft 2038 / hop 1019, a 32768-frame int16 tile x "
         "1020 bins; cases as the mixed row's, each with its layout")
+    chirp_row["cluster_layouts"] = {k: v for k, v in record["cluster_layouts"].items()
+                                    if dft_route(int(k.split("/")[0])) == "chirp"}
     staged_row = row(
         "dft_magnitude_staged", "staged", f"{GEMM_NFFT}/20481/int16/{GEMM_FRAMES}",
         "B1's staged route (csrc/dft_staged.cu: the four-step split in kernels of their own "

@@ -12,14 +12,7 @@
 
 #pragma once
 
-constexpr int MAX_PASSES = 12;
-
-struct Side {  // the batched FFTs of one side of the split
-  int n, n_passes, tw_off;     // tw_off: the side's pass roots in shared memory
-  int radix[MAX_PASSES];
-  int ns[MAX_PASSES];          // product of the earlier radices
-  int pass_off[MAX_PASSES];    // the pass's roots from tw_off
-};
+#include "dft_side.cuh"
 
 __device__ __forceinline__ float2 cmul(float2 v, float2 w) {
   return make_float2(v.x * w.x - v.y * w.y, v.x * w.y + v.y * w.x);

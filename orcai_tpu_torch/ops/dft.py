@@ -91,7 +91,12 @@ MIXED_MAX = 8192  # the largest FFT of csrc/dft_mixed.cu (two buffers of it in s
 CLUSTER_MAX = 81920  # the largest FFT of csrc/dft_cluster.cu (N/C of each buffer on C CTAs)
 CHIRP_MAX = 40960  # the largest n_fft of the chirp mode: its M stays within CLUSTER_MAX
 CLUSTER_RANKS = (2, 4, 8)  # the cluster sizes csrc/dft_cluster.cu runs (8: the portable most)
-CLUSTER_CTA_BYTES = 160 * 1024  # a cluster CTA's two exchange buffers, of 227 KB
+# a cluster CTA's shared memory where two share an SM (half its 228 KB less
+# the 1 KB each CTA keeps; dft_cluster_plan.cuh::PAIR_CTA_BYTES); where no
+# cluster fits so, a CTA's two exchange buffers alone, one CTA an SM
+CLUSTER_PAIR_BYTES = 233472 // 2 - 1024
+CLUSTER_SOLO_BUFFERS = 160 * 1024
+CLUSTER_PLAN_BYTES = 576  # sizeof(Plan) of dft_cluster_plan.cuh, rounded to 16 bytes
 STAGED_MAX = 1 << 20  # the largest n_fft of csrc/dft_staged.cu, either mode
 STAGED_M_MAX = 2 * STAGED_MAX  # its largest FFT: its chirp mode's M at STAGED_MAX
 STAGED_BATCH = 16  # the most columns, or row pairs, one staged CTA transforms
@@ -589,10 +594,12 @@ def cluster_plan(n: int) -> tuple[int, int, int]:
     fewest passes (fft_plan(N1) and fft_plan(N2)), then the most even, the
     larger factor first (16384 -> 128 x 128, 32768 -> 256 x 128, 65536 ->
     256 x 256); C, the CTAs of a cluster, the fewest of CLUSTER_RANKS whose
-    two exchange buffers of n / C complex values fit in CLUSTER_CTA_BYTES of
-    a CTA's shared memory: 2 up to 20480 points (128 KB a CTA at 16384), 4
-    up to 40960 (128 KB at 32768), 8 up to 81920 (128 KB at 65536). Raises
-    for an n the layout does not take."""
+    CTAs fit twice on an SM (cluster_bytes within CLUSTER_PAIR_BYTES), so
+    that two frame pairs are in flight on every SM: 4 at 16384 (74 KB a
+    CTA) and at 20736, 8 at 32768; where none does (above about 48000
+    points), the fewest whose two buffers fit in CLUSTER_SOLO_BUFFERS, one
+    CTA an SM: 8 (128 KB of buffers at 65536). Raises for an n the layout
+    does not take."""
     if not MIXED_MAX < n <= CLUSTER_MAX or not _smooth(n, CLUSTER_PRIMES):
         raise ValueError(f"n {n}: the cluster layout takes {CLUSTER_PRIMES}-smooth sizes from "
                          f"{MIXED_MAX + 1} to {CLUSTER_MAX}")
@@ -600,8 +607,33 @@ def cluster_plan(n: int) -> tuple[int, int, int]:
               if d >= 2 and n % d == 0 and 2 <= n // d <= MIXED_MAX]
     n1, n2 = min(splits, key=lambda s: (len(fft_plan(s[0])) + len(fft_plan(s[1])),
                                         max(s) / min(s), -s[0]))
-    # two buffers of n / C float2 a CTA
-    return n1, n2, next(c for c in CLUSTER_RANKS if 16 * n <= c * CLUSTER_CTA_BYTES)
+    pair = [c for c in CLUSTER_RANKS if cluster_bytes(n1, n2, c) <= CLUSTER_PAIR_BYTES]
+    return n1, n2, pair[0] if pair else next(
+        c for c in CLUSTER_RANKS if 16 * n <= c * CLUSTER_SOLO_BUFFERS)
+
+
+def cluster_bytes(n1: int, n2: int, ranks: int) -> int:
+    """Shared memory a CTA of csrc/dft_cluster.cu takes for the split n1 x n2
+    on `ranks` CTAs, as dft_cluster_plan.cuh::make_plan lays it out: the
+    plan, the pass roots and the twiddles' two tables, the lookups, every
+    rank's buffer address and the two buffers (N1 columns of the rank's
+    columns, N2 rows of its rows, each at an odd stride)."""
+    h = n1 // 2
+    pair_lo, r, acc = [0], 1, 0
+    for k in range(h + 1):  # the row pairs {k, n1 - k} to the ranks by their rows' count
+        while r < ranks and acc >= r * n1 // ranks:
+            pair_lo.append(k)
+            r += 1
+        acc += 1 if k == 0 or (n1 % 2 == 0 and k == h) else 2
+    pair_lo += [h + 1] * (ranks + 1 - len(pair_lo))
+    most = max(hi - lo + max(min(hi, n1 - h) - max(lo, 1), 0)
+               for lo, hi in zip(pair_lo, pair_lo[1:]))
+    zbuf = (max(n1 * ((-(-n2 // ranks)) | 1), n2 * (most | 1)) + 1) & ~1
+    roots = len(pass_roots(n1, fft_plan(n1))) + len(pass_roots(n2, fft_plan(n2)))
+    s = 1 << twiddle_split(n1 * n2)
+    tables = ((roots + 1) & ~1) * 8 + (s + -(-(n1 * n2) // s)) * 16
+    lookups = -(-((n1 + n2) * 4 + n1 * 2) // 16) * 16
+    return CLUSTER_PLAN_BYTES + tables + lookups + 8 * CLUSTER_RANKS[-1] + 2 * zbuf * 8
 
 
 @lru_cache(maxsize=None)
@@ -617,18 +649,31 @@ def four_step_roots(n1: int, n2: int) -> np.ndarray:
     return table
 
 
-def _cluster_fft(zr: torch.Tensor, zi: torch.Tensor,
-                 split: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor]:
+def _four_step_twiddles(split: tuple[int, int], product: bool,
+                        device: torch.device) -> torch.Tensor:
+    """The four-step twiddles W_N^(k1 j) at [k1, j], (n1, n2, 2) float32 on
+    `device`: four_step_roots, or with `product` csrc/dft_cluster.cu's
+    (product_twiddles: the same bits at all but a few)."""
+    n1, n2 = split
+    if product:
+        t = product_twiddles(n1 * n2, np.arange(n1)[:, None] * np.arange(n2)[None, :])
+    else:
+        t = four_step_roots(n1, n2).reshape(n1, n2, 2)
+    return torch.from_numpy(t.copy()).to(device)
+
+
+def _cluster_fft(zr: torch.Tensor, zi: torch.Tensor, split: tuple[int, int],
+                 product: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """The complex FFT of each row of zr + i zi (N = n1 * n2 points, natural
     order in and out) as csrc/dft_cluster.cu's four steps: for each column
     j < n2 the n1-point FFT of z[n2 n1' + j] over n1' (`_stockham`,
-    fft_plan(n1)), giving Y[k1, j]; Y times four_step_roots [k1 * n2 + j];
-    for each row k1 the n2-point FFT over j (fft_plan(n2)), giving
-    Z[k1 + n1 k2]."""
+    fft_plan(n1)), giving Y[k1, j]; Y times the twiddles [k1, j]
+    (`_four_step_twiddles`); for each row k1 the n2-point FFT over j
+    (fft_plan(n2)), giving Z[k1 + n1 k2]."""
     n1, n2 = split
     p = zr.shape[0]
     tw1, tw2 = (torch.from_numpy(roots_of_unity(n).copy()).to(zr.device) for n in (n1, n2))
-    t = torch.from_numpy(four_step_roots(n1, n2).copy()).to(zr.device).reshape(n1, n2, 2)
+    t = _four_step_twiddles(split, product, zr.device)
     cols = [v.reshape(p, n1, n2).transpose(1, 2).reshape(-1, n1) for v in (zr, zi)]
     yr, yi = (v.reshape(p, n2, n1).transpose(1, 2) for v in _stockham(*cols, fft_plan(n1), tw1))
     vr = yr * t[..., 0] - yi * t[..., 1]
@@ -637,59 +682,61 @@ def _cluster_fft(zr: torch.Tensor, zi: torch.Tensor,
     return tuple(v.reshape(p, n1, n2).transpose(1, 2).reshape(p, -1) for v in (zr, zi))
 
 
-def _cluster_fft_rows_first(vr: torch.Tensor, vi: torch.Tensor,
-                            split: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor]:
+def _cluster_fft_rows_first(vr: torch.Tensor, vi: torch.Tensor, split: tuple[int, int],
+                            product: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """The chirp mode's second FFT on the cluster layout, natural order in
     and out, in the order its input lies after the first (v[k1 + n1 k2] on
     the CTA that owns row k1): for each k1 the n2-point FFT over k2
-    (fft_plan(n2)), giving G[k1, p2]; G times four_step_roots [k1 * n2 +
-    p2]; for each p2 the n1-point FFT over k1 (fft_plan(n1)), giving
-    U[n2 p1 + p2]."""
+    (fft_plan(n2)), giving G[k1, p2]; G times the twiddles [k1, p2]; for
+    each p2 the n1-point FFT over k1 (fft_plan(n1)), giving U[n2 p1 + p2]."""
     n1, n2 = split
     p = vr.shape[0]
     tw1 = torch.from_numpy(roots_of_unity(n1).copy()).to(vr.device)
-    cols = [v.transpose(1, 2).reshape(-1, n1) for v in _rows_and_twiddles(vr, vi, split)]
+    cols = [v.transpose(1, 2).reshape(-1, n1)
+            for v in _rows_and_twiddles(vr, vi, split, product)]
     return tuple(v.reshape(p, n2, n1).transpose(1, 2).reshape(p, -1)
                  for v in _stockham(*cols, fft_plan(n1), tw1))
 
 
-def _rows_and_twiddles(vr: torch.Tensor, vi: torch.Tensor,
-                       split: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor]:
+def _rows_and_twiddles(vr: torch.Tensor, vi: torch.Tensor, split: tuple[int, int],
+                       product: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """The first half of `_cluster_fft_rows_first`: for each k1 the
-    n2-point FFT over k2, times four_step_roots [k1 * n2 + p2]; (pairs, n1,
-    n2) tensors H[k1, p2]."""
+    n2-point FFT over k2, times the twiddles [k1, p2] (`_four_step_twiddles`);
+    (pairs, n1, n2) tensors H[k1, p2]."""
     n1, n2 = split
     p = vr.shape[0]
     tw2 = torch.from_numpy(roots_of_unity(n2).copy()).to(vr.device)
-    t = torch.from_numpy(four_step_roots(n1, n2).copy()).to(vr.device).reshape(n1, n2, 2)
+    t = _four_step_twiddles(split, product, vr.device)
     rows = [v.reshape(p, n2, n1).transpose(1, 2).reshape(-1, n2) for v in (vr, vi)]
     gr, gi = (v.reshape(p, n1, n2) for v in _stockham(*rows, fft_plan(n2), tw2))
     return gr * t[..., 0] - gi * t[..., 1], gr * t[..., 1] + gi * t[..., 0]
 
 
 def _four_step_reference(padded: torch.Tensor, window: np.ndarray, n_fft: int, hop: int,
-                         split: tuple[int, int]) -> torch.Tensor:
+                         split: tuple[int, int], product: bool = False) -> torch.Tensor:
     """Frames t and t+1 (t even) as one complex signal z = w*x_t + i*w*x_t+1,
-    its n_fft-point FFT by the four steps of `_cluster_fft` on `split`, then
-    the untangle and the magnitudes."""
+    its n_fft-point FFT by the four steps of `_cluster_fft` on `split` (its
+    twiddles the product ones with `product`), then the untangle and the
+    magnitudes."""
     if split[0] * split[1] != n_fft:
         raise ValueError(f"split {split} is not of n_fft {n_fft}")
     tpad = _frames_count(padded.shape[0], n_fft, hop)
     win = torch.from_numpy(fft_tables(_check_window(window, n_fft))[0].copy()).to(padded.device)
     xa, xb = _pair_frames(padded, n_fft, hop)
-    zr, zi = _cluster_fft(xa * win, xb * win, split)
+    zr, zi = _cluster_fft(xa * win, xb * win, split, product)
     return _untangle(zr, zi, n_fft, tpad)
 
 
 def _chirp_four_step_reference(padded: torch.Tensor, window: np.ndarray, n_fft: int, hop: int,
-                               m: int, split: tuple[int, int]) -> torch.Tensor:
+                               m: int, split: tuple[int, int],
+                               product: bool = False) -> torch.Tensor:
     """`_chirp_reference` with its two M-point FFTs as four steps on
     `split`: the first by `_cluster_fft`, the product with B and the
     conjugate where its output lies, the second rows first
     (`_cluster_fft_rows_first`); then Z[k] = a[k] conj u[k], the untangle
     and the magnitudes."""
-    vr, vi, a = _chirp_first_fft(padded, window, n_fft, hop, m, split)
-    ur, ui = _cluster_fft_rows_first(vr, vi, split)
+    vr, vi, a = _chirp_first_fft(padded, window, n_fft, hop, m, split, product)
+    ur, ui = _cluster_fft_rows_first(vr, vi, split, product)
     ur, ui = ur[:, :n_fft], ui[:, :n_fft]
     zr = a[:, 0] * ur + a[:, 1] * ui
     zi = a[:, 1] * ur - a[:, 0] * ui
@@ -697,7 +744,8 @@ def _chirp_four_step_reference(padded: torch.Tensor, window: np.ndarray, n_fft: 
 
 
 def _chirp_first_fft(padded: torch.Tensor, window: np.ndarray, n_fft: int, hop: int, m: int,
-                     split: tuple[int, int]) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                     split: tuple[int, int], product: bool = False
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The chirp mode on `split` up to its second FFT: z = wa (x_t + i
     x_t+1) zero-padded to M, its FFT by `_cluster_fft`, the product with B
     and the conjugate, (pairs, M) each; and the (n_fft, 2) table a."""
@@ -710,7 +758,7 @@ def _chirp_first_fft(padded: torch.Tensor, window: np.ndarray, n_fft: int, hop: 
     zi = torch.zeros(xa.shape[0], m, device=padded.device)
     zr[:, :n_fft] = wa[:, 0] * xa - wa[:, 1] * xb
     zi[:, :n_fft] = wa[:, 0] * xb + wa[:, 1] * xa
-    yr, yi = _cluster_fft(zr, zi, split)
+    yr, yi = _cluster_fft(zr, zi, split, product)
     return yr * bq[:, 0] - yi * bq[:, 1], -(yr * bq[:, 1] + yi * bq[:, 0]), a
 
 
@@ -721,10 +769,12 @@ def _fft_cluster_reference(
     """csrc/dft_cluster.cu's arithmetic in its FFT mode, step by step, in
     float32 PyTorch: `_four_step_reference` with split =
     cluster_plan(n_fft)[:2] (or the split given, which lets a test run the
-    same arithmetic at a small n_fft). The kernel's rank count changes where
-    each value lies, not the arithmetic.
+    same arithmetic at a small n_fft) and the kernel's product twiddles.
+    The kernel's rank count changes where each value lies, not the
+    arithmetic.
     """
-    return _four_step_reference(padded, window, n_fft, hop, split or cluster_plan(n_fft)[:2])
+    return _four_step_reference(padded, window, n_fft, hop, split or cluster_plan(n_fft)[:2],
+                                product=True)
 
 
 def _chirp_cluster_reference(
@@ -735,10 +785,12 @@ def _chirp_cluster_reference(
     by step, in float32 PyTorch: `_chirp_four_step_reference` with M = m or
     chirp_length(n_fft) and split = cluster_plan(M)[:2] (or those given);
     the kernel takes the product where the first FFT leaves each value and
-    runs the second rows first, so that no exchange comes between the two.
+    runs the second rows first, so that no exchange comes between the two;
+    its twiddles are the kernel's product ones.
     """
     m = m or chirp_length(n_fft)
-    return _chirp_four_step_reference(padded, window, n_fft, hop, m, split or cluster_plan(m)[:2])
+    return _chirp_four_step_reference(padded, window, n_fft, hop, m, split or cluster_plan(m)[:2],
+                                      product=True)
 
 
 def _divisors(n: int) -> list[int]:
@@ -1045,17 +1097,53 @@ def pass_roots(n: int, plan: tuple[int, ...]) -> np.ndarray:
     return table
 
 
+def twiddle_split(n: int) -> int:
+    """s of the split S = 2^s of csrc/dft_cluster.cu's four-step twiddles
+    at n points (dft_cluster_plan.cuh::twiddle_split): the least s with
+    4^s >= n."""
+    return next(s for s in range(32) if 4 ** s >= n)
+
+
 @lru_cache(maxsize=None)
-def cluster_tables(n: int) -> np.ndarray:
-    """csrc/dft_cluster.cu's roots for an n-point FFT split as cluster_plan(n):
-    pass_roots of fft_plan(N1), pass_roots of fft_plan(N2),
-    four_step_roots(N1, N2) (the order the chirp mode's second exchange
-    reads them) and the same twiddles at [j * N1 + k1] (the order the first
-    exchange reads them), (len1 + len2 + 2n, 2) float32. Read-only."""
-    n1, n2, _ = cluster_plan(n)
-    t = four_step_roots(n1, n2)
-    table = np.concatenate([pass_roots(n1, fft_plan(n1)), pass_roots(n2, fft_plan(n2)), t,
-                            t.reshape(n1, n2, 2).transpose(1, 0, 2).reshape(n, 2)])
+def twiddle_tables(n: int) -> tuple[np.ndarray, np.ndarray]:
+    """The two tables of float64 roots whose products are csrc/dft_cluster.cu's
+    four-step twiddles W_n^m: lo[l] = W_n^l for l < S and hi[h] = W_n^(h S)
+    for h < ceil(n / S), S = 2^twiddle_split(n), each (.., 2) float64 (re,
+    im) as roots_of_unity computes them before its rounding. Read-only."""
+    s = 1 << twiddle_split(n)
+    tables = []
+    for m in (np.arange(s), np.arange(-(-n // s)) * s):
+        ang = 2.0 * np.pi * m / n
+        table = np.stack([np.cos(ang), -np.sin(ang)], axis=1)
+        table.setflags(write=False)
+        tables.append(table)
+    return tables[0], tables[1]
+
+
+def product_twiddles(n: int, m: np.ndarray) -> np.ndarray:
+    """W_n^m for integers 0 <= m < n as csrc/dft_cluster.cu computes them:
+    hi[m // S] * lo[m % S] of twiddle_tables(n) in float64 without a fused
+    multiply-add, rounded once to float32; (*m.shape, 2)."""
+    lo, hi = twiddle_tables(n)
+    a, b = hi[m >> twiddle_split(n)], lo[m & ((1 << twiddle_split(n)) - 1)]
+    return np.stack([a[..., 0] * b[..., 0] - a[..., 1] * b[..., 1],
+                     a[..., 0] * b[..., 1] + a[..., 1] * b[..., 0]], axis=-1).astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def cluster_tables(n: int, split: tuple[int, int] | None = None) -> np.ndarray:
+    """csrc/dft_cluster.cu's roots for an n-point FFT split as cluster_plan(n)
+    (or as `split`, N1 x N2): pass_roots of fft_plan(N1), pass_roots of
+    fft_plan(N2), a zero row where their count is odd, then lo and hi of
+    twiddle_tables(n) with each float64 (re, im) pair as four float32
+    words, as the kernel copies them to shared memory; (rows, 2) float32.
+    Read-only."""
+    n1, n2 = split or cluster_plan(n)[:2]
+    roots = [pass_roots(n1, fft_plan(n1)), pass_roots(n2, fft_plan(n2))]
+    if (len(roots[0]) + len(roots[1])) % 2:
+        roots.append(np.zeros((1, 2), np.float32))
+    words = [t.view(np.float32).reshape(-1, 2) for t in twiddle_tables(n)]
+    table = np.concatenate([*roots, *words])
     table.setflags(write=False)
     return table
 
@@ -1228,23 +1316,41 @@ def active_clusters(n_fft: int, dtype: torch.dtype = torch.int16) -> int:
     n_fft (the cluster route, or the chirp mode on the cluster layout) the
     current CUDA device holds at once: cudaOccupancyMaxActiveClusters for
     clusters of cluster_plan's C CTAs, the size of the kernel's persistent
-    grid in clusters. Raises where a launch would fail (none fits)."""
+    grid in clusters (cluster_layout's "clusters"). Raises where a launch
+    would fail (none fits)."""
+    return cluster_layout(n_fft, n_fft, dtype)["clusters"]
+
+
+def cluster_layout(n_fft: int, hop: int, dtype: torch.dtype = torch.int16,
+                   library: ctypes.CDLL | None = None) -> dict:
+    """What csrc/dft_cluster.cu launches at n_fft / hop on `dtype` samples
+    (the cluster route, or the chirp mode on the cluster layout) on the
+    current CUDA device: CTAs a cluster, threads a CTA, CTAs resident on an
+    SM, clusters resident on the card (its persistent grid), dynamic shared
+    memory a CTA, registers and local (spilled) memory a thread, and whether
+    its plan runs a kernel compiled whole. `library` asks another build of
+    the source (a tool's) in place of ops/_build's. Launches nothing; raises
+    where a launch would fail."""
     route = dft_route(n_fft)
     chirp = route == "chirp" and _chirp_kernel(n_fft) == "cluster"
     if route != "cluster" and not chirp:
         raise ValueError(f"n_fft {n_fft} does not take the cluster layout")
     n = chirp_length(n_fft) if chirp else n_fft
-    fn = _build.load("dft_cluster", _build_variant("cluster", n, dtype)).orcai_dft_cluster_occupancy
+    fn = (library or _build.load("dft_cluster", _build_variant("cluster", n, dtype))
+          ).orcai_dft_cluster_layout
     i32 = ctypes.c_int
     fn.argtypes = [i32, ctypes.POINTER(i32), i32, i32, i32, ctypes.POINTER(i32)]
     fn.restype = i32
-    clusters = i32(0)
+    info = (i32 * 8)()
     plan = _cluster_plan_array(n)
-    err = fn(_DTYPE_CODES[dtype], plan, n_fft, n_fft, int(chirp), ctypes.byref(clusters))
+    err = fn(_DTYPE_CODES[dtype], plan, n_fft, hop, int(chirp), info)
     if err != 0:
         raise RuntimeError(f"dft_magnitude at n_fft {n_fft}: no cluster of {plan[0]} CTAs "
                            f"fits (CUDA error {err})")
-    return clusters.value
+    ranks, threads, ctas, clusters, smem, registers, local, compiled = info
+    return {"ranks": ranks, "threads": threads, "ctas_per_sm": ctas, "clusters": clusters,
+            "smem_bytes": smem, "registers": registers, "local_bytes": local,
+            "compiled": bool(compiled)}
 
 
 MIXED_LAYOUTS = ("warp", "block", "compiled")  # csrc/dft_mixed.cu's layouts, by the code it reports

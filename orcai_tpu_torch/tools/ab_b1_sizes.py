@@ -9,14 +9,18 @@ checkout and another commit's, unpacked with `git archive`). The two
 packages share a name, so each run is a process of its own that imports
 its tree's package; the runs go A, B, B, A for each of --rounds. A run
 builds its tree's kernels (once a tree: the build stays in its _build/),
-makes a tile of --frames frames at each n_fft / hop of --sizes from --seed
-(--dtype: int16, uint8 mu-law codes of it, or float32), holds dft_magnitude
+makes a tile of --frames frames (or the frames a size names, n_fft/hop/
+frames) at each n_fft / hop of --sizes from --seed (--dtype: int16, uint8
+mu-law codes of it, or float32), holds dft_magnitude
 against the tree's plain version (atol 2e-4, or 2e-4 of the float64 rFFT
 where the plain fp32 GEMM is itself farther; above n_fft 8192, where it
 is, and its tables take seconds to build, against the float64 rFFT of the
 first 512 frames alone) and times it with
 CUDA events over --iters launches behind a short device spin. Prints one
-JSON line of every run's ms by size, then the card's name and power limit.
+JSON line of every run's ms by size, whether the two trees' outputs are
+bit-equal at each size (a sha256 of each run's output) and, where they are
+not, their largest difference on the first 64 frames, then the card's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -25,19 +29,24 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 # the mixed route's compiled layout (the spectral wires' 384 and 352), its
 # warp layout (768, 704, 416, 480, 1024, 2048, radices 17, 19, 23, 29 and
-# 31) and block layout (4096, 8192, 4352), the cluster route and the chirp
-# mode on both layouts
+# 31) and block layout (4096, 8192, 4352), the cluster route's compiled
+# plans (16384, 32768, and 65536 on 8 CTAs of one an SM, on 11251 frames)
+# and its generic kernel (20736, radix 3, and 40960, radix 5, on 11251
+# frames) and the chirp mode on both layouts (24578 on 8 CTAs of one an SM,
+# on 11251 frames)
 DEFAULT_SIZES = ("384/192,352/176,768/384,704/352,416/208,480/240,1024/256,2048/512,1088/544,"
                  "1216/608,1472/736,368/184,464/232,496/248,1856/928,1984/992,4096/2048,"
-                 "8192/4096,4352/2176,16384/8192,32768/16384,470/235,2038/1019,8198/4099,"
-                 "16418/8209")
+                 "8192/4096,4352/2176,16384/8192,32768/16384,65536/32768/11251,"
+                 "20736/10368/11251,40960/20480/11251,470/235,2038/1019,8198/4099,16418/8209,"
+                 "24578/12289/11251")
 
 RUN = r"""
-import json, sys
+import hashlib, json, sys
 sys.path.insert(0, sys.argv[1])
 import numpy as np
 import torch
@@ -45,11 +54,12 @@ from orcai_tpu_torch.ops.dft import dft_magnitude, dft_magnitude_plain
 from orcai_tpu_torch.ops.frontend import hann_window
 from orcai_tpu_torch.ops.wire_codec import mulaw_decode_f32, mulaw_encode
 
-sizes, frames, iters, seed = json.loads(sys.argv[2]), *map(int, sys.argv[3:6])
-kind = sys.argv[6]
+sizes, default_frames, iters, seed = json.loads(sys.argv[2]), *map(int, sys.argv[3:6])
+kind, keep = sys.argv[6], sys.argv[7]
 dev = torch.device("cuda")
-out = {}
-for n_fft, hop in sizes:
+out, sha = {}, {}
+for n_fft, hop, *named in sizes:
+    frames = named[0] if named else default_frames
     rng = np.random.default_rng(seed + n_fft)
     n = (frames - 1) * hop + n_fft
     pcm = rng.integers(-32768, 32768, n, dtype=np.int16)
@@ -59,6 +69,10 @@ for n_fft, hop in sizes:
            "f32": lambda: x.double()}[kind]
     window = hann_window(n_fft)
     got = dft_magnitude(x, window, n_fft=n_fft, hop=hop)
+    key = "/".join(map(str, (n_fft, hop, *named)))
+    sha[key] = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+    if keep:
+        np.save(f"{keep}/{n_fft}-{hop}-{frames}.npy", got[:64].cpu().numpy())
     if n_fft > 8192:
         frames64 = x64()[:511 * hop + n_fft].unfold(0, n_fft, hop)
         exact = torch.fft.rfft(frames64 * torch.from_numpy(window).to(dev), dim=1).abs()
@@ -87,8 +101,8 @@ for n_fft, hop in sizes:
         dft_magnitude(x, window, n_fft=n_fft, hop=hop)
     end.record()
     end.synchronize()
-    out[f"{n_fft}/{hop}"] = start.elapsed_time(end) / iters
-print(json.dumps(out))
+    out[key] = start.elapsed_time(end) / iters
+print(json.dumps({"ms": out, "sha256": sha}))
 """
 
 
@@ -107,21 +121,41 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("ab_b1_sizes: no CUDA device")
+    import numpy as np
+
     sizes = [[int(v) for v in s.split("/")] for s in args.sizes.split(",")]
     trees = [str(Path(t).resolve()) for t in args.trees]
     runs = {t: [] for t in args.trees}
-    for _ in range(args.rounds):
-        for name, tree in zip([*args.trees, *reversed(args.trees)], [*trees, *reversed(trees)]):
-            proc = subprocess.run(
-                [sys.executable, "-c", RUN, tree, json.dumps(sizes), str(args.frames),
-                 str(args.iters), str(args.seed), args.dtype],
-                capture_output=True, text=True, timeout=1800)
-            if proc.returncode != 0:
-                raise SystemExit(f"ab_b1_sizes: the run of {name} failed:\n{proc.stderr[-3000:]}")
-            runs[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    with tempfile.TemporaryDirectory() as keep:
+        for i in range(args.rounds):
+            for name, tree in zip([*args.trees, *reversed(args.trees)],
+                                  [*trees, *reversed(trees)]):
+                kept = Path(keep) / str(args.trees.index(name))
+                kept.mkdir(exist_ok=True)
+                proc = subprocess.run(
+                    [sys.executable, "-c", RUN, tree, json.dumps(sizes), str(args.frames),
+                     str(args.iters), str(args.seed), args.dtype,
+                     str(kept) if i == 0 and not runs[name] else ""],
+                    capture_output=True, text=True, timeout=1800)
+                if proc.returncode != 0:
+                    raise SystemExit(f"ab_b1_sizes: the run of {name} failed:\n"
+                                     f"{proc.stderr[-3000:]}")
+                runs[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        first = [runs[name][0] for name in args.trees]
+        bit_equal = {size: first[0]["sha256"][size] == first[1]["sha256"][size]
+                     for size in first[0]["sha256"]}
+        differ = {}
+        for size, same in bit_equal.items():
+            if not same:
+                name = "-".join(size.split("/")[:2]) + "-" + (
+                    size.split("/")[2] if size.count("/") == 2 else str(args.frames))
+                a, b = (np.load(Path(keep) / str(t) / f"{name}.npy") for t in (0, 1))
+                differ[size] = float(np.abs(a - b).max())
     print(json.dumps({"frames": args.frames, "dtype": args.dtype, "order": "A B B A",
-                      "ms": {name: {size: [r[size] for r in rs] for size in rs[0]}
-                             for name, rs in runs.items()}}), flush=True)
+                      "ms": {name: {size: [r["ms"][size] for r in rs] for size in rs[0]["ms"]}
+                             for name, rs in runs.items()},
+                      "bit_equal": bit_equal, "max_abs_diff_first_64_frames": differ}),
+          flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)

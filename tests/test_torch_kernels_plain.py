@@ -32,6 +32,7 @@ from orcai_tpu_torch.ops.dft import (
     CHIRP_MAX,
     CHIRP_PRIMES,
     CLUSTER_MAX,
+    CLUSTER_PAIR_BYTES,
     CLUSTER_PRIMES,
     FFT_SIZES,
     MIXED_MAX,
@@ -62,6 +63,7 @@ from orcai_tpu_torch.ops.dft import (
     active_clusters,
     chirp_length,
     chirp_tables,
+    cluster_bytes,
     cluster_plan,
     cluster_tables,
     dft_magnitude,
@@ -72,6 +74,7 @@ from orcai_tpu_torch.ops.dft import (
     fft_tables,
     four_step_roots,
     pass_roots,
+    product_twiddles,
     roots_of_unity,
     staged_chunk_pairs,
     staged_fold,
@@ -79,6 +82,8 @@ from orcai_tpu_torch.ops.dft import (
     staged_mode,
     staged_plan,
     staged_tables,
+    twiddle_split,
+    twiddle_tables,
     windowed_dft_mats,
 )
 from orcai_tpu_torch.ops.frontend import hann_window as port_hann_window
@@ -543,27 +548,37 @@ def test_no_n_fft_up_to_the_staged_reach_takes_the_gemm():
 
 def test_cluster_plan_splits_and_tables():
     """cluster_plan splits N = N1 * N2 with the fewest passes, then the most
-    even split, on the fewest CTAs whose two buffers of N/C values fit in
-    160 KB: 2 up to 20480, 4 up to 40960, 8 up to 81920 (the first
-    {2, ..., 19}-smooth sizes past each limit, 20482 and 40964, take the
-    next); each side is at least C (every rank has columns and row pairs);
-    four_step_roots are the float64 roots of unity W_N^(k1 j) rounded once;
-    cluster_tables and the packed plan hold the two sides' pass roots, the
-    twiddles in both orders and the lengths the kernel checks."""
-    assert cluster_plan(16384) == (128, 128, 2) and cluster_plan(32768) == (256, 128, 4)
-    assert cluster_plan(16456) == (136, 121, 2) and cluster_plan(8228) == (121, 68, 2)
-    assert cluster_plan(20480)[2] == 2 and cluster_plan(20736) == (144, 144, 4)
-    assert cluster_plan(20482)[2] == 4 and cluster_plan(40960) == (256, 160, 4)
+    even split, on the fewest CTAs whose shared memory (cluster_bytes) fits
+    twice on an SM: 2 up to 13338, 4 from 12167 to 25536, 8 from 24334
+    (a CTA's buffers grow with N/C and its odd strides; 20736 = 144 x 144 on
+    4, 32768 on 8), and where none fits twice, on 8 CTAs of one an SM (65536,
+    81920, 50864); each side is at least C
+    (every rank has columns and row pairs); four_step_roots are the float64
+    roots of unity W_N^(k1 j) rounded once; cluster_tables hold the two
+    sides' pass roots and the two float64 tables of twiddle_tables, whose
+    products rounded once (product_twiddles, the kernel's twiddles) are
+    four_step_roots at every twiddle of the power-of-two sizes and all but
+    3 and 2 at the chirp lengths 16456 and 50864, one ulp away there; the
+    packed plan holds the lengths the kernel checks."""
+    assert cluster_plan(16384) == (128, 128, 4) and cluster_plan(32768) == (256, 128, 8)
+    assert cluster_plan(16456) == (136, 121, 4) and cluster_plan(8228) == (121, 68, 2)
+    assert cluster_plan(20480)[2] == 4 and cluster_plan(20736) == (144, 144, 4)
+    assert cluster_plan(20482)[2] == 4 and cluster_plan(40960) == (256, 160, 8)
     assert cluster_plan(40964)[2] == 8 and cluster_plan(81920) == (320, 256, 8)
-    assert cluster_plan(65536) == (256, 256, 8) and cluster_plan(32851) == (247, 133, 4)
+    assert cluster_plan(65536) == (256, 256, 8) and cluster_plan(32851) == (247, 133, 8)
     assert cluster_plan(50864) == (272, 187, 8)
+    assert cluster_plan(13338)[2] == 2 and cluster_plan(25536)[2] == 4
+    assert cluster_plan(24334)[2] == 8
+    assert [cluster_bytes(*cluster_plan(n)) <= CLUSTER_PAIR_BYTES
+            for n in (16384, 32768, 16456, 32851, 65536, 50864)] == [True] * 4 + [False] * 2
     for n in (MIXED_MAX, CLUSTER_MAX + 1, 16418, 1, 2 * CLUSTER_MAX):
         with pytest.raises(ValueError):
             cluster_plan(n)
     for n in (8232, 9801, 19683, 28561, 30000, 32768, 46189, 57344, 69632, 73728, 81796):
         n1, n2, ranks = cluster_plan(n)
         assert n1 * n2 == n and 2 <= n2 <= n1 <= MIXED_MAX and n2 >= ranks
-        assert ranks == (2 if n <= 20480 else 4 if n <= 40960 else 8)
+        pair = [c for c in (2, 4, 8) if cluster_bytes(n1, n2, c) <= CLUSTER_PAIR_BYTES]
+        assert ranks == (pair[0] if pair else 8)
         passes = len(fft_plan(n1)) + len(fft_plan(n2))
         for d in range(2, MIXED_MAX + 1):
             if n % d == 0 and n // d <= MIXED_MAX:
@@ -577,15 +592,287 @@ def test_cluster_plan_splits_and_tables():
     n1, n2, ranks = cluster_plan(32768)
     table = cluster_tables(32768)
     len1, len2 = len(pass_roots(n1, fft_plan(n1))), len(pass_roots(n2, fft_plan(n2)))
-    assert table.shape == (len1 + len2 + 2 * 32768, 2)
+    s = 1 << twiddle_split(32768)
+    assert s == 256 and twiddle_split(16384) == 7 and twiddle_split(81920) == 9
+    roots = len1 + len2 + (len1 + len2) % 2
+    assert table.shape == (roots + 2 * (s + -(-32768 // s)), 2)
     np.testing.assert_array_equal(table[:len1], pass_roots(n1, fft_plan(n1)))
     np.testing.assert_array_equal(table[len1:len1 + len2], pass_roots(n2, fft_plan(n2)))
-    t = four_step_roots(n1, n2).reshape(n1, n2, 2)
-    np.testing.assert_array_equal(table[len1 + len2:len1 + len2 + 32768].reshape(n1, n2, 2), t)
-    np.testing.assert_array_equal(table[len1 + len2 + 32768:].reshape(n2, n1, 2),
-                                  t.transpose(1, 0, 2))
-    assert list(_cluster_plan_array(32768)) == [4, 256, 128, len1, len2, 2, 16, 16, 2, 16, 8]
+    np.testing.assert_array_equal(table[roots:].view(np.float64).reshape(-1, 2),
+                                  np.concatenate(twiddle_tables(32768)))
+    for n, differ in ((16384, 0), (32768, 0), (65536, 0), (81920, 0), (16456, 3), (32851, 0),
+                      (50864, 2)):
+        n1, n2, _ = cluster_plan(n)
+        got = product_twiddles(n, np.arange(n1)[:, None] * np.arange(n2)[None, :])
+        want = four_step_roots(n1, n2).reshape(n1, n2, 2)
+        assert int((got != want).sum()) == differ, n
+        assert np.abs(got - want).max() <= 2.0 ** -24
+    assert list(_cluster_plan_array(32768)) == [8, 256, 128, len1, len2, 2, 16, 16, 2, 16, 8]
     assert list(_cluster_plan_array(65536)) == [8, 256, 256, 240, 240, 2, 16, 16, 2, 16, 16]
+
+
+# csrc/dft_cluster_plan.cuh on the host: each argument "n_fft:chirp:packed
+# plan", one JSON line each of what the kernel builds from it (the plan and
+# every lookup)
+PLAN_MAIN = r"""
+#include <cstdio>
+#include <cstdlib>
+#define __host__
+#define __device__
+#define __forceinline__ inline
+#include "dft_cluster_plan.cuh"
+
+static void list(const char* key, const int* v, int n) {
+  std::printf("\"%s\": [", key);
+  for (int i = 0; i < n; ++i) std::printf("%d%s", v[i], i + 1 < n ? ", " : "");
+  std::printf("], ");
+}
+
+int main(int argc, char** argv) {
+  for (int a = 1; a < argc; ++a) {
+    char* p = argv[a];
+    const int n_fft = std::strtol(p, &p, 10), chirp = std::strtol(p + 1, &p, 10);
+    int packed[64], n = 0;
+    while (*p == ':' || *p == ',') packed[n++] = std::strtol(p + 1, &p, 10);
+    static Plan plan;
+    const int err = make_plan(packed, n_fft, chirp != 0, &plan);
+    std::printf("{\"err\": %d", err);
+    if (err) { std::printf("}\n"); continue; }
+    std::printf(", ");
+    static int v[8192];
+    for (int k = 0; k < plan.n1; ++k) v[k] = static_cast<int>(home_of_row(plan, k));
+    list("home_row", v, plan.n1);
+    for (int j = 0; j < plan.n2; ++j) v[j] = static_cast<int>(home_of_col(plan, j));
+    list("home_col", v, plan.n2);
+    std::printf("\"rows_k1\": [");
+    for (int r = 0; r < plan.ranks; ++r) {
+      const int rows = plan.alen[r] + plan.blen[r];
+      std::printf("[");
+      for (int l = 0; l < rows; ++l)
+        std::printf("%d%s", row_of_local(plan, r, l), l + 1 < rows ? ", " : "");
+      std::printf("]%s", r + 1 < plan.ranks ? ", " : "], ");
+    }
+    list("col_lo", plan.col_lo, plan.ranks + 1);
+    std::printf("\"n1\": %d, \"n2\": %d, \"ranks\": %d, \"bytes\": %d, \"threads\": %d, "
+                "\"tw_log2\": %d, \"table_bytes\": %d}\n",
+                plan.n1, plan.n2, plan.ranks, plan.bytes, threads_of(plan), plan.tw_log2,
+                plan.table_bytes);
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def plan_header(tmp_path_factory):
+    """A host build of csrc/dft_cluster_plan.cuh (PLAN_MAIN) with g++, and a
+    function that runs it: [(n_fft, chirp, packed plan)] -> one dict each."""
+    import json
+    import shutil
+    import subprocess
+
+    compiler = shutil.which("g++") or shutil.which("c++")
+    assert compiler, "no C++ compiler"
+    out = tmp_path_factory.mktemp("plan")
+    (out / "plan.cpp").write_text(PLAN_MAIN)
+    subprocess.run([compiler, "-std=c++17", "-O1", f"-I{_build.CSRC}", "-o", str(out / "plan"),
+                    str(out / "plan.cpp")], check=True)
+
+    def run(cases):
+        args = [f"{n}:{c}:" + ",".join(map(str, packed)) for n, c, packed in cases]
+        lines = subprocess.run([str(out / "plan"), *args], capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        return [json.loads(line) for line in lines]
+    return run
+
+
+def _packed(ranks, n1, n2):
+    """[C, N1, N2, len1, len2, P1, radices, P2, radices], as
+    _cluster_plan_array packs cluster_plan's, for any split and C."""
+    p1, p2 = fft_plan(n1), fft_plan(n2)
+    return [ranks, n1, n2, len(pass_roots(n1, p1)), len(pass_roots(n2, p2)), len(p1), *p1,
+            len(p2), *p2]
+
+
+@pytest.mark.parametrize("ranks", [2, 4, 8])
+def test_cluster_plan_header_places_each_column_and_row_once(plan_header, ranks):
+    """On every cluster size the kernel runs, the plans it is given
+    (cluster_plan's at 9801, 10240, 16384, 32768 and 65536, the chirp
+    mode's 16456, 32851 and 50864, and small splits with odd N1 and N2), as
+    csrc/dft_cluster_plan.cuh builds them, each in both modes (the FFT mode
+    at N1 N2, the chirp mode on M = N1 N2): the ranks' column ranges cover
+    each column exactly once and home_col finds each at its rank and local
+    column; the ranks' rows (row_of_local) cover each row k1 exactly once,
+    home_row finds each at its rank and local row (the lookups round-trip),
+    and each mirror row n1 - k1 lies on the rank of k1."""
+    sizes = {2: [(9801, 99, 99), (10240, 128, 80)], 4: [(16384, 128, 128), (16456, 136, 121)],
+             8: [(32768, 256, 128), (32851, 247, 133), (65536, 256, 256), (50864, 272, 187)]}
+    small = {2: [(9, 7), (10, 3)], 4: [(15, 9), (20, 7)], 8: [(21, 11), (24, 9)]}
+    plans = sizes[ranks] + [(n1 * n2, n1, n2) for n1, n2 in small[ranks]]
+    args, what = [], []
+    for m, n1, n2 in plans:
+        if m > MIXED_MAX:
+            assert cluster_plan(m) == (n1, n2, ranks)
+        for n_fft, chirp in ((m, 0), ((m + 1) // 2, 1)):
+            args.append((n_fft, chirp, _packed(ranks, n1, n2)))
+            what.append((n_fft, chirp, n1, n2))
+    for (n_fft, chirp, n1, n2), got in zip(what, plan_header(args), strict=True):
+        assert got["err"] == 0 and got["ranks"] == ranks, (n_fft, got)
+        col_lo = got["col_lo"]
+        assert col_lo[0] == 0 and col_lo[-1] == n2 and all(
+            a < b for a, b in zip(col_lo, col_lo[1:]))
+        for j, h in enumerate(got["home_col"]):
+            r, local = h >> 16, h & 0xFFFF
+            assert col_lo[r] <= j < col_lo[r + 1] and local == j - col_lo[r]
+        rows = [k for ranks_rows in got["rows_k1"] for k in ranks_rows]
+        assert sorted(rows) == list(range(n1))
+        for r, ranks_rows in enumerate(got["rows_k1"]):
+            for local, k1 in enumerate(ranks_rows):
+                assert got["home_row"][k1] == r << 16 | local
+                assert got["home_row"][(n1 - k1) % n1] >> 16 == r
+        assert got["tw_log2"] == twiddle_split(n1 * n2)
+
+
+def test_cluster_plan_header_takes_every_plan_on_its_layout(plan_header):
+    """make_plan takes cluster_plan's plan at every n_fft of the cluster route
+    and at the convolution lengths of a spread of the chirp mode's sizes on
+    the cluster layout, its shared memory within the card's 227 KB and equal
+    to ops/dft.py::cluster_bytes; a plan that fits twice on an SM (every
+    plan up to 40960 points, and up to about 48000 on 8 CTAs) runs 256
+    threads a CTA, two frame pairs in flight on every SM, a larger one
+    (65536, 81920 and 50864: 8 CTAs of 120 to 190 KB) one CTA of 512 an SM."""
+    fft_sizes = [n for n in range(MIXED_MAX + 1, CLUSTER_MAX + 1) if dft_route(n) == "cluster"]
+    # chirp_length takes a few ms a size: a spread of the chirp mode's sizes
+    chirp = [n for n in [*range(MIXED_MAX // 2 + 1, CHIRP_MAX + 1, 397), 8198, 16418, 24578]
+             if dft_route(n) == "chirp" and _chirp_kernel(n) == "cluster"]
+    assert len(fft_sizes) > 1000 and len(chirp) > 60
+    cases = [(n, 0, _cluster_plan_array(n)) for n in fft_sizes]
+    cases += [(n, 1, _cluster_plan_array(chirp_length(n))) for n in chirp]
+    threads = {}
+    for (n, chirp_mode, packed), got in zip(cases, plan_header(cases), strict=True):
+        m = packed[1] * packed[2]
+        assert got["err"] == 0 and got["bytes"] <= 232448, (n, got)
+        assert got["bytes"] == cluster_bytes(packed[1], packed[2], packed[0]), (n, got)
+        pair = got["bytes"] <= CLUSTER_PAIR_BYTES
+        assert got["threads"] == (256 if pair else 512) and (pair or m > 40960), (n, m, got)
+        threads[m] = got["threads"]
+    assert [threads[m] for m in (16384, 32768, 65536, 81920, 16456, 32851, 50864)] == [
+        256, 256, 512, 512, 256, 256, 512]
+
+
+def test_compiled_cluster_plans_are_cluster_plans_in_the_build_that_runs_them():
+    """csrc/dft_cluster.cu compiles whole the plans of the powers of two
+    16384, 32768 and 65536 (Fixed<R0, R1, R2, R3, C>: N1 = R0 R1, N2 = R2 R3
+    on C CTAs), each cluster_plan's split, CTAs and fft_plan radices, in the
+    build of the least odd radix, which _build_variant gives them in every
+    sample type."""
+    import re
+
+    source = (_build.CSRC / "dft_cluster.cu").read_text()
+    table = re.search(r"#if ORCAI_ODD == (\d+)\nusing Compiled = Plans<(.*?)>;\n#else", source,
+                      re.S)
+    builds = sorted({odd for odd, _ in _build.VARIANTS["dft_cluster"]})
+    assert int(table.group(1)) == builds[0]
+    plans = [tuple(int(v) for v in m) for m in
+             re.findall(r"Fixed<(\d+), (\d+), (\d+), (\d+), (\d+)>", table.group(2))]
+    assert sorted(r0 * r1 * r2 * r3 for r0, r1, r2, r3, _ in plans) == [16384, 32768, 65536]
+    for r0, r1, r2, r3, ranks in plans:
+        n1, n2 = r0 * r1, r2 * r3
+        assert cluster_plan(n1 * n2) == (n1, n2, ranks) and dft_route(n1 * n2) == "cluster"
+        assert fft_plan(n1) == (r0, r1) and fft_plan(n2) == (r2, r3)
+        for dtype in (torch.float32, torch.int16, torch.uint8):
+            assert _build_variant("cluster", n1 * n2, dtype)[0] == builds[0]
+
+
+def test_compiled_cluster_plans_are_every_plan_whose_radices_are_powers_of_two():
+    """The plans csrc/dft_cluster.cu compiles whole are the cluster route's
+    plans whose radices are all powers of two, every one of them: over the
+    route's whole reach (every n_fft from MIXED_MAX + 1 to CLUSTER_MAX that
+    dft_route sends to it) those are 16384, 32768 and 65536, and every other
+    size, each a plan of its own, has an odd radix and runs the generic
+    kernel."""
+    import re
+
+    source = (_build.CSRC / "dft_cluster.cu").read_text()
+    table = re.search(r"using Compiled = Plans<(.*?)>;", source, re.S).group(1)
+    compiled = {int(np.prod([int(v) for v in m[:4]]))
+                for m in re.findall(r"Fixed<(\d+), (\d+), (\d+), (\d+), (\d+)>", table)}
+    powers_of_two, plans = set(), set()
+    for n in range(MIXED_MAX + 1, CLUSTER_MAX + 1):
+        if dft_route(n) != "cluster":
+            continue
+        n1, n2, ranks = cluster_plan(n)
+        radices = fft_plan(n1) + fft_plan(n2)
+        plans.add((fft_plan(n1), fft_plan(n2), ranks))
+        if all(r & (r - 1) == 0 for r in radices):
+            powers_of_two.add(n)
+    assert compiled == powers_of_two == {16384, 32768, 65536}
+    assert len(plans) > 2000
+
+
+@pytest.mark.parametrize("probe", ["kernel", "no_passes", "no_exchange", "no_tables",
+                                   "no_stores", "generic"])
+def test_probe_cluster_copies_edit_the_source(probe):
+    """tools/probe_cluster.py builds its own copies of csrc/dft_cluster.cu
+    and the headers it edits: each probe's edits find their text as often
+    as they expect in the shipped source, the copy holds each replacement
+    and nothing is left of what it replaced, the kernel probe is the source
+    itself, and the shipped source keeps no probe."""
+    from orcai_tpu_torch.tools.probe_cluster import EDITS, PROBES, probe_sources
+
+    assert probe in PROBES
+    files = probe_sources(probe)
+    shipped = {name: (_build.CSRC / name).read_text() for name in files}
+    if probe == "kernel":
+        assert files == shipped
+    for name, edits in EDITS.get(probe, {}).items():
+        for old, new, count in edits:
+            assert shipped[name].count(old) == count and new in files[name]
+            assert old not in files[name] or old in new
+    assert "probe" not in shipped["dft_cluster.cu"].lower().replace("probe_cluster", "")
+
+
+def test_b1_tools_cover_the_cluster_layout_and_stop_without_a_card():
+    """tools/ab_b1_sizes.py's default sizes hold the cluster route's compiled
+    plans (16384, 32768 and 65536, on 11251 frames), its generic kernel
+    (20736 and 40960, on 11251 frames) and the chirp mode on both of its
+    cluster layouts (8198 and 16418 two CTAs an SM, 24578 on 11251 frames
+    one), and tools/probe_cluster.py stops without a card."""
+    from orcai_tpu_torch.tools import ab_b1_sizes, probe_cluster
+
+    sizes = set(ab_b1_sizes.DEFAULT_SIZES.split(","))
+    assert {"16384/8192", "32768/16384", "65536/32768/11251", "8198/4099", "16418/8209",
+            "24578/12289/11251", "20736/10368/11251", "40960/20480/11251"} <= sizes
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        probe_cluster.main([])
+
+
+@pytest.mark.parametrize("n_fft,hop,m,split", [
+    (1024, 512, None, (32, 32)),     # 16384 = 128 x 128: a square power of two
+    (2048, 1024, None, (64, 32)),    # 32768 = 256 x 128
+    (4096, 2048, None, (64, 64)),    # 65536 = 256 x 256
+    (2560, 1280, None, (80, 32)),    # 81920 = 320 x 256
+    (1296, 648, None, (36, 36)),     # 20736 = 144 x 144: three passes a side, radix 3
+    (93, 93, 187, (17, 11)),         # the chirp mode's 16456 = 136 x 121: odd N2
+    (181, 181, 361, (19, 19)),       # 32851 = 247 x 133: radix 19 on both sides
+    (131, 131, 272, (16, 17)),       # 50864 = 272 x 187: radix 17 on both sides
+])
+@pytest.mark.parametrize("dtype", ["f32", "int16", "uint8"])
+def test_cluster_references_on_the_plans_splits_match_pallas(n_fft, hop, m, split, dtype):
+    """The cluster kernel's arithmetic with its product twiddles
+    (_fft_cluster_reference, _chirp_cluster_reference) on small splits of
+    the shapes cluster_plan picks at the route's and the chirp mode's sizes,
+    against the Pallas kernel in interpret mode and numpy's float64 rfft,
+    atol 2e-4, on an odd frame count."""
+    tpad = 9
+    padded, as_f64 = _signal(dtype, (tpad - 1) * hop + n_fft, n_fft + split[0])
+    window = port_hann_window(n_fft)
+    x = torch.from_numpy(padded)
+    got = (_fft_cluster_reference(x, window, n_fft=n_fft, hop=hop, split=split) if m is None
+           else _chirp_cluster_reference(x, window, n_fft=n_fft, hop=hop, m=m, split=split))
+    assert got.shape == (tpad, n_fft // 2 + 1) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _pallas(padded, n_fft, hop, tpad), atol=2e-4, rtol=0)
+    np.testing.assert_allclose(got.numpy(), _rfft_mag(as_f64, window, n_fft, hop), atol=2e-4,
+                               rtol=0)
 
 
 @pytest.mark.parametrize("n_fft,hop", MIXED_SIZES)
