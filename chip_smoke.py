@@ -109,7 +109,9 @@ the run on any error:
            40962/20481 (its chirp mode) on a 301-frame tile (against the
            plain version in int16, 6.7 GB of tables) and a 2048-frame one,
            at 131072/65536 and 98304/49152 (its FFT mode) on 2048 frames and
-           at 14848/7424 (2^9 * 29) and 49154/24577 (its chirp mode on M =
+           at 14848/7424 (2^9 * 29), at 17856, 33408 and 270336 (the FFT
+           mode's other columns compiled whole, in all three types) and
+           49154/24577 (its chirp mode on M =
            289 x 361) on a 301-frame tile (each also against its arithmetic
            step by step on the card and the float64 rFFT; 3 kernels a chunk
            in the chirp mode, 2 in the FFT mode), at the top of its reach
@@ -122,7 +124,10 @@ the run on any error:
            one size below 2^20; 1 launch, no B2 or pick), and the FFT route
            at 512/256 in uint8; the cluster layout at each of its sizes (CTAs
            a cluster, threads, CTAs an SM, clusters the card holds at once,
-           a plan compiled whole: asserted); B1 of the codes bit-equal to B1
+           a plan compiled whole: asserted), the staged layout at each of its
+           sizes (each kernel compiled whole or not, CTAs an SM, registers,
+           no spill: asserted), B1 at n_fft 1 timed beside its plain version,
+           torch.stft and its bound; B1 of the codes bit-equal to B1
            of their int16 decode on every route; the new sizes no farther
            from the float64 rFFT than the plain version; kernel, plain,
            torch.stft and the GEMM kernel called directly at the same n_fft
@@ -161,10 +166,10 @@ the run on any error:
            and a second new shape under torch.profiler, each trained two
            resident epochs with build, move, init, the first step's stages,
            the other steps and the evaluation timed and the allocator's
-           counters read; then orcai-v1's width in four fresh processes that
-           trained nothing before (as it is, under torch.profiler, with the
-           weight initialiser's and Adam's first calls timed apart, and after
-           predicting the 20-minute recording)
+           counters read; then orcai-v1's width in three fresh processes that
+           trained nothing before (as it is, with the weight initialiser's
+           and Adam's first calls timed apart, and after predicting the
+           20-minute recording)
   bf16     predict with ORCAI_TPU_PREDICT_DTYPE=bf16: golden in memory and
            streamed byte-equal to golden_expected.txt (1 / 3 / 3 and 4 / 3
            launches), the 20-minute cell's warm wall beside float32's and
@@ -215,10 +220,11 @@ the run on any error:
            process: two 32-row halves against the 64 rows with BatchNorm on
            running statistics, cuDNN on and off, the training step with
            cuDNN's and the synced BatchNorm, each against float64); after
-           it, tensor_parallel: 8 steps at 64 from the bundled weights over a
-           (1 data x 2 model) grid of gloo ranks sharing the card, the
-           parameters sharded (parallel/sharding_rules.py), against the one
-           process: losses, first gradients and the statistics' change
+           it, tensor_parallel: TP_STEPS (3) steps at 64 from the bundled
+           weights over a (1 data x 2 model) grid of gloo ranks sharing the
+           card, the parameters sharded (parallel/sharding_rules.py), against
+           one process's same steps: losses, first gradients and the
+           statistics' change
            within RUNNER_RTOL, the weights' change within PAR_CHANGE_RTOL,
            each rank's parameter bytes and the step ms; a search without --parallel over ["cuda:0", "cuda:0"]
            (its one trial data-parallel over two spawned processes) against
@@ -280,6 +286,13 @@ PLAIN_MAX = 16418  # the largest n_fft held against B1's plain version but GEMM_
 #   131072, built through float64 on the host; the step-by-step reference holds those
 B1_SHORT = 33  # frames of the step-by-step reference run on the card above PLAIN_MAX
 C1_FRAMES = 3  # frames of B1's tiles at the top of the staged route's reach (2^20)
+STAGED_COMPILED_CTAS = 3  # CTAs an SM of a staged kernel compiled whole (one buffer)
+STAGED_GENERIC_CTAS = 2  # CTAs an SM of a staged kernel that reads its plan at run time
+CTA_RESERVED_BYTES = 1024  # shared memory the card keeps for each CTA
+# the staged FFT mode's sides compiled whole that no other size here runs, one
+# size each on GEMM_FRAMES frames (n_fft: N1 x N2, the compiled side): columns
+# of 64 and 128 points 16 a CTA and of 512 points 8 a CTA
+STAGED_COLUMN_SIZES = (17856, 33408, 270336)  # 64 x 279, 128 x 261, 512 x 528
 C1_HOLDS_MAX = 1 << 19  # the largest n_fft where B1 holds 2e-4 of the float64 rFFT: above,
 #   magnitudes that grow with n_fft take any float32 FFT past it (ROADMAP C1)
 C1_FACTOR = 1.25  # above C1_HOLDS_MAX, B1 within this factor of float32 torch.fft.rfft's
@@ -1621,7 +1634,8 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
     GEMM_FRAMES-frame tile) in int16 and uint8, and at 24578/12289 (8 CTAs
     of one an SM) on the 11251-frame tile; the
     staged route at 14848/7424 (2^9 * 29) and 49154/24577 (its chirp mode)
-    on a GEMM_FRAMES-frame tile, at GEMM_NFFT 40962/20481 (its chirp mode)
+    on a GEMM_FRAMES-frame tile, at STAGED_COLUMN_SIZES (n_fft/(n_fft/2))
+    in all three types on a GEMM_FRAMES-frame tile, at GEMM_NFFT 40962/20481 (its chirp mode)
     on a GEMM_FRAMES- and a STAGED_FRAMES-frame tile, at 131072/65536 and
     98304/49152 (its FFT mode) on STAGED_FRAMES frames and at the top of
     its reach on C1_FRAMES frames (262144/131072 and 2^20/2^19 in its FFT
@@ -1635,8 +1649,8 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
     version, the plain fp32 GEMM must itself be more than 2e-4 from the
     float64 rFFT and the kernel within 2e-4 of it (recorded in
     plain_past_bar). Above PLAIN_MAX (plain tables of 2.4 GB at 24578 to
-    68.7 GB at 131072 in float32, built through float64 on the host) the
-    kernel is held against its arithmetic step by step (ops/dft.py::
+    68.7 GB at 131072 in float32, built through float64 on the host), and
+    on the staged route at every size, the kernel is held against its arithmetic step by step (ops/dft.py::
     _fft_cluster_reference, _chirp_cluster_reference, _staged_reference,
     _chirp_staged_reference) run on the card on a B1_SHORT-frame tile, and
     against the float64 rFFT on every frame, both at 2e-4 (above
@@ -1652,18 +1666,24 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
     plain version, torch.stft(...).abs() and the byte bound; the cluster
     layout at each of its sizes and types (cluster_layouts: CTAs a cluster,
     threads, CTAs an SM, clusters the card holds at once, registers,
-    spills, a plan compiled whole, each asserted); the staged kernels
-    called directly at 65536 beside the cluster route. Returns (the phase's
+    spills, a plan compiled whole, each asserted); the staged layout at
+    each of its sizes and types (staged_layouts: each kernel's threads,
+    CTAs an SM, registers and spills, and in the FFT mode each side
+    compiled whole where staged_sides_compiled says so; every kernel with
+    as many CTAs an SM as the SM's shared memory lets, up to
+    STAGED_COMPILED_CTAS compiled whole and STAGED_GENERIC_CTAS generic,
+    within the registers those CTAs leave it, no spill, each asserted); the staged kernels called directly at 65536 beside the
+    cluster route. Returns (the phase's
     record, the mixed, the cluster, the chirp, the staged and the GEMM
     route's kernels rows)."""
     import numpy as np
 
     from orcai_tpu_torch.ops.dft import (
-        MIXED_MAX, _DTYPE_CODES, _chirp_cluster_reference, _chirp_kernel,
+        MIXED_MAX, STAGED_KERNELS, _DTYPE_CODES, _chirp_cluster_reference, _chirp_kernel,
         _chirp_staged_reference, _fft_cluster_reference, _kernel, _launch_staged,
         _route_tables, _staged_reference, chirp_length, cluster_layout,
         dft_magnitude, dft_magnitude_plain, dft_route, mixed_layout, staged_chunk_pairs,
-        staged_mode, staged_plan, windowed_dft_mats)
+        staged_layout, staged_mode, staged_plan, staged_sides_compiled, windowed_dft_mats)
     from orcai_tpu_torch.ops.frontend import hann_window
     from orcai_tpu_torch.ops.wire_codec import (
         mulaw_decode_f32, mulaw_decode_host, mulaw_encode)
@@ -1673,7 +1693,8 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
               "gemm_direct_max_abs_err": {}, "max_abs_err_vs_float64": {}, "plain_past_bar": {},
               "max_abs_err_vs_reference": {}, "gemm_direct_past_bar": {},
               "gemm_plain_tables_s": {}, "cluster_layouts": {}, "seconds_by_size": {},
-              "staged_plans": {}, "staged_kernels_a_call": {}, "c1_reach": {}}
+              "staged_plans": {}, "staged_kernels_a_call": {}, "c1_reach": {},
+              "staged_layouts": {}}
     cases = {}
     every, coded, tiles = ("f32", "int16", "uint8"), ("int16", "uint8"), B1_TILES
     streamed = {CHUNK_TILE: "normalize_tile", STATS_TILE: "stats_tile"}
@@ -1691,6 +1712,7 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
              (480, 240, every, tiles[:1]),
              (1856, 928, every, tiles[:1]), (1984, 992, every, tiles[:1]),
              (14848, 7424, coded, (GEMM_FRAMES,)),
+             *((n, n // 2, every, (GEMM_FRAMES,)) for n in STAGED_COLUMN_SIZES),
              (GEMM_NFFT, 20481, coded, (GEMM_FRAMES, STAGED_FRAMES)),
              (131072, 65536, coded, (STAGED_FRAMES,)), (98304, 49152, coded, (STAGED_FRAMES,)),
              (49154, 24577, coded, (GEMM_FRAMES,)), (1 << 18, 1 << 17, coded, (C1_FRAMES,)),
@@ -1698,7 +1720,8 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
              ((1 << 20) - 2, (1 << 19) - 1, coded, (C1_FRAMES,)),
              (512, 256, ("uint8",), tiles))
     # every tile timed
-    new_sizes = (464, 496, 1856, 1984, 14848, GEMM_NFFT, 131072, 98304, 49154, 20736, 40960)
+    new_sizes = (464, 496, 1856, 1984, 14848, GEMM_NFFT, 131072, 98304, 49154, 20736, 40960,
+                 *STAGED_COLUMN_SIZES)
     streaming = {}  # the mixed route's times at the streaming tiles (keys of 352 suffixed)
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -1708,11 +1731,11 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
         record["gemm_plain_tables_s"][f"{n_fft}"] = time.perf_counter() - t0
 
     # the plain version's tables at GEMM_NFFT (6.7 GB, most of a minute of
-    # numpy through float64) and at 8192, 16384 and 16418 (0.27-1.1 GB,
-    # seconds each) are built on the host while the card checks the other
-    # sizes; numpy lets go of the GIL in its loops
+    # numpy through float64) and at 8192, 14848, 16384 and 16418 (0.27-1.1
+    # GB, seconds each) are built on the host while the card checks the
+    # other sizes; numpy lets go of the GIL in its loops
     builders = {n: threading.Thread(target=build_plain_tables, args=(n,), daemon=True)
-                for n in (8192, 16384, 16418, GEMM_NFFT)}
+                for n in (8192, 14848, 16384, 16418, GEMM_NFFT)}
     for builder in builders.values():
         builder.start()
 
@@ -1821,6 +1844,10 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
             m = n_fft if staged_mode(n_fft) == "fft" else chirp_length(n_fft)
             record["staged_plans"][f"{n_fft}"] = {"mode": staged_mode(n_fft), "length": m,
                                                   "n1_n2_g1_g2": list(staged_plan(m))}
+            for kind in kinds:
+                record["staged_layouts"][f"{n_fft}/{kind}"] = staged_layout(
+                    n_fft, {"f32": torch.float32, "int16": torch.int16,
+                            "uint8": torch.uint8}[kind])
         for frames in frame_counts:
             n = (frames - 1) * hop + n_fft
             pcm = rng.integers(-32768, 32768, n, dtype=np.int16)
@@ -1860,7 +1887,10 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
                     want = dft_magnitude_plain(x, window, n_fft=n_fft, hop=hop)
                     err = float((got - want).abs().max())
                     record["max_abs_err"][key] = err
-                if n_fft > PLAIN_MAX:
+                # above PLAIN_MAX, and on the staged route at every size,
+                # against the arithmetic step by step and the float64 rFFT
+                stepped = n_fft > PLAIN_MAX or route == "staged"
+                if stepped:
                     if not with_plain:
                         want = None
                     short = x[:(B1_SHORT - 1) * hop + n_fft]
@@ -1877,7 +1907,7 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
                                              f"reference| {ref_err} > {bar} on {B1_SHORT} frames")
                     if not with_plain:
                         err = ref_err
-                to_float64 = n_fft > PLAIN_MAX or frames == tiles[0] and (
+                to_float64 = stepped or frames == tiles[0] and (
                     kind == "int16" or n_fft in new_sizes and kind in every)
                 if to_float64 or not err <= 2e-4:
                     # kernel and plain against the float64 rFFT of the same
@@ -1889,7 +1919,7 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
                     if with_plain and to_float64 and not vs64["kernel"] <= vs64["plain"]:
                         raise AssertionError(f"B1 {key}: the kernel is farther from float64 "
                                              f"than the plain version: {vs64}")
-                    if n_fft > PLAIN_MAX and not vs64["kernel"] <= bar:
+                    if stepped and not vs64["kernel"] <= bar:
                         raise AssertionError(f"B1 {key}: the kernel is {vs64['kernel']} from "
                                              f"the float64 rFFT (> {bar})")
                     if key in record["c1_reach"]:
@@ -1962,6 +1992,31 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
                 "compiled": n_fft in compiled, "local_bytes": 0}
         if {k: got[k] for k in want} != want:
             raise AssertionError(f"B1 {key}: dft_cluster.cu's layout {got}, not {want}")
+    # dft_staged.cu: in the FFT mode each side whose radices are all powers
+    # of two, and 98304's rows, runs a kernel compiled whole (131072's and
+    # 98304's both, and the columns of STAGED_COLUMN_SIZES), on one buffer;
+    # every other kernel, and every kernel of the chirp mode, the generic
+    # one. Each has as many CTAs an SM as the SM's shared memory lets, up to
+    # STAGED_COMPILED_CTAS compiled whole and STAGED_GENERIC_CTAS generic,
+    # so at most the registers that many CTAs of its __launch_bounds__
+    # threads (its own compiled whole, 256 generic) leave each; no spill
+    sm_shared = torch.cuda.get_device_properties(dev).shared_memory_per_multiprocessor
+    sm_registers = 65536  # an sm_90 SM's register file, 32-bit registers
+    for key, got in record["staged_layouts"].items():
+        n_fft = int(key.split("/")[0])
+        fixed = staged_sides_compiled(n_fft) if got["mode"] == "fft" else (False, False)
+        for kernel in STAGED_KERNELS[got["mode"]]:
+            k = got[kernel]
+            compiled = kernel != "columns_untangle" and fixed[kernel == "rows"]
+            most = STAGED_COMPILED_CTAS if compiled else STAGED_GENERIC_CTAS
+            fit = min(most, sm_shared // (k["smem_bytes"] + CTA_RESERVED_BYTES))
+            bound_threads = k["threads"] if compiled else 256
+            ceiling = min(255, sm_registers // (fit * bound_threads))
+            if (k["compiled"] != compiled or k["ctas_per_sm"] < fit
+                    or k["registers"] > ceiling or k["local_bytes"]):
+                raise AssertionError(
+                    f"B1 {key}: dft_staged.cu's {kernel} kernel {k}: not compiled {compiled}, "
+                    f"fewer than {fit} CTAs an SM, more than {ceiling} registers or a spill")
     # dft_mixed.cu's compiled layout runs the spectral wires' plans, the
     # warp layout a plan outside its table where four warps fit
     for size, layout in (("384/192", "compiled"), ("352/176", "compiled"), ("480/240", "warp")):
@@ -2039,6 +2094,7 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
     staged_row["tolerance"] += (f"; above {C1_HOLDS_MAX} both within {C1_FACTOR}x of float32 "
                                 "torch.fft.rfft's own error from the float64 rFFT (c1_reach)")
     staged_row["c1_reach"] = record["c1_reach"]
+    staged_row["staged_layouts"] = record.pop("staged_layouts")
     staged_row["plans"] = record.pop("staged_plans")
     # the staged kernels at 65536, called directly with their plan, beside
     # the cluster route on the same 11251-frame tile: a finding, not a route
@@ -2081,7 +2137,9 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
                  "card holds): ms: its kernel called directly at n_fft 40962 / hop 20481 on "
                  f"a {GEMM_FRAMES}-frame int16 tile (the staged route's size there), plain_ms, "
                  "library_ms and bound_ms as the staged row's; launches: the n_fft 1 path "
-                 "(phase wires, gemm_route_n_fft_1)",
+                 "(phase wires, gemm_route_n_fft_1); n_fft_1: B1 at the route's only size, "
+                 "n_fft 1 on a minute of int16 audio, with its plain version, torch.stft at "
+                 "n_fft 1 and its byte bound",
     }
     record["fft_route_uint8"] = {k: v for k, v in cases.items() if v["route"] == "fft"}
     record["seconds"] = time.perf_counter() - t_start
@@ -2165,7 +2223,9 @@ def _gemm_route_path(torch, rng, total: dict) -> dict:
     the counts reset before and read after (1 launch on the GEMM route, no
     B2 or pick: no entry point reaches n_fft 1, whose one bin
     create-spectrograms' frequency range cannot crop), against the plain
-    version (atol 2e-4)."""
+    version (atol 2e-4); then its time beside the plain version's,
+    torch.stft(...).abs()'s and the byte bound (each sample read once, each
+    magnitude written once)."""
     import numpy as np
 
     from orcai_tpu_torch.ops.dft import dft_magnitude, dft_magnitude_plain, dft_route
@@ -2181,8 +2241,16 @@ def _gemm_route_path(torch, rng, total: dict) -> dict:
     if got.shape != (x.numel(), 1) or not err <= 2e-4:
         raise AssertionError(f"B1 at n_fft 1: shape {tuple(got.shape)}, max |kernel - plain| "
                              f"{err}")
+    samples, one = x.float() * (1.0 / 32768.0), torch.ones(1, device="cuda")
+    t_bound, by = bound(x.numel() * x.element_size() + got.numel() * 4, 2.0 * x.numel())
     return {"route": dft_route(1), "launches": counts, "frames": x.numel(),
-            "max_abs_err": err}
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: dft_magnitude(x, window, n_fft=1, hop=1), iters=5),
+            "plain_ms": cuda_ms(lambda: dft_magnitude_plain(x, window, n_fft=1, hop=1), iters=5),
+            "library_ms": cuda_ms(lambda: torch.stft(samples, 1, hop_length=1, window=one,
+                                                     center=False, return_complex=True).abs(),
+                                  iters=5),
+            "bound_ms": t_bound, "bound_by": by}
 
 
 def _rows(path):
@@ -2314,6 +2382,10 @@ def phase_wires(torch, tmp: Path, seed: int, state: dict,
         f"{nfft}/{n_overlap}": _create_spectrograms_path(torch, tmp, seed, total, nfft, n_overlap)
         for nfft, n_overlap in CLI_SPECTROGRAM_SIZES}
     line["gemm_route_n_fft_1"] = _gemm_route_path(torch, np.random.default_rng(seed + 7), total)
+    # the route's only size: its time, plain version, torch.stft and bound there
+    gemm_row["n_fft_1"] = {k: line["gemm_route_n_fft_1"][k]
+                           for k in ("frames", "ms", "plain_ms", "library_ms", "bound_ms",
+                                     "bound_by")}
     # the GEMM route's tables at 40962 (6.7 GB on the card, as much on the
     # host) are not read again
     _route_tables.cache_clear()
@@ -2580,8 +2652,10 @@ def phase_first_epoch(torch, state: dict, trained: dict, searched: dict) -> dict
     second new shape (B, under torch.profiler), each built, moved and
     trained two resident epochs with its stages timed. Then the bundled
     model's width in fresh processes that have trained nothing: as it is,
-    under torch.profiler, with the initialiser's operations called once
-    first, and after a predict of the 20-minute recording."""
+    with the initialiser's operations called once first, and after a
+    predict of the 20-minute recording (a fresh process under
+    torch.profiler, 44 s of this phase, is tools/profile_first_epoch.py
+    --profile's to run on its own; B is profiled here)."""
     import itertools
 
     from orcai_tpu_torch.io.dataset import ArrayDataset
@@ -2613,8 +2687,7 @@ def phase_first_epoch(torch, state: dict, trained: dict, searched: dict) -> dict
                            profile=name == "B")
         line[name] = {"config": cfg, **rec}
     del data
-    for name, extra in (("fresh", ()), ("fresh_profiled", ("--profile",)),
-                        ("fresh_first_calls", ("--first_calls",)),
+    for name, extra in (("fresh", ()), ("fresh_first_calls", ("--first_calls",)),
                         ("after_predict", ("--predict_wav", str(state["wav"])))):
         t0 = time.perf_counter()
         line[f"process_{name}"] = _fresh_process_trial(trained["data_dir"], *extra)
@@ -3013,6 +3086,7 @@ PAR_SPLIT_ATOL = 1e-6  # window split against one replica: the reference's bar f
 #                        sharded predictor (tests/test_overlap.py:154)
 PAR_HPS_MAX_EPOCHS, PAR_HPS_FACTOR = 2, 2  # the two-process search: 2 brackets, 5 rung-trials
 TP_GRID = (1, 2)  # (data, model) ranks of the tensor-parallel part
+TP_STEPS = 3  # its steps: gloo carries its gathers through host memory, 7-10 s a step
 PAR_CHILD = r"""
 import json, sys, time
 from orcai_tpu_torch.parallel.distributed import initialize_distributed, process_count, process_index
@@ -3151,7 +3225,7 @@ def _tp_worker(data_dir: str, seed: int, out: str, device) -> None:
     model, _, _ = load_orcai_model(device=device)
     trainer = Trainer(model, TRAIN_LR, device=device, mesh=mesh)
     torch.cuda.reset_peak_memory_stats()
-    result = _dp_steps(torch, trainer, seed, _dp_batches(torch, data_dir, device))
+    result = _dp_steps(torch, trainer, seed, _dp_batches(torch, data_dir, device)[:TP_STEPS])
     result["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
     result["sharded"] = sorted({k for m in model.modules()
                                 for k in getattr(getattr(m, "tp", None), "names", ())})
@@ -3167,7 +3241,7 @@ def _change_rel(run: dict, plain: dict, start: dict, keys) -> float:
 
 
 def _two_ranks_against_control(torch, tmp: Path, data_dir: Path, seed: int,
-                               float64_grads: dict) -> tuple[dict, dict, dict]:
+                               float64_grads: dict) -> tuple[dict, dict]:
     """PAR_STEPS steps at 64 from the bundled weights: one process, the
     same again (cuDNN's backward is not deterministic: the floor), two gloo
     ranks sharing the card (32 + 32) through the distributed Trainer, and
@@ -3178,8 +3252,8 @@ def _two_ranks_against_control(torch, tmp: Path, data_dir: Path, seed: int,
     check can fail a wrong split. Every run's first gradients are also read
     against `float64_grads` (the same step in float64, _grad_split), and
     the two ranks against one process running their BatchNorm
-    (one_process_synced_bn); neither reading is held. Returns the line,
-    the one process's run and the starting state."""
+    (one_process_synced_bn); neither reading is held. Returns the line and
+    the starting state."""
     from orcai_tpu_torch.io.model_store import load_orcai_model
     from orcai_tpu_torch.parallel.distributed import launch
     from orcai_tpu_torch.train.trainer import Trainer
@@ -3239,21 +3313,24 @@ def _two_ranks_against_control(torch, tmp: Path, data_dir: Path, seed: int,
         raise AssertionError(f"two gloo ranks against one process and a plain DDP wrap: "
                              f"the first must read within {bars}, the second above: {line}")
     line["bars"] = bars
-    return line, plain, start
+    return line, start
 
 
-def _tensor_parallel(torch, tmp: Path, data_dir: Path, seed: int, plain: dict,
-                     start: dict) -> dict:
-    """PAR_STEPS steps at 64 from the bundled weights over a TP_GRID (data,
+def _tensor_parallel(torch, tmp: Path, data_dir: Path, seed: int, start: dict) -> dict:
+    """TP_STEPS steps at 64 from the bundled weights over a TP_GRID (data,
     model) grid of gloo ranks sharing the card, the parameters sharded over
-    the model axis (parallel/sharding_rules.py), against the one plain
-    process of _two_ranks_against_control: the losses and the first step's
-    gradients within RUNNER_RTOL, the change of the BatchNorm statistics
-    within RUNNER_RTOL and of the weights within PAR_CHANGE_RTOL; each
-    rank's parameter bytes against one process's (the sharded leaves
-    halved), the TP step's ms against the plain step's."""
+    the model axis (parallel/sharding_rules.py), against the same steps in
+    one plain process: the losses and the first step's gradients within
+    RUNNER_RTOL, the change of the BatchNorm statistics within RUNNER_RTOL
+    and of the weights within PAR_CHANGE_RTOL; each rank's parameter bytes
+    against one process's (the sharded leaves halved), the TP step's ms
+    against the plain step's."""
     from orcai_tpu_torch.io.model_store import load_orcai_model
     from orcai_tpu_torch.parallel.distributed import launch
+    from orcai_tpu_torch.train.trainer import Trainer
+
+    plain = _dp_steps(torch, Trainer(load_orcai_model(device="cuda")[0], TRAIN_LR, device="cuda"),
+                      seed, _dp_batches(torch, data_dir, "cuda")[:TP_STEPS])
 
     out = tmp / "tp_steps.pt"
     t0 = time.perf_counter()
@@ -3265,7 +3342,7 @@ def _tensor_parallel(torch, tmp: Path, data_dir: Path, seed: int, plain: dict,
     params = sorted(plain["grads"])
     stats = [k for k in start if "running" in k]
     line = {
-        "grid": {"data": TP_GRID[0], "model": TP_GRID[1]}, "steps": PAR_STEPS, "batch": 64,
+        "grid": {"data": TP_GRID[0], "model": TP_GRID[1]}, "steps": TP_STEPS, "batch": 64,
         "losses": tp["losses"], "losses_one_process": plain["losses"],
         "loss_max_rel_diff": max(abs(a - b) / abs(b)
                                  for a, b in zip(tp["losses"], plain["losses"])),
@@ -3625,7 +3702,7 @@ def phase_parallel(torch, tmp: Path, seed: int, state: dict, data_dir: Path,
         return part
 
     def against_control():
-        part, plain["run"], plain["start"] = _two_ranks_against_control(
+        part, plain["start"] = _two_ranks_against_control(
             torch, tmp, data_dir, seed, plain["float64"])
         return part
 
@@ -3635,7 +3712,7 @@ def phase_parallel(torch, tmp: Path, seed: int, state: dict, data_dir: Path,
             ("grad_split", grad_split),
             ("two_ranks_against_control", against_control),
             ("tensor_parallel", lambda: _tensor_parallel(torch, tmp, data_dir, seed,
-                                                         plain["run"], plain["start"])),
+                                                         plain["start"])),
             ("search_trial_mesh", lambda: _search_trial_mesh(torch, tmp, data_dir)),
             ("window_split", lambda: _window_split(torch, tmp, state, total)),
             ("fan_out", lambda: _two_process_fan_out(torch, tmp, state, data_dir, total))):

@@ -18,6 +18,27 @@ __device__ __forceinline__ float2 cmul(float2 v, float2 w) {
   return make_float2(v.x * w.x - v.y * w.y, v.x * w.y + v.y * w.x);
 }
 
+// The four-step twiddle W_N^m for m < N from its two tables of float64
+// roots (ops/dft.py::twiddle_tables, in shared memory): hi[m >> s] * lo[m &
+// (2^s - 1)] in float64 with no fused multiply-add, as ops/dft.py::
+// product_twiddles computes it, rounded once
+__device__ __forceinline__ float2 twiddle(const double2* lo, const double2* hi, int s, int m) {
+  const double2 a = hi[m >> s], b = lo[m & ((1 << s) - 1)];
+  const double re = __dsub_rn(__dmul_rn(a.x, b.x), __dmul_rn(a.y, b.y));
+  const double im = __dadd_rn(__dmul_rn(a.x, b.y), __dmul_rn(a.y, b.x));
+  return make_float2(__double2float_rn(re), __double2float_rn(im));
+}
+
+// The product of a value and its twiddle, v w, with each fused multiply-add
+// spelled out: re = fma(v.x, w.x, -(v.y w.y)), im = fma(v.x, w.y, v.y w.x),
+// as nvcc fused it when the kernels read their twiddles from a table in
+// device memory, so that the outputs keep those bits and no contraction the
+// compiler chooses from the code around it moves one
+__device__ __forceinline__ float2 twiddled(float2 v, float2 w) {
+  return make_float2(__fmaf_rn(v.x, w.x, -__fmul_rn(v.y, w.y)),
+                     __fmaf_rn(v.x, w.y, __fmul_rn(v.y, w.x)));
+}
+
 // A thread's walk over the items f = tid, tid + nthreads, ... of an
 // outer x inner grid as (o, i) = (f / inner, f % inner), stepped without a
 // division in the loop.

@@ -152,31 +152,12 @@ namespace {
 using Sample = std::conditional_t<ORCAI_DTYPE == 0, float,
                                   std::conditional_t<ORCAI_DTYPE == 1, int16_t, uint8_t>>;
 
-// The exchange's product of a value and its twiddle, v w, with each fused
-// multiply-add spelled out: re = fma(v.x, w.x, -(v.y w.y)), im = fma(v.x,
-// w.y, v.y w.x), as nvcc fused it when the kernel read its twiddles from a
-// table in device memory, so that the outputs keep those bits (ops/dft.py::
-// product_twiddles gives the same twiddles) and no contraction the compiler
-// chooses from the code around it moves one.
-__device__ __forceinline__ float2 twiddled(float2 v, float2 w) {
-  return make_float2(__fmaf_rn(v.x, w.x, -__fmul_rn(v.y, w.y)),
-                     __fmaf_rn(v.x, w.y, __fmul_rn(v.y, w.x)));
-}
-
 // A thread's loads are issued EXCHANGE at a time before its remote stores,
 // which the compiler may not move them past: their latencies overlap.
 constexpr int EXCHANGE = 4;
 
-// W_N^m for m < N: hi[m >> s] * lo[m & (2^s - 1)] in float64 (no fused
-// multiply-add, as the host's check computes it), rounded once
-__device__ __forceinline__ float2 twiddle(const double2* lo, const double2* hi, int s, int m) {
-  const double2 a = hi[m >> s], b = lo[m & ((1 << s) - 1)];
-  const double re = __dsub_rn(__dmul_rn(a.x, b.x), __dmul_rn(a.y, b.y));
-  const double im = __dadd_rn(__dmul_rn(a.x, b.y), __dmul_rn(a.y, b.x));
-  return make_float2(__double2float_rn(re), __double2float_rn(im));
-}
-
-// The four-step twiddles' tables in shared memory
+// The four-step twiddles' tables in shared memory (twiddle and twiddled,
+// the exchange's product with them, are dft_batched.cuh's)
 struct Twiddles {
   const double2* lo;
   const double2* hi;

@@ -35,21 +35,47 @@
 // split need fit on one cluster. N = N1 * N2 (ops/dft.py::staged_plan,
 // both sides at most 8192): the input z[N2 n1 + j] (z = w x_t + i w x_t+1)
 // is N2 columns j of N1 points, the output Z[k1 + N1 k2] N1 rows k1 of N2.
-//   1. kernel 1 (columns_kernel): a CTA owns G1 adjacent columns of one
-//      frame pair and reads them straight from the audio (adjacent columns
-//      are adjacent samples: each n1 is one run of G1 samples), runs their
-//      N1-point FFTs batched in shared memory (the Stockham passes of
-//      fft_plan(N1)), multiplies by W_N^(k1 j) (ops/dft.py::four_step_roots)
-//      and stores Y[k1, j] row-major into the pair's scratch, runs of G1
-//      complex values;
-//   2. kernel 2 (rows_kernel): a CTA owns G2 adjacent row pairs {k1, N1 -
-//      k1} (k1 = 0 and N1/2 pair with themselves), copies its rows from the
-//      scratch (each row one run of N2 values), runs their N2-point FFTs,
-//      and untangles X_t[k] = (Z[k] + conj Z[N-k])/2, X_t+1[k] = (Z[k] -
-//      conj Z[N-k])/2i: the mirror of bin k1 + N1 k2 lies in row N1 - k1,
-//      on the same CTA. It writes IEEE sqrtf magnitudes as runs of G2
-//      adjacent bins (the rows k1 of a CTA are adjacent, and so are their
-//      mirrors), where one row pair a CTA would write every N1-th bin.
+//   1. kernel 1 (fft_columns_kernel): a CTA owns G1 adjacent columns of
+//      one frame pair and reads them straight from the audio (adjacent
+//      columns are adjacent samples: each n1 is one run of G1 samples),
+//      runs their N1-point FFTs batched in shared memory (the passes of
+//      fft_plan(N1)), multiplies by W_N^(k1 j) and stores Y[k1, j]
+//      row-major into the pair's scratch, runs of G1 complex values;
+//   2. kernel 2 (fft_rows_kernel): a CTA owns G2 adjacent row pairs {k1,
+//      N1 - k1} (k1 = 0 and N1/2 pair with themselves), copies its rows
+//      from the scratch (each row one run of N2 values), runs their
+//      N2-point FFTs, and untangles X_t[k] = (Z[k] + conj Z[N-k])/2,
+//      X_t+1[k] = (Z[k] - conj Z[N-k])/2i: the mirror of bin k1 + N1 k2
+//      lies in row N1 - k1, on the same CTA. It writes IEEE sqrtf
+//      magnitudes as runs of G2 adjacent bins (the rows k1 of a CTA are
+//      adjacent, and so are their mirrors), where one row pair a CTA would
+//      write every N1-th bin.
+// What held the FFT mode was latency, not bytes: taken apart on the card
+// (tools/probe_staged.py, PERF.md), its kernel 2 spent 0.79 of its 1.90 ms
+// at 131072 on 2048 frames copying its rows one value a thread at a time
+// (a load, then its store, then the next load), its passes 0.54 ms of the
+// call, kernel 1 0.19 ms reading each twiddle of an N-value table from L2
+// in the same way; its magnitude stores, 16-byte runs, cost 0.23 ms where
+// their bytes need 0.16. So:
+//   - kernel 2 copies its rows with every load of a thread in flight
+//     before its stores (COPY at a time in the generic kernel);
+//   - the twiddles are products of two tables of float64 roots in shared
+//     memory, S + N/S values (twiddle_split, as dft_cluster.cu's), formed
+//     where each value is stored, with the multiply's fused multiply-adds
+//     spelled out (twiddled): no table of N values is read each pair;
+//   - every side whose radices are all powers of two, in two passes or
+//     more, and 98304's rows of 384 = 16 x 8 x 3, a fork for that one size
+//     (Columns, Rows; the rule of dft_staged_plan.cuh::powers_of_two and
+//     extra_row, which tests/test_torch_dft_staged.py enumerates over the
+//     mode's reach), runs a kernel of its own compiled
+//     whole (Fixed: every size, stride, round and pass a constant), on one
+//     buffer, its passes in place (each thread's butterflies read, a
+//     barrier, then written), so that its CTAs take half the shared memory
+//     and three share an SM; kernel 1's last pass multiplies by the
+//     twiddles and stores to the scratch from registers, and its 1- and
+//     2-byte samples are staged in its buffer first (stage_columns). Every
+//     other side runs the generic kernel, which reads its plan at run time
+//     from shared memory.
 // The chirp-z (Bluestein) mode follows dft_cluster.cu's, one stage a
 // kernel, three kernels a chunk: kernel 1 the first FFT's columns of z =
 // (w a)[n] (x_t + i x_t+1)[n] zero-padded to M; kernel 2 its rows, the
@@ -77,8 +103,9 @@
 // values) comes from the caller (the caching allocator).
 // Each kernel's batch of G columns, row pairs or column pairs is the most
 // whose two buffers fit in 96 KB (two CTAs on an SM), at least one within
-// 200 KB; the roots are read from device memory through L1 (the same
-// across a batch: broadcasts).
+// 200 KB (dft_staged_plan.cuh); the pass roots, and the chirp mode's
+// twiddles, are read from device memory through L1 (the same across a
+// batch: broadcasts).
 //
 // The butterflies are dft_mixed.cu's and dft_cluster.cu's
 // (dft_butterflies.cuh, dft_batched.cuh): radix 16 as 4 x 4, the odd radices
@@ -124,29 +151,7 @@ namespace {
   case 31: if constexpr (ORCAI_ODD >= 31) { CALL(31); } break;
 
 #include "dft_batched.cuh"
-
-constexpr int MAX_SIDE = 8192;             // N1 and N2
-constexpr long long MAX_N = 1LL << 21;     // the largest FFT: n_fft, or M in the chirp mode
-constexpr int MAX_N_FFT = 1 << 20;         // the largest n_fft, either mode (STAGED_MAX)
-constexpr int MAX_BATCH = 16;              // columns, row pairs or column pairs a CTA
-constexpr int MAX_THREADS = 256;
-constexpr int MAX_CTA_BYTES = 200 * 1024;  // a CTA's two buffers
-
-struct Plan {
-  int n, n1, n2;        // N = n1 * n2 points
-  int g1, g2;           // columns a kernel-1 CTA, row pairs a kernel-2 CTA
-  int chirp_n;          // the chirp mode's n_fft; 0 in the FFT mode
-  int tw_len;           // both sides' pass roots, then the four-step twiddles
-  int cstride, rstride; // the column and row batches' strides (odd)
-  int col_groups, row_groups;  // kernel-1 and kernel-2 CTAs a frame pair
-  int col_threads, row_threads;
-  int col_bytes, row_bytes;    // their shared memory
-  // the chirp mode's kernel 3: G3 column pairs a CTA, the representatives d
-  // = e .. top of the columns f + d (mod n2), each with its partner f + e - d
-  int g3, fold_f, fold_e, fold_top;
-  int fstride, fold_groups, fold_threads, fold_bytes;
-  Side col, row;        // col: N1-point FFTs of the columns; row: N2-point of the rows
-};
+#include "dft_staged_plan.cuh"
 
 // the columns cols[b] of the scratch: element e of local column b
 struct ListColumns {
@@ -158,7 +163,7 @@ struct ListColumns {
 
 // The G1 (or fewer, at the right edge) columns c0.. of one frame pair: their
 // N1-point FFTs from `load`, then element k1 of column j, times t[k1 * n2 +
-// j] (the four-step twiddles), stored at s[k1 * n2 + j].
+// j] (the chirp mode's four-step twiddles), stored at s[k1 * n2 + j].
 // Consecutive threads take consecutive columns: runs of `cols` values.
 template <typename Load>
 __device__ __forceinline__ void columns(const Load& load, const float2* __restrict__ tables,
@@ -172,11 +177,320 @@ __device__ __forceinline__ void columns(const Load& load, const float2* __restri
   }
 }
 
-// Kernel 1: CTA blockIdx.x owns column group blockIdx.x % col_groups of the
-// chunk's frame pair blockIdx.x / col_groups, whose scratch is scratch +
-// that pair * n. MODE 0: the FFT mode's columns of the audio; 1: the chirp
-// mode's first FFT.
-template <typename T, int MODE>
+// A side read at run time from the Plan (in shared memory, indexed by pass)
+struct Generic {
+  static constexpr bool compiled = false;
+  static constexpr int most_threads = MAX_THREADS, ctas = 2;
+};
+
+template <int A, int... B>
+struct Largest {
+  static constexpr int value = A;
+};
+template <int A, int B, int... C>
+struct Largest<A, B, C...> {
+  static constexpr int value = A > Largest<B, C...>::value ? A : Largest<B, C...>::value;
+};
+
+// Pass radix R (after NS points) of BATCH FFTs of N points on THREADS
+// threads: butterfly j of FFT b reads elements j + r N/R through load(e, b),
+// times the pass roots at tw[(r - 1) NS + j % NS] (none in the first pass),
+// and hands element (j / NS) NS R + j % NS + r NS to emit(e, b, v). Each
+// thread's butterflies are read before any is written; IN_PLACE puts a
+// barrier between, for a pass that reads and writes one buffer.
+template <int R, int NS, int N, int BATCH, int THREADS, bool IN_PLACE, class Load, class Emit>
+__device__ __forceinline__ void fixed_pass(const Load& load, const float2* tw, int tid,
+                                           const Emit& emit) {
+  constexpr int NB = N / R, ITEMS = NB * BATCH, K = (ITEMS + THREADS - 1) / THREADS;
+  float re[K][R], im[K][R];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int f = tid + k * THREADS;
+    if (ITEMS % THREADS == 0 || f < ITEMS) {
+      const int j = f / BATCH, b = f % BATCH;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float2 v = load(j + r * NB, b);
+        re[k][r] = v.x;
+        im[k][r] = v.y;
+      }
+    }
+  }
+  if constexpr (IN_PLACE) __syncthreads();
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int f = tid + k * THREADS;
+    if (ITEMS % THREADS == 0 || f < ITEMS) {
+      const int j = f / BATCH, b = f % BATCH, jm = j % NS;
+      if constexpr (NS > 1) {
+#pragma unroll
+        for (int r = 1; r < R; ++r) {
+          const float2 t = tw[(r - 1) * NS + jm];
+          const float vr = re[k][r] * t.x - im[k][r] * t.y;
+          const float vi = re[k][r] * t.y + im[k][r] * t.x;
+          re[k][r] = vr;
+          im[k][r] = vi;
+        }
+      }
+      dft(re[k], im[k]);
+      const int base = (j / NS) * NS * R + jm;
+#pragma unroll
+      for (int r = 0; r < R; ++r) emit(base + r * NS, b, make_float2(re[k][r], im[k][r]));
+    }
+  }
+}
+
+// The passes of a side compiled whole from radix R on (NS points done):
+// the first reads through `load`, every pass but the last writes `buf` (at
+// STRIDE) and ends at a barrier, the last hands its outputs to `last`.
+// READS_BUF: the first pass reads `buf` (every later pass does); LAST_BUF:
+// `last` writes `buf`, so the last pass runs in place.
+template <int N, int BATCH, int STRIDE, int THREADS, int NS, bool READS_BUF, bool LAST_BUF,
+          int... RS>
+struct Passes;
+
+template <int N, int BATCH, int STRIDE, int THREADS, int NS, bool READS_BUF, bool LAST_BUF, int R>
+struct Passes<N, BATCH, STRIDE, THREADS, NS, READS_BUF, LAST_BUF, R> {
+  template <class Load, class Last>
+  static __device__ __forceinline__ void run(const Load& load, float2*, const float2* tw, int tid,
+                                             const Last& last) {
+    fixed_pass<R, NS, N, BATCH, THREADS, READS_BUF && LAST_BUF>(load, tw, tid, last);
+  }
+};
+
+template <int N, int BATCH, int STRIDE, int THREADS, int NS, bool READS_BUF, bool LAST_BUF, int R,
+          int R2, int... RS>
+struct Passes<N, BATCH, STRIDE, THREADS, NS, READS_BUF, LAST_BUF, R, R2, RS...> {
+  template <class Load, class Last>
+  static __device__ __forceinline__ void run(const Load& load, float2* buf, const float2* tw,
+                                             int tid, const Last& last) {
+    fixed_pass<R, NS, N, BATCH, THREADS, READS_BUF>(
+        load, tw, tid, [&](int e, int b, float2 v) { buf[e * STRIDE + b] = v; });
+    __syncthreads();
+    Passes<N, BATCH, STRIDE, THREADS, NS * R, true, LAST_BUF, R2, RS...>::run(
+        Local{buf, STRIDE}, buf, NS > 1 ? tw + (R - 1) * NS : tw, tid, last);
+  }
+};
+
+// A side compiled whole: BATCH FFTs a CTA (G columns in kernel 1, the 2 G
+// rows of G row pairs in kernel 2) of N = R... points on THREADS threads
+// (threads_for, as the plan launches them), one buffer at STRIDE, CTAS
+// CTAs an SM in the registers.
+template <int G, int BATCH, int... R>
+struct Fixed {
+  static constexpr bool compiled = true;
+  static constexpr int g = G, batch = BATCH, n = (R * ...), passes = sizeof...(R);
+  static constexpr int radix[passes] = {R...};
+  static constexpr int stride = BATCH | 1;
+  static constexpr int threads = threads_for(n, Largest<R...>::value, BATCH);
+  static constexpr int buffer_bytes = n * stride * 8;
+  static constexpr int most_threads = threads, ctas = buffer_bytes <= 64 * 1024 ? 3 : 2;
+
+  // the FFTs: the first pass from `load`, the last to `last` (Passes)
+  template <bool READS_BUF, bool LAST_BUF, class Load, class Last>
+  static __device__ __forceinline__ void fft(const Load& load, float2* buf, const float2* tw,
+                                             int tid, const Last& last) {
+    Passes<n, BATCH, stride, threads, 1, READS_BUF, LAST_BUF, R...>::run(load, buf, tw, tid, last);
+  }
+};
+template <int G, int... R>
+using Column = Fixed<G, G, R...>;
+template <int G, int... R>
+using Row = Fixed<G, 2 * G, R...>;
+
+// The sides compiled whole, every FFT-mode side whose radices are all
+// powers of two, in two passes or more, with its batch (staged_plan's G1,
+// G2) over the mode's reach, 8193 to 2^20 (tests/test_torch_dft_staged.py
+// enumerates them): the columns of 256 (131072, 98304 and 177 other
+// sizes), 512, 128 and 64 points and the rows of 1024, 4096, 256 and 512
+// (131072); and the rows of 98304 (dft_staged_plan.cuh::extra_row); in
+// every build, so that a plan runs them whatever its other side's radices.
+template <class... Fs>
+struct Sides {};
+using Columns = Sides<Column<16, 16, 16>, Column<8, 8, 8, 8>, Column<16, 16, 8>, Column<16, 8, 8>>;
+using Rows = Sides<Row<2, 16, 8, 8>, Row<1, 16, 16, 16>, Row<8, 16, 16>, Row<4, 8, 8, 8>,
+                   Row<4, 16, 8, 3>>;
+
+// A thread's loads kept in flight at a time where a copy is not compiled
+// whole: the rows of kernel 2 (up to it in a compiled side too), kernel 1's
+// samples where they are not copied as vectors (24 read no faster: PERF.md)
+constexpr int COPY = 8;
+
+template <int BYTES>
+struct Vec;  // an unsigned type of BYTES bytes, for copies of that width
+template <>
+struct Vec<16> {
+  using type = uint4;
+};
+template <>
+struct Vec<8> {
+  using type = uint2;
+};
+
+// ROWS rows of G adjacent values of type U, row r from src + at(r), copied
+// to dst[r G + b] as vectors of up to 16 bytes (V), each thread's loads
+// (load) held in registers until its stores (store), so that a caller
+// issues all of its copies' loads before any store
+template <int G, int ROWS, int THREADS, typename U>
+struct RowCopy {
+  static constexpr int BYTES = G * sizeof(U) < 16 ? G * sizeof(U) : 16, VEC = BYTES / sizeof(U);
+  static constexpr int PER_ROW = G / VEC, ITEMS = ROWS * PER_ROW;
+  static constexpr int K = (ITEMS + THREADS - 1) / THREADS;
+  using V = typename Vec<BYTES>::type;
+  V v[K];
+
+  // the rows below `rows`
+  template <class At>
+  __device__ __forceinline__ void load(const U* __restrict__ src, const At& at, int rows, int tid) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = tid + k * THREADS, row = i / PER_ROW;
+      if (i < ITEMS && row < rows)
+        v[k] = *reinterpret_cast<const V*>(src + at(row) + (i % PER_ROW) * VEC);
+    }
+  }
+  __device__ __forceinline__ void store(U* dst, int rows, int tid) const {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = tid + k * THREADS;
+      if (i < ITEMS && i / PER_ROW < rows) reinterpret_cast<V*>(dst)[i] = v[k];
+    }
+  }
+};
+
+// The G columns c0.. of one frame pair, staged for kernel 1's first pass:
+// the two frames' samples (element e of frame f, 0: xa, 1: xa + hop, at
+// stage[(f N1 + e) G + b]) and the window (wstage[e G + b]), each row a run
+// of G values, copied as vectors where the audio's frames and rows and the
+// window's rows are aligned to them and the group is whole (cols == G),
+// else a value at a time, COPY loads a thread in flight; every load of a
+// thread issued before its stores. A phantom second frame (has_b false) is
+// not read. Either way the first pass reads the same values from the same
+// place, so an unaligned view's magnitudes are bit for bit an aligned one's.
+template <int G, int N1, int THREADS, typename T>
+__device__ __forceinline__ void stage_columns(const T* __restrict__ xa, int hop, bool has_b,
+                                              const float* __restrict__ window, int n2, int c0,
+                                              int cols, T* stage, float* wstage, int tid) {
+  using Samples = RowCopy<G, 2 * N1, THREADS, T>;
+  using Window = RowCopy<G, N1, THREADS, float>;
+  const uintptr_t at = reinterpret_cast<uintptr_t>(xa) | static_cast<uintptr_t>(n2) * sizeof(T) |
+                       static_cast<uintptr_t>(hop) * sizeof(T);
+  const uintptr_t w_at = reinterpret_cast<uintptr_t>(window) | static_cast<uintptr_t>(n2) * 4;
+  const int rows = has_b ? 2 * N1 : N1;
+  if (cols == G && at % Samples::BYTES == 0 && w_at % Window::BYTES == 0) {
+    Samples samples;
+    Window w;
+    samples.load(xa + c0, [&](int row) { return (row / N1) * hop + (row % N1) * n2; }, rows, tid);
+    w.load(window + c0, [&](int row) { return row * n2; }, N1, tid);
+    samples.store(stage, rows, tid);
+    w.store(wstage, N1, tid);
+  } else {
+    constexpr int ITEMS = 3 * N1 * G;  // the samples' rows, then the window's
+    for (int i0 = tid; i0 < ITEMS; i0 += COPY * THREADS) {
+      float v[COPY];
+#pragma unroll
+      for (int k = 0; k < COPY; ++k) {
+        const int i = i0 + k * THREADS, row = i / G, b = i % G;
+        if (i < ITEMS && b < cols)
+          v[k] = row >= 2 * N1 ? window[(row - 2 * N1) * n2 + c0 + b]
+                 : row < rows  ? static_cast<float>(xa[(row / N1) * hop + (row % N1) * n2 + c0 + b])
+                               : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < COPY; ++k) {
+        const int i = i0 + k * THREADS, row = i / G;
+        if (i < ITEMS && i % G < cols) {
+          if (row >= 2 * N1)
+            wstage[i - 2 * N1 * G] = v[k];
+          else
+            stage[i] = static_cast<T>(v[k]);
+        }
+      }
+    }
+  }
+}
+
+// Kernel 1 of the FFT mode: CTA blockIdx.x owns column group blockIdx.x %
+// col_groups of the chunk's frame pair blockIdx.x / col_groups, whose
+// scratch is scratch + that pair * n. Shared memory: where S is compiled
+// whole the twiddles' two tables (tables + tab_off: lo, then hi), then the
+// buffers. S: Generic, or the Fixed column side the plan's is (Columns).
+template <typename T, class S>
+__global__ void __launch_bounds__(S::most_threads, S::ctas)
+fft_columns_kernel(const T* __restrict__ audio, const float* __restrict__ window,
+                   const float2* __restrict__ tables, float2* __restrict__ scratch, int pair0,
+                   int n_frames, int hop, const Plan plan) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Plan p;  // read with the pass index, so from shared memory
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  if (!S::compiled && tid == 0) p = plan;
+  // the twiddles' tables: copied to shared memory where the side is
+  // compiled whole; the generic kernel, whose CTAs may hold a few hundred
+  // values (16 columns of 16 points), reads them where they lie (L1)
+  const double2* lo = reinterpret_cast<const double2*>(tables + plan.tab_off);
+  if constexpr (S::compiled) {
+    const uint4* src = reinterpret_cast<const uint4*>(lo);
+    uint4* dst = reinterpret_cast<uint4*>(smem);
+    for (int i = tid; i < plan.tab_bytes / 16; i += nthreads) dst[i] = src[i];
+    lo = reinterpret_cast<const double2*>(smem);
+  }
+  const double2* hi = lo + (1 << plan.tw_log2);
+  const int tw_log2 = plan.tw_log2, n2 = plan.n2;
+  float2* za = reinterpret_cast<float2*>(smem + (S::compiled ? plan.tab_bytes : 0));
+  const int local = blockIdx.x / plan.col_groups;
+  const int c0 = (blockIdx.x % plan.col_groups) * plan.g1;
+  const int cols = n2 - c0 < plan.g1 ? n2 - c0 : plan.g1;
+  float2* s = scratch + static_cast<long long>(local) * plan.n;
+  const int t0 = 2 * (pair0 + local);
+  const T* xa = audio + static_cast<long long>(t0) * hop;
+  const PairColumns<T> load{xa, xa + hop, t0 + 1 < n_frames, window, n2, c0};
+  __syncthreads();
+  if constexpr (S::compiled) {
+    // the last pass's outputs times their twiddles into the scratch; the
+    // columns past the right edge (b >= cols) load zeros and store nothing
+    const auto last = [&](int k1, int b, float2 v) {
+      if (b < cols) {
+        const int j = c0 + b;
+        s[k1 * n2 + j] = twiddled(v, twiddle(lo, hi, tw_log2, k1 * j));
+      }
+    };
+    if constexpr (sizeof(T) < 4) {
+      // 1- and 2-byte samples, read a sample a thread, left the loads short
+      // of the bytes the card moves: staged in the buffer with the window,
+      // which the first pass reads and then overwrites in place
+      T* stage = reinterpret_cast<T*>(za);
+      float* wstage = reinterpret_cast<float*>(stage + 2 * S::n * S::g);
+      stage_columns<S::g, S::n, S::threads>(xa, hop, load.has_b, window, n2, c0, cols, stage,
+                                            wstage, tid);
+      __syncthreads();
+      S::template fft<true, false>(
+          [&](int e, int b) {
+            if (b >= cols) return make_float2(0.0f, 0.0f);
+            const float w = wstage[e * S::g + b];
+            return make_float2(w * sample_to_f32(stage[e * S::g + b]),
+                               load.has_b ? w * sample_to_f32(stage[(S::n + e) * S::g + b])
+                                          : 0.0f);
+          },
+          za, tables, tid, last);
+    } else {
+      S::template fft<false, false>(
+          [&](int e, int b) { return b < cols ? load(e, b) : make_float2(0.0f, 0.0f); }, za,
+          tables, tid, last);
+    }
+  } else {
+    const float2* y = batched_fft(load, za, za + plan.n1 * plan.cstride, tables, p.col,
+                                  plan.cstride, cols, tid, nthreads);
+    for (Walk w(tid, nthreads, cols); w.o < plan.n1; w.step()) {
+      const int j = c0 + w.i;
+      s[w.o * n2 + j] = twiddled(y[w.o * plan.cstride + w.i], twiddle(lo, hi, tw_log2, w.o * j));
+    }
+  }
+}
+
+// Kernel 1 of the chirp mode: CTA blockIdx.x owns column group blockIdx.x %
+// col_groups of the chunk's frame pair blockIdx.x / col_groups, the first
+// FFT's columns.
+template <typename T>
 __global__ void __launch_bounds__(MAX_THREADS, 2)
 columns_kernel(const T* __restrict__ audio, const float* __restrict__ window,
                const float2* __restrict__ tables, const float2* __restrict__ chirp,
@@ -196,39 +510,131 @@ columns_kernel(const T* __restrict__ audio, const float* __restrict__ window,
   const int t0 = 2 * (pair0 + local);
   const T* xa = audio + static_cast<long long>(t0) * hop;
   const bool has_b = t0 + 1 < n_frames;
-  if constexpr (MODE == 0)
-    columns(PairColumns<T>{xa, xa + hop, has_b, window, plan.n2, c0}, tables, t, s, p, c0, cols,
-            za, zb, tid, nthreads);
-  else
-    columns(ChirpColumns<T>{xa, xa + hop, has_b, chirp, plan.chirp_n, plan.n2, c0}, tables, t, s,
-            p, c0, cols, za, zb, tid, nthreads);
+  columns(ChirpColumns<T>{xa, xa + hop, has_b, chirp, plan.chirp_n, plan.n2, c0}, tables, t, s,
+          p, c0, cols, za, zb, tid, nthreads);
 }
 
-// Kernel 2: CTA blockIdx.x owns row group blockIdx.x % row_groups (the row
-// pairs {k1, n1 - k1}, k1 in [lo, hi), as local rows lo.. hi - 1 then the
-// distinct mirrors b0.. b0 + blen - 1) of the chunk's frame pair blockIdx.x /
-// row_groups. The FFT mode untangles and writes the pair's magnitudes; the
-// chirp mode takes the product with B and runs the second FFT's rows, then
-// writes them back over its rows of the scratch times W_M^(k1 p2).
-template <bool CHIRP>
-__global__ void __launch_bounds__(MAX_THREADS, 2)
-rows_kernel(const float2* __restrict__ tables, const float2* __restrict__ chirp,
-            float2* __restrict__ scratch, float* __restrict__ out, int pair0, int n_frames,
-            const Plan plan) {
+// The rows of a kernel-2 CTA, row group `group` of a frame pair: the row
+// pairs {k1, n1 - k1}, k1 in [lo, hi), as local rows lo.. hi - 1 (alen),
+// then the distinct mirrors b0.. b0 + blen - 1 (k1 = 0 and n1 / 2 pair with
+// themselves)
+struct RowGroup {
+  int lo, hi, alen, blen, b0;
+  __device__ __forceinline__ RowGroup(const Plan& plan, int group) {
+    const int n1 = plan.n1, H = n1 / 2;
+    lo = group * plan.g2;
+    hi = lo + plan.g2 < H + 1 ? lo + plan.g2 : H + 1;
+    // mirrors n1 - k1 > H of the rows k1 in [m_lo, m_hi): rows b0 .. n1 - m_lo
+    const int m_lo = lo > 1 ? lo : 1, m_hi = hi < n1 - H ? hi : n1 - H;
+    alen = hi - lo;
+    blen = m_hi > m_lo ? m_hi - m_lo : 0;
+    b0 = n1 - m_hi + 1;
+  }
+  __device__ __forceinline__ int rows() const { return alen + blen; }
+  __device__ __forceinline__ int k1(int l) const { return l < alen ? lo + l : b0 + l - alen; }
+};
+
+
+// The rows of group g (rows_k1) from the scratch s into `za`, element e of
+// local row l at e * stride + l: ITEMS values (rows * n2) on `nthreads`
+// threads, PER loads a thread issued before their stores
+template <int PER>
+__device__ __forceinline__ void copy_rows(const float2* __restrict__ s, float2* za, int stride,
+                                          const unsigned short* rows_k1, int n2, int items,
+                                          int tid, int nthreads) {
+  for (int f0 = tid; f0 < items; f0 += PER * nthreads) {
+    float2 v[PER];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int f = f0 + i * nthreads;
+      if (f < items) v[i] = s[rows_k1[f / n2] * n2 + f % n2];
+    }
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int f = f0 + i * nthreads;
+      if (f < items) za[(f % n2) * stride + f / n2] = v[i];
+    }
+  }
+}
+
+// The FFT mode's untangle: Z[k1 + n1 k2] at k2 * stride + l (local row l
+// of row k1 = rows_k1[l]); its mirror Z[N - k] in row (n1 - k1) % n1 at k2'
+// = n2 - 1 - k2, or (n2 - k2) % n2 where k1 is 0. Writes the bins k <= N/2
+// of the rows of frames t and t + 1.
+__device__ __forceinline__ void untangle_rows(const float2* z, int stride,
+                                              const unsigned short* rows_k1, const RowGroup& g,
+                                              const Plan& plan, float* __restrict__ out, int t,
+                                              int n_frames, int tid, int nthreads) {
+  const int N = plan.n, n1 = plan.n1, n2 = plan.n2, n_bins = N / 2 + 1;
+  float* row_a = out + static_cast<long long>(t) * n_bins;
+  const bool has_b = t + 1 < n_frames;
+  for (Walk w(tid, nthreads, g.rows()); w.o <= (N / 2) / n1; w.step()) {
+    const int k2 = w.o, l = w.i, k1 = rows_k1[l], k = k1 + n1 * k2;
+    if (k > N / 2) continue;
+    const int m1 = k1 == 0 ? 0 : n1 - k1;
+    const int m2 = k1 != 0 ? n2 - 1 - k2 : k2 == 0 ? 0 : n2 - k2;
+    const int lm = m1 >= g.lo && m1 < g.hi ? m1 - g.lo : g.alen + m1 - g.b0;
+    write_bin(row_a, n_bins, has_b, k, z[k2 * stride + l], z[m2 * stride + lm]);
+  }
+}
+
+// Kernel 2 of the FFT mode: CTA blockIdx.x owns row group blockIdx.x %
+// row_groups of the chunk's frame pair blockIdx.x / row_groups, untangles
+// and writes the pair's magnitudes of its rows. S: Generic, or the Fixed
+// row side the plan's is (Rows).
+template <class S>
+__global__ void __launch_bounds__(S::most_threads, S::ctas)
+fft_rows_kernel(const float2* __restrict__ tables, const float2* __restrict__ scratch,
+                float* __restrict__ out, int pair0, int n_frames, const Plan plan) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Plan p;
   __shared__ unsigned short rows_k1[2 * MAX_BATCH];
   const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int n1 = plan.n1, n2 = plan.n2, H = n1 / 2;
   const int local = blockIdx.x / plan.row_groups;
-  const int lo = (blockIdx.x % plan.row_groups) * plan.g2;
-  const int hi = lo + plan.g2 < H + 1 ? lo + plan.g2 : H + 1;
-  // mirrors n1 - k1 > H of the rows k1 in [m_lo, m_hi): rows b0 .. n1 - m_lo
-  const int m_lo = lo > 1 ? lo : 1, m_hi = hi < n1 - H ? hi : n1 - H;
-  const int alen = hi - lo, blen = m_hi > m_lo ? m_hi - m_lo : 0, b0 = n1 - m_hi + 1;
-  const int rows = alen + blen;
+  const RowGroup g(plan, blockIdx.x % plan.row_groups);
+  const int rows = g.rows();
+  if (!S::compiled && tid == 0) p = plan;
+  if (tid < rows) rows_k1[tid] = static_cast<unsigned short>(g.k1(tid));
+  float2* za = reinterpret_cast<float2*>(smem);
+  const float2* s = scratch + static_cast<long long>(local) * plan.n;
+  const int t = 2 * (pair0 + local);
+  __syncthreads();
+  if constexpr (S::compiled) {
+    constexpr int per = S::batch * S::n / S::threads;
+    copy_rows<(per < COPY ? per : COPY)>(s, za, S::stride, rows_k1, S::n, rows * S::n, tid,
+                                         S::threads);
+    __syncthreads();
+    // the rows past the group's (l >= rows) are transformed unread and never written out
+    S::template fft<true, true>(Local{za, S::stride}, za, tables + plan.row.tw_off, tid,
+                          [&](int e, int b, float2 v) { za[e * S::stride + b] = v; });
+    __syncthreads();
+    untangle_rows(za, S::stride, rows_k1, g, plan, out, t, n_frames, tid, S::threads);
+  } else {
+    copy_rows<COPY>(s, za, plan.rstride, rows_k1, plan.n2, rows * plan.n2, tid, nthreads);
+    __syncthreads();
+    const float2* z = batched_fft(Local{za, plan.rstride}, za + plan.n2 * plan.rstride, za,
+                                  tables, p.row, plan.rstride, rows, tid, nthreads);
+    untangle_rows(z, plan.rstride, rows_k1, g, plan, out, t, n_frames, tid, nthreads);
+  }
+}
+
+// Kernel 2 of the chirp mode: CTA blockIdx.x owns row group blockIdx.x %
+// row_groups (RowGroup) of the chunk's frame pair blockIdx.x / row_groups:
+// the product with B and the second FFT's rows, written back over its rows
+// of the scratch times W_M^(k1 p2).
+__global__ void __launch_bounds__(MAX_THREADS, 2)
+rows_kernel(const float2* __restrict__ tables, const float2* __restrict__ chirp,
+            float2* __restrict__ scratch, const Plan plan) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Plan p;
+  __shared__ unsigned short rows_k1[2 * MAX_BATCH];
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int n1 = plan.n1, n2 = plan.n2;
+  const int local = blockIdx.x / plan.row_groups;
+  const RowGroup group(plan, blockIdx.x % plan.row_groups);
+  const int rows = group.rows();
   if (tid == 0) p = plan;
-  if (tid < rows) rows_k1[tid] = static_cast<unsigned short>(tid < alen ? lo + tid : b0 + tid - alen);
+  if (tid < rows) rows_k1[tid] = static_cast<unsigned short>(group.k1(tid));
   float2* za = reinterpret_cast<float2*>(smem);
   float2* zb = za + n2 * plan.rstride;
   float2* s = scratch + static_cast<long long>(local) * plan.n;
@@ -239,32 +645,15 @@ rows_kernel(const float2* __restrict__ tables, const float2* __restrict__ chirp,
   __syncthreads();
   float2* z = batched_fft(Local{za, plan.rstride}, zb, za, tables, p.row, plan.rstride, rows,
                           tid, nthreads);
-  if constexpr (!CHIRP) {
-    // Z[k1 + n1 k2] at k2 * rstride + l; its mirror Z[N - k] in row
-    // (n1 - k1) % n1 at k2' = n2 - 1 - k2, or (n2 - k2) % n2 where k1 is 0
-    const int N = plan.n, n_bins = N / 2 + 1, t = 2 * (pair0 + local);
-    float* row_a = out + static_cast<long long>(t) * n_bins;
-    const bool has_b = t + 1 < n_frames;
-    for (Walk w(tid, nthreads, rows); w.o <= (N / 2) / n1; w.step()) {
-      const int k2 = w.o, l = w.i, k1 = rows_k1[l], k = k1 + n1 * k2;
-      if (k > N / 2) continue;
-      const int m1 = k1 == 0 ? 0 : n1 - k1;
-      const int m2 = k1 != 0 ? n2 - 1 - k2 : k2 == 0 ? 0 : n2 - k2;
-      const int lm = m1 >= lo && m1 < hi ? m1 - lo : alen + m1 - b0;
-      write_bin(row_a, n_bins, has_b, k, z[k2 * plan.rstride + l], z[m2 * plan.rstride + lm]);
-    }
-  } else {
-    float2* other = z == za ? zb : za;
-    const float2* g = batched_fft(Product{z, plan.rstride, chirp + 2 * plan.chirp_n, rows_k1, n1},
-                                  other, z, tables, p.row, plan.rstride, rows, tid, nthreads);
-    const float2* t = tables + plan.tw_len;
-    for (Walk w(tid, nthreads, n2); w.o < rows; w.step()) {
-      const int at = rows_k1[w.o] * n2 + w.i;
-      s[at] = cmul(g[w.i * plan.rstride + w.o], t[at]);
-    }
+  float2* other = z == za ? zb : za;
+  const float2* g = batched_fft(Product{z, plan.rstride, chirp + 2 * plan.chirp_n, rows_k1, n1},
+                                other, z, tables, p.row, plan.rstride, rows, tid, nthreads);
+  const float2* t = tables + plan.tw_len;
+  for (Walk w(tid, nthreads, n2); w.o < rows; w.step()) {
+    const int at = rows_k1[w.o] * n2 + w.i;
+    s[at] = cmul(g[w.i * plan.rstride + w.o], t[at]);
   }
 }
-
 // Kernel 3 of the chirp mode: CTA blockIdx.x owns fold group blockIdx.x %
 // fold_groups of the chunk's frame pair blockIdx.x / fold_groups, the
 // representatives d in [lo, hi) (lo = e + group * g3): local columns 0 ..
@@ -323,91 +712,45 @@ columns_untangle_kernel(const float2* __restrict__ tables, const float2* __restr
   }
 }
 
-// radices[0..P) -> the side's passes; nonzero when they are not of n or
-// their roots are not `len` rows (a one-pass plan has one unread row)
-int make_side(const int* radices, int P, int n, int tw_off, int len, Side* side) {
-  if (P < 1 || P > MAX_PASSES) return 1;
-  long long prod = 1;
-  int ns = 1, off = 0;
-  for (int p = 0; p < P; ++p) {
-    const int R = radices[p];
-    if (R != 2 && R != 3 && R != 4 && R != 5 && R != 7 && R != 8 && R != 11 && R != 13 &&
-        R != 16 && R != 17 && R != 19 && R != 23 && R != 29 && R != 31)
-      return 1;
-    side->radix[p] = R;
-    side->ns[p] = ns;
-    side->pass_off[p] = off;
-    if (p > 0) off += (R - 1) * ns;
-    ns *= R;
-    prod *= R;
-    if (prod > MAX_SIDE) return 1;
-  }
-  if (prod != n || (off != len && !(off == 0 && len == 1))) return 1;
-  side->n = n;
-  side->n_passes = P;
-  side->tw_off = tw_off;
-  return 0;
+template <typename T>
+using ColumnsKernel = void (*)(const T*, const float*, const float2*, float2*, int, int, int,
+                               const Plan);
+using RowsKernel = void (*)(const float2*, const float2*, float*, int, int, const Plan);
+
+// side is the Fixed F's with its batch g
+template <class F>
+bool same_side(const Side& side, int g) {
+  if (side.n != F::n || side.n_passes != F::passes || g != F::g) return false;
+  for (int i = 0; i < F::passes; ++i)
+    if (side.radix[i] != F::radix[i]) return false;
+  return true;
 }
 
-int largest_radix(const Side& side) {
-  int r = 1;
-  for (int p = 0; p < side.n_passes; ++p) r = side.radix[p] > r ? side.radix[p] : r;
-  return r;
+// The FFT mode's kernels of a plan: the compiled kernel of each side that
+// Columns and Rows hold, else the generic one (the plan's col_fixed and
+// row_fixed, and its shared memory, set to what runs)
+template <typename T, class... Fs>
+ColumnsKernel<T> columns_of(Plan* p, Sides<Fs...>) {
+  ColumnsKernel<T> kernel = nullptr;
+  if (p->col_fixed)
+    ((kernel == nullptr && same_side<Fs>(p->col, p->g1) ? (kernel = fft_columns_kernel<T, Fs>)
+                                                        : kernel),
+     ...);
+  if (kernel == nullptr) kernel = fft_columns_kernel<T, Generic>;
+  set_fixed(p, kernel != fft_columns_kernel<T, Generic>, p->row_fixed);
+  return kernel;
 }
 
-// threads for `batch` FFTs of a side: as many butterflies as its pass of
-// the largest radix has, in warps, from 64 to MAX_THREADS
-int threads_for(const Side& side, int batch) {
-  int t = (batch * side.n / largest_radix(side) + 31) / 32 * 32;
-  return t < 64 ? 64 : t > MAX_THREADS ? MAX_THREADS : t;
-}
-
-// [N1, N2, G1, G2, len1, len2, P1, radices of N1, P2, radices of N2] and,
-// in the chirp mode, [G3, f] -> Plan of an FFT of N1 * N2 points: n_fft
-// itself, or in the chirp mode an M from 2 n_fft - 1 to MAX_N whose kernel 3
-// takes G3 column pairs a CTA about the centre f, e = (n_fft - 2 f) mod N2
-// being 0 or 1. Nonzero when it is not such a plan.
-int make_plan(const int* packed, int n_fft, bool chirp, Plan* plan) {
-  const int n1 = packed[0], n2 = packed[1], g1 = packed[2], g2 = packed[3];
-  const int len1 = packed[4], len2 = packed[5], P1 = packed[6];
-  if (n1 < 2 || n2 < 2 || n1 > MAX_SIDE || n2 > MAX_SIDE || g1 < 1 || g1 > MAX_BATCH ||
-      g2 < 1 || g2 > MAX_BATCH || len1 < 1 || len2 < 1 || P1 < 1 || P1 > MAX_PASSES)
-    return 1;
-  const long long n = static_cast<long long>(n1) * n2;
-  if (n > MAX_N || (chirp ? n < 2LL * n_fft - 1 : n != n_fft)) return 1;
-  if (make_side(packed + 7, P1, n1, 0, len1, &plan->col)) return 1;
-  if (make_side(packed + 8 + P1, packed[7 + P1], n2, len1, len2, &plan->row)) return 1;
-  plan->n = static_cast<int>(n);
-  plan->n1 = n1;
-  plan->n2 = n2;
-  plan->g1 = g1;
-  plan->g2 = g2;
-  plan->chirp_n = chirp ? n_fft : 0;
-  plan->tw_len = len1 + len2;
-  plan->cstride = g1 | 1;
-  plan->rstride = (2 * g2) | 1;
-  plan->col_groups = (n2 + g1 - 1) / g1;
-  plan->row_groups = (n1 / 2 + 1 + g2 - 1) / g2;
-  plan->col_threads = threads_for(plan->col, g1);
-  plan->row_threads = threads_for(plan->row, 2 * g2);
-  plan->col_bytes = 2 * n1 * plan->cstride * 8;
-  plan->row_bytes = 2 * n2 * plan->rstride * 8;
-  if (plan->col_bytes > MAX_CTA_BYTES || plan->row_bytes > MAX_CTA_BYTES) return 1;
-  plan->g3 = plan->fold_f = plan->fold_e = plan->fold_top = 0;
-  plan->fstride = plan->fold_groups = plan->fold_threads = plan->fold_bytes = 0;
-  if (!chirp) return 0;
-  const int* fold = packed + 8 + P1 + packed[7 + P1];
-  const int g3 = fold[0], f = fold[1], e = ((n_fft - 2 * f) % n2 + n2) % n2;
-  if (g3 < 1 || g3 > MAX_BATCH || f < 0 || f >= n2 || e > 1) return 1;
-  plan->g3 = g3;
-  plan->fold_f = f;
-  plan->fold_e = e;
-  plan->fold_top = (n2 + e) / 2;
-  plan->fstride = (2 * g3) | 1;
-  plan->fold_groups = (plan->fold_top - e + g3) / g3;
-  plan->fold_threads = threads_for(plan->col, 2 * g3);
-  plan->fold_bytes = 2 * n1 * plan->fstride * 8;
-  return plan->fold_bytes > MAX_CTA_BYTES;
+template <class... Fs>
+RowsKernel rows_of(Plan* p, Sides<Fs...>) {
+  RowsKernel kernel = nullptr;
+  if (p->row_fixed)
+    ((kernel == nullptr && same_side<Fs>(p->row, p->g2) ? (kernel = fft_rows_kernel<Fs>)
+                                                        : kernel),
+     ...);
+  if (kernel == nullptr) kernel = fft_rows_kernel<Generic>;
+  set_fixed(p, p->col_fixed, kernel != fft_rows_kernel<Generic>);
+  return kernel;
 }
 
 template <typename Kernel>
@@ -417,34 +760,41 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 
 template <typename T>
 int run(const void* audio_v, const float* window, const float* tables_f, const float* chirp_f,
-        const Plan& plan, float* scratch_f, int chunk_pairs, float* out, int n_frames, int hop,
+        Plan plan, float* scratch_f, int chunk_pairs, float* out, int n_frames, int hop,
         cudaStream_t s, int* launched) {
   const T* audio = static_cast<const T*>(audio_v);
   const float2* tables = reinterpret_cast<const float2*>(tables_f);
   const float2* chirp = reinterpret_cast<const float2*>(chirp_f);
   float2* scratch = reinterpret_cast<float2*>(scratch_f);
   const bool chirp_mode = plan.chirp_n != 0;
-  cudaError_t err = chirp_mode ? allow_smem(columns_kernel<T, 1>, plan.col_bytes)
-                               : allow_smem(columns_kernel<T, 0>, plan.col_bytes);
-  if (err == cudaSuccess)
-    err = chirp_mode ? allow_smem(rows_kernel<true>, plan.row_bytes)
-                     : allow_smem(rows_kernel<false>, plan.row_bytes);
-  if (err == cudaSuccess && chirp_mode) err = allow_smem(columns_untangle_kernel, plan.fold_bytes);
+  ColumnsKernel<T> fft_columns = nullptr;
+  RowsKernel fft_rows = nullptr;
+  cudaError_t err;
+  if (chirp_mode) {
+    err = allow_smem(columns_kernel<T>, plan.col_bytes);
+    if (err == cudaSuccess) err = allow_smem(rows_kernel, plan.row_bytes);
+    if (err == cudaSuccess) err = allow_smem(columns_untangle_kernel, plan.fold_bytes);
+  } else {
+    fft_columns = columns_of<T>(&plan, Columns{});
+    fft_rows = rows_of(&plan, Rows{});
+    err = allow_smem(fft_columns, plan.col_bytes);
+    if (err == cudaSuccess) err = allow_smem(fft_rows, plan.row_bytes);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_pairs = (n_frames + 1) / 2;
   for (int pair0 = 0; pair0 < n_pairs; pair0 += chunk_pairs) {
     const int pairs = n_pairs - pair0 < chunk_pairs ? n_pairs - pair0 : chunk_pairs;
     const dim3 cols_grid(pairs * plan.col_groups), rows_grid(pairs * plan.row_groups);
     if (!chirp_mode) {
-      columns_kernel<T, 0><<<cols_grid, plan.col_threads, plan.col_bytes, s>>>(
-          audio, window, tables, chirp, scratch, pair0, n_frames, hop, plan);
-      rows_kernel<false><<<rows_grid, plan.row_threads, plan.row_bytes, s>>>(
-          tables, chirp, scratch, out, pair0, n_frames, plan);
+      fft_columns<<<cols_grid, plan.col_threads, plan.col_bytes, s>>>(
+          audio, window, tables, scratch, pair0, n_frames, hop, plan);
+      fft_rows<<<rows_grid, plan.row_threads, plan.row_bytes, s>>>(tables, scratch, out, pair0,
+                                                                  n_frames, plan);
     } else {
-      columns_kernel<T, 1><<<cols_grid, plan.col_threads, plan.col_bytes, s>>>(
+      columns_kernel<T><<<cols_grid, plan.col_threads, plan.col_bytes, s>>>(
           audio, window, tables, chirp, scratch, pair0, n_frames, hop, plan);
-      rows_kernel<true><<<rows_grid, plan.row_threads, plan.row_bytes, s>>>(
-          tables, chirp, scratch, out, pair0, n_frames, plan);
+      rows_kernel<<<rows_grid, plan.row_threads, plan.row_bytes, s>>>(tables, chirp, scratch,
+                                                                     plan);
       columns_untangle_kernel<<<pairs * plan.fold_groups, plan.fold_threads, plan.fold_bytes,
                                 s>>>(tables, chirp + plan.chirp_n, scratch, out, pair0,
                                      n_frames, plan);
@@ -456,13 +806,66 @@ int run(const void* audio_v, const float* window, const float* tables_f, const f
   return 0;
 }
 
+// A kernel's launch as the card takes it, in info[6]: threads a CTA, CTAs
+// resident on an SM, dynamic shared memory a CTA, registers and local
+// (spilled) bytes a thread, and 1 where it is compiled whole
+template <typename Kernel>
+int describe(Kernel kernel, int threads, int bytes, bool compiled, int* info) {
+  int ctas = 0;
+  cudaError_t e = allow_smem(kernel, bytes);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, threads, bytes);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int values[6] = {threads, ctas, bytes, fa.numRegs, static_cast<int>(fa.localSizeBytes),
+                         compiled ? 1 : 0};
+  for (int i = 0; i < 6; ++i) info[i] = values[i];
+  return 0;
+}
+
+template <typename T>
+int layout(Plan plan, int* info) {
+  if (plan.chirp_n != 0) {
+    int err = describe(columns_kernel<T>, plan.col_threads, plan.col_bytes, false, info);
+    if (err == 0) err = describe(rows_kernel, plan.row_threads, plan.row_bytes, false, info + 6);
+    if (err == 0)
+      err = describe(columns_untangle_kernel, plan.fold_threads, plan.fold_bytes, false,
+                     info + 12);
+    return err;
+  }
+  const ColumnsKernel<T> columns = columns_of<T>(&plan, Columns{});
+  const RowsKernel rows = rows_of(&plan, Rows{});
+  for (int i = 12; i < 18; ++i) info[i] = 0;
+  const int err = describe(columns, plan.col_threads, plan.col_bytes, plan.col_fixed, info);
+  return err != 0 ? err
+                  : describe(rows, plan.row_threads, plan.row_bytes, plan.row_fixed, info + 6);
+}
+
+// The plan's checks: a plan of this n_fft (or, chirp_mode, of a convolution
+// length M for it) whose largest odd radix is within this build's; nonzero
+// where not.
+int check(const int* packed, int n_fft, bool chirp_mode, Plan* p) {
+  if (n_fft < 2 || n_fft > MAX_N_FFT || packed == nullptr ||
+      make_plan(packed, n_fft, chirp_mode, p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int odd = 1;  // the largest odd radix the plan needs: within this build's
+  const Side* sides[2] = {&p->col, &p->row};
+  for (const Side* side : sides)
+    for (int i = 0; i < side->n_passes; ++i)
+      if (side->radix[i] % 2 && side->radix[i] > odd) odd = side->radix[i];
+  return odd > ORCAI_ODD ? static_cast<int>(cudaErrorInvalidValue) : 0;
+}
+
 }  // namespace
 
 // audio: (n_frames - 1) * hop + n_fft samples of float32 (dtype 0), int16
 // (dtype 1) or uint8 mu-law codes (dtype 2); plan: host int32 [N1, N2, G1,
 // G2, len1, len2, P1, radices, P2, radices] and in the chirp mode [G3, f]
-// (ops/dft.py::_staged_plan_array); tables: ops/dft.py::staged_tables of N1 * N2,
-// float32 (re, im); scratch: chunk_pairs * N1 * N2 complex float32 on the
+// (ops/dft.py::_staged_plan_array); tables: ops/dft.py::staged_tables of N1
+// * N2, float32 (re, im): in the FFT mode with product twiddles (the pass
+// roots, then the twiddles' two float64 tables), in the chirp mode with
+// four_step_roots; scratch: chunk_pairs * N1 * N2 complex float32 on the
 // device (chunk_pairs frame pairs a chunk); out: (n_frames, n_fft/2 + 1)
 // float32; hop divides n_fft. With chirp null (the FFT mode) N1 * N2 is
 // n_fft and window is the (n_fft,) float32 window. Otherwise (the chirp
@@ -476,19 +879,13 @@ extern "C" int orcai_dft_staged(const void* audio, int dtype, const float* windo
                                 const float* tables, const float* chirp, const int* plan,
                                 float* scratch, int chunk_pairs, float* out, int n_frames,
                                 int n_fft, int hop, void* stream, int* launched) {
-  if (n_fft < 2 || n_fft > MAX_N_FFT || hop < 1 || hop > n_fft || n_fft % hop != 0 ||
-      n_frames < 1 || plan == nullptr || tables == nullptr || scratch == nullptr ||
-      out == nullptr || chunk_pairs < 1 || (chirp == nullptr && window == nullptr) ||
-      launched == nullptr)
+  if (hop < 1 || hop > n_fft || n_fft % hop != 0 || n_frames < 1 || tables == nullptr ||
+      scratch == nullptr || out == nullptr || chunk_pairs < 1 ||
+      (chirp == nullptr && window == nullptr) || launched == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  Plan p;
-  if (make_plan(plan, n_fft, chirp != nullptr, &p)) return static_cast<int>(cudaErrorInvalidValue);
-  int odd = 1;  // the largest odd radix the plan needs: within this build's
-  const Side* sides[2] = {&p.col, &p.row};
-  for (const Side* side : sides)
-    for (int i = 0; i < side->n_passes; ++i)
-      if (side->radix[i] % 2 && side->radix[i] > odd) odd = side->radix[i];
-  if (odd > ORCAI_ODD) return static_cast<int>(cudaErrorInvalidValue);
+  Plan p{};
+  const int err = check(plan, n_fft, chirp != nullptr, &p);
+  if (err != 0) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return run<float>(audio, window, tables, chirp, p, scratch, chunk_pairs, out, n_frames,
@@ -497,6 +894,27 @@ extern "C" int orcai_dft_staged(const void* audio, int dtype, const float* windo
                                 n_frames, hop, s, launched);
     case 2: return run<uint8_t>(audio, window, tables, chirp, p, scratch, chunk_pairs, out,
                                 n_frames, hop, s, launched);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// What a launch of the plan (the FFT mode at n_fft, or with chirp nonzero
+// the chirp mode) takes on the current device, in info[18]: for each of its
+// kernels (columns, rows and, in the chirp mode, the columns' untangle;
+// zeros past the mode's kernels) threads a CTA, CTAs resident on an SM,
+// dynamic shared memory a CTA, registers and local (spilled) bytes a
+// thread, and 1 where the kernel is compiled whole. Returns the CUDA error
+// a launch would meet.
+extern "C" int orcai_dft_staged_layout(int dtype, const int* plan, int n_fft, int chirp,
+                                       int* info) {
+  if (info == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  Plan p{};
+  const int err = check(plan, n_fft, chirp != 0, &p);
+  if (err != 0) return err;
+  switch (dtype) {
+    case 0: return layout<float>(p, info);
+    case 1: return layout<int16_t>(p, info);
+    case 2: return layout<uint8_t>(p, info);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

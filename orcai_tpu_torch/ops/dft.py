@@ -51,7 +51,9 @@ n_fft alone (`dft_route`), and runs the plain PyTorch version,
   kernels of their own that pass each frame pair's values through a
   scratch buffer in device memory, in chunks of frame pairs
   (`staged_chunk_pairs`). A MIXED_PRIMES-smooth n_fft it splits runs in
-  its FFT mode (14848, 98304, 131072; two kernels a chunk);
+  its FFT mode (14848, 98304, 131072; two kernels a chunk; a side whose
+  radices are all powers of two, and 98304's rows, on a kernel compiled
+  whole: `staged_sides_compiled`, `staged_layout`);
   any other runs in its chirp-z mode, on a convolution length up to
   STAGED_M_MAX (40962, 49154; three kernels a chunk, the last one on the
   column pairs of `staged_mirror_groups`). `_staged_reference` and
@@ -317,6 +319,7 @@ def _smooth(n: int, primes: tuple[int, ...] = MIXED_PRIMES) -> bool:
     return n == 1
 
 
+@lru_cache(maxsize=None)
 def fft_plan(n_fft: int) -> tuple[int, ...]:
     """The mixed route's radices for n_fft, in the order its Stockham passes
     run: the power-of-two part 2^a in the fewest passes of radix at most 16,
@@ -814,6 +817,7 @@ def _staged_bytes(n: int, ffts: int) -> int:
     return 2 * n * (ffts | 1) * 8
 
 
+@lru_cache(maxsize=None)
 def _staged_batch(n: int, rows: int) -> int | None:
     """How many batches of `rows` FFTs of n points one staged CTA takes: the
     most, a power of two up to STAGED_BATCH, whose buffers fit in
@@ -880,6 +884,24 @@ def staged_mode(n_fft: int) -> str:
     return "fft" if _staged_split(n_fft) is not None else "chirp"
 
 
+# a row side compiled whole beside the powers of two, as (its radices, G2):
+# 98304's rows, which the card singled out (dft_staged_plan.cuh::extra_row).
+# It serves that one size of the FFT mode's reach, and no other
+STAGED_EXTRA_ROWS = (((16, 8, 3), 4),)
+
+
+def staged_sides_compiled(n: int, split: tuple[int, int] | None = None) -> tuple[bool, bool]:
+    """Whether csrc/dft_staged.cu's FFT mode runs the column side (N1) and
+    the row side (N2) of staged_plan(n, split) on a kernel compiled whole:
+    where the side's radices (fft_plan) are all powers of two, in two
+    passes or more (dft_staged_plan.cuh::powers_of_two), or the row side
+    with its G2 is one of STAGED_EXTRA_ROWS."""
+    n1, n2, _, g2 = staged_plan(n, split)
+    pow2 = [len(fft_plan(side)) >= 2 and all(r & (r - 1) == 0 for r in fft_plan(side))
+            for side in (n1, n2)]
+    return pow2[0], pow2[1] or (fft_plan(n2), g2) in STAGED_EXTRA_ROWS
+
+
 def staged_chunk_pairs(n: int) -> int:
     """Frame pairs of a staged chunk for an n-point FFT: as many as whose
     scratch of n complex values each fits in STAGED_CHUNK_BYTES, at least
@@ -894,11 +916,13 @@ def _staged_reference(
     """csrc/dft_staged.cu's arithmetic in its FFT mode, step by step, in
     float32 PyTorch: `_four_step_reference` with split = staged_plan(n_fft)
     [:2] (or the split given): kernel 1's N1-point column FFTs and the
-    four-step twiddles W_N^(k1 j), kernel 2's N2-point row FFTs, the
-    untangle. The batches and the chunks change where each value lies and
-    when, not the arithmetic.
+    four-step twiddles W_N^(k1 j) (the kernel's product_twiddles), kernel
+    2's N2-point row FFTs, the untangle. The batches, the chunks and a side
+    compiled whole change where each value lies and when, not the
+    arithmetic.
     """
-    return _four_step_reference(padded, window, n_fft, hop, split or staged_plan(n_fft)[:2])
+    return _four_step_reference(padded, window, n_fft, hop, split or staged_plan(n_fft)[:2],
+                                product=True)
 
 
 def _chirp_staged_reference(
@@ -1161,12 +1185,19 @@ def _cluster_plan_array(n: int):
 
 
 @lru_cache(maxsize=None)
-def staged_tables(n: int, split: tuple[int, int] | None = None) -> np.ndarray:
+def staged_tables(n: int, split: tuple[int, int] | None = None,
+                  product: bool = False) -> np.ndarray:
     """csrc/dft_staged.cu's roots for an n-point FFT split as staged_plan(n,
-    split): pass_roots of fft_plan(N1), pass_roots of fft_plan(N2) and
-    four_step_roots(N1, N2), (len1 + len2 + n, 2) float32; read from device
-    memory through L1. Read-only."""
+    split): pass_roots of fft_plan(N1) and of fft_plan(N2), read from device
+    memory through L1, then the four-step twiddles: in the chirp mode
+    four_step_roots(N1, N2), (len1 + len2 + n, 2) float32, read the same
+    way; with `product` (the FFT mode) a zero row where len1 + len2 is odd,
+    then the two float64 tables of twiddle_tables(n) as cluster_tables lays
+    them out, which kernel 1 copies to shared memory (its twiddles are
+    product_twiddles). Read-only."""
     n1, n2, _, _ = staged_plan(n, split)
+    if product:
+        return cluster_tables(n, (n1, n2))
     table = np.concatenate([pass_roots(n1, fft_plan(n1)), pass_roots(n2, fft_plan(n2)),
                             four_step_roots(n1, n2)])
     table.setflags(write=False)
@@ -1221,7 +1252,7 @@ def _route_tables(route: str, window_bytes: bytes, device: torch.device):
     elif route == "cluster":
         arrays = (_tables_cached(window_bytes)[0], cluster_tables(n_fft))
     elif route == "staged" and staged_mode(n_fft) == "fft":
-        arrays = (_tables_cached(window_bytes)[0], staged_tables(n_fft))
+        arrays = (_tables_cached(window_bytes)[0], staged_tables(n_fft, product=True))
     elif route == "staged":
         m = chirp_length(n_fft)
         arrays = (_chirp_cached(window_bytes, m), staged_tables(m))
@@ -1273,7 +1304,12 @@ def _kernel(kernel: str, variant: tuple[int, int | None] | None = None):
                  "cluster": ("dft_cluster", "orcai_dft_cluster"),
                  "staged": ("dft_staged", "orcai_dft_staged"),
                  "gemm": ("dft_gemm", "orcai_dft_gemm")}[kernel]
-    fn = getattr(_build.load(lib, variant), name)
+    return _bind(kernel, getattr(_build.load(lib, variant), name))
+
+
+def _bind(kernel: str, fn):
+    """fn, the C entry point of `kernel` (_kernel), with its argument and
+    return types set."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     chirp = [ptr, ctypes.POINTER(ctypes.c_int)] if kernel in ("mixed", "cluster", "staged") else []
     scratch = [ptr, i32] if kernel == "staged" else []
@@ -1353,6 +1389,39 @@ def cluster_layout(n_fft: int, hop: int, dtype: torch.dtype = torch.int16,
             "compiled": bool(compiled)}
 
 
+STAGED_KERNELS = {"fft": ("columns", "rows"), "chirp": ("columns", "rows", "columns_untangle")}
+
+
+def staged_layout(n_fft: int, dtype: torch.dtype = torch.int16,
+                  library: ctypes.CDLL | None = None) -> dict:
+    """What csrc/dft_staged.cu launches at n_fft on `dtype` samples on the
+    current CUDA device (its FFT mode, or its chirp mode on chirp_length):
+    for each of the mode's kernels (STAGED_KERNELS) threads a CTA, CTAs
+    resident on an SM, dynamic shared memory a CTA, registers and local
+    (spilled) memory a thread, and whether it is compiled whole. `library`
+    asks another build of the source (a tool's) in place of ops/_build's.
+    Launches nothing; raises where a launch would fail."""
+    if dft_route(n_fft) != "staged":
+        raise ValueError(f"n_fft {n_fft} does not take the staged route")
+    mode = staged_mode(n_fft)
+    n = n_fft if mode == "fft" else chirp_length(n_fft)
+    fn = (library or _build.load("dft_staged", _build_variant("staged", n, dtype))
+          ).orcai_dft_staged_layout
+    i32 = ctypes.c_int
+    fn.argtypes = [i32, ctypes.POINTER(i32), i32, i32, ctypes.POINTER(i32)]
+    fn.restype = i32
+    info = (i32 * 18)()
+    err = fn(_DTYPE_CODES[dtype], _staged_plan_array(n, None, n_fft if mode == "chirp" else None),
+             n_fft, int(mode == "chirp"), info)
+    if err != 0:
+        raise RuntimeError(f"dft_magnitude at n_fft {n_fft}: the staged kernels do not launch "
+                           f"(CUDA error {err})")
+    keys = ("threads", "ctas_per_sm", "smem_bytes", "registers", "local_bytes", "compiled")
+    return {"mode": mode, **{name: {k: (bool(v) if k == "compiled" else v)
+                                    for k, v in zip(keys, info[6 * i:6 * i + 6])}
+                             for i, name in enumerate(STAGED_KERNELS[mode])}}
+
+
 MIXED_LAYOUTS = ("warp", "block", "compiled")  # csrc/dft_mixed.cu's layouts, by the code it reports
 
 
@@ -1390,13 +1459,15 @@ def mixed_layout(n_fft: int, hop: int, dtype: torch.dtype = torch.int16,
 def _launch_staged(padded: torch.Tensor, window: np.ndarray, out: torch.Tensor, n_fft: int,
                    hop: int, *, m: int | None = None, split: tuple[int, int] | None = None,
                    chunk_pairs: int | None = None,
-                   batches: tuple[int, int, int] | None = None) -> int:
+                   batches: tuple[int, int, int] | None = None,
+                   library: ctypes.CDLL | None = None) -> int:
     """csrc/dft_staged.cu's kernels on the CUDA tensor `padded` into `out`,
     on the current stream: the FFT mode at staged_mode(n_fft) "fft", else
     (or with a convolution length m given) the chirp mode on M = m or
     chirp_length(n_fft); split (N1, N2) of staged_plan, chunk_pairs frame
     pairs a chunk (staged_chunk_pairs), batches (G1, G2, G3) in place of
-    the plan's (_staged_plan_array). The scratch, chunk_pairs FFTs of M
+    the plan's (_staged_plan_array); `library` another build of the source
+    (a tool's) in place of ops/_build's. The scratch, chunk_pairs FFTs of M
     complex values, comes from the caching allocator on the audio's device.
     Returns the CUDA error code; counts no call (dft_magnitude counts its
     calls), so a tool can call it beside the route. `_launch_staged.kernels`
@@ -1411,7 +1482,7 @@ def _launch_staged(padded: torch.Tensor, window: np.ndarray, out: torch.Tensor, 
     else:
         table = torch.from_numpy(
             (chirp_tables(window, n) if chirp else fft_tables(window)[0]).copy()).to(padded.device)
-        roots = torch.from_numpy(staged_tables(n, split).copy()).to(padded.device)
+        roots = torch.from_numpy(staged_tables(n, split, not chirp).copy()).to(padded.device)
     pairs = max(1, min(chunk_pairs or staged_chunk_pairs(n), (tpad + 1) // 2))
     scratch = torch.empty(pairs * n * 2, dtype=torch.float32, device=padded.device)
     tables = ((None, roots.data_ptr(), table.data_ptr()) if chirp
@@ -1419,7 +1490,9 @@ def _launch_staged(padded: torch.Tensor, window: np.ndarray, out: torch.Tensor, 
     launched = ctypes.c_int(0)
     with torch.cuda.device(padded.device):
         stream = torch.cuda.current_stream(padded.device).cuda_stream
-        err = _kernel("staged", _build_variant("staged", n, padded.dtype, split))(
+        fn = (_bind("staged", library.orcai_dft_staged) if library is not None
+              else _kernel("staged", _build_variant("staged", n, padded.dtype, split)))
+        err = fn(
             padded.data_ptr(), _DTYPE_CODES[padded.dtype], *tables,
             _staged_plan_array(n, split, n_fft if chirp else None, batches), scratch.data_ptr(),
             pairs, out.data_ptr(), tpad, n_fft, hop, stream, ctypes.byref(launched))

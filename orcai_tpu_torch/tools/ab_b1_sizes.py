@@ -37,13 +37,19 @@ from pathlib import Path
 # 31) and block layout (4096, 8192, 4352), the cluster route's compiled
 # plans (16384, 32768, and 65536 on 8 CTAs of one an SM, on 11251 frames)
 # and its generic kernel (20736, radix 3, and 40960, radix 5, on 11251
-# frames) and the chirp mode on both layouts (24578 on 8 CTAs of one an SM,
-# on 11251 frames)
+# frames), the chirp mode on both layouts (24578 on 8 CTAs of one an SM,
+# on 11251 frames) and the staged route: its FFT mode (14848 = 2^9 * 29 on
+# 301 frames, 98304 and 131072 on 2048, and on 301 frames 17856, 33408 and
+# 270336, whose columns of 64, 128 and 512 points run the kernels compiled
+# whole that no other size here runs, and 10672, whose one-pass columns of
+# 16 do not) and its chirp mode (40962 and 49154 on 301 frames)
 DEFAULT_SIZES = ("384/192,352/176,768/384,704/352,416/208,480/240,1024/256,2048/512,1088/544,"
                  "1216/608,1472/736,368/184,464/232,496/248,1856/928,1984/992,4096/2048,"
                  "8192/4096,4352/2176,16384/8192,32768/16384,65536/32768/11251,"
                  "20736/10368/11251,40960/20480/11251,470/235,2038/1019,8198/4099,16418/8209,"
-                 "24578/12289/11251")
+                 "24578/12289/11251,14848/7424/301,40962/20481/301,49154/24577/301,"
+                 "98304/49152/2048,131072/65536/2048,10672/5336/301,17856/8928/301,"
+                 "33408/16704/301,270336/135168/301")
 
 RUN = r"""
 import hashlib, json, sys

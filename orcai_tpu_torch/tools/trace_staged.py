@@ -54,16 +54,12 @@ def pair_bytes(name: str, n_fft: int, hop: int, m: int, sample_bytes: int) -> in
     n_fft - hop), the 2 (n_fft/2 + 1) float32 magnitudes."""
     scratch, bins = 8 * m, 2 * (n_fft // 2 + 1) * 4
     samples = min(2 * n_fft, n_fft + hop) * sample_bytes
-    if name.startswith("columns_kernel") and name.endswith(", 2>"):
-        return 2 * scratch  # the second FFT's columns, in place (before the fold)
-    if name.startswith("columns_kernel"):
-        return samples + scratch  # from the audio into the scratch
-    if name.startswith("rows_kernel<true>"):
-        return 2 * scratch  # rows back over themselves
-    if name.startswith("rows_kernel"):
+    if name.startswith(("fft_columns_kernel", "columns_kernel")):
+        return samples + scratch  # from the audio into the scratch (the chirp mode's first FFT)
+    if name.startswith("fft_rows_kernel"):
         return scratch + bins  # rows to magnitudes (the FFT mode)
-    if name.startswith("chirp_untangle_kernel"):
-        return 8 * n_fft + bins  # u[k] and u[n_fft - k] to magnitudes (before the fold)
+    if name == "rows_kernel":
+        return 2 * scratch  # the chirp mode's rows back over themselves
     if name.startswith("columns_untangle_kernel"):
         return scratch + bins  # the second FFT's columns to magnitudes
     return 0
