@@ -242,7 +242,8 @@ the run on any error:
            multi-GPU speed-up
 
 Then one {"selection": {...}} line, one {"kernels": [...]} line (B1 as six
-rows, its FFT, mixed-radix, cluster, chirp, staged and GEMM routes; the run fails
+rows, its FFT, mixed-radix, cluster, chirp, staged and point routes; the GEMM
+kernel, which no route reaches, is the phase wires' yardstick; the run fails
 if a row's kernel no path launched), the card's `name, power.limit` from
 nvidia-smi, and last {"ok": true, "device": {...}}. Exits non-zero, with no
 result, when CUDA is unavailable or the package is missing.
@@ -293,6 +294,10 @@ CTA_RESERVED_BYTES = 1024  # shared memory the card keeps for each CTA
 # size each on GEMM_FRAMES frames (n_fft: N1 x N2, the compiled side): columns
 # of 64 and 128 points 16 a CTA and of 512 points 8 a CTA
 STAGED_COLUMN_SIZES = (17856, 33408, 270336)  # 64 x 279, 128 x 261, 512 x 528
+# whether the staged chirp mode's column side (its kernels 1 and 3) runs
+# compiled whole at its sizes here: 40962 on M = 256 x 323, 49154 on 289 x 361,
+# 2^20 - 2 on 2^21 = 512 x 4096
+STAGED_CHIRP_COMPILED = {40962: True, 49154: False, (1 << 20) - 2: True}
 C1_HOLDS_MAX = 1 << 19  # the largest n_fft where B1 holds 2e-4 of the float64 rFFT: above,
 #   magnitudes that grow with n_fft take any float32 FFT past it (ROADMAP C1)
 C1_FACTOR = 1.25  # above C1_HOLDS_MAX, B1 within this factor of float32 torch.fft.rfft's
@@ -722,7 +727,7 @@ def check_counts(counts: dict, b1: int, where: str, b2: int = 3, pick: int = 3,
     B1 launch takes `route` (ops/dft.py::dft_route: the FFT at n_fft 512, the
     mixed-radix FFT at the spectral wires' 384 and 352 and at 416, 1216 and
     1856, the cluster layout at 16384, the chirp mode at 2038 and 16418, the
-    staged route at 40962 and 131072, the GEMM at n_fft 1)."""
+    staged route at 40962 and 131072, the point kernel at n_fft 1)."""
     want = {"dft_magnitude": b1, "digit_histograms": b2, "radix_pick": pick,
             "b1_routes": {r: b1 if r == route else 0 for r in counts["b1_routes"]}}
     if counts != want:
@@ -739,7 +744,8 @@ def reset_counts() -> None:
 def read_counts(total: dict | None = None) -> dict:
     """This path's launches; added to `total`, the run's sum over its paths
     (B1 by route: dft_magnitude_fft, dft_magnitude_mixed, dft_magnitude_cluster,
-    dft_magnitude_chirp, dft_magnitude_staged, dft_magnitude_gemm)."""
+    dft_magnitude_chirp, dft_magnitude_staged, dft_magnitude_point; dft_magnitude_gemm,
+    which no route reaches, stays 0)."""
     counts = {fn.__name__: fn.launches for fn in _counters()}
     routes = dict(_counters()[0].route_launches)
     if total is not None:
@@ -1713,9 +1719,9 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
              (1856, 928, every, tiles[:1]), (1984, 992, every, tiles[:1]),
              (14848, 7424, coded, (GEMM_FRAMES,)),
              *((n, n // 2, every, (GEMM_FRAMES,)) for n in STAGED_COLUMN_SIZES),
-             (GEMM_NFFT, 20481, coded, (GEMM_FRAMES, STAGED_FRAMES)),
+             (GEMM_NFFT, 20481, every, (GEMM_FRAMES, STAGED_FRAMES)),
              (131072, 65536, coded, (STAGED_FRAMES,)), (98304, 49152, coded, (STAGED_FRAMES,)),
-             (49154, 24577, coded, (GEMM_FRAMES,)), (1 << 18, 1 << 17, coded, (C1_FRAMES,)),
+             (49154, 24577, every, (GEMM_FRAMES,)), (1 << 18, 1 << 17, coded, (C1_FRAMES,)),
              (1 << 20, 1 << 19, coded, (C1_FRAMES,)),
              ((1 << 20) - 2, (1 << 19) - 1, coded, (C1_FRAMES,)),
              (512, 256, ("uint8",), tiles))
@@ -1995,20 +2001,32 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
     # dft_staged.cu: in the FFT mode each side whose radices are all powers
     # of two, and 98304's rows, runs a kernel compiled whole (131072's and
     # 98304's both, and the columns of STAGED_COLUMN_SIZES), on one buffer;
-    # every other kernel, and every kernel of the chirp mode, the generic
-    # one. Each has as many CTAs an SM as the SM's shared memory lets, up to
-    # STAGED_COMPILED_CTAS compiled whole and STAGED_GENERIC_CTAS generic,
-    # so at most the registers that many CTAs of its __launch_bounds__
-    # threads (its own compiled whole, 256 generic) leave each; no spill
+    # in the chirp mode the column side by the same rule, in kernels 1 and 3
+    # (STAGED_CHIRP_COMPILED: 40962's 256 = 16 x 16 columns compiled, 49154's
+    # 289 = 17 x 17 not), its kernel 2 generic; every other kernel the
+    # generic one. Each has as many CTAs an SM as the SM's shared memory
+    # lets, up to STAGED_COMPILED_CTAS compiled whole (the chirp mode's
+    # kernel 1 but on int16: STAGED_GENERIC_CTAS) and STAGED_GENERIC_CTAS
+    # generic, so at most the registers that many CTAs of its
+    # __launch_bounds__ threads (its own compiled whole, 256 generic) leave
+    # each; no spill
     sm_shared = torch.cuda.get_device_properties(dev).shared_memory_per_multiprocessor
     sm_registers = 65536  # an sm_90 SM's register file, 32-bit registers
     for key, got in record["staged_layouts"].items():
         n_fft = int(key.split("/")[0])
-        fixed = staged_sides_compiled(n_fft) if got["mode"] == "fft" else (False, False)
+        chirp = got["mode"] == "chirp"
+        fixed = staged_sides_compiled(chirp_length(n_fft) if chirp else n_fft, chirp=chirp)
+        if chirp and fixed[0] != STAGED_CHIRP_COMPILED[n_fft]:
+            raise AssertionError(f"B1 {key}: the chirp mode's column side compiled {fixed[0]}, "
+                                 f"not {STAGED_CHIRP_COMPILED[n_fft]}")
         for kernel in STAGED_KERNELS[got["mode"]]:
             k = got[kernel]
-            compiled = kernel != "columns_untangle" and fixed[kernel == "rows"]
-            most = STAGED_COMPILED_CTAS if compiled else STAGED_GENERIC_CTAS
+            compiled = fixed[kernel == "rows"]
+            # the chirp mode's compiled kernel 1 takes STAGED_COMPILED_CTAS on
+            # int16 samples alone (dft_staged.cu::chirp_columns_ctas)
+            most = (STAGED_COMPILED_CTAS if compiled and not (
+                chirp and kernel == "columns" and not key.endswith("/int16"))
+                    else STAGED_GENERIC_CTAS)
             fit = min(most, sm_shared // (k["smem_bytes"] + CTA_RESERVED_BYTES))
             bound_threads = k["threads"] if compiled else 256
             ceiling = min(255, sm_registers // (fit * bound_threads))
@@ -2116,9 +2134,10 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
     if not staged_row["staged_65536"]["max_abs_err_vs_float64"] <= 2e-4:
         raise AssertionError(f"the staged kernels at 65536: {staged_row['staged_65536']}")
     del x, out, got
-    # the GEMM route keeps n_fft 1 and what lies above 2^20: its kernel
-    # timed directly at GEMM_NFFT (the "Earlier" yardstick) against the same
-    # plain version, torch.stft and bound as the staged route's row
+    # the GEMM kernel, which no route reaches (the point kernel takes n_fft
+    # 1; above 2^20 B1 raises): timed directly at GEMM_NFFT (the "Earlier"
+    # yardstick) against the same plain version, torch.stft and bound as the
+    # staged route's row
     main = cases[f"{GEMM_NFFT}/20481/int16/{GEMM_FRAMES}"]
     gemm_errs = {k: v for k, v in record["gemm_direct_max_abs_err"].items()
                  if k.startswith(f"{GEMM_NFFT}/")}
@@ -2133,13 +2152,10 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
         **{k: main[k] for k in ("plain_ms", "bound_ms", "bound_by", "library_ms")},
         "gemm_direct_past_bar": {k: v for k, v in record["gemm_direct_past_bar"].items()
                                  if k.startswith(f"{GEMM_NFFT}/")},
-        "shape": "B1's GEMM route (n_fft 1, and a smooth n_fft above 2^20, whose tables no "
-                 "card holds): ms: its kernel called directly at n_fft 40962 / hop 20481 on "
+        "shape": "B1's GEMM kernel, reached by no route (the yardstick; not in the kernels "
+                 "line): ms: the kernel called directly at n_fft 40962 / hop 20481 on "
                  f"a {GEMM_FRAMES}-frame int16 tile (the staged route's size there), plain_ms, "
-                 "library_ms and bound_ms as the staged row's; launches: the n_fft 1 path "
-                 "(phase wires, gemm_route_n_fft_1); n_fft_1: B1 at the route's only size, "
-                 "n_fft 1 on a minute of int16 audio, with its plain version, torch.stft at "
-                 "n_fft 1 and its byte bound",
+                 "library_ms and bound_ms as the staged row's",
     }
     record["fft_route_uint8"] = {k: v for k, v in cases.items() if v["route"] == "fft"}
     record["seconds"] = time.perf_counter() - t_start
@@ -2217,40 +2233,62 @@ def _create_spectrograms_path(torch, tmp: Path, seed: int, total: dict, nfft: in
             "frames_bins": list(stored.shape), **check}
 
 
-def _gemm_route_path(torch, rng, total: dict) -> dict:
-    """The GEMM route's kernel where dft_route still sends it: n_fft 1 (hop
-    1, a window of one), B1 called on a minute of int16 audio on cuda with
-    the counts reset before and read after (1 launch on the GEMM route, no
-    B2 or pick: no entry point reaches n_fft 1, whose one bin
-    create-spectrograms' frequency range cannot crop), against the plain
-    version (atol 2e-4); then its time beside the plain version's,
-    torch.stft(...).abs()'s and the byte bound (each sample read once, each
-    magnitude written once)."""
+def _point_route_path(torch, rng, total: dict) -> dict:
+    """The point route (csrc/dft_point.cu), B1's only route at n_fft 1 (hop
+    1, a window of one value, 0.7 so that its multiply shows): B1 called on
+    a minute of audio on cuda in float32, int16 and uint8 mu-law codes, and
+    on a code view one byte off (the kernel's unaligned pass), with the
+    counts reset before and read after each call (1 launch on the point
+    route, no B2 or pick: no entry point reaches n_fft 1, whose one bin
+    create-spectrograms' frequency range cannot crop), bit-equal to the
+    plain version (and to _point_reference, its arithmetic); then, for each
+    type, its time beside the plain version's, torch.stft(...).abs()'s on
+    the same samples as float32 and the byte bound (each sample read once,
+    each magnitude written once)."""
     import numpy as np
 
-    from orcai_tpu_torch.ops.dft import dft_magnitude, dft_magnitude_plain, dft_route
+    from orcai_tpu_torch.ops.dft import (
+        _point_reference, _to_f32, dft_magnitude, dft_magnitude_plain, dft_route)
+    from orcai_tpu_torch.ops.wire_codec import mulaw_encode
 
-    x = torch.from_numpy(rng.integers(-32768, 32768, 48000 * 60, dtype=np.int16)).to("cuda")
-    window = np.ones(1)
-    reset_counts()
-    got = dft_magnitude(x, window, n_fft=1, hop=1)
-    torch.cuda.synchronize()
-    counts = read_counts(total)
-    check_counts(counts, 1, "the GEMM route at n_fft 1", b2=0, pick=0, route=dft_route(1))
-    err = float((got - dft_magnitude_plain(x, window, n_fft=1, hop=1)).abs().max())
-    if got.shape != (x.numel(), 1) or not err <= 2e-4:
-        raise AssertionError(f"B1 at n_fft 1: shape {tuple(got.shape)}, max |kernel - plain| "
-                             f"{err}")
-    samples, one = x.float() * (1.0 / 32768.0), torch.ones(1, device="cuda")
-    t_bound, by = bound(x.numel() * x.element_size() + got.numel() * 4, 2.0 * x.numel())
-    return {"route": dft_route(1), "launches": counts, "frames": x.numel(),
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: dft_magnitude(x, window, n_fft=1, hop=1), iters=5),
-            "plain_ms": cuda_ms(lambda: dft_magnitude_plain(x, window, n_fft=1, hop=1), iters=5),
-            "library_ms": cuda_ms(lambda: torch.stft(samples, 1, hop_length=1, window=one,
-                                                     center=False, return_complex=True).abs(),
-                                  iters=5),
-            "bound_ms": t_bound, "bound_by": by}
+    window = np.full(1, 0.7)
+    pcm = rng.integers(-32768, 32768, 48000 * 60 + 1, dtype=np.int16)
+    codes = torch.from_numpy(mulaw_encode(pcm)).to("cuda")
+    inputs = {"int16": torch.from_numpy(pcm[:-1]).to("cuda"),
+              "f32": torch.from_numpy((0.3 * rng.standard_normal(48000 * 60))
+                                      .astype(np.float32)).to("cuda"),
+              "uint8": codes[:-1], "uint8_unaligned": codes[1:]}
+    rec = {"route": dft_route(1), "window": 0.7, "frames": 48000 * 60, "launches": {},
+           "bit_equal_plain": {}, "max_abs_err": {}, "ms": {}, "plain_ms": {}, "library_ms": {},
+           "bound_ms": {}, "bound_by": {}}
+    for kind, x in inputs.items():
+        reset_counts()
+        got = dft_magnitude(x, window, n_fft=1, hop=1)
+        torch.cuda.synchronize()
+        counts = read_counts(total)
+        check_counts(counts, 1, f"the point route at n_fft 1 ({kind})", b2=0, pick=0,
+                     route="point")
+        want = dft_magnitude_plain(x, window, n_fft=1, hop=1)
+        rec["launches"][kind] = counts["dft_magnitude"]
+        rec["bit_equal_plain"][kind] = bool(
+            torch.equal(got.view(torch.int32), want.view(torch.int32))
+            and torch.equal(want, _point_reference(x, window)))
+        rec["max_abs_err"][kind] = float((got - want).abs().max())
+        if got.shape != (x.numel(), 1) or not rec["bit_equal_plain"][kind]:
+            raise AssertionError(f"B1 at n_fft 1 ({kind}): shape {tuple(got.shape)}, max "
+                                 f"|kernel - plain| {rec['max_abs_err'][kind]}, not bit-equal")
+        if kind == "uint8_unaligned":
+            continue
+        samples, win = _to_f32(x), torch.full((1,), 0.7, device="cuda")
+        rec["bound_ms"][kind], rec["bound_by"][kind] = bound(
+            x.numel() * x.element_size() + got.numel() * 4, 2.0 * x.numel())
+        rec["ms"][kind] = cuda_ms(lambda: dft_magnitude(x, window, n_fft=1, hop=1), iters=20)
+        rec["plain_ms"][kind] = cuda_ms(lambda: dft_magnitude_plain(x, window, n_fft=1, hop=1),
+                                        iters=5)
+        rec["library_ms"][kind] = cuda_ms(
+            lambda: torch.stft(samples, 1, hop_length=1, window=win, center=False,
+                               return_complex=True).abs(), iters=20)
+    return rec
 
 
 def _rows(path):
@@ -2333,13 +2371,14 @@ def _profiled_wire_costs(torch, prof, trace: Path) -> dict:
 
 
 def phase_wires(torch, tmp: Path, seed: int, state: dict,
-                total: dict) -> tuple[dict, dict, dict, dict, dict]:
+                total: dict) -> tuple[dict, dict, dict, dict, dict, dict]:
     """The coded and spectral wires on the card: B1 at their sizes and types,
     golden through each, B1's mixed, cluster, chirp and staged routes
-    through create-spectrograms and the GEMM route at n_fft 1, the 20-minute
-    recording in memory and streamed, and the host C codecs. Returns (the
-    phase line, the mixed, the cluster, the chirp, the staged and the GEMM
-    route's rows)."""
+    through create-spectrograms and the point route at n_fft 1 (the GEMM
+    kernel, which no route reaches, timed directly as a yardstick), the
+    20-minute recording in memory and streamed, and the host C codecs.
+    Returns (the phase line, the mixed, the cluster, the chirp, the staged
+    and the point route's rows)."""
     import numpy as np
 
     from orcai_tpu_torch import native
@@ -2381,11 +2420,29 @@ def phase_wires(torch, tmp: Path, seed: int, state: dict,
     line["create_spectrograms_cli"] = {
         f"{nfft}/{n_overlap}": _create_spectrograms_path(torch, tmp, seed, total, nfft, n_overlap)
         for nfft, n_overlap in CLI_SPECTROGRAM_SIZES}
-    line["gemm_route_n_fft_1"] = _gemm_route_path(torch, np.random.default_rng(seed + 7), total)
-    # the route's only size: its time, plain version, torch.stft and bound there
-    gemm_row["n_fft_1"] = {k: line["gemm_route_n_fft_1"][k]
-                           for k in ("frames", "ms", "plain_ms", "library_ms", "bound_ms",
-                                     "bound_by")}
+    point = _point_route_path(torch, np.random.default_rng(seed + 7), total)
+    line["point_route_n_fft_1"] = point
+    # the point route's row: the int16 minute as its main shape, every type beside it
+    point_row = {
+        "name": "dft_magnitude_point", "route": "cuda",
+        "source": "orcai_tpu_torch/csrc/dft_point.cu",
+        "replaces": "orcai_tpu/ops/pallas_dft.py:67",
+        "max_abs_err": max(point["max_abs_err"].values()),
+        "tolerance": "bit-equal to the plain version (0, in every type and on a code view one "
+                     "byte off)",
+        **{k: point[k]["int16"] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms")},
+        "by_type": {k: point[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                          "bit_equal_plain")},
+        "shape": "B1's point route, n_fft 1 / hop 1, window 0.7: a minute of 48 kHz audio "
+                 "(2,880,000 frames of one bin); ms, plain_ms, library_ms "
+                 "(torch.stft(...).abs() on the samples as float32) and bound_ms for int16, "
+                 "by_type for float32, int16 and uint8 codes; launches: every B1 call at n_fft 1 "
+                 "(phase wires, point_route_n_fft_1)",
+    }
+    # the GEMM kernel, reached by no route since the point kernel took n_fft 1:
+    # kept as the yardstick called directly (its checks and times above)
+    line["gemm_yardstick"] = gemm_row
     # the GEMM route's tables at 40962 (6.7 GB on the card, as much on the
     # host) are not read again
     _route_tables.cache_clear()
@@ -2500,7 +2557,7 @@ def phase_wires(torch, tmp: Path, seed: int, state: dict,
         raise AssertionError(f"native host codecs not loaded: {loaded}")
     line["native"] = loaded
     line["seconds"] = time.perf_counter() - t_phase
-    return line, mixed_row, cluster_row, chirp_row, staged_row, gemm_row
+    return line, mixed_row, cluster_row, chirp_row, staged_row, point_row
 
 
 HPS_SEED = 7  # the search's project seed
@@ -3769,13 +3826,13 @@ def main(argv=None) -> int:
             phase, t0 = "data_prep", time.perf_counter()
             emit_phase(phase_data_prep(torch, Path(tmp), args.seed, total), t0)
             phase, t0 = "wires", time.perf_counter()
-            line, mixed_row, cluster_row, chirp_row, staged_row, gemm_row = phase_wires(
+            line, mixed_row, cluster_row, chirp_row, staged_row, point_row = phase_wires(
                 torch, Path(tmp), args.seed, state, total)
             rows["dft_magnitude_fft"]["cases"] = line["b1"].pop("fft_route_uint8")
             rows = {"dft_magnitude_fft": rows["dft_magnitude_fft"],
                     "dft_magnitude_mixed": mixed_row, "dft_magnitude_cluster": cluster_row,
                     "dft_magnitude_chirp": chirp_row, "dft_magnitude_staged": staged_row,
-                    "dft_magnitude_gemm": gemm_row,
+                    "dft_magnitude_point": point_row,
                     **{k: v for k, v in rows.items() if k != "dft_magnitude_fft"}}
             emit_phase(line, t0)
             phase, t0 = "hpsearch", time.perf_counter()

@@ -14,10 +14,6 @@
 
 #include "dft_side.cuh"
 
-__device__ __forceinline__ float2 cmul(float2 v, float2 w) {
-  return make_float2(v.x * w.x - v.y * w.y, v.x * w.y + v.y * w.x);
-}
-
 // The four-step twiddle W_N^m for m < N from its two tables of float64
 // roots (ops/dft.py::twiddle_tables, in shared memory): hi[m >> s] * lo[m &
 // (2^s - 1)] in float64 with no fused multiply-add, as ops/dft.py::

@@ -1,5 +1,6 @@
 // The butterflies and sample decoders that csrc/dft_mixed.cu and
-// csrc/dft_cluster.cu and csrc/dft_staged.cu share: float32, int16 and uint8 mu-law samples as
+// csrc/dft_cluster.cu and csrc/dft_staged.cu share (csrc/dft_point.cu takes
+// the decoders alone): float32, int16 and uint8 mu-law samples as
 // float32, and R-point DFTs in registers for R = 2, 3, 4, 5, 7, 8, 11, 13,
 // 16, 17, 19, 23, 29 and 31, outputs in natural order. The odd radices' cos and
 // sin and radix 16's twiddles are float64 values rounded once to float32

@@ -3,10 +3,14 @@
 // out[t, b] = |sum_n x[t*hop + n] * (C[n, b] + i S[n, b])|, with the window
 // folded into C and S.
 //
-// Replaces the TPU kernel orcai_tpu/ops/pallas_dft.py::dft_magnitude
-// (kernel _kernel) at the only sizes no FFT of this package takes: n_fft 1
-// (one product a frame) and a smooth n_fft above 2^20, whose window-folded
-// C and S (4 N (N/2 + 1) bytes, 4.4 TB there) no card holds.
+// The TPU kernel orcai_tpu/ops/pallas_dft.py::dft_magnitude's own
+// algorithm (kernel _kernel), which no route of ops/dft.py reaches any
+// more: dft_point.cu takes n_fft 1 (this kernel's last size: a 64-frame x
+// 64-bin tile for one product a frame, 0.91 ms on a minute of int16 audio
+// on the H100, where torch.stft(...).abs() takes 0.09, PERF.md), and above
+// 2^20 B1 raises, since its window-folded C and S (4 N (N/2 + 1) bytes,
+// 4.4 TB there) fit on no card. It stays as the yardstick that
+// chip_smoke.py and the tools call directly, beside the FFT routes.
 // dft_magnitude.cu takes 512; dft_mixed.cu every other smooth n_fft up to
 // 8192 and, in its chirp-z mode, every other n_fft up to 4096;
 // dft_cluster.cu the {2, ..., 23}-smooth n_fft up to 81920 (clusters of up
@@ -25,9 +29,7 @@
 // 32768-frame tile would be 109 times that. TF32 cannot hold the 2e-4 bar
 // (the reference runs Precision.HIGHEST), so the tensor cores are closed to
 // it. An FFT needs far less; this route is the simple kernel that is right
-// for the sizes no FFT of this package takes, none of which a wire, a
-// parameter file or an entry point reaches (create-spectrograms cannot crop
-// the one bin of n_fft 1).
+// for any size, and no wire, parameter file or entry point reaches it.
 //
 // Design (the tiled kernel of the port's first B1, generalised): each
 // 256-thread block owns a 64-frame x 64-bin output tile and walks n in

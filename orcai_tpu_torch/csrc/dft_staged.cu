@@ -96,6 +96,28 @@
 // move a third more device-memory bytes at 40962 (3.92 against 2.93 MB a
 // frame pair by tools/trace_staged.py's count, on any card) and launch a
 // fourth kernel.
+// Taken apart on the card (tools/probe_staged.py, PERF.md), the chirp mode
+// at 40962 on 2048 frames spent 0.56 of kernel 2's 1.62 ms copying its rows
+// a value a thread at a time, 0.65 ms of the call in its passes (kernel 2
+// runs two FFTs a row), 0.31 ms reading its twiddles from an M-value table
+// in L2, 0.28 ms in kernel 1's sample loads and 0.14 ms in kernel 3's
+// column loads; skipping the zero rows above n_fft saved kernel 1 0.01 ms.
+// So, with what the FFT mode proved:
+//   - kernel 2 copies its rows with every load of a thread in flight
+//     (copy_rows); kernel 3's first pass reads its columns, R loads of a
+//     thread in flight (a copy ahead of it read slower, PERF.md);
+//   - the twiddles of kernels 1 and 2 are product twiddles (twiddle,
+//     twiddled): in shared memory in a compiled kernel 1 and in kernel 2
+//     where they fit beside its buffers, else read through L1;
+//   - a column side whose radices are all powers of two (256 = 16 x 16 at
+//     40962) runs compiled whole in kernel 1 (Columns) and kernel 3
+//     (Folds), on one buffer, its passes in place;
+//   - a compiled kernel 1 stages its 1- and 2-byte samples and w a in its
+//     buffer, each row shifted into place from the aligned 16-byte words
+//     that cover it (stage_chirp, copy_unaligned; the FFT mode's unaligned
+//     rows take the same copy): the hops and N2 the mode takes are odd, so
+//     no rule of aligned rows serves it; the rows at and above n_fft / N2,
+//     zeros, are neither read nor staged.
 //
 // Chunks. The host walks the frame pairs in chunks of ops/dft.py::
 // staged_chunk_pairs(M) (a chunk's scratch within 512 MB), each chunk's
@@ -103,9 +125,8 @@
 // values) comes from the caller (the caching allocator).
 // Each kernel's batch of G columns, row pairs or column pairs is the most
 // whose two buffers fit in 96 KB (two CTAs on an SM), at least one within
-// 200 KB (dft_staged_plan.cuh); the pass roots, and the chirp mode's
-// twiddles, are read from device memory through L1 (the same across a
-// batch: broadcasts).
+// 200 KB (dft_staged_plan.cuh); the pass roots are read from device memory
+// through L1 (the same across a batch: broadcasts).
 //
 // The butterflies are dft_mixed.cu's and dft_cluster.cu's
 // (dft_butterflies.cuh, dft_batched.cuh): radix 16 as 4 x 4, the odd radices
@@ -152,30 +173,6 @@ namespace {
 
 #include "dft_batched.cuh"
 #include "dft_staged_plan.cuh"
-
-// the columns cols[b] of the scratch: element e of local column b
-struct ListColumns {
-  const float2* s;
-  const unsigned short* cols;
-  int n2;
-  __device__ __forceinline__ float2 operator()(int e, int b) const { return s[e * n2 + cols[b]]; }
-};
-
-// The G1 (or fewer, at the right edge) columns c0.. of one frame pair: their
-// N1-point FFTs from `load`, then element k1 of column j, times t[k1 * n2 +
-// j] (the chirp mode's four-step twiddles), stored at s[k1 * n2 + j].
-// Consecutive threads take consecutive columns: runs of `cols` values.
-template <typename Load>
-__device__ __forceinline__ void columns(const Load& load, const float2* __restrict__ tables,
-                                        const float2* __restrict__ t, float2* s, const Plan& p,
-                                        int c0, int cols, float2* za, float2* zb, int tid,
-                                        int nthreads) {
-  const float2* y = batched_fft(load, za, zb, tables, p.col, p.cstride, cols, tid, nthreads);
-  for (Walk w(tid, nthreads, cols); w.o < p.n1; w.step()) {
-    const int at = w.o * p.n2 + c0 + w.i;
-    s[at] = cmul(y[w.o * p.cstride + w.i], t[at]);
-  }
-}
 
 // A side read at run time from the Plan (in shared memory, indexed by pass)
 struct Generic {
@@ -305,15 +302,22 @@ using Row = Fixed<G, 2 * G, R...>;
 // sizes), 512, 128 and 64 points and the rows of 1024, 4096, 256 and 512
 // (131072); and the rows of 98304 (dft_staged_plan.cuh::extra_row); in
 // every build, so that a plan runs them whatever its other side's radices.
+// The chirp mode runs the same column sides in its kernel 1 (40962's M =
+// 82688 = 256 x 323 among them) and, with 2 G3 columns of G3 column pairs
+// (ops/dft.py::staged_fold), in its kernel 3 (Folds).
 template <class... Fs>
 struct Sides {};
 using Columns = Sides<Column<16, 16, 16>, Column<8, 8, 8, 8>, Column<16, 16, 8>, Column<16, 8, 8>>;
 using Rows = Sides<Row<2, 16, 8, 8>, Row<1, 16, 16, 16>, Row<8, 16, 16>, Row<4, 8, 8, 8>,
                    Row<4, 16, 8, 3>>;
+template <int G3, int... R>
+using Fold = Fixed<G3, 2 * G3, R...>;
+using Folds = Sides<Fold<8, 16, 16>, Fold<4, 8, 8, 8>, Fold<16, 16, 8>, Fold<16, 8, 8>>;
 
 // A thread's loads kept in flight at a time where a copy is not compiled
-// whole: the rows of kernel 2 (up to it in a compiled side too), kernel 1's
-// samples where they are not copied as vectors (24 read no faster: PERF.md)
+// whole: the rows of kernel 2 (up to it in a compiled side too), the chirp
+// mode's columns and stage, and half as many pairs of words where kernel 1's
+// rows are not aligned (24 read no faster: PERF.md)
 constexpr int COPY = 8;
 
 template <int BYTES>
@@ -357,6 +361,75 @@ struct RowCopy {
     }
   }
 };
+
+// Word q of a run of values that starts `lead` bytes into the aligned word
+// a (the next aligned word b): its BYTES bytes from lead + BYTES q on,
+// shifted across 32-bit lanes by a funnel
+template <int BYTES>
+__device__ __forceinline__ typename Vec<BYTES>::type shift_words(typename Vec<BYTES>::type a,
+                                                                 typename Vec<BYTES>::type b,
+                                                                 int lead) {
+  constexpr int N = BYTES / 4;
+  union Lanes {
+    typename Vec<BYTES>::type v;
+    unsigned u[N];
+  } x0{a}, x1{b}, out;
+  unsigned x[2 * N], y[N + 1];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    x[i] = x0.u[i];
+    x[N + i] = x1.u[i];
+  }
+  const int w = lead >> 2, s = 8 * (lead & 3);
+#pragma unroll
+  for (int i = 0; i <= N; ++i) {  // y[i] = x[i + w], w < N, as selects
+    unsigned v = x[i];
+#pragma unroll
+    for (int k = 1; k < N; ++k) v = w == k ? x[i + k] : v;
+    y[i] = v;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) out.u[i] = __funnelshift_r(y[i], y[i + 1], s);
+  return out.v;
+}
+
+// ROWS rows of G values of type U, row r from src + at(r) aligned to U
+// alone, its first need(r) values needed (a row of none is neither read nor
+// written), to dst[r G + b] as RowCopy's words: each word shifted into
+// place from the aligned words that cover it (shift_words), only the words
+// that hold a needed value read (a word never reaches past the page of a
+// value it holds), PER words of a thread in flight before their stores
+template <int G, int ROWS, int THREADS, typename U, int PER, class At, class Need>
+__device__ __forceinline__ void copy_unaligned(const U* __restrict__ src, const At& at,
+                                               const Need& need, U* dst, int tid) {
+  using Copy = RowCopy<G, ROWS, THREADS, U>;
+  using V = typename Vec<Copy::BYTES>::type;
+  constexpr int BYTES = Copy::BYTES, WORDS = Copy::PER_ROW, ITEMS = ROWS * WORDS;
+  for (int i0 = tid; i0 < ITEMS; i0 += PER * THREADS) {
+    V a[PER], b[PER];
+    int lead[PER];
+    bool has[PER];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int i = i0 + k * THREADS, row = i / WORDS, q = i % WORDS;
+      const int values = i < ITEMS ? need(row) : 0;
+      a[k] = b[k] = V{};
+      lead[k] = 0;
+      has[k] = values > 0;
+      if (has[k]) {
+        const uintptr_t p = reinterpret_cast<uintptr_t>(src + at(row));
+        const int bytes = static_cast<int>(p % BYTES) + values * static_cast<int>(sizeof(U));
+        const V* word = reinterpret_cast<const V*>(p - p % BYTES) + q;
+        lead[k] = static_cast<int>(p % BYTES);
+        if (BYTES * q < bytes) a[k] = word[0];
+        if (lead[k] != 0 && BYTES * (q + 1) < bytes) b[k] = word[1];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < PER; ++k)
+      if (has[k]) reinterpret_cast<V*>(dst)[i0 + k * THREADS] = shift_words<BYTES>(a[k], b[k], lead[k]);
+  }
+}
 
 // The G columns c0.. of one frame pair, staged for kernel 1's first pass:
 // the two frames' samples (element e of frame f, 0: xa, 1: xa + hop, at
@@ -410,12 +483,81 @@ __device__ __forceinline__ void stage_columns(const T* __restrict__ xa, int hop,
   }
 }
 
+// stage_columns' staging where the frames' or rows' samples, or the
+// window's rows, are not aligned to its vectors (the hops and N2 of many
+// sizes leave every second frame or row unaligned): each run shifted into
+// place from the aligned words that cover it (copy_unaligned), the same
+// values at the same place, so an unaligned view's magnitudes are bit for
+// bit an aligned one's. Its own kernel, chosen by the host: beside
+// stage_columns in one kernel it read 2 % slower at the aligned 131072 and
+// 98304 (PERF.md).
+template <int G, int N1, int THREADS, typename T>
+__device__ __forceinline__ void stage_shifted(const T* __restrict__ xa, int hop, bool has_b,
+                                              const float* __restrict__ window, int n2, int c0,
+                                              int cols, T* stage, float* wstage, int tid) {
+  const int rows = has_b ? 2 * N1 : N1;
+  copy_unaligned<G, 2 * N1, THREADS, T, COPY / 2>(
+      xa + c0, [&](int row) { return (row / N1) * hop + (row % N1) * n2; },
+      [&](int row) { return row < rows ? cols : 0; }, stage, tid);
+  copy_unaligned<G, N1, THREADS, float, COPY / 2>(
+      window + c0, [&](int row) { return row * n2; }, [&](int) { return cols; }, wstage, tid);
+}
+
+// The chirp mode's input, read by its kernel 1 (its own loaders: the
+// cluster route's ChirpColumns, in dft_batched.cuh, stays as it is): element
+// e of local column b of the G columns c0.. is sample n = e n2 + c0 + b of
+// the two frames as one signal, z = (w a)[n] (x_t + i x_t+1)[n] for n <
+// n_fft, zero up to M (the rows from about N1 / 2 on are zeros: M >= 2
+// n_fft - 1) and past the right edge (b >= cols).
+template <typename T>
+struct ChirpSamples {
+  const T* xa;
+  const T* xb;
+  bool has_b;
+  const float2* wa;
+  int n_fft, n2, c0, cols;
+  __device__ __forceinline__ float2 operator()(int e, int b) const {
+    const int n = e * n2 + c0 + b;
+    if (b >= cols || n >= n_fft) return make_float2(0.0f, 0.0f);
+    return chirp_input(wa[n], sample_to_f32(xa[n]), has_b ? sample_to_f32(xb[n]) : 0.0f);
+  }
+  __device__ __forceinline__ static float2 chirp_input(float2 c, float u, float v) {
+    return make_float2(c.x * u - c.y * v, c.x * v + c.y * u);
+  }
+};
+
+// The chirp mode's 1- and 2-byte samples and w a of the G columns c0..
+// staged for a compiled kernel 1's first pass, which reads them there and
+// then overwrites them in place: the rows e below n_fft / N2 + 1 (at most
+// ROWS = N1 / 2: M >= 2 n_fft - 1), frame t's at stage[e G + b], frame t +
+// 1's at stage[(ROWS + e) G + b] and w a's at wa_stage[e G + b], each run
+// shifted into place from the aligned words that cover it (copy_unaligned:
+// the hops and N2 the mode takes are odd, 20481 and 323 at 40962, so no
+// rule of aligned rows serves it). The rows at and above n_fft / N2,
+// zeros, are neither read nor staged; a view one byte off gives the same
+// values, so the same bits.
+template <int G, int ROWS, int THREADS, typename T>
+__device__ __forceinline__ void stage_chirp(const ChirpSamples<T>& in, int hop, T* stage,
+                                            float2* wa_stage, int tid) {
+  const auto need = [&](int e) {  // the values of row e below n_fft
+    const int left = in.n_fft - (e * in.n2 + in.c0);
+    return left < 0 ? 0 : left < in.cols ? left : in.cols;
+  };
+  copy_unaligned<G, 2 * ROWS, THREADS, T, COPY / 2>(
+      in.xa + in.c0, [&](int row) { return (row / ROWS) * hop + (row % ROWS) * in.n2; },
+      [&](int row) { return row < ROWS || in.has_b ? need(row % ROWS) : 0; }, stage, tid);
+  copy_unaligned<G, ROWS, THREADS, float2, COPY / 2>(
+      in.wa + in.c0, [&](int e) { return e * in.n2; }, need, wa_stage, tid);
+}
+
 // Kernel 1 of the FFT mode: CTA blockIdx.x owns column group blockIdx.x %
 // col_groups of the chunk's frame pair blockIdx.x / col_groups, whose
 // scratch is scratch + that pair * n. Shared memory: where S is compiled
 // whole the twiddles' two tables (tables + tab_off: lo, then hi), then the
-// buffers. S: Generic, or the Fixed column side the plan's is (Columns).
-template <typename T, class S>
+// buffers. S: Generic, or the Fixed column side the plan's is (Columns);
+// SHIFTED: its 1- and 2-byte samples staged by stage_shifted, where the
+// audio's rows are not aligned to stage_columns' vectors.
+template <typename T, class S, bool SHIFTED = false>
 __global__ void __launch_bounds__(S::most_threads, S::ctas)
 fft_columns_kernel(const T* __restrict__ audio, const float* __restrict__ window,
                    const float2* __restrict__ tables, float2* __restrict__ scratch, int pair0,
@@ -460,8 +602,12 @@ fft_columns_kernel(const T* __restrict__ audio, const float* __restrict__ window
       // which the first pass reads and then overwrites in place
       T* stage = reinterpret_cast<T*>(za);
       float* wstage = reinterpret_cast<float*>(stage + 2 * S::n * S::g);
-      stage_columns<S::g, S::n, S::threads>(xa, hop, load.has_b, window, n2, c0, cols, stage,
-                                            wstage, tid);
+      if constexpr (SHIFTED)
+        stage_shifted<S::g, S::n, S::threads>(xa, hop, load.has_b, window, n2, c0, cols, stage,
+                                              wstage, tid);
+      else
+        stage_columns<S::g, S::n, S::threads>(xa, hop, load.has_b, window, n2, c0, cols, stage,
+                                              wstage, tid);
       __syncthreads();
       S::template fft<true, false>(
           [&](int e, int b) {
@@ -489,29 +635,85 @@ fft_columns_kernel(const T* __restrict__ audio, const float* __restrict__ window
 
 // Kernel 1 of the chirp mode: CTA blockIdx.x owns column group blockIdx.x %
 // col_groups of the chunk's frame pair blockIdx.x / col_groups, the first
-// FFT's columns.
+// FFT's columns of z (ChirpSamples), each element times its four-step
+// twiddle into the scratch, as the FFT mode's kernel 1 does (window: the
+// chirp table's w a, as (re, im) pairs). S: Generic, or the Fixed column
+// side the plan's is (Columns), its twiddle tables in shared memory before
+// its buffer, its 1- and 2-byte samples and w a staged in that buffer
+// first (stage_chirp); the generic kernel and float32 samples read them
+// where they lie. A compiled side takes three CTAs an SM for int16 samples
+// alone: at three (85 registers a thread) its uint8 and float32 kernels
+// spilled, and at two the int16 one read 18 % slower (PERF.md).
 template <typename T>
-__global__ void __launch_bounds__(MAX_THREADS, 2)
-columns_kernel(const T* __restrict__ audio, const float* __restrict__ window,
-               const float2* __restrict__ tables, const float2* __restrict__ chirp,
-               float2* __restrict__ scratch, int pair0, int n_frames, int hop, const Plan plan) {
+__host__ __device__ constexpr int chirp_columns_ctas(int compiled_ctas) {
+  return sizeof(T) == 2 ? compiled_ctas : 2;
+}
+
+template <typename T, class S>
+__global__ void __launch_bounds__(S::most_threads, chirp_columns_ctas<T>(S::ctas))
+chirp_columns_kernel(const T* __restrict__ audio, const float* __restrict__ window,
+                     const float2* __restrict__ tables, float2* __restrict__ scratch, int pair0,
+                     int n_frames, int hop, const Plan plan) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ Plan p;  // read with the pass index, so from shared memory
   const int tid = threadIdx.x, nthreads = blockDim.x;
-  if (tid == 0) p = plan;
-  __syncthreads();
+  if (!S::compiled && tid == 0) p = plan;
+  const double2* lo = reinterpret_cast<const double2*>(tables + plan.tab_off);
+  if constexpr (S::compiled) {
+    const uint4* src = reinterpret_cast<const uint4*>(lo);
+    uint4* dst = reinterpret_cast<uint4*>(smem);
+    for (int i = tid; i < plan.tab_bytes / 16; i += nthreads) dst[i] = src[i];
+    lo = reinterpret_cast<const double2*>(smem);
+  }
+  const double2* hi = lo + (1 << plan.tw_log2);
+  const int n2 = plan.n2, tw_log2 = plan.tw_log2;
+  float2* za = reinterpret_cast<float2*>(smem + (S::compiled ? plan.tab_bytes : 0));
   const int local = blockIdx.x / plan.col_groups;
   const int c0 = (blockIdx.x % plan.col_groups) * plan.g1;
-  const int cols = plan.n2 - c0 < plan.g1 ? plan.n2 - c0 : plan.g1;
-  float2* za = reinterpret_cast<float2*>(smem);
-  float2* zb = za + plan.n1 * plan.cstride;
+  const int cols = n2 - c0 < plan.g1 ? n2 - c0 : plan.g1;
   float2* s = scratch + static_cast<long long>(local) * plan.n;
-  const float2* t = tables + plan.tw_len;
   const int t0 = 2 * (pair0 + local);
   const T* xa = audio + static_cast<long long>(t0) * hop;
-  const bool has_b = t0 + 1 < n_frames;
-  columns(ChirpColumns<T>{xa, xa + hop, has_b, chirp, plan.chirp_n, plan.n2, c0}, tables, t, s,
-          p, c0, cols, za, zb, tid, nthreads);
+  const ChirpSamples<T> in{xa, xa + hop, t0 + 1 < n_frames,
+                           reinterpret_cast<const float2*>(window), plan.chirp_n, n2, c0, cols};
+  if constexpr (S::compiled) {
+    // the columns past the right edge (b >= cols) load zeros and store nothing
+    const auto last = [&](int k1, int b, float2 v) {
+      if (b < cols) {
+        const int j = c0 + b;
+        s[k1 * n2 + j] = twiddled(v, twiddle(lo, hi, tw_log2, k1 * j));
+      }
+    };
+    if constexpr (sizeof(T) < 4) {
+      constexpr int ROWS = S::n / 2, G = S::g;
+      static_assert(S::n % 2 == 0 && (2 * ROWS * G * sizeof(T)) % 16 == 0 &&
+                        2 * ROWS * G * sizeof(T) + ROWS * G * 8 <= S::buffer_bytes,
+                    "the rows with samples fit in the compiled side's buffer");
+      T* stage = reinterpret_cast<T*>(za);
+      float2* wa_stage = reinterpret_cast<float2*>(stage + 2 * ROWS * G);
+      stage_chirp<G, ROWS, S::threads>(in, hop, stage, wa_stage, tid);
+      __syncthreads();
+      S::template fft<true, false>(
+          [&](int e, int b) {
+            if (b >= cols || e * n2 + c0 + b >= in.n_fft) return make_float2(0.0f, 0.0f);
+            const float v = in.has_b ? sample_to_f32(stage[(ROWS + e) * G + b]) : 0.0f;
+            return ChirpSamples<T>::chirp_input(wa_stage[e * G + b],
+                                                sample_to_f32(stage[e * G + b]), v);
+          },
+          za, tables, tid, last);
+    } else {
+      __syncthreads();
+      S::template fft<false, false>(in, za, tables, tid, last);
+    }
+  } else {
+    __syncthreads();
+    const float2* y = batched_fft(in, za, za + plan.n1 * plan.cstride, tables, p.col,
+                                  plan.cstride, cols, tid, nthreads);
+    for (Walk w(tid, nthreads, cols); w.o < plan.n1; w.step()) {
+      const int j = c0 + w.i;
+      s[w.o * n2 + j] = twiddled(y[w.o * plan.cstride + w.i], twiddle(lo, hi, tw_log2, w.o * j));
+    }
+  }
 }
 
 // The rows of a kernel-2 CTA, row group `group` of a frame pair: the row
@@ -618,10 +820,27 @@ fft_rows_kernel(const float2* __restrict__ tables, const float2* __restrict__ sc
   }
 }
 
+// A batch's stride in shared memory: the plan's, a constant where S is
+// compiled whole
+template <class S>
+__device__ __forceinline__ int batch_stride(int planned) {
+  if constexpr (S::compiled) {
+    return S::stride;
+  } else {
+    return planned;
+  }
+}
+
 // Kernel 2 of the chirp mode: CTA blockIdx.x owns row group blockIdx.x %
 // row_groups (RowGroup) of the chunk's frame pair blockIdx.x / row_groups:
-// the product with B and the second FFT's rows, written back over its rows
-// of the scratch times W_M^(k1 p2).
+// its rows copied from the scratch with every load of a thread in flight
+// (copy_rows), their N2-point FFTs, the product with B, the second FFT's
+// rows, each value times W_M^(k1 p2) (twiddle, from the two float64 tables:
+// in shared memory after the buffers where they fit, row_tab_bytes, else
+// through L1) written back over its rows of the scratch. Its rows run on
+// the generic kernel: compiled whole (the rows of 384 and 512 points at a
+// convolution length of 98304 or 131072), its two FFTs and the product
+// spilled 88-600 bytes a thread (PERF.md).
 __global__ void __launch_bounds__(MAX_THREADS, 2)
 rows_kernel(const float2* __restrict__ tables, const float2* __restrict__ chirp,
             float2* __restrict__ scratch, const Plan plan) {
@@ -629,41 +848,63 @@ rows_kernel(const float2* __restrict__ tables, const float2* __restrict__ chirp,
   __shared__ Plan p;
   __shared__ unsigned short rows_k1[2 * MAX_BATCH];
   const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int n1 = plan.n1, n2 = plan.n2;
+  const int n1 = plan.n1, n2 = plan.n2, stride = plan.rstride;
   const int local = blockIdx.x / plan.row_groups;
   const RowGroup group(plan, blockIdx.x % plan.row_groups);
   const int rows = group.rows();
   if (tid == 0) p = plan;
   if (tid < rows) rows_k1[tid] = static_cast<unsigned short>(group.k1(tid));
   float2* za = reinterpret_cast<float2*>(smem);
-  float2* zb = za + n2 * plan.rstride;
+  float2* zb = za + n2 * stride;
+  const double2* lo = reinterpret_cast<const double2*>(tables + plan.tab_off);
+  if (plan.row_tab_bytes != 0) {
+    const uint4* src = reinterpret_cast<const uint4*>(lo);
+    uint4* dst = reinterpret_cast<uint4*>(zb + n2 * stride);
+    for (int i = tid; i < plan.row_tab_bytes / 16; i += nthreads) dst[i] = src[i];
+    lo = reinterpret_cast<const double2*>(dst);
+  }
+  const double2* hi = lo + (1 << plan.tw_log2);
+  const int tw_log2 = plan.tw_log2;
   float2* s = scratch + static_cast<long long>(local) * plan.n;
   __syncthreads();
-  // the rows, each one run of n2 values of the scratch
-  for (Walk w(tid, nthreads, n2); w.o < rows; w.step())
-    za[w.i * plan.rstride + w.o] = s[rows_k1[w.o] * n2 + w.i];
+  copy_rows<COPY>(s, za, stride, rows_k1, n2, rows * n2, tid, nthreads);
   __syncthreads();
-  float2* z = batched_fft(Local{za, plan.rstride}, zb, za, tables, p.row, plan.rstride, rows,
-                          tid, nthreads);
+  float2* z = batched_fft(Local{za, stride}, zb, za, tables, p.row, stride, rows, tid, nthreads);
   float2* other = z == za ? zb : za;
-  const float2* g = batched_fft(Product{z, plan.rstride, chirp + 2 * plan.chirp_n, rows_k1, n1},
-                                other, z, tables, p.row, plan.rstride, rows, tid, nthreads);
-  const float2* t = tables + plan.tw_len;
+  const float2* g = batched_fft(Product{z, stride, chirp + 2 * plan.chirp_n, rows_k1, n1}, other,
+                                z, tables, p.row, stride, rows, tid, nthreads);
   for (Walk w(tid, nthreads, n2); w.o < rows; w.step()) {
-    const int at = rows_k1[w.o] * n2 + w.i;
-    s[at] = cmul(g[w.i * plan.rstride + w.o], t[at]);
+    const int k1 = rows_k1[w.o];
+    s[k1 * n2 + w.i] = twiddled(g[w.i * stride + w.o], twiddle(lo, hi, tw_log2, k1 * w.i));
   }
 }
+
+// the columns cols[b] of the scratch s: element e of local column b, zeros
+// past the group's ncols columns
+struct ListColumns {
+  const float2* s;
+  const unsigned short* cols;
+  int n2, ncols;
+  __device__ __forceinline__ float2 operator()(int e, int b) const {
+    return b < ncols ? s[e * n2 + cols[b]] : make_float2(0.0f, 0.0f);
+  }
+};
+
 // Kernel 3 of the chirp mode: CTA blockIdx.x owns fold group blockIdx.x %
 // fold_groups of the chunk's frame pair blockIdx.x / fold_groups, the
 // representatives d in [lo, hi) (lo = e + group * g3): local columns 0 ..
 // alen - 1 are the columns f + d, then the partners f + e - d of those d
 // that are not their own (d = 0 where e is 0, d = top where 2 top - e is
-// n2: only at the ends of the range). It runs their N1-point FFTs over k1
-// (u[n2 p1 + p2], p1 < n1, in shared memory) and writes the magnitudes of
-// the bins k = n2 p1 + p2 <= n_fft / 2 of its columns: Z[k] = a[k] conj u[k]
-// and its mirror Z[n_fft - k] from the partner column, untangled.
-__global__ void __launch_bounds__(MAX_THREADS, 2)
+// n2: only at the ends of the range). It runs their N1-point FFTs over k1,
+// the first pass reading its columns from the scratch (ListColumns: R loads
+// of a thread in flight, which read faster than a copy ahead of the FFT,
+// PERF.md), u[n2 p1 + p2], p1 < n1, in shared memory, and writes the
+// magnitudes of the bins k = n2 p1 + p2 <= n_fft / 2 of its columns: Z[k] =
+// a[k] conj u[k] and its mirror Z[n_fft - k] from the partner column,
+// untangled. S: Generic, or the Fixed side of 2 G3 columns the plan's
+// column side is (Folds), on one buffer, its passes in place.
+template <class S>
+__global__ void __launch_bounds__(S::most_threads, S::ctas)
 columns_untangle_kernel(const float2* __restrict__ tables, const float2* __restrict__ a,
                         const float2* __restrict__ scratch, float* __restrict__ out, int pair0,
                         int n_frames, const Plan plan) {
@@ -679,7 +920,7 @@ columns_untangle_kernel(const float2* __restrict__ tables, const float2* __restr
   const int b_lo = lo == 0 ? 1 : lo;
   const int b_hi = hi == top + 1 && 2 * top - e == n2 ? top : hi;
   const int alen = hi - lo, blen = b_hi > b_lo ? b_hi - b_lo : 0, ncols = alen + blen;
-  if (tid == 0) p = plan;
+  if (!S::compiled && tid == 0) p = plan;
   if (tid < ncols) {
     const int d = tid < alen ? lo + tid : b_lo + tid - alen;
     const int c = tid < alen ? f + d : f + e - d;  // from -n2 to 2 n2 - 1
@@ -688,11 +929,18 @@ columns_untangle_kernel(const float2* __restrict__ tables, const float2* __restr
         tid >= alen ? d - lo : d < b_lo || d >= b_hi ? tid : alen + d - b_lo);
   }
   float2* za = reinterpret_cast<float2*>(smem);
-  float2* zb = za + plan.n1 * plan.fstride;
-  const float2* s = scratch + static_cast<long long>(local) * plan.n;
+  const ListColumns load{scratch + static_cast<long long>(local) * plan.n, cols, n2, ncols};
+  const int stride = batch_stride<S>(plan.fstride);
   __syncthreads();
-  const float2* u = batched_fft(ListColumns{s, cols, n2}, za, zb, tables, p.col, plan.fstride,
-                                ncols, tid, nthreads);
+  const float2* u = za;
+  if constexpr (S::compiled) {
+    // the columns past the group's (l >= ncols) are transformed and never written out
+    S::template fft<false, true>(load, za, tables, tid,
+                                 [&](int k, int b, float2 v) { za[k * S::stride + b] = v; });
+    __syncthreads();
+  } else {
+    u = batched_fft(load, za, za + plan.n1 * stride, tables, p.col, stride, ncols, tid, nthreads);
+  }
   const int nf = plan.chirp_n, n_bins = nf / 2 + 1, t = 2 * (pair0 + local);
   const int q = nf / n2, r = nf - q * n2;
   float* row_a = out + static_cast<long long>(t) * n_bins;
@@ -703,8 +951,8 @@ columns_untangle_kernel(const float2* __restrict__ tables, const float2* __restr
     // the mirror n_fft - k at row q - p1 (q - p1 - 1 where p2 > r) of the
     // partner column; bin 0 its own
     const int m = k == 0 ? 0 : nf - k;
-    const float2 uk = u[p1 * plan.fstride + l];
-    const float2 um = k == 0 ? uk : u[(p2 <= r ? q - p1 : q - p1 - 1) * plan.fstride + partner[l]];
+    const float2 uk = u[p1 * stride + l];
+    const float2 um = k == 0 ? uk : u[(p2 <= r ? q - p1 : q - p1 - 1) * stride + partner[l]];
     const float2 ck = a[k], cm = a[m];
     write_bin(row_a, n_bins, has_b, k,
               make_float2(ck.x * uk.x + ck.y * uk.y, ck.y * uk.x - ck.x * uk.y),
@@ -716,6 +964,8 @@ template <typename T>
 using ColumnsKernel = void (*)(const T*, const float*, const float2*, float2*, int, int, int,
                                const Plan);
 using RowsKernel = void (*)(const float2*, const float2*, float*, int, int, const Plan);
+using FoldKernel = void (*)(const float2*, const float2*, const float2*, float*, int, int,
+                            const Plan);
 
 // side is the Fixed F's with its batch g
 template <class F>
@@ -729,11 +979,20 @@ bool same_side(const Side& side, int g) {
 // The FFT mode's kernels of a plan: the compiled kernel of each side that
 // Columns and Rows hold, else the generic one (the plan's col_fixed and
 // row_fixed, and its shared memory, set to what runs)
+template <typename T, class F>
+ColumnsKernel<T> fixed_columns(bool shifted) {
+  if constexpr (sizeof(T) < 4)
+    if (shifted) return fft_columns_kernel<T, F, true>;
+  return fft_columns_kernel<T, F>;
+}
+
+// shifted: the audio's rows are not aligned to stage_columns' vectors
+// (stage_shifted's kernel)
 template <typename T, class... Fs>
-ColumnsKernel<T> columns_of(Plan* p, Sides<Fs...>) {
+ColumnsKernel<T> columns_of(Plan* p, Sides<Fs...>, bool shifted = false) {
   ColumnsKernel<T> kernel = nullptr;
   if (p->col_fixed)
-    ((kernel == nullptr && same_side<Fs>(p->col, p->g1) ? (kernel = fft_columns_kernel<T, Fs>)
+    ((kernel == nullptr && same_side<Fs>(p->col, p->g1) ? (kernel = fixed_columns<T, Fs>(shifted))
                                                         : kernel),
      ...);
   if (kernel == nullptr) kernel = fft_columns_kernel<T, Generic>;
@@ -753,6 +1012,36 @@ RowsKernel rows_of(Plan* p, Sides<Fs...>) {
   return kernel;
 }
 
+// The chirp mode's kernels 1 and 3 of a plan: the compiled kernel of its
+// column side where Columns (and Folds, with G3) hold it, else the generic
+// one (the plan's col_fixed and fold_fixed, and its shared memory, set to
+// what runs)
+template <typename T, class... Fs>
+ColumnsKernel<T> chirp_columns_of(Plan* p, Sides<Fs...>) {
+  ColumnsKernel<T> kernel = nullptr;
+  if (p->col_fixed)
+    ((kernel == nullptr && same_side<Fs>(p->col, p->g1) ? (kernel = chirp_columns_kernel<T, Fs>)
+                                                        : kernel),
+     ...);
+  if (kernel == nullptr) kernel = chirp_columns_kernel<T, Generic>;
+  set_fixed(p, kernel != chirp_columns_kernel<T, Generic>, false, p->fold_fixed);
+  return kernel;
+}
+
+
+
+template <class... Fs>
+FoldKernel folds_of(Plan* p, Sides<Fs...>) {
+  FoldKernel kernel = nullptr;
+  if (p->fold_fixed)
+    ((kernel == nullptr && same_side<Fs>(p->col, p->g3) ? (kernel = columns_untangle_kernel<Fs>)
+                                                        : kernel),
+     ...);
+  if (kernel == nullptr) kernel = columns_untangle_kernel<Generic>;
+  set_fixed(p, p->col_fixed, false, kernel != columns_untangle_kernel<Generic>);
+  return kernel;
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -767,17 +1056,29 @@ int run(const void* audio_v, const float* window, const float* tables_f, const f
   const float2* chirp = reinterpret_cast<const float2*>(chirp_f);
   float2* scratch = reinterpret_cast<float2*>(scratch_f);
   const bool chirp_mode = plan.chirp_n != 0;
-  ColumnsKernel<T> fft_columns = nullptr;
+  ColumnsKernel<T> columns = nullptr;
   RowsKernel fft_rows = nullptr;
+  FoldKernel fold = nullptr;
   cudaError_t err;
   if (chirp_mode) {
-    err = allow_smem(columns_kernel<T>, plan.col_bytes);
+    columns = chirp_columns_of<T>(&plan, Columns{});
+    fold = folds_of(&plan, Folds{});
+    err = allow_smem(columns, plan.col_bytes);
     if (err == cudaSuccess) err = allow_smem(rows_kernel, plan.row_bytes);
-    if (err == cudaSuccess) err = allow_smem(columns_untangle_kernel, plan.fold_bytes);
+    if (err == cudaSuccess) err = allow_smem(fold, plan.fold_bytes);
   } else {
-    fft_columns = columns_of<T>(&plan, Columns{});
+    // stage_columns' vectors are min(G sizeof(T), 16) and min(4 G, 16)
+    // bytes: where the frames, the rows or the window's rows are not
+    // aligned to them, stage_shifted's kernel
+    const uintptr_t at = reinterpret_cast<uintptr_t>(audio) |
+                         static_cast<uintptr_t>(plan.n2) * sizeof(T) |
+                         static_cast<uintptr_t>(hop) * sizeof(T);
+    const uintptr_t w_at = reinterpret_cast<uintptr_t>(window) | static_cast<uintptr_t>(plan.n2) * 4;
+    const uintptr_t bytes = plan.g1 * sizeof(T) < 16 ? plan.g1 * sizeof(T) : 16;
+    const uintptr_t w_bytes = plan.g1 * 4 < 16 ? plan.g1 * 4 : 16;
+    columns = columns_of<T>(&plan, Columns{}, at % bytes != 0 || w_at % w_bytes != 0);
     fft_rows = rows_of(&plan, Rows{});
-    err = allow_smem(fft_columns, plan.col_bytes);
+    err = allow_smem(columns, plan.col_bytes);
     if (err == cudaSuccess) err = allow_smem(fft_rows, plan.row_bytes);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -786,18 +1087,19 @@ int run(const void* audio_v, const float* window, const float* tables_f, const f
     const int pairs = n_pairs - pair0 < chunk_pairs ? n_pairs - pair0 : chunk_pairs;
     const dim3 cols_grid(pairs * plan.col_groups), rows_grid(pairs * plan.row_groups);
     if (!chirp_mode) {
-      fft_columns<<<cols_grid, plan.col_threads, plan.col_bytes, s>>>(
+      columns<<<cols_grid, plan.col_threads, plan.col_bytes, s>>>(
           audio, window, tables, scratch, pair0, n_frames, hop, plan);
       fft_rows<<<rows_grid, plan.row_threads, plan.row_bytes, s>>>(tables, scratch, out, pair0,
                                                                   n_frames, plan);
     } else {
-      columns_kernel<T><<<cols_grid, plan.col_threads, plan.col_bytes, s>>>(
-          audio, window, tables, chirp, scratch, pair0, n_frames, hop, plan);
+      // kernel 1 reads w a, the chirp table's first n_fft pairs, where the
+      // FFT mode reads its window
+      columns<<<cols_grid, plan.col_threads, plan.col_bytes, s>>>(
+          audio, chirp_f, tables, scratch, pair0, n_frames, hop, plan);
       rows_kernel<<<rows_grid, plan.row_threads, plan.row_bytes, s>>>(tables, chirp, scratch,
                                                                      plan);
-      columns_untangle_kernel<<<pairs * plan.fold_groups, plan.fold_threads, plan.fold_bytes,
-                                s>>>(tables, chirp + plan.chirp_n, scratch, out, pair0,
-                                     n_frames, plan);
+      fold<<<pairs * plan.fold_groups, plan.fold_threads, plan.fold_bytes, s>>>(
+          tables, chirp + plan.chirp_n, scratch, out, pair0, n_frames, plan);
     }
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -827,11 +1129,12 @@ int describe(Kernel kernel, int threads, int bytes, bool compiled, int* info) {
 template <typename T>
 int layout(Plan plan, int* info) {
   if (plan.chirp_n != 0) {
-    int err = describe(columns_kernel<T>, plan.col_threads, plan.col_bytes, false, info);
+    const ColumnsKernel<T> columns = chirp_columns_of<T>(&plan, Columns{});
+    const FoldKernel fold = folds_of(&plan, Folds{});
+    int err = describe(columns, plan.col_threads, plan.col_bytes, plan.col_fixed, info);
     if (err == 0) err = describe(rows_kernel, plan.row_threads, plan.row_bytes, false, info + 6);
     if (err == 0)
-      err = describe(columns_untangle_kernel, plan.fold_threads, plan.fold_bytes, false,
-                     info + 12);
+      err = describe(fold, plan.fold_threads, plan.fold_bytes, plan.fold_fixed, info + 12);
     return err;
   }
   const ColumnsKernel<T> columns = columns_of<T>(&plan, Columns{});
@@ -863,9 +1166,8 @@ int check(const int* packed, int n_fft, bool chirp_mode, Plan* p) {
 // (dtype 1) or uint8 mu-law codes (dtype 2); plan: host int32 [N1, N2, G1,
 // G2, len1, len2, P1, radices, P2, radices] and in the chirp mode [G3, f]
 // (ops/dft.py::_staged_plan_array); tables: ops/dft.py::staged_tables of N1
-// * N2, float32 (re, im): in the FFT mode with product twiddles (the pass
-// roots, then the twiddles' two float64 tables), in the chirp mode with
-// four_step_roots; scratch: chunk_pairs * N1 * N2 complex float32 on the
+// * N2, float32 (re, im), in either mode (the pass roots, then the
+// product twiddles' two float64 tables); scratch: chunk_pairs * N1 * N2 complex float32 on the
 // device (chunk_pairs frame pairs a chunk); out: (n_frames, n_fft/2 + 1)
 // float32; hop divides n_fft. With chirp null (the FFT mode) N1 * N2 is
 // n_fft and window is the (n_fft,) float32 window. Otherwise (the chirp

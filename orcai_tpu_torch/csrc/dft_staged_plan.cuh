@@ -19,6 +19,7 @@ constexpr int MAX_N_FFT = 1 << 20;         // the largest n_fft, either mode (ST
 constexpr int MAX_BATCH = 16;              // columns, row pairs or column pairs a CTA
 constexpr int MAX_THREADS = 256;
 constexpr int MAX_CTA_BYTES = 200 * 1024;  // a CTA's two buffers
+constexpr int CARD_CTA_BYTES = 232448;     // the most dynamic shared memory a CTA takes on the card
 
 struct Plan {
   int n, n1, n2;        // N = n1 * n2 points
@@ -29,15 +30,20 @@ struct Plan {
   int col_groups, row_groups;  // kernel-1 and kernel-2 CTAs a frame pair
   int col_threads, row_threads;
   int col_bytes, row_bytes;    // their shared memory
-  // the FFT mode's twiddles W_N^m, products of two tables of float64 roots
+  // the four-step twiddles W_N^m, products of two tables of float64 roots
   // (lo, S = 2^tw_log2 values, then hi) at float2 row tab_off of the tables,
   // tab_bytes of them; whether each side runs a kernel compiled whole
   int tw_log2, tab_off, tab_bytes;
   int col_fixed, row_fixed;
+  // the chirp mode's kernel 2 keeps the tables in shared memory after its
+  // buffers where they fit on the card (row_tab_bytes, else 0: it reads
+  // them through L1)
+  int row_tab_bytes;
   // the chirp mode's kernel 3: G3 column pairs a CTA, the representatives d
-  // = e .. top of the columns f + d (mod n2), each with its partner f + e - d
+  // = e .. top of the columns f + d (mod n2), each with its partner f + e - d;
+  // whether it runs a kernel compiled whole (on the column side's radices)
   int g3, fold_f, fold_e, fold_top;
-  int fstride, fold_groups, fold_threads, fold_bytes;
+  int fstride, fold_groups, fold_threads, fold_bytes, fold_fixed;
   Side col, row;        // col: N1-point FFTs of the columns; row: N2-point of the rows
 };
 
@@ -82,10 +88,12 @@ __host__ __device__ constexpr int threads_for(int n, int largest, int batch) {
   return t < 64 ? 64 : t > MAX_THREADS ? MAX_THREADS : t;
 }
 
-// The rule of the sides compiled whole (csrc/dft_staged.cu's Columns and
-// Rows): an FFT-mode side whose radices are all powers of two, in two
-// passes or more (a side of one pass keeps no buffer between passes, and
-// compiled whole it read slower than the generic kernel: PERF.md)
+// The rule of the sides compiled whole (csrc/dft_staged.cu's Columns, Rows
+// and Folds): a side whose radices are all powers of two, in two passes or
+// more (a side of one pass keeps no buffer between passes, and compiled
+// whole it read slower than the generic kernel: PERF.md); in the chirp
+// mode the column side alone (its kernels 1 and 3), its kernel 2 running
+// two FFTs of its rows on the generic kernel
 __host__ __device__ constexpr bool powers_of_two(const Side& side) {
   for (int p = 0; p < side.n_passes; ++p)
     if (side.radix[p] & (side.radix[p] - 1)) return false;
@@ -109,26 +117,35 @@ __host__ __device__ constexpr int twiddle_split(int n) {
   return s;
 }
 
-// Whether each side of an FFT-mode plan runs a kernel compiled whole, and
-// its kernels' shared memory: a CTA's buffers of `batch` FFTs at an odd
-// stride, two, or one where its side is compiled whole (the passes run in
-// place), and there, in kernel 1, the twiddle tables before them
-__host__ __device__ constexpr void set_fixed(Plan* plan, bool col_fixed, bool row_fixed) {
+// Whether each side of a plan runs a kernel compiled whole, and its
+// kernels' shared memory: a CTA's buffers of `batch` FFTs at an odd stride,
+// two, or one where its side is compiled whole (the passes run in place),
+// and there, in kernel 1, the twiddle tables before them; in the chirp
+// mode kernel 2's tables after its buffers where they fit (row_tab_bytes)
+// and kernel 3's buffers (fold_fixed: one)
+__host__ __device__ constexpr void set_fixed(Plan* plan, bool col_fixed, bool row_fixed,
+                                             bool fold_fixed = false) {
   plan->col_fixed = col_fixed;
   plan->row_fixed = row_fixed;
+  plan->fold_fixed = fold_fixed;
   plan->col_bytes = (col_fixed ? plan->tab_bytes : 0) +
                     (col_fixed ? 1 : 2) * plan->n1 * plan->cstride * 8;
-  plan->row_bytes = (row_fixed ? 1 : 2) * plan->n2 * plan->rstride * 8;
+  const int rows = (row_fixed ? 1 : 2) * plan->n2 * plan->rstride * 8;
+  plan->row_tab_bytes =
+      plan->chirp_n != 0 && rows + plan->tab_bytes <= CARD_CTA_BYTES ? plan->tab_bytes : 0;
+  plan->row_bytes = rows + plan->row_tab_bytes;
+  plan->fold_bytes = (fold_fixed ? 1 : 2) * plan->n1 * plan->fstride * 8;
 }
 
 // [N1, N2, G1, G2, len1, len2, P1, radices of N1, P2, radices of N2] and,
 // in the chirp mode, [G3, f] -> Plan of an FFT of N1 * N2 points: n_fft
 // itself, or in the chirp mode an M from 2 n_fft - 1 to MAX_N whose kernel 3
 // takes G3 column pairs a CTA about the centre f, e = (n_fft - 2 f) mod N2
-// being 0 or 1. Nonzero when it is not such a plan. In the FFT mode the
-// sides whose radices are all powers of two, and extra_row's, are taken as
-// compiled whole (set_fixed), which the kernels' host code undoes for a
-// side its tables lack (a split or batch of the tools').
+// being 0 or 1. Nonzero when it is not such a plan. The sides whose
+// radices are all powers of two (in the chirp mode the column side, for its
+// kernels 1 and 3), and extra_row's, are taken as compiled whole
+// (set_fixed), which the kernels' host code undoes for a side its tables
+// lack (a split or batch of the tools').
 __host__ __device__ constexpr int make_plan(const int* packed, int n_fft, bool chirp, Plan* plan) {
   const int n1 = packed[0], n2 = packed[1], g1 = packed[2], g2 = packed[3];
   const int len1 = packed[4], len2 = packed[5], P1 = packed[6];
@@ -153,15 +170,15 @@ __host__ __device__ constexpr int make_plan(const int* packed, int n_fft, bool c
   plan->col_threads = threads_for(n1, largest_radix(plan->col), g1);
   plan->row_threads = threads_for(n2, largest_radix(plan->row), 2 * g2);
   const int split = 1 << twiddle_split(plan->n);
-  plan->tw_log2 = chirp ? 0 : twiddle_split(plan->n);
-  plan->tab_off = chirp ? 0 : (plan->tw_len + 1) & ~1;
-  plan->tab_bytes = chirp ? 0 : (split + (plan->n + split - 1) / split) * 16;
+  plan->tw_log2 = twiddle_split(plan->n);
+  plan->tab_off = (plan->tw_len + 1) & ~1;
+  plan->tab_bytes = (split + (plan->n + split - 1) / split) * 16;
   if (2 * n1 * plan->cstride * 8 > MAX_CTA_BYTES || 2 * n2 * plan->rstride * 8 > MAX_CTA_BYTES)
     return 1;
-  set_fixed(plan, !chirp && powers_of_two(plan->col),
-            !chirp && (powers_of_two(plan->row) || extra_row(plan->row, g2)));
   plan->g3 = plan->fold_f = plan->fold_e = plan->fold_top = 0;
-  plan->fstride = plan->fold_groups = plan->fold_threads = plan->fold_bytes = 0;
+  plan->fstride = plan->fold_groups = plan->fold_threads = 0;
+  set_fixed(plan, powers_of_two(plan->col),
+            !chirp && (powers_of_two(plan->row) || extra_row(plan->row, g2)));
   if (!chirp) return 0;
   const int* fold = packed + 8 + P1 + packed[7 + P1];
   const int g3 = fold[0], f = fold[1], e = ((n_fft - 2 * f) % n2 + n2) % n2;
@@ -173,6 +190,6 @@ __host__ __device__ constexpr int make_plan(const int* packed, int n_fft, bool c
   plan->fstride = (2 * g3) | 1;
   plan->fold_groups = (plan->fold_top - e + g3) / g3;
   plan->fold_threads = threads_for(n1, largest_radix(plan->col), 2 * g3);
-  plan->fold_bytes = 2 * n1 * plan->fstride * 8;
-  return plan->fold_bytes > MAX_CTA_BYTES;
+  set_fixed(plan, plan->col_fixed, false, plan->col_fixed);
+  return 2 * n1 * plan->fstride * 8 > MAX_CTA_BYTES;
 }

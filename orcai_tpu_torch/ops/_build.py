@@ -27,7 +27,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("dft_magnitude", "dft_mixed", "dft_cluster", "dft_staged", "dft_gemm", "digit_hist")
+KERNELS = ("dft_magnitude", "dft_mixed", "dft_cluster", "dft_staged", "dft_point", "dft_gemm",
+           "digit_hist")
 # the builds of a source, (the largest odd radix it takes, sample type: 0
 # float32, 1 int16, 2 uint8, or None where the source takes it at run time;
 # ops/dft.py::_build_variant picks the build of a plan): one nvcc would

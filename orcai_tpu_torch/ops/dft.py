@@ -58,10 +58,15 @@ n_fft alone (`dft_route`), and runs the plain PyTorch version,
   STAGED_M_MAX (40962, 49154; three kernels a chunk, the last one on the
   column pairs of `staged_mirror_groups`). `_staged_reference` and
   `_chirp_staged_reference` are their arithmetic step by step;
-- "gemm", csrc/dft_gemm.cu, at n_fft 1 (one product a frame): the
-  reference's own algorithm, a tiled IEEE fp32 GEMM of the frames, read
-  straight from the audio, with the window-folded cos/sin matrices
-  (`windowed_dft_mats`).
+- "point", csrc/dft_point.cu, at n_fft 1 (hop 1): each frame's one bin
+  |w[0] s(x[t])|, one grid-stride pass of 16-byte loads and stores,
+  bit-equal to the plain version (`_point_reference` is its arithmetic).
+
+csrc/dft_gemm.cu, the reference's own algorithm (a tiled IEEE fp32 GEMM of
+the frames, read straight from the audio, with the window-folded cos/sin
+matrices of `windowed_dft_mats`), is reached by no route: it took n_fft 1
+until the point kernel did, and stays as a yardstick that tools call
+directly ("gemm" in ROUTES, for a caller that routes a size to it).
 
 Above STAGED_MAX no route runs: the GEMM's 4 N (N/2 + 1) bytes of tables
 (2.2 TB at 2^20 + 2) fit on no card, and `dft_route` raises.
@@ -105,7 +110,7 @@ STAGED_BATCH = 16  # the most columns, or row pairs, one staged CTA transforms
 STAGED_CTA_BYTES = 96 * 1024  # a staged CTA's two buffers, so that two CTAs share an SM
 STAGED_CTA_MAX_BYTES = 200 * 1024  # ... and the most they take, for a batch of one
 STAGED_CHUNK_BYTES = 512 << 20  # a chunk's scratch: fewer, larger launches beat L2 (PERF.md)
-ROUTES = ("fft", "mixed", "cluster", "chirp", "staged", "gemm")
+ROUTES = ("fft", "mixed", "cluster", "chirp", "staged", "point", "gemm")
 _DTYPE_CODES = {torch.float32: 0, torch.int16: 1, torch.uint8: 2}  # the kernels' dtype
 _RADIX = 8
 _SQRT_HALF = float(np.float32(np.sqrt(0.5)))
@@ -206,6 +211,15 @@ def dft_magnitude_plain(
     re = frames @ C
     im = frames @ S
     return torch.sqrt(re * re + im * im)
+
+
+def _point_reference(padded: torch.Tensor, window: np.ndarray) -> torch.Tensor:
+    """csrc/dft_point.cu's arithmetic at n_fft 1 (hop 1): re = s w[0] with
+    w[0] rounded to float32, then sqrt(re * re), (T, 1) float32; the bits of
+    dft_magnitude_plain, whose im = s S[0, 0] is +-0."""
+    w = float(np.float32(_check_window(window, 1)[0]))
+    re = _to_f32(padded) * w
+    return torch.sqrt(re * re).reshape(-1, 1)
 
 
 def _fft4(re: list, im: list) -> tuple[list, list]:
@@ -652,21 +666,17 @@ def four_step_roots(n1: int, n2: int) -> np.ndarray:
     return table
 
 
-def _four_step_twiddles(split: tuple[int, int], product: bool,
-                        device: torch.device) -> torch.Tensor:
+def _four_step_twiddles(split: tuple[int, int], device: torch.device) -> torch.Tensor:
     """The four-step twiddles W_N^(k1 j) at [k1, j], (n1, n2, 2) float32 on
-    `device`: four_step_roots, or with `product` csrc/dft_cluster.cu's
-    (product_twiddles: the same bits at all but a few)."""
+    `device`, as csrc/dft_cluster.cu and csrc/dft_staged.cu form them
+    (product_twiddles: four_step_roots' bits at all but a few)."""
     n1, n2 = split
-    if product:
-        t = product_twiddles(n1 * n2, np.arange(n1)[:, None] * np.arange(n2)[None, :])
-    else:
-        t = four_step_roots(n1, n2).reshape(n1, n2, 2)
+    t = product_twiddles(n1 * n2, np.arange(n1)[:, None] * np.arange(n2)[None, :])
     return torch.from_numpy(t.copy()).to(device)
 
 
-def _cluster_fft(zr: torch.Tensor, zi: torch.Tensor, split: tuple[int, int],
-                 product: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+def _cluster_fft(zr: torch.Tensor, zi: torch.Tensor, split: tuple[int, int]
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The complex FFT of each row of zr + i zi (N = n1 * n2 points, natural
     order in and out) as csrc/dft_cluster.cu's four steps: for each column
     j < n2 the n1-point FFT of z[n2 n1' + j] over n1' (`_stockham`,
@@ -676,7 +686,7 @@ def _cluster_fft(zr: torch.Tensor, zi: torch.Tensor, split: tuple[int, int],
     n1, n2 = split
     p = zr.shape[0]
     tw1, tw2 = (torch.from_numpy(roots_of_unity(n).copy()).to(zr.device) for n in (n1, n2))
-    t = _four_step_twiddles(split, product, zr.device)
+    t = _four_step_twiddles(split, zr.device)
     cols = [v.reshape(p, n1, n2).transpose(1, 2).reshape(-1, n1) for v in (zr, zi)]
     yr, yi = (v.reshape(p, n2, n1).transpose(1, 2) for v in _stockham(*cols, fft_plan(n1), tw1))
     vr = yr * t[..., 0] - yi * t[..., 1]
@@ -685,8 +695,8 @@ def _cluster_fft(zr: torch.Tensor, zi: torch.Tensor, split: tuple[int, int],
     return tuple(v.reshape(p, n1, n2).transpose(1, 2).reshape(p, -1) for v in (zr, zi))
 
 
-def _cluster_fft_rows_first(vr: torch.Tensor, vi: torch.Tensor, split: tuple[int, int],
-                            product: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+def _cluster_fft_rows_first(vr: torch.Tensor, vi: torch.Tensor, split: tuple[int, int]
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """The chirp mode's second FFT on the cluster layout, natural order in
     and out, in the order its input lies after the first (v[k1 + n1 k2] on
     the CTA that owns row k1): for each k1 the n2-point FFT over k2
@@ -696,50 +706,48 @@ def _cluster_fft_rows_first(vr: torch.Tensor, vi: torch.Tensor, split: tuple[int
     p = vr.shape[0]
     tw1 = torch.from_numpy(roots_of_unity(n1).copy()).to(vr.device)
     cols = [v.transpose(1, 2).reshape(-1, n1)
-            for v in _rows_and_twiddles(vr, vi, split, product)]
+            for v in _rows_and_twiddles(vr, vi, split)]
     return tuple(v.reshape(p, n2, n1).transpose(1, 2).reshape(p, -1)
                  for v in _stockham(*cols, fft_plan(n1), tw1))
 
 
-def _rows_and_twiddles(vr: torch.Tensor, vi: torch.Tensor, split: tuple[int, int],
-                       product: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+def _rows_and_twiddles(vr: torch.Tensor, vi: torch.Tensor, split: tuple[int, int]
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """The first half of `_cluster_fft_rows_first`: for each k1 the
     n2-point FFT over k2, times the twiddles [k1, p2] (`_four_step_twiddles`);
     (pairs, n1, n2) tensors H[k1, p2]."""
     n1, n2 = split
     p = vr.shape[0]
     tw2 = torch.from_numpy(roots_of_unity(n2).copy()).to(vr.device)
-    t = _four_step_twiddles(split, product, vr.device)
+    t = _four_step_twiddles(split, vr.device)
     rows = [v.reshape(p, n2, n1).transpose(1, 2).reshape(-1, n2) for v in (vr, vi)]
     gr, gi = (v.reshape(p, n1, n2) for v in _stockham(*rows, fft_plan(n2), tw2))
     return gr * t[..., 0] - gi * t[..., 1], gr * t[..., 1] + gi * t[..., 0]
 
 
 def _four_step_reference(padded: torch.Tensor, window: np.ndarray, n_fft: int, hop: int,
-                         split: tuple[int, int], product: bool = False) -> torch.Tensor:
+                         split: tuple[int, int]) -> torch.Tensor:
     """Frames t and t+1 (t even) as one complex signal z = w*x_t + i*w*x_t+1,
     its n_fft-point FFT by the four steps of `_cluster_fft` on `split` (its
-    twiddles the product ones with `product`), then the untangle and the
-    magnitudes."""
+    twiddles the product ones), then the untangle and the magnitudes."""
     if split[0] * split[1] != n_fft:
         raise ValueError(f"split {split} is not of n_fft {n_fft}")
     tpad = _frames_count(padded.shape[0], n_fft, hop)
     win = torch.from_numpy(fft_tables(_check_window(window, n_fft))[0].copy()).to(padded.device)
     xa, xb = _pair_frames(padded, n_fft, hop)
-    zr, zi = _cluster_fft(xa * win, xb * win, split, product)
+    zr, zi = _cluster_fft(xa * win, xb * win, split)
     return _untangle(zr, zi, n_fft, tpad)
 
 
 def _chirp_four_step_reference(padded: torch.Tensor, window: np.ndarray, n_fft: int, hop: int,
-                               m: int, split: tuple[int, int],
-                               product: bool = False) -> torch.Tensor:
+                               m: int, split: tuple[int, int]) -> torch.Tensor:
     """`_chirp_reference` with its two M-point FFTs as four steps on
     `split`: the first by `_cluster_fft`, the product with B and the
     conjugate where its output lies, the second rows first
     (`_cluster_fft_rows_first`); then Z[k] = a[k] conj u[k], the untangle
     and the magnitudes."""
-    vr, vi, a = _chirp_first_fft(padded, window, n_fft, hop, m, split, product)
-    ur, ui = _cluster_fft_rows_first(vr, vi, split, product)
+    vr, vi, a = _chirp_first_fft(padded, window, n_fft, hop, m, split)
+    ur, ui = _cluster_fft_rows_first(vr, vi, split)
     ur, ui = ur[:, :n_fft], ui[:, :n_fft]
     zr = a[:, 0] * ur + a[:, 1] * ui
     zi = a[:, 1] * ur - a[:, 0] * ui
@@ -747,7 +755,7 @@ def _chirp_four_step_reference(padded: torch.Tensor, window: np.ndarray, n_fft: 
 
 
 def _chirp_first_fft(padded: torch.Tensor, window: np.ndarray, n_fft: int, hop: int, m: int,
-                     split: tuple[int, int], product: bool = False
+                     split: tuple[int, int]
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The chirp mode on `split` up to its second FFT: z = wa (x_t + i
     x_t+1) zero-padded to M, its FFT by `_cluster_fft`, the product with B
@@ -761,7 +769,7 @@ def _chirp_first_fft(padded: torch.Tensor, window: np.ndarray, n_fft: int, hop: 
     zi = torch.zeros(xa.shape[0], m, device=padded.device)
     zr[:, :n_fft] = wa[:, 0] * xa - wa[:, 1] * xb
     zi[:, :n_fft] = wa[:, 0] * xb + wa[:, 1] * xa
-    yr, yi = _cluster_fft(zr, zi, split, product)
+    yr, yi = _cluster_fft(zr, zi, split)
     return yr * bq[:, 0] - yi * bq[:, 1], -(yr * bq[:, 1] + yi * bq[:, 0]), a
 
 
@@ -776,8 +784,7 @@ def _fft_cluster_reference(
     The kernel's rank count changes where each value lies, not the
     arithmetic.
     """
-    return _four_step_reference(padded, window, n_fft, hop, split or cluster_plan(n_fft)[:2],
-                                product=True)
+    return _four_step_reference(padded, window, n_fft, hop, split or cluster_plan(n_fft)[:2])
 
 
 def _chirp_cluster_reference(
@@ -792,8 +799,7 @@ def _chirp_cluster_reference(
     its twiddles are the kernel's product ones.
     """
     m = m or chirp_length(n_fft)
-    return _chirp_four_step_reference(padded, window, n_fft, hop, m, split or cluster_plan(m)[:2],
-                                      product=True)
+    return _chirp_four_step_reference(padded, window, n_fft, hop, m, split or cluster_plan(m)[:2])
 
 
 def _divisors(n: int) -> list[int]:
@@ -890,15 +896,20 @@ def staged_mode(n_fft: int) -> str:
 STAGED_EXTRA_ROWS = (((16, 8, 3), 4),)
 
 
-def staged_sides_compiled(n: int, split: tuple[int, int] | None = None) -> tuple[bool, bool]:
-    """Whether csrc/dft_staged.cu's FFT mode runs the column side (N1) and
-    the row side (N2) of staged_plan(n, split) on a kernel compiled whole:
-    where the side's radices (fft_plan) are all powers of two, in two
+def staged_sides_compiled(n: int, split: tuple[int, int] | None = None,
+                          chirp: bool = False) -> tuple[bool, bool]:
+    """Whether csrc/dft_staged.cu runs the column side (N1) and the row side
+    (N2) of staged_plan(n, split) on a kernel compiled whole: in the FFT
+    mode where the side's radices (fft_plan) are all powers of two, in two
     passes or more (dft_staged_plan.cuh::powers_of_two), or the row side
-    with its G2 is one of STAGED_EXTRA_ROWS."""
+    with its G2 is one of STAGED_EXTRA_ROWS; with `chirp` (the chirp mode on
+    a length n) the column side by the same rule, for its kernels 1 and 3,
+    and never the rows, whose kernel runs two FFTs."""
     n1, n2, _, g2 = staged_plan(n, split)
     pow2 = [len(fft_plan(side)) >= 2 and all(r & (r - 1) == 0 for r in fft_plan(side))
             for side in (n1, n2)]
+    if chirp:
+        return pow2[0], False
     return pow2[0], pow2[1] or (fft_plan(n2), g2) in STAGED_EXTRA_ROWS
 
 
@@ -921,8 +932,7 @@ def _staged_reference(
     compiled whole change where each value lies and when, not the
     arithmetic.
     """
-    return _four_step_reference(padded, window, n_fft, hop, split or staged_plan(n_fft)[:2],
-                                product=True)
+    return _four_step_reference(padded, window, n_fft, hop, split or staged_plan(n_fft)[:2])
 
 
 def _chirp_staged_reference(
@@ -935,7 +945,8 @@ def _chirp_staged_reference(
     kernel 1 the first FFT's columns, kernel 2 its rows, the product with B
     and the second FFT's rows with W_M^(k1 p2), kernel 3 its columns, Z[k] =
     a[k] conj u[k] and the untangle (`_chirp_staged_fold_reference` walks
-    kernel 3's column groups as the kernel does).
+    kernel 3's column groups as the kernel does); both FFTs' twiddles are
+    the kernels' product_twiddles.
     """
     m = m or chirp_length(n_fft)
     return _chirp_four_step_reference(padded, window, n_fft, hop, m, split or staged_plan(m)[:2])
@@ -1185,23 +1196,15 @@ def _cluster_plan_array(n: int):
 
 
 @lru_cache(maxsize=None)
-def staged_tables(n: int, split: tuple[int, int] | None = None,
-                  product: bool = False) -> np.ndarray:
+def staged_tables(n: int, split: tuple[int, int] | None = None) -> np.ndarray:
     """csrc/dft_staged.cu's roots for an n-point FFT split as staged_plan(n,
-    split): pass_roots of fft_plan(N1) and of fft_plan(N2), read from device
-    memory through L1, then the four-step twiddles: in the chirp mode
-    four_step_roots(N1, N2), (len1 + len2 + n, 2) float32, read the same
-    way; with `product` (the FFT mode) a zero row where len1 + len2 is odd,
-    then the two float64 tables of twiddle_tables(n) as cluster_tables lays
-    them out, which kernel 1 copies to shared memory (its twiddles are
-    product_twiddles). Read-only."""
-    n1, n2, _, _ = staged_plan(n, split)
-    if product:
-        return cluster_tables(n, (n1, n2))
-    table = np.concatenate([pass_roots(n1, fft_plan(n1)), pass_roots(n2, fft_plan(n2)),
-                            four_step_roots(n1, n2)])
-    table.setflags(write=False)
-    return table
+    split), in either mode: pass_roots of fft_plan(N1) and of fft_plan(N2),
+    read from device memory through L1, a zero row where their count is
+    odd, then the two float64 tables of twiddle_tables(n) as cluster_tables
+    lays them out, whose products are the four-step twiddles
+    (product_twiddles; a compiled kernel 1, and the chirp mode's kernel 2
+    where they fit, copy them to shared memory). Read-only."""
+    return cluster_tables(n, staged_plan(n, split)[:2])
 
 
 @lru_cache(maxsize=None)
@@ -1252,7 +1255,7 @@ def _route_tables(route: str, window_bytes: bytes, device: torch.device):
     elif route == "cluster":
         arrays = (_tables_cached(window_bytes)[0], cluster_tables(n_fft))
     elif route == "staged" and staged_mode(n_fft) == "fft":
-        arrays = (_tables_cached(window_bytes)[0], staged_tables(n_fft, product=True))
+        arrays = (_tables_cached(window_bytes)[0], staged_tables(n_fft))
     elif route == "staged":
         m = chirp_length(n_fft)
         arrays = (_chirp_cached(window_bytes, m), staged_tables(m))
@@ -1298,11 +1301,14 @@ def _kernel(kernel: str, variant: tuple[int, int | None] | None = None):
     from _plan_array or _cluster_plan_array. "staged" (csrc/dft_staged.cu)
     the same with, after the plan (_staged_plan_array), its scratch and the
     frame pairs of a chunk, and last a pointer to the count of kernels it
-    launched: (..., plan, scratch, chunk_pairs, out, ..., stream, launched)."""
+    launched: (..., plan, scratch, chunk_pairs, out, ..., stream, launched).
+    "point" (csrc/dft_point.cu): (audio, dtype, w[0] as float32, out,
+    n_frames, stream)."""
     lib, name = {"fft": ("dft_magnitude", "orcai_dft_magnitude"),
                  "mixed": ("dft_mixed", "orcai_dft_mixed"),
                  "cluster": ("dft_cluster", "orcai_dft_cluster"),
                  "staged": ("dft_staged", "orcai_dft_staged"),
+                 "point": ("dft_point", "orcai_dft_point"),
                  "gemm": ("dft_gemm", "orcai_dft_gemm")}[kernel]
     return _bind(kernel, getattr(_build.load(lib, variant), name))
 
@@ -1311,6 +1317,10 @@ def _bind(kernel: str, fn):
     """fn, the C entry point of `kernel` (_kernel), with its argument and
     return types set."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    if kernel == "point":
+        fn.argtypes = [ptr, i32, ctypes.c_float, ptr, ctypes.c_longlong, ptr]
+        fn.restype = i32
+        return fn
     chirp = [ptr, ctypes.POINTER(ctypes.c_int)] if kernel in ("mixed", "cluster", "staged") else []
     scratch = [ptr, i32] if kernel == "staged" else []
     launched = [ctypes.POINTER(i32)] if kernel == "staged" else []
@@ -1329,7 +1339,7 @@ def dft_route(n_fft: int) -> str:
     above 31 (16418 and 24578 on the cluster layout); "staged" for any other
     n_fft from MIXED_MAX + 1 to STAGED_MAX (2^20; staged_mode: 14848 = 2^9
     * 29, 98304 and 131072 in its FFT mode, 40962 in its chirp mode);
-    "gemm" for n_fft 1. Raises above STAGED_MAX, where the GEMM's tables
+    "point" for n_fft 1. Raises above STAGED_MAX, where the GEMM's tables
     (4 N (N/2 + 1) bytes) would be all that is left and no card holds
     them."""
     if n_fft in FFT_SIZES:
@@ -1344,7 +1354,7 @@ def dft_route(n_fft: int) -> str:
         raise ValueError(f"n_fft {n_fft}: above {STAGED_MAX} only the GEMM route is left, whose "
                          f"tables take {4 * n_fft * (n_fft // 2 + 1) / 1e12:.1f} TB; no card "
                          "holds them")
-    return "staged" if MIXED_MAX < n_fft else "gemm"
+    return "staged" if MIXED_MAX < n_fft else "point"
 
 
 def active_clusters(n_fft: int, dtype: torch.dtype = torch.int16) -> int:
@@ -1482,7 +1492,7 @@ def _launch_staged(padded: torch.Tensor, window: np.ndarray, out: torch.Tensor, 
     else:
         table = torch.from_numpy(
             (chirp_tables(window, n) if chirp else fft_tables(window)[0]).copy()).to(padded.device)
-        roots = torch.from_numpy(staged_tables(n, split, not chirp).copy()).to(padded.device)
+        roots = torch.from_numpy(staged_tables(n, split).copy()).to(padded.device)
     pairs = max(1, min(chunk_pairs or staged_chunk_pairs(n), (tpad + 1) // 2))
     scratch = torch.empty(pairs * n * 2, dtype=torch.float32, device=padded.device)
     tables = ((None, roots.data_ptr(), table.data_ptr()) if chirp
@@ -1529,7 +1539,12 @@ def dft_magnitude(
     if padded.device.type != "cuda":
         raise ValueError(f"dft_magnitude: unsupported device {padded.device}")
     out = torch.empty((tpad, n_fft // 2 + 1), dtype=torch.float32, device=padded.device)
-    if route == "staged":
+    if route == "point":
+        with torch.cuda.device(padded.device):
+            err = _kernel("point")(padded.data_ptr(), _DTYPE_CODES[padded.dtype],
+                                   float(np.float32(window[0])), out.data_ptr(), tpad,
+                                   torch.cuda.current_stream(padded.device).cuda_stream)
+    elif route == "staged":
         err = _launch_staged(padded, window, out, n_fft, hop)
         dft_magnitude.staged_kernels[staged_mode(n_fft)] += _launch_staged.kernels
     else:

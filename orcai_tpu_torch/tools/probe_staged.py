@@ -1,11 +1,14 @@
-"""csrc/dft_staged.cu's FFT mode taken apart on one CUDA device: where its
-time goes between the samples' loads, the passes, the four-step twiddles,
-the scratch's trip between its two kernels and the magnitudes' stores.
+"""csrc/dft_staged.cu taken apart on one CUDA device, in either mode: where
+its time goes between the samples' loads, the passes, the four-step
+twiddles, the scratch's trips between its kernels and the magnitudes'
+stores.
 
     python -m orcai_tpu_torch.tools.probe_staged [--sizes 131072/65536/2048,...]
         [--dtypes int16,uint8,f32] [--iters 10] [--seed 0]
 
-A size is n_fft/hop/frames on the staged route's FFT mode. Copies of the
+A size is n_fft/hop/frames on the staged route: the FFT mode's two kernels
+(the default sizes) or the chirp mode's three (40962/20481/2048,
+49154/24577/301). Copies of the
 source (`probe_sources`) are compiled into _build/probe_staged/<probe>/,
 each with its own copies of the headers it edits, for each build a size
 needs (ops/dft.py::_build_variant):
@@ -13,20 +16,27 @@ needs (ops/dft.py::_build_variant):
 - no_passes: the loads, the twiddles and the stores, the butterflies and
   every pass after the first left out (a side compiled whole hands its
   first pass's outputs to its last step);
-- no_twiddles: kernel 1's four-step twiddles a constant made from an index
-  (no table read or product; the multiply they feed stays);
-- no_sample_loads: kernel 1's samples and window constants (made from an
-  index, or zeros where they are staged);
-- no_scratch_stores: kernel 1's products computed and kept live, none
-  stored to the scratch;
-- no_row_loads: kernel 2's rows constants made from an index, none read
-  from the scratch;
-- no_magnitude_stores: kernel 2's magnitudes computed and kept live, none
-  stored.
+- no_twiddles: the four-step twiddles (kernel 1's, and in the chirp mode
+  kernel 2's) a constant made from an index (no table read or product;
+  the multiply they feed stays);
+- no_sample_loads: kernel 1's samples and window (in the chirp mode w a)
+  constants (made from an index, or zeros where they are staged);
+- no_scratch_stores: kernel 1's products (in the chirp mode kernel 2's
+  too) computed and kept live, none stored to the scratch;
+- no_row_loads: the scratch's reads (kernel 2's rows, and in the chirp
+  mode kernel 3's columns) constants made from an index;
+- no_magnitude_stores: the last kernel's magnitudes computed and kept
+  live, none stored;
+- no_zero_rows: every first pass (generic or compiled whole) reads only
+  the first half of each butterfly's inputs, the rest zeros the compiler
+  folds: in the chirp mode's kernel 1 at 40962 and 49154 exactly the rows
+  at and above n_fft / N2, which hold zeros (read that kernel's time
+  alone: the edit reaches the other kernels' first passes too).
 The edits of a probe are made where its text is (EDITS); a text the
 source no longer holds stops the tool. For each size and sample type the
 tool holds the kernel against the step-by-step reference (ops/dft.py::
-_staged_reference) on the first frames, then times every copy with CUDA
+_staged_reference, or _chirp_staged_reference) on the first frames, then
+times every copy with CUDA
 events over --iters calls behind a short device spin, and traces --iters
 calls of each under torch.profiler for each kernel's device time a call
 and its share. It prints one JSON line a size and type: each copy's ms and
@@ -48,7 +58,7 @@ from orcai_tpu_torch.ops import _build
 
 DEFAULT_SIZES = "131072/65536/2048,98304/49152/2048"
 PROBES = ("kernel", "no_passes", "no_twiddles", "no_sample_loads", "no_scratch_stores",
-          "no_row_loads", "no_magnitude_stores")
+          "no_row_loads", "no_magnitude_stores", "no_zero_rows")
 HBM_BYTES_PER_S = 3.35e12
 SPIN_CYCLES = 8_000_000  # about 4 ms of device spin ahead of the first event
 REFERENCE_FRAMES = 33
@@ -83,8 +93,9 @@ EDITS = {
     },
     "no_twiddles": {
         "dft_staged.cu": (
-            ("twiddle(lo, hi, tw_log2, k1 * j)", CONST.format("k1 * j"), 1),
-            ("twiddle(lo, hi, tw_log2, w.o * j)", CONST.format("w.o * j"), 1),
+            ("twiddle(lo, hi, tw_log2, k1 * j)", CONST.format("k1 * j"), 2),
+            ("twiddle(lo, hi, tw_log2, w.o * j)", CONST.format("w.o * j"), 2),
+            ("twiddle(lo, hi, tw_log2, k1 * w.i)", CONST.format("k1 * w.i"), 1),
         ),
     },
     "no_sample_loads": {
@@ -97,28 +108,32 @@ EDITS = {
         "dft_staged.cu": (
             ("        v[k] = *reinterpret_cast<const V*>(src + at(row) + (i % PER_ROW) * VEC);",
              "        v[k] = V{};", 1),
-            ("          v[k] = row >= 2 * N1 ? window[(row - 2 * N1) * n2 + c0 + b]\n"
-             "                 : row < rows  ? static_cast<float>(xa[(row / N1) * hop + "
-             "(row % N1) * n2 + c0 + b])\n"
-             "                               : 0.0f;",
-             "          v[k] = 0.0f;", 1),
+            ("        if (BYTES * q < bytes) a[k] = word[0];\n"
+             "        if (lead[k] != 0 && BYTES * (q + 1) < bytes) b[k] = word[1];\n", "", 1),
+            ("    return chirp_input(wa[n], sample_to_f32(xa[n]), has_b ? sample_to_f32(xb[n]) : "
+             "0.0f);", f"    return {CONST.format('n')};", 1),
         ),
     },
     "no_scratch_stores": {
         "dft_staged.cu": (
             ("s[k1 * n2 + j] = twiddled(v, twiddle(lo, hi, tw_log2, k1 * j));",
              "const float2 u = twiddled(v, twiddle(lo, hi, tw_log2, k1 * j));\n"
-             + LIVE.format(v="u", store="s[k1 * n2 + j] = u"), 1),
+             + LIVE.format(v="u", store="s[k1 * n2 + j] = u"), 2),
             ("s[w.o * n2 + j] = twiddled(y[w.o * plan.cstride + w.i], twiddle(lo, hi, tw_log2, "
              "w.o * j));",
              "const float2 u = twiddled(y[w.o * plan.cstride + w.i], twiddle(lo, hi, tw_log2, "
-             "w.o * j));\n" + LIVE.format(v="u", store="s[w.o * n2 + j] = u"), 1),
+             "w.o * j));\n" + LIVE.format(v="u", store="s[w.o * n2 + j] = u"), 2),
+            ("s[k1 * n2 + w.i] = twiddled(g[w.i * stride + w.o], twiddle(lo, hi, tw_log2, k1 * w.i));",
+             "const float2 u = twiddled(g[w.i * stride + w.o], twiddle(lo, hi, tw_log2, k1 * w.i));\n"
+             + LIVE.format(v="u", store="s[k1 * n2 + w.i] = u"), 1),
         ),
     },
     "no_row_loads": {
         "dft_staged.cu": (
             ("if (f < items) v[i] = s[rows_k1[f / n2] * n2 + f % n2];",
              f"if (f < items) v[i] = {CONST.format('f')};", 1),
+            ("return b < ncols ? s[e * n2 + cols[b]] : make_float2(0.0f, 0.0f);",
+             f"return {CONST.format('e * n2 + b')};", 1),
         ),
     },
     "no_magnitude_stores": {
@@ -128,6 +143,17 @@ EDITS = {
              "  const float ma = 0.5f * sqrtf(pr * pr + pi * pi);\n"
              "  const float mb = 0.5f * sqrtf(qr * qr + qi * qi);\n"
              "  if (__float_as_uint(ma) == 0xFFFFFFFFu && has_b) row_a[k] = mb;  // live\n", 1),
+        ),
+    },
+    "no_zero_rows": {
+        "dft_batched.cuh": (
+            ("      const float2 v = load(j + r * nb, b);",
+             "      const float2 v = r < R / 2 ? load(j + r * nb, b) : make_float2(0.0f, 0.0f);", 1),
+        ),
+        "dft_staged.cu": (
+            ("        const float2 v = load(j + r * NB, b);",
+             "        const float2 v = NS > 1 || r < R / 2 ? load(j + r * NB, b) "
+             ": make_float2(0.0f, 0.0f);", 1),
         ),
     },
 }
@@ -199,12 +225,15 @@ def main(argv=None) -> int:
     sizes = []
     for s in args.sizes.split(","):
         n_fft, hop, frames = (int(v) for v in s.split("/"))
-        if dft.dft_route(n_fft) != "staged" or dft.staged_mode(n_fft) != "fft":
-            raise SystemExit(f"probe_staged: n_fft {n_fft} does not take the staged FFT mode")
+        if dft.dft_route(n_fft) != "staged":
+            raise SystemExit(f"probe_staged: n_fft {n_fft} does not take the staged route")
         sizes.append((n_fft, hop, frames))
     kinds = args.dtypes.split(",")
     torch_dtype = {"f32": torch.float32, "int16": torch.int16, "uint8": torch.uint8}
-    variants = sorted({dft._build_variant("staged", n, torch_dtype[k])
+    def length(n_fft):  # the FFT's points: n_fft, or the chirp mode's M
+        return n_fft if dft.staged_mode(n_fft) == "fft" else dft.chirp_length(n_fft)
+
+    variants = sorted({dft._build_variant("staged", length(n), torch_dtype[k])
                        for n, _, _ in sizes for k in kinds})
     paths, ptxas = build_probes(variants)
     libs = {key: ctypes.CDLL(str(path)) for key, path in paths.items()}
@@ -248,7 +277,8 @@ def main(argv=None) -> int:
         window = hann_window(n_fft)
         for kind in kinds:
             x = torch.from_numpy(host[kind]).to(dev)
-            variant = dft._build_variant("staged", n_fft, x.dtype)
+            m = length(n_fft)
+            variant = dft._build_variant("staged", m, x.dtype)
             out = torch.empty((frames, n_fft // 2 + 1), dtype=torch.float32, device=dev)
 
             def launch(probe):
@@ -258,13 +288,14 @@ def main(argv=None) -> int:
                     raise SystemExit(f"probe_staged: {n_fft}/{hop} {probe}: CUDA error {err}")
 
             launch("kernel")
-            ref = dft._staged_reference(x[:(REFERENCE_FRAMES - 1) * hop + n_fft], window,
-                                        n_fft=n_fft, hop=hop)
+            reference = (dft._staged_reference if m == n_fft else dft._chirp_staged_reference)
+            ref = reference(x[:(REFERENCE_FRAMES - 1) * hop + n_fft], window, n_fft=n_fft, hop=hop)
             err = float((out[:REFERENCE_FRAMES] - ref).abs().max())
             if not err <= 2e-4:
                 raise SystemExit(f"probe_staged: {n_fft}/{hop} {kind}: {err} from the reference")
             line = {"n_fft": n_fft, "hop": hop, "frames": frames, "dtype": kind,
-                    "plan": list(dft.staged_plan(n_fft)), "max_abs_err_vs_reference": err,
+                    "mode": dft.staged_mode(n_fft), "length": m,
+                    "plan": list(dft.staged_plan(m)), "max_abs_err_vs_reference": err,
                     "bound_ms": (x.numel() * x.element_size() + out.numel() * 4)
                     / HBM_BYTES_PER_S * 1e3,
                     "layout": dft.staged_layout(n_fft, x.dtype, libs[(variant, "kernel")])}
@@ -275,7 +306,7 @@ def main(argv=None) -> int:
                 line[f"{probe}_kernels_ms"] = kernels
                 if probe == "kernel":
                     line["kernel_tb_per_s"] = {
-                        name: pair_bytes(name, n_fft, hop, n_fft, x.element_size()) * pairs
+                        name: pair_bytes(name, n_fft, hop, m, x.element_size()) * pairs
                         / (ms * 1e-3) / 1e12 for name, ms in kernels.items() if ms}
             print(json.dumps(line), flush=True)
             del x, out

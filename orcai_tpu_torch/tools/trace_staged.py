@@ -54,7 +54,7 @@ def pair_bytes(name: str, n_fft: int, hop: int, m: int, sample_bytes: int) -> in
     n_fft - hop), the 2 (n_fft/2 + 1) float32 magnitudes."""
     scratch, bins = 8 * m, 2 * (n_fft // 2 + 1) * 4
     samples = min(2 * n_fft, n_fft + hop) * sample_bytes
-    if name.startswith(("fft_columns_kernel", "columns_kernel")):
+    if name.startswith(("fft_columns_kernel", "chirp_columns_kernel")):
         return samples + scratch  # from the audio into the scratch (the chirp mode's first FFT)
     if name.startswith("fft_rows_kernel"):
         return scratch + bins  # rows to magnitudes (the FFT mode)

@@ -35,6 +35,7 @@ from orcai_tpu_torch.ops.dft import (
     pass_roots,
     product_twiddles,
     staged_layout,
+    staged_fold,
     staged_mode,
     staged_plan,
     staged_sides_compiled,
@@ -121,7 +122,7 @@ def test_staged_product_twiddles_against_four_step_roots(n, differ):
     want = four_step_roots(n1, n2).reshape(n1, n2, 2)
     assert int((got != want).sum()) == differ
     assert np.abs(got - want).max() <= 2.0 ** -24
-    table = staged_tables(n, product=True)
+    table = staged_tables(n)
     np.testing.assert_array_equal(table, cluster_tables(n, (n1, n2)))
     len1, len2 = len(pass_roots(n1, fft_plan(n1))), len(pass_roots(n2, fft_plan(n2)))
     tab_off = (len1 + len2 + 1) & ~1
@@ -150,9 +151,12 @@ int main() {
     const int err = make_plan(packed, n_fft, chirp != 0, &p);
     std::printf("{\"err\": %d, \"col_threads\": %d, \"row_threads\": %d, \"col_bytes\": %d, "
                 "\"row_bytes\": %d, \"col_fixed\": %d, \"row_fixed\": %d, \"tw_log2\": %d, "
-                "\"tab_off\": %d, \"tab_bytes\": %d, \"col_groups\": %d, \"row_groups\": %d}\n",
+                "\"tab_off\": %d, \"tab_bytes\": %d, \"col_groups\": %d, \"row_groups\": %d, "
+                "\"row_tab_bytes\": %d, \"fold_fixed\": %d, \"fold_bytes\": %d, "
+                "\"fold_threads\": %d}\n",
                 err, p.col_threads, p.row_threads, p.col_bytes, p.row_bytes, p.col_fixed,
-                p.row_fixed, p.tw_log2, p.tab_off, p.tab_bytes, p.col_groups, p.row_groups);
+                p.row_fixed, p.tw_log2, p.tab_off, p.tab_bytes, p.col_groups, p.row_groups,
+                p.row_tab_bytes, p.fold_fixed, p.fold_bytes, p.fold_threads);
   }
 }
 """
@@ -185,11 +189,13 @@ def test_staged_plan_header_is_the_host_mirror_over_the_reach(staged_plan_header
     chirp mode's lengths at 40962, 49154 and the top of its reach. Each
     kernel gets whole warps, from 64 to 256 threads and enough for its pass
     of the largest radix; a side compiled whole exactly where
-    staged_sides_compiled says (never in the chirp mode); two buffers of its
+    staged_sides_compiled says (in the chirp mode the column side alone, for
+    kernels 1 and 3: 40962's 256 = 16 x 16 columns); two buffers of its
     batch at an odd stride, or one where compiled (its passes in place) with
     kernel 1's twiddle tables before it (float2 row tab_off of
-    staged_tables; the generic kernel reads them there); every CTA within
-    the card's 227 KB."""
+    staged_tables, in either mode; the generic kernel reads them there), and
+    in the chirp mode after kernel 2's buffers where they fit on the card;
+    every CTA within the card's 227 KB."""
     cases = [(n, 0, list(_staged_plan_array(n))) for n in _fft_mode_sizes()]
     chirp = {n: chirp_length(n) for n in (40962, 49154, 524290, (1 << 20) - 2)}
     cases += [(n, 1, list(_staged_plan_array(m, None, n))) for n, m in chirp.items()]
@@ -197,7 +203,7 @@ def test_staged_plan_header_is_the_host_mirror_over_the_reach(staged_plan_header
         m = chirp[n] if c else n
         n1, n2, g1, g2 = staged_plan(m)
         assert got["err"] == 0, (n, got)
-        fixed = (False, False) if c else staged_sides_compiled(n)
+        fixed = staged_sides_compiled(m, chirp=bool(c))
         assert (got["col_fixed"], got["row_fixed"]) == fixed, (n, got)
         for side, batch, threads in ((n1, g1, got["col_threads"]),
                                      (n2, 2 * g2, got["row_threads"])):
@@ -206,23 +212,33 @@ def test_staged_plan_header_is_the_host_mirror_over_the_reach(staged_plan_header
         tables = got["tab_bytes"]
         assert got["col_bytes"] == (tables + n1 * (g1 | 1) * 8 if fixed[0]
                                     else 2 * n1 * (g1 | 1) * 8), (n, got)
-        assert got["row_bytes"] == (1 if fixed[1] else 2) * n2 * ((2 * g2) | 1) * 8, (n, got)
+        rows = (1 if fixed[1] else 2) * n2 * ((2 * g2) | 1) * 8
+        row_tab = tables if c and rows + tables <= 232448 else 0
+        assert (got["row_bytes"], got["row_tab_bytes"]) == (rows + row_tab, row_tab), (n, got)
         assert max(got["col_bytes"], got["row_bytes"]) <= 232448, (n, got)
         assert (got["col_groups"], got["row_groups"]) == (-(-n2 // g1), -(-(n1 // 2 + 1) // g2))
+        len12 = len(pass_roots(n1, fft_plan(n1))) + len(pass_roots(n2, fft_plan(n2)))
+        s = 1 << twiddle_split(m)
+        assert (got["tw_log2"], got["tab_off"], tables) == (
+            twiddle_split(m), (len12 + 1) & ~1, (s + -(-m // s)) * 16), n
         if c:
-            assert (got["tw_log2"], got["tab_off"], tables) == (0, 0, 0), (n, got)
-        else:
-            len12 = len(pass_roots(n1, fft_plan(n1))) + len(pass_roots(n2, fft_plan(n2)))
-            s = 1 << twiddle_split(n)
-            assert (got["tw_log2"], got["tab_off"], tables) == (
-                twiddle_split(n), (len12 + 1) & ~1, (s + -(-n // s)) * 16), n
+            g3 = staged_fold(n, m)[0]
+            assert got["fold_fixed"] == fixed[0], (n, got)
+            assert got["fold_bytes"] == (1 if fixed[0] else 2) * n1 * ((2 * g3) | 1) * 8, (n, got)
+            assert got["fold_threads"] >= min(256, 2 * g3 * n1 // max(fft_plan(n1))), (n, got)
     a, b = staged_plan_header([(n, 0, list(_staged_plan_array(n))) for n in (131072, 98304)])
     assert (a["col_bytes"], a["row_bytes"], a["col_fixed"], a["row_fixed"]) == (47104, 36864, 1, 1)
     assert (b["col_fixed"], b["row_fixed"], b["row_bytes"]) == (1, 1, 27648)
+    c, d = staged_plan_header([(n, 1, list(_staged_plan_array(chirp[n], None, n)))
+                               for n in (40962, 49154)])
+    assert (c["col_fixed"], c["fold_fixed"], c["row_fixed"]) == (1, 1, 0)
+    assert (c["col_bytes"], c["row_bytes"], c["fold_bytes"]) == (45600, 98640, 34816)
+    assert (d["col_fixed"], d["fold_fixed"], d["row_fixed"]) == (0, 0, 0)
 
 
 @pytest.mark.parametrize("probe", ["kernel", "no_passes", "no_twiddles", "no_sample_loads",
-                                   "no_scratch_stores", "no_row_loads", "no_magnitude_stores"])
+                                   "no_scratch_stores", "no_row_loads", "no_magnitude_stores",
+                                   "no_zero_rows"])
 def test_probe_staged_copies_edit_the_source(probe):
     """tools/probe_staged.py builds its own copies of csrc/dft_staged.cu and
     the headers it edits: each probe's edits find their text as often as

@@ -37,6 +37,7 @@ from orcai_tpu_torch.ops.dft import (
     FFT_SIZES,
     MIXED_MAX,
     MIXED_PRIMES,
+    ROUTES,
     STAGED_BATCH,
     STAGED_CTA_BYTES,
     STAGED_CTA_MAX_BYTES,
@@ -212,12 +213,12 @@ def test_dft_wrapper_names_supported_sizes(n_fft, hop):
     any other up to 40960 with a prime factor above 31 the chirp mode (470,
     8198, 16418, 24578), any other up to 2^20 the staged route (40962, 49154
     in its chirp mode, 14848 = 2^9 * 29, 98304 and 131072 in its FFT mode),
-    1 the GEMM. What no
+    1 the point kernel. What no
     kernel takes raises and names what they take; nothing routes it to the
     plain version."""
     want = {512: "fft", 470: "chirp", 8198: "chirp", 16418: "chirp", 24578: "chirp",
             14848: "staged", 16384: "cluster", 65536: "cluster", 40962: "staged",
-            49154: "staged", 98304: "staged", 131072: "staged", 1: "gemm"}.get(n_fft, "mixed")
+            49154: "staged", 98304: "staged", 131072: "staged", 1: "point"}.get(n_fft, "mixed")
     assert dft_route(n_fft) == want and dft_route(512) == "fft"
     for dtype in (torch.float64, torch.int32, torch.bool):
         x = torch.zeros(3 * hop + n_fft, dtype=dtype, device="meta")
@@ -436,7 +437,7 @@ def test_dft_route_and_fft_plan_cover_the_smooth_sizes():
     for n in (40961, 40962, 2 * CLUSTER_MAX, CLUSTER_MAX + 2, 81921, 98304, 131072, 59392,
               STAGED_MAX, 14848, 15872, 29 * 31 * 16):
         assert dft_route(n) == "staged"
-    assert dft_route(1) == "gemm"
+    assert dft_route(1) == "point"
     for n in (STAGED_MAX + 1, 2 * STAGED_MAX, 3 * STAGED_MAX):
         with pytest.raises(ValueError, match="TB; no card holds them"):
             dft_route(n)
@@ -496,9 +497,10 @@ def test_dft_route_partitions_every_size_to_twice_the_cluster_limit():
     factors and size alone: 512 the FFT; a {2, ..., 31}-smooth n_fft the
     mixed route up to 8192; a {2, ..., 23}-smooth one the cluster layout
     from 8193 to 81920; one with a prime factor above 31 the chirp mode
-    from 2 to 40960; every other n_fft from 8193 the staged route; the GEMM
-    for 1 alone."""
-    counts = dict.fromkeys(("fft", "mixed", "cluster", "chirp", "staged", "gemm"), 0)
+    from 2 to 40960; every other n_fft from 8193 the staged route; the point
+    kernel for 1 alone, and the GEMM for none (ROUTES names it for a caller
+    that asks for it)."""
+    counts = dict.fromkeys(ROUTES, 0)
     for n in range(1, 2 * CLUSTER_MAX + 1):
         route = dft_route(n)
         if n == 512:
@@ -512,11 +514,12 @@ def test_dft_route_partitions_every_size_to_twice_the_cluster_limit():
         elif n > MIXED_MAX:
             want = "staged"
         else:
-            want = "gemm"
+            want = "point"
         assert route == want, (n, route, want)
         counts[route] += 1
     assert sum(counts.values()) == 2 * CLUSTER_MAX and counts["fft"] == 1
-    assert counts["gemm"] == 1 and dft_route(1) == "gemm"
+    assert counts["point"] == 1 and dft_route(1) == "point" and counts["gemm"] == 0
+    assert ROUTES == ("fft", "mixed", "cluster", "chirp", "staged", "point", "gemm")
     assert counts["staged"] == 2 * CLUSTER_MAX - MIXED_MAX - counts["cluster"] - sum(
         1 for n in range(MIXED_MAX + 1, CHIRP_MAX + 1) if not _smooth(n))
 
@@ -1116,6 +1119,26 @@ def test_chirp_staged_reference_at_small_splits_matches_pallas(n_fft, hop, m, sp
                                rtol=0)
 
 
+@pytest.mark.parametrize("n_fft,hop,m,split", [(47, 47, 96, (8, 12)), (101, 101, 210, (15, 14)),
+                                               (1021, 1021, 2048, (32, 64))])
+def test_chirp_staged_reference_takes_the_product_twiddles(n_fft, hop, m, split):
+    """The staged chirp mode's arithmetic forms both FFTs' four-step
+    twiddles as products of two float64 tables (product_twiddles, the
+    kernels' twiddle and twiddled), as the FFT mode and the cluster route
+    do: at the small splits it is the cluster route's chirp arithmetic on
+    the same split bit for bit, kernel 3's fold walk keeps those bits, and
+    the tables its kernels read are the product layout (staged_tables)."""
+    padded, _ = _signal("int16", 31 * hop + n_fft, n_fft + 2 * m)
+    x, window = torch.from_numpy(padded), port_hann_window(n_fft)
+    got = _chirp_staged_reference(x, window, n_fft=n_fft, hop=hop, m=m, split=split)
+    assert torch.equal(got, _chirp_cluster_reference(x, window, n_fft=n_fft, hop=hop, m=m,
+                                                     split=split))
+    assert torch.equal(got, _chirp_staged_fold_reference(x, window, n_fft=n_fft, hop=hop, m=m,
+                                                         split=split))
+    if split == staged_plan(m)[:2]:
+        np.testing.assert_array_equal(staged_tables(m), cluster_tables(m, split))
+
+
 @pytest.mark.parametrize("n_fft,hop,tpad", [(40962, 20481, 3), (131072, 65536, 2),
                                             (98304, 49152, 2), (49154, 24577, 2)])
 @pytest.mark.parametrize("dtype", ["f32", "int16", "uint8"])
@@ -1259,8 +1282,8 @@ def test_no_route_above_the_staged_reach(n_fft):
     """Above STAGED_MAX (2^20) only the GEMM route would be left, whose
     window-folded tables take 4 N (N/2 + 1) bytes (2.2 TB at 2^20 + 2):
     dft_route and dft_magnitude raise, naming that size, before any table
-    or output is made (a meta tensor allocates nothing); n_fft 1 stays on
-    the GEMM route."""
+    or output is made (a meta tensor allocates nothing); n_fft 1 takes the
+    point kernel."""
     hop = n_fft // 2 if n_fft % 2 == 0 else n_fft
     tb = f"{4 * n_fft * (n_fft // 2 + 1) / 1e12:.1f} TB"
     with pytest.raises(ValueError, match=tb):
@@ -1268,7 +1291,7 @@ def test_no_route_above_the_staged_reach(n_fft):
     x = torch.zeros(hop + n_fft, dtype=torch.int16, device="meta")
     with pytest.raises(ValueError, match=tb):
         dft_magnitude(x, np.ones(n_fft), n_fft=n_fft, hop=hop)
-    assert dft_route(1) == "gemm"
+    assert dft_route(1) == "point"
 
 
 @pytest.mark.parametrize("n_fft,hop", [(464, 232), (496, 248), (1856, 928), (1984, 992)])
@@ -1303,7 +1326,7 @@ def test_staged_plan_splits_limits_and_tables():
     a power of two up to 16, whose two buffers fit in 96 KB, else 1 within
     200 KB; a split given is taken; it raises for a size or split the
     kernels do not take. The tables hold both sides' pass roots and the
-    four-step twiddles; the packed plan the lengths the kernel checks; a
+    four-step twiddles' two float64 tables, in either mode; the packed plan the lengths the kernel checks; a
     chunk's scratch stays within 512 MB."""
     assert staged_plan(131072) == (256, 512, 16, 4)
     assert staged_plan(98304) == (256, 384, 16, 4)
@@ -1331,10 +1354,14 @@ def test_staged_plan_splits_limits_and_tables():
     n1, n2, g1, g2 = staged_plan(131072)
     table = staged_tables(131072)
     len1, len2 = len(pass_roots(n1, fft_plan(n1))), len(pass_roots(n2, fft_plan(n2)))
-    assert table.shape == (len1 + len2 + 131072, 2)
+    lo, hi = twiddle_tables(131072)
+    tab_off = (len1 + len2 + 1) & ~1
+    assert table.shape == (tab_off + 2 * (len(lo) + len(hi)), 2)
     np.testing.assert_array_equal(table[:len1], pass_roots(n1, fft_plan(n1)))
     np.testing.assert_array_equal(table[len1:len1 + len2], pass_roots(n2, fft_plan(n2)))
-    np.testing.assert_array_equal(table[len1 + len2:], four_step_roots(n1, n2))
+    np.testing.assert_array_equal(table[tab_off:].view(np.float64).reshape(-1, 2),
+                                  np.concatenate([lo, hi]))
+    np.testing.assert_array_equal(staged_tables(82688), cluster_tables(82688, (256, 323)))
     assert list(_staged_plan_array(131072)) == [256, 512, 16, 4, len1, len2, 2, 16, 16, 3, 8, 8, 8]
     assert staged_chunk_pairs(131072) == 512 and staged_chunk_pairs(STAGED_M_MAX) == 32
     assert staged_mode(131072) == "fft" and staged_mode(40962) == "chirp"
