@@ -101,8 +101,8 @@ the run on any error:
            11251-frame tile (at 32768 and up, where the plain GEMM's
            tables are 4.3 and 17 GB, against the kernel's arithmetic step by
            step on the card on a 33-frame tile and against the float64 rFFT
-           on every frame); the chirp route at 2038/1019 and 470/235 (block
-           layout), 8198/4099 and 16418/8209 (cluster layout, 4 and 8 CTAs,
+           on every frame); the chirp route at 2038/1019, 470/235 and
+           4078/2039 (block layout; 2038 and 4078 compiled whole), 8198/4099 and 16418/8209 (cluster layout, 4 and 8 CTAs,
            two an SM; 16418 also on a 301-frame tile) and 24578/12289 (8
            CTAs, one an SM, on the 11251-frame tile, held as 65536 is), the
            staged route at
@@ -1629,13 +1629,18 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
     types, also at the streamed tiles (384/192 and 352/176, every type), and
     at 480/240 (a plan outside dft_mixed.cu's compiled table) in all three
     types on the 32768-frame tile, the compiled layout asserted at 384 and
-    352 and the warp layout at 480; the cluster route at
+    352 and the warp layout at 480, the block layout at each of its sizes (compiled
+    whole at 4096 and 8192 and on the chirp mode's M of 4096 and 8192, 3 and 1 frame
+    pairs in flight an SM; else a pair a block; no spill: block_compiled); the
+    cluster route at
     16384/8192 (4 CTAs) and 32768/16384 (8; both two CTAs an SM, their
     plans compiled whole) in all three types and at 65536/32768 (8 CTAs of
     one an SM, compiled whole) in int16 and uint8 on the 11251-frame tile,
     and at 20736/10368 (4 CTAs) and 40960/20480 (8; both two CTAs an SM,
     both on the generic kernel: radices 3 and 5) in all three types on the
-    11251-frame tile; the chirp route at 2038/1019 and 470/235 (block layout), 8198/4099 and
+    11251-frame tile; the chirp route at 2038/1019 and 470/235 (block layout; 2038 on M =
+    4096 compiled whole, 470 on the generic kernel) and 4078/2039 (M = 8192, compiled
+    whole; on the 32768-frame tile), 8198/4099 and
     16418/8209 (cluster layout, 4 and 8 CTAs, two an SM; 16418 also on a
     GEMM_FRAMES-frame tile) in int16 and uint8, and at 24578/12289 (8 CTAs
     of one an SM) on the 11251-frame tile; the
@@ -1688,7 +1693,8 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
         MIXED_MAX, STAGED_KERNELS, _DTYPE_CODES, _chirp_cluster_reference, _chirp_kernel,
         _chirp_staged_reference, _fft_cluster_reference, _kernel, _launch_staged,
         _route_tables, _staged_reference, chirp_length, cluster_layout,
-        dft_magnitude, dft_magnitude_plain, dft_route, mixed_layout, staged_chunk_pairs,
+        block_compiled, dft_magnitude, dft_magnitude_plain, dft_route, mixed_layout,
+        staged_chunk_pairs,
         staged_layout, staged_mode, staged_plan, staged_sides_compiled, windowed_dft_mats)
     from orcai_tpu_torch.ops.frontend import hann_window
     from orcai_tpu_torch.ops.wire_codec import (
@@ -1712,7 +1718,8 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
              (16384, 8192, every, tiles),
              (32768, 16384, every, tiles), (65536, 32768, coded, tiles[1:]),
              (20736, 10368, every, tiles[1:]), (40960, 20480, every, tiles[1:]),
-             (2038, 1019, coded, tiles), (470, 235, coded, tiles), (8198, 4099, coded, tiles),
+             (2038, 1019, coded, tiles), (470, 235, coded, tiles), (4078, 2039, coded, tiles[:1]),
+             (8198, 4099, coded, tiles),
              (16418, 8209, coded, (tiles[0], GEMM_FRAMES)), (24578, 12289, coded, tiles[1:]),
              (464, 232, every, tiles[:1]), (496, 248, every, tiles[:1]),
              (480, 240, every, tiles[:1]),
@@ -1801,8 +1808,22 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
         if rec["route"] == "chirp":
             rec["layout"] = "block" if _chirp_kernel(n_fft) == "mixed" else "cluster"
         if rec["route"] == "mixed" or rec.get("layout") == "block":
-            # dft_mixed.cu's layout, threads, resident warps, registers, spills
-            rec["kernel"] = mixed_layout(n_fft, hop, x.dtype)
+            # dft_mixed.cu's layout, threads, resident warps, pairs in flight,
+            # a plan compiled whole or not, registers, spills
+            rec["kernel"] = got = mixed_layout(n_fft, hop, x.dtype)
+            if got["layout"] == "block":
+                # a plan compiled whole (block_compiled's sizes): one block an
+                # SM of `groups` groups, a frame pair each, within the
+                # registers its threads leave; any other on the generic kernel,
+                # a pair a block; no spill
+                shape = block_compiled(n_fft)
+                want = ({"compiled": True, "threads": shape[0] * shape[1], "blocks_per_sm": 1,
+                         "pairs_per_sm": shape[1]} if shape else
+                        {"compiled": False, "pairs_per_sm": got["blocks_per_sm"]})
+                if ({k: got[k] for k in want} != want or got["local_bytes"]
+                        or got["registers"] * got["threads"] * got["blocks_per_sm"] > 65536):
+                    raise AssertionError(f"B1 block layout at {n_fft}/{hop} {x.dtype}: {got}, "
+                                         f"not {want} within the SM's registers and no spill")
         elif rec["route"] == "cluster" or rec.get("layout") == "cluster":
             # dft_cluster.cu's CTAs a cluster, threads, CTAs an SM, resident
             # clusters, registers, spills, a plan compiled whole or not
@@ -2081,7 +2102,8 @@ def _b1_wire_checks(torch, rng, dev) -> tuple[dict, dict, dict, dict, dict, dict
         f"sp-bfp5's {CHUNK_TILE}- and {STATS_TILE}-frame tiles at 384 / 192 (a _352 suffix: "
         "at 352 / 176, sp11-bfp5's); cases: every size and type timed (a /11251 suffix: the "
         "ragged tile), kernel: dft_mixed.cu's layout (warp, block or compiled), threads, "
-        "resident warps, registers and spilled bytes, gemm_ms: the GEMM kernel called "
+        "resident warps, frame pairs in flight an SM, a plan compiled whole or not, "
+        "registers and spilled bytes, gemm_ms: the GEMM kernel called "
         "directly at the same n_fft, library_ms: torch.stft(...).abs() at the same n_fft")
     mixed_row.update(streaming)
     cluster_row = row(

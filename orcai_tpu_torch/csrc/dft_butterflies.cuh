@@ -250,22 +250,13 @@ __device__ __forceinline__ void dft(float (&re)[8], float (&im)[8]) {
   }
 }
 
-// 16 points as 4 x 4: a 4-point DFT over n1 of x[4 n1 + n2] for each n2,
-// times W16^(n2 k1), a 4-point DFT over n2 giving X[k1 + 4 k2]
-__device__ __forceinline__ void dft(float (&re)[16], float (&im)[16]) {
+// 16 points as 4 x 4, second half: the first 4-point DFTs' outputs
+// a[n2][k1] times W16^(n2 k1), then a 4-point DFT over n2 giving X[k1 + 4 k2]
+__device__ __forceinline__ void dft16_columns(float (&ar)[4][4], float (&ai)[4][4],
+                                              float (&re)[16], float (&im)[16]) {
   // cos and sin of 2 pi m / 16, float64 rounded once (ops/dft.py::_C16, _S16)
   const float wc[10] = {1.0f, 0.923879504f, 0.707106769f, 0.382683426f, 0.0f, -0.382683426f, -0.707106769f, -0.923879504f, -1.0f, -0.923879504f};
   const float ws[10] = {0.0f, 0.382683426f, 0.707106769f, 0.923879504f, 1.0f, 0.923879504f, 0.707106769f, 0.382683426f, 0.0f, -0.382683426f};
-  float ar[4][4], ai[4][4];  // [n2][k1]
-#pragma unroll
-  for (int n2 = 0; n2 < 4; ++n2) {
-#pragma unroll
-    for (int n1 = 0; n1 < 4; ++n1) {
-      ar[n2][n1] = re[4 * n1 + n2];
-      ai[n2][n1] = im[4 * n1 + n2];
-    }
-    fft4(ar[n2][0], ai[n2][0], ar[n2][1], ai[n2][1], ar[n2][2], ai[n2][2], ar[n2][3], ai[n2][3]);
-  }
 #pragma unroll
   for (int n2 = 1; n2 < 4; ++n2) {
 #pragma unroll
@@ -286,6 +277,40 @@ __device__ __forceinline__ void dft(float (&re)[16], float (&im)[16]) {
       im[k1 + 4 * k2] = ai[k2][k1];
     }
   }
+}
+
+// 16 points as 4 x 4: a 4-point DFT over n1 of x[4 n1 + n2] for each n2,
+// times W16^(n2 k1), a 4-point DFT over n2 giving X[k1 + 4 k2]
+__device__ __forceinline__ void dft(float (&re)[16], float (&im)[16]) {
+  float ar[4][4], ai[4][4];  // [n2][k1]
+#pragma unroll
+  for (int n2 = 0; n2 < 4; ++n2) {
+#pragma unroll
+    for (int n1 = 0; n1 < 4; ++n1) {
+      ar[n2][n1] = re[4 * n1 + n2];
+      ai[n2][n1] = im[4 * n1 + n2];
+    }
+    fft4(ar[n2][0], ai[n2][0], ar[n2][1], ai[n2][1], ar[n2][2], ai[n2][2], ar[n2][3], ai[n2][3]);
+  }
+  dft16_columns(ar, ai, re, im);
+}
+
+// the 16-point DFT of x whose inputs 8..15 are zero (dft_mixed.cu's chirp
+// mode, the first pass of its zero-padded input): dft(float (&)[16]) with
+// its first 4-point DFTs over (x[n2], x[4 + n2], 0, 0) as sums of the two
+// (a 4-point DFT of (a, b, 0, 0): a + b, a - i b, a - b, a + i b), the
+// same values but for the sign of a zero (tests/test_torch_dft_mixed.py)
+__device__ __forceinline__ void dft16_half(float (&re)[16], float (&im)[16]) {
+  float ar[4][4], ai[4][4];  // [n2][k1]
+#pragma unroll
+  for (int n2 = 0; n2 < 4; ++n2) {
+    const float a_r = re[n2], a_i = im[n2], b_r = re[4 + n2], b_i = im[4 + n2];
+    ar[n2][0] = a_r + b_r; ai[n2][0] = a_i + b_i;
+    ar[n2][1] = a_r + b_i; ai[n2][1] = a_i - b_r;
+    ar[n2][2] = a_r - b_r; ai[n2][2] = a_i - b_i;
+    ar[n2][3] = a_r - b_i; ai[n2][3] = a_i + b_r;
+  }
+  dft16_columns(ar, ai, re, im);
 }
 
 // odd R, over symmetric pairs: X[k] = A_k - i B_k, X[R-k] = A_k + i B_k with

@@ -82,19 +82,40 @@
 // time (the radix switched on a pass, the pads shifted by), 128 registers a
 // thread and 16 warps an SM. Both are taken where they keep at least 4
 // warps resident on an SM (every n_fft up to 2048 at the spectral and
-// default hops, 1088, 1216). The block layout: the whole block (up to 512
-// threads) owns one frame pair at a time, with __syncthreads() between the
-// passes and one pair of exchange buffers, 128 KB at 8192; the roots and
-// the window stay in shared memory where they fit beside the buffers and
-// are read from device memory through L1 where they do not. It takes every
-// larger n_fft (4352) and the chirp mode. A kernel is built for the
+// default hops, 1088, 1216). The block layout, for every larger n_fft
+// and the chirp mode, in two kernels. Its plans compiled whole
+// (BLOCK_COMPILED, by a rule: every power of two above the warp layout's
+// reach, 4096 = 16*16*16 and 8192 = 16*8*8*8, in the FFT mode and as the
+// chirp mode's M; ops/dft.py::block_compiled): a group of threads owns a
+// frame pair (256 at 4096, 512 at 8192), several groups share a block
+// (three at 4096, so 24 warps and three pairs in flight on an SM, where
+// the parent's layout held one pair and 8 warps), each with one exchange
+// buffer whose passes run in place (a thread's butterflies read, the
+// group's barrier, then written) and a named barrier of its own (bar.sync
+// 1 + group), so that one group's barrier waits while another's passes
+// run; the block holds the pass-ordered roots once in shared memory (in
+// the chirp mode B, and a where it fits); the samples are read where they
+// lie, a butterfly's loads of a frame in flight together, the first pass's
+// window in registers with the samples' scale. The passes are the compiled
+// layout's rounds (round_load, round_sums) widened from a warp to a group,
+// every radix, stride, root offset, pad and round a constant (BlockFixed;
+// the pads held in the table, tests/test_torch_dft_mixed.py checks them
+// against exchange_pads). Any other plan (4352 = 16*16*17, the chirp
+// mode's 952 = 8*7*17 at 470, 1984 in f32) runs the generic block kernel:
+// the whole block (up to 512 threads) owns one frame pair at a time, with
+// __syncthreads() between the passes and two exchange buffers; the roots
+// and the window stay in shared memory where they fit beside the buffers
+// and are read from device memory through L1 where they do not; at 128
+// registers a thread an SM holds 16 of its warps, which fewer buffers
+// would not raise. A kernel is built for the
 // largest odd radix its plans need (11, 13, 17, 23 also for the plans of
 // 19, or 31 also for those of 29): the larger butterflies' registers would
 // cost the passes of the plans that lack them a few percent, so each plan
 // runs the kernel of its own largest odd radix. Each of those, for each
 // sample type, is a build of its own (-DORCAI_ODD, -DORCAI_DTYPE,
-// ops/_build.py: its warp, its block and its compiled kernels), so that
-// the kernels compile side by side; the host picks the build
+// ops/_build.py: its warp, its block and its compiled kernels, the
+// compiled block kernels in the radix-11 build, whose plans they are), so
+// that the kernels compile side by side; the host picks the build
 // (ops/dft.py::_build_variant) and a build refuses another sample type or
 // a plan with a larger odd radix.
 //
@@ -110,7 +131,16 @@
 // same untangle: Bluestein is linear, so two real frames still share one
 // complex transform. The tables (w a, a, B: ops/dft.py::chirp_tables) are
 // computed on the host from n^2 mod 2N in integers and the angle in
-// float64, rounded once to float32, and read through L1.
+// float64, rounded once to float32. The compiled kernel does less of that
+// work: N <= M/2, so its first pass of radix 16 reads and sums only the
+// lower half of each butterfly's inputs (its inputs 8..15 are zeros:
+// dft16_half); where the first and the last radix agree (M =
+// 4096) the first FFT's last pass and the second's first take the same
+// points on the same thread, so the product with B stays in registers and
+// an exchange goes; the second FFT's last pass writes only the outputs
+// below M/2, the ones the untangle reads; B (and a where it fits) sits in
+// shared memory, w a is read through L1. The generic kernel reads its
+// tables through L1.
 //
 // What holds it: the passes' instructions, not HBM. Taken apart at 384 /
 // 192 on int16 (tools/probe_mixed.py, which builds its own copy of this
@@ -120,8 +150,21 @@
 // the values in registers across it) no faster than at 24: issue, not
 // latency. Every pass reads and writes N
 // complex values (two wavefronts a warp access) and reads (R-1)/R*N roots,
-// so the plan takes the fewest passes; the block layout leaves one or two
-// blocks on an SM, whose warps wait at each pass's barrier.
+// so the plan takes the fewest passes. The block layout's bytes bound it at
+// 0.120 ms for a 32768-frame int16 tile at 4096 / 2048 and 0.240 at 8192 /
+// 4096, but its shared memory has a floor of its own: the first pass
+// writes 8 bytes a point of a pair, each later pass reads and writes 16,
+// the untangle reads 16, and the roots add 8 a point a pass, so at 8192
+// (four passes) about 11 GB a tile against about 30 TB/s of shared memory
+// on the card, some 0.35 ms, above its byte bound. Taken apart on an H100
+// (tools/probe_mixed.py, int16, 32768 frames; PERF.md), the generic block
+// kernel spent 0.25 of its 0.446 ms at 4096 / 2048, 0.70 of 1.091 at 8192
+// and 0.61 of 0.961 at 2038 in its passes (two blocks of one pair, or one,
+// on an SM, every warp at each pass's barrier; half its instructions
+// integer work on the run-time plan), the chirp mode 0.31 in its second
+// FFT, and 0.05-0.20 reading its tables through L1; its row stores
+// 0.02-0.06. The compiled kernels took 4096 to 0.279 ms, 8192 to 0.82 and
+// 2038 to 0.458, bit-equal to the generic kernel in the chirp mode.
 //
 // uint8 input is mu-law codes (the mulaw8 wire), staged as bytes and
 // decoded where a sample is read, by the integer steps dft_magnitude.cu and
@@ -585,24 +628,34 @@ __device__ __forceinline__ void compiled_first(const T* xa, int hop, const WinRe
   }
 }
 
-// pass p > 0, round h: butterfly j = lane + 32 h reads z[j + r N/R],
-// multiplies by the roots at tw[(r - 1) Ns + j % Ns] and writes
-// z'[(j / Ns) Ns R + j % Ns + r Ns]
-template <int I, int p>
-__device__ __forceinline__ void compiled_round(const float2* __restrict__ src,
-                                               float2* __restrict__ dst,
-                                               const float2* __restrict__ twp, int lane, int h) {
-  using F = Fixed<I>;
-  constexpr int R = F::R(p), NS = F::NS(p), NB = F::N / R;
-  const int j = lane + 32 * h;
-  if (NB % 32 != 0 && j >= NB) return;
-  float re[R], im[R];
+// The compiled passes, on the constants F of a plan compiled whole (Fixed,
+// BlockFixed) and W threads that share its FFT (a warp, or a group of the
+// block layout). Pass p > 0, round h: butterfly j = lane + W h reads
+// z[j + r N/R] (pass p - 1's layout; false where the round has no
+// butterfly j), ...
+template <class F, int W, int p>
+__device__ __forceinline__ bool round_load(const float2* __restrict__ src, int lane, int h,
+                                           float (&re)[F::R(p)], float (&im)[F::R(p)]) {
+  constexpr int R = F::R(p), NB = F::N / R;
+  const int j = lane + W * h;
+  if (NB % W != 0 && j >= NB) return false;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const float2 v = src[pad<F::S(p - 1), F::G(p - 1)>(j + r * NB)];
     re[r] = v.x;
     im[r] = v.y;
   }
+  return true;
+}
+
+// ... multiplies by the roots at twp[(r - 1) Ns + j % Ns] and hands output
+// r of its DFT, z'[(j / Ns) Ns R + j % Ns + r Ns], to put(r, index, x, y)
+template <class F, int W, int p, typename Put>
+__device__ __forceinline__ void round_sums(const float2* __restrict__ twp, int lane, int h,
+                                           float (&re)[F::R(p)], float (&im)[F::R(p)],
+                                           const Put& put) {
+  constexpr int R = F::R(p), NS = F::NS(p);
+  const int j = lane + W * h;
   const int jm = j % NS;
 #pragma unroll
   for (int r = 1; r < R; ++r) {
@@ -613,8 +666,20 @@ __device__ __forceinline__ void compiled_round(const float2* __restrict__ src,
     im[r] = vi;
   }
   const int base = j / NS * NS * R + jm;
-  butterfly<R>(re, im, [&](int r, float x, float y) {
-    dst[pad<F::S(p), F::G(p)>(base + r * NS)] = make_float2(x, y);
+  butterfly<R>(re, im, [&](int r, float x, float y) { put(r, base + r * NS, x, y); });
+}
+
+// pass p > 0, round h of the warp layout: its loads, then its sums written
+// to the other buffer
+template <int I, int p>
+__device__ __forceinline__ void compiled_round(const float2* __restrict__ src,
+                                               float2* __restrict__ dst,
+                                               const float2* __restrict__ twp, int lane, int h) {
+  using F = Fixed<I>;
+  float re[F::R(p)], im[F::R(p)];
+  if (!round_load<F, 32, p>(src, lane, h, re, im)) return;
+  round_sums<F, 32, p>(twp, lane, h, re, im, [&](int, int e, float x, float y) {
+    dst[pad<F::S(p), F::G(p)>(e)] = make_float2(x, y);
   });
 }
 
@@ -673,6 +738,308 @@ __device__ __forceinline__ void compiled_pair(const T* xa, int hop, const WinReg
     }
   }
   __syncwarp();  // the buffers are free for the next pair
+}
+
+// The block layout's plans compiled whole: the FFTs of a power of two above
+// the warp layout's reach, n_fft 4096 and 8192 in the FFT mode and the
+// chirp mode's M of 4096 (2038 and 46 other n_fft) and 8192 (16). Every
+// radix, stride, root offset, exchange layout and round is a constant
+// (BlockFixed). A group of `threads` threads owns a frame pair and one
+// exchange buffer; its passes run in place (each thread's butterflies
+// read, the group's barrier, then written) and its barriers are named
+// barriers of its own (bar.sync 1 + group), so that `groups` groups share
+// a block, and the roots (and the chirp mode's B and a) that the block
+// holds once in shared memory, and one group's barrier waits while
+// another's passes run. The samples are read where they lie, a butterfly's
+// R loads of a frame in flight together; the FFT mode's first-pass window
+// stays in registers with the samples' scale, the chirp mode's w a is read
+// through L1.
+struct BlockCompiled {
+  int n_passes;
+  int radix[4];
+  int pad_s[4], pad_g[4];  // exchange_pads' layouts (tests/test_torch_dft_mixed.py)
+  int chirp;               // 1: the chirp mode's plan of M, 0: the FFT mode's
+  int threads;             // a group's
+  int groups;              // groups a block: as many as its shared memory and registers hold
+};
+constexpr BlockCompiled BLOCK_COMPILED[] = {
+    {3, {16, 16, 16}, {4, 0, 0}, {0, 0, 0}, 0, 256, 3},         // 4096
+    {3, {16, 16, 16}, {4, 0, 0}, {0, 0, 0}, 1, 256, 3},         // M 4096 (2038)
+    {4, {16, 8, 8, 8}, {4, 0, 0, 0}, {0, 0, 0, 0}, 0, 512, 1},  // 8192
+    {4, {16, 8, 8, 8}, {4, 0, 0, 0}, {0, 0, 0, 0}, 1, 512, 1},  // M 8192 (4078)
+};
+constexpr int N_BLOCK_COMPILED = sizeof(BLOCK_COMPILED) / sizeof(BLOCK_COMPILED[0]);
+
+// the product of a block plan's radices before pass p
+__host__ __device__ constexpr int block_ns(const BlockCompiled& c, int p) {
+  int v = 1;
+  for (int q = 0; q < p; ++q) v *= c.radix[q];
+  return v;
+}
+// pass p's roots in the pass-ordered table (ops/dft.py::pass_roots)
+__host__ __device__ constexpr int block_tw(const BlockCompiled& c, int p) {
+  int off = 0;
+  for (int q = 1; q < p; ++q) off += (c.radix[q] - 1) * block_ns(c, q);
+  return off;
+}
+// one exchange buffer's length, even so that each is 16-byte aligned
+__host__ __device__ constexpr int block_zbuf(const BlockCompiled& c) {
+  const int n = block_ns(c, c.n_passes);
+  int top = n;
+  for (int p = 0; p < c.n_passes; ++p) {
+    const int s = c.pad_s[p], g = c.pad_g[p];
+    const int end = s ? (n - 1) + (((n - 1) >> s) << g) + 1 : n;
+    top = end > top ? end : top;
+  }
+  return (top + 1) & ~1;
+}
+// every pass's butterflies fill the group's threads evenly
+__host__ __device__ constexpr bool block_even(const BlockCompiled& c) {
+  bool ok = true;
+  for (int p = 0; p < c.n_passes; ++p)
+    ok = ok && (block_ns(c, c.n_passes) / c.radix[p]) % c.threads == 0;
+  return ok;
+}
+
+// BLOCK_COMPILED[I]'s constants
+template <int I>
+struct BlockFixed {
+  static constexpr BlockCompiled C = BLOCK_COMPILED[I];
+  static constexpr bool CHIRP = C.chirp;
+  static constexpr int P = C.n_passes, GT = C.threads, GROUPS = C.groups;
+  static constexpr int N = block_ns(C, P), TW_LEN = block_tw(C, P), ZBUF = block_zbuf(C);
+  __host__ __device__ static constexpr int R(int p) { return C.radix[p]; }
+  __host__ __device__ static constexpr int NS(int p) { return block_ns(C, p); }
+  __host__ __device__ static constexpr int S(int p) { return C.pad_s[p]; }
+  __host__ __device__ static constexpr int G(int p) { return C.pad_g[p]; }
+  __host__ __device__ static constexpr int TW(int p) { return block_tw(C, p); }
+  // a thread's butterflies in pass p
+  __host__ __device__ static constexpr int K(int p) { return N / C.radix[p] / GT; }
+  static_assert(block_even(C), "every pass's butterflies fill the group's threads evenly");
+  static_assert(C.radix[0] == 16, "the chirp mode's first pass leaves its inputs 8..15 zero");
+  static_assert(N / 16 == GT, "a thread has one first-pass butterfly: its window in registers");
+};
+
+// the group's barrier: the block's where a block is one group
+template <int GT, int GROUPS>
+__device__ __forceinline__ void group_sync(int group) {
+  if constexpr (GROUPS == 1) __syncthreads();
+  else asm volatile("bar.sync %0, %1;\n" ::"r"(group + 1), "n"(GT) : "memory");
+}
+
+// a thread's butterflies of a pass in registers: [k][r]
+template <int K, int R>
+struct Values {
+  float re[K][R], im[K][R];
+};
+template <int I, int p>
+using PassValues = Values<BlockFixed<I>::K(p), BlockFixed<I>::R(p)>;
+
+// The FFT mode's first pass, before the group's barrier: butterfly j =
+// tid (a thread's one) reads the windowed samples n = j + r N/R of the two
+// frames and takes its DFT; the window, in registers, carries the samples'
+// scale
+template <int I, typename T>
+__device__ __forceinline__ void block_first(const T* __restrict__ xa, int hop, bool has_b,
+                                            const float (&wreg)[16], int tid,
+                                            Values<1, 16>& v) {
+  constexpr int NB = BlockFixed<I>::N / 16;
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int n = tid + r * NB;
+    v.re[0][r] = wreg[r] * sample_unscaled(xa[n]);
+    v.im[0][r] = has_b ? wreg[r] * sample_unscaled(xa[hop + n]) : 0.0f;
+  }
+  dft(v.re[0], v.im[0]);
+}
+// The chirp mode's first pass: z = (w a)[n] (x_t + i x_t+1)[n] for n <
+// n_fft, zero past it (w a: the table's first n_fft values, read through
+// L1). n_fft <= N/2, so every butterfly's inputs 8..15 are zero: neither
+// read nor summed (dft16_half)
+template <int I, typename T>
+__device__ __forceinline__ void chirp_first(const T* __restrict__ xa, int hop, bool has_b,
+                                            const float2* __restrict__ wa, int n_fft, int tid,
+                                            Values<1, 16>& v) {
+  constexpr int NB = BlockFixed<I>::N / 16;
+  constexpr float scale = SAMPLE_SCALE<T>;  // exact: a power of two
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int n = tid + r * NB;
+    float u = 0.0f, w = 0.0f;
+    float2 c = make_float2(0.0f, 0.0f);
+    if (n < n_fft) {
+      c = wa[n];
+      u = sample_unscaled(xa[n]) * scale;
+      if (has_b) w = sample_unscaled(xa[hop + n]) * scale;
+    }
+    v.re[0][r] = c.x * u - c.y * w;
+    v.im[0][r] = c.x * w + c.y * u;
+  }
+  dft16_half(v.re[0], v.im[0]);
+}
+
+// Write a thread's DFT outputs of pass p: butterfly j's output r to
+// z'[(j / Ns) Ns R + j % Ns + r Ns] in pass p's layout; the first ROWS
+// outputs of each (the chirp mode's last pass: those below N/2)
+template <int I, int p, int ROWS = BlockFixed<I>::R(p)>
+__device__ __forceinline__ void block_store(float2* z, int tid, const PassValues<I, p>& v) {
+  using F = BlockFixed<I>;
+  constexpr int R = F::R(p), NS = F::NS(p);
+#pragma unroll
+  for (int k = 0; k < F::K(p); ++k) {
+    const int j = tid + F::GT * k, base = j / NS * NS * R + j % NS;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+      z[pad<F::S(p), F::G(p)>(base + r * NS)] = make_float2(v.re[k][r], v.im[k][r]);
+  }
+}
+
+// Pass p > 0 in place, on the warp layout's rounds (round_load,
+// round_sums) widened to a group: a thread reads all its butterflies'
+// inputs, the group's barrier, then their sums, kept in v
+template <int I, int p>
+__device__ __forceinline__ void block_pass(const float2* z, const float2* __restrict__ tw,
+                                           int tid, int group, PassValues<I, p>& v) {
+  using F = BlockFixed<I>;
+#pragma unroll
+  for (int k = 0; k < F::K(p); ++k) round_load<F, F::GT, p>(z, tid, k, v.re[k], v.im[k]);
+  group_sync<F::GT, F::GROUPS>(group);
+#pragma unroll
+  for (int k = 0; k < F::K(p); ++k)
+    round_sums<F, F::GT, p>(tw + F::TW(p), tid, k, v.re[k], v.im[k],
+                            [&](int r, int, float x, float y) {
+                              v.re[k][r] = x;
+                              v.im[k][r] = y;
+                            });
+}
+
+// Passes p to LAST - 1, each written and followed by the group's barrier
+template <int I, int p, int LAST>
+__device__ __forceinline__ void block_passes(float2* z, const float2* tw, int tid, int group) {
+  if constexpr (p < LAST) {
+    using F = BlockFixed<I>;
+    PassValues<I, p> v;
+    block_pass<I, p>(z, tw, tid, group, v);
+    block_store<I, p>(z, tid, v);
+    group_sync<F::GT, F::GROUPS>(group);
+    block_passes<I, p + 1, LAST>(z, tw, tid, group);
+  }
+}
+
+template <int I>
+using LastValues = PassValues<I, BlockFixed<I>::P - 1>;
+
+// The last pass's outputs z[j + r N/R] (Ns R = N) written in its layout:
+// natural order, as the untangle reads it
+template <int I>
+__device__ __forceinline__ void store_last(float2* z, int tid, int group, const LastValues<I>& v) {
+  using F = BlockFixed<I>;
+  block_store<I, F::P - 1>(z, tid, v);
+  group_sync<F::GT, F::GROUPS>(group);
+}
+
+// The chirp mode's second FFT from the first's last pass (y, in
+// registers: Y[j + r N/R]): conj(Y B) into the first pass of a forward FFT
+// (B = FFT_M(b) / M); where the first and the last radix agree the same
+// thread holds those points, so the product never leaves its registers.
+// Then the passes, the last writing only its outputs below N/2: u[k] for
+// k < n_fft <= N/2, in natural order
+template <int I>
+__device__ __forceinline__ void second_fft(float2* z, const float2* __restrict__ tw,
+                                           const float2* __restrict__ bq, int tid, int group,
+                                           LastValues<I>& y) {
+  using F = BlockFixed<I>;
+  constexpr int L = F::P - 1, NB = F::N / 16;
+  Values<1, 16> v;
+  if constexpr (F::R(L) == 16) {
+    v = y;
+  } else {  // through the buffer: pass L's layout, read as the first pass reads
+    store_last<I>(z, tid, group, y);
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const float2 x = z[pad<F::S(L), F::G(L)>(tid + r * NB)];
+      v.re[0][r] = x.x;
+      v.im[0][r] = x.y;
+    }
+    group_sync<F::GT, F::GROUPS>(group);
+  }
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const float2 w = bq[tid + r * NB];
+    const float vr = v.re[0][r], vi = v.im[0][r];
+    v.re[0][r] = vr * w.x - vi * w.y;
+    v.im[0][r] = -(vr * w.y + vi * w.x);
+  }
+  dft(v.re[0], v.im[0]);
+  block_store<I, 0>(z, tid, v);
+  group_sync<F::GT, F::GROUPS>(group);
+  block_passes<I, 1, L>(z, tw, tid, group);
+  LastValues<I> u;
+  block_pass<I, L>(z, tw, tid, group, u);
+  block_store<I, L, F::R(L) / 2>(z, tid, u);
+  group_sync<F::GT, F::GROUPS>(group);
+}
+
+// BLOCK_COMPILED[I] on the block layout: each group of a block transforms
+// the frame pairs blockIdx.x * GROUPS + group, + gridDim.x * GROUPS, ...
+// in the chirp mode (an n_fft up to N / 2 on M = N) or the FFT mode (n_fft
+// = N), as the plan's row says. Shared memory: the pass-ordered roots, in
+// the chirp mode B and (lay.tables) a after them, then the groups'
+// exchange buffers at lay.z_off.
+template <typename T, int I>
+__global__ void __launch_bounds__(BlockFixed<I>::GT * BlockFixed<I>::GROUPS, 1)
+dft_block_kernel(const T* __restrict__ audio, const float* __restrict__ window,
+                 const float2* __restrict__ roots, const float2* __restrict__ chirp,
+                 float* __restrict__ out, int n_frames, int hop, int n_fft, const Layout lay) {
+  using F = BlockFixed<I>;
+  constexpr bool CHIRP = F::CHIRP;
+  constexpr int N = F::N, GT = F::GT, GROUPS = F::GROUPS;
+  constexpr int L = F::P - 1, SL = F::S(L) ? F::S(L) : NO_PAD;  // the untangle's layout
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* tw = reinterpret_cast<float2*>(smem);
+  float2* bq = tw + F::TW_LEN;
+  float2* a_s = bq + N;
+  const int group = threadIdx.x / GT, tid = threadIdx.x % GT;
+  float2* z = reinterpret_cast<float2*>(smem + lay.z_off) + group * F::ZBUF;
+  for (int i = threadIdx.x; i < F::TW_LEN; i += GT * GROUPS) tw[i] = roots[i];
+  if constexpr (CHIRP) {
+    for (int i = threadIdx.x; i < N; i += GT * GROUPS) bq[i] = chirp[2 * n_fft + i];
+    if (lay.tables)
+      for (int i = threadIdx.x; i < n_fft; i += GT * GROUPS) a_s[i] = chirp[n_fft + i];
+  }
+  const float2* at = !CHIRP ? nullptr : lay.tables ? a_s : chirp + n_fft;
+  // the FFT mode's first-pass window values, with the samples' scale
+  float wreg[16];
+  if constexpr (!CHIRP) {
+#pragma unroll
+    for (int r = 0; r < 16; ++r) wreg[r] = window[tid + r * (N / 16)] * SAMPLE_SCALE<T>;
+  }
+  __syncthreads();  // the tables are in place
+
+  const int n_pairs = (n_frames + 1) / 2;
+  for (int pair = blockIdx.x * GROUPS + group; pair < n_pairs; pair += gridDim.x * GROUPS) {
+    const int t = 2 * pair;
+    const T* xa = audio + static_cast<long long>(t) * hop;
+    const bool has_b = t + 1 < n_frames;
+    Values<1, 16> v;
+    if constexpr (CHIRP)
+      chirp_first<I>(xa, hop, has_b, chirp, n_fft, tid, v);
+    else
+      block_first<I>(xa, hop, has_b, wreg, tid, v);
+    group_sync<GT, GROUPS>(group);  // the previous pair's untangle is done with z
+    block_store<I, 0>(z, tid, v);
+    group_sync<GT, GROUPS>(group);
+    block_passes<I, 1, L>(z, tw, tid, group);
+    LastValues<I> y;
+    block_pass<I, L>(z, tw, tid, group, y);
+    if constexpr (CHIRP) {
+      second_fft<I>(z, tw, bq, tid, group, y);
+      untangle(ChirpBin{z, SL, F::G(L), at}, n_fft, out, t, n_frames, tid, GT);
+    } else {
+      store_last<I>(z, tid, group, y);
+      untangle(FftBin{z, SL, F::G(L)}, N, out, t, n_frames, tid, GT);
+    }
+  }
 }
 
 // 16-byte asynchronous copy from device to shared memory
@@ -840,6 +1207,8 @@ int make_plan(const int* packed, int n_fft, bool chirp, Plan* plan) {
 
 int round16(int bytes) { return (bytes + 15) & ~15; }
 
+constexpr int INFO = 9;  // the values orcai_dft_mixed_layout reports
+
 // Fill in the offsets and size of `lay` (block, threads, units, frames,
 // spans and tables set) for this plan, hop, sample size and exchange
 // buffer length.
@@ -947,7 +1316,8 @@ int resident_blocks(Kernel kernel, const Layout& lay, int* per_sm) {
 }
 
 // [layout (0 warp, 1 block, 2 compiled), threads, blocks an SM, frames a
-// group, dynamic shared memory, registers a thread, local memory a thread]
+// group, dynamic shared memory, registers a thread, local memory a thread,
+// frame pairs in flight on an SM, 1 where the plan is compiled whole]
 template <typename Kernel>
 int describe(Kernel kernel, const Layout& lay, int* info) {
   int per_sm = 0;
@@ -956,9 +1326,10 @@ int describe(Kernel kernel, const Layout& lay, int* info) {
   if (const cudaError_t err = cudaFuncGetAttributes(&attr, kernel); err != cudaSuccess)
     return static_cast<int>(err);
   const int kind = lay.block ? 1 : lay.compiled >= 0 ? 2 : 0;
-  const int values[7] = {kind, lay.threads, per_sm, lay.frames, lay.bytes, attr.numRegs,
-                         static_cast<int>(attr.localSizeBytes)};
-  for (int i = 0; i < 7; ++i) info[i] = values[i];
+  const int values[INFO] = {kind, lay.threads, per_sm, lay.frames, lay.bytes, attr.numRegs,
+                            static_cast<int>(attr.localSizeBytes), per_sm * lay.units,
+                            lay.compiled >= 0};
+  for (int i = 0; i < INFO; ++i) info[i] = values[i];
   return 0;
 }
 
@@ -1016,6 +1387,71 @@ int run_compiled(const void* audio, const float* window, const float* roots, con
   }
 }
 
+// The index in BLOCK_COMPILED of this plan in its mode, in the build that
+// compiles it (that of no odd radix), or -1
+int block_compiled_index(const Plan& plan) {
+  if (build_of(1) != ORCAI_ODD) return -1;
+  for (int i = 0; i < N_BLOCK_COMPILED; ++i) {
+    const BlockCompiled& c = BLOCK_COMPILED[i];
+    bool same = c.n_passes == plan.n_passes && c.chirp == (plan.chirp_n != 0);
+    for (int p = 0; same && p < c.n_passes; ++p) same = c.radix[p] == plan.radix[p];
+    if (same) return i;
+  }
+  return -1;
+}
+
+template <typename T, int I>
+int run_block(const void* audio, const float* window, const float* roots, const float* chirp,
+              const Plan& plan, const Layout& lay, float* out, int n_frames, int hop,
+              cudaStream_t s, int* info) {
+  const auto kernel = dft_block_kernel<T, I>;
+  if (info) return describe(kernel, lay, info);
+  int per_sm = 0;
+  if (const int err = resident_blocks(kernel, lay, &per_sm)) return err;
+  int device = 0, n_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  const int blocks = ((n_frames + 1) / 2 + lay.units - 1) / lay.units;
+  const int grid = blocks < per_sm * n_sm ? blocks : per_sm * n_sm;
+  kernel<<<grid, lay.threads, lay.bytes, s>>>(
+      static_cast<const T*>(audio), window, reinterpret_cast<const float2*>(roots),
+      reinterpret_cast<const float2*>(chirp), out, n_frames, hop,
+      plan.chirp_n ? plan.chirp_n : plan.n, lay);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// BLOCK_COMPILED[bc]'s kernel: its layout (the roots, in the chirp mode B
+// and, where the block's shared memory holds it, a, then a buffer a group)
+template <typename T, int I = 0>
+int run_block_compiled(const void* audio, const float* window, const float* roots,
+                       const float* chirp, const Plan& plan, int bc, float* out, int n_frames,
+                       int hop, cudaStream_t s, int* info) {
+  if constexpr (I == N_BLOCK_COMPILED || build_of(1) != ORCAI_ODD) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (bc != I)
+      return run_block_compiled<T, I + 1>(audio, window, roots, chirp, plan, bc, out, n_frames,
+                                          hop, s, info);
+    using F = BlockFixed<I>;
+    int device = 0, limit = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    Layout lay{};
+    lay.block = 1;
+    lay.compiled = I;
+    lay.threads = F::GT * F::GROUPS;
+    lay.units = F::GROUPS;
+    lay.frames = 2;
+    const int tables = F::TW_LEN * 8 + (plan.chirp_n ? F::N * 8 : 0);
+    const int a_bytes = plan.chirp_n * 8, buffers = F::GROUPS * F::ZBUF * 8;
+    lay.tables = a_bytes > 0 && round16(tables + a_bytes) + buffers <= limit;
+    lay.z_off = round16(tables + (lay.tables ? a_bytes : 0));
+    lay.bytes = lay.z_off + buffers;
+    if (lay.bytes > limit) return static_cast<int>(cudaErrorInvalidConfiguration);
+    return run_block<T, I>(audio, window, roots, chirp, plan, lay, out, n_frames, hop, s, info);
+  }
+}
+
 template <typename T>
 int launch(const void* audio, const float* window, const float* roots, const float* chirp,
            const Plan& plan, float* out, int n_frames, int hop, cudaStream_t s, int* info) {
@@ -1026,6 +1462,9 @@ int launch(const void* audio, const float* window, const float* roots, const flo
   Layout lay;
   if (choose_layout(plan, hop, static_cast<int>(sizeof(T)), compiled_index(plan), &lay))
     return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (lay.block && block_compiled_index(plan) >= 0)
+    return run_block_compiled<T>(audio, window, roots, chirp, plan, block_compiled_index(plan),
+                                 out, n_frames, hop, s, info);
   if (lay.block)  // no radix-11 block kernel: its plans run the radix-13 one
     return run<T, true, (ORCAI_ODD < 13 ? 13 : ORCAI_ODD)>(audio, window, roots, chirp, plan, lay,
                                                          out, n_frames, hop, s, info);
@@ -1073,10 +1512,11 @@ extern "C" int orcai_dft_mixed(const void* audio, int dtype, const float* window
 }
 
 // What orcai_dft_mixed would launch for these arguments (chirp nonzero: the
-// chirp mode) on the current device, into info[7]: the layout (0 warp, 1
-// block), threads a block, blocks resident on an SM, frames a group,
-// dynamic shared memory a block, registers and local memory a thread.
-// Launches nothing.
+// chirp mode) on the current device, into info[9]: the layout (0 warp, 1
+// block, 2 compiled), threads a block, blocks resident on an SM, frames a
+// group, dynamic shared memory a block, registers and local memory a
+// thread, frame pairs in flight on an SM, and 1 where the plan runs a
+// kernel compiled whole. Launches nothing.
 extern "C" int orcai_dft_mixed_layout(int dtype, const int* plan, int n_fft, int hop, int chirp,
                                       int* info) {
   static const float dummy = 0.0f;

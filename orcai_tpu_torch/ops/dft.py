@@ -28,8 +28,11 @@ n_fft alone (`dft_route`), and runs the plain PyTorch version,
   as `exchange_pads` derives them); any other plan is read at run time,
   each warp owning a frame pair where four warps fit on an SM (the warp
   layout, up to 2048 at the usual hops) and the whole block owning one
-  otherwise. `mixed_layout` reports the layout the card takes.
-  `_fft_mixed_reference` is the arithmetic of all three step by step;
+  otherwise (the block layout); the block layout's powers of two (4096,
+  8192; `block_compiled`) are compiled whole too, a group of threads a
+  frame pair and several groups a block. `mixed_layout` reports the
+  layout the card takes. `_fft_mixed_reference` is the arithmetic of all
+  of them step by step;
 - "cluster", csrc/dft_cluster.cu, at an n_fft from MIXED_MAX + 1 to
   CLUSTER_MAX (81920) whose prime factors are all in CLUSTER_PRIMES (no 29,
   31): one frame pair's FFT on a thread block cluster of 2, 4 or 8 CTAs that
@@ -1230,7 +1233,15 @@ def _staged_plan_array(n: int, split: tuple[int, int] | None = None, chirp_n: in
 def _chirp_kernel(n_fft: int) -> str:
     """The kernel of the chirp mode at n_fft: "mixed" (the block layout of
     csrc/dft_mixed.cu) where chirp_length(n_fft) is within MIXED_MAX,
-    "cluster" (csrc/dft_cluster.cu) above it."""
+    "cluster" (csrc/dft_cluster.cu) above it. On the block layout an M of
+    4096 or 8192 (2038, 4078; `block_compiled`) runs a kernel compiled
+    whole, three frame pairs in flight on an SM at 4096: its first pass
+    reads and sums only the nonzero half of its zero-padded input, the
+    product with B stays in registers between the two FFTs where their
+    first and last radix agree, and the second FFT's last pass writes only
+    the outputs below M/2 that the untangle reads (`_chirp_reference`
+    computes every value; the values the kernel keeps are the same). Any
+    other M (470's 952) runs the generic block kernel."""
     return "mixed" if chirp_length(n_fft) <= MIXED_MAX else "cluster"
 
 
@@ -1433,6 +1444,23 @@ def staged_layout(n_fft: int, dtype: torch.dtype = torch.int16,
 
 
 MIXED_LAYOUTS = ("warp", "block", "compiled")  # csrc/dft_mixed.cu's layouts, by the code it reports
+# csrc/dft_mixed.cu's BLOCK_COMPILED, the block layout's plans compiled
+# whole: (the FFT's size, n_fft or the chirp mode's M; the chirp mode) ->
+# (threads of a group, which owns a frame pair; groups a block)
+MIXED_BLOCK_COMPILED = {(4096, False): (256, 3), (4096, True): (256, 3),
+                        (8192, False): (512, 1), (8192, True): (512, 1)}
+
+
+def block_compiled(n_fft: int) -> tuple[int, int] | None:
+    """(threads a group, groups a block) where csrc/dft_mixed.cu's block
+    layout runs n_fft on a plan compiled whole: its FFT, n_fft on the mixed
+    route or chirp_length(n_fft) in the chirp mode, of a power of two above
+    the warp layout's reach (MIXED_BLOCK_COMPILED: 4096 and 8192; 2038 on
+    M = 4096, 4078 on 8192); None for any other n_fft."""
+    route = dft_route(n_fft)
+    if route == "chirp" and _chirp_kernel(n_fft) == "mixed":
+        return MIXED_BLOCK_COMPILED.get((chirp_length(n_fft), True))
+    return MIXED_BLOCK_COMPILED.get((n_fft, False)) if route == "mixed" else None
 
 
 def mixed_layout(n_fft: int, hop: int, dtype: torch.dtype = torch.int16,
@@ -1441,10 +1469,14 @@ def mixed_layout(n_fft: int, hop: int, dtype: torch.dtype = torch.int16,
     mixed route, the chirp mode where it runs on the block layout, or
     FFT_SIZES, where the FFT route runs and the kernel is called directly) on the
     current CUDA device: its layout (MIXED_LAYOUTS), threads a block, blocks
-    resident on an SM and the warps they make, frames a group, dynamic
-    shared memory a block, registers and local (spilled) memory a thread.
-    `library` asks another build of the source (a tool's) in place of
-    ops/_build's. Launches nothing; raises where a launch would fail."""
+    resident on an SM and the warps they make, frame pairs in flight on an
+    SM (a warp's each in the warp and compiled layouts; in the block layout
+    one a block, or one a group of a block compiled whole), whether its plan
+    is compiled whole (the compiled layout; the block layout at
+    block_compiled's sizes), frames a group, dynamic shared memory a block,
+    registers and local (spilled) memory a thread. `library` asks another
+    build of the source (a tool's) in place of ops/_build's. Launches
+    nothing; raises where a launch would fail."""
     route = dft_route(n_fft)
     chirp = route == "chirp" and _chirp_kernel(n_fft) == "mixed"
     if route not in ("mixed", "fft") and not chirp:  # FFT_SIZES: the kernel called directly
@@ -1455,14 +1487,15 @@ def mixed_layout(n_fft: int, hop: int, dtype: torch.dtype = torch.int16,
     i32 = ctypes.c_int
     fn.argtypes = [i32, ctypes.POINTER(i32), i32, i32, i32, ctypes.POINTER(i32)]
     fn.restype = i32
-    info = (i32 * 7)()
+    info = (i32 * 9)()
     err = fn(_DTYPE_CODES[dtype], _plan_array(n), n_fft, hop, int(chirp), info)
     if err != 0:
         raise RuntimeError(f"dft_magnitude at n_fft {n_fft}: no layout of csrc/dft_mixed.cu "
                            f"launches (CUDA error {err})")
-    layout, threads, blocks, frames, smem, registers, local = info
+    layout, threads, blocks, frames, smem, registers, local, pairs, compiled = info
     return {"layout": MIXED_LAYOUTS[layout], "threads": threads, "blocks_per_sm": blocks,
-            "resident_warps": blocks * threads // 32, "group_frames": frames, "smem_bytes": smem,
+            "resident_warps": blocks * threads // 32, "pairs_per_sm": pairs,
+            "compiled": bool(compiled), "group_frames": frames, "smem_bytes": smem,
             "registers": registers, "local_bytes": local}
 
 

@@ -19,8 +19,9 @@ first 512 frames alone) and times it with
 CUDA events over --iters launches behind a short device spin. Prints one
 JSON line of every run's ms by size, whether the two trees' outputs are
 bit-equal at each size (a sha256 of each run's output) and, where they are
-not, their largest difference on the first 64 frames, then the card's name
-and power limit.
+not, their largest difference on the first 64 frames, and each size whose
+check failed in a tree's run (timed all the same; the tool then exits 1),
+then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ from pathlib import Path
 
 # the mixed route's compiled layout (the spectral wires' 384 and 352), its
 # warp layout (768, 704, 416, 480, 1024, 2048, radices 17, 19, 23, 29 and
-# 31) and block layout (4096, 8192, 4352), the cluster route's compiled
+# 31) and block layout (4096, 8192, 4352; 4078, the chirp mode on M =
+# 8192, beside 2038's M = 4096), the cluster route's compiled
 # plans (16384, 32768, and 65536 on 8 CTAs of one an SM, on 11251 frames)
 # and its generic kernel (20736, radix 3, and 40960, radix 5, on 11251
 # frames), the chirp mode on both layouts (24578 on 8 CTAs of one an SM,
@@ -44,7 +46,7 @@ from pathlib import Path
 # whole that no other size here runs, and 10672, whose one-pass columns of
 # 16 do not) and its chirp mode (40962 and 49154 on 301 frames)
 DEFAULT_SIZES = ("384/192,352/176,768/384,704/352,416/208,480/240,1024/256,2048/512,1088/544,"
-                 "1216/608,1472/736,368/184,464/232,496/248,1856/928,1984/992,4096/2048,"
+                 "1216/608,1472/736,368/184,464/232,496/248,1856/928,1984/992,4096/2048,4078/2039,"
                  "8192/4096,4352/2176,16384/8192,32768/16384,65536/32768/11251,"
                  "20736/10368/11251,40960/20480/11251,470/235,2038/1019,8198/4099,16418/8209,"
                  "24578/12289/11251,14848/7424/301,40962/20481/301,49154/24577/301,"
@@ -63,7 +65,7 @@ from orcai_tpu_torch.ops.wire_codec import mulaw_decode_f32, mulaw_encode
 sizes, default_frames, iters, seed = json.loads(sys.argv[2]), *map(int, sys.argv[3:6])
 kind, keep = sys.argv[6], sys.argv[7]
 dev = torch.device("cuda")
-out, sha = {}, {}
+out, sha, failed = {}, {}, {}
 for n_fft, hop, *named in sizes:
     frames = named[0] if named else default_frames
     rng = np.random.default_rng(seed + n_fft)
@@ -84,7 +86,7 @@ for n_fft, hop, *named in sizes:
         exact = torch.fft.rfft(frames64 * torch.from_numpy(window).to(dev), dim=1).abs()
         kernel = float((got[:512] - exact).abs().max())
         if not kernel <= 2e-4:
-            raise SystemExit(f"{n_fft}/{hop}: kernel {kernel} from the float64 rFFT")
+            failed[key] = f"kernel {kernel} from the float64 rFFT"
         del frames64, exact
     want = got if n_fft > 8192 else dft_magnitude_plain(x, window, n_fft=n_fft, hop=hop)
     err = float((got - want).abs().max())
@@ -93,8 +95,8 @@ for n_fft, hop, *named in sizes:
         exact = torch.fft.rfft(frames64 * torch.from_numpy(window).to(dev), dim=1).abs()
         kernel, plain = float((got - exact).abs().max()), float((want - exact).abs().max())
         if not (plain > 2e-4 and kernel <= 2e-4):
-            raise SystemExit(f"{n_fft}/{hop}: kernel {err} from plain; against float64 "
-                             f"kernel {kernel}, plain {plain}")
+            failed[key] = (f"kernel {err} from plain; against float64 kernel {kernel}, "
+                           f"plain {plain}")
         del frames64, exact
     del got, want
     for _ in range(3):
@@ -108,7 +110,7 @@ for n_fft, hop, *named in sizes:
     end.record()
     end.synchronize()
     out[key] = start.elapsed_time(end) / iters
-print(json.dumps({"ms": out, "sha256": sha}))
+print(json.dumps({"ms": out, "sha256": sha, "failed": failed}))
 """
 
 
@@ -148,6 +150,11 @@ def main(argv=None) -> int:
                                      f"{proc.stderr[-3000:]}")
                 runs[name].append(json.loads(proc.stdout.strip().splitlines()[-1]))
         first = [runs[name][0] for name in args.trees]
+        # a size whose check failed in a run is timed all the same, and named
+        # here; the tool then exits 1
+        failed = {name: {size: msg for r in rs for size, msg in r["failed"].items()}
+                  for name, rs in runs.items()}
+        failed = {name: sizes for name, sizes in failed.items() if sizes}
         bit_equal = {size: first[0]["sha256"][size] == first[1]["sha256"][size]
                      for size in first[0]["sha256"]}
         differ = {}
@@ -160,12 +167,13 @@ def main(argv=None) -> int:
     print(json.dumps({"frames": args.frames, "dtype": args.dtype, "order": "A B B A",
                       "ms": {name: {size: [r["ms"][size] for r in rs] for size in rs[0]["ms"]}
                              for name, rs in runs.items()},
-                      "bit_equal": bit_equal, "max_abs_diff_first_64_frames": differ}),
+                      "bit_equal": bit_equal, "max_abs_diff_first_64_frames": differ,
+                      "failed": failed}),
           flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    return 0
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

@@ -1,27 +1,41 @@
-"""csrc/dft_mixed.cu's FFT mode taken apart on one CUDA device: where its
-time goes between the memory path and the arithmetic.
+"""csrc/dft_mixed.cu taken apart on one CUDA device, in its FFT mode and
+in its chirp mode: where its time goes between the memory path, the
+tables and the arithmetic.
 
     python -m orcai_tpu_torch.tools.probe_mixed [--sizes 384/192,352/176]
-        [--compile 512] [--frames 32768] [--dtypes int16] [--iters 20] [--seed 0] [--sass]
+        [--compile 512] [--block-shapes 8192:512:1,4096c:256:2] [--frames 32768] [--dtypes int16]
+        [--iters 20] [--seed 0] [--sass]
 
-Three copies of the source (`probe_source`) are compiled into
+Five copies of the source (`probe_source`) are compiled into
 _build/probe/, for each build a size needs (ops/dft.py::_build_variant):
-the kernel as ops/_build.py builds it, one with no passes (the span copies
-and a store of each row from its windowed samples) and one with the passes
-and the untangle but no row stored. --compile adds the plans of those
+the kernel as ops/_build.py builds it; one with no passes (the span copies
+and a store of each row from its windowed samples; in the compiled block
+layout the first pass's loads and butterflies, their values stored as the
+rows); one with the passes
+and the untangle but no row stored; one with no table loads (the roots,
+the window and the chirp mode's w a, B and a taken from constants the
+compiler cannot fold); and one whose chirp mode runs no second FFT (the
+untangle reads the first FFT's output). --compile adds the plans of those
 n_fft to the copies' table of plans compiled whole (COMPILED), so that
 the compiled layout can be read at a size the shipped build runs on
 another layout or route (512, the FFT route's, beside whose kernel it is
-then timed). For each size and sample type: the layout the kernel takes
-(ops/dft.py::mixed_layout: threads, resident warps, registers, local
-memory), the three copies' times with CUDA events over --iters launches
-behind a short device spin, and the byte bound (each sample read once,
-each magnitude written once, at 3.35 TB/s). The full copy is held
-against dft_magnitude_plain (atol 2e-4) first. Prints one JSON line a size
-and type, one of every build's ptxas lines, with --sass one of each kernel
-of the full builds counted by `cuobjdump -sass` (static instructions by
-class: floating point, shared and global memory, control, the rest), then
-the card's name and power limit.
+then timed). --block-shapes gives the block layout's plans compiled whole
+(BLOCK_COMPILED, a row a mode: n the FFT mode's, nc the chirp mode's M)
+other threads a group and groups a block in the copies, to read another
+shape on the card. --sizes takes any n_fft of the kernel: the mixed route's
+(every layout), 512, and the chirp mode's on the block layout (470,
+2038). For each size and sample type: the layout the kernel takes
+(ops/dft.py::mixed_layout: threads, resident warps, frame pairs in flight
+on an SM, compiled or not, registers, local memory), the copies' times
+with CUDA events over --iters launches behind a short device spin, and
+the byte bound (each sample read once, each magnitude written once, at
+3.35 TB/s). The full copy is held first to 2e-4 of dft_magnitude_plain or
+of the float64 rFFT on the first 2048 frames (the plain fp32 GEMM misses
+2e-4 from 4096 up). Prints one JSON line a size and type, one of every
+build's ptxas lines, with --sass one of each kernel of the full builds
+counted by `cuobjdump -sass` (static instructions by class: floating
+point, shared and global memory, control, the rest), then the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -37,9 +51,11 @@ from pathlib import Path
 
 from orcai_tpu_torch.ops import _build
 
-PROBES = {0: "kernel", 1: "no_passes", 2: "no_stores"}
+PROBES = {0: "kernel", 1: "no_passes", 2: "no_stores", 3: "no_tables", 4: "no_second_fft"}
 # each probe's edits of csrc/dft_mixed.cu: (the text, what takes its place),
-# the text found exactly once; the compiled layout's and the warp layout's
+# the text found exactly once; the compiled layout's, the warp and block
+# layouts' (transform_pair, shared) and, where a probe reaches it, the
+# chirp mode's
 ROWS_FROM_SAMPLES = """\
   {  // no passes: each row stored from its windowed samples
     float* row = out + static_cast<long long>(t) * NBINS;
@@ -52,25 +68,65 @@ ROWS_FROM_SAMPLES = """\
   }
 """
 GENERIC_ROWS_FROM_SAMPLES = """\
-  if (plan.chirp_n == 0) {  // no passes: each row stored from its windowed samples
-    const int n_bins = plan.n / 2 + 1;
+  {  // no passes: each row stored from its windowed samples (w a's real part)
+    const int n = plan.chirp_n ? plan.chirp_n : plan.n, n_bins = n / 2 + 1;
     float* row = out + static_cast<long long>(t) * n_bins;
     for (int k = lane; k < n_bins; k += width) {
-      row[k] = win[k] * sample_to_f32(xa[k]);
-      if (t + 1 < n_frames) row[n_bins + k] = win[k] * sample_to_f32(xa[hop + k]);
+      const float w = plan.chirp_n ? chirp[k].x : win[k];
+      row[k] = w * sample_to_f32(xa[k]);
+      if (t + 1 < n_frames) row[n_bins + k] = w * sample_to_f32(xa[hop + k]);
     }
     fft_sync<BLOCK>();
     return;
   }
 """
+BLOCK_ROWS_FROM_SAMPLES = """\
+    {  // no passes: the first pass's values stored as the rows
+      const int nb = (CHIRP ? n_fft : N) / 2 + 1;
+      float* row = out + static_cast<long long>(t) * nb;
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const int n = tid + r * (N / 16);
+        if (n < nb) {
+          row[n] = v.re[0][r];
+          if (has_b) row[nb + n] = v.im[0][r];
+        }
+      }
+      continue;
+    }
+"""
+BLOCK_FIRST = "    group_sync<GT, GROUPS>(group);  // the previous pair's untangle is done with z\n"
 KEPT_LIVE = "if (__float_as_uint(ma) == 0xFFFFFFFFu) row_a[k] = mb;  // no stores: kept live\n"
 FIRST_PASS = "  compiled_first<I>(xa, hop, wreg, win, za, lane);\n"
 GENERIC_PASSES = "  if (!BLOCK || plan.chirp_n == 0) {\n"
+CONSTANT = "make_float2(0.6f, 0.8f)"  # a table value's stand-in the compiler cannot fold
+SECOND_FFT = ("    const float2* u = fft<BLOCK, ODD>(ProductLoad{y, s, g, chirp + 2 * n_fft}, other, y, tw,\n"
+              "                                      plan, lane, width);\n")
 EDITS = {
     1: ((FIRST_PASS, ROWS_FROM_SAMPLES + FIRST_PASS),
-        (GENERIC_PASSES, GENERIC_ROWS_FROM_SAMPLES + GENERIC_PASSES)),
+        (GENERIC_PASSES, GENERIC_ROWS_FROM_SAMPLES + GENERIC_PASSES),
+        (BLOCK_FIRST, BLOCK_ROWS_FROM_SAMPLES + BLOCK_FIRST)),
     2: (("      row_a[k] = ma;\n      if (has_b) row_a[NBINS + k] = mb;\n", "      " + KEPT_LIVE),
         ("    row_a[k] = ma;\n    if (has_b) row_a[n_bins + k] = mb;\n", "    " + KEPT_LIVE)),
+    # the roots, the window and the chirp tables (w a, B, a) from constants
+    3: (("      const float2 w = tw[(r - 1) * ns + jm];\n",
+         f"      const float2 w = {CONSTANT};  // no tables\n"),
+        ("    const float w = win[n];\n", "    const float w = 0.5f;  // no tables\n"),
+        ("    const float2 c = wa[n];\n", f"    const float2 c = {CONSTANT};  // no tables\n"),
+        ("    const float2 v = y[padded(m, s, g)], w = b[m];\n",
+         f"    const float2 v = y[padded(m, s, g)], w = {CONSTANT};  // no tables\n"),
+        ("    const float2 v = u[padded(k, s, g)], c = a[k];\n",
+         f"    const float2 v = u[padded(k, s, g)], c = {CONSTANT};  // no tables\n"),
+        # the compiled layouts' rounds (round_sums) and the compiled block
+        # layout's chirp tables (its window in registers from the start)
+        ("    const float2 w = twp[(r - 1) * NS + jm];\n",
+         f"    const float2 w = {CONSTANT};  // no tables\n"),
+        ("    const float2 w = bq[tid + r * NB];\n", f"    const float2 w = {CONSTANT};  // no tables\n"),
+        ("      c = wa[n];\n", f"      c = {CONSTANT};  // no tables\n")),
+    # the chirp mode's untangle reads the first FFT's output
+    4: ((SECOND_FFT, "    const float2* u = y;  // no second FFT\n    (void)other;\n"),
+        ("      second_fft<I>(z, tw, bq, tid, group, y);\n",
+         "      store_last<I>(z, tid, group, y);  // no second FFT\n")),
 }
 TABLE = "constexpr Compiled COMPILED[] = {\n"
 HBM_BYTES_PER_S = 3.35e12
@@ -106,13 +162,22 @@ def sass_counts(library: Path) -> dict:
     return out
 
 
-def probe_source(probe: int, compile_sizes=()) -> str:
-    """csrc/dft_mixed.cu with probe `probe`'s edits (PROBES; 0 none) and the
+def probe_source(probe: int, compile_sizes=(), shapes=None) -> str:
+    """csrc/dft_mixed.cu with probe `probe`'s edits (PROBES; 0 none), the
     plans of `compile_sizes` (ops/dft.py::fft_plan, radices of 16 at most in
-    3 passes at most) added to its COMPILED table."""
+    3 passes at most) added to its COMPILED table, and the block plans of
+    `shapes` ({(n, chirp): (threads, groups)}) given those threads a group
+    and groups a block in its BLOCK_COMPILED table."""
     from orcai_tpu_torch.ops.dft import fft_plan
 
     source = (_build.CSRC / "dft_mixed.cu").read_text()
+    for (n, chirp), (threads, groups) in (shapes or {}).items():
+        radix = ", ".join(map(str, fft_plan(n)))
+        row = re.compile(r"(\{\d, \{" + radix + r"\}, \{[\d, ]+\}, \{[\d, ]+\}, "
+                         + str(int(chirp)) + r", )\d+, \d+\}")
+        if len(row.findall(source)) != 1:
+            raise SystemExit(f"probe_mixed: BLOCK_COMPILED holds no plan of {n} once")
+        source = row.sub(lambda m: f"{m.group(1)}{threads}, {groups}}}", source)
     entries = ""
     for n in compile_sizes:
         plan = fft_plan(n)
@@ -127,7 +192,7 @@ def probe_source(probe: int, compile_sizes=()) -> str:
     return source
 
 
-def build_probes(variants, compile_sizes=()) -> tuple[dict, dict]:
+def build_probes(variants, compile_sizes=(), shapes=None) -> tuple[dict, dict]:
     """{(variant, probe): library path} and {name: ptxas lines}, every nvcc
     at once."""
     out_dir = _build.BUILD_DIR / "probe"
@@ -135,7 +200,7 @@ def build_probes(variants, compile_sizes=()) -> tuple[dict, dict]:
     jobs = {}
     for probe in PROBES:
         src = out_dir / f"dft_mixed-p{probe}.cu"
-        src.write_text(probe_source(probe, compile_sizes))
+        src.write_text(probe_source(probe, compile_sizes, shapes))
         for variant in variants:
             flags = (*_build._flags(variant), f"-I{_build.CSRC}")
             path = out_dir / f"libdft_mixed{_build._tag(variant)}-p{probe}.so"
@@ -158,6 +223,9 @@ def main(argv=None) -> int:
     parser.add_argument("--sizes", default="384/192,352/176")
     parser.add_argument("--compile", default="",
                         help="n_fft whose plans the copies compile whole, comma-separated")
+    parser.add_argument("--block-shapes", default="",
+                        help="n:threads:groups of the block plans compiled whole (nc: the chirp "
+                             "mode's plan of M = n), comma-separated")
     parser.add_argument("--frames", type=int, default=32768)
     parser.add_argument("--dtypes", default="int16")
     parser.add_argument("--iters", type=int, default=20)
@@ -169,8 +237,9 @@ def main(argv=None) -> int:
     import torch
 
     from orcai_tpu_torch.ops.dft import (
-        _DTYPE_CODES, _build_variant, _plan_array, _route_tables, dft_magnitude,
-        dft_magnitude_plain, dft_route, mixed_layout)
+        _DTYPE_CODES, _build_variant, _chirp_kernel, _plan_array, _route_tables, _to_f32,
+        chirp_length,
+        dft_magnitude, dft_magnitude_plain, dft_route, mixed_layout)
     from orcai_tpu_torch.ops.frontend import hann_window
     from orcai_tpu_torch.ops.wire_codec import mulaw_encode
 
@@ -180,11 +249,20 @@ def main(argv=None) -> int:
     kinds = args.dtypes.split(",")
     torch_dtype = {"f32": torch.float32, "int16": torch.int16, "uint8": torch.uint8}
     compile_sizes = tuple(int(v) for v in args.compile.split(",") if v)
+    shapes = {(int(n.rstrip("c")), n.endswith("c")): (int(t), int(g)) for n, t, g in
+              (v.split(":") for v in args.block_shapes.split(",") if v)}
+    def chirp(n_fft):  # the chirp mode on the block layout
+        return dft_route(n_fft) == "chirp" and _chirp_kernel(n_fft) == "mixed"
+
+    def points(n_fft):  # the FFT's: n_fft, or the chirp mode's convolution length
+        return chirp_length(n_fft) if chirp(n_fft) else n_fft
+
     for n_fft, _ in sizes:
-        if dft_route(n_fft) not in ("mixed", "fft"):
-            raise SystemExit(f"probe_mixed: n_fft {n_fft} does not take the mixed or FFT route")
-    variants = sorted({_build_variant("mixed", n, torch_dtype[k]) for n, _ in sizes for k in kinds})
-    paths, ptxas = build_probes(variants, compile_sizes)
+        if dft_route(n_fft) not in ("mixed", "fft") and not chirp(n_fft):
+            raise SystemExit(f"probe_mixed: n_fft {n_fft} does not take csrc/dft_mixed.cu")
+    variants = sorted({_build_variant("mixed", points(n), torch_dtype[k])
+                       for n, _ in sizes for k in kinds})
+    paths, ptxas = build_probes(variants, compile_sizes, shapes)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     libs = {}
     for key, path in paths.items():
@@ -216,28 +294,45 @@ def main(argv=None) -> int:
         host = {"int16": pcm, "uint8": mulaw_encode(pcm),
                 "f32": (0.3 * rng.standard_normal(n)).astype(np.float32)}
         window = hann_window(n_fft)
-        win, roots = _route_tables("mixed", window.tobytes(), dev)
+        if chirp(n_fft):
+            table, roots = _route_tables("chirp", window.tobytes(), dev)
+            tables = (None, roots.data_ptr(), table.data_ptr())
+        else:
+            win, roots = _route_tables("mixed", window.tobytes(), dev)
+            tables = (win.data_ptr(), roots.data_ptr(), None)
         for kind in kinds:
             x = torch.from_numpy(host[kind]).to(dev)
-            variant = _build_variant("mixed", n_fft, x.dtype)
+            variant = _build_variant("mixed", points(n_fft), x.dtype)
             out = torch.empty((args.frames, n_fft // 2 + 1), dtype=torch.float32, device=dev)
 
             def launch(probe):
                 err = libs[(variant, probe)].orcai_dft_mixed(
-                    x.data_ptr(), _DTYPE_CODES[x.dtype], win.data_ptr(), roots.data_ptr(), None,
-                    _plan_array(n_fft), out.data_ptr(), args.frames, n_fft, hop, stream)
+                    x.data_ptr(), _DTYPE_CODES[x.dtype], *tables, _plan_array(points(n_fft)),
+                    out.data_ptr(), args.frames, n_fft, hop, stream)
                 if err != 0:
                     raise SystemExit(f"probe_mixed: {n_fft}/{hop} probe {probe}: CUDA error {err}")
 
             launch(0)
             err = float((out - dft_magnitude_plain(x, window, n_fft=n_fft, hop=hop)).abs().max())
-            if not err <= 2e-4:
-                raise SystemExit(f"probe_mixed: {n_fft}/{hop} {kind}: {err} from plain")
+            # the first 2048 frames against the float64 rFFT: the bar where the
+            # plain fp32 GEMM itself misses 2e-4 (from 4096 up)
+            x64 = x.double() / 32768.0 if kind == "int16" else _to_f32(x).double()
+            frames64 = x64[:2047 * hop + n_fft].unfold(0, n_fft, hop)
+            exact = torch.fft.rfft(frames64 * torch.from_numpy(window).to(dev), dim=1).abs()
+            err64 = float((out[:frames64.shape[0]] - exact).abs().max())
+            del x64, frames64, exact
+            if not (err <= 2e-4 or err64 <= 2e-4):
+                raise SystemExit(f"probe_mixed: {n_fft}/{hop} {kind}: {err} from plain, "
+                                 f"{err64} from float64")
             line = {"n_fft": n_fft, "hop": hop, "frames": args.frames, "dtype": kind,
-                    "max_abs_err": err, "bound_ms": (x.numel() * x.element_size()
-                                                     + out.numel() * 4) / HBM_BYTES_PER_S * 1e3,
+                    "mode": "chirp" if chirp(n_fft) else "fft", "length": points(n_fft),
+                    "max_abs_err": err, "max_abs_err_vs_float64": err64,
+                    "bound_ms": (x.numel() * x.element_size()
+                                 + out.numel() * 4) / HBM_BYTES_PER_S * 1e3,
                     **mixed_layout(n_fft, hop, x.dtype, libs[(variant, 0)])}
             for probe, name in PROBES.items():
+                if probe == 4 and not chirp(n_fft):
+                    continue  # the FFT mode runs one FFT
                 line[f"{name}_ms"] = cuda_ms(lambda: launch(probe))
             if dft_route(n_fft) == "fft":  # the FFT route's kernel on the same tile
                 line["fft_route_ms"] = cuda_ms(

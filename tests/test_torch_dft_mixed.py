@@ -1,8 +1,11 @@
-"""csrc/dft_mixed.cu's compiled layout on the CPU: the plans it compiles
-whole against the host's plans and the spectral wires' sizes, the exchange
-layouts it derives at compile time (csrc/dft_pads.cuh, built with g++)
-against the host's, the builds they go into, the window that carries the
-samples' scale, the probe tool's copies of the source, and the mixed
+"""csrc/dft_mixed.cu's compiled layouts on the CPU: the plans it compiles
+whole (the warp layout's and the block layout's) against the host's plans,
+the spectral wires' sizes and the powers of two above the warp layout's
+reach, the exchange layouts it derives at compile time (csrc/dft_pads.cuh,
+built with g++) or holds against the host's, the pruned radix-16 butterfly
+of the chirp mode's first pass (g++), the builds they go into, the window
+that carries the samples' scale, the probe tool's copies of the source,
+and the mixed
 route's arithmetic (ops/dft.py::_fft_mixed_reference, which the compiled
 and warp layouts run pass for pass) against the Pallas kernel in
 interpret mode and numpy's float64 rFFT, atol 2e-4."""
@@ -20,13 +23,18 @@ from orcai_tpu.ops.pallas_dft import dft_magnitude as jax_dft_magnitude
 from orcai_tpu.ops.wire_codec import mulaw_decode_host, mulaw_encode
 from orcai_tpu_torch.ops import _build
 from orcai_tpu_torch.ops.dft import (
+    MIXED_BLOCK_COMPILED,
+    MIXED_MAX,
     _build_variant,
     _fft_mixed_reference,
+    block_compiled,
+    chirp_length,
     dft_magnitude_plain,
     dft_route,
     exchange_pads,
     fft_plan,
     mixed_layout,
+    pass_roots,
 )
 from orcai_tpu_torch.ops.frontend import hann_window
 from orcai_tpu_torch.ops.spectral import spectral_geometry
@@ -67,6 +75,99 @@ def test_compiled_plans_are_the_hosts():
     for n, radices in zip(sizes, plans):
         assert fft_plan(n) == radices, n
         assert dft_route(n) == "mixed", n
+
+
+def _block_compiled(source: str = SOURCE) -> list[dict]:
+    """csrc/dft_mixed.cu's BLOCK_COMPILED table: each row's radices, pads,
+    mode, threads a group and groups a block."""
+    body = source[source.index("constexpr BlockCompiled BLOCK_COMPILED[] = {"):]
+    body = body[:body.index("};")]
+    rows = []
+    for n_passes, radix, pad_s, pad_g, chirp, threads, groups in re.findall(
+            r"\{(\d), \{([\d, ]+)\}, \{([\d, ]+)\}, \{([\d, ]+)\}, ([01]), (\d+), (\d+)\}",
+            body):
+        p = int(n_passes)
+        radices, s, g = (tuple(int(v) for v in x.split(","))[:p] for x in (radix, pad_s, pad_g))
+        rows.append({"radix": radices, "pads": tuple(zip(s, g)), "chirp": chirp == "1",
+                     "threads": int(threads), "groups": int(groups)})
+    return rows
+
+
+def test_block_compiled_plans_are_the_hosts():
+    """The block layout's plans compiled whole are fft_plan's of every power
+    of two above the warp layout's reach up to MIXED_MAX (4096 and 8192),
+    a row for each mode, each with exchange_pads' layouts and the host's
+    threads and groups (MIXED_BLOCK_COMPILED); both modes reach them (4096
+    and 8192 on the mixed route; 2038 and 4078 = 2 * 2039 in the chirp
+    mode, on M = 4096 and 8192), and block_compiled names exactly those
+    n_fft. Each pass's butterflies fill a group's threads evenly, and a
+    block's roots, buffers and, in the chirp mode, B fit in the card's 227
+    KB."""
+    rows = _block_compiled()
+    keys = [(int(np.prod(row["radix"])), row["chirp"]) for row in rows]
+    assert keys == [(n, chirp) for n in (1 << 12, 1 << 13) for chirp in (False, True)]
+    assert 1 << 13 == MIXED_MAX and set(keys) == set(MIXED_BLOCK_COMPILED)
+    for (n, chirp), row in zip(keys, rows):
+        assert row["radix"] == fft_plan(n) and dft_route(n) == "mixed", n
+        assert row["pads"] == exchange_pads(n), n
+        assert (row["threads"], row["groups"]) == MIXED_BLOCK_COMPILED[(n, chirp)]
+        assert row["radix"][0] == 16 and row["threads"] % 32 == 0 and row["groups"] <= 15
+        assert all(n // r % row["threads"] == 0 for r in row["radix"]), n
+        zbuf = max(n - 1 + (((n - 1) >> s) << g if s else 0) + 1 for s, g in row["pads"])
+        roots = len(pass_roots(n, row["radix"])) * 8
+        assert roots + row["groups"] * zbuf * 8 + (8 * n if chirp else 0) <= 232448, n
+    assert chirp_length(2038) == 4096 and chirp_length(4078) == 8192
+    for n_fft, key in ((4096, (4096, False)), (8192, (8192, False)), (2038, (4096, True)),
+                       (4078, (8192, True))):
+        assert block_compiled(n_fft) == MIXED_BLOCK_COMPILED[key]
+    reach = [n for n in range(2, MIXED_MAX + 1) if block_compiled(n)]
+    assert all(chirp_length(n) in (4096, 8192) if dft_route(n) == "chirp" else n in (4096, 8192)
+               for n in reach)
+    assert {4096, 8192, 2038, 4078} <= set(reach) and not {2048, 4352, 470} & set(reach)
+
+
+BUTTERFLIES_MAIN = r"""
+#include <cstdint>
+#include <cstdio>
+#include <utility>
+#define __device__
+#define __forceinline__ inline
+namespace {
+#include "dft_butterflies.cuh"
+}
+int main() {  // seeded inputs whose upper half is zero: dft16_half against dft
+  unsigned s = 1;
+  long differ = 0;
+  for (int trial = 0; trial < 20000; ++trial) {
+    float re[16], im[16], hr[16], hi[16];
+    for (int i = 0; i < 16; ++i) {
+      s = s * 1664525u + 1013904223u;
+      re[i] = hr[i] = i < 8 ? static_cast<int>(s >> 8) / 8388608.0f - 1.0f : 0.0f;
+      s = s * 1664525u + 1013904223u;
+      im[i] = hi[i] = i < 8 ? static_cast<int>(s >> 8) / 8388608.0f - 1.0f : 0.0f;
+    }
+    dft(re, im);
+    dft16_half(hr, hi);
+    for (int i = 0; i < 16; ++i) differ += !(re[i] == hr[i] && im[i] == hi[i]);
+  }
+  std::printf("%ld\n", differ);
+}
+"""
+
+
+def test_half_radix16_is_the_full_one_on_a_zero_upper_half(tmp_path):
+    """The chirp mode's compiled first pass leaves out the sums of its zero
+    inputs (dft_butterflies.cuh::dft16_half): on 20000 seeded inputs whose
+    entries 8..15 are zero it gives the full radix-16 DFT's values (built
+    with g++), so _chirp_reference, which sums the zeros, stays its
+    arithmetic."""
+    compiler = shutil.which("g++") or shutil.which("c++")
+    assert compiler, "no C++ compiler"
+    (tmp_path / "half.cpp").write_text(BUTTERFLIES_MAIN)
+    subprocess.run([compiler, "-std=c++17", "-O1", f"-I{_build.CSRC}", "-o",
+                    str(tmp_path / "half"), str(tmp_path / "half.cpp")], check=True)
+    out = subprocess.run([str(tmp_path / "half")], capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["0"]
 
 
 PADS_MAIN = r"""
@@ -120,11 +221,12 @@ def test_compiled_plans_go_into_the_builds_that_run_them():
     thresholds = [int(v) for v in re.findall(r"odd <= (\d+)", chain)]
     builds = sorted({odd for odd, _ in _build.VARIANTS["dft_mixed"]})
     assert thresholds == builds[:-1] and chain.endswith(f": {builds[-1]}")
-    for radices in _compiled():
+    for radices in _compiled() + [row["radix"] for row in _block_compiled()]:
         odd = max(r for r in (1, *radices) if r % 2)
         want = next(b for b in builds if b >= odd)
         for dtype in (torch.float32, torch.int16, torch.uint8):
             assert _build_variant("mixed", int(np.prod(radices)), dtype)[0] == want
+    assert "if (build_of(1) != ORCAI_ODD) return -1;" in SOURCE
 
 
 @pytest.mark.parametrize("n_fft", [384, 352, 1216])
@@ -242,19 +344,26 @@ def test_b1_tools_cover_the_mixed_route_and_stop_without_a_card():
             tool.main(argv)
 
 
-@pytest.mark.parametrize("probe", [0, 1, 2])
+@pytest.mark.parametrize("probe", [0, 1, 2, 3, 4])
 def test_probe_copies_edit_the_source_once(probe):
     """tools/probe_mixed.py builds its own copies of csrc/dft_mixed.cu: each
-    probe's edits (none; no passes; no row stores) find their text once in
-    both the compiled and the warp layout, --compile adds a plan to the
-    copy's table and nothing else, and the shipped source keeps no probe."""
-    from orcai_tpu_torch.tools.probe_mixed import EDITS, probe_source
+    probe's edits (none; no passes; no row stores; no table loads; no
+    second FFT) find their text once in each layout they reach (the
+    compiled, the warp and block layouts' shared code, the compiled block
+    layout; the chirp mode's tables and second FFT on both block kernels),
+    --compile adds a plan to the copy's table and nothing else, and the
+    shipped source keeps no probe."""
+    from orcai_tpu_torch.tools.probe_mixed import EDITS, PROBES, probe_source
 
     copy = probe_source(probe, (512,))
     assert _compiled(copy) == [(8, 8, 8), *_compiled()]
-    assert len(EDITS.get(probe, ())) == (0 if probe == 0 else 2)
+    assert len(EDITS.get(probe, ())) == {0: 0, 1: 3, 2: 2, 3: 8, 4: 2}[probe]
+    assert set(PROBES) == {0, 1, 2, 3, 4}
     for old, new in EDITS.get(probe, ()):
         assert SOURCE.count(old) == 1 and new in copy and copy.count(old) == new.count(old)
     if probe == 0:
         assert copy.replace("    {3, {8, 8, 8}},  // 512, probe_mixed\n", "") == SOURCE
+        shaped = probe_source(0, (), {(8192, True): (256, 1)})  # --block-shapes 8192c:256:1
+        assert [row["threads"] for row in _block_compiled(shaped)] == [256, 256, 512, 256]
+        assert shaped.replace("{0, 0, 0, 0}, 1, 256, 1}", "{0, 0, 0, 0}, 1, 512, 1}") == SOURCE
     assert "PROBE" not in SOURCE
