@@ -15,11 +15,16 @@ the run on any error:
            on a ragged and an unaligned one, f32 and int16, atol 2e-4; B2
            digit_histograms at all three digit levels on 38.5 M magnitudes,
            on an offset view and with ragged valid counts, bit-exact; the
-           pick kernel bit-equal on the three levels and an edge set;
-           select_order_statistics bit-equal to a sort) and times kernel,
-           plain version and a library call (the selection is three B2
-           sweeps and three picks, no kernel of its own: it prints on a
-           line of its own, not as a kernel); B1 and B2 again at the
+           pick kernel on int64 counts bit-equal on the three levels and an
+           edge set, past 2^31 too, and to the host pick;
+           select_levels (the selection's one launch: each level's sweep
+           with the pick as its tail) bit-equal to its plain version at
+           all three levels;
+           select_order_statistics bit-equal to a sort, on device tensors
+           and on host integers) and times kernel,
+           plain version and a library call (the selection is a zeroing
+           and one select_levels launch, no kernel of its own: it
+           prints on a line of its own, not as a kernel); B1 and B2 again at the
            streaming path's shapes (B1 on the 188784-frame normalize tile
            and the 262144-frame stats tile in int16, B2 on a stats tile's
            44.8 M values with a ragged valid count, all three levels)
@@ -37,7 +42,9 @@ the run on any error:
            `predict`: the 20-minute recording with
            ORCAI_TPU_STREAM_SPEC_BYTES=1, the audio resident and host-sliced
            (TSV byte-equal to the in-memory one, aggregate within 1e-5,
-           counts equal, B1 = 5 and B2 = 3 launches), the golden wav at the
+           counts equal, B1 = 5, B2 = 3 and pick 3 launches; every resident
+           pass 1 runs under torch.cuda.set_sync_debug_mode("error"): no
+           host sync between its levels), the golden wav at the
            default tiles (byte-equal TSV), then a 4 h 40 min recording (the
            20-minute PCM 14 times over, each repeat at its own gain) that
            streams at the default budgets, resident and host-sliced: equal
@@ -59,7 +66,7 @@ the run on any error:
            epoch 2 and started again against the uninterrupted history;
            the resident and the streaming runner over one epoch from the
            same state; `predict` on the golden wav with the trained model
-           (B1 1, B2 3, pick 3 launches); one step from the bundled weights
+           (B1 1, select_levels 1 launch); one step from the bundled weights
            at dropout 0 on the card and on the CPU (loss and gradients);
            step time, epoch walls, peak device memory
   test_model  `test_model` on that directory: four CSVs and the metrics
@@ -73,7 +80,7 @@ the run on any error:
            not possible; the default parameter file with n_batch
            train/val/test cut from 3750/375/375 to 8/2/2 at batch 64):
            create-recording-table, create-spectrograms on cuda, its report's
-           stage walls (B1 7, B2 3, pick 3 launches per annotated recording; each
+           stage walls (B1 7, select_levels 1 launch per annotated recording; each
            store bit-equal to the frontend run in this process and within
            2e-4 of its plain versions on the card), create-label-arrays
            ((frames, 7), masked columns at MASK_VALUE), create-snippet-table,
@@ -133,21 +140,21 @@ the run on any error:
            torch.stft and the GEMM kernel called directly at the same n_fft
            (on a 301-frame tile above 8192), timed side by side; `predict`
            on golden through mulaw8, bfp6, bfp5, sp-bfp6, sp-bfp5 and
-           sp11-bfp5, each inside the reference's golden bar (B1 1, B2 3,
-           pick 3 launches on the wire's
+           sp11-bfp5, each inside the reference's golden bar (B1 1,
+           select_levels 1 launch on the wire's
            route: the spectral wires on the mixed route); create-spectrograms
            through the CLI on a one-minute project at nfft 416, 1216 and
            1856 (B1 1 on the mixed route), 2038 and 16418 (the chirp route
            on the block and the cluster layout), 16384 (the cluster route),
-           40962 and 131072 (the staged route's two modes), B2 3, pick 3;
+           40962 and 131072 (the staged route's two modes), select_levels 1;
            the store against the CPU path within 2e-4 (at 131072, whose
            plain tables are 68.7 GB, bit-equal to the frontend on cuda);
            the 20-minute recording in memory on exact, mulaw8, bfp5
-           and sp-bfp5 (7 / 3 / 3 launches, the spectrogram within 2e-4 of the
+           and sp-bfp5 (B1 7, select_levels 1, the spectrogram within 2e-4 of the
            port's CPU path on the same wire, the frontend's wall, device copy
            and kernel time, host encode or resample time and bytes uploaded);
-           streamed on mulaw8 and sp-bfp5, resident and host-sliced (5 / 3
-           launches, the two TSVs byte-equal, the aggregate held to the
+           streamed on mulaw8 and sp-bfp5, resident and host-sliced (B1 5,
+           B2 3, pick 3, the two TSVs byte-equal, the aggregate held to the
            in-memory one of the same wire); the host C codecs loaded
 
   hpsearch  Hyperband (train/hpsearch.py) over default_hps_parameter.json at
@@ -159,17 +166,18 @@ the run on any error:
            carrying weights; each trial's epoch walls and peak device memory;
            the same call again, every trial CACHED and the outputs equal but
            the status column; golden through the best model's directory (B1
-           1, B2 3, pick 3 launches)
+           1, select_levels 1 launch)
   first_epoch  where a first epoch's extra wall goes
            (tools/profile_first_epoch.py): in this process, a shape of the
            search space that no trial ran, the same shape in a fresh model,
            and a second new shape under torch.profiler, each trained two
            resident epochs with build, move, init, the first step's stages,
            the other steps and the evaluation timed and the allocator's
-           counters read; then orcai-v1's width in three fresh processes that
-           trained nothing before (as it is, with the weight initialiser's
-           and Adam's first calls timed apart, and after predicting the
-           20-minute recording)
+           counters read; then orcai-v1's width in two fresh processes that
+           trained nothing before (as it is, and after predicting the
+           20-minute recording; the weight initialiser's and Adam's first
+           calls timed apart are tools/profile_first_epoch.py
+           --first_calls' to run on its own)
   bf16     predict with ORCAI_TPU_PREDICT_DTYPE=bf16: golden in memory and
            streamed byte-equal to golden_expected.txt (1 / 3 / 3 and 4 / 3
            launches), the 20-minute cell's warm wall beside float32's and
@@ -511,10 +519,14 @@ def _streaming_shape_checks(torch, rng, dev, window) -> tuple[dict, dict]:
 
 
 def _pick_checks(torch, dev, level_hists, level_ranks, level_prefixes) -> float:
-    """The pick kernel bit-equal to its plain version (`_pick` and the
-    shifts around it) on the selection's three real histograms and on an
-    edge set; returns the largest difference seen (0.0)."""
+    """The pick kernel on int64 counts (the streaming path's) bit-equal to
+    its plain version (`_pick` and the shifts around it) and to the host
+    pick (ops/streaming.py::pick_int64) on the selection's three real
+    histograms and on an edge set (past 2^31 in the last cases), with the
+    ranks on the card and on the host; returns the largest difference seen
+    (0.0)."""
     from orcai_tpu_torch.ops.radix_select import _LEVELS, radix_pick, radix_pick_plain
+    from orcai_tpu_torch.ops.streaming import pick_int64
 
     cases = []
     for level, (_, bits, pshift) in enumerate(_LEVELS):
@@ -527,23 +539,61 @@ def _pick_checks(torch, dev, level_hists, level_ranks, level_prefixes) -> float:
     some = torch.tensor([3, 0x1FFFFF], dtype=torch.int32, device=dev)
     one_bin = torch.zeros((2, 1024), dtype=torch.int32, device=dev)
     one_bin[:, 77] = 2_000_000_000
+    big = torch.zeros((2, 1024), dtype=torch.int64, device=dev)
+    big[:, 77], big[0, 3], big[1, 1000] = 2_000_000_000, 3_000_000_000, 5_000_000_000
     for name, hist, ranks, pref, bits, shared in (
         ("k = 0 and k = n - 1", h, (0, n - 1), zeros, 11, True),
         ("bin boundaries", h, (9, 10), some, 11, True),
         ("an empty target", h, (11, 0), zeros, 11, False),
         ("one bin holds everything", one_bin, (0, 1_999_999_999), some, 10, False),
+        ("int64 counts past 2^31", big, (2_999_999_999, 6_999_999_999), some, 10, False),
+        ("int64 ranks past 2^31", big, (3_000_000_000, 2_000_000_000), some, 10, False),
     ):
         cases.append((name, hist, torch.tensor(ranks, dtype=torch.int64, device=dev),
                       pref, bits, shared))
     worst = 0.0
     for name, hist, ranks, pref, bits, shared in cases:
-        got = radix_pick(hist, ranks, pref, bits, shared)
-        want = radix_pick_plain(hist, ranks, pref, bits, shared)
+        counts, host = hist.to(torch.int64), hist.cpu().numpy()
+        for r in (ranks, ranks.cpu()):
+            got = radix_pick(counts, r, pref, bits, shared)
+            want = radix_pick_plain(counts, ranks, pref, bits, shared)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                worst = max(worst, float((g.double() - w.double()).abs().max()))
+                if not (g.dtype == w.dtype and torch.equal(g, w)):
+                    raise AssertionError(f"pick kernel != plain on {name} (ranks on "
+                                         f"{r.device}): {g.tolist()} vs {w.tolist()}")
+            for t in range(2):
+                b, left = pick_int64(host[0 if shared else t], int(ranks[t]))
+                if ((int(pref[t]) << bits | b) & 0xFFFFFFFF != int(got[0][t]) & 0xFFFFFFFF
+                        or left != int(got[1][t])):
+                    raise AssertionError(f"pick kernel != pick_int64 on {name}, target {t}")
+    return worst
+
+
+def _level_checks(torch, flat, n_valid: int, k_lo: int, k_hi: int) -> float:
+    """select_levels, the selection's one launch, bit-equal at every level
+    to select_levels_plain (the counts, the prefixes and the ranks inside;
+    the last prefixes are the float32 results), with n_valid and the ranks
+    as device tensors and as host integers; returns the largest difference
+    seen (0.0)."""
+    from orcai_tpu_torch.ops.radix_select import select_levels, select_levels_plain
+
+    dev = flat.device
+    want = select_levels_plain(flat, n_valid, k_lo, k_hi)
+    tensors = (torch.tensor([n_valid], dtype=torch.int32, device=dev),
+               torch.tensor([k_lo], device=dev), torch.tensor([k_hi], device=dev))
+    worst = 0.0
+    for args in (tensors, (n_valid, k_lo, k_hi)):
+        got = select_levels(flat, *args)
         torch.cuda.synchronize()
-        for g, w in zip(got, want):
-            worst = max(worst, float((g.double() - w.double()).abs().max()))
-            if not (g.dtype == w.dtype and torch.equal(g, w)):
-                raise AssertionError(f"pick kernel != plain on {name}: {g.tolist()} vs {w.tolist()}")
+        for what, gs, ws in zip(("counts", "prefixes", "ranks"), got, want):
+            for level, (g, w) in enumerate(zip(gs, ws)):
+                worst = max(worst, float((g.double() - w.double()).abs().max()))
+                if not (g.dtype == w.dtype and torch.equal(g, w)):
+                    raise AssertionError(f"select_levels level {level}: {what} != plain")
+        if not torch.equal(got[1][-1].view(torch.float32), want[1][-1].view(torch.float32)):
+            raise AssertionError("select_levels: results != plain")
     return worst
 
 
@@ -556,11 +606,15 @@ def phase_kernels(torch, seed: int) -> tuple[dict, dict, dict]:
     from orcai_tpu_torch.ops.radix_select import (
         _LEVELS,
         _launch_pick,
+        _rank_args,
         digit_histograms,
         digit_histograms_plain,
         radix_pick,
         radix_pick_plain,
         select_order_statistics,
+        select_levels,
+        select_levels_plain,
+        select_order_statistics_at,
         select_order_statistics_plain,
     )
     from orcai_tpu_torch.tools.synthetic import synth_magnitudes
@@ -613,6 +667,10 @@ def phase_kernels(torch, seed: int) -> tuple[dict, dict, dict]:
     lo_p, hi_p = select_order_statistics_plain(flat, nv, k_lo, k_hi)
     if not (torch.equal(lo, lo_p) and torch.equal(hi, hi_p)):
         raise AssertionError(f"selection {lo.item()}, {hi.item()} != sort {lo_p.item()}, {hi_p.item()}")
+    # the form ops/frontend.py::finalize calls: host integers as values
+    lo_at, hi_at = select_order_statistics_at(flat, n_valid_elems, int(k_lo), int(k_hi))
+    if not (torch.equal(lo_at, lo_p) and torch.equal(hi_at, hi_p)):
+        raise AssertionError(f"selection on host integers {lo_at.item()}, {hi_at.item()} != sort")
     # the three digit levels, with the prefixes and ranks the selection
     # walks through (taken from the plain versions)
     b2_err = stream_errs["b2_stats_tile"]
@@ -642,6 +700,7 @@ def phase_kernels(torch, seed: int) -> tuple[dict, dict, dict]:
                 raise AssertionError(
                     f"B2 offset {offset}, n_valid {count}, shift {shift}: kernel != plain")
     pick_err = _pick_checks(torch, dev, level_hists, level_ranks, level_prefixes)
+    level_err = _level_checks(torch, flat, n_valid_elems, int(k_lo), int(k_hi))
 
     zeros2 = torch.zeros(2, dtype=torch.int32, device=dev)
     b2_bound, b2_by = bound(n_valid_elems * 4 + 2 * 2048 * 4, 0.0)
@@ -661,74 +720,114 @@ def phase_kernels(torch, seed: int) -> tuple[dict, dict, dict]:
                  f"count inside a streaming stats tile of {STATS_TILE * 171} values",
         **{k[3:]: v for k, v in stream_extra.items() if k.startswith("b2_")},
     }
-    pick_bound, pick_by = bound(2 * 2048 * 4 + 2 * (8 + 4) * 2, 0.0)
-    pick_args = (level_hists[1], level_ranks[1], level_prefixes[1], 11, False)
-    # the launch alone on preallocated state, as the selection launches it;
-    # the ranks it reads stay the level's own from one launch to the next
-    p_state, k_out = level_prefixes[1].clone(), torch.empty_like(level_ranks[1])
-    k_ptr = level_ranks[1].data_ptr()
+    # the pick as the streaming path runs it: int64 counts, the ranks on the
+    # card after its first level
+    pick_bound, pick_by = bound(2 * 2048 * 8 + 2 * (8 + 4) * 2, 0.0)
+    hist64 = level_hists[1].to(torch.int64)
+    pick_args = (hist64, level_ranks[1], level_prefixes[1], 11, False)
+    # the launch alone on preallocated state, as the streaming path launches
+    # it; the ranks it reads stay the level's own from one launch to the next
+    p_out, k_out = torch.empty_like(level_prefixes[1]), torch.empty_like(level_ranks[1])
+    rank_ptrs = _rank_args("radix_pick", level_ranks[1], hist64.device)
 
     def pick_launch():
-        _launch_pick(dev, level_hists[1].data_ptr(), 11, False, k_ptr, k_ptr + 8,
-                     p_state.data_ptr(), k_out.data_ptr(), None)
+        _launch_pick(dev, hist64.data_ptr(), 11, False, rank_ptrs,
+                     level_prefixes[1].data_ptr(), p_out.data_ptr(), k_out.data_ptr())
     pick = {
         "name": "radix_pick", "route": "cuda",
         "source": "orcai_tpu_torch/csrc/digit_hist.cu",
         "replaces": "orcai_tpu/ops/pallas_hist.py:170",
         "replaces_note": "_pick, a plain-jnp helper of select_order_statistics "
-                         "(no pallas_call of its own), with the shifts around it",
+                         "(no pallas_call of its own), with the shifts around it; the "
+                         "streaming path's pick on int64 counts (the JAX package's "
+                         "orcai_tpu/ops/streaming.py picks there on the host)",
         "max_abs_err": pick_err,
         "ms": cuda_ms(lambda: radix_pick(*pick_args)),
         "ms_launch_only": cuda_ms(pick_launch, iters=50),
         "plain_ms": cuda_ms(lambda: radix_pick_plain(*pick_args)),
         "bound_ms": pick_bound, "bound_by": pick_by, "library_ms": None,
-        "shape": "(2, 2048) int32 counts, two targets; ms: the public wrapper, "
+        "shape": "(2, 2048) int64 counts, two targets; ms: the public wrapper, "
                  "with its two small allocations, ms_launch_only: the launch "
-                 "alone as the selection makes it",
+                 "alone as the streaming path makes it",
     }
-    sel_bound, sel_by = bound(3 * n_valid_elems * 4, 0.0)
+    # the selection's one launch: the function's bound reads the valid values
+    # once, and each level's counts are written and read back once by its
+    # last block; the design's own floor reads the values once a level
+    counts_bytes = 2 * 3 * 2 * 2048 * 4
+    levels_bound, levels_by = bound(n_valid_elems * 4 + counts_bytes, 0.0)
+    ks_host = (n_valid_elems, int(k_lo), int(k_hi))
+    levels = {
+        "name": "select_levels", "route": "cuda",
+        "source": "orcai_tpu_torch/csrc/digit_hist.cu",
+        "replaces": "orcai_tpu/ops/pallas_hist.py:117",
+        "replaces_note": "digit_histograms (pallas_call :142) three times, each level with "
+                         "its _pick (:170) as the sweep's tail, in one cooperative launch: "
+                         "select_order_statistics (:178) but its zeroing",
+        "max_abs_err": level_err,
+        "ms": cuda_ms(lambda: select_levels(flat, *ks_host)),
+        "plain_ms": cuda_ms(lambda: select_levels_plain(flat, *ks_host)),
+        "bound_ms": levels_bound, "bound_by": levels_by,
+        "bound_ms_design_floor": bound(3 * n_valid_elems * 4 + counts_bytes, 0.0)[0],
+        "library_ms": None,
+        "shape": f"{n_valid_elems} valid of {n_total}, n_valid and the ranks as host "
+                 "integers; ms: the wrapper, its zeroing and its launch; bound_ms: one "
+                 "read of the values and the counts; bound_ms_design_floor: a read of "
+                 "the values a level",
+    }
+    # one read of the valid magnitudes; the design's own floor reads them
+    # once a level
+    sel_bound, sel_by = bound(n_valid_elems * 4, 0.0)
     valid = flat[:n_valid_elems]
     ks = (int(k_lo) + 1, int(k_hi) + 1)
     sel = {
-        "name": "select_order_statistics", "route": "B2 + pick kernel",
+        "name": "select_order_statistics", "route": "1 zeroing + 1 select_levels launch",
         "source": "orcai_tpu_torch/ops/radix_select.py",
         "replaces": "orcai_tpu/ops/pallas_hist.py:178",
         "max_abs_err": float(torch.cat([lo - lo_p, hi - hi_p]).abs().max()),
         "ms_runs": [cuda_ms(lambda: select_order_statistics(flat, nv, k_lo, k_hi))
                     for _ in range(3)],
+        "ms_host_ints": cuda_ms(lambda: select_order_statistics_at(
+            flat, n_valid_elems, ks[0] - 1, ks[1] - 1)),
         "plain_ms": cuda_ms(lambda: select_order_statistics_plain(flat, nv, k_lo, k_hi)),
         "bound_ms": sel_bound, "bound_by": sel_by,
+        "bound_ms_design_floor": bound(3 * n_valid_elems * 4, 0.0)[0],
         # two kthvalue calls, one per order statistic
         "library_ms": cuda_ms(lambda: (
             torch.kthvalue(valid, ks[0]), torch.kthvalue(valid, ks[1])), iters=2, warmup=1),
-        "shape": f"{n_valid_elems} valid magnitudes: 1 memset, 3 sweeps of B2, 3 picks",
+        "shape": f"{n_valid_elems} valid magnitudes: 1 zeroing, 1 select_levels launch "
+                 "(ms_host_ints: select_order_statistics_at, as finalize calls it); "
+                 "bound_ms_design_floor: the design's own floor, a read a level",
     }
     sel["ms"] = statistics.median(sel["ms_runs"])
     line = {"phase": "kernels", "b1_max_abs_err": errs,
             "b1_max_abs_err_vs_float64": b1_in["vs64"],
             "b2_levels_bit_exact": True, "b2_unaligned_and_ragged_bit_exact": True,
             "b2_stats_tile_levels_bit_exact": True,
-            "pick_bit_equal_plain": True, "selection_bit_equal_sort": True}
-    return line, {r["name"]: r for r in (b1, b2, pick)}, sel
+            "pick_bit_equal_plain": True, "pick_int64_bit_equal_host_pick": True,
+            "select_levels_bit_equal_plain": True, "selection_bit_equal_sort": True}
+    return line, {r["name"]: r for r in (b1, b2, levels, pick)}, sel
 
 
 def _counters():
     from orcai_tpu_torch.ops.dft import dft_magnitude
-    from orcai_tpu_torch.ops.radix_select import digit_histograms, radix_pick
+    from orcai_tpu_torch.ops.radix_select import digit_histograms, radix_pick, select_levels
 
-    return (dft_magnitude, digit_histograms, radix_pick)
+    return (dft_magnitude, digit_histograms, radix_pick, select_levels)
 
 
-def check_counts(counts: dict, b1: int, where: str, b2: int = 3, pick: int = 3,
-                 route: str = "fft") -> None:
-    """In memory: one B1 launch per real tile, three sweeps and three picks.
-    Streaming: B1 three times per stats tile and once per chunk, B2 three
-    times per stats tile, and the pick on the host from int64 counts. Every
+def check_counts(counts: dict, b1: int, where: str, selections: int = 1, b2: int = 0,
+                 pick: int = 0, route: str = "fft") -> None:
+    """In memory: one B1 launch per real tile and one select_levels launch
+    a selection (its three levels, each a B2 sweep with the pick as its
+    tail), no sweep or pick launch of their own. Streaming: B1 three times
+    per stats tile and once per chunk, B2 three times per stats tile, and
+    the pick three times, on the card from int64 counts. Every
     B1 launch takes `route` (ops/dft.py::dft_route: the FFT at n_fft 512, the
     mixed-radix FFT at the spectral wires' 384 and 352 and at 416, 1216 and
     1856, the cluster layout at 16384, the chirp mode at 2038 and 16418, the
     staged route at 40962 and 131072, the point kernel at n_fft 1)."""
     want = {"dft_magnitude": b1, "digit_histograms": b2, "radix_pick": pick,
+            "select_levels": selections,
             "b1_routes": {r: b1 if r == route else 0 for r in counts["b1_routes"]}}
     if counts != want:
         raise AssertionError(f"kernel launches on the {where} path {counts}, expected {want}")
@@ -751,6 +850,7 @@ def read_counts(total: dict | None = None) -> dict:
     if total is not None:
         per = {"digit_histograms": counts["digit_histograms"],
                "radix_pick": counts["radix_pick"],
+               "select_levels": counts["select_levels"],
                **{f"dft_magnitude_{r}": n for r, n in routes.items()}}
         for name, n in per.items():
             total[name] = total.get(name, 0) + n
@@ -920,18 +1020,61 @@ def kept_aggregates():
         StreamingPredictor.aggregate = real
 
 
+@contextlib.contextmanager
+def sync_free_pass1(torch, on: bool):
+    """Within the block, when `on`, every StreamingPredictor._select_percentiles
+    (pass 1: its three levels, each level's picks on the card) runs under
+    torch.cuda.set_sync_debug_mode("error"), so that a host sync inside it
+    (a fetch, an upload from pageable memory, an .item()) fails the run;
+    yields the list of the passes so run, each as whether its audio was
+    resident."""
+    from orcai_tpu_torch.ops.streaming import StreamingPredictor
+
+    runs, real = [], StreamingPredictor._select_percentiles
+
+    def guarded(self, source, n_frames):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            stats = real(self, source, n_frames)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        runs.append(source.resident)
+        return stats
+
+    if on:
+        StreamingPredictor._select_percentiles = guarded
+    try:
+        yield runs
+    finally:
+        StreamingPredictor._select_percentiles = real
+
+
+def check_sync_guard(torch) -> None:
+    """The guard of sync_free_pass1 raises on a fetch on this machine."""
+    x = torch.zeros(1, device="cuda")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x.item()
+    except RuntimeError:
+        return
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    raise AssertionError("set_sync_debug_mode('error') let a fetch through")
+
+
 def _streamed_predict(torch, wav, out, predictor, total, where, b1, b2, wire=None,
-                      route="fft", **env) -> dict:
+                      route="fft", sync_free=False, **env) -> dict:
     """One `predict` on `wire` that must take the streaming path, with the
     environment given; returns its wall, peak memory, launches and
-    (aggregated, overlap counts)."""
+    (aggregated, overlap counts). With sync_free, its pass 1 must run with
+    the audio resident and no host sync (sync_free_pass1)."""
     from orcai_tpu_torch.pipeline.predict import predict
 
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    with environ(**env), kept_aggregates() as kept:
+    with environ(**env), kept_aggregates() as kept, sync_free_pass1(torch, sync_free) as guarded:
         t0 = time.perf_counter()
         predict(wav, output_path=out, overwrite=True, predictor=predictor, wire=wire)
         torch.cuda.synchronize()
@@ -939,9 +1082,12 @@ def _streamed_predict(torch, wav, out, predictor, total, where, b1, b2, wire=Non
     counts = read_counts(total)
     if len(kept) != 1:
         raise AssertionError(f"{where}: predict did not take the streaming path")
-    check_counts(counts, b1, where, b2=b2, pick=0, route=route)
+    if sync_free and guarded != [True]:
+        raise AssertionError(f"{where}: pass 1 did not run resident under the sync guard")
+    check_counts(counts, b1, where, selections=0, b2=b2, pick=3, route=route)
     return {"wall_s": wall, "peak_device_bytes": torch.cuda.max_memory_allocated(),
-            "device_bytes_before": base, "launches": counts, "result": kept[0]}
+            "device_bytes_before": base, "launches": counts, "result": kept[0],
+            **({"pass1_sync_free": True} if sync_free else {})}
 
 
 def streaming_launches(n_samples: int, predictor, hop: int) -> tuple[int, int]:
@@ -967,11 +1113,13 @@ def phase_streaming(torch, tmp: Path, seed: int, state: dict, total: dict) -> di
     # are 1 stats tile and 610 windows 2 chunks, so B1 = 5 and B2 = 3
     tsv = state["tsv"].read_bytes()
     b1_20, b2_20 = streaming_launches(state["n_samples"], predictor, sp["n_overlap"])
+    check_sync_guard(torch)
+    line["sync_guard_raises_on_a_fetch"] = True
     for name, env in (("resident", {}), ("host_sliced", {"ORCAI_TPU_HBM_AUDIO_BYTES": 0})):
         out = tmp / f"stream20_{name}.txt"
         run = _streamed_predict(torch, state["wav"], out, predictor, total,
                                 f"20-minute streaming ({name})", b1_20, b2_20,
-                                ORCAI_TPU_STREAM_SPEC_BYTES=1, **env)
+                                sync_free=not env, ORCAI_TPU_STREAM_SPEC_BYTES=1, **env)
         agg, cnt = run.pop("result")
         if out.read_bytes() != tsv:
             raise AssertionError(f"20-minute streaming ({name}): TSV differs from in-memory")
@@ -991,7 +1139,7 @@ def phase_streaming(torch, tmp: Path, seed: int, state: dict, total: dict) -> di
     run = _streamed_predict(torch, FIXTURES / "golden.wav", out, predictor, total,
                             "golden streaming",
                             *streaming_launches(2_880_000, predictor, sp["n_overlap"]),
-                            ORCAI_TPU_STREAM_SPEC_BYTES=1)
+                            sync_free=True, ORCAI_TPU_STREAM_SPEC_BYTES=1)
     run.pop("result")
     if out.read_bytes() != (FIXTURES / "golden_expected.txt").read_bytes():
         raise AssertionError("golden streaming: TSV differs from golden_expected.txt")
@@ -1014,7 +1162,8 @@ def phase_streaming(torch, tmp: Path, seed: int, state: dict, total: dict) -> di
     for name, env in (("resident", {}), ("host_sliced", {"ORCAI_TPU_HBM_AUDIO_BYTES": 0})):
         outs[name] = tmp / f"long_{name}.txt"
         run = _streamed_predict(torch, long_wav, outs[name], predictor, total,
-                                f"long streaming ({name})", b1_long, b2_long, **env)
+                                f"long streaming ({name})", b1_long, b2_long,
+                                sync_free=not env, **env)
         agg, cnt = run.pop("result")
         if agg.shape != (n_frames // predictor.down, predictor.n_labels(n_bins)):
             raise AssertionError(f"long streaming ({name}): aggregated shape {agg.shape}")
@@ -1073,7 +1222,7 @@ def phase_table_serve(torch, tmp: Path, state: dict, total: dict) -> dict:
     torch.cuda.synchronize()
     table_wall = time.perf_counter() - t0
     table_counts = read_counts(total)
-    check_counts(table_counts, 1 + 7, "table", b2=6, pick=6)
+    check_counts(table_counts, 1 + 7, "table", selections=2)
     want = {"golden": golden_tsv, "synthetic_20min": full_tsv}
     if [p.name for p in saved] != [f"{r}_orcai-v1_predicted.txt" for r in want]:
         raise AssertionError(f"table: saved {[p.name for p in saved]}")
@@ -1097,7 +1246,7 @@ def phase_table_serve(torch, tmp: Path, state: dict, total: dict) -> dict:
     torch.cuda.synchronize()
     serve_wall = time.perf_counter() - t0
     serve_counts = read_counts(total)
-    check_counts(serve_counts, 1 + 7, "serve", b2=6, pick=6)
+    check_counts(serve_counts, 1 + 7, "serve", selections=2)
     if n != 2 or list(serve_out.glob("*.failed")):
         raise AssertionError(f"serve: processed {n} files, markers "
                              f"{[p.name for p in serve_out.glob('*.failed')]}")
@@ -1467,6 +1616,11 @@ def phase_data_prep(torch, tmp: Path, seed: int, total: dict) -> dict:
     from orcai_tpu_torch.train.trainer import train
     from orcai_tpu_torch.utils.seeds import MASK_VALUE
 
+    def plain_selection_at(flat, n_valid, k_lo, k_hi):
+        """select_order_statistics_plain on finalize's host integers."""
+        return select_order_statistics_plain(
+            flat, torch.tensor([n_valid]), torch.tensor([k_lo]), torch.tensor([k_hi]))
+
     root = tmp / "data_prep"
     walls = {}
     t0 = time.perf_counter()
@@ -1513,8 +1667,7 @@ def phase_data_prep(torch, tmp: Path, seed: int, total: dict) -> dict:
     counts = read_counts(total)
     peak = torch.cuda.max_memory_allocated()
     annotated = [r for r in names if r != unannotated]
-    check_counts(counts, 7 * len(annotated), "data_prep", b2=3 * len(annotated),
-                 pick=3 * len(annotated))
+    check_counts(counts, 7 * len(annotated), "data_prep", selections=len(annotated))
     if report["n_recordings"] != len(annotated) or sorted(
             p.name for p in data_dir.iterdir()) != annotated:
         raise AssertionError(f"spectrograms for {sorted(p.name for p in data_dir.iterdir())}, "
@@ -1531,13 +1684,13 @@ def phase_data_prep(torch, tmp: Path, seed: int, total: dict) -> dict:
         spec, nf, _, _ = frontend.compute_spectrogram_device(audio, *args, device="cuda")
         if not np.array_equal(stored, spec[:nf].cpu().numpy()):
             raise AssertionError(f"{rec}: stored spectrogram differs from the frontend's")
-        kernels = frontend.dft_magnitude, frontend.select_order_statistics
+        kernels = frontend.dft_magnitude, frontend.select_order_statistics_at
         frontend.dft_magnitude = dft_magnitude_plain
-        frontend.select_order_statistics = select_order_statistics_plain
+        frontend.select_order_statistics_at = plain_selection_at
         try:
             plain, _, _, _ = frontend.compute_spectrogram_device(audio, *args, device="cuda")
         finally:
-            frontend.dft_magnitude, frontend.select_order_statistics = kernels
+            frontend.dft_magnitude, frontend.select_order_statistics_at = kernels
         plain_err = max(plain_err, float(np.abs(plain[:nf].cpu().numpy() - stored).max()))
         times = read_json(data_dir / rec / "spectrogram" / "times.json")
         if times["length"] != nf or stored.shape != (nf, 171):
@@ -2288,7 +2441,7 @@ def _point_route_path(torch, rng, total: dict) -> dict:
         got = dft_magnitude(x, window, n_fft=1, hop=1)
         torch.cuda.synchronize()
         counts = read_counts(total)
-        check_counts(counts, 1, f"the point route at n_fft 1 ({kind})", b2=0, pick=0,
+        check_counts(counts, 1, f"the point route at n_fft 1 ({kind})", selections=0,
                      route="point")
         want = dft_magnitude_plain(x, window, n_fft=1, hop=1)
         rec["launches"][kind] = counts["dft_magnitude"]
@@ -2731,10 +2884,11 @@ def phase_first_epoch(torch, state: dict, trained: dict, searched: dict) -> dict
     second new shape (B, under torch.profiler), each built, moved and
     trained two resident epochs with its stages timed. Then the bundled
     model's width in fresh processes that have trained nothing: as it is,
-    with the initialiser's operations called once first, and after a
-    predict of the 20-minute recording (a fresh process under
-    torch.profiler, 44 s of this phase, is tools/profile_first_epoch.py
-    --profile's to run on its own; B is profiled here)."""
+    and after a predict of the 20-minute recording (a fresh process under
+    torch.profiler, 44 s of this phase, and one with the initialiser's
+    operations called once first, about 25 s, are
+    tools/profile_first_epoch.py --profile's and --first_calls' to run on
+    their own; B is profiled here)."""
     import itertools
 
     from orcai_tpu_torch.io.dataset import ArrayDataset
@@ -2766,8 +2920,7 @@ def phase_first_epoch(torch, state: dict, trained: dict, searched: dict) -> dict
                            profile=name == "B")
         line[name] = {"config": cfg, **rec}
     del data
-    for name, extra in (("fresh", ()), ("fresh_first_calls", ("--first_calls",)),
-                        ("after_predict", ("--predict_wav", str(state["wav"])))):
+    for name, extra in (("fresh", ()), ("after_predict", ("--predict_wav", str(state["wav"])))):
         t0 = time.perf_counter()
         line[f"process_{name}"] = _fresh_process_trial(trained["data_dir"], *extra)
         line[f"process_{name}"]["process_wall_s"] = time.perf_counter() - t0
@@ -3687,7 +3840,7 @@ def _two_process_fan_out(torch, tmp: Path, state: dict, data_dir: Path, total: d
                        call_duration_limits=DEFAULT_CALL_DURATION_LIMITS,
                        predictor=state["predictor"])
     torch.cuda.synchronize()
-    check_counts(read_counts(total), 1 + 7, "the one-process table", b2=6, pick=6)
+    check_counts(read_counts(total), 1 + 7, "the one-process table", selections=2)
     hps_param = {**read_json(DEFAULT_ORCAI_PARAMETER), "seed": HPS_SEED}
     args = {"spec_table": str(project / "recording_table.csv"),
             "spec_param": str(project / "param.json"), "spec_out": str(tmp / "par_spec"),
@@ -3896,11 +4049,10 @@ def main(argv=None) -> int:
               "error": f"kernels no path launched: {unlaunched}"})
         return 1
     rows["digit_histograms"]["ms_real"] = real["b2_ms_real"]
-    # not a kernel of its own: the sweeps and picks above, whose main-path
-    # launches it made
-    # (picks run only inside a selection, each beside one of its sweeps; the
-    # streaming path's sweeps are B2's own and its pick is on the host)
-    sel["b2_launches"] = sel["pick_launches"] = total["radix_pick"]
+    # not a kernel of its own: the select_levels launches above, whose
+    # main-path launches it made (the streaming path's sweeps are B2's own
+    # and its picks radix_pick's)
+    sel["select_levels_launches"] = total["select_levels"]
     sel["ms_real"] = real["selection_ms_real"]
     emit({"selection": sel})
     emit({"kernels": list(rows.values())})

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from orcai_tpu_torch.ops.dft import dft_magnitude
-from orcai_tpu_torch.ops.radix_select import select_order_statistics
+from orcai_tpu_torch.ops.radix_select import select_order_statistics_at
 from orcai_tpu_torch.ops.wire_codec import (
     bfp_decode_wire_i16,
     bfp_encode_wire,
@@ -131,15 +131,11 @@ def finalize(
     padding), maxes the per-tile maxima of the full spectrum. Returns the
     normalized (bucket, bins) spectrogram and the dB clip bounds (lo, hi).
     """
-    dev = mag.device
     n_bins = mag.shape[1]
     ref20 = 20.0 * torch.log10(torch.clamp(maxes.max(), min=_AMIN))
-    lo_mag, hi_mag = select_order_statistics(
-        mag.reshape(-1),
-        torch.full((1,), n_frames * n_bins, dtype=torch.int32, device=dev),
-        torch.full((1,), idx_lo, dtype=torch.int64, device=dev),
-        torch.full((1,), idx_hi, dtype=torch.int64, device=dev),
-    )
+    # the count and the ranks are host integers: the kernels take their values
+    lo_mag, hi_mag = select_order_statistics_at(
+        mag.reshape(-1), n_frames * n_bins, idx_lo, idx_hi)
     lo, hi = _db(lo_mag, ref20), _db(hi_mag, ref20)
     # with nearest percentiles the clipped extremes are exactly lo / hi; the
     # final clip keeps float32 rounding inside the [0, 1] contract

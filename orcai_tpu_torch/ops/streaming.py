@@ -13,8 +13,10 @@ pass 1 (stats): the global dB reference (max |S| over the full spectrum)
   through kernel B1 (ops/dft.py::dft_magnitude) and one sweep of kernel B2
   (ops/radix_select.py::digit_histograms); the tiles' int32 counts are
   summed into an int64 accumulator on the device (a day of audio passes
-  2**31 values), fetched once per level, and the digit is picked on the
-  host from the int64 counts (`pick_int64`).
+  2**31 values), and the digit is picked there from the int64 counts
+  (ops/radix_select.py::radix_pick), so the three levels chain on the
+  stream with no fetch between them; `pick_int64` is the same pick on the
+  host, the form the tests hold the device's against.
 
 pass 2 (inference): per chunk of `windows_per_chunk` windows, the audio
   tile goes through B1 again, is normalized with the pass-1 bounds by the
@@ -62,7 +64,7 @@ from orcai_tpu_torch.ops.frontend import (
     hann_window,
     nearest_quantile_index,
 )
-from orcai_tpu_torch.ops.radix_select import _LEVELS, digit_histograms
+from orcai_tpu_torch.ops.radix_select import _LEVELS, digit_histograms, radix_pick
 from orcai_tpu_torch.ops.spectral import ResampledStream, spectral_geometry
 from orcai_tpu_torch.ops.wire_codec import (
     BFP_BLOCK,
@@ -276,21 +278,24 @@ class StreamingPredictor:
 
     def _select_percentiles(
         self, source: _AudioSource, n_frames: int
-    ) -> tuple[torch.Tensor, float, float]:
-        """(ref_mag as a 0-d device tensor, lo_mag, hi_mag): the exact
-        global max and the two order statistics of the cropped magnitudes."""
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(ref_mag, lo_mag, hi_mag), 0-d float32 tensors on the source's
+        device: the exact global max and the two order statistics of the
+        cropped magnitudes. Nothing is fetched: each level's digits are
+        picked on the device from its int64 counts."""
         dev = source.device
         tpad = self.stats_tile_frames
         n_bins = self.hi_idx - self.lo_idx
         tiles = [(t0, min(tpad, n_frames - t0)) for t0 in range(0, n_frames, tpad)]
-        ranks = [
-            nearest_quantile_index(float(q), n_frames * n_bins) for q in self.quantiles
-        ]
-        prefixes = [0, 0]
+        # the ranks stay on the host: radix_pick takes their values
+        ranks = torch.tensor(
+            [nearest_quantile_index(float(q), n_frames * n_bins) for q in self.quantiles],
+            dtype=torch.int64,
+        )
+        prefixes = torch.zeros(2, dtype=torch.int32, device=dev)
         ref = torch.full((), float("-inf"), dtype=torch.float32, device=dev)
         for level, (shift, bits, pshift) in enumerate(_LEVELS):
             acc = torch.zeros((2, 1 << bits), dtype=torch.int64, device=dev)
-            prefixes_dev = torch.tensor(prefixes, dtype=torch.int32, device=dev)
             for t0, n_valid in tiles:
                 mag = self._magnitudes(source, t0, tpad)
                 if level == 0:
@@ -302,33 +307,27 @@ class StreamingPredictor:
                 acc += digit_histograms(
                     flat,
                     torch.full((1,), n_valid * n_bins, dtype=torch.int32, device=dev),
-                    prefixes_dev, shift, bits, pshift,
+                    prefixes, shift, bits, pshift,
                 )
                 del flat
-            hists = acc.cpu().numpy()
-            for t in range(2):
-                b, ranks[t] = pick_int64(hists[0 if pshift is None else t], ranks[t])
-                prefixes[t] = (prefixes[t] << bits) | b
-        lo_mag, hi_mag = (
-            float(np.array(p, dtype=np.uint32).view(np.float32)) for p in prefixes
-        )
+            prefixes, ranks = radix_pick(acc, ranks, prefixes, bits, pshift is None)
+        lo_mag, hi_mag = prefixes.view(torch.float32)
         return ref, lo_mag, hi_mag
 
     # -- pass 2 ------------------------------------------------------------
 
     def _infer(
         self, source: _AudioSource, n_frames: int, ref: torch.Tensor,
-        lo_mag: float, hi_mag: float,
+        lo_mag: torch.Tensor, hi_mag: torch.Tensor,
     ) -> tuple[torch.Tensor, torch.Tensor, int]:
-        """Normalize and run every window chunk; returns the device grids
-        (agg, count) and the number of output rows, without fetching."""
+        """Normalize and run every window chunk with pass 1's device
+        statistics; returns the device grids (agg, count) and the number of
+        output rows, without fetching."""
         wp = self.wp
         # the bounds by the arithmetic of ops/frontend.py::finalize, in
         # float32 on the device, so both paths normalize alike
         ref20 = 20.0 * torch.log10(torch.clamp(ref, min=_AMIN))
-        lo, hi = _db(
-            torch.tensor([lo_mag, hi_mag], dtype=torch.float32, device=wp.device), ref20
-        )
+        lo, hi = _db(torch.stack((lo_mag, hi_mag)), ref20)
         wpc = self.wpc
         n_win = (n_frames - wp.snippet_len) // wp.shift + 1
         n_out_total = n_frames // wp.down
